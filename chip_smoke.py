@@ -11,13 +11,22 @@ JAX package. Phases, each failing loudly:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
    256), in bf16 and f32, with its median time beside its bound;
-4. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
+4. the backward attention kernels against their plain versions and against
+   torch autograd of the plain forward, at the same shapes, in bf16 and f32;
+   bitwise repeatable, finite zeros for an all-masked group;
+5. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
    and the bench model ``SGFormerConfig.large(256, 40, trans_num_layers=1,
    gnn_num_layers=3, graph_weight=0.5, compute_dtype="bf16")`` from a seeded
    generator behind ``Predictor(...).compile()``, answering several requests.
-   The launch counts must show every kernel ran on that path; the logits must
-   be finite, bitwise repeatable, and agree with the same forward run through
-   the plain versions on the card.
+   The launch counts must show every forward kernel ran on that path and no
+   backward kernel; the logits must be finite, bitwise repeatable, and agree
+   with the same forward run through the plain versions on the card;
+6. the training path: the same model behind ``Trainer`` with the JAX bench's
+   ``TrainConfig(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)`` and
+   ``train_idx = arange(0, N, 2)``: one step's loss and gradients against the
+   same step through the plain versions (same weights, same dropout masks),
+   the launches of one step, ``time_test`` over 20 steps (the loss must
+   fall) and a profile of one step.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -51,12 +60,36 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # the reduce's f32 sums over N rows, as a share of their largest magnitude
 REDUCE_REL_TOL = 1e-5
+# the backward kernels' outputs against their plain versions, as a share
+# of each output's largest magnitude: the forward's tolerances (f32: order
+# of the sums only; bf16: one-ulp output rounding), taken relative to the
+# output's scale because the gradients at N = 169,343 are as small as 1e-9
+BWD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # serving path against the plain forward, both bf16 (summation order and
 # one-ulp bf16 roundings propagate through 3 GCN layers and the head)
 LOGITS_ATOL = 5e-2
 ARGMAX_AGREEMENT = 0.99
 # rounds of the five request kinds on the serving path
 REQUEST_ROUNDS = 5
+# one train step through the kernels against the same step through the plain
+# versions, both bf16: summation order and one-ulp roundings differ
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_EPOCHS, TRAIN_WARMUP = 20, 3
+# launches of one train step of the bench model (3 GraphConv layers)
+STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
+                 "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
+                 "linear_attention_bwd_apply": 1}
+# device kernels by group in the profile summary, by a mark in their names
+PROFILE_GROUPS = (
+    ("port kernels", ("la_", "csr_spmm")),
+    ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("reductions", ("reduce_kernel",)),
+    ("dtype copies", ("copy_kernel",)),
+    ("norm kernels", ("layer_norm", "batch_norm")),
+)
+BENCH_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5,
+                    compute_dtype="bf16")
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -99,6 +132,20 @@ def check_close(what: str, got, want, rtol: float, atol: float) -> float:
                              f"over rtol {rtol} / atol {atol}")
     log(f"{what}: max |kernel - plain| = {max_err:.3e} (rtol {rtol}, atol {atol})")
     return max_err
+
+
+def check_rel(what: str, got, want, rel: float) -> float:
+    """max |got - want| <= rel * max |want|, and got finite."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"{what}: max |kernel - plain| = {err:.3e}, {err / max(scale, 1e-30):.2e} of "
+        f"its largest magnitude {scale:.3e} (tolerance {rel})")
+    if not err <= rel * scale:
+        raise AssertionError(f"{what} disagrees with plain")
+    return err
 
 
 def card_line() -> str:
@@ -222,18 +269,106 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                 **TOL[torch.bfloat16])
 
 
+def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
+    from sgformer_tpu_torch.kernels import attention as attn
+    from sgformer_tpu_torch.ops.attention import linear_attention
+
+    m = d = 256
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_t = torch.full((), float(n), device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = DTYPE_NAME[dtype]
+        rel = BWD_REL_TOL[dtype]
+        q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype)
+                      for _ in range(4))
+        kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+        got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
+        # the reduce's sums against the plain version evaluated in f64 on the
+        # same inputs: dinv's two sums can cancel, and an f32 evaluation of
+        # the plain version is then itself off by more than the tolerance
+        exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, kvs, ksum, scal, n_t)),
+                                      False)
+        torch.cuda.synchronize()
+        red_errs = [check_rel(f"bwd_reduce {name} {part} (plain in f64)", a, b, REDUCE_REL_TOL)
+                    for part, a, b in zip(("P", "ds", "dinv", "den, gden"), got_r, exact)]
+        del exact
+        want_r = attn.bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_t, False)
+        again = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
+        if not all(torch.equal(a, b) for a, b in zip(got_r, again)):
+            raise AssertionError("bwd_reduce is not bitwise repeatable")
+
+        # apply alone, on the plain reduce's outputs
+        got_a = attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r)
+        want_a = attn.bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_t, *want_r, False)
+        torch.cuda.synchronize()
+        app_errs = [check_rel(f"bwd_apply {name} {part}", a, b, rel)
+                    for part, a, b in zip(("dq", "dk", "dv"), got_a, want_a)]
+        again = attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r)
+        if not all(torch.equal(a, b) for a, b in zip(got_a, again)):
+            raise AssertionError("bwd_apply is not bitwise repeatable")
+        # with n = 1 and positive inputs the attention products, not n * gd,
+        # carry the gradients
+        qp, kp, vp = (torch.rand(n, m, generator=gen, device=dev).to(dtype)
+                      for _ in range(3))
+        one = torch.ones((), device=dev)
+        sums_p = attn.reduce_plain(qp, kp, vp, False)
+        red_p = attn.bwd_reduce_plain(qp, vp, g, *sums_p, one, False)
+        for part, a, b in zip(("dq", "dk", "dv"),
+                              attn.bwd_apply(qp, kp, vp, g, *sums_p, one, *red_p),
+                              attn.bwd_apply_plain(qp, kp, vp, g, *sums_p, one, *red_p, False)):
+            check_rel(f"bwd_apply {name} (n = 1) {part}", a, b, rel)
+
+        # the whole autograd Function against torch autograd of the plain
+        # forward, on the same inputs
+        qs, ks, vs = (t[:, None].clone().requires_grad_() for t in (q, k, v))
+        got_g = torch.autograd.grad(attn.fused_linear_attention(qs, ks, vs), (qs, ks, vs),
+                                    g[:, None])
+        want_g = torch.autograd.grad(linear_attention(qs, ks, vs), (qs, ks, vs), g[:, None])
+        for part, a, b in zip(("dq", "dk", "dv"), got_g, want_g):
+            check_rel(f"attention gradient {name} {part} vs autograd of the plain forward",
+                      a, b, rel)
+
+        r_ms = time_ms(lambda: attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t))
+        r_plain = time_ms(lambda: attn.bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_t, False))
+        a_ms = time_ms(lambda: attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r))
+        a_plain = time_ms(lambda: attn.bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_t,
+                                                       *want_r, False))
+        elt = q.element_size()
+        small = (2 * m * d + 2 * m + 6) * 4  # kvs or P, ksum or ds, scalars
+        # reduce: q @ kvs and q^T gd; reads q, v, g, writes P, ds, dinv, den, gden
+        rb_ms, rb_by = bound(3 * n * m * elt + small + 2 * n * 4,
+                             4 * n * m * d + 6 * n * d + 2 * n * m, dtype)
+        # apply: gd @ kvs^T, v @ P^T, k @ P; reads q, k, v, g, den, gden,
+        # writes dq, dk, dv
+        ab_ms, ab_by = bound(7 * n * m * elt + 2 * small + 2 * n * 4,
+                             6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
+        log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, bound "
+            f"{rb_ms:.4f} ms by {rb_by}); bwd_apply {name}: {a_ms:.4f} ms (plain "
+            f"{a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
+        results[("linear_attention_bwd_reduce", name)] = dict(
+            max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
+            bound_by=rb_by, library_ms=None)
+        results[("linear_attention_bwd_apply", name)] = dict(
+            max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
+            bound_by=ab_by, library_ms=None)
+
+    # an all-masked group: finite zero gradients
+    qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(torch.bfloat16)
+                  .requires_grad_() for _ in range(3))
+    out = attn.fused_linear_attention(qs, ks, vs, node_mask=torch.zeros(n, device=dev))
+    grads = torch.autograd.grad(out, (qs, ks, vs), torch.randn_like(out))
+    if not all(torch.isfinite(t).all() and not t.any() for t in grads):
+        raise AssertionError("all-masked attention gradients are not finite zeros")
+    log("attention gradient all-masked bf16: finite zeros")
+
+
 def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     import numpy as np
 
     from sgformer_tpu_torch import Predictor, SGFormer, SGFormerConfig
     from sgformer_tpu_torch import kernels
-    from sgformer_tpu_torch.kernels import attention as attn_kernel
-    from sgformer_tpu_torch.kernels import spmm as spmm_kernel
-    from sgformer_tpu_torch.ops.attention import linear_attention
-    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
-    cfg = SGFormerConfig.large(256, 40, trans_num_layers=1, gnn_num_layers=3,
-                               graph_weight=0.5, compute_dtype="bf16")
+    cfg = SGFormerConfig.large(256, 40, **BENCH_CONFIG)
     model = SGFormer(cfg, ds.graph["node_feat"].shape[1],
                      generator=torch.Generator().manual_seed(0), device=dev)
     t = time.perf_counter()
@@ -262,7 +397,9 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     log(f"launches over {forwards} forwards: {counts}")
     want = {"csr_spmm": cfg.gnn_num_layers * forwards,
             "linear_attention_reduce": forwards,
-            "linear_attention_apply": forwards}
+            "linear_attention_apply": forwards,
+            "linear_attention_bwd_reduce": 0,
+            "linear_attention_bwd_apply": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     for what, ts in times.items():
@@ -284,11 +421,7 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     if not np.allclose(proba.sum(axis=-1), 1.0, atol=1e-5):
         raise AssertionError("predict_proba rows do not sum to 1")
 
-    def plain_csr(x, indptr, edge_src, edge_dst, weight):
-        return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
-
-    with mock.patch.object(spmm_kernel, "csr_spmm", plain_csr), \
-            mock.patch.object(attn_kernel, "fused_linear_attention", linear_attention):
+    with plain_versions():
         ref = pred.logits()
     diff = float(np.abs(logits - ref).max())
     agree = float((logits.argmax(-1) == ref.argmax(-1)).mean())
@@ -296,22 +429,145 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
         f"(atol {LOGITS_ATOL}), argmax agreement {agree:.5f} (>= {ARGMAX_AGREEMENT})")
     if diff > LOGITS_ATOL or agree < ARGMAX_AGREEMENT:
         raise AssertionError("serving path disagrees with the plain forward")
-    profile_forward(pred)
+    profile_device("forward", pred._forward, 5)
+    x = torch.empty(pred.x.shape[0], 40, device=pred.x.device)
+    log(f"copy of [N, 40] f32 logits to the host: "
+        f"{time_ms(lambda: x.cpu(), iters=10):.3f} ms")
     return counts, forwards
 
 
-def profile_forward(pred, forwards: int = 5) -> None:
-    """Device time per kernel over a few forwards, and the device's busy
-    share of the forward's wall time (torch.profiler, CUPTI)."""
+def plain_versions():
+    """Patch the kernels out of the model's path: the GCN aggregation and
+    the attention run through their plain versions, with torch autograd for
+    the gradients."""
+    import contextlib
+
+    from sgformer_tpu_torch.kernels import attention as attn_kernel
+    from sgformer_tpu_torch.kernels import spmm as spmm_kernel
+    from sgformer_tpu_torch.ops.attention import linear_attention
+    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+
+    def plain_csr(x, csr, csr_t):
+        indptr, edge_src, edge_dst, weight = csr
+        return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_autograd", plain_csr))
+    stack.enter_context(mock.patch.object(attn_kernel, "fused_linear_attention",
+                                          linear_attention))
+    return stack
+
+
+def train_phase(ds, graph, dev: str) -> tuple[dict, dict]:
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig, kernels
+    from sgformer_tpu_torch.train import TrainConfig, Trainer, time_test
+
+    cfg = SGFormerConfig.large(256, 40, **BENCH_CONFIG)
+    model = SGFormer(cfg, ds.graph["node_feat"].shape[1],
+                     generator=torch.Generator().manual_seed(0), device=dev)
+    tc = TrainConfig(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
+    trainer = Trainer(model, graph, ds.graph["node_feat"], ds.label, tc, device=dev)
+    n = graph.num_nodes
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    train_idx = trainer.prepare_train_idx(split)
+    trainer.init_state(0)
+
+    # (a) one step's loss and gradients through the kernels and through the
+    # plain versions, from the same weights and the same dropout masks
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def loss_and_grads():
+        model.load_state_dict(snapshot)
+        model.zero_grad(set_to_none=True)
+        trainer.generator.manual_seed(1)
+        loss = trainer.loss(train_idx)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.float().clone() for k, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    kernels.reset_launch_counts()
+    with plain_versions():
+        loss_p, grads_p = loss_and_grads()
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("the plain step launched a kernel")
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"train step loss: kernels {loss_k:.6f}, plain {loss_p:.6f}, relative "
+        f"difference {rel_loss:.2e} (tolerance {TRAIN_LOSS_RTOL})")
+    if not rel_loss <= TRAIN_LOSS_RTOL:
+        raise AssertionError("train step loss disagrees with the plain step")
+    # a bias that feeds a train-mode BatchNorm has an exact gradient of 0
+    # (the batch mean takes any shift out); what both paths compute for it is
+    # rounding noise, so it is held to the gradient of the BatchNorm shift
+    # after it
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
+                     for i in range(cfg.gnn_num_layers)})
+    worst = (0.0, "")
+    for name, gk in grads_k.items():
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"gradient of {name} is not finite")
+        gp = grads_p[name]
+        rel = ((gk - gp).norm() / grads_p[scale_of.get(name, name)].norm()).item()
+        worst = max(worst, (rel, name))
+        if not rel <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"gradient of {name}: |g_kernel - g_plain| / |g_plain| "
+                                 f"= {rel:.3e} > {TRAIN_GRAD_RTOL}")
+    log(f"train step gradients: {len(grads_k)} parameters finite, largest "
+        f"|g_kernel - g_plain| / |g_plain| = {worst[0]:.3e} ({worst[1]}, "
+        f"tolerance {TRAIN_GRAD_RTOL})")
+    model.load_state_dict(snapshot)
+
+    # (b) the launches of one train step
+    kernels.reset_launch_counts()
+    trainer.train_step(train_idx)
+    torch.cuda.synchronize()
+    per_step = kernels.launch_counts()
+    log(f"launches of one train step: {per_step}")
+    if per_step != STEP_LAUNCHES:
+        raise AssertionError(f"launch counts {per_step}, expected {STEP_LAUNCHES}")
+
+    # (c) time_test: the training path's run
+    kernels.reset_launch_counts()
+    res = time_test(trainer, split, epochs=TRAIN_EPOCHS, warmup=TRAIN_WARMUP)
+    run_counts = kernels.launch_counts()
+    steps = TRAIN_EPOCHS + TRAIN_WARMUP
+    log(f"launches over time_test ({steps} train steps, 2 forwards): {run_counts}")
+    want = {k: c * steps for k, c in STEP_LAUNCHES.items()}
+    # and the two timed forwards: their SpMMs, reduce and apply
+    want["csr_spmm"] += 2 * cfg.gnn_num_layers
+    want["linear_attention_reduce"] += 2
+    want["linear_attention_apply"] += 2
+    if run_counts != want:
+        raise AssertionError(f"launch counts {run_counts}, expected {want}")
+    losses = res.losses
+    log(f"time_test: {res.per_epoch_ms:.3f} ms per train step over {TRAIN_EPOCHS} "
+        f"steps, forward {res.forward_ms:.3f} ms, {res.edges_per_sec:.4e} edges/s, "
+        f"peak memory {res.peak_memory_mb:.1f} MiB on {res.device}")
+    log(f"losses: first {losses[0]:.6f}, last 3 {[round(x, 6) for x in losses[-3:]]}")
+    if not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError("the loss did not fall over the train steps")
+
+    # (d) where one train step's device time goes
+    profile_device("train step", lambda: trainer.train_step(train_idx), 3)
+    return per_step, run_counts
+
+
+def profile_device(what: str, fn, reps: int) -> None:
+    """Device time per kernel over a few calls of ``fn``, and the device's
+    busy share of its wall time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(forwards):
-            pred._forward()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / forwards
+        wall = (time.perf_counter() - t) * 1e3 / reps
     rows = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "")):
@@ -320,16 +576,22 @@ def profile_forward(pred, forwards: int = 5) -> None:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append((us / forwards / 1e3, e.count / forwards, e.key))
+            rows.append((us / reps / 1e3, e.count / reps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile: forward {wall:.3f} ms wall, device busy {busy:.3f} ms "
-        f"({busy / wall:.1%}) over {forwards} forwards")
-    for ms, cnt, key in rows[:16]:
+    log(f"profile: {what} {wall:.3f} ms wall, device busy {busy:.3f} ms "
+        f"({busy / wall:.1%}) over {reps} calls")
+    for ms, cnt, key in rows[:20]:
         log(f"  {ms:8.4f} ms x{cnt:g}  {key[:100]}")
-    x = torch.empty(pred.x.shape[0], 40, device=pred.x.device)
-    log(f"copy of [N, 40] f32 logits to the host: "
-        f"{time_ms(lambda: x.cpu(), iters=10):.3f} ms")
+    groups: dict = {}
+    for ms, cnt, key in rows:
+        group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)),
+                     "other elementwise")
+        total, launches = groups.get(group, (0.0, 0.0))
+        groups[group] = (total + ms, launches + cnt)
+    log(f"profile: {what} by group: " + "; ".join(
+        f"{g} {ms:.3f} ms x{cnt:g}" for g, (ms, cnt) in
+        sorted(groups.items(), key=lambda kv: -kv[1][0])))
 
 
 def main() -> int:
@@ -367,7 +629,9 @@ def main() -> int:
     results: dict = {}
     spmm_phase(graph, results, "cuda")
     attention_phase(graph.num_nodes, results, "cuda")
-    counts, forwards = serve_phase(ds, graph, "cuda")
+    attention_bwd_phase(graph.num_nodes, results, "cuda")
+    serve_counts, forwards = serve_phase(ds, graph, "cuda")
+    step_counts, train_counts = train_phase(ds, graph, "cuda")
 
     sources = {
         "csr_spmm": ("sgformer_tpu_torch/csrc/spmm.cu",
@@ -376,13 +640,21 @@ def main() -> int:
                                     "sgformer_tpu/kernels/attention.py:47"),
         "linear_attention_apply": ("sgformer_tpu_torch/csrc/linear_attention.cu",
                                    "sgformer_tpu/kernels/attention.py:76"),
+        "linear_attention_bwd_reduce": ("sgformer_tpu_torch/csrc/linear_attention_bwd.cu",
+                                        "sgformer_tpu/kernels/attention.py:162"),
+        "linear_attention_bwd_apply": ("sgformer_tpu_torch/csrc/linear_attention_bwd.cu",
+                                       "sgformer_tpu/kernels/attention.py:209"),
     }
+    # launches: the training path's run (time_test); the serving path's run
+    # and one train step beside it
     line = {"kernels": []}
     for name, (source, replaces) in sources.items():
-        r = results[(name, "bf16")]  # the serving path's type
+        r = results[(name, "bf16")]  # the main paths' type
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], **r,
+            "launches": train_counts[name], "launches_serving": serve_counts[name],
+            "launches_per_forward": serve_counts[name] / forwards,
+            "launches_per_train_step": step_counts[name], **r,
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

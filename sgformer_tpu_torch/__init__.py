@@ -1,5 +1,6 @@
 """SGFormer on PyTorch and CUDA: the port of ``sgformer_tpu`` to an NVIDIA
-Hopper GPU.
+Hopper GPU: full-graph training (``train.Trainer``) and serving
+(``Predictor``).
 
 The JAX package ``sgformer_tpu`` is the reference this package is held
 against; nothing here imports it, JAX or flax. Plain tensor code is PyTorch.
@@ -16,3 +17,4 @@ from sgformer_tpu_torch.convert import load_flax_variables  # noqa: F401
 from sgformer_tpu_torch.graph import Graph, preprocess_graph  # noqa: F401
 from sgformer_tpu_torch.nn.sgformer import SGFormer, SGFormerConfig  # noqa: F401
 from sgformer_tpu_torch.serve import Predictor  # noqa: F401
+from sgformer_tpu_torch.train import TrainConfig, Trainer  # noqa: F401

@@ -1,0 +1,527 @@
+// SGFormer linear attention for Hopper (sm_90a), backward, one head per call.
+//
+// Forward (linear_attention.cu): a = q @ kvs, b = q . ksum, den = inv*b + n,
+// num = inv*a + n*v, out = num / den, with kvs = k^T v, ksum = sum_n k and
+// inv = 1 / (||q|| * ||k||). Given g = dL/dout:
+//
+//   gd = g / den,  gden = -sum_d(g * num) / den^2            (per row)
+//   P = q^T gd [M, D],  ds = sum_n q * gden [M],  dinv = sum gd*a + sum gden*b
+//   dq = inv * gd @ kvs^T + inv * gden * ksum - dinv * inv / ||q||^2 * q
+//   dk = inv * v @ P^T + inv * ds - dinv * inv / ||k||^2 * k
+//   dv = n * gd + inv * k @ P
+//
+// Replaces sgformer_tpu/kernels/attention.py::_bwd_reduce_kernel (bwd reduce)
+// and ::_bwd_apply_kernel (bwd apply). The TPU kernels carry P, ds and dinv
+// across sequential grid steps in VMEM; Hopper blocks run in parallel and in
+// no order, so the reduce is split:
+//   1. la_bwd_rows_kernel: one block per 64 rows forms a = q @ kvs tile by
+//      tile and reduces it at once to sum_d g*a per row, with b and sum_d g*v;
+//      it writes den and gden per row (8 bytes a row) and a per-block f64
+//      partial of dinv;
+//   2. la_bwd_reduce_kernel: blocks over disjoint node slices write f32
+//      partials of P = q^T (g/den) and f64-accumulated partials of ds;
+//   3. la_bwd_finish_kernel adds the P and ds partials in slice order and
+//      la_bwd_dinv_kernel adds the dinv partials in a fixed f64 tree.
+// No atomics anywhere, so repeated calls give bitwise-equal gradients.
+// The apply reads den and gden from the reduce instead of recomputing
+// a = q @ kvs: three [rows x K] x [K x 64] products per node block instead of
+// the Pallas kernel's four.
+//
+// Differences from the Pallas kernels, on purpose:
+// - gd, kvs and P stay f32 into the products; the Pallas backward rounds
+//   them to the input type first (kernels/attention.py:234-249).
+// - With a node mask (guard = 1) the forward's guard carries over: inv = 0
+//   for a zero norm, so the dinv * inv / ||.||^2 terms are 0 (not 0/0), and
+//   a zero den is taken as 1 with gden = 0, as autograd of the guarded plain
+//   path gives. The Pallas backward has no guard (kernels/attention.py:213).
+//
+// Bound: memory in bf16. At the arxiv shape (N = 169,343, M = D = 256) the
+// reduce must read q, v, g (260 MB, 78 us at 3.35 TB/s) and the apply must
+// read q, k, v, g and write dq, dk, dv (607 MB, 181 us); the products are
+// 2 and 3 times 2*N*M*D = 22.2 GFLOP. This first version multiplies on the
+// CUDA cores in f32 from shared memory (64x64 output tiles, 4x4 per thread,
+// 67 TFLOP/s peak), so operations bound it (~0.66 and ~1.0 ms at best) until
+// the products move to wgmma.
+//
+// Inputs are row-strided views (ld* = elements between rows), so the heads
+// of an [N, H, *] tensor are read and written in place.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kTile = 64;      // output tile (rows x columns)
+constexpr int kRows = 32;      // contraction depth per shared-memory step
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// grid (ceil(N/64)). Block bx owns rows [64*bx, 64*bx+64): it forms
+// a = q @ kvs one 64-column tile at a time (q slab stored transposed) and
+// folds each tile into sum_d g*a and sum_d g*v per row at once, so a never
+// leaves registers. The first 64 threads also form b = q . ksum.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+la_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ v, const T* __restrict__ g,
+                   long ldq, long ldv, long ldg, int N, int M, int D,
+                   const float* __restrict__ kvs, const float* __restrict__ ksum,
+                   const float* __restrict__ scal, const float* __restrict__ n_total, int guard,
+                   float* __restrict__ den_out, float* __restrict__ gden_out,
+                   double* __restrict__ dinv_part) {
+  __shared__ __align__(16) float qt[kRows][kTile + 4];  // [m][row]
+  __shared__ __align__(16) float kv[kRows][kTile];      // [m][col]
+  __shared__ float b_s[kTile];
+  __shared__ float ga_s[kTile];
+  __shared__ float gv_s[kTile];
+  __shared__ double red[kTile];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const long r0 = static_cast<long>(blockIdx.x) * kTile;
+
+  float ga[4] = {0.f, 0.f, 0.f, 0.f};
+  float gv[4] = {0.f, 0.f, 0.f, 0.f};
+  float b = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kTile) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < M; k0 += kRows) {
+      for (int i = tid; i < kTile * kRows; i += kThreads) {
+        const int r = i / kRows;  // q: consecutive threads walk along m
+        const int c = i % kRows;
+        const long row = r0 + r;
+        qt[c][r] = (row < N && k0 + c < M) ? to_float(q[row * ldq + k0 + c]) : 0.f;
+        const int kr = i / kTile;  // kvs: consecutive threads walk along d
+        const int kc = i % kTile;
+        kv[kr][kc] = (k0 + kr < M && d0 + kc < D)
+                         ? kvs[static_cast<size_t>(k0 + kr) * D + d0 + kc]
+                         : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kRows; ++c) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&qt[c][ty * 4]);
+        const float4 b4 = *reinterpret_cast<const float4*>(&kv[c][tx * 4]);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      if (d0 == 0 && tid < kTile) {
+        for (int c = 0; c < kRows && k0 + c < M; ++c) b = fmaf(qt[c][tid], ksum[k0 + c], b);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long row = r0 + ty * 4 + i;
+      if (row >= N) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = d0 + tx * 4 + j;
+        if (d < D) {
+          const float gf = to_float(g[row * ldg + d]);
+          ga[i] = fmaf(gf, acc[i][j], ga[i]);
+          gv[i] = fmaf(gf, to_float(v[row * ldv + d]), gv[i]);
+        }
+      }
+    }
+  }
+  // the 16 threads of one ty hold one row group: lanes 0-15 or 16-31 of a
+  // warp, so a fixed xor tree inside each half-warp sums across columns
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      ga[i] += __shfl_xor_sync(0xffffffffu, ga[i], off);
+      gv[i] += __shfl_xor_sync(0xffffffffu, gv[i], off);
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ga_s[ty * 4 + i] = ga[i];
+      gv_s[ty * 4 + i] = gv[i];
+    }
+  }
+  if (tid < kTile) b_s[tid] = b;
+  __syncthreads();
+
+  if (tid < kTile) {
+    const long row = r0 + tid;
+    double part = 0.0;
+    if (row < N) {
+      const float inv = scal[2];
+      const float n = *n_total;
+      const float bb = b_s[tid];
+      const float s_ga = ga_s[tid];
+      float den = inv * bb + n;
+      float gden;
+      if (guard && den == 0.f) {
+        den = 1.f;
+        gden = 0.f;
+      } else {
+        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
+      }
+      den_out[row] = den;
+      gden_out[row] = gden;
+      part = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+    }
+    red[tid] = part;
+  }
+  __syncthreads();
+  for (int stride = kTile / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) dinv_part[blockIdx.x] = red[0];
+}
+
+// grid (ceil(M/64), ceil(D/64), slices). Block (mx, dy, s) sums its 64x64
+// tile of P = q^T (g/den) over rows [s*rows_per_slice, (s+1)*rows_per_slice).
+// Blocks with dy == 0 also sum ds = q . gden per column of their M tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+la_bwd_reduce_kernel(const T* __restrict__ q, const T* __restrict__ g, long ldq, long ldg, int N,
+                     int M, int D, int rows_per_slice, const float* __restrict__ den,
+                     const float* __restrict__ gden, float* __restrict__ P_part,
+                     float* __restrict__ ds_part) {
+  __shared__ __align__(16) float qs[kRows][kTile];
+  __shared__ __align__(16) float gs[kRows][kTile];
+  __shared__ float den_s[kRows];
+  __shared__ float gden_s[kRows];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.x * kTile;
+  const int d0 = blockIdx.y * kTile;
+  const int s = blockIdx.z;
+  const bool stats = blockIdx.y == 0;
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  double ds = 0.0;
+
+  for (long r0 = r_begin; r0 < r_end; r0 += kRows) {
+    if (tid < kRows) {
+      const long row = r0 + tid;
+      den_s[tid] = row < r_end ? den[row] : 1.f;
+      gden_s[tid] = row < r_end ? gden[row] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * kTile; i += kThreads) {
+      const int r = i / kTile;
+      const int c = i % kTile;
+      const long row = r0 + r;
+      const bool row_ok = row < r_end;
+      qs[r][c] = (row_ok && m0 + c < M) ? to_float(q[row * ldq + m0 + c]) : 0.f;
+      gs[r][c] = (row_ok && d0 + c < D) ? to_float(g[row * ldg + d0 + c]) / den_s[r] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < kRows; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(&qs[r][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (stats && tid < kTile) {
+      for (int r = 0; r < kRows; ++r) {
+        ds = fma(static_cast<double>(qs[r][tid]), static_cast<double>(gden_s[r]), ds);
+      }
+    }
+    __syncthreads();
+  }
+
+  const size_t MD = static_cast<size_t>(M) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + tx * 4 + j;
+      if (m < M && d < D) P_part[s * MD + static_cast<size_t>(m) * D + d] = acc[i][j];
+    }
+  }
+  if (stats && tid < kTile && m0 + tid < M) {
+    ds_part[static_cast<size_t>(s) * M + m0 + tid] = static_cast<float>(ds);
+  }
+}
+
+// P and ds are their partials added in slice order.
+__global__ void la_bwd_finish_kernel(const float* __restrict__ P_part,
+                                     const float* __restrict__ ds_part, int slices, int M, int D,
+                                     float* __restrict__ P, float* __restrict__ ds) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t MD = static_cast<size_t>(M) * D;
+  if (idx < MD) {
+    float t = 0.f;
+    for (int s = 0; s < slices; ++s) t += P_part[s * MD + idx];
+    P[idx] = t;
+  }
+  if (idx < static_cast<size_t>(M)) {
+    float t = 0.f;
+    for (int s = 0; s < slices; ++s) t += ds_part[static_cast<size_t>(s) * M + idx];
+    ds[idx] = t;
+  }
+}
+
+// dinv: the per-block partials in a fixed-order f64 tree, one block.
+__global__ void __launch_bounds__(kThreads)
+la_bwd_dinv_kernel(const double* __restrict__ part, int count, float* __restrict__ dinv) {
+  __shared__ double red[kThreads];
+  const int tid = threadIdx.x;
+  double t = 0.0;
+  for (int i = tid; i < count; i += kThreads) t += part[i];
+  red[tid] = t;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) *dinv = static_cast<float>(red[0]);
+}
+
+// grid (ceil(N/64), 2*ceil(M/64) + ceil(D/64)). Block (bx, y) computes rows
+// [64*bx, 64*bx+64) of one 64-column tile of dq (y in the first ceil(M/64)),
+// dk (the next ceil(M/64)) or dv (the rest):
+//   dq: (g/den) @ kvs^T, contraction over D;  dk: v @ P^T, over D;
+//   dv: k @ P, over M;
+// then the per-row and per-column terms in the epilogue.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+la_bwd_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ g, long ldq, long ldk, long ldv, long ldg,
+                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, long lddq,
+                    long lddk, long lddv, int N, int M, int D, const float* __restrict__ kvs,
+                    const float* __restrict__ ksum, const float* __restrict__ P,
+                    const float* __restrict__ ds, const float* __restrict__ scal,
+                    const float* __restrict__ n_total, const float* __restrict__ dinv,
+                    const float* __restrict__ den, const float* __restrict__ gden, int guard) {
+  __shared__ __align__(16) float at[kRows][kTile + 4];  // [kk][row]
+  __shared__ __align__(16) float bs[kRows][kTile + 4];  // [kk][col]
+  __shared__ float den_s[kTile];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const long r0 = static_cast<long>(blockIdx.x) * kTile;
+  const int tiles_m = (M + kTile - 1) / kTile;
+  int which = 2;
+  int c0 = (static_cast<int>(blockIdx.y) - 2 * tiles_m) * kTile;
+  if (static_cast<int>(blockIdx.y) < tiles_m) {
+    which = 0;
+    c0 = blockIdx.y * kTile;
+  } else if (static_cast<int>(blockIdx.y) < 2 * tiles_m) {
+    which = 1;
+    c0 = (blockIdx.y - tiles_m) * kTile;
+  }
+  const int K = which == 2 ? M : D;  // contraction depth
+  const int C = which == 2 ? D : M;  // output width
+  const T* A = which == 0 ? g : (which == 1 ? v : k);
+  const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
+
+  if (tid < kTile) den_s[tid] = r0 + tid < N ? den[r0 + tid] : 1.f;
+  __syncthreads();
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kRows) {
+    for (int i = tid; i < kTile * kRows; i += kThreads) {
+      const int r = i / kRows;  // A: consecutive threads walk along kk
+      const int c = i % kRows;
+      const long row = r0 + r;
+      float a = (row < N && k0 + c < K) ? to_float(A[row * lda + k0 + c]) : 0.f;
+      if (which == 0) a /= den_s[r];  // gd = g / den, as the plain version
+      at[c][r] = a;
+      float bval = 0.f;
+      if (which == 2) {
+        const int kr = i / kTile;  // P [M, D]: consecutive threads walk along d
+        const int kc = i % kTile;
+        if (k0 + kr < K && c0 + kc < C) bval = P[static_cast<size_t>(k0 + kr) * D + c0 + kc];
+        bs[kr][kc] = bval;
+      } else {
+        // kvs^T or P^T: element (kk, c) is X[c, kk] of the [M, D] matrix;
+        // consecutive threads walk along kk, the contiguous dimension of X
+        const int kc = i / kRows;
+        const int kr = i % kRows;
+        const float* X = which == 0 ? kvs : P;
+        if (k0 + kr < K && c0 + kc < C) bval = X[static_cast<size_t>(c0 + kc) * D + k0 + kr];
+        bs[kr][kc] = bval;
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < kRows; ++c) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&at[c][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&bs[c][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const float inv = scal[2];
+  const float n = *n_total;
+  // the guard: a zero norm gives inv = 0 and no dinv term
+  const bool no_norm = guard && inv == 0.f;
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = r0 + ty * 4 + i;
+    if (row >= N) continue;
+    const float gden_r = which == 0 ? gden[row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx * 4 + j;
+      if (c >= C) continue;
+      if (which == 0) {
+        const float val = inv * acc[i][j] + inv * gden_r * ksum[c] -
+                          c_q * to_float(q[row * ldq + c]);
+        dq[row * lddq + c] = from_float<T>(val);
+      } else if (which == 1) {
+        const float val = inv * acc[i][j] + inv * ds[c] - c_k * to_float(k[row * ldk + c]);
+        dk[row * lddk + c] = from_float<T>(val);
+      } else {
+        const float gd = to_float(g[row * ldg + c]) / den_s[ty * 4 + i];
+        dv[row * lddv + c] = from_float<T>(n * gd + inv * acc[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
+                              long ldg, int N, int M, int D, int slices, int rows_per_slice,
+                              const float* kvs, const float* ksum, const float* scal,
+                              const float* n_total, int guard, float* den, float* gden,
+                              double* dinv_part, float* P_part, float* ds_part,
+                              cudaStream_t st) {
+  const unsigned row_blocks = static_cast<unsigned>((N + kTile - 1) / kTile);
+  la_bwd_rows_kernel<T><<<row_blocks, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(g), ldq, ldv,
+      ldg, N, M, D, kvs, ksum, scal, n_total, guard, den, gden, dinv_part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kTile - 1) / kTile, (D + kTile - 1) / kTile, slices);
+  la_bwd_reduce_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(g), ldq, ldg, N, M, D, rows_per_slice, den,
+      gden, P_part, ds_part);
+  return cudaGetLastError();
+}
+
+template <typename T>
+void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g, long ldq,
+                      long ldk, long ldv, long ldg, void* dq, void* dk, void* dv, long lddq,
+                      long lddk, long lddv, int N, int M, int D, const float* kvs,
+                      const float* ksum, const float* P, const float* ds, const float* scal,
+                      const float* n_total, const float* dinv, const float* den,
+                      const float* gden, int guard, cudaStream_t st) {
+  const int tiles_m = (M + kTile - 1) / kTile;
+  const int tiles_d = (D + kTile - 1) / kTile;
+  const dim3 grid((N + kTile - 1) / kTile, 2 * tiles_m + tiles_d);
+  la_bwd_apply_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), ldq, ldk, ldv, ldg, static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), lddq, lddk, lddv, N, M, D, kvs, ksum, P, ds, scal, n_total, dinv,
+      den, gden, guard);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q, v, g: [N, M], [N, D], [N, D] rows of
+// the input type; kvs [M, D], ksum [M], scal [4] = (qsq, ksq, inv, 0) and
+// n_total from the forward (f32, device). Outputs: rows [2, N] = (den, gden)
+// per row, P [M, D], ds [M], dinv (one f32). Scratch: dinv_part
+// [ceil(N/64)] f64, P_part [slices, M, D], ds_part [slices, M]. Returns the
+// first cudaError_t of the launches, each checked as it is made.
+extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
+                                 long ldg, int N, int M, int D, int dtype, int slices,
+                                 int rows_per_slice, int guard, const float* kvs,
+                                 const float* ksum, const float* scal, const float* n_total,
+                                 float* rows, double* dinv_part, float* P_part, float* ds_part,
+                                 float* P, float* ds, float* dinv, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* den = rows;
+  float* gden = rows + N;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_bwd_reduce<float>(q, v, g, ldq, ldv, ldg, N, M, D, slices, rows_per_slice, kvs,
+                                   ksum, scal, n_total, guard, den, gden, dinv_part, P_part,
+                                   ds_part, st);
+  } else if (dtype == 1) {
+    err = launch_bwd_reduce<__nv_bfloat16>(q, v, g, ldq, ldv, ldg, N, M, D, slices,
+                                           rows_per_slice, kvs, ksum, scal, n_total, guard, den,
+                                           gden, dinv_part, P_part, ds_part, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t MD = static_cast<size_t>(M) * D;
+  const unsigned fin_blocks = static_cast<unsigned>((MD + kThreads - 1) / kThreads);
+  la_bwd_finish_kernel<<<fin_blocks, kThreads, 0, st>>>(P_part, ds_part, slices, M, D, P, ds);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  la_bwd_dinv_kernel<<<1, kThreads, 0, st>>>(dinv_part, (N + kTile - 1) / kTile, dinv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
+// (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
+extern "C" int sgf_la_bwd_apply(const void* q, const void* k, const void* v, const void* g,
+                                long ldq, long ldk, long ldv, long ldg, void* dq, void* dk,
+                                void* dv, long lddq, long lddk, long lddv, int N, int M, int D,
+                                int dtype, const float* kvs, const float* ksum, const float* P,
+                                const float* ds, const float* scal, const float* n_total,
+                                const float* dinv, const float* rows, int guard, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* den = rows;
+  const float* gden = rows + N;
+  if (dtype == 0) {
+    launch_bwd_apply<float>(q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M,
+                            D, kvs, ksum, P, ds, scal, n_total, dinv, den, gden, guard, st);
+  } else if (dtype == 1) {
+    launch_bwd_apply<__nv_bfloat16>(q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk,
+                                    lddv, N, M, D, kvs, ksum, P, ds, scal, n_total, dinv, den,
+                                    gden, guard, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -7,6 +7,12 @@ tensors that stays on the device. Its dst-sorted ``indptr``, ``edge_src`` and
 ``gcn_weight`` are exactly what the CSR SpMM kernel reads, so the TPU's
 slab, chunk and clustering-reorder plans have no counterpart here:
 ``node_perm`` is always None.
+
+The gradient of the aggregation is ``A^T @ g`` through the same kernel. A
+graph built with ``undirected=True`` is symmetric by construction (the edge
+set is closed under transpose and both normalisations are symmetric in src
+and dst, as the JAX package reasons in its ``preprocess_graph``), so A's own
+CSR serves; otherwise ``preprocess_graph`` also builds the CSR of A^T.
 """
 
 from __future__ import annotations
@@ -35,6 +41,11 @@ class Graph:
       pyg_*: PyG ``gcn_norm`` edges (sorted by dst) and their row pointers,
         present only with ``with_pyg_norm=True``.
       node_perm: always None (the port does not reorder nodes).
+      symmetric: True when A == A^T by construction (``undirected=True``);
+        the gradient then runs on A's own CSR.
+      t_*, pyg_t_*: CSR of A^T (edges sorted by source: ``t_edge_src`` holds
+        the original destinations, ``t_edge_dst`` the sources), present only
+        when ``symmetric`` is False; the gradient reads them.
     """
 
     edge_src: torch.Tensor
@@ -48,6 +59,15 @@ class Graph:
     pyg_weight: Optional[torch.Tensor] = None
     pyg_indptr: Optional[torch.Tensor] = None
     node_perm: Optional[torch.Tensor] = None
+    symmetric: bool = False
+    t_indptr: Optional[torch.Tensor] = None
+    t_edge_src: Optional[torch.Tensor] = None
+    t_edge_dst: Optional[torch.Tensor] = None
+    t_weight: Optional[torch.Tensor] = None
+    pyg_t_indptr: Optional[torch.Tensor] = None
+    pyg_t_src: Optional[torch.Tensor] = None
+    pyg_t_dst: Optional[torch.Tensor] = None
+    pyg_t_weight: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -63,21 +83,22 @@ class Graph:
 
     def propagate(self, x: torch.Tensor, kind: str = "gcn") -> torch.Tensor:
         """A_norm @ x, the GCN aggregation, through the CSR SpMM kernel
-        (its plain version on the CPU). ``kind='gcn'`` uses the GraphConv
+        (its plain version on the CPU), differentiable in x: the gradient is
+        A^T @ g through the same kernel. ``kind='gcn'`` uses the GraphConv
         normalisation; ``'pyg'`` the PyG ``gcn_norm`` edges."""
         if kind == "gcn":
-            return _spmm_kernel.csr_spmm(
-                x, self.indptr, self.edge_src, self.edge_dst, self.gcn_weight
-            )
-        if kind != "pyg":
+            csr = (self.indptr, self.edge_src, self.edge_dst, self.gcn_weight)
+            csr_t = (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_weight)
+        elif kind == "pyg":
+            if self.pyg_src is None:
+                raise ValueError(
+                    "pyg edges missing: preprocess_graph(..., with_pyg_norm=True)"
+                )
+            csr = (self.pyg_indptr, self.pyg_src, self.pyg_dst, self.pyg_weight)
+            csr_t = (self.pyg_t_indptr, self.pyg_t_src, self.pyg_t_dst, self.pyg_t_weight)
+        else:
             raise ValueError(f"unknown propagate kind {kind!r}")
-        if self.pyg_src is None:
-            raise ValueError(
-                "pyg edges missing: preprocess_graph(..., with_pyg_norm=True)"
-            )
-        return _spmm_kernel.csr_spmm(
-            x, self.pyg_indptr, self.pyg_src, self.pyg_dst, self.pyg_weight
-        )
+        return _spmm_kernel.csr_spmm_autograd(x, csr, csr if self.symmetric else csr_t)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +204,16 @@ def _int32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
 
 
+def _transpose_csr(src, dst, weight, num_nodes: int, dev: torch.device) -> tuple:
+    """CSR of A^T from A's edges: sorted by source, each edge's row is its
+    source and its column its destination. Returns (indptr, edge_src,
+    edge_dst, weight) in the layout :func:`csr_spmm` reads."""
+    order = np.argsort(src, kind="stable")
+    t_dst, t_src = src[order], dst[order]
+    return (_int32(build_indptr(t_dst, num_nodes), dev), _int32(t_src, dev),
+            _int32(t_dst, dev), torch.from_numpy(np.ascontiguousarray(weight[order])).to(dev))
+
+
 def preprocess_graph(
     edge_index,
     num_nodes: int,
@@ -199,6 +230,8 @@ def preprocess_graph(
     ``edge_index`` is a [2, E] integer array (numpy, or a tensor on any
     device). ``with_pyg_norm`` also builds the PyG ``gcn_norm`` edges of the
     medium-tier GCN backbone. ``dtype`` is the type of the edge weights.
+    With ``undirected=False`` A need not be symmetric, so the CSR of A^T is
+    built too, for the gradient.
     """
     dev = resolve_device(device)
     if isinstance(edge_index, torch.Tensor):
@@ -212,15 +245,22 @@ def preprocess_graph(
     src, dst = sort_by_dst(edge_index)
     weight = gcn_norm_weights(src, dst, num_nodes).astype(dtype)
     indptr = build_indptr(dst, num_nodes)
-    pyg = {}
+    extra = {}
+    if not undirected:
+        names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight")
+        extra.update(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
     if with_pyg_norm:
         psrc, pdst, pw = pyg_gcn_norm(np.stack([src, dst]), num_nodes)
-        pyg = dict(
+        pw = pw.astype(dtype)
+        extra.update(
             pyg_src=_int32(psrc, dev),
             pyg_dst=_int32(pdst, dev),
-            pyg_weight=torch.from_numpy(pw.astype(dtype)).to(dev),
+            pyg_weight=torch.from_numpy(pw).to(dev),
             pyg_indptr=_int32(build_indptr(pdst, num_nodes), dev),
         )
+        if not undirected:
+            names = ("pyg_t_indptr", "pyg_t_src", "pyg_t_dst", "pyg_t_weight")
+            extra.update(zip(names, _transpose_csr(psrc, pdst, pw, num_nodes, dev)))
     return Graph(
         edge_src=_int32(src, dev),
         edge_dst=_int32(dst, dev),
@@ -228,5 +268,6 @@ def preprocess_graph(
         indptr=_int32(indptr, dev),
         num_nodes=int(num_nodes),
         num_edges=int(len(src)),
-        **pyg,
+        symmetric=bool(undirected),
+        **extra,
     )

@@ -12,12 +12,17 @@ def reset_launch_counts() -> None:
     spmm.launches = 0
     attention.reduce_launches = 0
     attention.apply_launches = 0
+    attention.bwd_reduce_launches = 0
+    attention.bwd_apply_launches = 0
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
+    """Launches of each kernel since the last reset. ``csr_spmm`` counts
+    forward (A @ x) and backward (A^T @ g) launches alike."""
     return {
         "csr_spmm": spmm.launches,
         "linear_attention_reduce": attention.reduce_launches,
         "linear_attention_apply": attention.apply_launches,
+        "linear_attention_bwd_reduce": attention.bwd_reduce_launches,
+        "linear_attention_bwd_apply": attention.bwd_apply_launches,
     }

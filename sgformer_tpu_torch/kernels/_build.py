@@ -23,7 +23,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("spmm", "linear_attention")
+SOURCES = ("spmm", "linear_attention", "linear_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,12 @@ _SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _P, _P],
         "sgf_la_apply": [_P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P,
                          _P, _I, _P],
+    },
+    "linear_attention_bwd": {
+        "sgf_la_bwd_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "sgf_la_bwd_apply": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L, _L, _L,
+                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
 }
 

@@ -1,18 +1,26 @@
-"""Linear-attention kernel wrappers: reduce and apply, forward.
+"""Linear-attention kernel wrappers: reduce and apply, forward and backward.
 
 On CUDA tensors :func:`reduce` and :func:`apply` launch the kernels of
 ``csrc/linear_attention.cu``, which replace the TPU kernels
 ``kernels/attention.py::_reduce_kernel`` and ``::_apply_kernel`` of the JAX
-package, or raise. On CPU tensors they run :func:`reduce_plain` and
-:func:`apply_plain`. :func:`fused_linear_attention` keeps the JAX layout,
-[N, H, M] in and [N, H, D] out, and loops the heads as the JAX ``_attn_core``
-does, reading each head in place through its row stride. With several heads
-q and k are scaled by one norm over all heads, as in the SGFormer reference
-and the plain path; the JAX Pallas path scales each head by its own norms,
-which agrees only at H = 1.
+package, and :func:`bwd_reduce` and :func:`bwd_apply` those of
+``csrc/linear_attention_bwd.cu``, which replace ``::_bwd_reduce_kernel`` and
+``::_bwd_apply_kernel``; each raises on what its kernel cannot take. On CPU
+tensors they run :func:`reduce_plain`, :func:`apply_plain`,
+:func:`bwd_reduce_plain` and :func:`bwd_apply_plain`.
 
-``reduce_launches`` and ``apply_launches`` count the launches; set them to 0
-to start a count.
+:func:`fused_linear_attention` keeps the JAX layout, [N, H, M] in and
+[N, H, D] out, and loops the heads as the JAX ``_attn_core`` does, reading
+each head in place through its row stride. Where autograd records, it runs
+through a ``torch.autograd.Function`` whose backward is the two backward
+kernels; under ``torch.no_grad`` or ``torch.inference_mode`` it calls the
+forward kernels directly and saves nothing. With several heads q and k are
+scaled by one norm over all heads, as in the SGFormer reference and the
+plain path; the JAX Pallas path scales each head by its own norms, which
+agrees only at H = 1.
+
+``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
+``bwd_apply_launches`` count the launches; set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from sgformer_tpu_torch.kernels import _build
 
 reduce_launches = 0
 apply_launches = 0
+bwd_reduce_launches = 0
+bwd_apply_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
@@ -61,6 +71,73 @@ def apply_plain(q, v, kvs, ksum, scal, n_total, guard: bool):
     return (num / den).to(q.dtype)
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """t in the backward's accumulation type: f32, or f64 for f64 inputs
+    (an exact reference for the kernels' f32 sums)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_total, guard: bool):
+    """The backward's cross-node sums, from the hand-derived formulas of the
+    Pallas ``_bwd_reduce_kernel`` (not autograd), in f32 (f64 for f64
+    inputs):
+
+        gd = g / den,  gden = -sum_d(g * num) / den^2,
+        P = q^T gd [M, D],  ds = sum_n q * gden [M],
+        dinv = sum gd * a + sum gden * b,
+
+    with a = q @ kvs, b = q . ksum, den = inv * b + n, num = inv * a + n * v.
+    ``guard`` takes a zero den as 1 with gden = 0 (masked inputs). Returns
+    P, ds, dinv (0-d) and rows = [den; gden] [2, N], which the apply reads.
+    """
+    qf, vf, gf = _acc(q), _acc(v), _acc(g)
+    inv = scal[2]
+    a = torch.einsum("nm,md->nd", qf, kvs)
+    b = torch.einsum("nm,m->n", qf, ksum)
+    den = inv * b + n_total
+    num = inv * a + n_total * vf
+    gden_of = -(gf * num).sum(dim=1)
+    if guard:
+        zero = den == 0.0
+        den = torch.where(zero, torch.ones_like(den), den)
+        gden = torch.where(zero, torch.zeros_like(den), gden_of / (den * den))
+    else:
+        gden = gden_of / (den * den)
+    gd = gf / den[:, None]
+    P = torch.einsum("nm,nd->md", qf, gd)
+    ds = torch.einsum("nm,n->m", qf, gden)
+    dinv = (gd * a).sum() + (gden * b).sum()
+    return P, ds, dinv, torch.stack([den, gden])
+
+
+def bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows, guard: bool):
+    """dq, dk, dv from the Pallas ``_bwd_apply_kernel``'s formulas (not
+    autograd), computed in f32 (f64 for f64 inputs) and returned in the
+    inputs' type:
+
+        dq = inv * gd @ kvs^T + inv * gden * ksum - dinv * inv / ||q||^2 * q
+        dk = inv * v @ P^T + inv * ds - dinv * inv / ||k||^2 * k
+        dv = n * gd + inv * k @ P
+
+    ``dinv`` is summed over all heads; ``rows`` = [den; gden] from
+    :func:`bwd_reduce_plain`. ``guard``: a zero norm (inv = 0) drops the
+    dinv terms instead of giving 0/0.
+    """
+    qf, kf, vf = _acc(q), _acc(k), _acc(v)
+    q_sq, k_sq, inv = scal[0], scal[1], scal[2]
+    den, gden = rows[0], rows[1]
+    gd = _acc(g) / den[:, None]
+    c_q, c_k = dinv * inv / q_sq, dinv * inv / k_sq
+    if guard:
+        zero = torch.zeros_like(inv)
+        c_q = torch.where(inv == 0.0, zero, c_q)
+        c_k = torch.where(inv == 0.0, zero, c_k)
+    dq = inv * torch.einsum("nd,md->nm", gd, kvs) + inv * gden[:, None] * ksum - c_q * qf
+    dk = inv * torch.einsum("nd,md->nm", vf, P) + inv * ds - c_k * kf
+    dv = n_total * gd + inv * torch.einsum("nm,md->nd", kf, P)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_rows(name: str, t: torch.Tensor, n: int, dtype) -> None:
     if t.dim() != 2 or t.shape[0] != n:
         raise ValueError(f"{name} must be [{n}, *], got {tuple(t.shape)}")
@@ -68,6 +145,13 @@ def _check_rows(name: str, t: torch.Tensor, n: int, dtype) -> None:
         raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
     if t.stride(1) != 1:
         raise ValueError(f"{name} must be contiguous along its last dimension")
+
+
+def _check_f32(named: tuple) -> None:
+    for name, t, shape in named:
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 tensor of shape {shape}")
 
 
 def _device_of(*ts: torch.Tensor) -> torch.device:
@@ -92,6 +176,10 @@ def _slices(n: int, m: int, d: int, device: torch.device) -> tuple[int, int]:
     want = max(1, min(_cdiv(n, _ROWS), _cdiv(_WAVES * sms, tiles)))
     rows = _cdiv(_cdiv(n, want), _ROWS) * _ROWS
     return _cdiv(n, rows), rows
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = False):
@@ -128,7 +216,7 @@ def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = Fals
         slices, rows, int(guard),
         kvs_part.data_ptr(), ksum_part.data_ptr(), qsq_part.data_ptr(),
         ksq_part.data_ptr(), kvs.data_ptr(), ksum.data_ptr(), scal.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _stream(q),
     )
     _build.check(err, "linear attention reduce")
     reduce_launches += 1
@@ -149,11 +237,8 @@ def apply(q, v, kvs, ksum, scal, n_total, guard: bool = False, out=None):
     if out is None:
         out = torch.empty(n, d, dtype=q.dtype, device=q.device)
     _check_rows("out", out, n, q.dtype)
-    for name, t, shape in (("kvs", kvs, (m, d)), ("ksum", ksum, (m,)),
-                           ("scal", scal, (4,)), ("n_total", n_total, ())):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous f32 tensor of shape {shape}")
+    _check_f32((("kvs", kvs, (m, d)), ("ksum", ksum, (m,)),
+                ("scal", scal, (4,)), ("n_total", n_total, ())))
     if _device_of(q, v, kvs, ksum, scal, n_total, out).type == "cpu":
         out.copy_(apply_plain(q, v, kvs, ksum, scal, n_total, guard))
         return out
@@ -161,11 +246,159 @@ def apply(q, v, kvs, ksum, scal, n_total, guard: bool = False, out=None):
         q.data_ptr(), v.data_ptr(), q.stride(0), v.stride(0),
         out.data_ptr(), out.stride(0), n, m, d, _DTYPES[q.dtype],
         kvs.data_ptr(), ksum.data_ptr(), scal.data_ptr(), n_total.data_ptr(),
-        int(guard), torch.cuda.current_stream(q.device).cuda_stream,
+        int(guard), _stream(q),
     )
     _build.check(err, "linear attention apply")
     apply_launches += 1
     return out
+
+
+def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
+    """Backward pass 1 of one head. q: [N, M]; v, g: [N, D] (g = dL/dout),
+    one type, float32 or bfloat16, rows may be strided; kvs, ksum from the
+    forward's :func:`reduce`, scal [4] and n_total as the forward's apply
+    got them. Returns P [M, D], ds [M], dinv (0-d) and rows [2, N] =
+    (den, gden), all f32 (see :func:`bwd_reduce_plain`)."""
+    global bwd_reduce_launches
+    n = q.shape[0]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    _check_rows("q", q, n, q.dtype)
+    _check_rows("v", v, n, q.dtype)
+    _check_rows("g", g, n, q.dtype)
+    m, d = q.shape[1], v.shape[1]
+    if g.shape[1] != d:
+        raise ValueError("g and v must have the same width")
+    _check_f32((("kvs", kvs, (m, d)), ("ksum", ksum, (m,)),
+                ("scal", scal, (4,)), ("n_total", n_total, ())))
+    if _device_of(q, v, g, kvs, ksum, scal, n_total).type == "cpu":
+        return bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_total, guard)
+    if n == 0:
+        raise ValueError("linear attention needs at least one node")
+
+    slices, rows_per_slice = _slices(n, m, d, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rows = torch.empty(2, n, **f32)
+    dinv_part = torch.empty(_cdiv(n, _TILE), dtype=torch.float64, device=q.device)
+    P_part = torch.empty(slices, m, d, **f32)
+    ds_part = torch.empty(slices, m, **f32)
+    P = torch.empty(m, d, **f32)
+    ds = torch.empty(m, **f32)
+    dinv = torch.empty((), **f32)
+    err = _build.library("linear_attention_bwd").sgf_la_bwd_reduce(
+        q.data_ptr(), v.data_ptr(), g.data_ptr(), q.stride(0), v.stride(0), g.stride(0),
+        n, m, d, _DTYPES[q.dtype], slices, rows_per_slice, int(guard),
+        kvs.data_ptr(), ksum.data_ptr(), scal.data_ptr(), n_total.data_ptr(),
+        rows.data_ptr(), dinv_part.data_ptr(), P_part.data_ptr(), ds_part.data_ptr(),
+        P.data_ptr(), ds.data_ptr(), dinv.data_ptr(), _stream(q),
+    )
+    _build.check(err, "linear attention bwd_reduce")
+    bwd_reduce_launches += 1
+    return P, ds, dinv, rows
+
+
+def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
+              guard: bool = False, out=None):
+    """Backward pass 2 of one head: dq, dk [N, M] and dv [N, D] in the
+    inputs' type. P, ds and rows from :func:`bwd_reduce`; ``dinv`` summed
+    over all heads. Writes into ``out`` = (dq, dk, dv) (rows may be strided)
+    when given."""
+    global bwd_apply_launches
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    n, m = q.shape
+    d = v.shape[1]
+    for name, t, w in (("q", q, m), ("k", k, m), ("v", v, d), ("g", g, d)):
+        _check_rows(name, t, n, q.dtype)
+        if t.shape[1] != w:
+            raise ValueError(f"{name} must be [{n}, {w}], got {tuple(t.shape)}")
+    if out is None:
+        out = (torch.empty(n, m, dtype=q.dtype, device=q.device),
+               torch.empty(n, m, dtype=q.dtype, device=q.device),
+               torch.empty(n, d, dtype=q.dtype, device=q.device))
+    dq, dk, dv = out
+    for name, t, w in (("dq", dq, m), ("dk", dk, m), ("dv", dv, d)):
+        _check_rows(name, t, n, q.dtype)
+        if t.shape[1] != w:
+            raise ValueError(f"{name} must be [{n}, {w}], got {tuple(t.shape)}")
+    _check_f32((("kvs", kvs, (m, d)), ("ksum", ksum, (m,)), ("scal", scal, (4,)),
+                ("n_total", n_total, ()), ("P", P, (m, d)), ("ds", ds, (m,)),
+                ("dinv", dinv, ()), ("rows", rows, (2, n))))
+    dev = _device_of(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows, dq, dk, dv)
+    if dev.type == "cpu":
+        for t, want in zip(out, bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_total,
+                                                P, ds, dinv, rows, guard)):
+            t.copy_(want)
+        return out
+    err = _build.library("linear_attention_bwd").sgf_la_bwd_apply(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        q.stride(0), k.stride(0), v.stride(0), g.stride(0),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq.stride(0), dk.stride(0), dv.stride(0),
+        n, m, d, _DTYPES[q.dtype], kvs.data_ptr(), ksum.data_ptr(), P.data_ptr(),
+        ds.data_ptr(), scal.data_ptr(), n_total.data_ptr(), dinv.data_ptr(),
+        rows.data_ptr(), int(guard), _stream(q),
+    )
+    _build.check(err, "linear attention bwd_apply")
+    bwd_apply_launches += 1
+    return out
+
+
+def _attention_forward(qs, ks, vs, n_total, guard):
+    """Reduce every head, one norm over all heads, apply every head.
+    Returns out [N, H, D] and what the backward needs: per-head (kvs, ksum)
+    and the shared scal."""
+    n, h, _ = qs.shape
+    sums = [reduce(qs[:, i], ks[:, i], vs[:, i], guard) for i in range(h)]
+    scal = sums[0][2]
+    if h > 1:
+        # one norm over all heads, as in the reference and the plain path;
+        # the JAX Pallas path normalises each head by its own norms
+        q_sq = sum(s[2][0] for s in sums)
+        k_sq = sum(s[2][1] for s in sums)
+        scal = torch.stack([q_sq, k_sq, _inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
+    out = torch.empty(n, h, vs.shape[2], dtype=qs.dtype, device=qs.device)
+    for i, (kvs, ksum, _) in enumerate(sums):
+        apply(qs[:, i], vs[:, i], kvs, ksum, scal, n_total, guard, out=out[:, i])
+    return out, [s[:2] for s in sums], scal
+
+
+class LinearAttentionFunction(torch.autograd.Function):
+    """The attention core with the backward kernels as its gradient.
+
+    Saves (q, k, v, kvs, ksum, scal, n_total) in the forward. The backward
+    runs :func:`bwd_reduce` for every head, sums dinv over the heads (one
+    norm is shared by all of them), then runs :func:`bwd_apply` for every
+    head. ``n_total`` and ``guard`` get no gradient, as in the JAX
+    ``_attn_core_bwd``."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, n_total, guard: bool):
+        out, sums, scal = _attention_forward(qs, ks, vs, n_total, guard)
+        ctx.guard = guard
+        ctx.save_for_backward(qs, ks, vs, n_total, scal,
+                              *(t for pair in sums for t in pair))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, ks, vs, n_total, scal, *flat = ctx.saved_tensors
+        guard = ctx.guard
+        g = g.to(qs.dtype)
+        if g.stride(2) != 1:
+            g = g.contiguous()
+        h = qs.shape[1]
+        sums = [(flat[2 * i], flat[2 * i + 1]) for i in range(h)]
+        parts = [bwd_reduce(qs[:, i], vs[:, i], g[:, i], kvs, ksum, scal, n_total, guard)
+                 for i, (kvs, ksum) in enumerate(sums)]
+        dinv = parts[0][2]
+        for p in parts[1:]:
+            dinv = dinv + p[2]
+        dq, dk = torch.empty(2, *qs.shape, dtype=qs.dtype, device=qs.device)
+        dv = torch.empty(vs.shape, dtype=vs.dtype, device=vs.device)
+        for i, ((kvs, ksum), (P, ds, _, rows)) in enumerate(zip(sums, parts)):
+            bwd_apply(qs[:, i], ks[:, i], vs[:, i], g[:, i], kvs, ksum, scal, n_total,
+                      P, ds, dinv, rows, guard, out=(dq[:, i], dk[:, i], dv[:, i]))
+        return dq, dk, dv, None, None
 
 
 def fused_linear_attention(
@@ -174,7 +407,8 @@ def fused_linear_attention(
     vs: torch.Tensor,
     node_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """SGFormer linear attention through the reduce and apply kernels.
+    """SGFormer linear attention through the reduce and apply kernels, and
+    the backward kernels for its gradient.
 
     qs, ks: [N, H, M]; vs: [N, H, D]. The same function as
     :func:`sgformer_tpu_torch.ops.attention.linear_attention` without
@@ -194,16 +428,7 @@ def fused_linear_attention(
     else:
         n_total = torch.full((), float(qs.shape[0]), device=qs.device)
     qs, ks, vs = (t if t.stride(2) == 1 else t.contiguous() for t in (qs, ks, vs))
-    n, h, _ = qs.shape
-    sums = [reduce(qs[:, i], ks[:, i], vs[:, i], guard) for i in range(h)]
-    scal = sums[0][2]
-    if h > 1:
-        # one norm over all heads, as in the reference and the plain path;
-        # the JAX Pallas path normalises each head by its own norms
-        q_sq = sum(s[2][0] for s in sums)
-        k_sq = sum(s[2][1] for s in sums)
-        scal = torch.stack([q_sq, k_sq, _inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
-    out = torch.empty(n, h, vs.shape[2], dtype=qs.dtype, device=qs.device)
-    for i, (kvs, ksum, _) in enumerate(sums):
-        apply(qs[:, i], vs[:, i], kvs, ksum, scal, n_total, guard, out=out[:, i])
-    return out
+    if torch.is_grad_enabled() and (qs.requires_grad or ks.requires_grad
+                                    or vs.requires_grad):
+        return LinearAttentionFunction.apply(qs, ks, vs, n_total, guard)
+    return _attention_forward(qs, ks, vs, n_total, guard)[0]

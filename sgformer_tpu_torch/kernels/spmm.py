@@ -5,7 +5,13 @@ the TPU kernels ``kernels/slab_spmm.py::_ssel_kernel`` and
 ``kernels/spmm.py::_spmm_kernel`` of the JAX package) or raises. On a CPU
 tensor it runs the plain version, :func:`sgformer_tpu_torch.ops.spmm.spmm`.
 
-``launches`` counts the kernel's launches; set it to 0 to start a count.
+:func:`csr_spmm_autograd` is the differentiable form: the gradient of
+``A @ x`` is ``A^T @ g``, the same kernel on the transposed CSR (the JAX
+package's ``_slab_core_bwd`` likewise runs its forward kernels on the
+transpose plan). For a symmetric A the transpose is A's own CSR.
+
+``launches`` counts the kernel's launches, forward and backward alike; set
+it to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -70,3 +76,30 @@ def csr_spmm(
     _build.check(err, "csr_spmm")
     launches += 1
     return out
+
+
+class CsrSpmmFunction(torch.autograd.Function):
+    """``A @ x`` with ``A^T @ g`` as its gradient, both through
+    :func:`csr_spmm`. Only x gets a gradient; the CSR arrays get none."""
+
+    @staticmethod
+    def forward(ctx, x, indptr, edge_src, edge_dst, weight,
+                t_indptr, t_edge_src, t_edge_dst, t_weight):
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight)
+        return csr_spmm(x, indptr, edge_src, edge_dst, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = csr_spmm(g.contiguous(), *ctx.transpose)
+        return (dx,) + (None,) * 8
+
+
+def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple) -> torch.Tensor:
+    """:func:`csr_spmm` of ``x`` on ``csr`` = (indptr, edge_src, edge_dst,
+    weight), differentiable in x; ``csr_t`` is the CSR of A^T in the same
+    form (``csr`` itself when A is symmetric). Where autograd does not
+    record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
+    gradient) it is one :func:`csr_spmm` and saves nothing."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return CsrSpmmFunction.apply(x, *csr, *csr_t)
+    return csr_spmm(x, *csr)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sgformer_tpu_torch.nn.layers import Dropout, TorchLinear
 from sgformer_tpu_torch.nn.norm import MaskedBatchNorm
@@ -37,17 +38,19 @@ class GraphConvLayer(nn.Module):
 
 class GraphConv(nn.Module):
     """Input MLP, then conv layers with BatchNorm, ReLU, dropout and an
-    additive residual."""
+    additive residual. ``remat`` recomputes each conv layer (aggregation
+    and Linear, no dropout) in the backward pass, as the JAX module does."""
 
     def __init__(self, in_channels: int, hidden_channels: int, *, num_layers: int = 2,
                  dropout: float = 0.5, use_bn: bool = True, use_residual: bool = True,
                  use_weight: bool = True, use_init: bool = False, use_act: bool = True,
-                 generator: torch.Generator):
+                 remat: bool = False, generator: torch.Generator):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
         self.use_residual = use_residual
         self.use_act = use_act
+        self.remat = remat
         self.dropout = Dropout(dropout)
         self.fc_in = TorchLinear(in_channels, hidden_channels, generator=generator)
         if use_bn:
@@ -69,7 +72,12 @@ class GraphConv(nn.Module):
         # x0 each conv sees and the residual are the input-MLP activation
         x0 = x
         for i in range(self.num_layers):
-            x = getattr(self, f"conv_{i}")(x, graph, x0)
+            conv = getattr(self, f"conv_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(conv, x, graph, x0,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = conv(x, graph, x0)
             if self.use_bn:
                 x = getattr(self, f"bn_{i}")(x, node_mask)
             if self.use_act:

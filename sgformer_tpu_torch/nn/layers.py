@@ -19,14 +19,21 @@ class TorchLinear(nn.Module):
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  generator: torch.Generator):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
-        w = torch.empty(out_features, in_features)
-        self.weight = nn.Parameter(w.uniform_(-bound, bound, generator=generator))
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
         if bias:
-            b = torch.empty(out_features)
-            self.bias = nn.Parameter(b.uniform_(-bound, bound, generator=generator))
+            self.bias = nn.Parameter(torch.empty(out_features))
         else:
             self.register_parameter("bias", None)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw weight, then bias, from ``generator`` (a CPU generator; the
+        draws are copied to the parameters' device)."""
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        for p in (self.weight, self.bias):
+            if p is not None:
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.weight.to(x.dtype))
@@ -52,9 +59,10 @@ class LayerNorm(nn.LayerNorm):
 class Dropout(nn.Module):
     """Inverted dropout: the identity in eval mode; in train mode each
     element is kept with probability ``1 - rate`` and scaled by its inverse.
-    The mask is drawn from ``generator`` (which must be on x's device), or
-    from torch's default generator when it is None. The JAX package's masks
-    come from JAX keys, so the two never give the same mask."""
+    The mask is drawn from ``generator``, which must be on x's device; a
+    train-mode call that would draw a mask without one raises, so no mask
+    comes from torch's global generator. The JAX package's masks come from
+    JAX keys, so the two never give the same mask."""
 
     def __init__(self, rate: float, generator: torch.Generator | None = None):
         super().__init__()
@@ -66,6 +74,11 @@ class Dropout(nn.Module):
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in train mode needs an explicit torch.Generator "
+                "(SGFormer(..., dropout_generator=...) or set_dropout_generator)"
+            )
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))

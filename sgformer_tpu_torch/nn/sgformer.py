@@ -19,7 +19,8 @@ from torch import nn
 
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.nn.graphconv import GraphConv
-from sgformer_tpu_torch.nn.layers import TorchLinear
+from sgformer_tpu_torch.nn.layers import Dropout, LayerNorm, TorchLinear
+from sgformer_tpu_torch.nn.norm import MaskedBatchNorm
 from sgformer_tpu_torch.nn.transconv import TransConv
 
 
@@ -59,8 +60,8 @@ class SGFormerConfig:
     axis_name: Optional[str] = None
     # 'f32' or 'bf16' activations
     compute_dtype: str = "f32"
-    # recompute conv layers in the backward pass; inference has none, so it
-    # takes effect when training is ported
+    # recompute each TransConvLayer and GraphConvLayer in the backward pass
+    # (torch.utils.checkpoint) instead of keeping their activations
     remat: bool = False
 
     @classmethod
@@ -96,14 +97,18 @@ class SGFormer(nn.Module):
     """SGFormer for ``in_channels``-wide node features.
 
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
-    new one seeded 0 when None) and then placed on ``device``. Submodule
+    new one seeded 0 when None) and then placed on ``device``. Dropout masks
+    in train mode are drawn from ``dropout_generator``, a ``torch.Generator``
+    on ``device`` (or one set later by :meth:`set_dropout_generator`); a
+    train-mode forward that would draw a mask without one raises. Submodule
     names follow the flax module's, so
     :func:`sgformer_tpu_torch.convert.load_flax_variables` maps a JAX
     checkpoint onto it by name.
     """
 
     def __init__(self, config: SGFormerConfig, in_channels: int, *,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None,
+                 dropout_generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
         cfg = config
         dev = resolve_device(device)
@@ -136,6 +141,7 @@ class SGFormer(nn.Module):
             use_act=cfg.trans_use_act,
             residual_mode=cfg.trans_residual_mode,
             kernel=cfg.attention_kernel,
+            remat=cfg.remat,
             generator=generator,
         )
         if cfg.gnn == "graphconv":
@@ -148,11 +154,35 @@ class SGFormer(nn.Module):
                 use_weight=cfg.gnn_use_weight,
                 use_init=cfg.gnn_use_init,
                 use_act=cfg.gnn_use_act,
+                remat=cfg.remat,
                 generator=generator,
             )
         fc_in = 2 * hidden if cfg.gnn != "none" and cfg.aggregate == "cat" else hidden
         self.fc = TorchLinear(fc_in, cfg.out_channels, generator=generator)
+        self.set_dropout_generator(dropout_generator)
         self.to(dev)
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """Draw every dropout mask from ``generator`` from now on."""
+        for mod in self.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = generator
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every Linear again from ``generator`` (a CPU generator), in
+        the order the constructor drew them, so a reset from a generator
+        seeded s equals a new model built from one seeded s; norms go back
+        to scale 1, shift 0 and BatchNorm statistics to mean 0, variance 1."""
+        for mod in self.modules():
+            if isinstance(mod, TorchLinear):
+                mod.reset_parameters(generator)
+            elif isinstance(mod, (LayerNorm, MaskedBatchNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                if isinstance(mod, MaskedBatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, graph, node_mask=None) -> torch.Tensor:
         """[N, in_channels] features -> [N, out_channels] f32 logits."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sgformer_tpu_torch.kernels import attention as _attention_kernel
 from sgformer_tpu_torch.nn.layers import Dropout, LayerNorm, TorchLinear
@@ -68,6 +69,9 @@ class TransConv(nn.Module):
 
     ``residual_mode``: ``"alpha"`` blends ``alpha*x + (1-alpha)*prev``
     (medium and 100M tiers); ``"mean"`` takes ``(x + prev)/2`` (large tier).
+    ``remat`` recomputes each attention layer in the backward pass instead
+    of keeping its activations, as the JAX module's ``nn.remat`` does; the
+    layer holds no dropout, so the recompute draws nothing.
     """
 
     def __init__(self, in_channels: int, hidden_channels: int, *, num_layers: int = 2,
@@ -75,7 +79,7 @@ class TransConv(nn.Module):
                  use_bn: bool = True, use_residual: bool = True,
                  use_weight: bool = True, use_act: bool = False,
                  residual_mode: str = "alpha", kernel: str = "simple",
-                 generator: torch.Generator):
+                 remat: bool = False, generator: torch.Generator):
         super().__init__()
         if residual_mode not in ("alpha", "mean"):
             raise ValueError(f"unknown residual_mode {residual_mode!r}")
@@ -86,6 +90,7 @@ class TransConv(nn.Module):
         self.use_residual = use_residual
         self.use_act = use_act
         self.residual_mode = residual_mode
+        self.remat = remat
         self.dropout = Dropout(dropout)
         self.fc_in = TorchLinear(in_channels, hidden_channels, generator=generator)
         if use_bn:
@@ -110,6 +115,9 @@ class TransConv(nn.Module):
             if output_attn:
                 x, attn = conv(x, x, True, node_mask)
                 attns.append(attn)
+            elif self.remat and torch.is_grad_enabled():
+                x = checkpoint(conv, x, x, False, node_mask,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = conv(x, x, False, node_mask)
             if self.use_residual:

@@ -1,0 +1,244 @@
+"""Full-graph trainer: the port of ``sgformer_tpu/train/trainer.py``.
+
+One train step is a forward of both branches in train mode, the masked
+full-N loss on the train nodes, the backward (the backward attention kernels
+and the SpMM on A^T on the card), an Adam step with a weight decay for each
+branch, and the BatchNorm statistics updated by the forward. The model's
+parameters and statistics are the state; the optimizer holds the moments.
+
+Every random number comes from an explicit generator: parameters from a CPU
+generator seeded per run (``config.seed + run``), dropout masks from the
+trainer's one device generator, seeded from ``config.seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sgformer_tpu_torch.data.metrics import METRICS
+from sgformer_tpu_torch.device import resolve_device
+from sgformer_tpu_torch.train.logger import RunLogger
+from sgformer_tpu_torch.train.optim import dual_weight_decay_adam
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 0.01
+    trans_weight_decay: float = 1e-3
+    gnn_weight_decay: float = 1e-3
+    epochs: int = 100
+    eval_step: int = 1
+    patience: int = 0  # early stop on the valid metric; 0 = off
+    metric: str = "acc"
+    mode: str = "max_acc"
+    loss: str = "nll"  # 'nll' (log_softmax + NLL) | 'bce' (BCE with logits)
+    runs: int = 1
+    seed: int = 123
+    display_step: int = -1  # print every k epochs; -1 = silent
+    # weight of the edge-regularisation losses of models that return
+    # (logits, link_losses) in the JAX zoo; no ported model returns them
+    lamda: float = 1.0
+    # the JAX package's choice of PRNG bit generator; the port draws from
+    # torch.Generators, so every value runs the same code
+    rng_impl: str = "auto"
+
+
+def _train_mask(n: int, idx: torch.Tensor) -> torch.Tensor:
+    mask = torch.zeros(n, dtype=torch.float32, device=idx.device)
+    mask[idx] = 1.0
+    return mask
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """log_softmax + NLL on the nodes ``idx``, in f32, as a masked full-N
+    sum divided by the number of indices (the JAX package's form)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels[:, None]).squeeze(1)
+    return (nll * _train_mask(logits.shape[0], idx)).sum() / idx.shape[0]
+
+
+def bce_loss(logits: torch.Tensor, labels_onehot: torch.Tensor,
+             idx: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy with logits, averaged over classes, on the nodes
+    ``idx``, in f32; the masked full-N form of :func:`cross_entropy_loss`."""
+    z = logits.float()
+    lab = labels_onehot.float()
+    per = (-lab * F.logsigmoid(z) - (1.0 - lab) * F.logsigmoid(-z)).mean(dim=-1)
+    return (per * _train_mask(logits.shape[0], idx)).sum() / idx.shape[0]
+
+
+class Trainer:
+    """Runs ``config.runs`` training runs of (reset parameters, epoch loop,
+    evaluation and model selection).
+
+    Args:
+      model: :class:`sgformer_tpu_torch.SGFormer`; its ``forward(x, graph)``
+        returns [N, C] logits.
+      graph: :class:`sgformer_tpu_torch.graph.Graph` from ``preprocess_graph``.
+      x: [N, F] node features (numpy array or tensor).
+      label: [N, 1] int labels (or [N, C] multilabel for ``loss='bce'``).
+      config: :class:`TrainConfig`.
+      eval_func: metric on (labels, logits); ``METRICS[config.metric]`` by
+        default.
+      device: where training runs; "cuda" unless the caller asks for "cpu".
+    """
+
+    def __init__(self, model, graph, x, label, config: TrainConfig,
+                 eval_func: Optional[Callable] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.model = model.to(self.device)
+        self.graph = graph.to(self.device)
+        self.eval_func = eval_func or METRICS[config.metric]
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+        self.x = x.to(self.device, torch.float32)
+        label = np.asarray(label)
+        self.label_np = label
+        if config.loss == "bce":
+            if label.shape[1] == 1:
+                label_onehot = np.eye(int(label.max()) + 1)[label.reshape(-1)]
+            else:
+                label_onehot = label
+            self.label_onehot = torch.as_tensor(label_onehot, dtype=torch.float32,
+                                                device=self.device)
+        self.label = torch.as_tensor(label.reshape(-1).astype(np.int64), device=self.device)
+        # the one generator of every dropout mask
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.model.set_dropout_generator(self.generator)
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.final_state: Optional[dict] = None
+
+    # -- state -------------------------------------------------------------
+
+    def init_state(self, seed: int) -> torch.optim.Optimizer:
+        """Draw the parameters again from a CPU generator seeded ``seed``,
+        reset the BatchNorm statistics and make a fresh optimizer."""
+        cfg = self.config
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.optimizer = dual_weight_decay_adam(
+            self.model, cfg.lr, cfg.trans_weight_decay, cfg.gnn_weight_decay
+        )
+        return self.optimizer
+
+    def prepare_train_idx(self, split_idx: dict) -> torch.Tensor:
+        """The train split's node ids as a device tensor."""
+        return torch.as_tensor(np.asarray(split_idx["train"], dtype=np.int64),
+                               device=self.device)
+
+    # -- steps ---------------------------------------------------------------
+
+    def loss(self, train_idx: torch.Tensor) -> torch.Tensor:
+        """Forward in train mode (dropout from the trainer's generator,
+        BatchNorm statistics updated) and the loss on ``train_idx``."""
+        self.model.train()
+        out = self.model(self.x, self.graph)
+        if self.config.loss == "bce":
+            return bce_loss(out, self.label_onehot, train_idx)
+        return cross_entropy_loss(out, self.label, train_idx)
+
+    def train_step(self, train_idx: torch.Tensor) -> torch.Tensor:
+        """One step: loss, backward, Adam. Returns the loss on the device,
+        without waiting for it."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state(seed) before training")
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(train_idx)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def multi_step(self, train_idx: torch.Tensor, k: int) -> torch.Tensor:
+        """``k`` train steps; the losses stay on the device as one [k]
+        tensor, so the caller syncs once per block."""
+        return torch.stack([self.train_step(train_idx) for _ in range(k)])
+
+    def eval_step(self) -> torch.Tensor:
+        """[N, C] f32 logits in eval mode, without autograd."""
+        self.model.eval()
+        with torch.no_grad():
+            return self.model(self.x, self.graph)
+
+    # -- evaluation ----------------------------------------------------------
+
+    def evaluate(self, out: np.ndarray, split_idx: dict) -> tuple:
+        """(train, valid, test) metric and the valid loss, on the host."""
+        res = []
+        for split in ("train", "valid", "test"):
+            idx = np.asarray(split_idx[split])
+            res.append(self.eval_func(self.label_np[idx], out[idx]))
+        vidx = np.asarray(split_idx["valid"])
+        logits = out[vidx]
+        if self.config.loss == "bce":
+            lab = self.label_onehot.cpu().numpy()[vidx]
+            z = np.clip(logits, -30, 30)
+            vloss = float(
+                np.mean(np.maximum(z, 0) - z * lab + np.log1p(np.exp(-np.abs(z))))
+            )
+        else:
+            logp = logits - _logsumexp(logits)
+            vloss = float(-logp[np.arange(len(vidx)), self.label_np[vidx].reshape(-1)].mean())
+        res.append(vloss)
+        return tuple(res)
+
+    # -- main loop -----------------------------------------------------------
+
+    def fit(self, split_idx_lst: list[dict]) -> RunLogger:
+        """Run ``config.runs`` training runs; returns the RunLogger.
+
+        Between evaluations (``eval_step`` > 1) the epochs run as one block
+        of train steps whose losses are read once, after the block."""
+        cfg = self.config
+        logger = RunLogger(cfg.runs, mode=cfg.mode)
+        self.generator.manual_seed(cfg.seed)
+        for run in range(cfg.runs):
+            split_idx = split_idx_lst[run % len(split_idx_lst)]
+            train_idx = self.prepare_train_idx(split_idx)
+            self.init_state(cfg.seed + run)
+            best_val = float("-inf")
+            patience_ctr = 0
+            epoch = 0
+            while epoch < cfg.epochs:
+                k = 1
+                if cfg.eval_step > 1 and epoch % cfg.eval_step != 0:
+                    next_eval = -(-epoch // cfg.eval_step) * cfg.eval_step
+                    k = min(next_eval, cfg.epochs - 1) - epoch + 1
+                loss = self.multi_step(train_idx, k)[-1]
+                epoch += k
+                if (epoch - 1) % cfg.eval_step == 0:
+                    out = self.eval_step().cpu().numpy()
+                    result = self.evaluate(out, split_idx)
+                    logger.add_result(run, result)
+                    if cfg.display_step > 0 and (epoch - 1) % cfg.display_step == 0:
+                        print(
+                            f"Epoch: {epoch - 1:02d}, "
+                            f"Loss: {float(loss):.4f}, "
+                            f"Train: {100 * result[0]:.2f}%, "
+                            f"Valid: {100 * result[1]:.2f}%, "
+                            f"Test: {100 * result[2]:.2f}%"
+                        )
+                    if cfg.patience > 0:
+                        if result[1] > best_val:
+                            best_val = result[1]
+                            patience_ctr = 0
+                        else:
+                            patience_ctr += 1
+                            if patience_ctr >= cfg.patience:
+                                break
+            if cfg.display_step >= 0:
+                logger.print_statistics(run)
+            # the last run's final parameters and statistics
+            self.final_state = {k: v.detach().clone()
+                                for k, v in self.model.state_dict().items()}
+        return logger
+
+
+def _logsumexp(x):
+    m = x.max(axis=-1, keepdims=True)
+    return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))

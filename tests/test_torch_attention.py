@@ -1,13 +1,18 @@
 """The port's linear attention (the reduce/apply wrappers' CPU path and the
 plain version) against the JAX package: its Pallas ``fused_linear_attention``
 (reduce and apply kernels, interpret mode) and its XLA
-``linear_attention``.
+``linear_attention``; forward, and the gradient that the port's autograd
+Function computes through the backward wrappers' CPU path
+(``bwd_reduce_plain``, ``bwd_apply_plain``).
 
 Tolerances: f32 1e-5 (summation order only); bf16 2e-2, because the Pallas
-apply rounds kvs to bf16 before its product (kernels/attention.py:83) and the
-XLA path rounds its bf16 products differently, while the port keeps kvs and
-every sum in f32."""
+apply rounds kvs to bf16 before its product (kernels/attention.py:83), the
+Pallas backward rounds gd, kvs and P (kernels/attention.py:234-249), and the
+XLA path rounds its bf16 products differently, while the port keeps kvs, P
+and every sum in f32. Gradients are compared against each tensor's largest
+magnitude: at these sizes dq and dk are ~1e-4 of dv."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +155,102 @@ def test_wrappers_reject_bad_inputs():
     kvs, ksum, scal = attn.reduce(q[:, 0], k[:, 0], v[:, 0])
     with pytest.raises(ValueError):
         attn.apply(q[:, 0], v[:, 0], kvs[:3], ksum, scal, torch.tensor(300.0))
+
+
+def _grads_close(got, want, rel):
+    for g_, w_ in zip(got, want):
+        g_, w_ = _f32(g_), _f32(w_)
+        assert np.isfinite(g_).all()
+        assert np.abs(g_ - w_).max() <= rel * np.abs(w_).max()
+
+
+def _port_vjp(q, k, v, g, dtype, mask=None):
+    leaves = [torch.from_numpy(a).to(TORCH[dtype]).requires_grad_() for a in (q, k, v)]
+    out = fused_linear_attention(*leaves, node_mask=None if mask is None
+                                 else torch.from_numpy(mask))
+    assert out.grad_fn is not None
+    return torch.autograd.grad(out, leaves, torch.from_numpy(g).to(TORCH[dtype]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_matches_jax_pallas_interpret(dtype, masked):
+    """H = 1: the port's Function against ``jax.vjp`` of the Pallas
+    ``fused_linear_attention`` (its ``_bwd_reduce_kernel`` and
+    ``_bwd_apply_kernel``, interpret mode)."""
+    q, k, v = _qkv(8, h=1)
+    g = np.random.default_rng(9).standard_normal(v.shape).astype(np.float32)
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    (jq, jk, jv), _ = _both((q, k, v), dtype)
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, node_mask=jmask, block=128,
+                                               interpret=True), jq, jk, jv)
+    want = vjp(jnp.asarray(g).astype(JNP[dtype]))
+    got = _port_vjp(q, k, v, g, dtype, mask)
+    assert all(t.dtype == TORCH[dtype] for t in got)
+    _grads_close(got, want, TOL[dtype]["rtol"])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_multihead_matches_jax_xla(masked):
+    """H = 2: one norm over all heads, so dinv is summed over the heads
+    before either head's apply; the XLA ``linear_attention`` is the
+    reference (the Pallas path normalises each head alone)."""
+    q, k, v = _qkv(10, n=60, h=2)  # few rows: the attention terms are not tiny
+    g = np.random.default_rng(11).standard_normal(v.shape).astype(np.float32)
+    mask = (np.arange(q.shape[0]) % 5 != 0).astype(np.float32) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jax_linear_attention(a, b, c, node_mask=jmask),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    _grads_close(_port_vjp(q, k, v, g, "f32", mask), want, TOL["f32"]["rtol"])
+
+
+def test_all_masked_gradients_are_finite_zeros():
+    """Zero norms: the forward's guard carries into the backward (no 0/0 in
+    the dinv terms), as in autograd of the guarded XLA path; the Pallas
+    backward has no guard (kernels/attention.py:213)."""
+    q, k, v = _qkv(12, n=50, h=2)
+    g = np.ones_like(v)
+    mask = np.zeros(q.shape[0], np.float32)
+    got = _port_vjp(q, k, v, g, "f32", mask)
+    _, vjp = jax.vjp(lambda a, b, c: jax_linear_attention(a, b, c,
+                                                          node_mask=jnp.asarray(mask)),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    for t, w in zip(got, vjp(jnp.asarray(g))):
+        assert np.isfinite(t.numpy()).all() and not t.numpy().any()
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_plain_backward_matches_autograd_of_plain_forward(guard):
+    """``bwd_reduce_plain`` and ``bwd_apply_plain`` write out the Pallas
+    kernels' hand-derived formulas; torch autograd of ``reduce_plain`` +
+    ``apply_plain`` must give the same dq, dk, dv (f32, 1e-5 of scale)."""
+    q, k, v = (a[:, 0] for a in _qkv(13, n=80))
+    g = np.random.default_rng(14).standard_normal(v.shape).astype(np.float32)
+    if guard:  # masked rows are zeros, n counts the rest
+        keep = (np.arange(80) % 4 != 1).astype(np.float32)[:, None]
+        q, k, v = q * keep, k * keep, v * keep
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tg = torch.from_numpy(g)
+    n = torch.tensor(float(keep.sum() if guard else 80))
+    kvs, ksum, scal = attn.reduce_plain(tq, tk, tv, guard)
+    out = attn.apply_plain(tq, tv, kvs, ksum, scal, n, guard)
+    want = torch.autograd.grad(out, (tq, tk, tv), tg)
+    with torch.no_grad():
+        parts = attn.bwd_reduce_plain(tq, tv, tg, kvs, ksum, scal, n, guard)
+        got = attn.bwd_apply_plain(tq, tk, tv, tg, kvs, ksum, scal, n, *parts, guard)
+    _grads_close(got, want, 1e-5)
+
+
+def test_no_autograd_function_where_autograd_does_not_record():
+    """Under ``no_grad`` / ``inference_mode`` the kernels run directly and
+    nothing is saved for a backward."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(15, n=40))
+    assert type(fused_linear_attention(q, k, v).grad_fn).__name__ \
+        == "LinearAttentionFunctionBackward"
+    with torch.no_grad():
+        assert fused_linear_attention(q, k, v).grad_fn is None
+    with torch.inference_mode():
+        assert fused_linear_attention(q, k, v).grad_fn is None

@@ -130,3 +130,103 @@ def test_predictor_on_the_card_matches_the_cpu(cuda, compute_dtype):
     else:
         assert (logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)).mean() >= 0.99
         np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=0, atol=5e-2)
+
+
+def _check_rel(got, want, rel):
+    """max |got - want| <= rel * max |want| (gradients are far from O(1) at
+    these sizes, so the forward's tolerances apply to each tensor's scale)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= rel * want.abs().max()
+
+
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,m,d", [(1, 256, 256), (2, 48, 80), (1, 64, 128), (3, 16, 8)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked):
+    n = 1000  # not a multiple of the 64-row tile or the 32-row step
+    q, k = (torch.randn(n, heads, m, device=cuda).to(dtype) for _ in range(2))
+    v = torch.randn(n, heads, d, device=cuda).to(dtype)
+    g = torch.randn(n, heads, d, device=cuda).to(dtype)
+    mask = (torch.arange(n, device=cuda) % 3 != 1).float() if masked else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    r0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
+    got = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
+    assert (attn.bwd_reduce_launches - r0, attn.bwd_apply_launches - a0) == (heads, heads)
+    want = torch.autograd.grad(linear_attention(*leaves, node_mask=mask), leaves, g)
+    for a, b in zip(got, want):
+        _check_rel(a, b, BWD_REL[dtype])
+    again = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # each kernel alone against its plain version, with n = 1 so that the
+    # attention products carry the gradients. The reduce is held to the
+    # plain version evaluated in f64 on the same inputs; dinv's two sums
+    # (sum gd*a and sum gden*b) cancel there to ~1e-4 of their size, so any
+    # f32 evaluation of it, the plain version's included, is exact only to a
+    # share of the sums' magnitude, which is its scale here
+    qp, kp = (torch.rand(n, m, device=cuda).to(dtype) for _ in range(2))
+    vp, gp = (torch.rand(n, d, device=cuda).to(dtype) for _ in range(2))
+    one = torch.ones((), device=cuda)
+    sums = attn.reduce_plain(qp, kp, vp, False)
+    got_r = attn.bwd_reduce(qp, vp, gp, *sums, one)
+    qd, vd, gd, kvs, ksum = (t.double() for t in (qp, vp, gp, *sums[:2]))
+    exact = attn.bwd_reduce_plain(qd, vd, gd, kvs, ksum, sums[2].double(), one.double(), False)
+    for i in (0, 1, 3):  # P, ds, rows
+        _check_rel(got_r[i], exact[i], 1e-5)
+    a, b = qd @ kvs, qd @ ksum
+    den, gden = exact[3]
+    dinv_scale = (gd / den[:, None] * a).abs().sum() + (gden * b).abs().sum()
+    assert (got_r[2].double() - exact[2]).abs() <= 1e-5 * dinv_scale
+    want_r = attn.bwd_reduce_plain(qp, vp, gp, *sums, one, False)
+    got_a = attn.bwd_apply(qp, kp, vp, gp, *sums, one, *want_r)
+    want_a = attn.bwd_apply_plain(qp, kp, vp, gp, *sums, one, *want_r, False)
+    for a, b in zip(got_a, want_a):
+        _check_rel(a, b, BWD_REL[dtype])
+
+
+def test_all_masked_attention_gradients_are_finite_zeros(cuda):
+    leaves = [torch.randn(500, 2, 32, device=cuda).requires_grad_() for _ in range(3)]
+    out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(500, device=cuda))
+    for t in torch.autograd.grad(out, leaves, torch.randn_like(out)):
+        assert torch.isfinite(t).all() and not t.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("undirected", [True, False])
+def test_spmm_gradient_runs_the_kernel_on_the_transpose(cuda, dtype, undirected):
+    rng = np.random.default_rng(3)
+    n = 700
+    ei = rng.integers(0, n, (2, 4000))
+    g = preprocess_graph(ei, n, undirected=undirected, device=cuda)
+    x = torch.randn(n, 40, device=cuda).to(dtype).requires_grad_()
+    w = torch.randn(n, 40, device=cuda).to(dtype)
+    before = kernels.spmm.launches
+    got = torch.autograd.grad(g.propagate(x), x, w)[0]
+    assert kernels.spmm.launches == before + 2
+    want = torch.autograd.grad(spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n), x, w)[0]
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    from sgformer_tpu_torch.train import TrainConfig, Trainer
+
+    rng = np.random.default_rng(4)
+    n = 900
+    ei = rng.integers(0, n, (2, 5000))
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    label = rng.integers(0, 5, (n, 1))
+    cfg = SGFormerConfig.large(64, 5, gnn_num_layers=3, trans_dropout=0.0, gnn_dropout=0.0)
+    tc = TrainConfig(lr=1e-2, trans_weight_decay=1e-3, gnn_weight_decay=5e-4)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = SGFormer(cfg, 24, device=dev)
+        trainer = Trainer(model, preprocess_graph(ei, n, device=dev), x, label, tc, device=dev)
+        trainer.init_state(0)
+        idx = trainer.prepare_train_idx({"train": np.arange(0, n, 2)})
+        losses[dev] = trainer.multi_step(idx, 4).cpu().numpy()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert losses["cuda"][-1] < losses["cuda"][0]

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads no JAX, flax or JAX package
-module, its sources call no library for what its kernels compute, and its
+"""The port stands alone: importing it loads no JAX, flax, optax, orbax,
+scikit-learn or JAX package module (the machine with the card has none of
+them), its sources call no library for what its kernels compute, and its
 entry points refuse to run without CUDA unless asked for the CPU."""
 
 import os
@@ -28,7 +29,8 @@ def test_import_loads_no_jax():
         "for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__, 'sgformer_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sgformer_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                                    'sklearn', 'sgformer_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -47,7 +49,7 @@ def _sources():
 
 def test_sources_use_no_library_for_the_kernels_work():
     banned = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|sgformer_tpu)\b"
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|sklearn|sgformer_tpu)\b"
         r"|torch\.sparse|torch\.matmul|torch\.compile|cublas|cusparse",
         re.MULTILINE | re.IGNORECASE,
     )
@@ -55,12 +57,17 @@ def test_sources_use_no_library_for_the_kernels_work():
              for m in banned.finditer(text)]
     assert not found, found
     modules = {m.name for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__)}
-    assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert"} <= modules
+    assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert", "train",
+            "utils"} <= modules
 
 
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PKG_DIR, "csrc")
-    assert sorted(os.listdir(csrc)) == ["linear_attention.cu", "spmm.cu"]
+    from sgformer_tpu_torch.kernels import _build
+
+    assert sorted(os.listdir(csrc)) == ["linear_attention.cu", "linear_attention_bwd.cu",
+                                        "spmm.cu"]
+    assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(os.listdir(csrc))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -79,3 +86,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Predictor(model, graph, np.zeros((3, 4), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         graph.to("cuda")
+    from sgformer_tpu_torch.train import TrainConfig, Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, graph, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
+                TrainConfig())

@@ -1,8 +1,11 @@
 """The port's SpMM (plain version, and the CSR kernel wrapper's CPU path)
 against the JAX package: its XLA ``spmm`` and its Pallas slab SpMM
 (``_ssel_kernel`` + ``_spmm_kernel``, run in interpret mode), the two TPU
-kernels the port's one CSR kernel replaces."""
+kernels the port's one CSR kernel replaces; forward, and the gradient
+``A^T @ g`` that the port computes through the same wrapper on the
+transposed CSR."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +110,83 @@ def test_bf16_sum_is_f32_then_rounded_once():
     err_port = (got.double() - exact).abs().max().item()
     err_jax = np.abs(jax_out - exact.numpy()).max()
     assert err_port <= err_jax
+
+
+def _port_grad(ei, n, x, w, undirected=True):
+    g = preprocess_graph(ei, n, undirected=undirected, device="cpu")
+    tx = torch.from_numpy(x).requires_grad_()
+    out = g.propagate(tx)
+    assert type(out.grad_fn).__name__ == "CsrSpmmFunctionBackward"
+    return torch.autograd.grad(out, tx, torch.from_numpy(w))[0].numpy()
+
+
+@pytest.mark.parametrize("undirected", [True, False])
+def test_spmm_gradient_matches_jax_xla(undirected):
+    """jax.grad through the JAX ``Graph.propagate`` (XLA path): with
+    ``undirected=False`` A is not symmetric and the port's backward reads
+    the CSR of A^T (f32, rtol 1e-5 / atol 1e-6)."""
+    ei, n = _clustered_edges(7)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((n, 20)).astype(np.float32)
+    w = rng.standard_normal((n, 20)).astype(np.float32)
+    jg = jax_preprocess_graph(ei, n, undirected=undirected)
+    want = jax.grad(lambda a: jnp.sum(jg.propagate(a) * w))(jnp.asarray(x))
+    got = _port_grad(ei, n, x, w, undirected)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    if not undirected:  # the gradient is A^T g, which A g is not here
+        sym = _port_grad(ei, n, x, w, True)
+        assert np.abs(got - sym).max() > 1e-2
+
+
+def test_spmm_gradient_matches_jax_slab_kernels_interpret():
+    """jax.grad through the slab SpMM in interpret mode, whose VJP runs the
+    forward kernels on the transpose plan (``_slab_core_bwd``), compared in
+    the original node order (f32, rtol 1e-5 / atol 1e-6)."""
+    ei, n = _clustered_edges(9)
+    jg = jax_preprocess_graph(ei, n, with_chunks=True, spmm_mode="ssel",
+                              slab_rows=128, chunk_dtype="f32",
+                              chunk_interpret=True)
+    perm = np.asarray(jg.node_perm)
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    w = rng.standard_normal((n, 24)).astype(np.float32)
+    grad_perm = jax.grad(lambda a: jnp.sum(jg.propagate(a) * w[perm]))(jnp.asarray(x[perm]))
+    want = np.empty_like(x)
+    want[perm] = np.asarray(grad_perm)
+    np.testing.assert_allclose(_port_grad(ei, n, x, w), want, rtol=1e-5, atol=1e-6)
+
+
+def test_transposed_csr_only_where_a_is_not_symmetric():
+    ei, n = _clustered_edges(11, n=60, e=200)
+    sym = preprocess_graph(ei, n, device="cpu", with_pyg_norm=True)
+    assert sym.symmetric and sym.t_indptr is None and sym.pyg_t_indptr is None
+    g = preprocess_graph(ei, n, undirected=False, device="cpu", with_pyg_norm=True)
+    assert not g.symmetric
+    for kind, fwd, bwd in (
+        ("gcn", (g.edge_src, g.edge_dst, g.gcn_weight), (g.t_edge_src, g.t_edge_dst, g.t_weight)),
+        ("pyg", (g.pyg_src, g.pyg_dst, g.pyg_weight), (g.pyg_t_src, g.pyg_t_dst, g.pyg_t_weight)),
+    ):
+        dense = torch.zeros(n, n)
+        dense[fwd[1].long(), fwd[0].long()] = fwd[2]  # A[dst, src]
+        dense_t = torch.zeros(n, n)
+        dense_t[bwd[1].long(), bwd[0].long()] = bwd[2]
+        assert torch.equal(dense_t, dense.t()), kind
+        assert not torch.equal(dense, dense.t()), kind
+    assert torch.equal(g.t_indptr, torch.from_numpy(
+        np.searchsorted(g.t_edge_dst.numpy(), np.arange(n + 1)).astype(np.int32)))
+    x = torch.randn(n, 3, requires_grad=True)
+    gx = torch.autograd.grad(g.propagate(x, kind="pyg").sum(), x)[0]
+    ones = torch.ones(n, 3)
+    want = spmm(ones, g.pyg_dst, g.pyg_src, g.pyg_weight, n)  # A^T @ 1
+    torch.testing.assert_close(gx, want)
+
+
+def test_spmm_saves_nothing_where_autograd_does_not_record():
+    ei, n = _clustered_edges(12, n=60, e=200)
+    g = preprocess_graph(ei, n, device="cpu")
+    x = torch.randn(n, 4, requires_grad=True)
+    with torch.inference_mode():
+        assert g.propagate(x).grad_fn is None
+    with torch.no_grad():
+        assert g.propagate(x).grad_fn is None
+    assert g.propagate(x.detach()).grad_fn is None
