@@ -26,7 +26,18 @@ JAX package. Phases, each failing loudly:
    ``train_idx = arange(0, N, 2)``: one step's loss and gradients against the
    same step through the plain versions (same weights, same dropout masks),
    the launches of one step, ``time_test`` over 20 steps (the loss must
-   fall) and a profile of one step.
+   fall) and a profile of one step;
+7. the per-edge-value SpMM and its SDDMM gradient against their plain
+   versions at the shapes of GAT's two layers (H = 2, D = 256 and H = 1,
+   D = 40), in bf16 and f32, with time, bound, plain and library time;
+8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
+   powerlaw 1.1), width 256, bf16 and f32;
+9. arxiv-gat-train: ``GAT(hidden 256, 2 layers, 2 heads, dropout 0.5, BN)``
+   with bf16 messages behind ``Trainer`` with the CLI's baseline optimiser
+   (lr 0.01, weight decay 5e-3): one step's loss and gradients against the
+   plain step, the launches of one step and of one ``eval_step``, the eval
+   logits against the plain forward, ``time_test`` over 20 steps (the loss
+   must fall) and a profile of one step.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -79,10 +90,39 @@ TRAIN_EPOCHS, TRAIN_WARMUP = 20, 3
 # launches of one train step of the bench model (3 GraphConv layers)
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
-                 "linear_attention_bwd_apply": 1}
+                 "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "sddmm": 0}
+# launches of one forward of the bench model (serving, evaluation)
+FORWARD_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=3, linear_attention_bwd_reduce=0,
+                        linear_attention_bwd_apply=0)
+# arxiv-gat-train: GAT at the bench model's width, the CLI's baseline
+# optimiser (cli/parse.py, cli/main.py of the JAX package)
+GAT_CONFIG = dict(hidden_channels=256, out_channels=40, num_layers=2, heads=2,
+                  out_heads=1, dropout=0.5, use_bn=True)
+GAT_TRAIN = dict(lr=0.01, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
+# launches of one GAT train step (2 aggregations forward, 2 dx on the
+# transposed order, 2 dv) and of one eval forward
+GAT_STEP_LAUNCHES = {"csr_spmm": 0, "linear_attention_reduce": 0,
+                     "linear_attention_apply": 0, "linear_attention_bwd_reduce": 0,
+                     "linear_attention_bwd_apply": 0, "csr_spmm_ev": 4, "sddmm": 2}
+GAT_FORWARD_LAUNCHES = dict(GAT_STEP_LAUNCHES, csr_spmm_ev=2, sddmm=0)
+# one GAT train step through the kernels against the same step through the
+# plain versions: the forward sends the same bf16 messages and sums them in
+# f32 in another order (loss 1e-4); the plain backward (torch autograd of
+# the plain forward) rounds dx's sums to bf16 where the kernel rounds g, and
+# reads the rounded x for dv where the kernel reads x: one bf16 rounding,
+# 2^-8, of the terms (gradients 2e-2, as TRAIN_GRAD_RTOL)
+GAT_LOSS_RTOL = 1e-4
+GAT_GRAD_RTOL = 2e-2
+# eval logits through the kernels against the plain forward, as a share of
+# their largest magnitude: the same roundings, another summation order,
+# amplified through two layers of attention softmax
+GAT_LOGITS_RTOL = 1e-3
+# the JAX package's power-law bench graph (BENCH.md, scripts/microbench_hub.py)
+POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
+                      num_classes=40, powerlaw=1.1, seed=0)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
-    ("port kernels", ("la_", "csr_spmm")),
+    ("port kernels", ("la_", "csr_spmm", "sddmm")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("reductions", ("reduce_kernel",)),
     ("dtype copies", ("copy_kernel",)),
@@ -156,7 +196,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def spmm_phase(graph, results: dict, dev: str) -> None:
+def library_time(what: str, fn):
+    """ms of a PyTorch yardstick call, or None where the card's build does
+    not offer it for these inputs (the port never calls it)."""
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return time_ms(fn)
+    except RuntimeError as exc:
+        log(f"{what}: not available ({str(exc).splitlines()[0]})")
+        return None
+
+
+def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm") -> None:
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
@@ -169,27 +221,23 @@ def spmm_phase(graph, results: dict, dev: str) -> None:
         want = spmm_plain(x, graph.edge_src, graph.edge_dst, graph.gcn_weight, n)
         torch.cuda.synchronize()
         name = DTYPE_NAME[dtype]
-        err = check_close(f"csr_spmm {name} F={f}", got, want, **TOL[dtype])
+        err = check_close(f"{key} {name} F={f}", got, want, **TOL[dtype])
         if not torch.equal(got, csr_spmm(x, *args)):
             raise AssertionError("csr_spmm is not bitwise repeatable")
         ms = time_ms(lambda: csr_spmm(x, *args))
         plain_ms = time_ms(lambda: spmm_plain(
             x, graph.edge_src, graph.edge_dst, graph.gcn_weight, n))
-        library_ms = None
-        try:
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", UserWarning)
-                a = torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
-                                            graph.gcn_weight.to(dtype), size=(n, n))
-            library_ms = time_ms(lambda: torch.sparse.mm(a, x))
-        except RuntimeError as exc:  # the yardstick only; the port never calls it
-            log(f"torch.sparse.mm {name}: not available ({str(exc).splitlines()[0]})")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
+                                        graph.gcn_weight.to(dtype), size=(n, n))
+        library_ms = library_time(f"torch.sparse.mm {name}", lambda: torch.sparse.mm(a, x))
         elt = x.element_size()
         nbytes = 2 * n * f * elt + e * (4 + 4) + (n + 1) * 4
         b_ms, b_by = bound(nbytes, 2 * e * f, dtype)
-        log(f"csr_spmm {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
             f"torch.sparse.mm {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
-        results[("csr_spmm", name)] = dict(
+        results[(key, name)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms)
 
@@ -362,6 +410,86 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
     log("attention gradient all-masked bf16: finite zeros")
 
 
+def edge_value_phase(graph, results: dict, dev: str) -> None:
+    """csr_spmm_ev and sddmm at the shapes of GAT's two layers on the arxiv
+    graph, against their plain versions, with time and bound; the library
+    yardsticks compute one head per call (``torch.sparse.mm`` on a CSR
+    tensor of that head's values, ``torch.sparse.sampled_addmm`` on A's
+    pattern), so at H = 2 they are timed as one call per head."""
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm_ev, sddmm
+    from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values
+
+    n, e = graph.num_nodes, graph.num_edges
+    src, dst = graph.edge_src, graph.edge_dst
+    csr = (graph.indptr, src, dst)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for layer, (heads, d) in enumerate(((2, 256), (1, 40))):
+        x32 = torch.randn(n, heads, d, generator=gen, device=dev)
+        g32 = torch.randn(n, heads, d, generator=gen, device=dev)
+        v = torch.rand(e, heads, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = DTYPE_NAME[dtype]
+            tag = f"{name} H={heads} D={d}"
+            x, g = x32.to(dtype), g32.to(dtype)
+            elt = x.element_size()
+            # the aggregation as GAT sends it: messages in dtype, f32 result
+            got = csr_spmm_ev(x, *csr, v, torch.float32)
+            want = spmm_edge_values(x, src, dst, v, n, torch.float32)
+            torch.cuda.synchronize()
+            err = check_close(f"csr_spmm_ev {tag}", got, want, **TOL[torch.float32])
+            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32)):
+                raise AssertionError("csr_spmm_ev is not bitwise repeatable")
+            del got, want
+            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32))
+            plain_ms = time_ms(lambda: spmm_edge_values(x, src, dst, v, n, torch.float32))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                mats = [torch.sparse_csr_tensor(graph.indptr, src, v[:, h].to(dtype),
+                                                size=(n, n)) for h in range(heads)]
+            cols = [x[:, h].contiguous() for h in range(heads)]
+            library_ms = library_time(
+                f"torch.sparse.mm {tag}",
+                lambda: [torch.sparse.mm(a, c) for a, c in zip(mats, cols)])
+            nbytes = n * heads * d * (elt + 4) + e * (4 + 4 * heads) + (n + 1) * 4
+            b_ms, b_by = bound(nbytes, 2 * e * heads * d, dtype)
+            log(f"csr_spmm_ev {tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, torch.sparse.mm "
+                f"x{heads} {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
+            results[("csr_spmm_ev", name, layer)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+            # the values' gradient: g and x as the forward received them
+            dv = sddmm(g, x, *csr)
+            want = sddmm_plain(g.float(), x.float(), src, dst)
+            torch.cuda.synchronize()
+            err = check_rel(f"sddmm {tag}", dv, want, REDUCE_REL_TOL)
+            if not torch.equal(dv, sddmm(g, x, *csr)):
+                raise AssertionError("sddmm is not bitwise repeatable")
+            del dv, want
+            ms = time_ms(lambda: sddmm(g, x, *csr))
+            plain_ms = time_ms(lambda: sddmm_plain(g.float(), x.float(), src, dst), iters=5)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                pattern = torch.sparse_csr_tensor(graph.indptr, src,
+                                                  torch.zeros(e, device=dev), size=(n, n))
+            gf = [g[:, h].float().contiguous() for h in range(heads)]
+            xt = [x[:, h].float().t() for h in range(heads)]
+            library_ms = library_time(
+                f"torch.sparse.sampled_addmm {tag}",
+                lambda: [torch.sparse.sampled_addmm(pattern, a, b, beta=0.0)
+                         for a, b in zip(gf, xt)])
+            nbytes = 2 * n * heads * d * elt + e * (4 + 4 * heads) + (n + 1) * 4
+            b_ms, b_by = bound(nbytes, 2 * e * heads * d, dtype)
+            log(f"sddmm {tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sampled_addmm "
+                f"x{heads} {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
+            results[("sddmm", name, layer)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+            del x, g, mats, cols, gf, xt, pattern
+        torch.cuda.empty_cache()
+
+
 def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     import numpy as np
 
@@ -395,11 +523,7 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     counts = kernels.launch_counts()
     forwards = len(requests) * REQUEST_ROUNDS
     log(f"launches over {forwards} forwards: {counts}")
-    want = {"csr_spmm": cfg.gnn_num_layers * forwards,
-            "linear_attention_reduce": forwards,
-            "linear_attention_apply": forwards,
-            "linear_attention_bwd_reduce": 0,
-            "linear_attention_bwd_apply": 0}
+    want = {k: c * forwards for k, c in FORWARD_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     for what, ts in times.items():
@@ -437,38 +561,84 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
 
 
 def plain_versions():
-    """Patch the kernels out of the model's path: the GCN aggregation and
-    the attention run through their plain versions, with torch autograd for
-    the gradients."""
+    """Patch the kernels out of the model's path: the GCN aggregation, the
+    per-edge-value aggregation and the attention run through their plain
+    versions, with torch autograd for the gradients."""
     import contextlib
 
     from sgformer_tpu_torch.kernels import attention as attn_kernel
     from sgformer_tpu_torch.kernels import spmm as spmm_kernel
     from sgformer_tpu_torch.ops.attention import linear_attention
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values
 
     def plain_csr(x, csr, csr_t):
         indptr, edge_src, edge_dst, weight = csr
         return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
 
+    def plain_ev(x, values, csr, csr_t, msg_dtype):
+        indptr, edge_src, edge_dst = csr
+        return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
+                                indptr.shape[0] - 1, x.dtype)
+
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_autograd", plain_csr))
+    stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_ev_autograd", plain_ev))
     stack.enter_context(mock.patch.object(attn_kernel, "fused_linear_attention",
                                           linear_attention))
     return stack
 
 
-def train_phase(ds, graph, dev: str) -> tuple[dict, dict]:
-    import numpy as np
-
-    from sgformer_tpu_torch import SGFormer, SGFormerConfig, kernels
-    from sgformer_tpu_torch.train import TrainConfig, Trainer, time_test
+def train_phase(ds, graph, dev: str) -> tuple[dict, dict, dict]:
+    """arxiv-train: the bench model behind ``Trainer``."""
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig
 
     cfg = SGFormerConfig.large(256, 40, **BENCH_CONFIG)
     model = SGFormer(cfg, ds.graph["node_feat"].shape[1],
                      generator=torch.Generator().manual_seed(0), device=dev)
-    tc = TrainConfig(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
-    trainer = Trainer(model, graph, ds.graph["node_feat"], ds.label, tc, device=dev)
+    # a bias that feeds a train-mode BatchNorm has an exact gradient of 0
+    # (the batch mean takes any shift out); what both paths compute for it is
+    # rounding noise, so it is held to the gradient of the BatchNorm shift
+    # after it
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
+                     for i in range(cfg.gnn_num_layers)})
+    tc = dict(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
+    return train_path("train", model, ds, graph, tc, STEP_LAUNCHES, FORWARD_LAUNCHES,
+                      TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, (LOGITS_ATOL, 0.0), scale_of, dev)
+
+
+def gat_train_phase(ds, graph, dev: str) -> tuple[dict, dict, dict]:
+    """arxiv-gat-train: GAT at the bench width behind ``Trainer``."""
+    from sgformer_tpu_torch.nn import GAT
+
+    cfg = GAT_CONFIG
+    model = GAT(ds.graph["node_feat"].shape[1], cfg["hidden_channels"], cfg["out_channels"],
+                **{k: v for k, v in cfg.items() if k not in ("hidden_channels", "out_channels")},
+                generator=torch.Generator().manual_seed(0), device=dev)
+    scale_of = {f"conv_{i}.bias": f"bn_{i}.bias" for i in range(cfg["num_layers"] - 1)}
+    return train_path("gat", model, ds, graph, GAT_TRAIN, GAT_STEP_LAUNCHES,
+                      GAT_FORWARD_LAUNCHES, GAT_LOSS_RTOL, GAT_GRAD_RTOL,
+                      (0.0, GAT_LOGITS_RTOL), scale_of, dev)
+
+
+def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_launches: dict,
+               loss_rtol: float, grad_rtol: float, logits_tol: tuple, scale_of: dict,
+               dev: str) -> tuple[dict, dict, dict]:
+    """One model behind ``Trainer`` with ``train_idx = arange(0, N, 2)``:
+    (a) one step's loss and gradients through the kernels against the same
+    step through the plain versions, from the same weights and dropout
+    masks; (b) the launches of one step and of one ``eval_step``, and the
+    eval logits against the plain forward; (c) ``time_test``, the path's
+    run; (d) a profile of one step. ``logits_tol`` is (absolute, share of
+    the largest logit). Returns the launches of (b) and (c)."""
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.train import TrainConfig, Trainer, time_test
+
+    trainer = Trainer(model, graph, ds.graph["node_feat"], ds.label, TrainConfig(**tc),
+                      device=dev)
     n = graph.num_nodes
     split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
              "test": np.arange(3, n, 4)}
@@ -494,18 +664,12 @@ def train_phase(ds, graph, dev: str) -> tuple[dict, dict]:
         loss_p, grads_p = loss_and_grads()
     if any(kernels.launch_counts().values()):
         raise AssertionError("the plain step launched a kernel")
+    torch.cuda.empty_cache()
     rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"train step loss: kernels {loss_k:.6f}, plain {loss_p:.6f}, relative "
-        f"difference {rel_loss:.2e} (tolerance {TRAIN_LOSS_RTOL})")
-    if not rel_loss <= TRAIN_LOSS_RTOL:
-        raise AssertionError("train step loss disagrees with the plain step")
-    # a bias that feeds a train-mode BatchNorm has an exact gradient of 0
-    # (the batch mean takes any shift out); what both paths compute for it is
-    # rounding noise, so it is held to the gradient of the BatchNorm shift
-    # after it
-    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
-    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
-                     for i in range(cfg.gnn_num_layers)})
+    log(f"{what} step loss: kernels {loss_k:.6f}, plain {loss_p:.6f}, relative "
+        f"difference {rel_loss:.2e} (tolerance {loss_rtol})")
+    if not rel_loss <= loss_rtol:
+        raise AssertionError(f"{what} step loss disagrees with the plain step")
     worst = (0.0, "")
     for name, gk in grads_k.items():
         if not torch.isfinite(gk).all():
@@ -513,47 +677,64 @@ def train_phase(ds, graph, dev: str) -> tuple[dict, dict]:
         gp = grads_p[name]
         rel = ((gk - gp).norm() / grads_p[scale_of.get(name, name)].norm()).item()
         worst = max(worst, (rel, name))
-        if not rel <= TRAIN_GRAD_RTOL:
+        if not rel <= grad_rtol:
             raise AssertionError(f"gradient of {name}: |g_kernel - g_plain| / |g_plain| "
-                                 f"= {rel:.3e} > {TRAIN_GRAD_RTOL}")
-    log(f"train step gradients: {len(grads_k)} parameters finite, largest "
+                                 f"= {rel:.3e} > {grad_rtol}")
+    log(f"{what} step gradients: {len(grads_k)} parameters finite, largest "
         f"|g_kernel - g_plain| / |g_plain| = {worst[0]:.3e} ({worst[1]}, "
-        f"tolerance {TRAIN_GRAD_RTOL})")
+        f"tolerance {grad_rtol})")
+    del grads_k, grads_p
     model.load_state_dict(snapshot)
 
-    # (b) the launches of one train step
+    # (b) the launches of one train step and of one eval forward; the eval
+    # logits against the same forward through the plain versions
     kernels.reset_launch_counts()
     trainer.train_step(train_idx)
     torch.cuda.synchronize()
     per_step = kernels.launch_counts()
-    log(f"launches of one train step: {per_step}")
-    if per_step != STEP_LAUNCHES:
-        raise AssertionError(f"launch counts {per_step}, expected {STEP_LAUNCHES}")
+    log(f"launches of one {what} step: {per_step}")
+    if per_step != step_launches:
+        raise AssertionError(f"launch counts {per_step}, expected {step_launches}")
+    kernels.reset_launch_counts()
+    logits = trainer.eval_step()
+    torch.cuda.synchronize()
+    per_forward = kernels.launch_counts()
+    log(f"launches of one {what} eval_step: {per_forward}")
+    if per_forward != forward_launches:
+        raise AssertionError(f"launch counts {per_forward}, expected {forward_launches}")
+    with plain_versions():
+        ref = trainer.eval_step()
+    diff = (logits - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"{what} eval logits {tuple(logits.shape)} vs the plain forward: max |diff| "
+        f"{diff:.3e}, {diff / scale:.2e} of the largest logit {scale:.3e} (tolerance "
+        f"{logits_tol[0]} + {logits_tol[1]} of it), argmax agreement {agree:.5f}")
+    if (logits.shape != (n, 40) or not torch.isfinite(logits).all()
+            or diff > logits_tol[0] + logits_tol[1] * scale or agree < ARGMAX_AGREEMENT):
+        raise AssertionError(f"{what} eval logits disagree with the plain forward")
+    del logits, ref
 
-    # (c) time_test: the training path's run
+    # (c) time_test: the path's run
     kernels.reset_launch_counts()
     res = time_test(trainer, split, epochs=TRAIN_EPOCHS, warmup=TRAIN_WARMUP)
     run_counts = kernels.launch_counts()
     steps = TRAIN_EPOCHS + TRAIN_WARMUP
-    log(f"launches over time_test ({steps} train steps, 2 forwards): {run_counts}")
-    want = {k: c * steps for k, c in STEP_LAUNCHES.items()}
-    # and the two timed forwards: their SpMMs, reduce and apply
-    want["csr_spmm"] += 2 * cfg.gnn_num_layers
-    want["linear_attention_reduce"] += 2
-    want["linear_attention_apply"] += 2
+    log(f"launches over {what} time_test ({steps} train steps, 2 forwards): {run_counts}")
+    want = {k: c * steps + 2 * forward_launches[k] for k, c in step_launches.items()}
     if run_counts != want:
         raise AssertionError(f"launch counts {run_counts}, expected {want}")
     losses = res.losses
-    log(f"time_test: {res.per_epoch_ms:.3f} ms per train step over {TRAIN_EPOCHS} "
+    log(f"{what} time_test: {res.per_epoch_ms:.3f} ms per train step over {TRAIN_EPOCHS} "
         f"steps, forward {res.forward_ms:.3f} ms, {res.edges_per_sec:.4e} edges/s, "
         f"peak memory {res.peak_memory_mb:.1f} MiB on {res.device}")
-    log(f"losses: first {losses[0]:.6f}, last 3 {[round(x, 6) for x in losses[-3:]]}")
+    log(f"{what} losses: first {losses[0]:.6f}, last 3 {[round(x, 6) for x in losses[-3:]]}")
     if not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
-        raise AssertionError("the loss did not fall over the train steps")
+        raise AssertionError(f"the {what} loss did not fall over the train steps")
 
     # (d) where one train step's device time goes
-    profile_device("train step", lambda: trainer.train_step(train_idx), 3)
-    return per_step, run_counts
+    profile_device(f"{what} step", lambda: trainer.train_step(train_idx), 3)
+    return per_step, per_forward, run_counts
 
 
 def profile_device(what: str, fn, reps: int) -> None:
@@ -620,7 +801,8 @@ def main() -> int:
 
     t = time.perf_counter()
     ds = synthetic_dataset("synth-arxiv", seed=0)
-    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes)
+    # bf16 messages for GAT's aggregation; the fixed-weight SpMM keeps x's type
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
     log(f"dataset + preprocess_graph: {time.perf_counter() - t:.1f} s "
         f"(N = {graph.num_nodes}, E = {graph.num_edges})")
     if (graph.num_nodes, graph.num_edges) != (169_343, 2_499_039):
@@ -631,11 +813,27 @@ def main() -> int:
     attention_phase(graph.num_nodes, results, "cuda")
     attention_bwd_phase(graph.num_nodes, results, "cuda")
     serve_counts, forwards = serve_phase(ds, graph, "cuda")
-    step_counts, train_counts = train_phase(ds, graph, "cuda")
+    step_counts, _, train_counts = train_phase(ds, graph, "cuda")
+    edge_value_phase(graph, results, "cuda")
 
+    t = time.perf_counter()
+    pl = synthetic_dataset(**POWERLAW_GRAPH)
+    pl_graph = preprocess_graph(pl.graph["edge_index"], pl.num_nodes)
+    deg = torch.diff(pl_graph.indptr)
+    log(f"power-law graph: {time.perf_counter() - t:.1f} s (N = {pl_graph.num_nodes}, "
+        f"E = {pl_graph.num_edges}, in-degree max {deg.max().item()}, "
+        f"mean {deg.float().mean().item():.1f})")
+    spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw")
+    del pl, pl_graph, deg
+    torch.cuda.empty_cache()
+
+    gat_step, gat_forward, gat_counts = gat_train_phase(ds, graph, "cuda")
+
+    via = "sgformer_tpu/kernels/spmm.py:34 via :253"
     sources = {
         "csr_spmm": ("sgformer_tpu_torch/csrc/spmm.cu",
-                     "sgformer_tpu/kernels/slab_spmm.py:131, sgformer_tpu/kernels/spmm.py:34"),
+                     "sgformer_tpu/kernels/slab_spmm.py:131, sgformer_tpu/kernels/slab_spmm.py:34, "
+                     "sgformer_tpu/kernels/spmm.py:34"),
         "linear_attention_reduce": ("sgformer_tpu_torch/csrc/linear_attention.cu",
                                     "sgformer_tpu/kernels/attention.py:47"),
         "linear_attention_apply": ("sgformer_tpu_torch/csrc/linear_attention.cu",
@@ -644,17 +842,33 @@ def main() -> int:
                                         "sgformer_tpu/kernels/attention.py:162"),
         "linear_attention_bwd_apply": ("sgformer_tpu_torch/csrc/linear_attention_bwd.cu",
                                        "sgformer_tpu/kernels/attention.py:209"),
+        "csr_spmm_ev": ("sgformer_tpu_torch/csrc/spmm.cu", via),
+        "sddmm": ("sgformer_tpu_torch/csrc/spmm.cu", via),
     }
-    # launches: the training path's run (time_test); the serving path's run
-    # and one train step beside it
+    # each kernel's numbers in its main path's type at its first layer's
+    # shapes (GAT sends bf16 messages and reads f32 for dv); launches from
+    # the run of the path that uses it (time_test), with one train step and
+    # one forward beside them
+    main = {"csr_spmm_ev": ("bf16", 0), "sddmm": ("f32", 0)}
     line = {"kernels": []}
     for name, (source, replaces) in sources.items():
-        r = results[(name, "bf16")]  # the main paths' type
+        if name in main:
+            dtype, layer = main[name]
+            r = dict(results[(name, dtype, layer)])
+            r.update({f"layer1_{k}": v for k, v in results[(name, dtype, 1)].items()
+                      if k.endswith("ms")})
+            counts, per_step, per_forward = gat_counts, gat_step, gat_forward
+        else:
+            r = dict(results[(name, "bf16")])
+            counts, per_step = train_counts, step_counts
+            per_forward = {k: c / forwards for k, c in serve_counts.items()}
+        if name == "csr_spmm":
+            r.update({f"powerlaw_{k}": v for k, v in
+                      results[("csr_spmm_powerlaw", "bf16")].items() if k.endswith("ms")})
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_counts[name], "launches_serving": serve_counts[name],
-            "launches_per_forward": serve_counts[name] / forwards,
-            "launches_per_train_step": step_counts[name], **r,
+            "launches": counts[name], "launches_per_forward": per_forward[name],
+            "launches_per_train_step": per_step[name], **r,
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

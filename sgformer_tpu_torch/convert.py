@@ -1,4 +1,4 @@
-"""Copy a JAX SGFormer's variables into the port's modules.
+"""Copy a JAX model's variables into the port's modules.
 
 ``load_flax_variables(model, variables)`` takes the flax variable tree
 ``{"params": ..., "batch_stats": ...}`` (nested dicts of numpy arrays, or
@@ -10,7 +10,14 @@ port's submodules carry the flax names (``trans_conv.conv_0.Wq``,
   ``bias`` -> ``bias``;
 - ``LayerNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 - ``MaskedBatchNorm``: ``scale``/``bias`` from params, ``mean``/``var`` from
-  batch_stats -> ``running_mean``/``running_var``.
+  batch_stats -> ``running_mean``/``running_var``;
+- parameters that flax declares with ``self.param`` rather than through a
+  submodule, listed by the module in ``FLAX_PARAMS`` and kept in the flax
+  layout, so each is copied by path with no transposition:
+  ``GATConv.att_src``/``att_dst`` [1, H, D] and ``bias``;
+  ``GCNConv.kernel`` [in, out] (applied as ``x @ kernel``) and ``bias``;
+  ``MixHopLayer.lin_{j}_kernel`` [in, out] and ``lin_{j}_bias``;
+  ``LINK.weight`` [N, C] and ``bias``; ``GPRGNN.gamma`` [K + 1].
 
 A key the module lacks, or a module tensor the tree lacks, raises KeyError;
 a shape that differs raises ValueError.
@@ -55,6 +62,8 @@ def _plan(model: nn.Module):
             yield ("params",) + path + ("bias",), mod.bias, False
             yield ("batch_stats",) + path + ("mean",), mod.running_mean, False
             yield ("batch_stats",) + path + ("var",), mod.running_var, False
+        for pname in getattr(mod, "FLAX_PARAMS", ()):
+            yield ("params",) + path + (pname,), getattr(mod, pname), False
 
 
 def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:

@@ -1,32 +1,51 @@
-// CSR SpMM for Hopper (sm_90a): the GCN aggregation A_norm @ X.
+// CSR SpMM and its SDDMM gradient for Hopper (sm_90a): the GCN aggregation
+// A_norm @ X and GAT's per-head aggregation with runtime edge values.
 //
-//   out[i, :] = sum_{e in [indptr[i], indptr[i+1])} w[e] * x[src[e], :]
+//   csr_spmm:  out[i, h, :] = sum_{e in [indptr[i], indptr[i+1])} v[e, h] * x[src[e], h, :]
+//   sddmm:     dv[e, h]     = sum_d g[i, h, d] * x[src[e], h, d]      (e in row i)
 //
-// Replaces two TPU kernels of sgformer_tpu, which split this one sum only to
-// fit the TPU's VMEM: kernels/slab_spmm.py::_ssel_kernel (edges inside a
-// slab, prebuilt selector matmuls) and kernels/spmm.py::_spmm_kernel (the
-// window-chunked sum of the cross-slab messages), plus the w_self * x
-// self-loop term of kernels/slab_spmm.py. Here the edges are the dst-sorted
-// CSR that preprocess_graph builds, so one kernel computes the whole sum in
-// the caller's node order: no reorder, no plan.
+// x, out and g are [N, H*D] rows (the [N, H, D] view of a per-head tensor);
+// v and dv are [E, H] f32 in dst-sorted edge order. With H = 1 and v the
+// fixed GCN weights, csr_spmm is the GCN aggregation.
 //
-// Bound: memory. At the arxiv shape (N = 169,343, E = 2,499,039, F = 256,
-// bf16) the least traffic per call is x read once (86.7 MB), out written
-// once (86.7 MB) and src + w (20 MB), about 194 MB or 58 us at 3.35 TB/s.
-// The work is 2*E*F = 1.3 GFLOP, nothing for the card. What this simple
-// kernel really pays is the per-edge gather of a source row: E rows of
-// 512 bytes, about 1.28 GB if L2 kept nothing.
+// csr_spmm replaces three TPU kernels of sgformer_tpu, which split this one
+// sum only to fit the TPU's VMEM: kernels/slab_spmm.py::_ssel_kernel (edges
+// inside a slab, prebuilt selector matmuls), kernels/slab_spmm.py::
+// _slab_kernel (the same with selectors built in-kernel from a packed
+// stream, the fallback on power-law graphs), and kernels/spmm.py::
+// _spmm_kernel (the window-chunked sum of cross-slab messages with fixed
+// weights, and with runtime per-edge values in chunked_spmm_edge_values,
+// one call per head), plus the w_self * x self-loop term of
+// kernels/slab_spmm.py. Here the edges are the dst-sorted CSR that
+// preprocess_graph builds, so one kernel computes the whole sum in the
+// caller's node order, all heads in one launch: no reorder, no plan. The
+// gradient in x is this kernel on the transposed order (the caller passes
+// the transposed CSR and the values permuted into it).
 //
-// Design: one warp per destination row (in-degree is at most 33 here, mean
-// 14.8). Each lane owns 8 columns and loads them with one 16-byte load (bf16)
-// or two (f32), so a warp reads a whole 256-wide row in one coalesced pass.
-// The row's edge ids and weights are read 32 at a time, one per lane, and
-// broadcast with shuffles. The sum is kept in f32 registers and rounded once
-// to x's type on the store. Each row is summed in edge order by one warp, so
-// the result is deterministic (no atomics).
+// sddmm is the gradient in v, computed by XLA outside any Pallas kernel in
+// the JAX package (kernels/spmm.py::_spmm_ev_bwd, which materialises two
+// [E, H*D] f32 gathers). It is a gather-dot, not a matrix product.
 //
-// There is no backward here. Training reuses this kernel on A^T, which is A
-// for the symmetrised graphs that preprocess_graph builds.
+// Bound: memory. At the arxiv shape (N = 169,343, E = 2,499,039) with F =
+// H*D = 256 bf16 the least traffic per csr_spmm call is x read once (86.7
+// MB), out written once (86.7 MB) and src + v (20 MB), about 194 MB or 58 us
+// at 3.35 TB/s; the work, 2*E*F = 1.3 GFLOP, is nothing for the card. What
+// these simple kernels really pay is the per-edge gather of a source row: E
+// rows of F elements, which L2 serves only in part.
+//
+// Design: one warp per destination row (in-degree is at most 33 on the
+// arxiv graph, mean 14.8), a loop over the heads inside it. In csr_spmm each
+// lane owns 8 columns of a head and loads them with one 16-byte load (bf16)
+// or two (f32), so a warp reads 256 columns of a source row in one coalesced
+// pass. The row's edge ids and values are read 32 at a time, one per lane,
+// and broadcast with shuffles. The sum is kept in f32 registers and rounded
+// once on the store; the messages may be bf16 with an f32 result (GAT's
+// bf16 messages). In sddmm the warp holds 256 columns of g's row i in
+// registers, takes for each of the row's edges the dot with the source row
+// of x, sums it across the warp with a fixed butterfly, and the lane that
+// owns the edge keeps it: dv is written once per edge in dst-sorted order.
+// Each row is done in a fixed order by one warp, so both results are
+// deterministic (no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +70,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 }
 
 // Eight consecutive elements of a row, moved with 16-byte accesses. The
-// pointer must be 16-byte aligned (the wrapper checks x and out).
+// pointer must be 16-byte aligned (the wrappers check the rows' base and
+// width).
 template <typename T>
 struct Vec8;
 
@@ -90,111 +110,199 @@ struct Vec8<float> {
   }
 };
 
-// F % 8 == 0 and 16-byte aligned rows: each lane owns 8 columns per pass of
-// 256 columns (one pass at F <= 256). Every lane runs every loop trip, even
-// past F, because the shuffles need the whole warp.
-template <typename T>
+// The sum of v over the warp, the same in every lane, in a fixed order.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// One lane's share of a pass over a head's columns: 8 columns with 16-byte
+// accesses (D % 8 == 0, aligned rows, 256 columns a pass) or one column (any
+// D, 32 columns a pass).
+template <bool kVec8>
+struct Cols {
+  static constexpr int kPerLane = kVec8 ? 8 : 1;
+  static constexpr int kPass = 32 * kPerLane;
+
+  template <typename T>
+  static __device__ __forceinline__ void load(const T* p, float (&v)[kPerLane]) {
+    if constexpr (kVec8) {
+      Vec8<T>::load(p, v);
+    } else {
+      v[0] = to_float(p[0]);
+    }
+  }
+  template <typename T>
+  static __device__ __forceinline__ void store(T* p, const float (&v)[kPerLane]) {
+    if constexpr (kVec8) {
+      Vec8<T>::store(p, v);
+    } else {
+      p[0] = from_float<T>(v[0]);
+    }
+  }
+};
+
+// Every lane runs every loop trip, even past D, because the shuffles need
+// the whole warp.
+template <typename TIn, typename TOut, bool kVec8>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_vec8(const int* __restrict__ indptr, const int* __restrict__ src,
-              const float* __restrict__ w, const T* __restrict__ x,
-              T* __restrict__ out, int n_rows, int F) {
+csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
+                const float* __restrict__ v, const TIn* __restrict__ x,
+                TOut* __restrict__ out, int n_rows, int H, int D) {
+  using C = Cols<kVec8>;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_rows) return;  // the whole warp leaves together
   const int start = indptr[row];
   const int end = indptr[row + 1];
-  for (int c0 = 0; c0 < F; c0 += 256) {
-    const int c = c0 + lane * 8;
-    const bool active = c < F;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int s = 0;
-      float we = 0.f;
-      if (e < end) {
-        s = __ldg(src + e);
-        we = __ldg(w + e);
-      }
-      const int cnt = min(32, end - e0);
+  const size_t F = static_cast<size_t>(H) * D;
+  for (int h = 0; h < H; ++h) {
+    for (int c0 = 0; c0 < D; c0 += C::kPass) {
+      const int c = h * D + c0 + lane * C::kPerLane;
+      const bool active = c0 + lane * C::kPerLane < D;
+      float acc[C::kPerLane] = {};
+      for (int e0 = start; e0 < end; e0 += 32) {
+        const int e = e0 + lane;
+        int s = 0;
+        float we = 0.f;
+        if (e < end) {
+          s = __ldg(src + e);
+          we = __ldg(v + static_cast<size_t>(e) * H + h);
+        }
+        const int cnt = min(32, end - e0);
 #pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const int sj = __shfl_sync(kFull, s, j);
-        const float wj = __shfl_sync(kFull, we, j);
-        if (active) {
-          float v[8];
-          Vec8<T>::load(x + static_cast<size_t>(sj) * F + c, v);
+        for (int j = 0; j < cnt; ++j) {
+          const int sj = __shfl_sync(kFull, s, j);
+          const float wj = __shfl_sync(kFull, we, j);
+          if (active) {
+            float xv[C::kPerLane];
+            C::load(x + static_cast<size_t>(sj) * F + c, xv);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(wj, v[i], acc[i]);
+            for (int i = 0; i < C::kPerLane; ++i) acc[i] = fmaf(wj, xv[i], acc[i]);
+          }
         }
       }
+      if (active) C::store(out + static_cast<size_t>(row) * F + c, acc);
     }
-    if (active) Vec8<T>::store(out + static_cast<size_t>(row) * F + c, acc);
   }
 }
 
-// Any F and alignment: each lane owns one column per pass of 32 columns.
-template <typename T>
+template <typename T, bool kVec8>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_scalar(const int* __restrict__ indptr, const int* __restrict__ src,
-                const float* __restrict__ w, const T* __restrict__ x,
-                T* __restrict__ out, int n_rows, int F) {
+sddmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
+             const T* __restrict__ g, const T* __restrict__ x,
+             float* __restrict__ dv, int n_rows, int H, int D) {
+  using C = Cols<kVec8>;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const int start = indptr[row];
   const int end = indptr[row + 1];
-  for (int c0 = 0; c0 < F; c0 += 32) {
-    const int c = c0 + lane;
-    const bool active = c < F;
-    float acc = 0.f;
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int s = 0;
-      float we = 0.f;
-      if (e < end) {
-        s = __ldg(src + e);
-        we = __ldg(w + e);
+  const size_t F = static_cast<size_t>(H) * D;
+  const T* grow = g + static_cast<size_t>(row) * F;
+  for (int e0 = start; e0 < end; e0 += 32) {
+    const int e = e0 + lane;
+    const int s = e < end ? __ldg(src + e) : 0;
+    const int cnt = min(32, end - e0);
+    for (int h = 0; h < H; ++h) {
+      float mine = 0.f;  // dv[e, h] of the edge this lane owns
+      for (int c0 = 0; c0 < D; c0 += C::kPass) {
+        const int c = h * D + c0 + lane * C::kPerLane;
+        const bool active = c0 + lane * C::kPerLane < D;
+        float gv[C::kPerLane] = {};
+        if (active) C::load(grow + c, gv);
+        for (int j = 0; j < cnt; ++j) {
+          const int sj = __shfl_sync(kFull, s, j);
+          float p = 0.f;
+          if (active) {
+            float xv[C::kPerLane];
+            C::load(x + static_cast<size_t>(sj) * F + c, xv);
+#pragma unroll
+            for (int i = 0; i < C::kPerLane; ++i) p = fmaf(gv[i], xv[i], p);
+          }
+          p = warp_sum(p);
+          if (lane == j) mine += p;
+        }
       }
-      const int cnt = min(32, end - e0);
-      for (int j = 0; j < cnt; ++j) {
-        const int sj = __shfl_sync(kFull, s, j);
-        const float wj = __shfl_sync(kFull, we, j);
-        if (active) acc = fmaf(wj, to_float(x[static_cast<size_t>(sj) * F + c]), acc);
-      }
+      if (e < end) dv[static_cast<size_t>(e) * H + h] = mine;
     }
-    if (active) out[static_cast<size_t>(row) * F + c] = from_float<T>(acc);
+  }
+}
+
+dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+template <typename TIn, typename TOut>
+void launch_spmm(const int* indptr, const int* src, const float* v, const void* x, void* out,
+                 int n_rows, int H, int D, int vec8, cudaStream_t stream) {
+  const dim3 block(kWarpsPerBlock * 32);
+  const TIn* xt = static_cast<const TIn*>(x);
+  TOut* ot = static_cast<TOut*>(out);
+  if (vec8) {
+    csr_spmm_kernel<TIn, TOut, true><<<grid_for(n_rows), block, 0, stream>>>(
+        indptr, src, v, xt, ot, n_rows, H, D);
+  } else {
+    csr_spmm_kernel<TIn, TOut, false><<<grid_for(n_rows), block, 0, stream>>>(
+        indptr, src, v, xt, ot, n_rows, H, D);
   }
 }
 
 template <typename T>
-void launch(const int* indptr, const int* src, const float* w, const void* x, void* out,
-            int n_rows, int F, int vec8, cudaStream_t stream) {
+void launch_sddmm(const int* indptr, const int* src, const void* g, const void* x, float* dv,
+                  int n_rows, int H, int D, int vec8, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const T* gt = static_cast<const T*>(g);
   const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
   if (vec8) {
-    csr_spmm_vec8<T><<<grid, block, 0, stream>>>(indptr, src, w, xt, ot, n_rows, F);
+    sddmm_kernel<T, true><<<grid_for(n_rows), block, 0, stream>>>(
+        indptr, src, gt, xt, dv, n_rows, H, D);
   } else {
-    csr_spmm_scalar<T><<<grid, block, 0, stream>>>(indptr, src, w, xt, ot, n_rows, F);
+    sddmm_kernel<T, false><<<grid_for(n_rows), block, 0, stream>>>(
+        indptr, src, gt, xt, dv, n_rows, H, D);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. vec8: 1 when F % 8 == 0 and x, out are
-// 16-byte aligned. Returns the cudaError_t of the launch (0 on success).
-extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* w,
-                            const void* x, void* out, int n_rows, int F, int dtype,
-                            int vec8, void* stream) {
+// Types: 0 = float32, 1 = bfloat16. vec8: 1 when D % 8 == 0 and the row
+// arrays are 16-byte aligned. Each returns the cudaError_t of its launch (0
+// on success).
+
+// x (the messages) in in_dtype, out in out_dtype, any pairing: GAT sends
+// bf16 messages of an f32 tensor and keeps the f32 result.
+extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
+                            const void* x, void* out, int n_rows, int H, int D,
+                            int in_dtype, int out_dtype, int vec8, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
-  const float* wp = static_cast<const float*>(w);
+  const float* vp = static_cast<const float*>(v);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 0 && out_dtype == 0) {
+    launch_spmm<float, float>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+  } else if (in_dtype == 1 && out_dtype == 1) {
+    launch_spmm<__nv_bfloat16, __nv_bfloat16>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+  } else if (in_dtype == 1 && out_dtype == 0) {
+    launch_spmm<__nv_bfloat16, float>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+  } else if (in_dtype == 0 && out_dtype == 1) {
+    launch_spmm<float, __nv_bfloat16>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g and x in one type (dtype); dv is f32.
+extern "C" int sgf_sddmm(const void* indptr, const void* src, const void* g, const void* x,
+                         void* dv, int n_rows, int H, int D, int dtype, int vec8,
+                         void* stream) {
+  const int* ip = static_cast<const int*>(indptr);
+  const int* sp = static_cast<const int*>(src);
+  float* dp = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(ip, sp, wp, x, out, n_rows, F, vec8, st);
+    launch_sddmm<float>(ip, sp, g, x, dp, n_rows, H, D, vec8, st);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(ip, sp, wp, x, out, n_rows, F, vec8, st);
+    launch_sddmm<__nv_bfloat16>(ip, sp, g, x, dp, n_rows, H, D, vec8, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

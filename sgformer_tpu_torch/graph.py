@@ -11,8 +11,18 @@ slab, chunk and clustering-reorder plans have no counterpart here:
 The gradient of the aggregation is ``A^T @ g`` through the same kernel. A
 graph built with ``undirected=True`` is symmetric by construction (the edge
 set is closed under transpose and both normalisations are symmetric in src
-and dst, as the JAX package reasons in its ``preprocess_graph``), so A's own
-CSR serves; otherwise ``preprocess_graph`` also builds the CSR of A^T.
+and dst, as the JAX package reasons in its ``preprocess_graph``), so for the
+fixed weights A's own CSR serves; otherwise ``preprocess_graph`` also builds
+the CSR of the PyG edges' transpose.
+
+Runtime per-edge values (GAT's attention weights, :meth:`Graph.
+propagate_edge_values`) belong to directed edges: even on a symmetric edge
+set the value of (j -> i) is not that of (i -> j). Their gradient therefore
+always runs on the transposed edge order, which every graph carries:
+``t_perm`` is the stable ``argsort`` of the dst-sorted edges by source, so
+``v[t_perm]`` lists the values in the order of ``t_indptr``/``t_edge_src``.
+The JAX package builds its transpose plan the same way on every graph
+(``kernels/chunks.py::build_chunks``, ``input_ids=order``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ import torch
 
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.kernels import spmm as _spmm_kernel
+
+_CHUNK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +54,16 @@ class Graph:
         present only with ``with_pyg_norm=True``.
       node_perm: always None (the port does not reorder nodes).
       symmetric: True when A == A^T by construction (``undirected=True``);
-        the gradient then runs on A's own CSR.
-      t_*, pyg_t_*: CSR of A^T (edges sorted by source: ``t_edge_src`` holds
-        the original destinations, ``t_edge_dst`` the sources), present only
-        when ``symmetric`` is False; the gradient reads them.
+        the fixed-weight gradient then runs on A's own CSR.
+      t_*: CSR of A^T (edges sorted by source: ``t_edge_src`` holds the
+        original destinations, ``t_edge_dst`` the sources, ``t_perm`` the
+        dst-sorted id of each, ``t_weight`` = ``gcn_weight[t_perm]``),
+        built on every graph.
+      pyg_t_*: the same for the PyG edges, present only when ``symmetric``
+        is False.
+      chunk_dtype: 'f32' or 'bf16', the type of the messages of the
+        per-edge-value aggregation (the JAX ``Graph.chunk_dtype`` that
+        ``GATConv`` reads); the fixed-weight aggregation keeps x's type.
     """
 
     edge_src: torch.Tensor
@@ -64,10 +82,12 @@ class Graph:
     t_edge_src: Optional[torch.Tensor] = None
     t_edge_dst: Optional[torch.Tensor] = None
     t_weight: Optional[torch.Tensor] = None
+    t_perm: Optional[torch.Tensor] = None
     pyg_t_indptr: Optional[torch.Tensor] = None
     pyg_t_src: Optional[torch.Tensor] = None
     pyg_t_dst: Optional[torch.Tensor] = None
     pyg_t_weight: Optional[torch.Tensor] = None
+    chunk_dtype: str = "f32"
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +119,24 @@ class Graph:
         else:
             raise ValueError(f"unknown propagate kind {kind!r}")
         return _spmm_kernel.csr_spmm_autograd(x, csr, csr if self.symmetric else csr_t)
+
+    def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """out[i, h] = sum over edges e into i of values[e, h] * x[src_e, h],
+        through the per-edge-value kernel (its plain version on the CPU).
+
+        x: [N, H, D], sent as ``chunk_dtype`` messages; values: [E, H] f32 in
+        the dst-sorted edge order. The sum is f32 and the result has x's
+        type. Differentiable in x (the same kernel on the transposed order
+        with ``values[t_perm]``) and in values (the SDDMM kernel). A graph
+        without the transposed order raises."""
+        if self.t_perm is None or self.t_indptr is None:
+            raise ValueError("the graph lacks t_perm/t_indptr, the transposed edge order "
+                             "the per-edge-value gradient reads: build it with "
+                             "preprocess_graph")
+        return _spmm_kernel.csr_spmm_ev_autograd(
+            x, values, (self.indptr, self.edge_src, self.edge_dst),
+            (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_perm),
+            _CHUNK_DTYPES[self.chunk_dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -205,13 +243,15 @@ def _int32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def _transpose_csr(src, dst, weight, num_nodes: int, dev: torch.device) -> tuple:
-    """CSR of A^T from A's edges: sorted by source, each edge's row is its
-    source and its column its destination. Returns (indptr, edge_src,
-    edge_dst, weight) in the layout :func:`csr_spmm` reads."""
+    """CSR of A^T from A's dst-sorted edges: sorted (stably) by source, each
+    edge's row is its source and its column its destination. Returns
+    (indptr, edge_src, edge_dst, weight, perm) in the layout
+    :func:`csr_spmm` reads, with perm the dst-sorted id of each edge."""
     order = np.argsort(src, kind="stable")
     t_dst, t_src = src[order], dst[order]
     return (_int32(build_indptr(t_dst, num_nodes), dev), _int32(t_src, dev),
-            _int32(t_dst, dev), torch.from_numpy(np.ascontiguousarray(weight[order])).to(dev))
+            _int32(t_dst, dev), torch.from_numpy(np.ascontiguousarray(weight[order])).to(dev),
+            _int32(order, dev))
 
 
 def preprocess_graph(
@@ -221,6 +261,7 @@ def preprocess_graph(
     undirected: bool = True,
     self_loops: bool = True,
     with_pyg_norm: bool = False,
+    chunk_dtype: str = "f32",
     dtype=np.float32,
     device="cuda",
 ) -> Graph:
@@ -229,10 +270,15 @@ def preprocess_graph(
 
     ``edge_index`` is a [2, E] integer array (numpy, or a tensor on any
     device). ``with_pyg_norm`` also builds the PyG ``gcn_norm`` edges of the
-    medium-tier GCN backbone. ``dtype`` is the type of the edge weights.
-    With ``undirected=False`` A need not be symmetric, so the CSR of A^T is
-    built too, for the gradient.
+    medium-tier GCN backbone. ``chunk_dtype`` ('f32' or 'bf16') is the
+    message type of the per-edge-value aggregation; its default, 'f32', is
+    what a JAX graph without chunk plans computes. ``dtype`` is the type of
+    the edge weights. The CSR of A^T (with ``t_perm``) is built on every
+    graph; with ``undirected=False`` A need not be symmetric, so that of the
+    PyG edges is built too.
     """
+    if chunk_dtype not in _CHUNK_DTYPES:
+        raise ValueError(f"chunk_dtype must be one of {sorted(_CHUNK_DTYPES)}")
     dev = resolve_device(device)
     if isinstance(edge_index, torch.Tensor):
         edge_index = edge_index.cpu().numpy()
@@ -245,10 +291,8 @@ def preprocess_graph(
     src, dst = sort_by_dst(edge_index)
     weight = gcn_norm_weights(src, dst, num_nodes).astype(dtype)
     indptr = build_indptr(dst, num_nodes)
-    extra = {}
-    if not undirected:
-        names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight")
-        extra.update(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
+    names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm")
+    extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
     if with_pyg_norm:
         psrc, pdst, pw = pyg_gcn_norm(np.stack([src, dst]), num_nodes)
         pw = pw.astype(dtype)
@@ -260,7 +304,7 @@ def preprocess_graph(
         )
         if not undirected:
             names = ("pyg_t_indptr", "pyg_t_src", "pyg_t_dst", "pyg_t_weight")
-            extra.update(zip(names, _transpose_csr(psrc, pdst, pw, num_nodes, dev)))
+            extra.update(zip(names, _transpose_csr(psrc, pdst, pw, num_nodes, dev)[:4]))
     return Graph(
         edge_src=_int32(src, dev),
         edge_dst=_int32(dst, dev),
@@ -269,5 +313,6 @@ def preprocess_graph(
         num_nodes=int(num_nodes),
         num_edges=int(len(src)),
         symmetric=bool(undirected),
+        chunk_dtype=chunk_dtype,
         **extra,
     )

@@ -10,6 +10,8 @@ from sgformer_tpu_torch.kernels import attention, spmm  # noqa: F401
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     spmm.launches = 0
+    spmm.ev_launches = 0
+    spmm.sddmm_launches = 0
     attention.reduce_launches = 0
     attention.apply_launches = 0
     attention.bwd_reduce_launches = 0
@@ -17,12 +19,15 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset. ``csr_spmm`` counts
-    forward (A @ x) and backward (A^T @ g) launches alike."""
+    """Launches of each kernel since the last reset. ``csr_spmm`` and
+    ``csr_spmm_ev`` count forward (A @ x) and backward (A^T @ g) launches
+    alike."""
     return {
         "csr_spmm": spmm.launches,
         "linear_attention_reduce": attention.reduce_launches,
         "linear_attention_apply": attention.apply_launches,
         "linear_attention_bwd_reduce": attention.bwd_reduce_launches,
         "linear_attention_bwd_apply": attention.bwd_apply_launches,
+        "csr_spmm_ev": spmm.ev_launches,
+        "sddmm": spmm.sddmm_launches,
     }

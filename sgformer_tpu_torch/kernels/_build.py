@@ -39,7 +39,8 @@ _L = ctypes.c_long
 # argtype would be cut to 32 bits
 _SIGNATURES = {
     "spmm": {
-        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "sgf_sddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "linear_attention": {
         "sgf_la_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,

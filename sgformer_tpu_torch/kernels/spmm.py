@@ -1,17 +1,32 @@
-"""CSR SpMM wrapper: ``out = A_norm @ x`` from the dst-sorted CSR graph.
+"""CSR SpMM and SDDMM wrappers over the dst-sorted CSR graph.
 
-On a CUDA tensor :func:`csr_spmm` launches ``csrc/spmm.cu`` (which replaces
-the TPU kernels ``kernels/slab_spmm.py::_ssel_kernel`` and
-``kernels/spmm.py::_spmm_kernel`` of the JAX package) or raises. On a CPU
-tensor it runs the plain version, :func:`sgformer_tpu_torch.ops.spmm.spmm`.
+On CUDA tensors each wrapper launches its kernel of ``csrc/spmm.cu`` or
+raises; on CPU tensors it runs its plain version:
 
-:func:`csr_spmm_autograd` is the differentiable form: the gradient of
-``A @ x`` is ``A^T @ g``, the same kernel on the transposed CSR (the JAX
-package's ``_slab_core_bwd`` likewise runs its forward kernels on the
-transpose plan). For a symmetric A the transpose is A's own CSR.
+- :func:`csr_spmm`, ``out = A_norm @ x`` with the graph's fixed weights,
+  replaces the TPU kernels ``kernels/slab_spmm.py::_ssel_kernel``,
+  ``::_slab_kernel`` and ``kernels/spmm.py::_spmm_kernel`` of the JAX
+  package; plain version :func:`sgformer_tpu_torch.ops.spmm.spmm`.
+- :func:`csr_spmm_ev`, the same sum per head with runtime per-edge values
+  (GAT's attention weights), replaces ``kernels/spmm.py::_spmm_kernel`` as
+  ``chunked_spmm_edge_values`` drives it; plain version
+  :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values`. It is the same
+  kernel as :func:`csr_spmm`, which is its one-head case.
+- :func:`sddmm`, ``dv[e, h] = g[dst_e, h] . x[src_e, h]``, the gradient of
+  :func:`csr_spmm_ev` in its values, which the JAX package computes in XLA
+  (``kernels/spmm.py::_spmm_ev_bwd``); plain version
+  :func:`sgformer_tpu_torch.ops.sddmm.sddmm`.
 
-``launches`` counts the kernel's launches, forward and backward alike; set
-it to 0 to start a count.
+:func:`csr_spmm_autograd` and :func:`csr_spmm_ev_autograd` are the
+differentiable forms. The gradient of ``A @ x`` in x is ``A^T @ g``, the
+same kernel on the transposed CSR (the JAX package's ``_slab_core_bwd`` and
+``_spmm_ev_bwd`` likewise run their forward kernels on the transpose plan);
+for fixed weights and a symmetric A the transpose is A's own CSR, but
+runtime values belong to directed edges, so the per-edge-value gradient
+always reads the values permuted into the transposed order.
+
+``launches``, ``ev_launches`` and ``sddmm_launches`` count the kernels'
+launches, forward and backward alike; set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -19,11 +34,55 @@ from __future__ import annotations
 import torch
 
 from sgformer_tpu_torch.kernels import _build
+from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+from sgformer_tpu_torch.ops.spmm import spmm_edge_values as spmm_edge_values_plain
 
 launches = 0
+ev_launches = 0
+sddmm_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_device(*tensors) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    kind = tensors[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    return kind
+
+
+def _check_csr(indptr, edge_src, **per_edge) -> None:
+    for name, t, dt in (("indptr", indptr, torch.int32), ("edge_src", edge_src, torch.int32)):
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous 1-d {dt} tensor")
+    for name, t in per_edge.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous float32 tensor")
+        if t.shape[0] != edge_src.shape[0]:
+            raise ValueError(f"edge_src and {name} must have one entry per edge")
+
+
+def _aligned(d: int, *tensors) -> int:
+    """1 when the kernels may move 8 columns with 16-byte accesses."""
+    return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int) -> bool:
+    """Launch the kernel unless the output is empty; True if it launched."""
+    n = indptr.shape[0] - 1
+    if n == 0 or d == 0 or heads == 0:
+        return False
+    err = _build.library("spmm").sgf_csr_spmm(
+        indptr.data_ptr(), edge_src.data_ptr(), values.data_ptr(), x.data_ptr(),
+        out.data_ptr(), n, heads, d, _DTYPES[x.dtype], _DTYPES[out.dtype],
+        _aligned(d, x, out), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "csr_spmm")
+    return True
 
 
 def csr_spmm(
@@ -46,36 +105,92 @@ def csr_spmm(
         raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    devices = {t.device for t in (x, indptr, edge_src, edge_dst, weight)}
-    if len(devices) != 1:
-        raise ValueError(f"all inputs must be on one device, got {devices}")
-    if x.device.type == "cpu":
+    if _check_device(x, indptr, edge_src, edge_dst, weight) == "cpu":
         return spmm_plain(x, edge_src, edge_dst, weight, n)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-
-    F = x.shape[1]
-    for name, t, dt in (("indptr", indptr, torch.int32),
-                        ("edge_src", edge_src, torch.int32),
-                        ("weight", weight, torch.float32)):
-        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError(f"{name} must be a contiguous 1-d {dt} tensor")
-    if edge_src.shape != weight.shape:
-        raise ValueError("edge_src and weight must have one entry per edge")
+    _check_csr(indptr, edge_src, weight=weight)
+    if weight.dim() != 1:
+        raise ValueError("weight must be [E]")
     x = x.contiguous()
     out = torch.empty_like(x)
-    if n == 0 or F == 0:
-        return out
-    vec8 = F % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    lib = _build.library("spmm")
-    err = lib.sgf_csr_spmm(
-        indptr.data_ptr(), edge_src.data_ptr(), weight.data_ptr(),
-        x.data_ptr(), out.data_ptr(), n, F, _DTYPES[x.dtype], int(vec8),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "csr_spmm")
-    launches += 1
+    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1]):
+        launches += 1
     return out
+
+
+def csr_spmm_ev(
+    x: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    values: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """out[i, h] = sum_{e in [indptr[i], indptr[i+1])} values[e, h] * x[edge_src[e], h].
+
+    x: [N, H, D] float32 or bfloat16, the messages in the type they are
+    sent in; values: [E, H] float32 in the CSR's edge order; all heads in one
+    launch. The sum is f32 and the result, [N, H, D], has ``out_dtype``
+    (x's type when None). ``edge_dst`` is read only by the plain version.
+    """
+    global ev_launches
+    n = indptr.shape[0] - 1
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 3 or x.shape[0] != n:
+        raise ValueError(f"x must be [{n}, H, D], got {tuple(x.shape)}")
+    if values.dim() != 2 or values.shape[1] != x.shape[1]:
+        raise ValueError(f"values must be [E, {x.shape[1]}], got {tuple(values.shape)}")
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise TypeError(f"x and the result must be float32 or bfloat16, got {x.dtype}, "
+                        f"{out_dtype}")
+    if _check_device(x, indptr, edge_src, edge_dst, values) == "cpu":
+        return spmm_edge_values_plain(x, edge_src, edge_dst, values, n, out_dtype)
+    _check_csr(indptr, edge_src, values=values)
+    x = x.contiguous()
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2]):
+        ev_launches += 1
+    return out
+
+
+def sddmm(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+) -> torch.Tensor:
+    """dv[e, h] = g[dst_e, h] . x[src_e, h] for every edge e of the CSR, in
+    its edge order, f32.
+
+    g, x: [N, H, D] of one type, float32 or bfloat16, each read as it is
+    (x is not rounded to a message type); the products and sums are f32.
+    Returns [E, H] float32. ``edge_dst`` is read only by the plain version.
+    """
+    global sddmm_launches
+    n = indptr.shape[0] - 1
+    if x.dim() != 3 or x.shape[0] != n or g.shape != x.shape:
+        raise ValueError(f"g and x must both be [{n}, H, D], got {tuple(g.shape)}, "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPES or g.dtype != x.dtype:
+        raise TypeError(f"g and x must share a type, float32 or bfloat16, got {g.dtype}, "
+                        f"{x.dtype}")
+    if _check_device(g, x, indptr, edge_src, edge_dst) == "cpu":
+        return sddmm_plain(g.float(), x.float(), edge_src, edge_dst)
+    _check_csr(indptr, edge_src)
+    g, x = g.contiguous(), x.contiguous()
+    heads, d = x.shape[1], x.shape[2]
+    dv = torch.empty(edge_src.shape[0], heads, dtype=torch.float32, device=x.device)
+    if n and heads and d and edge_src.shape[0]:
+        err = _build.library("spmm").sgf_sddmm(
+            indptr.data_ptr(), edge_src.data_ptr(), g.data_ptr(), x.data_ptr(), dv.data_ptr(),
+            n, heads, d, _DTYPES[x.dtype], _aligned(d, g, x),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "sddmm")
+        sddmm_launches += 1
+    elif d == 0:
+        dv.zero_()
+    return dv
 
 
 class CsrSpmmFunction(torch.autograd.Function):
@@ -103,3 +218,49 @@ def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple) -> torch.Tensor
     if torch.is_grad_enabled() and x.requires_grad:
         return CsrSpmmFunction.apply(x, *csr, *csr_t)
     return csr_spmm(x, *csr)
+
+
+class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
+    """Per-head ``A_v @ x`` with runtime edge values v, differentiable in x
+    and v, as the JAX package's ``_spmm_ev_core`` custom VJP:
+
+    - forward: :func:`csr_spmm_ev` of x rounded to the message type;
+    - dx: :func:`csr_spmm_ev` of g in the message type on the transposed
+      CSR, with ``v[t_perm]`` as its values, the result in x's type;
+    - dv: :func:`sddmm` of g and the x the forward received (not its
+      rounded copy), f32, in the CSR's edge order.
+    """
+
+    @staticmethod
+    def forward(ctx, x, values, indptr, edge_src, edge_dst,
+                t_indptr, t_edge_src, t_edge_dst, t_perm, msg_dtype):
+        ctx.save_for_backward(x, values)
+        ctx.csr = (indptr, edge_src, edge_dst)
+        ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm)
+        ctx.msg_dtype = msg_dtype
+        return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, values = ctx.saved_tensors
+        t_indptr, t_edge_src, t_edge_dst, t_perm = ctx.csr_t
+        dx = dv = None
+        if ctx.needs_input_grad[0]:
+            dx = csr_spmm_ev(g.to(ctx.msg_dtype), t_indptr, t_edge_src, t_edge_dst,
+                             values.index_select(0, t_perm.long()), x.dtype)
+        if ctx.needs_input_grad[1]:
+            dv = sddmm(g.to(x.dtype), x, *ctx.csr).to(values.dtype)
+        return (dx, dv) + (None,) * 8
+
+
+def csr_spmm_ev_autograd(x: torch.Tensor, values: torch.Tensor, csr: tuple,
+                         csr_t: tuple, msg_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`csr_spmm_ev` of x ([N, H, D]) rounded to ``msg_dtype``, with
+    ``values`` ([E, H] f32) on ``csr`` = (indptr, edge_src, edge_dst); the
+    result has x's type. Differentiable in x and values; ``csr_t`` =
+    (t_indptr, t_edge_src, t_edge_dst, t_perm) is the transposed CSR and the
+    permutation that takes the values into its order. Where autograd does
+    not record it is one :func:`csr_spmm_ev` and saves nothing."""
+    if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
+        return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, *csr_t, msg_dtype)
+    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype)

@@ -1,7 +1,30 @@
 """Model modules of the port."""
 
+from sgformer_tpu_torch.nn.baselines import (  # noqa: F401
+    APPNP,
+    GAT,
+    GATJK,
+    GCNJK,
+    GPRGNN,
+    LINK,
+    MLP,
+    SGC,
+    SGC2,
+    SIGN,
+    GATConv,
+    MixHop,
+    MixHopLayer,
+    MultiLP,
+    SGCMem,
+)
+from sgformer_tpu_torch.nn.gcn import GCN, GCNConv  # noqa: F401
 from sgformer_tpu_torch.nn.graphconv import GraphConv, GraphConvLayer  # noqa: F401
-from sgformer_tpu_torch.nn.layers import Dropout, LayerNorm, TorchLinear  # noqa: F401
+from sgformer_tpu_torch.nn.layers import (  # noqa: F401
+    Dropout,
+    GraphModel,
+    LayerNorm,
+    TorchLinear,
+)
 from sgformer_tpu_torch.nn.norm import MaskedBatchNorm  # noqa: F401
 from sgformer_tpu_torch.nn.sgformer import SGFormer, SGFormerConfig  # noqa: F401
 from sgformer_tpu_torch.nn.transconv import TransConv, TransConvLayer  # noqa: F401

@@ -2,10 +2,10 @@
 ``sgformer_tpu/nn/sgformer.py``.
 
 ``SGFormerConfig`` is the JAX package's config, field for field, so one
-config describes a model in both packages. The port covers ``gnn`` set to
-``"graphconv"`` or ``"none"``; ``"gcn"`` (the medium tier's backbone) raises
-NotImplementedError until ``nn/gcn.py`` is ported, and so does a sharded
-``axis_name``. Parameters and norm statistics are f32; with
+config describes a model in both packages. The port covers every ``gnn``
+(``"graphconv"``, ``"gcn"``, the medium tier's backbone on the PyG edges,
+and ``"none"``); a sharded ``axis_name`` raises NotImplementedError until
+it is ported. Parameters and norm statistics are f32; with
 ``compute_dtype="bf16"`` the activations are bf16; the logits are f32.
 """
 
@@ -15,12 +15,11 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch import nn
 
 from sgformer_tpu_torch.device import resolve_device
+from sgformer_tpu_torch.nn.gcn import GCN
 from sgformer_tpu_torch.nn.graphconv import GraphConv
-from sgformer_tpu_torch.nn.layers import Dropout, LayerNorm, TorchLinear
-from sgformer_tpu_torch.nn.norm import MaskedBatchNorm
+from sgformer_tpu_torch.nn.layers import GraphModel, TorchLinear
 from sgformer_tpu_torch.nn.transconv import TransConv
 
 
@@ -93,7 +92,7 @@ class SGFormerConfig:
 _COMPUTE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-class SGFormer(nn.Module):
+class SGFormer(GraphModel):
     """SGFormer for ``in_channels``-wide node features.
 
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
@@ -114,9 +113,7 @@ class SGFormer(nn.Module):
         dev = resolve_device(device)
         if cfg.axis_name is not None:
             raise NotImplementedError("node-sharded SGFormer is not ported yet")
-        if cfg.gnn == "gcn":
-            raise NotImplementedError("gnn='gcn' waits for the port of nn/gcn.py")
-        if cfg.gnn not in ("graphconv", "none"):
+        if cfg.gnn not in ("graphconv", "gcn", "none"):
             raise ValueError(f"Invalid gnn type: {cfg.gnn}")
         if cfg.aggregate not in ("add", "cat"):
             raise ValueError(f"Invalid aggregate type: {cfg.aggregate}")
@@ -157,32 +154,14 @@ class SGFormer(nn.Module):
                 remat=cfg.remat,
                 generator=generator,
             )
+        elif cfg.gnn == "gcn":
+            self.gcn = GCN(in_channels, hidden, hidden, num_layers=cfg.gnn_num_layers,
+                           dropout=cfg.gnn_dropout, use_bn=cfg.gnn_use_bn,
+                           generator=generator, device=dev)
         fc_in = 2 * hidden if cfg.gnn != "none" and cfg.aggregate == "cat" else hidden
         self.fc = TorchLinear(fc_in, cfg.out_channels, generator=generator)
         self.set_dropout_generator(dropout_generator)
         self.to(dev)
-
-    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
-        """Draw every dropout mask from ``generator`` from now on."""
-        for mod in self.modules():
-            if isinstance(mod, Dropout):
-                mod.generator = generator
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every Linear again from ``generator`` (a CPU generator), in
-        the order the constructor drew them, so a reset from a generator
-        seeded s equals a new model built from one seeded s; norms go back
-        to scale 1, shift 0 and BatchNorm statistics to mean 0, variance 1."""
-        for mod in self.modules():
-            if isinstance(mod, TorchLinear):
-                mod.reset_parameters(generator)
-            elif isinstance(mod, (LayerNorm, MaskedBatchNorm)):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                if isinstance(mod, MaskedBatchNorm):
-                    mod.running_mean.zero_()
-                    mod.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, graph, node_mask=None) -> torch.Tensor:
         """[N, in_channels] features -> [N, out_channels] f32 logits."""
@@ -192,7 +171,8 @@ class SGFormer(nn.Module):
         if cfg.gnn == "none":
             out = x1
         else:
-            x2 = self.graph_conv(x, graph, node_mask=node_mask)
+            branch = self.graph_conv if cfg.gnn == "graphconv" else self.gcn
+            x2 = branch(x, graph, node_mask=node_mask)
             if cfg.aggregate == "add":
                 out = cfg.graph_weight * x2 + (1.0 - cfg.graph_weight) * x1
             else:

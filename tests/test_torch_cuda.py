@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the serving path does not reach: partial tiles, tail rows, rows of
-more than 32 edges, isolated nodes, strided heads, widths off the 16-byte
-path. Skipped without a CUDA card. This file imports no JAX, so it runs on a
-machine without it:
+more than 32 edges, isolated nodes and empty rows, strided heads, widths off
+the 16-byte path, several heads of per-edge values. Skipped without a CUDA
+card. This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -16,9 +16,11 @@ import torch
 from sgformer_tpu_torch import Predictor, SGFormer, SGFormerConfig, preprocess_graph
 from sgformer_tpu_torch import kernels
 from sgformer_tpu_torch.kernels import attention as attn
-from sgformer_tpu_torch.kernels.spmm import csr_spmm
+from sgformer_tpu_torch.kernels import spmm as spmm_kernel
+from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, sddmm
 from sgformer_tpu_torch.ops.attention import linear_attention
-from sgformer_tpu_torch.ops.spmm import spmm
+from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
+from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values
 
 pytestmark = pytest.mark.cuda
 
@@ -224,6 +226,99 @@ def test_train_steps_on_the_card_match_the_cpu(cuda):
     losses = {}
     for dev in ("cpu", "cuda"):
         model = SGFormer(cfg, 24, device=dev)
+        trainer = Trainer(model, preprocess_graph(ei, n, device=dev), x, label, tc, device=dev)
+        trainer.init_state(0)
+        idx = trainer.prepare_train_idx({"train": np.arange(0, n, 2)})
+        losses[dev] = trainer.multi_step(idx, 4).cpu().numpy()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+def _edge_value_graph(cuda, chunk_dtype="f32"):
+    """No self-loops and a directed edge list: rows 680-699 are empty, node
+    5 has an in-degree above 64."""
+    rng = np.random.default_rng(5)
+    n = 700
+    ei = np.concatenate([rng.integers(0, n - 20, (2, 3000)),
+                         np.stack([np.arange(70), np.full(70, 5)])], axis=1)
+    return preprocess_graph(ei, n, undirected=False, self_loops=False,
+                            chunk_dtype=chunk_dtype, device=cuda)
+
+
+@pytest.mark.parametrize("msg_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(1, 40), (2, 256), (2, 40), (1, 256), (3, 37)])
+def test_edge_value_kernels_match_plain(cuda, msg_dtype, heads, d):
+    """csr_spmm_ev (f32 and bf16 messages, f32 and message-type results) and
+    sddmm against their plain versions on the same inputs: the f32 sums
+    differ in order only (1e-5), a bf16 result by one rounding; both are
+    bitwise repeatable."""
+    g = _edge_value_graph(cuda)
+    n, e = g.num_nodes, g.num_edges
+    assert (g.indptr[1:] == g.indptr[:-1]).any()  # empty rows
+    x = torch.randn(n, heads, d, device=cuda)
+    v = torch.rand(e, heads, device=cuda)
+    xm = x.to(msg_dtype)
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    for out_dtype in (torch.float32, msg_dtype):
+        before = spmm_kernel.ev_launches
+        got = csr_spmm_ev(xm, *csr, v, out_dtype)
+        assert spmm_kernel.ev_launches == before + 1 and got.dtype == out_dtype
+        want = spmm_edge_values(xm, g.edge_src, g.edge_dst, v, n, out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[out_dtype])
+        assert torch.equal(got, csr_spmm_ev(xm, *csr, v, out_dtype))
+    grad = torch.randn(n, heads, d, device=cuda).to(msg_dtype)
+    before = spmm_kernel.sddmm_launches
+    dv = sddmm(grad, xm, *csr)
+    assert spmm_kernel.sddmm_launches == before + 1 and dv.dtype == torch.float32
+    _check_rel(dv, sddmm_plain(grad.float(), xm.float(), g.edge_src, g.edge_dst), 1e-5)
+    assert torch.equal(dv, sddmm(grad, xm, *csr))
+
+
+def test_edge_value_kernel_with_one_head_is_csr_spmm(cuda):
+    g = _edge_value_graph(cuda)
+    x = torch.randn(g.num_nodes, 64, device=cuda)
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    got = csr_spmm_ev(x[:, None], *csr, g.gcn_weight[:, None].contiguous())
+    assert torch.equal(got[:, 0], csr_spmm(x, *csr, g.gcn_weight))
+
+
+@pytest.mark.parametrize("chunk_dtype", ["f32", "bf16"])
+def test_edge_value_gradient_runs_the_kernels(cuda, chunk_dtype):
+    """propagate_edge_values forward and backward on the card: dx is the
+    aggregation kernel on the transposed order with v[t_perm], dv the SDDMM
+    kernel; held to torch autograd of the plain version on the same
+    (rounded) messages, with dv on the unrounded x."""
+    g = _edge_value_graph(cuda, chunk_dtype)
+    msg = torch.float32 if chunk_dtype == "f32" else torch.bfloat16
+    x = torch.randn(g.num_nodes, 2, 48, device=cuda, requires_grad=True)
+    v = torch.rand(g.num_edges, 2, device=cuda, requires_grad=True)
+    cot = torch.randn(g.num_nodes, 2, 48, device=cuda)
+    counts = (spmm_kernel.ev_launches, spmm_kernel.sddmm_launches)
+    out = g.propagate_edge_values(x, v)
+    dx, dv = torch.autograd.grad(out, (x, v), cot)
+    assert (spmm_kernel.ev_launches - counts[0], spmm_kernel.sddmm_launches - counts[1]) == (2, 1)
+    xr = x.detach().to(msg).float().requires_grad_()
+    want = spmm_edge_values(xr, g.edge_src, g.edge_dst, v, g.num_nodes)
+    want_dx, _ = torch.autograd.grad(want, (xr, v), cot.to(msg).float())
+    want_dv = sddmm_plain(cot, x.detach(), g.edge_src, g.edge_dst)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    _check_rel(dv, want_dv, 1e-5)
+
+
+def test_gat_train_steps_on_the_card_match_the_cpu(cuda):
+    from sgformer_tpu_torch.nn import GAT
+    from sgformer_tpu_torch.train import TrainConfig, Trainer
+
+    rng = np.random.default_rng(6)
+    n = 900
+    ei = rng.integers(0, n, (2, 5000))
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    label = rng.integers(0, 5, (n, 1))
+    tc = TrainConfig(lr=1e-2, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = GAT(24, 16, 5, heads=2, dropout=0.0, device=dev)
         trainer = Trainer(model, preprocess_graph(ei, n, device=dev), x, label, tc, device=dev)
         trainer.init_state(0)
         idx = trainer.prepare_train_idx({"train": np.arange(0, n, 2)})

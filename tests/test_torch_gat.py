@@ -1,0 +1,317 @@
+"""The port's GAT path against the JAX package's, on the CPU: the edge
+softmax, the per-edge-value aggregation (the CSR kernel wrapper's plain path
+and its autograd Function) against ``chunked_spmm_edge_values`` running the
+Pallas ``_spmm_kernel`` in interpret mode, the transposed edge order its
+gradient reads, ``GAT``/``GATJK`` forward and every gradient with the flax
+weights copied in, and a few ``Trainer`` steps against the JAX trainer.
+
+Tolerances: in f32 only the summation order differs (rtol 1e-5 on one
+aggregation; the zoo's own 1e-4 / 1e-5 forward and 1e-3 / 1e-5 gradient
+tolerances of ``tests/test_baselines.py`` through the GAT stack; 1e-4 over
+Adam steps, which amplify it). With bf16 messages the Pallas kernel also
+rounds the per-edge values to bf16 (``kernels/spmm.py:51-53``) where the
+port keeps them f32, so each output may differ by one bf16 rounding of
+every term, 2^-8 of sum |v| |x|.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import reference_numpy as ref
+from test_torch_modules import _randomize
+
+from sgformer_tpu.graph import preprocess_graph as jax_preprocess_graph
+from sgformer_tpu.kernels.spmm import chunked_spmm_edge_values
+from sgformer_tpu.nn import GAT as JaxGAT
+from sgformer_tpu.nn import GATJK as JaxGATJK
+from sgformer_tpu.ops.sddmm import sddmm_softmax_weights as jax_sddmm_softmax_weights
+from sgformer_tpu.ops.spmm import edge_softmax as jax_edge_softmax
+from sgformer_tpu.ops.spmm import segment_mean as jax_segment_mean
+from sgformer_tpu.train import TrainConfig as JaxTrainConfig
+from sgformer_tpu.train import Trainer as JaxTrainer
+
+from sgformer_tpu_torch import load_flax_variables, preprocess_graph
+from sgformer_tpu_torch.convert import _plan
+from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, csr_spmm_ev_autograd
+from sgformer_tpu_torch.nn import GAT, GATJK
+from sgformer_tpu_torch.ops.sddmm import sddmm_softmax_weights
+from sgformer_tpu_torch.ops.spmm import edge_softmax, segment_mean, spmm_edge_values
+from sgformer_tpu_torch.train import TrainConfig, Trainer
+
+torch.set_num_threads(1)
+
+N, F, C, HIDDEN, HEADS = 400, 12, 4, 8, 2
+CHUNKS = dict(with_chunks=True, chunk_perm=True, chunk_edges=128, window_rows=64,
+              chunk_interpret=True)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(8)
+    edge_index = ref.random_graph(rng, N, 2000)
+    x = rng.standard_normal((N, F)).astype(np.float32)
+    label = rng.integers(0, C, N)
+    return edge_index, x, label
+
+
+def _csr(g):
+    return (g.indptr, g.edge_src, g.edge_dst)
+
+
+def _csr_t(g):
+    return (g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_perm)
+
+
+@pytest.mark.parametrize("heads", [None, 2])
+def test_edge_softmax_matches_jax(heads):
+    """Forward and gradient, with a destination that has no incoming edge:
+    its max is not finite and becomes 0, as in JAX (f32, rtol 1e-5)."""
+    rng = np.random.default_rng(1)
+    ei = ref.random_graph(rng, 50, 200)
+    ei = ei[:, ei[1] != 7]  # node 7 receives nothing
+    jg = jax_preprocess_graph(ei, 50, undirected=False, self_loops=False)
+    g = preprocess_graph(ei, 50, undirected=False, self_loops=False, device="cpu")
+    assert 7 not in g.edge_dst.tolist()
+    shape = (g.num_edges,) if heads is None else (g.num_edges, heads)
+    scores = (rng.standard_normal(shape) * 3).astype(np.float32)
+    scores[:4] = scores[0]  # ties inside a segment
+    cot = rng.standard_normal(shape).astype(np.float32)
+
+    def jax_loss(s):
+        return jnp.sum(jax_edge_softmax(s, jg.edge_dst, 50) * cot)
+
+    want = np.asarray(jax_edge_softmax(jnp.asarray(scores), jg.edge_dst, 50))
+    want_grad = np.asarray(jax.grad(jax_loss)(jnp.asarray(scores)))
+    ts = torch.from_numpy(scores).requires_grad_()
+    got = edge_softmax(ts, g.edge_dst, 50)
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(ts.grad.numpy(), want_grad, rtol=1e-5, atol=1e-6)
+    sums = np.zeros((50,) + shape[1:])
+    np.add.at(sums, g.edge_dst.numpy(), got.detach().numpy())
+    has_edge = np.bincount(g.edge_dst.numpy(), minlength=50) > 0
+    np.testing.assert_allclose(sums[has_edge], 1.0, rtol=1e-5)
+
+
+def test_segment_mean_and_sddmm_softmax_match_jax():
+    """The plain ops beside the kernels: ``segment_mean`` (an empty segment
+    gives 0) and ``sddmm_softmax_weights`` over [N, H, D] (f32, rtol 1e-5)."""
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 30, 200)
+    ids[ids == 3] = 4  # segment 3 stays empty
+    data = rng.standard_normal((200, 5)).astype(np.float32)
+    want = np.asarray(jax_segment_mean(jnp.asarray(data), jnp.asarray(ids), 30))
+    got = segment_mean(torch.from_numpy(data), torch.from_numpy(ids), 30).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    assert not got[3].any()
+    ei = ref.random_graph(rng, 40, 160)
+    jg = jax_preprocess_graph(ei, 40)
+    g = preprocess_graph(ei, 40, device="cpu")
+    q, k = (rng.standard_normal((40, 2, 6)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jax_sddmm_softmax_weights(q, k, jg.edge_src, jg.edge_dst, 40,
+                                                scale=0.5))
+    got = sddmm_softmax_weights(torch.from_numpy(q), torch.from_numpy(k), g.edge_src,
+                                g.edge_dst, 40, scale=0.5).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+def _ev_case(problem, chunk_dtype):
+    edge_index, _, _ = problem
+    jg = jax_preprocess_graph(edge_index, N, chunk_dtype=chunk_dtype, **CHUNKS)
+    assert jg.chunks.fwd.edge_perm is not None
+    g = preprocess_graph(edge_index, N, chunk_dtype=chunk_dtype, device="cpu")
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((N, HEADS, HIDDEN)).astype(np.float32)
+    v = rng.random((g.num_edges, HEADS)).astype(np.float32)
+    cot = rng.standard_normal((N, HEADS, HIDDEN)).astype(np.float32)
+    dtype = jnp.float32 if chunk_dtype == "f32" else jnp.bfloat16
+
+    def jax_heads(xx, vv):
+        return jnp.stack([chunked_spmm_edge_values(
+            xx[:, h], jg.chunks, vv[:, h], jg.edge_src, jg.edge_dst,
+            compute_dtype=dtype, interpret=True) for h in range(HEADS)], axis=1)
+
+    want = np.asarray(jax_heads(jnp.asarray(x), jnp.asarray(v)))
+    want_dx, want_dv = jax.grad(lambda a, b: jnp.sum(jax_heads(a, b) * cot),
+                                argnums=(0, 1))(jnp.asarray(x), jnp.asarray(v))
+    tx = torch.from_numpy(x).requires_grad_()
+    tv = torch.from_numpy(v).requires_grad_()
+    out = g.propagate_edge_values(tx, tv)
+    assert type(out.grad_fn).__name__ == "CsrSpmmEdgeValuesFunctionBackward"
+    got_dx, got_dv = torch.autograd.grad(out, (tx, tv), torch.from_numpy(cot))
+    return g, x, v, cot, (want, np.asarray(want_dx), np.asarray(want_dv)), \
+        (out.detach().numpy(), got_dx.numpy(), got_dv.numpy())
+
+
+def test_edge_value_spmm_matches_the_pallas_kernel_f32(problem):
+    """Forward, dx and dv against jax.grad through chunked_spmm_edge_values
+    (interpret mode, f32 messages): rtol 1e-5."""
+    _, _, _, _, want, got = _ev_case(problem, "f32")
+    for name, a, b in zip(("out", "dx", "dv"), got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_edge_value_spmm_matches_the_pallas_kernel_bf16(problem):
+    """bf16 messages on both sides; the Pallas kernel also rounds v (and the
+    port does not), so out and dx may differ by 2^-8 of sum |v| |msg| per
+    entry. dv reads the unrounded x and g on both sides: f32 tolerance."""
+    g, x, v, cot, want, got = _ev_case(problem, "bf16")
+    to_bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    av = torch.from_numpy(np.abs(v))
+    scale_out = spmm_edge_values(to_bf16(x).abs(), g.edge_src, g.edge_dst, av, N,
+                                 torch.float32).numpy()
+    scale_dx = spmm_edge_values(to_bf16(cot).abs(), g.edge_dst, g.edge_src, av, N,
+                                torch.float32).numpy()
+    for name, a, b, scale in (("out", got[0], want[0], scale_out),
+                              ("dx", got[1], want[1], scale_dx)):
+        assert np.all(np.abs(a - b) <= 2.0 ** -8 * scale + 1e-6), name
+        assert not np.allclose(a, b, rtol=1e-6, atol=0), name  # the messages were rounded
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-5, err_msg="dv")
+
+
+def test_dx_reads_the_values_in_transposed_order():
+    """A symmetric edge set with random, asymmetric values: the CSR of A^T
+    has A's structure, but the value of (j -> i) is not that of (i -> j),
+    so dx is A_v^T g with v[t_perm], not A_v g."""
+    rng = np.random.default_rng(3)
+    n = 120
+    g = preprocess_graph(ref.random_graph(rng, n, 500), n, device="cpu")
+    assert g.symmetric and torch.equal(g.t_indptr, g.indptr)
+    pattern, pattern_t = torch.zeros(n, n), torch.zeros(n, n)
+    pattern[g.edge_dst.long(), g.edge_src.long()] = 1.0  # A[dst, src]
+    pattern_t[g.t_edge_dst.long(), g.t_edge_src.long()] = 1.0  # rows of A^T are sources
+    assert torch.equal(pattern_t, pattern)
+    assert not torch.equal(g.t_perm, torch.arange(g.num_edges, dtype=torch.int32))
+    v = torch.rand(g.num_edges, 2, generator=torch.Generator().manual_seed(4))
+    x = torch.randn(n, 2, 5, requires_grad=True)
+    cot = torch.randn(n, 2, 5)
+    dx = torch.autograd.grad(g.propagate_edge_values(x, v), x, cot)[0]
+    dense = torch.zeros(2, n, n)
+    src, dst = g.edge_src.long(), g.edge_dst.long()
+    for h in range(2):
+        dense[h][dst, src] = v[:, h]  # A_v[dst, src]
+    want = torch.einsum("hij,ihd->jhd", dense, cot)  # A_v^T g per head
+    torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-6)
+    wrong = torch.einsum("hij,jhd->ihd", dense, cot)  # A_v g
+    assert (dx - wrong).abs().max() > 1e-2
+
+
+def test_one_head_with_the_gcn_weights_is_csr_spmm(problem):
+    edge_index, _, _ = problem
+    g = preprocess_graph(edge_index, N, device="cpu")
+    x = torch.randn(N, 1, 16, generator=torch.Generator().manual_seed(5))
+    got = csr_spmm_ev(x, g.indptr, g.edge_src, g.edge_dst, g.gcn_weight[:, None])
+    want = csr_spmm(x[:, 0], g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    assert torch.equal(got[:, 0], want)
+
+
+def test_edge_value_spmm_types_and_no_grad(problem):
+    edge_index, _, _ = problem
+    g = preprocess_graph(edge_index, N, chunk_dtype="bf16", device="cpu")
+    x = torch.randn(N, 2, 8, requires_grad=True)
+    v = torch.rand(g.num_edges, 2)
+    out = g.propagate_edge_values(x, v)
+    assert out.dtype == torch.float32
+    want = spmm_edge_values(x.detach().to(torch.bfloat16), g.edge_src, g.edge_dst, v, N,
+                            torch.float32)
+    assert torch.equal(out.detach(), want)
+    with torch.no_grad():
+        assert g.propagate_edge_values(x, v).grad_fn is None
+    assert csr_spmm_ev_autograd(x.detach(), v, _csr(g), _csr_t(g),
+                                torch.float32).grad_fn is None
+    with pytest.raises(ValueError):
+        csr_spmm_ev(x.detach(), g.indptr, g.edge_src, g.edge_dst, v[:, :1])
+    with pytest.raises(ValueError, match="t_perm"):
+        dataclasses.replace(g, t_perm=None).propagate_edge_values(x, v)
+    with pytest.raises(ValueError, match="chunk_dtype"):
+        preprocess_graph(edge_index, N, chunk_dtype="f16", device="cpu")
+
+
+def _flat(tree):
+    return {tuple(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _models(kind):
+    if kind == "gat":
+        return (JaxGAT(HIDDEN, C, heads=HEADS, dropout=0.0),
+                lambda: GAT(F, HIDDEN, C, heads=HEADS, dropout=0.0, device="cpu"))
+    return (JaxGATJK(HIDDEN, C, heads=HEADS, dropout=0.0),
+            lambda: GATJK(F, HIDDEN, C, heads=HEADS, dropout=0.0, device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["gat", "gatjk"])
+def test_gat_forward_and_gradients_match_jax(problem, kind):
+    """Train mode (BatchNorm on batch statistics, dropout 0), JAX on the
+    chunked graph (the Pallas kernel in interpret mode, f32 messages); the
+    loss, every parameter's gradient and the BatchNorm statistics, at
+    ``tests/test_baselines.py``'s tolerances."""
+    edge_index, x, _ = problem
+    jg = jax_preprocess_graph(edge_index, N, chunk_dtype="f32", **CHUNKS)
+    jmodel, make = _models(kind)
+    variables = _randomize(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x), jg), 9)
+    cot = np.random.default_rng(6).standard_normal((N, C)).astype(np.float32)
+
+    def loss(p):
+        out, mut = jmodel.apply({"params": p, "batch_stats": variables["batch_stats"]},
+                                jnp.asarray(x), jg, train=True, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, mut["batch_stats"])
+
+    (_, (want, new_bs)), grads = jax.value_and_grad(loss, has_aux=True)(variables["params"])
+    model = load_flax_variables(make(), jax.tree.map(np.asarray, variables)).train()
+    g = preprocess_graph(edge_index, N, chunk_dtype="f32", device="cpu")
+    out = model(torch.from_numpy(x), g)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    flat_g, flat_bs = _flat(grads), _flat(new_bs)
+    # a conv bias that feeds a train-mode BatchNorm has an exact gradient of
+    # 0 (the batch mean takes any shift out): both sides give rounding
+    # noise, held to 1e-5 of the gradient of the BatchNorm shift after it
+    scale_of = {("conv_0", "bias"): ("bn_0", "bias")}
+    seen = 0
+    for path, tensor, transpose in _plan(model):
+        if path[0] == "params":
+            got = tensor.grad.numpy()
+            key = path[1:]
+            atol = (1e-5 * np.abs(flat_g[scale_of[key]]).max() if key in scale_of
+                    else 1e-5)
+            np.testing.assert_allclose(got.T if transpose else got, flat_g[key],
+                                       rtol=1e-3, atol=atol, err_msg="/".join(path))
+        else:
+            np.testing.assert_allclose(tensor.numpy(), flat_bs[path[1:]], rtol=1e-5,
+                                       atol=1e-6, err_msg="/".join(path))
+        seen += 1
+    assert seen == len(flat_g) + len(flat_bs)
+
+
+def test_gat_trainer_steps_match_jax(problem):
+    """Five Adam steps of GAT with dropout 0 and the CLI's baseline
+    optimiser settings, the JAX trainer on the chunked graph: the losses at
+    rtol 1e-4, and the loss falls."""
+    edge_index, x, label = problem
+    jg = jax_preprocess_graph(edge_index, N, chunk_dtype="f32", **CHUNKS)
+    tc = dict(lr=0.01, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
+    split = {"train": np.arange(0, N, 2)}
+    jtrainer = JaxTrainer(JaxGAT(HIDDEN, C, heads=HEADS, dropout=0.0), jg, x,
+                          label.reshape(-1, 1), JaxTrainConfig(**tc))
+    state, tx, opt_state = jtrainer.init_state(jax.random.PRNGKey(0))
+    step, _ = jtrainer._build_steps(tx)
+    train_idx = jtrainer._prepare_train_idx(split)
+    jstate = jax.tree.map(jnp.array, state)
+    want = []
+    for i in range(5):
+        jstate, opt_state, loss = step(jstate, opt_state, jax.random.PRNGKey(i), train_idx)
+        want.append(float(loss))
+    model = GAT(F, HIDDEN, C, heads=HEADS, dropout=0.0, device="cpu")
+    trainer = Trainer(model, preprocess_graph(edge_index, N, device="cpu"), x,
+                      label.reshape(-1, 1), TrainConfig(**tc), device="cpu")
+    trainer.init_state(0)
+    load_flax_variables(model, jax.tree.map(np.asarray, state))
+    got = trainer.multi_step(trainer.prepare_train_idx(split), 5).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]

@@ -80,6 +80,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SGFormer(cfg, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         synthetic_dataset(num_nodes=10, num_edges=20)
+    from sgformer_tpu_torch.nn import GAT, GCN, MLP
+
+    for make in (lambda: GAT(4, 8, 3), lambda: GCN(4, 8, 3), lambda: MLP(4, 8, 3),
+                 lambda: SGFormer(SGFormerConfig.medium(8, 3), 4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     model = SGFormer(cfg, 4, device="cpu")
     graph = preprocess_graph(ei, 3, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):

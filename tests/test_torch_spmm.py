@@ -1,7 +1,8 @@
 """The port's SpMM (plain version, and the CSR kernel wrapper's CPU path)
 against the JAX package: its XLA ``spmm`` and its Pallas slab SpMM
-(``_ssel_kernel`` + ``_spmm_kernel``, run in interpret mode), the two TPU
-kernels the port's one CSR kernel replaces; forward, and the gradient
+(``_ssel_kernel`` + ``_spmm_kernel``, and the meta-mode ``_slab_kernel``,
+run in interpret mode), the TPU kernels the port's one CSR kernel replaces;
+forward, and the gradient
 ``A^T @ g`` that the port computes through the same wrapper on the
 transposed CSR."""
 
@@ -14,6 +15,7 @@ import torch
 from sgformer_tpu.graph import preprocess_graph as jax_preprocess_graph
 from sgformer_tpu.ops.spmm import spmm as jax_spmm
 
+from sgformer_tpu_torch.data import synthetic_dataset
 from sgformer_tpu_torch.graph import preprocess_graph
 from sgformer_tpu_torch.kernels.spmm import csr_spmm
 from sgformer_tpu_torch.ops.spmm import spmm
@@ -90,6 +92,35 @@ def test_spmm_matches_jax_slab_kernels_interpret():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def test_spmm_matches_jax_meta_mode_slab_kernel_interpret():
+    """The port's CSR sum against the JAX slab SpMM whose selectors the
+    kernel builds itself (``spmm_mode='slab'``, the meta-mode
+    ``_slab_kernel``, the fallback on power-law graphs), in interpret mode,
+    on a power-law graph: forward and gradient in the original node order,
+    f32 on both sides, only the summation order differs (rtol 1e-5 / atol
+    1e-6)."""
+    ds = synthetic_dataset(num_nodes=400, num_edges=2400, num_features=4, num_classes=4,
+                           powerlaw=1.1, seed=0, device="cpu")
+    ei, n = ds.graph["edge_index"], ds.num_nodes
+    jg = jax_preprocess_graph(ei, n, with_chunks=True, spmm_mode="slab", slab_rows=128,
+                              chunk_dtype="f32", chunk_interpret=True)
+    assert jg.chunks.fwd.meta is not None and jg.node_perm is not None
+    perm = np.asarray(jg.node_perm)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    w = rng.standard_normal((n, 24)).astype(np.float32)
+    out_perm = np.asarray(jg.propagate(jnp.asarray(x[perm])))
+    want = np.empty_like(out_perm)
+    want[perm] = out_perm
+    grad_perm = jax.grad(lambda a: jnp.sum(jg.propagate(a) * w[perm]))(jnp.asarray(x[perm]))
+    want_grad = np.empty_like(x)
+    want_grad[perm] = np.asarray(grad_perm)
+    tg = preprocess_graph(ei, n, device="cpu")
+    got = tg.propagate(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_port_grad(ei, n, x, w), want_grad, rtol=1e-5, atol=1e-6)
+
+
 def test_bf16_sum_is_f32_then_rounded_once():
     """The port (kernel and plain) sums bf16 messages in f32 and rounds once;
     the JAX XLA path sums in bf16 (ops/spmm.py:44-52), so the port lands
@@ -157,9 +188,15 @@ def test_spmm_gradient_matches_jax_slab_kernels_interpret():
 
 
 def test_transposed_csr_only_where_a_is_not_symmetric():
+    """The fixed-weight gradient reads a transposed CSR of its own only
+    where A is not symmetric (for the PyG edges it is built only then); the
+    GCN edges' transposed order, with ``t_perm``, is on every graph, since
+    runtime per-edge values need it even on a symmetric edge set."""
     ei, n = _clustered_edges(11, n=60, e=200)
     sym = preprocess_graph(ei, n, device="cpu", with_pyg_norm=True)
-    assert sym.symmetric and sym.t_indptr is None and sym.pyg_t_indptr is None
+    assert sym.symmetric and sym.pyg_t_indptr is None and sym.t_perm is not None
+    assert torch.equal(sym.t_weight, sym.gcn_weight[sym.t_perm.long()])
+    assert torch.equal(sym.t_edge_dst, sym.edge_src[sym.t_perm.long()])
     g = preprocess_graph(ei, n, undirected=False, device="cpu", with_pyg_norm=True)
     assert not g.symmetric
     for kind, fwd, bwd in (
