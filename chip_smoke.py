@@ -37,7 +37,26 @@ JAX package. Phases, each failing loudly:
    (lr 0.01, weight decay 5e-3): one step's loss and gradients against the
    plain step, the launches of one step and of one ``eval_step``, the eval
    logits against the plain forward, ``time_test`` over 20 steps (the loss
-   must fall) and a profile of one step.
+   must fall) and a profile of one step;
+10. the int8 aggregation ``csr_spmm_q8`` at the arxiv shape, x bf16 and f32,
+   against its plain version on the same quantised rows (one ulp of the
+   output type), bitwise repeatable, with time, bound, plain time, the
+   quantiser's time and ``csr_spmm``'s time beside it; the same at the
+   shape of 11 (bf16), which the kernels line reports first;
+11. large-400K-int8-train: the bench model on the JAX package's large-400K
+   shape (``synthetic_dataset(num_nodes=400_000, num_edges=4_800_000,
+   num_features=128, num_classes=40, seed=0)``, E = 9,991,628 after
+   symmetrising and self-loops) with ``preprocess_graph(chunk_dtype="bf16",
+   slab_dtype="int8")``, behind ``Trainer`` as in 6: the step against the
+   plain step, launches (6 ``csr_spmm_q8`` and no ``csr_spmm`` a step, 3 a
+   forward), eval logits against the plain forward, ``time_test`` and a
+   profile; then the same graph with ``slab_dtype="compute"`` for one
+   ``time_test``, with the int8-vs-bf16 logit difference printed;
+12. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
+   against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
+   then each probe's own run, whose launches are counted. Their launches
+   share one count with every other kernel's, so each path's launch check
+   also shows that no path of 5, 6, 9 and 11 launched a probe.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -46,6 +65,7 @@ CUDA is absent or any check fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -56,12 +76,9 @@ from unittest import mock
 
 import torch
 
-T0 = time.perf_counter()
+from sgformer_tpu_torch.utils.measure import bound_ms, card_line, rel_err, time_ms
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense FLOP/s
-# of the type the inputs have (bf16 on tensor cores, f32 on CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+T0 = time.perf_counter()
 
 # tolerances of kernel against plain version on the same inputs:
 # f32: the kernels and the plain versions differ only in summation order
@@ -87,10 +104,13 @@ REQUEST_ROUNDS = 5
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 2e-2
 TRAIN_EPOCHS, TRAIN_WARMUP = 20, 3
+# the timing probes' kernels: no model path launches them
+PROBES = ("gather_rows", "gather_tiles", "slab_variant")
 # launches of one train step of the bench model (3 GraphConv layers)
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
-                 "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "sddmm": 0}
+                 "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "sddmm": 0,
+                 "csr_spmm_q8": 0, **dict.fromkeys(PROBES, 0)}
 # launches of one forward of the bench model (serving, evaluation)
 FORWARD_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=3, linear_attention_bwd_reduce=0,
                         linear_attention_bwd_apply=0)
@@ -103,7 +123,8 @@ GAT_TRAIN = dict(lr=0.01, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
 # transposed order, 2 dv) and of one eval forward
 GAT_STEP_LAUNCHES = {"csr_spmm": 0, "linear_attention_reduce": 0,
                      "linear_attention_apply": 0, "linear_attention_bwd_reduce": 0,
-                     "linear_attention_bwd_apply": 0, "csr_spmm_ev": 4, "sddmm": 2}
+                     "linear_attention_bwd_apply": 0, "csr_spmm_ev": 4, "sddmm": 2,
+                     "csr_spmm_q8": 0, **dict.fromkeys(PROBES, 0)}
 GAT_FORWARD_LAUNCHES = dict(GAT_STEP_LAUNCHES, csr_spmm_ev=2, sddmm=0)
 # one GAT train step through the kernels against the same step through the
 # plain versions: the forward sends the same bf16 messages and sums them in
@@ -117,6 +138,20 @@ GAT_GRAD_RTOL = 2e-2
 # their largest magnitude: the same roundings, another summation order,
 # amplified through two layers of attention softmax
 GAT_LOGITS_RTOL = 1e-3
+# large-400K-int8-train: the JAX package's large-400K shape
+# (scripts/bench_shapes.py:34), the graph on which it picks int8 itself
+LARGE_400K = dict(num_nodes=400_000, num_edges=4_800_000, num_features=128, num_classes=40,
+                  seed=0)
+LARGE_400K_GRAPH = (400_000, 9_991_628)  # N and E after symmetrising and self-loops
+# launches of one train step and one forward on an int8 graph: every GCN
+# aggregation (3 forward, 3 on the transpose) is the int8 kernel
+Q8_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=0, csr_spmm_q8=6)
+Q8_FORWARD_LAUNCHES = dict(FORWARD_LAUNCHES, csr_spmm=0, csr_spmm_q8=3)
+# csr_spmm_q8 against its plain version on the same quantised rows: the
+# integer sums are exact and the epilogue is the same f32 operations in the
+# same order, so at most the last rounding may differ: one ulp of the output
+# type, relative (bf16 keeps 8 significant bits, f32 24)
+Q8_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 # the JAX package's power-law bench graph (BENCH.md, scripts/microbench_hub.py)
 POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
                       num_classes=40, powerlaw=1.1, seed=0)
@@ -130,35 +165,14 @@ PROFILE_GROUPS = (
 )
 BENCH_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5,
                     compute_dtype="bf16")
+# the JAX bench's optimiser (scripts/bench_shapes.py:68)
+BENCH_TRAIN = dict(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke +{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
-
-
-def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    """Least time in ms for the work, and what sets it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_close(what: str, got, want, rtol: float, atol: float) -> float:
@@ -176,24 +190,12 @@ def check_close(what: str, got, want, rtol: float, atol: float) -> float:
 
 def check_rel(what: str, got, want, rel: float) -> float:
     """max |got - want| <= rel * max |want|, and got finite."""
-    got, want = got.float(), want.float()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{what}: kernel output is not finite")
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
+    err, scale = rel_err(got, want)
     log(f"{what}: max |kernel - plain| = {err:.3e}, {err / max(scale, 1e-30):.2e} of "
         f"its largest magnitude {scale:.3e} (tolerance {rel})")
     if not err <= rel * scale:
         raise AssertionError(f"{what} disagrees with plain")
     return err
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def library_time(what: str, fn):
@@ -234,7 +236,7 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm") -> None:
         library_ms = library_time(f"torch.sparse.mm {name}", lambda: torch.sparse.mm(a, x))
         elt = x.element_size()
         nbytes = 2 * n * f * elt + e * (4 + 4) + (n + 1) * 4
-        b_ms, b_by = bound(nbytes, 2 * e * f, dtype)
+        b_ms, b_by = bound_ms(nbytes, 2 * e * f, dtype)
         log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
             f"torch.sparse.mm {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         results[(key, name)] = dict(
@@ -292,9 +294,9 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         a_ms = time_ms(lambda: attn.apply(q, v, kvs, ksum, scal, n_t))
         a_plain = time_ms(lambda: attn.apply_plain(q, v, kvs, ksum, scal, n_t, False))
         elt = q.element_size()
-        rb_ms, rb_by = bound(3 * n * m * elt + (m * d + m + 4) * 4,
+        rb_ms, rb_by = bound_ms(3 * n * m * elt + (m * d + m + 4) * 4,
                              2 * n * m * d + 3 * n * m, dtype)
-        ab_ms, ab_by = bound(3 * n * m * elt + (m * d + m + 4) * 4,
+        ab_ms, ab_by = bound_ms(3 * n * m * elt + (m * d + m + 4) * 4,
                              2 * n * m * d + 2 * n * m + 4 * n * d, dtype)
         log(f"reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, bound "
             f"{rb_ms:.4f} ms by {rb_by}); apply {name}: {a_ms:.4f} ms (plain "
@@ -384,11 +386,11 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         elt = q.element_size()
         small = (2 * m * d + 2 * m + 6) * 4  # kvs or P, ksum or ds, scalars
         # reduce: q @ kvs and q^T gd; reads q, v, g, writes P, ds, dinv, den, gden
-        rb_ms, rb_by = bound(3 * n * m * elt + small + 2 * n * 4,
+        rb_ms, rb_by = bound_ms(3 * n * m * elt + small + 2 * n * 4,
                              4 * n * m * d + 6 * n * d + 2 * n * m, dtype)
         # apply: gd @ kvs^T, v @ P^T, k @ P; reads q, k, v, g, den, gden,
         # writes dq, dk, dv
-        ab_ms, ab_by = bound(7 * n * m * elt + 2 * small + 2 * n * 4,
+        ab_ms, ab_by = bound_ms(7 * n * m * elt + 2 * small + 2 * n * 4,
                              6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
         log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, bound "
             f"{rb_ms:.4f} ms by {rb_by}); bwd_apply {name}: {a_ms:.4f} ms (plain "
@@ -452,7 +454,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
                 f"torch.sparse.mm {tag}",
                 lambda: [torch.sparse.mm(a, c) for a, c in zip(mats, cols)])
             nbytes = n * heads * d * (elt + 4) + e * (4 + 4 * heads) + (n + 1) * 4
-            b_ms, b_by = bound(nbytes, 2 * e * heads * d, dtype)
+            b_ms, b_by = bound_ms(nbytes, 2 * e * heads * d, dtype)
             log(f"csr_spmm_ev {tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, torch.sparse.mm "
                 f"x{heads} {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
             results[("csr_spmm_ev", name, layer)] = dict(
@@ -480,7 +482,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
                 lambda: [torch.sparse.sampled_addmm(pattern, a, b, beta=0.0)
                          for a, b in zip(gf, xt)])
             nbytes = 2 * n * heads * d * elt + e * (4 + 4 * heads) + (n + 1) * 4
-            b_ms, b_by = bound(nbytes, 2 * e * heads * d, dtype)
+            b_ms, b_by = bound_ms(nbytes, 2 * e * heads * d, dtype)
             log(f"sddmm {tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, sampled_addmm "
                 f"x{heads} {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
             results[("sddmm", name, layer)] = dict(
@@ -563,14 +565,16 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
 def plain_versions():
     """Patch the kernels out of the model's path: the GCN aggregation, the
     per-edge-value aggregation and the attention run through their plain
-    versions, with torch autograd for the gradients."""
+    versions, with torch autograd for the gradients; the int8 aggregation
+    runs its plain version inside its own autograd Function (its gradient
+    quantises g, which autograd of the plain forward would not)."""
     import contextlib
 
     from sgformer_tpu_torch.kernels import attention as attn_kernel
     from sgformer_tpu_torch.kernels import spmm as spmm_kernel
     from sgformer_tpu_torch.ops.attention import linear_attention
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
-    from sgformer_tpu_torch.ops.spmm import spmm_edge_values
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values, spmm_q8
 
     def plain_csr(x, csr, csr_t):
         indptr, edge_src, edge_dst, weight = csr
@@ -581,34 +585,44 @@ def plain_versions():
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
 
+    def plain_q8(x, indptr, edge_src, edge_dst, weight, rs):
+        return spmm_q8(x, edge_src, edge_dst, weight, rs, indptr.shape[0] - 1)
+
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_autograd", plain_csr))
+    # the int8 Function's forward and backward call csr_spmm_q8 by name
+    stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_q8", plain_q8))
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_ev_autograd", plain_ev))
     stack.enter_context(mock.patch.object(attn_kernel, "fused_linear_attention",
                                           linear_attention))
     return stack
 
 
-def train_phase(ds, graph, dev: str) -> tuple[dict, dict, dict]:
-    """arxiv-train: the bench model behind ``Trainer``."""
+def bench_model(ds, dev: str):
+    """The bench model from a seeded generator, and the gradient each
+    parameter's is held to: a bias that feeds a train-mode BatchNorm has an
+    exact gradient of 0 (the batch mean takes any shift out); what both paths
+    compute for it is rounding noise, so it is held to the gradient of the
+    BatchNorm shift after it."""
     from sgformer_tpu_torch import SGFormer, SGFormerConfig
 
     cfg = SGFormerConfig.large(256, 40, **BENCH_CONFIG)
     model = SGFormer(cfg, ds.graph["node_feat"].shape[1],
                      generator=torch.Generator().manual_seed(0), device=dev)
-    # a bias that feeds a train-mode BatchNorm has an exact gradient of 0
-    # (the batch mean takes any shift out); what both paths compute for it is
-    # rounding noise, so it is held to the gradient of the BatchNorm shift
-    # after it
     scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
     scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
                      for i in range(cfg.gnn_num_layers)})
-    tc = dict(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
-    return train_path("train", model, ds, graph, tc, STEP_LAUNCHES, FORWARD_LAUNCHES,
+    return model, scale_of
+
+
+def train_phase(ds, graph, dev: str) -> tuple:
+    """arxiv-train: the bench model behind ``Trainer``."""
+    model, scale_of = bench_model(ds, dev)
+    return train_path("train", model, ds, graph, BENCH_TRAIN, STEP_LAUNCHES, FORWARD_LAUNCHES,
                       TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, (LOGITS_ATOL, 0.0), scale_of, dev)
 
 
-def gat_train_phase(ds, graph, dev: str) -> tuple[dict, dict, dict]:
+def gat_train_phase(ds, graph, dev: str) -> tuple:
     """arxiv-gat-train: GAT at the bench width behind ``Trainer``."""
     from sgformer_tpu_torch.nn import GAT
 
@@ -624,14 +638,15 @@ def gat_train_phase(ds, graph, dev: str) -> tuple[dict, dict, dict]:
 
 def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_launches: dict,
                loss_rtol: float, grad_rtol: float, logits_tol: tuple, scale_of: dict,
-               dev: str) -> tuple[dict, dict, dict]:
+               dev: str) -> tuple:
     """One model behind ``Trainer`` with ``train_idx = arange(0, N, 2)``:
     (a) one step's loss and gradients through the kernels against the same
     step through the plain versions, from the same weights and dropout
     masks; (b) the launches of one step and of one ``eval_step``, and the
     eval logits against the plain forward; (c) ``time_test``, the path's
     run; (d) a profile of one step. ``logits_tol`` is (absolute, share of
-    the largest logit). Returns the launches of (b) and (c)."""
+    the largest logit). Returns the launches of (b) and (c), and (c)'s
+    result."""
     import numpy as np
 
     from sgformer_tpu_torch import kernels
@@ -734,7 +749,216 @@ def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_la
 
     # (d) where one train step's device time goes
     profile_device(f"{what} step", lambda: trainer.train_step(train_idx), 3)
+    return per_step, per_forward, run_counts, res
+
+
+def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
+             dtypes=(torch.bfloat16, torch.float32)) -> None:
+    """csr_spmm_q8 on ``graph`` at F = 256 (the bench model's width), for
+    each x type: the kernel on the quantised rows against the plain version
+    on the same rows (one ulp of the output type; whether they are bitwise
+    equal is logged), the whole (quantiser + kernel) against the plain
+    whole, bitwise repeatable; the kernel's time beside its bound, the plain
+    version's, the quantiser's and ``csr_spmm``'s on the same x."""
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_q8, csr_spmm_q8_apply
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8, spmm_q8_apply
+
+    n, e, f = graph.num_nodes, graph.num_edges, 256
+    src, dst, w, rs = graph.edge_src, graph.edge_dst, graph.gcn_weight, graph.rs
+    csr = (graph.indptr, src, dst, w)
+    n_self = int((src == dst).sum().item())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dtype in dtypes:
+        name = DTYPE_NAME[dtype]
+        x = torch.randn(n, f, generator=gen, device=dev).to(dtype)
+        q, s = quantize_absmax(x, rs)
+        xb = x.to(torch.bfloat16)
+        got = csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype)
+        want = spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype)
+        torch.cuda.synchronize()
+        err = check_close(f"{key} {name} F={f} (same quantised rows; bitwise equal: "
+                          f"{torch.equal(got, want)})", got, want,
+                          rtol=Q8_ULP[dtype], atol=0.0)
+        if not torch.equal(got, csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype)):
+            raise AssertionError("csr_spmm_q8 is not bitwise repeatable")
+        del got, want
+        check_close(f"{key} {name} F={f} (quantiser + kernel vs plain spmm_q8)",
+                    csr_spmm_q8(x, *csr, rs), spmm_q8(x, src, dst, w, rs, n),
+                    rtol=Q8_ULP[dtype], atol=0.0)
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype))
+        plain_ms = time_ms(lambda: spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype), iters=5)
+        quant_ms = time_ms(lambda: quantize_absmax(x, rs))
+        whole_ms = time_ms(lambda: csr_spmm_q8(x, *csr, rs))
+        spmm_ms = time_ms(lambda: csr_spmm(x, *csr))
+        # q, the bf16 x of the self term, rs, src, indptr and the absmax read
+        # once, the weights of the self edges only, the result written once
+        nbytes = (n * f * (1 + 2 + x.element_size()) + n * 4 + e * 4 + (n + 1) * 4
+                  + n_self * 4 + 4)
+        b_ms, b_by = bound_ms(nbytes, e * f, torch.int8)
+        log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}); quantiser {quant_ms:.4f} ms, quantiser + kernel {whole_ms:.4f} ms; "
+            f"csr_spmm {name} on the same x {spmm_ms:.4f} ms")
+        results[(key, name)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, quantize_ms=quant_ms, quantize_and_kernel_ms=whole_ms,
+            csr_spmm_ms=spmm_ms)
+        del x, q, s, xb
+    torch.cuda.empty_cache()
+
+
+def q8_train_phase(results: dict, dev: str) -> tuple[dict, dict, dict]:
+    """large-400K-int8-train: ``csr_spmm_q8`` alone on the large-400K graph
+    (``q8_phase``, bf16); the bench model on that graph with int8
+    aggregation behind ``Trainer``, through ``train_path``; then the
+    same graph with the bf16 aggregation for one ``time_test``, and the two
+    graphs' eval logits at the trained weights side by side."""
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels, preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.train import TrainConfig, Trainer, time_test
+
+    t = time.perf_counter()
+    ds = synthetic_dataset(**LARGE_400K, device=dev)
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16",
+                             slab_dtype="int8", device=dev)
+    log(f"large-400K dataset + preprocess_graph: {time.perf_counter() - t:.1f} s "
+        f"(N = {graph.num_nodes}, E = {graph.num_edges})")
+    if (graph.num_nodes, graph.num_edges) != LARGE_400K_GRAPH:
+        raise AssertionError("unexpected large-400K graph size")
+    # the kernel alone at the shape this path gives it: the first GCN
+    # layer's [N, 256] bf16 on the large-400K graph
+    q8_phase(graph, results, dev, key="csr_spmm_q8_large400k", dtypes=(torch.bfloat16,))
+    model, scale_of = bench_model(ds, dev)
+    tc = BENCH_TRAIN
+    per_step, per_forward, run_counts, res_q8 = train_path(
+        "large-400K-int8", model, ds, graph, tc, Q8_STEP_LAUNCHES, Q8_FORWARD_LAUNCHES,
+        TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, (LOGITS_ATOL, 0.0), scale_of, dev)
+
+    # the same graph aggregated in bf16: the logits at the trained weights,
+    # then one time_test of its own
+    graph_bf16 = dataclasses.replace(graph, slab_dtype="compute", rs=None)
+    feats, label = ds.graph["node_feat"], ds.label
+    logits_q8 = Trainer(model, graph, feats, label, TrainConfig(**tc), device=dev).eval_step()
+    trainer = Trainer(model, graph_bf16, feats, label, TrainConfig(**tc), device=dev)
+    logits_bf16 = trainer.eval_step()
+    diff = (logits_q8 - logits_bf16).abs().max().item()
+    scale = logits_bf16.abs().max().item()
+    agree = (logits_q8.argmax(-1) == logits_bf16.argmax(-1)).float().mean().item()
+    log(f"large-400K eval logits, int8 vs bf16 aggregation at the trained weights: max "
+        f"|diff| {diff:.3e} ({diff / scale:.2e} of the largest logit {scale:.3e}), argmax "
+        f"agreement {agree:.5f} (printed, no limit)")
+    del logits_q8, logits_bf16
+    n = graph.num_nodes
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    kernels.reset_launch_counts()
+    res_bf16 = time_test(trainer, split, epochs=TRAIN_EPOCHS, warmup=TRAIN_WARMUP)
+    counts = kernels.launch_counts()
+    steps = TRAIN_EPOCHS + TRAIN_WARMUP
+    want = {k: c * steps + 2 * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    log(f"launches over large-400K-bf16 time_test: {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    log(f"large-400K-bf16 time_test: {res_bf16.per_epoch_ms:.3f} ms per train step, forward "
+        f"{res_bf16.forward_ms:.3f} ms, peak memory {res_bf16.peak_memory_mb:.1f} MiB; "
+        f"losses first {res_bf16.losses[0]:.6f}, last {res_bf16.losses[-1]:.6f}")
+    log(f"large-400K train step: int8 {res_q8.per_epoch_ms:.3f} ms, bf16 "
+        f"{res_bf16.per_epoch_ms:.3f} ms ({res_bf16.per_epoch_ms / res_q8.per_epoch_ms:.3f}x); "
+        f"forward int8 {res_q8.forward_ms:.3f} ms, bf16 {res_bf16.forward_ms:.3f} ms")
+    del trainer, graph, graph_bf16, model, ds
+    torch.cuda.empty_cache()
     return per_step, per_forward, run_counts
+
+
+def probe_phase(graph, results: dict, dev: str) -> dict:
+    """The timing probes: each kernel against its plain version (these
+    launches are not counted), then each probe's own run from counts of 0
+    (dma_gather at every S, dma_tile at S = 8 and 32, slab_variants' three
+    modes on the arxiv graph). Returns the run's launch counts."""
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+    from sgformer_tpu_torch.microbench import dma_gather, dma_tile, slab_variants
+
+    x, idx = dma_gather.make_inputs(dev)
+    err_rows = check_rel("gather_rows (S=16)", dma_gather.gather_rows(x, idx),
+                         dma_gather.gather_rows_plain(x, idx), dma_gather.REL_TOL)
+    xt, tidx = dma_tile.make_inputs(dev)
+    err_tiles = {}
+    for s in dma_tile.STAGES:
+        err_tiles[s] = check_rel(f"gather_tiles (S={s})",
+                                 dma_tile.gather_tiles(xt, tidx[s], stages=s),
+                                 dma_tile.gather_tiles_plain(xt, tidx[s]), dma_tile.REL_TOL)
+    xs = slab_variants.make_x(graph.num_nodes, dev)
+    csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    err_modes = {}
+    for mode in slab_variants.MODES:
+        got = slab_variants.slab_variant(xs, *csr, mode)
+        err_modes[mode] = check_rel(f"slab_variant {mode}", got, slab_variants.slab_variant_plain(
+            xs, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode), slab_variants.REL_TOL)
+        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr)):
+            raise AssertionError("slab_variant prod is not bitwise csr_spmm")
+        del got
+    log("slab_variant prod: bitwise csr_spmm of the same x")
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    rows = {s: dma_gather.run(x, idx, stages=s) for s in dma_gather.STAGES}
+    tiles = {s: dma_tile.run(xt, tidx[s], stages=s) for s in dma_tile.STAGES}
+    modes = slab_variants.run(graph, xs)
+    counts = kernels.launch_counts()
+    log(f"launches over the probes' runs: {counts}")
+    if not all(counts[p] for p in PROBES):
+        raise AssertionError(f"a probe kernel was not launched in its run: {counts}")
+
+    for s, r in rows.items():
+        log(f"dma_gather S={s}: {r['ms']:.4f} ms for {dma_gather.E} rows, "
+            f"{r['mrows_per_s']:.1f} Mrows/s, {r['ns_per_row']:.4f} ns/row, "
+            f"{r['gb_per_s']:.1f} GB/s (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['distinct_rows']} distinct rows; index_select + sums {r['library_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms)")
+    for s, r in tiles.items():
+        log(f"dma_tile S={s}: {r['ms']:.4f} ms for {dma_tile.E} tiles, "
+            f"{r['mtiles_per_s']:.1f} Mtiles/s, {r['ns_per_tile']:.4f} ns/tile, "
+            f"{r['gb_per_s']:.1f} GB/s (bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
+            f"index_select + sums {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms)")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
+                                    graph.gcn_weight.to(torch.bfloat16),
+                                    size=(graph.num_nodes, graph.num_nodes))
+    library_ms = library_time("torch.sparse.mm bf16 (slab_variant prod)",
+                              lambda: torch.sparse.mm(a, xs))
+    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr))
+    for mode, r in modes.items():
+        log(f"slab_variant {mode}: {r['ms']:.4f} ms, {r['ns_per_edge']:.5f} ns/edge "
+            f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    log(f"slab_variant beside: csr_spmm bf16 {spmm_ms:.4f} ms, torch.sparse.mm {library_ms} ms; "
+        f"gather share of prod {1 - modes['no_src_matmul']['ms'] / modes['prod']['ms']:.3f}")
+
+    main_rows, main_tiles = rows[dma_gather.S], tiles[8]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    results["gather_rows"] = dict(
+        {k: main_rows[k] for k in keys}, max_abs_err=err_rows, stages=dma_gather.S,
+        mrows_per_s=main_rows["mrows_per_s"], ns_per_row=main_rows["ns_per_row"],
+        gb_per_s=main_rows["gb_per_s"],
+        **{f"s{s}_ms": r["ms"] for s, r in rows.items() if s != dma_gather.S})
+    results["gather_tiles"] = dict(
+        {k: main_tiles[k] for k in keys}, max_abs_err=err_tiles[8], stages=8,
+        mtiles_per_s=main_tiles["mtiles_per_s"], ns_per_tile=main_tiles["ns_per_tile"],
+        gb_per_s=main_tiles["gb_per_s"], s32_ms=tiles[32]["ms"],
+        s32_gb_per_s=tiles[32]["gb_per_s"])
+    prod = modes["prod"]
+    results["slab_variant"] = dict(
+        max_abs_err=err_modes["prod"], ms=prod["ms"], plain_ms=prod["plain_ms"],
+        bound_ms=prod["bound_ms"], bound_by=prod["bound_by"], library_ms=library_ms,
+        ns_per_edge=prod["ns_per_edge"], csr_spmm_ms=spmm_ms,
+        **{f"{m}_{k}": modes[m][k] for m in ("static_sub", "no_src_matmul")
+           for k in ("ms", "plain_ms", "bound_ms", "ns_per_edge")})
+    del x, idx, xt, tidx, xs, a
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_device(what: str, fn, reps: int) -> None:
@@ -813,7 +1037,7 @@ def main() -> int:
     attention_phase(graph.num_nodes, results, "cuda")
     attention_bwd_phase(graph.num_nodes, results, "cuda")
     serve_counts, forwards = serve_phase(ds, graph, "cuda")
-    step_counts, _, train_counts = train_phase(ds, graph, "cuda")
+    step_counts, _, train_counts, _ = train_phase(ds, graph, "cuda")
     edge_value_phase(graph, results, "cuda")
 
     t = time.perf_counter()
@@ -827,7 +1051,14 @@ def main() -> int:
     del pl, pl_graph, deg
     torch.cuda.empty_cache()
 
-    gat_step, gat_forward, gat_counts = gat_train_phase(ds, graph, "cuda")
+    gat_step, gat_forward, gat_counts, _ = gat_train_phase(ds, graph, "cuda")
+
+    graph_q8 = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16",
+                                slab_dtype="int8")
+    q8_phase(graph_q8, results, "cuda")
+    del graph_q8
+    q8_step, q8_forward, q8_counts = q8_train_phase(results, "cuda")
+    probe_counts = probe_phase(graph, results, "cuda")
 
     via = "sgformer_tpu/kernels/spmm.py:34 via :253"
     sources = {
@@ -869,6 +1100,32 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
             "launches_per_train_step": per_step[name], **r,
+        })
+    # the int8 aggregation: launches from large-400K-int8-train's time_test,
+    # error and times at that path's shape in bf16; the arxiv shape's in
+    # bf16 and f32 beside them
+    r = dict(results[("csr_spmm_q8_large400k", "bf16")])
+    for prefix, dtype in (("arxiv_", "bf16"), ("arxiv_f32_", "f32")):
+        r.update({f"{prefix}{k}": v for k, v in results[("csr_spmm_q8", dtype)].items()
+                  if k.endswith("ms") or k == "max_abs_err"})
+    line["kernels"].append({
+        "name": "csr_spmm_q8", "route": "cuda", "source": "sgformer_tpu_torch/csrc/spmm.cu",
+        "replaces": "sgformer_tpu/kernels/slab_spmm.py:131 (int8 branch :193-200)",
+        "launches": q8_counts["csr_spmm_q8"],
+        "launches_per_forward": q8_forward["csr_spmm_q8"],
+        "launches_per_train_step": q8_step["csr_spmm_q8"], **r,
+    })
+    # the timing probes: launches from their own runs; per forward and per
+    # step as counted on large-400K-int8-train (no model path runs them, and
+    # every path's launch check holds them to 0)
+    for name, replaces in zip(PROBES, ("scripts/microbench_dma_gather.py:70",
+                                       "scripts/microbench_dma_tile.py:65",
+                                       "scripts/microbench_slab_variants.py:145")):
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/microbench.cu",
+            "replaces": replaces, "launches": probe_counts[name],
+            "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
+            **results[name],
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

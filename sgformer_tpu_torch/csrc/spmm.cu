@@ -46,11 +46,33 @@
 // owns the edge keeps it: dv is written once per edge in dst-sorted order.
 // Each row is done in a fixed order by one warp, so both results are
 // deterministic (no atomics).
+//
+// csr_spmm_q8 is the int8 branch of kernels/slab_spmm.py::_ssel_kernel
+// (int8 x int8 -> int32 dots of 0/1 selectors with absmax-quantised rows),
+// with the epilogue of _apply_side fused in:
+//
+//   out[i, :] = ((acc[i, :] * (s / 127)) * rs[i]) + w_self[i] * xb[i, :]
+//   acc[i, :] = sum_{e in row i, src[e] != i} q[src[e], :]       (exact int32)
+//   w_self[i] = sum_{e in row i, src[e] == i} v[e]
+//
+// q is x * rs quantised to int8 (the caller's plain quantiser), xb the bf16
+// x, s the absmax, read from device memory so the host never waits for it.
+// The GCN weights factor as rs[src] * rs[dst]: q carries rs[src] and the
+// epilogue rs[dst], so no per-edge value is read except at the self edge,
+// which is pulled out unquantised as the JAX plan does. Bound: memory, with
+// a quarter of bf16's gathered bytes (one int8 row of F bytes per edge). The
+// design is csr_spmm's row walk: one warp per row, edge ids read 32 at a
+// time and shuffled; each lane loads 8 int8 (8 bytes, 256 columns a warp
+// pass) and keeps int32 sums. Integer sums make the result bitwise the same
+// for any edge order; the epilogue uses round-to-nearest products and add
+// without contraction, in the plain version's order. Any F (the TPU's
+// padding of F to 128 is a Mosaic constraint).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -230,6 +252,79 @@ sddmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   }
 }
 
+// kVec8: 8 columns a lane (F % 8 == 0, aligned rows), else one.
+template <typename TOut, bool kVec8>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_q8_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
+                   const float* __restrict__ v, const int8_t* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ xb, const float* __restrict__ rs,
+                   const float* __restrict__ absmax, TOut* __restrict__ out, int n_rows,
+                   int F) {
+  constexpr int kPer = kVec8 ? 8 : 1;
+  constexpr int kPass = 32 * kPer;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp leaves together
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+  const float dq = __fdiv_rn(__ldg(absmax), 127.0f);
+  const float r = __ldg(rs + row);
+  for (int c0 = 0; c0 < F; c0 += kPass) {
+    const int c = c0 + lane * kPer;
+    const bool active = c < F;
+    int acc[kPer] = {};
+    float w_self = 0.f;  // the same in every lane, summed in edge order
+    for (int e0 = start; e0 < end; e0 += 32) {
+      const int e = e0 + lane;
+      int s = -1;
+      float ws = 0.f;
+      if (e < end) {
+        s = __ldg(src + e);
+        if (s == row) ws = __ldg(v + e);
+      }
+      const int cnt = min(32, end - e0);
+#pragma unroll 4
+      for (int j = 0; j < cnt; ++j) {
+        const int sj = __shfl_sync(kFull, s, j);
+        const float wj = __shfl_sync(kFull, ws, j);
+        if (sj == row) {
+          w_self += wj;
+        } else if (active) {
+          const int8_t* p = q + static_cast<size_t>(sj) * F + c;
+          if constexpr (kVec8) {
+            const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+            const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[i] += b[i];
+          } else {
+            acc[0] += __ldg(p);
+          }
+        }
+      }
+    }
+    if (active) {
+      const size_t off = static_cast<size_t>(row) * F + c;
+      float xv[kPer];
+      float o[kPer];
+      if constexpr (kVec8) {
+        Vec8<__nv_bfloat16>::load(xb + off, xv);
+      } else {
+        xv[0] = __bfloat162float(xb[off]);
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float t = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), dq), r);
+        o[i] = __fadd_rn(t, __fmul_rn(w_self, xv[i]));
+      }
+      if constexpr (kVec8) {
+        Vec8<TOut>::store(out + off, o);
+      } else {
+        out[off] = from_float<TOut>(o[0]);
+      }
+    }
+  }
+}
+
 dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
 template <typename TIn, typename TOut>
@@ -285,6 +380,45 @@ extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
     launch_spmm<__nv_bfloat16, float>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
   } else if (in_dtype == 0 && out_dtype == 1) {
     launch_spmm<float, __nv_bfloat16>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q int8 and xb bf16, [N, F]; v, rs and the absmax f32; out in out_dtype.
+extern "C" int sgf_csr_spmm_q8(const void* indptr, const void* src, const void* v,
+                               const void* q, const void* xb, const void* rs,
+                               const void* absmax, void* out, int n_rows, int F,
+                               int out_dtype, int vec8, void* stream) {
+  const int* ip = static_cast<const int*>(indptr);
+  const int* sp = static_cast<const int*>(src);
+  const float* vp = static_cast<const float*>(v);
+  const int8_t* qp = static_cast<const int8_t*>(q);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(xb);
+  const float* rp = static_cast<const float*>(rs);
+  const float* ap = static_cast<const float*>(absmax);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid = grid_for(n_rows);
+  if (out_dtype == 0) {
+    float* op = static_cast<float*>(out);
+    if (vec8) {
+      csr_spmm_q8_kernel<float, true><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp, ap, op,
+                                                              n_rows, F);
+    } else {
+      csr_spmm_q8_kernel<float, false><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp, ap, op,
+                                                               n_rows, F);
+    }
+  } else if (out_dtype == 1) {
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+    if (vec8) {
+      csr_spmm_q8_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp,
+                                                                      ap, op, n_rows, F);
+    } else {
+      csr_spmm_q8_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp,
+                                                                       ap, op, n_rows, F);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

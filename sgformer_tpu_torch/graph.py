@@ -23,6 +23,17 @@ always runs on the transposed edge order, which every graph carries:
 ``v[t_perm]`` lists the values in the order of ``t_indptr``/``t_edge_src``.
 The JAX package builds its transpose plan the same way on every graph
 (``kernels/chunks.py::build_chunks``, ``input_ids=order``).
+
+A graph built with ``slab_dtype="int8"`` aggregates through the int8 kernel
+(:func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_q8`): x is pre-scaled by
+``rs = 1/sqrt(d_in)`` (the GCN weights factor as ``rs[src] * rs[dst]``),
+quantised to int8 with one absmax per call, summed exactly in int32 and
+scaled back, the self-loop term unquantised; the gradient quantises the
+cotangent the same way. This is the JAX package's ``SlabSpMM.slab_dtype ==
+'int8'``, with two differences that ``ROADMAP.md`` §3 lists: the port
+quantises every non-self edge (the JAX plan sums its cross-slab edges
+unquantised in bf16) and keeps the exact integer sum (the JAX kernel rounds
+it to bf16 before the dequantisation).
 """
 
 from __future__ import annotations
@@ -64,6 +75,10 @@ class Graph:
       chunk_dtype: 'f32' or 'bf16', the type of the messages of the
         per-edge-value aggregation (the JAX ``Graph.chunk_dtype`` that
         ``GATConv`` reads); the fixed-weight aggregation keeps x's type.
+      slab_dtype: 'compute' (the GCN aggregation in x's type) or 'int8'
+        (the int8 aggregation, the JAX ``SlabSpMM.slab_dtype``).
+      rs: [N] f32 ``1/sqrt(d_in)``, the separable factor of ``gcn_weight``
+        that the int8 aggregation reads; present only with 'int8'.
     """
 
     edge_src: torch.Tensor
@@ -88,6 +103,8 @@ class Graph:
     pyg_t_dst: Optional[torch.Tensor] = None
     pyg_t_weight: Optional[torch.Tensor] = None
     chunk_dtype: str = "f32"
+    slab_dtype: str = "compute"
+    rs: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -105,7 +122,9 @@ class Graph:
         """A_norm @ x, the GCN aggregation, through the CSR SpMM kernel
         (its plain version on the CPU), differentiable in x: the gradient is
         A^T @ g through the same kernel. ``kind='gcn'`` uses the GraphConv
-        normalisation; ``'pyg'`` the PyG ``gcn_norm`` edges."""
+        normalisation, through the int8 kernel on a ``slab_dtype='int8'``
+        graph; ``'pyg'`` the PyG ``gcn_norm`` edges (through the int8 kernel
+        too on an int8 graph, whose PyG weights factor by the same ``rs``)."""
         if kind == "gcn":
             csr = (self.indptr, self.edge_src, self.edge_dst, self.gcn_weight)
             csr_t = (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_weight)
@@ -118,7 +137,11 @@ class Graph:
             csr_t = (self.pyg_t_indptr, self.pyg_t_src, self.pyg_t_dst, self.pyg_t_weight)
         else:
             raise ValueError(f"unknown propagate kind {kind!r}")
-        return _spmm_kernel.csr_spmm_autograd(x, csr, csr if self.symmetric else csr_t)
+        if self.symmetric:
+            csr_t = csr
+        if self.slab_dtype == "int8":
+            return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs)
+        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t)
 
     def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """out[i, h] = sum over edges e into i of values[e, h] * x[src_e, h],
@@ -186,6 +209,18 @@ def gcn_norm_weights(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.nda
         dinv = 1.0 / np.sqrt(d)
     dinv[~np.isfinite(dinv)] = 0.0
     return (dinv[dst] * dinv[src]).astype(np.float32)
+
+
+def gcn_norm_rs(dst: np.ndarray, num_nodes: int) -> np.ndarray:
+    """The separable factor ``rs = 1/sqrt(d_in)`` of the symmetric GCN
+    normalisation, with inf (isolated nodes) set to 0: ``gcn_norm_weights``
+    is ``rs[dst] * rs[src]`` up to f32 rounding. The int8 aggregation
+    pre-scales x by it."""
+    d = in_degree(dst, num_nodes)
+    with np.errstate(divide="ignore"):
+        dinv = 1.0 / np.sqrt(d)
+    dinv[~np.isfinite(dinv)] = 0.0
+    return dinv.astype(np.float32)
 
 
 def sort_by_dst(edge_index: np.ndarray):
@@ -262,6 +297,7 @@ def preprocess_graph(
     self_loops: bool = True,
     with_pyg_norm: bool = False,
     chunk_dtype: str = "f32",
+    slab_dtype: str = "compute",
     dtype=np.float32,
     device="cuda",
 ) -> Graph:
@@ -276,9 +312,28 @@ def preprocess_graph(
     the edge weights. The CSR of A^T (with ``t_perm``) is built on every
     graph; with ``undirected=False`` A need not be symmetric, so that of the
     PyG edges is built too.
+
+    ``slab_dtype`` is the JAX plan's name (``SlabSpMM.slab_dtype``):
+    'compute' (default) aggregates in x's type; 'int8' through the int8
+    kernel (see the module's docstring), with ``rs`` on the graph. As in the
+    JAX package, 'int8' needs ``chunk_dtype='bf16'`` (its quantiser works on
+    bf16 rows) and separable weights: with ``with_pyg_norm=True`` the PyG
+    weights must factor by the same ``rs`` too (they do when the self-loops
+    are added here, since both degrees then count the same edges; without
+    them PyG adds its own and the build is refused, as ``build_slabs`` of the
+    JAX package refuses it).
+    On the port int8 is an explicit opt-in: the JAX package's ``'auto'``
+    policy decides from VMEM residency, which the card does not have, and its
+    TPU layout knobs (slab rows, hub tails, the clustering reorder) have no
+    counterpart here.
     """
     if chunk_dtype not in _CHUNK_DTYPES:
         raise ValueError(f"chunk_dtype must be one of {sorted(_CHUNK_DTYPES)}")
+    if slab_dtype not in ("compute", "int8"):
+        raise ValueError(f"slab_dtype must be 'compute' or 'int8', got {slab_dtype!r}")
+    if slab_dtype == "int8" and chunk_dtype != "bf16":
+        raise ValueError("slab_dtype='int8' is bf16-path-only: it needs chunk_dtype='bf16' "
+                         "(the separable sep_rs weights of the JAX plan)")
     dev = resolve_device(device)
     if isinstance(edge_index, torch.Tensor):
         edge_index = edge_index.cpu().numpy()
@@ -293,9 +348,17 @@ def preprocess_graph(
     indptr = build_indptr(dst, num_nodes)
     names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm")
     extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
+    rs = gcn_norm_rs(dst, num_nodes) if slab_dtype == "int8" else None
+    if rs is not None:
+        extra["rs"] = torch.from_numpy(rs).to(dev)
     if with_pyg_norm:
         psrc, pdst, pw = pyg_gcn_norm(np.stack([src, dst]), num_nodes)
         pw = pw.astype(dtype)
+        off = psrc != pdst
+        if rs is not None and not np.allclose(pw[off], rs[psrc[off]] * rs[pdst[off]],
+                                              rtol=1e-5, atol=1e-12):
+            raise ValueError("slab_dtype='int8' needs separable (sep_rs) weights: this "
+                             "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
         extra.update(
             pyg_src=_int32(psrc, dev),
             pyg_dst=_int32(pdst, dev),
@@ -314,5 +377,6 @@ def preprocess_graph(
         num_edges=int(len(src)),
         symmetric=bool(undirected),
         chunk_dtype=chunk_dtype,
+        slab_dtype=slab_dtype,
         **extra,
     )

@@ -6,12 +6,20 @@ version on CPU tensors; see :mod:`.spmm` and :mod:`.attention`.
 
 from sgformer_tpu_torch.kernels import attention, spmm  # noqa: F401
 
+# launches of the timing probes' kernels (``sgformer_tpu_torch.microbench``):
+# held here, so that the one registry below covers every kernel and a model
+# path's counts show that it launched none of them
+probe_launches = {"gather_rows": 0, "gather_tiles": 0, "slab_variant": 0}
+
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
+    for name in probe_launches:
+        probe_launches[name] = 0
     spmm.launches = 0
     spmm.ev_launches = 0
     spmm.sddmm_launches = 0
+    spmm.q8_launches = 0
     attention.reduce_launches = 0
     attention.apply_launches = 0
     attention.bwd_reduce_launches = 0
@@ -19,9 +27,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset. ``csr_spmm`` and
-    ``csr_spmm_ev`` count forward (A @ x) and backward (A^T @ g) launches
-    alike."""
+    """Launches of each kernel since the last reset. ``csr_spmm``,
+    ``csr_spmm_ev`` and ``csr_spmm_q8`` count forward (A @ x) and backward
+    (A^T @ g) launches alike."""
     return {
         "csr_spmm": spmm.launches,
         "linear_attention_reduce": attention.reduce_launches,
@@ -30,4 +38,6 @@ def launch_counts() -> dict:
         "linear_attention_bwd_apply": attention.bwd_apply_launches,
         "csr_spmm_ev": spmm.ev_launches,
         "sddmm": spmm.sddmm_launches,
+        "csr_spmm_q8": spmm.q8_launches,
+        **probe_launches,
     }

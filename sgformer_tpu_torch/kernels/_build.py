@@ -23,7 +23,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("spmm", "linear_attention", "linear_attention_bwd")
+SOURCES = ("spmm", "linear_attention", "linear_attention_bwd", "microbench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,12 +41,18 @@ _SIGNATURES = {
     "spmm": {
         "sgf_csr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "sgf_sddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "linear_attention": {
         "sgf_la_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P],
         "sgf_la_apply": [_P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P,
                          _P, _I, _P],
+    },
+    "microbench": {
+        "sgf_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "sgf_gather_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "sgf_slab_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "linear_attention_bwd": {
         "sgf_la_bwd_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,

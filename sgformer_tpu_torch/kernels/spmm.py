@@ -16,17 +16,23 @@ raises; on CPU tensors it runs its plain version:
   :func:`csr_spmm_ev` in its values, which the JAX package computes in XLA
   (``kernels/spmm.py::_spmm_ev_bwd``); plain version
   :func:`sgformer_tpu_torch.ops.sddmm.sddmm`.
+- :func:`csr_spmm_q8`, the int8 GCN aggregation of a ``slab_dtype="int8"``
+  graph, replaces the int8 branch of ``kernels/slab_spmm.py::_ssel_kernel``
+  with ``_apply_side``'s epilogue; plain version
+  :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`.
 
-:func:`csr_spmm_autograd` and :func:`csr_spmm_ev_autograd` are the
-differentiable forms. The gradient of ``A @ x`` in x is ``A^T @ g``, the
-same kernel on the transposed CSR (the JAX package's ``_slab_core_bwd`` and
-``_spmm_ev_bwd`` likewise run their forward kernels on the transpose plan);
-for fixed weights and a symmetric A the transpose is A's own CSR, but
-runtime values belong to directed edges, so the per-edge-value gradient
-always reads the values permuted into the transposed order.
+:func:`csr_spmm_autograd`, :func:`csr_spmm_ev_autograd` and
+:func:`csr_spmm_q8_autograd` are the differentiable forms. The gradient of
+``A @ x`` in x is ``A^T @ g``, the same kernel on the transposed CSR (the
+JAX package's ``_slab_core_bwd`` and ``_spmm_ev_bwd`` likewise run their
+forward kernels on the transpose plan); for fixed weights and a symmetric A
+the transpose is A's own CSR, but runtime values belong to directed edges,
+so the per-edge-value gradient always reads the values permuted into the
+transposed order.
 
-``launches``, ``ev_launches`` and ``sddmm_launches`` count the kernels'
-launches, forward and backward alike; set them to 0 to start a count.
+``launches``, ``ev_launches``, ``sddmm_launches`` and ``q8_launches`` count
+the kernels' launches, forward and backward alike; set them to 0 to start a
+count.
 """
 
 from __future__ import annotations
@@ -35,12 +41,16 @@ import torch
 
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
+from sgformer_tpu_torch.ops.spmm import quantize_absmax
 from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm_edge_values as spmm_edge_values_plain
+from sgformer_tpu_torch.ops.spmm import spmm_q8 as spmm_q8_plain
+from sgformer_tpu_torch.ops.spmm import spmm_q8_apply as spmm_q8_apply_plain
 
 launches = 0
 ev_launches = 0
 sddmm_launches = 0
+q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -150,6 +160,88 @@ def csr_spmm_ev(
     if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2]):
         ev_launches += 1
     return out
+
+
+def csr_spmm_q8_apply(
+    q: torch.Tensor,
+    s: torch.Tensor,
+    x_self: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    weight: torch.Tensor,
+    rs: torch.Tensor,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The kernel of :func:`csr_spmm_q8` on rows already quantised:
+    ``out[i] = ((acc[i] * (s/127)) * rs[i]) + w_self[i] * x_self[i]`` with
+    ``acc[i]`` the int32 sum of ``q[src_e]`` over the non-self edges into i
+    and ``w_self[i]`` the sum of the self edges' ``weight``.
+
+    q: [N, F] int8; s: 0-d float32 (read by the kernel from the device);
+    x_self: [N, F] bfloat16; rs: [N] float32; weight: [E] float32, read at
+    self edges only. The result is [N, F] of ``out_dtype`` (float32 or
+    bfloat16). Plain version :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`.
+    """
+    global q8_launches
+    n = indptr.shape[0] - 1
+    if q.dim() != 2 or q.shape[0] != n or x_self.shape != q.shape:
+        raise ValueError(f"q and x_self must both be [{n}, F], got {tuple(q.shape)}, "
+                         f"{tuple(x_self.shape)}")
+    if q.dtype != torch.int8 or x_self.dtype != torch.bfloat16 or out_dtype not in _DTYPES:
+        raise TypeError(f"q must be int8, x_self bfloat16 and the result float32 or "
+                        f"bfloat16, got {q.dtype}, {x_self.dtype}, {out_dtype}")
+    if rs.shape != (n,) or s.numel() != 1:
+        raise ValueError(f"rs must be [{n}] and s one value")
+    if _check_device(q, s, x_self, indptr, edge_src, edge_dst, weight, rs) == "cpu":
+        return spmm_q8_apply_plain(q, s, x_self, edge_src, edge_dst, weight, rs, n, out_dtype)
+    _check_csr(indptr, edge_src, weight=weight)
+    for name, t in (("rs", rs), ("s", s)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous float32 tensor")
+    q, x_self = q.contiguous(), x_self.contiguous()
+    f = q.shape[1]
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    if n and f:
+        err = _build.library("spmm").sgf_csr_spmm_q8(
+            indptr.data_ptr(), edge_src.data_ptr(), weight.data_ptr(), q.data_ptr(),
+            x_self.data_ptr(), rs.data_ptr(), s.data_ptr(), out.data_ptr(), n, f,
+            _DTYPES[out_dtype], _aligned(f, q, x_self, out),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _build.check(err, "csr_spmm_q8")
+        q8_launches += 1
+    return out
+
+
+def csr_spmm_q8(
+    x: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    weight: torch.Tensor,
+    rs: torch.Tensor,
+) -> torch.Tensor:
+    """The int8 GCN aggregation of a graph whose weights factor as
+    ``weight[e] = rs[src_e] * rs[dst_e]`` (self edges aside):
+
+    ``out[i] = rs[i] * (s/127) * sum_{e into i, src != i} q[src_e]
+    + sum_{e into i, src == i} weight[e] * x_bf16[i]``
+
+    with ``(q, s) = quantize_absmax(x, rs)``, the plain quantiser (a device
+    scalar s, no host sync), then the kernel. x: [N, F] float32 or bfloat16
+    (any F); the result has x's type. On CPU tensors the whole is the plain
+    :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`."""
+    n = indptr.shape[0] - 1
+    if x.dim() != 2 or x.shape[0] != n:
+        raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if _check_device(x, indptr, edge_src, edge_dst, weight, rs) == "cpu":
+        return spmm_q8_plain(x, edge_src, edge_dst, weight, rs, n)
+    q, s = quantize_absmax(x, rs)
+    return csr_spmm_q8_apply(q, s, x.to(torch.bfloat16), indptr, edge_src, edge_dst, weight,
+                             rs, x.dtype)
 
 
 def sddmm(
@@ -264,3 +356,35 @@ def csr_spmm_ev_autograd(x: torch.Tensor, values: torch.Tensor, csr: tuple,
     if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
         return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, *csr_t, msg_dtype)
     return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype)
+
+
+class CsrSpmmQ8Function(torch.autograd.Function):
+    """The int8 ``A @ x`` with its gradient as the JAX package's
+    ``_slab_core`` custom VJP defines it on an int8 plan: the backward
+    quantises g with its own absmax, pre-scaled by the same ``rs`` (the
+    transposed weights factor the same way), and runs :func:`csr_spmm_q8` on
+    the transposed CSR (A's own when A is symmetric). Only x gets a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, indptr, edge_src, edge_dst, weight,
+                t_indptr, t_edge_src, t_edge_dst, t_weight, rs):
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, rs)
+        return csr_spmm_q8(x, indptr, edge_src, edge_dst, weight, rs)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = csr_spmm_q8(g.contiguous(), *ctx.transpose)
+        return (dx,) + (None,) * 9
+
+
+def csr_spmm_q8_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
+                         rs: torch.Tensor) -> torch.Tensor:
+    """:func:`csr_spmm_q8` of ``x`` on ``csr`` = (indptr, edge_src,
+    edge_dst, weight) with the separable factor ``rs``, differentiable in x;
+    ``csr_t`` is the CSR of A^T in the same form (``csr`` itself when A is
+    symmetric). Where autograd does not record it is one
+    :func:`csr_spmm_q8` and saves nothing."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return CsrSpmmQ8Function.apply(x, *csr, *csr_t, rs)
+    return csr_spmm_q8(x, *csr, rs)

@@ -10,6 +10,11 @@ The sum is taken in f32 and rounded once to the output type, as the CUDA
 kernels do. The JAX function multiplies and ``segment_sum``-s in x's type, so
 on its bf16 path every partial sum is rounded to bf16 (``ops/spmm.py:44-52``
 of the JAX package); the port's bf16 aggregation is the more exact of the two.
+
+:func:`quantize_absmax` and :func:`spmm_q8` are the int8 aggregation of a
+graph built with ``slab_dtype="int8"``: the plain version of
+:func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_q8`, transcribed from the
+JAX package's ``kernels/slab_spmm.py::_apply_side``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,85 @@ def spmm(
     out = torch.zeros(num_nodes, x.shape[1], dtype=torch.float32, device=x.device)
     out.index_add_(0, edge_dst.long(), msgs)
     return out.to(x.dtype)
+
+
+def quantize_absmax(x: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pass absmax int8 quantisation of ``x`` pre-scaled by ``rs``, as
+    ``_apply_side`` of the JAX package computes it (``slab_spmm.py:380-394``):
+
+    - ``xs = x.bf16 * rs.bf16[:, None]``, rounded to bf16;
+    - ``s = max(max|xs|, 1e-30)`` in f32;
+    - ``q = clamp(round(xs * (127 / s)), -127, 127)`` as int8, rounding half
+      to even (``torch.round`` and ``jnp.round`` both do).
+
+    Returns (q [N, F] int8, s, a 0-d f32 tensor on x's device: no host sync).
+    ``127 / s`` is a true division of two device tensors: PyTorch computes
+    ``scalar / tensor`` as a reciprocal times the scalar, which rounds
+    differently.
+    """
+    xs = x.to(torch.bfloat16) * rs.to(torch.bfloat16)[:, None]
+    xf = xs.float()
+    s = torch.clamp_min(xf.abs().amax(), 1e-30)
+    scale = torch.div(s.new_full((), 127.0), s)
+    q = torch.clamp(torch.round(xf * scale), -127.0, 127.0).to(torch.int8)
+    return q, s
+
+
+def spmm_q8_apply(
+    q: torch.Tensor,
+    s: torch.Tensor,
+    x_self: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    weight: torch.Tensor,
+    rs: torch.Tensor,
+    num_nodes: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The aggregation of quantised rows, with the epilogue of
+    ``slab_spmm.py:427-436`` in f32 and in its order:
+
+    ``out[i] = ((acc[i] * (s/127)) * rs[i]) + w_self[i] * x_self[i]``,
+
+    ``acc[i]`` the exact int32 sum of ``q[src_e]`` over the edges into i
+    that are not self edges, ``w_self[i]`` the sum of the self edges'
+    weights (pulled out unquantised, as ``build_slabs`` does,
+    ``slabs.py:704-707``), ``x_self`` the bf16 x. Non-self edges' weights are
+    not read: they are ``rs[src] * rs[dst]``, carried by ``q`` and ``rs``."""
+    src, dst = edge_src.long(), edge_dst.long()
+    self_edge = src == dst
+    keep = ~self_edge
+    acc = torch.zeros(num_nodes, q.shape[1], dtype=torch.int32, device=q.device)
+    acc.index_add_(0, dst[keep], q.index_select(0, src[keep]).to(torch.int32))
+    w_self = torch.zeros(num_nodes, dtype=torch.float32, device=q.device)
+    w_self.index_add_(0, dst[self_edge], weight.float()[self_edge])
+    # s / 127 divides two device tensors: a CUDA divisor that is a host
+    # scalar becomes a multiplication by its reciprocal, which rounds
+    # differently from the kernel's division
+    out = acc.float() * torch.div(s, s.new_full((), 127.0))
+    out = out * rs.float()[:, None]
+    out = out + w_self[:, None] * x_self.float()
+    return out.to(out_dtype)
+
+
+def spmm_q8(
+    x: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    weight: torch.Tensor,
+    rs: torch.Tensor,
+    num_nodes: int,
+) -> torch.Tensor:
+    """The int8 GCN aggregation of a graph with separable weights
+    ``w_e = rs[src] * rs[dst]``:
+
+    ``out[i] = rs[i] * (s/127) * sum_{e into i, src != i} q[src_e]
+    + sum_{e into i, src == i} w_e * x_bf16[i]``
+
+    with ``(q, s) = quantize_absmax(x, rs)``; the result has x's type."""
+    q, s = quantize_absmax(x, rs)
+    return spmm_q8_apply(q, s, x.to(torch.bfloat16), edge_src, edge_dst, weight, rs,
+                         num_nodes, x.dtype)
 
 
 def spmm_edge_values(

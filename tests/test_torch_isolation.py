@@ -58,7 +58,7 @@ def test_sources_use_no_library_for_the_kernels_work():
     assert not found, found
     modules = {m.name for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__)}
     assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert", "train",
-            "utils"} <= modules
+            "utils", "microbench"} <= modules
 
 
 def test_kernel_sources_ship_with_the_package():
@@ -66,7 +66,7 @@ def test_kernel_sources_ship_with_the_package():
     from sgformer_tpu_torch.kernels import _build
 
     assert sorted(os.listdir(csrc)) == ["linear_attention.cu", "linear_attention_bwd.cu",
-                                        "spmm.cu"]
+                                        "microbench.cu", "spmm.cu"]
     assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(os.listdir(csrc))
 
 
