@@ -31,7 +31,10 @@ JAX package. Phases, each failing loudly:
    versions at the shapes of GAT's two layers (H = 2, D = 256 and H = 1,
    D = 40), in bf16 and f32, with time, bound, plain and library time;
 8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
-   powerlaw 1.1), width 256, bf16 and f32;
+   powerlaw 1.1), width 256, bf16 and f32, through the graph's hub plan (rows
+   of more than ``HUB_EDGES`` in-edges split over several warps), with the
+   segment length swept for the record; then powerlaw-train, the bench model
+   on that graph behind ``Trainer`` as in 6 (6 ``csr_spmm`` a step);
 9. arxiv-gat-train: ``GAT(hidden 256, 2 layers, 2 heads, dropout 0.5, BN)``
    with bf16 messages behind ``Trainer`` with the CLI's baseline optimiser
    (lr 0.01, weight decay 5e-3): one step's loss and gradients against the
@@ -155,6 +158,8 @@ Q8_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 # the JAX package's power-law bench graph (BENCH.md, scripts/microbench_hub.py)
 POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
                       num_classes=40, powerlaw=1.1, seed=0)
+# hub segment lengths timed beside the one the kernel uses (log only)
+HUB_SWEEP = (64, 128, 256, 512, 1024)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
     ("port kernels", ("la_", "csr_spmm", "sddmm")),
@@ -210,13 +215,23 @@ def library_time(what: str, fn):
         return None
 
 
-def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm") -> None:
-    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
+               sweep: bool = False) -> None:
+    """csr_spmm on ``graph`` at F = 256 through the graph's hub plan, bf16
+    and f32: against its plain version, bitwise repeatable, with time,
+    bound, plain and library time. ``sweep`` also times the kernel with
+    the hub segment lengths of ``HUB_SWEEP`` (bf16, each against plain)."""
+    from sgformer_tpu_torch.kernels import spmm as spmm_kernel
+    from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_segments
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
     n, e, f = graph.num_nodes, graph.num_edges, 256
     gen = torch.Generator(device=dev).manual_seed(1)
-    args = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    segs = graph.hub_segments
+    args = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight, segs)
+    hub_rows = torch.unique(segs[:, 0]).numel()
+    log(f"{key}: {segs.shape[0]} hub segments of at most {HUB_EDGES} edges over {hub_rows} "
+        f"rows, {int((segs[:, 2] - segs[:, 1]).sum().item())} edges")
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(n, f, generator=gen, device=dev).to(dtype)
         got = csr_spmm(x, *args)
@@ -241,7 +256,17 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm") -> None:
             f"torch.sparse.mm {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         results[(key, name)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=library_ms)
+            bound_by=b_by, library_ms=library_ms, hub_segments=segs.shape[0])
+        if sweep and dtype == torch.bfloat16:
+            for t in HUB_SWEEP:
+                plan = torch.from_numpy(hub_segments(graph.indptr, t)).to(dev)
+                with mock.patch.object(spmm_kernel, "HUB_EDGES", t):
+                    check_close(f"{key} {name} segments of {t}", csr_spmm(x, *args[:4], plan),
+                                want, **TOL[dtype])
+                    t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan))
+                log(f"{key} {name} segments of at most {t} edges: {plan.shape[0]} segments, "
+                    f"{t_ms:.4f} ms")
+                results[(key, name)][f"seg{t}_ms"] = t_ms
 
 
 def attention_phase(n: int, results: dict, dev: str) -> None:
@@ -329,6 +354,8 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         name = DTYPE_NAME[dtype]
         rel = BWD_REL_TOL[dtype]
+        design = attn.bwd_apply_design(dtype, m, d)
+        log(f"bwd_apply {name} design: {design}")
         q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype)
                       for _ in range(4))
         kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
@@ -400,7 +427,7 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
             bound_by=rb_by, library_ms=None)
         results[("linear_attention_bwd_apply", name)] = dict(
             max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
-            bound_by=ab_by, library_ms=None)
+            bound_by=ab_by, library_ms=None, design=design)
 
     # an all-masked group: finite zero gradients
     qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(torch.bfloat16)
@@ -425,6 +452,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
     n, e = graph.num_nodes, graph.num_edges
     src, dst = graph.edge_src, graph.edge_dst
     csr = (graph.indptr, src, dst)
+    segs = graph.hub_segments
     gen = torch.Generator(device=dev).manual_seed(4)
     for layer, (heads, d) in enumerate(((2, 256), (1, 40))):
         x32 = torch.randn(n, heads, d, generator=gen, device=dev)
@@ -436,14 +464,14 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
             x, g = x32.to(dtype), g32.to(dtype)
             elt = x.element_size()
             # the aggregation as GAT sends it: messages in dtype, f32 result
-            got = csr_spmm_ev(x, *csr, v, torch.float32)
+            got = csr_spmm_ev(x, *csr, v, torch.float32, segs)
             want = spmm_edge_values(x, src, dst, v, n, torch.float32)
             torch.cuda.synchronize()
             err = check_close(f"csr_spmm_ev {tag}", got, want, **TOL[torch.float32])
-            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32)):
+            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32, segs)):
                 raise AssertionError("csr_spmm_ev is not bitwise repeatable")
             del got, want
-            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32))
+            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32, segs))
             plain_ms = time_ms(lambda: spmm_edge_values(x, src, dst, v, n, torch.float32))
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
@@ -576,11 +604,11 @@ def plain_versions():
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values, spmm_q8
 
-    def plain_csr(x, csr, csr_t):
+    def plain_csr(x, csr, csr_t, segments=None, t_segments=None):
         indptr, edge_src, edge_dst, weight = csr
         return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
 
-    def plain_ev(x, values, csr, csr_t, msg_dtype):
+    def plain_ev(x, values, csr, csr_t, msg_dtype, segments=None, t_segments=None):
         indptr, edge_src, edge_dst = csr
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
@@ -620,6 +648,15 @@ def train_phase(ds, graph, dev: str) -> tuple:
     model, scale_of = bench_model(ds, dev)
     return train_path("train", model, ds, graph, BENCH_TRAIN, STEP_LAUNCHES, FORWARD_LAUNCHES,
                       TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, (LOGITS_ATOL, 0.0), scale_of, dev)
+
+
+def powerlaw_train_phase(ds, graph, dev: str) -> tuple:
+    """powerlaw-train: the bench model on the power-law bench graph behind
+    ``Trainer``, its six aggregations a step through the hub plans."""
+    model, scale_of = bench_model(ds, dev)
+    return train_path("powerlaw", model, ds, graph, BENCH_TRAIN, STEP_LAUNCHES,
+                      FORWARD_LAUNCHES, TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, (LOGITS_ATOL, 0.0),
+                      scale_of, dev)
 
 
 def gat_train_phase(ds, graph, dev: str) -> tuple:
@@ -790,7 +827,7 @@ def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
         plain_ms = time_ms(lambda: spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype), iters=5)
         quant_ms = time_ms(lambda: quantize_absmax(x, rs))
         whole_ms = time_ms(lambda: csr_spmm_q8(x, *csr, rs))
-        spmm_ms = time_ms(lambda: csr_spmm(x, *csr))
+        spmm_ms = time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments))
         # q, the bf16 x of the self term, rs, src, indptr and the absmax read
         # once, the weights of the self edges only, the result written once
         nbytes = (n * f * (1 + 2 + x.element_size()) + n * 4 + e * 4 + (n + 1) * 4
@@ -897,7 +934,8 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
         got = slab_variants.slab_variant(xs, *csr, mode)
         err_modes[mode] = check_rel(f"slab_variant {mode}", got, slab_variants.slab_variant_plain(
             xs, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode), slab_variants.REL_TOL)
-        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr)):
+        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr,
+                                                            graph.hub_segments)):
             raise AssertionError("slab_variant prod is not bitwise csr_spmm")
         del got
     log("slab_variant prod: bitwise csr_spmm of the same x")
@@ -930,7 +968,7 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
                                     size=(graph.num_nodes, graph.num_nodes))
     library_ms = library_time("torch.sparse.mm bf16 (slab_variant prod)",
                               lambda: torch.sparse.mm(a, xs))
-    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr))
+    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments))
     for mode, r in modes.items():
         log(f"slab_variant {mode}: {r['ms']:.4f} ms, {r['ns_per_edge']:.5f} ns/edge "
             f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
@@ -1047,7 +1085,8 @@ def main() -> int:
     log(f"power-law graph: {time.perf_counter() - t:.1f} s (N = {pl_graph.num_nodes}, "
         f"E = {pl_graph.num_edges}, in-degree max {deg.max().item()}, "
         f"mean {deg.float().mean().item():.1f})")
-    spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw")
+    spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw", sweep=True)
+    pl_step, _, pl_counts, _ = powerlaw_train_phase(pl, pl_graph, "cuda")
     del pl, pl_graph, deg
     torch.cuda.empty_cache()
 
@@ -1095,7 +1134,10 @@ def main() -> int:
             per_forward = {k: c / forwards for k, c in serve_counts.items()}
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
-                      results[("csr_spmm_powerlaw", "bf16")].items() if k.endswith("ms")})
+                      results[("csr_spmm_powerlaw", "bf16")].items()
+                      if k.endswith("ms") or k == "hub_segments"})
+            r.update(powerlaw_launches=pl_counts[name],
+                     powerlaw_launches_per_train_step=pl_step[name])
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],

@@ -38,10 +38,23 @@
 // Bound: memory in bf16. At the arxiv shape (N = 169,343, M = D = 256) the
 // reduce must read q, v, g (260 MB, 78 us at 3.35 TB/s) and the apply must
 // read q, k, v, g and write dq, dk, dv (607 MB, 181 us); the products are
-// 2 and 3 times 2*N*M*D = 22.2 GFLOP. This first version multiplies on the
-// CUDA cores in f32 from shared memory (64x64 output tiles, 4x4 per thread,
-// 67 TFLOP/s peak), so operations bound it (~0.66 and ~1.0 ms at best) until
-// the products move to wgmma.
+// 2 and 3 times 2*N*M*D = 22.2 GFLOP. The reduce and the f32 apply multiply
+// on the CUDA cores in f32 from shared memory (64x64 output tiles, 4x4 per
+// thread, 67 TFLOP/s peak), so operations bound them (~0.66 and ~1.0 ms at
+// best).
+//
+// The bf16 apply (la_bwd_apply_tc_kernel) runs its three products on the
+// tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). The A side is the
+// bf16 input rows as they are (g, v, k; the 1/den of gd = g/den moves into
+// the epilogue); the B side, kvs and P, stays f32 in meaning: each is split
+// once per call (la_bwd_split_kernel) into bf16 hi + lo (hi = bf16(x), lo =
+// bf16(x - hi), ~16 significant bits) and every product is two MMAs, so the
+// error is ~2^-17 of each term against the CUDA-core kernel's f32 FMAs. One
+// block owns 128 rows and produces all three outputs at full width, so q, k,
+// v and g are read from device memory once (the CUDA-core grid reads each
+// row block once per 64-column output tile). The MMA work, 6 x 22.2 GFLOP
+// at the arxiv shape, is ~0.13 ms at the card's bf16 peak, under the bytes
+// bound.
 //
 // Inputs are row-strided views (ld* = elements between rows), so the heads
 // of an [N, H, *] tensor are read and written in place.
@@ -49,7 +62,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -426,6 +441,364 @@ la_bwd_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 apply on the tensor cores.
+//
+// Block tile: kTcRows rows x kTcCols output columns, 8 warps in a 4 x 2
+// grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each). For each of the
+// three products the block stages its rows of the A operand ([kTcRows, K]
+// bf16, K padded with zeros to a multiple of kTcK) into shared memory once
+// (cp.async, every copy in flight at once), then walks the output columns
+// kTcCols at a time, streaming the B operand in kTcK-deep chunks (hi and lo,
+// double-buffered with cp.async) and finishing each column tile in an
+// epilogue that stages the tile in shared memory, so that its reads of q, k,
+// g and its writes of dq, dk, dv are 16-byte and coalesced (straight from
+// the registers' fragment layout they are 4-byte and scattered, and they,
+// not the MMAs, set the kernel's time on the H100). B is stored n-major
+// ([n][k],
+// contiguous in k), so ldmatrix without transpose yields mma's "col"
+// fragments. Each k-step issues the 8 hi MMAs, then the 8 lo MMAs, so no
+// MMA waits on the one before it.
+
+constexpr int kTcRows = 128;
+constexpr int kTcCols = 64;
+constexpr int kTcK = 64;
+constexpr int kTcPad = 8;  // bf16 per shared row past its end: ldmatrix without bank conflicts
+constexpr int kTcThreads = 256;
+constexpr int kTcBStride = kTcK + kTcPad;
+constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one (hi or lo) chunk
+constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// registers only, so not volatile: the compiler may interleave the MMAs
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global to shared; zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The padded extents of the split operands: kvs and P as [n = M][k = D]
+// (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
+struct TcDims {
+  int Mn, Dk, Dn, Mk;
+  __host__ __device__ TcDims(int M, int D)
+      : Mn((M + kTcCols - 1) / kTcCols * kTcCols), Dk((D + kTcK - 1) / kTcK * kTcK),
+        Dn((D + kTcCols - 1) / kTcCols * kTcCols), Mk((M + kTcK - 1) / kTcK * kTcK) {}
+  __host__ __device__ size_t kvs_elems() const { return static_cast<size_t>(Mn) * Dk; }
+  __host__ __device__ size_t pt_elems() const { return static_cast<size_t>(Dn) * Mk; }
+  // hl holds kvs hi, kvs lo, P hi, P lo, P^T hi, P^T lo, in this order
+  __host__ __device__ size_t total() const { return 4 * kvs_elems() + 2 * pt_elems(); }
+};
+
+// hl[...] = the hi and lo bf16 halves of kvs, P and P^T, zero in the pads.
+__global__ void __launch_bounds__(kThreads)
+la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M, int D,
+                    __nv_bfloat16* __restrict__ hl) {
+  const TcDims t(M, D);
+  const size_t nk = t.kvs_elems();
+  const size_t count = 2 * nk + t.pt_elems();
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float x = 0.f;
+    __nv_bfloat16* hi;
+    size_t lo_off;
+    if (i < 2 * nk) {  // kvs (i < nk) or P, [m][d]
+      const size_t j = i < nk ? i : i - nk;
+      const int m = static_cast<int>(j / t.Dk);
+      const int d = static_cast<int>(j % t.Dk);
+      const float* X = i < nk ? kvs : P;
+      if (m < M && d < D) x = X[static_cast<size_t>(m) * D + d];
+      hi = hl + (i < nk ? 0 : 2 * nk) + j;
+      lo_off = nk;
+    } else {  // P^T, [d][m]
+      const size_t j = i - 2 * nk;
+      const int d = static_cast<int>(j / t.Mk);
+      const int m = static_cast<int>(j % t.Mk);
+      if (m < M && d < D) x = P[static_cast<size_t>(m) * D + d];
+      hi = hl + 4 * nk + j;
+      lo_off = t.pt_elems();
+    }
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    hi[0] = h;
+    hi[lo_off] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+}
+
+// Eight adjacent columns of a bf16 row as floats, and back: 16-byte
+// accesses where vec (p 16-byte aligned), else one column at a time up to n.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, bool vec, int n, float (&v)[8]) {
+  if (vec) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+  }
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, bool vec, int n, const float (&v)[8]) {
+  if (vec) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < n) p[i] = __float2bfloat16_rn(v[i]);
+    }
+  }
+}
+
+// The f32 output tile of the epilogue, over the B stages once a column
+// tile's products are done: rows padded so that the fragment stores hit
+// distinct banks.
+constexpr int kCsStride = kTcCols + 4;
+static_assert(kTcRows * kCsStride * 4 <= 4 * kTcBStage * 2, "C tile must fit the B stages");
+static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
+
+// grid (ceil(N / kTcRows)); dynamic shared memory: the A tile
+// [kTcRows][max(Dk, Mk) + kTcPad] and two stages of B chunks (hi and lo,
+// [kTcCols][kTcK + kTcPad] each). vec_a: 1 when the A rows (g, v, k) may be
+// read 16 bytes at a time (M and D multiples of 8, row strides too, bases
+// 16-byte aligned). vec_io: the epilogue moves 8 columns of q, k, g, dq,
+// dk, dv with 16-byte accesses (row strides multiples of 8, bases 16-byte
+// aligned).
+__global__ void __launch_bounds__(kTcThreads, 2)
+la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+                       long ldq, long ldk, long ldv, long ldg, __nv_bfloat16* __restrict__ dq,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, long lddq,
+                       long lddk, long lddv, int N, int M, int D,
+                       const __nv_bfloat16* __restrict__ hl, const float* __restrict__ ksum,
+                       const float* __restrict__ ds, const float* __restrict__ scal,
+                       const float* __restrict__ n_total, const float* __restrict__ dinv,
+                       const float* __restrict__ den, const float* __restrict__ gden, int guard,
+                       int vec_a, int vec_io) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcDims t(M, D);
+  const int a_stride = max(t.Dk, t.Mk) + kTcPad;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;   // warp's first row in the tile
+  const int wn = (warp >> 2) * 32;  // warp's first column in the column tile
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  const float inv = scal[2];
+  const float n = *n_total;
+  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+  const size_t nk = t.kvs_elems();
+
+  for (int which = 0; which < 3; ++which) {
+    // dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M
+    const __nv_bfloat16* A = which == 0 ? g : (which == 1 ? v : k);
+    const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
+    const int K = which == 2 ? M : D;
+    const int Kp = which == 2 ? t.Mk : t.Dk;
+    const int C = which == 2 ? D : M;
+    const __nv_bfloat16* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
+    const size_t lo_off = which == 2 ? t.pt_elems() : nk;
+
+    __syncthreads();  // the previous product is done with As
+    // A rows r0.., zero past N and past K
+    if (vec_a) {
+      const int segs = Kp / 8;
+      for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
+        const int r = i / segs;
+        const int c = (i % segs) * 8;
+        const bool ok = r0 + r < N && c < K;
+        cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A,
+                   ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int i = tid; i < kTcRows * Kp; i += kTcThreads) {
+        const int r = i / Kp;
+        const int c = i % Kp;
+        As[static_cast<size_t>(r) * a_stride + c] =
+            (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+    __syncthreads();
+
+    for (int c0 = 0; c0 < C; c0 += kTcCols) {
+      float acc[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+      // one chunk: [kTcCols][kTcK] of hi and of lo, 16 bytes a copy
+      auto load_b = [&](int kc, int stage) {
+        constexpr int kSegs = kTcK / 8;
+        constexpr int kCopies = 2 * kTcCols * kSegs;
+#pragma unroll
+        for (int it = 0; it < kCopies / kTcThreads; ++it) {
+          const int i = tid + it * kTcThreads;
+          const int half = i / (kTcCols * kSegs);  // 0 hi, 1 lo
+          const int row = (i / kSegs) % kTcCols;
+          const int seg = (i % kSegs) * 8;
+          const __nv_bfloat16* src =
+              B_hi + half * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTcK + seg;
+          cp_async16(Bs + (stage * 2 + half) * kTcBStage + row * kTcBStride + seg, src);
+        }
+        cp_async_commit();
+      };
+
+      const int chunks = Kp / kTcK;
+      load_b(0, 0);
+      for (int kc = 0; kc < chunks; ++kc) {
+        if (kc + 1 < chunks) {
+          load_b(kc + 1, (kc + 1) & 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const __nv_bfloat16* Bh = Bs + ((kc & 1) * 2) * kTcBStage;
+        const __nv_bfloat16* Bl = Bh + kTcBStage;
+#pragma unroll
+        for (int ks = 0; ks < kTcK; ks += 16) {
+          unsigned a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int row = wm + mt * 16 + (lane & 15);
+            const int col = kc * kTcK + ks + (lane >> 4) * 8;
+            ldmatrix_x4(a[mt], As + static_cast<size_t>(row) * a_stride + col);
+          }
+          // the hi half's fragments, its 8 MMAs, then the lo half's in the
+          // same registers
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const __nv_bfloat16* Bp = half ? Bl : Bh;
+            unsigned b[4][2];
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              const int nrow = wn + np * 16 + (lane & 7) + (lane >> 4) * 8;
+              const int kcol = ks + ((lane >> 3) & 1) * 8;
+              unsigned r[4];
+              ldmatrix_x4(r, Bp + nrow * kTcBStride + kcol);
+              b[2 * np][0] = r[0];
+              b[2 * np][1] = r[1];
+              b[2 * np + 1][0] = r[2];
+              b[2 * np + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+          }
+        }
+        __syncthreads();  // this stage is refilled two chunks on
+      }
+
+      // epilogue: the tile through shared memory, then 8 columns a thread
+      // step with 16-byte loads and stores. acc[mt][nt] = {(r, c),
+      // (r, c+1), (r+8, c), (r+8, c+1)}
+      float* Cs = reinterpret_cast<float*>(Bs);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int r = wm + mt * 16 + (lane >> 2) + half * 8;
+            const int c = wn + nt * 8 + (lane & 3) * 2;
+            *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
+                make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+          }
+      __syncthreads();
+      // a fixed trip count, unrolled, so that each thread's reads of q, k or
+      // g are in flight together
+#pragma unroll
+      for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
+        const int i = tid + it * kTcThreads;
+        const int r = i / (kTcCols / 8);
+        const int cs = (i % (kTcCols / 8)) * 8;
+        const long row = r0 + r;
+        const int c = c0 + cs;
+        if (row >= N || c >= C) continue;
+        const int cols = min(8, C - c);
+        const bool vec = vec_io && cols == 8;
+        float a[8], o[8], x[8];
+        const float4 a_lo = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs);
+        const float4 a_hi = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs + 4);
+        a[0] = a_lo.x; a[1] = a_lo.y; a[2] = a_lo.z; a[3] = a_lo.w;
+        a[4] = a_hi.x; a[5] = a_hi.y; a[6] = a_hi.z; a[7] = a_hi.w;
+        const float den_r = den[row];
+        if (which == 0) {
+          const float gden_r = gden[row];
+          load8(q + row * ldq + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float ks = e < cols ? ksum[c + e] : 0.f;
+            o[e] = inv * (a[e] / den_r) + inv * gden_r * ks - c_q * x[e];
+          }
+          store8(dq + row * lddq + c, vec, cols, o);
+        } else if (which == 1) {
+          load8(k + row * ldk + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float dsv = e < cols ? ds[c + e] : 0.f;
+            o[e] = inv * a[e] + inv * dsv - c_k * x[e];
+          }
+          store8(dk + row * lddk + c, vec, cols, o);
+        } else {
+          load8(g + row * ldg + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = n * (x[e] / den_r) + inv * a[e];
+          store8(dv + row * lddv + c, vec, cols, o);
+        }
+      }
+      __syncthreads();  // Cs is the next column tile's B stages
+    }
+  }
+}
+
+size_t tc_smem_bytes(int M, int D) {
+  const TcDims t(M, D);
+  const int a_stride = (t.Dk > t.Mk ? t.Dk : t.Mk) + kTcPad;
+  return (static_cast<size_t>(kTcRows) * a_stride + 4 * static_cast<size_t>(kTcBStage)) *
+         sizeof(__nv_bfloat16);
+}
+
 template <typename T>
 cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                               long ldg, int N, int M, int D, int slices, int rows_per_slice,
@@ -502,17 +875,50 @@ extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 scratch (elements) of the tensor-core apply for these widths,
+// or 0 where the apply runs on the CUDA cores: f32 inputs, or widths whose
+// A tile does not fit one block's shared memory.
+extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
+  if (dtype != 1 || tc_smem_bytes(M, D) > kSmemPerBlock) return 0;
+  return static_cast<int>(TcDims(M, D).total());
+}
+
 // dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
 // (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
+// hl: the bf16 scratch of sgf_la_bwd_apply_scratch elements where that is
+// not 0 (the tensor-core design: la_bwd_split_kernel, then
+// la_bwd_apply_tc_kernel), else unused (la_bwd_apply_kernel); vec_a and
+// vec_io as la_bwd_apply_tc_kernel takes them.
 extern "C" int sgf_la_bwd_apply(const void* q, const void* k, const void* v, const void* g,
                                 long ldq, long ldk, long ldv, long ldg, void* dq, void* dk,
                                 void* dv, long lddq, long lddk, long lddv, int N, int M, int D,
                                 int dtype, const float* kvs, const float* ksum, const float* P,
                                 const float* ds, const float* scal, const float* n_total,
-                                const float* dinv, const float* rows, int guard, void* stream) {
+                                const float* dinv, const float* rows, int guard, int vec_a,
+                                int vec_io, void* hl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* den = rows;
   const float* gden = rows + N;
+  if (sgf_la_bwd_apply_scratch(dtype, M, D) > 0) {
+    using bf16 = __nv_bfloat16;
+    bf16* h = static_cast<bf16*>(hl);
+    const size_t total = TcDims(M, D).total();
+    const unsigned split_blocks =
+        static_cast<unsigned>(std::min<size_t>((total + kThreads - 1) / kThreads, 1024));
+    la_bwd_split_kernel<<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, h);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || N == 0) return static_cast<int>(err);
+    const size_t smem = tc_smem_bytes(M, D);
+    err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    la_bwd_apply_tc_kernel<<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(g), ldq, ldk, ldv, ldg, static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), lddq, lddk, lddv, N, M, D, h, ksum, ds,
+        scal, n_total, dinv, den, gden, guard, vec_a, vec_io);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == 0) {
     launch_bwd_apply<float>(q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M,
                             D, kvs, ksum, P, ds, scal, n_total, dinv, den, gden, guard, st);

@@ -18,7 +18,8 @@
 // one call per head), plus the w_self * x self-loop term of
 // kernels/slab_spmm.py. Here the edges are the dst-sorted CSR that
 // preprocess_graph builds, so one kernel computes the whole sum in the
-// caller's node order, all heads in one launch: no reorder, no plan. The
+// caller's node order, all heads in one launch: no reorder, and no plan but
+// the hub segments below (with a second, small pass for them). The
 // gradient in x is this kernel on the transposed order (the caller passes
 // the transposed CSR and the values permuted into it).
 //
@@ -40,12 +41,33 @@
 // pass. The row's edge ids and values are read 32 at a time, one per lane,
 // and broadcast with shuffles. The sum is kept in f32 registers and rounded
 // once on the store; the messages may be bf16 with an f32 result (GAT's
-// bf16 messages). In sddmm the warp holds 256 columns of g's row i in
-// registers, takes for each of the row's edges the dot with the source row
-// of x, sums it across the warp with a fixed butterfly, and the lane that
-// owns the edge keeps it: dv is written once per edge in dst-sorted order.
-// Each row is done in a fixed order by one warp, so both results are
-// deterministic (no atomics).
+// bf16 messages). Each head's pass walks the row's edges again, its ids and
+// values then in L1: a warp that read them once and kept both of GAT's
+// 256-column heads in registers took 1.04 ms against this walk's 0.90 at
+// GAT's first layer on the H100 (fewer warps in flight; chip_smoke.py), so
+// the walk per pass stays.
+//
+// Hub rows. One warp walks its row's edges one after another, about 0.37 us
+// an edge from device memory, so on a power-law graph (the JAX package's
+// bench graph: in-degree up to 7,391, 487 rows above 256 holding 21 % of the
+// edges) one warp on the largest row set the whole kernel's time while the
+// other SMs sat idle. The JAX package met the same skew with a hub tail kept
+// in VMEM (kernels/slabs.py); here the work is balanced instead. A row of
+// more than max_edges in-edges is cut, once per graph on the host, into
+// segments of at most max_edges consecutive edges (the plan: (row, begin,
+// end) per segment, in row order); the first pass gives each segment a warp
+// of its own, placed first in the grid so that the long walks start at
+// once, and it writes the segment's f32 partial row into scratch; the
+// second pass (csr_spmm_hub_kernel) adds each hub row's partials in segment
+// order and rounds once. Rows of at most max_edges edges take the one-warp
+// path unchanged. No atomics touch values, so the result is the same on
+// every call.
+//
+// In sddmm the warp holds 256 columns of g's row i in registers, takes for
+// each of the row's edges the dot with the source row of x, sums it across
+// the warp with a fixed butterfly, and the lane that owns the edge keeps
+// it: dv is written once per edge in dst-sorted order. Each row is done in a
+// fixed order by one warp, so both results are deterministic (no atomics).
 //
 // csr_spmm_q8 is the int8 branch of kernels/slab_spmm.py::_ssel_kernel
 // (int8 x int8 -> int32 dots of 0/1 selectors with absmax-quantised rows),
@@ -165,26 +187,25 @@ struct Cols {
   }
 };
 
+// The sum over edges [begin, end) of v[e, h] * x[src[e], h, :] for every
+// head, written to the F = H*D columns at dst: one pass of Cols' width at a
+// time within a head, each element an fmaf chain in edge order from 0.
 // Every lane runs every loop trip, even past D, because the shuffles need
 // the whole warp.
-template <typename TIn, typename TOut, bool kVec8>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
-                const float* __restrict__ v, const TIn* __restrict__ x,
-                TOut* __restrict__ out, int n_rows, int H, int D) {
+template <typename TIn, typename TDst, bool kVec8>
+__device__ __forceinline__ void spmm_edges(const int* __restrict__ src,
+                                           const float* __restrict__ v,
+                                           const TIn* __restrict__ x, TDst* __restrict__ dst,
+                                           int begin, int end, int H, int D) {
   using C = Cols<kVec8>;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
   const size_t F = static_cast<size_t>(H) * D;
   for (int h = 0; h < H; ++h) {
     for (int c0 = 0; c0 < D; c0 += C::kPass) {
       const int c = h * D + c0 + lane * C::kPerLane;
       const bool active = c0 + lane * C::kPerLane < D;
       float acc[C::kPerLane] = {};
-      for (int e0 = start; e0 < end; e0 += 32) {
+      for (int e0 = begin; e0 < end; e0 += 32) {
         const int e = e0 + lane;
         int s = 0;
         float we = 0.f;
@@ -205,8 +226,65 @@ csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
           }
         }
       }
-      if (active) C::store(out + static_cast<size_t>(row) * F + c, acc);
+      if (active) C::store(dst + c, acc);
     }
+  }
+}
+
+// Warps [0, n_seg) take one hub segment each (seg[w] = (row, begin, end))
+// and write its f32 partial row to part[w]; warp n_seg + i takes row i,
+// unless the row has more than max_edges edges (its segments cover it).
+// The bf16 walk is held to 32 registers, so that an SM holds its full 64
+// warps: the gather's latency bounds it, and the hub path's code would
+// otherwise cost it occupancy and time; f32 rows would spill there.
+template <typename TIn, typename TOut, bool kVec8>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, sizeof(TIn) == 2 ? 8 : 1)
+csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
+                const float* __restrict__ v, const TIn* __restrict__ x,
+                TOut* __restrict__ out, const int* __restrict__ seg, int n_seg,
+                float* __restrict__ part, int max_edges, int n_rows, int H, int D) {
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const size_t F = static_cast<size_t>(H) * D;
+  if (w < n_seg) {
+    spmm_edges<TIn, float, kVec8>(src, v, x, part + static_cast<size_t>(w) * F,
+                                  __ldg(seg + 3 * w + 1), __ldg(seg + 3 * w + 2), H, D);
+    return;
+  }
+  const int row = w - n_seg;
+  if (row >= n_rows) return;  // the whole warp leaves together
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+  if (end - start > max_edges) return;
+  spmm_edges<TIn, TOut, kVec8>(src, v, x, out + static_cast<size_t>(row) * F, start, end, H,
+                               D);
+}
+
+// Second pass over the hub rows: the warp of a row's first segment adds the
+// row's partials in segment order (first + second + ...) and rounds once.
+template <typename TOut, bool kVec8>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_hub_kernel(const int* __restrict__ seg, int n_seg, const float* __restrict__ part,
+                    TOut* __restrict__ out, int F) {
+  using C = Cols<kVec8>;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;
+  const int row = __ldg(seg + 3 * w);
+  if (w > 0 && __ldg(seg + 3 * (w - 1)) == row) return;  // not the row's first segment
+  int last = w + 1;
+  while (last < n_seg && __ldg(seg + 3 * last) == row) ++last;
+  for (int c0 = 0; c0 < F; c0 += C::kPass) {
+    const int c = c0 + lane * C::kPerLane;
+    if (c >= F) break;  // no shuffles here
+    float acc[C::kPerLane];
+    C::load(part + static_cast<size_t>(w) * F + c, acc);
+    for (int s = w + 1; s < last; ++s) {
+      float t[C::kPerLane];
+      C::load(part + static_cast<size_t>(s) * F + c, t);
+#pragma unroll
+      for (int i = 0; i < C::kPerLane; ++i) acc[i] = __fadd_rn(acc[i], t[i]);
+    }
+    C::store(out + static_cast<size_t>(row) * F + c, acc);
   }
 }
 
@@ -327,19 +405,32 @@ csr_spmm_q8_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
 
 dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
-template <typename TIn, typename TOut>
-void launch_spmm(const int* indptr, const int* src, const float* v, const void* x, void* out,
-                 int n_rows, int H, int D, int vec8, cudaStream_t stream) {
+template <typename TIn, typename TOut, bool kVec8>
+cudaError_t launch_spmm_cols(const int* indptr, const int* src, const float* v, const TIn* x,
+                             TOut* out, const int* seg, int n_seg, float* part, int max_edges,
+                             int n_rows, int H, int D, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
+  csr_spmm_kernel<TIn, TOut, kVec8><<<grid_for(n_seg + n_rows), block, 0, stream>>>(
+      indptr, src, v, x, out, seg, n_seg, part, max_edges, n_rows, H, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 0) return err;
+  csr_spmm_hub_kernel<TOut, kVec8><<<grid_for(n_seg), block, 0, stream>>>(seg, n_seg, part, out,
+                                                                         H * D);
+  return cudaGetLastError();
+}
+
+template <typename TIn, typename TOut>
+cudaError_t launch_spmm(const int* indptr, const int* src, const float* v, const void* x,
+                        void* out, const int* seg, int n_seg, float* part, int max_edges,
+                        int n_rows, int H, int D, int vec8, cudaStream_t stream) {
   const TIn* xt = static_cast<const TIn*>(x);
   TOut* ot = static_cast<TOut*>(out);
   if (vec8) {
-    csr_spmm_kernel<TIn, TOut, true><<<grid_for(n_rows), block, 0, stream>>>(
-        indptr, src, v, xt, ot, n_rows, H, D);
-  } else {
-    csr_spmm_kernel<TIn, TOut, false><<<grid_for(n_rows), block, 0, stream>>>(
-        indptr, src, v, xt, ot, n_rows, H, D);
+    return launch_spmm_cols<TIn, TOut, true>(indptr, src, v, xt, ot, seg, n_seg, part,
+                                             max_edges, n_rows, H, D, stream);
   }
+  return launch_spmm_cols<TIn, TOut, false>(indptr, src, v, xt, ot, seg, n_seg, part,
+                                            max_edges, n_rows, H, D, stream);
 }
 
 template <typename T>
@@ -364,26 +455,38 @@ void launch_sddmm(const int* indptr, const int* src, const void* g, const void* 
 // on success).
 
 // x (the messages) in in_dtype, out in out_dtype, any pairing: GAT sends
-// bf16 messages of an f32 tensor and keeps the f32 result.
+// bf16 messages of an f32 tensor and keeps the f32 result. seg: the hub
+// plan, [n_seg, 3] int32 (row, begin, end) in row order, covering exactly
+// the rows of more than max_edges edges; part: f32 scratch [n_seg, H*D]
+// (unused when n_seg is 0). Launches csr_spmm_kernel, then
+// csr_spmm_hub_kernel when there are hub rows.
 extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
-                            const void* x, void* out, int n_rows, int H, int D,
-                            int in_dtype, int out_dtype, int vec8, void* stream) {
+                            const void* x, void* out, const void* seg, int n_seg, void* part,
+                            int max_edges, int n_rows, int H, int D, int in_dtype,
+                            int out_dtype, int vec8, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
   const float* vp = static_cast<const float*>(v);
+  const int* sg = static_cast<const int*>(seg);
+  float* pp = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (in_dtype == 0 && out_dtype == 0) {
-    launch_spmm<float, float>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+    err = launch_spmm<float, float>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges, n_rows, H, D,
+                                    vec8, st);
   } else if (in_dtype == 1 && out_dtype == 1) {
-    launch_spmm<__nv_bfloat16, __nv_bfloat16>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+    err = launch_spmm<__nv_bfloat16, __nv_bfloat16>(ip, sp, vp, x, out, sg, n_seg, pp,
+                                                    max_edges, n_rows, H, D, vec8, st);
   } else if (in_dtype == 1 && out_dtype == 0) {
-    launch_spmm<__nv_bfloat16, float>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+    err = launch_spmm<__nv_bfloat16, float>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges,
+                                            n_rows, H, D, vec8, st);
   } else if (in_dtype == 0 && out_dtype == 1) {
-    launch_spmm<float, __nv_bfloat16>(ip, sp, vp, x, out, n_rows, H, D, vec8, st);
+    err = launch_spmm<float, __nv_bfloat16>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges,
+                                            n_rows, H, D, vec8, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // q int8 and xb bf16, [N, F]; v, rs and the absmax f32; out in out_dtype.

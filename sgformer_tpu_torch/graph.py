@@ -46,6 +46,7 @@ import torch
 
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.kernels import spmm as _spmm_kernel
+from sgformer_tpu_torch.kernels.spmm import hub_segments
 
 _CHUNK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -79,6 +80,13 @@ class Graph:
         (the int8 aggregation, the JAX ``SlabSpMM.slab_dtype``).
       rs: [N] f32 ``1/sqrt(d_in)``, the separable factor of ``gcn_weight``
         that the int8 aggregation reads; present only with 'int8'.
+      hub_segments, t_hub_segments, pyg_hub_segments, pyg_t_hub_segments:
+        the hub plan of ``indptr``, ``t_indptr``, ``pyg_indptr`` and
+        ``pyg_t_indptr`` (:func:`sgformer_tpu_torch.kernels.spmm.
+        hub_segments`, [S, 3] int32), present where their CSR is: the
+        segments that the CSR kernels split rows of more than
+        ``HUB_EDGES`` in-edges into, built here once so that no call reads
+        ``indptr`` back to the host.
     """
 
     edge_src: torch.Tensor
@@ -105,6 +113,10 @@ class Graph:
     chunk_dtype: str = "f32"
     slab_dtype: str = "compute"
     rs: Optional[torch.Tensor] = None
+    hub_segments: Optional[torch.Tensor] = None
+    t_hub_segments: Optional[torch.Tensor] = None
+    pyg_hub_segments: Optional[torch.Tensor] = None
+    pyg_t_hub_segments: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -128,6 +140,7 @@ class Graph:
         if kind == "gcn":
             csr = (self.indptr, self.edge_src, self.edge_dst, self.gcn_weight)
             csr_t = (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_weight)
+            plans = (self.hub_segments, self.t_hub_segments)
         elif kind == "pyg":
             if self.pyg_src is None:
                 raise ValueError(
@@ -135,13 +148,15 @@ class Graph:
                 )
             csr = (self.pyg_indptr, self.pyg_src, self.pyg_dst, self.pyg_weight)
             csr_t = (self.pyg_t_indptr, self.pyg_t_src, self.pyg_t_dst, self.pyg_t_weight)
+            plans = (self.pyg_hub_segments, self.pyg_t_hub_segments)
         else:
             raise ValueError(f"unknown propagate kind {kind!r}")
         if self.symmetric:
             csr_t = csr
+            plans = (plans[0], plans[0])
         if self.slab_dtype == "int8":
             return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs)
-        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t)
+        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans)
 
     def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """out[i, h] = sum over edges e into i of values[e, h] * x[src_e, h],
@@ -159,7 +174,7 @@ class Graph:
         return _spmm_kernel.csr_spmm_ev_autograd(
             x, values, (self.indptr, self.edge_src, self.edge_dst),
             (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_perm),
-            _CHUNK_DTYPES[self.chunk_dtype])
+            _CHUNK_DTYPES[self.chunk_dtype], self.hub_segments, self.t_hub_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -280,13 +295,14 @@ def _int32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 def _transpose_csr(src, dst, weight, num_nodes: int, dev: torch.device) -> tuple:
     """CSR of A^T from A's dst-sorted edges: sorted (stably) by source, each
     edge's row is its source and its column its destination. Returns
-    (indptr, edge_src, edge_dst, weight, perm) in the layout
+    (indptr, edge_src, edge_dst, weight, perm, hub plan) in the layout
     :func:`csr_spmm` reads, with perm the dst-sorted id of each edge."""
     order = np.argsort(src, kind="stable")
     t_dst, t_src = src[order], dst[order]
-    return (_int32(build_indptr(t_dst, num_nodes), dev), _int32(t_src, dev),
+    indptr = build_indptr(t_dst, num_nodes)
+    return (_int32(indptr, dev), _int32(t_src, dev),
             _int32(t_dst, dev), torch.from_numpy(np.ascontiguousarray(weight[order])).to(dev),
-            _int32(order, dev))
+            _int32(order, dev), _int32(hub_segments(indptr), dev))
 
 
 def preprocess_graph(
@@ -346,7 +362,7 @@ def preprocess_graph(
     src, dst = sort_by_dst(edge_index)
     weight = gcn_norm_weights(src, dst, num_nodes).astype(dtype)
     indptr = build_indptr(dst, num_nodes)
-    names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm")
+    names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm", "t_hub_segments")
     extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
     rs = gcn_norm_rs(dst, num_nodes) if slab_dtype == "int8" else None
     if rs is not None:
@@ -359,20 +375,24 @@ def preprocess_graph(
                                               rtol=1e-5, atol=1e-12):
             raise ValueError("slab_dtype='int8' needs separable (sep_rs) weights: this "
                              "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
+        pindptr = build_indptr(pdst, num_nodes)
         extra.update(
             pyg_src=_int32(psrc, dev),
             pyg_dst=_int32(pdst, dev),
             pyg_weight=torch.from_numpy(pw).to(dev),
-            pyg_indptr=_int32(build_indptr(pdst, num_nodes), dev),
+            pyg_indptr=_int32(pindptr, dev),
+            pyg_hub_segments=_int32(hub_segments(pindptr), dev),
         )
         if not undirected:
-            names = ("pyg_t_indptr", "pyg_t_src", "pyg_t_dst", "pyg_t_weight")
-            extra.update(zip(names, _transpose_csr(psrc, pdst, pw, num_nodes, dev)[:4]))
+            t = _transpose_csr(psrc, pdst, pw, num_nodes, dev)
+            extra.update(pyg_t_indptr=t[0], pyg_t_src=t[1], pyg_t_dst=t[2], pyg_t_weight=t[3],
+                         pyg_t_hub_segments=t[5])
     return Graph(
         edge_src=_int32(src, dev),
         edge_dst=_int32(dst, dev),
         gcn_weight=torch.from_numpy(np.ascontiguousarray(weight)).to(dev),
         indptr=_int32(indptr, dev),
+        hub_segments=_int32(hub_segments(indptr), dev),
         num_nodes=int(num_nodes),
         num_edges=int(len(src)),
         symmetric=bool(undirected),

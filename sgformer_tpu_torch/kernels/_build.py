@@ -39,7 +39,7 @@ _L = ctypes.c_long
 # argtype would be cut to 32 bits
 _SIGNATURES = {
     "spmm": {
-        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "sgf_sddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
@@ -58,7 +58,9 @@ _SIGNATURES = {
         "sgf_la_bwd_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
         "sgf_la_bwd_apply": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L, _L, _L,
-                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                             _P],
+        "sgf_la_bwd_apply_scratch": [_I, _I, _I],
     },
 }
 

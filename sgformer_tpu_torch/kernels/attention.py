@@ -19,8 +19,16 @@ scaled by one norm over all heads, as in the SGFormer reference and the
 plain path; the JAX Pallas path scales each head by its own norms, which
 agrees only at H = 1.
 
+:func:`bwd_apply` on bf16 inputs runs its three products on the tensor
+cores (``la_bwd_apply_tc_kernel``: bf16 rows against kvs and P split into
+bf16 hi + lo, f32 sums); on f32 inputs, and on bf16 widths too large for
+that kernel's shared memory, on the CUDA cores in f32
+(``la_bwd_apply_kernel``). :func:`bwd_apply_design` names the one a call
+runs.
+
 ``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
-``bwd_apply_launches`` count the launches; set them to 0 to start a count.
+``bwd_apply_launches`` count the wrappers' launching calls; set them to 0
+to start a count.
 """
 
 from __future__ import annotations
@@ -297,6 +305,21 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
     return P, ds, dinv, rows
 
 
+def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
+    """bf16 elements of the tensor-core apply's scratch, 0 for the CUDA-core
+    design (builds the kernels on first use)."""
+    return _build.library("linear_attention_bwd").sgf_la_bwd_apply_scratch(
+        _DTYPES[dtype], m, d)
+
+
+def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
+    """Which kernel :func:`bwd_apply` launches on the card for inputs of
+    ``dtype`` with widths m (q, k) and d (v, g)."""
+    if _apply_scratch(dtype, m, d):
+        return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
+    return "CUDA cores (f32 FMA)"
+
+
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
               guard: bool = False, out=None):
     """Backward pass 2 of one head: dq, dk [N, M] and dv [N, D] in the
@@ -330,13 +353,23 @@ def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
                                                 P, ds, dinv, rows, guard)):
             t.copy_(want)
         return out
+    scratch = _apply_scratch(q.dtype, m, d)
+    hl = torch.empty(scratch, dtype=torch.bfloat16, device=dev) if scratch else None
+    # the tensor-core kernel reads the A rows (g, v, k), and in its epilogue
+    # q, k, g, dq, dk, dv, 16 bytes at a time where widths, strides and
+    # bases allow
+    vec_a = int(m % 8 == 0 and d % 8 == 0 and all(
+        t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0 for t in (k, v, g)))
+    vec_io = int(all(t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+                     for t in (q, k, g, dq, dk, dv)))
     err = _build.library("linear_attention_bwd").sgf_la_bwd_apply(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         q.stride(0), k.stride(0), v.stride(0), g.stride(0),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq.stride(0), dk.stride(0), dv.stride(0),
         n, m, d, _DTYPES[q.dtype], kvs.data_ptr(), ksum.data_ptr(), P.data_ptr(),
         ds.data_ptr(), scal.data_ptr(), n_total.data_ptr(), dinv.data_ptr(),
-        rows.data_ptr(), int(guard), _stream(q),
+        rows.data_ptr(), int(guard), vec_a, vec_io, None if hl is None else hl.data_ptr(),
+        _stream(q),
     )
     _build.check(err, "linear attention bwd_apply")
     bwd_apply_launches += 1

@@ -30,13 +30,24 @@ the transpose is A's own CSR, but runtime values belong to directed edges,
 so the per-edge-value gradient always reads the values permuted into the
 transposed order.
 
+Hub rows: :func:`csr_spmm` and :func:`csr_spmm_ev` split every row of more
+than :data:`HUB_EDGES` in-edges into segments of at most that many edges,
+each summed by a warp of its own, and add each row's segment sums in a
+fixed order in a second pass (see ``csrc/spmm.cu``). The plan,
+:func:`hub_segments` of the CSR's ``indptr``, is built once per graph on
+the host by ``preprocess_graph`` and kept on the ``Graph`` beside each CSR
+(``hub_segments``, ``t_hub_segments``, ...); a call without it builds it
+from ``indptr``, which reads ``indptr`` back to the host.
+
 ``launches``, ``ev_launches``, ``sddmm_launches`` and ``q8_launches`` count
-the kernels' launches, forward and backward alike; set them to 0 to start a
-count.
+the wrappers' calls that launched their kernels (one, whether or not the
+hub rows' second pass ran), forward and backward alike; set them to 0 to
+start a count.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sgformer_tpu_torch.kernels import _build
@@ -53,6 +64,29 @@ sddmm_launches = 0
 q8_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# a row of more in-edges than this is summed in segments of at most this
+# many edges, one warp each: on the H100, on the JAX package's power-law
+# bench graph, 128 edges (4,894 segments) timed best of 64 to 1,024
+HUB_EDGES = 128
+
+
+def hub_segments(indptr, max_edges: int = HUB_EDGES) -> np.ndarray:
+    """The segment plan of a CSR: every row with more than ``max_edges``
+    edges cut into runs of at most ``max_edges`` consecutive edges, as an
+    [S, 3] int32 array of (row, begin, end) edge ranges in row and edge
+    order. ``indptr``: [N+1], numpy or a tensor (read on the host)."""
+    if isinstance(indptr, torch.Tensor):
+        indptr = indptr.cpu().numpy()
+    indptr = np.asarray(indptr, dtype=np.int64)
+    deg = np.diff(indptr)
+    rows = np.flatnonzero(deg > max_edges)
+    counts = -(-deg[rows] // max_edges)
+    row = np.repeat(rows, counts)
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    begin = indptr[row] + (np.arange(len(row)) - first) * max_edges
+    end = np.minimum(begin + max_edges, indptr[row + 1])
+    return np.stack([row, begin, end], axis=1).astype(np.int32).reshape(-1, 3)
 
 
 def _check_device(*tensors) -> str:
@@ -81,15 +115,34 @@ def _aligned(d: int, *tensors) -> int:
     return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int) -> bool:
-    """Launch the kernel unless the output is empty; True if it launched."""
+def _plan(segments, indptr) -> torch.Tensor:
+    """The hub plan on indptr's device: ``segments`` as given (checked), or
+    built from ``indptr`` (a host read) when None."""
+    if segments is None:
+        return torch.from_numpy(hub_segments(indptr)).to(indptr.device)
+    if segments.device != indptr.device:
+        raise ValueError(f"segments on {segments.device}, the CSR on {indptr.device}")
+    if (segments.dtype != torch.int32 or segments.dim() != 2 or segments.shape[1] != 3
+            or not segments.is_contiguous()):
+        raise TypeError("segments must be a contiguous [S, 3] int32 tensor (hub_segments)")
+    return segments
+
+
+def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int, segments) -> bool:
+    """Launch the kernel (and the hub rows' second pass) unless the output
+    is empty; True if it launched."""
     n = indptr.shape[0] - 1
     if n == 0 or d == 0 or heads == 0:
         return False
+    segments = _plan(segments, indptr)
+    n_seg = segments.shape[0]
+    part = (torch.empty(n_seg, heads * d, dtype=torch.float32, device=x.device)
+            if n_seg else None)
     err = _build.library("spmm").sgf_csr_spmm(
         indptr.data_ptr(), edge_src.data_ptr(), values.data_ptr(), x.data_ptr(),
-        out.data_ptr(), n, heads, d, _DTYPES[x.dtype], _DTYPES[out.dtype],
-        _aligned(d, x, out), torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), segments.data_ptr() if n_seg else None, n_seg,
+        part.data_ptr() if n_seg else None, HUB_EDGES, n, heads, d, _DTYPES[x.dtype],
+        _DTYPES[out.dtype], _aligned(d, x, out), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "csr_spmm")
     return True
@@ -101,13 +154,17 @@ def csr_spmm(
     edge_src: torch.Tensor,
     edge_dst: torch.Tensor,
     weight: torch.Tensor,
+    segments: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """out[i] = sum_{e in [indptr[i], indptr[i+1])} weight[e] * x[edge_src[e]].
 
     x: [N, F] float32 or bfloat16 (any F; the kernel takes 256 columns per
     pass); indptr [N+1], edge_src and edge_dst [E] int32, sorted by dst;
-    weight [E] float32. The sum is f32 and the result has x's type.
-    ``edge_dst`` is read only by the plain version.
+    weight [E] float32; segments: the hub plan of this CSR
+    (:func:`hub_segments`, on the graph as ``hub_segments`` and the like),
+    built from ``indptr`` when None. The sum is f32 and the result has x's
+    type. ``edge_dst`` is read only by the plain version, ``segments`` only
+    by the kernel.
     """
     global launches
     n = indptr.shape[0] - 1
@@ -122,7 +179,7 @@ def csr_spmm(
         raise ValueError("weight must be [E]")
     x = x.contiguous()
     out = torch.empty_like(x)
-    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1]):
+    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments):
         launches += 1
     return out
 
@@ -134,13 +191,15 @@ def csr_spmm_ev(
     edge_dst: torch.Tensor,
     values: torch.Tensor,
     out_dtype: torch.dtype | None = None,
+    segments: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """out[i, h] = sum_{e in [indptr[i], indptr[i+1])} values[e, h] * x[edge_src[e], h].
 
     x: [N, H, D] float32 or bfloat16, the messages in the type they are
     sent in; values: [E, H] float32 in the CSR's edge order; all heads in one
     launch. The sum is f32 and the result, [N, H, D], has ``out_dtype``
-    (x's type when None). ``edge_dst`` is read only by the plain version.
+    (x's type when None). ``segments`` is the CSR's hub plan, as in
+    :func:`csr_spmm`. ``edge_dst`` is read only by the plain version.
     """
     global ev_launches
     n = indptr.shape[0] - 1
@@ -157,7 +216,7 @@ def csr_spmm_ev(
     _check_csr(indptr, edge_src, values=values)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2]):
+    if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2], segments):
         ev_launches += 1
     return out
 
@@ -290,26 +349,29 @@ class CsrSpmmFunction(torch.autograd.Function):
     :func:`csr_spmm`. Only x gets a gradient; the CSR arrays get none."""
 
     @staticmethod
-    def forward(ctx, x, indptr, edge_src, edge_dst, weight,
-                t_indptr, t_edge_src, t_edge_dst, t_weight):
-        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight)
-        return csr_spmm(x, indptr, edge_src, edge_dst, weight)
+    def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
+                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments):
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments)
+        return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments)
 
     @staticmethod
     def backward(ctx, g):
         dx = csr_spmm(g.contiguous(), *ctx.transpose)
-        return (dx,) + (None,) * 8
+        return (dx,) + (None,) * 10
 
 
-def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple) -> torch.Tensor:
+def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
+                      segments: torch.Tensor | None = None,
+                      t_segments: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`csr_spmm` of ``x`` on ``csr`` = (indptr, edge_src, edge_dst,
     weight), differentiable in x; ``csr_t`` is the CSR of A^T in the same
-    form (``csr`` itself when A is symmetric). Where autograd does not
-    record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
-    gradient) it is one :func:`csr_spmm` and saves nothing."""
+    form (``csr`` itself when A is symmetric); ``segments`` and
+    ``t_segments`` are their hub plans (built from indptr when None). Where
+    autograd does not record (``torch.no_grad``, ``torch.inference_mode``,
+    or x needs no gradient) it is one :func:`csr_spmm` and saves nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return CsrSpmmFunction.apply(x, *csr, *csr_t)
-    return csr_spmm(x, *csr)
+        return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments)
+    return csr_spmm(x, *csr, segments)
 
 
 class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
@@ -324,38 +386,44 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, values, indptr, edge_src, edge_dst,
-                t_indptr, t_edge_src, t_edge_dst, t_perm, msg_dtype):
+    def forward(ctx, x, values, indptr, edge_src, edge_dst, segments,
+                t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments, msg_dtype):
         ctx.save_for_backward(x, values)
         ctx.csr = (indptr, edge_src, edge_dst)
-        ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm)
+        ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments)
         ctx.msg_dtype = msg_dtype
-        return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype)
+        return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype,
+                           segments)
 
     @staticmethod
     def backward(ctx, g):
         x, values = ctx.saved_tensors
-        t_indptr, t_edge_src, t_edge_dst, t_perm = ctx.csr_t
+        t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments = ctx.csr_t
         dx = dv = None
         if ctx.needs_input_grad[0]:
             dx = csr_spmm_ev(g.to(ctx.msg_dtype), t_indptr, t_edge_src, t_edge_dst,
-                             values.index_select(0, t_perm.long()), x.dtype)
+                             values.index_select(0, t_perm.long()), x.dtype, t_segments)
         if ctx.needs_input_grad[1]:
             dv = sddmm(g.to(x.dtype), x, *ctx.csr).to(values.dtype)
-        return (dx, dv) + (None,) * 8
+        return (dx, dv) + (None,) * 10
 
 
 def csr_spmm_ev_autograd(x: torch.Tensor, values: torch.Tensor, csr: tuple,
-                         csr_t: tuple, msg_dtype: torch.dtype) -> torch.Tensor:
+                         csr_t: tuple, msg_dtype: torch.dtype,
+                         segments: torch.Tensor | None = None,
+                         t_segments: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`csr_spmm_ev` of x ([N, H, D]) rounded to ``msg_dtype``, with
     ``values`` ([E, H] f32) on ``csr`` = (indptr, edge_src, edge_dst); the
     result has x's type. Differentiable in x and values; ``csr_t`` =
     (t_indptr, t_edge_src, t_edge_dst, t_perm) is the transposed CSR and the
-    permutation that takes the values into its order. Where autograd does
-    not record it is one :func:`csr_spmm_ev` and saves nothing."""
+    permutation that takes the values into its order; ``segments`` and
+    ``t_segments`` the two CSRs' hub plans (built from indptr when None).
+    Where autograd does not record it is one :func:`csr_spmm_ev` and saves
+    nothing."""
     if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
-        return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, *csr_t, msg_dtype)
-    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype)
+        return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, segments, *csr_t, t_segments,
+                                               msg_dtype)
+    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype, segments)
 
 
 class CsrSpmmQ8Function(torch.autograd.Function):

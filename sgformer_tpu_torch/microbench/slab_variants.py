@@ -13,7 +13,8 @@ row walk. :func:`slab_variant` runs one templated row kernel
 write:
 
 - ``prod``: ``out[i] = sum_e w_e * x[src_e]``, ``A_norm @ x``, bitwise
-  ``csr_spmm`` of x (bf16 to f32 is exact);
+  ``csr_spmm`` of x (bf16 to f32 is exact) on a graph without hub rows
+  (none above ``kernels.spmm.HUB_EDGES`` in-edges, as on the arxiv graph);
 - ``static_sub``: ``out[i] = sum_e w_e * x[src_e % 128]``, 128 the TPU's
   block_rows: the gather hits 128 rows that stay cached;
 - ``no_src_matmul``: ``out[i] = sum_e (1.0001 * w_e) * x[i]``: no gather, the
@@ -146,11 +147,12 @@ def main() -> int:
         if err > REL_TOL * scale:
             print(f"{mode} disagrees with its plain version", file=sys.stderr)
             return 1
-        if mode == "prod" and not torch.equal(got, csr_spmm(x.float(), *csr)):
+        if mode == "prod" and not torch.equal(got, csr_spmm(x.float(), *csr,
+                                                            graph.hub_segments)):
             print("prod is not bitwise csr_spmm", file=sys.stderr)
             return 1
     results = run(graph, x)
-    spmm_ms = measure.time_ms(lambda: csr_spmm(x, *csr))
+    spmm_ms = measure.time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments))
     for mode, r in results.items():
         print(f"{mode}: {r['ms']:7.4f} ms ({r['ns_per_edge']:.4f} ns/edge; plain "
               f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']})",

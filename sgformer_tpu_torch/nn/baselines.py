@@ -90,7 +90,8 @@ class LINK(GraphModel):
         ones = torch.ones(graph.num_edges, device=self.weight.device)
         agg = _spmm_kernel.csr_spmm_autograd(
             self.weight, (graph.indptr, graph.edge_src, graph.edge_dst, ones),
-            (graph.t_indptr, graph.t_edge_src, graph.t_edge_dst, ones))
+            (graph.t_indptr, graph.t_edge_src, graph.t_edge_dst, ones),
+            graph.hub_segments, graph.t_hub_segments)
         return agg + self.bias
 
 

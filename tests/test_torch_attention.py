@@ -254,3 +254,88 @@ def test_no_autograd_function_where_autograd_does_not_record():
         assert fused_linear_attention(q, k, v).grad_fn is None
     with torch.inference_mode():
         assert fused_linear_attention(q, k, v).grad_fn is None
+
+
+def _split_bf16(t):
+    """f32 ``t`` as bf16 hi + lo (hi = bf16(t), lo = bf16(t - hi)), both
+    returned in f32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows, guard,
+                       lo=True):
+    """The bf16 apply's arithmetic (``la_bwd_apply_tc_kernel``) written
+    plainly: the bf16 rows g, v, k as they are, kvs and P split into bf16
+    hi + lo with one product each (``lo=False`` drops the lo half: kvs and
+    P rounded to bf16, as the Pallas kernel does), f32 sums, the 1/den of gd
+    in the epilogue. Returns f32."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    inv = scal[2]
+    den, gden = rows[0], rows[1]
+
+    def mm(a, b):  # a @ b^T, b [C, K] f32 as hi + lo
+        b_hi, b_lo = _split_bf16(b)
+        return a @ b_hi.T + (a @ b_lo.T if lo else 0.0)
+
+    zero = torch.zeros_like(inv)
+    c_q = torch.where(guard & (inv == 0.0), zero, dinv * inv / scal[0])
+    c_k = torch.where(guard & (inv == 0.0), zero, dinv * inv / scal[1])
+    dq = inv * (mm(gf, kvs) / den[:, None]) + inv * gden[:, None] * ksum - c_q * qf
+    dk = inv * mm(vf, P) + inv * ds - c_k * kf
+    dv = n_total * (gf / den[:, None]) + inv * mm(kf, P.T)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("n_one", [False, True])
+def test_tensor_core_apply_keeps_kvs_and_p_at_f32_precision(n_one):
+    """bf16 inputs: the hi + lo apply agrees with ``bwd_apply_plain`` (f32
+    kvs and P) to 2^-14 of each output's scale before the output rounding,
+    and within the card's bf16 tolerance (1e-2 of scale) after it. ``n_one``:
+    n = 1 and positive inputs, so the products carry the gradients; kvs and
+    P rounded to bf16 instead are then at least 10x further off."""
+    rng = np.random.default_rng(17)
+    n, m, d = 300, 48, 40
+    draw = rng.random if n_one else rng.standard_normal
+    q, k, v, g = (torch.from_numpy(draw((n, w)).astype(np.float32)).to(torch.bfloat16)
+                  for w in (m, m, d, d))
+    n_t = torch.tensor(1.0 if n_one else float(n))
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    red = attn.bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_t, False)
+    exact = attn.bwd_apply_plain(*(t.float() for t in (q, k, v, g)), kvs, ksum, scal, n_t,
+                                 *red, False)
+    got = _tensor_core_apply(q, k, v, g, kvs, ksum, scal, n_t, *red, torch.tensor(False))
+    hi_only = _tensor_core_apply(q, k, v, g, kvs, ksum, scal, n_t, *red, torch.tensor(False),
+                                 lo=False)
+    rounded = attn.bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_t, *red, False)
+    for a, b, c, r in zip(got, exact, hi_only, rounded):
+        err = (a - b).abs().max()
+        assert err <= 2.0 ** -14 * b.abs().max()
+        if n_one:  # at n = N the n * gd and norm terms swamp the products
+            assert (c - b).abs().max() >= 10 * err
+        _grads_close((a.to(torch.bfloat16),), (r,), 1e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tensor_core_apply_matches_jax_pallas_interpret(masked):
+    """H = 1, bf16: the port's backward with the tensor-core apply's
+    arithmetic (the plain reduce, then the hi + lo apply) against
+    ``jax.vjp`` of the Pallas ``fused_linear_attention`` in interpret mode,
+    at the bf16 tolerance of the Pallas comparisons (2e-2 of scale)."""
+    q, k, v = _qkv(18, h=1)
+    g = np.random.default_rng(19).standard_normal(v.shape).astype(np.float32)
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "bf16")
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, node_mask=jmask, block=128,
+                                               interpret=True), jq, jk, jv)
+    want = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    keep = torch.ones(q.shape[0]) if mask is None else torch.from_numpy(mask)
+    tq, tk, tv = (t[:, 0] * keep.to(torch.bfloat16)[:, None] for t in (tq, tk, tv))
+    tg = torch.from_numpy(g[:, 0]).to(torch.bfloat16)
+    n_t = keep.sum()
+    sums = attn.reduce_plain(tq, tk, tv, masked)
+    red = attn.bwd_reduce_plain(tq, tv, tg, *sums, n_t, masked)
+    got = _tensor_core_apply(tq, tk, tv, tg, *sums, n_t, *red, torch.tensor(masked))
+    got = [(t * keep[:, None]).to(torch.bfloat16)[:, None] for t in got]
+    _grads_close(got, want, TOL["bf16"]["rtol"])

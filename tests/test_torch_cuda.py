@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes the serving path does not reach: partial tiles, tail rows, rows of
-more than 32 edges, isolated nodes and empty rows, strided heads, widths off
-the 16-byte path, several heads of per-edge values. Skipped without a CUDA
-card. This file imports no JAX, so it runs on a machine without it:
+more than 32 edges, hub rows split into segments, isolated nodes and empty
+rows, strided heads, widths off the 16-byte path, several heads of
+per-edge values. Skipped without a CUDA card. This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -146,7 +146,8 @@ BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,m,d", [(1, 256, 256), (2, 48, 80), (1, 64, 128), (3, 16, 8)])
+@pytest.mark.parametrize("heads,m,d", [(1, 256, 256), (2, 48, 80), (1, 64, 128), (3, 16, 8),
+                                        (1, 1024, 64)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked):
     n = 1000  # not a multiple of the 64-row tile or the 32-row step
@@ -155,6 +156,10 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked
     g = torch.randn(n, heads, d, device=cuda).to(dtype)
     mask = (torch.arange(n, device=cuda) % 3 != 1).float() if masked else None
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    # bf16 runs the tensor-core apply, f32 and widths whose A tile outgrows
+    # one block's shared memory (m = 1024) the CUDA-core one
+    assert attn.bwd_apply_design(dtype, m, d).startswith("tensor cores") \
+        == (dtype == torch.bfloat16 and m < 1024)
     r0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
     got = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
     assert (attn.bwd_reduce_launches - r0, attn.bwd_apply_launches - a0) == (heads, heads)
@@ -188,6 +193,27 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked
     want_a = attn.bwd_apply_plain(qp, kp, vp, gp, *sums, one, *want_r, False)
     for a, b in zip(got_a, want_a):
         _check_rel(a, b, BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 300)])
+def test_tensor_core_apply_takes_any_width(cuda, m, d):
+    """The bf16 apply on widths off its tiles and off the 16-byte row path
+    (zero-filled partial tiles, scalar A rows), on row-strided views, with n
+    = 1 so the products carry the gradients; bitwise repeatable."""
+    n = 777
+    qkv = torch.rand(n, 3, max(m, d) + 3, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, 0, :m], qkv[:, 1, :m], qkv[:, 2, :d]
+    g = torch.rand(n, d, device=cuda).to(torch.bfloat16)
+    assert attn.bwd_apply_design(torch.bfloat16, m, d).startswith("tensor cores")
+    one = torch.ones((), device=cuda)
+    sums = attn.reduce_plain(q, k, v, False)
+    red = attn.bwd_reduce_plain(q, v, g, *sums, one, False)
+    got = attn.bwd_apply(q, k, v, g, *sums, one, *red)
+    want = attn.bwd_apply_plain(q, k, v, g, *sums, one, *red, False)
+    for a, b in zip(got, want):
+        _check_rel(a, b, BWD_REL[torch.bfloat16])
+    again = attn.bwd_apply(q, k, v, g, *sums, one, *red)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_all_masked_attention_gradients_are_finite_zeros(cuda):
@@ -327,6 +353,95 @@ def test_gat_train_steps_on_the_card_match_the_cpu(cuda):
     assert losses["cuda"][-1] < losses["cuda"][0]
 
 
+def _hub_graph(cuda, chunk_dtype="f32"):
+    """Node 3 has 10,000 in-edges and node 5 10,000 out-edges, so A and A^T
+    each have one row far above HUB_EDGES; every other row has 1-3."""
+    rng = np.random.default_rng(7)
+    n = 12_000
+    fan = rng.permutation(np.arange(6, n))[:10_000]
+    ei = np.concatenate([np.stack([rng.integers(0, n, n), np.arange(n)]),
+                         np.stack([rng.integers(0, n, n), np.arange(n)]),
+                         np.stack([fan, np.full(10_000, 3)]),
+                         np.stack([np.full(10_000, 5), fan])], axis=1)
+    g = preprocess_graph(ei, n, undirected=False, chunk_dtype=chunk_dtype, device=cuda)
+    assert g.hub_segments[:, 0].unique().tolist() == [3]
+    assert g.t_hub_segments[:, 0].unique().tolist() == [5]
+    return g
+
+
+def _close_to_exact(got, x, src, dst, w, n):
+    """The sum over the edges (src -> dst) of w * x, exact in f64, against
+    ``got``: the output's own rounding (bf16 2^-8, f32 2^-24 of the value)
+    plus 1e-5 of the sum of the terms' magnitudes, which bounds the f32
+    summation error in any order over a hub row's ~10,000 terms. x: [N, F]
+    with w [E], or [N, H, D] with w [E, H]."""
+    wd = w.double()[:, None] if x.dim() == 2 else w.double()[..., None]
+    terms = x.double()[src.long()] * wd
+    exact = torch.zeros(n, *x.shape[1:], dtype=torch.float64, device=x.device)
+    mag = torch.zeros_like(exact)
+    exact.index_add_(0, dst.long(), terms)
+    mag.index_add_(0, dst.long(), terms.abs())
+    rnd = 2.0 ** -8 if got.dtype == torch.bfloat16 else 2.0 ** -24
+    assert ((got.double() - exact).abs() <= rnd * exact.abs() + 1e-5 * mag).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 37])
+def test_csr_spmm_splits_hub_rows(cuda, dtype, width):
+    """A hub row summed over several warps and added in segment order: the
+    plain version's tolerance, the exact sum's (f64) tolerance, bitwise
+    repeatable, the same without a plan (built from indptr), one launch a
+    call; the gradient on A^T (a hub row there too) through the kernel,
+    against the exact sum (plain and kernel sum its 10,000 terms in other
+    orders)."""
+    g = _hub_graph(cuda)
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    x = torch.randn(n, width, device=cuda).to(dtype)
+    before = spmm_kernel.launches
+    got = csr_spmm(x, *csr, g.hub_segments)
+    assert spmm_kernel.launches == before + 1
+    want = spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    _close_to_exact(got, x, g.edge_src, g.edge_dst, g.gcn_weight, n)
+    assert torch.equal(got, csr_spmm(x, *csr, g.hub_segments))
+    assert torch.equal(got, csr_spmm(x, *csr))
+    xr = x.clone().requires_grad_()
+    cot = torch.randn(n, width, device=cuda).to(dtype)
+    before = spmm_kernel.launches
+    got_g = torch.autograd.grad(g.propagate(xr), xr, cot)[0]
+    assert spmm_kernel.launches == before + 2
+    _close_to_exact(got_g, cot, g.t_edge_src, g.t_edge_dst, g.t_weight, n)
+
+
+@pytest.mark.parametrize("msg_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 256), (3, 37)])
+def test_csr_spmm_ev_splits_hub_rows(cuda, msg_dtype, heads, d):
+    """The per-edge-value aggregation on the hub graph, f32 and message-type
+    results, against the exact sum and bitwise repeatable; dx on the
+    transposed order (its own hub row) against the exact sum of the rounded
+    cotangent, and dv, through the kernels."""
+    g = _hub_graph(cuda, "f32" if msg_dtype == torch.float32 else "bf16")
+    n, e = g.num_nodes, g.num_edges
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    x = torch.randn(n, heads, d, device=cuda)
+    v = torch.rand(e, heads, device=cuda)
+    xm = x.to(msg_dtype)
+    for out_dtype in (torch.float32, msg_dtype):
+        got = csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments)
+        _close_to_exact(got, xm, g.edge_src, g.edge_dst, v, n)
+        assert torch.equal(got, csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments))
+    xr, vr = x.clone().requires_grad_(), v.clone().requires_grad_()
+    cot = torch.randn(n, heads, d, device=cuda)
+    counts = (spmm_kernel.ev_launches, spmm_kernel.sddmm_launches)
+    out = g.propagate_edge_values(xr, vr)
+    dx, dv = torch.autograd.grad(out, (xr, vr), cot)
+    assert (spmm_kernel.ev_launches - counts[0], spmm_kernel.sddmm_launches - counts[1]) == (2, 1)
+    _close_to_exact(dx, cot.to(msg_dtype), g.t_edge_src, g.t_edge_dst,
+                    v[g.t_perm.long()], n)
+    _check_rel(dv, sddmm_plain(cot, x, g.edge_src, g.edge_dst), 1e-5)
+
+
 def _int8_graph(cuda, undirected=False):
     """The hub and isolated rows of :func:`_graph`, aggregated in int8."""
     rng = np.random.default_rng(0)
@@ -432,9 +547,9 @@ def test_gather_rows_kernel_matches_plain(cuda, stages, width):
     from sgformer_tpu_torch.microbench import dma_gather
 
     x, idx = dma_gather.make_inputs(cuda, n=5000, e=8192, f=width)
-    before = dma_gather.launches
+    before = kernels.probe_launches["gather_rows"]
     got = dma_gather.gather_rows(x, idx, chunk=512, stages=stages)
-    assert dma_gather.launches == before + 1
+    assert kernels.probe_launches["gather_rows"] == before + 1
     _check_rel(got, dma_gather.gather_rows_plain(x, idx, 512), dma_gather.REL_TOL)
     assert torch.equal(got, dma_gather.gather_rows(x, idx, chunk=512, stages=stages))
 
@@ -445,9 +560,9 @@ def test_gather_tiles_kernel_matches_plain(cuda, stages, width, chunk):
     from sgformer_tpu_torch.microbench import dma_tile
 
     x, idx = dma_tile.make_inputs(cuda, n=4096, f=width, e=2048, chunk=chunk, stages=(8,))
-    before = dma_tile.launches
+    before = kernels.probe_launches["gather_tiles"]
     got = dma_tile.gather_tiles(x, idx[8], chunk=chunk, stages=stages)
-    assert dma_tile.launches == before + 1
+    assert kernels.probe_launches["gather_tiles"] == before + 1
     _check_rel(got, dma_tile.gather_tiles_plain(x, idx[8], chunk), dma_tile.REL_TOL)
 
 
@@ -461,9 +576,9 @@ def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
     g = _graph(cuda)
     x = slab_variants.make_x(g.num_nodes, cuda, f=width)
     csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
-    before = slab_variants.launches
+    before = kernels.probe_launches["slab_variant"]
     got = slab_variants.slab_variant(x, *csr, mode)
-    assert slab_variants.launches == before + 1
+    assert kernels.probe_launches["slab_variant"] == before + 1
     _check_rel(got, slab_variants.slab_variant_plain(x, g.edge_src, g.edge_dst,
                                                      g.gcn_weight, mode), slab_variants.REL_TOL)
     if mode == "prod":

@@ -17,7 +17,7 @@ from sgformer_tpu.ops.spmm import spmm as jax_spmm
 
 from sgformer_tpu_torch.data import synthetic_dataset
 from sgformer_tpu_torch.graph import preprocess_graph
-from sgformer_tpu_torch.kernels.spmm import csr_spmm
+from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_segments
 from sgformer_tpu_torch.ops.spmm import spmm
 
 torch.set_num_threads(1)
@@ -227,3 +227,99 @@ def test_spmm_saves_nothing_where_autograd_does_not_record():
     with torch.no_grad():
         assert g.propagate(x).grad_fn is None
     assert g.propagate(x.detach()).grad_fn is None
+
+
+def _check_plan(plan, indptr, max_edges=HUB_EDGES):
+    """Every edge of every row above ``max_edges`` once, in edge order, in
+    runs of 1..max_edges edges; no other row."""
+    plan = np.asarray(plan)
+    indptr = np.asarray(indptr, dtype=np.int64)
+    hubs = np.flatnonzero(np.diff(indptr) > max_edges)
+    assert plan.dtype == np.int32 and plan.shape == (plan.shape[0], 3)
+    assert np.array_equal(np.unique(plan[:, 0]), hubs)
+    row, begin, end = plan.T.astype(np.int64)
+    assert (np.diff(row) >= 0).all()
+    assert ((end - begin >= 1) & (end - begin <= max_edges)).all()
+    covered = np.concatenate([np.arange(b, e) for b, e in zip(begin, end)] or [np.zeros(0)])
+    want = np.concatenate([np.arange(indptr[r], indptr[r + 1]) for r in hubs] or [np.zeros(0)])
+    assert np.array_equal(covered, want)
+    return len(hubs)
+
+
+def _hub_edges(seed, n=600, fan=400):
+    """Random edges plus node 3 with ``fan`` in-edges and node 5 with
+    ``fan`` out-edges: a hub row in A and in A^T."""
+    rng = np.random.default_rng(seed)
+    others = rng.permutation(np.arange(6, n))[:fan]
+    return np.concatenate([rng.integers(0, n, (2, 3 * n)),
+                           np.stack([others, np.full(fan, 3)]),
+                           np.stack([np.full(fan, 5), others])], axis=1), n
+
+
+def test_hub_plan_covers_every_long_row_once():
+    """``preprocess_graph`` builds the hub plan of each CSR it holds (A,
+    A^T with ``undirected=False``, the PyG edges and their transpose), each
+    covering every edge of every row above HUB_EDGES once, in edge order;
+    ``Graph.to`` carries them; :func:`hub_segments` does the same for any
+    segment length."""
+    ei, n = _hub_edges(14)
+    g = preprocess_graph(ei, n, undirected=False, with_pyg_norm=True, device="cpu")
+    for plan, indptr in ((g.hub_segments, g.indptr), (g.t_hub_segments, g.t_indptr),
+                         (g.pyg_hub_segments, g.pyg_indptr),
+                         (g.pyg_t_hub_segments, g.pyg_t_indptr)):
+        assert _check_plan(plan.numpy(), indptr.numpy()) == 1
+    h = g.to("cpu")
+    for name in ("hub_segments", "t_hub_segments", "pyg_hub_segments", "pyg_t_hub_segments"):
+        assert torch.equal(getattr(h, name), getattr(g, name))
+    sym = preprocess_graph(ei, n, device="cpu")
+    assert _check_plan(sym.hub_segments.numpy(), sym.indptr.numpy()) == 2
+    for max_edges, rows in ((1, 500), (7, 10), (64, 1)):
+        assert _check_plan(hub_segments(g.indptr, max_edges), g.indptr.numpy(),
+                           max_edges) >= rows
+    small = preprocess_graph(*_clustered_edges(15, n=60, e=200), device="cpu")
+    assert small.hub_segments.shape == (0, 3) and small.t_hub_segments.shape == (0, 3)
+
+
+def _segmented_spmm(x, indptr, src, weight, max_edges):
+    """The kernel's two passes written plainly: rows of at most
+    ``max_edges`` edges summed whole; each hub segment's f32 partial row
+    summed alone; each hub row's partials added in segment order."""
+    plan = hub_segments(indptr, max_edges)
+    n = indptr.shape[0] - 1
+    deg = np.diff(indptr.numpy())
+    dst = torch.from_numpy(np.repeat(np.arange(n), deg))
+    msgs = x.float()[src.long()] * weight[:, None]
+    short = torch.from_numpy(deg[dst.numpy()] <= max_edges)
+    out = torch.zeros(n, x.shape[1]).index_add_(0, dst[short], msgs[short])
+    part = [msgs[b:e].sum(0) for _, b, e in plan]
+    for s, (row, _, _) in enumerate(plan):
+        if s == 0 or plan[s - 1, 0] != row:
+            out[row] = part[s]
+        else:
+            out[row] = out[row] + part[s]
+    return out.to(x.dtype)
+
+
+def test_segmented_sum_matches_the_plain_version_and_jax():
+    """The two-pass segmented sum on a power-law graph with a row of
+    in-degree far above the segment length (8 here, HUB_EDGES on the card):
+    the plain ``spmm`` and the JAX XLA ``spmm``, forward, and the gradient on
+    the transposed CSR with its own plan (f32, rtol 1e-5 / atol 1e-6)."""
+    ds = synthetic_dataset(num_nodes=400, num_edges=2400, num_features=4, num_classes=4,
+                           powerlaw=1.1, seed=0, device="cpu")
+    ei, n = ds.graph["edge_index"], ds.num_nodes
+    g = preprocess_graph(ei, n, device="cpu")
+    assert np.diff(g.indptr.numpy()).max() > 8 * 8 and np.diff(g.t_indptr.numpy()).max() > 8 * 8
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    w = rng.standard_normal((n, 24)).astype(np.float32)
+    got = _segmented_spmm(torch.from_numpy(x), g.indptr, g.edge_src, g.gcn_weight, 8)
+    want = spmm(torch.from_numpy(x), g.edge_src, g.edge_dst, g.gcn_weight, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    jg = jax_preprocess_graph(ei, n)
+    jax_out = jax_spmm(jnp.asarray(x), jg.edge_src, jg.edge_dst, jg.gcn_weight, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), rtol=1e-5, atol=1e-6)
+    got_grad = _segmented_spmm(torch.from_numpy(w), g.t_indptr, g.t_edge_src, g.t_weight, 8)
+    want_grad = jax.grad(lambda a: jnp.sum(jg.propagate(a) * w))(jnp.asarray(x))
+    np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_grad.numpy(), _port_grad(ei, n, x, w), rtol=1e-5, atol=1e-6)
