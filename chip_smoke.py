@@ -10,10 +10,15 @@ JAX package. Phases, each failing loudly:
    runs at once), timed as set-up;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
-   256), in bf16 and f32, with its median time beside its bound;
+   256), in bf16 and f32, with its median time beside its bound; the
+   reduce also on positive inputs against its plain version in f64, with
+   the design it runs (tensor cores for bf16) and one ``torch.matmul`` of
+   its core product k^T v as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32;
-   bitwise repeatable, finite zeros for an all-masked group;
+   the backward reduce also with n = 1 and positive inputs (2^-14 of
+   scale), with its design and ``torch.matmul`` of q @ kvs and q^T (g/den)
+   as a yardstick; bitwise repeatable, finite zeros for an all-masked group;
 5. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
    and the bench model ``SGFormerConfig.large(256, 40, trans_num_layers=1,
    gnn_num_layers=3, graph_weight=0.5, compute_dtype="bf16")`` from a seeded
@@ -91,6 +96,10 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # the reduce's f32 sums over N rows, as a share of their largest magnitude
 REDUCE_REL_TOL = 1e-5
+# the backward reduce with n = 1 and positive inputs, where q @ kvs carries
+# den and gden: kvs and g/den enter the tensor cores as bf16 hi + lo (~16
+# significant bits, 2^-17 of each term), so 2^-14 of each output's scale
+N1_REL_TOL = 2.0 ** -14
 # the backward kernels' outputs against their plain versions, as a share
 # of each output's largest magnitude: the forward's tolerances (f32: order
 # of the sums only; bf16: one-ulp output rounding), taken relative to the
@@ -220,18 +229,19 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
     """csr_spmm on ``graph`` at F = 256 through the graph's hub plan, bf16
     and f32: against its plain version, bitwise repeatable, with time,
     bound, plain and library time. ``sweep`` also times the kernel with
-    the hub segment lengths of ``HUB_SWEEP`` (bf16, each against plain)."""
-    from sgformer_tpu_torch.kernels import spmm as spmm_kernel
-    from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_segments
+    the hub segment lengths of ``HUB_SWEEP``, each plan passed with its
+    length (bf16, each against plain)."""
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm, hub_segments
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
     n, e, f = graph.num_nodes, graph.num_edges, 256
     gen = torch.Generator(device=dev).manual_seed(1)
     segs = graph.hub_segments
-    args = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight, segs)
+    args = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight, segs,
+            graph.hub_edges)
     hub_rows = torch.unique(segs[:, 0]).numel()
-    log(f"{key}: {segs.shape[0]} hub segments of at most {HUB_EDGES} edges over {hub_rows} "
-        f"rows, {int((segs[:, 2] - segs[:, 1]).sum().item())} edges")
+    log(f"{key}: {segs.shape[0]} hub segments of at most {graph.hub_edges} edges over "
+        f"{hub_rows} rows, {int((segs[:, 2] - segs[:, 1]).sum().item())} edges")
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(n, f, generator=gen, device=dev).to(dtype)
         got = csr_spmm(x, *args)
@@ -260,10 +270,9 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
         if sweep and dtype == torch.bfloat16:
             for t in HUB_SWEEP:
                 plan = torch.from_numpy(hub_segments(graph.indptr, t)).to(dev)
-                with mock.patch.object(spmm_kernel, "HUB_EDGES", t):
-                    check_close(f"{key} {name} segments of {t}", csr_spmm(x, *args[:4], plan),
-                                want, **TOL[dtype])
-                    t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan))
+                check_close(f"{key} {name} segments of {t}", csr_spmm(x, *args[:4], plan, t),
+                            want, **TOL[dtype])
+                t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan, t))
                 log(f"{key} {name} segments of at most {t} edges: {plan.shape[0]} segments, "
                     f"{t_ms:.4f} ms")
                 results[(key, name)][f"seg{t}_ms"] = t_ms
@@ -277,6 +286,8 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
         name = DTYPE_NAME[dtype]
+        design = attn.reduce_design(dtype, m, d)
+        log(f"reduce {name} design: {design}")
         qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(dtype)
                       for _ in range(3))
         got = attn.fused_linear_attention(qs, ks, vs)
@@ -312,10 +323,22 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         got_a = attn.apply(qp, vp, kvs_p, ksum_p, scal_p, one)
         want_a = attn.apply_plain(qp, vp, kvs_p, ksum_p, scal_p, one, False)
         app_err = check_close(f"apply {name} (n = 1)", got_a, want_a, **TOL[dtype])
+        # the reduce on the same positive inputs, where no sum cancels,
+        # against the plain version evaluated in f64
+        exact = attn.reduce_plain(qp.double(), kp.double(), vp.double(), False)
+        got_p = attn.reduce(qp, kp, vp)
+        for part, g_, w_ in (("kvs", got_p[0], exact[0]), ("ksum", got_p[1], exact[1]),
+                             ("qsq, ksq", got_p[2][:2], exact[2][:2])):
+            check_rel(f"reduce {name} {part} (positive inputs, plain in f64)", g_, w_,
+                      REDUCE_REL_TOL)
+        del exact, got_p
 
         n_t = torch.full((), float(n), device=dev)
         r_ms = time_ms(lambda: attn.reduce(q, k, v))
         r_plain = time_ms(lambda: attn.reduce_plain(q, k, v, False))
+        # yardstick: the core product k^T v alone in one torch.matmul, in the
+        # inputs' type (never called by the port)
+        gemm_ms = time_ms(lambda: torch.matmul(k.t(), v))
         a_ms = time_ms(lambda: attn.apply(q, v, kvs, ksum, scal, n_t))
         a_plain = time_ms(lambda: attn.apply_plain(q, v, kvs, ksum, scal, n_t, False))
         elt = q.element_size()
@@ -323,12 +346,12 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                              2 * n * m * d + 3 * n * m, dtype)
         ab_ms, ab_by = bound_ms(3 * n * m * elt + (m * d + m + 4) * 4,
                              2 * n * m * d + 2 * n * m + 4 * n * d, dtype)
-        log(f"reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, bound "
-            f"{rb_ms:.4f} ms by {rb_by}); apply {name}: {a_ms:.4f} ms (plain "
-            f"{a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
+        log(f"reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul k^T v "
+            f"{gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {rb_by}); apply {name}: {a_ms:.4f} ms "
+            f"(plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
         results[("linear_attention_reduce", name)] = dict(
             max_abs_err=red_err, ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
-            bound_by=rb_by, library_ms=None)
+            bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=design)
         results[("linear_attention_apply", name)] = dict(
             max_abs_err=app_err, ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
             bound_by=ab_by, library_ms=None)
@@ -356,6 +379,8 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         rel = BWD_REL_TOL[dtype]
         design = attn.bwd_apply_design(dtype, m, d)
         log(f"bwd_apply {name} design: {design}")
+        red_design = attn.bwd_reduce_design(dtype, m, d)
+        log(f"bwd_reduce {name} design: {red_design}")
         q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype)
                       for _ in range(4))
         kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
@@ -394,6 +419,31 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
                               attn.bwd_apply(qp, kp, vp, g, *sums_p, one, *red_p),
                               attn.bwd_apply_plain(qp, kp, vp, g, *sums_p, one, *red_p, False)):
             check_rel(f"bwd_apply {name} (n = 1) {part}", a, b, rel)
+        # the reduce with n = 1 and positive q, v, g, so that q @ kvs, not
+        # n * v, carries den and gden: each output within 2^-14 of its scale
+        # of the plain version in f64 (dinv within 2^-14 of the magnitudes of
+        # its two sums, which cancel), the precision of kvs and g/den as bf16
+        # hi + lo
+        gp = torch.rand(n, d, generator=gen, device=dev).to(dtype)
+        got_p = attn.bwd_reduce(qp, vp, gp, *sums_p, one)
+        qd, vd, gd_, kvs_d, ksum_d = (t.double() for t in (qp, vp, gp, *sums_p[:2]))
+        exact = attn.bwd_reduce_plain(qd, vd, gd_, kvs_d, ksum_d, sums_p[2].double(),
+                                      one.double(), False)
+        torch.cuda.synchronize()
+        for part, a, b in (("P", got_p[0], exact[0]), ("ds", got_p[1], exact[1]),
+                           ("den", got_p[3][0], exact[3][0]),
+                           ("gden", got_p[3][1], exact[3][1])):
+            check_rel(f"bwd_reduce {name} (n = 1) {part} (plain in f64)", a, b, N1_REL_TOL)
+        den, gden = exact[3]
+        dinv_scale = ((gd_ / den[:, None] * (qd @ kvs_d)).abs().sum()
+                      + (gden * (qd @ ksum_d)).abs().sum()).item()
+        dinv_err = abs(got_p[2].item() - exact[2].item())
+        log(f"bwd_reduce {name} (n = 1) dinv: |kernel - plain| = {dinv_err:.3e}, "
+            f"{dinv_err / dinv_scale:.2e} of its sums' magnitude {dinv_scale:.3e} "
+            f"(tolerance {N1_REL_TOL})")
+        if not dinv_err <= N1_REL_TOL * dinv_scale:
+            raise AssertionError(f"bwd_reduce {name} (n = 1) dinv disagrees with plain")
+        del got_p, qd, vd, gd_, kvs_d, ksum_d, exact, den, gden
 
         # the whole autograd Function against torch autograd of the plain
         # forward, on the same inputs
@@ -407,6 +457,11 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
 
         r_ms = time_ms(lambda: attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t))
         r_plain = time_ms(lambda: attn.bwd_reduce_plain(q, v, g, kvs, ksum, scal, n_t, False))
+        # yardstick: the two core products, q @ kvs and q^T (g / den), each one
+        # torch.matmul in the inputs' type (never called by the port)
+        kvs_t, gd_t = kvs.to(dtype), (g.float() / want_r[3][0][:, None]).to(dtype)
+        gemm_ms = time_ms(lambda: (torch.matmul(q, kvs_t), torch.matmul(q.t(), gd_t)))
+        del kvs_t, gd_t
         a_ms = time_ms(lambda: attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r))
         a_plain = time_ms(lambda: attn.bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_t,
                                                        *want_r, False))
@@ -419,12 +474,12 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         # writes dq, dk, dv
         ab_ms, ab_by = bound_ms(7 * n * m * elt + 2 * small + 2 * n * 4,
                              6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
-        log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, bound "
-            f"{rb_ms:.4f} ms by {rb_by}); bwd_apply {name}: {a_ms:.4f} ms (plain "
-            f"{a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
+        log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul q @ kvs "
+            f"+ q^T gd {gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {rb_by}); bwd_apply {name}: "
+            f"{a_ms:.4f} ms (plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
         results[("linear_attention_bwd_reduce", name)] = dict(
             max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
-            bound_by=rb_by, library_ms=None)
+            bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=red_design)
         results[("linear_attention_bwd_apply", name)] = dict(
             max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
             bound_by=ab_by, library_ms=None, design=design)
@@ -452,7 +507,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
     n, e = graph.num_nodes, graph.num_edges
     src, dst = graph.edge_src, graph.edge_dst
     csr = (graph.indptr, src, dst)
-    segs = graph.hub_segments
+    segs = (graph.hub_segments, graph.hub_edges)
     gen = torch.Generator(device=dev).manual_seed(4)
     for layer, (heads, d) in enumerate(((2, 256), (1, 40))):
         x32 = torch.randn(n, heads, d, generator=gen, device=dev)
@@ -464,14 +519,14 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
             x, g = x32.to(dtype), g32.to(dtype)
             elt = x.element_size()
             # the aggregation as GAT sends it: messages in dtype, f32 result
-            got = csr_spmm_ev(x, *csr, v, torch.float32, segs)
+            got = csr_spmm_ev(x, *csr, v, torch.float32, *segs)
             want = spmm_edge_values(x, src, dst, v, n, torch.float32)
             torch.cuda.synchronize()
             err = check_close(f"csr_spmm_ev {tag}", got, want, **TOL[torch.float32])
-            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32, segs)):
+            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32, *segs)):
                 raise AssertionError("csr_spmm_ev is not bitwise repeatable")
             del got, want
-            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32, segs))
+            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32, *segs))
             plain_ms = time_ms(lambda: spmm_edge_values(x, src, dst, v, n, torch.float32))
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
@@ -604,11 +659,12 @@ def plain_versions():
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values, spmm_q8
 
-    def plain_csr(x, csr, csr_t, segments=None, t_segments=None):
+    def plain_csr(x, csr, csr_t, segments=None, t_segments=None, segment_edges=None):
         indptr, edge_src, edge_dst, weight = csr
         return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
 
-    def plain_ev(x, values, csr, csr_t, msg_dtype, segments=None, t_segments=None):
+    def plain_ev(x, values, csr, csr_t, msg_dtype, segments=None, t_segments=None,
+                 segment_edges=None):
         indptr, edge_src, edge_dst = csr
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
@@ -827,7 +883,7 @@ def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
         plain_ms = time_ms(lambda: spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype), iters=5)
         quant_ms = time_ms(lambda: quantize_absmax(x, rs))
         whole_ms = time_ms(lambda: csr_spmm_q8(x, *csr, rs))
-        spmm_ms = time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments))
+        spmm_ms = time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments, graph.hub_edges))
         # q, the bf16 x of the self term, rs, src, indptr and the absmax read
         # once, the weights of the self edges only, the result written once
         nbytes = (n * f * (1 + 2 + x.element_size()) + n * 4 + e * 4 + (n + 1) * 4
@@ -934,8 +990,8 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
         got = slab_variants.slab_variant(xs, *csr, mode)
         err_modes[mode] = check_rel(f"slab_variant {mode}", got, slab_variants.slab_variant_plain(
             xs, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode), slab_variants.REL_TOL)
-        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr,
-                                                            graph.hub_segments)):
+        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr, graph.hub_segments,
+                                                            graph.hub_edges)):
             raise AssertionError("slab_variant prod is not bitwise csr_spmm")
         del got
     log("slab_variant prod: bitwise csr_spmm of the same x")
@@ -968,7 +1024,7 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
                                     size=(graph.num_nodes, graph.num_nodes))
     library_ms = library_time("torch.sparse.mm bf16 (slab_variant prod)",
                               lambda: torch.sparse.mm(a, xs))
-    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments))
+    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments, graph.hub_edges))
     for mode, r in modes.items():
         log(f"slab_variant {mode}: {r['ms']:.4f} ms, {r['ns_per_edge']:.5f} ns/edge "
             f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")

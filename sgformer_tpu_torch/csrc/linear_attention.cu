@@ -24,10 +24,23 @@
 // Bound: memory. At the arxiv shape (N = 169,343, M = D = 256, bf16) reduce
 // must read q, k, v once (260 MB, 78 us at 3.35 TB/s) and apply must read
 // q, v and write out (260 MB); each does 2*N*M*D = 22.2 GFLOP, 22 us at the
-// bf16 tensor-core peak. This first version multiplies on the CUDA cores in
-// f32 (64x64 tiles in shared memory, a 4x4 register tile per thread, 67
-// TFLOP/s peak), so its floor is ~0.33 ms per kernel: operations, not bytes,
-// bound it until the products move to wgmma.
+// bf16 tensor-core peak. The f32 kernels multiply on the CUDA cores in f32
+// (64x64 tiles in shared memory, a 4x4 register tile per thread, 67 TFLOP/s
+// peak), so their floor is ~0.33 ms per kernel: operations, not bytes, bound
+// them. They are the exact-parity path.
+//
+// The bf16 reduce (la_reduce_tc_kernel) runs k^T v on the tensor cores
+// (tensor_core.cuh: mma.sync m16n8k16, bf16 in, f32 sums). k and v are bf16,
+// so every product is exact in f32 and only the order of the sums differs
+// from the CUDA-core kernel; it stays fixed. A block owns a 128 x 128 tile of
+// kvs over one slice of N; the blocks of a slice have neighbouring indices,
+// so they run together and the second read of the slice's k or v rows (each
+// feeds two tiles at M = D = 256) is served by the 50 MB L2, not by device
+// memory. Node rows stream through a 4-stage cp.async ring of 32-row chunks
+// (k, v and, in the blocks that sum it, q); ksum, ||k||^2 and ||q||^2 are
+// summed per column in f64 on the CUDA cores from the chunks already in
+// shared memory, between the MMAs. Partials go to scratch and are added in
+// slice order by la_finish_kernel, as for the f32 kernel.
 //
 // Inputs are row-strided views (ld* = elements between rows), so the heads of
 // an [N, H, M] tensor are read in place; the last dimension is contiguous.
@@ -36,6 +49,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -137,6 +153,119 @@ la_reduce_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     ksum_part[o] = static_cast<float>(ksum);
     ksq_part[o] = static_cast<float>(ksq);
     qsq_part[o] = static_cast<float>(qsq);
+  }
+}
+
+// The bf16 reduce on the tensor cores. grid (slices * tiles), tiles =
+// ceil(M/128) * ceil(D/128), slice-major: block b sums tile b % tiles of
+// k^T v over rows [s*rows_per_slice, (s+1)*rows_per_slice), s = b / tiles.
+// The blocks of the first column tile (n0 == 0) also sum k and k*k per column
+// of their M tile, those of the second (or the first, when D fits one tile)
+// q*q, so that the f64 work and the extra q traffic fall on different blocks.
+// Dynamic shared memory: kReduceStages chunks of k, v and q rows.
+constexpr int kReduceStages = 4;
+constexpr int kReduceStage = 3 * tc::kNodeChunk;  // bf16 of one stage: k, v, q
+
+__global__ void __launch_bounds__(tc::kNodeThreads, 2)
+la_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, long ldq, long ldk, long ldv, int N,
+                    int M, int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
+                    float* __restrict__ ksum_part, float* __restrict__ qsq_part,
+                    float* __restrict__ ksq_part) {
+  using tc::kNodeRows;
+  using tc::kNodeStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ double red[3][tc::kNodeTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 64;
+  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
+  const int tiles_d = tc::cdiv(D, tc::kNodeTile);
+  const int tiles = tiles_m * tiles_d;
+  const int s = blockIdx.x / tiles;
+  const int dy = (blockIdx.x % tiles) / tiles_m;
+  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
+  const int d0 = dy * tc::kNodeTile;
+  const bool k_stats = dy == 0;
+  const bool q_stats = dy == (tiles_d > 1 ? 1 : 0);
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+
+  auto stage = [&](int c) {
+    __nv_bfloat16* ks = ring + (c % kReduceStages) * kReduceStage;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    tc::stage_node_rows(ks, k, ldk, r0, r_end, m0, M, vec, tid);
+    tc::stage_node_rows(ks + tc::kNodeChunk, v, ldv, r0, r_end, d0, D, vec, tid);
+    if (q_stats) tc::stage_node_rows(ks + 2 * tc::kNodeChunk, q, ldq, r0, r_end, m0, M, vec, tid);
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // per column: thread t sums column t % 128 over the chunk rows of parity
+  // t / 128, in f64 (a slice holds thousands of rows)
+  const int col = tid & (tc::kNodeTile - 1);
+  const int par = tid / tc::kNodeTile;
+  double ksum = 0.0, ksq = 0.0, qsq = 0.0;
+
+  for (int c = 0; c < kReduceStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    tc::cp_async_wait<kReduceStages - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
+    if (c + kReduceStages - 1 < chunks) stage(c + kReduceStages - 1);
+    tc::cp_async_commit();
+    const __nv_bfloat16* ks = ring + (c % kReduceStages) * kReduceStage;
+    const __nv_bfloat16* const vs[1] = {ks + tc::kNodeChunk};
+    tc::node_mma_chunk<1>(acc, ks, vs, wm, wn, lane);
+    if (k_stats) {
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        const double x = __bfloat162float(ks[r * kNodeStride + col]);
+        ksum += x;
+        ksq = fma(x, x, ksq);
+      }
+    }
+    if (q_stats) {
+      const __nv_bfloat16* qs = ks + 2 * tc::kNodeChunk;
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        const double x = __bfloat162float(qs[r * kNodeStride + col]);
+        qsq = fma(x, x, qsq);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_node_tile(kvs_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn,
+                      lane);
+  if (k_stats || q_stats) {  // uniform over the block
+    if (par == 1) {
+      red[0][col] = ksum;
+      red[1][col] = ksq;
+      red[2][col] = qsq;
+    }
+    __syncthreads();
+    if (par == 0 && m0 + col < M) {
+      const size_t o = static_cast<size_t>(s) * M + m0 + col;
+      if (k_stats) {
+        ksum_part[o] = static_cast<float>(ksum + red[0][col]);
+        ksq_part[o] = static_cast<float>(ksq + red[1][col]);
+      }
+      if (q_stats) qsq_part[o] = static_cast<float>(qsq + red[2][col]);
+    }
   }
 }
 
@@ -308,8 +437,23 @@ extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long l
     launch_reduce<float>(q, k, v, ldq, ldk, ldv, N, M, D, slices, rows_per_slice, kvs_part,
                          ksum_part, qsq_part, ksq_part, st);
   } else if (dtype == 1) {
-    launch_reduce<__nv_bfloat16>(q, k, v, ldq, ldk, ldv, N, M, D, slices, rows_per_slice,
-                                 kvs_part, ksum_part, qsq_part, ksq_part, st);
+    using bf16 = __nv_bfloat16;
+    // 16-byte copies where widths, strides and bases allow
+    const bool vec = M % 8 == 0 && D % 8 == 0 && ldq % 8 == 0 && ldk % 8 == 0 &&
+                     ldv % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    const int smem = kReduceStages * kReduceStage * static_cast<int>(sizeof(bf16));
+    cudaError_t err = cudaFuncSetAttribute(la_reduce_tc_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
+    la_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        ldq, ldk, ldv, N, M, D, rows_per_slice, static_cast<int>(vec), kvs_part, ksum_part,
+        qsq_part, ksq_part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

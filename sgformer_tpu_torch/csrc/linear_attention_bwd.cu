@@ -56,6 +56,24 @@
 // at the arxiv shape, is ~0.13 ms at the card's bf16 peak, under the bytes
 // bound.
 //
+// The bf16 reduce runs both its products on the tensor cores too:
+//   1. la_bwd_rows_tc_kernel forms a = q @ kvs with the apply's core (the
+//      q rows staged once by cp.async, kvs^T split into three bf16 pieces,
+//      hi + mid + lo, by la_bwd_split_t_kernel and streamed in
+//      double-buffered 64-deep chunks; three MMAs a product, since dinv's
+//      sums cancel and two pieces left it 1.3e-5 of its size off); its
+//      epilogue folds each 64-column tile of a into sum_d g*a
+//      and sum_d g*v per row at once, so a never leaves the block, and
+//      writes den, gden and the f64 dinv partial as the CUDA-core pass does;
+//   2. la_bwd_reduce_tc_kernel forms P = q^T (g/den) with the node-axis
+//      contraction of the forward reduce (tensor_core.cuh): q is the A
+//      operand as it is, gd = g * (1/den) is formed in f32 while each chunk
+//      is staged and split into bf16 hi + lo, two MMAs a product; ds keeps
+//      its per-slice f64 sum on the CUDA cores.
+// a is recomputed from q and kvs, as the TPU kernel does, rather than taken
+// from the forward's bf16 output (num = out * den), which would move gden by
+// ~2^-9. Passes 3 (finish, dinv) are the CUDA-core design's.
+//
 // Inputs are row-strided views (ld* = elements between rows), so the heads
 // of an [N, H, *] tensor are read and written in place.
 
@@ -66,7 +84,16 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldmatrix_x4;
+using tc::mma_bf16;
 
 constexpr int kTile = 64;      // output tile (rows x columns)
 constexpr int kRows = 32;      // contraction depth per shared-memory step
@@ -466,38 +493,8 @@ constexpr int kTcK = 64;
 constexpr int kTcPad = 8;  // bf16 per shared row past its end: ldmatrix without bank conflicts
 constexpr int kTcThreads = 256;
 constexpr int kTcBStride = kTcK + kTcPad;
-constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one (hi or lo) chunk
+constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one piece's chunk
 constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// registers only, so not volatile: the compiler may interleave the MMAs
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared; zeros where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
 
 // The padded extents of the split operands: kvs and P as [n = M][k = D]
 // (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
@@ -511,6 +508,41 @@ struct TcDims {
   // hl holds kvs hi, kvs lo, P hi, P lo, P^T hi, P^T lo, in this order
   __host__ __device__ size_t total() const { return 4 * kvs_elems() + 2 * pt_elems(); }
 };
+
+// x as kPieces bf16 pieces at p[0], p[off], ...: hi = bf16(x), then each
+// piece the bf16 of what the ones before leave (each difference is exact in
+// f32): hi + lo keeps ~16 significant bits, hi + mid + lo all of f32's 24
+template <int kPieces>
+__device__ __forceinline__ void split_store(float x, __nv_bfloat16* p, size_t off) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    p[i * off] = h;
+    x -= __bfloat162float(h);
+  }
+}
+
+// The rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's sum
+// sum gd*a, which cancels with sum gden*b to ~1/10 of its terms at the arxiv
+// shape, and the ~2^-17 of hi + lo then leaves dinv ~1.3e-5 of its size off
+// the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7).
+constexpr int kRowsPieces = 3;
+
+// hl[...] = kvs^T as kRowsPieces bf16 pieces, each [n = D][k = M] (the rows
+// pass's B operand, laid out as the apply's P^T), zero in the pads.
+__global__ void __launch_bounds__(kThreads)
+la_bwd_split_t_kernel(const float* __restrict__ kvs, int M, int D,
+                      __nv_bfloat16* __restrict__ hl) {
+  const TcDims t(M, D);
+  const size_t count = t.pt_elems();
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int d = static_cast<int>(i / t.Mk);
+    const int m = static_cast<int>(i % t.Mk);
+    split_store<kRowsPieces>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f,
+                             hl + i, count);
+  }
+}
 
 // hl[...] = the hi and lo bf16 halves of kvs, P and P^T, zero in the pads.
 __global__ void __launch_bounds__(kThreads)
@@ -540,9 +572,7 @@ la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, 
       hi = hl + 4 * nk + j;
       lo_off = t.pt_elems();
     }
-    const __nv_bfloat16 h = __float2bfloat16_rn(x);
-    hi[0] = h;
-    hi[lo_off] = __float2bfloat16_rn(x - __bfloat162float(h));
+    split_store<2>(x, hi, lo_off);
   }
 }
 
@@ -585,13 +615,179 @@ constexpr int kCsStride = kTcCols + 4;
 static_assert(kTcRows * kCsStride * 4 <= 4 * kTcBStage * 2, "C tile must fit the B stages");
 static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
 
+// The rows kernels' core, shared by the apply and the reduce's rows pass.
+//
+// Rows [r0, r0 + kTcRows) of A (lda elements apart, K wide) into As
+// [kTcRows][a_stride], zero past N and from K up to Kp; the caller syncs
+// after it. vec_a: 16-byte cp.async copies (K and lda multiples of 8, A
+// 16-byte aligned), every copy in flight at once.
+__device__ __forceinline__ void tc_stage_rows(__nv_bfloat16* As, int a_stride,
+                                              const __nv_bfloat16* __restrict__ A, long lda,
+                                              long r0, int N, int K, int Kp, int vec_a, int tid) {
+  if (vec_a) {
+    const int segs = Kp / 8;
+    for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
+      const int r = i / segs;
+      const int c = (i % segs) * 8;
+      const bool ok = r0 + r < N && c < K;
+      cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int i = tid; i < kTcRows * Kp; i += kTcThreads) {
+      const int r = i / Kp;
+      const int c = i % Kp;
+      As[static_cast<size_t>(r) * a_stride + c] =
+          (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// acc = As [kTcRows][Kp] @ B^T for the output columns [c0, c0 + kTcCols),
+// with B the split operand [n][Kp] in kPieces bf16 pieces (hi at B_hi, the
+// next at B_hi + piece_off, ...), streamed in kTcK-deep chunks,
+// double-buffered by cp.async in Bs ([stage][piece][n][k]). B is n-major
+// (contiguous in k), so ldmatrix without transpose yields mma's "col"
+// fragments. Each k-step issues the 8 hi MMAs, then the next piece's 8, so
+// no MMA waits on the one before it. kStepSums: each k-step's products go
+// into fresh sums, added to acc with f32 round-to-nearest adds, so that the
+// tensor cores' own accumulation, which may truncate, only ever chains one
+// k-step's pieces: a bias of its rounding toward zero would otherwise grow
+// with K and, in the reduce's rows pass, move dinv's cancelling sums by
+// ~1e-5 of dinv (measured on the H100). Ends with a barrier, after which Bs
+// is free.
+template <int kPieces, bool kStepSums>
+__device__ __forceinline__ void tc_column_tile(float (&acc)[2][4][4], const __nv_bfloat16* As,
+                                               int a_stride, __nv_bfloat16* Bs,
+                                               const __nv_bfloat16* __restrict__ B_hi,
+                                               size_t piece_off, int Kp, int c0, int tid,
+                                               int lane, int wm, int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // one chunk: [kTcCols][kTcK] of each piece, 16 bytes a copy
+  auto load_b = [&](int kc, int stage) {
+    constexpr int kSegs = kTcK / 8;
+    constexpr int kCopies = kPieces * kTcCols * kSegs;
+    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int it = 0; it < kCopies / kTcThreads; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int piece = i / (kTcCols * kSegs);
+      const int row = (i / kSegs) % kTcCols;
+      const int seg = (i % kSegs) * 8;
+      const __nv_bfloat16* src =
+          B_hi + piece * piece_off + static_cast<size_t>(c0 + row) * Kp + kc * kTcK + seg;
+      cp_async16(Bs + (stage * kPieces + piece) * kTcBStage + row * kTcBStride + seg, src);
+    }
+    cp_async_commit();
+  };
+
+  const int chunks = Kp / kTcK;
+  load_b(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      load_b(kc + 1, (kc + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Bh = Bs + (kc & 1) * kPieces * kTcBStage;
+#pragma unroll
+    for (int ks = 0; ks < kTcK; ks += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int row = wm + mt * 16 + (lane & 15);
+        const int col = kc * kTcK + ks + (lane >> 4) * 8;
+        ldmatrix_x4(a[mt], As + static_cast<size_t>(row) * a_stride + col);
+      }
+      // the hi piece's fragments, its 8 MMAs, then the next piece's in the
+      // same registers
+      float part[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      float (&sums)[2][4][4] = kStepSums ? part : acc;
+#pragma unroll
+      for (int piece = 0; piece < kPieces; ++piece) {
+        const __nv_bfloat16* Bp = Bh + piece * kTcBStage;
+        unsigned b[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int nrow = wn + np * 16 + (lane & 7) + (lane >> 4) * 8;
+          const int kcol = ks + ((lane >> 3) & 1) * 8;
+          unsigned r[4];
+          ldmatrix_x4(r, Bp + nrow * kTcBStride + kcol);
+          b[2 * np][0] = r[0];
+          b[2 * np][1] = r[1];
+          b[2 * np + 1][0] = r[2];
+          b[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(sums[mt][nt], a[mt], b[nt][0], b[nt][1]);
+      }
+      if (kStepSums) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two chunks on
+  }
+}
+
+// The column tile into Cs [kTcRows][kCsStride] (over the B stages), followed
+// by a barrier. acc[mt][nt] = {(r, c), (r, c+1), (r+8, c), (r+8, c+1)}.
+__device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2][4][4], int lane,
+                                                int wm, int wn) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = wm + mt * 16 + (lane >> 2) + half * 8;
+        const int c = wn + nt * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
+            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+      }
+  __syncthreads();
+}
+
+// Row r's eight columns [cs, cs + 8) of the staged tile.
+__device__ __forceinline__ void tile8(const float* Cs, int r, int cs, float (&a)[8]) {
+  const float4 a_lo = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs);
+  const float4 a_hi = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs + 4);
+  a[0] = a_lo.x; a[1] = a_lo.y; a[2] = a_lo.z; a[3] = a_lo.w;
+  a[4] = a_hi.x; a[5] = a_hi.y; a[6] = a_hi.z; a[7] = a_hi.w;
+}
+
 // grid (ceil(N / kTcRows)); dynamic shared memory: the A tile
 // [kTcRows][max(Dk, Mk) + kTcPad] and two stages of B chunks (hi and lo,
 // [kTcCols][kTcK + kTcPad] each). vec_a: 1 when the A rows (g, v, k) may be
 // read 16 bytes at a time (M and D multiples of 8, row strides too, bases
 // 16-byte aligned). vec_io: the epilogue moves 8 columns of q, k, g, dq,
 // dk, dv with 16-byte accesses (row strides multiples of 8, bases 16-byte
-// aligned).
+// aligned). Each column tile is finished in an epilogue that stages it in
+// shared memory, so that its reads of q, k, g and its writes of dq, dk, dv
+// are 16-byte and coalesced (straight from the registers' fragment layout
+// they are 4-byte and scattered, and they, not the MMAs, set the kernel's
+// time on the H100).
 __global__ void __launch_bounds__(kTcThreads, 2)
 la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
@@ -634,117 +830,16 @@ la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const size_t lo_off = which == 2 ? t.pt_elems() : nk;
 
     __syncthreads();  // the previous product is done with As
-    // A rows r0.., zero past N and past K
-    if (vec_a) {
-      const int segs = Kp / 8;
-      for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
-        const int r = i / segs;
-        const int c = (i % segs) * 8;
-        const bool ok = r0 + r < N && c < K;
-        cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A,
-                   ok);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      for (int i = tid; i < kTcRows * Kp; i += kTcThreads) {
-        const int r = i / Kp;
-        const int c = i % Kp;
-        As[static_cast<size_t>(r) * a_stride + c] =
-            (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
-      }
-    }
+    tc_stage_rows(As, a_stride, A, lda, r0, N, K, Kp, vec_a, tid);
     __syncthreads();
 
     for (int c0 = 0; c0 < C; c0 += kTcCols) {
       float acc[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-      // one chunk: [kTcCols][kTcK] of hi and of lo, 16 bytes a copy
-      auto load_b = [&](int kc, int stage) {
-        constexpr int kSegs = kTcK / 8;
-        constexpr int kCopies = 2 * kTcCols * kSegs;
-#pragma unroll
-        for (int it = 0; it < kCopies / kTcThreads; ++it) {
-          const int i = tid + it * kTcThreads;
-          const int half = i / (kTcCols * kSegs);  // 0 hi, 1 lo
-          const int row = (i / kSegs) % kTcCols;
-          const int seg = (i % kSegs) * 8;
-          const __nv_bfloat16* src =
-              B_hi + half * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTcK + seg;
-          cp_async16(Bs + (stage * 2 + half) * kTcBStage + row * kTcBStride + seg, src);
-        }
-        cp_async_commit();
-      };
-
-      const int chunks = Kp / kTcK;
-      load_b(0, 0);
-      for (int kc = 0; kc < chunks; ++kc) {
-        if (kc + 1 < chunks) {
-          load_b(kc + 1, (kc + 1) & 1);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const __nv_bfloat16* Bh = Bs + ((kc & 1) * 2) * kTcBStage;
-        const __nv_bfloat16* Bl = Bh + kTcBStage;
-#pragma unroll
-        for (int ks = 0; ks < kTcK; ks += 16) {
-          unsigned a[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int row = wm + mt * 16 + (lane & 15);
-            const int col = kc * kTcK + ks + (lane >> 4) * 8;
-            ldmatrix_x4(a[mt], As + static_cast<size_t>(row) * a_stride + col);
-          }
-          // the hi half's fragments, its 8 MMAs, then the lo half's in the
-          // same registers
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const __nv_bfloat16* Bp = half ? Bl : Bh;
-            unsigned b[4][2];
-#pragma unroll
-            for (int np = 0; np < 2; ++np) {
-              const int nrow = wn + np * 16 + (lane & 7) + (lane >> 4) * 8;
-              const int kcol = ks + ((lane >> 3) & 1) * 8;
-              unsigned r[4];
-              ldmatrix_x4(r, Bp + nrow * kTcBStride + kcol);
-              b[2 * np][0] = r[0];
-              b[2 * np][1] = r[1];
-              b[2 * np + 1][0] = r[2];
-              b[2 * np + 1][1] = r[3];
-            }
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-          }
-        }
-        __syncthreads();  // this stage is refilled two chunks on
-      }
-
+      tc_column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
       // epilogue: the tile through shared memory, then 8 columns a thread
-      // step with 16-byte loads and stores. acc[mt][nt] = {(r, c),
-      // (r, c+1), (r+8, c), (r+8, c+1)}
+      // step with 16-byte loads and stores
       float* Cs = reinterpret_cast<float*>(Bs);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int r = wm + mt * 16 + (lane >> 2) + half * 8;
-            const int c = wn + nt * 8 + (lane & 3) * 2;
-            *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
-                make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-          }
-      __syncthreads();
+      tc_tile_to_smem(Cs, acc, lane, wm, wn);
       // a fixed trip count, unrolled, so that each thread's reads of q, k or
       // g are in flight together
 #pragma unroll
@@ -758,10 +853,7 @@ la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
         const int cols = min(8, C - c);
         const bool vec = vec_io && cols == 8;
         float a[8], o[8], x[8];
-        const float4 a_lo = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs);
-        const float4 a_hi = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs + 4);
-        a[0] = a_lo.x; a[1] = a_lo.y; a[2] = a_lo.z; a[3] = a_lo.w;
-        a[4] = a_hi.x; a[5] = a_hi.y; a[6] = a_hi.z; a[7] = a_hi.w;
+        tile8(Cs, r, cs, a);
         const float den_r = den[row];
         if (which == 0) {
           const float gden_r = gden[row];
@@ -799,6 +891,279 @@ size_t tc_smem_bytes(int M, int D) {
          sizeof(__nv_bfloat16);
 }
 
+// The reduce's rows pass on the tensor cores. grid (ceil(N / kTcRows));
+// dynamic shared memory: the q tile [kTcRows][Mk + kTcPad] and the B stages
+// of kvs^T (its kRowsPieces pieces, hl as la_bwd_split_t_kernel writes it):
+// ~123 KB at M = 256, one block an SM. Block bx owns
+// rows [128*bx, 128*bx + 128): b = q . ksum from the staged q rows, then
+// a = q @ kvs one 64-column tile at a time, each tile folded at once into
+// sum_d g*a and sum_d g*v per row (eight threads a row, 8 columns each, a
+// fixed xor tree across them), then den, gden and the block's f64 dinv
+// partial, as la_bwd_rows_kernel computes them. vec_a: q rows by 16-byte
+// copies; vec_io: g and v read 16 bytes at a time.
+__global__ void __launch_bounds__(kTcThreads, 1)
+la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ g, long ldq, long ldv, long ldg, int N,
+                      int M, int D, const __nv_bfloat16* __restrict__ hl,
+                      const float* __restrict__ ksum, const float* __restrict__ scal,
+                      const float* __restrict__ n_total, int guard, int vec_a, int vec_io,
+                      float* __restrict__ den_out, float* __restrict__ gden_out,
+                      double* __restrict__ dinv_part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float b_s[kTcRows];
+  __shared__ float ga_s[kTcRows];
+  __shared__ float gv_s[kTcRows];
+  __shared__ double red[kTcRows];
+  const TcDims t(M, D);
+  const int a_stride = t.Mk + kTcPad;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + static_cast<size_t>(kTcRows) * a_stride;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 32;
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, t.Mk, vec_a, tid);
+  __syncthreads();
+  {  // b = q . ksum, two threads a row (adjacent lanes), f32
+    const int r = tid >> 1;
+    float b = 0.f;
+    for (int c = tid & 1; c < M; c += 2) {
+      b = fmaf(__bfloat162float(As[static_cast<size_t>(r) * a_stride + c]), ksum[c], b);
+    }
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    if ((tid & 1) == 0) b_s[r] = b;
+  }
+
+  // thread tid folds columns (tid % 8) * 8 .. + 8 of rows tid / 8 + 32 * it
+  constexpr int kSteps = kTcRows * (kTcCols / 8) / kTcThreads;
+  float ga[kSteps], gv[kSteps];
+#pragma unroll
+  for (int it = 0; it < kSteps; ++it) ga[it] = gv[it] = 0.f;
+  float* Cs = reinterpret_cast<float*>(Bs);
+  for (int c0 = 0; c0 < D; c0 += kTcCols) {
+    float acc[2][4][4];
+    tc_column_tile<kRowsPieces, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane,
+                                wm, wn);
+    tc_tile_to_smem(Cs, acc, lane, wm, wn);
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int r = i / (kTcCols / 8);
+      const int cs = (i % (kTcCols / 8)) * 8;
+      const long row = r0 + r;
+      const int c = c0 + cs;
+      float pga = 0.f, pgv = 0.f;
+      if (row < N && c < D) {
+        const int cols = min(8, D - c);
+        const bool vec = vec_io && cols == 8;
+        float a[8], x[8], y[8];
+        tile8(Cs, r, cs, a);
+        load8(g + row * ldg + c, vec, cols, x);
+        load8(v + row * ldv + c, vec, cols, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          pga = fmaf(x[e], a[e], pga);
+          pgv = fmaf(x[e], y[e], pgv);
+        }
+      }
+      // the eight threads of a row are lanes 8j .. 8j + 7 of one warp
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+        pga += __shfl_xor_sync(0xffffffffu, pga, off);
+        pgv += __shfl_xor_sync(0xffffffffu, pgv, off);
+      }
+      ga[it] += pga;
+      gv[it] += pgv;
+    }
+    __syncthreads();  // Cs is the next column tile's B stages
+  }
+  if ((tid & 7) == 0) {
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int r = (tid + it * kTcThreads) / (kTcCols / 8);
+      ga_s[r] = ga[it];
+      gv_s[r] = gv[it];
+    }
+  }
+  __syncthreads();
+
+  if (tid < kTcRows) {
+    const long row = r0 + tid;
+    double part = 0.0;
+    if (row < N) {
+      const float inv = scal[2];
+      const float n = *n_total;
+      const float bb = b_s[tid];
+      const float s_ga = ga_s[tid];
+      float den = inv * bb + n;
+      float gden;
+      if (guard && den == 0.f) {
+        den = 1.f;
+        gden = 0.f;
+      } else {
+        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
+      }
+      den_out[row] = den;
+      gden_out[row] = gden;
+      part = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+    }
+    red[tid] = part;
+  }
+  __syncthreads();
+  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) dinv_part[blockIdx.x] = red[0];
+}
+
+size_t rows_tc_smem_bytes(int M, int D) {
+  const TcDims t(M, D);
+  return (static_cast<size_t>(kTcRows) * (t.Mk + kTcPad) +
+          2 * kRowsPieces * static_cast<size_t>(kTcBStage)) *
+         sizeof(__nv_bfloat16);
+}
+
+// The reduce's P pass on the tensor cores: the node-axis contraction of the
+// forward reduce (tensor_core.cuh) with A = q and B = gd = g / den. grid
+// (slices * tiles), tiles = ceil(M/128) * ceil(D/128), slice-major: block b
+// sums tile b % tiles of P over rows [s*rows_per_slice, (s+1)*rows_per_slice),
+// s = b / tiles. Each 32-row chunk of q and g (and den, gden) comes through
+// a kReduceStages-deep cp.async ring; once it has landed the block forms gd
+// in f32 (g times the correctly rounded 1/den: within 2^-23 of g / den,
+// against the 2^-17 of the split), splits it into bf16 hi + lo tiles and
+// runs both through the MMAs. The blocks of the first column tile also sum
+// ds = q . gden per column of their M tile in f64 from the staged q rows.
+constexpr int kReduceStages = 4;
+constexpr int kReduceStage = 2 * tc::kNodeChunk;  // bf16 of a stage's q and g chunks
+constexpr size_t kReduceSmem =
+    kReduceStages * (kReduceStage * sizeof(__nv_bfloat16) + 2 * tc::kNodeRows * sizeof(float)) +
+    2 * tc::kNodeChunk * sizeof(__nv_bfloat16);
+
+__global__ void __launch_bounds__(tc::kNodeThreads, 2)
+la_bwd_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ g,
+                        long ldq, long ldg, int N, int M, int D, int rows_per_slice, int vec,
+                        const float* __restrict__ den, const float* __restrict__ gden,
+                        float* __restrict__ P_part, float* __restrict__ ds_part) {
+  using tc::kNodeRows;
+  using tc::kNodeStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][q, g]
+  __nv_bfloat16* gd_hi = ring + kReduceStages * kReduceStage;
+  __nv_bfloat16* gd_lo = gd_hi + tc::kNodeChunk;
+  float* rows_s = reinterpret_cast<float*>(gd_lo + tc::kNodeChunk);  // [stage][den, gden]
+  __shared__ double red[tc::kNodeTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 64;
+  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
+  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
+  const int s = blockIdx.x / tiles;
+  const int dy = (blockIdx.x % tiles) / tiles_m;
+  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
+  const int d0 = dy * tc::kNodeTile;
+  const bool stats = dy == 0;
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+
+  auto stage = [&](int c) {
+    const int st = c % kReduceStages;
+    __nv_bfloat16* qs = ring + st * kReduceStage;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    tc::stage_node_rows(qs, q, ldq, r0, r_end, m0, M, vec, tid);
+    tc::stage_node_rows(qs + tc::kNodeChunk, g, ldg, r0, r_end, d0, D, vec, tid);
+    if (tid < 2 * kNodeRows) {  // den, then gden, of the chunk's rows
+      const int r = tid % kNodeRows;
+      const float* src = tid < kNodeRows ? den : gden;
+      const bool ok = r0 + r < r_end;
+      tc::cp_async4(rows_s + st * 2 * kNodeRows + tid, ok ? src + r0 + r : src, ok);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int col = tid & (tc::kNodeTile - 1);
+  const int par = tid / tc::kNodeTile;
+  double ds = 0.0;
+
+  for (int c = 0; c < kReduceStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    tc::cp_async_wait<kReduceStages - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
+    if (c + kReduceStages - 1 < chunks) stage(c + kReduceStages - 1);
+    tc::cp_async_commit();
+    const int st = c % kReduceStages;
+    const __nv_bfloat16* qs = ring + st * kReduceStage;
+    const __nv_bfloat16* gs = qs + tc::kNodeChunk;
+    const float* den_s = rows_s + st * 2 * kNodeRows;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    // gd = g * (1/den) as bf16 hi + lo, 8 columns of one row a thread step;
+    // rows past the slice are zeros
+#pragma unroll
+    for (int it = 0; it < kNodeRows * tc::kNodeTile / 8 / tc::kNodeThreads; ++it) {
+      const int i = tid + it * tc::kNodeThreads;
+      const int r = i / (tc::kNodeTile / 8);
+      const int cs = (i % (tc::kNodeTile / 8)) * 8;
+      const float rd = r0 + r < r_end ? __frcp_rn(den_s[r]) : 0.f;
+      const uint4 raw = *reinterpret_cast<const uint4*>(gs + r * kNodeStride + cs);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 hi_raw, lo_raw;
+      __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(&hi_raw);
+      __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(&lo_raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        const float x = __fmul_rn(f.x, rd);
+        const float y = __fmul_rn(f.y, rd);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        const float2 hf = __bfloat1622float2(hi);
+        hi2[e] = hi;
+        lo2[e] = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+      }
+      *reinterpret_cast<uint4*>(gd_hi + r * kNodeStride + cs) = hi_raw;
+      *reinterpret_cast<uint4*>(gd_lo + r * kNodeStride + cs) = lo_raw;
+    }
+    __syncthreads();
+    const __nv_bfloat16* const gd[2] = {gd_hi, gd_lo};
+    tc::node_mma_chunk<2>(acc, qs, gd, wm, wn, lane);
+    if (stats) {
+      const float* gden_s = den_s + kNodeRows;
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        ds = fma(static_cast<double>(__bfloat162float(qs[r * kNodeStride + col])),
+                 static_cast<double>(gden_s[r]), ds);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_node_tile(P_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn, lane);
+  if (stats) {  // uniform over the block
+    if (par == 1) red[col] = ds;
+    __syncthreads();
+    if (par == 0 && m0 + col < M) {
+      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                               long ldg, int N, int M, int D, int slices, int rows_per_slice,
@@ -817,6 +1182,53 @@ cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long 
       static_cast<const T*>(q), static_cast<const T*>(g), ldq, ldg, N, M, D, rows_per_slice, den,
       gden, P_part, ds_part);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The tensor-core reduce: kvs^T split into hl, the rows pass, the P pass.
+cudaError_t launch_bwd_reduce_tc(const __nv_bfloat16* q, const __nv_bfloat16* v,
+                                 const __nv_bfloat16* g, long ldq, long ldv, long ldg, int N,
+                                 int M, int D, int slices, int rows_per_slice, const float* kvs,
+                                 const float* ksum, const float* scal, const float* n_total,
+                                 int guard, float* den, float* gden, double* dinv_part,
+                                 float* P_part, float* ds_part, __nv_bfloat16* hl,
+                                 cudaStream_t st) {
+  const size_t split = TcDims(M, D).pt_elems();
+  la_bwd_split_t_kernel<<<static_cast<unsigned>(std::min<size_t>((split + kThreads - 1) / kThreads,
+                                                                 1024)),
+                          kThreads, 0, st>>>(kvs, M, D, hl);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vec_a = M % 8 == 0 && ldq % 8 == 0 && aligned16(q);
+  const int vec_io = ldg % 8 == 0 && ldv % 8 == 0 && aligned16(g) && aligned16(v);
+  const size_t smem = rows_tc_smem_bytes(M, D);
+  err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  la_bwd_rows_tc_kernel<<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
+      q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
+      dinv_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int vec = M % 8 == 0 && D % 8 == 0 && ldq % 8 == 0 && ldg % 8 == 0 && aligned16(q) &&
+                  aligned16(g);
+  err = cudaFuncSetAttribute(la_bwd_reduce_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kReduceSmem));
+  if (err != cudaSuccess) return err;
+  const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
+  la_bwd_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, kReduceSmem, st>>>(
+      q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+  return cudaGetLastError();
+}
+
+// bf16 elements of the tensor-core reduce's scratch (kvs^T in pieces), or
+// 0 where the reduce runs on the CUDA cores: f32 inputs, or an M whose q
+// tile does not fit one block's shared memory beside the B stages.
+int bwd_reduce_scratch(int dtype, int M, int D) {
+  constexpr size_t kStatic = 4096;  // la_bwd_rows_tc_kernel's static shared memory, rounded up
+  if (dtype != 1 || rows_tc_smem_bytes(M, D) + kStatic > kSmemPerBlock) return 0;
+  return static_cast<int>(kRowsPieces * TcDims(M, D).pt_elems());
 }
 
 template <typename T>
@@ -842,19 +1254,29 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
 // the input type; kvs [M, D], ksum [M], scal [4] = (qsq, ksq, inv, 0) and
 // n_total from the forward (f32, device). Outputs: rows [2, N] = (den, gden)
 // per row, P [M, D], ds [M], dinv (one f32). Scratch: dinv_part
-// [ceil(N/64)] f64, P_part [slices, M, D], ds_part [slices, M]. Returns the
-// first cudaError_t of the launches, each checked as it is made.
+// [ceil(N/64)] f64, P_part [slices, M, D], ds_part [slices, M], and hl, the
+// sgf_la_bwd_reduce_scratch(dtype, M, D) bf16 elements of the tensor-core
+// design where that is not 0 (else unused). Returns the first cudaError_t of
+// the launches, each checked as it is made.
 extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                                  long ldg, int N, int M, int D, int dtype, int slices,
                                  int rows_per_slice, int guard, const float* kvs,
                                  const float* ksum, const float* scal, const float* n_total,
                                  float* rows, double* dinv_part, float* P_part, float* ds_part,
-                                 float* P, float* ds, float* dinv, void* stream) {
+                                 float* P, float* ds, float* dinv, void* hl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* den = rows;
   float* gden = rows + N;
   cudaError_t err;
-  if (dtype == 0) {
+  int row_blocks = (N + kTile - 1) / kTile;
+  if (bwd_reduce_scratch(dtype, M, D) > 0) {
+    using bf16 = __nv_bfloat16;
+    err = launch_bwd_reduce_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(v),
+                               static_cast<const bf16*>(g), ldq, ldv, ldg, N, M, D, slices,
+                               rows_per_slice, kvs, ksum, scal, n_total, guard, den, gden,
+                               dinv_part, P_part, ds_part, static_cast<bf16*>(hl), st);
+    row_blocks = (N + kTcRows - 1) / kTcRows;
+  } else if (dtype == 0) {
     err = launch_bwd_reduce<float>(q, v, g, ldq, ldv, ldg, N, M, D, slices, rows_per_slice, kvs,
                                    ksum, scal, n_total, guard, den, gden, dinv_part, P_part,
                                    ds_part, st);
@@ -871,8 +1293,14 @@ extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, lo
   la_bwd_finish_kernel<<<fin_blocks, kThreads, 0, st>>>(P_part, ds_part, slices, M, D, P, ds);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  la_bwd_dinv_kernel<<<1, kThreads, 0, st>>>(dinv_part, (N + kTile - 1) / kTile, dinv);
+  la_bwd_dinv_kernel<<<1, kThreads, 0, st>>>(dinv_part, row_blocks, dinv);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 scratch (elements) of the tensor-core reduce for these widths, or
+// 0 where the reduce runs on the CUDA cores (f32 inputs, or M above 640).
+extern "C" int sgf_la_bwd_reduce_scratch(int dtype, int M, int D) {
+  return bwd_reduce_scratch(dtype, M, D);
 }
 
 // The bf16 scratch (elements) of the tensor-core apply for these widths,

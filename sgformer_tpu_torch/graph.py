@@ -46,7 +46,7 @@ import torch
 
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.kernels import spmm as _spmm_kernel
-from sgformer_tpu_torch.kernels.spmm import hub_segments
+from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, hub_segments
 
 _CHUNK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -85,8 +85,11 @@ class Graph:
         ``pyg_t_indptr`` (:func:`sgformer_tpu_torch.kernels.spmm.
         hub_segments`, [S, 3] int32), present where their CSR is: the
         segments that the CSR kernels split rows of more than
-        ``HUB_EDGES`` in-edges into, built here once so that no call reads
+        ``hub_edges`` in-edges into, built here once so that no call reads
         ``indptr`` back to the host.
+      hub_edges: the segment length of those four plans
+        (``kernels.spmm.HUB_EDGES``); the CSR kernels take it with each plan
+        and refuse a plan without it.
     """
 
     edge_src: torch.Tensor
@@ -117,6 +120,7 @@ class Graph:
     t_hub_segments: Optional[torch.Tensor] = None
     pyg_hub_segments: Optional[torch.Tensor] = None
     pyg_t_hub_segments: Optional[torch.Tensor] = None
+    hub_edges: int = HUB_EDGES
 
     @property
     def device(self) -> torch.device:
@@ -156,7 +160,7 @@ class Graph:
             plans = (plans[0], plans[0])
         if self.slab_dtype == "int8":
             return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs)
-        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans)
+        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans, self.hub_edges)
 
     def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """out[i, h] = sum over edges e into i of values[e, h] * x[src_e, h],
@@ -174,7 +178,8 @@ class Graph:
         return _spmm_kernel.csr_spmm_ev_autograd(
             x, values, (self.indptr, self.edge_src, self.edge_dst),
             (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_perm),
-            _CHUNK_DTYPES[self.chunk_dtype], self.hub_segments, self.t_hub_segments)
+            _CHUNK_DTYPES[self.chunk_dtype], self.hub_segments, self.t_hub_segments,
+            self.hub_edges)
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +398,7 @@ def preprocess_graph(
         gcn_weight=torch.from_numpy(np.ascontiguousarray(weight)).to(dev),
         indptr=_int32(indptr, dev),
         hub_segments=_int32(hub_segments(indptr), dev),
+        hub_edges=HUB_EDGES,
         num_nodes=int(num_nodes),
         num_edges=int(len(src)),
         symmetric=bool(undirected),

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled on first use into its own shared library
 with a plain C interface, under ``build/kernels/`` beside the package (the
 repository's ``.gitignore`` lists ``build/``). The file name carries a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. :func:`build_all` starts one ``nvcc`` per source at once
-and waits for all of them.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all
+of them.
 
 Nothing here runs at import time: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -56,7 +57,8 @@ _SIGNATURES = {
     },
     "linear_attention_bwd": {
         "sgf_la_bwd_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "sgf_la_bwd_reduce_scratch": [_I, _I, _I],
         "sgf_la_bwd_apply": [_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _L, _L, _L,
                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                              _P],
@@ -76,9 +78,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source and its library's path; the hash covers the source, the
+    headers of ``csrc/`` it may include, and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in (src, *(os.path.join(CSRC, h) for h in headers)):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -19,12 +19,17 @@ scaled by one norm over all heads, as in the SGFormer reference and the
 plain path; the JAX Pallas path scales each head by its own norms, which
 agrees only at H = 1.
 
-:func:`bwd_apply` on bf16 inputs runs its three products on the tensor
-cores (``la_bwd_apply_tc_kernel``: bf16 rows against kvs and P split into
-bf16 hi + lo, f32 sums); on f32 inputs, and on bf16 widths too large for
-that kernel's shared memory, on the CUDA cores in f32
-(``la_bwd_apply_kernel``). :func:`bwd_apply_design` names the one a call
-runs.
+On bf16 inputs the kernels' products run on the tensor cores (mma.sync,
+f32 sums): :func:`reduce`'s kᵀv (``la_reduce_tc_kernel``: exact bf16
+products, fixed-order f32 sums over slices of N), :func:`bwd_reduce`'s
+q @ kvs and qᵀ(g/den) (``la_bwd_rows_tc_kernel``,
+``la_bwd_reduce_tc_kernel``: kvs split into bf16 hi + mid + lo, g/den into
+hi + lo) and :func:`bwd_apply`'s three products
+(``la_bwd_apply_tc_kernel``: kvs and P split into hi + lo). On f32
+inputs, and on bf16 widths too large for a tensor-core kernel's shared
+memory (the backward's q or A tile), they run on the CUDA cores in f32, the
+exact-parity path. :func:`reduce_design`, :func:`bwd_reduce_design` and
+:func:`bwd_apply_design` name the kernel a call runs.
 
 ``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
 ``bwd_apply_launches`` count the wrappers' launching calls; set them to 0
@@ -45,7 +50,13 @@ bwd_apply_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _ROWS = 32
-_WAVES = 4  # reduce blocks per SM to aim for
+_WAVES = 4  # CUDA-core reduce blocks per SM to aim for
+# the tensor-core reduces: 128 x 128 output tiles over 32-row chunks, two
+# blocks resident on each SM, one wave of them
+_TC_TILE = 128
+_TC_BLOCKS_PER_SM = 2
+_TENSOR_CORES = "tensor cores (mma.sync bf16, f32 sums)"
+_CUDA_CORES = "CUDA cores (f32 FMA)"
 
 
 def _inv(q_sq: torch.Tensor, k_sq: torch.Tensor, guard: bool) -> torch.Tensor:
@@ -176,14 +187,50 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _slices(n: int, m: int, d: int, device: torch.device) -> tuple[int, int]:
-    """Split the N rows into slices so the reduce grid fills the card about
-    _WAVES times over; slice length is a multiple of the 32-row step."""
-    tiles = _cdiv(m, _TILE) * _cdiv(d, _TILE)
+def _slices(n: int, m: int, d: int, device: torch.device,
+            tensor_cores: bool) -> tuple[int, int]:
+    """(slices, rows per slice) of the N rows for a reduce grid on
+    ``device``; slice length is a multiple of the 32-row step. The CUDA-core
+    grid (64 x 64 tiles) fills the card about _WAVES times over; the
+    tensor-core grid (128 x 128 tiles) is one wave of _TC_BLOCKS_PER_SM
+    resident blocks an SM: at the arxiv shape (N = 169,343, M = D = 256, 132
+    SMs) 66 slices of 2,592 rows, whose f32 partials of kvs or P take
+    66 * 256 * 256 * 4 = 17.3 MB."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(_cdiv(n, _ROWS), _cdiv(_WAVES * sms, tiles)))
+    if tensor_cores:
+        tiles = _cdiv(m, _TC_TILE) * _cdiv(d, _TC_TILE)
+        blocks = _TC_BLOCKS_PER_SM * sms
+    else:
+        tiles = _cdiv(m, _TILE) * _cdiv(d, _TILE)
+        blocks = _WAVES * sms
+    want = max(1, min(_cdiv(n, _ROWS), _cdiv(blocks, tiles)))
     rows = _cdiv(_cdiv(n, want), _ROWS) * _ROWS
     return _cdiv(n, rows), rows
+
+
+def reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
+    """Which kernel :func:`reduce` launches on the card for inputs of
+    ``dtype`` with widths m (q, k) and d (v): the tensor-core kernel takes
+    any width, so bf16 always runs it."""
+    del m, d  # no width limit: the node rows stream through a fixed tile
+    return _TENSOR_CORES if dtype == torch.bfloat16 else _CUDA_CORES
+
+
+def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
+    """bf16 elements of the tensor-core backward reduce's scratch (kvsᵀ in
+    three bf16 pieces), 0 for the CUDA-core design (builds the kernels on
+    first use)."""
+    return _build.library("linear_attention_bwd").sgf_la_bwd_reduce_scratch(
+        _DTYPES[dtype], m, d)
+
+
+def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
+    """Which kernels :func:`bwd_reduce` launches on the card for inputs of
+    ``dtype`` with widths m (q) and d (v, g)."""
+    if _bwd_reduce_scratch(dtype, m, d):
+        return ("tensor cores (mma.sync bf16, kvs as bf16 hi + mid + lo, g/den as hi + lo, "
+                "f32 sums)")
+    return _CUDA_CORES
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -209,7 +256,7 @@ def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = Fals
         raise ValueError("linear attention needs at least one node")
 
     m, d = q.shape[1], v.shape[1]
-    slices, rows = _slices(n, m, d, q.device)
+    slices, rows = _slices(n, m, d, q.device, reduce_design(q.dtype, m, d) == _TENSOR_CORES)
     f32 = dict(dtype=torch.float32, device=q.device)
     kvs_part = torch.empty(slices, m, d, **f32)
     ksum_part = torch.empty(slices, m, **f32)
@@ -284,7 +331,8 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
     if n == 0:
         raise ValueError("linear attention needs at least one node")
 
-    slices, rows_per_slice = _slices(n, m, d, q.device)
+    scratch = _bwd_reduce_scratch(q.dtype, m, d)
+    slices, rows_per_slice = _slices(n, m, d, q.device, scratch > 0)
     f32 = dict(dtype=torch.float32, device=q.device)
     rows = torch.empty(2, n, **f32)
     dinv_part = torch.empty(_cdiv(n, _TILE), dtype=torch.float64, device=q.device)
@@ -293,12 +341,14 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
     P = torch.empty(m, d, **f32)
     ds = torch.empty(m, **f32)
     dinv = torch.empty((), **f32)
+    hl = torch.empty(scratch, dtype=torch.bfloat16, device=q.device) if scratch else None
     err = _build.library("linear_attention_bwd").sgf_la_bwd_reduce(
         q.data_ptr(), v.data_ptr(), g.data_ptr(), q.stride(0), v.stride(0), g.stride(0),
         n, m, d, _DTYPES[q.dtype], slices, rows_per_slice, int(guard),
         kvs.data_ptr(), ksum.data_ptr(), scal.data_ptr(), n_total.data_ptr(),
         rows.data_ptr(), dinv_part.data_ptr(), P_part.data_ptr(), ds_part.data_ptr(),
-        P.data_ptr(), ds.data_ptr(), dinv.data_ptr(), _stream(q),
+        P.data_ptr(), ds.data_ptr(), dinv.data_ptr(), None if hl is None else hl.data_ptr(),
+        _stream(q),
     )
     _build.check(err, "linear attention bwd_reduce")
     bwd_reduce_launches += 1
@@ -317,7 +367,7 @@ def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     ``dtype`` with widths m (q, k) and d (v, g)."""
     if _apply_scratch(dtype, m, d):
         return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
-    return "CUDA cores (f32 FMA)"
+    return _CUDA_CORES
 
 
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,

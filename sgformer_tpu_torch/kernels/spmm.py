@@ -31,13 +31,19 @@ so the per-edge-value gradient always reads the values permuted into the
 transposed order.
 
 Hub rows: :func:`csr_spmm` and :func:`csr_spmm_ev` split every row of more
-than :data:`HUB_EDGES` in-edges into segments of at most that many edges,
-each summed by a warp of its own, and add each row's segment sums in a
-fixed order in a second pass (see ``csrc/spmm.cu``). The plan,
-:func:`hub_segments` of the CSR's ``indptr``, is built once per graph on
-the host by ``preprocess_graph`` and kept on the ``Graph`` beside each CSR
-(``hub_segments``, ``t_hub_segments``, ...); a call without it builds it
-from ``indptr``, which reads ``indptr`` back to the host.
+than ``segment_edges`` (:data:`HUB_EDGES` by default) in-edges into segments
+of at most that many edges, each summed by a warp of its own, and add each
+row's segment sums in a fixed order in a second pass (see ``csrc/spmm.cu``).
+The plan, :func:`hub_segments` of the CSR's ``indptr``, is built once per
+graph on the host by ``preprocess_graph`` and kept on the ``Graph`` beside
+each CSR (``hub_segments``, ``t_hub_segments``, ...), with the segment
+length it was built with (``Graph.hub_edges``); a call without it builds it
+from ``indptr``, which reads ``indptr`` back to the host. The kernel's row
+walk skips every row longer than the plan's segment length and leaves it to
+the plan, so a plan is only taken together with its length, which the
+kernel is given: a plan passed without one is refused (it cannot be read
+back to check), since one built for a longer segment would leave the rows
+between the two lengths unwritten.
 
 ``launches``, ``ev_launches``, ``sddmm_launches`` and ``q8_launches`` count
 the wrappers' calls that launched their kernels (one, whether or not the
@@ -115,33 +121,55 @@ def _aligned(d: int, *tensors) -> int:
     return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _plan(segments, indptr) -> torch.Tensor:
-    """The hub plan on indptr's device: ``segments`` as given (checked), or
-    built from ``indptr`` (a host read) when None."""
+def _segment_length(segments, segment_edges) -> int:
+    """The row walk's segment length for a call given ``segments`` and
+    ``segment_edges``: the plan's own length, which must come with it."""
+    if segment_edges is None:
+        if segments is not None:
+            raise ValueError(
+                "a hub plan needs the segment length it was built with (segment_edges; "
+                "Graph.hub_edges for a graph's plans): the kernel leaves every row of more "
+                "in-edges than that length to the plan, so a plan of another length would "
+                "leave rows unwritten")
+        return HUB_EDGES
+    if (not isinstance(segment_edges, (int, np.integer)) or isinstance(segment_edges, bool)
+            or segment_edges < 1):
+        raise ValueError(f"segment_edges must be a positive integer, got {segment_edges!r}")
+    return int(segment_edges)
+
+
+def _plan(segments, indptr, segment_edges=None) -> tuple[torch.Tensor, int]:
+    """The hub plan on indptr's device and its segment length, which the
+    kernel's row walk takes: ``segments`` as given (checked) with the length
+    it was built with, ``segment_edges``, which may not be left out; or,
+    when ``segments`` is None, the plan built from ``indptr`` (a host read)
+    with segments of ``segment_edges`` (:data:`HUB_EDGES` when None)."""
+    length = _segment_length(segments, segment_edges)
     if segments is None:
-        return torch.from_numpy(hub_segments(indptr)).to(indptr.device)
+        return torch.from_numpy(hub_segments(indptr, length)).to(indptr.device), length
     if segments.device != indptr.device:
         raise ValueError(f"segments on {segments.device}, the CSR on {indptr.device}")
     if (segments.dtype != torch.int32 or segments.dim() != 2 or segments.shape[1] != 3
             or not segments.is_contiguous()):
         raise TypeError("segments must be a contiguous [S, 3] int32 tensor (hub_segments)")
-    return segments
+    return segments, length
 
 
-def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int, segments) -> bool:
+def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int, segments,
+                 segment_edges) -> bool:
     """Launch the kernel (and the hub rows' second pass) unless the output
     is empty; True if it launched."""
     n = indptr.shape[0] - 1
     if n == 0 or d == 0 or heads == 0:
         return False
-    segments = _plan(segments, indptr)
+    segments, length = _plan(segments, indptr, segment_edges)
     n_seg = segments.shape[0]
     part = (torch.empty(n_seg, heads * d, dtype=torch.float32, device=x.device)
             if n_seg else None)
     err = _build.library("spmm").sgf_csr_spmm(
         indptr.data_ptr(), edge_src.data_ptr(), values.data_ptr(), x.data_ptr(),
         out.data_ptr(), segments.data_ptr() if n_seg else None, n_seg,
-        part.data_ptr() if n_seg else None, HUB_EDGES, n, heads, d, _DTYPES[x.dtype],
+        part.data_ptr() if n_seg else None, length, n, heads, d, _DTYPES[x.dtype],
         _DTYPES[out.dtype], _aligned(d, x, out), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "csr_spmm")
@@ -155,16 +183,19 @@ def csr_spmm(
     edge_dst: torch.Tensor,
     weight: torch.Tensor,
     segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
 ) -> torch.Tensor:
     """out[i] = sum_{e in [indptr[i], indptr[i+1])} weight[e] * x[edge_src[e]].
 
     x: [N, F] float32 or bfloat16 (any F; the kernel takes 256 columns per
     pass); indptr [N+1], edge_src and edge_dst [E] int32, sorted by dst;
-    weight [E] float32; segments: the hub plan of this CSR
-    (:func:`hub_segments`, on the graph as ``hub_segments`` and the like),
-    built from ``indptr`` when None. The sum is f32 and the result has x's
-    type. ``edge_dst`` is read only by the plain version, ``segments`` only
-    by the kernel.
+    weight [E] float32; segments: the hub plan of this CSR,
+    ``hub_segments(indptr, segment_edges)`` (on the graph as
+    ``hub_segments`` and the like, with ``hub_edges``), given with its
+    ``segment_edges`` or refused; built from ``indptr`` when None, with
+    segments of ``segment_edges`` (:data:`HUB_EDGES` when None). The sum is
+    f32 and the result has x's type. ``edge_dst`` is read only by the plain
+    version, ``segments`` only by the kernel.
     """
     global launches
     n = indptr.shape[0] - 1
@@ -172,6 +203,7 @@ def csr_spmm(
         raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _segment_length(segments, segment_edges)
     if _check_device(x, indptr, edge_src, edge_dst, weight) == "cpu":
         return spmm_plain(x, edge_src, edge_dst, weight, n)
     _check_csr(indptr, edge_src, weight=weight)
@@ -179,7 +211,7 @@ def csr_spmm(
         raise ValueError("weight must be [E]")
     x = x.contiguous()
     out = torch.empty_like(x)
-    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments):
+    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments, segment_edges):
         launches += 1
     return out
 
@@ -192,14 +224,16 @@ def csr_spmm_ev(
     values: torch.Tensor,
     out_dtype: torch.dtype | None = None,
     segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
 ) -> torch.Tensor:
     """out[i, h] = sum_{e in [indptr[i], indptr[i+1])} values[e, h] * x[edge_src[e], h].
 
     x: [N, H, D] float32 or bfloat16, the messages in the type they are
     sent in; values: [E, H] float32 in the CSR's edge order; all heads in one
     launch. The sum is f32 and the result, [N, H, D], has ``out_dtype``
-    (x's type when None). ``segments`` is the CSR's hub plan, as in
-    :func:`csr_spmm`. ``edge_dst`` is read only by the plain version.
+    (x's type when None). ``segments`` and ``segment_edges`` are the CSR's
+    hub plan and its segment length, as in :func:`csr_spmm`. ``edge_dst`` is
+    read only by the plain version.
     """
     global ev_launches
     n = indptr.shape[0] - 1
@@ -211,12 +245,14 @@ def csr_spmm_ev(
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise TypeError(f"x and the result must be float32 or bfloat16, got {x.dtype}, "
                         f"{out_dtype}")
+    _segment_length(segments, segment_edges)
     if _check_device(x, indptr, edge_src, edge_dst, values) == "cpu":
         return spmm_edge_values_plain(x, edge_src, edge_dst, values, n, out_dtype)
     _check_csr(indptr, edge_src, values=values)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2], segments):
+    if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2], segments,
+                    segment_edges):
         ev_launches += 1
     return out
 
@@ -350,28 +386,30 @@ class CsrSpmmFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
-                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments):
-        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments)
-        return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments)
+                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges):
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges)
+        return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges)
 
     @staticmethod
     def backward(ctx, g):
         dx = csr_spmm(g.contiguous(), *ctx.transpose)
-        return (dx,) + (None,) * 10
+        return (dx,) + (None,) * 11
 
 
 def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
                       segments: torch.Tensor | None = None,
-                      t_segments: torch.Tensor | None = None) -> torch.Tensor:
+                      t_segments: torch.Tensor | None = None,
+                      segment_edges: int | None = None) -> torch.Tensor:
     """:func:`csr_spmm` of ``x`` on ``csr`` = (indptr, edge_src, edge_dst,
     weight), differentiable in x; ``csr_t`` is the CSR of A^T in the same
     form (``csr`` itself when A is symmetric); ``segments`` and
-    ``t_segments`` are their hub plans (built from indptr when None). Where
-    autograd does not record (``torch.no_grad``, ``torch.inference_mode``,
-    or x needs no gradient) it is one :func:`csr_spmm` and saves nothing."""
+    ``t_segments`` are their hub plans, both of segments of
+    ``segment_edges`` (built from indptr when None). Where autograd does not
+    record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
+    gradient) it is one :func:`csr_spmm` and saves nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments)
-    return csr_spmm(x, *csr, segments)
+        return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments, segment_edges)
+    return csr_spmm(x, *csr, segments, segment_edges)
 
 
 class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
@@ -387,13 +425,15 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, values, indptr, edge_src, edge_dst, segments,
-                t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments, msg_dtype):
+                t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments, segment_edges,
+                msg_dtype):
         ctx.save_for_backward(x, values)
         ctx.csr = (indptr, edge_src, edge_dst)
         ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments)
+        ctx.segment_edges = segment_edges
         ctx.msg_dtype = msg_dtype
         return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype,
-                           segments)
+                           segments, segment_edges)
 
     @staticmethod
     def backward(ctx, g):
@@ -402,28 +442,30 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
         dx = dv = None
         if ctx.needs_input_grad[0]:
             dx = csr_spmm_ev(g.to(ctx.msg_dtype), t_indptr, t_edge_src, t_edge_dst,
-                             values.index_select(0, t_perm.long()), x.dtype, t_segments)
+                             values.index_select(0, t_perm.long()), x.dtype, t_segments,
+                             ctx.segment_edges)
         if ctx.needs_input_grad[1]:
             dv = sddmm(g.to(x.dtype), x, *ctx.csr).to(values.dtype)
-        return (dx, dv) + (None,) * 10
+        return (dx, dv) + (None,) * 11
 
 
 def csr_spmm_ev_autograd(x: torch.Tensor, values: torch.Tensor, csr: tuple,
                          csr_t: tuple, msg_dtype: torch.dtype,
                          segments: torch.Tensor | None = None,
-                         t_segments: torch.Tensor | None = None) -> torch.Tensor:
+                         t_segments: torch.Tensor | None = None,
+                         segment_edges: int | None = None) -> torch.Tensor:
     """:func:`csr_spmm_ev` of x ([N, H, D]) rounded to ``msg_dtype``, with
     ``values`` ([E, H] f32) on ``csr`` = (indptr, edge_src, edge_dst); the
     result has x's type. Differentiable in x and values; ``csr_t`` =
     (t_indptr, t_edge_src, t_edge_dst, t_perm) is the transposed CSR and the
     permutation that takes the values into its order; ``segments`` and
-    ``t_segments`` the two CSRs' hub plans (built from indptr when None).
-    Where autograd does not record it is one :func:`csr_spmm_ev` and saves
-    nothing."""
+    ``t_segments`` the two CSRs' hub plans, both of segments of
+    ``segment_edges`` (built from indptr when None). Where autograd does not
+    record it is one :func:`csr_spmm_ev` and saves nothing."""
     if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
         return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, segments, *csr_t, t_segments,
-                                               msg_dtype)
-    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype, segments)
+                                               segment_edges, msg_dtype)
+    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype, segments, segment_edges)
 
 
 class CsrSpmmQ8Function(torch.autograd.Function):

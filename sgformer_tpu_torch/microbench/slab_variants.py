@@ -139,6 +139,7 @@ def main() -> int:
     graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes)
     x = make_x(graph.num_nodes, "cuda")
     csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    plan = (graph.hub_segments, graph.hub_edges)
     for mode in MODES:
         got = slab_variant(x, *csr, mode)
         err, scale = measure.rel_err(got, slab_variant_plain(
@@ -147,12 +148,11 @@ def main() -> int:
         if err > REL_TOL * scale:
             print(f"{mode} disagrees with its plain version", file=sys.stderr)
             return 1
-        if mode == "prod" and not torch.equal(got, csr_spmm(x.float(), *csr,
-                                                            graph.hub_segments)):
+        if mode == "prod" and not torch.equal(got, csr_spmm(x.float(), *csr, *plan)):
             print("prod is not bitwise csr_spmm", file=sys.stderr)
             return 1
     results = run(graph, x)
-    spmm_ms = measure.time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments))
+    spmm_ms = measure.time_ms(lambda: csr_spmm(x, *csr, *plan))
     for mode, r in results.items():
         print(f"{mode}: {r['ms']:7.4f} ms ({r['ns_per_edge']:.4f} ns/edge; plain "
               f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']})",

@@ -339,3 +339,159 @@ def test_tensor_core_apply_matches_jax_pallas_interpret(masked):
     got = _tensor_core_apply(tq, tk, tv, tg, *sums, n_t, *red, torch.tensor(masked))
     got = [(t * keep[:, None]).to(torch.bfloat16)[:, None] for t in got]
     _grads_close(got, want, TOL["bf16"]["rtol"])
+
+
+def _runs(n, rows):
+    """Consecutive ranges of ``rows`` indices covering range(n)."""
+    return [range(s, min(s + rows, n)) for s in range(0, n, rows)]
+
+
+def _tensor_core_reduce(q, k, v, guard, rows=96):
+    """The bf16 reduce's arithmetic (``la_reduce_tc_kernel`` and its finish)
+    written plainly: the bf16 rows as they are, so every product of k and v
+    is exact in f32; each 32-row chunk's kᵀv summed alone and added to its
+    slice's f32 sum, the slices of ``rows`` nodes added in slice order in
+    f32; Σk, ‖k‖² and ‖q‖² per column and slice in f64, rounded to f32 and
+    added over slices (ksum in f32, the norms in f64). Returns kvs, ksum and
+    scal as :func:`reduce_plain` does."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    n, m, d = q.shape[0], q.shape[1], v.shape[1]
+    kvs, ksum = torch.zeros(m, d), torch.zeros(m)
+    qsq = ksq = torch.zeros((), dtype=torch.float64)
+    for sl in _runs(n, rows):
+        part = torch.zeros(m, d)
+        for ch in _runs(len(sl), 32):
+            r = slice(sl.start + ch.start, sl.start + ch.stop)
+            part = part + kf[r].T @ vf[r]
+        kvs = kvs + part
+        r = slice(sl.start, sl.stop)
+        ksum = ksum + kf[r].double().sum(0).float()
+        qsq = qsq + qf[r].double().square().sum(0).float().double().sum()
+        ksq = ksq + kf[r].double().square().sum(0).float().double().sum()
+    q_sq, k_sq = qsq.float(), ksq.float()
+    scal = torch.stack([q_sq, k_sq, attn._inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
+    return kvs, ksum, scal
+
+
+def _tensor_core_bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard, rows=96, lo=True):
+    """The bf16 backward reduce's arithmetic (``la_bwd_rows_tc_kernel`` and
+    ``la_bwd_reduce_tc_kernel``) written plainly: a = q @ kvs with kvs as
+    three bf16 pieces, hi + mid + lo (one product each, f32 sums), b = q .
+    ksum, den and gden in f32 as the rows pass forms them; gd = g * (1/den)
+    in f32, split into bf16 hi + lo, P = qᵀ gd summed per slice of ``rows``
+    nodes in f32 and added in slice order; ds per slice in f64; dinv from
+    the per-row f64 terms. ``lo=False`` keeps only the hi pieces: kvs and gd
+    rounded to bf16. Returns P, ds, dinv and rows = [den; gden], as
+    :func:`bwd_reduce_plain` does."""
+    qf, vf, gf = q.float(), v.float(), g.float()
+    inv = scal[2]
+
+    def pieces(t, count):  # t as the tensor cores see it, in f32 (the sum is exact)
+        out, rest = torch.zeros_like(t), t
+        for _ in range(count if lo else 1):
+            piece = rest.to(torch.bfloat16).float()
+            out, rest = out + piece, rest - piece
+        return out
+
+    a = qf @ pieces(kvs, 3)
+    b = qf @ ksum
+    den = inv * b + n_total
+    gden_of = -(inv * (gf * a).sum(1) + n_total * (gf * vf).sum(1))
+    if guard:
+        zero = den == 0.0
+        den = torch.where(zero, torch.ones_like(den), den)
+        gden = torch.where(zero, torch.zeros_like(den), gden_of / (den * den))
+    else:
+        gden = gden_of / (den * den)
+    gd = pieces(gf * (1.0 / den)[:, None], 2)
+    P = torch.zeros(q.shape[1], g.shape[1])
+    ds = torch.zeros(q.shape[1])
+    for sl in _runs(q.shape[0], rows):
+        r = slice(sl.start, sl.stop)
+        P = P + qf[r].T @ gd[r]
+        ds = ds + (qf[r].double().T @ gden[r].double()).float()
+    ga = (gf * a).sum(1)
+    dinv = ((ga / den).double() + (gden * b).double()).sum().float()
+    return P, ds, dinv, torch.stack([den, gden])
+
+
+def _bf16_inputs(rng, n, widths, positive):
+    draw = rng.random if positive else rng.standard_normal
+    return [torch.from_numpy(draw((n, w)).astype(np.float32)).to(torch.bfloat16)
+            for w in widths]
+
+
+@pytest.mark.parametrize("positive", [False, True])
+def test_tensor_core_reduce_matches_plain_in_f64(positive):
+    """bf16 inputs, n = 300, m = 48, d = 40: the tensor-core reduce's
+    arithmetic agrees with ``reduce_plain`` evaluated in f64 to 1e-5 of each
+    output's scale (its products are exact; only the f32 sums' order
+    differs), on random and on positive inputs, with and without the guard,
+    and with one slice or many."""
+    q, k, v = _bf16_inputs(np.random.default_rng(20), 300, (48, 48, 40), positive)
+    exact = attn.reduce_plain(q.double(), k.double(), v.double(), False)
+    for rows, guard in ((96, False), (300, True), (32, False)):
+        got = _tensor_core_reduce(q, k, v, guard, rows)
+        for a, b in ((got[0], exact[0]), (got[1], exact[1]), (got[2][:3], exact[2][:3])):
+            _grads_close((a,), (b,), 1e-5)
+
+
+@pytest.mark.parametrize("n_one", [False, True])
+def test_tensor_core_bwd_reduce_keeps_kvs_and_gd_at_f32_precision(n_one):
+    """bf16 inputs, n = 300, m = 48, d = 40: the tensor-core backward
+    reduce's arithmetic (kvs as bf16 hi + mid + lo, g/den as hi + lo) agrees
+    with ``bwd_reduce_plain`` evaluated in f64 to 2^-14 of each output's
+    scale (dinv: of the magnitudes of its two sums, which cancel). ``n_one``: n =
+    1 and positive inputs, so that q @ kvs, not n * v, carries den and gden;
+    kvs and gd rounded to bf16 instead are then at least 10x further off in
+    P and gden (dinv, a sum over all rows, averages the roundings out)."""
+    rng = np.random.default_rng(21)
+    n, m, d = 300, 48, 40
+    q, k, v, g = _bf16_inputs(rng, n, (m, m, d, d), n_one)
+    n_t = torch.tensor(1.0 if n_one else float(n))
+    sums = attn.reduce_plain(q, k, v, False)
+    qd, vd, gdd, kvs_d, ksum_d = (t.double() for t in (q, v, g, *sums[:2]))
+    exact = attn.bwd_reduce_plain(qd, vd, gdd, kvs_d, ksum_d, sums[2].double(),
+                                  n_t.double(), False)
+    den, gden = exact[3]
+    dinv_scale = (gdd / den[:, None] * (qd @ kvs_d)).abs().sum() \
+        + (gden * (qd @ ksum_d)).abs().sum()
+
+    def errors(out):
+        parts = ((out[0], exact[0]), (out[1], exact[1]), (out[3][0], den), (out[3][1], gden))
+        errs = [((a.double() - b).abs().max() / b.abs().max()).item() for a, b in parts]
+        return errs + [(abs(out[2].double() - exact[2]) / dinv_scale).item()]
+
+    got = errors(_tensor_core_bwd_reduce(q, v, g, *sums, n_t, False))
+    assert max(got) <= 2.0 ** -14, got
+    if n_one:
+        rounded = errors(_tensor_core_bwd_reduce(q, v, g, *sums, n_t, False, lo=False))
+        for i in (0, 3):  # P, gden
+            assert rounded[i] >= 10 * got[i], (rounded, got)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tensor_core_backward_matches_jax_pallas_interpret(masked):
+    """H = 1, bf16: the port's attention gradient with the tensor-core
+    reduces' arithmetic (the emulated forward reduce, then the emulated
+    backward reduce, then ``bwd_apply_plain``) against ``jax.vjp`` of the
+    Pallas ``fused_linear_attention`` in interpret mode, at the bf16
+    tolerance of the Pallas comparisons (2e-2 of scale)."""
+    q, k, v = _qkv(22, h=1)
+    g = np.random.default_rng(23).standard_normal(v.shape).astype(np.float32)
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "bf16")
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, node_mask=jmask, block=128,
+                                               interpret=True), jq, jk, jv)
+    want = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    keep = torch.ones(q.shape[0]) if mask is None else torch.from_numpy(mask)
+    tq, tk, tv = (t[:, 0] * keep.to(torch.bfloat16)[:, None] for t in (tq, tk, tv))
+    tg = torch.from_numpy(g[:, 0]).to(torch.bfloat16)
+    n_t = keep.sum()
+    sums = _tensor_core_reduce(tq, tk, tv, masked)
+    red = _tensor_core_bwd_reduce(tq, tv, tg, *sums, n_t, masked)
+    got = attn.bwd_apply_plain(tq.float(), tk.float(), tv.float(), tg.float(), *sums, n_t,
+                               *red, masked)
+    got = [(t * keep[:, None]).to(torch.bfloat16)[:, None] for t in got]
+    _grads_close(got, want, TOL["bf16"]["rtol"])

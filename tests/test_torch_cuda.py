@@ -216,6 +216,119 @@ def test_tensor_core_apply_takes_any_width(cuda, m, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def test_reduce_designs_name_the_kernels(cuda):
+    """bf16 reduces run on the tensor cores at any width the backward's q
+    tile fits (up to M = 640), f32 on the CUDA cores."""
+    for m, d in ((256, 256), (37, 40), (640, 64)):
+        assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+        assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+        assert attn.reduce_design(torch.float32, m, d).startswith("CUDA cores")
+        assert attn.bwd_reduce_design(torch.float32, m, d).startswith("CUDA cores")
+    assert attn.reduce_design(torch.bfloat16, 1024, 64).startswith("tensor cores")
+    assert attn.bwd_reduce_design(torch.bfloat16, 1024, 64).startswith("CUDA cores")
+
+
+def _f64_reduce_close(got, q, k, v):
+    """kvs, ksum and the norms within 1e-5 of their scale of the plain
+    reduce evaluated in f64 on the same inputs (the f32 sums' order)."""
+    exact = attn.reduce_plain(q.double(), k.double(), v.double(), False)
+    for a, b in ((got[0], exact[0]), (got[1], exact[1]), (got[2][:2], exact[2][:2])):
+        _check_rel(a, b, 1e-5)
+
+
+def _f64_bwd_reduce_close(got, q, v, g, kvs, ksum, scal, n_total, rel=1e-5):
+    """P, ds, den and gden within ``rel`` of their scale of the plain
+    backward reduce in f64; dinv, whose two sums cancel, within ``rel`` of
+    their magnitudes."""
+    qd, vd, gd, kvs_d, ksum_d = (t.double() for t in (q, v, g, kvs, ksum))
+    exact = attn.bwd_reduce_plain(qd, vd, gd, kvs_d, ksum_d, scal.double(), n_total.double(),
+                                  False)
+    for a, b in ((got[0], exact[0]), (got[1], exact[1]), (got[3][0], exact[3][0]),
+                 (got[3][1], exact[3][1])):
+        _check_rel(a, b, rel)
+    den, gden = exact[3]
+    scale = (gd / den[:, None] * (qd @ kvs_d)).abs().sum() + (gden * (qd @ ksum_d)).abs().sum()
+    assert (got[2].double() - exact[2]).abs() <= rel * scale
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (37, 40), (40, 37), (130, 19)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_tensor_core_reduces_take_any_width(cuda, m, d, strided):
+    """The bf16 reduce and backward reduce on widths off their tiles and off
+    the 16-byte path, on the per-head views of [N, 2, *] tensors (strided:
+    rows 3 elements longer, so no 16-byte copies), with tail rows (N = 777,
+    not a multiple of the 32-row chunk or the 128-row block): the reduce at
+    random and at positive inputs, the backward reduce at n = N and at n = 1
+    with positive inputs (the products carry den and gden there), each
+    within 1e-5 of its scale of the plain version in f64 and bitwise
+    repeatable, one launch a call."""
+    n, pad = 777, 3 if strided else 0
+    assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+    assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+
+    def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
+        return draw(n, 2, w + pad, device=cuda).to(torch.bfloat16)[:, 1, :w]
+
+    for draw in (torch.randn, torch.rand):
+        q, k, v, g = heads(draw, m), heads(draw, m), heads(draw, d), heads(draw, d)
+        r0 = attn.reduce_launches
+        got = attn.reduce(q, k, v)
+        assert attn.reduce_launches == r0 + 1
+        _f64_reduce_close(got, q, k, v)
+        assert all(torch.equal(a, b) for a, b in zip(got, attn.reduce(q, k, v)))
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), 1.0 if draw is torch.rand else float(n), device=cuda)
+        b0 = attn.bwd_reduce_launches
+        got_b = attn.bwd_reduce(q, v, g, *sums, n_t)
+        assert attn.bwd_reduce_launches == b0 + 1
+        _f64_bwd_reduce_close(got_b, q, v, g, *sums, n_t)
+        assert all(torch.equal(a, b) for a, b in zip(got_b, attn.bwd_reduce(q, v, g, *sums,
+                                                                            n_t)))
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_tensor_core_reduces_at_the_arxiv_width_match_plain(cuda, heads):
+    """bf16 at M = D = 256 on 20,000 rows (several slices a tile): the whole
+    attention's forward and gradients through the kernels against autograd
+    of the plain forward (bf16 tolerance of each output's scale), and each
+    head's reduce and backward reduce against the f64 plain version."""
+    n = 20_000
+    q, k, v, g = (torch.randn(n, heads, 256, device=cuda).to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attn.fused_linear_attention(*leaves)
+    want = linear_attention(*leaves)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+    got_g = torch.autograd.grad(out, leaves, g)
+    for a, b in zip(got_g, torch.autograd.grad(want, leaves, g)):
+        _check_rel(a, b, BWD_REL[torch.bfloat16])
+    n_t = torch.full((), float(n), device=cuda)
+    for h in range(heads):
+        got = attn.reduce(q[:, h], k[:, h], v[:, h])
+        _f64_reduce_close(got, q[:, h], k[:, h], v[:, h])
+        sums = attn.reduce_plain(q[:, h], k[:, h], v[:, h], False)
+        _f64_bwd_reduce_close(attn.bwd_reduce(q[:, h], v[:, h], g[:, h], *sums, n_t),
+                              q[:, h], v[:, h], g[:, h], *sums, n_t)
+
+
+def test_tensor_core_reduces_masked_and_all_masked(cuda):
+    """bf16, two heads: a partly masked group through the kernels against
+    the plain forward and its autograd; an all-masked group gives finite
+    zeros forward and backward (zero norms: inv = 0, den taken as 1)."""
+    n = 3000
+    q, k, v, g = (torch.randn(n, 2, 64, device=cuda).to(torch.bfloat16) for _ in range(4))
+    for mask in ((torch.arange(n, device=cuda) % 5 != 2).float(), torch.zeros(n, device=cuda)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attn.fused_linear_attention(*leaves, node_mask=mask)
+        got = torch.autograd.grad(out, leaves, g)
+        if not mask.any():
+            assert all(torch.isfinite(t).all() and not t.any() for t in (out, *got))
+            continue
+        want = linear_attention(*leaves, node_mask=mask)
+        torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+        for a, b in zip(got, torch.autograd.grad(want, leaves, g)):
+            _check_rel(a, b, BWD_REL[torch.bfloat16])
+
+
 def test_all_masked_attention_gradients_are_finite_zeros(cuda):
     leaves = [torch.randn(500, 2, 32, device=cuda).requires_grad_() for _ in range(3)]
     out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(500, device=cuda))
@@ -399,12 +512,12 @@ def test_csr_spmm_splits_hub_rows(cuda, dtype, width):
     csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
     x = torch.randn(n, width, device=cuda).to(dtype)
     before = spmm_kernel.launches
-    got = csr_spmm(x, *csr, g.hub_segments)
+    got = csr_spmm(x, *csr, g.hub_segments, g.hub_edges)
     assert spmm_kernel.launches == before + 1
     want = spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     _close_to_exact(got, x, g.edge_src, g.edge_dst, g.gcn_weight, n)
-    assert torch.equal(got, csr_spmm(x, *csr, g.hub_segments))
+    assert torch.equal(got, csr_spmm(x, *csr, g.hub_segments, g.hub_edges))
     assert torch.equal(got, csr_spmm(x, *csr))
     xr = x.clone().requires_grad_()
     cot = torch.randn(n, width, device=cuda).to(dtype)
@@ -428,9 +541,10 @@ def test_csr_spmm_ev_splits_hub_rows(cuda, msg_dtype, heads, d):
     v = torch.rand(e, heads, device=cuda)
     xm = x.to(msg_dtype)
     for out_dtype in (torch.float32, msg_dtype):
-        got = csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments)
+        got = csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments, g.hub_edges)
         _close_to_exact(got, xm, g.edge_src, g.edge_dst, v, n)
-        assert torch.equal(got, csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments))
+        assert torch.equal(got, csr_spmm_ev(xm, *csr, v, out_dtype, g.hub_segments,
+                                            g.hub_edges))
     xr, vr = x.clone().requires_grad_(), v.clone().requires_grad_()
     cot = torch.randn(n, heads, d, device=cuda)
     counts = (spmm_kernel.ev_launches, spmm_kernel.sddmm_launches)
@@ -440,6 +554,44 @@ def test_csr_spmm_ev_splits_hub_rows(cuda, msg_dtype, heads, d):
     _close_to_exact(dx, cot.to(msg_dtype), g.t_edge_src, g.t_edge_dst,
                     v[g.t_perm.long()], n)
     _check_rel(dv, sddmm_plain(cot, x, g.edge_src, g.edge_dst), 1e-5)
+
+
+def test_hub_plan_of_another_segment_length_raises(cuda):
+    """A plan built for 256-edge segments on a graph with a 200-edge row:
+    the kernel's row walk at the default 128 edges would skip that row and
+    the plan does not list it, so a plan given without its length is
+    refused by csr_spmm and csr_spmm_ev; given with it, the walk takes 256
+    and every row, the 200-edge one included, matches the plain version."""
+    rng = np.random.default_rng(8)
+    n = 600
+    ei = np.concatenate([rng.integers(0, n, (2, 2 * n)),
+                         np.stack([np.arange(10, 210), np.full(200, 4)]),
+                         np.stack([rng.integers(0, n, 300), np.full(300, 9)])], axis=1)
+    g = preprocess_graph(ei, n, undirected=False, self_loops=False, device=cuda)
+    deg = torch.diff(g.indptr)  # the random edges add a few to each
+    assert spmm_kernel.HUB_EDGES < deg[4].item() <= 256 < deg[9].item()
+    plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, 256)).to(cuda)
+    assert plan[:, 0].unique().tolist() == [9]
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    x = torch.randn(n, 64, device=cuda)
+    v = torch.rand(g.num_edges, 2, device=cuda)
+    before = (spmm_kernel.launches, spmm_kernel.ev_launches)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm(x, *csr, g.gcn_weight, plan)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_ev(x.view(n, 2, 32), *csr, v, None, plan)
+    assert (spmm_kernel.launches, spmm_kernel.ev_launches) == before
+    got = csr_spmm(x, *csr, g.gcn_weight, plan, 256)
+    torch.testing.assert_close(got, spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n),
+                               **TOL[torch.float32])
+    got = csr_spmm_ev(x.view(n, 2, 32), *csr, v, None, plan, 256)
+    torch.testing.assert_close(got, spmm_edge_values(x.view(n, 2, 32), g.edge_src, g.edge_dst,
+                                                     v, n), **TOL[torch.float32])
+    # the graph's own plans come with their length, through propagate
+    assert g.hub_edges == spmm_kernel.HUB_EDGES and g.hub_segments[:, 0].unique().tolist() == [
+        4, 9]
+    torch.testing.assert_close(g.propagate(x), spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n),
+                               **TOL[torch.float32])
 
 
 def _int8_graph(cuda, undirected=False):

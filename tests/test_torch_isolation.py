@@ -42,7 +42,7 @@ def test_import_loads_no_jax():
 def _sources():
     for root, _, files in os.walk(PKG_DIR):
         for name in files:
-            if name.endswith((".py", ".cu")):
+            if name.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(root, name)) as f:
                     yield os.path.relpath(os.path.join(root, name), REPO), f.read()
 
@@ -61,13 +61,23 @@ def test_sources_use_no_library_for_the_kernels_work():
             "utils", "microbench"} <= modules
 
 
-def test_kernel_sources_ship_with_the_package():
+def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
     csrc = os.path.join(PKG_DIR, "csrc")
     from sgformer_tpu_torch.kernels import _build
 
     assert sorted(os.listdir(csrc)) == ["linear_attention.cu", "linear_attention_bwd.cu",
-                                        "microbench.cu", "spmm.cu"]
-    assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(os.listdir(csrc))
+                                        "microbench.cu", "spmm.cu", "tensor_core.cuh"]
+    assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(
+        f for f in os.listdir(csrc) if f.endswith(".cu"))
+    # an edited header gives the libraries new names, so they are rebuilt
+    for f in os.listdir(csrc):
+        with open(os.path.join(csrc, f), "rb") as src, open(tmp_path / f, "wb") as dst:
+            dst.write(src.read())
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = _build._target("linear_attention")[1]
+    with open(tmp_path / "tensor_core.cuh", "a") as f:
+        f.write("\n")
+    assert _build._target("linear_attention")[1] != before
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

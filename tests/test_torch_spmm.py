@@ -6,6 +6,8 @@ forward, and the gradient
 ``A^T @ g`` that the port computes through the same wrapper on the
 transposed CSR."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,6 +280,46 @@ def test_hub_plan_covers_every_long_row_once():
                            max_edges) >= rows
     small = preprocess_graph(*_clustered_edges(15, n=60, e=200), device="cpu")
     assert small.hub_segments.shape == (0, 3) and small.t_hub_segments.shape == (0, 3)
+
+
+def test_hub_plan_is_taken_only_with_its_segment_length():
+    """The kernel's row walk leaves every row longer than the plan's segment
+    length to the plan, so a plan comes with that length or is refused:
+    ``_plan`` raises on a plan without it (a 256-edge plan would otherwise
+    meet the 128-edge walk and leave the rows in between unwritten), and so
+    do ``csr_spmm`` and ``csr_spmm_ev`` on the CPU path; with its length the
+    plan and length go to the kernel together; without a plan one is built
+    at the length asked for. The graph carries the length of its plans
+    (``hub_edges``) through ``Graph.to``."""
+    from sgformer_tpu_torch.kernels.spmm import _plan, csr_spmm_ev
+
+    ei, n = _hub_edges(20, fan=200)
+    g = preprocess_graph(ei, n, undirected=False, device="cpu")
+    plan256 = torch.from_numpy(hub_segments(g.indptr, 256))
+    assert plan256.shape[0] == 0 and g.hub_segments.shape[0] == 2  # 200 edges: a hub at 128
+    with pytest.raises(ValueError, match="segment length"):
+        _plan(plan256, g.indptr)
+    for bad in (0, -3, 2.5, True, "128"):
+        with pytest.raises(ValueError, match="positive integer"):
+            _plan(plan256, g.indptr, bad)
+    got, length = _plan(plan256, g.indptr, 256)
+    assert got is plan256 and length == 256
+    got, length = _plan(None, g.indptr)
+    assert torch.equal(got, g.hub_segments) and length == HUB_EDGES == g.hub_edges
+    got, length = _plan(None, g.indptr, 8)
+    assert np.array_equal(got.numpy(), hub_segments(g.indptr, 8)) and length == 8
+    x = torch.randn(n, 4)
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm(x, *csr, g.gcn_weight, plan256)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_ev(x[:, None], *csr, torch.ones(g.num_edges, 1), None, plan256)
+    want = spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n)
+    assert torch.equal(csr_spmm(x, *csr, g.gcn_weight, plan256, 256), want)
+    assert torch.equal(csr_spmm(x, *csr, g.gcn_weight, g.hub_segments, g.hub_edges), want)
+    moved = dataclasses.replace(g, hub_edges=256, hub_segments=plan256).to("cpu")
+    assert moved.hub_edges == 256 and torch.equal(moved.hub_segments, plan256)
+    assert torch.equal(moved.propagate(x), g.propagate(x))
 
 
 def _segmented_spmm(x, indptr, src, weight, max_edges):
