@@ -11,9 +11,12 @@ JAX package. Phases, each failing loudly:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
    256), in bf16 and f32, with its median time beside its bound; the
-   reduce also on positive inputs against its plain version in f64, with
-   the design it runs (tensor cores for bf16) and one ``torch.matmul`` of
-   its core product k^T v as a yardstick;
+   reduce also on positive inputs against its plain version in f64, the
+   apply alone at n = N (bitwise repeatable), at n = 1 and, against its
+   plain version in f64, on inputs where q @ kvs carries the output (in
+   bf16 also where kvs terms cancel, so that a dropped lo piece shows), each
+   with the design it runs (tensor cores for bf16) and one ``torch.matmul`` of its
+   core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32;
    the backward reduce also with n = 1 and positive inputs (2^-14 of
@@ -84,7 +87,8 @@ from unittest import mock
 
 import torch
 
-from sgformer_tpu_torch.utils.measure import bound_ms, card_line, rel_err, time_ms
+from sgformer_tpu_torch.utils.measure import (apply_product_inputs, bound_ms, card_line, rel_err,
+                                              time_ms)
 
 T0 = time.perf_counter()
 
@@ -288,6 +292,8 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         name = DTYPE_NAME[dtype]
         design = attn.reduce_design(dtype, m, d)
         log(f"reduce {name} design: {design}")
+        apply_design = attn.apply_design(dtype, m, d)
+        log(f"apply {name} design: {apply_design}")
         qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(dtype)
                       for _ in range(3))
         got = attn.fused_linear_attention(qs, ks, vs)
@@ -314,8 +320,28 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
             errs[part] = err
         red_err = errs["kvs"]
 
-        # apply alone with n = 1 and positive q, k so that the q @ kvs product,
-        # not n * v, carries the output (at n = N it is a small correction)
+        # apply alone at n = N on the plain reduce's outputs, bitwise repeatable
+        n_t = torch.full((), float(n), device=dev)
+        got_a = attn.apply(q, v, *want_r, n_t)
+        check_close(f"apply {name} (n = N)", got_a, attn.apply_plain(q, v, *want_r, n_t, False),
+                    **TOL[dtype])
+        if not torch.equal(got_a, attn.apply(q, v, *want_r, n_t)):
+            raise AssertionError("apply is not bitwise repeatable")
+        del got_a
+        # apply alone on inputs where q @ kvs carries the output and every
+        # (m, d) pairing of kvs moves it, against the plain version in f64;
+        # for bf16 also where large kvs terms cancel, so that kvs rounded to
+        # bf16 (the tensor cores' lo piece dropped) would miss the tolerance
+        # (drawn from a generator of their own, so the other checks' inputs
+        # stay as they were)
+        gen_p = torch.Generator(device=dev).manual_seed(7)
+        for cancel in (False, True) if dtype == torch.bfloat16 else (False,):
+            ins = apply_product_inputs(n, m, d, dtype, gen_p, cancel)
+            check_close(f"apply {name} (q @ kvs carries it{', kvs terms cancel' if cancel else ''}"
+                        f", plain in f64)", attn.apply(*ins),
+                        attn.apply_plain(*(t.double() for t in ins), False), **TOL[dtype])
+            del ins
+        # apply alone with n = 1 and positive q, k, v, kvs from the plain reduce
         qp, kp, vp = (torch.rand(n, m, generator=gen, device=dev).to(dtype)
                       for _ in range(3))
         kvs_p, ksum_p, scal_p = attn.reduce_plain(qp, kp, vp, False)
@@ -333,7 +359,6 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                       REDUCE_REL_TOL)
         del exact, got_p
 
-        n_t = torch.full((), float(n), device=dev)
         r_ms = time_ms(lambda: attn.reduce(q, k, v))
         r_plain = time_ms(lambda: attn.reduce_plain(q, k, v, False))
         # yardstick: the core product k^T v alone in one torch.matmul, in the
@@ -341,6 +366,11 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         gemm_ms = time_ms(lambda: torch.matmul(k.t(), v))
         a_ms = time_ms(lambda: attn.apply(q, v, kvs, ksum, scal, n_t))
         a_plain = time_ms(lambda: attn.apply_plain(q, v, kvs, ksum, scal, n_t, False))
+        # yardstick: the apply's core product q @ kvs alone in one
+        # torch.matmul, in the inputs' type (never called by the port)
+        kvs_t = kvs.to(dtype)
+        a_gemm_ms = time_ms(lambda: torch.matmul(q, kvs_t))
+        del kvs_t
         elt = q.element_size()
         rb_ms, rb_by = bound_ms(3 * n * m * elt + (m * d + m + 4) * 4,
                              2 * n * m * d + 3 * n * m, dtype)
@@ -348,13 +378,14 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                              2 * n * m * d + 2 * n * m + 4 * n * d, dtype)
         log(f"reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul k^T v "
             f"{gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {rb_by}); apply {name}: {a_ms:.4f} ms "
-            f"(plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
+            f"(plain {a_plain:.4f} ms, torch.matmul q @ kvs {a_gemm_ms:.4f} ms, "
+            f"bound {ab_ms:.4f} ms by {ab_by})")
         results[("linear_attention_reduce", name)] = dict(
             max_abs_err=red_err, ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=design)
         results[("linear_attention_apply", name)] = dict(
             max_abs_err=app_err, ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
-            bound_by=ab_by, library_ms=None)
+            bound_by=ab_by, library_ms=None, gemm_ms=a_gemm_ms, design=apply_design)
 
     # an all-masked group: zero norms must give finite zeros, as the plain
     # (guarded) path does

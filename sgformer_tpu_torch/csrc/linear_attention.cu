@@ -42,6 +42,21 @@
 // shared memory, between the MMAs. Partials go to scratch and are added in
 // slice order by la_finish_kernel, as for the f32 kernel.
 //
+// The bf16 apply (la_apply_tc_kernel) runs a = q @ kvs on the tensor cores
+// by warpgroup MMAs (wgmma m64n64k16, bf16 in, f32 sums, both operands read
+// from 128-byte-swizzled shared memory through descriptors). kvs stays f32
+// in meaning: kvs^T is split once a call into bf16 hi + lo (~16 significant
+// bits, 2^-17 of each term; tc::split_t_kernel) and each product is two
+// MMAs into one accumulator. A block owns 128 rows: it stages its q rows
+// once, streams the kvs^T chunks of every 64-column output tile, double-
+// buffered by cp.async, and finishes each tile warp by warp: v is read and
+// out written through shared memory, 16 bytes a lane, coalesced. b = q .
+// ksum is an f32 dot on the CUDA cores, run while the first MMAs do. The
+// output is rounded to bf16 once, from f32; no atomics, so repeated calls
+// are bitwise equal. At the arxiv shape the MMA work, 2 x 22.2 GFLOP, is
+// ~0.045 ms at the bf16 peak, under the bytes bound; the design measured
+// against it, an mma.sync version of the backward's row core, is in PERF.md.
+//
 // Inputs are row-strided views (ld* = elements between rows), so the heads of
 // an [N, H, M] tensor are read in place; the last dimension is contiguous.
 
@@ -58,6 +73,10 @@ namespace {
 constexpr int kTile = 64;      // M and D tile
 constexpr int kRows = 32;      // node rows per reduce step, M depth per apply step
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kApplyRows = 128;     // rows of a tensor-core apply block: two warpgroups
+constexpr int kApplyThreads = 256;
+constexpr int kWgTile = 64 * 64 * 2;   // bytes of one swizzled [64][64] bf16 tile
+constexpr int kWgKTile = 2 * kWgTile;  // one [128][64] k-tile of q rows, or the v tile
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -402,6 +421,239 @@ la_apply_kernel(const T* __restrict__ q, const T* __restrict__ v, long ldq, long
   }
 }
 
+// The bf16 apply on the tensor cores by warpgroup MMAs (wgmma). grid
+// (ceil(N / 128)), 128 rows a block: two warpgroups of 64 rows, each warp
+// owning 16 of them from the MMAs' fragments to the stores. Dynamic shared
+// memory, 1024-byte aligned (no static shared memory, so the dynamic block
+// starts the block's window): the q tile as Mk/64 swizzled [128][64]
+// k-tiles, two stages of kvs^T chunks (hi and lo, swizzled [64 n][64 k]
+// each), the v/out tile [128][64] (swizzled the same way, so the fragment
+// accesses are free of bank conflicts) and den per row: 112.5 KB at M =
+// 256, two blocks an SM.
+//
+// The block stages its q rows once, then runs the chunks of all column
+// tiles as one stream, chunk ch + 1 in flight by cp.async while chunk ch's
+// 8 wgmma (4 k16 steps, hi then lo into one accumulator) run; a barrier a
+// chunk hands the B stages over. The rest is warp-local: each warp forms
+// den for its 16 rows while the first chunk's MMAs run, loads its rows of
+// each v tile a column tile ahead, and in the epilogue reads v at its
+// fragment, writes out there in place as bf16 and stores its rows 16 bytes
+// a lane, with no block barrier (the epilogue's traffic and waits, not the
+// MMAs, set such a kernel's time). cp.async groups, in order:
+// (q, chunk 0), v tile 0, then each chunk ch's iteration commits chunk ch +
+// 1 and a v group (the next v tile after a column tile's epilogue, else
+// empty), so that at a chunk's start every group but the last v group has
+// landed.
+__global__ void __launch_bounds__(kApplyThreads, 2)
+la_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
+                   long ldq, long ldv, __nv_bfloat16* __restrict__ out, long ldo, int N, int M,
+                   int D, const __nv_bfloat16* __restrict__ hl, const float* __restrict__ ksum,
+                   const float* __restrict__ scal, const float* __restrict__ n_total, int guard,
+                   int vec_a, int vec_io) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const int Mk = split_pad(M);  // q's k-tiles and kvs^T's k extent
+  const int kchunks = Mk / 64;
+  const int chunks = kchunks * (split_pad(D) / 64);
+  unsigned char* As = smem_raw;                         // [Mk/64][128][64]
+  unsigned char* Bs = As + kchunks * kWgKTile;          // [stage][hi, lo][64][64]
+  unsigned char* Vs = Bs + 4 * kWgTile;                 // [128][64]
+  float* den_s = reinterpret_cast<float*>(Vs + kWgKTile);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // rows 16 * warp .. + 16; warpgroup warp / 4
+  const long r0 = static_cast<long>(blockIdx.x) * kApplyRows;
+  const float inv = scal[2];
+  const float n = *n_total;
+  const size_t piece = split_t_elems(M, D);
+
+  // q rows, zero past N and from M up to Mk
+  if (vec_a) {
+    const int segs = Mk / 8;
+    for (int i = tid; i < kApplyRows * segs; i += kApplyThreads) {
+      const int r = i / segs;
+      const int c = (i % segs) * 8;
+      const bool ok = r0 + r < N && c < M;
+      cp_async16(As + (c >> 6) * kWgKTile + sw128_offset(r, c & 63),
+                 ok ? q + (r0 + r) * ldq + c : q, ok);
+    }
+  } else {
+    for (int i = tid; i < kApplyRows * Mk; i += kApplyThreads) {
+      const int r = i / Mk;
+      const int c = i % Mk;
+      *reinterpret_cast<__nv_bfloat16*>(As + (c >> 6) * kWgKTile + sw128_offset(r, c & 63)) =
+          (r0 + r < N && c < M) ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+  // chunk ch of kvs^T, hi and lo, [64 n][64 k] each
+  auto load_b = [&](int ch) {
+    const int c0 = ch / kchunks * 64;
+    const int k0 = ch % kchunks * 64;
+    unsigned char* dst = Bs + (ch & 1) * 2 * kWgTile;
+#pragma unroll
+    for (int it = 0; it < 2 * 64 * 8 / kApplyThreads; ++it) {
+      const int i = tid + it * kApplyThreads;
+      const int p = i >> 9;
+      const int nr = (i >> 3) & 63;
+      const int c = (i & 7) * 8;
+      cp_async16(dst + p * kWgTile + sw128_offset(nr, c),
+                 hl + p * piece + static_cast<size_t>(c0 + nr) * Mk + k0 + c);
+    }
+  };
+  // the warp's 16 rows of v at columns [c0, c0 + 64), zero past N and D
+  auto load_v = [&](int c0) {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int r = warp * 16 + it * 4 + (lane >> 3);
+      const int c = (lane & 7) * 8;
+      const long row = r0 + r;
+      unsigned char* dst = Vs + sw128_offset(r, c);
+      if (vec_io && c0 + c + 8 <= D) {
+        const bool ok = row < N;
+        cp_async16(dst, ok ? v + row * ldv + c0 + c : v, ok);
+      } else {
+        __nv_bfloat16* d8 = reinterpret_cast<__nv_bfloat16*>(dst);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          d8[e] = (row < N && c0 + c + e < D) ? v[row * ldv + c0 + c + e]
+                                              : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+  };
+
+  load_b(0);
+  cp_async_commit();
+  load_v(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();  // q and chunk 0 have landed
+
+  // den = inv * (q . ksum) + n for the warp's rows, 8 columns a lane (16-byte
+  // reads), four rows at once, f32 sums added by a fixed xor tree
+  auto warp_den = [&]() {
+    for (int i0 = 0; i0 < 16; i0 += 4) {
+      float b[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = lane * 8; c < Mk; c += 256) {
+        float ks[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ks[e] = c + e < M ? __ldg(ksum + c + e) : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              As + (c >> 6) * kWgKTile + sw128_offset(warp * 16 + i0 + j, c & 63));
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(h[e]);
+            b[j] = fmaf(x.x, ks[2 * e], b[j]);
+            b[j] = fmaf(x.y, ks[2 * e + 1], b[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] += __shfl_xor_sync(0xffffffffu, b[j], off);
+      if (lane < 4) {  // lane j writes row i0 + j
+        const float bj = lane == 0 ? b[0] : lane == 1 ? b[1] : lane == 2 ? b[2] : b[3];
+        const float den = inv * bj + n;
+        den_s[warp * 16 + i0 + lane] = guard && den == 0.f ? 1.f : den;
+      }
+    }
+  };
+
+  float acc[32];
+  float den_r[2];  // den of the lane's two fragment rows
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int kc = ch % kchunks;
+    const int c0 = ch / kchunks * 64;
+    if (ch > 0) {
+      cp_async_wait<1>();
+      fence_proxy_async();
+      __syncthreads();  // chunk ch has landed; every warp is done with chunk ch - 1
+    }
+    if (ch + 1 < chunks) load_b(ch + 1);
+    cp_async_commit();
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+    wgmma_fence_operand(acc);
+    wgmma_fence();
+    const unsigned char* a_tile = As + kc * kWgKTile + (warp >> 2) * kWgTile;
+    const unsigned char* b_tile = Bs + (ch & 1) * 2 * kWgTile;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = sw128_desc(a_tile + ks * 32);
+      wgmma_m64n64k16(acc, da, sw128_desc(b_tile + ks * 32));
+      wgmma_m64n64k16(acc, da, sw128_desc(b_tile + kWgTile + ks * 32));
+    }
+    wgmma_commit();
+    if (ch == 0) {  // while the first MMAs run
+      warp_den();
+      __syncwarp();
+      den_r[0] = den_s[warp * 16 + (lane >> 2)];
+      den_r[1] = den_s[warp * 16 + (lane >> 2) + 8];
+    }
+    wgmma_wait_all();
+    wgmma_fence_operand(acc);
+    if (kc == kchunks - 1) {  // the column tile's epilogue, warp by warp
+      cp_async_wait<1>();  // every group but chunk ch + 1: the v tile has landed
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          __nv_bfloat162* p =
+              reinterpret_cast<__nv_bfloat162*>(Vs + sw128_offset(r, 8 * j + 2 * (lane & 3)));
+          const float2 x = __bfloat1622float2(*p);
+          *p = __floats2bfloat162_rn((inv * acc[4 * j + 2 * h] + n * x.x) / den_r[h],
+                                     (inv * acc[4 * j + 2 * h + 1] + n * x.y) / den_r[h]);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int r = warp * 16 + it * 4 + (lane >> 3);
+        const int c = (lane & 7) * 8;
+        const long row = r0 + r;
+        if (row >= N || c0 + c >= D) continue;
+        const unsigned char* src = Vs + sw128_offset(r, c);
+        if (vec_io && c0 + c + 8 <= D) {
+          *reinterpret_cast<uint4*>(out + row * ldo + c0 + c) =
+              *reinterpret_cast<const uint4*>(src);
+        } else {
+          const __nv_bfloat16* s8 = reinterpret_cast<const __nv_bfloat16*>(src);
+          for (int e = 0; e < 8 && c0 + c + e < D; ++e) out[row * ldo + c0 + c + e] = s8[e];
+        }
+      }
+      __syncwarp();
+      if (c0 + 64 < D) load_v(c0 + 64);
+    }
+    cp_async_commit();  // the v group of this iteration, empty but after an epilogue
+  }
+  cp_async_wait<0>();
+}
+
+size_t apply_tc_smem_bytes(int M, int D) {
+  return tc::split_pad(M) / 64 * kWgKTile + 6 * kWgTile + kApplyRows * 4;
+}
+
+// bf16 elements of the tensor-core apply's scratch (kvs^T as hi + lo), or 0
+// where the apply runs on the CUDA cores: f32 inputs, or an M whose q tile
+// does not fit one block's shared memory beside the B stages.
+int apply_scratch(int dtype, int M, int D) {
+  if (dtype != 1 || apply_tc_smem_bytes(M, D) > tc::kSmemPerBlock) return 0;
+  return static_cast<int>(2 * tc::split_t_elems(M, D));
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <typename T>
 void launch_reduce(const void* q, const void* k, const void* v, long ldq, long ldk, long ldv,
                    int N, int M, int D, int slices, int rows_per_slice, float* kvs_part,
@@ -465,12 +717,37 @@ extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long l
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 scratch (elements) of the tensor-core apply for these widths,
+// or 0 where the apply runs on the CUDA cores (f32 inputs, or M above 704).
+extern "C" int sgf_la_apply_scratch(int dtype, int M, int D) {
+  return apply_scratch(dtype, M, D);
+}
+
 // out may be a row-strided view (ldo); n_total is a device float scalar.
+// hl: the bf16 scratch of sgf_la_apply_scratch elements where that is not 0
+// (the tensor-core design: tc::split_t_kernel<2>, then la_apply_tc_kernel),
+// else unused (la_apply_kernel).
 extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, void* out,
                             long ldo, int N, int M, int D, int dtype, const float* kvs,
                             const float* ksum, const float* scal, const float* n_total,
-                            int guard, void* stream) {
+                            int guard, void* hl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (apply_scratch(dtype, M, D) > 0) {
+    using bf16 = __nv_bfloat16;
+    bf16* h = static_cast<bf16*>(hl);
+    cudaError_t err = tc::launch_split_t<2>(kvs, M, D, h, st);
+    if (err != cudaSuccess || N == 0) return static_cast<int>(err);
+    const int vec_a = M % 8 == 0 && ldq % 8 == 0 && aligned16(q);
+    const int vec_io = ldv % 8 == 0 && ldo % 8 == 0 && aligned16(v) && aligned16(out);
+    const size_t smem = apply_tc_smem_bytes(M, D);
+    err = cudaFuncSetAttribute(la_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    la_apply_tc_kernel<<<(N + kApplyRows - 1) / kApplyRows, kApplyThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(v), ldq, ldv,
+        static_cast<bf16*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_a, vec_io);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == 0) {
     launch_apply<float>(q, v, ldq, ldv, out, ldo, N, M, D, kvs, ksum, scal, n_total, guard, st);
   } else if (dtype == 1) {

@@ -59,7 +59,7 @@
 // The bf16 reduce runs both its products on the tensor cores too:
 //   1. la_bwd_rows_tc_kernel forms a = q @ kvs with the apply's core (the
 //      q rows staged once by cp.async, kvs^T split into three bf16 pieces,
-//      hi + mid + lo, by la_bwd_split_t_kernel and streamed in
+//      hi + mid + lo, by tc::split_t_kernel and streamed in
 //      double-buffered 64-deep chunks; three MMAs a product, since dinv's
 //      sums cancel and two pieces left it 1.3e-5 of its size off); its
 //      epilogue folds each 64-column tile of a into sum_d g*a
@@ -494,7 +494,7 @@ constexpr int kTcPad = 8;  // bf16 per shared row past its end: ldmatrix without
 constexpr int kTcThreads = 256;
 constexpr int kTcBStride = kTcK + kTcPad;
 constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one piece's chunk
-constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
+using tc::kSmemPerBlock;
 
 // The padded extents of the split operands: kvs and P as [n = M][k = D]
 // (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
@@ -509,40 +509,15 @@ struct TcDims {
   __host__ __device__ size_t total() const { return 4 * kvs_elems() + 2 * pt_elems(); }
 };
 
-// x as kPieces bf16 pieces at p[0], p[off], ...: hi = bf16(x), then each
-// piece the bf16 of what the ones before leave (each difference is exact in
-// f32): hi + lo keeps ~16 significant bits, hi + mid + lo all of f32's 24
-template <int kPieces>
-__device__ __forceinline__ void split_store(float x, __nv_bfloat16* p, size_t off) {
-#pragma unroll
-  for (int i = 0; i < kPieces; ++i) {
-    const __nv_bfloat16 h = __float2bfloat16_rn(x);
-    p[i * off] = h;
-    x -= __bfloat162float(h);
-  }
-}
+static_assert(kTcCols == tc::kSplitPad && kTcK == tc::kSplitPad,
+              "P^T and the rows pass's kvs^T share tensor_core.cuh's split layout");
+using tc::split_store;
 
 // The rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's sum
 // sum gd*a, which cancels with sum gden*b to ~1/10 of its terms at the arxiv
 // shape, and the ~2^-17 of hi + lo then leaves dinv ~1.3e-5 of its size off
 // the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7).
 constexpr int kRowsPieces = 3;
-
-// hl[...] = kvs^T as kRowsPieces bf16 pieces, each [n = D][k = M] (the rows
-// pass's B operand, laid out as the apply's P^T), zero in the pads.
-__global__ void __launch_bounds__(kThreads)
-la_bwd_split_t_kernel(const float* __restrict__ kvs, int M, int D,
-                      __nv_bfloat16* __restrict__ hl) {
-  const TcDims t(M, D);
-  const size_t count = t.pt_elems();
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i / t.Mk);
-    const int m = static_cast<int>(i % t.Mk);
-    split_store<kRowsPieces>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f,
-                             hl + i, count);
-  }
-}
 
 // hl[...] = the hi and lo bf16 halves of kvs, P and P^T, zero in the pads.
 __global__ void __launch_bounds__(kThreads)
@@ -893,7 +868,7 @@ size_t tc_smem_bytes(int M, int D) {
 
 // The reduce's rows pass on the tensor cores. grid (ceil(N / kTcRows));
 // dynamic shared memory: the q tile [kTcRows][Mk + kTcPad] and the B stages
-// of kvs^T (its kRowsPieces pieces, hl as la_bwd_split_t_kernel writes it):
+// of kvs^T (its kRowsPieces pieces, hl as tc::split_t_kernel writes it):
 // ~123 KB at M = 256, one block an SM. Block bx owns
 // rows [128*bx, 128*bx + 128): b = q . ksum from the staged q rows, then
 // a = q @ kvs one 64-column tile at a time, each tile folded at once into
@@ -1194,11 +1169,7 @@ cudaError_t launch_bwd_reduce_tc(const __nv_bfloat16* q, const __nv_bfloat16* v,
                                  int guard, float* den, float* gden, double* dinv_part,
                                  float* P_part, float* ds_part, __nv_bfloat16* hl,
                                  cudaStream_t st) {
-  const size_t split = TcDims(M, D).pt_elems();
-  la_bwd_split_t_kernel<<<static_cast<unsigned>(std::min<size_t>((split + kThreads - 1) / kThreads,
-                                                                 1024)),
-                          kThreads, 0, st>>>(kvs, M, D, hl);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = tc::launch_split_t<kRowsPieces>(kvs, M, D, hl, st);
   if (err != cudaSuccess) return err;
   const int vec_a = M % 8 == 0 && ldq % 8 == 0 && aligned16(q);
   const int vec_io = ldg % 8 == 0 && ldv % 8 == 0 && aligned16(g) && aligned16(v);

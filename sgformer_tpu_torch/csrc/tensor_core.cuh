@@ -2,7 +2,11 @@
 // (linear_attention.cu, linear_attention_bwd.cu), sm_90a:
 //
 // - PTX wrappers: ldmatrix (plain and transposed), mma.sync m16n8k16 bf16
-//   -> f32, cp.async of 16 and 4 bytes;
+//   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 bf16 -> f32 with
+//   its fences and the 128-byte-swizzled shared-memory layout and
+//   descriptors it reads (the forward apply's);
+// - the split of kvs^T into bf16 pieces, the B operand of a = q @ kvs in the
+//   forward apply and the backward reduce's rows pass;
 // - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n], with A and
 //   B held node-major in shared memory (a chunk of kNodeRows node rows of
 //   kNodeTile columns each). It is kvs = k^T v of the forward reduce and
@@ -20,6 +24,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace tc {
 
@@ -193,6 +200,124 @@ __device__ __forceinline__ void store_node_tile(float* __restrict__ part,
     }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): warpgroup MMAs reading both operands from shared memory
+// through descriptors. Operands are K-major tiles in the 128-byte swizzle:
+// rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart, the 16-byte
+// chunk j of row r stored at chunk j ^ (r % 8); a tile starts 1024-byte
+// aligned, and the k16 step s of a 64-deep tile starts 32*s bytes in.
+
+// Byte offset of element (r, c), c < 64, in a swizzled tile of 64-wide rows.
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared memory written by threads (st.shared, cp.async) made visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], bf16 in, f32 sums; d as the
+// accumulator fragment: d[4j + 2h + e] at row 16*warp + lane/4 + 8h and
+// column 8j + 2*(lane%4) + e of the warpgroup's tile.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// keeps the compiler from moving accesses of d across the asynchronous MMAs
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
+
+// ---------------------------------------------------------------------------
+// The B operand of the row kernels' a = q @ kvs (the forward apply, the
+// backward reduce's rows pass): kvs^T, f32 in meaning, split into bf16
+// pieces, each [n = D][k = M] with both extents padded by zeros to kSplitPad.
+
+constexpr int kSplitPad = 64;
+
+__host__ __device__ constexpr int split_pad(int x) { return cdiv(x, kSplitPad) * kSplitPad; }
+
+// bf16 elements of one piece
+__host__ __device__ inline size_t split_t_elems(int M, int D) {
+  return static_cast<size_t>(split_pad(D)) * split_pad(M);
+}
+
+// x as kPieces bf16 pieces at p[0], p[off], ...: hi = bf16(x), then each
+// piece the bf16 of what the ones before leave (each difference is exact in
+// f32): hi + lo keeps ~16 significant bits, hi + mid + lo all of f32's 24
+template <int kPieces>
+__device__ __forceinline__ void split_store(float x, bf16* p, size_t off) {
+#pragma unroll
+  for (int i = 0; i < kPieces; ++i) {
+    const bf16 h = __float2bfloat16_rn(x);
+    p[i * off] = h;
+    x -= __bfloat162float(h);
+  }
+}
+
+constexpr int kSplitThreads = 256;
+
+// hl[...] = kvs^T as kPieces bf16 pieces, each [n = D][k = M], zero in the pads.
+template <int kPieces>
+__global__ void __launch_bounds__(kSplitThreads)
+split_t_kernel(const float* __restrict__ kvs, int M, int D, bf16* __restrict__ hl) {
+  const int Mk = split_pad(M);
+  const size_t count = split_t_elems(M, D);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int d = static_cast<int>(i / Mk);
+    const int m = static_cast<int>(i % Mk);
+    split_store<kPieces>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + i,
+                         count);
+  }
+}
+
+// The split on stream st: grid-stride, at most 1024 blocks.
+template <int kPieces>
+cudaError_t launch_split_t(const float* kvs, int M, int D, bf16* hl, cudaStream_t st) {
+  const size_t count = split_t_elems(M, D);
+  const size_t want = (count + kSplitThreads - 1) / kSplitThreads;
+  const unsigned blocks = static_cast<unsigned>(want < 1024 ? want : 1024);
+  split_t_kernel<kPieces><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
+  return cudaGetLastError();
+}
 
 }  // namespace tc

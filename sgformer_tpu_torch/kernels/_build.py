@@ -48,7 +48,8 @@ _SIGNATURES = {
         "sgf_la_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P],
         "sgf_la_apply": [_P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P, _P, _P,
-                         _P, _I, _P],
+                         _P, _I, _P, _P],
+        "sgf_la_apply_scratch": [_I, _I, _I],
     },
     "microbench": {
         "sgf_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -19,17 +19,20 @@ scaled by one norm over all heads, as in the SGFormer reference and the
 plain path; the JAX Pallas path scales each head by its own norms, which
 agrees only at H = 1.
 
-On bf16 inputs the kernels' products run on the tensor cores (mma.sync,
-f32 sums): :func:`reduce`'s kᵀv (``la_reduce_tc_kernel``: exact bf16
-products, fixed-order f32 sums over slices of N), :func:`bwd_reduce`'s
-q @ kvs and qᵀ(g/den) (``la_bwd_rows_tc_kernel``,
-``la_bwd_reduce_tc_kernel``: kvs split into bf16 hi + mid + lo, g/den into
-hi + lo) and :func:`bwd_apply`'s three products
-(``la_bwd_apply_tc_kernel``: kvs and P split into hi + lo). On f32
-inputs, and on bf16 widths too large for a tensor-core kernel's shared
-memory (the backward's q or A tile), they run on the CUDA cores in f32, the
-exact-parity path. :func:`reduce_design`, :func:`bwd_reduce_design` and
-:func:`bwd_apply_design` name the kernel a call runs.
+On bf16 inputs every kernel's products run on the tensor cores, with f32
+sums: :func:`reduce`'s kᵀv (``la_reduce_tc_kernel``, mma.sync: exact bf16
+products, fixed-order f32 sums over slices of N), :func:`apply`'s q @ kvs
+(``la_apply_tc_kernel``, warpgroup MMAs (wgmma) from swizzled shared
+memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
+qᵀ(g/den) (``la_bwd_rows_tc_kernel``, ``la_bwd_reduce_tc_kernel``,
+mma.sync: kvs split into bf16 hi + mid + lo, g/den into hi + lo) and
+:func:`bwd_apply`'s three products (``la_bwd_apply_tc_kernel``, mma.sync:
+kvs and P split into hi + lo). On f32 inputs, and on bf16 widths too large
+for a tensor-core kernel's shared memory (the q tile of the forward apply
+above M = 704, the backward's q or A tile), they run on the CUDA cores in
+f32, the exact-parity path. :func:`reduce_design`, :func:`apply_design`,
+:func:`bwd_reduce_design` and :func:`bwd_apply_design` name the kernel a
+call runs.
 
 ``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
 ``bwd_apply_launches`` count the wrappers' launching calls; set them to 0
@@ -79,11 +82,12 @@ def reduce_plain(q, k, v, guard: bool):
 
 
 def apply_plain(q, v, kvs, ksum, scal, n_total, guard: bool):
-    """(inv * q @ kvs + n * v) / (inv * q . ksum + n) in f32, in q's type.
-    ``guard`` turns a zero denominator into 1 (masked inputs)."""
-    qf = q.float()
+    """(inv * q @ kvs + n * v) / (inv * q . ksum + n) in f32 (f64 for f64
+    inputs), in q's type. ``guard`` turns a zero denominator into 1 (masked
+    inputs)."""
+    qf = _acc(q)
     inv = scal[2]
-    num = torch.einsum("nm,md->nd", qf, kvs) * inv + n_total * v.float()
+    num = torch.einsum("nm,md->nd", qf, kvs) * inv + n_total * _acc(v)
     den = (torch.einsum("nm,m->n", qf, ksum) * inv + n_total)[:, None]
     if guard:
         den = torch.where(den == 0.0, torch.ones_like(den), den)
@@ -233,6 +237,23 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     return _CUDA_CORES
 
 
+def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
+    """bf16 elements of the tensor-core forward apply's scratch (kvsᵀ as bf16
+    hi + lo), 0 for the CUDA-core design (builds the kernels on first
+    use)."""
+    return _build.library("linear_attention").sgf_la_apply_scratch(_DTYPES[dtype], m, d)
+
+
+def apply_design(dtype: torch.dtype, m: int, d: int) -> str:
+    """Which kernel :func:`apply` launches on the card for inputs of
+    ``dtype`` with widths m (q) and d (v): bf16 runs the tensor-core kernel
+    wherever its q tile fits one block's shared memory beside the kvs
+    stages (M up to 704), f32 and wider bf16 the CUDA-core one."""
+    if _apply_scratch(dtype, m, d):
+        return "tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums)"
+    return _CUDA_CORES
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -297,11 +318,13 @@ def apply(q, v, kvs, ksum, scal, n_total, guard: bool = False, out=None):
     if _device_of(q, v, kvs, ksum, scal, n_total, out).type == "cpu":
         out.copy_(apply_plain(q, v, kvs, ksum, scal, n_total, guard))
         return out
+    scratch = _apply_scratch(q.dtype, m, d)
+    hl = torch.empty(scratch, dtype=torch.bfloat16, device=q.device) if scratch else None
     err = _build.library("linear_attention").sgf_la_apply(
         q.data_ptr(), v.data_ptr(), q.stride(0), v.stride(0),
         out.data_ptr(), out.stride(0), n, m, d, _DTYPES[q.dtype],
         kvs.data_ptr(), ksum.data_ptr(), scal.data_ptr(), n_total.data_ptr(),
-        int(guard), _stream(q),
+        int(guard), None if hl is None else hl.data_ptr(), _stream(q),
     )
     _build.check(err, "linear attention apply")
     apply_launches += 1
@@ -355,9 +378,9 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
     return P, ds, dinv, rows
 
 
-def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
-    """bf16 elements of the tensor-core apply's scratch, 0 for the CUDA-core
-    design (builds the kernels on first use)."""
+def _bwd_apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
+    """bf16 elements of the tensor-core backward apply's scratch, 0 for the
+    CUDA-core design (builds the kernels on first use)."""
     return _build.library("linear_attention_bwd").sgf_la_bwd_apply_scratch(
         _DTYPES[dtype], m, d)
 
@@ -365,7 +388,7 @@ def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
 def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernel :func:`bwd_apply` launches on the card for inputs of
     ``dtype`` with widths m (q, k) and d (v, g)."""
-    if _apply_scratch(dtype, m, d):
+    if _bwd_apply_scratch(dtype, m, d):
         return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
     return _CUDA_CORES
 
@@ -403,7 +426,7 @@ def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
                                                 P, ds, dinv, rows, guard)):
             t.copy_(want)
         return out
-    scratch = _apply_scratch(q.dtype, m, d)
+    scratch = _bwd_apply_scratch(q.dtype, m, d)
     hl = torch.empty(scratch, dtype=torch.bfloat16, device=dev) if scratch else None
     # the tensor-core kernel reads the A rows (g, v, k), and in its epilogue
     # q, k, g, dq, dk, dv, 16 bytes at a time where widths, strides and

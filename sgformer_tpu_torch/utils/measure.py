@@ -61,3 +61,48 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     err = (got - want).abs().max().item() if got.numel() else 0.0
     scale = want.abs().max().item() if want.numel() else 0.0
     return err, scale
+
+
+# cancel: the size of the kvs terms that cancel in q @ kvs, against
+# kvs ~ N(0, 1) terms that do not
+APPLY_CANCEL_SCALE = 2.0 ** 5
+
+
+def apply_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
+                         cancel: bool = False):
+    """Inputs of the linear-attention apply, (q, v, kvs, ksum, scal,
+    n_total) on ``gen``'s device, on which q @ kvs carries the output, so
+    that a kernel's index mapping and its precision on kvs both show.
+
+    q is positive (0.5 to 1.5), kvs ~ N(0, 1) in f32 (so every (m, d)
+    pairing moves the output, as it does not for a kvs = kᵀv of positive k
+    and v, whose entries are nearly equal), ksum positive and
+    ~1/sqrt(m), inv = n = 1: den ~ sqrt(m) and each output is ~N(0, 1).
+
+    ``cancel``: columns m and m ^ 8 of q are equal (a pair within one
+    16-deep k step), and kvs also carries +-APPLY_CANCEL_SCALE * c_d on the
+    two rows of each pair, which cancel exactly in q @ kvs. kvs rounded to
+    bf16 then moves outputs by up to their own size (~50 times the bf16
+    tolerance at m = d = 256), while with bf16 hi + lo pieces they stay
+    within the output's own bf16 rounding, so the tolerance tells the two
+    apart."""
+    dev = gen.device
+
+    def draw(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    q = (0.5 + draw(n, m)).to(dtype)
+    kvs = torch.randn(m, d, generator=gen, device=dev)
+    if cancel:
+        cols = torch.arange(m, device=dev)
+        pair = cols ^ 8
+        paired = pair < m
+        src = torch.where(paired & (cols & 8 != 0), pair, cols)
+        q = q[:, src].contiguous()
+        sign = torch.where(cols & 8 == 0, 1.0, -1.0) * paired
+        c = torch.randn(d, generator=gen, device=dev)
+        kvs = kvs + APPLY_CANCEL_SCALE * sign[:, None] * c[None, :]
+    v = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    ksum = (0.5 + draw(m)) / m ** 0.5
+    scal = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    return q, v, kvs, ksum, scal, torch.ones((), device=dev)

@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from sgformer_tpu.kernels.attention import _apply as jax_apply
+from sgformer_tpu.kernels.attention import _reduce as jax_reduce
 from sgformer_tpu.kernels.attention import fused_linear_attention as jax_fused
 from sgformer_tpu.ops.attention import linear_attention as jax_linear_attention
 
 from sgformer_tpu_torch.kernels import attention as attn
 from sgformer_tpu_torch.kernels.attention import fused_linear_attention
 from sgformer_tpu_torch.ops.attention import linear_attention
+from sgformer_tpu_torch.utils.measure import apply_product_inputs
 
 torch.set_num_threads(1)
 
@@ -339,6 +342,107 @@ def test_tensor_core_apply_matches_jax_pallas_interpret(masked):
     got = _tensor_core_apply(tq, tk, tv, tg, *sums, n_t, *red, torch.tensor(masked))
     got = [(t * keep[:, None]).to(torch.bfloat16)[:, None] for t in got]
     _grads_close(got, want, TOL["bf16"]["rtol"])
+
+
+def _tensor_core_forward_apply(q, v, kvs, ksum, scal, n_total, guard, lo=True):
+    """The bf16 forward apply's arithmetic (``la_apply_tc_kernel``) written
+    plainly: the bf16 rows q and v as they are, kvsᵀ split into bf16 hi + lo
+    with one product each into f32 sums (``lo=False`` drops the lo half:
+    kvs rounded to bf16, as the Pallas kernel does), b = q . ksum in f32,
+    den = inv * b + n with a zero den taken as 1 under ``guard``. Returns
+    out in f32, before the rounding to bf16."""
+    qf, vf = q.float(), v.float()
+    inv = scal[2]
+    hi, low = _split_bf16(kvs)
+    a = qf @ hi + (qf @ low if lo else 0.0)
+    den = (qf @ ksum) * inv + n_total
+    if guard:
+        den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return (inv * a + n_total * vf) / den[:, None]
+
+
+@pytest.mark.parametrize("n_one", [False, True])
+def test_tensor_core_forward_apply_keeps_kvs_at_f32_precision(n_one):
+    """bf16 inputs: the hi + lo forward apply agrees with ``apply_plain``
+    evaluated in f64 (f32 kvs) to 2^-14 of the output's scale before the
+    output rounding, and within the card's bf16 tolerance (1e-2) after it.
+    ``n_one``: n = 1 and positive inputs, so q @ kvs carries the output; kvs
+    rounded to bf16 instead then misses the 2^-14 bound."""
+    rng = np.random.default_rng(21)
+    n, m, d = 300, 48, 40
+    draw = rng.random if n_one else rng.standard_normal
+    q, k, v = (torch.from_numpy(draw((n, w)).astype(np.float32)).to(torch.bfloat16)
+               for w in (m, m, d))
+    n_t = torch.tensor(1.0 if n_one else float(n))
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    exact = attn.apply_plain(q.double(), v.double(), kvs.double(), ksum.double(),
+                             scal.double(), n_t.double(), False)
+    got = _tensor_core_forward_apply(q, v, kvs, ksum, scal, n_t, False)
+    bound = 2.0 ** -14 * exact.abs().max()
+    assert (got.double() - exact).abs().max() <= bound
+    if n_one:  # at n = N the n * v term swamps the product
+        hi_only = _tensor_core_forward_apply(q, v, kvs, ksum, scal, n_t, False, lo=False)
+        assert (hi_only.double() - exact).abs().max() > bound
+    torch.testing.assert_close(got.to(torch.bfloat16).float(),
+                               attn.apply_plain(q, v, kvs, ksum, scal, n_t, False).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tensor_core_forward_apply_matches_jax_pallas_interpret(masked):
+    """H = 1, bf16: the tensor-core forward apply's arithmetic on the plain
+    reduce's sums against the Pallas ``_reduce`` and ``_apply`` kernels in
+    interpret mode, at the bf16 tolerance of the Pallas comparisons (the
+    Pallas apply rounds kvs to bf16; the port keeps it as hi + lo)."""
+    q, k, v = (a[:, 0] for a in _qkv(22, h=1))
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else \
+        np.ones(q.shape[0], np.float32)
+    q, k, v = (a * mask[:, None] for a in (q, k, v))
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "bf16")
+    want = jax_apply(jq, jv, *jax_reduce(jq, jk, jv, 128, True), float(mask.sum()), 128, True)
+    n_t = torch.tensor(float(mask.sum()))
+    got = _tensor_core_forward_apply(tq, tv, *attn.reduce_plain(tq, tk, tv, masked), n_t, masked)
+    np.testing.assert_allclose(_f32(got.to(torch.bfloat16)), _f32(want), **TOL["bf16"])
+
+
+# Faults of a tensor-core forward apply, each as what it would compute on
+# (q, kvs): the lo piece dropped, k permuted within q's 16-byte chunks or
+# across kvs's 64-deep k-tiles, kvs columns swapped within an 8-column
+# fragment, and the product's A rows taken from other rows than den's.
+_APPLY_FAULTS = {
+    "lo piece dropped": (True, lambda q, kvs: (q, kvs.to(torch.bfloat16).float())),
+    "q k-pairs swapped": (False, lambda q, kvs: (q[:, torch.arange(q.shape[1]) ^ 1], kvs)),
+    "kvs k-tiles swapped": (False, lambda q, kvs: (q, kvs[torch.arange(kvs.shape[0]) ^ 64])),
+    "kvs columns swapped": (False, lambda q, kvs: (q, kvs[:, torch.arange(kvs.shape[1]) ^ 1])),
+    "A rows shifted": (False, lambda q, kvs: (torch.roll(q, 1, 0), kvs)),
+}
+
+
+@pytest.mark.parametrize("fault", list(_APPLY_FAULTS))
+def test_apply_product_inputs_catch_a_faulty_kernel(fault):
+    """The card checks of the forward apply (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) hold it to ``apply_plain`` in f64 at the
+    bf16 tolerance on ``apply_product_inputs``. There the tensor-core
+    design's arithmetic (hi + lo, rounded to bf16 once) passes, and the
+    same arithmetic with one fault misses the tolerance; a dropped lo piece
+    shows where kvs terms cancel (``cancel``)."""
+    cancel, broken = _APPLY_FAULTS[fault]
+    gen = torch.Generator().manual_seed(23)
+    q, v, kvs, ksum, scal, n_t = ins = apply_product_inputs(300, 128, 128, torch.bfloat16,
+                                                            gen, cancel)
+    exact = attn.apply_plain(*(t.double() for t in ins), False)
+
+    def misses(qa, kvs_a):
+        """The design's arithmetic with the product taken from qa and kvs_a
+        (den from q), rounded to bf16, misses the tolerance."""
+        hi, lo = _split_bf16(kvs_a)
+        a = qa.float() @ hi + qa.float() @ lo
+        den = (q.float() @ ksum) * scal[2] + n_t
+        got = ((scal[2] * a + n_t * v.float()) / den[:, None]).to(torch.bfloat16)
+        return bool(((got.double() - exact).abs() > 1e-2 + 1e-2 * exact.abs()).any())
+
+    assert not misses(q, kvs)
+    assert misses(*broken(q, kvs))
 
 
 def _runs(n, rows):

@@ -21,7 +21,7 @@ from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, sddmm
 from sgformer_tpu_torch.ops.attention import linear_attention
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values
-from sgformer_tpu_torch.utils.measure import rel_err
+from sgformer_tpu_torch.utils.measure import apply_product_inputs, rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -334,6 +334,79 @@ def test_all_masked_attention_gradients_are_finite_zeros(cuda):
     out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(500, device=cuda))
     for t in torch.autograd.grad(out, leaves, torch.randn_like(out)):
         assert torch.isfinite(t).all() and not t.any()
+
+
+def test_apply_design_names_the_kernel(cuda):
+    """The bf16 forward apply runs on the tensor cores at the bench width and
+    wherever its q tile fits one block's shared memory (M up to 704); f32,
+    and bf16 beyond that, on the CUDA cores."""
+    for m, d in ((256, 256), (8, 72), (704, 40)):
+        assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores")
+        assert attn.apply_design(torch.float32, m, d).startswith("CUDA cores")
+    assert attn.apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
+
+
+@pytest.mark.parametrize("m,d", [(8, 256), (72, 200), (200, 72), (256, 8), (256, 256)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_tensor_core_forward_apply_takes_any_width(cuda, m, d, strided):
+    """The bf16 forward apply on widths off its tiles, on the per-head views
+    of [N, 2, *] tensors (strided: rows 3 elements longer, so no 16-byte
+    copies), with tail rows (N = 777): at n = N on random inputs and at
+    n = 1 on positive ones (q @ kvs carries the output there), against
+    ``apply_plain`` at the bf16 tolerance; bitwise repeatable, one launch
+    a call."""
+    n, pad = 777, 3 if strided else 0
+    assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores")
+
+    def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
+        return draw(n, 2, w + pad, device=cuda).to(torch.bfloat16)[:, 1, :w]
+
+    for draw, n_total in ((torch.randn, float(n)), (torch.rand, 1.0)):
+        q, k, v = heads(draw, m), heads(draw, m), heads(draw, d)
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), n_total, device=cuda)
+        out = torch.empty(n, 2, d + pad, dtype=torch.bfloat16, device=cuda)[:, 0, :d]
+        a0 = attn.apply_launches
+        got = attn.apply(q, v, *sums, n_t, out=out)
+        assert attn.apply_launches == a0 + 1
+        want = attn.apply_plain(q, v, *sums, n_t, False)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+        assert torch.equal(got, attn.apply(q, v, *sums, n_t))
+
+
+@pytest.mark.parametrize("m,d", [(8, 256), (72, 200), (200, 72), (256, 256)])
+@pytest.mark.parametrize("cancel", [False, True])
+def test_tensor_core_forward_apply_carries_the_product(cuda, m, d, cancel):
+    """The bf16 forward apply where q @ kvs carries the output and every
+    (m, d) pairing of kvs moves it (``apply_product_inputs``; with
+    ``cancel``, large kvs terms cancel, so that kvs rounded to bf16, the lo
+    piece dropped, would miss the tolerance), with tail rows (N = 777),
+    against ``apply_plain`` in f64 at the bf16 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    ins = apply_product_inputs(777, m, d, torch.bfloat16, gen, cancel)
+    got = attn.apply(*ins)
+    want = attn.apply_plain(*(t.double() for t in ins), False)
+    torch.testing.assert_close(got.double(), want, **TOL[torch.bfloat16])
+
+
+def test_tensor_core_forward_apply_unaligned_rows_take_the_scalar_path(cuda):
+    n, m = 500, 64
+    flat = torch.rand(3, n * m + 1, device=cuda).to(torch.bfloat16)
+    q, k, v = (t[1:].view(n, m) for t in flat)  # contiguous, 2 bytes off 16-byte alignment
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    one = torch.ones((), device=cuda)
+    sums = attn.reduce_plain(q, k, v, False)
+    got = attn.apply(q, v, *sums, one)
+    want = attn.apply_plain(q, v, *sums, one, False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+def test_all_masked_bf16_attention_is_finite_zero(cuda):
+    """bf16 through the tensor-core apply: zero norms give inv = 0 and a
+    zero den taken as 1, so the output is finite zeros."""
+    q, k, v = (torch.randn(500, 2, 40, device=cuda).to(torch.bfloat16) for _ in range(3))
+    got = attn.fused_linear_attention(q, k, v, node_mask=torch.zeros(500, device=cuda))
+    assert torch.isfinite(got).all() and not got.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -69,15 +69,19 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
                                         "microbench.cu", "spmm.cu", "tensor_core.cuh"]
     assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(
         f for f in os.listdir(csrc) if f.endswith(".cu"))
+    # the sources and the headers they include are package data
+    with open(os.path.join(os.path.dirname(PKG_DIR), "pyproject.toml")) as f:
+        assert '"csrc/*.cu", "csrc/*.cuh"' in f.read()
     # an edited header gives the libraries new names, so they are rebuilt
     for f in os.listdir(csrc):
         with open(os.path.join(csrc, f), "rb") as src, open(tmp_path / f, "wb") as dst:
             dst.write(src.read())
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
-    before = _build._target("linear_attention")[1]
+    before = [_build._target(name)[1] for name in ("linear_attention", "linear_attention_bwd")]
     with open(tmp_path / "tensor_core.cuh", "a") as f:
         f.write("\n")
-    assert _build._target("linear_attention")[1] != before
+    after = [_build._target(name)[1] for name in ("linear_attention", "linear_attention_bwd")]
+    assert all(a != b for a, b in zip(after, before))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
