@@ -41,27 +41,33 @@ JAX package. Phases, each failing loudly:
 8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
    powerlaw 1.1), width 256, bf16 and f32, through the graph's hub plan (rows
    of more than ``HUB_EDGES`` in-edges split over several warps), with the
-   segment length swept for the record; then powerlaw-train, the bench model
-   on that graph behind ``Trainer`` as in 6 (6 ``csr_spmm`` a step);
+   segment length swept for the record; ``csr_spmm_q8`` (bf16, as in 10) on
+   the same graph with and without its hub plan; then powerlaw-train, the
+   bench model on that graph behind ``Trainer`` as in 6 (6 ``csr_spmm`` a
+   step);
 9. arxiv-gat-train: ``GAT(hidden 256, 2 layers, 2 heads, dropout 0.5, BN)``
    with bf16 messages behind ``Trainer`` with the CLI's baseline optimiser
    (lr 0.01, weight decay 5e-3): one step's loss and gradients against the
    plain step, the launches of one step and of one ``eval_step``, the eval
    logits against the plain forward, ``time_test`` over 20 steps (the loss
    must fall) and a profile of one step;
-10. the int8 aggregation ``csr_spmm_q8`` at the arxiv shape, x bf16 and f32,
-   against its plain version on the same quantised rows (one ulp of the
-   output type), bitwise repeatable, with time, bound, plain time, the
-   quantiser's time and ``csr_spmm``'s time beside it; the same at the
-   shape of 11 (bf16), which the kernels line reports first;
+10. the int8 aggregation at the arxiv shape, x bf16 and f32: the quantiser
+   kernel ``quantize_absmax`` bitwise against its plain version (q and s),
+   with its time beside its two-pass bound and the plain time;
+   ``csr_spmm_q8`` through the graph's hub plan against its plain version
+   on the same quantised rows (one ulp of the output type), the whole
+   against the plain whole, bitwise repeatable, with its walk's design,
+   time, bound, plain time, gather rate and ``csr_spmm``'s time beside it;
+   the same at the shape of 11 (bf16), which the kernels line reports
+   first, and the gather rate beside the ``gather_rows`` probe's after 12;
 11. large-400K-int8-train: the bench model on the JAX package's large-400K
    shape (``synthetic_dataset(num_nodes=400_000, num_edges=4_800_000,
    num_features=128, num_classes=40, seed=0)``, E = 9,991,628 after
    symmetrising and self-loops) with ``preprocess_graph(chunk_dtype="bf16",
    slab_dtype="int8")``, behind ``Trainer`` as in 6: the step against the
-   plain step, launches (6 ``csr_spmm_q8`` and no ``csr_spmm`` a step, 3 a
-   forward), eval logits against the plain forward, ``time_test`` and a
-   profile; then the same graph with ``slab_dtype="compute"`` for one
+   plain step, launches (6 ``csr_spmm_q8``, 6 ``quantize_absmax`` and no
+   ``csr_spmm`` a step, 3 and 3 a forward), eval logits against the plain
+   forward, ``time_test`` and a profile; then the same graph with ``slab_dtype="compute"`` for one
    ``time_test``, with the int8-vs-bf16 logit difference printed;
 12. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
@@ -126,7 +132,7 @@ PROBES = ("gather_rows", "gather_tiles", "slab_variant")
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
                  "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "sddmm": 0,
-                 "csr_spmm_q8": 0, **dict.fromkeys(PROBES, 0)}
+                 "csr_spmm_q8": 0, "quantize_absmax": 0, **dict.fromkeys(PROBES, 0)}
 # launches of one forward of the bench model (serving, evaluation)
 FORWARD_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=3, linear_attention_bwd_reduce=0,
                         linear_attention_bwd_apply=0)
@@ -140,7 +146,7 @@ GAT_TRAIN = dict(lr=0.01, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
 GAT_STEP_LAUNCHES = {"csr_spmm": 0, "linear_attention_reduce": 0,
                      "linear_attention_apply": 0, "linear_attention_bwd_reduce": 0,
                      "linear_attention_bwd_apply": 0, "csr_spmm_ev": 4, "sddmm": 2,
-                     "csr_spmm_q8": 0, **dict.fromkeys(PROBES, 0)}
+                     "csr_spmm_q8": 0, "quantize_absmax": 0, **dict.fromkeys(PROBES, 0)}
 GAT_FORWARD_LAUNCHES = dict(GAT_STEP_LAUNCHES, csr_spmm_ev=2, sddmm=0)
 # one GAT train step through the kernels against the same step through the
 # plain versions: the forward sends the same bf16 messages and sums them in
@@ -160,9 +166,10 @@ LARGE_400K = dict(num_nodes=400_000, num_edges=4_800_000, num_features=128, num_
                   seed=0)
 LARGE_400K_GRAPH = (400_000, 9_991_628)  # N and E after symmetrising and self-loops
 # launches of one train step and one forward on an int8 graph: every GCN
-# aggregation (3 forward, 3 on the transpose) is the int8 kernel
-Q8_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=0, csr_spmm_q8=6)
-Q8_FORWARD_LAUNCHES = dict(FORWARD_LAUNCHES, csr_spmm=0, csr_spmm_q8=3)
+# aggregation (3 forward, 3 on the transpose) is the quantiser kernel (on x
+# or on g) and then the int8 kernel
+Q8_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=0, csr_spmm_q8=6, quantize_absmax=6)
+Q8_FORWARD_LAUNCHES = dict(FORWARD_LAUNCHES, csr_spmm=0, csr_spmm_q8=3, quantize_absmax=3)
 # csr_spmm_q8 against its plain version on the same quantised rows: the
 # integer sums are exact and the epilogue is the same f32 operations in the
 # same order, so at most the last rounding may differ: one ulp of the output
@@ -175,7 +182,7 @@ POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
 HUB_SWEEP = (64, 128, 256, 512, 1024)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
-    ("port kernels", ("la_", "csr_spmm", "sddmm")),
+    ("port kernels", ("la_", "csr_spmm", "sddmm", "absmax_partial", "quantize_kernel")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("reductions", ("reduce_kernel",)),
     ("dtype copies", ("copy_kernel",)),
@@ -700,7 +707,7 @@ def plain_versions():
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
 
-    def plain_q8(x, indptr, edge_src, edge_dst, weight, rs):
+    def plain_q8(x, indptr, edge_src, edge_dst, weight, rs, segments=None, segment_edges=None):
         return spmm_q8(x, edge_src, edge_dst, weight, rs, indptr.shape[0] - 1)
 
     stack = contextlib.ExitStack()
@@ -877,57 +884,98 @@ def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_la
 
 
 def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
-             dtypes=(torch.bfloat16, torch.float32)) -> None:
+             dtypes=(torch.bfloat16, torch.float32), no_plan: bool = False) -> None:
     """csr_spmm_q8 on ``graph`` at F = 256 (the bench model's width), for
-    each x type: the kernel on the quantised rows against the plain version
-    on the same rows (one ulp of the output type; whether they are bitwise
-    equal is logged), the whole (quantiser + kernel) against the plain
-    whole, bitwise repeatable; the kernel's time beside its bound, the plain
-    version's, the quantiser's and ``csr_spmm``'s on the same x."""
-    from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_q8, csr_spmm_q8_apply
+    each x type: the quantiser kernel bitwise against its plain version (q
+    and s), with its time beside its two-pass bound and the plain time; the
+    aggregation kernel on the quantised rows through the graph's hub plan
+    against the plain version on the same rows (one ulp of the output type;
+    whether they are bitwise equal is logged), the whole (quantiser +
+    kernel) against the plain whole, bitwise repeatable; the walk's design,
+    its time beside its bound, the plain version's and ``csr_spmm``'s on the
+    same x, and its gather rate. ``no_plan``: also without the hub plan
+    (every row one warp's walk)."""
+    from sgformer_tpu_torch.kernels import spmm as k
     from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8, spmm_q8_apply
 
     n, e, f = graph.num_nodes, graph.num_edges, 256
     src, dst, w, rs = graph.edge_src, graph.edge_dst, graph.gcn_weight, graph.rs
     csr = (graph.indptr, src, dst, w)
+    plan = (graph.hub_segments, graph.hub_edges)
     n_self = int((src == dst).sum().item())
     gen = torch.Generator(device=dev).manual_seed(5)
     for dtype in dtypes:
         name = DTYPE_NAME[dtype]
         x = torch.randn(n, f, generator=gen, device=dev).to(dtype)
         q, s = quantize_absmax(x, rs)
+        q_k, s_k = k.quantize_absmax(x, rs)
+        torch.cuda.synchronize()
+        if not (torch.equal(q_k, q) and torch.equal(s_k, s)):
+            raise AssertionError(f"quantize_absmax {key} {name} is not bitwise its plain version")
+        del q_k, s_k
+        log(f"quantize_absmax {key} {name}: q and s bitwise the plain version's (s = "
+            f"{s.item():.6e})")
+        quant_plain = time_ms(lambda: quantize_absmax(x, rs), iters=5)
+        ms_q = time_ms(lambda: k.quantize_absmax(x, rs))
+        # x read by each pass, rs read, q written; a multiply, a comparison
+        # and a multiply an element
+        qb_ms, qb_by = bound_ms(2 * n * f * x.element_size() + n * 4 + n * f + 4, 3 * n * f,
+                                torch.float32)
+        log(f"quantize_absmax {key} {name}: {ms_q:.4f} ms (plain {quant_plain:.4f} ms, bound "
+            f"{qb_ms:.4f} ms by {qb_by})")
+        results[(key.replace("csr_spmm_q8", "quantize_absmax"), name)] = dict(
+            max_abs_err=0.0, ms=ms_q, plain_ms=quant_plain, bound_ms=qb_ms, bound_by=qb_by,
+            library_ms=None)
+
         xb = x.to(torch.bfloat16)
-        got = csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype)
+        design = (f"one warp a row, 8-byte gathers (8 columns a lane), hub rows in "
+                  f"{plan[0].shape[0]} segments of at most {plan[1]} edges, one column slice")
+        log(f"{key} {name} walk: {design}")
+        got = k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan)
         want = spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype)
         torch.cuda.synchronize()
         err = check_close(f"{key} {name} F={f} (same quantised rows; bitwise equal: "
                           f"{torch.equal(got, want)})", got, want,
                           rtol=Q8_ULP[dtype], atol=0.0)
-        if not torch.equal(got, csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype)):
+        if not torch.equal(got, k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan)):
             raise AssertionError("csr_spmm_q8 is not bitwise repeatable")
-        del got, want
         check_close(f"{key} {name} F={f} (quantiser + kernel vs plain spmm_q8)",
-                    csr_spmm_q8(x, *csr, rs), spmm_q8(x, src, dst, w, rs, n),
+                    k.csr_spmm_q8(x, *csr, rs, *plan), spmm_q8(x, src, dst, w, rs, n),
                     rtol=Q8_ULP[dtype], atol=0.0)
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype))
+        # the plain version first: on the H100 the first timing after
+        # empty_cache reads the kernel high at large-400K
         plain_ms = time_ms(lambda: spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype), iters=5)
-        quant_ms = time_ms(lambda: quantize_absmax(x, rs))
-        whole_ms = time_ms(lambda: csr_spmm_q8(x, *csr, rs))
-        spmm_ms = time_ms(lambda: csr_spmm(x, *csr, graph.hub_segments, graph.hub_edges))
+        ms = time_ms(lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan))
+        whole_ms = time_ms(lambda: k.csr_spmm_q8(x, *csr, rs, *plan))
+        spmm_ms = time_ms(lambda: k.csr_spmm(x, *csr, *plan))
         # q, the bf16 x of the self term, rs, src, indptr and the absmax read
         # once, the weights of the self edges only, the result written once
         nbytes = (n * f * (1 + 2 + x.element_size()) + n * 4 + e * 4 + (n + 1) * 4
                   + n_self * 4 + 4)
         b_ms, b_by = bound_ms(nbytes, e * f, torch.int8)
+        rows = e - n_self  # the rows of q gathered
+        rate = rows / ms * 1e3
         log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}); quantiser {quant_ms:.4f} ms, quantiser + kernel {whole_ms:.4f} ms; "
-            f"csr_spmm {name} on the same x {spmm_ms:.4f} ms")
-        results[(key, name)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, quantize_ms=quant_ms, quantize_and_kernel_ms=whole_ms,
-            csr_spmm_ms=spmm_ms)
-        del x, q, s, xb
+            f"by {b_by}); gathers {rate / 1e9:.3f} G rows/s, {rate * f / 1e9:.1f} GB/s; "
+            f"quantiser + kernel {whole_ms:.4f} ms; csr_spmm {name} on the same x "
+            f"{spmm_ms:.4f} ms")
+        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, design=design, quantize_ms=ms_q,
+                 quantize_and_kernel_ms=whole_ms, csr_spmm_ms=spmm_ms,
+                 grows_per_s=rate / 1e9, gather_gb_per_s=rate * f / 1e9)
+        if no_plan:
+            one_warp = (torch.empty(0, 3, dtype=torch.int32, device=dev),
+                        int(torch.diff(graph.indptr).max().item()))
+            run = lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *one_warp)  # noqa: E731
+            if not torch.equal(run(), got):
+                raise AssertionError(f"{key} {name} without the hub plan differs")
+            r["no_plan_ms"] = time_ms(run)
+            log(f"{key} {name} without the hub plan (one warp a row, {plan[0].shape[0]} "
+                f"segments of at most {plan[1]} edges unused): {r['no_plan_ms']:.4f} ms, "
+                f"bitwise the planned walk's")
+        results[(key, name)] = r
+        del x, q, s, xb, got, want
     torch.cuda.empty_cache()
 
 
@@ -1138,6 +1186,7 @@ def main() -> int:
 
     from sgformer_tpu_torch import preprocess_graph
     from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import gcn_norm_rs
     from sgformer_tpu_torch.kernels import _build
 
     t = time.perf_counter()
@@ -1173,6 +1222,10 @@ def main() -> int:
         f"E = {pl_graph.num_edges}, in-degree max {deg.max().item()}, "
         f"mean {deg.float().mean().item():.1f})")
     spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw", sweep=True)
+    # the int8 kernel alone on the same graph, with and without its hub plan
+    rs = gcn_norm_rs(pl_graph.edge_dst.cpu().numpy(), pl_graph.num_nodes)
+    q8_phase(dataclasses.replace(pl_graph, rs=torch.from_numpy(rs).cuda()), results, "cuda",
+             key="csr_spmm_q8_powerlaw", dtypes=(torch.bfloat16,), no_plan=True)
     pl_step, _, pl_counts, _ = powerlaw_train_phase(pl, pl_graph, "cuda")
     del pl, pl_graph, deg
     torch.cuda.empty_cache()
@@ -1185,6 +1238,12 @@ def main() -> int:
     del graph_q8
     q8_step, q8_forward, q8_counts = q8_train_phase(results, "cuda")
     probe_counts = probe_phase(graph, results, "cuda")
+    probe = results["gather_rows"]
+    for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
+        r = results[(key, "bf16")]
+        log(f"{key} bf16 gather rate: {r['grows_per_s']:.3f} G rows/s of 256 bytes, "
+            f"{r['gather_gb_per_s']:.1f} GB/s, against the gather_rows probe's "
+            f"{probe['mrows_per_s'] / 1e3:.3f} G rows/s, {probe['gb_per_s']:.1f} GB/s")
 
     via = "sgformer_tpu/kernels/spmm.py:34 via :253"
     sources = {
@@ -1230,20 +1289,25 @@ def main() -> int:
             "launches": counts[name], "launches_per_forward": per_forward[name],
             "launches_per_train_step": per_step[name], **r,
         })
-    # the int8 aggregation: launches from large-400K-int8-train's time_test,
-    # error and times at that path's shape in bf16; the arxiv shape's in
-    # bf16 and f32 beside them
-    r = dict(results[("csr_spmm_q8_large400k", "bf16")])
-    for prefix, dtype in (("arxiv_", "bf16"), ("arxiv_f32_", "f32")):
-        r.update({f"{prefix}{k}": v for k, v in results[("csr_spmm_q8", dtype)].items()
-                  if k.endswith("ms") or k == "max_abs_err"})
-    line["kernels"].append({
-        "name": "csr_spmm_q8", "route": "cuda", "source": "sgformer_tpu_torch/csrc/spmm.cu",
-        "replaces": "sgformer_tpu/kernels/slab_spmm.py:131 (int8 branch :193-200)",
-        "launches": q8_counts["csr_spmm_q8"],
-        "launches_per_forward": q8_forward["csr_spmm_q8"],
-        "launches_per_train_step": q8_step["csr_spmm_q8"], **r,
-    })
+    # the int8 aggregation and its quantiser: launches from
+    # large-400K-int8-train's time_test, error and times at that path's
+    # shape in bf16; the arxiv shape's in bf16 and f32 and the power-law
+    # graph's in bf16 beside them
+    for name, replaces in (
+            ("csr_spmm_q8", "slab_spmm.py:131 (int8 branch :193-200)"),
+            ("quantize_absmax", "slab_spmm.py:380-394 (_apply_side's absmax quantiser, XLA "
+                                "outside the pallas_call)")):
+        r = dict(results[(f"{name}_large400k", "bf16")])
+        for prefix, key, dtype in (("arxiv_", name, "bf16"), ("arxiv_f32_", name, "f32"),
+                                   ("powerlaw_", f"{name}_powerlaw", "bf16")):
+            r.update({f"{prefix}{k}": v for k, v in results[(key, dtype)].items()
+                      if k.endswith("ms") or k in ("max_abs_err", "design", "grows_per_s")})
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/spmm.cu",
+            "replaces": f"sgformer_tpu/kernels/{replaces}", "launches": q8_counts[name],
+            "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
+            **r,
+        })
     # the timing probes: launches from their own runs; per forward and per
     # step as counted on large-400K-int8-train (no model path runs them, and
     # every path's launch check holds them to 0)

@@ -77,18 +77,46 @@
 //   acc[i, :] = sum_{e in row i, src[e] != i} q[src[e], :]       (exact int32)
 //   w_self[i] = sum_{e in row i, src[e] == i} v[e]
 //
-// q is x * rs quantised to int8 (the caller's plain quantiser), xb the bf16
-// x, s the absmax, read from device memory so the host never waits for it.
-// The GCN weights factor as rs[src] * rs[dst]: q carries rs[src] and the
+// q is x * rs quantised to int8 (quantize_absmax below), xb the bf16 x, s
+// the absmax, read from device memory so the host never waits for it. The
+// GCN weights factor as rs[src] * rs[dst]: q carries rs[src] and the
 // epilogue rs[dst], so no per-edge value is read except at the self edge,
 // which is pulled out unquantised as the JAX plan does. Bound: memory, with
-// a quarter of bf16's gathered bytes (one int8 row of F bytes per edge). The
-// design is csr_spmm's row walk: one warp per row, edge ids read 32 at a
+// a quarter of bf16's gathered bytes (one int8 row of F bytes per edge).
+// What it pays is the gather: E random rows, from L2 at the arxiv shape
+// (its 43 MB table nearly fits) and partly from device memory at
+// large-400K (102 MB).
+//
+// Design: csr_spmm's row walk, one warp per row, edge ids read 32 at a
 // time and shuffled; each lane loads 8 int8 (8 bytes, 256 columns a warp
-// pass) and keeps int32 sums. Integer sums make the result bitwise the same
-// for any edge order; the epilogue uses round-to-nearest products and add
-// without contraction, in the plain version's order. Any F (the TPU's
+// pass; one byte for F % 8 != 0 or unaligned rows) and keeps int32 sums.
+// Hub rows are split as in csr_spmm, but by a launch of their own: a warp a
+// segment writes int32 partials (127 * HUB_EDGES fits with room to spare)
+// and the segment's self weight, the row walk leaves those rows out (its
+// registers stay the unsplit walk's, with no spills), and a third launch
+// adds the partials and runs the epilogue. On the H100 neither a half-warp an
+// edge with 16-byte gathers and four loads in flight a lane, nor column
+// slices sized for L2, was worth its code (PERF.md §6, row 5b): the random
+// gathers set the time. Integer sums make the result bitwise the same for
+// any edge order or split; the epilogue uses round-to-nearest products and
+// add without contraction, in the plain version's order. Any F (the TPU's
 // padding of F to 128 is a Mosaic constraint).
+//
+// quantize_absmax is the absmax quantiser of _apply_side (slab_spmm.py:
+// 380-394), which the JAX package leaves to XLA outside the pallas_call:
+// xs = bf16(bf16(x) * bf16(rs)), s = max(max |xs|, 1e-30) and q =
+// int8(clamp(rint(xs * (127 / s)), -127, 127)), bit for bit the plain
+// version. A global maximum over [N, F] needs every element before the
+// first q, and [N, F] does not fit on chip, so it is two launches: each
+// block of the first writes the maximum of its grid-stride share into a
+// scratch of partial maxima; each block of the second reduces those (a few
+// hundred values from L2, exact in any order), block 0 stores s, and every
+// block quantises its share, walking from the end, where the first pass
+// ended, so that its first reads hit L2. |xs| is compared as its bits,
+// where a NaN is above every number, so a NaN in x gives a NaN s, as amax
+// does. Bound: memory, x read twice, rs read, q written: 0.153 ms at
+// large-400K in bf16. 16-byte loads of 8 elements a thread (F % 8 == 0,
+// aligned rows), else one element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,14 +358,128 @@ sddmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   }
 }
 
-// kVec8: 8 columns a lane (F % 8 == 0, aligned rows), else one.
+dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+// ---------------------------------------------------------------------------
+// The int8 aggregation (csr_spmm_q8) and its absmax quantiser.
+
+// The walk of one edge range [begin, end) into row at this lane's kPer
+// columns from c (8 with 8-byte loads, F % 8 == 0 and aligned rows, else
+// one): acc gets the exact int32 sums of q[src[e]] over the non-self
+// edges, and the sum of the self edges' v[e] in edge order is returned (the
+// same in every lane). Edge ids are read 32 at a time and shuffled. Every
+// lane runs every loop trip, even past F, because the shuffles need the
+// whole warp.
+template <bool kVec8>
+__device__ __forceinline__ float q8_edges(const int* __restrict__ src,
+                                          const float* __restrict__ v,
+                                          const int8_t* __restrict__ q, size_t F, int row,
+                                          int begin, int end, int c, bool active,
+                                          int (&acc)[kVec8 ? 8 : 1]) {
+  constexpr int kPer = kVec8 ? 8 : 1;
+  const int lane = threadIdx.x & 31;
+  float w_self = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0;
+  for (int e0 = begin; e0 < end; e0 += 32) {
+    const int e = e0 + lane;
+    int s = -1;
+    float ws = 0.f;
+    if (e < end) {
+      s = __ldg(src + e);
+      if (s == row) ws = __ldg(v + e);
+    }
+    const int cnt = min(32, end - e0);
+#pragma unroll 4
+    for (int j = 0; j < cnt; ++j) {
+      const int sj = __shfl_sync(kFull, s, j);
+      const float wj = __shfl_sync(kFull, ws, j);
+      if (sj == row) {
+        w_self += wj;
+      } else if (active) {
+        const int8_t* p = q + static_cast<size_t>(sj) * F + c;
+        if constexpr (kVec8) {
+          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            // byte i % 4 of word i / 4, sign-extended
+            const unsigned word = i < 4 ? raw.x : raw.y;
+            acc[i] += static_cast<int>(word << (24 - 8 * (i % 4))) >> 24;
+          }
+        } else {
+          acc[0] += __ldg(p);
+        }
+      }
+    }
+  }
+  return w_self;
+}
+
+// out = ((acc * dq) * r) + w_self * xb at kPer columns from off, each
+// operation rounded to nearest (no contraction), in the plain version's
+// order.
+template <typename TOut, bool kVec8>
+__device__ __forceinline__ void q8_epilogue(const int (&acc)[kVec8 ? 8 : 1], float dq, float r,
+                                            float w_self, const __nv_bfloat16* __restrict__ xb,
+                                            TOut* __restrict__ out, size_t off) {
+  constexpr int kPer = kVec8 ? 8 : 1;
+  float xv[kPer];
+  float o[kPer];
+  if constexpr (kVec8) {
+    Vec8<__nv_bfloat16>::load(xb + off, xv);
+  } else {
+    xv[0] = __bfloat162float(xb[off]);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const float t = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), dq), r);
+    o[i] = __fadd_rn(t, __fmul_rn(w_self, xv[i]));
+  }
+  if constexpr (kVec8) {
+    Vec8<TOut>::store(out + off, o);
+  } else {
+    out[off] = from_float<TOut>(o[0]);
+  }
+}
+
+// Hub segments: warp w sums segment w (seg[w] = (row, begin, end)) into
+// int32 partials part[w] and its self-edge weight wpart[w].
+template <bool kVec8>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_q8_seg_kernel(const int* __restrict__ src, const float* __restrict__ v,
+                       const int8_t* __restrict__ q, const int* __restrict__ seg, int n_seg,
+                       int* __restrict__ part, float* __restrict__ wpart, int F) {
+  constexpr int kPer = kVec8 ? 8 : 1;
+  constexpr int kPass = 32 * kPer;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;
+  const int row = __ldg(seg + 3 * w);
+  const int begin = __ldg(seg + 3 * w + 1);
+  const int end = __ldg(seg + 3 * w + 2);
+  for (int c0 = 0; c0 < F; c0 += kPass) {
+    const int c = c0 + lane * kPer;
+    const bool active = c < F;
+    int acc[kPer];
+    const float w_self = q8_edges<kVec8>(src, v, q, F, row, begin, end, c, active, acc);
+    if (active) {
+      int* p = part + static_cast<size_t>(w) * F + c;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) p[i] = acc[i];
+    }
+    if (c0 == 0 && lane == 0) wpart[w] = w_self;
+  }
+}
+
+// A warp a row: 256 columns a pass with 8-byte loads, else 32. A row of
+// more than max_edges edges is left to its hub segments.
 template <typename TOut, bool kVec8>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_spmm_q8_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                    const float* __restrict__ v, const int8_t* __restrict__ q,
                    const __nv_bfloat16* __restrict__ xb, const float* __restrict__ rs,
-                   const float* __restrict__ absmax, TOut* __restrict__ out, int n_rows,
-                   int F) {
+                   const float* __restrict__ absmax, TOut* __restrict__ out, int max_edges,
+                   int n_rows, int F) {
   constexpr int kPer = kVec8 ? 8 : 1;
   constexpr int kPass = 32 * kPer;
   const int lane = threadIdx.x & 31;
@@ -345,65 +487,180 @@ csr_spmm_q8_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   if (row >= n_rows) return;  // the whole warp leaves together
   const int start = indptr[row];
   const int end = indptr[row + 1];
+  if (end - start > max_edges) return;
   const float dq = __fdiv_rn(__ldg(absmax), 127.0f);
   const float r = __ldg(rs + row);
   for (int c0 = 0; c0 < F; c0 += kPass) {
     const int c = c0 + lane * kPer;
     const bool active = c < F;
-    int acc[kPer] = {};
-    float w_self = 0.f;  // the same in every lane, summed in edge order
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int s = -1;
-      float ws = 0.f;
-      if (e < end) {
-        s = __ldg(src + e);
-        if (s == row) ws = __ldg(v + e);
-      }
-      const int cnt = min(32, end - e0);
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const int sj = __shfl_sync(kFull, s, j);
-        const float wj = __shfl_sync(kFull, ws, j);
-        if (sj == row) {
-          w_self += wj;
-        } else if (active) {
-          const int8_t* p = q + static_cast<size_t>(sj) * F + c;
-          if constexpr (kVec8) {
-            const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-            const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[i] += b[i];
-          } else {
-            acc[0] += __ldg(p);
-          }
-        }
-      }
-    }
+    int acc[kPer];
+    const float w_self = q8_edges<kVec8>(src, v, q, F, row, start, end, c, active, acc);
     if (active) {
-      const size_t off = static_cast<size_t>(row) * F + c;
-      float xv[kPer];
-      float o[kPer];
-      if constexpr (kVec8) {
-        Vec8<__nv_bfloat16>::load(xb + off, xv);
-      } else {
-        xv[0] = __bfloat162float(xb[off]);
-      }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float t = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), dq), r);
-        o[i] = __fadd_rn(t, __fmul_rn(w_self, xv[i]));
-      }
-      if constexpr (kVec8) {
-        Vec8<TOut>::store(out + off, o);
-      } else {
-        out[off] = from_float<TOut>(o[0]);
-      }
+      q8_epilogue<TOut, kVec8>(acc, dq, r, w_self, xb, out, static_cast<size_t>(row) * F + c);
     }
   }
 }
 
-dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+// Second pass over the hub rows: the warp of a row's first segment adds the
+// row's integer partials (exact in any order) and its segments' self-edge
+// weights in segment order, then runs the epilogue.
+template <typename TOut>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+csr_spmm_q8_hub_kernel(const int* __restrict__ seg, int n_seg, const int* __restrict__ part,
+                       const float* __restrict__ wpart, const __nv_bfloat16* __restrict__ xb,
+                       const float* __restrict__ rs, const float* __restrict__ absmax,
+                       TOut* __restrict__ out, int F) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_seg) return;
+  const int row = __ldg(seg + 3 * w);
+  if (w > 0 && __ldg(seg + 3 * (w - 1)) == row) return;  // not the row's first segment
+  int last = w + 1;
+  while (last < n_seg && __ldg(seg + 3 * last) == row) ++last;
+  float w_self = wpart[w];
+  for (int s = w + 1; s < last; ++s) w_self = __fadd_rn(w_self, wpart[s]);
+  const float dq = __fdiv_rn(__ldg(absmax), 127.0f);
+  const float r = __ldg(rs + row);
+  for (int c = lane; c < F; c += 32) {
+    int acc[1] = {part[static_cast<size_t>(w) * F + c]};
+    for (int s = w + 1; s < last; ++s) acc[0] += part[static_cast<size_t>(s) * F + c];
+    q8_epilogue<TOut, false>(acc, dq, r, w_self, xb, out, static_cast<size_t>(row) * F + c);
+  }
+}
+
+template <typename TOut, bool kVec8>
+cudaError_t launch_q8(const int* indptr, const int* src, const float* v, const int8_t* q,
+                      const __nv_bfloat16* xb, const float* rs, const float* absmax, void* out,
+                      const int* seg, int n_seg, int* part, float* wpart, int max_edges,
+                      int n_rows, int F, cudaStream_t st) {
+  TOut* o = static_cast<TOut*>(out);
+  const dim3 block(kWarpsPerBlock * 32);
+  if (n_seg > 0) {
+    csr_spmm_q8_seg_kernel<kVec8><<<grid_for(n_seg), block, 0, st>>>(src, v, q, seg, n_seg, part,
+                                                                      wpart, F);
+  }
+  csr_spmm_q8_kernel<TOut, kVec8><<<grid_for(n_rows), block, 0, st>>>(
+      indptr, src, v, q, xb, rs, absmax, o, max_edges, n_rows, F);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 0) return err;
+  csr_spmm_q8_hub_kernel<TOut><<<grid_for(n_seg), block, 0, st>>>(seg, n_seg, part, wpart, xb,
+                                                                   rs, absmax, o, F);
+  return cudaGetLastError();
+}
+
+// The quantiser. Both passes walk x in items of 8 elements (16-byte loads
+// of bf16, two of f32; F % 8 == 0 and aligned rows) or of one element.
+constexpr int kQuantThreads = 256;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// xs of item i's kPer elements: bf16(bf16(x) * bf16(rs[row])); the product
+// of two bf16 values is exact in f32 and rounded once.
+template <typename T, bool kVec8>
+__device__ __forceinline__ void prescaled(const T* __restrict__ x, const float* __restrict__ rs,
+                                          unsigned i, unsigned per_row,
+                                          float (&xs)[kVec8 ? 8 : 1]) {
+  const float r = round_bf16(__ldg(rs + i / per_row));
+  if constexpr (kVec8) {
+    Vec8<T>::load(x + static_cast<size_t>(i) * 8, xs);
+  } else {
+    xs[0] = to_float(x[i]);
+  }
+#pragma unroll
+  for (int k = 0; k < (kVec8 ? 8 : 1); ++k) xs[k] = round_bf16(__fmul_rn(round_bf16(xs[k]), r));
+}
+
+// The largest of m over the block, in every thread. |v| compares as its
+// bits (unsigned), where a NaN is larger than any number: a NaN anywhere
+// gives a NaN maximum, as amax does, in any order.
+__device__ __forceinline__ unsigned block_max(unsigned m) {
+  __shared__ unsigned red[kQuantThreads / 32];
+  m = __reduce_max_sync(kFull, m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kQuantThreads / 32; ++i) m = max(m, red[i]);
+  return m;
+}
+
+// Pass 1: each block's max |xs| (as bits) into part[blockIdx.x].
+template <typename T, bool kVec8>
+__global__ void __launch_bounds__(kQuantThreads)
+absmax_partial_kernel(const T* __restrict__ x, const float* __restrict__ rs,
+                      unsigned* __restrict__ part, unsigned n_items, unsigned per_row) {
+  unsigned m = 0;
+  for (unsigned i = blockIdx.x * kQuantThreads + threadIdx.x; i < n_items;
+       i += gridDim.x * kQuantThreads) {
+    float xs[kVec8 ? 8 : 1];
+    prescaled<T, kVec8>(x, rs, i, per_row, xs);
+#pragma unroll
+    for (int k = 0; k < (kVec8 ? 8 : 1); ++k) m = max(m, __float_as_uint(fabsf(xs[k])));
+  }
+  m = block_max(m);
+  if (threadIdx.x == 0) part[blockIdx.x] = m;
+}
+
+// Pass 2: every block reduces the partial maxima (exact in any order),
+// s = max(absmax, 1e-30) (block 0 stores it), and quantises its items:
+// q = int8(clamp(rint(xs * (127 / s)), -127, 127)), rint rounding half to
+// even. It walks the items from the end, where pass 1 ended, so that its
+// first reads hit what L2 still holds.
+template <typename T, bool kVec8>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_kernel(const T* __restrict__ x, const float* __restrict__ rs,
+                const unsigned* __restrict__ part, int n_parts, float* __restrict__ absmax,
+                int8_t* __restrict__ q, unsigned n_items, unsigned per_row) {
+  unsigned m = 0;
+  for (int i = threadIdx.x; i < n_parts; i += kQuantThreads) m = max(m, part[i]);
+  m = block_max(m);
+  const float s = __uint_as_float(max(m, __float_as_uint(1e-30f)));
+  if (blockIdx.x == 0 && threadIdx.x == 0) *absmax = s;
+  const float scale = __fdiv_rn(127.0f, s);
+  for (unsigned t = blockIdx.x * kQuantThreads + threadIdx.x; t < n_items;
+       t += gridDim.x * kQuantThreads) {
+    const unsigned i = n_items - 1 - t;
+    float xs[kVec8 ? 8 : 1];
+    prescaled<T, kVec8>(x, rs, i, per_row, xs);
+    unsigned packed[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < (kVec8 ? 8 : 1); ++k) {
+      const float r = fminf(fmaxf(rintf(__fmul_rn(xs[k], scale)), -127.0f), 127.0f);
+      packed[k / 4] |= (static_cast<unsigned>(__float2int_rn(r)) & 0xffu) << (8 * (k % 4));
+    }
+    if constexpr (kVec8) {
+      *reinterpret_cast<uint2*>(q + static_cast<size_t>(i) * 8) = make_uint2(packed[0], packed[1]);
+    } else {
+      q[i] = static_cast<int8_t>(static_cast<int>(packed[0] << 24) >> 24);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_quantize(const void* x, const float* rs, unsigned* part, int n_parts,
+                            float* absmax, int8_t* q, unsigned n_items, unsigned per_row,
+                            int vec8, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  if (vec8) {
+    absmax_partial_kernel<T, true><<<n_parts, kQuantThreads, 0, st>>>(xt, rs, part, n_items,
+                                                                       per_row);
+  } else {
+    absmax_partial_kernel<T, false><<<n_parts, kQuantThreads, 0, st>>>(xt, rs, part, n_items,
+                                                                        per_row);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (vec8) {
+    quantize_kernel<T, true><<<n_parts, kQuantThreads, 0, st>>>(
+        xt, rs, part, n_parts, absmax, q, n_items, per_row);
+  } else {
+    quantize_kernel<T, false><<<n_parts, kQuantThreads, 0, st>>>(
+        xt, rs, part, n_parts, absmax, q, n_items, per_row);
+  }
+  return cudaGetLastError();
+}
+
 
 template <typename TIn, typename TOut, bool kVec8>
 cudaError_t launch_spmm_cols(const int* indptr, const int* src, const float* v, const TIn* x,
@@ -490,9 +747,15 @@ extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
 }
 
 // q int8 and xb bf16, [N, F]; v, rs and the absmax f32; out in out_dtype.
+// vec8: F % 8 == 0 and 16-byte aligned rows. seg, n_seg and max_edges:
+// the hub plan, as in sgf_csr_spmm; part: int32 scratch [n_seg, F] and
+// wpart f32 [n_seg] (unused when n_seg is 0). Launches csr_spmm_q8_kernel,
+// and when there are hub rows csr_spmm_q8_seg_kernel before it and
+// csr_spmm_q8_hub_kernel after it.
 extern "C" int sgf_csr_spmm_q8(const void* indptr, const void* src, const void* v,
                                const void* q, const void* xb, const void* rs,
-                               const void* absmax, void* out, int n_rows, int F,
+                               const void* absmax, void* out, const void* seg, int n_seg,
+                               void* part, void* wpart, int max_edges, int n_rows, int F,
                                int out_dtype, int vec8, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
@@ -501,31 +764,54 @@ extern "C" int sgf_csr_spmm_q8(const void* indptr, const void* src, const void* 
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(xb);
   const float* rp = static_cast<const float*>(rs);
   const float* ap = static_cast<const float*>(absmax);
+  const int* sg = static_cast<const int*>(seg);
+  int* pp = static_cast<int*>(part);
+  float* wp = static_cast<float*>(wpart);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid = grid_for(n_rows);
-  if (out_dtype == 0) {
-    float* op = static_cast<float*>(out);
-    if (vec8) {
-      csr_spmm_q8_kernel<float, true><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp, ap, op,
-                                                              n_rows, F);
-    } else {
-      csr_spmm_q8_kernel<float, false><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp, ap, op,
-                                                               n_rows, F);
-    }
+  cudaError_t err;
+  if (out_dtype == 0 && vec8) {
+    err = launch_q8<float, true>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp, max_edges,
+                                 n_rows, F, st);
+  } else if (out_dtype == 0) {
+    err = launch_q8<float, false>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp, max_edges,
+                                  n_rows, F, st);
+  } else if (out_dtype == 1 && vec8) {
+    err = launch_q8<__nv_bfloat16, true>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp,
+                                         max_edges, n_rows, F, st);
   } else if (out_dtype == 1) {
-    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-    if (vec8) {
-      csr_spmm_q8_kernel<__nv_bfloat16, true><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp,
-                                                                      ap, op, n_rows, F);
-    } else {
-      csr_spmm_q8_kernel<__nv_bfloat16, false><<<grid, block, 0, st>>>(ip, sp, vp, qp, xp, rp,
-                                                                       ap, op, n_rows, F);
-    }
+    err = launch_q8<__nv_bfloat16, false>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp,
+                                          max_edges, n_rows, F, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// x [N, F] in dtype (0 = float32, 1 = bfloat16), rs [N] f32; writes q [N,
+// F] int8 and the absmax (one f32) on the device. n_items: N * F / 8 with
+// vec8 (F % 8 == 0 and x 16-byte aligned), else N * F; per_row: items a
+// row; part: n_parts uint32 of scratch, one per block of each pass. Two
+// launches.
+extern "C" int sgf_quantize_absmax(const void* x, const void* rs, void* part, int n_parts,
+                                   void* absmax, void* q, int n_items, int per_row, int dtype,
+                                   int vec8, void* stream) {
+  const float* rp = static_cast<const float*>(rs);
+  unsigned* pp = static_cast<unsigned*>(part);
+  float* ap = static_cast<float*>(absmax);
+  int8_t* qp = static_cast<int8_t*>(q);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_parts < 1 || n_items < 1 || per_row < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned items = static_cast<unsigned>(n_items);
+  const unsigned row = static_cast<unsigned>(per_row);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_quantize<float>(x, rp, pp, n_parts, ap, qp, items, row, vec8, st);
+  } else if (dtype == 1) {
+    err = launch_quantize<__nv_bfloat16>(x, rp, pp, n_parts, ap, qp, items, row, vec8, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 // g and x in one type (dtype); dv is f32.

@@ -27,7 +27,8 @@ The JAX package builds its transpose plan the same way on every graph
 A graph built with ``slab_dtype="int8"`` aggregates through the int8 kernel
 (:func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_q8`): x is pre-scaled by
 ``rs = 1/sqrt(d_in)`` (the GCN weights factor as ``rs[src] * rs[dst]``),
-quantised to int8 with one absmax per call, summed exactly in int32 and
+quantised to int8 with one absmax per call (the quantiser kernel), summed
+exactly in int32 through the same hub plans as the bf16 aggregation and
 scaled back, the self-loop term unquantised; the gradient quantises the
 cotangent the same way. This is the JAX package's ``SlabSpMM.slab_dtype ==
 'int8'``, with two differences that ``ROADMAP.md`` §3 lists: the port
@@ -159,7 +160,8 @@ class Graph:
             csr_t = csr
             plans = (plans[0], plans[0])
         if self.slab_dtype == "int8":
-            return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs)
+            return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs, *plans,
+                                                     self.hub_edges)
         return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans, self.hub_edges)
 
     def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

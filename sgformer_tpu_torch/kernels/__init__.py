@@ -20,6 +20,7 @@ def reset_launch_counts() -> None:
     spmm.ev_launches = 0
     spmm.sddmm_launches = 0
     spmm.q8_launches = 0
+    spmm.quantize_launches = 0
     attention.reduce_launches = 0
     attention.apply_launches = 0
     attention.bwd_reduce_launches = 0
@@ -28,7 +29,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset. ``csr_spmm``,
-    ``csr_spmm_ev`` and ``csr_spmm_q8`` count forward (A @ x) and backward
+    ``csr_spmm_ev``, ``csr_spmm_q8`` and ``quantize_absmax`` (one a
+    ``csr_spmm_q8`` call, on x or on g) count forward (A @ x) and backward
     (A^T @ g) launches alike."""
     return {
         "csr_spmm": spmm.launches,
@@ -39,5 +41,6 @@ def launch_counts() -> dict:
         "csr_spmm_ev": spmm.ev_launches,
         "sddmm": spmm.sddmm_launches,
         "csr_spmm_q8": spmm.q8_launches,
+        "quantize_absmax": spmm.quantize_launches,
         **probe_launches,
     }

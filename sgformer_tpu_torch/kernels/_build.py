@@ -42,7 +42,9 @@ _SIGNATURES = {
     "spmm": {
         "sgf_csr_spmm": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "sgf_sddmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                            _I, _I, _P],
+        "sgf_quantize_absmax": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     },
     "linear_attention": {
         "sgf_la_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,

@@ -18,8 +18,11 @@ raises; on CPU tensors it runs its plain version:
   :func:`sgformer_tpu_torch.ops.sddmm.sddmm`.
 - :func:`csr_spmm_q8`, the int8 GCN aggregation of a ``slab_dtype="int8"``
   graph, replaces the int8 branch of ``kernels/slab_spmm.py::_ssel_kernel``
-  with ``_apply_side``'s epilogue; plain version
-  :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`.
+  with ``_apply_side``'s quantiser and epilogue: :func:`quantize_absmax`,
+  the absmax int8 quantiser (plain version
+  :func:`sgformer_tpu_torch.ops.spmm.quantize_absmax`, which it equals bit
+  for bit), then :func:`csr_spmm_q8_apply`, the integer sums and the
+  epilogue; plain version :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`.
 
 :func:`csr_spmm_autograd`, :func:`csr_spmm_ev_autograd` and
 :func:`csr_spmm_q8_autograd` are the differentiable forms. The gradient of
@@ -30,10 +33,12 @@ the transpose is A's own CSR, but runtime values belong to directed edges,
 so the per-edge-value gradient always reads the values permuted into the
 transposed order.
 
-Hub rows: :func:`csr_spmm` and :func:`csr_spmm_ev` split every row of more
-than ``segment_edges`` (:data:`HUB_EDGES` by default) in-edges into segments
-of at most that many edges, each summed by a warp of its own, and add each
-row's segment sums in a fixed order in a second pass (see ``csrc/spmm.cu``).
+Hub rows: :func:`csr_spmm`, :func:`csr_spmm_ev` and :func:`csr_spmm_q8`
+split every row of more than ``segment_edges`` (:data:`HUB_EDGES` by
+default) in-edges into segments of at most that many edges, each summed by a
+warp of its own, and add each row's segment sums in a fixed order in a
+second pass (see ``csrc/spmm.cu``; the int8 sums are integers, exact in any
+order).
 The plan, :func:`hub_segments` of the CSR's ``indptr``, is built once per
 graph on the host by ``preprocess_graph`` and kept on the ``Graph`` beside
 each CSR (``hub_segments``, ``t_hub_segments``, ...), with the segment
@@ -45,10 +50,11 @@ kernel is given: a plan passed without one is refused (it cannot be read
 back to check), since one built for a longer segment would leave the rows
 between the two lengths unwritten.
 
-``launches``, ``ev_launches``, ``sddmm_launches`` and ``q8_launches`` count
-the wrappers' calls that launched their kernels (one, whether or not the
-hub rows' second pass ran), forward and backward alike; set them to 0 to
-start a count.
+``launches``, ``ev_launches``, ``sddmm_launches``, ``q8_launches`` and
+``quantize_launches`` count the wrappers' calls that launched their kernels
+(one a call, whether or not the hub rows' second pass ran, and one for the
+quantiser's two passes), forward and backward alike; set them to 0 to start
+a count.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ import torch
 
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
-from sgformer_tpu_torch.ops.spmm import quantize_absmax
+from sgformer_tpu_torch.ops.spmm import quantize_absmax as quantize_absmax_plain
 from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm_edge_values as spmm_edge_values_plain
 from sgformer_tpu_torch.ops.spmm import spmm_q8 as spmm_q8_plain
@@ -68,6 +74,7 @@ launches = 0
 ev_launches = 0
 sddmm_launches = 0
 q8_launches = 0
+quantize_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,6 +82,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # many edges, one warp each: on the H100, on the JAX package's power-law
 # bench graph, 128 edges (4,894 segments) timed best of 64 to 1,024
 HUB_EDGES = 128
+
+# the quantiser: blocks of each of its two passes (at most)
+QUANTIZE_BLOCKS = 1024
 
 
 def hub_segments(indptr, max_edges: int = HUB_EDGES) -> np.ndarray:
@@ -257,6 +267,47 @@ def csr_spmm_ev(
     return out
 
 
+def quantize_absmax(x: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The absmax int8 quantisation of ``x`` pre-scaled by ``rs``, bit for
+    bit :func:`sgformer_tpu_torch.ops.spmm.quantize_absmax` (the JAX
+    ``_apply_side``'s): ``xs = bf16(bf16(x) * bf16(rs)[:, None])``, ``s =
+    max(max|xs|, 1e-30)`` (NaN if x holds one) and ``q = int8(clamp(rint(xs
+    * (127/s)), -127, 127))``, rounding half to even.
+
+    x: [N, F] float32 or bfloat16, N * F > 0; rs: [N] float32. Returns (q
+    [N, F] int8, s 0-d float32 on x's device: the host never reads it). On
+    the card two launches (``csrc/spmm.cu``: the blocks' partial maxima,
+    then every block reduces them and quantises its share, walking x from
+    the end, where the first ended)."""
+    global quantize_launches
+    if x.dim() != 2 or rs.shape != (x.shape[0],):
+        raise ValueError(f"x must be [N, F] and rs [N], got {tuple(x.shape)}, "
+                         f"{tuple(rs.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if _check_device(x, rs) == "cpu":
+        return quantize_absmax_plain(x, rs)
+    if rs.dtype != torch.float32 or not rs.is_contiguous():
+        raise TypeError("rs must be a contiguous float32 tensor")
+    x = x.contiguous()
+    n, f = x.shape
+    vec8 = f % 8 == 0 and x.data_ptr() % 16 == 0
+    items, per_row = (n * f // 8, f // 8) if vec8 else (n * f, f)
+    if not 0 < items < 2 ** 31:
+        raise ValueError(f"x must be non-empty with fewer than 2^31 items, got {tuple(x.shape)}")
+    parts = min(QUANTIZE_BLOCKS, -(-items // 256))
+    part = torch.empty(parts, dtype=torch.int32, device=x.device)
+    q = torch.empty(n, f, dtype=torch.int8, device=x.device)
+    s = torch.empty((), dtype=torch.float32, device=x.device)
+    err = _build.library("spmm").sgf_quantize_absmax(
+        x.data_ptr(), rs.data_ptr(), part.data_ptr(), parts, s.data_ptr(), q.data_ptr(), items,
+        per_row, _DTYPES[x.dtype], int(vec8), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "quantize_absmax")
+    quantize_launches += 1
+    return q, s
+
+
 def csr_spmm_q8_apply(
     q: torch.Tensor,
     s: torch.Tensor,
@@ -267,6 +318,8 @@ def csr_spmm_q8_apply(
     weight: torch.Tensor,
     rs: torch.Tensor,
     out_dtype: torch.dtype,
+    segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
 ) -> torch.Tensor:
     """The kernel of :func:`csr_spmm_q8` on rows already quantised:
     ``out[i] = ((acc[i] * (s/127)) * rs[i]) + w_self[i] * x_self[i]`` with
@@ -275,8 +328,10 @@ def csr_spmm_q8_apply(
 
     q: [N, F] int8; s: 0-d float32 (read by the kernel from the device);
     x_self: [N, F] bfloat16; rs: [N] float32; weight: [E] float32, read at
-    self edges only. The result is [N, F] of ``out_dtype`` (float32 or
-    bfloat16). Plain version :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`.
+    self edges only. ``segments`` and ``segment_edges``: the CSR's hub plan
+    and its segment length, as in :func:`csr_spmm`. The result is [N, F]
+    of ``out_dtype`` (float32 or bfloat16). Plain version
+    :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`.
     """
     global q8_launches
     n = indptr.shape[0] - 1
@@ -288,6 +343,7 @@ def csr_spmm_q8_apply(
                         f"bfloat16, got {q.dtype}, {x_self.dtype}, {out_dtype}")
     if rs.shape != (n,) or s.numel() != 1:
         raise ValueError(f"rs must be [{n}] and s one value")
+    _segment_length(segments, segment_edges)
     if _check_device(q, s, x_self, indptr, edge_src, edge_dst, weight, rs) == "cpu":
         return spmm_q8_apply_plain(q, s, x_self, edge_src, edge_dst, weight, rs, n, out_dtype)
     _check_csr(indptr, edge_src, weight=weight)
@@ -298,10 +354,16 @@ def csr_spmm_q8_apply(
     f = q.shape[1]
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if n and f:
+        segments, length = _plan(segments, indptr, segment_edges)
+        n_seg = segments.shape[0]
+        part = torch.empty(n_seg, f, dtype=torch.int32, device=q.device) if n_seg else None
+        wpart = torch.empty(n_seg, dtype=torch.float32, device=q.device) if n_seg else None
         err = _build.library("spmm").sgf_csr_spmm_q8(
             indptr.data_ptr(), edge_src.data_ptr(), weight.data_ptr(), q.data_ptr(),
-            x_self.data_ptr(), rs.data_ptr(), s.data_ptr(), out.data_ptr(), n, f,
-            _DTYPES[out_dtype], _aligned(f, q, x_self, out),
+            x_self.data_ptr(), rs.data_ptr(), s.data_ptr(), out.data_ptr(),
+            segments.data_ptr() if n_seg else None, n_seg,
+            part.data_ptr() if n_seg else None, wpart.data_ptr() if n_seg else None, length, n,
+            f, _DTYPES[out_dtype], _aligned(f, q, x_self, out),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(err, "csr_spmm_q8")
@@ -316,6 +378,8 @@ def csr_spmm_q8(
     edge_dst: torch.Tensor,
     weight: torch.Tensor,
     rs: torch.Tensor,
+    segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
 ) -> torch.Tensor:
     """The int8 GCN aggregation of a graph whose weights factor as
     ``weight[e] = rs[src_e] * rs[dst_e]`` (self edges aside):
@@ -323,20 +387,23 @@ def csr_spmm_q8(
     ``out[i] = rs[i] * (s/127) * sum_{e into i, src != i} q[src_e]
     + sum_{e into i, src == i} weight[e] * x_bf16[i]``
 
-    with ``(q, s) = quantize_absmax(x, rs)``, the plain quantiser (a device
-    scalar s, no host sync), then the kernel. x: [N, F] float32 or bfloat16
-    (any F); the result has x's type. On CPU tensors the whole is the plain
+    with ``(q, s) = quantize_absmax(x, rs)``, the quantiser kernel (a device
+    scalar s, no host sync), then the aggregation kernel. x: [N, F] float32
+    or bfloat16 (any F); the result has x's type. ``segments`` and
+    ``segment_edges``: the CSR's hub plan and its segment length, as in
+    :func:`csr_spmm`. On CPU tensors the whole is the plain
     :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`."""
     n = indptr.shape[0] - 1
     if x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _segment_length(segments, segment_edges)
     if _check_device(x, indptr, edge_src, edge_dst, weight, rs) == "cpu":
         return spmm_q8_plain(x, edge_src, edge_dst, weight, rs, n)
     q, s = quantize_absmax(x, rs)
     return csr_spmm_q8_apply(q, s, x.to(torch.bfloat16), indptr, edge_src, edge_dst, weight,
-                             rs, x.dtype)
+                             rs, x.dtype, segments, segment_edges)
 
 
 def sddmm(
@@ -473,28 +540,34 @@ class CsrSpmmQ8Function(torch.autograd.Function):
     ``_slab_core`` custom VJP defines it on an int8 plan: the backward
     quantises g with its own absmax, pre-scaled by the same ``rs`` (the
     transposed weights factor the same way), and runs :func:`csr_spmm_q8` on
-    the transposed CSR (A's own when A is symmetric). Only x gets a
-    gradient."""
+    the transposed CSR (A's own when A is symmetric) with its hub plan. Only
+    x gets a gradient."""
 
     @staticmethod
-    def forward(ctx, x, indptr, edge_src, edge_dst, weight,
-                t_indptr, t_edge_src, t_edge_dst, t_weight, rs):
-        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, rs)
-        return csr_spmm_q8(x, indptr, edge_src, edge_dst, weight, rs)
+    def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
+                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, rs, segment_edges):
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, rs, t_segments,
+                         segment_edges)
+        return csr_spmm_q8(x, indptr, edge_src, edge_dst, weight, rs, segments, segment_edges)
 
     @staticmethod
     def backward(ctx, g):
         dx = csr_spmm_q8(g.contiguous(), *ctx.transpose)
-        return (dx,) + (None,) * 9
+        return (dx,) + (None,) * 12
 
 
-def csr_spmm_q8_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
-                         rs: torch.Tensor) -> torch.Tensor:
+def csr_spmm_q8_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple, rs: torch.Tensor,
+                         segments: torch.Tensor | None = None,
+                         t_segments: torch.Tensor | None = None,
+                         segment_edges: int | None = None) -> torch.Tensor:
     """:func:`csr_spmm_q8` of ``x`` on ``csr`` = (indptr, edge_src,
     edge_dst, weight) with the separable factor ``rs``, differentiable in x;
     ``csr_t`` is the CSR of A^T in the same form (``csr`` itself when A is
-    symmetric). Where autograd does not record it is one
-    :func:`csr_spmm_q8` and saves nothing."""
+    symmetric); ``segments`` and ``t_segments`` their hub plans, both of
+    segments of ``segment_edges`` (built from indptr when None). Where
+    autograd does not record it is one :func:`csr_spmm_q8` and saves
+    nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return CsrSpmmQ8Function.apply(x, *csr, *csr_t, rs)
-    return csr_spmm_q8(x, *csr, rs)
+        return CsrSpmmQ8Function.apply(x, *csr, segments, *csr_t, t_segments, rs,
+                                       segment_edges)
+    return csr_spmm_q8(x, *csr, rs, segments, segment_edges)

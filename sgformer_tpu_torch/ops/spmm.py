@@ -12,9 +12,10 @@ on its bf16 path every partial sum is rounded to bf16 (``ops/spmm.py:44-52``
 of the JAX package); the port's bf16 aggregation is the more exact of the two.
 
 :func:`quantize_absmax` and :func:`spmm_q8` are the int8 aggregation of a
-graph built with ``slab_dtype="int8"``: the plain version of
-:func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_q8`, transcribed from the
-JAX package's ``kernels/slab_spmm.py::_apply_side``.
+graph built with ``slab_dtype="int8"``, transcribed from the JAX package's
+``kernels/slab_spmm.py::_apply_side``: the plain versions of the quantiser
+kernel :func:`sgformer_tpu_torch.kernels.spmm.quantize_absmax` (bit for
+bit) and of :func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_q8`.
 """
 
 from __future__ import annotations

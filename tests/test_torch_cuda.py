@@ -689,9 +689,11 @@ def test_csr_spmm_q8_kernel_matches_plain(cuda, dtype, width):
     g = _int8_graph(cuda)
     x = torch.randn(g.num_nodes, width, device=cuda).to(dtype)
     csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
-    before = spmm_kernel.q8_launches
+    before = (spmm_kernel.q8_launches, spmm_kernel.quantize_launches)
     got = csr_spmm_q8(x, *csr, g.rs)
-    assert spmm_kernel.q8_launches == before + 1 and got.dtype == dtype
+    assert (spmm_kernel.q8_launches, spmm_kernel.quantize_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert got.dtype == dtype
     want = spmm_q8(x, g.edge_src, g.edge_dst, g.gcn_weight, g.rs, g.num_nodes)
     assert torch.equal(got, want)
     assert torch.equal(got, csr_spmm_q8(x, *csr, g.rs))
@@ -733,6 +735,122 @@ def test_int8_gradient_runs_the_kernel_on_the_transpose(cuda, undirected):
              else (g.t_edge_src, g.t_edge_dst, g.t_weight))
     assert torch.equal(got, spmm_q8(cot, *csr_t, g.rs, n))
     assert torch.equal(out, spmm_q8(x.detach(), g.edge_src, g.edge_dst, g.gcn_weight, g.rs, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 40, 7])
+def test_quantizer_kernel_is_the_plain_version(cuda, dtype, width):
+    """q and s bit for bit the plain quantiser's, at N not a multiple of a
+    block's items (16-byte path at F = 256 and 40, one element a thread at
+    F = 7); one launch a call."""
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax
+
+    n = 5003
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    x = (3 * torch.randn(n, width, generator=gen, device=cuda)).to(dtype)
+    rs = torch.rand(n, generator=gen, device=cuda)
+    before = spmm_kernel.quantize_launches
+    q, s = spmm_kernel.quantize_absmax(x, rs)
+    assert spmm_kernel.quantize_launches == before + 1
+    q_p, s_p = quantize_absmax(x, rs)
+    assert q.dtype == torch.int8 and s.shape == () and s.dtype == torch.float32
+    assert torch.equal(s, s_p) and torch.equal(q, q_p)
+    assert q.abs().max().item() == 127
+
+
+@pytest.mark.parametrize("width", [8, 1])
+def test_quantizer_kernel_ties_zeros_and_nan(cuda, width):
+    """Values that land on .5 after the scale round half to even; an
+    all-zero x gives s = 1e-30 and q = 0; a NaN in x gives a NaN s, as the
+    plain version's amax does."""
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax
+
+    vals = torch.tensor([127.0, 0.5, 1.5, 2.5, 3.5, -0.5, -1.5, -2.5, 126.5, -126.5],
+                        device=cuda)
+    x = vals[:, None].repeat(1, width)
+    ones = torch.ones(len(vals), device=cuda)
+    q, s = spmm_kernel.quantize_absmax(x, ones)
+    assert s.item() == 127.0
+    assert q[:, 0].tolist() == [127, 0, 2, 2, 4, 0, -2, -2, 126, -126]
+    assert torch.equal(q, quantize_absmax(x, ones)[0])
+    zero = torch.zeros(300, width, dtype=torch.bfloat16, device=cuda)
+    q, s = spmm_kernel.quantize_absmax(zero, torch.ones(300, device=cuda))
+    assert s.item() == torch.tensor(1e-30).item() and not q.any()
+    x[3, width - 1] = float("nan")
+    s = spmm_kernel.quantize_absmax(x, ones)[1]
+    assert torch.isnan(s).item() and torch.isnan(quantize_absmax(x, ones)[1]).item()
+
+
+def _int8_hub_graph(cuda):
+    """:func:`_hub_graph`'s edges (a 10,000-edge row in A and in A^T),
+    aggregated in int8."""
+    rng = np.random.default_rng(7)
+    n = 12_000
+    fan = rng.permutation(np.arange(6, n))[:10_000]
+    ei = np.concatenate([np.stack([rng.integers(0, n, n), np.arange(n)]),
+                         np.stack([rng.integers(0, n, n), np.arange(n)]),
+                         np.stack([fan, np.full(10_000, 3)]),
+                         np.stack([np.full(10_000, 5), fan])], axis=1)
+    g = preprocess_graph(ei, n, undirected=False, chunk_dtype="bf16", slab_dtype="int8",
+                         device=cuda)
+    assert g.hub_segments[:, 0].unique().tolist() == [3]
+    return g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 40, 7])
+def test_csr_spmm_q8_walks_split_hub_rows(cuda, dtype, width):
+    """The int8 walk on a graph with a 10,000-edge row, through its hub
+    plan (8-byte gathers at F = 256 and 40, one byte at F = 7): bitwise the
+    plain version on the same quantised rows (integer sums, the same
+    epilogue), bitwise repeatable, one launch a call; without a plan (built
+    from indptr) the same."""
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8_apply
+
+    g = _int8_hub_graph(cuda)
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    x = torch.randn(n, width, device=cuda).to(dtype)
+    q, s = quantize_absmax(x, g.rs)
+    xb = x.to(torch.bfloat16)
+    before = spmm_kernel.q8_launches
+    got = spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype, g.hub_segments,
+                                        g.hub_edges)
+    assert spmm_kernel.q8_launches == before + 1
+    want = spmm_q8_apply(q, s, xb, g.edge_src, g.edge_dst, g.gcn_weight, g.rs, n, dtype)
+    assert torch.equal(got, want)
+    assert torch.equal(got, spmm_kernel.csr_spmm_q8_apply(
+        q, s, xb, *csr, g.rs, dtype, g.hub_segments, g.hub_edges))
+    assert torch.equal(got, spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype))
+
+
+def test_int8_gradient_splits_the_transposes_hub_row(cuda):
+    """Through ``Graph.propagate``: the forward on A's plan and the gradient
+    on A^T's (its own 10,000-edge row), each bitwise the plain int8
+    aggregation; two quantiser and two int8 launches."""
+    from sgformer_tpu_torch.ops.spmm import spmm_q8
+
+    g = _int8_hub_graph(cuda)
+    n = g.num_nodes
+    x = torch.randn(n, 256, device=cuda).to(torch.bfloat16).requires_grad_()
+    cot = torch.randn(n, 256, device=cuda).to(torch.bfloat16)
+    before = (spmm_kernel.q8_launches, spmm_kernel.quantize_launches)
+    out = g.propagate(x)
+    (got,) = torch.autograd.grad(out, x, cot)
+    assert (spmm_kernel.q8_launches - before[0], spmm_kernel.quantize_launches - before[1]) == (
+        2, 2)
+    assert torch.equal(out, spmm_q8(x.detach(), g.edge_src, g.edge_dst, g.gcn_weight, g.rs, n))
+    assert torch.equal(got, spmm_q8(cot, g.t_edge_src, g.t_edge_dst, g.t_weight, g.rs, n))
+
+
+def test_int8_hub_plan_without_its_length_raises(cuda):
+    g = _int8_hub_graph(cuda)
+    x = torch.randn(g.num_nodes, 64, device=cuda)
+    before = (spmm_kernel.q8_launches, spmm_kernel.quantize_launches)
+    with pytest.raises(ValueError, match="segment length"):
+        spmm_kernel.csr_spmm_q8(x, g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, g.rs,
+                                g.hub_segments)
+    assert (spmm_kernel.q8_launches, spmm_kernel.quantize_launches) == before
 
 
 def test_int8_train_steps_on_the_card_match_the_cpu(cuda):

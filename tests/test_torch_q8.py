@@ -15,7 +15,9 @@ Tolerances, with their reasons:
   quantise the same rows to the same int8 values; the JAX kernel rounds the
   integer partial sum to bf16 (2^-9 relative) before the epilogue: 4e-3 of
   max |out| with f32 input and output; with bf16 both also round the output
-  to bf16, where one ulp at the top of the range is 2^-7 of it: 1e-2;
+  to bf16, where one ulp at the top of the range is 2^-7 of it: 1e-2; the
+  same 4e-3 for the forward and the gradient through a hub plan on a small
+  power-law graph (the plan changes no value: the sums are integers);
 - a multi-slab plan: the JAX package sums the cross-slab edges unquantised
   in bf16 where the port quantises every non-self edge, so the two differ by
   up to the quantisation step on those edges: 2e-2 of the scale, forward
@@ -116,11 +118,14 @@ def _jax_int8(x, plan):
                                 interpret=True))
 
 
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
 @pytest.mark.parametrize("width", [32, 77, 128])
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
-def test_quantize_absmax_is_the_jax_quantiser(problem, width, dtype):
+def test_quantize_absmax_is_the_jax_quantiser(problem, width, dtype, impl):
     """The int8 rows and the absmax, bit for bit, against the JAX ops of
-    ``_apply_side`` (``slab_spmm.py:380-394``) on the same inputs."""
+    ``_apply_side`` (``slab_spmm.py:380-394``) on the same inputs: the plain
+    quantiser, and the kernel's wrapper, which on CPU tensors is the plain
+    version and launches nothing."""
     _, _, _, rs, n = problem
     x = np.random.default_rng(width).standard_normal((n, width)).astype(np.float32)
     xj = jnp.asarray(x, dtype=jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
@@ -130,7 +135,10 @@ def test_quantize_absmax_is_the_jax_quantiser(problem, width, dtype):
                       127.0).astype(jnp.int8)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
         torch.bfloat16 if dtype == "bfloat16" else torch.float32)
-    q, s = quantize_absmax(xt, torch.from_numpy(rs))
+    before = spmm_kernel.quantize_launches
+    quantise = quantize_absmax if impl == "plain" else spmm_kernel.quantize_absmax
+    q, s = quantise(xt, torch.from_numpy(rs))
+    assert spmm_kernel.quantize_launches == before
     assert q.dtype == torch.int8 and s.dim() == 0 and s.dtype == torch.float32
     np.testing.assert_array_equal(q.numpy(), np.asarray(q_want))
     assert s.item() == float(s_want)
@@ -321,6 +329,104 @@ def test_csr_spmm_q8_cpu_path_is_the_plain_version(problem):
         csr_spmm_q8(torch.zeros(n + 1, 4), *csr, torch.from_numpy(rs))
     with pytest.raises(TypeError):
         csr_spmm_q8(torch.zeros(n, 4, dtype=torch.float64), *csr, torch.from_numpy(rs))
+
+
+# -- hub plans on the int8 path ------------------------------------------------
+
+SEGMENT = 16  # short segments, so that the small graph has hub rows
+
+
+@pytest.fixture(scope="module")
+def powerlaw_problem():
+    """A small power-law int8 graph with rows of more than SEGMENT
+    in-edges, its hub plan of SEGMENT-edge segments, and the JAX int8 plan
+    of one slab (every edge local) on the same edges."""
+    ds = jax_synthetic_dataset(num_nodes=600, num_edges=3000, num_features=8, num_classes=3,
+                               seed=5, powerlaw=1.1)
+    g = preprocess_graph(ds.graph["edge_index"], 600, chunk_dtype="bf16", slab_dtype="int8",
+                         device="cpu")
+    plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, SEGMENT))
+    assert torch.diff(g.indptr).max().item() > 4 * SEGMENT and plan.shape[0] > 8
+    src, dst, w = (t.numpy() for t in (g.edge_src, g.edge_dst, g.gcn_weight))
+    jplan = build_slabs(src, dst, w, 600, stream_sel="bf16", sep_rs=g.rs.numpy(),
+                        slab_dtype="int8", **ONE_SLAB)
+    assert jplan.fwd.remote is None
+    return g, plan, jplan
+
+
+def test_csr_spmm_q8_with_a_hub_plan_matches_jax(powerlaw_problem):
+    """``csr_spmm_q8`` given the hub plan and its segment length: the plain
+    ``spmm_q8`` bit for bit, and the JAX int8 slab SpMM within the bf16
+    rounding of its integer partial (4e-3, as the single-slab test), forward
+    and through ``CsrSpmmQ8Function``'s gradient on the transpose's plan."""
+    g, plan, jplan = powerlaw_problem
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    x = np.random.default_rng(14).standard_normal((n, 48)).astype(np.float32)
+    cot = np.random.default_rng(15).standard_normal((n, 48)).astype(np.float32)
+    got = csr_spmm_q8(_t(x), *csr, g.rs, plan, SEGMENT)
+    assert torch.equal(got, spmm_q8(_t(x), *csr[1:], g.rs, n))
+    want = _jax_int8(x, jplan)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=4e-3 * np.abs(want).max())
+
+    xt = _t(x).requires_grad_()
+    out = csr_spmm_q8_autograd(xt, csr, csr, g.rs, plan, plan, SEGMENT)
+    (got_g,) = torch.autograd.grad(out, xt, _t(cot))
+    assert torch.equal(got_g, spmm_q8(_t(cot), *csr[1:], g.rs, n))
+    want_g = np.asarray(jax.grad(lambda xx: jnp.vdot(slab_spmm(
+        xx, jplan, compute_dtype=jnp.bfloat16, interpret=True).astype(jnp.float32),
+        jnp.asarray(cot)))(jnp.asarray(x)))
+    np.testing.assert_allclose(got_g.numpy(), want_g, rtol=0,
+                               atol=4e-3 * np.abs(want_g).max())
+
+
+def test_int8_hub_plan_is_taken_only_with_its_segment_length(powerlaw_problem):
+    """As ``csr_spmm``: a plan without the segment length it was built
+    with is refused by every int8 entry point, before anything runs."""
+    g, plan, _ = powerlaw_problem
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    x = torch.randn(n, 16, generator=torch.Generator().manual_seed(3))
+    q, s = quantize_absmax(x, g.rs)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_q8(x, *csr, g.rs, plan)
+    with pytest.raises(ValueError, match="segment length"):
+        spmm_kernel.csr_spmm_q8_apply(q, s, x.bfloat16(), *csr, g.rs, torch.float32, plan)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_q8_autograd(x.requires_grad_(), csr, csr, g.rs, plan, plan)
+    with pytest.raises(ValueError, match="segment_edges"):
+        csr_spmm_q8(x, *csr, g.rs, plan, 0)
+
+
+@pytest.mark.parametrize("kind,undirected", [("gcn", True), ("gcn", False), ("pyg", True)])
+def test_int8_propagate_hands_its_plans_on(monkeypatch, kind, undirected):
+    """``Graph.propagate`` on an int8 graph passes the CSR's hub plans and
+    their length to the int8 aggregation, as the bf16 path does: A's plan
+    for both on a symmetric graph, A's and A^T's otherwise, the PyG edges'
+    own for ``kind='pyg'``."""
+    rng = np.random.default_rng(9)
+    n = 300
+    ei = np.concatenate([rng.integers(0, n, (2, 1500)),
+                         np.stack([np.arange(10, 210), np.full(200, 4)])], axis=1)
+    g = preprocess_graph(ei, n, undirected=undirected, chunk_dtype="bf16", slab_dtype="int8",
+                         with_pyg_norm=kind == "pyg", device="cpu")
+    seen = []
+
+    def record(x, csr, csr_t, rs, *plans):
+        seen.append((csr, csr_t, rs, plans))
+        return x
+
+    monkeypatch.setattr(spmm_kernel, "csr_spmm_q8_autograd", record)
+    g.propagate(torch.zeros(n, 4), kind=kind)
+    ((csr, csr_t, rs, (segments, t_segments, length)),) = seen
+    if kind == "pyg":
+        want = (g.pyg_hub_segments, g.pyg_hub_segments)
+        assert csr[1] is g.pyg_src
+    else:
+        want = (g.hub_segments, g.hub_segments if undirected else g.t_hub_segments)
+        assert csr[1] is g.edge_src and (csr_t is csr) == undirected
+    assert segments is want[0] and t_segments is want[1] and rs is g.rs
+    assert length == g.hub_edges and segments.shape[0] > 0
 
 
 # -- the slice: a small SGFormer on an int8 graph ------------------------------
