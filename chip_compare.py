@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Measure another checkout's package with ``chip_smoke.py``'s phases on one
+GPU: a change's parent, or a copy with one design change, on the same card
+in the same call as the change.
+
+    python3 chip_compare.py gat ROOT
+    python3 chip_compare.py edge-values ROOT
+
+ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
+(for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
+unpacked into a git-ignored directory); its kernels build into
+``ROOT/build/``. Imports nothing of JAX.
+
+``gat``: for a package whose GAT backward is ``csr_spmm_ev`` on the
+transposed CSR plus ``sddmm`` (before ``csr_spmm_ev_bwd``): on the
+power-law bench graph, that ``sddmm`` (called as that backward calls it,
+without a hub plan) and that dx (``csr_spmm_ev`` of g in bf16 with the
+values gathered into the transposed order) at GAT's two layer shapes, then
+this checkout's powerlaw-gat-train path (``chip_smoke.gat_train_phase``)
+with that package's launch counts (4 ``csr_spmm_ev`` + 2 ``sddmm`` a
+step). ``edge-values``: ROOT's own ``chip_smoke.edge_value_phase`` on the
+arxiv graph.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_phases(path: str):
+    """chip_smoke.py at ``path`` as a module (its imports of the package
+    resolve to the first ``sgformer_tpu_torch`` on ``sys.path``)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_phases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def main() -> int:
+    if len(sys.argv) != 3 or sys.argv[1] not in ("gat", "edge-values"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: CUDA is not available; this script needs a GPU", file=sys.stderr)
+        return 1
+    from sgformer_tpu_torch import kernels, preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import spmm as k
+
+    if not kernels.__file__.startswith(root):
+        raise AssertionError(f"the package came from {kernels.__file__}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs = load_phases(os.path.join(HERE if mode == "gat" else root, "chip_smoke.py"))
+    print(cs.card_line(), flush=True)
+    _build.build_all(("spmm",))  # GAT's kernels
+
+    if mode == "edge-values":
+        ds = synthetic_dataset("synth-arxiv", seed=0)
+        graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+        cs.edge_value_phase(graph, {}, "cuda")
+        return 0
+
+    keys = kernels.launch_counts().keys()
+    if "csr_spmm_ev_bwd" in keys:
+        raise ValueError("this package has csr_spmm_ev_bwd: its chip_smoke.py measures it")
+    cs.GAT_STEP_LAUNCHES = dict(dict.fromkeys(keys, 0), csr_spmm_ev=4, sddmm=2)
+    cs.GAT_FORWARD_LAUNCHES = dict(dict.fromkeys(keys, 0), csr_spmm_ev=2)
+    pl = synthetic_dataset(**cs.POWERLAW_GRAPH)
+    g = preprocess_graph(pl.graph["edge_index"], pl.num_nodes)
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for heads, d in cs.GAT_LAYERS:
+        x = torch.randn(g.num_nodes, heads, d, generator=gen, device="cuda")
+        gg = torch.randn(g.num_nodes, heads, d, generator=gen, device="cuda")
+        v = torch.rand(g.num_edges, heads, generator=gen, device="cuda")
+        sddmm_ms = cs.time_ms(lambda: k.sddmm(gg, x, *csr))
+        dx_ms = cs.time_ms(lambda: k.csr_spmm_ev(
+            gg.to(torch.bfloat16), g.t_indptr, g.t_edge_src, g.t_edge_dst,
+            v.index_select(0, g.t_perm.long()), torch.float32, g.t_hub_segments, g.hub_edges))
+        cs.log(f"power-law H={heads} D={d}: sddmm {sddmm_ms:.4f} ms (no hub plan), csr_spmm_ev dx "
+               f"with its cast and gather of v {dx_ms:.4f} ms, both {sddmm_ms + dx_ms:.4f} ms")
+        del x, gg, v
+        torch.cuda.empty_cache()
+    cs.gat_train_phase(pl, dataclasses.replace(g, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

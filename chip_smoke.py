@@ -35,20 +35,29 @@ JAX package. Phases, each failing loudly:
    same step through the plain versions (same weights, same dropout masks),
    the launches of one step, ``time_test`` over 20 steps (the loss must
    fall) and a profile of one step;
-7. the per-edge-value SpMM and its SDDMM gradient against their plain
-   versions at the shapes of GAT's two layers (H = 2, D = 256 and H = 1,
-   D = 40), in bf16 and f32, with time, bound, plain and library time;
+7. the per-edge-value SpMM, its dv alone (``sddmm``, through the hub plan)
+   and its whole gradient (``csr_spmm_ev_bwd``: dx and dv from one walk of
+   the transposed CSR) against their plain versions at the shapes of GAT's
+   two layers (H = 2, D = 256 and H = 1, D = 40): the first two in bf16
+   and f32; the gradient on f32 x and g with bf16 messages (as GAT runs)
+   and f32 messages, its dv bitwise ``sddmm``'s, its dx bitwise the parent
+   formulation's where one lane group spans a head, bitwise repeatable,
+   with time, read-once bound, plain, unfused-pair and library time and
+   gather rate;
 8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
    powerlaw 1.1), width 256, bf16 and f32, through the graph's hub plan (rows
    of more than ``HUB_EDGES`` in-edges split over several warps), with the
    segment length swept for the record; ``csr_spmm_q8`` (bf16, as in 10) on
    the same graph with and without its hub plan; then powerlaw-train, the
    bench model on that graph behind ``Trainer`` as in 6 (6 ``csr_spmm`` a
-   step);
+   step); ``csr_spmm_ev_bwd`` and ``sddmm`` there at GAT's two layer shapes
+   with and without the hub plans, and ``sddmm``'s own counted run; then
+   powerlaw-gat-train, 9's GAT on that graph through the same checks;
 9. arxiv-gat-train: ``GAT(hidden 256, 2 layers, 2 heads, dropout 0.5, BN)``
    with bf16 messages behind ``Trainer`` with the CLI's baseline optimiser
    (lr 0.01, weight decay 5e-3): one step's loss and gradients against the
-   plain step, the launches of one step and of one ``eval_step``, the eval
+   plain step, the launches of one step (2 ``csr_spmm_ev``, 2
+   ``csr_spmm_ev_bwd``, no ``sddmm``) and of one ``eval_step``, the eval
    logits against the plain forward, ``time_test`` over 20 steps (the loss
    must fall) and a profile of one step;
 10. the int8 aggregation at the arxiv shape, x bf16 and f32: the quantiser
@@ -73,7 +82,8 @@ JAX package. Phases, each failing loudly:
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 9 and 11 launched a probe.
+   also shows that no path of 5, 6, 8, 9 and 11 launched a probe; the
+   gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -131,8 +141,9 @@ PROBES = ("gather_rows", "gather_tiles", "slab_variant")
 # launches of one train step of the bench model (3 GraphConv layers)
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
-                 "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "sddmm": 0,
-                 "csr_spmm_q8": 0, "quantize_absmax": 0, **dict.fromkeys(PROBES, 0)}
+                 "linear_attention_bwd_apply": 1, "csr_spmm_ev": 0, "csr_spmm_ev_bwd": 0,
+                 "sddmm": 0, "csr_spmm_q8": 0, "quantize_absmax": 0,
+                 **dict.fromkeys(PROBES, 0)}
 # launches of one forward of the bench model (serving, evaluation)
 FORWARD_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=3, linear_attention_bwd_reduce=0,
                         linear_attention_bwd_apply=0)
@@ -141,13 +152,14 @@ FORWARD_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=3, linear_attention_bwd_reduce=0
 GAT_CONFIG = dict(hidden_channels=256, out_channels=40, num_layers=2, heads=2,
                   out_heads=1, dropout=0.5, use_bn=True)
 GAT_TRAIN = dict(lr=0.01, trans_weight_decay=5e-3, gnn_weight_decay=5e-3)
-# launches of one GAT train step (2 aggregations forward, 2 dx on the
-# transposed order, 2 dv) and of one eval forward
-GAT_STEP_LAUNCHES = {"csr_spmm": 0, "linear_attention_reduce": 0,
-                     "linear_attention_apply": 0, "linear_attention_bwd_reduce": 0,
-                     "linear_attention_bwd_apply": 0, "csr_spmm_ev": 4, "sddmm": 2,
-                     "csr_spmm_q8": 0, "quantize_absmax": 0, **dict.fromkeys(PROBES, 0)}
-GAT_FORWARD_LAUNCHES = dict(GAT_STEP_LAUNCHES, csr_spmm_ev=2, sddmm=0)
+# (heads, D) of GAT_CONFIG's two aggregations
+GAT_LAYERS = ((2, 256), (1, 40))
+# launches of one GAT train step (2 aggregations forward, 2 backward walks
+# of the transposed order, each giving dx and dv) and of one eval forward
+GAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=0, linear_attention_reduce=0,
+                         linear_attention_apply=0, linear_attention_bwd_reduce=0,
+                         linear_attention_bwd_apply=0, csr_spmm_ev=2, csr_spmm_ev_bwd=2)
+GAT_FORWARD_LAUNCHES = dict(GAT_STEP_LAUNCHES, csr_spmm_ev_bwd=0)
 # one GAT train step through the kernels against the same step through the
 # plain versions: the forward sends the same bf16 messages and sums them in
 # f32 in another order (loss 1e-4); the plain backward (torch autograd of
@@ -182,7 +194,7 @@ POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
 HUB_SWEEP = (64, 128, 256, 512, 1024)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
-    ("port kernels", ("la_", "csr_spmm", "sddmm", "absmax_partial", "quantize_kernel")),
+    ("port kernels", ("la_", "csr_spmm", "ev_bwd", "absmax_partial", "quantize_kernel")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("reductions", ("reduce_kernel",)),
     ("dtype copies", ("copy_kernel",)),
@@ -533,11 +545,12 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
 
 
 def edge_value_phase(graph, results: dict, dev: str) -> None:
-    """csr_spmm_ev and sddmm at the shapes of GAT's two layers on the arxiv
-    graph, against their plain versions, with time and bound; the library
-    yardsticks compute one head per call (``torch.sparse.mm`` on a CSR
-    tensor of that head's values, ``torch.sparse.sampled_addmm`` on A's
-    pattern), so at H = 2 they are timed as one call per head."""
+    """csr_spmm_ev, sddmm and csr_spmm_ev_bwd at the shapes of GAT's two
+    layers on the arxiv graph, against their plain versions, with time and
+    bound; the library yardsticks compute one head per call
+    (``torch.sparse.mm`` on a CSR tensor of that head's values,
+    ``torch.sparse.sampled_addmm`` on A's pattern), so at H = 2 they are
+    timed as one call per head."""
     from sgformer_tpu_torch.kernels.spmm import csr_spmm_ev, sddmm
     from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values
@@ -547,7 +560,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
     csr = (graph.indptr, src, dst)
     segs = (graph.hub_segments, graph.hub_edges)
     gen = torch.Generator(device=dev).manual_seed(4)
-    for layer, (heads, d) in enumerate(((2, 256), (1, 40))):
+    for layer, (heads, d) in enumerate(GAT_LAYERS):
         x32 = torch.randn(n, heads, d, generator=gen, device=dev)
         g32 = torch.randn(n, heads, d, generator=gen, device=dev)
         v = torch.rand(e, heads, generator=gen, device=dev)
@@ -582,15 +595,16 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
 
-            # the values' gradient: g and x as the forward received them
-            dv = sddmm(g, x, *csr)
+            # the values' gradient alone (the dv mode of the backward walk):
+            # g and x as the forward received them
+            dv = sddmm(g, x, *csr, *segs)
             want = sddmm_plain(g.float(), x.float(), src, dst)
             torch.cuda.synchronize()
             err = check_rel(f"sddmm {tag}", dv, want, REDUCE_REL_TOL)
-            if not torch.equal(dv, sddmm(g, x, *csr)):
+            if not torch.equal(dv, sddmm(g, x, *csr, *segs)):
                 raise AssertionError("sddmm is not bitwise repeatable")
             del dv, want
-            ms = time_ms(lambda: sddmm(g, x, *csr))
+            ms = time_ms(lambda: sddmm(g, x, *csr, *segs))
             plain_ms = time_ms(lambda: sddmm_plain(g.float(), x.float(), src, dst), iters=5)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
@@ -610,7 +624,148 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
             del x, g, mats, cols, gf, xt, pattern
+        # the whole gradient as GAT runs it: f32 x and g, bf16 messages; and
+        # with f32 messages
+        for msg in (torch.bfloat16, torch.float32):
+            edge_value_bwd(graph, results, "csr_spmm_ev_bwd", layer, g32, x32, v, msg)
+        del x32, g32, v
         torch.cuda.empty_cache()
+
+
+def edge_value_bwd(graph, results: dict, key: str, layer: int, g, x, v, msg,
+                   no_plan: bool = False) -> None:
+    """csr_spmm_ev_bwd through the transposed CSR's hub plan on the
+    cotangent g, x and the values v: dx and dv against the plain backward
+    (1e-5 of each one's scale), dv bitwise sddmm's (the dv mode, through the
+    dst-sorted CSR's plan), dx bitwise the parent formulation's (csr_spmm_ev
+    of g in the message type on the transposed order with v[t_perm]) where
+    one lane group spans a head, each bitwise repeatable; its time beside
+    its read-once bound, the plain version's, the unfused pair's (that
+    csr_spmm_ev with its cast and gather of v, then sddmm), the library's
+    (``torch.sparse.mm`` on A^T and ``sampled_addmm``, per head), and its
+    gather rate. ``no_plan``: also both modes without their plans (one warp
+    a row), their results checked against the planned ones."""
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm_ev, csr_spmm_ev_bwd, sddmm
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values_backward
+
+    n, e = graph.num_nodes, graph.num_edges
+    heads, d = x.shape[1], x.shape[2]
+    csr = (graph.indptr, graph.edge_src, graph.edge_dst)
+    csr_t = (graph.t_indptr, graph.t_edge_src, graph.t_edge_dst, graph.t_perm)
+    plan = (graph.hub_segments, graph.hub_edges)
+    t_plan = (graph.t_hub_segments, graph.hub_edges)
+    name, elt = DTYPE_NAME[msg], x.element_size()
+    tag = f"{key} {DTYPE_NAME[x.dtype]} x, {name} messages, H={heads} D={d}"
+    run = lambda: csr_spmm_ev_bwd(g, x, v, *csr_t, msg, *t_plan)  # noqa: E731
+
+    def pair():
+        dx = csr_spmm_ev(g.to(msg), *csr_t[:3], v.index_select(0, graph.t_perm.long()), x.dtype,
+                         *t_plan)
+        return dx, sddmm(g, x, *csr, *plan)
+
+    dx, dv = run()
+    want_dx, want_dv = spmm_edge_values_backward(g, x, v, graph.t_edge_src, graph.t_edge_dst,
+                                                 graph.t_perm, msg)
+    torch.cuda.synchronize()
+    err = max(check_rel(f"{tag} dx", dx, want_dx, REDUCE_REL_TOL),
+              check_rel(f"{tag} dv", dv, want_dv, REDUCE_REL_TOL))
+    del want_dx, want_dv
+    pair_dx, pair_dv = pair()
+    if not torch.equal(dv, pair_dv):
+        raise AssertionError(f"{tag}: dv is not bitwise the dv-mode sddmm's")
+    chain_kept = d % 8 != 0 or d > 128
+    same_dx = torch.equal(dx, pair_dx)
+    if chain_kept and not same_dx:
+        raise AssertionError(f"{tag}: dx is not bitwise the parent formulation's")
+    log(f"{tag}: dv bitwise sddmm's; dx bitwise the parent formulation's: {same_dx} "
+        f"({'one lane group a head' if chain_kept else 'lane groups, f32 order'})")
+    del pair_dx, pair_dv
+    again = run()
+    if not (torch.equal(again[0], dx) and torch.equal(again[1], dv)):
+        raise AssertionError(f"{tag} is not bitwise repeatable")
+    del again
+    ms = time_ms(run)
+    pair_ms = time_ms(pair)
+    plain_ms = time_ms(lambda: spmm_edge_values_backward(
+        g, x, v, graph.t_edge_src, graph.t_edge_dst, graph.t_perm, msg), iters=5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        v_t = v.index_select(0, graph.t_perm.long())
+        mats = [torch.sparse_csr_tensor(graph.t_indptr, graph.t_edge_src, v_t[:, h].to(msg),
+                                        size=(n, n)) for h in range(heads)]
+        pattern = torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
+                                          torch.zeros(e, device=x.device), size=(n, n))
+    gm = [g[:, h].to(msg).contiguous() for h in range(heads)]
+    gf = [g[:, h].float().contiguous() for h in range(heads)]
+    xt = [x[:, h].float().t() for h in range(heads)]
+    library_ms = library_time(
+        f"torch.sparse.mm on A^T + sampled_addmm {tag}",
+        lambda: ([torch.sparse.mm(a, c) for a, c in zip(mats, gm)],
+                 [torch.sparse.sampled_addmm(pattern, a, b, beta=0.0) for a, b in zip(gf, xt)]))
+    del v_t, mats, pattern, gm, gf, xt
+    # x and g read once, dx written once, v read and dv written once, the
+    # transposed CSR's columns, perm and indptr; a dot and a weighted sum
+    # of D columns per edge and head
+    nbytes = 3 * n * heads * d * elt + 2 * e * heads * 4 + 2 * e * 4 + (n + 1) * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * e * heads * d, torch.float32)
+    rate = e * heads / ms * 1e3  # rows of g gathered a second, D * elt bytes each
+    log(f"{tag}: {ms:.4f} ms (unfused pair {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sparse.mm + sampled_addmm x{heads} {library_ms} ms, bound {b_ms:.4f} ms by {b_by}); "
+        f"gathers {rate / 1e9:.3f} G rows/s of {d * elt} bytes, {rate * d * elt / 1e9:.1f} GB/s")
+    r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=library_ms, pair_ms=pair_ms, grows_per_s=rate / 1e9,
+             gather_gb_per_s=rate * d * elt / 1e9)
+    if no_plan:
+        one_warp = torch.empty(0, 3, dtype=torch.int32, device=x.device)
+        deg = int(torch.diff(graph.indptr).max().item())
+        t_deg = int(torch.diff(graph.t_indptr).max().item())
+        got = csr_spmm_ev_bwd(g, x, v, *csr_t, msg, one_warp, t_deg)
+        if not torch.equal(got[1], dv):
+            raise AssertionError(f"{tag}: dv without the hub plan differs")
+        check_rel(f"{tag} dx without the hub plan", got[0], dx, REDUCE_REL_TOL)
+        if not torch.equal(sddmm(g, x, *csr, one_warp, deg), dv):
+            raise AssertionError(f"{tag}: sddmm without the hub plan differs")
+        del got
+        r["no_plan_ms"] = time_ms(lambda: csr_spmm_ev_bwd(g, x, v, *csr_t, msg, one_warp, t_deg))
+        r["sddmm_ms"] = time_ms(lambda: sddmm(g, x, *csr, *plan))
+        r["sddmm_no_plan_ms"] = time_ms(lambda: sddmm(g, x, *csr, one_warp, deg))
+        log(f"{tag} without the hub plans (one warp a row; in-degree up to {deg}, out-degree "
+            f"up to {t_deg}): {r['no_plan_ms']:.4f} ms; sddmm {r['sddmm_ms']:.4f} ms with the "
+            f"plan, {r['sddmm_no_plan_ms']:.4f} ms without")
+    results[(key, name, layer)] = r
+    del dx, dv
+
+
+def powerlaw_edge_value_phase(graph, results: dict, dev: str) -> None:
+    """csr_spmm_ev_bwd and sddmm on the power-law graph at GAT's two layer
+    shapes (f32 x and g, bf16 messages), with and without the hub plans."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for layer, (heads, d) in enumerate(GAT_LAYERS):
+        x = torch.randn(graph.num_nodes, heads, d, generator=gen, device=dev)
+        g = torch.randn(graph.num_nodes, heads, d, generator=gen, device=dev)
+        v = torch.rand(graph.num_edges, heads, generator=gen, device=dev)
+        edge_value_bwd(graph, results, "csr_spmm_ev_bwd_powerlaw", layer, g, x, v,
+                       torch.bfloat16, no_plan=True)
+        del x, g, v
+        torch.cuda.empty_cache()
+
+
+def sddmm_run(graph, dev: str) -> int:
+    """sddmm's own counted run (no model path launches it): one call per
+    GAT layer shape through the graph's hub plan. Returns its launches."""
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.kernels.spmm import sddmm
+
+    kernels.reset_launch_counts()
+    for heads, d in GAT_LAYERS:
+        x = torch.randn(graph.num_nodes, heads, d, device=dev)
+        sddmm(x, x, graph.indptr, graph.edge_src, graph.edge_dst, graph.hub_segments,
+              graph.hub_edges)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["sddmm"] != len(GAT_LAYERS) or sum(counts.values()) != counts["sddmm"]:
+        raise AssertionError(f"sddmm's run: launch counts {counts}")
+    return counts["sddmm"]
 
 
 def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
@@ -753,8 +908,9 @@ def powerlaw_train_phase(ds, graph, dev: str) -> tuple:
                       scale_of, dev)
 
 
-def gat_train_phase(ds, graph, dev: str) -> tuple:
-    """arxiv-gat-train: GAT at the bench width behind ``Trainer``."""
+def gat_train_phase(ds, graph, dev: str, what: str = "gat") -> tuple:
+    """arxiv-gat-train (powerlaw-gat-train on the power-law graph): GAT at
+    the bench width behind ``Trainer``."""
     from sgformer_tpu_torch.nn import GAT
 
     cfg = GAT_CONFIG
@@ -762,7 +918,7 @@ def gat_train_phase(ds, graph, dev: str) -> tuple:
                 **{k: v for k, v in cfg.items() if k not in ("hidden_channels", "out_channels")},
                 generator=torch.Generator().manual_seed(0), device=dev)
     scale_of = {f"conv_{i}.bias": f"bn_{i}.bias" for i in range(cfg["num_layers"] - 1)}
-    return train_path("gat", model, ds, graph, GAT_TRAIN, GAT_STEP_LAUNCHES,
+    return train_path(what, model, ds, graph, GAT_TRAIN, GAT_STEP_LAUNCHES,
                       GAT_FORWARD_LAUNCHES, GAT_LOSS_RTOL, GAT_GRAD_RTOL,
                       (0.0, GAT_LOGITS_RTOL), scale_of, dev)
 
@@ -1227,6 +1383,12 @@ def main() -> int:
     q8_phase(dataclasses.replace(pl_graph, rs=torch.from_numpy(rs).cuda()), results, "cuda",
              key="csr_spmm_q8_powerlaw", dtypes=(torch.bfloat16,), no_plan=True)
     pl_step, _, pl_counts, _ = powerlaw_train_phase(pl, pl_graph, "cuda")
+    # GAT's backward kernels alone on the same graph, with and without the
+    # hub plans; then powerlaw-gat-train, GAT there with bf16 messages
+    powerlaw_edge_value_phase(pl_graph, results, "cuda")
+    sddmm_launches = sddmm_run(pl_graph, "cuda")
+    plg_step, _, plg_counts, _ = gat_train_phase(
+        pl, dataclasses.replace(pl_graph, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
     del pl, pl_graph, deg
     torch.cuda.empty_cache()
 
@@ -1244,6 +1406,13 @@ def main() -> int:
         log(f"{key} bf16 gather rate: {r['grows_per_s']:.3f} G rows/s of 256 bytes, "
             f"{r['gather_gb_per_s']:.1f} GB/s, against the gather_rows probe's "
             f"{probe['mrows_per_s'] / 1e3:.3f} G rows/s, {probe['gb_per_s']:.1f} GB/s")
+    for key in ("csr_spmm_ev_bwd", "csr_spmm_ev_bwd_powerlaw"):
+        for layer, (heads, d) in enumerate(GAT_LAYERS):
+            r = results[(key, "bf16", layer)]
+            log(f"{key} H={heads} D={d} gather rate: {r['grows_per_s']:.3f} G rows/s of {4 * d} "
+                f"bytes, {r['gather_gb_per_s']:.1f} GB/s, against the gather_rows probe's "
+                f"{probe['mrows_per_s'] / 1e3:.3f} G rows/s of 512 bytes, "
+                f"{probe['gb_per_s']:.1f} GB/s")
 
     via = "sgformer_tpu/kernels/spmm.py:34 via :253"
     sources = {
@@ -1259,13 +1428,17 @@ def main() -> int:
         "linear_attention_bwd_apply": ("sgformer_tpu_torch/csrc/linear_attention_bwd.cu",
                                        "sgformer_tpu/kernels/attention.py:209"),
         "csr_spmm_ev": ("sgformer_tpu_torch/csrc/spmm.cu", via),
-        "sddmm": ("sgformer_tpu_torch/csrc/spmm.cu", via),
+        "csr_spmm_ev_bwd": ("sgformer_tpu_torch/csrc/spmm.cu",
+                            "sgformer_tpu/kernels/spmm.py:294-303 (_spmm_ev_bwd: dx through "
+                            ":34 on the bwd plan, dv in XLA)"),
+        "sddmm": ("sgformer_tpu_torch/csrc/spmm.cu",
+                  "sgformer_tpu/kernels/spmm.py:301-303 (_spmm_ev_bwd's dv, XLA)"),
     }
     # each kernel's numbers in its main path's type at its first layer's
-    # shapes (GAT sends bf16 messages and reads f32 for dv); launches from
+    # shapes (GAT sends bf16 messages of f32 x; dv reads f32); launches from
     # the run of the path that uses it (time_test), with one train step and
-    # one forward beside them
-    main = {"csr_spmm_ev": ("bf16", 0), "sddmm": ("f32", 0)}
+    # one forward beside them; sddmm, which no path runs, from its own run
+    main = {"csr_spmm_ev": ("bf16", 0), "csr_spmm_ev_bwd": ("bf16", 0), "sddmm": ("f32", 0)}
     line = {"kernels": []}
     for name, (source, replaces) in sources.items():
         if name in main:
@@ -1274,6 +1447,21 @@ def main() -> int:
             r.update({f"layer1_{k}": v for k, v in results[(name, dtype, 1)].items()
                       if k.endswith("ms")})
             counts, per_step, per_forward = gat_counts, gat_step, gat_forward
+            r.update(powerlaw_launches=plg_counts[name],
+                     powerlaw_launches_per_train_step=plg_step[name])
+            if name == "csr_spmm_ev_bwd":
+                r.update({f"f32_messages_{k}": v for k, v in results[(name, "f32", 0)].items()
+                          if k.endswith("ms")})
+                for layer_ in range(len(GAT_LAYERS)):
+                    prefix = "powerlaw_" if layer_ == 0 else "powerlaw_layer1_"
+                    r.update({f"{prefix}{k}": v for k, v in
+                              results[("csr_spmm_ev_bwd_powerlaw", "bf16", layer_)].items()
+                              if k.endswith("ms") or k in ("max_abs_err", "grows_per_s")})
+            if name == "sddmm":
+                counts = dict(counts, sddmm=sddmm_launches)
+                r.update({k.replace("sddmm", "powerlaw"): v for k, v in
+                          results[("csr_spmm_ev_bwd_powerlaw", "bf16", 0)].items()
+                          if k.startswith("sddmm")})
         else:
             r = dict(results[(name, "bf16")])
             counts, per_step = train_counts, step_counts

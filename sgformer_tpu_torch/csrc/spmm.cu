@@ -1,8 +1,10 @@
-// CSR SpMM and its SDDMM gradient for Hopper (sm_90a): the GCN aggregation
+// CSR SpMM and its gradients for Hopper (sm_90a): the GCN aggregation
 // A_norm @ X and GAT's per-head aggregation with runtime edge values.
 //
-//   csr_spmm:  out[i, h, :] = sum_{e in [indptr[i], indptr[i+1])} v[e, h] * x[src[e], h, :]
-//   sddmm:     dv[e, h]     = sum_d g[i, h, d] * x[src[e], h, d]      (e in row i)
+//   csr_spmm:        out[i, h, :] = sum_{e in [indptr[i], indptr[i+1])} v[e, h] * x[src[e], h, :]
+//   csr_spmm_ev_bwd: dx[s, h, :]  = sum_{e out of s} v[e, h] * msg(g[dst[e], h, :])
+//                    dv[e, h]     = sum_d g[dst[e], h, d] * x[src[e], h, d]
+//   sddmm:           dv alone, on the dst-sorted CSR
 //
 // x, out and g are [N, H*D] rows (the [N, H, D] view of a per-head tensor);
 // v and dv are [E, H] f32 in dst-sorted edge order. With H = 1 and v the
@@ -20,12 +22,14 @@
 // preprocess_graph builds, so one kernel computes the whole sum in the
 // caller's node order, all heads in one launch: no reorder, and no plan but
 // the hub segments below (with a second, small pass for them). The
-// gradient in x is this kernel on the transposed order (the caller passes
-// the transposed CSR and the values permuted into it).
+// gradient of the fixed-weight sum in x is this kernel on the transposed
+// order (the caller passes the transposed CSR and its weights).
 //
-// sddmm is the gradient in v, computed by XLA outside any Pallas kernel in
-// the JAX package (kernels/spmm.py::_spmm_ev_bwd, which materialises two
-// [E, H*D] f32 gathers). It is a gather-dot, not a matrix product.
+// csr_spmm_ev_bwd is the whole gradient of the per-edge-value form,
+// kernels/spmm.py::_spmm_ev_bwd: its dx, which the JAX package runs through
+// _spmm_kernel on the backward (transposed) plan, and its dv, a gather-dot
+// that it leaves to XLA outside any Pallas kernel (two [E, H*D] f32
+// gathers materialised). sddmm is that dv alone, on the dst-sorted CSR.
 //
 // Bound: memory. At the arxiv shape (N = 169,343, E = 2,499,039) with F =
 // H*D = 256 bf16 the least traffic per csr_spmm call is x read once (86.7
@@ -63,11 +67,36 @@
 // path unchanged. No atomics touch values, so the result is the same on
 // every call.
 //
-// In sddmm the warp holds 256 columns of g's row i in registers, takes for
-// each of the row's edges the dot with the source row of x, sums it across
-// the warp with a fixed butterfly, and the lane that owns the edge keeps
-// it: dv is written once per edge in dst-sorted order. Each row is done in a
-// fixed order by one warp, so both results are deterministic (no atomics).
+// The per-edge-value backward walk. Both halves of the gradient read the
+// same edges: on the transposed CSR, row s is a source node and each edge
+// e' goes to a destination d, so one gather of g[d] gives dx[s] += v *
+// msg(g[d]) and dv[t_perm[e']] = g[d] . x[s] with x[s] held by the warp.
+// The parent design ran dx as csr_spmm on the transposed CSR (after a plain
+// cast of g to the message type and a plain index_select of v) and dv as a
+// second walk of the dst-sorted CSR gathering x, so it gathered twice. One
+// templated walk now does both (csr_spmm_ev_bwd: a = x held, b = g
+// gathered, p = t_perm) or dv alone (sddmm: a = g held, b = x gathered, p =
+// the edge itself). Bounds, at GAT's first layer on the arxiv graph (H = 2,
+// D = 256, f32 x and g, bf16 messages): read once, x and g (347 MB each),
+// dx written (347 MB), v read and dv written (20 MB each) and the edge ids
+// (21 MB), 1.10 GB or 0.33 ms at 3.35 TB/s; gathered, one 1 KB row of g per edge
+// and head, 5.1 GB, which at the gather_rows probe's 3.7 TB/s of random
+// rows takes 1.37 ms: that rate, not the read-once bytes, is what it pays.
+// The design spends nothing else around the gathers: each lane issues
+// kInFlight gathers before it uses any, keeps a partial dot per edge of a
+// 32-edge batch and folds them once per batch (transpose_fold: 31
+// shuffle-adds for 32 dots, where a butterfly per edge took 160); a head
+// narrower than a warp's pass is taken by groups of 4-16 lanes, each on its
+// own edges (at D = 40 f32, 5 of 32 lanes would otherwise work); hub rows
+// are split by the CSR's own plan as in csr_spmm (each segment's dv is
+// final, its dx partial goes through csr_spmm_hub_kernel); a destination
+// hub only makes g[hub] a row that many warps gather, which L2 serves. No
+// atomics: dv and dx are the same on every call. dv is the same bit for
+// bit in both modes (products commute; one column order, one fold); dx is
+// csr_spmm's per-column fmaf chain in edge order, bit for bit the parent's,
+// wherever one group spans a head (D >= 32 columns of a lane pass, D % 8 !=
+// 0, or unaligned rows); with lane groups each group chains its own edges
+// and the chains are added in group order, f32 order only.
 //
 // csr_spmm_q8 is the int8 branch of kernels/slab_spmm.py::_ssel_kernel
 // (int8 x int8 -> int32 dots of 0/1 selectors with absmax-quantised rows),
@@ -181,13 +210,6 @@ struct Vec8<float> {
     reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 };
-
-// The sum of v over the warp, the same in every lane, in a fixed order.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
 
 // One lane's share of a pass over a head's columns: 8 columns with 16-byte
 // accesses (D % 8 == 0, aligned rows, 256 columns a pass) or one column (any
@@ -316,46 +338,191 @@ csr_spmm_hub_kernel(const int* __restrict__ seg, int n_seg, const float* __restr
   }
 }
 
-template <typename T, bool kVec8>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sddmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
-             const T* __restrict__ g, const T* __restrict__ x,
-             float* __restrict__ dv, int n_rows, int H, int D) {
-  using C = Cols<kVec8>;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
-  const size_t F = static_cast<size_t>(H) * D;
-  const T* grow = g + static_cast<size_t>(row) * F;
-  for (int e0 = start; e0 < end; e0 += 32) {
-    const int e = e0 + lane;
-    const int s = e < end ? __ldg(src + e) : 0;
-    const int cnt = min(32, end - e0);
-    for (int h = 0; h < H; ++h) {
-      float mine = 0.f;  // dv[e, h] of the edge this lane owns
-      for (int c0 = 0; c0 < D; c0 += C::kPass) {
-        const int c = h * D + c0 + lane * C::kPerLane;
-        const bool active = c0 + lane * C::kPerLane < D;
-        float gv[C::kPerLane] = {};
-        if (active) C::load(grow + c, gv);
-        for (int j = 0; j < cnt; ++j) {
-          const int sj = __shfl_sync(kFull, s, j);
-          float p = 0.f;
-          if (active) {
-            float xv[C::kPerLane];
-            C::load(x + static_cast<size_t>(sj) * F + c, xv);
+// ---------------------------------------------------------------------------
+// The per-edge-value backward walk (csr_spmm_ev_bwd, sddmm).
+
+// The fixed-order transposing reduction over a group of kO * 2 lanes, each
+// holding kO * 2 partial dots (slot i: the group's i-th edge of the batch):
+// at offset o a lane keeps the half of its slots whose bit o is its own lane
+// bit o, adds the partner's partials of those slots, and sends the other
+// half. After the steps o = kO, kO/2, ..., 1 (kO*2 - 1 shuffle-adds in all)
+// slot 0 of the group's lane k holds the whole dot of slot k.
+template <int kO, int kSlots>
+__device__ __forceinline__ void transpose_fold(float (&part)[kSlots], int k) {
+  const bool upper = (k & kO) != 0;
 #pragma unroll
-            for (int i = 0; i < C::kPerLane; ++i) p = fmaf(gv[i], xv[i], p);
+  for (int i = 0; i < kO; ++i) {
+    const float send = upper ? part[i] : part[i + kO];
+    const float keep = upper ? part[i + kO] : part[i];
+    part[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, kO));
+  }
+  if constexpr (kO > 1) transpose_fold<kO / 2, kSlots>(part, k);
+}
+
+// The message a dx product reads: g rounded to the message type (kRound:
+// bf16 messages of an f32 g, as g.to(msg_dtype)), else g as it is.
+template <bool kRound>
+__device__ __forceinline__ float msg_value(float v) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// One row r's edges [begin, end) of the walk. a_row: the row's vector a[r]
+// ([H*D]); b: the rows gathered per edge (b[col[e]]). For every edge e and
+// head h (need_dv) dv[p(e), h] = a[r, h] . b[col[e], h], with p(e) =
+// perm[e] (e when perm is null); when dx_row is not null also dx_row[h, :]
+// = sum_e val[p(e), h] * msg(b[col[e], h, :]).
+//
+// The warp is kGroups groups of kLanes lanes; each lane owns Cols' columns
+// of a pass of kLanes * kPerLane columns within a head, and each group
+// takes every kGroups-th edge of a batch of 32 (slot i of group q is edge
+// i * kGroups + q). A batch's edge ids (and p(e), val) are read one per
+// lane and shuffled; each lane issues kInFlight gathers before it uses any
+// (4 edges, 8 loads of 16 bytes, in one group of 32 lanes; 2 in lane groups,
+// where 4 took 0.40 ms against 0.28 at D = 40 on the H100, and a register
+// cap for 3 blocks an SM 0.31); it keeps its partial dot of every edge of
+// its slots, and
+// transpose_fold then leaves each edge's dot in the lane that writes it.
+// The dot is an fmaf chain over the lane's columns in column order (a times
+// b: the same products in either mode), then the fold: so both modes give
+// the same dv bit for bit. Over several passes (a head wider than a pass,
+// kLanes = 32 only) each pass's dot is added to the one stored, in pass
+// order. dx: each column an fmaf chain in edge order from 0 within its
+// group; with kLanes = 32 (one group) that is csr_spmm_ev's chain on the
+// same edges, bit for bit; with several groups, their chains are added in
+// group order at the end of the range (the f32 sum in another order).
+template <typename T, bool kRound, bool kVec8, int kLanes, typename TDst>
+__device__ __forceinline__ void ev_bwd_edges(const int* __restrict__ col,
+                                             const int* __restrict__ perm,
+                                             const float* __restrict__ val,
+                                             const T* __restrict__ a_row,
+                                             const T* __restrict__ b, float* __restrict__ dv,
+                                             TDst* __restrict__ dx_row, int begin, int end,
+                                             int H, int D, bool need_dv) {
+  using C = Cols<kVec8>;
+  constexpr int kPer = C::kPerLane;
+  constexpr int kGroups = 32 / kLanes;
+  constexpr int kWidth = kLanes * kPer;
+  constexpr int kInFlight = kLanes == 32 ? 4 : 2;
+  const int lane = threadIdx.x & 31;
+  const int q = lane / kLanes;
+  const int k = lane % kLanes;
+  const size_t F = static_cast<size_t>(H) * D;
+  const bool need_dx = dx_row != nullptr;
+  for (int h = 0; h < H; ++h) {
+    for (int c0 = 0; c0 < D; c0 += kWidth) {
+      const int c = h * D + c0 + k * kPer;
+      const bool active = c0 + k * kPer < D;
+      float av[kPer] = {};
+      if (active) C::load(a_row + c, av);
+      float acc[kPer] = {};
+      for (int e0 = begin; e0 < end; e0 += 32) {
+        const int e = e0 + lane;
+        int my_col = 0;
+        int my_p = e;
+        float my_val = 0.f;
+        if (e < end) {
+          my_col = __ldg(col + e);
+          if (perm != nullptr) my_p = __ldg(perm + e);
+          if (need_dx) my_val = __ldg(val + static_cast<size_t>(my_p) * H + h);
+        }
+        const int cnt = min(32, end - e0);
+        const int slots = (cnt + kGroups - 1) / kGroups;  // the same in every lane
+        float part[kLanes];
+#pragma unroll
+        for (int i0 = 0; i0 < kLanes; i0 += kInFlight) {
+          if (i0 < slots) {
+            float bv[kInFlight][kPer];
+            float w[kInFlight];
+#pragma unroll
+            for (int u = 0; u < kInFlight; ++u) {
+              const int j = (i0 + u) * kGroups + q;
+              const int cj = __shfl_sync(kFull, my_col, j);
+              w[u] = __shfl_sync(kFull, my_val, j);
+              if (active && j < cnt) {
+                C::load(b + static_cast<size_t>(cj) * F + c, bv[u]);
+              } else {
+#pragma unroll
+                for (int t = 0; t < kPer; ++t) bv[u][t] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kInFlight; ++u) {
+              float p = 0.f;
+#pragma unroll
+              for (int t = 0; t < kPer; ++t) p = fmaf(av[t], bv[u][t], p);
+              part[i0 + u] = p;
+              if (need_dx && active && (i0 + u) * kGroups + q < cnt) {
+#pragma unroll
+                for (int t = 0; t < kPer; ++t) {
+                  acc[t] = fmaf(w[u], msg_value<kRound>(bv[u][t]), acc[t]);
+                }
+              }
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < kInFlight; ++u) part[i0 + u] = 0.f;
           }
-          p = warp_sum(p);
-          if (lane == j) mine += p;
+        }
+        if (need_dv) {
+          if constexpr (kLanes > 1) transpose_fold<kLanes / 2, kLanes>(part, k);
+          const int je = k * kGroups + q;  // the batch edge whose dot this lane holds
+          const int pe = __shfl_sync(kFull, my_p, je);
+          if (je < cnt) {
+            float* o = dv + static_cast<size_t>(pe) * H + h;
+            *o = c0 == 0 ? part[0] : __fadd_rn(*o, part[0]);
+          }
         }
       }
-      if (e < end) dv[static_cast<size_t>(e) * H + h] = mine;
+      if (need_dx) {
+        if constexpr (kGroups > 1) {
+          // the groups' chains of the same columns, added in group order
+#pragma unroll
+          for (int t = 0; t < kPer; ++t) {
+            float s = acc[t];
+#pragma unroll
+            for (int g2 = 1; g2 < kGroups; ++g2) {
+              s = __fadd_rn(s, __shfl_sync(kFull, acc[t], k + g2 * kLanes));
+            }
+            acc[t] = s;
+          }
+        }
+        if (q == 0 && active) C::store(dx_row + c, acc);
+      }
     }
   }
+}
+
+// Warps [0, n_seg) take one hub segment each (seg[w] = (row, begin, end)):
+// its dv is final per edge, and its dx partial row goes to part[w]; warp
+// n_seg + i takes row i unless the row has more than max_edges edges (its
+// segments cover it). dx null: dv only.
+template <typename T, bool kRound, bool kVec8, int kLanes>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ev_bwd_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
+              const int* __restrict__ perm, const float* __restrict__ val,
+              const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ dv,
+              T* __restrict__ dx, const int* __restrict__ seg, int n_seg,
+              float* __restrict__ part, int max_edges, int n_rows, int H, int D, int need_dv) {
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const size_t F = static_cast<size_t>(H) * D;
+  if (w < n_seg) {
+    const int row = __ldg(seg + 3 * w);
+    ev_bwd_edges<T, kRound, kVec8, kLanes, float>(
+        col, perm, val, a + static_cast<size_t>(row) * F, b, dv,
+        dx != nullptr ? part + static_cast<size_t>(w) * F : nullptr, __ldg(seg + 3 * w + 1),
+        __ldg(seg + 3 * w + 2), H, D, need_dv != 0);
+    return;
+  }
+  const int row = w - n_seg;
+  if (row >= n_rows) return;  // the whole warp leaves together
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+  if (end - start > max_edges) return;
+  ev_bwd_edges<T, kRound, kVec8, kLanes, T>(
+      col, perm, val, a + static_cast<size_t>(row) * F, b, dv,
+      dx != nullptr ? dx + static_cast<size_t>(row) * F : nullptr, start, end, H, D,
+      need_dv != 0);
 }
 
 dim3 grid_for(int n_rows) { return dim3((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock); }
@@ -690,19 +857,51 @@ cudaError_t launch_spmm(const int* indptr, const int* src, const float* v, const
                                             max_edges, n_rows, H, D, stream);
 }
 
-template <typename T>
-void launch_sddmm(const int* indptr, const int* src, const void* g, const void* x, float* dv,
-                  int n_rows, int H, int D, int vec8, cudaStream_t stream) {
+template <typename T, bool kRound, bool kVec8, int kLanes>
+cudaError_t launch_ev_bwd_lanes(const int* indptr, const int* col, const int* perm,
+                                const float* val, const T* a, const T* b, float* dv, T* dx,
+                                const int* seg, int n_seg, float* part, int max_edges,
+                                int n_rows, int H, int D, cudaStream_t st) {
   const dim3 block(kWarpsPerBlock * 32);
-  const T* gt = static_cast<const T*>(g);
-  const T* xt = static_cast<const T*>(x);
-  if (vec8) {
-    sddmm_kernel<T, true><<<grid_for(n_rows), block, 0, stream>>>(
-        indptr, src, gt, xt, dv, n_rows, H, D);
-  } else {
-    sddmm_kernel<T, false><<<grid_for(n_rows), block, 0, stream>>>(
-        indptr, src, gt, xt, dv, n_rows, H, D);
+  ev_bwd_kernel<T, kRound, kVec8, kLanes><<<grid_for(n_seg + n_rows), block, 0, st>>>(
+      indptr, col, perm, val, a, b, dv, dx, seg, n_seg, part, max_edges, n_rows, H, D,
+      dv != nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 0 || dx == nullptr) return err;
+  csr_spmm_hub_kernel<T, kVec8><<<grid_for(n_seg), block, 0, st>>>(seg, n_seg, part, dx, H * D);
+  return cudaGetLastError();
+}
+
+// The lane groups: a group of the fewest lanes (4, 8, 16 or 32) whose 8
+// columns each cover a head (vec8), else one group of 32 lanes of one
+// column each, in passes.
+template <typename T, bool kRound>
+cudaError_t launch_ev_bwd(const int* indptr, const int* col, const int* perm, const float* val,
+                          const void* a, const void* b, float* dv, void* dx, const int* seg,
+                          int n_seg, float* part, int max_edges, int n_rows, int H, int D,
+                          int vec8, cudaStream_t st) {
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  T* xt = static_cast<T*>(dx);
+  if (!vec8) {
+    return launch_ev_bwd_lanes<T, kRound, false, 32>(indptr, col, perm, val, at, bt, dv, xt, seg,
+                                                     n_seg, part, max_edges, n_rows, H, D, st);
   }
+  const int lanes = (D + 7) / 8;
+  if (lanes <= 4) {
+    return launch_ev_bwd_lanes<T, kRound, true, 4>(indptr, col, perm, val, at, bt, dv, xt, seg,
+                                                   n_seg, part, max_edges, n_rows, H, D, st);
+  }
+  if (lanes <= 8) {
+    return launch_ev_bwd_lanes<T, kRound, true, 8>(indptr, col, perm, val, at, bt, dv, xt, seg,
+                                                   n_seg, part, max_edges, n_rows, H, D, st);
+  }
+  if (lanes <= 16) {
+    return launch_ev_bwd_lanes<T, kRound, true, 16>(indptr, col, perm, val, at, bt, dv, xt, seg,
+                                                    n_seg, part, max_edges, n_rows, H, D, st);
+  }
+  return launch_ev_bwd_lanes<T, kRound, true, 32>(indptr, col, perm, val, at, bt, dv, xt, seg,
+                                                  n_seg, part, max_edges, n_rows, H, D, st);
 }
 
 }  // namespace
@@ -814,20 +1013,65 @@ extern "C" int sgf_quantize_absmax(const void* x, const void* rs, void* part, in
   return static_cast<int>(err);
 }
 
-// g and x in one type (dtype); dv is f32.
-extern "C" int sgf_sddmm(const void* indptr, const void* src, const void* g, const void* x,
-                         void* dv, int n_rows, int H, int D, int dtype, int vec8,
-                         void* stream) {
-  const int* ip = static_cast<const int*>(indptr);
-  const int* sp = static_cast<const int*>(src);
+// The per-edge-value backward on the transposed CSR (t_indptr, t_col =
+// t_edge_src, the original destinations; t_perm, the dst-sorted id of each
+// edge): dx = sum over row s's edges e' of val[t_perm[e'], h] * msg(g[d])
+// (dx null: not computed) and dv[t_perm[e'], h] = x[s, h] . g[d, h] (dv
+// null: not computed). x, g and dx in dtype; round_msg: g's messages are
+// bf16 (dtype f32 only). val and dv f32 [E, H]. seg, n_seg, max_edges: the
+// transposed CSR's hub plan, as in sgf_csr_spmm; part: f32 scratch [n_seg,
+// H*D] for dx (unused when n_seg is 0 or dx is null). Launches
+// ev_bwd_kernel, then csr_spmm_hub_kernel when there are hub rows and dx.
+extern "C" int sgf_csr_spmm_ev_bwd(const void* t_indptr, const void* t_col, const void* t_perm,
+                                   const void* val, const void* x, const void* g, void* dx,
+                                   void* dv, const void* seg, int n_seg, void* part,
+                                   int max_edges, int n_rows, int H, int D, int dtype,
+                                   int round_msg, int vec8, void* stream) {
+  const int* ip = static_cast<const int*>(t_indptr);
+  const int* cp = static_cast<const int*>(t_col);
+  const int* pp = static_cast<const int*>(t_perm);
+  const float* vp = static_cast<const float*>(val);
   float* dp = static_cast<float*>(dv);
+  const int* sg = static_cast<const int*>(seg);
+  float* sp = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_sddmm<float>(ip, sp, g, x, dp, n_rows, H, D, vec8, st);
+  cudaError_t err;
+  if (dtype == 0 && round_msg) {
+    err = launch_ev_bwd<float, true>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp, max_edges,
+                                     n_rows, H, D, vec8, st);
+  } else if (dtype == 0) {
+    err = launch_ev_bwd<float, false>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp, max_edges,
+                                      n_rows, H, D, vec8, st);
   } else if (dtype == 1) {
-    launch_sddmm<__nv_bfloat16>(ip, sp, g, x, dp, n_rows, H, D, vec8, st);
+    err = launch_ev_bwd<__nv_bfloat16, false>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp,
+                                              max_edges, n_rows, H, D, vec8, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// dv only, on the dst-sorted CSR: dv[e, h] = g[i, h] . x[src[e], h] for
+// row i's edges, the same walk with g held and x gathered. g and x in one
+// type (dtype); dv f32. seg, n_seg, max_edges: the CSR's hub plan (each
+// segment's dots are final; no second pass).
+extern "C" int sgf_sddmm(const void* indptr, const void* src, const void* g, const void* x,
+                         void* dv, const void* seg, int n_seg, int max_edges, int n_rows, int H,
+                         int D, int dtype, int vec8, void* stream) {
+  const int* ip = static_cast<const int*>(indptr);
+  const int* sp = static_cast<const int*>(src);
+  float* dp = static_cast<float*>(dv);
+  const int* sg = static_cast<const int*>(seg);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_ev_bwd<float, false>(ip, sp, nullptr, nullptr, g, x, dp, nullptr, sg, n_seg,
+                                      nullptr, max_edges, n_rows, H, D, vec8, st);
+  } else if (dtype == 1) {
+    err = launch_ev_bwd<__nv_bfloat16, false>(ip, sp, nullptr, nullptr, g, x, dp, nullptr, sg,
+                                              n_seg, nullptr, max_edges, n_rows, H, D, vec8, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }

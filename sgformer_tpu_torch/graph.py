@@ -170,9 +170,10 @@ class Graph:
 
         x: [N, H, D], sent as ``chunk_dtype`` messages; values: [E, H] f32 in
         the dst-sorted edge order. The sum is f32 and the result has x's
-        type. Differentiable in x (the same kernel on the transposed order
-        with ``values[t_perm]``) and in values (the SDDMM kernel). A graph
-        without the transposed order raises."""
+        type. Differentiable in x and in values, both from one walk of the
+        transposed order (``csr_spmm_ev_bwd``: g gathered once per edge,
+        ``values[t_perm]`` read in the kernel). A graph without the
+        transposed order raises."""
         if self.t_perm is None or self.t_indptr is None:
             raise ValueError("the graph lacks t_perm/t_indptr, the transposed edge order "
                              "the per-edge-value gradient reads: build it with "

@@ -18,6 +18,7 @@ def reset_launch_counts() -> None:
         probe_launches[name] = 0
     spmm.launches = 0
     spmm.ev_launches = 0
+    spmm.ev_bwd_launches = 0
     spmm.sddmm_launches = 0
     spmm.q8_launches = 0
     spmm.quantize_launches = 0
@@ -29,9 +30,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset. ``csr_spmm``,
-    ``csr_spmm_ev``, ``csr_spmm_q8`` and ``quantize_absmax`` (one a
-    ``csr_spmm_q8`` call, on x or on g) count forward (A @ x) and backward
-    (A^T @ g) launches alike."""
+    ``csr_spmm_q8`` and ``quantize_absmax`` (one a ``csr_spmm_q8`` call, on
+    x or on g) count forward (A @ x) and backward (A^T @ g) launches alike;
+    ``csr_spmm_ev`` counts the per-edge-value forward, ``csr_spmm_ev_bwd``
+    its gradient (dx and dv in one launch)."""
     return {
         "csr_spmm": spmm.launches,
         "linear_attention_reduce": attention.reduce_launches,
@@ -39,6 +41,7 @@ def launch_counts() -> dict:
         "linear_attention_bwd_reduce": attention.bwd_reduce_launches,
         "linear_attention_bwd_apply": attention.bwd_apply_launches,
         "csr_spmm_ev": spmm.ev_launches,
+        "csr_spmm_ev_bwd": spmm.ev_bwd_launches,
         "sddmm": spmm.sddmm_launches,
         "csr_spmm_q8": spmm.q8_launches,
         "quantize_absmax": spmm.quantize_launches,

@@ -12,9 +12,13 @@ raises; on CPU tensors it runs its plain version:
   ``chunked_spmm_edge_values`` drives it; plain version
   :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values`. It is the same
   kernel as :func:`csr_spmm`, which is its one-head case.
-- :func:`sddmm`, ``dv[e, h] = g[dst_e, h] . x[src_e, h]``, the gradient of
-  :func:`csr_spmm_ev` in its values, which the JAX package computes in XLA
-  (``kernels/spmm.py::_spmm_ev_bwd``); plain version
+- :func:`csr_spmm_ev_bwd`, the whole gradient of :func:`csr_spmm_ev` from
+  one walk of the transposed CSR that gathers g once per edge: dx (the
+  JAX package's ``_spmm_ev_bwd`` runs ``_spmm_kernel`` on the backward
+  plan) and dv (``g[dst_e] . x[src_e]``, which it leaves to XLA); plain
+  version :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values_backward`.
+- :func:`sddmm`, ``dv[e, h] = g[dst_e, h] . x[src_e, h]`` alone, the same
+  walk on the dst-sorted CSR; plain version
   :func:`sgformer_tpu_torch.ops.sddmm.sddmm`.
 - :func:`csr_spmm_q8`, the int8 GCN aggregation of a ``slab_dtype="int8"``
   graph, replaces the int8 branch of ``kernels/slab_spmm.py::_ssel_kernel``
@@ -33,12 +37,13 @@ the transpose is A's own CSR, but runtime values belong to directed edges,
 so the per-edge-value gradient always reads the values permuted into the
 transposed order.
 
-Hub rows: :func:`csr_spmm`, :func:`csr_spmm_ev` and :func:`csr_spmm_q8`
-split every row of more than ``segment_edges`` (:data:`HUB_EDGES` by
-default) in-edges into segments of at most that many edges, each summed by a
-warp of its own, and add each row's segment sums in a fixed order in a
-second pass (see ``csrc/spmm.cu``; the int8 sums are integers, exact in any
-order).
+Hub rows: :func:`csr_spmm`, :func:`csr_spmm_ev`, :func:`csr_spmm_ev_bwd`,
+:func:`sddmm` and :func:`csr_spmm_q8` split every row of more than
+``segment_edges`` (:data:`HUB_EDGES` by default) in-edges into segments of
+at most that many edges, each walked by a warp of its own, and add each
+row's segment sums in a fixed order in a second pass (see
+``csrc/spmm.cu``; the int8 sums are integers, exact in any order; a
+segment's per-edge dots need no second pass).
 The plan, :func:`hub_segments` of the CSR's ``indptr``, is built once per
 graph on the host by ``preprocess_graph`` and kept on the ``Graph`` beside
 each CSR (``hub_segments``, ``t_hub_segments``, ...), with the segment
@@ -50,11 +55,11 @@ kernel is given: a plan passed without one is refused (it cannot be read
 back to check), since one built for a longer segment would leave the rows
 between the two lengths unwritten.
 
-``launches``, ``ev_launches``, ``sddmm_launches``, ``q8_launches`` and
-``quantize_launches`` count the wrappers' calls that launched their kernels
-(one a call, whether or not the hub rows' second pass ran, and one for the
-quantiser's two passes), forward and backward alike; set them to 0 to start
-a count.
+``launches``, ``ev_launches``, ``ev_bwd_launches``, ``sddmm_launches``,
+``q8_launches`` and ``quantize_launches`` count the wrappers' calls that
+launched their kernels (one a call, whether or not the hub rows' second
+pass ran, and one for the quantiser's two passes), forward and backward
+alike; set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -67,11 +72,14 @@ from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import quantize_absmax as quantize_absmax_plain
 from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm_edge_values as spmm_edge_values_plain
+from sgformer_tpu_torch.ops.spmm import (
+    spmm_edge_values_backward as spmm_edge_values_backward_plain)
 from sgformer_tpu_torch.ops.spmm import spmm_q8 as spmm_q8_plain
 from sgformer_tpu_torch.ops.spmm import spmm_q8_apply as spmm_q8_apply_plain
 
 launches = 0
 ev_launches = 0
+ev_bwd_launches = 0
 sddmm_launches = 0
 q8_launches = 0
 quantize_launches = 0
@@ -406,28 +414,39 @@ def csr_spmm_q8(
                              rs, x.dtype, segments, segment_edges)
 
 
-def sddmm(
-    g: torch.Tensor,
-    x: torch.Tensor,
-    indptr: torch.Tensor,
-    edge_src: torch.Tensor,
-    edge_dst: torch.Tensor,
-) -> torch.Tensor:
-    """dv[e, h] = g[dst_e, h] . x[src_e, h] for every edge e of the CSR, in
-    its edge order, f32.
-
-    g, x: [N, H, D] of one type, float32 or bfloat16, each read as it is
-    (x is not rounded to a message type); the products and sums are f32.
-    Returns [E, H] float32. ``edge_dst`` is read only by the plain version.
-    """
-    global sddmm_launches
-    n = indptr.shape[0] - 1
+def _check_ev_operands(g, x, n):
     if x.dim() != 3 or x.shape[0] != n or g.shape != x.shape:
         raise ValueError(f"g and x must both be [{n}, H, D], got {tuple(g.shape)}, "
                          f"{tuple(x.shape)}")
     if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise TypeError(f"g and x must share a type, float32 or bfloat16, got {g.dtype}, "
                         f"{x.dtype}")
+
+
+def sddmm(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    indptr: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
+) -> torch.Tensor:
+    """dv[e, h] = g[dst_e, h] . x[src_e, h] for every edge e of the CSR, in
+    its edge order, f32.
+
+    g, x: [N, H, D] of one type, float32 or bfloat16, each read as it is
+    (x is not rounded to a message type); the products and sums are f32.
+    Returns [E, H] float32. ``segments`` and ``segment_edges``: the CSR's
+    hub plan and its segment length, as in :func:`csr_spmm`. On the card
+    the dv mode of :func:`csr_spmm_ev_bwd`'s walk, with g held and x
+    gathered: the same dots bit for bit. ``edge_dst`` is read only by the
+    plain version.
+    """
+    global sddmm_launches
+    n = indptr.shape[0] - 1
+    _check_ev_operands(g, x, n)
+    _segment_length(segments, segment_edges)
     if _check_device(g, x, indptr, edge_src, edge_dst) == "cpu":
         return sddmm_plain(g.float(), x.float(), edge_src, edge_dst)
     _check_csr(indptr, edge_src)
@@ -435,16 +454,93 @@ def sddmm(
     heads, d = x.shape[1], x.shape[2]
     dv = torch.empty(edge_src.shape[0], heads, dtype=torch.float32, device=x.device)
     if n and heads and d and edge_src.shape[0]:
+        segments, length = _plan(segments, indptr, segment_edges)
+        n_seg = segments.shape[0]
         err = _build.library("spmm").sgf_sddmm(
             indptr.data_ptr(), edge_src.data_ptr(), g.data_ptr(), x.data_ptr(), dv.data_ptr(),
-            n, heads, d, _DTYPES[x.dtype], _aligned(d, g, x),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            segments.data_ptr() if n_seg else None, n_seg, length, n, heads, d,
+            _DTYPES[x.dtype], _aligned(d, g, x), torch.cuda.current_stream(x.device).cuda_stream,
         )
         _build.check(err, "sddmm")
         sddmm_launches += 1
     elif d == 0:
         dv.zero_()
     return dv
+
+
+def csr_spmm_ev_bwd(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    values: torch.Tensor,
+    t_indptr: torch.Tensor,
+    t_edge_src: torch.Tensor,
+    t_edge_dst: torch.Tensor,
+    t_perm: torch.Tensor,
+    msg_dtype: torch.dtype,
+    t_segments: torch.Tensor | None = None,
+    segment_edges: int | None = None,
+    need_dx: bool = True,
+    need_dv: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The gradient of ``out = csr_spmm_ev(x.to(msg_dtype), <CSR>, values,
+    x.dtype)`` for the cotangent g, from one walk of the transposed CSR:
+
+    - dx[s, h] = sum over the edges e' out of s of ``values[t_perm[e'], h]
+      * g[t_edge_src[e'], h]`` with g rounded to ``msg_dtype``, f32 sums,
+      in x's type (None unless ``need_dx``);
+    - dv[e, h] = g[dst_e, h] . x[src_e, h] of the unrounded g and x, f32,
+      [E, H] in the dst-sorted order (None unless ``need_dv``).
+
+    g, x: [N, H, D] of one type, float32 or bfloat16; values: [E, H]
+    float32 in the dst-sorted order; t_indptr [N+1], t_edge_src (the
+    original destinations), t_edge_dst (the sources) and t_perm (the
+    dst-sorted id of each edge) [E] int32: the graph's ``t_*`` arrays.
+    ``t_segments`` and ``segment_edges``: the transposed CSR's hub plan and
+    its segment length, as in :func:`csr_spmm`. On the card each edge's row
+    of g is gathered once for both halves (one launch, and the hub rows'
+    second pass when dx is asked for). ``t_edge_dst`` is read only by the
+    plain version, :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values_backward`.
+    """
+    global ev_bwd_launches
+    n = t_indptr.shape[0] - 1
+    _check_ev_operands(g, x, n)
+    if msg_dtype not in _DTYPES:
+        raise TypeError(f"msg_dtype must be float32 or bfloat16, got {msg_dtype}")
+    if values.dim() != 2 or values.shape[1] != x.shape[1]:
+        raise ValueError(f"values must be [E, {x.shape[1]}], got {tuple(values.shape)}")
+    _segment_length(t_segments, segment_edges)
+    if _check_device(g, x, values, t_indptr, t_edge_src, t_edge_dst, t_perm) == "cpu":
+        return spmm_edge_values_backward_plain(g, x, values, t_edge_src, t_edge_dst, t_perm,
+                                               msg_dtype, need_dx, need_dv)
+    _check_csr(t_indptr, t_edge_src, values=values)
+    if (t_perm.dtype != torch.int32 or t_perm.shape != t_edge_src.shape
+            or not t_perm.is_contiguous()):
+        raise TypeError("t_perm must be a contiguous int32 tensor of one entry per edge")
+    g, x = g.contiguous(), x.contiguous()
+    heads, d = x.shape[1], x.shape[2]
+    dx = torch.empty_like(x) if need_dx else None
+    dv = (torch.empty(values.shape, dtype=torch.float32, device=x.device) if need_dv
+          else None)
+    if n and heads and d and (need_dx or need_dv):
+        segments, length = _plan(t_segments, t_indptr, segment_edges)
+        n_seg = segments.shape[0]
+        part = (torch.empty(n_seg, heads * d, dtype=torch.float32, device=x.device)
+                if n_seg and need_dx else None)
+        err = _build.library("spmm").sgf_csr_spmm_ev_bwd(
+            t_indptr.data_ptr(), t_edge_src.data_ptr(), t_perm.data_ptr(), values.data_ptr(),
+            x.data_ptr(), g.data_ptr(), dx.data_ptr() if need_dx else None,
+            dv.data_ptr() if need_dv else None, segments.data_ptr() if n_seg else None, n_seg,
+            part.data_ptr() if part is not None else None, length, n, heads, d,
+            # the layout as sddmm picks it, from g and x (dx is a fresh
+            # allocation), so that both modes give the same dv
+            _DTYPES[x.dtype], int(x.dtype == torch.float32 and msg_dtype == torch.bfloat16),
+            _aligned(d, g, x), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "csr_spmm_ev_bwd")
+        ev_bwd_launches += 1
+    elif need_dv and d == 0:
+        dv.zero_()
+    return dx, dv
 
 
 class CsrSpmmFunction(torch.autograd.Function):
@@ -484,10 +580,10 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
     and v, as the JAX package's ``_spmm_ev_core`` custom VJP:
 
     - forward: :func:`csr_spmm_ev` of x rounded to the message type;
-    - dx: :func:`csr_spmm_ev` of g in the message type on the transposed
-      CSR, with ``v[t_perm]`` as its values, the result in x's type;
-    - dv: :func:`sddmm` of g and the x the forward received (not its
-      rounded copy), f32, in the CSR's edge order.
+    - backward: one :func:`csr_spmm_ev_bwd` on the transposed CSR: dx from g
+      in the message type with ``v[t_perm]`` as its values, in x's type,
+      and dv from g and the x the forward received (not its rounded copy),
+      f32, in the CSR's edge order.
     """
 
     @staticmethod
@@ -495,9 +591,8 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
                 t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments, segment_edges,
                 msg_dtype):
         ctx.save_for_backward(x, values)
-        ctx.csr = (indptr, edge_src, edge_dst)
-        ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments)
-        ctx.segment_edges = segment_edges
+        ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm)
+        ctx.t_plan = (t_segments, segment_edges)
         ctx.msg_dtype = msg_dtype
         return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype,
                            segments, segment_edges)
@@ -505,14 +600,8 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, values = ctx.saved_tensors
-        t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments = ctx.csr_t
-        dx = dv = None
-        if ctx.needs_input_grad[0]:
-            dx = csr_spmm_ev(g.to(ctx.msg_dtype), t_indptr, t_edge_src, t_edge_dst,
-                             values.index_select(0, t_perm.long()), x.dtype, t_segments,
-                             ctx.segment_edges)
-        if ctx.needs_input_grad[1]:
-            dv = sddmm(g.to(x.dtype), x, *ctx.csr).to(values.dtype)
+        dx, dv = csr_spmm_ev_bwd(g, x, values, *ctx.csr_t, ctx.msg_dtype, *ctx.t_plan,
+                                 ctx.needs_input_grad[0], ctx.needs_input_grad[1])
         return (dx, dv) + (None,) * 11
 
 

@@ -4,7 +4,8 @@ The port of ``sgformer_tpu/ops/spmm.py``. :func:`spmm` is the CPU path of
 :func:`sgformer_tpu_torch.kernels.spmm.csr_spmm` and the oracle its CUDA
 kernel is held against on the card; :func:`spmm_edge_values` is the same for
 :func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_ev` (runtime per-edge values
-per head, GAT's aggregation).
+per head, GAT's aggregation), and :func:`spmm_edge_values_backward` for its
+gradient, :func:`sgformer_tpu_torch.kernels.spmm.csr_spmm_ev_bwd`.
 
 The sum is taken in f32 and rounded once to the output type, as the CUDA
 kernels do. The JAX function multiplies and ``segment_sum``-s in x's type, so
@@ -134,6 +135,41 @@ def spmm_edge_values(
     out = torch.zeros(num_nodes, *x.shape[1:], dtype=torch.float32, device=x.device)
     out.index_add_(0, edge_dst.long(), msgs)
     return out.to(out_dtype or x.dtype)
+
+
+def spmm_edge_values_backward(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    values: torch.Tensor,
+    t_edge_src: torch.Tensor,
+    t_edge_dst: torch.Tensor,
+    t_perm: torch.Tensor,
+    msg_dtype: torch.dtype,
+    need_dx: bool = True,
+    need_dv: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The gradient of :func:`spmm_edge_values` of x sent as ``msg_dtype``
+    messages, as the JAX package's ``_spmm_ev_bwd`` defines it, from the
+    transposed edge order (``t_edge_src`` the destinations, ``t_edge_dst``
+    the sources, ``t_perm`` the dst-sorted id of each edge):
+
+    - dx: :func:`spmm_edge_values` of g rounded to ``msg_dtype`` on the
+      transposed order with ``values[t_perm]``, the result in x's type;
+    - dv: ``g[dst_e] . x[src_e]`` of the unrounded g and x in f32
+      (:func:`sgformer_tpu_torch.ops.sddmm.sddmm`), [E, H] in the
+      dst-sorted order.
+
+    g and x: [N, H, D]; values: [E, H]. A gradient not asked for is None."""
+    from sgformer_tpu_torch.ops.sddmm import sddmm  # ops.sddmm imports this module
+
+    dx = dv = None
+    if need_dx:
+        dx = spmm_edge_values(g.to(msg_dtype), t_edge_src, t_edge_dst,
+                              values.index_select(0, t_perm.long()), x.shape[0], x.dtype)
+    if need_dv:
+        dv = torch.empty(values.shape, dtype=torch.float32, device=values.device)
+        dv[t_perm.long()] = sddmm(g.float(), x.float(), t_edge_dst, t_edge_src)
+    return dx, dv
 
 
 def edge_softmax(scores: torch.Tensor, edge_dst: torch.Tensor, num_nodes: int) -> torch.Tensor:

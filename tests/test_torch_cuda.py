@@ -17,10 +17,10 @@ from sgformer_tpu_torch import Predictor, SGFormer, SGFormerConfig, preprocess_g
 from sgformer_tpu_torch import kernels
 from sgformer_tpu_torch.kernels import attention as attn
 from sgformer_tpu_torch.kernels import spmm as spmm_kernel
-from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, sddmm
+from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, csr_spmm_ev_bwd, sddmm
 from sgformer_tpu_torch.ops.attention import linear_attention
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
-from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values
+from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values, spmm_edge_values_backward
 from sgformer_tpu_torch.utils.measure import apply_product_inputs, rel_err
 
 pytestmark = pytest.mark.cuda
@@ -494,21 +494,124 @@ def test_edge_value_kernel_with_one_head_is_csr_spmm(cuda):
     assert torch.equal(got[:, 0], csr_spmm(x, *csr, g.gcn_weight))
 
 
+def _ev_counts(since=(0, 0, 0)):
+    """Launches of csr_spmm_ev, csr_spmm_ev_bwd and sddmm (since ``since``)."""
+    now = (spmm_kernel.ev_launches, spmm_kernel.ev_bwd_launches, spmm_kernel.sddmm_launches)
+    return tuple(a - b for a, b in zip(now, since))
+
+
+# hub segment lengths of the backward's card tests: on _edge_value_graph
+# (in-degree up to 77, out-degree up to 12) 16 and 32 split node 5's row of
+# the dst-sorted CSR and 4 also most rows of the transposed one; 128 splits
+# none
+EV_SEGMENT_LENGTHS = (4, 16, 32, 128)
+
+
+@pytest.mark.parametrize("x_dtype,msg_dtype", [(torch.float32, torch.float32),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.bfloat16, torch.float32),
+                                               (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("heads,d", [(1, 40), (2, 256), (2, 40), (1, 256), (3, 37), (2, 16),
+                                     (1, 128)])
+def test_fused_edge_value_backward_matches_plain(cuda, x_dtype, msg_dtype, heads, d):
+    """csr_spmm_ev_bwd through hub plans of several lengths, against
+    spmm_edge_values_backward and the parent formulation on the same
+    inputs: dv within 1e-5 of the plain version's scale, bitwise the
+    dv-mode sddmm's with the dst-sorted CSR's plan of the same length, and
+    the same under every plan; dx bitwise csr_spmm_ev on the transposed
+    order with the same plan wherever one lane group spans a head (D > 128
+    on the 16-byte path, or D % 8 != 0), else within the forward's
+    tolerance of the output type (the groups' chains are added in another
+    order); each flag alone gives its half bit for bit; bitwise
+    repeatable. D = 16, 40 and 128 take groups of 4, 8 and 16 lanes."""
+    g = _edge_value_graph(cuda)
+    n, e = g.num_nodes, g.num_edges
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    csr_t = (g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_perm)
+    x = torch.randn(n, heads, d, device=cuda).to(x_dtype)
+    cot = torch.randn(n, heads, d, device=cuda).to(x_dtype)
+    v = torch.rand(e, heads, device=cuda)
+    want_dx, want_dv = spmm_edge_values_backward(cot, x, v, g.t_edge_src, g.t_edge_dst,
+                                                 g.t_perm, msg_dtype)
+    v_t = v.index_select(0, g.t_perm.long())
+    chain_kept = d % 8 != 0 or d > 128
+    first_dv = None
+    for length in EV_SEGMENT_LENGTHS:
+        plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, length)).to(cuda)
+        t_plan = torch.from_numpy(spmm_kernel.hub_segments(g.t_indptr, length)).to(cuda)
+        counts = _ev_counts()
+        dx, dv = csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, t_plan, length)
+        assert _ev_counts(counts) == (0, 1, 0)
+        assert dx.dtype == x_dtype and dv.dtype == torch.float32
+        parent_dx = csr_spmm_ev(cot.to(msg_dtype), *csr_t[:3], v_t, x_dtype, t_plan, length)
+        if chain_kept:
+            assert torch.equal(dx, parent_dx), length
+        elif x_dtype == torch.float32:
+            _check_rel(dx, want_dx, 1e-5)
+        else:
+            torch.testing.assert_close(dx.float(), want_dx.float(), **TOL[x_dtype])
+        _check_rel(dv, want_dv, 1e-5)
+        assert torch.equal(dv, sddmm(cot, x, *csr, plan, length)), length
+        first_dv = dv if first_dv is None else first_dv
+        assert torch.equal(dv, first_dv), length
+        again = csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, t_plan, length)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dv)
+        only_dx = csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, t_plan, length, True, False)
+        only_dv = csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, t_plan, length, False, True)
+        assert only_dx[1] is None and torch.equal(only_dx[0], dx)
+        assert only_dv[0] is None and torch.equal(only_dv[1], dv)
+    counts = _ev_counts()
+    assert csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, None, None, False, False) == (None, None)
+    assert _ev_counts(counts) == (0, 0, 0)
+
+
+def test_fused_edge_value_backward_unaligned_rows_take_the_scalar_path(cuda):
+    """Rows off 16-byte alignment at D = 64: the 1-column path, dx bitwise
+    the parent formulation's, dv bitwise sddmm's and within 1e-5."""
+    g = _edge_value_graph(cuda)
+    n = g.num_nodes
+    flat = torch.randn(2, n * 64 + 1, device=cuda)
+    x, cot = (flat[i, 1:].view(n, 1, 64) for i in range(2))
+    assert x.data_ptr() % 16 != 0
+    v = torch.rand(g.num_edges, 1, device=cuda)
+    csr_t = (g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_perm)
+    dx, dv = csr_spmm_ev_bwd(cot, x, v, *csr_t, torch.float32)
+    parent_dx = csr_spmm_ev(cot.contiguous(), *csr_t[:3], v.index_select(0, g.t_perm.long()))
+    assert torch.equal(dx, parent_dx)
+    assert torch.equal(dv, sddmm(cot, x, g.indptr, g.edge_src, g.edge_dst))
+    _check_rel(dv, sddmm_plain(cot, x, g.edge_src, g.edge_dst), 1e-5)
+
+
+def test_edge_value_backward_plan_without_its_length_raises(cuda):
+    """csr_spmm_ev_bwd and sddmm refuse a hub plan given without its segment
+    length, before any launch."""
+    g = _edge_value_graph(cuda)
+    x = torch.randn(g.num_nodes, 2, 48, device=cuda)
+    v = torch.rand(g.num_edges, 2, device=cuda)
+    counts = _ev_counts()
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_ev_bwd(x, x, v, g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_perm,
+                        torch.float32, g.t_hub_segments)
+    with pytest.raises(ValueError, match="segment length"):
+        sddmm(x, x, g.indptr, g.edge_src, g.edge_dst, g.hub_segments)
+    assert _ev_counts(counts) == (0, 0, 0)
+
+
 @pytest.mark.parametrize("chunk_dtype", ["f32", "bf16"])
 def test_edge_value_gradient_runs_the_kernels(cuda, chunk_dtype):
-    """propagate_edge_values forward and backward on the card: dx is the
-    aggregation kernel on the transposed order with v[t_perm], dv the SDDMM
-    kernel; held to torch autograd of the plain version on the same
-    (rounded) messages, with dv on the unrounded x."""
+    """propagate_edge_values forward and backward on the card: the forward
+    is the aggregation kernel, dx and dv one csr_spmm_ev_bwd launch (the
+    transposed order with v[t_perm]); held to torch autograd of the plain
+    version on the same (rounded) messages, with dv on the unrounded x."""
     g = _edge_value_graph(cuda, chunk_dtype)
     msg = torch.float32 if chunk_dtype == "f32" else torch.bfloat16
     x = torch.randn(g.num_nodes, 2, 48, device=cuda, requires_grad=True)
     v = torch.rand(g.num_edges, 2, device=cuda, requires_grad=True)
     cot = torch.randn(g.num_nodes, 2, 48, device=cuda)
-    counts = (spmm_kernel.ev_launches, spmm_kernel.sddmm_launches)
+    counts = _ev_counts()
     out = g.propagate_edge_values(x, v)
     dx, dv = torch.autograd.grad(out, (x, v), cot)
-    assert (spmm_kernel.ev_launches - counts[0], spmm_kernel.sddmm_launches - counts[1]) == (2, 1)
+    assert _ev_counts(counts) == (1, 1, 0)  # forward; dx and dv in one launch
     xr = x.detach().to(msg).float().requires_grad_()
     want = spmm_edge_values(xr, g.edge_src, g.edge_dst, v, g.num_nodes)
     want_dx, _ = torch.autograd.grad(want, (xr, v), cot.to(msg).float())
@@ -620,10 +723,10 @@ def test_csr_spmm_ev_splits_hub_rows(cuda, msg_dtype, heads, d):
                                             g.hub_edges))
     xr, vr = x.clone().requires_grad_(), v.clone().requires_grad_()
     cot = torch.randn(n, heads, d, device=cuda)
-    counts = (spmm_kernel.ev_launches, spmm_kernel.sddmm_launches)
+    counts = _ev_counts()
     out = g.propagate_edge_values(xr, vr)
     dx, dv = torch.autograd.grad(out, (xr, vr), cot)
-    assert (spmm_kernel.ev_launches - counts[0], spmm_kernel.sddmm_launches - counts[1]) == (2, 1)
+    assert _ev_counts(counts) == (1, 1, 0)
     _close_to_exact(dx, cot.to(msg_dtype), g.t_edge_src, g.t_edge_dst,
                     v[g.t_perm.long()], n)
     _check_rel(dv, sddmm_plain(cot, x, g.edge_src, g.edge_dst), 1e-5)

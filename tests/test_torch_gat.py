@@ -1,9 +1,12 @@
 """The port's GAT path against the JAX package's, on the CPU: the edge
 softmax, the per-edge-value aggregation (the CSR kernel wrapper's plain path
-and its autograd Function) against ``chunked_spmm_edge_values`` running the
-Pallas ``_spmm_kernel`` in interpret mode, the transposed edge order its
-gradient reads, ``GAT``/``GATJK`` forward and every gradient with the flax
-weights copied in, and a few ``Trainer`` steps against the JAX trainer.
+and its autograd Function) and its plain backward against
+``chunked_spmm_edge_values`` running the Pallas ``_spmm_kernel`` in interpret
+mode, the fused backward wrapper against the parent formulation (dx through
+``csr_spmm_ev`` on the transposed order, dv through ``sddmm``), the
+transposed edge order the gradient reads, ``GAT``/``GATJK`` forward and
+every gradient with the flax weights copied in, and a few ``Trainer`` steps
+against the JAX trainer.
 
 Tolerances: in f32 only the summation order differs (rtol 1e-5 on one
 aggregation; the zoo's own 1e-4 / 1e-5 forward and 1e-3 / 1e-5 gradient
@@ -37,10 +40,13 @@ from sgformer_tpu.train import Trainer as JaxTrainer
 
 from sgformer_tpu_torch import load_flax_variables, preprocess_graph
 from sgformer_tpu_torch.convert import _plan
-from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, csr_spmm_ev_autograd
+from sgformer_tpu_torch.kernels import spmm as spmm_kernel
+from sgformer_tpu_torch.kernels.spmm import (csr_spmm, csr_spmm_ev, csr_spmm_ev_autograd,
+                                             csr_spmm_ev_bwd, sddmm)
 from sgformer_tpu_torch.nn import GAT, GATJK
 from sgformer_tpu_torch.ops.sddmm import sddmm_softmax_weights
-from sgformer_tpu_torch.ops.spmm import edge_softmax, segment_mean, spmm_edge_values
+from sgformer_tpu_torch.ops.spmm import (edge_softmax, segment_mean, spmm_edge_values,
+                                         spmm_edge_values_backward)
 from sgformer_tpu_torch.train import TrainConfig, Trainer
 
 torch.set_num_threads(1)
@@ -230,6 +236,147 @@ def test_edge_value_spmm_types_and_no_grad(problem):
         dataclasses.replace(g, t_perm=None).propagate_edge_values(x, v)
     with pytest.raises(ValueError, match="chunk_dtype"):
         preprocess_graph(edge_index, N, chunk_dtype="f16", device="cpu")
+
+
+def _hub_edge_list(rng):
+    """A directed edge list on 300 nodes without self-loops: node 5 has 160
+    in-edges and node 7 160 out-edges (one row of >= 150 edges in the CSR
+    and one in its transpose), nodes 280-299 have no edge at all."""
+    n = 300
+    ei = rng.integers(0, n - 20, (2, 1200))
+    fan = rng.permutation(np.arange(20, n - 20))[:160]
+    ei = np.concatenate([ei, np.stack([fan, np.full(160, 5)]),
+                         np.stack([np.full(160, 7), fan])], axis=1)
+    return ei[:, ei[0] != ei[1]], n
+
+
+@pytest.mark.parametrize("chunk_dtype", ["f32", "bf16"])
+def test_plain_edge_value_backward_matches_jax(chunk_dtype):
+    """The plain backward, ``spmm_edge_values_backward``, against the JAX
+    package's ``_spmm_ev_bwd`` (``jax.vjp`` of ``chunked_spmm_edge_values``,
+    the Pallas kernel in interpret mode), head by head, on a graph with a
+    160-edge row in each CSR and empty rows. dv reads the unrounded g and x
+    on both sides: rtol 1e-5. dx: rtol 1e-5 with f32 messages; with bf16
+    messages the Pallas kernel also rounds v to bf16 (the port keeps it
+    f32), so each entry may differ by 2^-8 of sum |v| |msg|."""
+    rng = np.random.default_rng(12)
+    ei, n = _hub_edge_list(rng)
+    jg = jax_preprocess_graph(ei, n, undirected=False, self_loops=False,
+                              chunk_dtype=chunk_dtype, **CHUNKS)
+    g = preprocess_graph(ei, n, undirected=False, self_loops=False, chunk_dtype=chunk_dtype,
+                         device="cpu")
+    deg, t_deg = np.diff(g.indptr.numpy()), np.diff(g.t_indptr.numpy())
+    assert deg.max() >= 150 and t_deg.max() >= 150
+    assert (deg[n - 20:] == 0).all() and (t_deg[n - 20:] == 0).all()
+    x = rng.standard_normal((n, HEADS, HIDDEN)).astype(np.float32)
+    v = rng.random((g.num_edges, HEADS)).astype(np.float32)
+    cot = rng.standard_normal((n, HEADS, HIDDEN)).astype(np.float32)
+    dtype = jnp.float32 if chunk_dtype == "f32" else jnp.bfloat16
+    want_dx, want_dv = [], []
+    for h in range(HEADS):
+        _, vjp = jax.vjp(lambda a, b: chunked_spmm_edge_values(
+            a, jg.chunks, b, jg.edge_src, jg.edge_dst, compute_dtype=dtype, interpret=True),
+            jnp.asarray(x[:, h]), jnp.asarray(v[:, h]))
+        dx_h, dv_h = vjp(jnp.asarray(cot[:, h]))
+        want_dx.append(np.asarray(dx_h))
+        want_dv.append(np.asarray(dv_h))
+    want_dx, want_dv = np.stack(want_dx, axis=1), np.stack(want_dv, axis=1)
+    msg = torch.float32 if chunk_dtype == "f32" else torch.bfloat16
+    dx, dv = spmm_edge_values_backward(torch.from_numpy(cot), torch.from_numpy(x),
+                                       torch.from_numpy(v), g.t_edge_src, g.t_edge_dst,
+                                       g.t_perm, msg)
+    assert dx.dtype == torch.float32 and dv.dtype == torch.float32
+    np.testing.assert_allclose(dv.numpy(), want_dv, rtol=1e-5, atol=1e-5)
+    if chunk_dtype == "f32":
+        np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-5, atol=1e-5)
+    else:
+        scale = spmm_edge_values(torch.from_numpy(cot).to(torch.bfloat16).abs(),
+                                 g.t_edge_src, g.t_edge_dst,
+                                 torch.from_numpy(np.abs(v))[g.t_perm.long()], n,
+                                 torch.float32).numpy()
+        assert np.all(np.abs(dx.numpy() - want_dx) <= 2.0 ** -8 * scale + 1e-6)
+
+
+def _parent_backward(g, cot, x, v, msg):
+    """The gradient as the parent formulation computes it: dx is
+    csr_spmm_ev of the rounded cotangent on the transposed CSR with
+    ``v[t_perm]``, dv is sddmm on the dst-sorted CSR."""
+    dx = csr_spmm_ev(cot.to(msg), g.t_indptr, g.t_edge_src, g.t_edge_dst,
+                     v.index_select(0, g.t_perm.long()), x.dtype)
+    return dx, sddmm(cot, x, g.indptr, g.edge_src, g.edge_dst)
+
+
+@pytest.mark.parametrize("need_dx,need_dv", [(True, True), (True, False), (False, True),
+                                             (False, False)])
+@pytest.mark.parametrize("x_dtype,msg", [(torch.float32, torch.float32),
+                                         (torch.float32, torch.bfloat16),
+                                         (torch.bfloat16, torch.bfloat16)])
+def test_csr_spmm_ev_bwd_on_the_cpu_is_the_parent_formulation(need_dx, need_dv, x_dtype, msg):
+    """The fused wrapper on CPU tensors: dx bitwise the parent formulation's,
+    dv within 1e-6 of it (the same dots, gathered in another edge order); a
+    gradient not asked for is None; no launch is counted."""
+    ei, n = _hub_edge_list(np.random.default_rng(13))
+    g = preprocess_graph(ei, n, undirected=False, self_loops=False, device="cpu")
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(n, HEADS, HIDDEN, generator=gen).to(x_dtype)
+    cot = torch.randn(n, HEADS, HIDDEN, generator=gen).to(x_dtype)
+    v = torch.rand(g.num_edges, HEADS, generator=gen)
+    before = spmm_kernel.ev_bwd_launches
+    dx, dv = csr_spmm_ev_bwd(cot, x, v, *_csr_t(g), msg, g.t_hub_segments, g.hub_edges,
+                             need_dx, need_dv)
+    assert spmm_kernel.ev_bwd_launches == before
+    want_dx, want_dv = _parent_backward(g, cot, x, v, msg)
+    if need_dx:
+        assert dx.dtype == x_dtype and torch.equal(dx, want_dx)
+    else:
+        assert dx is None
+    if need_dv:
+        assert dv.dtype == torch.float32
+        torch.testing.assert_close(dv, want_dv, rtol=1e-6, atol=1e-6)
+    else:
+        assert dv is None
+
+
+@pytest.mark.parametrize("chunk_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("wrt", ["both", "x", "values"])
+def test_edge_value_gradients_on_the_cpu_are_unchanged(chunk_dtype, wrt):
+    """``propagate_edge_values``'s gradients through the autograd Function
+    (one csr_spmm_ev_bwd call, its flags from what needs a gradient): dx
+    bitwise the parent formulation's, dv within 1e-6 of it."""
+    ei, n = _hub_edge_list(np.random.default_rng(15))
+    g = preprocess_graph(ei, n, undirected=False, self_loops=False, chunk_dtype=chunk_dtype,
+                         device="cpu")
+    msg = torch.float32 if chunk_dtype == "f32" else torch.bfloat16
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(n, HEADS, HIDDEN, generator=gen).requires_grad_(wrt != "values")
+    v = torch.rand(g.num_edges, HEADS, generator=gen).requires_grad_(wrt != "x")
+    cot = torch.randn(n, HEADS, HIDDEN, generator=gen)
+    inputs = [t for t in (x, v) if t.requires_grad]
+    grads = dict(zip([id(t) for t in inputs], torch.autograd.grad(
+        g.propagate_edge_values(x, v), inputs, cot)))
+    want_dx, want_dv = _parent_backward(g, cot, x.detach(), v.detach(), msg)
+    if x.requires_grad:
+        assert torch.equal(grads[id(x)], want_dx)
+    if v.requires_grad:
+        torch.testing.assert_close(grads[id(v)], want_dv, rtol=1e-6, atol=1e-6)
+
+
+def test_edge_value_backward_refuses_a_plan_without_its_length():
+    """csr_spmm_ev_bwd and sddmm take a hub plan only with its segment
+    length, on CPU tensors too (checked before the device is)."""
+    ei, n = _hub_edge_list(np.random.default_rng(17))
+    g = preprocess_graph(ei, n, undirected=False, self_loops=False, device="cpu")
+    x = torch.randn(n, HEADS, HIDDEN)
+    v = torch.rand(g.num_edges, HEADS)
+    with pytest.raises(ValueError, match="segment length"):
+        csr_spmm_ev_bwd(x, x, v, *_csr_t(g), torch.float32, g.t_hub_segments)
+    with pytest.raises(ValueError, match="segment length"):
+        sddmm(x, x, *_csr(g), g.hub_segments)
+    with pytest.raises(TypeError):
+        csr_spmm_ev_bwd(x, x.to(torch.bfloat16), v, *_csr_t(g), torch.float32)
+    dx, dv = csr_spmm_ev_bwd(x, x, v, *_csr_t(g), torch.float32, g.t_hub_segments,
+                             g.hub_edges)
+    assert dx.shape == x.shape and dv.shape == v.shape
 
 
 def _flat(tree):
