@@ -5,6 +5,8 @@ in the same call as the change.
 
     python3 chip_compare.py gat ROOT
     python3 chip_compare.py edge-values ROOT
+    python3 chip_compare.py batch-build ROOT
+    python3 chip_compare.py smoke ROOT
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -19,7 +21,14 @@ values gathered into the transposed order) at GAT's two layer shapes, then
 this checkout's powerlaw-gat-train path (``chip_smoke.gat_train_phase``)
 with that package's launch counts (4 ``csr_spmm_ev`` + 2 ``sddmm`` a
 step). ``edge-values``: ROOT's own ``chip_smoke.edge_value_phase`` on the
-arxiv graph.
+arxiv graph. ``batch-build``: ROOT's ``train.build_subgraph_batch`` on this
+checkout's amazon2m-batch-train graph (``chip_smoke.AMAZON2M``, symmetrised
+with self-loops on the card) over one epoch's batches of 100,000: the
+median and range of each build's ms by CUDA events, the host clock over the
+epoch, and a profile of five builds by kernel. ``smoke``: ROOT's own
+``chip_smoke.py`` run whole with this checkout's ``profile_device`` in place
+of its own, so that a parent's device-busy ms and this checkout's are read
+by one definition (this checkout's leaves user-annotation ranges out).
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ def load_phases(path: str):
 
 
 def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[1] not in ("gat", "edge-values"):
+    if len(sys.argv) != 3 or sys.argv[1] not in ("gat", "edge-values", "batch-build", "smoke"):
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
@@ -59,10 +68,16 @@ def main() -> int:
 
     if not kernels.__file__.startswith(root):
         raise AssertionError(f"the package came from {kernels.__file__}, not {root}")
+    if mode == "smoke":
+        cs = load_phases(os.path.join(root, "chip_smoke.py"))
+        cs.profile_device = load_phases(os.path.join(HERE, "chip_smoke.py")).profile_device
+        return cs.main()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cs = load_phases(os.path.join(HERE if mode == "gat" else root, "chip_smoke.py"))
+    cs = load_phases(os.path.join(root if mode == "edge-values" else HERE, "chip_smoke.py"))
     print(cs.card_line(), flush=True)
+    if mode == "batch-build":
+        return batch_build(cs)
     _build.build_all(("spmm",))  # GAT's kernels
 
     if mode == "edge-values":
@@ -93,6 +108,39 @@ def main() -> int:
         del x, gg, v
         torch.cuda.empty_cache()
     cs.gat_train_phase(pl, dataclasses.replace(g, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
+    return 0
+
+
+def batch_build(cs) -> int:
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+    from sgformer_tpu_torch.train import build_subgraph_batch
+
+    ds = synthetic_dataset(**cs.AMAZON2M)
+    ei = torch.from_numpy(ds.graph["edge_index"]).cuda()
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), ds.num_nodes).int()
+    n, b = ds.num_nodes, cs.AMAZON2M_BATCH
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).cuda()
+    batches = [perm[i:i + b] for i in range(0, n, b)]
+    build_subgraph_batch(ei, batches[0], n)  # warm-up
+    ms = [cs.cuda_ms(lambda: build_subgraph_batch(ei, idx, n))[1] for idx in batches]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for idx in batches:
+        build_subgraph_batch(ei, idx, n)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t) * 1e3 / len(batches)
+    cs.log(f"batch-build: {len(batches)} batches of {n} nodes, {ei.shape[1]} edges: median "
+           f"{statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}) by CUDA "
+           f"events; host clock {host:.3f} ms a build")
+    cs.profile_device("batch-build, 5 builds",
+                      lambda it=iter(batches): build_subgraph_batch(ei, next(it), n), 5)
     return 0
 
 

@@ -68,7 +68,7 @@ JAX package. Phases, each failing loudly:
    against the plain whole, bitwise repeatable, with its walk's design,
    time, bound, plain time, gather rate and ``csr_spmm``'s time beside it;
    the same at the shape of 11 (bf16), which the kernels line reports
-   first, and the gather rate beside the ``gather_rows`` probe's after 12;
+   first, and the gather rate beside the ``gather_rows`` probe's after 13;
 11. large-400K-int8-train: the bench model on the JAX package's large-400K
    shape (``synthetic_dataset(num_nodes=400_000, num_edges=4_800_000,
    num_features=128, num_classes=40, seed=0)``, E = 9,991,628 after
@@ -78,11 +78,34 @@ JAX package. Phases, each failing loudly:
    ``csr_spmm`` a step, 3 and 3 a forward), eval logits against the plain
    forward, ``time_test`` and a profile; then the same graph with ``slab_dtype="compute"`` for one
    ``time_test``, with the int8-vs-bf16 logit difference printed;
-12. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
+12. arxiv-batch-train (after 6): the bench model behind ``BatchTrainer`` on
+   the arxiv graph's edge list, batches of 50,000 (3 and a tail of 19,343),
+   one epoch with a full-graph eval; amazon2m-batch-train (after 11): the
+   repo's amazon2m recipe (``configs/large.sh``: ``SGFormerConfig.large(256,
+   47, trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5, dropout 0,
+   gnn_use_init=True)``, f32, lr 0.01, no weight decay) on
+   ``synthetic_dataset`` at the ogbn-products graph's size (2,449,029 nodes,
+   61,859,140 edges, 100 features, 47 classes), its edge list symmetrised
+   with self-loops on the card, the 50/25/25 random split, batches of
+   100,000 (24 and a tail of 49,029), one epoch with the streaming eval,
+   then the step with bf16 activations for one timing and
+   ``preprocess_graph`` of the full graph on the card, timed. For each: one
+   batch's subgraph built on the card (CUDA events) and on CPU tensors
+   (amazon2m: bitwise equal, every field), the kernels alone in f32 and in
+   bf16 (the type of arxiv-batch's model and of amazon2m's bf16 step) at a
+   full batch's and the tail's shapes, one step's loss and gradients
+   against the plain step (amazon2m f32: 1e-5 and 1e-4; arxiv bf16 as in 6),
+   the launches of one step (6 ``csr_spmm`` and each attention kernel once)
+   and of one batch forward (3 and the reduce and apply), a batch's logits
+   against the plain forward, ``fit``'s launches, losses (the last 3 below
+   the first), accuracies and peak memory, each batch's build and step ms,
+   a streaming eval's wall time and a profile of three consecutive batches,
+   build included;
+13. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9 and 11 launched a probe; the
+   also shows that no path of 5, 6, 8, 9, 11 and 12 launched a probe; the
    gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
@@ -202,6 +225,29 @@ PROFILE_GROUPS = (
 )
 BENCH_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5,
                     compute_dtype="bf16")
+# amazon2m-batch-train: the repo's amazon2m recipe (configs/large.sh, f32,
+# the CLI's default) at the ogbn-products graph's size (the SGFormer
+# reference's large/dataset.py amazon2m loader; the JAX package's
+# data/loaders.py), 100,000 nodes a batch
+AMAZON2M = dict(num_nodes=2_449_029, num_edges=61_859_140, num_features=100, num_classes=47,
+                seed=0)
+AMAZON2M_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5, gnn_dropout=0.0,
+                       trans_dropout=0.0, gnn_use_init=True)
+AMAZON2M_TRAIN = dict(lr=0.01, trans_weight_decay=0.0, gnn_weight_decay=0.0)
+AMAZON2M_BATCH = 100_000
+# arxiv-batch-train: the bench model, 50,000 nodes a batch
+ARXIV_BATCH = 50_000
+# a batch step through the kernels against the plain versions, f32 (TF32
+# off): the loss relative, the gradients' norms relative, the logits as a
+# share of the largest; summation order only
+BATCH_LOSS_RTOL = 1e-5
+BATCH_GRAD_RTOL = 1e-4
+BATCH_LOGITS_RTOL = 1e-4
+# batches of the bf16 timing of the amazon2m step (the first is not counted)
+BF16_BATCHES = 6
+# the kernels a batch step runs
+BATCH_KERNELS = ("csr_spmm", "linear_attention_reduce", "linear_attention_apply",
+                 "linear_attention_bwd_reduce", "linear_attention_bwd_apply")
 # the JAX bench's optimiser (scripts/bench_shapes.py:68)
 BENCH_TRAIN = dict(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
 
@@ -254,7 +300,7 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
     bound, plain and library time. ``sweep`` also times the kernel with
     the hub segment lengths of ``HUB_SWEEP``, each plan passed with its
     length (bf16, each against plain)."""
-    from sgformer_tpu_torch.kernels.spmm import csr_spmm, hub_segments
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm, hub_plan
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
     n, e, f = graph.num_nodes, graph.num_edges, 256
@@ -292,7 +338,7 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
             bound_by=b_by, library_ms=library_ms, hub_segments=segs.shape[0])
         if sweep and dtype == torch.bfloat16:
             for t in HUB_SWEEP:
-                plan = torch.from_numpy(hub_segments(graph.indptr, t)).to(dev)
+                plan = hub_plan(graph.indptr, t)
                 check_close(f"{key} {name} segments of {t}", csr_spmm(x, *args[:4], plan, t),
                             want, **TOL[dtype])
                 t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan, t))
@@ -923,6 +969,84 @@ def gat_train_phase(ds, graph, dev: str, what: str = "gat") -> tuple:
                       (0.0, GAT_LOGITS_RTOL), scale_of, dev)
 
 
+def check_step(what: str, model, generator, loss_fn, loss_rtol: float, grad_rtol: float,
+               scale_of: dict) -> None:
+    """One train step's loss and gradients through the kernels against the
+    same step through the plain versions, from the model's weights now and
+    the same dropout masks (``generator`` seeded 1 for each); the weights
+    and statistics are restored after. ``loss_fn()`` runs the forward in
+    train mode and returns the loss."""
+    from sgformer_tpu_torch import kernels
+
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def loss_and_grads():
+        model.load_state_dict(snapshot)
+        model.zero_grad(set_to_none=True)
+        generator.manual_seed(1)
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.float().clone() for k, p in model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    kernels.reset_launch_counts()
+    with plain_versions():
+        loss_p, grads_p = loss_and_grads()
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("the plain step launched a kernel")
+    torch.cuda.empty_cache()
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"{what} step loss: kernels {loss_k:.7f}, plain {loss_p:.7f}, relative "
+        f"difference {rel_loss:.2e} (tolerance {loss_rtol})")
+    if not rel_loss <= loss_rtol:
+        raise AssertionError(f"{what} step loss disagrees with the plain step")
+    worst = (0.0, "")
+    for name, gk in grads_k.items():
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"gradient of {name} is not finite")
+        gp = grads_p[name]
+        rel = ((gk - gp).norm() / grads_p[scale_of.get(name, name)].norm()).item()
+        worst = max(worst, (rel, name))
+        if not rel <= grad_rtol:
+            raise AssertionError(f"gradient of {name}: |g_kernel - g_plain| / |g_plain| "
+                                 f"= {rel:.3e} > {grad_rtol}")
+    log(f"{what} step gradients: {len(grads_k)} parameters finite, largest "
+        f"|g_kernel - g_plain| / |g_plain| = {worst[0]:.3e} ({worst[1]}, "
+        f"tolerance {grad_rtol})")
+    model.load_state_dict(snapshot)
+
+
+def counted(what: str, fn, want: dict):
+    """``fn()`` from launch counts of 0; its counts must be ``want``.
+    Returns fn's result and the counts."""
+    from sgformer_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"launches of {what}: {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return out, counts
+
+
+def check_logits(what: str, logits, ref, shape: tuple, logits_tol: tuple) -> None:
+    """Logits through the kernels against the plain forward's:
+    ``logits_tol`` is (absolute, share of the largest logit); the argmax
+    must agree on ``ARGMAX_AGREEMENT`` of the rows."""
+    diff = (logits - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"{what} logits {tuple(logits.shape)} vs the plain forward: max |diff| "
+        f"{diff:.3e}, {diff / scale:.2e} of the largest logit {scale:.3e} (tolerance "
+        f"{logits_tol[0]} + {logits_tol[1]} of it), argmax agreement {agree:.5f}")
+    if (tuple(logits.shape) != shape or not torch.isfinite(logits).all()
+            or diff > logits_tol[0] + logits_tol[1] * scale or agree < ARGMAX_AGREEMENT):
+        raise AssertionError(f"{what} logits disagree with the plain forward")
+
+
 def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_launches: dict,
                loss_rtol: float, grad_rtol: float, logits_tol: tuple, scale_of: dict,
                dev: str) -> tuple:
@@ -949,72 +1073,17 @@ def train_path(what, model, ds, graph, tc: dict, step_launches: dict, forward_la
 
     # (a) one step's loss and gradients through the kernels and through the
     # plain versions, from the same weights and the same dropout masks
-    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
-
-    def loss_and_grads():
-        model.load_state_dict(snapshot)
-        model.zero_grad(set_to_none=True)
-        trainer.generator.manual_seed(1)
-        loss = trainer.loss(train_idx)
-        loss.backward()
-        torch.cuda.synchronize()
-        return loss.item(), {k: p.grad.float().clone() for k, p in model.named_parameters()}
-
-    loss_k, grads_k = loss_and_grads()
-    kernels.reset_launch_counts()
-    with plain_versions():
-        loss_p, grads_p = loss_and_grads()
-    if any(kernels.launch_counts().values()):
-        raise AssertionError("the plain step launched a kernel")
-    torch.cuda.empty_cache()
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"{what} step loss: kernels {loss_k:.6f}, plain {loss_p:.6f}, relative "
-        f"difference {rel_loss:.2e} (tolerance {loss_rtol})")
-    if not rel_loss <= loss_rtol:
-        raise AssertionError(f"{what} step loss disagrees with the plain step")
-    worst = (0.0, "")
-    for name, gk in grads_k.items():
-        if not torch.isfinite(gk).all():
-            raise AssertionError(f"gradient of {name} is not finite")
-        gp = grads_p[name]
-        rel = ((gk - gp).norm() / grads_p[scale_of.get(name, name)].norm()).item()
-        worst = max(worst, (rel, name))
-        if not rel <= grad_rtol:
-            raise AssertionError(f"gradient of {name}: |g_kernel - g_plain| / |g_plain| "
-                                 f"= {rel:.3e} > {grad_rtol}")
-    log(f"{what} step gradients: {len(grads_k)} parameters finite, largest "
-        f"|g_kernel - g_plain| / |g_plain| = {worst[0]:.3e} ({worst[1]}, "
-        f"tolerance {grad_rtol})")
-    del grads_k, grads_p
-    model.load_state_dict(snapshot)
+    check_step(what, model, trainer.generator, lambda: trainer.loss(train_idx), loss_rtol,
+               grad_rtol, scale_of)
 
     # (b) the launches of one train step and of one eval forward; the eval
     # logits against the same forward through the plain versions
-    kernels.reset_launch_counts()
-    trainer.train_step(train_idx)
-    torch.cuda.synchronize()
-    per_step = kernels.launch_counts()
-    log(f"launches of one {what} step: {per_step}")
-    if per_step != step_launches:
-        raise AssertionError(f"launch counts {per_step}, expected {step_launches}")
-    kernels.reset_launch_counts()
-    logits = trainer.eval_step()
-    torch.cuda.synchronize()
-    per_forward = kernels.launch_counts()
-    log(f"launches of one {what} eval_step: {per_forward}")
-    if per_forward != forward_launches:
-        raise AssertionError(f"launch counts {per_forward}, expected {forward_launches}")
+    _, per_step = counted(f"one {what} step", lambda: trainer.train_step(train_idx),
+                          step_launches)
+    logits, per_forward = counted(f"one {what} eval_step", trainer.eval_step, forward_launches)
     with plain_versions():
         ref = trainer.eval_step()
-    diff = (logits - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"{what} eval logits {tuple(logits.shape)} vs the plain forward: max |diff| "
-        f"{diff:.3e}, {diff / scale:.2e} of the largest logit {scale:.3e} (tolerance "
-        f"{logits_tol[0]} + {logits_tol[1]} of it), argmax agreement {agree:.5f}")
-    if (logits.shape != (n, 40) or not torch.isfinite(logits).all()
-            or diff > logits_tol[0] + logits_tol[1] * scale or agree < ARGMAX_AGREEMENT):
-        raise AssertionError(f"{what} eval logits disagree with the plain forward")
+    check_logits(f"{what} eval", logits, ref, (n, 40), logits_tol)
     del logits, ref
 
     # (c) time_test: the path's run
@@ -1200,6 +1269,322 @@ def q8_train_phase(results: dict, dev: str) -> tuple[dict, dict, dict]:
     return per_step, per_forward, run_counts
 
 
+def cuda_ms(fn) -> tuple:
+    """(fn's result, its device ms from CUDA events around it)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> None:
+    """The kernels of a batch step in ``dtype`` at one batch's shapes: the
+    four attention kernels at n = the batch's nodes (M = D = 256, one head)
+    and ``csr_spmm`` at F = 256 on the batch's subgraph through its hub
+    plan, each against its plain version (the backward reduce against its
+    plain version in f64, whose sums can cancel) with the tolerances of the
+    arxiv-shape checks, with time and bound. bf16 runs the tensor-core
+    designs, f32 the CUDA-core ones: each at the shapes a batch path gives
+    it."""
+    from sgformer_tpu_torch.kernels import attention as attn
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+
+    n, e, m = graph_b.num_nodes, graph_b.num_edges, 256
+    name_t = DTYPE_NAME[dtype]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype) for _ in range(4))
+    elt = q.element_size()
+    n_t = torch.full((), float(n), device=dev)
+    sums = attn.reduce_plain(q, k, v, False)
+    red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+    errs = {
+        "linear_attention_reduce": max(
+            check_rel(f"{key} reduce {name_t} n={n} {part}", a, b, REDUCE_REL_TOL)
+            for part, a, b in zip(("kvs", "ksum"), attn.reduce(q, k, v), sums)),
+        "linear_attention_apply": check_close(
+            f"{key} apply {name_t} n={n}", attn.apply(q, v, *sums, n_t),
+            attn.apply_plain(q, v, *sums, n_t, False), **TOL[dtype]),
+        "linear_attention_bwd_reduce": max(
+            check_rel(f"{key} bwd_reduce {name_t} n={n} {part} (plain in f64)", a, b, REDUCE_REL_TOL)
+            for part, a, b in zip(("P", "ds"), attn.bwd_reduce(q, v, g, *sums, n_t),
+                                  attn.bwd_reduce_plain(*(t.double() for t in (q, v, g)),
+                                                        *(t.double() for t in sums[:2]),
+                                                        sums[2].double(), n_t.double(), False))),
+        "linear_attention_bwd_apply": max(
+            check_rel(f"{key} bwd_apply {name_t} n={n} {part}", a, b, BWD_REL_TOL[dtype])
+            for part, a, b in zip(("dq", "dk", "dv"), attn.bwd_apply(q, k, v, g, *sums, n_t, *red),
+                                  attn.bwd_apply_plain(q, k, v, g, *sums, n_t, *red, False))),
+    }
+    small = (2 * m * m + 2 * m + 6) * 4
+    runs = {
+        "linear_attention_reduce": (
+            lambda: attn.reduce(q, k, v), lambda: attn.reduce_plain(q, k, v, False),
+            3 * n * m * elt + (m * m + m + 4) * 4, 2 * n * m * m + 3 * n * m),
+        "linear_attention_apply": (
+            lambda: attn.apply(q, v, *sums, n_t),
+            lambda: attn.apply_plain(q, v, *sums, n_t, False),
+            3 * n * m * elt + (m * m + m + 4) * 4, 2 * n * m * m + 2 * n * m + 4 * n * m),
+        "linear_attention_bwd_reduce": (
+            lambda: attn.bwd_reduce(q, v, g, *sums, n_t),
+            lambda: attn.bwd_reduce_plain(q, v, g, *sums, n_t, False),
+            3 * n * m * elt + small + 2 * n * 4, 4 * n * m * m + 6 * n * m + 2 * n * m),
+        "linear_attention_bwd_apply": (
+            lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red),
+            lambda: attn.bwd_apply_plain(q, k, v, g, *sums, n_t, *red, False),
+            7 * n * m * elt + 2 * small + 2 * n * 4, 6 * n * m * m + 8 * n * m + 3 * n * m),
+    }
+    csr = (graph_b.indptr, graph_b.edge_src, graph_b.edge_dst, graph_b.gcn_weight,
+           graph_b.hub_segments, graph_b.hub_edges)
+    errs["csr_spmm"] = check_close(
+        f"{key} csr_spmm {name_t} F={m} (E = {e})", csr_spmm(q, *csr),
+        spmm_plain(q, graph_b.edge_src, graph_b.edge_dst, graph_b.gcn_weight, n), **TOL[dtype])
+    runs["csr_spmm"] = (lambda: csr_spmm(q, *csr),
+                        lambda: spmm_plain(q, graph_b.edge_src, graph_b.edge_dst,
+                                           graph_b.gcn_weight, n),
+                        2 * n * m * elt + e * 8 + (n + 1) * 4, 2 * e * m)
+    for name, (run, plain, nbytes, ops) in runs.items():
+        ms, plain_ms = time_ms(run), time_ms(plain, iters=5)
+        b_ms, b_by = bound_ms(nbytes, ops, dtype)
+        bytes_ms = bound_ms(nbytes, 0, dtype)[0]
+        log(f"{key} {name} {name_t} n={n}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}; bytes alone {bytes_ms:.4f} ms)")
+        results[(key, name, name_t, n)] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by, bytes_bound_ms=bytes_ms)
+    results[(key, "csr_spmm", name_t, n)]["edges"] = e
+    del q, k, v, g, sums, red
+    torch.cuda.empty_cache()
+
+
+def batch_train_path(what: str, trainer, split: dict, results: dict, tols: tuple,
+                     scale_of: dict, bitwise_build: bool, dev: str) -> dict:
+    """One model behind ``BatchTrainer`` (one epoch's batches from a
+    permutation of ``np.random.default_rng(0)``):
+    (a) one batch's subgraph built on the card (CUDA events) and the same
+    function on CPU tensors (host clock), bitwise equal when
+    ``bitwise_build``; the kernels alone in f32 and in bf16 at the shapes
+    of a full batch and of the tail (``batch_kernel_phase``);
+    (b) one batch step's loss and gradients through the kernels against the
+    plain versions, from the same weights; the launches of one step and of
+    one eval forward of a batch, whose logits are held to the plain
+    forward's; ``tols`` = (loss, gradient, logits as a share of the largest,
+    logits absolute);
+    (c) the path's run: ``fit`` for one epoch, with the config's eval, its
+    launches, losses (the last 3 below the first), results and peak memory;
+    (d) each batch's build and step ms (CUDA events) over a new permutation,
+    a streaming eval's wall time, and a profile of three consecutive batches,
+    build included. Returns the launch counts of (b) and (c) and the run's
+    numbers."""
+    import numpy as np
+
+    from sgformer_tpu_torch.train import build_subgraph_batch
+
+    cfg, model = trainer.config, trainer.model
+    n, b = trainer.num_nodes, cfg.batch_size
+    nb = trainer.num_batches()
+    train_set = torch.zeros(n, dtype=torch.bool, device=dev)
+    train_set[torch.from_numpy(split["train"]).to(dev)] = True
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).to(dev)
+    tail = perm[(nb - 1) * b:]
+    log(f"{what}: {n} nodes, {trainer.edge_index.shape[1]} edges, {nb} batches of {b} "
+        f"(tail {tail.numel()})")
+
+    # (a) one batch built on the card and on the CPU; the kernels alone in
+    # both types at the full batch's and the tail's shapes
+    bidx = perm[:b]
+    graph_b, build_ms = cuda_ms(lambda: build_subgraph_batch(trainer.edge_index, bidx, n))
+    ei_cpu, bidx_cpu = trainer.edge_index.cpu(), bidx.cpu()
+    t = time.perf_counter()
+    graph_c = build_subgraph_batch(ei_cpu, bidx_cpu, n)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    log(f"{what} batch subgraph: {graph_b.num_edges} edges, {graph_b.hub_segments.shape[0]} + "
+        f"{graph_b.t_hub_segments.shape[0]} hub segments; built in {build_ms:.3f} ms on the "
+        f"card (first build), {cpu_ms:.1f} ms on CPU tensors")
+    if bitwise_build:
+        for f in dataclasses.fields(graph_c):
+            a, c = getattr(graph_b, f.name), getattr(graph_c, f.name)
+            same = (a.dtype == c.dtype and torch.equal(a.cpu(), c)) if isinstance(
+                c, torch.Tensor) else a == c
+            if not same:
+                raise AssertionError(f"{what}: the card's batch graph differs from the CPU "
+                                     f"build in {f.name}")
+        log(f"{what} batch subgraph: bitwise the CPU build (every field, the transposed CSR "
+            f"and both hub plans included)")
+    del ei_cpu, graph_c
+    graph_t = build_subgraph_batch(trainer.edge_index, tail, n)
+    for dtype in (torch.float32, torch.bfloat16):
+        for gb in (graph_b, graph_t):
+            batch_kernel_phase(gb, results, what, dev, dtype)
+    del graph_t
+
+    # (b) one step through the kernels and through the plain versions, from
+    # the same weights; the launches of one step and of one eval forward
+    trainer.init_state(0)
+    batch = trainer.build_batch(bidx, train_set)
+    check_step(f"{what} batch", model, trainer.generator, lambda: trainer.loss(batch), tols[0],
+               tols[1], scale_of)
+    _, per_step = counted(f"one {what} batch step", lambda: trainer.train_step(batch),
+                          STEP_LAUNCHES)
+    logits, per_forward = counted(f"one {what} batch forward", lambda: trainer.forward(batch),
+                                  FORWARD_LAUNCHES)
+    with plain_versions():
+        ref = trainer.forward(batch)
+    check_logits(f"{what} batch", logits, ref, (b, model.config.out_channels),
+                 (tols[3], tols[2]))
+    del logits, ref, batch, graph_b
+    torch.cuda.empty_cache()
+
+    # (c) the path's run: fit, one epoch and its eval
+    torch.cuda.reset_peak_memory_stats()
+    trainer.record_losses = True
+    forwards = nb if cfg.eval_mode == "batch" else 1
+    want = {k: c * nb + forwards * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    t = time.perf_counter()
+    logger, run_counts = counted(f"{what} fit ({nb} batch steps, {forwards} eval forwards)",
+                                 lambda: trainer.fit([split]), want)
+    fit_s = time.perf_counter() - t
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = trainer.train_losses
+    result = logger.results[0][-1]
+    log(f"{what} fit: {fit_s:.3f} s for one epoch ({nb} steps) and its {cfg.eval_mode} eval; "
+        f"peak device memory {peak_mib:.1f} MiB")
+    log(f"{what} losses: {[round(x, 6) for x in losses]}")
+    log(f"{what} accuracies after one epoch: train {result[0]:.4f}, valid {result[1]:.4f}, "
+        f"test {result[2]:.4f}")
+    if len(losses) != nb or not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"the {what} loss did not fall over the epoch")
+
+    # (d) each batch's build and step on the card over a new permutation, a
+    # streaming eval's wall time, a profile of three batches, build included
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(dev)
+    builds, steps = [], []
+    for i in range(nb):
+        bb, ms = cuda_ms(lambda: trainer.build_batch(perm[i * b:(i + 1) * b], train_set))
+        builds.append(ms)
+        steps.append(cuda_ms(lambda: trainer.train_step(bb))[1])
+    t = time.perf_counter()
+    trainer.evaluate_streaming(split, np.random.default_rng(2))
+    eval_s = time.perf_counter() - t
+    log(f"{what} batch build on the card: median {statistics.median(builds):.3f} ms over {nb} "
+        f"(min {min(builds):.3f}, max {max(builds):.3f}); batch step: median "
+        f"{statistics.median(steps[:-1]):.3f} ms over {nb - 1} full batches, tail "
+        f"{steps[-1]:.3f} ms; a streaming eval of all nodes: {eval_s * 1e3:.1f} ms wall")
+    it = iter(range(3))
+    wall, busy = profile_device(
+        f"{what} 3 batches (build + step)",
+        lambda: trainer.train_step(trainer.build_batch(perm[next(it) * b:][:b], train_set)), 3)
+    numbers = dict(build_ms=statistics.median(builds), cpu_build_ms=cpu_ms,
+                   step_ms=statistics.median(steps[:-1]), tail_step_ms=steps[-1],
+                   fit_s=fit_s, eval_s=eval_s, peak_mib=peak_mib, busy_share=busy / wall,
+                   losses=losses, result=result)
+    return per_step, per_forward, run_counts, numbers
+
+
+def arxiv_batch_phase(ds, graph, results: dict, dev: str) -> tuple:
+    """arxiv-batch-train: the bench model behind ``BatchTrainer`` on the
+    arxiv graph's batch-tier edge list (the graph's own, symmetrised with
+    self-loops), batches of 50,000, full-graph eval on that graph."""
+    import numpy as np
+
+    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer
+
+    model, scale_of = bench_model(ds, dev)
+    edges = torch.stack([graph.edge_src, graph.edge_dst])
+    trainer = BatchTrainer(model, edges, ds.graph["node_feat"], ds.label,
+                           BatchTrainConfig(**BENCH_TRAIN, epochs=1, batch_size=ARXIV_BATCH,
+                                            eval_mode="full"),
+                           full_graph=graph, device=dev)
+    n = graph.num_nodes
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    out = batch_train_path("arxiv-batch", trainer, split, results,
+                           (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, 0.0, LOGITS_ATOL), scale_of,
+                           False, dev)
+    del trainer, model, edges
+    torch.cuda.empty_cache()
+    return out
+
+
+def amazon2m_batch_phase(results: dict, dev: str) -> tuple:
+    """amazon2m-batch-train: the repo's amazon2m recipe (``configs/large.sh``,
+    f32) at the ogbn-products graph's size behind ``BatchTrainer``, batches
+    of 100,000, streaming eval; then the step with bf16 activations for one
+    timing (printed, no limit), and ``preprocess_graph`` of the full graph
+    on the card, timed."""
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig, preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.data.splits import rand_train_test_idx
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer
+
+    t = time.perf_counter()
+    ds = synthetic_dataset(**AMAZON2M, device=dev)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ei = torch.from_numpy(ds.graph["edge_index"]).to(dev)
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), ds.num_nodes).int()
+    torch.cuda.synchronize()
+    log(f"amazon2m dataset: {gen_s:.1f} s on the host; edge list symmetrised with self-loops "
+        f"on the card in {time.perf_counter() - t:.2f} s: N = {ds.num_nodes}, E = {ei.shape[1]}")
+    split = rand_train_test_idx(ds.label, rng=np.random.default_rng(0))
+    cfg = SGFormerConfig.large(256, AMAZON2M["num_classes"], **AMAZON2M_CONFIG)
+    model = SGFormer(cfg, AMAZON2M["num_features"], generator=torch.Generator().manual_seed(0),
+                     device=dev)
+    trainer = BatchTrainer(model, ei, ds.graph["node_feat"], ds.label,
+                           BatchTrainConfig(**AMAZON2M_TRAIN, epochs=1,
+                                            batch_size=AMAZON2M_BATCH, eval_mode="batch"),
+                           device=dev)
+    del ei
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
+                     for i in range(cfg.gnn_num_layers)})
+    out = batch_train_path("amazon2m-batch", trainer, split, results,
+                           (BATCH_LOSS_RTOL, BATCH_GRAD_RTOL, BATCH_LOGITS_RTOL, 0.0), scale_of,
+                           True, dev)
+
+    # the same step with bf16 activations: its time, printed with no limit
+    bf16 = SGFormer(dataclasses.replace(cfg, compute_dtype="bf16"), AMAZON2M["num_features"],
+                    generator=torch.Generator().manual_seed(0), device=dev)
+    trainer_b = BatchTrainer(bf16, trainer.edge_index, trainer.x, ds.label,
+                             trainer.config, device=dev)
+    trainer_b.init_state(0)
+    train_set = torch.zeros(trainer.num_nodes, dtype=torch.bool, device=dev)
+    train_set[torch.from_numpy(split["train"]).to(dev)] = True
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(trainer.num_nodes)).to(dev)
+    b = AMAZON2M_BATCH
+    steps = []
+    for i in range(BF16_BATCHES):
+        batch = trainer_b.build_batch(perm[i * b:(i + 1) * b], train_set)
+        steps.append(cuda_ms(lambda: trainer_b.train_step(batch))[1])
+    out[3]["bf16_step_ms"] = statistics.median(steps[1:])
+    log(f"amazon2m-batch step with bf16 activations: median {out[3]['bf16_step_ms']:.3f} ms over "
+        f"{BF16_BATCHES - 1} batches (f32: {out[3]['step_ms']:.3f} ms; printed, no limit)")
+    edges = trainer.edge_index.shape[1]
+    del trainer, trainer_b, model, bf16, batch
+    torch.cuda.empty_cache()
+
+    # preprocess_graph of the full graph on the card: the set-up a
+    # full-graph eval at this size needs (that eval is not run: the plain
+    # forward it would be held to gathers [E, 256] f32 messages, 129 GB)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    full = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, device=dev)
+    torch.cuda.synchronize()
+    out[3]["preprocess_s"] = time.perf_counter() - t
+    log(f"amazon2m preprocess_graph of the full graph on the card: {out[3]['preprocess_s']:.2f} s "
+        f"(E = {full.num_edges}, {full.hub_segments.shape[0]} hub segments; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB)")
+    if full.num_edges != edges:
+        raise AssertionError("preprocess_graph's edges differ from the batch tier's edge list")
+    del full, ds
+    torch.cuda.empty_cache()
+    return out
+
+
 def probe_phase(graph, results: dict, dev: str) -> dict:
     """The timing probes: each kernel against its plain version (these
     launches are not counted), then each probe's own run from counts of 0
@@ -1290,9 +1675,10 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     return counts
 
 
-def profile_device(what: str, fn, reps: int) -> None:
+def profile_device(what: str, fn, reps: int) -> tuple[float, float]:
     """Device time per kernel over a few calls of ``fn``, and the device's
-    busy share of its wall time (torch.profiler, CUPTI)."""
+    busy share of its wall time (torch.profiler, CUPTI). Returns (wall ms,
+    device-busy ms) a call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1304,7 +1690,10 @@ def profile_device(what: str, fn, reps: int) -> None:
         wall = (time.perf_counter() - t) * 1e3 / reps
     rows = []
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
+        # a user annotation's range on the device (Optimizer.step#Adam.step)
+        # spans kernels that are counted on their own
+        if ("CUDA" not in str(getattr(e, "device_type", ""))
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1326,6 +1715,7 @@ def profile_device(what: str, fn, reps: int) -> None:
     log(f"profile: {what} by group: " + "; ".join(
         f"{g} {ms:.3f} ms x{cnt:g}" for g, (ms, cnt) in
         sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    return wall, busy
 
 
 def main() -> int:
@@ -1368,6 +1758,7 @@ def main() -> int:
     attention_bwd_phase(graph.num_nodes, results, "cuda")
     serve_counts, forwards = serve_phase(ds, graph, "cuda")
     step_counts, _, train_counts, _ = train_phase(ds, graph, "cuda")
+    arxiv_batch = arxiv_batch_phase(ds, graph, results, "cuda")
     edge_value_phase(graph, results, "cuda")
 
     t = time.perf_counter()
@@ -1379,8 +1770,8 @@ def main() -> int:
         f"mean {deg.float().mean().item():.1f})")
     spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw", sweep=True)
     # the int8 kernel alone on the same graph, with and without its hub plan
-    rs = gcn_norm_rs(pl_graph.edge_dst.cpu().numpy(), pl_graph.num_nodes)
-    q8_phase(dataclasses.replace(pl_graph, rs=torch.from_numpy(rs).cuda()), results, "cuda",
+    rs = gcn_norm_rs(pl_graph.edge_dst, pl_graph.num_nodes)
+    q8_phase(dataclasses.replace(pl_graph, rs=rs), results, "cuda",
              key="csr_spmm_q8_powerlaw", dtypes=(torch.bfloat16,), no_plan=True)
     pl_step, _, pl_counts, _ = powerlaw_train_phase(pl, pl_graph, "cuda")
     # GAT's backward kernels alone on the same graph, with and without the
@@ -1399,6 +1790,7 @@ def main() -> int:
     q8_phase(graph_q8, results, "cuda")
     del graph_q8
     q8_step, q8_forward, q8_counts = q8_train_phase(results, "cuda")
+    amazon2m_batch = amazon2m_batch_phase(results, "cuda")
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -1466,6 +1858,20 @@ def main() -> int:
             r = dict(results[(name, "bf16")])
             counts, per_step = train_counts, step_counts
             per_forward = {k: c / forwards for k, c in serve_counts.items()}
+        if name in BATCH_KERNELS:
+            # the batch paths: launches of their fit runs and of one batch
+            # step; each kernel alone in f32 and bf16 at a full batch's and
+            # the tail's shapes (E = the batch subgraph's edges for csr_spmm)
+            for what, (b_step, _, b_counts, _) in (("arxiv_batch", arxiv_batch),
+                                                   ("amazon2m_batch", amazon2m_batch)):
+                r.update({f"{what}_launches": b_counts[name],
+                          f"{what}_launches_per_train_step": b_step[name]})
+            for key, v in results.items():
+                if key[0] in ("arxiv-batch", "amazon2m-batch") and key[1] == name:
+                    prefix = f"{key[0].replace('-', '_')}_{key[2]}_n{key[3]}_"
+                    r.update({prefix + k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bytes_bound_ms", "max_abs_err",
+                                                         "edges") if k in v})
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
                       results[("csr_spmm_powerlaw", "bf16")].items()

@@ -1,12 +1,16 @@
-"""Graph container and the one-time host-side preprocessing.
+"""Graph container and the one-time preprocessing.
 
-The port of ``sgformer_tpu/graph.py``, CSR path only. All structure work
-(symmetrising, self-loops, sorting edges by destination, the GCN degree
-normalisation) runs once on the host in numpy and gives a :class:`Graph` of
-tensors that stays on the device. Its dst-sorted ``indptr``, ``edge_src`` and
-``gcn_weight`` are exactly what the CSR SpMM kernel reads, so the TPU's
-slab, chunk and clustering-reorder plans have no counterpart here:
-``node_perm`` is always None.
+The port of ``sgformer_tpu/graph.py``, CSR path only. ``preprocess_graph``
+symmetrises, replaces self-loops, sorts the edges by destination and
+normalises them once, on the graph's device, with the JAX package's numpy
+results bitwise; :func:`graph_from_sorted` then builds the rest (row
+pointers, the transposed CSR, the hub plans) there too. The batch trainer
+builds each batch's subgraph with the same functions
+(:func:`induced_edges`, :func:`gcn_norm_weights`). The result is a
+:class:`Graph` of tensors that stays on the device. Its dst-sorted
+``indptr``, ``edge_src`` and ``gcn_weight`` are exactly what the CSR SpMM
+kernel reads, so the TPU's slab, chunk and clustering-reorder plans have no
+counterpart here: ``node_perm`` is always None.
 
 The gradient of the aggregation is ``A^T @ g`` through the same kernel. A
 graph built with ``undirected=True`` is symmetric by construction (the edge
@@ -47,7 +51,7 @@ import torch
 
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.kernels import spmm as _spmm_kernel
-from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, hub_segments
+from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, hub_plan
 
 _CHUNK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -186,131 +190,186 @@ class Graph:
 
 
 # ---------------------------------------------------------------------------
-# Host-side (numpy) edge-list transforms, run once before the graph moves to
-# the device. Copies of the JAX package's, which the port may not import.
+# Structure work on tensors, on whatever device they are on: the JAX
+# package's numpy edge-list transforms and normalisations (which the port
+# may not import), bitwise, and the CSRs of a Graph from its dst-sorted
+# edges. preprocess_graph runs it once per graph on the graph's device; the
+# batch trainer once per batch, on the card.
 # ---------------------------------------------------------------------------
 
 
-def to_undirected(edge_index: np.ndarray) -> np.ndarray:
+def to_undirected(edge_index: torch.Tensor) -> torch.Tensor:
     """Symmetrise and deduplicate an edge list [2, E]."""
     src, dst = edge_index
-    both = np.concatenate([np.stack([src, dst]), np.stack([dst, src])], axis=1)
-    return coalesce(both)
+    return coalesce(torch.stack([torch.cat([src, dst]), torch.cat([dst, src])]))
 
 
-def coalesce(edge_index: np.ndarray) -> np.ndarray:
+def coalesce(edge_index: torch.Tensor) -> torch.Tensor:
     """Sort by (dst, src) and remove duplicate edges."""
     src, dst = edge_index
-    key = dst.astype(np.int64) * (max(int(src.max(initial=0)), int(dst.max(initial=0))) + 1) + src
-    order = np.argsort(key, kind="stable")
-    key = key[order]
-    keep = np.ones(len(key), dtype=bool)
-    keep[1:] = key[1:] != key[:-1]
-    return np.stack([src[order][keep], dst[order][keep]])
+    width = int(max(src.max().item(), dst.max().item(), 0)) + 1 if src.numel() else 1
+    key = torch.unique(dst.long() * width + src.long(), sorted=True)
+    return torch.stack([key % width, key // width]).to(edge_index.dtype)
 
 
-def remove_self_loops(edge_index: np.ndarray) -> np.ndarray:
-    src, dst = edge_index
-    mask = src != dst
-    return np.stack([src[mask], dst[mask]])
+def remove_self_loops(edge_index: torch.Tensor) -> torch.Tensor:
+    return edge_index[:, edge_index[0] != edge_index[1]]
 
 
-def add_self_loops(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
-    loop = np.arange(num_nodes, dtype=edge_index.dtype)
-    return np.concatenate([edge_index, np.stack([loop, loop])], axis=1)
+def add_self_loops(edge_index: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    loop = torch.arange(num_nodes, dtype=edge_index.dtype, device=edge_index.device)
+    return torch.cat([edge_index, torch.stack([loop, loop])], dim=1)
 
 
-def in_degree(dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    return np.bincount(dst, minlength=num_nodes).astype(np.float64)
+def sort_by_dst(src: torch.Tensor, dst: torch.Tensor) -> tuple:
+    """(src, dst) stably sorted by dst."""
+    dst, order = torch.sort(dst, stable=True)
+    return src[order], dst
 
 
-def gcn_norm_weights(src: np.ndarray, dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    """Per-edge ``1/sqrt(d_in[dst] * d_in[src])``, with inf/nan (isolated
-    nodes) set to 0."""
-    d = in_degree(dst, num_nodes)
+def _indptr(dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """[N+1] int32 row pointers of dst-sorted edges."""
+    indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dst_sorted.device)
+    torch.cumsum(torch.bincount(dst_sorted, minlength=num_nodes), 0, out=indptr[1:])
+    return indptr.int()
+
+
+def _degree_table(deg: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` (a numpy function on f64) of each integer degree in ``deg``,
+    inf and nan set to 0: a table of numpy's own values for 0..max(deg),
+    gathered on deg's device. torch's own f64 sqrt need not round as
+    numpy's does (its CPU build differs in the last bit for some integers),
+    so the table is what keeps the weights bitwise numpy's on every
+    device."""
+    top = int(deg.max().item()) if deg.numel() else 0
     with np.errstate(divide="ignore"):
-        dinv = 1.0 / np.sqrt(d)
-    dinv[~np.isfinite(dinv)] = 0.0
-    return (dinv[dst] * dinv[src]).astype(np.float32)
+        table = fn(np.arange(top + 1, dtype=np.float64))
+    table[~np.isfinite(table)] = 0.0
+    return torch.from_numpy(table).to(deg.device)[deg.long()]
 
 
-def gcn_norm_rs(dst: np.ndarray, num_nodes: int) -> np.ndarray:
-    """The separable factor ``rs = 1/sqrt(d_in)`` of the symmetric GCN
-    normalisation, with inf (isolated nodes) set to 0: ``gcn_norm_weights``
-    is ``rs[dst] * rs[src]`` up to f32 rounding. The int8 aggregation
+def _rsqrt_in_degree(dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """[N] f64 ``1/sqrt(d_in)``, 0 for isolated nodes."""
+    return _degree_table(torch.bincount(dst, minlength=num_nodes), lambda d: 1.0 / np.sqrt(d))
+
+
+def gcn_norm_weights(src: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Per-edge ``1/sqrt(d_in[dst] * d_in[src])`` as ``dinv[dst] * dinv[src]``
+    in f64, then f32, with isolated nodes' ``dinv`` set to 0."""
+    dinv = _rsqrt_in_degree(dst, num_nodes)
+    return (dinv[dst.long()] * dinv[src.long()]).float()
+
+
+def gcn_norm_rs(dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """The separable factor ``rs = 1/sqrt(d_in)`` (f32) of the symmetric GCN
+    normalisation, with isolated nodes' set to 0: ``gcn_norm_weights`` is
+    ``rs[dst] * rs[src]`` up to f32 rounding. The int8 aggregation
     pre-scales x by it."""
-    d = in_degree(dst, num_nodes)
-    with np.errstate(divide="ignore"):
-        dinv = 1.0 / np.sqrt(d)
-    dinv[~np.isfinite(dinv)] = 0.0
-    return dinv.astype(np.float32)
+    return _rsqrt_in_degree(dst, num_nodes).float()
 
 
-def sort_by_dst(edge_index: np.ndarray):
-    src, dst = edge_index
-    order = np.argsort(dst, kind="stable")
-    return src[order], dst[order]
+def pyg_gcn_norm(src: torch.Tensor, dst: torch.Tensor, num_nodes: int) -> tuple:
+    """PyG-style ``gcn_norm`` with self-loops added (not improved): every
+    self-loop is replaced by one of weight 1, each edge weighs
+    ``dinv[src] * dinv[dst]`` with ``dinv = deg ** -0.5`` over dst (integer
+    degrees, since every edge weighs 1). Returns (src, dst, weight) int32,
+    int32, f32, sorted by dst."""
+    keep = src != dst
+    loop = torch.arange(num_nodes, dtype=src.dtype, device=src.device)
+    src = torch.cat([src[keep], loop])
+    dst = torch.cat([dst[keep], loop])
+    dinv = _degree_table(torch.bincount(dst, minlength=num_nodes), lambda d: d ** -0.5)
+    weight = dinv[src.long()] * dinv[dst.long()]
+    order = torch.sort(dst, stable=True).indices
+    return src[order].int(), dst[order].int(), weight[order].float()
 
 
-def build_indptr(dst_sorted: np.ndarray, num_nodes: int) -> np.ndarray:
-    counts = np.bincount(dst_sorted, minlength=num_nodes)
-    indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    return indptr
-
-
-def pyg_gcn_norm(
-    edge_index: np.ndarray,
-    num_nodes: int,
-    *,
-    add_self_loops_: bool = True,
-    improved: bool = False,
-):
-    """PyG-style ``gcn_norm``: add the remaining self-loops (existing loops
-    keep their weight; loop-less nodes get 1, or 2 if ``improved``), degree
-    from edge weights over dst, weight ``dinv[src]*dinv[dst]``. Returns
-    (src, dst, weight) sorted by dst."""
-    edge_index = np.asarray(edge_index)
-    src, dst = edge_index
-    weight = np.ones(src.shape[0], dtype=np.float64)
-    if add_self_loops_:
-        fill = 2.0 if improved else 1.0
-        mask = src != dst
-        loop_weight = np.full(num_nodes, fill)
-        loop_weight[src[~mask]] = weight[~mask]
-        loop = np.arange(num_nodes, dtype=src.dtype)
-        src = np.concatenate([src[mask], loop])
-        dst = np.concatenate([dst[mask], loop])
-        weight = np.concatenate([weight[mask], loop_weight])
-    deg = np.zeros(num_nodes, dtype=np.float64)
-    np.add.at(deg, dst, weight)
-    with np.errstate(divide="ignore"):
-        dinv = deg**-0.5
-    dinv[~np.isfinite(dinv)] = 0.0
-    weight = dinv[src] * weight * dinv[dst]
-    order = np.argsort(dst, kind="stable")
-    return (
-        src[order].astype(np.int32),
-        dst[order].astype(np.int32),
-        weight[order].astype(np.float32),
-    )
-
-
-def _int32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-
-
-def _transpose_csr(src, dst, weight, num_nodes: int, dev: torch.device) -> tuple:
+def _transpose_csr(src, dst, weight, num_nodes: int) -> tuple:
     """CSR of A^T from A's dst-sorted edges: sorted (stably) by source, each
     edge's row is its source and its column its destination. Returns
     (indptr, edge_src, edge_dst, weight, perm, hub plan) in the layout
     :func:`csr_spmm` reads, with perm the dst-sorted id of each edge."""
-    order = np.argsort(src, kind="stable")
+    order = torch.sort(src, stable=True).indices
     t_dst, t_src = src[order], dst[order]
-    indptr = build_indptr(t_dst, num_nodes)
-    return (_int32(indptr, dev), _int32(t_src, dev),
-            _int32(t_dst, dev), torch.from_numpy(np.ascontiguousarray(weight[order])).to(dev),
-            _int32(order, dev), _int32(hub_segments(indptr), dev))
+    indptr = _indptr(t_dst, num_nodes)
+    return (indptr, t_src.contiguous(), t_dst.contiguous(), weight[order].contiguous(),
+            order.int(), hub_plan(indptr, HUB_EDGES))
+
+
+def graph_from_sorted(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    weight: torch.Tensor,
+    num_nodes: int,
+    *,
+    symmetric: bool,
+    pyg: Optional[tuple] = None,
+    chunk_dtype: str = "f32",
+    slab_dtype: str = "compute",
+    rs: Optional[torch.Tensor] = None,
+) -> Graph:
+    """A :class:`Graph` of dst-sorted edges on their device: the row
+    pointers, the CSR of A^T with ``t_perm``, and the hub plans of both
+    (segments of :data:`HUB_EDGES`). ``src``/``dst``: [E] int32, sorted by
+    dst; ``weight``: [E] f32. ``pyg``: the PyG edges (src, dst, weight),
+    sorted by dst, or None; their transposed CSR is built unless
+    ``symmetric`` (A == A^T, whose gradient then walks A's own CSR)."""
+    names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm", "t_hub_segments")
+    extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes)))
+    if pyg is not None:
+        psrc, pdst, pw = pyg
+        pindptr = _indptr(pdst, num_nodes)
+        extra.update(pyg_src=psrc, pyg_dst=pdst, pyg_weight=pw, pyg_indptr=pindptr,
+                     pyg_hub_segments=hub_plan(pindptr, HUB_EDGES))
+        if not symmetric:
+            t = _transpose_csr(psrc, pdst, pw, num_nodes)
+            extra.update(pyg_t_indptr=t[0], pyg_t_src=t[1], pyg_t_dst=t[2], pyg_t_weight=t[3],
+                         pyg_t_hub_segments=t[5])
+    indptr = _indptr(dst, num_nodes)
+    return Graph(
+        edge_src=src,
+        edge_dst=dst,
+        gcn_weight=weight,
+        indptr=indptr,
+        hub_segments=hub_plan(indptr, HUB_EDGES),
+        hub_edges=HUB_EDGES,
+        num_nodes=int(num_nodes),
+        num_edges=int(src.shape[0]),
+        symmetric=bool(symmetric),
+        chunk_dtype=chunk_dtype,
+        slab_dtype=slab_dtype,
+        rs=rs,
+        **extra,
+    )
+
+
+def induced_edges(edge_index: torch.Tensor, node_idx: torch.Tensor, num_nodes: int) -> tuple:
+    """The edges with both ends in ``node_idx``, relabelled to positions in
+    it, in edge order: (src, dst) int32 on edge_index's device. Membership
+    is a bool per node, so the pass over every edge of the full graph reads
+    one byte per end; only the kept edges look up their positions."""
+    dev = edge_index.device
+    member = torch.zeros(num_nodes, dtype=torch.bool, device=dev)
+    member[node_idx] = True
+    keep = (torch.index_select(member, 0, edge_index[0])
+            & torch.index_select(member, 0, edge_index[1]))
+    sub = edge_index[:, keep]
+    position = torch.full((num_nodes,), -1, dtype=torch.int32, device=dev)
+    position[node_idx] = torch.arange(node_idx.numel(), dtype=torch.int32, device=dev)
+    return torch.index_select(position, 0, sub[0]), torch.index_select(position, 0, sub[1])
+
+
+def subgraph(node_idx, edge_index, num_nodes: int) -> tuple[torch.Tensor, int]:
+    """Relabelled node-induced subgraph, the port of the JAX package's
+    ``graph.subgraph`` (PyG ``subgraph`` with ``relabel_nodes=True``): the
+    edges with BOTH endpoints in ``node_idx``, in their order, relabelled to
+    ``0..len(node_idx)-1``, as an int64 [2, E_sub] tensor on edge_index's
+    device (numpy input: the CPU), and the subgraph's node count."""
+    if not isinstance(edge_index, torch.Tensor):
+        edge_index = torch.from_numpy(np.asarray(edge_index))
+    node_idx = torch.as_tensor(node_idx, device=edge_index.device).long()
+    s, d = induced_edges(edge_index, node_idx, num_nodes)
+    return torch.stack([s, d]).long(), int(node_idx.numel())
 
 
 def preprocess_graph(
@@ -322,18 +381,16 @@ def preprocess_graph(
     with_pyg_norm: bool = False,
     chunk_dtype: str = "f32",
     slab_dtype: str = "compute",
-    dtype=np.float32,
     device="cuda",
 ) -> Graph:
     """Symmetrise (optionally), replace self-loops, sort by destination and
-    normalise, then place the graph on ``device``.
+    normalise, all on ``device``, where the graph then stays.
 
     ``edge_index`` is a [2, E] integer array (numpy, or a tensor on any
-    device). ``with_pyg_norm`` also builds the PyG ``gcn_norm`` edges of the
+    device). The edge weights are f32. ``with_pyg_norm`` also builds the PyG ``gcn_norm`` edges of the
     medium-tier GCN backbone. ``chunk_dtype`` ('f32' or 'bf16') is the
     message type of the per-edge-value aggregation; its default, 'f32', is
-    what a JAX graph without chunk plans computes. ``dtype`` is the type of
-    the edge weights. The CSR of A^T (with ``t_perm``) is built on every
+    what a JAX graph without chunk plans computes. The CSR of A^T (with ``t_perm``) is built on every
     graph; with ``undirected=False`` A need not be symmetric, so that of the
     PyG edges is built too.
 
@@ -359,53 +416,24 @@ def preprocess_graph(
         raise ValueError("slab_dtype='int8' is bf16-path-only: it needs chunk_dtype='bf16' "
                          "(the separable sep_rs weights of the JAX plan)")
     dev = resolve_device(device)
-    if isinstance(edge_index, torch.Tensor):
-        edge_index = edge_index.cpu().numpy()
-    edge_index = np.asarray(edge_index)
+    if not isinstance(edge_index, torch.Tensor):
+        edge_index = torch.from_numpy(np.asarray(edge_index))
+    edge_index = edge_index.to(dev)
     if undirected:
         edge_index = to_undirected(edge_index)
     if self_loops:
-        edge_index = remove_self_loops(edge_index)
-        edge_index = add_self_loops(edge_index, num_nodes)
-    src, dst = sort_by_dst(edge_index)
-    weight = gcn_norm_weights(src, dst, num_nodes).astype(dtype)
-    indptr = build_indptr(dst, num_nodes)
-    names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm", "t_hub_segments")
-    extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes, dev)))
+        edge_index = add_self_loops(remove_self_loops(edge_index), num_nodes)
+    src, dst = sort_by_dst(*edge_index.int())
+    weight = gcn_norm_weights(src, dst, num_nodes)
     rs = gcn_norm_rs(dst, num_nodes) if slab_dtype == "int8" else None
-    if rs is not None:
-        extra["rs"] = torch.from_numpy(rs).to(dev)
+    pyg = None
     if with_pyg_norm:
-        psrc, pdst, pw = pyg_gcn_norm(np.stack([src, dst]), num_nodes)
-        pw = pw.astype(dtype)
+        pyg = pyg_gcn_norm(src, dst, num_nodes)
+        psrc, pdst, pw = pyg
         off = psrc != pdst
-        if rs is not None and not np.allclose(pw[off], rs[psrc[off]] * rs[pdst[off]],
-                                              rtol=1e-5, atol=1e-12):
+        if rs is not None and not torch.allclose(
+                pw[off], rs[psrc[off].long()] * rs[pdst[off].long()], rtol=1e-5, atol=1e-12):
             raise ValueError("slab_dtype='int8' needs separable (sep_rs) weights: this "
                              "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
-        pindptr = build_indptr(pdst, num_nodes)
-        extra.update(
-            pyg_src=_int32(psrc, dev),
-            pyg_dst=_int32(pdst, dev),
-            pyg_weight=torch.from_numpy(pw).to(dev),
-            pyg_indptr=_int32(pindptr, dev),
-            pyg_hub_segments=_int32(hub_segments(pindptr), dev),
-        )
-        if not undirected:
-            t = _transpose_csr(psrc, pdst, pw, num_nodes, dev)
-            extra.update(pyg_t_indptr=t[0], pyg_t_src=t[1], pyg_t_dst=t[2], pyg_t_weight=t[3],
-                         pyg_t_hub_segments=t[5])
-    return Graph(
-        edge_src=_int32(src, dev),
-        edge_dst=_int32(dst, dev),
-        gcn_weight=torch.from_numpy(np.ascontiguousarray(weight)).to(dev),
-        indptr=_int32(indptr, dev),
-        hub_segments=_int32(hub_segments(indptr), dev),
-        hub_edges=HUB_EDGES,
-        num_nodes=int(num_nodes),
-        num_edges=int(len(src)),
-        symmetric=bool(undirected),
-        chunk_dtype=chunk_dtype,
-        slab_dtype=slab_dtype,
-        **extra,
-    )
+    return graph_from_sorted(src, dst, weight, num_nodes, symmetric=bool(undirected), pyg=pyg,
+                             chunk_dtype=chunk_dtype, slab_dtype=slab_dtype, rs=rs)

@@ -44,11 +44,13 @@ at most that many edges, each walked by a warp of its own, and add each
 row's segment sums in a fixed order in a second pass (see
 ``csrc/spmm.cu``; the int8 sums are integers, exact in any order; a
 segment's per-edge dots need no second pass).
-The plan, :func:`hub_segments` of the CSR's ``indptr``, is built once per
-graph on the host by ``preprocess_graph`` and kept on the ``Graph`` beside
-each CSR (``hub_segments``, ``t_hub_segments``, ...), with the segment
-length it was built with (``Graph.hub_edges``); a call without it builds it
-from ``indptr``, which reads ``indptr`` back to the host. The kernel's row
+The plan, :func:`hub_plan` of the CSR's ``indptr``, is built once per
+graph on the graph's device by ``preprocess_graph`` (or by the batch
+trainer's ``build_subgraph_batch``, once per batch) and kept on the
+``Graph`` beside each CSR (``hub_segments``, ``t_hub_segments``, ...), with
+the segment length it was built with (``Graph.hub_edges``); a call without
+it builds it from ``indptr``, which waits for the device to count the
+segments. The kernel's row
 walk skips every row longer than the plan's segment length and leaves it to
 the plan, so a plan is only taken together with its length, which the
 kernel is given: a plan passed without one is refused (it cannot be read
@@ -95,22 +97,21 @@ HUB_EDGES = 128
 QUANTIZE_BLOCKS = 1024
 
 
-def hub_segments(indptr, max_edges: int = HUB_EDGES) -> np.ndarray:
+def hub_plan(indptr: torch.Tensor, max_edges: int = HUB_EDGES) -> torch.Tensor:
     """The segment plan of a CSR: every row with more than ``max_edges``
     edges cut into runs of at most ``max_edges`` consecutive edges, as an
-    [S, 3] int32 array of (row, begin, end) edge ranges in row and edge
-    order. ``indptr``: [N+1], numpy or a tensor (read on the host)."""
-    if isinstance(indptr, torch.Tensor):
-        indptr = indptr.cpu().numpy()
-    indptr = np.asarray(indptr, dtype=np.int64)
-    deg = np.diff(indptr)
-    rows = np.flatnonzero(deg > max_edges)
-    counts = -(-deg[rows] // max_edges)
-    row = np.repeat(rows, counts)
-    first = np.repeat(np.cumsum(counts) - counts, counts)
-    begin = indptr[row] + (np.arange(len(row)) - first) * max_edges
-    end = np.minimum(begin + max_edges, indptr[row + 1])
-    return np.stack([row, begin, end], axis=1).astype(np.int32).reshape(-1, 3)
+    [S, 3] int32 tensor of (row, begin, end) edge ranges in row and edge
+    order, built on ``indptr``'s device (integer work only, so the same
+    plan on every device; counting the segments waits for the device)."""
+    indptr = indptr.long()
+    deg = indptr[1:] - indptr[:-1]
+    rows = torch.nonzero(deg > max_edges).flatten()
+    counts = (deg[rows] + max_edges - 1) // max_edges
+    row = torch.repeat_interleave(rows, counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    begin = indptr[row] + (torch.arange(row.numel(), device=row.device) - first) * max_edges
+    end = torch.minimum(begin + max_edges, indptr[row + 1])
+    return torch.stack([row, begin, end], dim=1).int().reshape(-1, 3).contiguous()
 
 
 def _check_device(*tensors) -> str:
@@ -160,11 +161,11 @@ def _plan(segments, indptr, segment_edges=None) -> tuple[torch.Tensor, int]:
     """The hub plan on indptr's device and its segment length, which the
     kernel's row walk takes: ``segments`` as given (checked) with the length
     it was built with, ``segment_edges``, which may not be left out; or,
-    when ``segments`` is None, the plan built from ``indptr`` (a host read)
+    when ``segments`` is None, the plan built from ``indptr`` (:func:`hub_plan`)
     with segments of ``segment_edges`` (:data:`HUB_EDGES` when None)."""
     length = _segment_length(segments, segment_edges)
     if segments is None:
-        return torch.from_numpy(hub_segments(indptr, length)).to(indptr.device), length
+        return hub_plan(indptr, length), length
     if segments.device != indptr.device:
         raise ValueError(f"segments on {segments.device}, the CSR on {indptr.device}")
     if (segments.dtype != torch.int32 or segments.dim() != 2 or segments.shape[1] != 3
@@ -208,7 +209,7 @@ def csr_spmm(
     x: [N, F] float32 or bfloat16 (any F; the kernel takes 256 columns per
     pass); indptr [N+1], edge_src and edge_dst [E] int32, sorted by dst;
     weight [E] float32; segments: the hub plan of this CSR,
-    ``hub_segments(indptr, segment_edges)`` (on the graph as
+    ``hub_plan(indptr, segment_edges)`` (on the graph as
     ``hub_segments`` and the like, with ``hub_edges``), given with its
     ``segment_edges`` or refused; built from ``indptr`` when None, with
     segments of ``segment_edges`` (:data:`HUB_EDGES` when None). The sum is

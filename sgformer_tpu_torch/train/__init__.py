@@ -1,6 +1,11 @@
-"""Full-graph training of the port: optimizer, trainer, logger, timing and
-checkpoints."""
+"""Training of the port: optimizer, the full-graph trainer, the
+random-partition mini-batch trainer, logger, timing and checkpoints."""
 
+from sgformer_tpu_torch.train.batch_trainer import (  # noqa: F401
+    BatchTrainConfig,
+    BatchTrainer,
+    build_subgraph_batch,
+)
 from sgformer_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from sgformer_tpu_torch.train.logger import RunLogger  # noqa: F401
 from sgformer_tpu_torch.train.optim import adam, dual_weight_decay_adam  # noqa: F401

@@ -54,12 +54,24 @@ def _train_mask(n: int, idx: torch.Tensor) -> torch.Tensor:
     return mask
 
 
+def nll_per_node(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """[N] f32 -log_softmax(logits)[i, labels[i]]."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels[:, None]).squeeze(1)
+
+
+def bce_per_node(logits: torch.Tensor, labels_onehot: torch.Tensor) -> torch.Tensor:
+    """[N] f32 binary cross-entropy with logits, averaged over classes."""
+    z = logits.float()
+    lab = labels_onehot.float()
+    return (-lab * F.logsigmoid(z) - (1.0 - lab) * F.logsigmoid(-z)).mean(dim=-1)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """log_softmax + NLL on the nodes ``idx``, in f32, as a masked full-N
     sum divided by the number of indices (the JAX package's form)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(1, labels[:, None]).squeeze(1)
+    nll = nll_per_node(logits, labels)
     return (nll * _train_mask(logits.shape[0], idx)).sum() / idx.shape[0]
 
 
@@ -67,9 +79,7 @@ def bce_loss(logits: torch.Tensor, labels_onehot: torch.Tensor,
              idx: torch.Tensor) -> torch.Tensor:
     """Binary cross-entropy with logits, averaged over classes, on the nodes
     ``idx``, in f32; the masked full-N form of :func:`cross_entropy_loss`."""
-    z = logits.float()
-    lab = labels_onehot.float()
-    per = (-lab * F.logsigmoid(z) - (1.0 - lab) * F.logsigmoid(-z)).mean(dim=-1)
+    per = bce_per_node(logits, labels_onehot)
     return (per * _train_mask(logits.shape[0], idx)).sum() / idx.shape[0]
 
 

@@ -537,8 +537,8 @@ def test_fused_edge_value_backward_matches_plain(cuda, x_dtype, msg_dtype, heads
     chain_kept = d % 8 != 0 or d > 128
     first_dv = None
     for length in EV_SEGMENT_LENGTHS:
-        plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, length)).to(cuda)
-        t_plan = torch.from_numpy(spmm_kernel.hub_segments(g.t_indptr, length)).to(cuda)
+        plan = spmm_kernel.hub_plan(g.indptr, length)
+        t_plan = spmm_kernel.hub_plan(g.t_indptr, length)
         counts = _ev_counts()
         dx, dv = csr_spmm_ev_bwd(cot, x, v, *csr_t, msg_dtype, t_plan, length)
         assert _ev_counts(counts) == (0, 1, 0)
@@ -746,7 +746,7 @@ def test_hub_plan_of_another_segment_length_raises(cuda):
     g = preprocess_graph(ei, n, undirected=False, self_loops=False, device=cuda)
     deg = torch.diff(g.indptr)  # the random edges add a few to each
     assert spmm_kernel.HUB_EDGES < deg[4].item() <= 256 < deg[9].item()
-    plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, 256)).to(cuda)
+    plan = spmm_kernel.hub_plan(g.indptr, 256)
     assert plan[:, 0].unique().tolist() == [9]
     csr = (g.indptr, g.edge_src, g.edge_dst)
     x = torch.randn(n, 64, device=cuda)
@@ -1029,3 +1029,116 @@ def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
                                                      g.gcn_weight, mode), slab_variants.REL_TOL)
     if mode == "prod":
         assert torch.equal(got, csr_spmm(x.float(), *csr))
+
+
+def _batch_edges(n=1500):
+    """The batch tier's edge list of a power-law graph (symmetrised, self-loops
+    replaced): its hub rows hold more in-edges than a hub segment (128)."""
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+
+    ds = synthetic_dataset(num_nodes=n, num_edges=25000, num_features=16, num_classes=5,
+                           powerlaw=1.1, seed=7, device="cpu")
+    ei = torch.as_tensor(ds.graph["edge_index"])
+    return ds, add_self_loops(remove_self_loops(to_undirected(ei)), n).numpy()
+
+
+@pytest.mark.parametrize("pyg", [False, True])
+def test_batch_build_on_the_card_is_bitwise_the_cpu_build(cuda, pyg):
+    """Every tensor of a batch's graph, the transposed CSRs and all hub plans
+    included, is bitwise the same built on the card and on the CPU."""
+    import dataclasses
+
+    from sgformer_tpu_torch.train import build_subgraph_batch
+
+    ds, ei = _batch_edges()
+    n = ds.num_nodes
+    perm = np.random.default_rng(0).permutation(n)
+    ei_card = torch.from_numpy(ei).to(cuda, torch.int32)
+    for bidx in (perm[:1200], perm[1200:]):
+        want = build_subgraph_batch(torch.from_numpy(ei), torch.from_numpy(bidx), n,
+                                    with_pyg_norm=pyg)
+        got = build_subgraph_batch(ei_card, torch.from_numpy(bidx).to(cuda), n,
+                                   with_pyg_norm=pyg)
+        assert got.device.type == "cuda"
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(b, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f.name
+            else:
+                assert a == b, f.name
+        if len(bidx) == 1200:
+            assert got.hub_segments.shape[0] > 0 and got.t_hub_segments.shape[0] > 0
+
+
+def _batch_trainer(ds, ei, dev, **kw):
+    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer
+
+    cfg = SGFormerConfig.large(64, 5, gnn_num_layers=3, gnn_use_init=True, trans_dropout=0.0,
+                               gnn_dropout=0.0)
+    model = SGFormer(cfg, 16, device=dev)
+    tc = BatchTrainConfig(lr=1e-2, trans_weight_decay=0.0, gnn_weight_decay=0.0,
+                          batch_size=600, display_step=-1, **kw)
+    full = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, device=dev)
+    return BatchTrainer(model, ei, ds.graph["node_feat"].cpu().numpy(), ds.label, tc,
+                        full_graph=full, device=dev)
+
+
+def test_batch_step_through_the_kernels_matches_the_cpu(cuda):
+    """One batch step on the card (6 csr_spmm and the four attention kernels)
+    against the same step on the CPU (the plain versions), from the same
+    parameters: the loss within 1e-5, every gradient within 1e-4 of its
+    norm (f32, summation order only)."""
+    ds, ei = _batch_edges()
+    bidx = np.random.default_rng(1).permutation(ds.num_nodes)[:600]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        trainer = _batch_trainer(ds, ei, dev)
+        trainer.init_state(0)
+        train_set = torch.zeros(ds.num_nodes, dtype=torch.bool, device=dev)
+        train_set[::2] = True
+        batch = trainer.build_batch(torch.from_numpy(bidx), train_set)
+        kernels.reset_launch_counts()
+        loss = trainer.loss(batch)
+        loss.backward()
+        counts = kernels.launch_counts()
+        out[dev] = (loss.item(), {k: p.grad.cpu() for k, p in trainer.model.named_parameters()})
+    assert counts["csr_spmm"] == 6 and all(
+        counts[k] == 1 for k in ("linear_attention_reduce", "linear_attention_apply",
+                                 "linear_attention_bwd_reduce", "linear_attention_bwd_apply"))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    # a bias that feeds a train-mode BatchNorm has an exact gradient of 0:
+    # both give rounding noise, held to the gradient of the shift after it
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias" for i in range(3)})
+    for k, want in out["cpu"][1].items():
+        rel = (out["cuda"][1][k] - want).norm() / out["cpu"][1][scale_of.get(k, k)].norm()
+        assert rel.item() <= 1e-4, k
+
+
+def test_batch_fit_on_the_card_gives_the_cpu_fit(cuda):
+    """Two epochs of batches on the card (the kernels) and on the CPU (the
+    plain versions), from the same parameters and batches: per-batch losses
+    within 1e-4 relative (f32 summation order, compounded by 6 Adam steps);
+    then the full-graph eval of the card's final parameters on both: logits
+    within 1e-4 of the largest, accuracies within one node's share of each
+    split, the valid NLL within twice the logits' difference."""
+    ds, ei = _batch_edges()
+    split = {"train": np.arange(0, ds.num_nodes, 2), "valid": np.arange(1, ds.num_nodes, 4),
+             "test": np.arange(3, ds.num_nodes, 4)}
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        trainer = _batch_trainer(ds, ei, dev, epochs=2)
+        trainer.record_losses = True
+        trainer.fit([split], np_rng=np.random.default_rng(5))
+        trainers[dev] = trainer
+    card, cpu = trainers["cuda"], trainers["cpu"]
+    assert len(card.train_losses) == 6
+    np.testing.assert_allclose(card.train_losses, cpu.train_losses, rtol=1e-4)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.final_state.items()})
+    got, want = card.eval_logits_full(), cpu.eval_logits_full()
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * np.abs(want).max()
+    res_card, res_cpu = card.evaluate_full(got, split), cpu.evaluate_full(want, split)
+    np.testing.assert_allclose(res_card[:3], res_cpu[:3], atol=1.0 / len(split["test"]))
+    assert abs(res_card[3] - res_cpu[3]) <= 2 * err + 1e-6

@@ -106,8 +106,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Predictor(model, graph, np.zeros((3, 4), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         graph.to("cuda")
-    from sgformer_tpu_torch.train import TrainConfig, Trainer
+    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer, TrainConfig, Trainer
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(model, graph, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
                 TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchTrainer(model, ei, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
+                     BatchTrainConfig())

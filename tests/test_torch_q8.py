@@ -263,7 +263,7 @@ def test_int8_graph_carries_rs_and_propagates_through_the_int8_path():
                          device="cpu")
     jg = jax_preprocess_graph(ds.graph["edge_index"], n)
     np.testing.assert_array_equal(g.rs.numpy(), jax_gcn_norm_rs(np.asarray(jg.edge_dst), n))
-    np.testing.assert_array_equal(g.rs.numpy(), gcn_norm_rs(g.edge_dst.numpy(), n))
+    np.testing.assert_array_equal(g.rs.numpy(), gcn_norm_rs(g.edge_dst, n).numpy())
     assert g.slab_dtype == "int8" and g.rs.dtype == torch.float32
     # the separable factor reproduces the non-self weights
     s_, d_ = g.edge_src.long(), g.edge_dst.long()
@@ -345,7 +345,7 @@ def powerlaw_problem():
                                seed=5, powerlaw=1.1)
     g = preprocess_graph(ds.graph["edge_index"], 600, chunk_dtype="bf16", slab_dtype="int8",
                          device="cpu")
-    plan = torch.from_numpy(spmm_kernel.hub_segments(g.indptr, SEGMENT))
+    plan = spmm_kernel.hub_plan(g.indptr, SEGMENT)
     assert torch.diff(g.indptr).max().item() > 4 * SEGMENT and plan.shape[0] > 8
     src, dst, w = (t.numpy() for t in (g.edge_src, g.edge_dst, g.gcn_weight))
     jplan = build_slabs(src, dst, w, 600, stream_sel="bf16", sep_rs=g.rs.numpy(),

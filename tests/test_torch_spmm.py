@@ -19,7 +19,7 @@ from sgformer_tpu.ops.spmm import spmm as jax_spmm
 
 from sgformer_tpu_torch.data import synthetic_dataset
 from sgformer_tpu_torch.graph import preprocess_graph
-from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_segments
+from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_plan
 from sgformer_tpu_torch.ops.spmm import spmm
 
 torch.set_num_threads(1)
@@ -262,7 +262,7 @@ def test_hub_plan_covers_every_long_row_once():
     """``preprocess_graph`` builds the hub plan of each CSR it holds (A,
     A^T with ``undirected=False``, the PyG edges and their transpose), each
     covering every edge of every row above HUB_EDGES once, in edge order;
-    ``Graph.to`` carries them; :func:`hub_segments` does the same for any
+    ``Graph.to`` carries them; :func:`hub_plan` does the same for any
     segment length."""
     ei, n = _hub_edges(14)
     g = preprocess_graph(ei, n, undirected=False, with_pyg_norm=True, device="cpu")
@@ -276,7 +276,7 @@ def test_hub_plan_covers_every_long_row_once():
     sym = preprocess_graph(ei, n, device="cpu")
     assert _check_plan(sym.hub_segments.numpy(), sym.indptr.numpy()) == 2
     for max_edges, rows in ((1, 500), (7, 10), (64, 1)):
-        assert _check_plan(hub_segments(g.indptr, max_edges), g.indptr.numpy(),
+        assert _check_plan(hub_plan(g.indptr, max_edges).numpy(), g.indptr.numpy(),
                            max_edges) >= rows
     small = preprocess_graph(*_clustered_edges(15, n=60, e=200), device="cpu")
     assert small.hub_segments.shape == (0, 3) and small.t_hub_segments.shape == (0, 3)
@@ -295,7 +295,7 @@ def test_hub_plan_is_taken_only_with_its_segment_length():
 
     ei, n = _hub_edges(20, fan=200)
     g = preprocess_graph(ei, n, undirected=False, device="cpu")
-    plan256 = torch.from_numpy(hub_segments(g.indptr, 256))
+    plan256 = hub_plan(g.indptr, 256)
     assert plan256.shape[0] == 0 and g.hub_segments.shape[0] == 2  # 200 edges: a hub at 128
     with pytest.raises(ValueError, match="segment length"):
         _plan(plan256, g.indptr)
@@ -307,7 +307,7 @@ def test_hub_plan_is_taken_only_with_its_segment_length():
     got, length = _plan(None, g.indptr)
     assert torch.equal(got, g.hub_segments) and length == HUB_EDGES == g.hub_edges
     got, length = _plan(None, g.indptr, 8)
-    assert np.array_equal(got.numpy(), hub_segments(g.indptr, 8)) and length == 8
+    assert torch.equal(got, hub_plan(g.indptr, 8)) and length == 8
     x = torch.randn(n, 4)
     csr = (g.indptr, g.edge_src, g.edge_dst)
     with pytest.raises(ValueError, match="segment length"):
@@ -326,7 +326,7 @@ def _segmented_spmm(x, indptr, src, weight, max_edges):
     """The kernel's two passes written plainly: rows of at most
     ``max_edges`` edges summed whole; each hub segment's f32 partial row
     summed alone; each hub row's partials added in segment order."""
-    plan = hub_segments(indptr, max_edges)
+    plan = hub_plan(indptr, max_edges).numpy()
     n = indptr.shape[0] - 1
     deg = np.diff(indptr.numpy())
     dst = torch.from_numpy(np.repeat(np.arange(n), deg))
