@@ -18,10 +18,12 @@ JAX package. Phases, each failing loudly:
    with the design it runs (tensor cores for bf16) and one ``torch.matmul`` of its
    core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
-   torch autograd of the plain forward, at the same shapes, in bf16 and f32;
-   the backward reduce also with n = 1 and positive inputs (2^-14 of
-   scale), with its design and ``torch.matmul`` of q @ kvs and q^T (g/den)
-   as a yardstick; bitwise repeatable, finite zeros for an all-masked group;
+   torch autograd of the plain forward, at the same shapes, in bf16 and f32
+   (both on the tensor cores, f32 in 3xTF32); both also with n = 1 and
+   positive inputs (the reduce to 2^-14 of scale, the apply against its
+   plain version in f64), with their designs and ``torch.matmul`` of q @ kvs
+   and q^T (g/den) as a yardstick; bitwise repeatable, finite zeros for an
+   all-masked group;
 5. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
    and the bench model ``SGFormerConfig.large(256, 40, trans_num_layers=1,
    gnn_num_layers=3, graph_weight=0.5, compute_dtype="bf16")`` from a seeded
@@ -126,8 +128,8 @@ from unittest import mock
 
 import torch
 
-from sgformer_tpu_torch.utils.measure import (apply_product_inputs, bound_ms, card_line, rel_err,
-                                              time_ms)
+from sgformer_tpu_torch.utils.measure import (PEAK_OPS, apply_product_inputs, bound_ms,
+                                              card_line, rel_err, time_ms)
 
 T0 = time.perf_counter()
 
@@ -347,6 +349,30 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
                 results[(key, name)][f"seg{t}_ms"] = t_ms
 
 
+def bound_name(by: str, dtype) -> str:
+    """A bound's name for the log: bytes, or operations at the peak
+    ``PEAK_OPS`` takes for ``dtype`` (f32: the 3xTF32 rate, three TF32
+    tensor-core products at 495 TFLOP/s for each f32 one)."""
+    if by == "bytes":
+        return by
+    rate = f"{PEAK_OPS[dtype] / 1e12:g} TFLOP/s"
+    return f"operations (3xTF32, {rate})" if dtype == torch.float32 else f"operations ({rate})"
+
+
+def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
+    """The backward apply's and reduce's designs for these widths, logged;
+    at the model's width both take the tensor cores (f32 in 3xTF32)."""
+    design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
+    name = DTYPE_NAME[dtype]
+    log(f"bwd_apply {name} design at {where}: {design}")
+    log(f"bwd_reduce {name} design at {where}: {red_design}")
+    want = "tensor cores (mma.sync 3xTF32" if dtype == torch.float32 else "tensor cores"
+    if (m, d) == (256, 256) and not (design.startswith(want) and red_design.startswith(want)):
+        raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
+                             f"tensor-core design")
+    return design, red_design
+
+
 def attention_phase(n: int, results: dict, dev: str) -> None:
     from sgformer_tpu_torch.kernels import attention as attn
     from sgformer_tpu_torch.ops.attention import linear_attention
@@ -442,9 +468,9 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         ab_ms, ab_by = bound_ms(3 * n * m * elt + (m * d + m + 4) * 4,
                              2 * n * m * d + 2 * n * m + 4 * n * d, dtype)
         log(f"reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul k^T v "
-            f"{gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {rb_by}); apply {name}: {a_ms:.4f} ms "
-            f"(plain {a_plain:.4f} ms, torch.matmul q @ kvs {a_gemm_ms:.4f} ms, "
-            f"bound {ab_ms:.4f} ms by {ab_by})")
+            f"{gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {bound_name(rb_by, dtype)}); apply "
+            f"{name}: {a_ms:.4f} ms (plain {a_plain:.4f} ms, torch.matmul q @ kvs "
+            f"{a_gemm_ms:.4f} ms, bound {ab_ms:.4f} ms by {bound_name(ab_by, dtype)})")
         results[("linear_attention_reduce", name)] = dict(
             max_abs_err=red_err, ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=design)
@@ -473,10 +499,7 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         name = DTYPE_NAME[dtype]
         rel = BWD_REL_TOL[dtype]
-        design = attn.bwd_apply_design(dtype, m, d)
-        log(f"bwd_apply {name} design: {design}")
-        red_design = attn.bwd_reduce_design(dtype, m, d)
-        log(f"bwd_reduce {name} design: {red_design}")
+        design, red_design = bwd_designs(attn, dtype, m, d, f"n={n}")
         q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype)
                       for _ in range(4))
         kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
@@ -505,16 +528,23 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         if not all(torch.equal(a, b) for a, b in zip(got_a, again)):
             raise AssertionError("bwd_apply is not bitwise repeatable")
         # with n = 1 and positive inputs the attention products, not n * gd,
-        # carry the gradients
+        # carry the gradients; against the plain version evaluated in f64 on
+        # the same inputs: the epilogue's terms cancel there, and an f32
+        # evaluation of it, the plain version's included, is then itself up
+        # to ~1e-5 of the scale off (logged beside it)
         qp, kp, vp = (torch.rand(n, m, generator=gen, device=dev).to(dtype)
                       for _ in range(3))
         one = torch.ones((), device=dev)
         sums_p = attn.reduce_plain(qp, kp, vp, False)
         red_p = attn.bwd_reduce_plain(qp, vp, g, *sums_p, one, False)
-        for part, a, b in zip(("dq", "dk", "dv"),
-                              attn.bwd_apply(qp, kp, vp, g, *sums_p, one, *red_p),
-                              attn.bwd_apply_plain(qp, kp, vp, g, *sums_p, one, *red_p, False)):
-            check_rel(f"bwd_apply {name} (n = 1) {part}", a, b, rel)
+        ins_p = (qp, kp, vp, g, *sums_p, one, *red_p)
+        exact = attn.bwd_apply_plain(*(t.double() for t in ins_p), False)
+        for part, a, b, c in zip(("dq", "dk", "dv"), attn.bwd_apply(*ins_p),
+                                 attn.bwd_apply_plain(*ins_p, False), exact):
+            check_rel(f"bwd_apply {name} (n = 1) {part} (plain in f64)", a, c, rel)
+            err, scale = rel_err(b, c)
+            log(f"  the plain version in {name} against it: {err / scale:.2e} of its scale")
+        del exact
         # the reduce with n = 1 and positive q, v, g, so that q @ kvs, not
         # n * v, carries den and gden: each output within 2^-14 of its scale
         # of the plain version in f64 (dinv within 2^-14 of the magnitudes of
@@ -571,8 +601,9 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         ab_ms, ab_by = bound_ms(7 * n * m * elt + 2 * small + 2 * n * 4,
                              6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
         log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul q @ kvs "
-            f"+ q^T gd {gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {rb_by}); bwd_apply {name}: "
-            f"{a_ms:.4f} ms (plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by {ab_by})")
+            f"+ q^T gd {gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {bound_name(rb_by, dtype)}); "
+            f"bwd_apply {name}: {a_ms:.4f} ms (plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by "
+            f"{bound_name(ab_by, dtype)})")
         results[("linear_attention_bwd_reduce", name)] = dict(
             max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=red_design)
@@ -1284,16 +1315,19 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     four attention kernels at n = the batch's nodes (M = D = 256, one head)
     and ``csr_spmm`` at F = 256 on the batch's subgraph through its hub
     plan, each against its plain version (the backward reduce against its
-    plain version in f64, whose sums can cancel) with the tolerances of the
-    arxiv-shape checks, with time and bound. bf16 runs the tensor-core
-    designs, f32 the CUDA-core ones: each at the shapes a batch path gives
-    it."""
+    plain version in f64, whose sums can cancel: P, ds, dinv, den and gden)
+    with the tolerances of the arxiv-shape checks, with time and bound. The
+    backward kernels run their tensor-core designs in both types (f32 in
+    3xTF32), logged at each shape; the forward ones bf16's tensor-core and
+    f32's CUDA-core designs: each at the shapes a batch path gives it."""
     from sgformer_tpu_torch.kernels import attention as attn
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
     n, e, m = graph_b.num_nodes, graph_b.num_edges, 256
     name_t = DTYPE_NAME[dtype]
+    designs = dict(zip(("linear_attention_bwd_apply", "linear_attention_bwd_reduce"),
+                       bwd_designs(attn, dtype, m, m, f"{key} n={n}")))
     gen = torch.Generator(device=dev).manual_seed(9)
     q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype) for _ in range(4))
     elt = q.element_size()
@@ -1307,12 +1341,14 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
         "linear_attention_apply": check_close(
             f"{key} apply {name_t} n={n}", attn.apply(q, v, *sums, n_t),
             attn.apply_plain(q, v, *sums, n_t, False), **TOL[dtype]),
-        "linear_attention_bwd_reduce": max(
+        # every output checked, P's and ds's error reported
+        "linear_attention_bwd_reduce": max([
             check_rel(f"{key} bwd_reduce {name_t} n={n} {part} (plain in f64)", a, b, REDUCE_REL_TOL)
-            for part, a, b in zip(("P", "ds"), attn.bwd_reduce(q, v, g, *sums, n_t),
+            for part, a, b in zip(("P", "ds", "dinv", "den, gden"),
+                                  attn.bwd_reduce(q, v, g, *sums, n_t),
                                   attn.bwd_reduce_plain(*(t.double() for t in (q, v, g)),
                                                         *(t.double() for t in sums[:2]),
-                                                        sums[2].double(), n_t.double(), False))),
+                                                        sums[2].double(), n_t.double(), False))][:2]),
         "linear_attention_bwd_apply": max(
             check_rel(f"{key} bwd_apply {name_t} n={n} {part}", a, b, BWD_REL_TOL[dtype])
             for part, a, b in zip(("dq", "dk", "dv"), attn.bwd_apply(q, k, v, g, *sums, n_t, *red),
@@ -1350,9 +1386,12 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
         b_ms, b_by = bound_ms(nbytes, ops, dtype)
         bytes_ms = bound_ms(nbytes, 0, dtype)[0]
         log(f"{key} {name} {name_t} n={n}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}; bytes alone {bytes_ms:.4f} ms)")
+            f"by {bound_name(b_by, dtype)}; bytes alone {bytes_ms:.4f} ms)")
         results[(key, name, name_t, n)] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                                       bound_ms=b_ms, bound_by=b_by, bytes_bound_ms=bytes_ms)
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               bytes_bound_ms=bytes_ms)
+        if name in designs:
+            results[(key, name, name_t, n)]["design"] = designs[name]
     results[(key, "csr_spmm", name_t, n)]["edges"] = e
     del q, k, v, g, sums, red
     torch.cuda.empty_cache()
@@ -1871,7 +1910,7 @@ def main() -> int:
                     prefix = f"{key[0].replace('-', '_')}_{key[2]}_n{key[3]}_"
                     r.update({prefix + k: v[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "bytes_bound_ms", "max_abs_err",
-                                                         "edges") if k in v})
+                                                         "edges", "design") if k in v})
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
                       results[("csr_spmm_powerlaw", "bf16")].items()

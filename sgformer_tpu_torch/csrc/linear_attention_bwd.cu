@@ -38,10 +38,15 @@
 // Bound: memory in bf16. At the arxiv shape (N = 169,343, M = D = 256) the
 // reduce must read q, v, g (260 MB, 78 us at 3.35 TB/s) and the apply must
 // read q, k, v, g and write dq, dk, dv (607 MB, 181 us); the products are
-// 2 and 3 times 2*N*M*D = 22.2 GFLOP. The reduce and the f32 apply multiply
-// on the CUDA cores in f32 from shared memory (64x64 output tiles, 4x4 per
-// thread, 67 TFLOP/s peak), so operations bound them (~0.66 and ~1.0 ms at
-// best).
+// 2 and 3 times 2*N*M*D = 22.2 GFLOP. In f32 the bytes double and the
+// products bound both passes: at the 3xTF32 rate (three TF32 products at
+// 495 TFLOP/s, 165 TFLOP/s of f32 products) ~0.27 and ~0.40 ms. The
+// CUDA-core kernels below (la_bwd_rows_kernel, la_bwd_reduce_kernel,
+// la_bwd_apply_kernel: 64x64 output tiles, 4x4 per thread, f32 FMAs from
+// shared memory, 8 shared loads for 16 FMAs) are bound by the shared-memory
+// rate, well under the 67 TFLOP/s FMA peak, and the apply's grid reads each
+// row block of q, k, v and g once per 64-column output tile. They remain
+// for widths the tensor-core tiles do not fit (above M, D = 256 in f32).
 //
 // The bf16 apply (la_bwd_apply_tc_kernel) runs its three products on the
 // tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). The A side is the
@@ -74,6 +79,24 @@
 // from the forward's bf16 output (num = out * den), which would move gden by
 // ~2^-9. Passes 3 (finish, dinv) are the CUDA-core design's.
 //
+// The f32 forms run the same designs on the tensor cores in 3xTF32
+// (mma.sync m16n8k8 tf32, f32 sums): each f32 operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and each product is
+// lo*hi' + hi*lo' + hi*hi' (lo*lo' dropped), ~2^-21 of each term against
+// the bf16 pieces' 2^-17. The apply and the rows pass are the bf16 kernels
+// instantiated for float: the A rows (g, v, k; q) stay f32 in shared memory
+// (a 128 x 256 tile is 130 KB, one block an SM) and are split as their
+// fragments load (plain 32-bit loads: ldmatrix is 16-bit); B (kvs, P, P^T;
+// kvs^T) is split once per call into tf32 hi + lo and streamed in 64-deep
+// chunks (two stages of hi and lo, 68 KB beside the A tile's 130 KB). Every
+// 16 deep the products go into fresh sums added to the running sums in f32
+// round-to-nearest, so that the tensor cores' own accumulation, which may
+// truncate, never chains more than one such step. The P pass
+// (la_bwd_reduce_tf32_kernel) is the node-axis contraction with q split as
+// its fragments load and gd = g * (1/den) split once a chunk into shared
+// tf32 hi + lo tiles. Two tf32 pieces of kvs keep dinv's cancelling sums
+// where the bf16 rows pass needs three bf16 pieces.
+//
 // Inputs are row-strided views (ld* = elements between rows), so the heads
 // of an [N, H, *] tensor are read and written in place.
 
@@ -83,6 +106,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -94,6 +118,8 @@ using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::ldmatrix_x4;
 using tc::mma_bf16;
+using tc::mma_tf32;
+using tc::split_tf32;
 
 constexpr int kTile = 64;      // output tile (rows x columns)
 constexpr int kRows = 32;      // contraction depth per shared-memory step
@@ -494,7 +520,24 @@ constexpr int kTcPad = 8;  // bf16 per shared row past its end: ldmatrix without
 constexpr int kTcThreads = 256;
 constexpr int kTcBStride = kTcK + kTcPad;
 constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one piece's chunk
+constexpr size_t kTcBStageBytes = kTcBStage * sizeof(__nv_bfloat16);
 using tc::kSmemPerBlock;
+
+// The f32 (3xTF32) forms: a shared A row is padded by 16 bytes as a bf16
+// one (kTcPad), so that a row is 4 banks past the one above it and the 32
+// addresses of a tf32 fragment load (rows lane / 4, columns lane % 4) fall
+// in distinct banks; a B chunk is kTfK f32 deep, with the same 16-byte pad.
+template <typename T>
+constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
+constexpr int kTfK = 64;
+constexpr int kTfBStride = kTfK + kPadOf<float>;
+constexpr int kTfBStage = kTcCols * kTfBStride;  // f32 of one piece's chunk
+static_assert(kTcK % kTfK == 0, "whole tf32 chunks in the padded depth");
+template <typename T>
+constexpr bool kIsF32 = std::is_same_v<T, float>;
+// bytes of one piece's B chunk
+template <typename T>
+constexpr size_t kBStageBytes = kIsF32<T> ? kTfBStage * sizeof(float) : kTcBStageBytes;
 
 // The padded extents of the split operands: kvs and P as [n = M][k = D]
 // (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
@@ -516,20 +559,26 @@ using tc::split_store;
 // The rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's sum
 // sum gd*a, which cancels with sum gden*b to ~1/10 of its terms at the arxiv
 // shape, and the ~2^-17 of hi + lo then leaves dinv ~1.3e-5 of its size off
-// the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7).
+// the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7). The f32
+// rows pass splits it into tf32 hi + lo, each product 3xTF32 (~2^-21).
+template <typename T>
 constexpr int kRowsPieces = 3;
+template <>
+constexpr int kRowsPieces<float> = 2;
 
-// hl[...] = the hi and lo bf16 halves of kvs, P and P^T, zero in the pads.
+// hl[...] = the hi and lo halves of kvs, P and P^T, zero in the pads: bf16
+// pieces, or tf32 pieces held in f32 (Piece = float).
+template <typename Piece>
 __global__ void __launch_bounds__(kThreads)
 la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M, int D,
-                    __nv_bfloat16* __restrict__ hl) {
+                    Piece* __restrict__ hl) {
   const TcDims t(M, D);
   const size_t nk = t.kvs_elems();
   const size_t count = 2 * nk + t.pt_elems();
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float x = 0.f;
-    __nv_bfloat16* hi;
+    Piece* hi;
     size_t lo_off;
     if (i < 2 * nk) {  // kvs (i < nk) or P, [m][d]
       const size_t j = i < nk ? i : i - nk;
@@ -583,27 +632,55 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, bool vec, int n, const 
   }
 }
 
+// The same for f32 rows: two 16-byte accesses where vec.
+__device__ __forceinline__ void load8(const float* p, bool vec, int n, float (&v)[8]) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < n ? p[i] : 0.f;
+  }
+}
+__device__ __forceinline__ void store8(float* p, bool vec, int n, const float (&v)[8]) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < n) p[i] = v[i];
+    }
+  }
+}
+
 // The f32 output tile of the epilogue, over the B stages once a column
 // tile's products are done: rows padded so that the fragment stores hit
 // distinct banks.
 constexpr int kCsStride = kTcCols + 4;
-static_assert(kTcRows * kCsStride * 4 <= 4 * kTcBStage * 2, "C tile must fit the B stages");
+static_assert(kTcRows * kCsStride * 4 <= 4 * kBStageBytes<__nv_bfloat16> &&
+                  kTcRows * kCsStride * 4 <= 4 * kBStageBytes<float>,
+              "C tile must fit the B stages");
 static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
 
 // The rows kernels' core, shared by the apply and the reduce's rows pass.
 //
-// Rows [r0, r0 + kTcRows) of A (lda elements apart, K wide) into As
-// [kTcRows][a_stride], zero past N and from K up to Kp; the caller syncs
-// after it. vec_a: 16-byte cp.async copies (K and lda multiples of 8, A
-// 16-byte aligned), every copy in flight at once.
-__device__ __forceinline__ void tc_stage_rows(__nv_bfloat16* As, int a_stride,
-                                              const __nv_bfloat16* __restrict__ A, long lda,
-                                              long r0, int N, int K, int Kp, int vec_a, int tid) {
+// Rows [r0, r0 + kTcRows) of A (lda elements apart, K wide; bf16 or f32)
+// into As [kTcRows][a_stride], zero past N and from K up to Kp; the caller
+// syncs after it. vec_a: 16-byte cp.async copies (K and lda multiples of
+// 16 bytes' elements, A 16-byte aligned), every copy in flight at once.
+template <typename T>
+__device__ __forceinline__ void tc_stage_rows(T* As, int a_stride, const T* __restrict__ A,
+                                              long lda, long r0, int N, int K, int Kp, int vec_a,
+                                              int tid) {
   if (vec_a) {
-    const int segs = Kp / 8;
+    constexpr int kPer = kPadOf<T>;
+    const int segs = Kp / kPer;
     for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
       const int r = i / segs;
-      const int c = (i % segs) * 8;
+      const int c = (i % segs) * kPer;
       const bool ok = r0 + r < N && c < K;
       cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A, ok);
     }
@@ -614,7 +691,7 @@ __device__ __forceinline__ void tc_stage_rows(__nv_bfloat16* As, int a_stride,
       const int r = i / Kp;
       const int c = i % Kp;
       As[static_cast<size_t>(r) * a_stride + c] =
-          (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
+          (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : from_float<T>(0.f);
     }
   }
 }
@@ -726,6 +803,128 @@ __device__ __forceinline__ void tc_column_tile(float (&acc)[2][4][4], const __nv
   }
 }
 
+// tc_column_tile for f32 A rows, in 3xTF32: acc = As [kTcRows][Kp] (f32) @
+// B^T for the output columns [c0, c0 + kTcCols), with B the split operand
+// [n][Kp] as tf32 hi (at B_hi) and lo (B_hi + lo_off), streamed in
+// kTfK-deep chunks, double-buffered by cp.async in Bs ([stage][hi, lo][n][k],
+// rows kTfBStride apart). The A fragments are split into tf32 hi + lo as
+// they load (fragment element (row, k) from As[row][k]; B's (k, n) from
+// B[n][k]), and each product is lo*hi + hi*lo + hi*hi, the two small cross
+// terms first. Every 16 deep (two k8 steps) the products go into fresh
+// sums, added to acc with f32 round-to-nearest adds, as kStepSums does.
+// Ends with a barrier, after which Bs is free.
+__device__ __forceinline__ void tf32_column_tile(float (&acc)[2][4][4], const float* As,
+                                                 int a_stride, float* Bs,
+                                                 const float* __restrict__ B_hi, size_t lo_off,
+                                                 int Kp, int c0, int tid, int lane, int wm,
+                                                 int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // one chunk: [kTcCols][kTfK] of hi and of lo, 16 bytes a copy
+  auto load_b = [&](int kc, int stage) {
+    constexpr int kSegs = kTfK / 4;
+    constexpr int kCopies = 2 * kTcCols * kSegs;
+    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int it = 0; it < kCopies / kTcThreads; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int piece = i / (kTcCols * kSegs);
+      const int row = (i / kSegs) % kTcCols;
+      const int seg = (i % kSegs) * 4;
+      const float* src =
+          B_hi + piece * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTfK + seg;
+      cp_async16(Bs + (stage * 2 + piece) * kTfBStage + row * kTfBStride + seg, src);
+    }
+    cp_async_commit();
+  };
+
+  const int gr = lane >> 2;  // the fragment's row of A, column of B
+  const int gk = lane & 3;   // its k
+  const int chunks = Kp / kTfK;
+  load_b(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      load_b(kc + 1, (kc + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Bh = Bs + (kc & 1) * 2 * kTfBStage;
+    const float* Bl = Bh + kTfBStage;
+#pragma unroll
+    for (int ks = 0; ks < kTfK; ks += 16) {
+      float part[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+      for (int k8 = ks; k8 < ks + 16; k8 += 8) {
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* ap =
+              As + static_cast<size_t>(wm + mt * 16 + gr) * a_stride + kc * kTfK + k8 + gk;
+          split_tf32(ap[0], ah[mt][0], al[mt][0]);
+          split_tf32(ap[8 * a_stride], ah[mt][1], al[mt][1]);
+          split_tf32(ap[4], ah[mt][2], al[mt][2]);
+          split_tf32(ap[8 * a_stride + 4], ah[mt][3], al[mt][3]);
+        }
+        unsigned bh[4][2], bl[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int off = (wn + nt * 8 + gr) * kTfBStride + k8 + gk;
+          bh[nt][0] = __float_as_uint(Bh[off]);
+          bh[nt][1] = __float_as_uint(Bh[off + 4]);
+          bl[nt][0] = __float_as_uint(Bl[off]);
+          bl[nt][1] = __float_as_uint(Bl[off + 4]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    }
+    __syncthreads();  // this stage is refilled two chunks on
+  }
+}
+
+// The column tile of either type: bf16 A rows by tc_column_tile with B in
+// kPieces bf16 pieces, f32 A rows in 3xTF32 with B as tf32 hi + lo.
+template <int kPieces, bool kStepSums, typename T>
+__device__ __forceinline__ void column_tile(float (&acc)[2][4][4], const T* As, int a_stride,
+                                            T* Bs, const T* __restrict__ B_hi, size_t piece_off,
+                                            int Kp, int c0, int tid, int lane, int wm, int wn) {
+  if constexpr (kIsF32<T>) {
+    tf32_column_tile(acc, As, a_stride, Bs, B_hi, piece_off, Kp, c0, tid, lane, wm, wn);
+  } else {
+    tc_column_tile<kPieces, kStepSums>(acc, As, a_stride, Bs, B_hi, piece_off, Kp, c0, tid, lane,
+                                       wm, wn);
+  }
+}
+
 // The column tile into Cs [kTcRows][kCsStride] (over the B stages), followed
 // by a barrier. acc[mt][nt] = {(r, c), (r, c+1), (r+8, c), (r+8, c+1)}.
 __device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2][4][4], int lane,
@@ -762,23 +961,24 @@ __device__ __forceinline__ void tile8(const float* Cs, int r, int cs, float (&a)
 // shared memory, so that its reads of q, k, g and its writes of dq, dk, dv
 // are 16-byte and coalesced (straight from the registers' fragment layout
 // they are 4-byte and scattered, and they, not the MMAs, set the kernel's
-// time on the H100).
-__global__ void __launch_bounds__(kTcThreads, 2)
-la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                       long ldq, long ldk, long ldv, long ldg, __nv_bfloat16* __restrict__ dq,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, long lddq,
-                       long lddk, long lddv, int N, int M, int D,
-                       const __nv_bfloat16* __restrict__ hl, const float* __restrict__ ksum,
-                       const float* __restrict__ ds, const float* __restrict__ scal,
-                       const float* __restrict__ n_total, const float* __restrict__ dinv,
-                       const float* __restrict__ den, const float* __restrict__ gden, int guard,
-                       int vec_a, int vec_io) {
+// time on the H100). T = float: the f32 form, in 3xTF32 (hl: tf32 pieces
+// in f32; the A tile is f32, 130 KB at M = D = 256, ~198 KB with the B
+// stages, one block an SM).
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, kIsF32<T> ? 1 : 2)
+la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ g, long ldq, long ldk, long ldv, long ldg,
+                       T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, long lddq,
+                       long lddk, long lddv, int N, int M, int D, const T* __restrict__ hl,
+                       const float* __restrict__ ksum, const float* __restrict__ ds,
+                       const float* __restrict__ scal, const float* __restrict__ n_total,
+                       const float* __restrict__ dinv, const float* __restrict__ den,
+                       const float* __restrict__ gden, int guard, int vec_a, int vec_io) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TcDims t(M, D);
-  const int a_stride = max(t.Dk, t.Mk) + kTcPad;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
+  const int a_stride = max(t.Dk, t.Mk) + kPadOf<T>;
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -794,23 +994,31 @@ la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
   const size_t nk = t.kvs_elems();
 
-  for (int which = 0; which < 3; ++which) {
+  // f32: one block an SM, whose A staging and epilogue traffic nothing of
+  // its own overlaps; blocks start at different products and column tiles,
+  // so that the SMs do not all move those bytes at once (~2 % of the
+  // kernel's time at a full amazon2m batch on the H100)
+  const int rot = static_cast<int>(blockIdx.x);
+  for (int w = 0; w < 3; ++w) {
     // dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M
-    const __nv_bfloat16* A = which == 0 ? g : (which == 1 ? v : k);
+    const int which = kIsF32<T> ? (w + rot) % 3 : w;
+    const T* A = which == 0 ? g : (which == 1 ? v : k);
     const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
     const int K = which == 2 ? M : D;
     const int Kp = which == 2 ? t.Mk : t.Dk;
     const int C = which == 2 ? D : M;
-    const __nv_bfloat16* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
+    const T* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
     const size_t lo_off = which == 2 ? t.pt_elems() : nk;
 
     __syncthreads();  // the previous product is done with As
     tc_stage_rows(As, a_stride, A, lda, r0, N, K, Kp, vec_a, tid);
     __syncthreads();
 
-    for (int c0 = 0; c0 < C; c0 += kTcCols) {
+    const int tiles = (C + kTcCols - 1) / kTcCols;
+    for (int ti = 0; ti < tiles; ++ti) {
+      const int c0 = (kIsF32<T> ? (ti + rot) % tiles : ti) * kTcCols;
       float acc[2][4][4];
-      tc_column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
+      column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
       // epilogue: the tile through shared memory, then 8 columns a thread
       // step with 16-byte loads and stores
       float* Cs = reinterpret_cast<float*>(Bs);
@@ -859,27 +1067,28 @@ la_bwd_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
 }
 
+template <typename T>
 size_t tc_smem_bytes(int M, int D) {
   const TcDims t(M, D);
-  const int a_stride = (t.Dk > t.Mk ? t.Dk : t.Mk) + kTcPad;
-  return (static_cast<size_t>(kTcRows) * a_stride + 4 * static_cast<size_t>(kTcBStage)) *
-         sizeof(__nv_bfloat16);
+  const int a_stride = (t.Dk > t.Mk ? t.Dk : t.Mk) + kPadOf<T>;
+  return static_cast<size_t>(kTcRows) * a_stride * sizeof(T) + 4 * kBStageBytes<T>;
 }
 
 // The reduce's rows pass on the tensor cores. grid (ceil(N / kTcRows));
-// dynamic shared memory: the q tile [kTcRows][Mk + kTcPad] and the B stages
-// of kvs^T (its kRowsPieces pieces, hl as tc::split_t_kernel writes it):
-// ~123 KB at M = 256, one block an SM. Block bx owns
+// dynamic shared memory: the q tile [kTcRows][Mk + kPadOf<T>] and the B
+// stages of kvs^T (its kRowsPieces<T> pieces, hl as tc::split_t_kernel
+// writes it): ~123 KB at M = 256 in bf16, ~198 KB in f32 (T = float: the
+// 3xTF32 form, hl tf32 pieces in f32), one block an SM. Block bx owns
 // rows [128*bx, 128*bx + 128): b = q . ksum from the staged q rows, then
 // a = q @ kvs one 64-column tile at a time, each tile folded at once into
 // sum_d g*a and sum_d g*v per row (eight threads a row, 8 columns each, a
 // fixed xor tree across them), then den, gden and the block's f64 dinv
 // partial, as la_bwd_rows_kernel computes them. vec_a: q rows by 16-byte
 // copies; vec_io: g and v read 16 bytes at a time.
+template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 1)
-la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ g, long ldq, long ldv, long ldg, int N,
-                      int M, int D, const __nv_bfloat16* __restrict__ hl,
+la_bwd_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ v, const T* __restrict__ g,
+                      long ldq, long ldv, long ldg, int N, int M, int D, const T* __restrict__ hl,
                       const float* __restrict__ ksum, const float* __restrict__ scal,
                       const float* __restrict__ n_total, int guard, int vec_a, int vec_io,
                       float* __restrict__ den_out, float* __restrict__ gden_out,
@@ -890,9 +1099,9 @@ la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   __shared__ float gv_s[kTcRows];
   __shared__ double red[kTcRows];
   const TcDims t(M, D);
-  const int a_stride = t.Mk + kTcPad;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + static_cast<size_t>(kTcRows) * a_stride;
+  const int a_stride = t.Mk + kPadOf<T>;
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + static_cast<size_t>(kTcRows) * a_stride;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -907,7 +1116,7 @@ la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const int r = tid >> 1;
     float b = 0.f;
     for (int c = tid & 1; c < M; c += 2) {
-      b = fmaf(__bfloat162float(As[static_cast<size_t>(r) * a_stride + c]), ksum[c], b);
+      b = fmaf(to_float(As[static_cast<size_t>(r) * a_stride + c]), ksum[c], b);
     }
     b += __shfl_xor_sync(0xffffffffu, b, 1);
     if ((tid & 1) == 0) b_s[r] = b;
@@ -921,8 +1130,8 @@ la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   float* Cs = reinterpret_cast<float*>(Bs);
   for (int c0 = 0; c0 < D; c0 += kTcCols) {
     float acc[2][4][4];
-    tc_column_tile<kRowsPieces, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane,
-                                wm, wn);
+    column_tile<kRowsPieces<T>, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane,
+                                      wm, wn);
     tc_tile_to_smem(Cs, acc, lane, wm, wn);
 #pragma unroll
     for (int it = 0; it < kSteps; ++it) {
@@ -996,11 +1205,11 @@ la_bwd_rows_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
+template <typename T>
 size_t rows_tc_smem_bytes(int M, int D) {
   const TcDims t(M, D);
-  return (static_cast<size_t>(kTcRows) * (t.Mk + kTcPad) +
-          2 * kRowsPieces * static_cast<size_t>(kTcBStage)) *
-         sizeof(__nv_bfloat16);
+  return static_cast<size_t>(kTcRows) * (t.Mk + kPadOf<T>) * sizeof(T) +
+         2 * kRowsPieces<T> * kBStageBytes<T>;
 }
 
 // The reduce's P pass on the tensor cores: the node-axis contraction of the
@@ -1139,6 +1348,204 @@ la_bwd_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
+// The node-axis contraction in 3xTF32: acc += A^T B over one staged chunk
+// of kNodeRows rows for the warp tile at (wm, wn), acc laid out as
+// tc::node_mma_chunk's. A (q) is the f32 chunk [kNodeRows][kNodeStride],
+// split into tf32 hi + lo as its fragments load, all of the chunk's at once;
+// B (gd) is given as its tf32 hi and lo chunks. Rows are kNodeStride = 136
+// f32 apart, 8 banks, so each fragment load's (k = lane % 4, m or n =
+// lane / 4) addresses fall in distinct banks. The chunk's products go into
+// fresh sums, 16 columns at a time (lo*hi + hi*lo + hi*hi, the cross terms
+// first), each added to acc with an f32 round-to-nearest add.
+__device__ __forceinline__ void node_mma_chunk_tf32(float (&acc)[2][8][4],
+                                                    const float* __restrict__ As,
+                                                    const float* __restrict__ Bh,
+                                                    const float* __restrict__ Bl, int wm, int wn,
+                                                    int lane) {
+  using tc::kNodeStride;
+  constexpr int kSteps = tc::kNodeRows / 8;
+  const int gr = lane >> 2;
+  const int gk = lane & 3;
+  // A (m x k) of every k8 step: (m, k) at As[k][m]
+  unsigned ah[kSteps][2][4], al[kSteps][2][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* ap = As + (ks * 8 + gk) * kNodeStride + wm + mt * 16 + gr;
+      split_tf32(ap[0], ah[ks][mt][0], al[ks][mt][0]);
+      split_tf32(ap[8], ah[ks][mt][1], al[ks][mt][1]);
+      split_tf32(ap[4 * kNodeStride], ah[ks][mt][2], al[ks][mt][2]);
+      split_tf32(ap[4 * kNodeStride + 8], ah[ks][mt][3], al[ks][mt][3]);
+    }
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    float part[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][h][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      // B (k x n) of two n8 tiles: (k, n) at B[k][n]
+      unsigned bh[2][2], bl[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = (ks * 8 + gk) * kNodeStride + wn + np * 16 + h * 8 + gr;
+        bh[h][0] = __float_as_uint(Bh[off]);
+        bh[h][1] = __float_as_uint(Bh[off + 4 * kNodeStride]);
+        bl[h][0] = __float_as_uint(Bl[off]);
+        bl[h][1] = __float_as_uint(Bl[off + 4 * kNodeStride]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], al[ks][mt], bh[h][0], bh[h][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bl[h][0], bl[h][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bh[h][0], bh[h][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][2 * np + h][e] = __fadd_rn(acc[mt][2 * np + h][e], part[mt][h][e]);
+  }
+}
+
+// The reduce's P pass for f32 inputs, 3xTF32: la_bwd_reduce_tc_kernel's
+// grid, slices and f64 ds, one block an SM (the A fragments of a whole
+// chunk stay in registers). Each 32-row chunk of q and g (and den, gden)
+// comes through a kTfReduceStages-deep cp.async ring as f32; once it has
+// landed
+// the block forms gd = g * (1/den) (the correctly rounded 1/den: within
+// 2^-23 of g / den) and splits it into tf32 hi + lo tiles; q is split as
+// its fragments load.
+constexpr int kTfReduceStages = 3;
+constexpr int kTfReduceStage = 2 * tc::kNodeChunk;  // f32 of a stage's q and g chunks
+constexpr size_t kTfReduceSmem =
+    (kTfReduceStages * (kTfReduceStage + 2 * tc::kNodeRows) + 2 * tc::kNodeChunk) *
+    sizeof(float);
+
+__global__ void __launch_bounds__(tc::kNodeThreads, 1)
+la_bwd_reduce_tf32_kernel(const float* __restrict__ q, const float* __restrict__ g, long ldq,
+                          long ldg, int N, int M, int D, int rows_per_slice, int vec,
+                          const float* __restrict__ den, const float* __restrict__ gden,
+                          float* __restrict__ P_part, float* __restrict__ ds_part) {
+  using tc::kNodeRows;
+  using tc::kNodeStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][q, g]
+  float* gd_hi = ring + kTfReduceStages * kTfReduceStage;
+  float* gd_lo = gd_hi + tc::kNodeChunk;
+  float* rows_s = gd_lo + tc::kNodeChunk;  // [stage][den, gden]
+  __shared__ double red[tc::kNodeTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 64;
+  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
+  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
+  const int s = blockIdx.x / tiles;
+  const int dy = (blockIdx.x % tiles) / tiles_m;
+  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
+  const int d0 = dy * tc::kNodeTile;
+  const bool stats = dy == 0;
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+
+  auto stage = [&](int c) {
+    const int st = c % kTfReduceStages;
+    float* qs = ring + st * kTfReduceStage;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    tc::stage_node_rows(qs, q, ldq, r0, r_end, m0, M, vec, tid);
+    tc::stage_node_rows(qs + tc::kNodeChunk, g, ldg, r0, r_end, d0, D, vec, tid);
+    if (tid < 2 * kNodeRows) {  // den, then gden, of the chunk's rows
+      const int r = tid % kNodeRows;
+      const float* src = tid < kNodeRows ? den : gden;
+      const bool ok = r0 + r < r_end;
+      tc::cp_async4(rows_s + st * 2 * kNodeRows + tid, ok ? src + r0 + r : src, ok);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int col = tid & (tc::kNodeTile - 1);
+  const int par = tid / tc::kNodeTile;
+  double ds = 0.0;
+
+  for (int c = 0; c < kTfReduceStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    tc::cp_async_wait<kTfReduceStages - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1 and gd
+    if (c + kTfReduceStages - 1 < chunks) stage(c + kTfReduceStages - 1);
+    tc::cp_async_commit();
+    const int st = c % kTfReduceStages;
+    const float* qs = ring + st * kTfReduceStage;
+    const float* gs = qs + tc::kNodeChunk;
+    const float* den_s = rows_s + st * 2 * kNodeRows;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    // gd = g * (1/den) as tf32 hi + lo, 4 columns of one row a thread step;
+    // rows past the slice are zeros
+#pragma unroll
+    for (int it = 0; it < kNodeRows * tc::kNodeTile / 4 / tc::kNodeThreads; ++it) {
+      const int i = tid + it * tc::kNodeThreads;
+      const int r = i / (tc::kNodeTile / 4);
+      const int cs = (i % (tc::kNodeTile / 4)) * 4;
+      const float rd = r0 + r < r_end ? __frcp_rn(den_s[r]) : 0.f;
+      const float4 x = *reinterpret_cast<const float4*>(gs + r * kNodeStride + cs);
+      const float xs[4] = {__fmul_rn(x.x, rd), __fmul_rn(x.y, rd), __fmul_rn(x.z, rd),
+                           __fmul_rn(x.w, rd)};
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(xs[e], hi[e], lo[e]);
+      *reinterpret_cast<uint4*>(gd_hi + r * kNodeStride + cs) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(gd_lo + r * kNodeStride + cs) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+    node_mma_chunk_tf32(acc, qs, gd_hi, gd_lo, wm, wn, lane);
+    if (stats) {
+      const float* gden_s = den_s + kNodeRows;
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        ds = fma(static_cast<double>(qs[r * kNodeStride + col]), static_cast<double>(gden_s[r]),
+                 ds);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_node_tile(P_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn, lane);
+  if (stats) {  // uniform over the block
+    if (par == 1) red[col] = ds;
+    __syncthreads();
+    if (par == 0 && m0 + col < M) {
+      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
+    }
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                               long ldg, int N, int M, int D, int slices, int rows_per_slice,
@@ -1161,45 +1568,69 @@ cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The tensor-core reduce: kvs^T split into hl, the rows pass, the P pass.
-cudaError_t launch_bwd_reduce_tc(const __nv_bfloat16* q, const __nv_bfloat16* v,
-                                 const __nv_bfloat16* g, long ldq, long ldv, long ldg, int N,
-                                 int M, int D, int slices, int rows_per_slice, const float* kvs,
-                                 const float* ksum, const float* scal, const float* n_total,
-                                 int guard, float* den, float* gden, double* dinv_part,
-                                 float* P_part, float* ds_part, __nv_bfloat16* hl,
+// The tensor-core reduce: kvs^T split into hl, the rows pass, the P pass;
+// T = bf16, or float for the 3xTF32 form (hl: tf32 pieces in f32).
+template <typename T>
+cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, long ldv, long ldg,
+                                 int N, int M, int D, int slices, int rows_per_slice,
+                                 const float* kvs, const float* ksum, const float* scal,
+                                 const float* n_total, int guard, float* den, float* gden,
+                                 double* dinv_part, float* P_part, float* ds_part, T* hl,
                                  cudaStream_t st) {
-  cudaError_t err = tc::launch_split_t<kRowsPieces>(kvs, M, D, hl, st);
+  constexpr int kPer = kPadOf<T>;  // elements of a 16-byte copy
+  cudaError_t err = tc::launch_split_t<kRowsPieces<T>>(kvs, M, D, hl, st);
   if (err != cudaSuccess) return err;
-  const int vec_a = M % 8 == 0 && ldq % 8 == 0 && aligned16(q);
-  const int vec_io = ldg % 8 == 0 && ldv % 8 == 0 && aligned16(g) && aligned16(v);
-  const size_t smem = rows_tc_smem_bytes(M, D);
-  err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
+  const int vec_io = ldg % kPer == 0 && ldv % kPer == 0 && aligned16(g) && aligned16(v);
+  const size_t smem = rows_tc_smem_bytes<T>(M, D);
+  err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  la_bwd_rows_tc_kernel<<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
+  la_bwd_rows_tc_kernel<T><<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
       q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
       dinv_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int vec = M % 8 == 0 && D % 8 == 0 && ldq % 8 == 0 && ldg % 8 == 0 && aligned16(q) &&
-                  aligned16(g);
-  err = cudaFuncSetAttribute(la_bwd_reduce_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kReduceSmem));
-  if (err != cudaSuccess) return err;
+  const int vec = M % kPer == 0 && D % kPer == 0 && ldq % kPer == 0 && ldg % kPer == 0 &&
+                  aligned16(q) && aligned16(g);
   const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
-  la_bwd_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, kReduceSmem, st>>>(
-      q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+  if constexpr (kIsF32<T>) {
+    err = cudaFuncSetAttribute(la_bwd_reduce_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kTfReduceSmem));
+    if (err != cudaSuccess) return err;
+    la_bwd_reduce_tf32_kernel<<<slices * tiles, tc::kNodeThreads, kTfReduceSmem, st>>>(
+        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+  } else {
+    err = cudaFuncSetAttribute(la_bwd_reduce_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kReduceSmem));
+    if (err != cudaSuccess) return err;
+    la_bwd_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, kReduceSmem, st>>>(
+        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+  }
   return cudaGetLastError();
 }
 
-// bf16 elements of the tensor-core reduce's scratch (kvs^T in pieces), or
-// 0 where the reduce runs on the CUDA cores: f32 inputs, or an M whose q
-// tile does not fit one block's shared memory beside the B stages.
+// Elements of the tensor-core reduce's scratch (kvs^T in pieces of the
+// input type: bf16, or tf32 in f32), or 0 where the reduce runs on the CUDA
+// cores: an M whose q tile does not fit one block's shared memory beside
+// the B stages (above 640 in bf16, 256 in f32).
 int bwd_reduce_scratch(int dtype, int M, int D) {
   constexpr size_t kStatic = 4096;  // la_bwd_rows_tc_kernel's static shared memory, rounded up
-  if (dtype != 1 || rows_tc_smem_bytes(M, D) + kStatic > kSmemPerBlock) return 0;
-  return static_cast<int>(kRowsPieces * TcDims(M, D).pt_elems());
+  size_t smem;
+  int pieces;
+  if (dtype == 1) {
+    smem = rows_tc_smem_bytes<__nv_bfloat16>(M, D);
+    pieces = kRowsPieces<__nv_bfloat16>;
+  } else if (dtype == 0) {
+    smem = rows_tc_smem_bytes<float>(M, D);
+    pieces = kRowsPieces<float>;
+  } else {
+    return 0;
+  }
+  if (smem + kStatic > kSmemPerBlock) return 0;
+  return static_cast<int>(pieces * TcDims(M, D).pt_elems());
 }
 
 template <typename T>
@@ -1219,6 +1650,32 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
       den, gden, guard);
 }
 
+// The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces, or
+// tf32 pieces in f32 for T = float), then la_bwd_apply_tc_kernel<T>.
+template <typename T>
+cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, long ldq,
+                                long ldk, long ldv, long ldg, T* dq, T* dk, T* dv, long lddq,
+                                long lddk, long lddv, int N, int M, int D, const float* kvs,
+                                const float* ksum, const float* P, const float* ds,
+                                const float* scal, const float* n_total, const float* dinv,
+                                const float* den, const float* gden, int guard, int vec_a,
+                                int vec_io, T* hl, cudaStream_t st) {
+  const size_t total = TcDims(M, D).total();
+  const unsigned split_blocks =
+      static_cast<unsigned>(std::min<size_t>((total + kThreads - 1) / kThreads, 1024));
+  la_bwd_split_kernel<T><<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || N == 0) return err;
+  const size_t smem = tc_smem_bytes<T>(M, D);
+  err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  la_bwd_apply_tc_kernel<T><<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
+      q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
+      n_total, dinv, den, gden, guard, vec_a, vec_io);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, v, g: [N, M], [N, D], [N, D] rows of
@@ -1226,9 +1683,9 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
 // n_total from the forward (f32, device). Outputs: rows [2, N] = (den, gden)
 // per row, P [M, D], ds [M], dinv (one f32). Scratch: dinv_part
 // [ceil(N/64)] f64, P_part [slices, M, D], ds_part [slices, M], and hl, the
-// sgf_la_bwd_reduce_scratch(dtype, M, D) bf16 elements of the tensor-core
-// design where that is not 0 (else unused). Returns the first cudaError_t of
-// the launches, each checked as it is made.
+// sgf_la_bwd_reduce_scratch(dtype, M, D) elements of the input type of the
+// tensor-core design where that is not 0 (else unused). Returns the first
+// cudaError_t of the launches, each checked as it is made.
 extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                                  long ldg, int N, int M, int D, int dtype, int slices,
                                  int rows_per_slice, int guard, const float* kvs,
@@ -1242,10 +1699,17 @@ extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, lo
   int row_blocks = (N + kTile - 1) / kTile;
   if (bwd_reduce_scratch(dtype, M, D) > 0) {
     using bf16 = __nv_bfloat16;
-    err = launch_bwd_reduce_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(v),
-                               static_cast<const bf16*>(g), ldq, ldv, ldg, N, M, D, slices,
-                               rows_per_slice, kvs, ksum, scal, n_total, guard, den, gden,
-                               dinv_part, P_part, ds_part, static_cast<bf16*>(hl), st);
+    if (dtype == 1) {
+      err = launch_bwd_reduce_tc(static_cast<const bf16*>(q), static_cast<const bf16*>(v),
+                                 static_cast<const bf16*>(g), ldq, ldv, ldg, N, M, D, slices,
+                                 rows_per_slice, kvs, ksum, scal, n_total, guard, den, gden,
+                                 dinv_part, P_part, ds_part, static_cast<bf16*>(hl), st);
+    } else {
+      err = launch_bwd_reduce_tc(static_cast<const float*>(q), static_cast<const float*>(v),
+                                 static_cast<const float*>(g), ldq, ldv, ldg, N, M, D, slices,
+                                 rows_per_slice, kvs, ksum, scal, n_total, guard, den, gden,
+                                 dinv_part, P_part, ds_part, static_cast<float*>(hl), st);
+    }
     row_blocks = (N + kTcRows - 1) / kTcRows;
   } else if (dtype == 0) {
     err = launch_bwd_reduce<float>(q, v, g, ldq, ldv, ldg, N, M, D, slices, rows_per_slice, kvs,
@@ -1268,26 +1732,37 @@ extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 scratch (elements) of the tensor-core reduce for these widths, or
-// 0 where the reduce runs on the CUDA cores (f32 inputs, or M above 640).
+// The scratch (elements of the input type) of the tensor-core reduce for
+// these widths, or 0 where the reduce runs on the CUDA cores (M above 640
+// in bf16, above 256 in f32).
 extern "C" int sgf_la_bwd_reduce_scratch(int dtype, int M, int D) {
   return bwd_reduce_scratch(dtype, M, D);
 }
 
-// The bf16 scratch (elements) of the tensor-core apply for these widths,
-// or 0 where the apply runs on the CUDA cores: f32 inputs, or widths whose
-// A tile does not fit one block's shared memory.
+// The scratch (elements of the input type) of the tensor-core apply for
+// these widths, or 0 where the apply runs on the CUDA cores: widths whose A
+// tile does not fit one block's shared memory (above ~700 in bf16, 256 in
+// f32).
 extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
-  if (dtype != 1 || tc_smem_bytes(M, D) > kSmemPerBlock) return 0;
+  size_t smem;
+  if (dtype == 1) {
+    smem = tc_smem_bytes<__nv_bfloat16>(M, D);
+  } else if (dtype == 0) {
+    smem = tc_smem_bytes<float>(M, D);
+  } else {
+    return 0;
+  }
+  if (smem > kSmemPerBlock) return 0;
   return static_cast<int>(TcDims(M, D).total());
 }
 
 // dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
 // (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
-// hl: the bf16 scratch of sgf_la_bwd_apply_scratch elements where that is
-// not 0 (the tensor-core design: la_bwd_split_kernel, then
-// la_bwd_apply_tc_kernel), else unused (la_bwd_apply_kernel); vec_a and
-// vec_io as la_bwd_apply_tc_kernel takes them.
+// hl: the scratch of sgf_la_bwd_apply_scratch elements of the input type
+// where that is not 0 (the tensor-core design: la_bwd_split_kernel, then
+// la_bwd_apply_tc_kernel, in 3xTF32 for f32), else unused
+// (la_bwd_apply_kernel); vec_a and vec_io as la_bwd_apply_tc_kernel takes
+// them.
 extern "C" int sgf_la_bwd_apply(const void* q, const void* k, const void* v, const void* g,
                                 long ldq, long ldk, long ldv, long ldg, void* dq, void* dk,
                                 void* dv, long lddq, long lddk, long lddv, int N, int M, int D,
@@ -1300,23 +1775,20 @@ extern "C" int sgf_la_bwd_apply(const void* q, const void* k, const void* v, con
   const float* gden = rows + N;
   if (sgf_la_bwd_apply_scratch(dtype, M, D) > 0) {
     using bf16 = __nv_bfloat16;
-    bf16* h = static_cast<bf16*>(hl);
-    const size_t total = TcDims(M, D).total();
-    const unsigned split_blocks =
-        static_cast<unsigned>(std::min<size_t>((total + kThreads - 1) / kThreads, 1024));
-    la_bwd_split_kernel<<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, h);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || N == 0) return static_cast<int>(err);
-    const size_t smem = tc_smem_bytes(M, D);
-    err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    la_bwd_apply_tc_kernel<<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), ldq, ldk, ldv, ldg, static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), lddq, lddk, lddv, N, M, D, h, ksum, ds,
-        scal, n_total, dinv, den, gden, guard, vec_a, vec_io);
-    return static_cast<int>(cudaGetLastError());
+    if (dtype == 1) {
+      return static_cast<int>(launch_bwd_apply_tc(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const bf16*>(g), ldq, ldk, ldv, ldg, static_cast<bf16*>(dq),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), lddq, lddk, lddv, N, M, D, kvs, ksum,
+          P, ds, scal, n_total, dinv, den, gden, guard, vec_a, vec_io, static_cast<bf16*>(hl),
+          st));
+    }
+    return static_cast<int>(launch_bwd_apply_tc(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(g), ldq, ldk, ldv, ldg, static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), lddq, lddk, lddv, N, M, D, kvs, ksum,
+        P, ds, scal, n_total, dinv, den, gden, guard, vec_a, vec_io, static_cast<float*>(hl),
+        st));
   }
   if (dtype == 0) {
     launch_bwd_apply<float>(q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M,

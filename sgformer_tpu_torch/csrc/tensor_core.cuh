@@ -5,8 +5,11 @@
 //   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 bf16 -> f32 with
 //   its fences and the 128-byte-swizzled shared-memory layout and
 //   descriptors it reads (the forward apply's);
-// - the split of kvs^T into bf16 pieces, the B operand of a = q @ kvs in the
-//   forward apply and the backward reduce's rows pass;
+// - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
+//   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
+//   backward's);
+// - the split of kvs^T into bf16 or tf32 pieces, the B operand of
+//   a = q @ kvs in the forward apply and the backward reduce's rows pass;
 // - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n], with A and
 //   B held node-major in shared memory (a chunk of kNodeRows node rows of
 //   kNodeTile columns each). It is kvs = k^T v of the forward reduce and
@@ -27,6 +30,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace tc {
 
@@ -74,6 +78,34 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
+// TF32 (10 mantissa bits in an f32's layout, the low 13 bits zero).
+
+// x rounded to the nearest tf32, ties away from zero
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~21 significant bits: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b over a 16 x 8 x 8 tile: tf32 in (a: a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b: b0 (k = t, n = g), b1 (t + 4, g),
+// with g = lane / 4, t = lane % 4), f32 sums laid out as mma_bf16's
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
 // The node-axis contraction. A block of kNodeThreads threads owns one
 // kNodeTile x kNodeTile output tile over a slice of node rows: 8 warps in a
 // 4 (m) x 2 (n) grid of 32 x 64 warp tiles, 2 m16 x 8 n8 MMA tiles each.
@@ -86,19 +118,21 @@ constexpr int kNodeChunk = kNodeRows * kNodeStride;  // bf16 of one staged opera
 
 // Rows [r0, r0 + kNodeRows) of X (ld elements apart) at columns
 // [c0, c0 + kNodeTile) into S [kNodeRows][kNodeStride], zeros at rows from
-// r_end and columns from width. vec: 16-byte cp.async copies (width and ld
-// multiples of 8, X 16-byte aligned), which the caller commits and waits
-// for; else one element at a time, synchronously.
-__device__ __forceinline__ void stage_node_rows(bf16* S, const bf16* __restrict__ X, long ld,
-                                                long r0, long r_end, int c0, int width, int vec,
-                                                int tid) {
+// r_end and columns from width; T is bf16 or float. vec: 16-byte cp.async
+// copies (width and ld multiples of 16 bytes' elements, X 16-byte aligned),
+// which the caller commits and waits for; else one element at a time,
+// synchronously.
+template <typename T>
+__device__ __forceinline__ void stage_node_rows(T* S, const T* __restrict__ X, long ld, long r0,
+                                                long r_end, int c0, int width, int vec, int tid) {
   if (vec) {
-    constexpr int kSegs = kNodeTile / 8;
+    constexpr int kPer = 16 / sizeof(T);
+    constexpr int kSegs = kNodeTile / kPer;
 #pragma unroll
     for (int it = 0; it < kNodeRows * kSegs / kNodeThreads; ++it) {
       const int i = tid + it * kNodeThreads;
       const int r = i / kSegs;
-      const int c = (i % kSegs) * 8;
+      const int c = (i % kSegs) * kPer;
       const bool ok = r0 + r < r_end && c0 + c < width;
       cp_async16(S + r * kNodeStride + c, ok ? X + (r0 + r) * ld + c0 + c : X, ok);
     }
@@ -107,7 +141,11 @@ __device__ __forceinline__ void stage_node_rows(bf16* S, const bf16* __restrict_
       const int r = i / kNodeTile;
       const int c = i % kNodeTile;
       const bool ok = r0 + r < r_end && c0 + c < width;
-      S[r * kNodeStride + c] = ok ? X[(r0 + r) * ld + c0 + c] : __float2bfloat16_rn(0.f);
+      if constexpr (std::is_same_v<T, float>) {
+        S[r * kNodeStride + c] = ok ? X[(r0 + r) * ld + c0 + c] : 0.f;
+      } else {
+        S[r * kNodeStride + c] = ok ? X[(r0 + r) * ld + c0 + c] : __float2bfloat16_rn(0.f);
+      }
     }
   }
 }
@@ -280,25 +318,33 @@ __host__ __device__ inline size_t split_t_elems(int M, int D) {
   return static_cast<size_t>(split_pad(D)) * split_pad(M);
 }
 
-// x as kPieces bf16 pieces at p[0], p[off], ...: hi = bf16(x), then each
-// piece the bf16 of what the ones before leave (each difference is exact in
-// f32): hi + lo keeps ~16 significant bits, hi + mid + lo all of f32's 24
-template <int kPieces>
-__device__ __forceinline__ void split_store(float x, bf16* p, size_t off) {
+// x as kPieces pieces of type P at p[0], p[off], ...: hi = P(x), then each
+// piece the P of what the ones before leave (each difference is exact in
+// f32). P = bf16: hi + lo keeps ~16 significant bits, hi + mid + lo all of
+// f32's 24; P = float holds tf32 pieces: hi + lo keeps ~21.
+template <int kPieces, typename P>
+__device__ __forceinline__ void split_store(float x, P* p, size_t off) {
 #pragma unroll
   for (int i = 0; i < kPieces; ++i) {
-    const bf16 h = __float2bfloat16_rn(x);
-    p[i * off] = h;
-    x -= __bfloat162float(h);
+    if constexpr (std::is_same_v<P, float>) {
+      const float h = __uint_as_float(to_tf32(x));
+      p[i * off] = h;
+      x -= h;
+    } else {
+      const bf16 h = __float2bfloat16_rn(x);
+      p[i * off] = h;
+      x -= __bfloat162float(h);
+    }
   }
 }
 
 constexpr int kSplitThreads = 256;
 
-// hl[...] = kvs^T as kPieces bf16 pieces, each [n = D][k = M], zero in the pads.
-template <int kPieces>
+// hl[...] = kvs^T as kPieces pieces of type P (bf16, or tf32 in an f32),
+// each [n = D][k = M], zero in the pads.
+template <int kPieces, typename P>
 __global__ void __launch_bounds__(kSplitThreads)
-split_t_kernel(const float* __restrict__ kvs, int M, int D, bf16* __restrict__ hl) {
+split_t_kernel(const float* __restrict__ kvs, int M, int D, P* __restrict__ hl) {
   const int Mk = split_pad(M);
   const size_t count = split_t_elems(M, D);
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
@@ -311,12 +357,12 @@ split_t_kernel(const float* __restrict__ kvs, int M, int D, bf16* __restrict__ h
 }
 
 // The split on stream st: grid-stride, at most 1024 blocks.
-template <int kPieces>
-cudaError_t launch_split_t(const float* kvs, int M, int D, bf16* hl, cudaStream_t st) {
+template <int kPieces, typename P>
+cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t st) {
   const size_t count = split_t_elems(M, D);
   const size_t want = (count + kSplitThreads - 1) / kSplitThreads;
   const unsigned blocks = static_cast<unsigned>(want < 1024 ? want : 1024);
-  split_t_kernel<kPieces><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
+  split_t_kernel<kPieces, P><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,9 @@
 
 The generator is plain numpy ``default_rng``, so the same seed gives the same
 arrays as the JAX package's. The node features, which the model reads, are
-placed on ``device``; the edge list and the labels stay numpy arrays, because
-graph preprocessing and splits run on the host.
+placed on ``device``; the edge list and the labels stay numpy arrays:
+``preprocess_graph`` moves the edge list to its own ``device`` and builds
+the graph there, and the splits are drawn on the host.
 """
 
 from __future__ import annotations

@@ -296,6 +296,16 @@ def _transpose_csr(src, dst, weight, num_nodes: int) -> tuple:
             order.int(), hub_plan(indptr, HUB_EDGES))
 
 
+def check_int32_counts(num_nodes: int, num_edges: int) -> None:
+    """Refuse a graph whose node ids or row pointers int32 cannot hold: the
+    CSR stores both in int32, so the node and the edge count must each stay
+    below 2^31."""
+    for what, count in (("nodes", num_nodes), ("edges", num_edges)):
+        if count >= 2 ** 31:
+            raise ValueError(f"{count} {what}: the graph's int32 node ids and row pointers "
+                             f"hold fewer than 2^31")
+
+
 def graph_from_sorted(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -314,6 +324,7 @@ def graph_from_sorted(
     dst; ``weight``: [E] f32. ``pyg``: the PyG edges (src, dst, weight),
     sorted by dst, or None; their transposed CSR is built unless
     ``symmetric`` (A == A^T, whose gradient then walks A's own CSR)."""
+    check_int32_counts(num_nodes, max(src.shape[0], 0 if pyg is None else pyg[0].shape[0]))
     names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm", "t_hub_segments")
     extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes)))
     if pyg is not None:
@@ -423,6 +434,7 @@ def preprocess_graph(
         edge_index = to_undirected(edge_index)
     if self_loops:
         edge_index = add_self_loops(remove_self_loops(edge_index), num_nodes)
+    check_int32_counts(num_nodes, edge_index.shape[1])
     src, dst = sort_by_dst(*edge_index.int())
     weight = gcn_norm_weights(src, dst, num_nodes)
     rs = gcn_norm_rs(dst, num_nodes) if slab_dtype == "int8" else None

@@ -27,10 +27,13 @@ memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
 qᵀ(g/den) (``la_bwd_rows_tc_kernel``, ``la_bwd_reduce_tc_kernel``,
 mma.sync: kvs split into bf16 hi + mid + lo, g/den into hi + lo) and
 :func:`bwd_apply`'s three products (``la_bwd_apply_tc_kernel``, mma.sync:
-kvs and P split into hi + lo). On f32 inputs, and on bf16 widths too large
-for a tensor-core kernel's shared memory (the q tile of the forward apply
-above M = 704, the backward's q or A tile), they run on the CUDA cores in
-f32, the exact-parity path. :func:`reduce_design`, :func:`apply_design`,
+kvs and P split into hi + lo). On f32 inputs the backward kernels run the
+same designs in 3xTF32 (mma.sync m16n8k8 tf32: each f32 operand split into
+tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums) and the forward
+kernels on the CUDA cores in f32. Widths too large for a tensor-core
+kernel's shared memory (the q tile of the forward apply above M = 704; the
+backward's q or A tile above 640 in bf16, 256 in f32) run on the CUDA
+cores. :func:`reduce_design`, :func:`apply_design`,
 :func:`bwd_reduce_design` and :func:`bwd_apply_design` name the kernel a
 call runs.
 
@@ -54,10 +57,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _ROWS = 32
 _WAVES = 4  # CUDA-core reduce blocks per SM to aim for
-# the tensor-core reduces: 128 x 128 output tiles over 32-row chunks, two
-# blocks resident on each SM, one wave of them
+# the tensor-core reduces: 128 x 128 output tiles over 32-row chunks, one
+# wave of resident blocks: two on each SM in bf16, one for the backward's
+# 3xTF32 P pass (a chunk's q fragments stay in registers)
 _TC_TILE = 128
-_TC_BLOCKS_PER_SM = 2
+_TC_BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
 _TENSOR_CORES = "tensor cores (mma.sync bf16, f32 sums)"
 _CUDA_CORES = "CUDA cores (f32 FMA)"
 
@@ -192,18 +196,18 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _slices(n: int, m: int, d: int, device: torch.device,
-            tensor_cores: bool) -> tuple[int, int]:
+            tensor_cores: bool, dtype=torch.bfloat16) -> tuple[int, int]:
     """(slices, rows per slice) of the N rows for a reduce grid on
     ``device``; slice length is a multiple of the 32-row step. The CUDA-core
     grid (64 x 64 tiles) fills the card about _WAVES times over; the
-    tensor-core grid (128 x 128 tiles) is one wave of _TC_BLOCKS_PER_SM
-    resident blocks an SM: at the arxiv shape (N = 169,343, M = D = 256, 132
-    SMs) 66 slices of 2,592 rows, whose f32 partials of kvs or P take
-    66 * 256 * 256 * 4 = 17.3 MB."""
+    tensor-core grid (128 x 128 tiles) is one wave of the resident blocks
+    (_TC_BLOCKS_PER_SM[dtype] an SM): in bf16 at the arxiv shape (N =
+    169,343, M = D = 256, 132 SMs) 66 slices of 2,592 rows, whose f32
+    partials of kvs or P take 66 * 256 * 256 * 4 = 17.3 MB."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if tensor_cores:
         tiles = _cdiv(m, _TC_TILE) * _cdiv(d, _TC_TILE)
-        blocks = _TC_BLOCKS_PER_SM * sms
+        blocks = _TC_BLOCKS_PER_SM[dtype] * sms
     else:
         tiles = _cdiv(m, _TILE) * _cdiv(d, _TILE)
         blocks = _WAVES * sms
@@ -221,9 +225,9 @@ def reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
 
 
 def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
-    """bf16 elements of the tensor-core backward reduce's scratch (kvsᵀ in
-    three bf16 pieces), 0 for the CUDA-core design (builds the kernels on
-    first use)."""
+    """Elements of ``dtype`` of the tensor-core backward reduce's scratch
+    (kvsᵀ in three bf16 pieces, or two tf32 pieces held in f32), 0 for the
+    CUDA-core design (builds the kernels on first use)."""
     return _build.library("linear_attention_bwd").sgf_la_bwd_reduce_scratch(
         _DTYPES[dtype], m, d)
 
@@ -231,10 +235,11 @@ def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
 def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernels :func:`bwd_reduce` launches on the card for inputs of
     ``dtype`` with widths m (q) and d (v, g)."""
-    if _bwd_reduce_scratch(dtype, m, d):
-        return ("tensor cores (mma.sync bf16, kvs as bf16 hi + mid + lo, g/den as hi + lo, "
-                "f32 sums)")
-    return _CUDA_CORES
+    if not _bwd_reduce_scratch(dtype, m, d):
+        return _CUDA_CORES
+    if dtype == torch.float32:
+        return "tensor cores (mma.sync 3xTF32: q, kvs and g/den as tf32 hi + lo, f32 sums)"
+    return "tensor cores (mma.sync bf16, kvs as bf16 hi + mid + lo, g/den as hi + lo, f32 sums)"
 
 
 def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
@@ -355,7 +360,7 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
         raise ValueError("linear attention needs at least one node")
 
     scratch = _bwd_reduce_scratch(q.dtype, m, d)
-    slices, rows_per_slice = _slices(n, m, d, q.device, scratch > 0)
+    slices, rows_per_slice = _slices(n, m, d, q.device, scratch > 0, q.dtype)
     f32 = dict(dtype=torch.float32, device=q.device)
     rows = torch.empty(2, n, **f32)
     dinv_part = torch.empty(_cdiv(n, _TILE), dtype=torch.float64, device=q.device)
@@ -364,7 +369,7 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
     P = torch.empty(m, d, **f32)
     ds = torch.empty(m, **f32)
     dinv = torch.empty((), **f32)
-    hl = torch.empty(scratch, dtype=torch.bfloat16, device=q.device) if scratch else None
+    hl = torch.empty(scratch, dtype=q.dtype, device=q.device) if scratch else None
     err = _build.library("linear_attention_bwd").sgf_la_bwd_reduce(
         q.data_ptr(), v.data_ptr(), g.data_ptr(), q.stride(0), v.stride(0), g.stride(0),
         n, m, d, _DTYPES[q.dtype], slices, rows_per_slice, int(guard),
@@ -379,8 +384,9 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
 
 
 def _bwd_apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
-    """bf16 elements of the tensor-core backward apply's scratch, 0 for the
-    CUDA-core design (builds the kernels on first use)."""
+    """Elements of ``dtype`` of the tensor-core backward apply's scratch
+    (kvs, P and Pᵀ as bf16, or tf32 in f32, hi + lo), 0 for the CUDA-core
+    design (builds the kernels on first use)."""
     return _build.library("linear_attention_bwd").sgf_la_bwd_apply_scratch(
         _DTYPES[dtype], m, d)
 
@@ -388,9 +394,11 @@ def _bwd_apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
 def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernel :func:`bwd_apply` launches on the card for inputs of
     ``dtype`` with widths m (q, k) and d (v, g)."""
-    if _bwd_apply_scratch(dtype, m, d):
-        return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
-    return _CUDA_CORES
+    if not _bwd_apply_scratch(dtype, m, d):
+        return _CUDA_CORES
+    if dtype == torch.float32:
+        return "tensor cores (mma.sync 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums)"
+    return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
 
 
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
@@ -427,13 +435,14 @@ def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
             t.copy_(want)
         return out
     scratch = _bwd_apply_scratch(q.dtype, m, d)
-    hl = torch.empty(scratch, dtype=torch.bfloat16, device=dev) if scratch else None
+    hl = torch.empty(scratch, dtype=q.dtype, device=dev) if scratch else None
     # the tensor-core kernel reads the A rows (g, v, k), and in its epilogue
     # q, k, g, dq, dk, dv, 16 bytes at a time where widths, strides and
     # bases allow
-    vec_a = int(m % 8 == 0 and d % 8 == 0 and all(
-        t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0 for t in (k, v, g)))
-    vec_io = int(all(t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0
+    per16 = 16 // q.element_size()
+    vec_a = int(m % per16 == 0 and d % per16 == 0 and all(
+        t.stride(0) % per16 == 0 and t.data_ptr() % 16 == 0 for t in (k, v, g)))
+    vec_io = int(all(t.stride(0) % per16 == 0 and t.data_ptr() % 16 == 0
                      for t in (q, k, g, dq, dk, dv)))
     err = _build.library("linear_attention_bwd").sgf_la_bwd_apply(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -52,7 +52,8 @@ from sgformer_tpu_torch.graph import (Graph, gcn_norm_weights, graph_from_sorted
                                       pyg_gcn_norm, sort_by_dst)
 from sgformer_tpu_torch.train.logger import RunLogger
 from sgformer_tpu_torch.train.optim import dual_weight_decay_adam
-from sgformer_tpu_torch.train.trainer import TrainConfig, _logsumexp, bce_per_node, nll_per_node
+from sgformer_tpu_torch.train.trainer import (TrainConfig, _logsumexp, bce_on_host, bce_per_node,
+                                              nll_per_node)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,17 +242,23 @@ class BatchTrainer:
             return self.model(self.x, self.full_graph).cpu().numpy()
 
     def evaluate_full(self, out: np.ndarray, split_idx: dict) -> tuple:
-        """(train, valid, test) metric and the valid NLL, on the host, as the
-        JAX trainer's ``_full_metrics`` computes them."""
+        """(train, valid, test) metric and the valid loss, on the host: the
+        metrics and, for the NLL loss, the valid NLL as the JAX trainer's
+        ``_full_metrics`` computes them; for ``loss='bce'`` the valid BCE of
+        the full-graph :class:`Trainer` (the JAX batch trainer takes an NLL
+        of the flattened labels whatever the loss)."""
         res = []
         for split in ("train", "valid", "test"):
             idx = np.asarray(split_idx[split])
             res.append(self.eval_func(self.label_np[idx], out[idx]))
         vidx = np.asarray(split_idx["valid"])
         logits = out[vidx]
-        logp = logits - _logsumexp(logits)
-        label_flat = self.label_np.reshape(-1)
-        res.append(float(-logp[np.arange(len(vidx)), label_flat[vidx]].mean()))
+        if self.config.loss == "bce":
+            res.append(bce_on_host(logits, self.label_onehot.cpu().numpy()[vidx]))
+        else:
+            logp = logits - _logsumexp(logits)
+            label_flat = self.label_np.reshape(-1)
+            res.append(float(-logp[np.arange(len(vidx)), label_flat[vidx]].mean()))
         return tuple(res)
 
     def evaluate_streaming(self, split_idx: dict, np_rng: np.random.Generator) -> dict:

@@ -186,11 +186,7 @@ class Trainer:
         vidx = np.asarray(split_idx["valid"])
         logits = out[vidx]
         if self.config.loss == "bce":
-            lab = self.label_onehot.cpu().numpy()[vidx]
-            z = np.clip(logits, -30, 30)
-            vloss = float(
-                np.mean(np.maximum(z, 0) - z * lab + np.log1p(np.exp(-np.abs(z))))
-            )
+            vloss = bce_on_host(logits, self.label_onehot.cpu().numpy()[vidx])
         else:
             logp = logits - _logsumexp(logits)
             vloss = float(-logp[np.arange(len(vidx)), self.label_np[vidx].reshape(-1)].mean())
@@ -247,6 +243,14 @@ class Trainer:
             self.final_state = {k: v.detach().clone()
                                 for k, v in self.model.state_dict().items()}
         return logger
+
+
+def bce_on_host(logits: np.ndarray, labels_onehot: np.ndarray) -> float:
+    """The valid loss of ``loss='bce'``: the mean binary cross-entropy of
+    the logits (clipped to [-30, 30]) against one-hot or multilabel targets,
+    in numpy."""
+    z = np.clip(logits, -30, 30)
+    return float(np.mean(np.maximum(z, 0) - z * labels_onehot + np.log1p(np.exp(-np.abs(z)))))
 
 
 def _logsumexp(x):

@@ -11,10 +11,12 @@ import subprocess
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; dense
-# operations a second of the type the inputs have (bf16 and int8 on tensor
-# cores, f32 on CUDA cores)
+# operations a second of the type the inputs have. bf16 and int8 on the
+# tensor cores; f32 at the 3xTF32 rate, three TF32 tensor-core products of
+# 495 TFLOP/s for each f32-accurate one, above the 67 TFLOP/s of f32 FMAs
+# on the CUDA cores, so that no f32 kernel can beat its bound
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3, torch.int8: 1979e12}
 
 
 def card_line() -> str:

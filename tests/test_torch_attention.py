@@ -599,3 +599,150 @@ def test_tensor_core_backward_matches_jax_pallas_interpret(masked):
                                *red, masked)
     got = [(t * keep[:, None]).to(torch.bfloat16)[:, None] for t in got]
     _grads_close(got, want, TOL["bf16"]["rtol"])
+
+
+# The f32 backward kernels' 3xTF32 arithmetic, written plainly. A test
+# helper only: the port's f32 path runs the kernels on the card and the
+# plain versions on the CPU.
+
+def _tf32(t):
+    """f32 ``t`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to nearest
+    on 10 mantissa bits, ties away from zero (half a tf32 ulp added to the
+    sign-magnitude bits, the low 13 bits cleared)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(t):
+    """f32 ``t`` as tf32 hi + lo (hi = tf32(t), lo = tf32(t - hi))."""
+    hi = _tf32(t)
+    return hi, _tf32(t.float() - hi)
+
+
+def _mm_3xtf32(a, b, lo=True):
+    """a @ b of f32 operands as the kernels form it: each split into tf32
+    hi + lo, the product lo*hi + hi*lo + hi*hi (``lo=False``: hi*hi alone,
+    one TF32 product). The pieces' products are summed in f64, so this
+    holds the split's error only, not the tensor cores' f32 sums."""
+    a_hi, a_lo = (x.double() for x in _split_tf32(a))
+    b_hi, b_lo = (x.double() for x in _split_tf32(b))
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi if lo else a_hi @ b_hi
+
+
+def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True):
+    """The f32 backward reduce (``la_bwd_rows_tc_kernel<float>``,
+    ``la_bwd_reduce_tf32_kernel``) and apply (``la_bwd_apply_tc_kernel<float>``)
+    in 3xTF32, unguarded: a = q @ kvs, den, gden and dinv from it; gd =
+    g * (1/den) in f32, P = qᵀ gd; then dq (1/den in the epilogue), dk and
+    dv from the f32 P, ds and dinv. Returns P, dinv, dq, dk, dv in f64."""
+    qd, vd, gdd = q.double(), v.double(), g.double()
+    inv, n = scal[2].double(), n_total.double()
+    a = _mm_3xtf32(q, kvs, lo)
+    b = qd @ ksum.double()
+    den = inv * b + n
+    gden = -(inv * (gdd * a).sum(1) + n * (gdd * vd).sum(1)) / (den * den)
+    dinv = ((gdd * a).sum(1) / den + gden * b).sum()
+    gd = g * (1.0 / den.float())[:, None]
+    P = _mm_3xtf32(q.T, gd, lo)
+    ds = qd.T @ gden
+    Pf, dsf, dinvf = P.float(), ds.float(), dinv.float()
+    c_q, c_k = (dinvf * scal[2] / scal[i] for i in (0, 1))
+    dq = inv * (_mm_3xtf32(g, kvs.T, lo) / den[:, None]) + inv * gden[:, None] * ksum.double() \
+        - c_q.double() * qd
+    dk = inv * _mm_3xtf32(v, Pf.T, lo) + inv * dsf.double() - c_k.double() * k.double()
+    dv = n * (gdd / den[:, None]) + inv * _mm_3xtf32(k, Pf, lo)
+    return P, dinv, dq, dk, dv
+
+
+def _f64_backward(q, k, v, g, kvs, ksum, scal, n_total, P=None, ds=None, dinv=None):
+    """The plain backward in f64 on the same inputs: P and dinv exact, and
+    dq, dk, dv from the f32 P, ds and dinv given (the ones the apply reads)."""
+    qd, kd, vd, gdd = (t.double() for t in (q, k, v, g))
+    args = (kvs.double(), ksum.double(), scal.double(), n_total.double())
+    red = attn.bwd_reduce_plain(qd, vd, gdd, *args, False)
+    if P is not None:
+        red = (P.double(), ds.double(), dinv.double(), red[3])
+    return red, attn.bwd_apply_plain(qd, kd, vd, gdd, *args, *red, False)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """``_tf32`` is ``cvt.rna.tf32.f32``: 10 mantissa bits (the low 13 bits
+    zero), within 2^-11 of each value, ties away from zero."""
+    x = torch.randn(10_000)
+    t = _tf32(x)
+    assert not (t.view(torch.int32) & 0x1FFF).any()
+    assert ((t - x).abs() <= 2.0 ** -11 * x.abs()).all()
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23])
+    assert _tf32(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+
+
+@pytest.mark.parametrize("part", ["P", "dq", "dk", "dv"])
+def test_tf32_backward_keeps_f32_precision(part):
+    """f32 at a batch's statistics (randn q, k, v, g; kvs from the plain
+    reduce; n = N), M = D = 256 on 2,048 rows: the 3xTF32 arithmetic agrees
+    with the plain backward in f64 to 1e-6 of each output's scale (the
+    split leaves ~1e-7: 2^-21 of each term), where one TF32 product (hi*hi
+    alone) is at least 10x further off in P, dq and dk."""
+    n, m = 2048, 256
+    q, k, v, g = (torch.from_numpy(a) for a in
+                  np.random.default_rng(31).standard_normal((4, n, m)).astype(np.float32))
+    n_t = torch.tensor(float(n))
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    P, dinv, *grads = _tf32_backward(q, k, v, g, kvs, ksum, scal, n_t)
+    (P_x, ds_x, dinv_x, _), _ = _f64_backward(q, k, v, g, kvs, ksum, scal, n_t)
+    _, exact = _f64_backward(q, k, v, g, kvs, ksum, scal, n_t, P_x.float(), ds_x.float(),
+                             dinv_x.float())
+    P1, _, *grads1 = _tf32_backward(q, k, v, g, kvs, ksum, scal, n_t, lo=False)
+    i = ("P", "dq", "dk", "dv").index(part)
+    got, one, want = ((P, *grads)[i], (P1, *grads1)[i], (P_x, *exact)[i])
+    err = (got - want).abs().max()
+    assert err <= 1e-6 * want.abs().max()
+    # dv carries n * gd, which swamps its product at n = N
+    if part != "dv":
+        assert (one - want).abs().max() >= 10 * err
+
+
+def test_tf32_backward_reduce_dinv_at_n_one():
+    """n = 1 and positive inputs, where q @ kvs carries den, gden and dinv
+    (the chip's n = 1 check): the 3xTF32 rows pass predicts dinv within
+    ~1e-6 of itself and ~1e-10 of the magnitudes of its two sums (which
+    cancel to ~1e-4 of them), under both REDUCE_REL_TOL (1e-5 of dinv) and
+    N1_REL_TOL (2^-14 of the magnitudes); P within 1e-6 of its scale."""
+    n, m = 2048, 256
+    q, k, v, g = (torch.from_numpy(a) for a in
+                  np.random.default_rng(32).random((4, n, m)).astype(np.float32))
+    one = torch.tensor(1.0)
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    P, dinv, *_ = _tf32_backward(q, k, v, g, kvs, ksum, scal, one)
+    (P_x, _, dinv_x, (den, gden)), _ = _f64_backward(q, k, v, g, kvs, ksum, scal, one)
+    qd, gdd = q.double(), g.double()
+    sums = (gdd / den[:, None] * (qd @ kvs.double())).abs().sum() \
+        + (gden * (qd @ ksum.double())).abs().sum()
+    err = (dinv - dinv_x).abs()
+    assert err <= 1e-6 * dinv_x.abs() and err <= 1e-10 * sums
+    assert (P - P_x).abs().max() <= 1e-6 * P_x.abs().max()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tf32_backward_matches_jax_pallas_interpret(masked):
+    """H = 1, f32: the port's attention gradient with the 3xTF32
+    arithmetic of the backward kernels against ``jax.vjp`` of the Pallas
+    ``fused_linear_attention`` in interpret mode, at the f32 tolerance (1e-5
+    of scale). Masked rows are zeroed as the port's wrapper zeroes them; no
+    row's den is 0 here, so the guard does not act."""
+    q, k, v = _qkv(24, h=1)
+    g = np.random.default_rng(25).standard_normal(v.shape).astype(np.float32)
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "f32")
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused(a, b, c, node_mask=jmask, block=128,
+                                               interpret=True), jq, jk, jv)
+    want = vjp(jnp.asarray(g))
+    keep = torch.ones(q.shape[0]) if mask is None else torch.from_numpy(mask)
+    tq, tk, tv = (t[:, 0] * keep[:, None] for t in (tq, tk, tv))
+    tg = torch.from_numpy(g[:, 0])
+    n_t = keep.sum()
+    sums = attn.reduce_plain(tq, tk, tv, masked)
+    _, _, *got = _tf32_backward(tq, tk, tv, tg, *sums, n_t)
+    got = [(t.float() * keep[:, None])[:, None] for t in got]
+    _grads_close(got, want, TOL["f32"]["rtol"])

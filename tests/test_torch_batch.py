@@ -172,13 +172,15 @@ def _port_fit(ds, edges, split, state, model, eval_mode, **kw):
     return trainer, logger
 
 
-def _check_fit(jt, jl, pt, pl, classes=C):
+def _check_fit(jt, jl, pt, pl, classes=C, columns=4):
+    """Losses, the logger's first ``columns`` columns and the final
+    parameters of the two fits."""
     # 2 epochs of 4 batches (3 of 300 nodes and a tail of 100)
     assert len(pt.train_losses) == len(jt.train_losses) == 8
     np.testing.assert_allclose(pt.train_losses, jt.train_losses, rtol=1e-5)
     assert len(pl.results[0]) == len(jl.results[0]) == 2
-    np.testing.assert_allclose(np.array(pl.results[0]), np.array(jl.results[0]), rtol=1e-6,
-                               atol=1e-6)
+    np.testing.assert_allclose(np.array(pl.results[0])[:, :columns],
+                               np.array(jl.results[0])[:, :columns], rtol=1e-6, atol=1e-6)
     # the JAX trainer's final variables, loaded into a port model by name
     _, want = _port_state({"params": jt.final_state["params"],
                            "batch_stats": jt.final_state["batch_stats"]}, classes)
@@ -199,20 +201,56 @@ def test_fit_matches_jax(problem, eval_mode):
     assert pt.train_losses[-1] < pt.train_losses[0]
 
 
-def test_fit_with_bce_and_rocauc_matches_jax(problem):
+def _bce_valid_loss(trainer, split, onehot):
+    """The valid BCE of the full-graph Trainer's ``evaluate``
+    (train/trainer.py), written out, on the trainer's final full-graph
+    logits."""
+    vidx = np.asarray(split["valid"])
+    z = np.clip(trainer.eval_logits_full()[vidx], -30, 30)
+    lab = onehot[vidx]
+    return float(np.mean(np.maximum(z, 0) - z * lab + np.log1p(np.exp(-np.abs(z)))))
+
+
+def _bce_fit(problem, label, classes):
+    """JAX and port fits with ``loss='bce'``, rocauc and full-graph eval on
+    ``label`` in place of the problem's."""
     ds, edges, split = problem
-    binary = jax_synthetic_dataset(num_nodes=N, num_edges=6000, num_features=F, num_classes=2,
-                                   seed=4)
-    ds.label, label = binary.label, ds.label
+    ds.label, kept = label, ds.label
     try:
-        jmodel, variables = _variables(ds, edges, classes=2)
+        jmodel, variables = _variables(ds, edges, classes=classes)
         kw = dict(loss="bce", metric="rocauc")
         jt, jl = _jax_fit(ds, edges, split, variables, jmodel, "full", **kw)
-        model, state = _port_state(variables, classes=2)
+        model, state = _port_state(variables, classes=classes)
         pt, pl = _port_fit(ds, edges, split, state, model, "full", **kw)
     finally:
-        ds.label = label
-    _check_fit(jt, jl, pt, pl, classes=2)
+        ds.label = kept
+    return jt, jl, pt, pl
+
+
+def test_fit_with_bce_and_rocauc_matches_jax(problem):
+    """Binary labels: the losses, metrics and parameters as the JAX
+    trainer's; the valid loss (column 3) is the BCE of the full-graph
+    Trainer, where the JAX batch trainer takes an NLL."""
+    binary = jax_synthetic_dataset(num_nodes=N, num_edges=6000, num_features=F, num_classes=2,
+                                   seed=4)
+    jt, jl, pt, pl = _bce_fit(problem, binary.label, 2)
+    _check_fit(jt, jl, pt, pl, classes=2, columns=3)
+    onehot = np.eye(2, dtype=np.float32)[binary.label.reshape(-1)]
+    assert pl.results[0][-1][3] == pytest.approx(_bce_valid_loss(pt, problem[2], onehot),
+                                                 rel=1e-6)
+
+
+def test_fit_with_multilabel_bce_reports_the_bce_valid_loss(problem):
+    """Three binary label columns (ogbn-proteins' form, in small): train
+    losses, metrics (rocauc per column) and parameters as the JAX
+    trainer's; the valid loss (column 3) is the full-graph Trainer's BCE
+    over every column, not the NLL of the flattened labels."""
+    label = (np.random.default_rng(12).random((N, 3)) < 0.4).astype(np.int64)
+    jt, jl, pt, pl = _bce_fit(problem, label, 3)
+    _check_fit(jt, jl, pt, pl, classes=3, columns=3)
+    want = _bce_valid_loss(pt, problem[2], label.astype(np.float32))
+    assert pl.results[0][-1][3] == pytest.approx(want, rel=1e-6)
+    assert abs(jl.results[0][-1][3] - want) > 1e-3  # the JAX trainer's NLL
 
 
 def test_batch_of_all_nodes_is_the_full_graph_step(problem):

@@ -146,20 +146,25 @@ BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,m,d", [(1, 256, 256), (2, 48, 80), (1, 64, 128), (3, 16, 8),
-                                        (1, 1024, 64)])
+@pytest.mark.parametrize("heads,m,d,n", [
+    (1, 256, 256, 1000), (2, 48, 80, 1000), (1, 64, 128, 1000), (3, 16, 8, 1000),
+    (1, 1024, 64, 1000),
+    # amazon2m-batch-train's shapes: a full batch and the tail
+    (1, 256, 256, 100_000), (1, 256, 256, 49_029)])
 @pytest.mark.parametrize("masked", [False, True])
-def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked):
-    n = 1000  # not a multiple of the 64-row tile or the 32-row step
+def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, n, masked):
+    # n = 1000: not a multiple of the 64-row tile, the 128-row block or the
+    # 32-row step
     q, k = (torch.randn(n, heads, m, device=cuda).to(dtype) for _ in range(2))
     v = torch.randn(n, heads, d, device=cuda).to(dtype)
     g = torch.randn(n, heads, d, device=cuda).to(dtype)
     mask = (torch.arange(n, device=cuda) % 3 != 1).float() if masked else None
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    # bf16 runs the tensor-core apply, f32 and widths whose A tile outgrows
-    # one block's shared memory (m = 1024) the CUDA-core one
-    assert attn.bwd_apply_design(dtype, m, d).startswith("tensor cores") \
-        == (dtype == torch.bfloat16 and m < 1024)
+    # both types run the tensor-core kernels (f32 in 3xTF32), widths whose
+    # A tile outgrows one block's shared memory (m = 1024) the CUDA-core ones
+    for design in (attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)):
+        assert design.startswith("tensor cores") == (m < 1024)
+        assert ("3xTF32" in design) == (dtype == torch.float32 and m < 1024)
     r0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
     got = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
     assert (attn.bwd_reduce_launches - r0, attn.bwd_apply_launches - a0) == (heads, heads)
@@ -188,9 +193,14 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, heads, m, d, masked
     den, gden = exact[3]
     dinv_scale = (gd / den[:, None] * a).abs().sum() + (gden * b).abs().sum()
     assert (got_r[2].double() - exact[2]).abs() <= 1e-5 * dinv_scale
+    # the apply against its plain version evaluated in f64 on the same
+    # inputs: its epilogue's terms cancel here to ~1/13 of their size, and
+    # an f32 evaluation of it, the plain version's included, is then itself
+    # ~1e-5 of the scale off
     want_r = attn.bwd_reduce_plain(qp, vp, gp, *sums, one, False)
     got_a = attn.bwd_apply(qp, kp, vp, gp, *sums, one, *want_r)
-    want_a = attn.bwd_apply_plain(qp, kp, vp, gp, *sums, one, *want_r, False)
+    want_a = attn.bwd_apply_plain(*(t.double() for t in (qp, kp, vp, gp, *sums, one, *want_r)),
+                                  False)
     for a, b in zip(got_a, want_a):
         _check_rel(a, b, BWD_REL[dtype])
 
@@ -218,14 +228,60 @@ def test_tensor_core_apply_takes_any_width(cuda, m, d):
 
 def test_reduce_designs_name_the_kernels(cuda):
     """bf16 reduces run on the tensor cores at any width the backward's q
-    tile fits (up to M = 640), f32 on the CUDA cores."""
+    tile fits (up to M = 640); the f32 backward reduce in 3xTF32 up to M =
+    256, the f32 forward reduce on the CUDA cores."""
     for m, d in ((256, 256), (37, 40), (640, 64)):
         assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
         assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
         assert attn.reduce_design(torch.float32, m, d).startswith("CUDA cores")
-        assert attn.bwd_reduce_design(torch.float32, m, d).startswith("CUDA cores")
+        f32 = attn.bwd_reduce_design(torch.float32, m, d)
+        assert f32.startswith("tensor cores (mma.sync 3xTF32") == (m <= 256), f32
+    assert attn.bwd_reduce_design(torch.float32, 256, 999).startswith("tensor cores")
+    assert attn.bwd_reduce_design(torch.float32, 257, 8).startswith("CUDA cores")
     assert attn.reduce_design(torch.bfloat16, 1024, 64).startswith("tensor cores")
     assert attn.bwd_reduce_design(torch.bfloat16, 1024, 64).startswith("CUDA cores")
+
+
+@pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 19)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_tf32_backward_takes_any_width(cuda, m, d, strided):
+    """The f32 (3xTF32) backward reduce and apply on widths off their tiles
+    and off the 16-byte path (37, 19, 130: scalar A rows and epilogues), up
+    to the widest tile they take (256), on the per-head views of [N, 2, *]
+    tensors (strided: rows 3 elements longer, so no 16-byte copies), with
+    tail rows (N = 777): at n = N on random inputs and at n = 1 on positive
+    inputs (the products carry den, gden and the gradients), the reduce
+    within 1e-5 of its scale of the plain version in f64 (dinv of its sums'
+    magnitude), the apply within 1e-5 of each output's scale of its plain
+    version in f64 (at n = 1 the epilogue's terms cancel to ~1/13 of their
+    size, and the plain version evaluated in f32 is itself ~1e-5 of the
+    scale off); each bitwise repeatable, one launch a call."""
+    n, pad = 777, 3 if strided else 0
+    for design in (attn.bwd_reduce_design(torch.float32, m, d),
+                   attn.bwd_apply_design(torch.float32, m, d)):
+        assert "3xTF32" in design, design
+
+    def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
+        return draw(n, 2, w + pad, device=cuda)[:, 1, :w]
+
+    for draw in (torch.randn, torch.rand):
+        q, k, v, g = heads(draw, m), heads(draw, m), heads(draw, d), heads(draw, d)
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), 1.0 if draw is torch.rand else float(n), device=cuda)
+        b0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
+        got_r = attn.bwd_reduce(q, v, g, *sums, n_t)
+        _f64_bwd_reduce_close(got_r, q, v, g, *sums, n_t)
+        assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums,
+                                                                            n_t)))
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
+        exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)),
+                                     False)
+        for a, b in zip(got_a, exact):
+            _check_rel(a, b, BWD_REL[torch.float32])
+        assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(q, k, v, g, *sums,
+                                                                           n_t, *red)))
+        assert (attn.bwd_reduce_launches - b0, attn.bwd_apply_launches - a0) == (2, 2)
 
 
 def _f64_reduce_close(got, q, k, v):

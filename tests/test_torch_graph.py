@@ -11,7 +11,7 @@ from sgformer_tpu.graph import preprocess_graph as jax_preprocess_graph
 from sgformer_tpu.ops.spmm import spmm as jax_spmm
 
 from sgformer_tpu_torch.data import SYNTHETIC, synthetic_dataset
-from sgformer_tpu_torch.graph import preprocess_graph
+from sgformer_tpu_torch.graph import check_int32_counts, graph_from_sorted, preprocess_graph
 
 torch.set_num_threads(1)
 
@@ -122,3 +122,26 @@ def test_synth_arxiv_name_matches_jax():
 def test_unknown_synthetic_name_raises():
     with pytest.raises(ValueError, match="unknown synthetic"):
         synthetic_dataset("synth-nope", device="cpu")
+
+
+@pytest.mark.parametrize("nodes,edges", [(2 ** 31, 10), (10, 2 ** 31), (2 ** 33, 2 ** 32)])
+def test_counts_int32_cannot_hold_are_refused(nodes, edges):
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_int32_counts(nodes, edges)
+
+
+def test_counts_below_2_31_pass():
+    check_int32_counts(2 ** 31 - 1, 2 ** 31 - 1)
+    check_int32_counts(0, 0)
+
+
+def test_graph_builders_refuse_2_31_nodes_before_allocating():
+    """Both builders check the counts before anything of num_nodes is made
+    (no self-loops or symmetrising asked, so nothing else is either)."""
+    ei = np.array([[0, 1], [1, 0]])
+    with pytest.raises(ValueError, match="nodes"):
+        preprocess_graph(ei, 2 ** 31, undirected=False, self_loops=False, device="cpu")
+    src = torch.tensor([1, 0], dtype=torch.int32)
+    dst = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="nodes"):
+        graph_from_sorted(src, dst, torch.ones(2), 2 ** 31, symmetric=True)

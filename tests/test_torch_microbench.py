@@ -229,7 +229,7 @@ def test_probe_launches_share_the_kernels_registry():
     (3.35e9, 0.0, torch.bfloat16, "bytes"),           # 1 ms of bytes, no work
     (0.0, 989e9, torch.bfloat16, "operations"),       # 1 ms of bf16 tensor-core work
     (3.35e9, 1979e9, torch.int8, "bytes"),            # 1 ms each: ties go to bytes
-    (3.35e6, 67e9, torch.float32, "operations"),      # 1 us of bytes, 1 ms of f32
+    (3.35e6, 165e9, torch.float32, "operations"),     # 1 us of bytes, 1 ms of 3xTF32 f32
 ])
 def test_bound_takes_the_larger_of_bytes_and_operations(nbytes, ops, dtype, by):
     ms, got_by = measure.bound_ms(nbytes, ops, dtype)
