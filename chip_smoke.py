@@ -11,12 +11,12 @@ JAX package. Phases, each failing loudly:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
    256), in bf16 and f32, with its median time beside its bound; the
-   reduce also on positive inputs against its plain version in f64, the
+   reduce also on positive inputs against its sums in f64, the
    apply alone at n = N (bitwise repeatable), at n = 1 and, against its
    plain version in f64, on inputs where q @ kvs carries the output (in
    bf16 also where kvs terms cancel, so that a dropped lo piece shows), each
-   with the design it runs (tensor cores for bf16) and one ``torch.matmul`` of its
-   core product (k^T v, q @ kvs) as a yardstick;
+   with the design it runs (tensor cores in both types, f32 in 3xTF32) and
+   one ``torch.matmul`` of its core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32
    (both on the tensor cores, f32 in 3xTF32); both also with n = 1 and
@@ -95,7 +95,9 @@ JAX package. Phases, each failing loudly:
    batch's subgraph built on the card (CUDA events) and on CPU tensors
    (amazon2m: bitwise equal, every field), the kernels alone in f32 and in
    bf16 (the type of arxiv-batch's model and of amazon2m's bf16 step) at a
-   full batch's and the tail's shapes, one step's loss and gradients
+   full batch's and the tail's shapes (the reduce's three launches, its
+   main kernel, ``la_finish_kernel`` and ``la_scalars_kernel``, also timed
+   apart by the profiler), one step's loss and gradients
    against the plain step (amazon2m f32: 1e-5 and 1e-4; arxiv bf16 as in 6),
    the launches of one step (6 ``csr_spmm`` and each attention kernel once)
    and of one batch forward (3 and the reduce and apply), a batch's logits
@@ -359,6 +361,46 @@ def bound_name(by: str, dtype) -> str:
     return f"operations (3xTF32, {rate})" if dtype == torch.float32 else f"operations ({rate})"
 
 
+def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
+    """The forward reduce's and apply's designs for these widths, logged; at
+    the model's width both take the tensor cores (f32 in 3xTF32)."""
+    red_design, design = attn.reduce_design(dtype, m, d), attn.apply_design(dtype, m, d)
+    name = DTYPE_NAME[dtype]
+    log(f"reduce {name} design at {where}: {red_design}")
+    log(f"apply {name} design at {where}: {design}")
+    want = "tensor cores (mma.sync 3xTF32" if dtype == torch.float32 else "tensor cores"
+    if (m, d) == (256, 256) and not (design.startswith(want) and red_design.startswith(want)):
+        raise AssertionError(f"the {name} forward kernels at M = D = 256 are not the "
+                             f"tensor-core design")
+    return red_design, design
+
+
+def reduce_f64(q, k, v) -> tuple:
+    """The reduce's sums evaluated in f64: kvs, ksum and (||q||^2, ||k||^2)
+    (``reduce_plain`` sums in f32 whatever its inputs' type)."""
+    qd, kd, vd = q.double(), k.double(), v.double()
+    return kd.T @ vd, kd.sum(0), torch.stack([qd.square().sum(), kd.square().sum()])
+
+
+def kernel_ms(run, names: tuple, reps: int = 20) -> dict:
+    """Device ms a call of each kernel of ``names`` that ``run`` launches,
+    from torch.profiler (CUPTI) over ``reps`` calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] += device_us(e) / reps / 1e3
+    return out
+
+
 def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
     at the model's width both take the tensor cores (f32 in 3xTF32)."""
@@ -381,10 +423,7 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
     gen = torch.Generator(device=dev).manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
         name = DTYPE_NAME[dtype]
-        design = attn.reduce_design(dtype, m, d)
-        log(f"reduce {name} design: {design}")
-        apply_design = attn.apply_design(dtype, m, d)
-        log(f"apply {name} design: {apply_design}")
+        design, apply_design = fwd_designs(attn, dtype, m, d, f"n={n}")
         qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(dtype)
                       for _ in range(3))
         got = attn.fused_linear_attention(qs, ks, vs)
@@ -441,12 +480,12 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
         want_a = attn.apply_plain(qp, vp, kvs_p, ksum_p, scal_p, one, False)
         app_err = check_close(f"apply {name} (n = 1)", got_a, want_a, **TOL[dtype])
         # the reduce on the same positive inputs, where no sum cancels,
-        # against the plain version evaluated in f64
-        exact = attn.reduce_plain(qp.double(), kp.double(), vp.double(), False)
+        # against its sums evaluated in f64
+        exact = reduce_f64(qp, kp, vp)
         got_p = attn.reduce(qp, kp, vp)
         for part, g_, w_ in (("kvs", got_p[0], exact[0]), ("ksum", got_p[1], exact[1]),
-                             ("qsq, ksq", got_p[2][:2], exact[2][:2])):
-            check_rel(f"reduce {name} {part} (positive inputs, plain in f64)", g_, w_,
+                             ("qsq, ksq", got_p[2][:2], exact[2])):
+            check_rel(f"reduce {name} {part} (positive inputs, sums in f64)", g_, w_,
                       REDUCE_REL_TOL)
         del exact, got_p
 
@@ -1316,10 +1355,12 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     and ``csr_spmm`` at F = 256 on the batch's subgraph through its hub
     plan, each against its plain version (the backward reduce against its
     plain version in f64, whose sums can cancel: P, ds, dinv, den and gden)
-    with the tolerances of the arxiv-shape checks, with time and bound. The
-    backward kernels run their tensor-core designs in both types (f32 in
-    3xTF32), logged at each shape; the forward ones bf16's tensor-core and
-    f32's CUDA-core designs: each at the shapes a batch path gives it."""
+    with the tolerances of the arxiv-shape checks, with time and bound; the
+    reduce's three launches (its main kernel, ``la_finish_kernel`` adding
+    the slices' partials, ``la_scalars_kernel``) also timed apart, with the
+    slices. Every attention kernel runs its tensor-core design in both
+    types (f32 in 3xTF32), logged at each shape: each at the shapes a batch
+    path gives it."""
     from sgformer_tpu_torch.kernels import attention as attn
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
@@ -1328,6 +1369,8 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     name_t = DTYPE_NAME[dtype]
     designs = dict(zip(("linear_attention_bwd_apply", "linear_attention_bwd_reduce"),
                        bwd_designs(attn, dtype, m, m, f"{key} n={n}")))
+    designs.update(zip(("linear_attention_reduce", "linear_attention_apply"),
+                       fwd_designs(attn, dtype, m, m, f"{key} n={n}")))
     gen = torch.Generator(device=dev).manual_seed(9)
     q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype) for _ in range(4))
     elt = q.element_size()
@@ -1392,6 +1435,18 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
                                                bytes_bound_ms=bytes_ms)
         if name in designs:
             results[(key, name, name_t, n)]["design"] = designs[name]
+    # the reduce's launches apart: the slices' partials are written and
+    # added whatever a slice's length
+    first = "la_reduce_tf32_kernel" if dtype == torch.float32 else "la_reduce_tc_kernel"
+    passes = kernel_ms(lambda: attn.reduce(q, k, v), (first, "la_finish_kernel",
+                                                      "la_scalars_kernel"))
+    slices, rows = attn._slices(n, m, m, q.device, True, dtype)
+    log(f"{key} reduce {name_t} n={n} by launch: {first} {passes[first]:.4f} ms, "
+        f"la_finish_kernel {passes['la_finish_kernel']:.4f} ms, la_scalars_kernel "
+        f"{passes['la_scalars_kernel']:.4f} ms ({slices} slices of {rows} rows)")
+    results[(key, "linear_attention_reduce", name_t, n)].update(
+        main_ms=passes[first], finish_ms=passes["la_finish_kernel"],
+        scalars_ms=passes["la_scalars_kernel"], slices=slices)
     results[(key, "csr_spmm", name_t, n)]["edges"] = e
     del q, k, v, g, sums, red
     torch.cuda.empty_cache()
@@ -1714,6 +1769,13 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     return counts
 
 
+def device_us(event) -> float:
+    """A profiler event's own device time in us (the attribute's name
+    differs between PyTorch versions)."""
+    us = getattr(event, "self_device_time_total", None)
+    return getattr(event, "self_cuda_time_total", 0) if us is None else us
+
+
 def profile_device(what: str, fn, reps: int) -> tuple[float, float]:
     """Device time per kernel over a few calls of ``fn``, and the device's
     busy share of its wall time (torch.profiler, CUPTI). Returns (wall ms,
@@ -1734,9 +1796,7 @@ def profile_device(what: str, fn, reps: int) -> tuple[float, float]:
         if ("CUDA" not in str(getattr(e, "device_type", ""))
                 or getattr(e, "is_user_annotation", False)):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
+        us = device_us(e)
         if us > 0:
             rows.append((us / reps / 1e3, e.count / reps, e.key))
     rows.sort(reverse=True)
@@ -1895,6 +1955,8 @@ def main() -> int:
                           if k.startswith("sddmm")})
         else:
             r = dict(results[(name, "bf16")])
+            if (name, "f32") in results:  # f32 at arxiv's N (the attention kernels: 3xTF32)
+                r.update({f"f32_{k}": v for k, v in results[(name, "f32")].items()})
             counts, per_step = train_counts, step_counts
             per_forward = {k: c / forwards for k, c in serve_counts.items()}
         if name in BATCH_KERNELS:
@@ -1910,7 +1972,9 @@ def main() -> int:
                     prefix = f"{key[0].replace('-', '_')}_{key[2]}_n{key[3]}_"
                     r.update({prefix + k: v[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "bytes_bound_ms", "max_abs_err",
-                                                         "edges", "design") if k in v})
+                                                         "edges", "design", "main_ms",
+                                                         "finish_ms", "scalars_ms", "slices")
+                              if k in v})
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
                       results[("csr_spmm_powerlaw", "bf16")].items()

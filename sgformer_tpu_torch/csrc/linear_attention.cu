@@ -24,15 +24,14 @@
 // Bound: memory. At the arxiv shape (N = 169,343, M = D = 256, bf16) reduce
 // must read q, k, v once (260 MB, 78 us at 3.35 TB/s) and apply must read
 // q, v and write out (260 MB); each does 2*N*M*D = 22.2 GFLOP, 22 us at the
-// bf16 tensor-core peak. The f32 kernels multiply on the CUDA cores in f32
-// (64x64 tiles in shared memory, a 4x4 register tile per thread, 67 TFLOP/s
-// peak), so their floor is ~0.33 ms per kernel: operations, not bytes, bound
-// them. They are the exact-parity path.
+// bf16 tensor-core peak. In f32 the bytes double (156 us) and the products
+// run in 3xTF32 (below): three TF32 products of 22.2 GFLOP at 495 TFLOP/s,
+// 135 us, so the bytes bound the f32 kernels too.
 //
 // The bf16 reduce (la_reduce_tc_kernel) runs k^T v on the tensor cores
 // (tensor_core.cuh: mma.sync m16n8k16, bf16 in, f32 sums). k and v are bf16,
 // so every product is exact in f32 and only the order of the sums differs
-// from the CUDA-core kernel; it stays fixed. A block owns a 128 x 128 tile of
+// from the plain version; it stays fixed. A block owns a 128 x 128 tile of
 // kvs over one slice of N; the blocks of a slice have neighbouring indices,
 // so they run together and the second read of the slice's k or v rows (each
 // feeds two tiles at M = D = 256) is served by the 50 MB L2, not by device
@@ -40,7 +39,7 @@
 // (k, v and, in the blocks that sum it, q); ksum, ||k||^2 and ||q||^2 are
 // summed per column in f64 on the CUDA cores from the chunks already in
 // shared memory, between the MMAs. Partials go to scratch and are added in
-// slice order by la_finish_kernel, as for the f32 kernel.
+// slice order by la_finish_kernel.
 //
 // The bf16 apply (la_apply_tc_kernel) runs a = q @ kvs on the tensor cores
 // by warpgroup MMAs (wgmma m64n64k16, bf16 in, f32 sums, both operands read
@@ -57,6 +56,29 @@
 // ~0.045 ms at the bf16 peak, under the bytes bound; the design measured
 // against it, an mma.sync version of the backward's row core, is in PERF.md.
 //
+// The f32 kernels run the same designs in 3xTF32 (mma.sync m16n8k8 tf32,
+// f32 sums), as the f32 backward does (linear_attention_bwd.cu): each f32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
+// each product is lo*hi' + hi*lo' + hi*hi' (lo*lo' dropped), ~2^-21 of each
+// term.
+// - The f32 reduce (la_reduce_tf32_kernel) is the bf16 reduce's grid, slices,
+//   tiles, f64 column sums and second passes, with k^T v by the node-axis
+//   contraction in 3xTF32 (tc::node_mma_chunk_tf32): k is split as its
+//   fragments load, v once a chunk into shared tf32 hi + lo tiles. The f32
+//   chunks of k, v and q take 52 KB a stage, so the ring holds 3 stages,
+//   and one block runs on an SM. Its tile streams the node rows, so it
+//   takes any M and D.
+// - The f32 apply (la_apply_tf32_kernel) is the backward rows pass's core
+//   (tensor_core.cuh: tc_stage_rows, tc::tf32_column_tile) with a forward
+//   epilogue: a block stages its 128 q rows once in f32 (130 KB at M = 256,
+//   one block an SM) and splits them as the fragments load (plain 32-bit
+//   loads from rows padded by 16 bytes, free of bank conflicts: ldmatrix is
+//   16-bit); kvs^T is split once a call into tf32 hi + lo
+//   (tc::split_t_kernel<2, float>) and streamed in double-buffered 64-deep
+//   chunks. The q tile fits one block's shared memory up to M = 256.
+// Wider q rows (above M = 256 in f32, 704 in bf16) run la_apply_kernel on
+// the CUDA cores (64 x 64 output tiles, f32 FMAs from shared memory).
+//
 // Inputs are row-strided views (ld* = elements between rows), so the heads of
 // an [N, H, M] tensor are read in place; the last dimension is contiguous.
 
@@ -71,7 +93,7 @@
 namespace {
 
 constexpr int kTile = 64;      // M and D tile
-constexpr int kRows = 32;      // node rows per reduce step, M depth per apply step
+constexpr int kRows = 32;      // M depth per CUDA-core apply step
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kApplyRows = 128;     // rows of a tensor-core apply block: two warpgroups
 constexpr int kApplyThreads = 256;
@@ -88,91 +110,6 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// grid (ceil(M/64), ceil(D/64), slices). Block (mx, dy, s) sums its 64x64
-// tile of k^T v over rows [s*rows_per_slice, (s+1)*rows_per_slice). Blocks
-// with dy == 0 also sum k, k*k and q*q per column of their M tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-la_reduce_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 long ldq, long ldk, long ldv, int N, int M, int D, int rows_per_slice,
-                 float* __restrict__ kvs_part, float* __restrict__ ksum_part,
-                 float* __restrict__ qsq_part, float* __restrict__ ksq_part) {
-  __shared__ __align__(16) float ks[kRows][kTile];
-  __shared__ __align__(16) float vs[kRows][kTile];
-  __shared__ float qs[kRows][kTile];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * kTile;
-  const int d0 = blockIdx.y * kTile;
-  const int s = blockIdx.z;
-  const bool stats = blockIdx.y == 0;
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  // the per-column sums run over a whole slice (thousands of rows): keep
-  // them in f64 so the norms are exact to f32 rounding
-  double ksum = 0.0, ksq = 0.0, qsq = 0.0;
-
-  for (long r0 = r_begin; r0 < r_end; r0 += kRows) {
-    for (int i = tid; i < kRows * kTile; i += kThreads) {
-      const int r = i / kTile;
-      const int c = i % kTile;
-      const long row = r0 + r;
-      const bool row_ok = row < r_end;
-      const bool m_ok = row_ok && m0 + c < M;
-      ks[r][c] = m_ok ? to_float(k[row * ldk + m0 + c]) : 0.f;
-      vs[r][c] = (row_ok && d0 + c < D) ? to_float(v[row * ldv + d0 + c]) : 0.f;
-      if (stats) qs[r][c] = m_ok ? to_float(q[row * ldq + m0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&ks[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&vs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (stats && tid < kTile) {
-      for (int r = 0; r < kRows; ++r) {
-        const double kv = ks[r][tid];
-        const double qv = qs[r][tid];
-        ksum += kv;
-        ksq = fma(kv, kv, ksq);
-        qsq = fma(qv, qv, qsq);
-      }
-    }
-    __syncthreads();
-  }
-
-  const size_t MD = static_cast<size_t>(M) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + tx * 4 + j;
-      if (m < M && d < D) kvs_part[s * MD + static_cast<size_t>(m) * D + d] = acc[i][j];
-    }
-  }
-  if (stats && tid < kTile && m0 + tid < M) {
-    const size_t o = static_cast<size_t>(s) * M + m0 + tid;
-    ksum_part[o] = static_cast<float>(ksum);
-    ksq_part[o] = static_cast<float>(ksq);
-    qsq_part[o] = static_cast<float>(qsq);
-  }
 }
 
 // The bf16 reduce on the tensor cores. grid (slices * tiles), tiles =
@@ -262,6 +199,140 @@ la_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll 4
       for (int r = par; r < kNodeRows; r += 2) {
         const double x = __bfloat162float(qs[r * kNodeStride + col]);
+        qsq = fma(x, x, qsq);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  tc::store_node_tile(kvs_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn,
+                      lane);
+  if (k_stats || q_stats) {  // uniform over the block
+    if (par == 1) {
+      red[0][col] = ksum;
+      red[1][col] = ksq;
+      red[2][col] = qsq;
+    }
+    __syncthreads();
+    if (par == 0 && m0 + col < M) {
+      const size_t o = static_cast<size_t>(s) * M + m0 + col;
+      if (k_stats) {
+        ksum_part[o] = static_cast<float>(ksum + red[0][col]);
+        ksq_part[o] = static_cast<float>(ksq + red[1][col]);
+      }
+      if (q_stats) qsq_part[o] = static_cast<float>(qsq + red[2][col]);
+    }
+  }
+}
+
+// The f32 reduce on the tensor cores in 3xTF32: la_reduce_tc_kernel's grid,
+// slices, tiles and column sums, one block an SM. Each 32-row chunk of k, v
+// and (in the blocks that sum it) q comes through a kTfReduceStages-deep
+// cp.async ring as f32; once it has landed the block splits v into shared
+// tf32 hi + lo tiles, and tc::node_mma_chunk_tf32 splits k as its fragments
+// load (A = k, B = v: the backward's P pass with q and g/den replaced).
+// Dynamic shared memory: 3 stages of k, v and q chunks (52 KB a stage) and
+// v's two split tiles, 187 KB.
+constexpr int kTfReduceStages = 3;
+constexpr int kTfReduceStage = 3 * tc::kNodeChunk;  // f32 of a stage's k, v and q chunks
+constexpr size_t kTfReduceSmem =
+    (kTfReduceStages * kTfReduceStage + 2 * tc::kNodeChunk) * sizeof(float);
+
+__global__ void __launch_bounds__(tc::kNodeThreads, 1)
+la_reduce_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, long ldq, long ldk, long ldv, int N, int M,
+                      int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
+                      float* __restrict__ ksum_part, float* __restrict__ qsq_part,
+                      float* __restrict__ ksq_part) {
+  using tc::kNodeRows;
+  using tc::kNodeStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][k, v, q]
+  float* v_hi = ring + kTfReduceStages * kTfReduceStage;
+  float* v_lo = v_hi + tc::kNodeChunk;
+  __shared__ double red[3][tc::kNodeTile];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;
+  const int wn = (warp >> 2) * 64;
+  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
+  const int tiles_d = tc::cdiv(D, tc::kNodeTile);
+  const int tiles = tiles_m * tiles_d;
+  const int s = blockIdx.x / tiles;
+  const int dy = (blockIdx.x % tiles) / tiles_m;
+  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
+  const int d0 = dy * tc::kNodeTile;
+  const bool k_stats = dy == 0;
+  const bool q_stats = dy == (tiles_d > 1 ? 1 : 0);
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+
+  auto stage = [&](int c) {
+    float* ks = ring + (c % kTfReduceStages) * kTfReduceStage;
+    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
+    tc::stage_node_rows(ks, k, ldk, r0, r_end, m0, M, vec, tid);
+    tc::stage_node_rows(ks + tc::kNodeChunk, v, ldv, r0, r_end, d0, D, vec, tid);
+    if (q_stats) tc::stage_node_rows(ks + 2 * tc::kNodeChunk, q, ldq, r0, r_end, m0, M, vec, tid);
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // per column: thread t sums column t % 128 over the chunk rows of parity
+  // t / 128, in f64 (a slice holds thousands of rows)
+  const int col = tid & (tc::kNodeTile - 1);
+  const int par = tid / tc::kNodeTile;
+  double ksum = 0.0, ksq = 0.0, qsq = 0.0;
+
+  for (int c = 0; c < kTfReduceStages - 1; ++c) {
+    if (c < chunks) stage(c);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    tc::cp_async_wait<kTfReduceStages - 2>();
+    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1 and v's tiles
+    if (c + kTfReduceStages - 1 < chunks) stage(c + kTfReduceStages - 1);
+    tc::cp_async_commit();
+    const float* ks = ring + (c % kTfReduceStages) * kTfReduceStage;
+    const float* vs = ks + tc::kNodeChunk;
+    // v as tf32 hi + lo, 4 columns of one row a thread step (rows past the
+    // slice were staged as zeros)
+#pragma unroll
+    for (int it = 0; it < kNodeRows * tc::kNodeTile / 4 / tc::kNodeThreads; ++it) {
+      const int i = tid + it * tc::kNodeThreads;
+      const int r = i / (tc::kNodeTile / 4);
+      const int cs = (i % (tc::kNodeTile / 4)) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(vs + r * kNodeStride + cs);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tc::split_tf32(xs[e], hi[e], lo[e]);
+      *reinterpret_cast<uint4*>(v_hi + r * kNodeStride + cs) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(v_lo + r * kNodeStride + cs) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+    tc::node_mma_chunk_tf32(acc, ks, v_hi, v_lo, wm, wn, lane);
+    if (k_stats) {
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        const double x = ks[r * kNodeStride + col];
+        ksum += x;
+        ksq = fma(x, x, ksq);
+      }
+    }
+    if (q_stats) {
+      const float* qs = ks + 2 * tc::kNodeChunk;
+#pragma unroll 4
+      for (int r = par; r < kNodeRows; r += 2) {
+        const double x = qs[r * kNodeStride + col];
         qsq = fma(x, x, qsq);
       }
     }
@@ -640,29 +711,112 @@ la_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   cp_async_wait<0>();
 }
 
+// The f32 apply on the tensor cores in 3xTF32: the backward rows pass's
+// core (tensor_core.cuh) with a forward epilogue. grid (ceil(N / 128)), 128
+// rows a block, one block an SM. Dynamic shared memory: the block's q rows
+// as f32 [128][Mk + 4] (130 KB at M = 256), staged once and split into tf32
+// hi + lo as the fragments load; two stages of 64-deep chunks of kvs^T's
+// tf32 hi and lo pieces (68 KB; split once a call by tc::split_t_kernel);
+// den per row. b = q . ksum is an f32 dot on the CUDA cores from the staged
+// rows, two threads a row. Each 64-column tile of a = q @ kvs
+// (tc::tf32_column_tile) is staged in shared memory over the B stages and
+// finished 8 columns a thread step, v read and out written 16 bytes at a
+// time: out = (inv * a + n * v) / den, with a zero den taken as 1 under the
+// guard.
+__global__ void __launch_bounds__(tc::kTcThreads, 1)
+la_apply_tf32_kernel(const float* __restrict__ q, const float* __restrict__ v, long ldq,
+                     long ldv, float* __restrict__ out, long ldo, int N, int M, int D,
+                     const float* __restrict__ hl, const float* __restrict__ ksum,
+                     const float* __restrict__ scal, const float* __restrict__ n_total,
+                     int guard, int vec_a, int vec_io) {
+  using namespace tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Mk = split_pad(M);
+  const int a_stride = Mk + kPadOf<float>;
+  float* As = reinterpret_cast<float*>(smem_raw);
+  float* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
+  float* den_s = Bs + 4 * kTfBStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp & 3) * 32;   // warp's first row in the tile
+  const int wn = (warp >> 2) * 32;  // warp's first column in the column tile
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+  const float inv = scal[2];
+  const float n = *n_total;
+
+  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, Mk, vec_a, tid);
+  __syncthreads();
+  {  // den = inv * (q . ksum) + n, two threads a row (adjacent lanes), f32
+    const int r = tid >> 1;
+    float b = 0.f;
+    for (int c = tid & 1; c < M; c += 2) {
+      b = fmaf(As[static_cast<size_t>(r) * a_stride + c], __ldg(ksum + c), b);
+    }
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    const float den = inv * b + n;
+    if ((tid & 1) == 0) den_s[r] = guard && den == 0.f ? 1.f : den;
+  }
+
+  float* Cs = Bs;
+  const size_t piece = split_t_elems(M, D);
+  for (int c0 = 0; c0 < D; c0 += kTcCols) {
+    float acc[2][4][4];
+    tf32_column_tile(acc, As, a_stride, Bs, hl, piece, Mk, c0, tid, lane, wm, wn);
+    tc_tile_to_smem(Cs, acc, lane, wm, wn);
+    // a fixed trip count, unrolled, so that each thread's reads of v are in
+    // flight together
+#pragma unroll
+    for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int r = i / (kTcCols / 8);
+      const int cs = (i % (kTcCols / 8)) * 8;
+      const long row = r0 + r;
+      const int c = c0 + cs;
+      if (row >= N || c >= D) continue;
+      const int cols = min(8, D - c);
+      const bool vec = vec_io && cols == 8;
+      float a[8], x[8], o[8];
+      tile8(Cs, r, cs, a);
+      load8(v + row * ldv + c, vec, cols, x);
+      const float den = den_s[r];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = (inv * a[e] + n * x[e]) / den;
+      store8(out + row * ldo + c, vec, cols, o);
+    }
+    __syncthreads();  // Cs is the next column tile's B stages
+  }
+}
+
+size_t apply_tf32_smem_bytes(int M) {
+  return (static_cast<size_t>(tc::kTcRows) * (tc::split_pad(M) + tc::kPadOf<float>) +
+          4 * tc::kTfBStage + tc::kTcRows) *
+         sizeof(float);
+}
+
 size_t apply_tc_smem_bytes(int M, int D) {
   return tc::split_pad(M) / 64 * kWgKTile + 6 * kWgTile + kApplyRows * 4;
 }
 
-// bf16 elements of the tensor-core apply's scratch (kvs^T as hi + lo), or 0
-// where the apply runs on the CUDA cores: f32 inputs, or an M whose q tile
-// does not fit one block's shared memory beside the B stages.
+// Elements of the input type of the tensor-core apply's scratch (kvs^T as
+// hi + lo: bf16 pieces, or tf32 pieces held in f32), or 0 where the apply
+// runs on the CUDA cores: an M whose q tile does not fit one block's shared
+// memory beside the B stages (above 704 in bf16, 256 in f32).
 int apply_scratch(int dtype, int M, int D) {
-  if (dtype != 1 || apply_tc_smem_bytes(M, D) > tc::kSmemPerBlock) return 0;
+  size_t smem;
+  if (dtype == 1) {
+    smem = apply_tc_smem_bytes(M, D);
+  } else if (dtype == 0) {
+    smem = apply_tf32_smem_bytes(M);
+  } else {
+    return 0;
+  }
+  if (smem > tc::kSmemPerBlock) return 0;
   return static_cast<int>(2 * tc::split_t_elems(M, D));
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-template <typename T>
-void launch_reduce(const void* q, const void* k, const void* v, long ldq, long ldk, long ldv,
-                   int N, int M, int D, int slices, int rows_per_slice, float* kvs_part,
-                   float* ksum_part, float* qsq_part, float* ksq_part, cudaStream_t st) {
-  const dim3 grid((M + kTile - 1) / kTile, (D + kTile - 1) / kTile, slices);
-  la_reduce_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ldq, ldk,
-      ldv, N, M, D, rows_per_slice, kvs_part, ksum_part, qsq_part, ksq_part);
-}
 
 template <typename T>
 void launch_apply(const void* q, const void* v, long ldq, long ldv, void* out, long ldo, int N,
@@ -678,61 +832,73 @@ void launch_apply(const void* q, const void* v, long ldq, long ldv, void* out, l
 
 // dtype: 0 = float32, 1 = bfloat16. Scratch: kvs_part [slices, M, D],
 // ksum_part, qsq_part, ksq_part [slices, M]. Outputs: kvs [M, D], ksum [M],
-// scal [4] = (qsq, ksq, inv, 0). Returns the cudaError_t of the launches.
+// scal [4] = (qsq, ksq, inv, 0). Both types run on the tensor cores at every
+// width (bf16: la_reduce_tc_kernel; f32: la_reduce_tf32_kernel, 3xTF32),
+// then la_finish_kernel and la_scalars_kernel. Returns the first
+// cudaError_t of the launches, each checked as it is made.
 extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long ldq, long ldk,
                              long ldv, int N, int M, int D, int dtype, int slices,
                              int rows_per_slice, int guard, float* kvs_part, float* ksum_part,
                              float* qsq_part, float* ksq_part, float* kvs, float* ksum,
                              float* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies where widths, strides and bases allow
+  const int per = dtype == 0 ? 4 : 8;
+  const bool vec = M % per == 0 && D % per == 0 && ldq % per == 0 && ldk % per == 0 &&
+                   ldv % per == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
+  cudaError_t err;
   if (dtype == 0) {
-    launch_reduce<float>(q, k, v, ldq, ldk, ldv, N, M, D, slices, rows_per_slice, kvs_part,
-                         ksum_part, qsq_part, ksq_part, st);
-  } else if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
-    // 16-byte copies where widths, strides and bases allow
-    const bool vec = M % 8 == 0 && D % 8 == 0 && ldq % 8 == 0 && ldk % 8 == 0 &&
-                     ldv % 8 == 0 &&
-                     (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                      reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-    const int smem = kReduceStages * kReduceStage * static_cast<int>(sizeof(bf16));
-    cudaError_t err = cudaFuncSetAttribute(la_reduce_tc_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(la_reduce_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kTfReduceSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
+    la_reduce_tf32_kernel<<<slices * tiles, tc::kNodeThreads, kTfReduceSmem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        ldq, ldk, ldv, N, M, D, rows_per_slice, static_cast<int>(vec), kvs_part, ksum_part,
+        qsq_part, ksq_part);
+  } else {
+    using bf16 = __nv_bfloat16;
+    const int smem = kReduceStages * kReduceStage * static_cast<int>(sizeof(bf16));
+    err = cudaFuncSetAttribute(la_reduce_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     la_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         ldq, ldk, ldv, N, M, D, rows_per_slice, static_cast<int>(vec), kvs_part, ksum_part,
         qsq_part, ksq_part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t MD = static_cast<size_t>(M) * D;
   const unsigned fin_blocks = static_cast<unsigned>((MD + kThreads - 1) / kThreads);
   la_finish_kernel<<<fin_blocks, kThreads, 0, st>>>(kvs_part, ksum_part, slices, M, D, kvs,
                                                     ksum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   la_scalars_kernel<<<1, kThreads, 0, st>>>(qsq_part, ksq_part, slices * M, guard, scal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 scratch (elements) of the tensor-core apply for these widths,
-// or 0 where the apply runs on the CUDA cores (f32 inputs, or M above 704).
+// The scratch (elements of the input type) of the tensor-core apply for
+// these widths, or 0 where the apply runs on the CUDA cores (M above 704 in
+// bf16, above 256 in f32).
 extern "C" int sgf_la_apply_scratch(int dtype, int M, int D) {
   return apply_scratch(dtype, M, D);
 }
 
 // out may be a row-strided view (ldo); n_total is a device float scalar.
-// hl: the bf16 scratch of sgf_la_apply_scratch elements where that is not 0
-// (the tensor-core design: tc::split_t_kernel<2>, then la_apply_tc_kernel),
-// else unused (la_apply_kernel).
+// hl: the scratch of sgf_la_apply_scratch elements of the input type where
+// that is not 0 (the tensor-core designs: tc::split_t_kernel<2>, then
+// la_apply_tc_kernel for bf16 or la_apply_tf32_kernel for f32), else unused
+// (la_apply_kernel).
 extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, void* out,
                             long ldo, int N, int M, int D, int dtype, const float* kvs,
                             const float* ksum, const float* scal, const float* n_total,
                             int guard, void* hl, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (apply_scratch(dtype, M, D) > 0) {
+  const bool tensor_cores = apply_scratch(dtype, M, D) > 0;
+  if (tensor_cores && dtype == 1) {
     using bf16 = __nv_bfloat16;
     bf16* h = static_cast<bf16*>(hl);
     cudaError_t err = tc::launch_split_t<2>(kvs, M, D, h, st);
@@ -746,6 +912,21 @@ extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, vo
     la_apply_tc_kernel<<<(N + kApplyRows - 1) / kApplyRows, kApplyThreads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(v), ldq, ldv,
         static_cast<bf16*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_a, vec_io);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (tensor_cores) {  // dtype 0: f32 in 3xTF32
+    float* h = static_cast<float*>(hl);
+    cudaError_t err = tc::launch_split_t<2>(kvs, M, D, h, st);
+    if (err != cudaSuccess || N == 0) return static_cast<int>(err);
+    const int vec_a = M % 4 == 0 && ldq % 4 == 0 && aligned16(q);
+    const int vec_io = ldv % 4 == 0 && ldo % 4 == 0 && aligned16(v) && aligned16(out);
+    const size_t smem = apply_tf32_smem_bytes(M);
+    err = cudaFuncSetAttribute(la_apply_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    la_apply_tf32_kernel<<<(N + tc::kTcRows - 1) / tc::kTcRows, tc::kTcThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(v), ldq, ldv,
+        static_cast<float*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_a, vec_io);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype == 0) {

@@ -7,15 +7,19 @@
 //   descriptors it reads (the forward apply's);
 // - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
 //   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
-//   backward's);
+//   kernels');
 // - the split of kvs^T into bf16 or tf32 pieces, the B operand of
 //   a = q @ kvs in the forward apply and the backward reduce's rows pass;
 // - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n], with A and
 //   B held node-major in shared memory (a chunk of kNodeRows node rows of
-//   kNodeTile columns each). It is kvs = k^T v of the forward reduce and
-//   P = q^T (g / den) of the backward reduce: the [N, M]^T x [N, D] product
-//   that the TPU kernels accumulate over their sequential grid and that the
-//   card splits over slices of N.
+//   kNodeTile columns each), in bf16 and in 3xTF32. It is kvs = k^T v of the
+//   forward reduce and P = q^T (g / den) of the backward reduce: the
+//   [N, M]^T x [N, D] product that the TPU kernels accumulate over their
+//   sequential grid and that the card splits over slices of N;
+// - the row kernels' core for f32 A rows in 3xTF32 (the f32 forward apply,
+//   the f32 backward apply and rows pass): A rows staged once, a split B
+//   streamed in 64-deep chunks, a 128 x 64 output tile at a time, and the
+//   epilogue's staged tile and 8-column row accesses.
 //
 // Both operands are node-major, so the MMA's A fragment (row-major m x k)
 // and B fragment ("col", k x n) are each the transpose of what shared memory
@@ -210,6 +214,79 @@ __device__ __forceinline__ void node_mma_chunk(float (&acc)[2][8][4], const bf16
   }
 }
 
+// The node-axis contraction in 3xTF32: acc += A^T B over one staged chunk
+// of kNodeRows rows for the warp tile at (wm, wn), acc laid out as
+// node_mma_chunk's. A is the f32 chunk [kNodeRows][kNodeStride], split into
+// tf32 hi + lo as its fragments load, all of the chunk's at once; B is given
+// as its tf32 hi and lo chunks. Rows are kNodeStride = 136 f32 apart, 8
+// banks, so each fragment load's (k = lane % 4, m or n = lane / 4)
+// addresses fall in distinct banks. The chunk's products go into fresh
+// sums, 16 columns at a time (lo*hi + hi*lo + hi*hi, the cross terms
+// first), each added to acc with an f32 round-to-nearest add.
+__device__ __forceinline__ void node_mma_chunk_tf32(float (&acc)[2][8][4],
+                                                    const float* __restrict__ As,
+                                                    const float* __restrict__ Bh,
+                                                    const float* __restrict__ Bl, int wm, int wn,
+                                                    int lane) {
+  constexpr int kSteps = kNodeRows / 8;
+  const int gr = lane >> 2;
+  const int gk = lane & 3;
+  // A (m x k) of every k8 step: (m, k) at As[k][m]
+  unsigned ah[kSteps][2][4], al[kSteps][2][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* ap = As + (ks * 8 + gk) * kNodeStride + wm + mt * 16 + gr;
+      split_tf32(ap[0], ah[ks][mt][0], al[ks][mt][0]);
+      split_tf32(ap[8], ah[ks][mt][1], al[ks][mt][1]);
+      split_tf32(ap[4 * kNodeStride], ah[ks][mt][2], al[ks][mt][2]);
+      split_tf32(ap[4 * kNodeStride + 8], ah[ks][mt][3], al[ks][mt][3]);
+    }
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    float part[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][h][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      // B (k x n) of two n8 tiles: (k, n) at B[k][n]
+      unsigned bh[2][2], bl[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = (ks * 8 + gk) * kNodeStride + wn + np * 16 + h * 8 + gr;
+        bh[h][0] = __float_as_uint(Bh[off]);
+        bh[h][1] = __float_as_uint(Bh[off + 4 * kNodeStride]);
+        bl[h][0] = __float_as_uint(Bl[off]);
+        bl[h][1] = __float_as_uint(Bl[off + 4 * kNodeStride]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], al[ks][mt], bh[h][0], bh[h][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bl[h][0], bl[h][1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bh[h][0], bh[h][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][2 * np + h][e] = __fadd_rn(acc[mt][2 * np + h][e], part[mt][h][e]);
+  }
+}
+
 // The block's tile of acc into part [rows][cols] (row-major, cols apart),
 // at its origin (m0, n0), clipped to rows x cols.
 __device__ __forceinline__ void store_node_tile(float* __restrict__ part,
@@ -364,6 +441,255 @@ cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t s
   const unsigned blocks = static_cast<unsigned>(want < 1024 ? want : 1024);
   split_t_kernel<kPieces, P><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The row kernels' core (the backward apply and rows pass, the f32 forward
+// apply): a block owns kTcRows rows of an A operand staged in shared memory
+// and forms A @ B^T kTcCols output columns at a time, 8 warps in a 4 x 2
+// grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each). B is a split
+// operand, n-major ([n][k], contiguous in k), as split_t_kernel writes it.
+
+constexpr int kTcRows = 128;
+constexpr int kTcCols = 64;
+constexpr int kTcThreads = 256;
+// elements of a 16-byte copy, and the pad of a shared row past its end
+template <typename T>
+constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
+// The f32 (3xTF32) forms: a shared A row is padded by 16 bytes, so that a
+// row is 4 banks past the one above it and the 32 addresses of a tf32
+// fragment load (rows lane / 4, columns lane % 4) fall in distinct banks; a
+// B chunk is kTfK f32 deep, with the same 16-byte pad.
+constexpr int kTfK = 64;
+constexpr int kTfBStride = kTfK + kPadOf<float>;
+constexpr int kTfBStage = kTcCols * kTfBStride;  // f32 of one piece's chunk
+// the f32 output tile of an epilogue, rows padded so that the fragment
+// stores hit distinct banks
+constexpr int kCsStride = kTcCols + 4;
+
+// Rows [r0, r0 + kTcRows) of A (lda elements apart, K wide; bf16 or f32)
+// into As [kTcRows][a_stride], zero past N and from K up to Kp; the caller
+// syncs after it. vec_a: 16-byte cp.async copies (K and lda multiples of
+// 16 bytes' elements, A 16-byte aligned), every copy in flight at once.
+template <typename T>
+__device__ __forceinline__ void tc_stage_rows(T* As, int a_stride, const T* __restrict__ A,
+                                              long lda, long r0, int N, int K, int Kp, int vec_a,
+                                              int tid) {
+  if (vec_a) {
+    constexpr int kPer = kPadOf<T>;
+    const int segs = Kp / kPer;
+    for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
+      const int r = i / segs;
+      const int c = (i % segs) * kPer;
+      const bool ok = r0 + r < N && c < K;
+      cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    for (int i = tid; i < kTcRows * Kp; i += kTcThreads) {
+      const int r = i / Kp;
+      const int c = i % Kp;
+      if constexpr (std::is_same_v<T, float>) {
+        As[static_cast<size_t>(r) * a_stride + c] = (r0 + r < N && c < K) ? A[(r0 + r) * lda + c]
+                                                                          : 0.f;
+      } else {
+        As[static_cast<size_t>(r) * a_stride + c] =
+            (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+  }
+}
+
+// The column tile for f32 A rows, in 3xTF32: acc = As [kTcRows][Kp] (f32) @
+// B^T for the output columns [c0, c0 + kTcCols), with B the split operand
+// [n][Kp] as tf32 hi (at B_hi) and lo (B_hi + lo_off), streamed in
+// kTfK-deep chunks, double-buffered by cp.async in Bs ([stage][hi, lo][n][k],
+// rows kTfBStride apart). The A fragments are split into tf32 hi + lo as
+// they load (fragment element (row, k) from As[row][k]; B's (k, n) from
+// B[n][k]), and each product is lo*hi + hi*lo + hi*hi, the two small cross
+// terms first. Every 16 deep (two k8 steps) the products go into fresh
+// sums, added to acc with f32 round-to-nearest adds, so that the tensor
+// cores' own accumulation, which may truncate, never chains more than one
+// such step. Ends with a barrier, after which Bs is free.
+__device__ __forceinline__ void tf32_column_tile(float (&acc)[2][4][4], const float* As,
+                                                 int a_stride, float* Bs,
+                                                 const float* __restrict__ B_hi, size_t lo_off,
+                                                 int Kp, int c0, int tid, int lane, int wm,
+                                                 int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // one chunk: [kTcCols][kTfK] of hi and of lo, 16 bytes a copy
+  auto load_b = [&](int kc, int stage) {
+    constexpr int kSegs = kTfK / 4;
+    constexpr int kCopies = 2 * kTcCols * kSegs;
+    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int it = 0; it < kCopies / kTcThreads; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int piece = i / (kTcCols * kSegs);
+      const int row = (i / kSegs) % kTcCols;
+      const int seg = (i % kSegs) * 4;
+      const float* src =
+          B_hi + piece * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTfK + seg;
+      cp_async16(Bs + (stage * 2 + piece) * kTfBStage + row * kTfBStride + seg, src);
+    }
+    cp_async_commit();
+  };
+
+  const int gr = lane >> 2;  // the fragment's row of A, column of B
+  const int gk = lane & 3;   // its k
+  const int chunks = Kp / kTfK;
+  load_b(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      load_b(kc + 1, (kc + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Bh = Bs + (kc & 1) * 2 * kTfBStage;
+    const float* Bl = Bh + kTfBStage;
+#pragma unroll
+    for (int ks = 0; ks < kTfK; ks += 16) {
+      float part[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+      for (int k8 = ks; k8 < ks + 16; k8 += 8) {
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* ap =
+              As + static_cast<size_t>(wm + mt * 16 + gr) * a_stride + kc * kTfK + k8 + gk;
+          split_tf32(ap[0], ah[mt][0], al[mt][0]);
+          split_tf32(ap[8 * a_stride], ah[mt][1], al[mt][1]);
+          split_tf32(ap[4], ah[mt][2], al[mt][2]);
+          split_tf32(ap[8 * a_stride + 4], ah[mt][3], al[mt][3]);
+        }
+        unsigned bh[4][2], bl[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int off = (wn + nt * 8 + gr) * kTfBStride + k8 + gk;
+          bh[nt][0] = __float_as_uint(Bh[off]);
+          bh[nt][1] = __float_as_uint(Bh[off + 4]);
+          bl[nt][0] = __float_as_uint(Bl[off]);
+          bl[nt][1] = __float_as_uint(Bl[off + 4]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    }
+    __syncthreads();  // this stage is refilled two chunks on
+  }
+}
+
+// The column tile into Cs [kTcRows][kCsStride] (over the B stages), followed
+// by a barrier. acc[mt][nt] = {(r, c), (r, c+1), (r+8, c), (r+8, c+1)}.
+__device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2][4][4], int lane,
+                                                int wm, int wn) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = wm + mt * 16 + (lane >> 2) + half * 8;
+        const int c = wn + nt * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
+            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+      }
+  __syncthreads();
+}
+
+// Row r's eight columns [cs, cs + 8) of the staged tile.
+__device__ __forceinline__ void tile8(const float* Cs, int r, int cs, float (&a)[8]) {
+  const float4 a_lo = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs);
+  const float4 a_hi = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs + 4);
+  a[0] = a_lo.x; a[1] = a_lo.y; a[2] = a_lo.z; a[3] = a_lo.w;
+  a[4] = a_hi.x; a[5] = a_hi.y; a[6] = a_hi.z; a[7] = a_hi.w;
+}
+
+// Eight adjacent columns of a bf16 row as floats, and back: 16-byte
+// accesses where vec (p 16-byte aligned), else one column at a time up to n.
+__device__ __forceinline__ void load8(const bf16* p, bool vec, int n, float (&v)[8]) {
+  if (vec) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+  }
+}
+__device__ __forceinline__ void store8(bf16* p, bool vec, int n, const float (&v)[8]) {
+  if (vec) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < n) p[i] = __float2bfloat16_rn(v[i]);
+    }
+  }
+}
+
+// The same for f32 rows: two 16-byte accesses where vec.
+__device__ __forceinline__ void load8(const float* p, bool vec, int n, float (&v)[8]) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = i < n ? p[i] : 0.f;
+  }
+}
+__device__ __forceinline__ void store8(float* p, bool vec, int n, const float (&v)[8]) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < n) p[i] = v[i];
+    }
+  }
 }
 
 }  // namespace tc

@@ -27,15 +27,17 @@ memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
 qᵀ(g/den) (``la_bwd_rows_tc_kernel``, ``la_bwd_reduce_tc_kernel``,
 mma.sync: kvs split into bf16 hi + mid + lo, g/den into hi + lo) and
 :func:`bwd_apply`'s three products (``la_bwd_apply_tc_kernel``, mma.sync:
-kvs and P split into hi + lo). On f32 inputs the backward kernels run the
-same designs in 3xTF32 (mma.sync m16n8k8 tf32: each f32 operand split into
-tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums) and the forward
-kernels on the CUDA cores in f32. Widths too large for a tensor-core
-kernel's shared memory (the q tile of the forward apply above M = 704; the
-backward's q or A tile above 640 in bf16, 256 in f32) run on the CUDA
-cores. :func:`reduce_design`, :func:`apply_design`,
-:func:`bwd_reduce_design` and :func:`bwd_apply_design` name the kernel a
-call runs.
+kvs and P split into hi + lo). On f32 inputs every kernel runs the same
+designs in 3xTF32 (mma.sync m16n8k8 tf32: each f32 operand split into tf32
+hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums): the reduce
+(``la_reduce_tf32_kernel``), the apply (``la_apply_tf32_kernel``, the
+backward rows pass's core) and both backward kernels. Both reduces' tiles
+stream the node rows and take any width; the kernels that stage their rows'
+full width in shared memory run on the CUDA cores where it does not fit
+(the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
+backward's q or A tile above 640 in bf16, 256 in f32). :func:`reduce_design`,
+:func:`apply_design`, :func:`bwd_reduce_design` and :func:`bwd_apply_design`
+name the kernel a call runs.
 
 ``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
 ``bwd_apply_launches`` count the wrappers' launching calls; set them to 0
@@ -58,11 +60,11 @@ _TILE = 64
 _ROWS = 32
 _WAVES = 4  # CUDA-core reduce blocks per SM to aim for
 # the tensor-core reduces: 128 x 128 output tiles over 32-row chunks, one
-# wave of resident blocks: two on each SM in bf16, one for the backward's
-# 3xTF32 P pass (a chunk's q fragments stay in registers)
+# wave of resident blocks: two on each SM in bf16, one for the 3xTF32 ones
+# (a chunk's A fragments stay in registers)
 _TC_TILE = 128
 _TC_BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
-_TENSOR_CORES = "tensor cores (mma.sync bf16, f32 sums)"
+_TENSOR_CORES = "tensor cores"  # how every tensor-core design's name starts
 _CUDA_CORES = "CUDA cores (f32 FMA)"
 
 
@@ -196,7 +198,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _slices(n: int, m: int, d: int, device: torch.device,
-            tensor_cores: bool, dtype=torch.bfloat16) -> tuple[int, int]:
+            tensor_cores: bool, dtype: torch.dtype) -> tuple[int, int]:
     """(slices, rows per slice) of the N rows for a reduce grid on
     ``device``; slice length is a multiple of the 32-row step. The CUDA-core
     grid (64 x 64 tiles) fills the card about _WAVES times over; the
@@ -218,10 +220,13 @@ def _slices(n: int, m: int, d: int, device: torch.device,
 
 def reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernel :func:`reduce` launches on the card for inputs of
-    ``dtype`` with widths m (q, k) and d (v): the tensor-core kernel takes
-    any width, so bf16 always runs it."""
-    del m, d  # no width limit: the node rows stream through a fixed tile
-    return _TENSOR_CORES if dtype == torch.bfloat16 else _CUDA_CORES
+    ``dtype`` with widths m (q, k) and d (v): both tensor-core kernels take
+    any width (the node rows stream through a fixed 128 x 128 tile of kvs),
+    so every call runs one."""
+    del m, d
+    if dtype == torch.float32:
+        return "tensor cores (mma.sync 3xTF32: k and v as tf32 hi + lo, f32 sums)"
+    return "tensor cores (mma.sync bf16, f32 sums)"
 
 
 def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
@@ -243,20 +248,22 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
 
 
 def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
-    """bf16 elements of the tensor-core forward apply's scratch (kvsᵀ as bf16
-    hi + lo), 0 for the CUDA-core design (builds the kernels on first
-    use)."""
+    """Elements of ``dtype`` of the tensor-core forward apply's scratch
+    (kvsᵀ as bf16 hi + lo, or two tf32 pieces held in f32), 0 for the
+    CUDA-core design (builds the kernels on first use)."""
     return _build.library("linear_attention").sgf_la_apply_scratch(_DTYPES[dtype], m, d)
 
 
 def apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernel :func:`apply` launches on the card for inputs of
-    ``dtype`` with widths m (q) and d (v): bf16 runs the tensor-core kernel
-    wherever its q tile fits one block's shared memory beside the kvs
-    stages (M up to 704), f32 and wider bf16 the CUDA-core one."""
-    if _apply_scratch(dtype, m, d):
-        return "tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums)"
-    return _CUDA_CORES
+    ``dtype`` with widths m (q) and d (v): the tensor-core kernel wherever
+    its q tile fits one block's shared memory beside the kvs stages (M up
+    to 704 in bf16, 256 in f32), else the CUDA-core one."""
+    if not _apply_scratch(dtype, m, d):
+        return _CUDA_CORES
+    if dtype == torch.float32:
+        return "tensor cores (mma.sync 3xTF32: q and kvs as tf32 hi + lo, f32 sums)"
+    return "tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums)"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -282,7 +289,8 @@ def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = Fals
         raise ValueError("linear attention needs at least one node")
 
     m, d = q.shape[1], v.shape[1]
-    slices, rows = _slices(n, m, d, q.device, reduce_design(q.dtype, m, d) == _TENSOR_CORES)
+    slices, rows = _slices(n, m, d, q.device,
+                           reduce_design(q.dtype, m, d).startswith(_TENSOR_CORES), q.dtype)
     f32 = dict(dtype=torch.float32, device=q.device)
     kvs_part = torch.empty(slices, m, d, **f32)
     ksum_part = torch.empty(slices, m, **f32)
@@ -324,7 +332,7 @@ def apply(q, v, kvs, ksum, scal, n_total, guard: bool = False, out=None):
         out.copy_(apply_plain(q, v, kvs, ksum, scal, n_total, guard))
         return out
     scratch = _apply_scratch(q.dtype, m, d)
-    hl = torch.empty(scratch, dtype=torch.bfloat16, device=q.device) if scratch else None
+    hl = torch.empty(scratch, dtype=q.dtype, device=q.device) if scratch else None
     err = _build.library("linear_attention").sgf_la_apply(
         q.data_ptr(), v.data_ptr(), q.stride(0), v.stride(0),
         out.data_ptr(), out.stride(0), n, m, d, _DTYPES[q.dtype],

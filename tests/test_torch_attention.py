@@ -746,3 +746,71 @@ def test_tf32_backward_matches_jax_pallas_interpret(masked):
     _, _, *got = _tf32_backward(tq, tk, tv, tg, *sums, n_t)
     got = [(t.float() * keep[:, None])[:, None] for t in got]
     _grads_close(got, want, TOL["f32"]["rtol"])
+
+
+def _tf32_forward(q, k, v, n_total, guard=False, lo=True):
+    """The f32 forward reduce (``la_reduce_tf32_kernel``) and apply
+    (``la_apply_tf32_kernel``) in 3xTF32: kvs = kᵀv through
+    :func:`_mm_3xtf32` (returned in f64), ksum and the norms in f64 rounded
+    to f32, as the reduce's column sums are; then a = q @ kvs through
+    :func:`_mm_3xtf32` on the f32 kvs, b = q . ksum, and the apply's
+    epilogue in f32: out = (inv * a + n * v) / den, a zero den taken as 1
+    under ``guard``. ``lo=False``: one TF32 product each."""
+    kvs = _mm_3xtf32(k.T, v, lo)
+    ksum = k.double().sum(0).float()
+    q_sq, k_sq = q.double().square().sum().float(), k.double().square().sum().float()
+    inv = attn._inv(q_sq, k_sq, guard)
+    a = _mm_3xtf32(q, kvs.float(), lo).float()
+    b = (q.double() @ ksum.double()).float()
+    den = inv * b + n_total
+    if guard:
+        den = torch.where(den == 0.0, torch.ones_like(den), den)
+    return kvs, (inv * a + n_total * v) / den[:, None]
+
+
+@pytest.mark.parametrize("n_one", [False, True])
+@pytest.mark.parametrize("part", ["kvs", "out"])
+def test_tf32_forward_keeps_f32_precision(part, n_one):
+    """M = D = 256 on 2,048 rows, randn inputs at n = N (a batch's
+    statistics) and positive ones at n = 1 (q @ kvs carries the output):
+    the 3xTF32 arithmetic agrees with the plain forward in f64 to 1e-6 of
+    each output's scale, where one TF32 product (hi*hi alone) is at least
+    10x further off; at n = N, n * v swamps q @ kvs in out, so there only
+    kvs tells them apart."""
+    n, m = 2048, 256
+    rng = np.random.default_rng(33)
+    draw = rng.random if n_one else rng.standard_normal
+    q, k, v = (torch.from_numpy(a) for a in draw((3, n, m)).astype(np.float32))
+    n_t = torch.tensor(1.0 if n_one else float(n))
+    qd, kd, vd = q.double(), k.double(), v.double()  # reduce_plain sums in f32
+    kvs_x = kd.T @ vd
+    inv = 1.0 / (qd.square().sum().sqrt() * kd.square().sum().sqrt())
+    scal_x = torch.stack([inv.new_zeros(()), inv.new_zeros(()), inv, inv.new_zeros(())])
+    want = {"kvs": kvs_x,
+            "out": attn.apply_plain(qd, vd, kvs_x, kd.sum(0), scal_x, n_t.double(),
+                                    False)}[part]
+    i = ("kvs", "out").index(part)
+    got = _tf32_forward(q, k, v, n_t)[i]
+    one = _tf32_forward(q, k, v, n_t, lo=False)[i]
+    err = (got.double() - want).abs().max()
+    assert err <= 1e-6 * want.abs().max()
+    if part == "kvs" or n_one:
+        assert (one.double() - want).abs().max() >= 10 * err
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tf32_forward_matches_jax_pallas_interpret(masked):
+    """H = 1, f32: the port's attention forward with the 3xTF32 arithmetic
+    of the forward kernels against the Pallas ``fused_linear_attention`` in
+    interpret mode, at the f32 tolerance. Masked rows are zeroed as the
+    port's wrapper zeroes them, and n is the count of kept rows."""
+    q, k, v = _qkv(26, h=1)
+    mask = (np.arange(q.shape[0]) % 7 != 3).astype(np.float32) if masked else None
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), "f32")
+    want = jax_fused(jq, jk, jv, node_mask=None if mask is None else jnp.asarray(mask),
+                     block=128, interpret=True)
+    keep = torch.ones(q.shape[0]) if mask is None else torch.from_numpy(mask)
+    tq, tk, tv = (t[:, 0] * keep[:, None] for t in (tq, tk, tv))
+    _, got = _tf32_forward(tq, tk, tv, keep.sum(), guard=masked)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got[:, None].numpy(), np.asarray(want), **TOL["f32"])

@@ -227,19 +227,42 @@ def test_tensor_core_apply_takes_any_width(cuda, m, d):
 
 
 def test_reduce_designs_name_the_kernels(cuda):
-    """bf16 reduces run on the tensor cores at any width the backward's q
-    tile fits (up to M = 640); the f32 backward reduce in 3xTF32 up to M =
-    256, the f32 forward reduce on the CUDA cores."""
-    for m, d in ((256, 256), (37, 40), (640, 64)):
+    """The forward reduces run on the tensor cores at every width (bf16;
+    f32 in 3xTF32: the node rows stream through a fixed tile); bf16
+    backward reduces at any width the backward's q tile fits (up to M =
+    640), the f32 backward reduce in 3xTF32 up to M = 256."""
+    for m, d in ((256, 256), (37, 40), (640, 64), (1024, 64)):
         assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
-        assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
-        assert attn.reduce_design(torch.float32, m, d).startswith("CUDA cores")
+        f32 = attn.reduce_design(torch.float32, m, d)
+        assert f32.startswith("tensor cores (mma.sync 3xTF32"), f32
+        assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores") == (
+            m <= 640)
         f32 = attn.bwd_reduce_design(torch.float32, m, d)
         assert f32.startswith("tensor cores (mma.sync 3xTF32") == (m <= 256), f32
     assert attn.bwd_reduce_design(torch.float32, 256, 999).startswith("tensor cores")
     assert attn.bwd_reduce_design(torch.float32, 257, 8).startswith("CUDA cores")
-    assert attn.reduce_design(torch.bfloat16, 1024, 64).startswith("tensor cores")
-    assert attn.bwd_reduce_design(torch.bfloat16, 1024, 64).startswith("CUDA cores")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_grid_follows_its_design(cuda, monkeypatch, dtype):
+    """reduce() sizes its slices for the tensor-core design of its type:
+    one wave of resident blocks, one an SM in f32 (3xTF32), two in bf16."""
+    seen = []
+    slices = attn._slices
+
+    def spy(*args):
+        seen.append(args)
+        return slices(*args)
+
+    monkeypatch.setattr(attn, "_slices", spy)
+    n = 100_000
+    q, k, v = (torch.randn(n, 256, device=cuda).to(dtype) for _ in range(3))
+    _f64_reduce_close(attn.reduce(q, k, v), q, k, v)
+    (_, _, _, _, tensor_cores, got_dtype), = seen
+    assert tensor_cores and got_dtype == dtype
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_sm = 1 if dtype == torch.float32 else 2
+    assert slices(n, 256, 256, q.device, True, dtype)[0] == -(-per_sm * sms // 4)
 
 
 @pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 19)])
@@ -285,10 +308,12 @@ def test_tf32_backward_takes_any_width(cuda, m, d, strided):
 
 
 def _f64_reduce_close(got, q, k, v):
-    """kvs, ksum and the norms within 1e-5 of their scale of the plain
-    reduce evaluated in f64 on the same inputs (the f32 sums' order)."""
-    exact = attn.reduce_plain(q.double(), k.double(), v.double(), False)
-    for a, b in ((got[0], exact[0]), (got[1], exact[1]), (got[2][:2], exact[2][:2])):
+    """kvs, ksum and the norms within 1e-5 of their scale of the reduce's
+    sums in f64 on the same inputs (``reduce_plain`` sums in f32 whatever
+    its inputs)."""
+    qd, kd, vd = q.double(), k.double(), v.double()
+    norms = torch.stack([qd.square().sum(), kd.square().sum()])
+    for a, b in ((got[0], kd.T @ vd), (got[1], kd.sum(0)), (got[2][:2], norms)):
         _check_rel(a, b, 1e-5)
 
 
@@ -307,23 +332,27 @@ def _f64_bwd_reduce_close(got, q, v, g, kvs, ksum, scal, n_total, rel=1e-5):
     assert (got[2].double() - exact[2]).abs() <= rel * scale
 
 
-@pytest.mark.parametrize("m,d", [(256, 256), (37, 40), (40, 37), (130, 19)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(256, 256), (37, 40), (40, 37), (130, 19), (640, 72)])
 @pytest.mark.parametrize("strided", [False, True])
-def test_tensor_core_reduces_take_any_width(cuda, m, d, strided):
-    """The bf16 reduce and backward reduce on widths off their tiles and off
-    the 16-byte path, on the per-head views of [N, 2, *] tensors (strided:
-    rows 3 elements longer, so no 16-byte copies), with tail rows (N = 777,
-    not a multiple of the 32-row chunk or the 128-row block): the reduce at
-    random and at positive inputs, the backward reduce at n = N and at n = 1
-    with positive inputs (the products carry den and gden there), each
-    within 1e-5 of its scale of the plain version in f64 and bitwise
-    repeatable, one launch a call."""
+def test_tensor_core_reduces_take_any_width(cuda, m, d, strided, dtype):
+    """The reduce and backward reduce, bf16 and f32 (3xTF32), on widths off
+    their tiles and off the 16-byte path, on the per-head views of [N, 2, *]
+    tensors (strided: rows 3 elements longer, so no 16-byte copies), with
+    tail rows (N = 777, not a multiple of the 32-row chunk or the 128-row
+    block): the reduce at random and at positive inputs, the backward reduce
+    at n = N and at n = 1 with positive inputs (the products carry den and
+    gden there), each within 1e-5 of its scale of the plain version in f64
+    and bitwise repeatable, one launch a call. The forward reduce takes the
+    tensor cores at every width (M = 640 too); the f32 backward reduce runs
+    on the CUDA cores above M = 256."""
     n, pad = 777, 3 if strided else 0
-    assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
-    assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+    assert attn.reduce_design(dtype, m, d).startswith("tensor cores")
+    assert attn.bwd_reduce_design(dtype, m, d).startswith("tensor cores") == (
+        dtype == torch.bfloat16 or m <= 256)
 
     def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
-        return draw(n, 2, w + pad, device=cuda).to(torch.bfloat16)[:, 1, :w]
+        return draw(n, 2, w + pad, device=cuda).to(dtype)[:, 1, :w]
 
     for draw in (torch.randn, torch.rand):
         q, k, v, g = heads(draw, m), heads(draw, m), heads(draw, d), heads(draw, d)
@@ -366,12 +395,14 @@ def test_tensor_core_reduces_at_the_arxiv_width_match_plain(cuda, heads):
                               q[:, h], v[:, h], g[:, h], *sums, n_t)
 
 
-def test_tensor_core_reduces_masked_and_all_masked(cuda):
-    """bf16, two heads: a partly masked group through the kernels against
-    the plain forward and its autograd; an all-masked group gives finite
-    zeros forward and backward (zero norms: inv = 0, den taken as 1)."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tensor_core_reduces_masked_and_all_masked(cuda, dtype):
+    """bf16 and f32 (3xTF32), two heads: a partly masked group through the
+    kernels against the plain forward and its autograd; an all-masked group
+    gives finite zeros forward and backward (zero norms: inv = 0, den taken
+    as 1)."""
     n = 3000
-    q, k, v, g = (torch.randn(n, 2, 64, device=cuda).to(torch.bfloat16) for _ in range(4))
+    q, k, v, g = (torch.randn(n, 2, 64, device=cuda).to(dtype) for _ in range(4))
     for mask in ((torch.arange(n, device=cuda) % 5 != 2).float(), torch.zeros(n, device=cuda)):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = attn.fused_linear_attention(*leaves, node_mask=mask)
@@ -380,9 +411,9 @@ def test_tensor_core_reduces_masked_and_all_masked(cuda):
             assert all(torch.isfinite(t).all() and not t.any() for t in (out, *got))
             continue
         want = linear_attention(*leaves, node_mask=mask)
-        torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
         for a, b in zip(got, torch.autograd.grad(want, leaves, g)):
-            _check_rel(a, b, BWD_REL[torch.bfloat16])
+            _check_rel(a, b, BWD_REL[dtype])
 
 
 def test_all_masked_attention_gradients_are_finite_zeros(cuda):
@@ -393,74 +424,94 @@ def test_all_masked_attention_gradients_are_finite_zeros(cuda):
 
 
 def test_apply_design_names_the_kernel(cuda):
-    """The bf16 forward apply runs on the tensor cores at the bench width and
-    wherever its q tile fits one block's shared memory (M up to 704); f32,
-    and bf16 beyond that, on the CUDA cores."""
+    """The forward apply runs on the tensor cores at the bench width and
+    wherever its q tile fits one block's shared memory: bf16 by wgmma up to
+    M = 704, f32 in 3xTF32 up to M = 256 (at any D); beyond that on the CUDA
+    cores."""
     for m, d in ((256, 256), (8, 72), (704, 40)):
-        assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores")
-        assert attn.apply_design(torch.float32, m, d).startswith("CUDA cores")
+        assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores (wgmma")
+        f32 = attn.apply_design(torch.float32, m, d)
+        assert f32.startswith("tensor cores (mma.sync 3xTF32") == (m <= 256), f32
+    assert attn.apply_design(torch.float32, 256, 999).startswith("tensor cores (mma.sync 3xTF32")
+    assert attn.apply_design(torch.float32, 257, 64).startswith("CUDA cores")
     assert attn.apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,d", [(8, 256), (72, 200), (200, 72), (256, 8), (256, 256)])
 @pytest.mark.parametrize("strided", [False, True])
-def test_tensor_core_forward_apply_takes_any_width(cuda, m, d, strided):
-    """The bf16 forward apply on widths off its tiles, on the per-head views
-    of [N, 2, *] tensors (strided: rows 3 elements longer, so no 16-byte
-    copies), with tail rows (N = 777): at n = N on random inputs and at
-    n = 1 on positive ones (q @ kvs carries the output there), against
-    ``apply_plain`` at the bf16 tolerance; bitwise repeatable, one launch
-    a call."""
+def test_tensor_core_forward_apply_takes_any_width(cuda, m, d, strided, dtype):
+    """The forward apply, bf16 (wgmma) and f32 (3xTF32), on widths off its
+    tiles, on the per-head views of [N, 2, *] tensors (strided: rows 3
+    elements longer, so no 16-byte copies), with tail rows (N = 777): at
+    n = N on random inputs and at n = 1 on positive ones (q @ kvs carries
+    the output there), against ``apply_plain`` at the type's tolerance, f32
+    against it evaluated in f64 at n = 1 (its own f32 error printed beside
+    it); bitwise repeatable, one launch a call."""
     n, pad = 777, 3 if strided else 0
-    assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores")
+    assert attn.apply_design(dtype, m, d).startswith("tensor cores")
 
     def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
-        return draw(n, 2, w + pad, device=cuda).to(torch.bfloat16)[:, 1, :w]
+        return draw(n, 2, w + pad, device=cuda).to(dtype)[:, 1, :w]
 
     for draw, n_total in ((torch.randn, float(n)), (torch.rand, 1.0)):
         q, k, v = heads(draw, m), heads(draw, m), heads(draw, d)
         sums = attn.reduce_plain(q, k, v, False)
         n_t = torch.full((), n_total, device=cuda)
-        out = torch.empty(n, 2, d + pad, dtype=torch.bfloat16, device=cuda)[:, 0, :d]
+        out = torch.empty(n, 2, d + pad, dtype=dtype, device=cuda)[:, 0, :d]
         a0 = attn.apply_launches
         got = attn.apply(q, v, *sums, n_t, out=out)
         assert attn.apply_launches == a0 + 1
         want = attn.apply_plain(q, v, *sums, n_t, False)
-        torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+        if dtype == torch.float32 and n_total == 1.0:
+            exact = attn.apply_plain(*(t.double() for t in (q, v, *sums, n_t)), False)
+            err, scale = rel_err(want, exact)
+            print(f"m={m} d={d}: the f32 plain version, {err / scale:.2e} of the scale "
+                  f"off its f64 evaluation")
+            want = exact
+        torch.testing.assert_close(got.double(), want.double(), **TOL[dtype])
         assert torch.equal(got, attn.apply(q, v, *sums, n_t))
 
 
 @pytest.mark.parametrize("m,d", [(8, 256), (72, 200), (200, 72), (256, 256)])
-@pytest.mark.parametrize("cancel", [False, True])
-def test_tensor_core_forward_apply_carries_the_product(cuda, m, d, cancel):
-    """The bf16 forward apply where q @ kvs carries the output and every
-    (m, d) pairing of kvs moves it (``apply_product_inputs``; with
-    ``cancel``, large kvs terms cancel, so that kvs rounded to bf16, the lo
-    piece dropped, would miss the tolerance), with tail rows (N = 777),
-    against ``apply_plain`` in f64 at the bf16 tolerance."""
+@pytest.mark.parametrize("dtype,cancel", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                          (torch.float32, False)])
+def test_tensor_core_forward_apply_carries_the_product(cuda, m, d, dtype, cancel):
+    """The forward apply where q @ kvs carries the output and every (m, d)
+    pairing of kvs moves it (``apply_product_inputs``: in f32, one TF32
+    product, the lo pieces dropped, would miss the f32 tolerance ~10x; in
+    bf16 with ``cancel`` large kvs terms cancel, so that kvs rounded to
+    bf16 would miss the bf16 one), with tail rows (N = 777), against
+    ``apply_plain`` in f64 at the type's tolerance."""
     gen = torch.Generator(device=cuda).manual_seed(m + d)
-    ins = apply_product_inputs(777, m, d, torch.bfloat16, gen, cancel)
+    ins = apply_product_inputs(777, m, d, dtype, gen, cancel)
     got = attn.apply(*ins)
     want = attn.apply_plain(*(t.double() for t in ins), False)
-    torch.testing.assert_close(got.double(), want, **TOL[torch.bfloat16])
+    torch.testing.assert_close(got.double(), want, **TOL[dtype])
 
 
-def test_tensor_core_forward_apply_unaligned_rows_take_the_scalar_path(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tensor_core_forward_apply_unaligned_rows_take_the_scalar_path(cuda, dtype):
+    """Rows one element off 16-byte alignment (no 16-byte copies of q, v or
+    out), through the tensor-core reduce and apply against their plain
+    versions (the apply's in f64)."""
     n, m = 500, 64
-    flat = torch.rand(3, n * m + 1, device=cuda).to(torch.bfloat16)
-    q, k, v = (t[1:].view(n, m) for t in flat)  # contiguous, 2 bytes off 16-byte alignment
+    flat = torch.rand(3, n * m + 1, device=cuda).to(dtype)
+    q, k, v = (t[1:].view(n, m) for t in flat)  # contiguous, one element off 16-byte alignment
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     one = torch.ones((), device=cuda)
+    _f64_reduce_close(attn.reduce(q, k, v), q, k, v)
     sums = attn.reduce_plain(q, k, v, False)
     got = attn.apply(q, v, *sums, one)
-    want = attn.apply_plain(q, v, *sums, one, False)
-    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    want = attn.apply_plain(*(t.double() for t in (q, v, *sums, one)), False)
+    torch.testing.assert_close(got.double(), want, **TOL[dtype])
 
 
-def test_all_masked_bf16_attention_is_finite_zero(cuda):
-    """bf16 through the tensor-core apply: zero norms give inv = 0 and a
-    zero den taken as 1, so the output is finite zeros."""
-    q, k, v = (torch.randn(500, 2, 40, device=cuda).to(torch.bfloat16) for _ in range(3))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_all_masked_bf16_attention_is_finite_zero(cuda, dtype):
+    """bf16 and f32 through the tensor-core apply: zero norms give inv = 0
+    and a zero den taken as 1, so the output is finite zeros."""
+    q, k, v = (torch.randn(500, 2, 40, device=cuda).to(dtype) for _ in range(3))
     got = attn.fused_linear_attention(q, k, v, node_mask=torch.zeros(500, device=cuda))
     assert torch.isfinite(got).all() and not got.any()
 
