@@ -7,6 +7,7 @@ in the same call as the change.
     python3 chip_compare.py edge-values ROOT
     python3 chip_compare.py batch-build ROOT
     python3 chip_compare.py smoke ROOT
+    python3 chip_compare.py gat-repeat ROOT [RUNS]
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -29,6 +30,12 @@ epoch, and a profile of five builds by kernel. ``smoke``: ROOT's own
 ``chip_smoke.py`` run whole with this checkout's ``profile_device`` in place
 of its own, so that a parent's device-busy ms and this checkout's are read
 by one definition (this checkout's leaves user-annotation ranges out).
+``gat-repeat``: this checkout's arxiv-gat-train and powerlaw-gat-train
+paths (``chip_smoke.gat_train_phase``) RUNS times each (10 by default) on
+ROOT's package, recording each run's eval-logit reading (max |kernels -
+plain| over the largest plain logit, held to ``GAT_LOGITS_RTOL``) and a
+digest of both logit tensors' bytes; a reading over the tolerance is
+counted, not raised. Prints one JSON line of the readings.
 """
 
 from __future__ import annotations
@@ -51,7 +58,9 @@ def load_phases(path: str):
 
 
 def main() -> int:
-    if len(sys.argv) != 3 or sys.argv[1] not in ("gat", "edge-values", "batch-build", "smoke"):
+    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat")
+    if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat") or (
+            sys.argv[1] not in modes):
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
@@ -79,6 +88,8 @@ def main() -> int:
     if mode == "batch-build":
         return batch_build(cs)
     _build.build_all(("spmm",))  # GAT's kernels
+    if mode == "gat-repeat":
+        return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
 
     if mode == "edge-values":
         ds = synthetic_dataset("synth-arxiv", seed=0)
@@ -108,6 +119,47 @@ def main() -> int:
         del x, gg, v
         torch.cuda.empty_cache()
     cs.gat_train_phase(pl, dataclasses.replace(g, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
+    return 0
+
+
+def gat_repeat(cs, runs: int) -> int:
+    import hashlib
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+
+    ds = synthetic_dataset("synth-arxiv", seed=0)
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+    pl = synthetic_dataset(**cs.POWERLAW_GRAPH)
+    pl_graph = preprocess_graph(pl.graph["edge_index"], pl.num_nodes, chunk_dtype="bf16")
+    readings: dict = {"arxiv-gat": [], "powerlaw-gat": []}
+    check_logits = cs.check_logits
+
+    def record(what, logits, ref, shape, logits_tol):
+        digest = [hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()[:16]
+                  for t in (logits, ref)]
+        rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+        readings[what.removesuffix(" eval")].append(
+            dict(reading=rel, kernels_sha=digest[0], plain_sha=digest[1]))
+        try:
+            check_logits(what, logits, ref, shape, logits_tol)
+        except AssertionError as exc:
+            cs.log(f"gat-repeat: {exc} (counted)")
+
+    cs.check_logits = record
+    for i in range(runs):
+        cs.gat_train_phase(ds, graph, "cuda", "arxiv-gat")
+        cs.gat_train_phase(pl, pl_graph, "cuda", "powerlaw-gat")
+        torch.cuda.empty_cache()
+    summary = {what: dict(readings=[r["reading"] for r in rs],
+                          over_tolerance=sum(r["reading"] > cs.GAT_LOGITS_RTOL for r in rs),
+                          distinct_kernel_logits=len({r["kernels_sha"] for r in rs}),
+                          distinct_plain_logits=len({r["plain_sha"] for r in rs}))
+               for what, rs in readings.items()}
+    print(json.dumps({"gat_repeat": summary, "tolerance": cs.GAT_LOGITS_RTOL}), flush=True)
     return 0
 
 

@@ -70,7 +70,7 @@ JAX package. Phases, each failing loudly:
    against the plain whole, bitwise repeatable, with its walk's design,
    time, bound, plain time, gather rate and ``csr_spmm``'s time beside it;
    the same at the shape of 11 (bf16), which the kernels line reports
-   first, and the gather rate beside the ``gather_rows`` probe's after 13;
+   first, and the gather rate beside the ``gather_rows`` probe's after 14;
 11. large-400K-int8-train: the bench model on the JAX package's large-400K
    shape (``synthetic_dataset(num_nodes=400_000, num_edges=4_800_000,
    num_features=128, num_classes=40, seed=0)``, E = 9,991,628 after
@@ -105,11 +105,31 @@ JAX package. Phases, each failing loudly:
    the first), accuracies and peak memory, each batch's build and step ms,
    a streaming eval's wall time and a profile of three consecutive batches,
    build included;
-13. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
+13. papers-sampled-train (after 12): the repo's papers100M recipe
+   (``configs/100m.sh``: ``SGFormerConfig.papers100m(256, 172,
+   trans_num_layers=1, gnn_num_layers=3, graph_weight=0.8, gnn_dropout=0.2,
+   trans_dropout=0.5, gnn_use_init=True)``, f32, lr 1e-3, weight decay
+   1e-3 / 1e-5) behind ``SampledTrainer`` on ``synthetic_dataset`` at
+   papers100M's shape cut to 2,000,000 nodes (29,100,000 directed edges, 128
+   features, 172 classes; symmetrised with self-loops and sorted into the
+   host's int64 CSR on the card), papers100M's split shares (21,739 /
+   2,256 / 3,860 seeds), batches of 1,000 seeds, fanouts (15, 10, 5),
+   uncapped: host-sampled batches with their sizes and times, one batch's
+   graph built on the card and on CPU tensors (bitwise equal), the kernels
+   alone in f32 at that batch's shape (``csr_spmm`` on A and on A^T), one
+   step against the plain step (1e-5 loss, 1e-4 gradients), the launches of
+   a step (6 ``csr_spmm`` and each attention kernel once) and of a forward,
+   a forward's logits against the plain forward's, ``fit`` for one epoch
+   with its valid and test sweeps (launches, losses, accuracies, peak
+   memory, the best state saved), the checkpoint reloaded whole (bitwise
+   eval logits) and with ``use_pretrained`` (saved parameters, fresh
+   BatchNorm statistics), each batch's build and step ms, a streaming
+   sweep's wall time and a profile of three batches with their sampling;
+14. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9, 11 and 12 launched a probe; the
+   also shows that no path of 5, 6, 8, 9, 11, 12 and 13 launched a probe; the
    gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
@@ -254,6 +274,23 @@ BATCH_KERNELS = ("csr_spmm", "linear_attention_reduce", "linear_attention_apply"
                  "linear_attention_bwd_reduce", "linear_attention_bwd_apply")
 # the JAX bench's optimiser (scripts/bench_shapes.py:68)
 BENCH_TRAIN = dict(lr=1e-3, trans_weight_decay=0.0, gnn_weight_decay=0.0)
+# papers-sampled-train: the repo's papers100M recipe (configs/100m.sh:9-14;
+# f32, the CLI's default; the CLI's trans_weight_decay) behind
+# SampledTrainer, on a synthetic graph of ogbn-papers100M's shape: its
+# directed edges a node (1.6B / 111M, ~14.55), 128 features and 172
+# classes, cut from 111M nodes to 2M
+PAPERS = dict(num_nodes=2_000_000, num_edges=29_100_000, num_features=128, num_classes=172,
+              seed=0)
+PAPERS_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.8, gnn_dropout=0.2,
+                     trans_dropout=0.5, gnn_use_init=True)
+PAPERS_TRAIN = dict(lr=1e-3, trans_weight_decay=1e-3, gnn_weight_decay=1e-5, batch_size=1000,
+                    fanouts=(15, 10, 5))
+# ogbn-papers100M's labelled nodes in each split, and its node count: the
+# synthetic graph's splits take the same shares
+PAPERS_SPLIT = dict(train=1_207_179, valid=125_265, test=214_338)
+PAPERS_NODES = 111_059_956
+# train batches sampled and timed one by one beside the fit
+PAPERS_SAMPLES = 5
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -1452,6 +1489,20 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     torch.cuda.empty_cache()
 
 
+def check_same_graph(what: str, graph_b, graph_c) -> None:
+    """A batch's graph built on the card against the same function on CPU
+    tensors: every field bitwise equal."""
+    for f in dataclasses.fields(graph_c):
+        a, c = getattr(graph_b, f.name), getattr(graph_c, f.name)
+        same = (a.dtype == c.dtype and torch.equal(a.cpu(), c)) if isinstance(
+            c, torch.Tensor) else a == c
+        if not same:
+            raise AssertionError(f"{what}: the card's batch graph differs from the CPU "
+                                 f"build in {f.name}")
+    log(f"{what} batch graph: bitwise the CPU build (every field, the transposed CSR "
+        f"and both hub plans included)")
+
+
 def batch_train_path(what: str, trainer, split: dict, results: dict, tols: tuple,
                      scale_of: dict, bitwise_build: bool, dev: str) -> dict:
     """One model behind ``BatchTrainer`` (one epoch's batches from a
@@ -1497,15 +1548,7 @@ def batch_train_path(what: str, trainer, split: dict, results: dict, tols: tuple
         f"{graph_b.t_hub_segments.shape[0]} hub segments; built in {build_ms:.3f} ms on the "
         f"card (first build), {cpu_ms:.1f} ms on CPU tensors")
     if bitwise_build:
-        for f in dataclasses.fields(graph_c):
-            a, c = getattr(graph_b, f.name), getattr(graph_c, f.name)
-            same = (a.dtype == c.dtype and torch.equal(a.cpu(), c)) if isinstance(
-                c, torch.Tensor) else a == c
-            if not same:
-                raise AssertionError(f"{what}: the card's batch graph differs from the CPU "
-                                     f"build in {f.name}")
-        log(f"{what} batch subgraph: bitwise the CPU build (every field, the transposed CSR "
-            f"and both hub plans included)")
+        check_same_graph(what, graph_b, graph_c)
     del ei_cpu, graph_c
     graph_t = build_subgraph_batch(trainer.edge_index, tail, n)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1677,6 +1720,237 @@ def amazon2m_batch_phase(results: dict, dev: str) -> tuple:
     del full, ds
     torch.cuda.empty_cache()
     return out
+
+
+def spmm_transposed_check(graph_b, results: dict, key: str, dev: str) -> None:
+    """csr_spmm in f32 at F = 256 on a batch graph's transposed CSR (A^T,
+    the gradient's walk) through its hub plan: against its plain version,
+    bitwise repeatable, with time, bound, plain and library time."""
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+
+    n, e, f = graph_b.num_nodes, graph_b.num_edges, 256
+    x = torch.randn(n, f, generator=torch.Generator(device=dev).manual_seed(10), device=dev)
+    csr = (graph_b.t_indptr, graph_b.t_edge_src, graph_b.t_edge_dst, graph_b.t_weight,
+           graph_b.t_hub_segments, graph_b.hub_edges)
+    got = csr_spmm(x, *csr)
+    err = check_close(f"{key} csr_spmm f32 F={f} on A^T (E = {e}, "
+                      f"{graph_b.t_hub_segments.shape[0]} hub segments)", got,
+                      spmm_plain(x, *csr[1:4], n), **TOL[torch.float32])
+    if not torch.equal(got, csr_spmm(x, *csr)):
+        raise AssertionError("csr_spmm on A^T is not bitwise repeatable")
+    ms = time_ms(lambda: csr_spmm(x, *csr))
+    plain_ms = time_ms(lambda: spmm_plain(x, *csr[1:4], n), iters=5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(graph_b.t_indptr, graph_b.t_edge_src, graph_b.t_weight,
+                                    size=(n, n))
+    library_ms = library_time("torch.sparse.mm f32 on A^T", lambda: torch.sparse.mm(a, x))
+    b_ms, b_by = bound_ms(2 * n * f * 4 + e * 8 + (n + 1) * 4, 2 * e * f, torch.float32)
+    log(f"{key} csr_spmm f32 n={n} on A^T: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"torch.sparse.mm {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
+    results[(key, "csr_spmm_t", "f32", n)] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, edges=e, hub_segments=graph_b.t_hub_segments.shape[0])
+    del x, got, a
+    torch.cuda.empty_cache()
+
+
+def papers_sampled_phase(results: dict, dev: str) -> tuple:
+    """papers-sampled-train: the papers100M recipe (``PAPERS_CONFIG``, f32,
+    hidden 256, 172 classes) behind ``SampledTrainer`` on a synthetic graph
+    of papers100M's shape (``PAPERS``), its edge list symmetrised with
+    self-loops on the card and its int64 CSR sorted there and kept on the
+    host, papers100M's split shares, batches of 1,000 seeds, fanouts
+    (15, 10, 5), uncapped: (a) ``PAPERS_SAMPLES`` batches sampled on the
+    host (each timed, with its nodes, edges and longest rows of A and A^T)
+    and one batch's graph built on the card and on CPU tensors, bitwise
+    equal; the kernels alone at that batch's shape in f32
+    (``batch_kernel_phase``, and ``csr_spmm`` on A^T); (b) one step against
+    the plain step (1e-5 loss, 1e-4 gradients), the launches of a step and
+    of a forward, a forward's logits against the plain forward's; (c)
+    ``fit`` for one epoch with its valid and test sweeps: launches, losses
+    (the last 3 below the first), accuracies, peak memory and the best state
+    saved; (d) the checkpoint: the whole state loaded into a fresh model
+    gives the saved state's eval logits bitwise, and ``use_pretrained``
+    gives the saved parameters beside fresh BatchNorm statistics; (e) each
+    sampled batch's build and step ms, a streaming sweep's wall time and a
+    profile of three batches with their sampling, gathers and builds.
+    Returns the launches of (b) and (c) and the run's numbers."""
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+    from sgformer_tpu_torch.sample import CSRGraph
+    from sgformer_tpu_torch.train import SampledTrainConfig, SampledTrainer, build_sampled_graph
+    from sgformer_tpu_torch.train.checkpoint import read_state
+
+    what = "papers-sampled"
+    t = time.perf_counter()
+    ds = synthetic_dataset(**PAPERS, device=dev)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ei = torch.from_numpy(ds.graph["edge_index"]).to(dev)
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), ds.num_nodes)
+    csr = CSRGraph.from_edge_index(ei, ds.num_nodes)
+    del ei
+    torch.cuda.empty_cache()
+    n = ds.num_nodes
+    log(f"{what} dataset: {gen_s:.1f} s on the host; edge list symmetrised with self-loops and "
+        f"its int64 CSR sorted on the card, copied to the host, in "
+        f"{time.perf_counter() - t:.2f} s: N = {n}, E = {len(csr.indices)}")
+    perm = np.random.default_rng(0).permutation(n)
+    sizes = [round(n * PAPERS_SPLIT[s] / PAPERS_NODES) for s in ("train", "valid", "test")]
+    split = {"train": perm[:sizes[0]], "valid": perm[sizes[0]:sizes[0] + sizes[1]],
+             "test": perm[sizes[0] + sizes[1]:sum(sizes)]}
+    cfg = SGFormerConfig.papers100m(256, PAPERS["num_classes"], **PAPERS_CONFIG)
+    model = SGFormer(cfg, PAPERS["num_features"], generator=torch.Generator().manual_seed(0),
+                     device=dev)
+    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", what)
+    shutil.rmtree(model_dir, ignore_errors=True)
+    tc = SampledTrainConfig(**PAPERS_TRAIN, epochs=1, save_model=True, model_dir=model_dir)
+    trainer = SampledTrainer(model, csr, ds.graph["node_feat"], ds.label, tc, device=dev)
+    del ds
+    torch.cuda.empty_cache()
+    b = tc.batch_size
+    log(f"{what}: splits of {sizes} seeds, batches of {b}, fanouts {tc.fanouts}")
+
+    # (a) batches sampled on the host; one built on the card and on the CPU;
+    # the kernels alone at its shape
+    batches, sample_ms, gather_ms = [], [], []
+    for i in range(PAPERS_SAMPLES):
+        t = time.perf_counter()
+        batch = trainer.sampler.sample(split["train"][i * b:(i + 1) * b])
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        batches.append((batch, trainer.gather_x(batch.node_ids)))
+        gather_ms.append((time.perf_counter() - t) * 1e3)
+        log(f"{what} batch {i}: {batch.num_nodes} nodes, {len(batch.edge_src)} edges, longest "
+            f"row of A {np.bincount(batch.edge_dst).max()}, of A^T "
+            f"{np.bincount(batch.edge_src).max()}; sampled in {sample_ms[-1]:.1f} ms, rows "
+            f"gathered, cast and pinned in {gather_ms[-1]:.1f} ms on the host")
+    batch, rows = batches[0]
+    graph_b, build_ms = cuda_ms(lambda: build_sampled_graph(batch, dev))
+    t = time.perf_counter()
+    graph_c = build_sampled_graph(batch, "cpu")
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    log(f"{what} batch graph: built in {build_ms:.3f} ms on the card (first build), "
+        f"{cpu_ms:.1f} ms on CPU tensors; {graph_b.hub_segments.shape[0]} + "
+        f"{graph_b.t_hub_segments.shape[0]} hub segments")
+    check_same_graph(what, graph_b, graph_c)
+    del graph_c
+    batch_kernel_phase(graph_b, results, what, dev, torch.float32)
+    spmm_transposed_check(graph_b, results, what, dev)
+
+    # (b) one step through the kernels and through the plain versions, from
+    # the same weights and dropout masks; the launches of a step and of a
+    # forward
+    trainer.init_state(0)
+    db = trainer.to_device(batch, rows)
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
+                     for i in range(cfg.gnn_num_layers)})
+    check_step(f"{what} batch", model, trainer.generator, lambda: trainer.loss(db),
+               BATCH_LOSS_RTOL, BATCH_GRAD_RTOL, scale_of)
+    _, per_step = counted(f"one {what} batch step", lambda: trainer.train_step(db), STEP_LAUNCHES)
+    logits, per_forward = counted(f"one {what} batch forward", lambda: trainer.forward(db),
+                                  FORWARD_LAUNCHES)
+    with plain_versions():
+        ref = trainer.forward(db)
+    check_logits(f"{what} batch", logits, ref, (batch.num_nodes, PAPERS["num_classes"]),
+                 (0.0, BATCH_LOGITS_RTOL))
+    del logits, ref
+    torch.cuda.empty_cache()
+
+    # (c) the path's run: fit, one epoch and its valid and test sweeps
+    torch.cuda.reset_peak_memory_stats()
+    trainer.record_losses = True
+    nb = math.ceil(sizes[0] / b)
+    forwards = math.ceil(sizes[1] / b) + math.ceil(sizes[2] / b)
+    want = {k: c * nb + forwards * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    t = time.perf_counter()
+    logger, run_counts = counted(f"{what} fit ({nb} batch steps, {forwards} eval forwards)",
+                                 lambda: trainer.fit([split], np_rng=np.random.default_rng(1)),
+                                 want)
+    fit_s = time.perf_counter() - t
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses, result = trainer.train_losses, logger.results[0][-1]
+    log(f"{what} fit: {fit_s:.3f} s for one epoch ({nb} steps) and its valid and test sweeps; "
+        f"peak device memory {peak_mib:.1f} MiB")
+    log(f"{what} losses: {[round(x, 6) for x in losses]}")
+    log(f"{what} accuracies after one epoch: valid {result[1]:.4f}, test {result[2]:.4f}")
+    if len(losses) != nb or not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"the {what} loss did not fall over the epoch")
+
+    # (d) the saved best state: whole into a fresh model, then as
+    # use_pretrained restores it
+    saved = read_state(trainer.checkpoint_path)
+    if saved.keys() != trainer.best_state.keys() or not all(
+            torch.equal(v, trainer.best_state[k].cpu()) for k, v in saved.items()):
+        raise AssertionError(f"{what}: the checkpoint is not the best-on-valid state")
+    model.load_state_dict(trainer.best_state)
+    want_logits = trainer.forward(db)
+    fresh = SGFormer(cfg, PAPERS["num_features"], generator=torch.Generator().manual_seed(1),
+                     device=dev)
+    fresh.load_state_dict(saved)
+    fresh.eval()
+    with torch.no_grad():
+        if not torch.equal(fresh(db.x, db.graph), want_logits):
+            raise AssertionError(f"{what}: the reloaded state's eval logits differ")
+    pretrained = SampledTrainer(fresh, csr, trainer.x, trainer.label,
+                                dataclasses.replace(tc, epochs=0, save_model=False,
+                                                    use_pretrained=True), device=dev)
+    pretrained.fit([split])
+    params = dict(fresh.named_parameters())
+    for k, v in pretrained.final_state.items():
+        fresh_stat = torch.zeros_like(v) if k.endswith("running_mean") else torch.ones_like(v)
+        if not torch.equal(v, saved[k].to(v.device) if k in params else fresh_stat):
+            raise AssertionError(f"{what}: use_pretrained gave another {k}")
+    moved = (pretrained.forward(db) - want_logits).abs().max().item()
+    log(f"{what} checkpoint: the best-on-valid state, reloaded whole, gives its eval logits "
+        f"bitwise; with use_pretrained the saved parameters beside fresh BatchNorm statistics "
+        f"(eval logits then move by up to {moved:.3e}, printed, no limit)")
+    del fresh, pretrained, want_logits
+    shutil.rmtree(model_dir, ignore_errors=True)
+
+    # (e) each sampled batch's build and step on the card, a streaming
+    # sweep's wall time, a profile of three batches with their sampling
+    builds, steps = [], []
+    for batch, rows in batches:
+        graph, ms = cuda_ms(lambda: build_sampled_graph(batch, dev))
+        builds.append(ms)
+        db = trainer.to_device(batch, rows)
+        steps.append(cuda_ms(lambda: trainer.train_step(db))[1])
+    t = time.perf_counter()
+    trainer.accuracy(split["valid"])
+    eval_s = time.perf_counter() - t
+    log(f"{what} on the host: sample median {statistics.median(sample_ms):.1f} ms a batch "
+        f"(min {min(sample_ms):.1f}, max {max(sample_ms):.1f}), gather + cast + pin "
+        f"{statistics.median(gather_ms):.1f} ms; on the card: build median "
+        f"{statistics.median(builds):.3f} ms, step median {statistics.median(steps):.3f} ms "
+        f"over {len(steps)} batches; a streaming sweep of the {sizes[1]} valid seeds: "
+        f"{eval_s * 1e3:.1f} ms wall; the epoch {fit_s * 1e3 / (nb + forwards):.1f} ms wall a "
+        f"batch")
+    seeds = iter(range(PAPERS_SAMPLES, PAPERS_SAMPLES + 3))
+
+    def sampled_step():
+        batch = trainer.sampler.sample(split["train"][next(seeds) * b:][:b])
+        return trainer.train_step(trainer.to_device(batch, trainer.gather_x(batch.node_ids)))
+
+    wall, busy = profile_device(f"{what} 3 batches (sample + gather + build + step)",
+                                sampled_step, 3)
+    numbers = dict(sample_ms=statistics.median(sample_ms), gather_ms=statistics.median(gather_ms),
+                   build_ms=statistics.median(builds), cpu_build_ms=cpu_ms,
+                   step_ms=statistics.median(steps), fit_s=fit_s, eval_s=eval_s,
+                   peak_mib=peak_mib, busy_share=busy / wall, losses=losses, result=result)
+    del trainer, model, batches, db, graph_b, graph
+    torch.cuda.empty_cache()
+    return per_step, per_forward, run_counts, numbers
 
 
 def probe_phase(graph, results: dict, dev: str) -> dict:
@@ -1890,6 +2164,7 @@ def main() -> int:
     del graph_q8
     q8_step, q8_forward, q8_counts = q8_train_phase(results, "cuda")
     amazon2m_batch = amazon2m_batch_phase(results, "cuda")
+    papers = papers_sampled_phase(results, "cuda")
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -1960,25 +2235,34 @@ def main() -> int:
             counts, per_step = train_counts, step_counts
             per_forward = {k: c / forwards for k, c in serve_counts.items()}
         if name in BATCH_KERNELS:
-            # the batch paths: launches of their fit runs and of one batch
-            # step; each kernel alone in f32 and bf16 at a full batch's and
-            # the tail's shapes (E = the batch subgraph's edges for csr_spmm)
+            # the batch and sampled paths: launches of their fit runs and of
+            # one batch step; each kernel alone in f32 and bf16 at a full
+            # batch's and the tail's shapes, in f32 at a sampled batch's (E
+            # = the batch graph's edges for csr_spmm, on A and on A^T)
             for what, (b_step, _, b_counts, _) in (("arxiv_batch", arxiv_batch),
-                                                   ("amazon2m_batch", amazon2m_batch)):
+                                                   ("amazon2m_batch", amazon2m_batch),
+                                                   ("papers_sampled", papers)):
                 r.update({f"{what}_launches": b_counts[name],
                           f"{what}_launches_per_train_step": b_step[name]})
             for key, v in results.items():
-                if key[0] in ("arxiv-batch", "amazon2m-batch") and key[1] == name:
+                if (key[0] in ("arxiv-batch", "amazon2m-batch", "papers-sampled")
+                        and key[1] in (name, f"{name}_t")):
                     prefix = f"{key[0].replace('-', '_')}_{key[2]}_n{key[3]}_"
+                    if key[1] != name:
+                        prefix = f"{key[0].replace('-', '_')}_transposed_{key[2]}_n{key[3]}_"
                     r.update({prefix + k: v[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "bytes_bound_ms", "max_abs_err",
                                                          "edges", "design", "main_ms",
-                                                         "finish_ms", "scalars_ms", "slices")
+                                                         "finish_ms", "scalars_ms", "slices",
+                                                         "library_ms", "hub_segments")
                               if k in v})
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
                       results[("csr_spmm_powerlaw", "bf16")].items()
                       if k.endswith("ms") or k == "hub_segments"})
+            r.update({f"powerlaw_f32_{k}": v for k, v in
+                      results[("csr_spmm_powerlaw", "f32")].items()
+                      if k.endswith("ms") or k in ("max_abs_err", "bound_by")})
             r.update(powerlaw_launches=pl_counts[name],
                      powerlaw_launches_per_train_step=pl_step[name])
         line["kernels"].append({

@@ -12,6 +12,12 @@ kernels do. The JAX function multiplies and ``segment_sum``-s in x's type, so
 on its bf16 path every partial sum is rounded to bf16 (``ops/spmm.py:44-52``
 of the JAX package); the port's bf16 aggregation is the more exact of the two.
 
+Every sum over a destination's edges is taken in one fixed order, the edges'
+own order within the destination (a stable sort by destination, then
+:func:`segment_sum`), with no float atomics: the same inputs give the same
+bits on every run, on the card as on the CPU, and those of a sequential
+``index_add``.
+
 :func:`quantize_absmax` and :func:`spmm_q8` are the int8 aggregation of a
 graph built with ``slab_dtype="int8"``, transcribed from the JAX package's
 ``kernels/slab_spmm.py::_apply_side``: the plain versions of the quantiser
@@ -31,13 +37,43 @@ def spmm(
     weight: torch.Tensor | None,
     num_nodes: int,
 ) -> torch.Tensor:
-    """out[i] = sum over edges e with dst[e] == i of weight[e] * x[src[e]]."""
-    msgs = x.float().index_select(0, edge_src.long())
+    """out[i] = sum over edges e with dst[e] == i of weight[e] * x[src[e]]
+    (the edges in any order)."""
+    dst, order = torch.sort(edge_dst.long(), stable=True)
+    msgs = x.float()[edge_src.long()[order]]
     if weight is not None:
-        msgs = msgs * weight.float()[:, None]
-    out = torch.zeros(num_nodes, x.shape[1], dtype=torch.float32, device=x.device)
-    out.index_add_(0, edge_dst.long(), msgs)
-    return out.to(x.dtype)
+        msgs = msgs * weight.float()[order][:, None]
+    return segment_sum(msgs, dst, num_nodes).to(x.dtype)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """:func:`segment_sum`; its gradient gathers each segment's cotangent
+    back to the segment's rows (autograd of ``segment_reduce`` would loop
+    over each segment's rows in one thread, a long wait on a hub row)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, num_segments):
+        ctx.save_for_backward(ids)
+        bounds = torch.searchsorted(ids, torch.arange(num_segments + 1, device=ids.device))
+        # unsafe: the lengths add up to the rows by construction; the check
+        # would wait for the card
+        return torch.segment_reduce(data, "sum", lengths=torch.diff(bounds), axis=0,
+                                    unsafe=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return grad.index_select(0, ids), None, None
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[num_segments, ...]: out[i] is the sum of the rows of ``data`` whose
+    segment id (``ids``, int64, non-decreasing: each segment's rows are
+    consecutive) is i, 0 for none. Each segment is summed in row order from
+    0, with no atomics and no wait for the card: the same inputs give the
+    same bits on every run and on every device (those of a sequential
+    ``index_add``). Differentiable in ``data``."""
+    return _SegmentSum.apply(data, ids, num_segments)
 
 
 def quantize_absmax(x: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,12 +165,11 @@ def spmm_edge_values(
 ) -> torch.Tensor:
     """out[i, h] = sum over edges e with dst[e] == i of values[e, h] * x[src[e], h].
 
-    x: [N, H, D]; values: [E, H] (used in f32). The sum is f32 and the result
-    has ``out_dtype`` (x's type when None)."""
-    msgs = x.float().index_select(0, edge_src.long()) * values.float()[..., None]
-    out = torch.zeros(num_nodes, *x.shape[1:], dtype=torch.float32, device=x.device)
-    out.index_add_(0, edge_dst.long(), msgs)
-    return out.to(out_dtype or x.dtype)
+    x: [N, H, D]; values: [E, H] (used in f32); the edges in any order. The
+    sum is f32 and the result has ``out_dtype`` (x's type when None)."""
+    dst, order = torch.sort(edge_dst.long(), stable=True)
+    msgs = x.float()[edge_src.long()[order]] * values.float()[order][..., None]
+    return segment_sum(msgs, dst, num_nodes).to(out_dtype or x.dtype)
 
 
 def spmm_edge_values_backward(
@@ -174,14 +209,19 @@ def spmm_edge_values_backward(
 
 def edge_softmax(scores: torch.Tensor, edge_dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """Per-destination softmax over incoming-edge scores ([E] or [E, H]),
-    the normalisation inside PyG's ``GATConv``.
+    the normalisation inside PyG's ``GATConv``. The edges are in CSR order
+    (``edge_dst`` non-decreasing, as every :class:`sgformer_tpu_torch.graph.Graph`
+    keeps them).
 
     As in the JAX function, a destination's max that is not finite (no
     incoming edge, or only -inf scores) becomes 0, and the denominator is
     floored at 1e-16. The shift by the max has an exact gradient of 0 (the
     softmax does not depend on it), so it is taken out of autograd with
     ``detach``: a gradient through ``scatter_reduce("amax")`` would split
-    between tied maxima and add only rounding noise."""
+    between tied maxima and add only rounding noise. The max is exact in any
+    order; the denominators are :func:`segment_sum`'s fixed-order sums over
+    each destination's run of edges, so the weights are the same bits on
+    every run."""
     dst = edge_dst.long()
     shape = (num_nodes,) + tuple(scores.shape[1:])
     idx = dst.view(-1, *([1] * (scores.dim() - 1))).expand_as(scores)
@@ -189,7 +229,7 @@ def edge_softmax(scores: torch.Tensor, edge_dst: torch.Tensor, num_nodes: int) -
     mx = mx.scatter_reduce(0, idx, scores.detach(), "amax", include_self=True)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     e = torch.exp(scores - mx[dst])
-    den = torch.zeros(shape, dtype=scores.dtype, device=scores.device).index_add(0, dst, e)
+    den = segment_sum(e, dst, num_nodes)
     return e / den[dst].clamp(min=1e-16)
 
 

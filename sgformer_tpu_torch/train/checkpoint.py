@@ -3,7 +3,9 @@
 
 A checkpoint holds the model's parameters and statistics, the optimizer's
 state and the step, and optionally the state of the dropout generator, so
-an interrupted run resumes exactly. It is read back with
+an interrupted run resumes exactly; :func:`save_state` writes a model state
+alone (the sampled trainer's best-on-valid state, as the JAX sampled trainer
+saves its ``best_state``). It is read back with
 ``torch.load(weights_only=True)``, which unpickles tensors and plain
 containers only.
 """
@@ -47,3 +49,14 @@ def load_checkpoint(path: str, model: nn.Module,
             raise KeyError(f"{path} holds no generator state")
         generator.set_state(payload["generator"])
     return payload["step"]
+
+
+def save_state(path: str, state: dict, step: int) -> None:
+    """Write a model state dict alone, {model, step}, to ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model": state, "step": int(step)}, path)
+
+
+def read_state(path: str) -> dict:
+    """The model state dict of a checkpoint, its tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]

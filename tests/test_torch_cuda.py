@@ -1249,3 +1249,167 @@ def test_batch_fit_on_the_card_gives_the_cpu_fit(cuda):
     res_card, res_cpu = card.evaluate_full(got, split), cpu.evaluate_full(want, split)
     np.testing.assert_allclose(res_card[:3], res_cpu[:3], atol=1.0 / len(split["test"]))
     assert abs(res_card[3] - res_cpu[3]) <= 2 * err + 1e-6
+
+
+def _sampled_setup(dev, **kw):
+    """A sampled trainer on ``_batch_edges``'s graph (its CSR sorted on
+    ``dev``), batches of 100 seeds, fanouts (8, 4, 2)."""
+    from sgformer_tpu_torch.train import SampledTrainConfig, SampledTrainer
+
+    ds, ei = _batch_edges()
+    cfg = SGFormerConfig.papers100m(64, 5, trans_num_layers=1, gnn_num_layers=3,
+                                    gnn_use_init=True, trans_dropout=0.0, gnn_dropout=0.0)
+    model = SGFormer(cfg, 16, device=dev)
+    tc = SampledTrainConfig(lr=1e-2, trans_weight_decay=0.0, gnn_weight_decay=0.0,
+                            batch_size=100, fanouts=(8, 4, 2), display_step=-1, **kw)
+    edges = torch.from_numpy(ei).to(dev)
+    return ds, SampledTrainer(model, edges, ds.graph["node_feat"], ds.label, tc, device=dev)
+
+
+def test_sampled_graph_on_the_card_is_bitwise_the_cpu_build(cuda):
+    """Each batch's graph, the transposed CSR and both hub plans included, is
+    bitwise the same built on the card and on the CPU; the CSR sorted on the
+    card is the CPU's."""
+    import dataclasses
+
+    from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler
+    from sgformer_tpu_torch.train import build_sampled_graph
+
+    ds, ei = _batch_edges()
+    n = ds.num_nodes
+    csr = CSRGraph.from_edge_index(torch.from_numpy(ei).to(cuda), n)
+    want_csr = CSRGraph.from_edge_index(ei, n)
+    assert np.array_equal(csr.indptr, want_csr.indptr)
+    assert np.array_equal(csr.indices, want_csr.indices)
+    sampler = NeighborSampler(csr, n, (15, 10, 5), 300, seed=0)
+    hub = np.bincount(ei[1]).argmax()
+    for seeds in (np.unique(ei[0][ei[1] == hub]), np.arange(0, n, 7)):
+        batch = sampler.sample(seeds)
+        got, want = build_sampled_graph(batch, cuda), build_sampled_graph(batch, "cpu")
+        assert got.device.type == "cuda"
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(b, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f.name
+            else:
+                assert a == b, f.name
+    assert got.num_nodes > 300
+
+
+def test_sampled_step_through_the_kernels_matches_the_cpu(cuda):
+    """One sampled batch step on the card (6 csr_spmm and the four attention
+    kernels, none other) against the same step on the CPU from the same
+    parameters: the loss within 1e-5, every gradient within 1e-4 of its norm
+    (f32, summation order only)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ds, trainer = _sampled_setup(dev)
+        trainer.init_state(0)
+        batch = trainer.sampler.sample(np.arange(0, 1500, 15))
+        b = trainer.to_device(batch, trainer.gather_x(batch.node_ids))
+        kernels.reset_launch_counts()
+        loss = trainer.loss(b)
+        loss.backward()
+        counts = kernels.launch_counts()
+        out[dev] = (loss.item(), {k: p.grad.cpu() for k, p in trainer.model.named_parameters()})
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts.update(csr_spmm=6, linear_attention_reduce=1, linear_attention_apply=1,
+                       linear_attention_bwd_reduce=1, linear_attention_bwd_apply=1)
+    assert counts == want_counts
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
+    scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias" for i in range(3)})
+    for k, want in out["cpu"][1].items():
+        rel = (out["cuda"][1][k] - want).norm() / out["cpu"][1][scale_of.get(k, k)].norm()
+        assert rel.item() <= 1e-4, k
+
+
+def test_sampled_fit_on_the_card_gives_the_cpu_fit(cuda):
+    """Two epochs of 500 train seeds on the card and on the CPU, from the
+    same parameters and the same batches: per-batch losses within 1e-4
+    relative (f32 summation order compounded by Adam steps), the streaming
+    accuracies within one seed's share of each split."""
+    split = {"train": np.arange(0, 1500, 3), "valid": np.arange(1, 1500, 6),
+             "test": np.arange(2, 1500, 6)}
+    trainers = {}
+    for dev in ("cpu", "cuda"):
+        _, trainer = _sampled_setup(dev, epochs=2)
+        trainer.record_losses = True
+        logger = trainer.fit([split], np_rng=np.random.default_rng(5))
+        trainers[dev] = (trainer, logger)
+    (card, lc), (cpu, lp) = trainers["cuda"], trainers["cpu"]
+    assert len(card.train_losses) == 10
+    np.testing.assert_allclose(card.train_losses, cpu.train_losses, rtol=1e-4)
+    np.testing.assert_allclose(np.array(lc.results[0])[:, 1:3], np.array(lp.results[0])[:, 1:3],
+                               atol=1.0 / 250)
+
+
+def _hub_rows_graph(cuda):
+    """A directed graph whose node 3 has 10,000 in-edges and node 4 10,000
+    out-edges, beside random edges."""
+    rng = np.random.default_rng(8)
+    n = 12000
+    fan = rng.permutation(np.arange(10, n))[:10000]
+    ei = np.concatenate([rng.integers(0, n, (2, 40000)), np.stack([fan, np.full(10000, 3)]),
+                         np.stack([np.full(10000, 4), fan])], axis=1)
+    return preprocess_graph(ei, n, undirected=False, device=cuda)
+
+
+def test_plain_sums_are_bitwise_repeatable_on_the_card(cuda):
+    """edge_softmax (with its gradient), spmm and spmm_edge_values sum each
+    destination's edges in one fixed order, no float atomics: repeated calls
+    on 10,000-edge rows give the same bits, and the aggregations give the
+    CPU's."""
+    from sgformer_tpu_torch.ops.spmm import edge_softmax
+
+    g = _hub_rows_graph(cuda)
+    n, e = g.num_nodes, g.num_edges
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    scores = torch.randn(e, 2, generator=gen, device=cuda) * 3
+    cot = torch.randn(e, 2, generator=gen, device=cuda)
+    x = torch.randn(n, 2, 40, generator=gen, device=cuda)
+    v = torch.rand(e, 2, generator=gen, device=cuda)
+    w = torch.rand(e, generator=gen, device=cuda)
+
+    def run():
+        s = scores.clone().requires_grad_()
+        out = edge_softmax(s, g.edge_dst, n)
+        (grad,) = torch.autograd.grad(out, s, cot)
+        return (out, grad, spmm(x.view(n, 80), g.edge_src, g.edge_dst, w, n),
+                spmm(x.view(n, 80), g.t_edge_src, g.t_edge_dst, w, n),
+                spmm_edge_values(x, g.edge_src, g.edge_dst, v, n))
+
+    first = run()
+    for _ in range(5):
+        assert all(torch.equal(a, b) for a, b in zip(run(), first))
+    # the aggregations sum in the same order on the CPU
+    gc, xc, wc = g.to("cpu"), x.cpu(), w.cpu()
+    assert torch.equal(first[2].cpu(), spmm(xc.view(n, 80), gc.edge_src, gc.edge_dst, wc, n))
+    assert torch.equal(first[4].cpu(), spmm_edge_values(xc, gc.edge_src, gc.edge_dst, v.cpu(), n))
+
+
+def test_gat_eval_logits_are_bitwise_repeatable(cuda):
+    """GAT's eval forward on the card, through the kernels and through the
+    plain versions, gives the same bits on every call."""
+    import contextlib
+    from unittest import mock
+
+    from sgformer_tpu_torch.nn import GAT
+
+    g = _hub_rows_graph(cuda)
+    g = preprocess_graph(torch.stack([g.edge_src, g.edge_dst]).cpu().numpy(), g.num_nodes,
+                         chunk_dtype="bf16", device=cuda)
+    model = GAT(16, 64, 5, num_layers=2, heads=2, device=cuda).eval()
+    x = torch.randn(g.num_nodes, 16, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+
+    def plain_ev(x, values, csr, csr_t, msg_dtype, *_):
+        return spmm_edge_values(x.to(msg_dtype), csr[1], csr[2], values, csr[0].shape[0] - 1,
+                                x.dtype)
+
+    for patch in (contextlib.nullcontext(),
+                  mock.patch.object(spmm_kernel, "csr_spmm_ev_autograd", plain_ev)):
+        with patch, torch.no_grad():
+            first = model(x, g)
+            for _ in range(5):
+                assert torch.equal(model(x, g), first)

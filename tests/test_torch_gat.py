@@ -6,7 +6,9 @@ mode, the fused backward wrapper against the parent formulation (dx through
 ``csr_spmm_ev`` on the transposed order, dv through ``sddmm``), the
 transposed edge order the gradient reads, ``GAT``/``GATJK`` forward and
 every gradient with the flax weights copied in, and a few ``Trainer`` steps
-against the JAX trainer.
+against the JAX trainer. The plain aggregations and the edge softmax sum in
+a fixed order without atomics; on the CPU they are bitwise the
+``index_add`` forms they replaced.
 
 Tolerances: in f32 only the summation order differs (rtol 1e-5 on one
 aggregation; the zoo's own 1e-4 / 1e-5 forward and 1e-3 / 1e-5 gradient
@@ -45,7 +47,7 @@ from sgformer_tpu_torch.kernels.spmm import (csr_spmm, csr_spmm_ev, csr_spmm_ev_
                                              csr_spmm_ev_bwd, sddmm)
 from sgformer_tpu_torch.nn import GAT, GATJK
 from sgformer_tpu_torch.ops.sddmm import sddmm_softmax_weights
-from sgformer_tpu_torch.ops.spmm import (edge_softmax, segment_mean, spmm_edge_values,
+from sgformer_tpu_torch.ops.spmm import (edge_softmax, segment_mean, spmm, spmm_edge_values,
                                          spmm_edge_values_backward)
 from sgformer_tpu_torch.train import TrainConfig, Trainer
 
@@ -462,3 +464,84 @@ def test_gat_trainer_steps_match_jax(problem):
     got = trainer.multi_step(trainer.prepare_train_idx(split), 5).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
+
+
+def _index_add(msgs, dst, n):
+    """The sequential ``index_add`` sum the fixed-order sums replaced."""
+    return torch.zeros(n, *msgs.shape[1:], dtype=msgs.dtype).index_add(0, dst.long(), msgs)
+
+
+@pytest.mark.parametrize("op,order", [
+    *((op, order) for op in ("spmm_f32", "spmm_bf16", "edge_values", "edge_values_bwd")
+      for order in ("csr", "shuffled")),
+    ("edge_softmax", "csr"), ("edge_softmax_heads", "csr")])
+def test_fixed_order_sums_are_bitwise_the_index_add_forms(op, order):
+    """On the CPU each plain aggregation (``spmm``, ``spmm_edge_values`` and
+    the dx of its backward) and ``edge_softmax`` with its gradient give the
+    bits of the sequential ``index_add`` forms they replaced, on a graph
+    with a 600-edge row, a 160-edge row and empty rows: in CSR order, and
+    the aggregations also on shuffled edges (the edge softmax takes CSR
+    order only)."""
+    rng = np.random.default_rng(13)
+    ei, n = _hub_edge_list(rng)
+    ei = np.concatenate([ei, np.stack([rng.integers(0, n - 20, 600), np.full(600, 9)])],
+                        axis=1)
+    g = preprocess_graph(ei[:, ei[0] != ei[1]], n, undirected=False, self_loops=False,
+                         device="cpu")
+    assert np.diff(g.indptr.numpy()).max() >= 600
+    src, dst = g.edge_src.long(), g.edge_dst.long()
+    e = g.num_edges
+
+    def check(got, msgs, d, dtype=torch.float32):
+        assert got.dtype == dtype and torch.equal(got, _index_add(msgs, d, n).to(dtype))
+
+    if order == "shuffled":
+        perm = torch.from_numpy(rng.permutation(e))
+        src, dst = src[perm], dst[perm]
+    if op.startswith("spmm"):
+        dtype = torch.float32 if op == "spmm_f32" else torch.bfloat16
+        x = torch.from_numpy(rng.standard_normal((n, 7)).astype(np.float32)).to(dtype)
+        w = torch.from_numpy(rng.random(e).astype(np.float32))
+        check(spmm(x, src, dst, w, n), x.float().index_select(0, src) * w[:, None], dst, dtype)
+        if order == "csr":  # and its gradient: each edge's message gathers its row's
+            xg = x.float().requires_grad_()
+            cot = torch.randn(n, 7, generator=torch.Generator().manual_seed(0))
+            (gx,) = torch.autograd.grad(spmm(xg, src, dst, w, n), xg, cot)
+            assert torch.equal(gx, _index_add(cot[dst] * w[:, None], src, n))
+        return
+    heads = 2 if op != "edge_softmax" else None
+    if op.startswith("edge_values"):
+        x = torch.from_numpy(rng.standard_normal((n, heads, 5)).astype(np.float32))
+        v = torch.from_numpy(rng.random((e, heads)).astype(np.float32))
+        if op == "edge_values":
+            check(spmm_edge_values(x, src, dst, v, n), x.index_select(0, src) * v[..., None], dst)
+            return
+        # dx reads the transposed order (its rows: the sources)
+        t = [g.t_edge_src.long(), g.t_edge_dst.long(), g.t_perm.long()]
+        if order == "shuffled":
+            t = [a[perm] for a in t]
+        cot = torch.from_numpy(rng.standard_normal((n, heads, 5)).astype(np.float32))
+        dx, _ = spmm_edge_values_backward(cot, x, v, *t, torch.bfloat16, need_dv=False)
+        check(dx, cot.to(torch.bfloat16).float().index_select(0, t[0])
+              * v.index_select(0, t[2])[..., None], t[1])
+        return
+    shape = (e,) if heads is None else (e, heads)
+    scores = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def old_softmax(s):
+        shape_n = (n,) + tuple(s.shape[1:])
+        idx = dst.view(-1, *([1] * (s.dim() - 1))).expand_as(s)
+        mx = torch.full(shape_n, float("-inf")).scatter_reduce(0, idx, s.detach(), "amax",
+                                                               include_self=True)
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+        ex = torch.exp(s - mx[dst])
+        return ex / _index_add(ex, dst, n)[dst].clamp(min=1e-16)
+
+    outs = []
+    for fn in (lambda s: edge_softmax(s, dst, n), old_softmax):
+        s = scores.clone().requires_grad_()
+        out = fn(s)
+        (grad,) = torch.autograd.grad(out, s, cot)
+        outs.append((out.detach(), grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

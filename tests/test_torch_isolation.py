@@ -1,5 +1,5 @@
 """The port stands alone: importing it loads no JAX, flax, optax, orbax,
-scikit-learn or JAX package module (the machine with the card has none of
+ml_dtypes, scikit-learn or JAX package module (the machine with the card has none of
 them), its sources call no library for what its kernels compute, and its
 entry points refuse to run without CUDA unless asked for the CPU."""
 
@@ -30,7 +30,7 @@ def test_import_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-        "                                    'sklearn', 'sgformer_tpu'))\n"
+        "                                    'ml_dtypes', 'sklearn', 'sgformer_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -49,7 +49,7 @@ def _sources():
 
 def test_sources_use_no_library_for_the_kernels_work():
     banned = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax|sklearn|sgformer_tpu)\b"
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|ml_dtypes|sklearn|sgformer_tpu)\b"
         r"|torch\.sparse|torch\.matmul|torch\.compile|cublas|cusparse",
         re.MULTILINE | re.IGNORECASE,
     )
@@ -58,7 +58,7 @@ def test_sources_use_no_library_for_the_kernels_work():
     assert not found, found
     modules = {m.name for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__)}
     assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert", "train",
-            "utils", "microbench"} <= modules
+            "utils", "microbench", "sample"} <= modules
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
@@ -106,7 +106,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Predictor(model, graph, np.zeros((3, 4), np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         graph.to("cuda")
-    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer, TrainConfig, Trainer
+    from sgformer_tpu_torch.train import (BatchTrainConfig, BatchTrainer, SampledTrainConfig,
+                                          SampledTrainer, TrainConfig, Trainer)
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(model, graph, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
@@ -114,3 +115,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchTrainer(model, ei, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
                      BatchTrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SampledTrainer(model, ei, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
+                       SampledTrainConfig())
