@@ -129,8 +129,25 @@ JAX package. Phases, each failing loudly:
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9, 11, 12 and 13 launched a probe; the
-   gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's.
+   also shows that no path of 5, 6, 8, 9, 11, 12, 13 and 15 launched a probe;
+   the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
+15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
+   the repo's recipes, their flags read verbatim from the port's recipe
+   files (the TPU layout flags included) and cut in epochs and runs only:
+   arxiv-cli-train, the ogbn-arxiv recipe (f32, hidden 256, 3 GraphConv
+   layers, 1 attention layer) on 5's arrays written in OGB's on-disk layout
+   (``ogbn_arxiv/processed.npz`` and ``split/time/*.csv.gz``, a seeded
+   50/25/25 split), 18 epochs with an eval every 9: its launches (epochs x
+   a step's + evals x a forward's), losses (the last 3 below the first) and
+   statistics, its set-up alone and a profile of one step, then
+   ``--time_test`` on the same flags;
+   the amazon2m run's flags on the same files through the batch trainer
+   (batches of 50,000, 2 epochs); the papers100M pretrain run's flags
+   through the sampled trainer on ``synth-n20000-e120000-f128-c16`` (1
+   epoch, the best state saved); H2GCN (hidden 64, 2 rounds) on that
+   graph through the CLI's set-up: its step against the plain step (f32:
+   loss 1e-5, gradients 1e-4), 8 ``csr_spmm`` a step and 4 a forward, its
+   eval logits against the plain forward, and a ``--time_test``.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -291,6 +308,28 @@ PAPERS_SPLIT = dict(train=1_207_179, valid=125_265, test=214_338)
 PAPERS_NODES = 111_059_956
 # train batches sampled and timed one by one beside the fit
 PAPERS_SAMPLES = 5
+
+# the cli phase: the port's CLI (python -m sgformer_tpu_torch.cli.main)
+# running the repo's recipes, their flags read from the port's recipe files
+# (the counterparts of configs/large.sh and configs/100m.sh), cut in epochs
+# and runs only
+CLI_ARXIV_CUT = ["--runs", "1", "--epochs", "18", "--eval_step", "9"]
+CLI_BATCH_CUT = ["--dataset", "ogbn-arxiv", "--runs", "1", "--batch_size", "50000",
+                 "--epochs", "2"]
+CLI_SAMPLED_DATASET = "synth-n20000-e120000-f128-c16"
+CLI_H2GCN = ["--method", "h2gcn", "--dataset", CLI_SAMPLED_DATASET, "--trainer", "full",
+             "--hidden_channels", "64", "--num_layers", "2", "--rand_split", "--runs", "1",
+             "--display_step", "-1"]
+# H2GCN, 2 rounds: each round aggregates on A1 and on A2 (4 csr_spmm a
+# forward), and the gradient walks both again
+H2GCN_STEP_LAUNCHES = dict(STEP_LAUNCHES, csr_spmm=8, linear_attention_reduce=0,
+                           linear_attention_apply=0, linear_attention_bwd_reduce=0,
+                           linear_attention_bwd_apply=0)
+H2GCN_FORWARD_LAUNCHES = dict(H2GCN_STEP_LAUNCHES, csr_spmm=4)
+# H2GCN's step through the kernels against the plain step: f32, summation
+# order only
+H2GCN_LOSS_RTOL = 1e-5
+H2GCN_GRAD_RTOL = 1e-4
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -1953,6 +1992,237 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     return per_step, per_forward, run_counts, numbers
 
 
+def recipe_flags(recipe: str, block: str) -> list:
+    """The flags of one run of a port recipe (``sgformer_tpu_torch/recipes/
+    <recipe>``): its ``RUN=`` prefix without the interpreter, then the lines
+    of the run that starts with ``block``, without ``"$@"``."""
+    import os
+    import shlex
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sgformer_tpu_torch",
+                        "recipes", recipe)
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    lines = text.splitlines()
+    run = next(ln for ln in lines if ln.startswith("RUN="))
+    prefix = shlex.split(run[len("RUN="):].strip().strip('"'))
+    assert prefix[:3] == ["python", "-m", "sgformer_tpu_torch.cli.main"], prefix
+    body = next(ln for ln in lines if ln.startswith(block))
+    return prefix[3:] + [a for a in shlex.split(body)[1:] if a != "$@"]
+
+
+def write_ogb_arxiv(ds, root: str) -> dict:
+    """``ds``'s arrays in OGB's on-disk layout under ``root``:
+    ``ogbn_arxiv/processed.npz`` (the loaders' cache) and
+    ``split/time/{train,valid,test}.csv.gz`` from a seeded 50/25/25 split.
+    Returns the split."""
+    import gzip
+    import os
+
+    import numpy as np
+
+    from sgformer_tpu_torch.data.splits import rand_train_test_idx
+
+    base = os.path.join(root, "ogbn_arxiv")
+    os.makedirs(os.path.join(base, "split", "time"), exist_ok=True)
+    np.savez(os.path.join(base, "processed.npz"), edge_index=ds.graph["edge_index"],
+             node_feat=ds.graph["node_feat"].cpu().numpy(), label=ds.label,
+             num_nodes=ds.num_nodes)
+    split = rand_train_test_idx(ds.label, rng=np.random.default_rng(0))
+    for name, idx in split.items():
+        with gzip.open(os.path.join(base, "split", "time", f"{name}.csv.gz"), "wt") as f:
+            np.savetxt(f, idx, fmt="%d")
+    return split
+
+
+def cli_phase(ds, results: dict, dev: str) -> dict:
+    """The port's CLI on the card (``sgformer_tpu_torch.cli.main.main``):
+    (a) arxiv-cli-train: the ogbn-arxiv recipe's flags verbatim (the port's
+    ``recipes/large.sh``: its ``$RUN`` and the ogbn-arxiv run, the TPU layout
+    flags included; hidden 256, 3 GCN layers, 1 attention layer, f32) on
+    ``ds``'s arrays written in OGB's layout, cut to 18 epochs (eval every 9)
+    and 1 run: the launches over the run (epochs x a step's + evals x a
+    forward's), the losses (the last 3 below the first), the logger's
+    statistics; the set-up alone (warm) and a profile of one step; (b)
+    ``--time_test`` on the same flags: per-step and forward ms, peak memory,
+    launches; (c) the batch trainer: the amazon2m run's
+    flags on the same files, batches of 50,000, 2 epochs; (d) the sampled
+    trainer: the papers100M pretrain run's flags (``recipes/100m.sh``) on
+    ``synth-n20000-e120000-f128-c16``, 1 epoch, the best state saved; (e)
+    H2GCN (hidden 64, 2 rounds) on that graph through the CLI's set-up: its
+    step through the kernels against the plain step (f32: loss 1e-5,
+    gradients 1e-4), the launches of a step and a forward, and a
+    ``--time_test``. Returns each run's launch counts."""
+    import argparse
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.cli import main as cli
+    from sgformer_tpu_torch.train import trainer as trainer_module
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli-data")
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    split = write_ogb_arxiv(ds, root)
+    log(f"cli: synth-arxiv written in OGB's layout in {time.perf_counter() - t:.1f} s "
+        f"(processed.npz, split/time: {len(split['train'])} / {len(split['valid'])} / "
+        f"{len(split['test'])})")
+    out = {}
+
+    # (a) the ogbn-arxiv recipe through main(), every step's loss recorded
+    arxiv = recipe_flags("large.sh", "$RUN --trainer full --dataset ogbn-arxiv")
+    argv = arxiv + ["--data_dir", root] + CLI_ARXIV_CUT
+    log(f"cli: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
+    losses = []
+    step = trainer_module.Trainer.train_step
+
+    def recording(self, train_idx):
+        loss = step(self, train_idx)
+        losses.append(loss)
+        return loss
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(trainer_module.Trainer, "train_step", recording):
+        logger = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    epochs, evals = 18, len(logger.results[0])
+    log(f"cli: arxiv recipe: {run_s:.2f} s for {epochs} epochs and {evals} evals (the dataset's "
+        f"load and the graph's build included); launches {counts}")
+    want = {k: c * epochs + evals * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    if evals != 2 or counts != want:
+        raise AssertionError(f"cli arxiv recipe: {evals} evals, launch counts {counts}, "
+                             f"expected 2 and {want}")
+    losses = torch.stack(losses).tolist()
+    log(f"cli: arxiv recipe losses: first {losses[0]:.6f}, last 3 "
+        f"{[round(x, 6) for x in losses[-3:]]} ({len(losses)} steps)")
+    if len(losses) != epochs or not all(np.isfinite(losses)) \
+            or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError("the cli arxiv recipe's loss did not fall")
+    stats = logger.statistics()
+    log(f"cli: arxiv recipe statistics: {stats}")
+    out["arxiv"] = counts
+    # the run's set-up alone, a second time (warm): the dataset's load, the
+    # graph's build on the card, the model and the trainer
+    t = time.perf_counter()
+    built = cli.build(cli.parser_add_main_args(argparse.ArgumentParser()).parse_args(argv))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    log(f"cli: arxiv recipe set-up (warm): {setup_s:.2f} s (N = {built.graph.num_nodes}, "
+        f"E = {built.graph.num_edges})")
+    # where one of the recipe's train steps spends its device time
+    built.trainer.init_state(0)
+    train_idx = built.trainer.prepare_train_idx(built.splits[0])
+    wall, busy = profile_device("arxiv-cli step", lambda: built.trainer.train_step(train_idx), 3)
+    del built
+
+    # (b) --time_test on the same flags
+    kernels.reset_launch_counts()
+    res = cli.main(argv + ["--time_test"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = epochs + 3
+    want = {k: c * steps + 2 * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    log(f"cli: arxiv recipe --time_test: {res.per_epoch_ms:.3f} ms per train step over "
+        f"{epochs} steps, forward {res.forward_ms:.3f} ms, peak memory "
+        f"{res.peak_memory_mb:.1f} MiB on {res.device} ({card_line()}); launches {counts}")
+    if counts != want or not sum(res.losses[-3:]) / 3 < res.losses[0]:
+        raise AssertionError(f"cli --time_test: launch counts {counts}, expected {want}, or "
+                             f"the loss did not fall ({res.losses})")
+    results["cli"] = dict(step_ms=res.per_epoch_ms, forward_ms=res.forward_ms,
+                          peak_mib=res.peak_memory_mb, run_s=run_s, setup_s=setup_s,
+                          busy_share=busy / wall, losses=losses,
+                          final_test=stats["final_test"])
+    out["time_test"] = counts
+
+    # (c) the batch trainer: the amazon2m run's flags on the arxiv files
+    argv = (recipe_flags("large.sh", "$RUN --trainer batch --dataset amazon2m")
+            + ["--data_dir", root] + CLI_BATCH_CUT)
+    log(f"cli: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    logger = cli.main(argv)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    nb, evals = math.ceil(ds.num_nodes / 50_000), len(logger.results[0])
+    want = {k: c * 2 * nb + evals * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    log(f"cli: batch run {batch_s:.2f} s for 2 epochs of {nb} batches and {evals} full-graph "
+        f"evals; results {logger.results[0]}; launches {counts}")
+    if evals != 1 or counts != want:
+        raise AssertionError(f"cli batch run: launch counts {counts}, expected {want}")
+    results["cli"]["batch_s"] = batch_s
+    out["batch"] = counts
+
+    # (d) the sampled trainer: the papers100M pretrain run's flags
+    model_dir = os.path.join(root, "papers100m_sgformer")
+    argv = (recipe_flags("100m.sh", "$RUN --dataset ogbn-papers100M")
+            + ["--dataset", CLI_SAMPLED_DATASET, "--epochs", "1", "--model_dir", model_dir])
+    log(f"cli: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    logger = cli.main(argv)
+    torch.cuda.synchronize()
+    sampled_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    parser = cli.parser_add_main_args(argparse.ArgumentParser())
+    built_split = cli.get_splits(cli.load_dataset("", CLI_SAMPLED_DATASET, device="cpu"),
+                                 parser.parse_args(argv))[0]
+    n_steps = math.ceil(len(built_split["train"]) / 1000)
+    forwards = sum(math.ceil(len(built_split[s]) / 1000) for s in ("valid", "test"))
+    want = {k: c * n_steps + forwards * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
+    log(f"cli: sampled run {sampled_s:.2f} s for 1 epoch ({n_steps} steps, {forwards} sweep "
+        f"batches); results {logger.results[0]}; launches {counts}")
+    if counts != want or not os.path.exists(os.path.join(model_dir, "model.pt")):
+        raise AssertionError(f"cli sampled run: launch counts {counts}, expected {want}, or "
+                             "no checkpoint")
+    results["cli"]["sampled_s"] = sampled_s
+    out["sampled"] = counts
+
+    # (e) H2GCN through the CLI's set-up: the step against the plain step,
+    # the launches of a step and a forward, then --time_test
+    args = parser.parse_args(CLI_H2GCN + ["--epochs", "10"])
+    built = cli.build(args)
+    trainer = built.trainer
+    train_idx = trainer.prepare_train_idx(built.splits[0])
+    trainer.init_state(0)
+    a1, a2 = trainer.model_kwargs["h2_graphs"]
+    log(f"cli: h2gcn on {CLI_SAMPLED_DATASET}: A1 {a1.num_edges} edges, A2 {a2.num_edges} "
+        f"edges (the exact 2-hop set), z width {trainer.model.w_classify.shape[0]}")
+    check_step("h2gcn", trainer.model, trainer.generator, lambda: trainer.loss(train_idx),
+               H2GCN_LOSS_RTOL, H2GCN_GRAD_RTOL, {})
+    _, per_step = counted("one h2gcn step", lambda: trainer.train_step(train_idx),
+                          H2GCN_STEP_LAUNCHES)
+    logits, per_forward = counted("one h2gcn eval_step", trainer.eval_step,
+                                  H2GCN_FORWARD_LAUNCHES)
+    with plain_versions():
+        ref = trainer.eval_step()
+    check_logits("h2gcn eval", logits, ref, (trainer.graph.num_nodes, 16),
+                 (0.0, H2GCN_LOSS_RTOL))
+    del built, trainer, logits, ref
+    kernels.reset_launch_counts()
+    res = cli.main(CLI_H2GCN + ["--epochs", "20", "--time_test"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: c * 23 + 2 * H2GCN_FORWARD_LAUNCHES[k] for k, c in H2GCN_STEP_LAUNCHES.items()}
+    log(f"cli: h2gcn --time_test: {res.per_epoch_ms:.3f} ms per train step over 20 steps, "
+        f"forward {res.forward_ms:.3f} ms, peak memory {res.peak_memory_mb:.1f} MiB on "
+        f"{res.device}; launches {counts}")
+    if counts != want or not all(np.isfinite(res.losses)):
+        raise AssertionError(f"cli h2gcn --time_test: launch counts {counts}, expected {want}")
+    results["cli"].update(h2gcn_step_ms=res.per_epoch_ms, h2gcn_forward_ms=res.forward_ms)
+    out["h2gcn"], out["h2gcn_step"], out["h2gcn_forward"] = counts, per_step, per_forward
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def probe_phase(graph, results: dict, dev: str) -> dict:
     """The timing probes: each kernel against its plain version (these
     launches are not counted), then each probe's own run from counts of 0
@@ -2165,6 +2435,7 @@ def main() -> int:
     q8_step, q8_forward, q8_counts = q8_train_phase(results, "cuda")
     amazon2m_batch = amazon2m_batch_phase(results, "cuda")
     papers = papers_sampled_phase(results, "cuda")
+    cli_counts = cli_phase(ds, results, "cuda")
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -2265,6 +2536,8 @@ def main() -> int:
                       if k.endswith("ms") or k in ("max_abs_err", "bound_by")})
             r.update(powerlaw_launches=pl_counts[name],
                      powerlaw_launches_per_train_step=pl_step[name])
+        # the CLI's runs (the recipes and H2GCN)
+        r.update({f"cli_{what}_launches": c[name] for what, c in cli_counts.items()})
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
@@ -2287,7 +2560,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/spmm.cu",
             "replaces": f"sgformer_tpu/kernels/{replaces}", "launches": q8_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
-            **r,
+            **r, **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
         })
     # the timing probes: launches from their own runs; per forward and per
     # step as counted on large-400K-int8-train (no model path runs them, and
@@ -2299,7 +2572,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/microbench.cu",
             "replaces": replaces, "launches": probe_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
-            **results[name],
+            **results[name], **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,11 @@
 """SGFormer on PyTorch and CUDA: the port of ``sgformer_tpu`` to an NVIDIA
-Hopper GPU: full-graph training (``train.Trainer``) and serving
-(``Predictor``).
+Hopper GPU: training on the full graph (``train.Trainer``), in
+random-partition mini-batches (``train.BatchTrainer``) and on
+neighbour-sampled batches (``train.SampledTrainer``), the large-tier model
+zoo beside SGFormer (``nn``), serving (``Predictor``), the dataset readers
+(``data.load_dataset``) and the command line that drives them all
+(``python -m sgformer_tpu_torch.cli.main``, with the repo's recipes in
+``recipes/``).
 
 The JAX package ``sgformer_tpu`` is the reference this package is held
 against; nothing here imports it, JAX or flax. Plain tensor code is PyTorch.

@@ -17,7 +17,9 @@ port's submodules carry the flax names (``trans_conv.conv_0.Wq``,
   ``GATConv.att_src``/``att_dst`` [1, H, D] and ``bias``;
   ``GCNConv.kernel`` [in, out] (applied as ``x @ kernel``) and ``bias``;
   ``MixHopLayer.lin_{j}_kernel`` [in, out] and ``lin_{j}_bias``;
-  ``LINK.weight`` [N, C] and ``bias``; ``GPRGNN.gamma`` [K + 1].
+  ``LINK.weight`` [N, C] and ``bias``; ``GPRGNN.gamma`` [K + 1];
+  ``H2GCN.w_embed`` [in, hidden] and ``w_classify`` [width, C] (applied as
+  ``x @ w``).
 
 A key the module lacks, or a module tensor the tree lacks, raises KeyError;
 a shape that differs raises ValueError.

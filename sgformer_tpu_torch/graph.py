@@ -449,3 +449,35 @@ def preprocess_graph(
                              "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
     return graph_from_sorted(src, dst, weight, num_nodes, symmetric=bool(undirected), pyg=pyg,
                              chunk_dtype=chunk_dtype, slab_dtype=slab_dtype, rs=rs)
+
+
+def build_h2_graphs(edge_index, num_nodes: int, *, device="cuda") -> tuple[Graph, Graph]:
+    """A1/A2 edge sets for H2GCN, the port of the JAX package's
+    ``build_h2_graphs``: A1 the self-loop-free 1-hop adjacency, A2 the exact
+    2-hop neighbourhood (the pattern of A^2 less A and the diagonal), each
+    normalised as ``preprocess_graph(..., undirected=False,
+    self_loops=False)`` does on ``device``. The 2-hop set is found on the
+    host with scipy, by the JAX function's own steps, so both give the same
+    edges in the same order."""
+    import scipy.sparse as sp
+
+    if isinstance(edge_index, torch.Tensor):
+        edge_index = edge_index.cpu()
+    else:
+        edge_index = torch.from_numpy(np.asarray(edge_index))
+    src, dst = to_undirected(remove_self_loops(edge_index)).numpy()
+    a = sp.csr_matrix((np.ones(len(src)), (dst, src)), shape=(num_nodes, num_nodes))
+    a.data[:] = 1.0
+    a2 = a @ a
+    a2.setdiag(0)
+    a2 = (a2 > 0).astype(np.float64)
+    a2 = a2 - a2.multiply((a > 0).astype(np.float64))  # drop 1-hop pairs
+    a2.eliminate_zeros()
+
+    def graph_of(mat) -> Graph:
+        coo = mat.tocoo()
+        ei = np.stack([coo.col, coo.row]).astype(np.int64)  # (src, dst)
+        return preprocess_graph(ei, num_nodes, undirected=False, self_loops=False,
+                                device=device)
+
+    return graph_of(a), graph_of(a2)

@@ -6,6 +6,7 @@ from sgformer_tpu_torch.nn.baselines import (  # noqa: F401
     GATJK,
     GCNJK,
     GPRGNN,
+    H2GCN,
     LINK,
     MLP,
     SGC,

@@ -14,7 +14,9 @@ On the card the models aggregate only through the port's kernels: the hop
 models through :meth:`Graph.propagate` (the CSR SpMM), ``LINK`` through the
 same kernel with unit weights, and ``GATConv`` through
 :meth:`Graph.propagate_edge_values` (the per-edge-value SpMM forward and for
-dx, the SDDMM for the values' gradient). ``H2GCN`` is not ported yet.
+dx, the SDDMM for the values' gradient). ``H2GCN`` aggregates through
+:meth:`Graph.propagate` on its two edge sets (``graph.build_h2_graphs``),
+which ``train.Trainer`` passes to every forward as ``model_kwargs``.
 """
 
 from __future__ import annotations
@@ -440,6 +442,57 @@ class GPRGNN(GraphModel):
             h = graph.propagate(h, kind="gcn")
             z = z + self.gamma[k] * h
         return z
+
+
+class H2GCN(GraphModel):
+    """Heterophily GCN: ego and neighbour embeddings kept apart over the
+    self-loop-free 1-hop (A1) and exact 2-hop (A2) neighbourhoods, each
+    round's two aggregations concatenated, every round's output joined for
+    the classifier. ``h2_graphs=(a1, a2)`` comes from
+    :func:`sgformer_tpu_torch.graph.build_h2_graphs`; both aggregations run
+    through :meth:`Graph.propagate` (the CSR SpMM kernel on the card).
+
+    As in the JAX module, the head keeps the reference's: bias-free
+    ``w_embed`` [in, hidden] and ``w_classify`` (flax's
+    ``xavier_uniform``, stored in the flax layout and applied as
+    ``x @ w``) and a softmax output, on which the trainer's log_softmax
+    then runs. The graph argument is unused."""
+
+    def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
+                 num_layers: int = 2, dropout: float = 0.5, relu: bool = True,
+                 softmax_output: bool = True, generator=None, dropout_generator=None,
+                 device="cuda"):
+        super().__init__()
+        self.FLAX_PARAMS = ("w_embed", "w_classify")
+        self.num_layers = num_layers
+        self.relu = relu
+        self.softmax_output = softmax_output
+        self.dropout = Dropout(dropout)
+        # each round doubles the width; z joins every round's output
+        width = hidden_channels * (2 ** (num_layers + 1) - 1)
+        self.w_embed = nn.Parameter(torch.empty(in_channels, hidden_channels))
+        self.w_classify = nn.Parameter(torch.empty(width, out_channels))
+        self.finish_init(generator, dropout_generator, device)
+
+    def reset_own_parameters(self, generator):
+        for p in (self.w_embed, self.w_classify):
+            p.copy_(glorot_uniform(tuple(p.shape), generator))
+
+    def forward(self, x, graph=None, node_mask=None, h2_graphs=None):
+        if h2_graphs is None:
+            raise ValueError("H2GCN needs h2_graphs=(a1_graph, a2_graph) from "
+                             "sgformer_tpu_torch.graph.build_h2_graphs")
+        a1, a2 = h2_graphs
+        h = x @ self.w_embed.to(x.dtype)
+        if self.relu:
+            h = torch.relu(h)
+        outs = [h]
+        for _ in range(self.num_layers):
+            h = torch.cat([a1.propagate(h, kind="gcn"), a2.propagate(h, kind="gcn")], dim=1)
+            outs.append(h)
+        z = self.dropout(torch.cat(outs, dim=1))
+        logits = z @ self.w_classify.to(z.dtype)
+        return torch.softmax(logits, dim=-1) if self.softmax_output else logits
 
 
 class MultiLP:

@@ -96,15 +96,20 @@ class Trainer:
       config: :class:`TrainConfig`.
       eval_func: metric on (labels, logits); ``METRICS[config.metric]`` by
         default.
+      model_kwargs: extra keyword arguments of every forward (the train
+        step, the eval and ``time_test``), as the JAX ``Trainer`` takes
+        them: ``H2GCN``'s ``h2_graphs``, on ``device``.
       device: where training runs; "cuda" unless the caller asks for "cpu".
     """
 
     def __init__(self, model, graph, x, label, config: TrainConfig,
-                 eval_func: Optional[Callable] = None, device="cuda"):
+                 eval_func: Optional[Callable] = None, model_kwargs: Optional[dict] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.config = config
         self.model = model.to(self.device)
         self.graph = graph.to(self.device)
+        self.model_kwargs = model_kwargs or {}
         self.eval_func = eval_func or METRICS[config.metric]
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, dtype=np.float32))
@@ -148,7 +153,7 @@ class Trainer:
         """Forward in train mode (dropout from the trainer's generator,
         BatchNorm statistics updated) and the loss on ``train_idx``."""
         self.model.train()
-        out = self.model(self.x, self.graph)
+        out = self.model(self.x, self.graph, **self.model_kwargs)
         if self.config.loss == "bce":
             return bce_loss(out, self.label_onehot, train_idx)
         return cross_entropy_loss(out, self.label, train_idx)
@@ -173,7 +178,7 @@ class Trainer:
         """[N, C] f32 logits in eval mode, without autograd."""
         self.model.eval()
         with torch.no_grad():
-            return self.model(self.x, self.graph)
+            return self.model(self.x, self.graph, **self.model_kwargs)
 
     # -- evaluation ----------------------------------------------------------
 

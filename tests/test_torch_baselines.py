@@ -2,7 +2,8 @@
 against the JAX package on the CPU, with the flax variables (randomised)
 copied in by ``load_flax_variables``: the forward and every parameter's
 gradient in eval mode, label propagation, and the parameter bridge for every
-ported model.
+ported model; ``H2GCN`` with its two edge sets from ``build_h2_graphs``
+(bitwise the JAX function's edges).
 
 f32 throughout and only the summation order differs; the zoo's tolerances of
 ``tests/test_baselines.py`` apply (forward 1e-4 relative / 1e-5 absolute,
@@ -19,6 +20,7 @@ import reference_numpy as ref
 from test_torch_gat import _flat
 from test_torch_modules import _randomize
 
+from sgformer_tpu.graph import build_h2_graphs as jax_build_h2_graphs
 from sgformer_tpu.graph import preprocess_graph as jax_preprocess_graph
 from sgformer_tpu.nn import GCN as JaxGCN
 from sgformer_tpu.nn import SGFormer as JaxSGFormer
@@ -27,6 +29,7 @@ from sgformer_tpu.nn import baselines as jz
 
 from sgformer_tpu_torch import load_flax_variables, preprocess_graph
 from sgformer_tpu_torch.convert import _plan
+from sgformer_tpu_torch.graph import build_h2_graphs
 from sgformer_tpu_torch.nn import (
     APPNP,
     GAT,
@@ -34,6 +37,7 @@ from sgformer_tpu_torch.nn import (
     GCN,
     GCNJK,
     GPRGNN,
+    H2GCN,
     LINK,
     MLP,
     SGC,
@@ -184,3 +188,88 @@ def test_reset_parameters_redraws_what_a_new_model_draws(name):
     gen = torch.Generator().manual_seed(2)
     model.set_dropout_generator(gen)
     assert all(m.generator is gen for m in model.modules() if hasattr(m, "rate"))
+
+
+# -- H2GCN -------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def h2_problem():
+    rng = np.random.default_rng(12)
+    # self-loops, duplicates and one direction only: build_h2_graphs drops,
+    # merges and symmetrises them
+    edge_index = np.concatenate([ref.random_graph(rng, N, 1200),
+                                 np.array([[5, 6, 6], [5, 7, 7]])], axis=1)
+    x = rng.standard_normal((N, F)).astype(np.float32)
+    jg = jax_preprocess_graph(edge_index, N)
+    g = preprocess_graph(edge_index, N, device="cpu")
+    return edge_index, x, jg, g, jax_build_h2_graphs(edge_index, N), \
+        build_h2_graphs(edge_index, N, device="cpu")
+
+
+def test_build_h2_graphs_matches_jax(h2_problem):
+    _, _, _, _, jh2, h2 = h2_problem
+    for jgr, gr in zip(jh2, h2):
+        for name in ("edge_src", "edge_dst", "indptr"):
+            np.testing.assert_array_equal(getattr(gr, name).numpy(),
+                                          np.asarray(getattr(jgr, name)), err_msg=name)
+        np.testing.assert_allclose(gr.gcn_weight.numpy(), np.asarray(jgr.gcn_weight),
+                                   rtol=1e-6, atol=0)
+        assert gr.num_edges == jgr.num_edges and not gr.symmetric
+        assert gr.t_indptr is not None and gr.t_hub_segments is not None
+        src, dst = gr.edge_src.numpy(), gr.edge_dst.numpy()
+        assert not (src == dst).any()  # no self-loop in either set
+    a1 = set(zip(*(t.numpy().tolist() for t in (h2[0].edge_src, h2[0].edge_dst))))
+    a2 = set(zip(*(t.numpy().tolist() for t in (h2[1].edge_src, h2[1].edge_dst))))
+    assert a1 and a2 and not a1 & a2  # the 2-hop set holds no 1-hop pair
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+def test_h2gcn_forward_and_gradients_match_jax(h2_problem, num_layers):
+    _, x, jg, g, jh2, h2 = h2_problem
+    jmodel = jz.H2GCN(H, C, num_layers=num_layers)
+    variables = _randomize(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x), jg, train=False,
+                                       h2_graphs=jh2), 5)
+    cot = np.random.default_rng(6).standard_normal((N, C)).astype(np.float32)
+
+    def loss(p, xx):
+        out = jmodel.apply({"params": p}, xx, jg, train=False, h2_graphs=jh2)
+        return jnp.sum(out * cot), out
+
+    (_, want), (grads, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(x))
+    model = load_flax_variables(H2GCN(F, H, C, num_layers=num_layers, **CPU),
+                                jax.tree.map(np.asarray, variables)).eval()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = model(xt, g, h2_graphs=h2)
+    (out * torch.from_numpy(cot)).sum().backward()
+
+    def close(got, want, what):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=what)
+
+    close(out.detach().numpy(), want, "forward")
+    close(xt.grad.numpy(), gx, "x")
+    for name in ("w_embed", "w_classify"):
+        close(getattr(model, name).grad.numpy(), grads[name], name)
+    with pytest.raises(ValueError, match="h2_graphs"):
+        model(xt, g)
+
+
+def test_h2gcn_parameters_bridge_and_reset(h2_problem):
+    _, x, jg, _, jh2, _ = h2_problem
+    variables = jax.tree.map(np.asarray, _randomize(
+        jz.H2GCN(H, C).init(jax.random.PRNGKey(1), jnp.asarray(x), jg, train=False,
+                            h2_graphs=jh2), 7))
+    model = load_flax_variables(H2GCN(F, H, C, **CPU), variables)
+    assert len(list(_plan(model))) == len(_flat(variables)) == 2
+    for path, tensor, transpose in _plan(model):
+        assert not transpose
+        np.testing.assert_array_equal(tensor.detach().numpy(), _flat(variables)[path])
+    model.reset_parameters(torch.Generator().manual_seed(11))
+    fresh = H2GCN(F, H, C, generator=torch.Generator().manual_seed(11), **CPU)
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters()))
+    # flax's xavier_uniform bound on the [in, out] weights
+    bound = np.sqrt(6.0 / (F + H))
+    assert 0.5 * bound < fresh.w_embed.abs().max().item() <= bound

@@ -2,7 +2,8 @@
 shapes the serving path does not reach: partial tiles, tail rows, rows of
 more than 32 edges, hub rows split into segments, isolated nodes and empty
 rows, strided heads, widths off the 16-byte path, several heads of
-per-edge values. Skipped without a CUDA card. This file imports no JAX, so it runs on a machine without it:
+per-edge values; and the trainers and the CLI's set-up on the card against
+the CPU. Skipped without a CUDA card. This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -1413,3 +1414,64 @@ def test_gat_eval_logits_are_bitwise_repeatable(cuda):
             first = model(x, g)
             for _ in range(5):
                 assert torch.equal(model(x, g), first)
+
+
+def _cli_build(device, *flags):
+    import argparse
+
+    from sgformer_tpu_torch.cli import main as cli
+
+    argv = ["--dataset", "synth-n1500-e9000-f16-c4", "--epochs", "2", "--rand_split",
+            "--hidden_channels", "32", "--dropout", "0", "--trans_dropout", "0",
+            "--gnn_dropout", "0", "--device", device, *flags]
+    return cli.build(cli.parser_add_main_args(argparse.ArgumentParser()).parse_args(argv))
+
+
+@pytest.mark.parametrize("flags", [("--trainer", "full"),
+                                   ("--trainer", "full", "--backbone", "graphconv",
+                                    "--slab_int8"),
+                                   ("--trainer", "batch", "--batch_size", "500"),
+                                   ("--trainer", "sampled", "--batch_size", "200"),
+                                   ("--trainer", "full", "--method", "h2gcn")])
+def test_cli_build_on_the_card_is_bitwise_the_cpu_build(cuda, flags):
+    """The CLI's set-up on the card gives the CPU's graph, edge list and
+    H2GCN edge sets, bitwise, and the same splits."""
+    card, cpu = _cli_build("cuda", *flags), _cli_build("cpu", *flags)
+    for k in ("train", "valid", "test"):
+        np.testing.assert_array_equal(card.splits[0][k], cpu.splits[0][k])
+    graphs = [(card.graph, cpu.graph)]
+    h2 = getattr(card.trainer, "model_kwargs", {}).get("h2_graphs")
+    if h2 is not None:
+        graphs += list(zip(h2, cpu.trainer.model_kwargs["h2_graphs"]))
+    for g, c in graphs:
+        if g is None:
+            continue
+        assert g.device.type == "cuda"
+        for name in ("edge_src", "edge_dst", "gcn_weight", "indptr", "t_indptr", "t_edge_src",
+                     "hub_segments", "rs", "pyg_src", "pyg_weight"):
+            a, b = getattr(g, name), getattr(c, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert torch.equal(a.cpu(), b), name
+    if card.edges is not None:
+        assert torch.equal(card.edges.cpu(), cpu.edges)
+
+
+@pytest.mark.parametrize("method", ["sgformer", "h2gcn"])
+def test_cli_full_trainer_on_the_card_matches_the_cpu(cuda, method):
+    """Through the CLI's set-up, from the same parameters (dropout 0, f32):
+    the eval logits within 1e-5 of the largest, and three train steps'
+    losses within 1e-5 relative (summation order only, compounded by Adam
+    steps)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        built = _cli_build(dev, "--trainer", "full", "--method", method)
+        trainer = built.trainer
+        trainer.init_state(0)
+        idx = trainer.prepare_train_idx(built.splits[0])
+        logits = trainer.eval_step().cpu()
+        losses = torch.stack([trainer.train_step(idx) for _ in range(3)]).cpu()
+        out[dev] = logits, losses
+    (lc, sc), (lp, sp) = out["cuda"], out["cpu"]
+    assert (lc - lp).abs().max().item() <= 1e-5 * lp.abs().max().item()
+    torch.testing.assert_close(sc, sp, rtol=1e-5, atol=0)

@@ -58,7 +58,7 @@ def test_sources_use_no_library_for_the_kernels_work():
     assert not found, found
     modules = {m.name for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__)}
     assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert", "train",
-            "utils", "microbench", "sample"} <= modules
+            "utils", "microbench", "sample", "cli"} <= modules
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
