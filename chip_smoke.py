@@ -129,7 +129,7 @@ JAX package. Phases, each failing loudly:
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9, 11, 12, 13 and 15 launched a probe;
+   also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15 and 16 launched a probe;
    the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
 15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
    the repo's recipes, their flags read verbatim from the port's recipe
@@ -147,7 +147,22 @@ JAX package. Phases, each failing loudly:
    epoch, the best state saved); H2GCN (hidden 64, 2 rounds) on that
    graph through the CLI's set-up: its step against the plain step (f32:
    loss 1e-5, gradients 1e-4), 8 ``csr_spmm`` a step and 4 a forward, its
-   eval logits against the plain forward, and a ``--time_test``.
+   eval logits against the plain forward, and a ``--time_test``;
+16. the zoo (after 15, before 14): the attention ablations and the
+   graph-transformer zoo through ``cli.main`` on seeded data of Cora's
+   sizes (2,708 nodes, 10,556 directed edges, 1,433 binary features, 7
+   classes; Planetoid npz) and the filtered squirrel's (2,223 nodes, 46,998
+   edges, 2,089 features, 5 classes, 10 split masks; wiki_new npz):
+   ablation-cli-train, ``recipes/ablation.sh``'s flags verbatim for each of
+   simple, softmax, gat and performer; squirrel-difformer-train,
+   ``recipes/medium.sh``'s squirrel DIFFormer run; NodeFormer, GraphGPS,
+   GraphTrans and Graphormer with the JAX CLI's defaults. 20 epochs and 1
+   run each, width uncut. For each: one step against the plain step (f32:
+   loss 1e-5, gradients 1e-4), exact launches of a step and a forward (each
+   ``propagate`` one ``csr_spmm`` forward and one backward; the attention
+   kernels once each for ``simple`` only), the eval logits against the
+   plain forward (1e-5 of the largest), the run's launches and losses (the
+   last 3 below the first), ``--time_test`` and a profile of one step.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -330,6 +345,68 @@ H2GCN_FORWARD_LAUNCHES = dict(H2GCN_STEP_LAUNCHES, csr_spmm=4)
 # order only
 H2GCN_LOSS_RTOL = 1e-5
 H2GCN_GRAD_RTOL = 1e-4
+
+# the zoo phase: the attention ablations and the graph-transformer zoo
+# through the CLI, on seeded data of the shapes the repo's recipes name,
+# written in the layouts the port's loaders read: Cora (Planetoid npz) and
+# the filtered squirrel (wiki_new npz with its 10 split masks)
+ZOO_CORA = dict(num_nodes=2708, num_edges=10556, num_features=1433, num_classes=7)
+ZOO_SQUIRREL = dict(num_nodes=2223, num_edges=46998, num_features=2089, num_classes=5)
+# the recipes' 500 epochs and 5 or 10 runs, cut to 20 epochs and 1 run
+ZOO_EPOCHS = 20
+ZOO_CUT = ["--runs", "1", "--epochs", str(ZOO_EPOCHS), "--display_step", "-1"]
+ZERO_LAUNCHES = dict.fromkeys(STEP_LAUNCHES, 0)
+SIMPLE_ATTENTION = {"linear_attention_reduce": 1, "linear_attention_apply": 1,
+                    "linear_attention_bwd_reduce": 1, "linear_attention_bwd_apply": 1}
+# run -> (flags after the recipe's, csr_spmm a train step, attention kernels
+# a step (the 'simple' control only), parameters whose exact gradient is 0 ->
+# the parameter whose gradient they are held to, as in bench_model): each
+# propagate is one csr_spmm forward and one on the transpose in the backward
+ZOO_RUNS = {
+    # the ablations: the GCN biases before a train-mode BatchNorm; and the
+    # key bias, which shifts every score of a row alike (gat: a softmax over
+    # the sources does not see it, its exact gradient is 0; softmax and
+    # performer: nearly so), held to the key weight's
+    **{f"ablation-{k}": (["ablation.sh", k], 8, SIMPLE_ATTENTION if k == "simple" else {}, {
+        **{f"gcn.conv_{i}.bias": f"gcn.bn_{i}.bias" for i in range(3)},
+        **({} if k == "simple" else
+           {"trans_conv.conv_0.Wk.bias": "trans_conv.conv_0.Wk.weight"})})
+       for k in ("simple", "softmax", "gat", "performer")},
+    # 8 DIFFormer layers, one value GCN each; a key bias's exact gradient
+    # nearly cancels over the rows (a shift of every key moves the globally
+    # normalised attention little: ~1e-2 of the key weight's gradient), so
+    # it is held to the key weight's
+    "squirrel-difformer": (["medium.sh", "difformer"], 16, {},
+                           {f"conv_{i}.Wk.bias": f"conv_{i}.Wk.weight" for i in range(8)}),
+    # the JAX CLI's defaults (hidden 32, 2 layers, 1 head, dropout 0.5):
+    # NodeFormer's 2 layers aggregate on A+I and (A+I)^2, GraphGPS's and
+    # GraphTrans's 2 GCN layers once each, Graphormer none
+    "nodeformer": (["--method", "nodeformer"], 8, {}, {}),
+    # GraphGPS: the local GCN's bias feeds a train-mode BatchNorm, whose
+    # own shift feeds the layer's last BatchNorm, so both gradients are
+    # near 0: the bias is held to the GCN kernel's; q and k enter FAVOR+ only
+    # through ratios of their random features, whose common factors cancel
+    # (their gradients ~1e-1 to 1e-2 of v's), so they are held to v's
+    "graphgps": (["--method", "graphgps"], 4, {}, {
+        **{f"layer_{i}.local.bias": f"layer_{i}.local.kernel" for i in range(2)},
+        **{f"layer_{i}.self_attn.to_{w}.weight": f"layer_{i}.self_attn.to_v.weight"
+           for i in range(2) for w in "qk"}}),
+    # GraphTrans and Graphormer: a key bias adds the same q.b to every score
+    # of a row, which a softmax over the keys does not see (exact gradient
+    # 0), held to the key kernel's; GraphTrans's first GCN bias feeds a
+    # train-mode BatchNorm
+    "graphtrans": (["--method", "graphtrans"], 4, {}, {
+        "gnn.conv_0.bias": "gnn.bn_0.bias",
+        **{f"layer_{i}.self_attn.key.bias": f"layer_{i}.self_attn.key.kernel"
+           for i in range(3)}}),
+    "graphormer": (["--method", "graphormer"], 0, {},
+                   {f"layer_{i}.k.bias": f"layer_{i}.k.kernel" for i in range(2)}),
+}
+# one step through the kernels against the plain step, and the eval logits
+# against the plain forward: f32, summation order only
+ZOO_LOSS_RTOL = 1e-5
+ZOO_GRAD_RTOL = 1e-4
+ZOO_LOGITS_RTOL = 1e-5
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -1436,7 +1513,7 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     the slices' partials, ``la_scalars_kernel``) also timed apart, with the
     slices. Every attention kernel runs its tensor-core design in both
     types (f32 in 3xTF32), logged at each shape: each at the shapes a batch
-    path gives it."""
+    path gives it; ``csr_spmm`` also beside ``torch.sparse.mm``."""
     from sgformer_tpu_torch.kernels import attention as attn
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
@@ -1523,8 +1600,16 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
     results[(key, "linear_attention_reduce", name_t, n)].update(
         main_ms=passes[first], finish_ms=passes["la_finish_kernel"],
         scalars_ms=passes["la_scalars_kernel"], slices=slices)
-    results[(key, "csr_spmm", name_t, n)]["edges"] = e
-    del q, k, v, g, sums, red
+    # csr_spmm's library yardstick at the batch's shape: torch.sparse.mm
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_csr_tensor(graph_b.indptr, graph_b.edge_src,
+                                    graph_b.gcn_weight.to(dtype), size=(n, n))
+    library_ms = library_time(f"{key} torch.sparse.mm {name_t} n={n}",
+                              lambda: torch.sparse.mm(a, q))
+    log(f"{key} csr_spmm {name_t} n={n}: torch.sparse.mm {library_ms} ms")
+    results[(key, "csr_spmm", name_t, n)].update(edges=e, library_ms=library_ms)
+    del q, k, v, g, sums, red, a
     torch.cuda.empty_cache()
 
 
@@ -1994,8 +2079,10 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
 
 def recipe_flags(recipe: str, block: str) -> list:
     """The flags of one run of a port recipe (``sgformer_tpu_torch/recipes/
-    <recipe>``): its ``RUN=`` prefix without the interpreter, then the lines
-    of the run that starts with ``block``, without ``"$@"``."""
+    <recipe>``), the lines of the run that starts with ``block`` without
+    ``"$@"``: after the recipe's ``RUN=`` prefix without the interpreter
+    when the run starts with ``$RUN``, else after its own ``python -m
+    sgformer_tpu_torch.cli.main``."""
     import os
     import shlex
 
@@ -2004,11 +2091,14 @@ def recipe_flags(recipe: str, block: str) -> list:
     with open(path) as f:
         text = f.read().replace("\\\n", " ")
     lines = text.splitlines()
+    module = ["python", "-m", "sgformer_tpu_torch.cli.main"]
+    body = shlex.split(next(ln for ln in lines if ln.startswith(block)))
+    if body[:3] == module:
+        return [a for a in body[3:] if a != "$@"]
     run = next(ln for ln in lines if ln.startswith("RUN="))
     prefix = shlex.split(run[len("RUN="):].strip().strip('"'))
-    assert prefix[:3] == ["python", "-m", "sgformer_tpu_torch.cli.main"], prefix
-    body = next(ln for ln in lines if ln.startswith(block))
-    return prefix[3:] + [a for a in shlex.split(body)[1:] if a != "$@"]
+    assert prefix[:3] == module, prefix
+    return prefix[3:] + [a for a in body[1:] if a != "$@"]
 
 
 def write_ogb_arxiv(ds, root: str) -> dict:
@@ -2220,6 +2310,186 @@ def cli_phase(ds, results: dict, dev: str) -> dict:
     out["h2gcn"], out["h2gcn_step"], out["h2gcn_forward"] = counts, per_step, per_forward
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    return out
+
+
+def write_zoo_data(root: str) -> None:
+    """Seeded data of Cora's and the filtered squirrel's sizes in the
+    layouts the port's loaders read: ``cora.npz`` (Planetoid: binary
+    bag-of-words features, each undirected edge listed both ways, labels)
+    and ``wiki_new/squirrel/squirrel_filtered.npz`` (binary features, its
+    directed edges, labels and 10 masks of a 48/32/20 split). Labels are
+    uniform; three quarters of the edges join nodes of one class, and each
+    class has its own 60 frequent words."""
+    import os
+
+    import numpy as np
+
+    def graph(n, e, f, c, rng):
+        label = rng.integers(0, c, n)
+        src = rng.integers(0, n, e)
+        order = np.argsort(label, kind="stable")
+        starts = np.searchsorted(label[order], np.arange(c))
+        sizes = np.bincount(label, minlength=c)
+        pick = order[starts[label[src]] + (rng.random(e) * sizes[label[src]]).astype(np.int64)]
+        dst = np.where(rng.random(e) < 0.75, pick, rng.integers(0, n, e))
+        words = np.zeros((c, f), dtype=bool)
+        for k in range(c):
+            words[k, rng.choice(f, 60, replace=False)] = True
+        feat = rng.random((n, f)) < np.where(words[label], 0.15, 0.008)
+        return label, np.stack([src, dst]), feat.astype(np.float32)
+
+    rng = np.random.default_rng(0)
+    cora = ZOO_CORA
+    label, pairs, feat = graph(cora["num_nodes"], cora["num_edges"] // 2,
+                               cora["num_features"], cora["num_classes"], rng)
+    edges = np.concatenate([pairs, pairs[::-1]], axis=1)
+    os.makedirs(root, exist_ok=True)
+    np.savez(os.path.join(root, "cora.npz"), node_features=feat, edges=edges,
+             node_labels=label)
+    sq = ZOO_SQUIRREL
+    label, edges, feat = graph(sq["num_nodes"], sq["num_edges"], sq["num_features"],
+                               sq["num_classes"], rng)
+    n = sq["num_nodes"]
+    masks = np.zeros((3, 10, n), dtype=bool)
+    for i in range(10):
+        for j, part in enumerate(np.split(rng.permutation(n), (int(0.48 * n), int(0.8 * n)))):
+            masks[j, i, part] = True
+    base = os.path.join(root, "wiki_new", "squirrel")
+    os.makedirs(base, exist_ok=True)
+    np.savez(os.path.join(base, "squirrel_filtered.npz"), node_features=feat, edges=edges,
+             node_labels=label, train_masks=masks[0], val_masks=masks[1], test_masks=masks[2])
+
+
+def zoo_argv(name: str, root: str) -> list:
+    """The CLI flags of a zoo run: the recipe's verbatim (the ablation's
+    with its kernel for ``$KERNEL``, the squirrel DIFFormer run's) or the
+    JAX CLI's defaults with the method, on the files under ``root``, cut by
+    ``ZOO_CUT``."""
+    flags = ZOO_RUNS[name][0]
+    if flags[0] == "ablation.sh":
+        argv = [flags[1] if a == "$KERNEL" else a
+                for a in recipe_flags("ablation.sh", "$RUN --backbone gcn --dataset cora")]
+    elif flags[0] == "medium.sh":
+        argv = recipe_flags("medium.sh", "python -m sgformer_tpu_torch.cli.main --trainer full "
+                                         "--method difformer")
+    else:
+        argv = ["--trainer", "full", "--dataset", "cora"] + flags
+    return argv + ["--data_dir", root] + ZOO_CUT
+
+
+def zoo_phase(results: dict, dev: str) -> dict:
+    """The attention ablations and the graph-transformer zoo through the
+    port's CLI (``cli.main``) on the card: ablation-cli-train, the
+    ``recipes/ablation.sh`` flags verbatim for each of simple, softmax, gat
+    and performer on Cora's sizes; squirrel-difformer-train,
+    ``recipes/medium.sh``'s squirrel DIFFormer run on the filtered
+    squirrel's; NodeFormer, GraphGPS, GraphTrans and Graphormer with the JAX
+    CLI's defaults on Cora's (no recipe names them). 20 epochs and 1 run of
+    each (the recipes' 500 and 5 or 10), width uncut. For each: (a) one
+    train step through the kernels against the plain step, same weights and
+    dropout masks (and NodeFormer's draws), f32: loss 1e-5, gradients 1e-4;
+    (b) the launches of one step and one forward, exact; the eval logits
+    against the plain forward's within 1e-5 of the largest, argmax 99 %;
+    (c) the run through ``main``: launches (epochs x a step's + evals x a
+    forward's), every step's loss (the last 3 below the first), the
+    statistics; (d) ``--time_test``: step and forward ms, peak MiB, and a
+    profile of one step (device busy). Returns each run's launches."""
+    import argparse
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.cli import main as cli
+    from sgformer_tpu_torch.train import trainer as trainer_module
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "zoo-data")
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    write_zoo_data(root)
+    log(f"zoo: Cora-sized and squirrel-sized files written in {time.perf_counter() - t:.1f} s")
+    parser = cli.parser_add_main_args(argparse.ArgumentParser())
+    out = {}
+    results["zoo"] = {}
+    for name, (_, spmm_step, attention_step, scale_of) in ZOO_RUNS.items():
+        t_run = time.perf_counter()
+        argv = zoo_argv(name, root)
+        log(f"zoo {name}: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
+        step_want = dict(ZERO_LAUNCHES, csr_spmm=spmm_step, **attention_step)
+        forward_want = dict(step_want, csr_spmm=spmm_step // 2, linear_attention_bwd_reduce=0,
+                            linear_attention_bwd_apply=0)
+
+        # (a), (b) through the CLI's set-up
+        t = time.perf_counter()
+        built = cli.build(parser.parse_args(argv))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        trainer = built.trainer
+        n, c = built.ds.num_nodes, built.ds.num_classes
+        train_idx = trainer.prepare_train_idx(built.splits[0])
+        trainer.init_state(0)
+        params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"zoo {name}: {type(trainer.model).__name__}, {params} parameters, N = {n}, "
+            f"E = {trainer.graph.num_edges}, set-up {setup_s:.2f} s")
+        check_step(f"zoo {name}", trainer.model, trainer.generator,
+                   lambda: trainer.loss(train_idx), ZOO_LOSS_RTOL, ZOO_GRAD_RTOL, scale_of)
+        counted(f"one zoo {name} step", lambda: trainer.train_step(train_idx), step_want)
+        logits, _ = counted(f"one zoo {name} eval_step", trainer.eval_step, forward_want)
+        with plain_versions():
+            ref = trainer.eval_step()
+        check_logits(f"zoo {name} eval", logits, ref, (n, c), (0.0, ZOO_LOGITS_RTOL))
+        del built, trainer, logits, ref
+
+        # (c) the run through main(), every step's loss recorded
+        losses = []
+        step = trainer_module.Trainer.train_step
+
+        def recording(self, idx):
+            loss = step(self, idx)
+            losses.append(loss)
+            return loss
+
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with mock.patch.object(trainer_module.Trainer, "train_step", recording):
+            logger = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        evals = len(logger.results[0])
+        want = {k: v * ZOO_EPOCHS + evals * forward_want[k] for k, v in step_want.items()}
+        losses = torch.stack(losses).tolist()
+        stats = logger.statistics()
+        log(f"zoo {name}: {run_s:.2f} s for {ZOO_EPOCHS} epochs and {evals} evals (set-up "
+            f"included); launches {counts}; losses first {losses[0]:.6f}, last 3 "
+            f"{[round(x, 6) for x in losses[-3:]]}; statistics {stats}")
+        if counts != want:
+            raise AssertionError(f"zoo {name}: launch counts {counts}, expected {want}")
+        if len(losses) != ZOO_EPOCHS or not all(np.isfinite(losses)) \
+                or not sum(losses[-3:]) / 3 < losses[0]:
+            raise AssertionError(f"zoo {name}: the loss did not fall ({losses})")
+
+        # (d) --time_test on the same flags, and a profile of one step
+        res = cli.main(argv + ["--time_test"])
+        torch.cuda.synchronize()
+        log(f"zoo {name} --time_test: {res.per_epoch_ms:.3f} ms per train step over "
+            f"{ZOO_EPOCHS} steps, forward {res.forward_ms:.3f} ms, peak memory "
+            f"{res.peak_memory_mb:.1f} MiB on {res.device} ({card_line()})")
+        built = cli.build(parser.parse_args(argv))
+        built.trainer.init_state(0)
+        idx = built.trainer.prepare_train_idx(built.splits[0])
+        wall, busy = profile_device(f"zoo {name} step", lambda: built.trainer.train_step(idx), 3)
+        del built
+        results["zoo"][name] = dict(step_ms=res.per_epoch_ms, forward_ms=res.forward_ms,
+                                    peak_mib=res.peak_memory_mb, busy_share=busy / wall,
+                                    run_s=run_s, setup_s=setup_s, losses=losses,
+                                    final_test=stats["final_test"])
+        out[name] = counts
+        torch.cuda.empty_cache()
+        log(f"zoo {name}: {time.perf_counter() - t_run:.1f} s in all")
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -2436,6 +2706,7 @@ def main() -> int:
     amazon2m_batch = amazon2m_batch_phase(results, "cuda")
     papers = papers_sampled_phase(results, "cuda")
     cli_counts = cli_phase(ds, results, "cuda")
+    zoo_counts = zoo_phase(results, "cuda")
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -2536,8 +2807,9 @@ def main() -> int:
                       if k.endswith("ms") or k in ("max_abs_err", "bound_by")})
             r.update(powerlaw_launches=pl_counts[name],
                      powerlaw_launches_per_train_step=pl_step[name])
-        # the CLI's runs (the recipes and H2GCN)
+        # the CLI's runs (the recipes and H2GCN) and the zoo's
         r.update({f"cli_{what}_launches": c[name] for what, c in cli_counts.items()})
+        r.update({f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()})
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
@@ -2561,6 +2833,7 @@ def main() -> int:
             "replaces": f"sgformer_tpu/kernels/{replaces}", "launches": q8_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
             **r, **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
+            **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
         })
     # the timing probes: launches from their own runs; per forward and per
     # step as counted on large-400K-int8-train (no model path runs them, and
@@ -2573,6 +2846,7 @@ def main() -> int:
             "replaces": replaces, "launches": probe_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
             **results[name], **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
+            **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,13 @@ onto the card:
   so ``auto`` never does here. With ``--use_pallas`` the JAX graph's
   fixed-weight aggregation also sends ``--chunk_dtype`` messages; the
   port's keeps x's type.
-- ``--trainer sharded``, ``--use_halo``, the methods not ported yet and
-  ``--sampler_workers`` above 0 raise NotImplementedError naming
-  ``ROADMAP.md``.
+- ``--trainer sharded``, ``--use_halo`` and ``--sampler_workers`` above 0
+  raise NotImplementedError naming ``ROADMAP.md``.
+
+NodeFormer's adjacency powers (``build_nodeformer_graphs``) and
+Graphormer's inputs (``graphormer_inputs`` of the features' ``x > 0``) are
+built from the dataset's edges as the JAX CLI builds them, and placed on
+the device once.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from sgformer_tpu_torch.graph import (
     remove_self_loops,
     to_undirected,
 )
+from sgformer_tpu_torch.nn import build_nodeformer_graphs, graphormer_inputs, inputs_to
 from sgformer_tpu_torch.train import (
     BatchTrainConfig,
     BatchTrainer,
@@ -204,7 +209,8 @@ def build(args) -> Built:
         seed=args.seed,
         display_step=args.display_step,
     )
-    needs_pyg = args.method in ("gcn", "gcnjk") or (ours and args.backbone == "gcn")
+    needs_pyg = (args.method in ("gcn", "gcnjk", "graphtrans", "graphgps")
+                 or (ours and args.backbone == "gcn"))
     edge_index = ds.graph["edge_index"]
     edges = graph = None
 
@@ -215,6 +221,12 @@ def build(args) -> Built:
         model_kwargs = {}
         if args.method == "h2gcn":
             model_kwargs["h2_graphs"] = build_h2_graphs(edge_index, n, device=dev)
+        elif args.method == "nodeformer":
+            model_kwargs["adjs"] = build_nodeformer_graphs(edge_index, n, rb_order=2,
+                                                           device=dev)
+        elif args.method == "graphormer":
+            atoms = (x > 0).numpy().astype(np.int64)
+            model_kwargs["inputs"] = inputs_to(graphormer_inputs(edge_index, atoms, n), dev)
         trainer = Trainer(model, graph, x, ds.label, TrainConfig(**common),
                           model_kwargs=model_kwargs, device=dev)
     elif args.trainer == "batch":

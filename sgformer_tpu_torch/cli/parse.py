@@ -7,8 +7,10 @@ layout flags (``--use_pallas``, ``--spmm_mode``, ``--hub_rows``,
 ``--slab_dtype auto``, ``--attention_impl``) are accepted so that the
 recipes run unchanged; ``cli/main.py`` says what each maps to.
 :func:`parse_method` builds the port's modules, each with an explicit
-``in_channels``, a CPU generator seeded ``--seed`` and the device. A method
-the port does not have yet raises NotImplementedError naming ``ROADMAP.md``.
+``in_channels``, a CPU generator seeded ``--seed`` and the device: every
+``--method`` and ``--attention`` of the JAX CLI. The node-sharded trainer
+(``--trainer sharded``, ``--use_halo``) raises NotImplementedError naming
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,6 @@ from __future__ import annotations
 import argparse
 
 import torch
-
-# methods of the JAX CLI whose modules are not ported yet (ROADMAP.md §1)
-UNPORTED_METHODS = ("difformer", "nodeformer", "graphtrans", "graphgps", "graphormer")
 
 
 def parser_add_main_args(parser: argparse.ArgumentParser):
@@ -189,6 +188,7 @@ def parse_method(args, n: int, c: int, d: int):
     ``args.device``."""
     from sgformer_tpu_torch.nn import (
         APPNP,
+        DIFFormer,
         GAT,
         GATJK,
         GCN,
@@ -200,7 +200,11 @@ def parse_method(args, n: int, c: int, d: int):
         SGC,
         SGC2,
         SIGN,
+        GraphGPS,
+        Graphormer,
+        GraphTrans,
         MixHop,
+        NodeFormer,
         SGFormer,
         SGFormerConfig,
     )
@@ -210,16 +214,9 @@ def parse_method(args, n: int, c: int, d: int):
         raise NotImplementedError(
             "--trainer sharded and --use_halo: the node-sharded trainer is not "
             "ported yet (ROADMAP.md §1, parallel/)")
-    if method in UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"--method {method}: not ported yet (ROADMAP.md §1, the rest of the zoo)")
     use_bn = not args.no_bn
     port = dict(generator=torch.Generator().manual_seed(args.seed), device=args.device)
     if method in ("sgformer", "ours"):
-        if args.attention != "simple":
-            raise NotImplementedError(
-                f"--attention {args.attention}: the ablation attention kernels are not "
-                "ported yet (ROADMAP.md §1, the ablation attentions)")
         cfg = SGFormerConfig(
             hidden_channels=args.hidden_channels,
             out_channels=c,
@@ -281,6 +278,25 @@ def parse_method(args, n: int, c: int, d: int):
         return GPRGNN(d, args.hidden_channels, c, dropout=args.dropout, **port)
     if method == "link":
         return LINK(n, c, **port)
+    if method == "difformer":
+        return DIFFormer(d, args.hidden_channels, c, num_layers=args.num_layers,
+                         num_heads=args.num_heads, alpha=args.alpha, dropout=args.dropout,
+                         use_bn=use_bn, **port)
+    if method == "nodeformer":
+        return NodeFormer(d, args.hidden_channels, c, num_layers=args.num_layers,
+                          num_heads=args.num_heads, dropout=args.dropout, use_bn=use_bn,
+                          rb_order=2, **port)
+    if method == "graphtrans":
+        return GraphTrans(d, args.hidden_channels, c, num_layers=args.num_layers,
+                          dropout=args.dropout, use_bn=use_bn, **port)
+    if method == "graphgps":
+        return GraphGPS(d, args.hidden_channels, c, num_layers=args.num_layers,
+                        num_heads=max(args.num_heads, 1), dropout=args.dropout,
+                        use_bn=use_bn, **port)
+    if method == "graphormer":
+        return Graphormer(d, c, embed_dim=args.hidden_channels, num_layers=args.num_layers,
+                          num_heads=max(args.num_heads, 1), dropout=args.dropout,
+                          attn_dropout=args.dropout, **port)
     if method == "h2gcn":
         return H2GCN(d, args.hidden_channels, c, num_layers=args.num_layers,
                      dropout=args.dropout, **port)

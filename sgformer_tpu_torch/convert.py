@@ -19,10 +19,21 @@ port's submodules carry the flax names (``trans_conv.conv_0.Wq``,
   ``MixHopLayer.lin_{j}_kernel`` [in, out] and ``lin_{j}_bias``;
   ``LINK.weight`` [N, C] and ``bias``; ``GPRGNN.gamma`` [K + 1];
   ``H2GCN.w_embed`` [in, hidden] and ``w_classify`` [width, C] (applied as
-  ``x @ w``).
+  ``x @ w``); ``DenseGeneral.kernel`` [*in, *out] (flax
+  ``MultiHeadDotProductAttention``'s 3-D ``query``/``key``/``value``/``out``
+  kernels) and ``bias``; ``NodeFormerConv.b`` [rb_order, H];
+  ``QuantNoiseLinear.kernel`` [in, out] and ``bias``; ``Graphormer``'s
+  ``graph_token``, ``graph_token_virtual_distance`` and
+  ``lm_output_learned_bias``;
+- ``Embed`` (an ``nn.Embedding``): ``embedding`` -> ``weight``;
+- buffers that flax keeps in ``batch_stats``, listed by the module in
+  ``FLAX_BATCH_STATS``: ``PerformerSelfAttention.projection`` [M, D].
 
 A key the module lacks, or a module tensor the tree lacks, raises KeyError;
-a shape that differs raises ValueError.
+a shape that differs raises ValueError. Buffers outside the state dict (a
+fixed random projection that the JAX package draws from a fixed key rather
+than keeping as a variable) have no flax counterpart and are left as they
+are.
 """
 
 from __future__ import annotations
@@ -64,8 +75,12 @@ def _plan(model: nn.Module):
             yield ("params",) + path + ("bias",), mod.bias, False
             yield ("batch_stats",) + path + ("mean",), mod.running_mean, False
             yield ("batch_stats",) + path + ("var",), mod.running_var, False
+        elif isinstance(mod, nn.Embedding):
+            yield ("params",) + path + ("embedding",), mod.weight, False
         for pname in getattr(mod, "FLAX_PARAMS", ()):
             yield ("params",) + path + (pname,), getattr(mod, pname), False
+        for bname in getattr(mod, "FLAX_BATCH_STATS", ()):
+            yield ("batch_stats",) + path + (bname,), getattr(mod, bname), False
 
 
 def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
@@ -88,8 +103,9 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             filled.add(id(tensor))
     if flat:
         raise KeyError(f"unknown flax variables: {sorted('/'.join(p) for p in flat)}")
+    state = model.state_dict()
     missing = [n for n, t in list(model.named_parameters()) + list(model.named_buffers())
-               if id(t) not in filled]
+               if id(t) not in filled and n in state]
     if missing:
         raise KeyError(f"module tensors with no flax counterpart: {missing}")
     return model

@@ -75,13 +75,30 @@ class LayerNorm(nn.LayerNorm):
         ).to(x.dtype)
 
 
-class Dropout(nn.Module):
+class Draws(nn.Module):
+    """A module that draws random numbers in train mode (dropout masks,
+    NodeFormer's projections and Gumbel noise, Graphormer's layer drop and
+    quantisation noise) from ``generator``, a ``torch.Generator`` on the
+    model's device that :meth:`GraphModel.set_dropout_generator` sets. A
+    draw without one raises, so no draw comes from torch's global
+    generator. The JAX package draws from JAX keys, so the two never draw
+    the same numbers."""
+
+    generator: torch.Generator | None = None
+
+    def draw_generator(self) -> torch.Generator:
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__} in train mode needs an explicit torch.Generator "
+                "(SGFormer(..., dropout_generator=...) or set_dropout_generator)"
+            )
+        return self.generator
+
+
+class Dropout(Draws):
     """Inverted dropout: the identity in eval mode; in train mode each
     element is kept with probability ``1 - rate`` and scaled by its inverse.
-    The mask is drawn from ``generator``, which must be on x's device; a
-    train-mode call that would draw a mask without one raises, so no mask
-    comes from torch's global generator. The JAX package's masks come from
-    JAX keys, so the two never give the same mask."""
+    The mask is drawn from ``generator``, which must be on x's device."""
 
     def __init__(self, rate: float, generator: torch.Generator | None = None):
         super().__init__()
@@ -93,14 +110,55 @@ class Dropout(nn.Module):
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
-        if self.generator is None:
-            raise RuntimeError(
-                "Dropout in train mode needs an explicit torch.Generator "
-                "(SGFormer(..., dropout_generator=...) or set_dropout_generator)"
-            )
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
+        mask = torch.rand(x.shape, device=x.device, generator=self.draw_generator()) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed``: a [num, features] table drawn N(0, 1/features)
+    (flax's default embedding init) from a CPU generator (nn.Embedding's
+    own init, without one, draws nothing: the model's reset draws it)."""
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        if generator is not None:
+            self.weight.copy_(torch.randn(self.weight.shape, generator=generator)
+                              / math.sqrt(self.weight.shape[1]))
+
+
+class DenseGeneral(nn.Module):
+    """flax ``nn.DenseGeneral`` as ``MultiHeadDotProductAttention`` uses it,
+    with its parameters in the flax layout: ``kernel`` [*in_shape,
+    *out_shape] and ``bias`` [*out_shape], the kernel drawn from flax's
+    ``lecun_normal`` (a normal truncated at two deviations, fan-in the
+    product of ``in_shape``) and the bias 0. Contracts x's last
+    ``len(in_shape)`` axes."""
+
+    FLAX_PARAMS = ("kernel", "bias")
+
+    def __init__(self, in_shape: tuple, out_shape: tuple):
+        super().__init__()
+        self.n_in = len(in_shape)
+        self.kernel = nn.Parameter(torch.empty(*in_shape, *out_shape))
+        self.bias = nn.Parameter(torch.empty(*out_shape))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = math.prod(self.kernel.shape[: self.n_in])
+        # flax's variance_scaling: the truncated normal's deviation corrected
+        # to the target's
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        self.kernel.copy_(nn.init.trunc_normal_(torch.empty(self.kernel.shape), std=std,
+                                                a=-2.0 * std, b=2.0 * std, generator=generator))
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_shape = self.kernel.shape[self.n_in:]
+        in_size = math.prod(self.kernel.shape[: self.n_in])
+        k = self.kernel.to(x.dtype).reshape(in_size, -1)
+        y = torch.einsum("...i,io->...o", x.reshape(*x.shape[: x.ndim - self.n_in], in_size), k)
+        return y.reshape(*y.shape[:-1], *out_shape) + self.bias.to(y.dtype)
 
 
 class GraphModel(nn.Module):
@@ -113,9 +171,10 @@ class GraphModel(nn.Module):
     reset from a generator seeded s."""
 
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
-        """Draw every dropout mask from ``generator`` from now on."""
+        """Draw every dropout mask and every other train-mode draw (each
+        :class:`Draws` module's) from ``generator`` from now on."""
         for mod in self.modules():
-            if isinstance(mod, Dropout):
+            if isinstance(mod, Draws):
                 mod.generator = generator
 
     def finish_init(self, generator: torch.Generator | None,

@@ -1,10 +1,22 @@
-"""TransConv, the global linear-attention branch of SGFormer: the port of
+"""TransConv, the global attention branch of SGFormer: the port of
 ``sgformer_tpu/nn/transconv.py``.
 
-Only the ``"simple"`` kernel (SGFormer's O(N) linear attention) is ported;
-it runs through the reduce and apply kernels on the card. The ablation
-kernels (``"softmax"``, ``"gat"``, ``"performer"``) raise
-NotImplementedError until they are ported.
+``kernel`` selects the attention:
+
+- ``"simple"``: SGFormer's O(N) linear attention, through the reduce and
+  apply kernels on the card (the default);
+- ``"softmax"``: full softmax attention, O(N^2);
+- ``"gat"``: scaled dot-product attention, O(N^2);
+- ``"performer"``: NodeFormer's positive-random-feature kernel, O(N*M).
+
+The three ablations are the plain PyTorch of
+:mod:`sgformer_tpu_torch.ops.attention_variants`, as the JAX package
+computes them in XLA. Performer's projection is the buffer ``projection``
+[2*D, D], drawn once from a CPU generator seeded 0: the counterpart of the
+JAX layer's fixed ``PRNGKey(performer_seed)`` at its defaults (2*D
+features, seed 0, which no caller changes), the same projection on every
+call and in every run. It is no flax variable, so it is not in the state
+dict; a test overwrites it with the JAX draw.
 """
 
 from __future__ import annotations
@@ -15,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from sgformer_tpu_torch.kernels import attention as _attention_kernel
 from sgformer_tpu_torch.nn.layers import Dropout, LayerNorm, TorchLinear
+from sgformer_tpu_torch.ops import attention_variants as variants
 from sgformer_tpu_torch.ops.attention import linear_attention
 
 ATTENTION_KERNELS = ("simple", "softmax", "gat", "performer")
@@ -23,14 +36,10 @@ ATTENTION_KERNELS = ("simple", "softmax", "gat", "performer")
 def _check_kernel(kernel: str) -> None:
     if kernel not in ATTENTION_KERNELS:
         raise ValueError(f"unknown attention kernel: {kernel}")
-    if kernel != "simple":
-        raise NotImplementedError(
-            f"attention kernel {kernel!r} is not ported yet; only 'simple' is"
-        )
 
 
 class TransConvLayer(nn.Module):
-    """Q/K/V projections, global linear attention, mean over heads."""
+    """Q/K/V projections, global attention, mean over heads."""
 
     def __init__(self, in_channels: int, out_channels: int, *, num_heads: int = 1,
                  use_weight: bool = True, kernel: str = "simple",
@@ -46,6 +55,11 @@ class TransConvLayer(nn.Module):
         self.Wq = TorchLinear(in_channels, hd, generator=generator)
         self.Wk = TorchLinear(in_channels, hd, generator=generator)
         self.Wv = TorchLinear(in_channels, hd, generator=generator) if use_weight else None
+        self.kernel = kernel
+        if kernel == "performer":
+            proj = variants.create_projection_matrix(
+                2 * out_channels, out_channels, torch.Generator().manual_seed(0))
+            self.register_buffer("projection", proj, persistent=False)
 
     def forward(self, query_input, source_input, output_attn: bool = False,
                 node_mask=None):
@@ -56,11 +70,23 @@ class TransConvLayer(nn.Module):
             vs = self.Wv(source_input).reshape(-1, h, d)
         else:
             vs = source_input.reshape(-1, 1, d)
+        if self.kernel == "simple":
+            if output_attn:
+                out, attn = linear_attention(qs, ks, vs, output_attn=True,
+                                             node_mask=node_mask)
+                return out.mean(dim=1), attn
+            out = _attention_kernel.fused_linear_attention(qs, ks, vs, node_mask=node_mask)
+            return out.mean(dim=1)
+        if self.kernel == "performer":
+            if output_attn:
+                raise ValueError("performer kernel has no dense attention map")
+            return variants.performer_attention(qs, ks, vs,
+                                                projection=self.projection).mean(dim=1)
+        fn = variants.softmax_attention if self.kernel == "softmax" else variants.gat_attention
         if output_attn:
-            out, attn = linear_attention(qs, ks, vs, output_attn=True, node_mask=node_mask)
+            out, attn = fn(qs, ks, vs, output_attn=True)
             return out.mean(dim=1), attn
-        out = _attention_kernel.fused_linear_attention(qs, ks, vs, node_mask=node_mask)
-        return out.mean(dim=1)
+        return fn(qs, ks, vs).mean(dim=1)
 
 
 class TransConv(nn.Module):

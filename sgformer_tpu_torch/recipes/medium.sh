@@ -42,8 +42,7 @@ $RUN --dataset chameleon --lr 0.001 --gnn_num_layers 2 --hidden_channels 64 \
     --trans_num_layers 1 --gnn_weight_decay 1e-3 --gnn_dropout 0.6 \
     --alpha 0.5 --runs 10 --epochs 200 "$@"
 
-# Squirrel (DIFFormer recipe in the reference; DIFFormer is not ported
-# yet, so this run raises NotImplementedError naming ROADMAP.md)
+# Squirrel (DIFFormer recipe in the reference)
 python -m sgformer_tpu_torch.cli.main --trainer full --method difformer \
     --dataset squirrel --lr 0.001 --num_layers 8 --hidden_channels 64 \
     --weight_decay 5e-4 --dropout 0.3 --num_heads 1 --alpha 0.5 \

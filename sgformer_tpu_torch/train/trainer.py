@@ -40,8 +40,9 @@ class TrainConfig:
     runs: int = 1
     seed: int = 123
     display_step: int = -1  # print every k epochs; -1 = silent
-    # weight of the edge-regularisation losses of models that return
-    # (logits, link_losses) in the JAX zoo; no ported model returns them
+    # weight of the edge-regularisation losses of a model that returns
+    # (logits, link_losses) (NodeFormer): the loss subtracts lamda times
+    # their mean
     lamda: float = 1.0
     # the JAX package's choice of PRNG bit generator; the port draws from
     # torch.Generators, so every value runs the same code
@@ -88,8 +89,9 @@ class Trainer:
     evaluation and model selection).
 
     Args:
-      model: :class:`sgformer_tpu_torch.SGFormer`; its ``forward(x, graph)``
-        returns [N, C] logits.
+      model: :class:`sgformer_tpu_torch.SGFormer` or a zoo model; its
+        ``forward(x, graph)`` returns [N, C] logits, or (logits,
+        link_losses) (NodeFormer).
       graph: :class:`sgformer_tpu_torch.graph.Graph` from ``preprocess_graph``.
       x: [N, F] node features (numpy array or tensor).
       label: [N, 1] int labels (or [N, C] multilabel for ``loss='bce'``).
@@ -98,7 +100,8 @@ class Trainer:
         default.
       model_kwargs: extra keyword arguments of every forward (the train
         step, the eval and ``time_test``), as the JAX ``Trainer`` takes
-        them: ``H2GCN``'s ``h2_graphs``, on ``device``.
+        them: ``H2GCN``'s ``h2_graphs``, ``NodeFormer``'s ``adjs`` and
+        ``Graphormer``'s ``inputs``, on ``device``.
       device: where training runs; "cuda" unless the caller asks for "cpu".
     """
 
@@ -151,12 +154,21 @@ class Trainer:
 
     def loss(self, train_idx: torch.Tensor) -> torch.Tensor:
         """Forward in train mode (dropout from the trainer's generator,
-        BatchNorm statistics updated) and the loss on ``train_idx``."""
+        BatchNorm statistics updated) and the loss on ``train_idx``; a model
+        that returns (logits, link_losses) has ``lamda`` times the mean of
+        its link losses subtracted."""
         self.model.train()
         out = self.model(self.x, self.graph, **self.model_kwargs)
+        link_losses = None
+        if isinstance(out, tuple):
+            out, link_losses = out
         if self.config.loss == "bce":
-            return bce_loss(out, self.label_onehot, train_idx)
-        return cross_entropy_loss(out, self.label, train_idx)
+            loss = bce_loss(out, self.label_onehot, train_idx)
+        else:
+            loss = cross_entropy_loss(out, self.label, train_idx)
+        if link_losses:
+            loss = loss - self.config.lamda * sum(link_losses) / len(link_losses)
+        return loss
 
     def train_step(self, train_idx: torch.Tensor) -> torch.Tensor:
         """One step: loss, backward, Adam. Returns the loss on the device,
@@ -178,7 +190,8 @@ class Trainer:
         """[N, C] f32 logits in eval mode, without autograd."""
         self.model.eval()
         with torch.no_grad():
-            return self.model(self.x, self.graph, **self.model_kwargs)
+            out = self.model(self.x, self.graph, **self.model_kwargs)
+        return out[0] if isinstance(out, tuple) else out
 
     # -- evaluation ----------------------------------------------------------
 

@@ -11,8 +11,13 @@
   with dropout 0 and the JAX trainer's parameters carried across by
   ``load_flax_variables``: the eval logits within 1e-5 of the largest and
   the first step's loss within 1e-5 (f32, summation order only);
+- the zoo and the attention ablations: ``build`` for every ``--method`` and
+  ``--attention`` the JAX CLI has beyond the baselines, against its model
+  (NodeFormer's adjacencies and Graphormer's inputs bitwise, the eval
+  logits with the JAX parameters carried across within 1e-5 of the
+  largest), and a short run of each through ``main``;
 - ``tests/test_cli.py``'s runs through the port's CLI, and the refusals: the
-  methods and trainers not ported yet, and no card without ``--device cpu``.
+  trainers not ported yet, and no card without ``--device cpu``.
 """
 
 import argparse
@@ -232,6 +237,97 @@ def test_full_trainer_logits_and_first_loss_match_jax(monkeypatch, backbone):
     np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
 
 
+# -- the zoo and the attention ablations ------------------------------------------
+
+ZOO = {
+    "difformer": ["--method", "difformer"],
+    "nodeformer": ["--method", "nodeformer"],
+    "graphtrans": ["--method", "graphtrans"],
+    "graphgps": ["--method", "graphgps"],
+    "graphormer": ["--method", "graphormer"],
+    "softmax": ["--attention", "softmax"],
+    "gat": ["--attention", "gat"],
+    "performer": ["--attention", "performer"],
+}
+
+
+def _pin_jax_draws(model, hidden):
+    """The port's fixed projections set to the JAX draws: NodeFormer's eval
+    projection (the first half of PRNGKey(0)) and the performer ablation's
+    (PRNGKey(0))."""
+    from sgformer_tpu.ops.attention_variants import create_projection_matrix
+
+    from sgformer_tpu_torch.nn.nodeformer import NodeFormerConv
+    from sgformer_tpu_torch.nn.transconv import TransConvLayer
+
+    for mod in model.modules():
+        if isinstance(mod, NodeFormerConv):
+            key = jax.random.split(jax.random.PRNGKey(0))[0]
+            mod.eval_projection.copy_(torch.from_numpy(np.asarray(
+                create_projection_matrix(mod.nb_random_features, hidden, key))))
+        elif isinstance(mod, TransConvLayer) and mod.kernel == "performer":
+            mod.projection.copy_(torch.from_numpy(np.asarray(
+                create_projection_matrix(2 * hidden, hidden, jax.random.PRNGKey(0)))))
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_build_matches_the_jax_cli(monkeypatch, name):
+    argv = (["--dataset", "synth-n120-e700-f10-c3", "--epochs", "2", "--rand_split",
+             "--hidden_channels", "16", "--num_heads", "2", "--dropout", "0",
+             "--trans_dropout", "0", "--gnn_dropout", "0"] + ZOO[name])
+    jtrainer, jsplits = _jax_trainer(monkeypatch, argv)
+    built = cli.build(_args(argv + CPU))
+    trainer = built.trainer
+    assert type(built.model).__name__ == type(jtrainer.model).__name__
+    cfg, jcfg = dataclasses.asdict(trainer.config), dataclasses.asdict(jtrainer.config)
+    shared = set(cfg) & set(jcfg)
+    assert {k: cfg[k] for k in shared} == {k: jcfg[k] for k in shared}
+    _same_graph(built.graph, jtrainer.graph, name in ("graphtrans", "graphgps", "softmax",
+                                                      "gat", "performer"))
+    if name == "nodeformer":
+        for g, ja in zip(trainer.model_kwargs["adjs"], jtrainer.model_kwargs["adjs"]):
+            ja = np.asarray(ja)
+            order = np.argsort(ja[1], kind="stable")
+            _eq(g.edge_src, ja[0][order], "adjacency sources")
+            _eq(g.edge_dst, ja[1][order], "adjacency destinations")
+    if name == "graphormer":
+        jin = jtrainer.model_kwargs["inputs"]
+        assert set(trainer.model_kwargs["inputs"]) == set(jin)
+        for k, v in trainer.model_kwargs["inputs"].items():
+            _eq(v, jin[k], k)
+
+    # the eval logits with the JAX parameters carried across
+    state, tx, _ = jtrainer.init_state(jax.random.PRNGKey(0))
+    want = np.asarray(jtrainer._build_steps(tx)[1](state))
+    trainer.init_state(0)
+    load_flax_variables(trainer.model, jax.tree.map(np.asarray, dict(state)))
+    _pin_jax_draws(trainer.model, 16)
+    got = trainer.eval_step().numpy()
+    assert got.shape == want.shape == (120, 3)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_cli_zoo_methods_and_attentions(name):
+    logger = cli.main([
+        "--dataset", "synth-n200-e1500-f12-c3", "--trainer", "full", "--epochs", "5",
+        "--eval_step", "5", "--display_step", "-1", "--rand_split", "--hidden_channels", "16",
+        "--num_heads", "2"] + ZOO[name] + CPU)
+    assert logger.results[0] and all(np.isfinite(r).all() for r in logger.results[0])
+
+
+@pytest.mark.parametrize("attention", ["softmax", "gat"])
+def test_cli_save_attn_for_the_dense_ablations(tmp_path, attention):
+    cli.main([
+        "--dataset", "synth-n80-e600-f8-c4", "--method", "sgformer", "--trainer", "full",
+        "--hidden_channels", "16", "--epochs", "2", "--rand_split", "--display_step", "-1",
+        "--attention", attention, "--save_attn", "--attn_dir", str(tmp_path)] + CPU)
+    (path,) = tmp_path.iterdir()
+    attn = np.load(path)
+    assert attn.shape == (1, 80, 80) and np.isfinite(attn).all()
+    np.testing.assert_allclose(attn.sum(-1), 1.0, rtol=1e-5)
+
+
 # -- tests/test_cli.py's runs through the port ---------------------------------------
 
 
@@ -321,14 +417,6 @@ def test_cli_trans_residual_mode():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--method", "difformer"], "difformer"),
-    (["--method", "nodeformer"], "nodeformer"),
-    (["--method", "graphtrans"], "graphtrans"),
-    (["--method", "graphgps"], "graphgps"),
-    (["--method", "graphormer"], "graphormer"),
-    (["--attention", "softmax"], "softmax"),
-    (["--attention", "gat"], "gat"),
-    (["--attention", "performer"], "performer"),
     (["--trainer", "sharded"], "sharded"),
     (["--use_halo"], "halo"),
     (["--trainer", "sampled", "--sampler_workers", "2"], "sampler_workers"),
@@ -343,3 +431,43 @@ def test_cli_raises_without_cuda_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--dataset", "synth-small", "--epochs", "1", "--rand_split"])
     assert _args([]).device == "cuda"
+
+
+def _recipe_runs(path, module):
+    """Each run of a recipe file as its flags: the ``RUN=`` prefix's (after
+    ``python -m module``) and the run's own, ``"$@"`` dropped."""
+    import shlex
+
+    with open(path) as f:
+        lines = f.read().replace("\\\n", " ").splitlines()
+    prefix = []
+    runs = []
+    for line in lines:
+        words = shlex.split(line, comments=True)
+        if line.startswith("RUN="):
+            prefix = shlex.split(line[len("RUN="):].strip().strip('"'))[3:]
+        elif words[:3] == ["python", "-m", module]:
+            runs.append(words[3:])
+        elif words[:1] == ["$RUN"]:
+            runs.append(prefix + words[1:])
+    return [[a for a in run if a != "$@"] for run in runs]
+
+
+@pytest.mark.parametrize("recipe", ["ablation.sh", "large.sh", "medium.sh", "100m.sh"])
+def test_port_recipes_run_the_jax_recipes(recipe):
+    """Each run of ``sgformer_tpu_torch/recipes/<recipe>`` parses to the
+    same flags as the same run of ``configs/<recipe>`` (the ablation's for
+    each of its kernels)."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jax_runs = _recipe_runs(os.path.join(repo, "configs", recipe), "sgformer_tpu.cli.main")
+    port_runs = _recipe_runs(os.path.join(repo, "sgformer_tpu_torch", "recipes", recipe),
+                             "sgformer_tpu_torch.cli.main")
+    assert len(port_runs) == len(jax_runs) > 0
+    for jax_run, port_run in zip(jax_runs, port_runs):
+        for kernel in ("simple", "softmax", "gat", "performer"):
+            def parsed(run):
+                return vars(_args([kernel if a == "$KERNEL" else a for a in run]))
+
+            assert parsed(port_run) == parsed(jax_run), port_run

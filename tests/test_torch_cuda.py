@@ -1475,3 +1475,52 @@ def test_cli_full_trainer_on_the_card_matches_the_cpu(cuda, method):
     (lc, sc), (lp, sp) = out["cuda"], out["cpu"]
     assert (lc - lp).abs().max().item() <= 1e-5 * lp.abs().max().item()
     torch.testing.assert_close(sc, sp, rtol=1e-5, atol=0)
+
+
+# (step, forward) csr_spmm launches through the CLI's set-up at 2 layers
+# (the ablations' GCN backbone at 2 layers, DIFFormer's and NodeFormer's 2
+# layers, GraphGPS's and GraphTrans's 2 GCN layers, Graphormer none)
+ZOO_SPMM = {("--method", "difformer"): (4, 2), ("--method", "nodeformer"): (8, 4),
+            ("--method", "graphgps"): (4, 2), ("--method", "graphtrans"): (4, 2),
+            ("--method", "graphormer"): (0, 0), ("--attention", "softmax"): (4, 2),
+            ("--attention", "gat"): (4, 2), ("--attention", "performer"): (4, 2)}
+
+
+@pytest.mark.parametrize("flags", sorted(ZOO_SPMM))
+def test_zoo_on_the_card_matches_the_cpu(cuda, flags, monkeypatch):
+    """Each zoo model and attention ablation through the CLI's set-up, from
+    the same parameters (dropout 0, f32; NodeFormer's train-mode projection
+    and Gumbel uniforms drawn once on the CPU and shared): the eval logits
+    within 1e-5 of the largest, three train steps' losses within 1e-5
+    relative, and the csr_spmm launches of a step and a forward."""
+    from sgformer_tpu_torch.nn import Dropout
+    from sgformer_tpu_torch.nn.nodeformer import NodeFormerConv
+
+    gen = torch.Generator().manual_seed(0)
+    proj = torch.randn(30, 32, generator=gen)
+    uniforms = torch.rand(1500, 1, 10, generator=gen).clamp_min(1e-20)
+    monkeypatch.setattr(NodeFormerConv, "draw",
+                        lambda self, n: (proj.to(self.Wq.weight.device),
+                                         uniforms.to(self.Wq.weight.device)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        built = _cli_build(dev, "--trainer", "full", "--num_layers", "2", "--gnn_num_layers",
+                           "2", *flags)
+        trainer = built.trainer
+        trainer.init_state(0)
+        for mod in trainer.model.modules():  # GraphTrans's encoder keeps its own 0.1
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        idx = trainer.prepare_train_idx(built.splits[0])
+        kernels.reset_launch_counts()
+        logits = trainer.eval_step().cpu()
+        forward = kernels.launch_counts()["csr_spmm"]
+        losses = [trainer.train_step(idx)]
+        step = kernels.launch_counts()["csr_spmm"] - forward
+        losses = torch.stack(losses + [trainer.train_step(idx) for _ in range(2)]).cpu()
+        out[dev] = logits, losses, (step, forward)
+    (lc, sc, launches), (lp, sp, _) = out["cuda"], out["cpu"]
+    assert torch.isfinite(lc).all()
+    assert (lc - lp).abs().max().item() <= 1e-5 * lp.abs().max().item()
+    torch.testing.assert_close(sc, sp, rtol=1e-5, atol=0)
+    assert launches == ZOO_SPMM[flags]

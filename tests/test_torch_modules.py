@@ -163,9 +163,7 @@ def test_dropout_identity_in_eval_and_seeded_in_train():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(attention_kernel="gat"),
     dict(axis_name="nodes"),
-    dict(attention_kernel="softmax"),
 ])
 def test_unported_options_raise(kw):
     cfg = SGFormerConfig.large(8, 3, **kw)
