@@ -8,6 +8,7 @@ in the same call as the change.
     python3 chip_compare.py batch-build ROOT
     python3 chip_compare.py smoke ROOT
     python3 chip_compare.py gat-repeat ROOT [RUNS]
+    python3 chip_compare.py host ROOT
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -35,7 +36,13 @@ paths (``chip_smoke.gat_train_phase``) RUNS times each (10 by default) on
 ROOT's package, recording each run's eval-logit reading (max |kernels -
 plain| over the largest plain logit, held to ``GAT_LOGITS_RTOL``) and a
 digest of both logit tensors' bytes; a reading over the tolerance is
-counted, not raised. Prints one JSON line of the readings.
+counted, not raised. Prints one JSON line of the readings. ``host``: the
+host's cost of ROOT's forward kernel wrappers, ``csr_spmm``, the attention
+``reduce`` and ``apply``, in µs a call (3,000 calls after 100, one sync) at
+Cora's size (N = 2,708, width 64), then this checkout's zoo phase
+(``chip_smoke.zoo_phase``) on ROOT's package for three host-bound runs
+(ablation-simple, squirrel-difformer, nodeformer); run it in turns
+(parent, change, change, parent) to compare two checkouts' host cost.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ def load_phases(path: str):
 
 
 def main() -> int:
-    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat")
+    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host")
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat") or (
             sys.argv[1] not in modes):
         print(__doc__, file=sys.stderr)
@@ -87,6 +94,8 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     if mode == "batch-build":
         return batch_build(cs)
+    if mode == "host":
+        return host_cost(cs, root)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -119,6 +128,48 @@ def main() -> int:
         del x, gg, v
         torch.cuda.empty_cache()
     cs.gat_train_phase(pl, dataclasses.replace(g, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
+    return 0
+
+
+def host_cost(cs, root: str) -> int:
+    """The ``host`` mode (see the module's docstring)."""
+    import time
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+
+    _build.build_all()
+    ds = synthetic_dataset(num_nodes=2708, num_edges=10556, num_features=64, num_classes=7,
+                           seed=0)
+    g = preprocess_graph(ds.graph["edge_index"], ds.num_nodes)
+    x = torch.randn(g.num_nodes, 64, device="cuda")
+    q = torch.randn(g.num_nodes, 64, device="cuda")
+    sums = attn.reduce(q, q, x)
+    n_total = torch.tensor(float(g.num_nodes), device="cuda")
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, g.hub_segments, g.hub_edges)
+
+    def per_call_us(fn, calls=3000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    for what, fn in (("csr_spmm", lambda: csr_spmm(x, *csr)),
+                     ("reduce", lambda: attn.reduce(q, q, x)),
+                     ("apply", lambda: attn.apply(q, x, *sums, n_total))):
+        cs.log(f"host {root}: {what} {per_call_us(fn):.2f} us a call (N = {g.num_nodes})")
+    cs.ZOO_RUNS = {k: v for k, v in cs.ZOO_RUNS.items()
+                   if k in ("ablation-simple", "squirrel-difformer", "nodeformer")}
+    cs.zoo_phase({}, "cuda")
     return 0
 
 

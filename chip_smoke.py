@@ -129,7 +129,7 @@ JAX package. Phases, each failing loudly:
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15 and 16 launched a probe;
+   also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15, 16 and 17 launched a probe;
    the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
 15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
    the repo's recipes, their flags read verbatim from the port's recipe
@@ -162,9 +162,26 @@ JAX package. Phases, each failing loudly:
    ``propagate`` one ``csr_spmm`` forward and one backward; the attention
    kernels once each for ``simple`` only), the eval logits against the
    plain forward (1e-5 of the largest), the run's launches and losses (the
-   last 3 below the first), ``--time_test`` and a profile of one step.
+   last 3 below the first), ``--time_test`` and a profile of one step;
+17. serve-export (after 5): the hand-off of a trained forward at the bench
+   width on the arxiv graph, for the bench model, the bench model on an
+   int8 graph (``slab_dtype="int8"``) and GAT (9's config): 3 ``Trainer``
+   steps, ``save_checkpoint``, ``load_predictor`` into a fresh model (its
+   logits bitwise ``eval_step``'s); then ``export_artifact(...,
+   include_inputs=True)`` and ``load_exported``: the program's op nodes one
+   a launch of the forward, its call with ``export_leaves()`` and with the
+   bundle's leaves on the card (mapped by ``inv_perm``) bitwise
+   ``Predictor.logits()``, the launches of 25 exported requests exactly 25
+   forwards' and no backward kernel's; the export's and load's seconds, the
+   artifact's and bundle's bytes and the median request beside the
+   ``Predictor``'s, printed with no limit. Then NodeFormer (a tuple out),
+   H2GCN and Graphormer through the CLI's set-up on 16's Cora-sized files
+   behind ``Predictor(..., model_kwargs=)``: logits bitwise ``eval_step``'s
+   after 3 steps, with a forward's launches.
 
-The second-to-last line is a JSON object of per-kernel numbers; the last is
+The second-to-last line is a JSON object of per-kernel numbers (with each
+forward kernel's custom op and its launches in one exported forward); the
+last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
 CUDA is absent or any check fails.
 """
@@ -407,6 +424,15 @@ ZOO_RUNS = {
 ZOO_LOSS_RTOL = 1e-5
 ZOO_GRAD_RTOL = 1e-4
 ZOO_LOGITS_RTOL = 1e-5
+
+# serve-export: Trainer steps before a checkpoint, and timed requests
+# through the exported forward and through Predictor.logits()
+CHECKPOINT_STEPS = 3
+EXPORT_REQUESTS = 25
+# the zoo models that need model_kwargs behind a Predictor (NodeFormer also
+# returns a tuple): csr_spmm launches of one forward (NodeFormer's 2 layers
+# on A+I and (A+I)^2, H2GCN's 2 rounds on A1 and A2, Graphormer none)
+SERVE_ZOO = {"nodeformer": 4, "h2gcn": 4, "graphormer": 0}
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -1105,6 +1131,198 @@ def serve_phase(ds, graph, dev: str) -> tuple[dict, int]:
     log(f"copy of [N, 40] f32 logits to the host: "
         f"{time_ms(lambda: x.cpu(), iters=10):.3f} ms")
     return counts, forwards
+
+
+def checkpoint_round_trip(what: str, make_model, ds, graph, tc: dict, root: str, dev: str):
+    """A model behind ``Trainer`` for 3 steps (``train_idx = arange(0, N, 2)``),
+    ``save_checkpoint``, then ``load_predictor`` into a fresh model of the
+    same config: its logits must be ``eval_step``'s bit for bit. Returns the
+    compiled ``Predictor``."""
+    import os
+
+    import numpy as np
+
+    from sgformer_tpu_torch import load_predictor
+    from sgformer_tpu_torch.train import TrainConfig, Trainer, save_checkpoint
+
+    trainer = Trainer(make_model(), graph, ds.graph["node_feat"], ds.label, TrainConfig(**tc),
+                      device=dev)
+    idx = trainer.prepare_train_idx({"train": np.arange(0, graph.num_nodes, 2)})
+    trainer.init_state(0)
+    for _ in range(CHECKPOINT_STEPS):
+        trainer.train_step(idx)
+    want = trainer.eval_step().cpu().numpy()
+    path = os.path.join(root, f"{what}.ckpt")
+    save_checkpoint(path, trainer.model, trainer.optimizer, CHECKPOINT_STEPS, trainer.generator)
+    del trainer
+    t = time.perf_counter()
+    pred = load_predictor(path, make_model(), graph, ds.graph["node_feat"], device=dev)
+    load_s = time.perf_counter() - t
+    got = pred.logits()
+    log(f"serve-export {what}: {CHECKPOINT_STEPS} Trainer steps, save_checkpoint "
+        f"({os.path.getsize(path)} bytes), load_predictor {load_s:.2f} s (compile included): "
+        f"logits {got.shape} bitwise eval_step's: {np.array_equal(got, want)}")
+    if got.shape != want.shape or not np.isfinite(got).all() or not np.array_equal(got, want):
+        raise AssertionError(f"serve-export {what}: load_predictor's logits are not eval_step's")
+    return pred
+
+
+def export_round_trip(what: str, pred, forward_launches: dict, root: str, dev: str) -> dict:
+    """``export_artifact(include_inputs=True)`` and ``load_exported`` of a
+    compiled ``Predictor``: the program's op nodes (one for each kernel
+    launch of a forward), its call with ``export_leaves()`` and with the
+    bundle's leaves moved to the card (then ``out[inv_perm]``), each bitwise
+    ``Predictor.logits()``; the launches of ``EXPORT_REQUESTS`` exported
+    requests, exactly that many forwards' (no backward kernel); the
+    export's and the load's seconds, the artifact's and the bundle's bytes,
+    and the median ms of the exported requests beside ``Predictor.logits()``'s
+    (logits to the host in both). Returns the numbers and the launches of
+    one exported forward."""
+    import os
+
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels, load_exported
+    from sgformer_tpu_torch.kernels import ops
+
+    want = pred.logits()
+    path = os.path.join(root, f"{what}.pt2")
+    t = time.perf_counter()
+    pred.export_artifact(path, include_inputs=True)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program = load_exported(path)
+    load_s = time.perf_counter() - t
+    calls = ops.op_calls(program)
+    by_count = {ops.LAUNCH_COUNT[name]: c for name, c in calls.items()}
+    sizes = os.path.getsize(path), os.path.getsize(path + ".inputs.npz")
+    log(f"serve-export {what}: export {export_s:.2f} s, load {load_s:.2f} s, artifact "
+        f"{sizes[0]} bytes, bundle {sizes[1]} bytes; op nodes {calls}")
+    if by_count != {k: forward_launches[k] for k in by_count}:
+        raise AssertionError(f"serve-export {what}: op nodes {calls} are not one a launch of "
+                             f"the forward {forward_launches}")
+    module = program.module()
+    leaves = pred.export_leaves()
+    bundle = np.load(path + ".inputs.npz")
+    moved = []
+    for i, leaf in enumerate(leaves):
+        arr = torch.from_numpy(bundle[f"arr_{i}"])
+        moved.append((arr.view(torch.bfloat16) if leaf.dtype == torch.bfloat16 else arr).to(dev))
+    with torch.no_grad():
+        got = module(*leaves).cpu().numpy()
+        got_bundle = module(*moved).cpu().numpy()[bundle["inv_perm"]]
+    del moved, bundle
+    same, same_bundle = np.array_equal(got, want), np.array_equal(got_bundle, want)
+    log(f"serve-export {what}: the exported call bitwise Predictor.logits(): with "
+        f"export_leaves() {same}, with the bundle's leaves on the card {same_bundle}")
+    if not (same and same_bundle):
+        raise AssertionError(f"serve-export {what}: the exported forward is not the Predictor's")
+
+    def exported():
+        with torch.no_grad():
+            return module(*leaves).cpu().numpy()
+
+    times = {"exported": [], "Predictor.logits": []}
+    kernels.reset_launch_counts()
+    for _ in range(EXPORT_REQUESTS):
+        t = time.perf_counter()
+        exported()
+        times["exported"].append((time.perf_counter() - t) * 1e3)
+    counts = kernels.launch_counts()
+    want_counts = {k: c * EXPORT_REQUESTS for k, c in forward_launches.items()}
+    log(f"serve-export {what}: launches over {EXPORT_REQUESTS} exported requests: {counts}")
+    if counts != want_counts:
+        raise AssertionError(f"launch counts {counts}, expected {want_counts}")
+    for _ in range(EXPORT_REQUESTS):
+        t = time.perf_counter()
+        pred.logits()
+        times["Predictor.logits"].append((time.perf_counter() - t) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"serve-export {what}: median request over {EXPORT_REQUESTS}: exported "
+        f"{med['exported']:.3f} ms (min {min(times['exported']):.3f}), Predictor.logits() "
+        f"{med['Predictor.logits']:.3f} ms (min {min(times['Predictor.logits']):.3f}), logits to "
+        f"the host in both ({card_line()})")
+    os.remove(path)
+    os.remove(path + ".inputs.npz")
+    return dict(export_s=export_s, load_s=load_s, artifact_bytes=sizes[0],
+                bundle_bytes=sizes[1], op_calls=calls,
+                exported_ms=med["exported"], predictor_ms=med["Predictor.logits"],
+                per_forward={k: c // EXPORT_REQUESTS for k, c in counts.items()})
+
+
+def serve_export_phase(ds, graph, results: dict, dev: str) -> dict:
+    """serve-export: the hand-off of a trained forward to another process,
+    at the bench width on the arxiv graph: for the bench model (bf16), the
+    bench model on the int8 graph and GAT (``GAT_CONFIG``), a checkpoint
+    round trip (``checkpoint_round_trip``) and an export round trip
+    (``export_round_trip``); then the zoo models that take ``model_kwargs``
+    (NodeFormer, which returns a tuple, H2GCN and Graphormer, the JAX CLI's
+    defaults on the Cora-sized files of the zoo phase) behind ``Predictor``:
+    their logits bitwise their trainer's ``eval_step`` after 3 steps, with
+    the forward's launches. Returns the launches of one exported forward of
+    each kernel (the largest over the three models)."""
+    import argparse
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sgformer_tpu_torch import Predictor, preprocess_graph
+    from sgformer_tpu_torch.cli import main as cli
+    from sgformer_tpu_torch.nn import GAT
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve-export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def gat():
+        cfg = GAT_CONFIG
+        return GAT(ds.graph["node_feat"].shape[1], cfg["hidden_channels"], cfg["out_channels"],
+                   **{k: v for k, v in cfg.items() if k not in ("hidden_channels", "out_channels")},
+                   generator=torch.Generator().manual_seed(0), device=dev)
+
+    graph_q8 = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16",
+                                slab_dtype="int8", device=dev)
+    results["serve-export"] = {}
+    exported_forward = dict.fromkeys(FORWARD_LAUNCHES, 0)
+    for what, make_model, g, tc, forward in (
+            ("bench", lambda: bench_model(ds, dev)[0], graph, BENCH_TRAIN, FORWARD_LAUNCHES),
+            ("bench-int8", lambda: bench_model(ds, dev)[0], graph_q8, BENCH_TRAIN,
+             Q8_FORWARD_LAUNCHES),
+            ("gat", gat, graph, GAT_TRAIN, GAT_FORWARD_LAUNCHES)):
+        pred = checkpoint_round_trip(what, make_model, ds, g, tc, root, dev)
+        r = export_round_trip(what, pred, forward, root, dev)
+        results["serve-export"][what] = r
+        exported_forward = {k: max(c, r["per_forward"][k]) for k, c in exported_forward.items()}
+        del pred
+        torch.cuda.empty_cache()
+    del graph_q8
+
+    write_zoo_data(root)
+    parser = cli.parser_add_main_args(argparse.ArgumentParser())
+    for name, forward in SERVE_ZOO.items():
+        argv = ["--trainer", "full", "--dataset", "cora", "--method", name, "--data_dir",
+                root] + ZOO_CUT
+        built = cli.build(parser.parse_args(argv))
+        trainer = built.trainer
+        idx = trainer.prepare_train_idx(built.splits[0])
+        trainer.init_state(0)
+        for _ in range(CHECKPOINT_STEPS):
+            trainer.train_step(idx)
+        want = trainer.eval_step().cpu().numpy()
+        pred = Predictor(trainer.model, trainer.graph, trainer.x,
+                         model_kwargs=trainer.model_kwargs, device=dev).compile()
+        got, _ = counted(f"serve-export {name} Predictor.logits()", pred.logits,
+                         dict(ZERO_LAUNCHES, csr_spmm=forward))
+        log(f"serve-export {name}: Predictor(model_kwargs={sorted(trainer.model_kwargs)}) "
+            f"logits {got.shape} bitwise eval_step's: {np.array_equal(got, want)}")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"serve-export {name}: the Predictor's logits are not "
+                                 f"eval_step's")
+        del built, trainer, pred
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return exported_forward
 
 
 def plain_versions():
@@ -2646,7 +2864,7 @@ def main() -> int:
     from sgformer_tpu_torch import preprocess_graph
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.graph import gcn_norm_rs
-    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import _build, ops
 
     t = time.perf_counter()
     reports = _build.build_all()
@@ -2670,6 +2888,7 @@ def main() -> int:
     attention_phase(graph.num_nodes, results, "cuda")
     attention_bwd_phase(graph.num_nodes, results, "cuda")
     serve_counts, forwards = serve_phase(ds, graph, "cuda")
+    exported_forward = serve_export_phase(ds, graph, results, "cuda")
     step_counts, _, train_counts, _ = train_phase(ds, graph, "cuda")
     arxiv_batch = arxiv_batch_phase(ds, graph, results, "cuda")
     edge_value_phase(graph, results, "cuda")
@@ -2747,6 +2966,15 @@ def main() -> int:
     # the run of the path that uses it (time_test), with one train step and
     # one forward beside them; sddmm, which no path runs, from its own run
     main = {"csr_spmm_ev": ("bf16", 0), "csr_spmm_ev_bwd": ("bf16", 0), "sddmm": ("f32", 0)}
+    # each forward kernel's custom op (kernels/ops.py) and its launches in one
+    # exported forward (serve-export); the backward kernels and the probes
+    # are no ops
+    op_of = {count: f"sgformer_tpu_torch::{name}" for name, count in ops.LAUNCH_COUNT.items()}
+
+    def as_op(name: str) -> dict:
+        return {"registered_op": op_of.get(name),
+                "launches_per_exported_forward": exported_forward[name]}
+
     line = {"kernels": []}
     for name, (source, replaces) in sources.items():
         if name in main:
@@ -2813,7 +3041,7 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
-            "launches_per_train_step": per_step[name], **r,
+            "launches_per_train_step": per_step[name], **as_op(name), **r,
         })
     # the int8 aggregation and its quantiser: launches from
     # large-400K-int8-train's time_test, error and times at that path's
@@ -2832,7 +3060,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/spmm.cu",
             "replaces": f"sgformer_tpu/kernels/{replaces}", "launches": q8_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
-            **r, **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
+            **as_op(name), **r,
+            **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
         })
     # the timing probes: launches from their own runs; per forward and per
@@ -2845,7 +3074,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "sgformer_tpu_torch/csrc/microbench.cu",
             "replaces": replaces, "launches": probe_counts[name],
             "launches_per_forward": q8_forward[name], "launches_per_train_step": q8_step[name],
-            **results[name], **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
+            **as_op(name), **results[name],
+            **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
         })
     print(json.dumps(line), flush=True)

@@ -2,7 +2,9 @@
 Hopper GPU: training on the full graph (``train.Trainer``), in
 random-partition mini-batches (``train.BatchTrainer``) and on
 neighbour-sampled batches (``train.SampledTrainer``), the large-tier model
-zoo beside SGFormer (``nn``), serving (``Predictor``), the dataset readers
+zoo beside SGFormer (``nn``), serving (``Predictor``, ``load_predictor``, and
+the exported forward of ``Predictor.export_artifact`` that ``load_exported``
+reads back in another process), the dataset readers
 (``data.load_dataset``) and the command line that drives them all
 (``python -m sgformer_tpu_torch.cli.main``, with the repo's recipes in
 ``recipes/``).
@@ -21,5 +23,5 @@ __version__ = "0.1.0"
 from sgformer_tpu_torch.convert import load_flax_variables  # noqa: F401
 from sgformer_tpu_torch.graph import Graph, preprocess_graph  # noqa: F401
 from sgformer_tpu_torch.nn.sgformer import SGFormer, SGFormerConfig  # noqa: F401
-from sgformer_tpu_torch.serve import Predictor  # noqa: F401
+from sgformer_tpu_torch.serve import Predictor, load_exported, load_predictor  # noqa: F401
 from sgformer_tpu_torch.train import TrainConfig, Trainer  # noqa: F401

@@ -189,6 +189,31 @@ class Graph:
             self.hub_edges)
 
 
+def graph_leaves(graph: Graph) -> tuple[list[torch.Tensor], dict]:
+    """The graph as plain tensors, for a function that takes only tensors
+    (an exported forward): its tensor fields in field order, and the spec
+    that :func:`graph_from_leaves` rebuilds it with, ``{"tensors": names of
+    those fields, "static": the fields that are not tensors}`` (the sizes,
+    ``symmetric``, the dtypes, ``hub_edges``); a field left out of both is
+    None."""
+    tensors, static = [], {}
+    for f in dataclasses.fields(graph):
+        value = getattr(graph, f.name)
+        if isinstance(value, torch.Tensor):
+            tensors.append(f.name)
+        elif value is not None:
+            static[f.name] = value
+    return [getattr(graph, name) for name in tensors], {"tensors": tuple(tensors),
+                                                         "static": static}
+
+
+def graph_from_leaves(leaves, spec: dict) -> Graph:
+    """The :class:`Graph` of :func:`graph_leaves`' tensors and spec."""
+    if len(leaves) != len(spec["tensors"]):
+        raise ValueError(f"{len(leaves)} tensors for the {len(spec['tensors'])} of the spec")
+    return Graph(**spec["static"], **dict(zip(spec["tensors"], leaves)))
+
+
 # ---------------------------------------------------------------------------
 # Structure work on tensors, on whatever device they are on: the JAX
 # package's numpy edge-list transforms and normalisations (which the port

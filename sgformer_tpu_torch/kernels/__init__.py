@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``) and their wrappers.
 
 Each wrapper launches its kernel on CUDA tensors and runs the plain PyTorch
-version on CPU tensors; see :mod:`.spmm` and :mod:`.attention`.
+version on CPU tensors; see :mod:`.spmm` and :mod:`.attention`. The forward
+kernels are ``torch.library`` custom ops (:mod:`.ops`), which the wrappers
+call.
 """
 
 from sgformer_tpu_torch.kernels import attention, spmm  # noqa: F401
+from sgformer_tpu_torch.kernels import ops  # noqa: F401  (after the modules it registers)
 
 # launches of the timing probes' kernels (``sgformer_tpu_torch.microbench``):
 # held here, so that the one registry below covers every kernel and a model

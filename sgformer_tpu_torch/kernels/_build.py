@@ -1,7 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file is compiled on first use into its own shared library
-with a plain C interface, under ``build/kernels/`` beside the package (the
+with a plain C interface, under ``<cache>/kernels/``, with ``<cache>`` from
+:func:`sgformer_tpu_torch.utils.cache.resolve_cache_dir` at build time: a
+non-empty ``SGFORMER_CACHE_DIR``, else ``build/`` beside the package (the
 repository's ``.gitignore`` lists ``build/``). The file name carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is.
@@ -20,10 +22,12 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import Optional
+
+from sgformer_tpu_torch.utils.cache import resolve_cache_dir
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("spmm", "linear_attention", "linear_attention_bwd", "microbench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -82,16 +86,23 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> tuple[str, str]:
-    """The source and its library's path; the hash covers the source, the
-    headers of ``csrc/`` it may include, and the flags."""
+def build_dir(cache_dir: Optional[str] = None) -> str:
+    """Where the libraries go: ``<cache>/kernels``, the cache as
+    :func:`~sgformer_tpu_torch.utils.cache.resolve_cache_dir` resolves it."""
+    return os.path.join(resolve_cache_dir(cache_dir), "kernels")
+
+
+def _target(name: str, cache_dir: Optional[str] = None) -> tuple[str, str]:
+    """The source and its library's path (under :func:`build_dir`); the hash
+    covers the source, the headers of ``csrc/`` it may include, and the
+    flags."""
     src = os.path.join(CSRC, f"{name}.cu")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for path in (src, *(os.path.join(CSRC, h) for h in headers)):
         with open(path, "rb") as f:
             digest.update(f.read())
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return src, os.path.join(build_dir(cache_dir), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _load(name: str, so: str) -> ctypes.CDLL:
@@ -109,7 +120,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
     reports = {}
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir(), exist_ok=True)
         procs = {}
         for name in todo:
             src, so = _target(name)

@@ -7,7 +7,10 @@ package, and :func:`bwd_reduce` and :func:`bwd_apply` those of
 ``csrc/linear_attention_bwd.cu``, which replace ``::_bwd_reduce_kernel`` and
 ``::_bwd_apply_kernel``; each raises on what its kernel cannot take. On CPU
 tensors they run :func:`reduce_plain`, :func:`apply_plain`,
-:func:`bwd_reduce_plain` and :func:`bwd_apply_plain`.
+:func:`bwd_reduce_plain` and :func:`bwd_apply_plain`. The two forward
+wrappers check their arguments and call their ``torch.library`` custom ops
+(:mod:`.ops`): CUDA implementation :func:`reduce_cuda` / :func:`apply_cuda`,
+CPU implementation the plain version.
 
 :func:`fused_linear_attention` keeps the JAX layout, [N, H, M] in and
 [N, H, D] out, and loops the heads as the JAX ``_attn_core`` does, reading
@@ -40,8 +43,9 @@ backward's q or A tile above 640 in bf16, 256 in f32). :func:`reduce_design`,
 name the kernel a call runs.
 
 ``reduce_launches``, ``apply_launches``, ``bwd_reduce_launches`` and
-``bwd_apply_launches`` count the wrappers' launching calls; set them to 0
-to start a count.
+``bwd_apply_launches`` count the launching calls (the forward ones in their
+ops' CUDA implementations, so an exported program's calls count too); set
+them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ from __future__ import annotations
 import torch
 
 from sgformer_tpu_torch.kernels import _build
+
+# the forward kernels' custom ops, registered by .ops
+_OPS = torch.ops.sgformer_tpu_torch
 
 reduce_launches = 0
 apply_launches = 0
@@ -273,8 +280,8 @@ def _stream(t: torch.Tensor) -> int:
 def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = False):
     """Per-head cross-node sums. q, k: [N, M]; v: [N, D]; float32 or
     bfloat16, each contiguous along its last dimension (rows may be strided).
-    Returns kvs [M, D], ksum [M] and scal [4], all f32."""
-    global reduce_launches
+    Returns kvs [M, D], ksum [M] and scal [4], all f32. Runs the op
+    ``sgformer_tpu_torch::linear_attention_reduce`` (:mod:`.ops`)."""
     n = q.shape[0]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -283,8 +290,15 @@ def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = Fals
     _check_rows("v", v, n, q.dtype)
     if k.shape[1] != q.shape[1]:
         raise ValueError("q and k must have the same width")
-    if _device_of(q, k, v).type == "cpu":
-        return reduce_plain(q, k, v, guard)
+    _device_of(q, k, v)
+    return _OPS.linear_attention_reduce(q, k, v, guard)
+
+
+def reduce_cuda(q, k, v, guard):
+    """The CUDA implementation of the op :func:`reduce` runs: the kernels'
+    launch, counted."""
+    global reduce_launches
+    n = q.shape[0]
     if n == 0:
         raise ValueError("linear attention needs at least one node")
 
@@ -314,23 +328,31 @@ def reduce(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, guard: bool = Fals
 
 def apply(q, v, kvs, ksum, scal, n_total, guard: bool = False, out=None):
     """Per-head output rows. q: [N, M]; v: [N, D]; kvs [M, D], ksum [M],
-    scal [4] from :func:`reduce`; n_total a 0-d f32 tensor. Writes into
-    ``out`` ([N, D], q's type, rows may be strided) when given."""
-    global apply_launches
+    scal [4] from :func:`reduce`; n_total a 0-d f32 tensor. Runs the op
+    ``sgformer_tpu_torch::linear_attention_apply``, which returns a fresh
+    [N, D] tensor of q's type; with ``out`` ([N, D], q's type, rows may be
+    strided) that is copied into ``out``, which is returned."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     n, m = q.shape
     d = v.shape[1]
     _check_rows("q", q, n, q.dtype)
     _check_rows("v", v, n, q.dtype)
-    if out is None:
-        out = torch.empty(n, d, dtype=q.dtype, device=q.device)
-    _check_rows("out", out, n, q.dtype)
+    if out is not None:
+        _check_rows("out", out, n, q.dtype)
     _check_f32((("kvs", kvs, (m, d)), ("ksum", ksum, (m,)),
                 ("scal", scal, (4,)), ("n_total", n_total, ())))
-    if _device_of(q, v, kvs, ksum, scal, n_total, out).type == "cpu":
-        out.copy_(apply_plain(q, v, kvs, ksum, scal, n_total, guard))
-        return out
+    _device_of(q, v, kvs, ksum, scal, n_total, *(() if out is None else (out,)))
+    res = _OPS.linear_attention_apply(q, v, kvs, ksum, scal, n_total, guard)
+    return res if out is None else out.copy_(res)
+
+
+def apply_cuda(q, v, kvs, ksum, scal, n_total, guard):
+    """The CUDA implementation of the op :func:`apply` runs."""
+    global apply_launches
+    n, m = q.shape
+    d = v.shape[1]
+    out = torch.empty(n, d, dtype=q.dtype, device=q.device)
     scratch = _apply_scratch(q.dtype, m, d)
     hl = torch.empty(scratch, dtype=q.dtype, device=q.device) if scratch else None
     err = _build.library("linear_attention").sgf_la_apply(
@@ -467,10 +489,11 @@ def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
 
 
 def _attention_forward(qs, ks, vs, n_total, guard):
-    """Reduce every head, one norm over all heads, apply every head.
+    """Reduce every head, one norm over all heads, apply every head (each
+    head's rows a fresh tensor, stacked when there are several).
     Returns out [N, H, D] and what the backward needs: per-head (kvs, ksum)
     and the shared scal."""
-    n, h, _ = qs.shape
+    h = qs.shape[1]
     sums = [reduce(qs[:, i], ks[:, i], vs[:, i], guard) for i in range(h)]
     scal = sums[0][2]
     if h > 1:
@@ -479,9 +502,9 @@ def _attention_forward(qs, ks, vs, n_total, guard):
         q_sq = sum(s[2][0] for s in sums)
         k_sq = sum(s[2][1] for s in sums)
         scal = torch.stack([q_sq, k_sq, _inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
-    out = torch.empty(n, h, vs.shape[2], dtype=qs.dtype, device=qs.device)
-    for i, (kvs, ksum, _) in enumerate(sums):
-        apply(qs[:, i], vs[:, i], kvs, ksum, scal, n_total, guard, out=out[:, i])
+    heads = [apply(qs[:, i], vs[:, i], kvs, ksum, scal, n_total, guard)
+             for i, (kvs, ksum, _) in enumerate(sums)]
+    out = heads[0][:, None] if h == 1 else torch.stack(heads, dim=1)
     return out, [s[:2] for s in sums], scal
 
 

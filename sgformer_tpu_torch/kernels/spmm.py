@@ -1,7 +1,12 @@
 """CSR SpMM and SDDMM wrappers over the dst-sorted CSR graph.
 
 On CUDA tensors each wrapper launches its kernel of ``csrc/spmm.cu`` or
-raises; on CPU tensors it runs its plain version:
+raises; on CPU tensors it runs its plain version. The forward wrappers
+(:func:`csr_spmm`, :func:`csr_spmm_ev`, :func:`quantize_absmax`,
+:func:`csr_spmm_q8_apply`) check their arguments and call their
+``torch.library`` custom op (:mod:`.ops`), whose CUDA implementation is the
+launch (``csr_spmm_cuda`` and the like) and whose CPU implementation is the
+plain version, so that ``torch.export`` can trace a forward through them:
 
 - :func:`csr_spmm`, ``out = A_norm @ x`` with the graph's fixed weights,
   replaces the TPU kernels ``kernels/slab_spmm.py::_ssel_kernel``,
@@ -58,10 +63,11 @@ back to check), since one built for a longer segment would leave the rows
 between the two lengths unwritten.
 
 ``launches``, ``ev_launches``, ``ev_bwd_launches``, ``sddmm_launches``,
-``q8_launches`` and ``quantize_launches`` count the wrappers' calls that
-launched their kernels (one a call, whether or not the hub rows' second
-pass ran, and one for the quantiser's two passes), forward and backward
-alike; set them to 0 to start a count.
+``q8_launches`` and ``quantize_launches`` count the calls that launched
+their kernels (one a call, whether or not the hub rows' second pass ran,
+and one for the quantiser's two passes), forward and backward alike, and
+an exported program's calls of the ops too: a forward kernel's count is
+kept in its op's CUDA implementation. Set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -71,13 +77,12 @@ import torch
 
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
-from sgformer_tpu_torch.ops.spmm import quantize_absmax as quantize_absmax_plain
-from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
-from sgformer_tpu_torch.ops.spmm import spmm_edge_values as spmm_edge_values_plain
 from sgformer_tpu_torch.ops.spmm import (
     spmm_edge_values_backward as spmm_edge_values_backward_plain)
-from sgformer_tpu_torch.ops.spmm import spmm_q8 as spmm_q8_plain
-from sgformer_tpu_torch.ops.spmm import spmm_q8_apply as spmm_q8_apply_plain
+
+# the forward kernels' custom ops, registered by .ops (which the package
+# imports after this module)
+_OPS = torch.ops.sgformer_tpu_torch
 
 launches = 0
 ev_launches = 0
@@ -214,17 +219,23 @@ def csr_spmm(
     ``segment_edges`` or refused; built from ``indptr`` when None, with
     segments of ``segment_edges`` (:data:`HUB_EDGES` when None). The sum is
     f32 and the result has x's type. ``edge_dst`` is read only by the plain
-    version, ``segments`` only by the kernel.
+    version, ``segments`` only by the kernel. Runs the op
+    ``sgformer_tpu_torch::csr_spmm`` (:mod:`.ops`).
     """
-    global launches
     n = indptr.shape[0] - 1
     if x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _segment_length(segments, segment_edges)
-    if _check_device(x, indptr, edge_src, edge_dst, weight) == "cpu":
-        return spmm_plain(x, edge_src, edge_dst, weight, n)
+    _check_device(x, indptr, edge_src, edge_dst, weight)
+    return _OPS.csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges)
+
+
+def csr_spmm_cuda(x, indptr, edge_src, edge_dst, weight, segments, segment_edges):
+    """The CUDA implementation of the op :func:`csr_spmm` runs: the kernel's
+    launch, counted."""
+    global launches
     _check_csr(indptr, edge_src, weight=weight)
     if weight.dim() != 1:
         raise ValueError("weight must be [E]")
@@ -252,9 +263,9 @@ def csr_spmm_ev(
     launch. The sum is f32 and the result, [N, H, D], has ``out_dtype``
     (x's type when None). ``segments`` and ``segment_edges`` are the CSR's
     hub plan and its segment length, as in :func:`csr_spmm`. ``edge_dst`` is
-    read only by the plain version.
+    read only by the plain version. Runs the op
+    ``sgformer_tpu_torch::csr_spmm_ev``.
     """
-    global ev_launches
     n = indptr.shape[0] - 1
     out_dtype = out_dtype or x.dtype
     if x.dim() != 3 or x.shape[0] != n:
@@ -265,8 +276,15 @@ def csr_spmm_ev(
         raise TypeError(f"x and the result must be float32 or bfloat16, got {x.dtype}, "
                         f"{out_dtype}")
     _segment_length(segments, segment_edges)
-    if _check_device(x, indptr, edge_src, edge_dst, values) == "cpu":
-        return spmm_edge_values_plain(x, edge_src, edge_dst, values, n, out_dtype)
+    _check_device(x, indptr, edge_src, edge_dst, values)
+    return _OPS.csr_spmm_ev(x, indptr, edge_src, edge_dst, values, out_dtype, segments,
+                            segment_edges)
+
+
+def csr_spmm_ev_cuda(x, indptr, edge_src, edge_dst, values, out_dtype, segments,
+                     segment_edges):
+    """The CUDA implementation of the op :func:`csr_spmm_ev` runs."""
+    global ev_launches
     _check_csr(indptr, edge_src, values=values)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
@@ -287,15 +305,20 @@ def quantize_absmax(x: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor, to
     [N, F] int8, s 0-d float32 on x's device: the host never reads it). On
     the card two launches (``csrc/spmm.cu``: the blocks' partial maxima,
     then every block reduces them and quantises its share, walking x from
-    the end, where the first ended)."""
-    global quantize_launches
+    the end, where the first ended). Runs the op
+    ``sgformer_tpu_torch::quantize_absmax``."""
     if x.dim() != 2 or rs.shape != (x.shape[0],):
         raise ValueError(f"x must be [N, F] and rs [N], got {tuple(x.shape)}, "
                          f"{tuple(rs.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if _check_device(x, rs) == "cpu":
-        return quantize_absmax_plain(x, rs)
+    _check_device(x, rs)
+    return _OPS.quantize_absmax(x, rs)
+
+
+def quantize_absmax_cuda(x, rs):
+    """The CUDA implementation of the op :func:`quantize_absmax` runs."""
+    global quantize_launches
     if rs.dtype != torch.float32 or not rs.is_contiguous():
         raise TypeError("rs must be a contiguous float32 tensor")
     x = x.contiguous()
@@ -340,9 +363,9 @@ def csr_spmm_q8_apply(
     self edges only. ``segments`` and ``segment_edges``: the CSR's hub plan
     and its segment length, as in :func:`csr_spmm`. The result is [N, F]
     of ``out_dtype`` (float32 or bfloat16). Plain version
-    :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`.
+    :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`. Runs the op
+    ``sgformer_tpu_torch::csr_spmm_q8_apply``.
     """
-    global q8_launches
     n = indptr.shape[0] - 1
     if q.dim() != 2 or q.shape[0] != n or x_self.shape != q.shape:
         raise ValueError(f"q and x_self must both be [{n}, F], got {tuple(q.shape)}, "
@@ -353,8 +376,16 @@ def csr_spmm_q8_apply(
     if rs.shape != (n,) or s.numel() != 1:
         raise ValueError(f"rs must be [{n}] and s one value")
     _segment_length(segments, segment_edges)
-    if _check_device(q, s, x_self, indptr, edge_src, edge_dst, weight, rs) == "cpu":
-        return spmm_q8_apply_plain(q, s, x_self, edge_src, edge_dst, weight, rs, n, out_dtype)
+    _check_device(q, s, x_self, indptr, edge_src, edge_dst, weight, rs)
+    return _OPS.csr_spmm_q8_apply(q, s, x_self, indptr, edge_src, edge_dst, weight, rs,
+                                  out_dtype, segments, segment_edges)
+
+
+def csr_spmm_q8_apply_cuda(q, s, x_self, indptr, edge_src, edge_dst, weight, rs, out_dtype,
+                           segments, segment_edges):
+    """The CUDA implementation of the op :func:`csr_spmm_q8_apply` runs."""
+    global q8_launches
+    n = indptr.shape[0] - 1
     _check_csr(indptr, edge_src, weight=weight)
     for name, t in (("rs", rs), ("s", s)):
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -397,10 +428,11 @@ def csr_spmm_q8(
     + sum_{e into i, src == i} weight[e] * x_bf16[i]``
 
     with ``(q, s) = quantize_absmax(x, rs)``, the quantiser kernel (a device
-    scalar s, no host sync), then the aggregation kernel. x: [N, F] float32
-    or bfloat16 (any F); the result has x's type. ``segments`` and
+    scalar s, no host sync), then the aggregation kernel: two ops,
+    ``quantize_absmax`` and ``csr_spmm_q8_apply``. x: [N, F] float32 or
+    bfloat16 (any F); the result has x's type. ``segments`` and
     ``segment_edges``: the CSR's hub plan and its segment length, as in
-    :func:`csr_spmm`. On CPU tensors the whole is the plain
+    :func:`csr_spmm`. On CPU tensors the two plain versions make the plain
     :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`."""
     n = indptr.shape[0] - 1
     if x.dim() != 2 or x.shape[0] != n:
@@ -408,8 +440,7 @@ def csr_spmm_q8(
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _segment_length(segments, segment_edges)
-    if _check_device(x, indptr, edge_src, edge_dst, weight, rs) == "cpu":
-        return spmm_q8_plain(x, edge_src, edge_dst, weight, rs, n)
+    _check_device(x, indptr, edge_src, edge_dst, weight, rs)
     q, s = quantize_absmax(x, rs)
     return csr_spmm_q8_apply(q, s, x.to(torch.bfloat16), indptr, edge_src, edge_dst, weight,
                              rs, x.dtype, segments, segment_edges)

@@ -24,6 +24,7 @@ from sgformer_tpu_torch.data.metrics import METRICS
 from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.train.logger import RunLogger
 from sgformer_tpu_torch.train.optim import dual_weight_decay_adam
+from sgformer_tpu_torch.utils.rng import train_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +45,9 @@ class TrainConfig:
     # (logits, link_losses) (NodeFormer): the loss subtracts lamda times
     # their mean
     lamda: float = 1.0
-    # the JAX package's choice of PRNG bit generator; the port draws from
-    # torch.Generators, so every value runs the same code
+    # the JAX package's choice of PRNG bit generator (utils/rng.py): torch
+    # has one generator family a device, so it is accepted and ignored and
+    # every value draws the same numbers (utils.rng.train_generator)
     rng_impl: str = "auto"
 
 
@@ -128,7 +130,7 @@ class Trainer:
                                                 device=self.device)
         self.label = torch.as_tensor(label.reshape(-1).astype(np.int64), device=self.device)
         # the one generator of every dropout mask
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.generator = train_generator(config.seed, config.rng_impl, self.device)
         self.model.set_dropout_generator(self.generator)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.final_state: Optional[dict] = None

@@ -1524,3 +1524,95 @@ def test_zoo_on_the_card_matches_the_cpu(cuda, flags, monkeypatch):
     assert (lc - lp).abs().max().item() <= 1e-5 * lp.abs().max().item()
     torch.testing.assert_close(sc, sp, rtol=1e-5, atol=0)
     assert launches == ZOO_SPMM[flags]
+
+
+def _op_args_on_the_card(cuda):
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax as quantize_plain
+
+    g = _int8_graph(cuda)
+    hub = _hub_graph(cuda)
+    n = g.num_nodes
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    x = torch.randn(n, 40, generator=gen, device=cuda)
+    q, s = quantize_plain(x, g.rs)
+    heads = torch.randn(3, n, 2, 72, generator=gen, device=cuda).bfloat16()
+    qh, kh, vh = heads[0, :, 0], heads[1, :, 0], heads[2, :, 1]
+    kvs, ksum, scal = attn.reduce_plain(qh, kh, vh, False)
+    return {
+        "csr_spmm": (torch.randn(hub.num_nodes, 256, generator=gen, device=cuda).bfloat16(),
+                     hub.indptr, hub.edge_src, hub.edge_dst, hub.gcn_weight,
+                     hub.hub_segments, hub.hub_edges),
+        "csr_spmm_ev": (torch.randn(n, 2, 40, generator=gen, device=cuda).bfloat16(), *csr[:3],
+                        torch.rand(g.num_edges, 2, generator=gen, device=cuda), torch.float32,
+                        g.hub_segments, g.hub_edges),
+        "quantize_absmax": (x, g.rs),
+        "csr_spmm_q8_apply": (q, s, x.bfloat16(), *csr, g.rs, torch.float32, g.hub_segments,
+                              g.hub_edges),
+        "linear_attention_reduce": (qh, kh, vh, False),
+        "linear_attention_apply": (qh, vh, kvs, ksum, scal,
+                                   torch.tensor(float(n), device=cuda), False),
+    }
+
+
+@pytest.mark.parametrize("name", ["csr_spmm", "csr_spmm_ev", "quantize_absmax",
+                                  "csr_spmm_q8_apply", "linear_attention_reduce",
+                                  "linear_attention_apply"])
+def test_opcheck_on_the_card(cuda, name):
+    """Each forward kernel's op on CUDA tensors (hub rows, strided heads):
+    its schema, its fake implementation against the kernel's results, and
+    one launch counted a call."""
+    from sgformer_tpu_torch.kernels import ops
+
+    args = _op_args_on_the_card(cuda)[name]
+    torch.library.opcheck(ops.OPS[name], args)
+    kernels.reset_launch_counts()
+    ops.OPS[name](*args)
+    counts = kernels.launch_counts()
+    assert counts[ops.LAUNCH_COUNT[name]] == 1 and sum(counts.values()) == 1
+
+
+# each kind: (compute dtype or None for GAT, preprocess_graph options, launches
+# of one forward)
+EXPORT_KINDS = {
+    "sgformer-bf16": ("bf16", {}, {"csr_spmm": 3, "linear_attention_reduce": 1,
+                                   "linear_attention_apply": 1}),
+    "sgformer-f32": ("f32", {}, {"csr_spmm": 3, "linear_attention_reduce": 1,
+                                 "linear_attention_apply": 1}),
+    "sgformer-int8": ("bf16", dict(chunk_dtype="bf16", slab_dtype="int8"),
+                      {"csr_spmm_q8": 3, "quantize_absmax": 3, "linear_attention_reduce": 1,
+                       "linear_attention_apply": 1}),
+    "gat": (None, dict(chunk_dtype="bf16"), {"csr_spmm_ev": 2}),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(EXPORT_KINDS))
+def test_exported_forward_on_the_card_is_bitwise_the_predictors(cuda, tmp_path, kind):
+    """``export_artifact`` on the card, ``load_exported``, and the program
+    called with ``export_leaves()``: the predictor's logits bit for bit,
+    through the same kernel launches."""
+    from sgformer_tpu_torch import load_exported
+    from sgformer_tpu_torch.nn import GAT
+
+    dtype, options, launches = EXPORT_KINDS[kind]
+    rng = np.random.default_rng(2)
+    n = 1200
+    ei = np.concatenate([rng.integers(0, n, (2, 8000)),
+                         np.stack([np.arange(300), np.full(300, 7)])], axis=1)  # a hub row
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    if dtype is None:
+        model = GAT(24, 64, 5, heads=2, generator=gen, device=cuda)
+    else:
+        model = SGFormer(SGFormerConfig.large(64, 5, gnn_num_layers=3, compute_dtype=dtype), 24,
+                         generator=gen, device=cuda)
+    pred = Predictor(model, preprocess_graph(ei, n, device=cuda, **options), x,
+                     device=cuda).compile()
+    program = load_exported(pred.export_artifact(str(tmp_path / "forward.pt2")))
+    want = pred._forward()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = program.module()(*pred.export_leaves())
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == launches
+    assert torch.equal(got, want)
