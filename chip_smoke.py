@@ -7,7 +7,8 @@ JAX package. Phases, each failing loudly:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every kernel from ``sgformer_tpu_torch/csrc`` (all ``nvcc``
-   runs at once), timed as set-up;
+   runs at once), then of the sampled tier's host sampler
+   (``csrc/graph_kernels.cpp``, g++), each timed as set-up;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
    256), in bf16 and f32, with its median time beside its bound; the
@@ -114,14 +115,19 @@ JAX package. Phases, each failing loudly:
    features, 172 classes; symmetrised with self-loops and sorted into the
    host's int64 CSR on the card), papers100M's split shares (21,739 /
    2,256 / 3,860 seeds), batches of 1,000 seeds, fanouts (15, 10, 5),
-   uncapped: host-sampled batches with their sizes and times, one batch's
-   graph built on the card and on CPU tensors (bitwise equal), the kernels
-   alone in f32 at that batch's shape (``csr_spmm`` on A and on A^T), one
+   uncapped, sampled by the C++ sampler (the JAX default): host-sampled
+   batches with their sizes and sample ms, each batch's row gather on its
+   own line, the numpy path's batches of the same seeds beside them, one
+   batch's graph built on the card and on CPU tensors (bitwise equal), the
+   kernels alone in f32 at that batch's shape (``csr_spmm`` on A and on A^T), one
    step against the plain step (1e-5 loss, 1e-4 gradients), the launches of
    a step (6 ``csr_spmm`` and each attention kernel once) and of a forward,
    a forward's logits against the plain forward's, ``fit`` for one epoch
    with its valid and test sweeps (launches, losses, accuracies, peak
-   memory, the best state saved), the checkpoint reloaded whole (bitwise
+   memory, the best state saved) with ``sampler_workers`` 0 and then
+   ``min(8, os.cpu_count())``, bitwise the same losses, each fit's wall time
+   a batch and busy share beside the host's core count (``profile_device``
+   over the whole fit), the checkpoint reloaded whole (bitwise
    eval logits) and with ``use_pretrained`` (saved parameters, fresh
    BatchNorm statistics), each batch's build and step ms, a streaming
    sweep's wall time and a profile of three batches with their sampling;
@@ -144,10 +150,11 @@ JAX package. Phases, each failing loudly:
    the amazon2m run's flags on the same files through the batch trainer
    (batches of 50,000, 2 epochs); the papers100M pretrain run's flags
    through the sampled trainer on ``synth-n20000-e120000-f128-c16`` (1
-   epoch, the best state saved); H2GCN (hidden 64, 2 rounds) on that
-   graph through the CLI's set-up: its step against the plain step (f32:
-   loss 1e-5, gradients 1e-4), 8 ``csr_spmm`` a step and 4 a forward, its
-   eval logits against the plain forward, and a ``--time_test``;
+   epoch, the best state saved, ``--sampler_workers 2``); H2GCN (hidden
+   64, 2 rounds) on that graph through the CLI's set-up: its step against
+   the plain step (f32: loss 1e-5, gradients 1e-4), 8 ``csr_spmm`` a step
+   and 4 a forward, its eval logits against the plain forward, and a
+   ``--time_test``;
 16. the zoo (after 15, before 14): the attention ablations and the
    graph-transformer zoo through ``cli.main`` on seeded data of Cora's
    sizes (2,708 nodes, 10,556 directed edges, 1,433 binary features, 7
@@ -2104,20 +2111,24 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     of papers100M's shape (``PAPERS``), its edge list symmetrised with
     self-loops on the card and its int64 CSR sorted there and kept on the
     host, papers100M's split shares, batches of 1,000 seeds, fanouts
-    (15, 10, 5), uncapped: (a) ``PAPERS_SAMPLES`` batches sampled on the
-    host (each timed, with its nodes, edges and longest rows of A and A^T)
-    and one batch's graph built on the card and on CPU tensors, bitwise
-    equal; the kernels alone at that batch's shape in f32
+    (15, 10, 5), uncapped, through the C++ sampler: (a) ``PAPERS_SAMPLES``
+    batches sampled on the host (each timed, with its nodes, edges and
+    longest rows of A and A^T; its rows' gather, cast and pin timed apart;
+    the numpy path timed on the same seeds) and one batch's graph built on
+    the card and on CPU tensors, bitwise equal; the kernels alone at that batch's shape in f32
     (``batch_kernel_phase``, and ``csr_spmm`` on A^T); (b) one step against
     the plain step (1e-5 loss, 1e-4 gradients), the launches of a step and
     of a forward, a forward's logits against the plain forward's; (c)
     ``fit`` for one epoch with its valid and test sweeps: launches, losses
     (the last 3 below the first), accuracies, peak memory and the best state
-    saved; (d) the checkpoint: the whole state loaded into a fresh model
-    gives the saved state's eval logits bitwise, and ``use_pretrained``
-    gives the saved parameters beside fresh BatchNorm statistics; (e) each
-    sampled batch's build and step ms, a streaming sweep's wall time and a
-    profile of three batches with their sampling, gathers and builds.
+    saved, run with ``sampler_workers`` 0 and ``min(8, os.cpu_count())``
+    (bitwise the same losses and accuracies; each run's wall time a batch
+    and device-busy share, profiled whole); (d) the checkpoint: the whole
+    state loaded into a fresh model gives the saved state's eval logits
+    bitwise, and ``use_pretrained`` gives the saved parameters beside fresh
+    BatchNorm statistics; (e) each sampled batch's build and step ms, a
+    streaming sweep's wall time and a profile of three batches with their
+    sampling, gathers and builds.
     Returns the launches of (b) and (c) and the run's numbers."""
     import math
     import os
@@ -2128,7 +2139,7 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     from sgformer_tpu_torch import SGFormer, SGFormerConfig
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
-    from sgformer_tpu_torch.sample import CSRGraph
+    from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler
     from sgformer_tpu_torch.train import SampledTrainConfig, SampledTrainer, build_sampled_graph
     from sgformer_tpu_torch.train.checkpoint import read_state
 
@@ -2164,18 +2175,30 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
 
     # (a) batches sampled on the host; one built on the card and on the CPU;
     # the kernels alone at its shape
-    batches, sample_ms, gather_ms = [], [], []
+    batches, sample_ms, gather_ms, numpy_ms = [], [], [], []
+    numpy_sampler = NeighborSampler(csr, n, tc.fanouts, b, seed=0, use_native=False)
+    if not trainer.sampler.use_native:
+        raise AssertionError(f"{what}: the trainer's sampler is not the C++ sampler")
     for i in range(PAPERS_SAMPLES):
+        seeds = split["train"][i * b:(i + 1) * b]
         t = time.perf_counter()
-        batch = trainer.sampler.sample(split["train"][i * b:(i + 1) * b])
+        batch = trainer.sampler.sample(seeds)
         sample_ms.append((time.perf_counter() - t) * 1e3)
         t = time.perf_counter()
         batches.append((batch, trainer.gather_x(batch.node_ids)))
         gather_ms.append((time.perf_counter() - t) * 1e3)
-        log(f"{what} batch {i}: {batch.num_nodes} nodes, {len(batch.edge_src)} edges, longest "
-            f"row of A {np.bincount(batch.edge_dst).max()}, of A^T "
-            f"{np.bincount(batch.edge_src).max()}; sampled in {sample_ms[-1]:.1f} ms, rows "
-            f"gathered, cast and pinned in {gather_ms[-1]:.1f} ms on the host")
+        log(f"{what} batch {i} (C++ sampler): {batch.num_nodes} nodes, {len(batch.edge_src)} "
+            f"edges, longest row of A {np.bincount(batch.edge_dst).max()}, of A^T "
+            f"{np.bincount(batch.edge_src).max()}; sampled in {sample_ms[-1]:.1f} ms on the host")
+        log(f"{what} batch {i} rows: {batch.num_nodes} x {PAPERS['num_features']} gathered, cast "
+            f"to {trainer.transfer_dtype} and pinned in {gather_ms[-1]:.1f} ms on the host "
+            f"({batches[-1][1].nbytes / 2 ** 20:.1f} MiB)")
+        t = time.perf_counter()
+        other = numpy_sampler.sample(seeds)
+        numpy_ms.append((time.perf_counter() - t) * 1e3)
+        log(f"{what} batch {i} (numpy path, same seeds): {other.num_nodes} nodes, "
+            f"{len(other.edge_src)} edges; sampled in {numpy_ms[-1]:.1f} ms on the host")
+    del numpy_sampler, other
     batch, rows = batches[0]
     graph_b, build_ms = cuda_ms(lambda: build_sampled_graph(batch, dev))
     t = time.perf_counter()
@@ -2209,25 +2232,50 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     del logits, ref
     torch.cuda.empty_cache()
 
-    # (c) the path's run: fit, one epoch and its valid and test sweeps
-    torch.cuda.reset_peak_memory_stats()
+    # (c) the path's run: fit, one epoch and its valid and test sweeps, its
+    # batches sampled in the prefetch thread and then by a pool of threads;
+    # each fit profiled whole for its device-busy share
     trainer.record_losses = True
     nb = math.ceil(sizes[0] / b)
     forwards = math.ceil(sizes[1] / b) + math.ceil(sizes[2] / b)
     want = {k: c * nb + forwards * FORWARD_LAUNCHES[k] for k, c in STEP_LAUNCHES.items()}
-    t = time.perf_counter()
-    logger, run_counts = counted(f"{what} fit ({nb} batch steps, {forwards} eval forwards)",
-                                 lambda: trainer.fit([split], np_rng=np.random.default_rng(1)),
-                                 want)
-    fit_s = time.perf_counter() - t
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    losses, result = trainer.train_losses, logger.results[0][-1]
-    log(f"{what} fit: {fit_s:.3f} s for one epoch ({nb} steps) and its valid and test sweeps; "
-        f"peak device memory {peak_mib:.1f} MiB")
+    cores = os.cpu_count()
+    fits = {}
+    for workers in (0, min(8, cores or 1)):
+        trainer.config = dataclasses.replace(tc, sampler_workers=workers)
+        torch.cuda.reset_peak_memory_stats()
+        box = {}
+
+        def run():
+            box["logger"] = trainer.fit([split], np_rng=np.random.default_rng(1))
+
+        label = f"{what} fit, sampler_workers={workers}"
+        (wall, busy), run_counts = counted(
+            f"{label} ({nb} batch steps, {forwards} eval forwards)",
+            lambda: profile_device(label, run, 1), want)
+        fit = dict(wall_ms=wall, busy_ms=busy, losses=list(trainer.train_losses),
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                   results=box["logger"].results)
+        fits[workers] = fit
+        log(f"{label}: {wall / 1e3:.3f} s for one epoch ({nb} steps) and its valid and test "
+            f"sweeps, {wall / (nb + forwards):.1f} ms wall a batch, the card busy "
+            f"{busy / wall:.1%}; host cores {cores}; peak device memory "
+            f"{fit['peak_mib']:.1f} MiB")
+    (w0, serial), (wn, threaded) = fits.items()
+    losses, result = serial["losses"], serial["results"][0][-1]
     log(f"{what} losses: {[round(x, 6) for x in losses]}")
     log(f"{what} accuracies after one epoch: valid {result[1]:.4f}, test {result[2]:.4f}")
     if len(losses) != nb or not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
         raise AssertionError(f"the {what} loss did not fall over the epoch")
+    if threaded["losses"] != losses or threaded["results"] != serial["results"]:
+        raise AssertionError(f"{what}: sampler_workers={wn} gave other losses or accuracies than "
+                             f"{w0}: {threaded['losses']}, {threaded['results']}")
+    log(f"{what}: sampler_workers={wn} gives bitwise the losses and accuracies of {w0}; epoch "
+        f"wall a batch {serial['wall_ms'] / (nb + forwards):.1f} -> "
+        f"{threaded['wall_ms'] / (nb + forwards):.1f} ms, busy "
+        f"{serial['busy_ms'] / serial['wall_ms']:.1%} -> "
+        f"{threaded['busy_ms'] / threaded['wall_ms']:.1%} on {cores} host cores")
+    fit_s, peak_mib = serial["wall_ms"] / 1e3, serial["peak_mib"]
 
     # (d) the saved best state: whole into a fresh model, then as
     # use_pretrained restores it
@@ -2271,8 +2319,9 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     t = time.perf_counter()
     trainer.accuracy(split["valid"])
     eval_s = time.perf_counter() - t
-    log(f"{what} on the host: sample median {statistics.median(sample_ms):.1f} ms a batch "
-        f"(min {min(sample_ms):.1f}, max {max(sample_ms):.1f}), gather + cast + pin "
+    log(f"{what} on the host: C++ sample median {statistics.median(sample_ms):.1f} ms a batch "
+        f"(min {min(sample_ms):.1f}, max {max(sample_ms):.1f}; the numpy path "
+        f"{statistics.median(numpy_ms):.1f}), gather + cast + pin "
         f"{statistics.median(gather_ms):.1f} ms; on the card: build median "
         f"{statistics.median(builds):.3f} ms, step median {statistics.median(steps):.3f} ms "
         f"over {len(steps)} batches; a streaming sweep of the {sizes[1]} valid seeds: "
@@ -2287,6 +2336,7 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     wall, busy = profile_device(f"{what} 3 batches (sample + gather + build + step)",
                                 sampled_step, 3)
     numbers = dict(sample_ms=statistics.median(sample_ms), gather_ms=statistics.median(gather_ms),
+                   numpy_sample_ms=statistics.median(numpy_ms),
                    build_ms=statistics.median(builds), cpu_build_ms=cpu_ms,
                    step_ms=statistics.median(steps), fit_s=fit_s, eval_s=eval_s,
                    peak_mib=peak_mib, busy_share=busy / wall, losses=losses, result=result)
@@ -2356,7 +2406,8 @@ def cli_phase(ds, results: dict, dev: str) -> dict:
     launches; (c) the batch trainer: the amazon2m run's
     flags on the same files, batches of 50,000, 2 epochs; (d) the sampled
     trainer: the papers100M pretrain run's flags (``recipes/100m.sh``) on
-    ``synth-n20000-e120000-f128-c16``, 1 epoch, the best state saved; (e)
+    ``synth-n20000-e120000-f128-c16``, 1 epoch, the best state saved, its
+    batches sampled by 2 threads (``--sampler_workers 2``); (e)
     H2GCN (hidden 64, 2 rounds) on that graph through the CLI's set-up: its
     step through the kernels against the plain step (f32: loss 1e-5,
     gradients 1e-4), the launches of a step and a forward, and a
@@ -2471,7 +2522,8 @@ def cli_phase(ds, results: dict, dev: str) -> dict:
     # (d) the sampled trainer: the papers100M pretrain run's flags
     model_dir = os.path.join(root, "papers100m_sgformer")
     argv = (recipe_flags("100m.sh", "$RUN --dataset ogbn-papers100M")
-            + ["--dataset", CLI_SAMPLED_DATASET, "--epochs", "1", "--model_dir", model_dir])
+            + ["--dataset", CLI_SAMPLED_DATASET, "--epochs", "1", "--model_dir", model_dir,
+               "--sampler_workers", "2"])
     log(f"cli: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
     kernels.reset_launch_counts()
     t = time.perf_counter()
@@ -2865,10 +2917,15 @@ def main() -> int:
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.graph import gcn_norm_rs
     from sgformer_tpu_torch.kernels import _build, ops
+    from sgformer_tpu_torch.native import build as native_build
 
     t = time.perf_counter()
     reports = _build.build_all()
     log(f"kernel build: {time.perf_counter() - t:.1f} s")
+    # the sampled tier's host sampler (g++), built before anything times it
+    t = time.perf_counter()
+    native_build.library()
+    log(f"host sampler build (g++): {time.perf_counter() - t:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

@@ -31,8 +31,11 @@ onto the card:
   so ``auto`` never does here. With ``--use_pallas`` the JAX graph's
   fixed-weight aggregation also sends ``--chunk_dtype`` messages; the
   port's keeps x's type.
-- ``--trainer sharded``, ``--use_halo`` and ``--sampler_workers`` above 0
-  raise NotImplementedError naming ``ROADMAP.md``.
+- ``--trainer sharded`` and ``--use_halo`` raise NotImplementedError
+  naming ``ROADMAP.md``.
+- ``--sampler_workers N`` samples the sampled trainer's batches in N
+  threads through the C++ sampler, as in the JAX CLI; the batches and
+  losses are those of 0 workers.
 
 NodeFormer's adjacency powers (``build_nodeformer_graphs``) and
 Graphormer's inputs (``graphormer_inputs`` of the features' ``x > 0``) are
@@ -162,10 +165,6 @@ class Built:
 
 def build(args) -> Built:
     dev = resolve_device(args.device)
-    if args.trainer == "sampled" and args.sampler_workers > 0:
-        raise NotImplementedError(
-            "--sampler_workers > 0: the C++ sampler's worker threads are not ported yet "
-            "(ROADMAP.md perf item G)")
     note = layout_note(args)
     if note:
         print(note, file=sys.stderr)
@@ -251,6 +250,7 @@ def build(args) -> Built:
                 model_dir=args.model_dir,
                 eval_train=args.eval_train,
                 transfer_dtype=args.transfer_dtype,
+                sampler_workers=args.sampler_workers,
             ),
             device=dev,
         )

@@ -161,8 +161,9 @@ def parser_add_main_args(parser: argparse.ArgumentParser):
                              "numerics, half the transfer)")
     parser.add_argument("--sampler_workers", type=int, default=0,
                         help="sampled trainer: concurrent sampling "
-                             "threads; only 0 (one prefetch thread) is "
-                             "ported")
+                             "threads (the C++ sampler releases the GIL; "
+                             "the reference hardcodes num_workers=12); 0 "
+                             "samples in the prefetch thread")
     # outputs
     parser.add_argument("--time_test", action="store_true",
                         help="timing/memory benchmark instead of training "

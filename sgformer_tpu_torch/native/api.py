@@ -1,0 +1,48 @@
+"""numpy-facing wrapper of the host sampler: the counterpart of the JAX
+package's ``native/api.py::sample_batch_native``."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from sgformer_tpu_torch.native.build import library
+
+
+def sample_batch_native(indptr: np.ndarray, indices: np.ndarray, seeds: np.ndarray, fanouts,
+                        node_cap: int, edge_cap: int, seed: int):
+    """One batch of the C++ full-batch sampler (``csrc/graph_kernels.cpp``):
+    the fanout draws from ``seed``, the relabel (seeds first), a self-loop on
+    every node, the stable sort by destination and the f32 GCN weights.
+
+    ``indptr``/``indices`` are the in-neighbour CSR (int64); ``node_cap`` and
+    ``edge_cap`` size the output buffers. Returns ``(node_ids, src, dst,
+    weight, truncated)``: the arrays at the batch's real size (int64 global
+    ids, int32 local ends, f32 weights) and whether a sampled node (``[0]``)
+    or an edge (``[1]``) did not fit. The call releases the GIL, so batches
+    sample in parallel in Python threads."""
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int64)
+    fan = np.ascontiguousarray(fanouts, dtype=np.int64).reshape(-1)
+    num_nodes = len(indptr) - 1
+    if num_nodes < 0 or indptr[-1] != len(indices):
+        raise ValueError(f"indptr ends at {indptr[-1] if len(indptr) else None}, "
+                         f"indices holds {len(indices)}")
+    if len(seeds) and (seeds.min() < 0 or seeds.max() >= num_nodes):
+        raise ValueError(f"seeds must lie in [0, {num_nodes})")
+    if not 0 <= node_cap < 2 ** 31 or edge_cap < 0:
+        raise ValueError(f"node_cap {node_cap} must lie in [0, 2^31) (int32 local ids), "
+                         f"edge_cap {edge_cap} must not be negative")
+    node_ids = np.empty(node_cap, dtype=np.int64)
+    src = np.empty(edge_cap, dtype=np.int32)
+    dst = np.empty(edge_cap, dtype=np.int32)
+    weight = np.empty(edge_cap, dtype=np.float32)
+    n_edges = np.zeros(1, dtype=np.int64)
+    truncated = np.zeros(2, dtype=np.int64)
+    n = library().sample_batch(
+        indptr.ctypes.data, indices.ctypes.data, seeds.ctypes.data, len(seeds),
+        fan.ctypes.data, len(fan), node_cap, edge_cap, seed & (2 ** 64 - 1),
+        node_ids.ctypes.data, src.ctypes.data, dst.ctypes.data, weight.ctypes.data,
+        n_edges.ctypes.data, truncated.ctypes.data)
+    e = int(n_edges[0])
+    return node_ids[:n], src[:e], dst[:e], weight[:e], tuple(bool(t) for t in truncated)

@@ -2,32 +2,37 @@
 ``sgformer_tpu/sample/neighbor.py`` (the role of PyG's ``NeighborLoader`` in
 the SGFormer reference's ``100M/nb-sample.py``, fanouts [15, 10, 5]).
 
-What it computes, as the JAX package's numpy path (``_sample_numpy``) does,
-draw for draw from the same numpy generator:
+Two paths, as in the JAX package, with the same default:
 
-- layer-wise expansion from the seeds: each frontier node takes
-  ``min(deg, fanout)`` in-neighbours, all of them where ``deg <= fanout``,
-  else ``fanout`` offsets drawn with replacement as ``rng.random(total) *
-  deg`` and deduplicated (``np.unique`` of the (dst, src) pairs);
-- the next frontier is the sources not yet visited (``np.setdiff1d``); the
-  batch's nodes are the seeds first, then each hop's new nodes in order;
-- sampled edges run child -> parent, relabelled to the nodes' places in the
-  batch; one self-loop is added on every node, and the edges are stably
-  sorted by destination.
+- **the C++ sampler** (``use_native=True``, the default): one
+  GIL-releasing call a batch (:func:`sgformer_tpu_torch.native.
+  sample_batch_native`, the port's copy of the JAX package's
+  ``csrc/graph_kernels.cpp::sample_batch``), bit for bit the JAX batch of
+  the same seed. Each frontier node takes ``min(deg, fanout)`` distinct
+  in-neighbours (Floyd's draws from a per-batch xorshift seed, the fanout
+  clamped at 64); nodes are numbered as first met, seeds first; a self-loop
+  on every node; the edges stably sorted by destination with their f32 GCN
+  weights (``SampledBatch.edge_weight``). Each batch's seed is one
+  ``rng.integers(2**62)`` draw, so ``epoch(workers > 0)`` draws every
+  batch's seed first and samples in a thread pool, batches delivered in
+  order and bitwise those of ``workers=0``.
+- **the numpy path** (``use_native=False``), the JAX package's numpy
+  sampler (``_sample_numpy``) draw for draw: ``fanout`` offsets drawn with
+  replacement as ``rng.random(total) * deg`` and deduplicated, the next
+  frontier the sources not yet visited (``np.setdiff1d``); the trainer
+  computes the GCN weights on the card. Its batches are the JAX sampler's
+  where that finds no C++ library (with the library, the JAX hop sampler
+  calls its C++ ``sample_neighbors`` even with ``use_native=False``). One
+  generator draws every batch, so ``workers > 0`` is refused on this path.
 
-Where it differs, and why. The JAX sampler pads every batch to static
-caps (``node_cap``, ``edge_cap``) so that one compiled XLA step serves the
-epoch, and the caps also truncate: a batch that reaches ``node_cap`` stops
-expanding and drops the edges to the nodes beyond it (its default cap, 160
-seeds' worth of nodes, truncates papers100M-sized batches). The reference's
-``NeighborLoader`` does not truncate, and PyTorch on the card compiles no
-shapes, so this sampler has no caps, no padding and no node mask: each batch
-has its real size. The JAX sampler also computes the GCN weights on the host;
-here the trainer computes them on the card
-(:func:`sgformer_tpu_torch.train.sampled_trainer.build_sampled_graph`). Its
-C++ sampler (``use_native``) draws from another seed stream and is not
-ported; nor is ``epoch(workers > 0)``: off the C++ path, the JAX ``sample``
-ignores its per-batch seed, so its threads would share one generator.
+Where it differs, and why. The JAX sampler pads every batch to static caps
+(``node_cap``, ``edge_cap``) so that one compiled XLA step serves the epoch,
+and the caps also truncate (its default cap, 160 seeds' worth of nodes,
+truncates papers100M-sized batches). PyTorch on the card compiles no shapes,
+so batches here have their real size and no node mask; the C++ path sizes
+its buffers from the worst case (:func:`worst_case_caps`), so nothing
+truncates, and a truncated batch would raise. Where the JAX sampler finds
+no library it quietly samples with numpy; here a failed build raises.
 """
 
 from __future__ import annotations
@@ -35,12 +40,18 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Iterator, Sequence
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sgformer_tpu_torch.graph import check_int32_counts
+from sgformer_tpu_torch.native.api import sample_batch_native
+
+# the C++ sampler takes at most this many in-neighbours a node and hop
+FANOUT_LIMIT = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +90,26 @@ class SampledBatch:
     edge_dst: np.ndarray  # [E] int32 local, non-decreasing
     num_seeds: int
     num_nodes: int
+    # [E] f32 GCN weights from the C++ sampler; None on the numpy path,
+    # whose weights the trainer computes on its device
+    edge_weight: Optional[np.ndarray] = None
+
+
+def worst_case_caps(num_seeds: int, fanouts: Sequence[int], num_nodes: int) -> tuple[int, int]:
+    """Node and edge caps that no batch of ``num_seeds`` seeds can reach
+    on the C++ path: hop h expands at most ``num_seeds * f_1 ... f_(h-1)``
+    frontier nodes by ``f_h`` each (each fanout clamped to [0, 64]), and
+    the batch holds at most ``num_nodes`` nodes, every frontier node among
+    them once; one self-loop a node. Returns (node_cap, edge_cap)."""
+    fan = [min(max(int(f), 0), FANOUT_LIMIT) for f in fanouts]
+    frontier = nodes = num_seeds
+    edges = 0
+    for f in fan:
+        edges += frontier * f
+        frontier *= f
+        nodes += frontier
+    node_cap = min(nodes, num_nodes)
+    return node_cap, min(edges, max(fan, default=0) * node_cap) + node_cap
 
 
 def _sample_neighbors(csr: CSRGraph, frontier: np.ndarray, fanout: int,
@@ -107,10 +138,11 @@ def _sample_neighbors(csr: CSRGraph, frontier: np.ndarray, fanout: int,
 class NeighborSampler:
     """Layer-wise neighbour sampling over ``graph`` (a [2, E] edge list,
     numpy or a tensor, or a prebuilt :class:`CSRGraph`), ``batch_size``
-    seeds a batch, draws from ``rng`` (``np.random.default_rng(seed)``)."""
+    seeds a batch, draws from ``rng`` (``np.random.default_rng(seed)``),
+    through the C++ sampler unless ``use_native`` is False."""
 
     def __init__(self, graph, num_nodes: int, fanouts: Sequence[int] = (15, 10, 5),
-                 batch_size: int = 1000, *, seed: int = 0):
+                 batch_size: int = 1000, *, seed: int = 0, use_native: bool = True):
         if isinstance(graph, CSRGraph):
             if graph.num_nodes != num_nodes:
                 raise ValueError(f"the CSR has {graph.num_nodes} nodes, not {num_nodes}")
@@ -120,10 +152,35 @@ class NeighborSampler:
         self.fanouts = list(fanouts)
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
+        self.use_native = use_native
 
-    def sample(self, seeds) -> SampledBatch:
-        """The batch of ``seeds`` (global ids, distinct)."""
+    def sample(self, seeds, rng_seed: Optional[int] = None) -> SampledBatch:
+        """The batch of ``seeds`` (global ids, distinct). On the C++ path its
+        draws come from ``rng_seed``, by default one ``rng.integers(2**62)``
+        draw; the numpy path draws from ``rng`` and takes no ``rng_seed``."""
         seeds = np.asarray(seeds, dtype=np.int64)
+        if self.use_native:
+            if rng_seed is None:
+                rng_seed = int(self.rng.integers(2 ** 62))
+            return self._sample_native(seeds, int(rng_seed))
+        if rng_seed is not None:
+            raise ValueError("rng_seed seeds the C++ sampler; the numpy path draws from the "
+                             "sampler's generator")
+        return self._sample_numpy(seeds)
+
+    def _sample_native(self, seeds: np.ndarray, rng_seed: int) -> SampledBatch:
+        node_cap, edge_cap = worst_case_caps(len(seeds), self.fanouts, self.csr.num_nodes)
+        nodes, src, dst, weight, truncated = sample_batch_native(
+            self.csr.indptr, self.csr.indices, seeds, self.fanouts, node_cap, edge_cap, rng_seed)
+        if any(truncated):
+            raise RuntimeError(f"the C++ sampler truncated a batch of {len(seeds)} seeds at "
+                               f"node_cap {node_cap}, edge_cap {edge_cap} (node, edge: "
+                               f"{truncated})")
+        check_int32_counts(len(nodes), len(src))
+        return SampledBatch(node_ids=nodes, edge_src=src, edge_dst=dst, num_seeds=len(seeds),
+                            num_nodes=len(nodes), edge_weight=weight)
+
+    def _sample_numpy(self, seeds: np.ndarray) -> SampledBatch:
         n_all = self.csr.num_nodes
         all_src, all_dst = [], []
         nodes = frontier = seeds
@@ -161,17 +218,47 @@ class NeighborSampler:
         """The batches of ``seed_pool`` (permuted first when ``shuffle``), in
         order, the remainder batch too (the reference's ``NeighborLoader``
         has no ``drop_last``; the JAX option of that name has no caller and
-        is not ported). Batches are sampled one after the other: ``workers >
-        0`` is refused."""
-        if workers > 0:
+        is not ported).
+
+        ``workers > 0`` (the C++ path only) samples in a pool of that many
+        threads: every batch's seed is drawn first, at most ``max(2 *
+        workers, 2)`` batches are in flight or waiting, and they are yielded
+        in order, bitwise those of ``workers=0``. A worker's exception is
+        raised here; closing the iterator early cancels what has not started
+        and waits for what has."""
+        if workers > 0 and not self.use_native:
             raise ValueError(
-                "workers > 0 is not ported: batches are sampled in order from one numpy "
-                "generator, which threads cannot share")
+                "workers > 0 needs the C++ sampler: the numpy path draws every batch from one "
+                "numpy generator, which threads cannot share")
         pool = np.asarray(seed_pool)
         if shuffle:
             pool = pool[self.rng.permutation(len(pool))]
-        for i in range(0, len(pool), self.batch_size):
-            yield self.sample(pool[i:i + self.batch_size])
+        starts = range(0, len(pool), self.batch_size)
+        if workers <= 0:
+            for i in starts:
+                yield self.sample(pool[i:i + self.batch_size])
+            return
+        # numpy generators are not thread-safe: each batch's seed is drawn
+        # here, in the order workers=0 draws them
+        work = iter([(i, int(self.rng.integers(2 ** 62))) for i in starts])
+        ex = ThreadPoolExecutor(max_workers=workers)
+        futures: deque = deque()
+
+        def submit_next() -> None:
+            job = next(work, None)
+            if job is not None:
+                i, rng_seed = job
+                futures.append(ex.submit(self.sample, pool[i:i + self.batch_size], rng_seed))
+
+        try:
+            for _ in range(max(2 * workers, 2)):
+                submit_next()
+            while futures:
+                batch = futures.popleft().result()
+                submit_next()
+                yield batch
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
 
 
 class _ProducerError:
@@ -205,6 +292,11 @@ class PrefetchIterator:
             # would end the epoch early as a StopIteration
             self.q.put(_ProducerError(e))
         finally:
+            # a generator stopped early releases what it holds (a sampler's
+            # thread pool) in this thread, before close() returns
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
             self.q.put(self._done)
 
     def __iter__(self):

@@ -20,16 +20,19 @@ What it computes, as the JAX package does:
   first train seeds to trace its model's ``init``; this trainer draws that
   batch too, so that both take the same batches from the same generator.
 
-Where it differs, and why. The host samples (numpy, in the JAX order, in a
-prefetch thread that also gathers the batch's feature rows, casts them as
-``transfer_dtype`` asks and pins them); each batch's graph is built on the
-card (:func:`build_sampled_graph`: the GCN weights, the row pointers, the
-transposed CSR the gradient walks and both hub plans). The JAX trainer pads
-every batch to static node and edge caps for XLA, caps that also truncate
-large batches; this one runs each batch at its real size (see
-``sample/neighbor.py``), so ``node_cap``, ``edge_cap`` and the ``node_mask``
-have no counterpart. ``sampler_workers`` is not ported: ``epoch(workers >
-0)`` is refused there.
+How it runs. The host samples through the C++ sampler, the JAX trainer's
+default (bitwise its batches and f32 GCN weights; the numpy path with
+``trainer.sampler.use_native = False``), in a prefetch thread that also
+gathers the batch's feature rows, casts them as ``transfer_dtype`` asks and
+pins them; ``sampler_workers`` threads sample batches side by side under it,
+as in the JAX trainer, in the train loop and the eval sweeps alike. Each
+batch's graph is built on the card (:func:`build_sampled_graph`: the row
+pointers, the transposed CSR the gradient walks and both hub plans).
+
+Where it differs, and why. The JAX trainer pads every batch to static node
+and edge caps for XLA, caps that also truncate large batches; this one runs
+each batch at its real size (see ``sample/neighbor.py``), so ``node_cap``,
+``edge_cap`` and the ``node_mask`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -56,8 +59,7 @@ _TRANSFER = {"f32": torch.float32, "bf16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class SampledTrainConfig(TrainConfig):
     """The JAX ``SampledTrainConfig`` without ``node_cap`` and ``edge_cap``
-    (batches run uncapped, at their real size) and ``sampler_workers`` (the
-    batches are sampled in order from one generator)."""
+    (batches run uncapped, at their real size)."""
 
     batch_size: int = 1000
     fanouts: tuple = (15, 10, 5)
@@ -66,6 +68,10 @@ class SampledTrainConfig(TrainConfig):
     model_dir: str = "models/ckpt"
     use_pretrained: bool = False
     prefetch_depth: int = 2
+    # threads that sample batches side by side (the C++ sampler releases the
+    # GIL; PyG's num_workers, nb-sample.py:131); 0 samples in the prefetch
+    # thread
+    sampler_workers: int = 0
     # sweep the train seeds each epoch too (the reference's 100M loop does
     # not: train accuracy is recorded as 0.0)
     eval_train: bool = False
@@ -77,15 +83,19 @@ class SampledTrainConfig(TrainConfig):
 
 def build_sampled_graph(batch: SampledBatch, device) -> Graph:
     """The :class:`Graph` of a sampled batch on ``device``: its dst-sorted
-    local edges, their ``gcn_norm_weights`` and the CSRs built there. Sampled
-    edges run child -> parent, so the graph is not symmetric and carries the
-    transposed CSR (and its hub plan: a source sampled by many parents is a
-    long row of A^T) that the gradient walks. Bitwise the same on every
-    device."""
+    local edges, their GCN weights (the C++ sampler's ``edge_weight``, which
+    the JAX trainer trains on, else ``gcn_norm_weights`` computed there) and
+    the CSRs built there. Sampled edges run child -> parent, so the graph is
+    not symmetric and carries the transposed CSR (and its hub plan: a source
+    sampled by many parents is a long row of A^T) that the gradient walks.
+    Bitwise the same on every device."""
     dev = resolve_device(device)
     src = torch.from_numpy(batch.edge_src).to(dev)
     dst = torch.from_numpy(batch.edge_dst).to(dev)
-    weight = gcn_norm_weights(src, dst, batch.num_nodes)
+    if batch.edge_weight is not None:
+        weight = torch.from_numpy(batch.edge_weight).to(dev)
+    else:
+        weight = gcn_norm_weights(src, dst, batch.num_nodes)
     return graph_from_sorted(src, dst, weight, batch.num_nodes, symmetric=False)
 
 
@@ -195,12 +205,16 @@ class SampledTrainer:
         rows = rows.to(self.transfer_dtype)
         return rows.pin_memory() if self.device.type == "cuda" else rows
 
-    def prepared_epoch(self, seeds, *, shuffle: bool = True) -> PrefetchIterator:
-        """``(batch, x_rows)`` of each batch of ``seeds``, sampled and
+    def prepared_epoch(self, seeds, *, shuffle: bool = True,
+                       workers: Optional[int] = None) -> PrefetchIterator:
+        """``(batch, x_rows)`` of each batch of ``seeds``, sampled (by
+        ``workers`` threads, by default ``config.sampler_workers``) and
         gathered ahead of the card in a prefetch thread."""
+        if workers is None:
+            workers = self.config.sampler_workers
 
         def produce():
-            for batch in self.sampler.epoch(seeds, shuffle=shuffle):
+            for batch in self.sampler.epoch(seeds, shuffle=shuffle, workers=workers):
                 yield batch, self.gather_x(batch.node_ids)
 
         return PrefetchIterator(produce(), depth=self.config.prefetch_depth)

@@ -361,6 +361,31 @@ def test_cli_sampled_trainer(tmp_path):
     assert cli.main(argv + ["--use_pretrained", "--epochs", "1"]).results[0]
 
 
+def test_cli_sampler_workers_train_the_same_losses(monkeypatch):
+    """``--sampler_workers 2`` samples through the C++ sampler in two
+    threads: the same batches, so bitwise the losses and results of 0."""
+    from sgformer_tpu_torch.train import SampledTrainer
+
+    argv = ["--dataset", SYNTH, "--method", "sgformer", "--trainer", "sampled",
+            "--batch_size", "64", "--epochs", "2", "--fanouts", "5", "3", "--display_step",
+            "-1", "--rand_split", "--backbone", "graphconv"] + CPU
+    step = SampledTrainer.train_step
+    runs = {}
+    for workers in ("0", "2"):
+        losses = runs[workers] = []
+
+        def recording(self, batch, losses=losses, workers=workers):
+            assert self.config.sampler_workers == int(workers) and self.sampler.use_native
+            loss = step(self, batch)
+            losses.append(loss.item())
+            return loss
+
+        monkeypatch.setattr(SampledTrainer, "train_step", recording)
+        runs[workers + " results"] = cli.main(argv + ["--sampler_workers", workers]).results
+    assert len(runs["0"]) == 2 * 3 and runs["2"] == runs["0"]
+    assert runs["2 results"] == runs["0 results"]
+
+
 @pytest.mark.parametrize("method", ["gcn", "mlp", "sgc", "appnp", "link", "gat", "gatjk",
                                     "gcnjk", "sign", "sgc2", "mixhop", "gprgnn", "h2gcn"])
 def test_cli_baseline_methods(method):
@@ -419,7 +444,6 @@ def test_cli_trans_residual_mode():
 @pytest.mark.parametrize("flags,match", [
     (["--trainer", "sharded"], "sharded"),
     (["--use_halo"], "halo"),
-    (["--trainer", "sampled", "--sampler_workers", "2"], "sampler_workers"),
 ])
 def test_unported_paths_raise_naming_the_roadmap(flags, match):
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP.md"):

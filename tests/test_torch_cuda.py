@@ -10,6 +10,8 @@ the CPU. Skipped without a CUDA card. This file imports no JAX, so it runs on a 
 Tolerances: f32 1e-5 (summation order only, TF32 off); bf16 1e-2 relative
 and absolute (the output rounding to bf16 may differ by one ulp, 2^-8)."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -1269,8 +1271,9 @@ def _sampled_setup(dev, **kw):
 
 def test_sampled_graph_on_the_card_is_bitwise_the_cpu_build(cuda):
     """Each batch's graph, the transposed CSR and both hub plans included, is
-    bitwise the same built on the card and on the CPU; the CSR sorted on the
-    card is the CPU's."""
+    bitwise the same built on the card and on the CPU, from the C++ sampler's
+    batches (their weights) and the numpy path's (weights computed on each
+    device); the CSR sorted on the card is the CPU's."""
     import dataclasses
 
     from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler
@@ -1282,10 +1285,12 @@ def test_sampled_graph_on_the_card_is_bitwise_the_cpu_build(cuda):
     want_csr = CSRGraph.from_edge_index(ei, n)
     assert np.array_equal(csr.indptr, want_csr.indptr)
     assert np.array_equal(csr.indices, want_csr.indices)
-    sampler = NeighborSampler(csr, n, (15, 10, 5), 300, seed=0)
     hub = np.bincount(ei[1]).argmax()
-    for seeds in (np.unique(ei[0][ei[1] == hub]), np.arange(0, n, 7)):
+    for use_native, seeds in itertools.product(
+            (True, False), (np.unique(ei[0][ei[1] == hub]), np.arange(0, n, 7))):
+        sampler = NeighborSampler(csr, n, (15, 10, 5), 300, seed=0, use_native=use_native)
         batch = sampler.sample(seeds)
+        assert (batch.edge_weight is not None) == use_native
         got, want = build_sampled_graph(batch, cuda), build_sampled_graph(batch, "cpu")
         assert got.device.type == "cuda"
         for f in dataclasses.fields(want):

@@ -42,7 +42,7 @@ def test_import_loads_no_jax():
 def _sources():
     for root, _, files in os.walk(PKG_DIR):
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 with open(os.path.join(root, name)) as f:
                     yield os.path.relpath(os.path.join(root, name), REPO), f.read()
 
@@ -65,13 +65,14 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
     csrc = os.path.join(PKG_DIR, "csrc")
     from sgformer_tpu_torch.kernels import _build
 
-    assert sorted(os.listdir(csrc)) == ["linear_attention.cu", "linear_attention_bwd.cu",
-                                        "microbench.cu", "spmm.cu", "tensor_core.cuh"]
+    assert sorted(os.listdir(csrc)) == ["graph_kernels.cpp", "linear_attention.cu",
+                                        "linear_attention_bwd.cu", "microbench.cu", "spmm.cu",
+                                        "tensor_core.cuh"]
     assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(
         f for f in os.listdir(csrc) if f.endswith(".cu"))
     # the sources and the headers they include are package data
     with open(os.path.join(os.path.dirname(PKG_DIR), "pyproject.toml")) as f:
-        assert '"csrc/*.cu", "csrc/*.cuh"' in f.read()
+        assert '"csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"' in f.read()
     # an edited header gives the libraries new names, so they are rebuilt
     for f in os.listdir(csrc):
         with open(os.path.join(csrc, f), "rb") as src, open(tmp_path / f, "wb") as dst:
@@ -82,6 +83,23 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
         f.write("\n")
     after = [_build._target(name)[1] for name in ("linear_attention", "linear_attention_bwd")]
     assert all(a != b for a, b in zip(after, before))
+
+
+def test_host_sampler_is_the_ports_own():
+    """The sampled tier's C++ sampler is built from the package's own copy
+    of its source into the port's build directory: no port source names the
+    JAX package's native module or its library, and the loaded library is
+    not the JAX package's."""
+    from sgformer_tpu_torch.native import build
+
+    found = [path for path, text in _sources()
+             if re.search(r"sgformer_tpu[./]native|_graph_kernels\b", text)]
+    assert not found, found
+    assert build.SOURCE == os.path.join(PKG_DIR, "csrc", "graph_kernels.cpp")
+    lib = build.library()
+    assert os.path.dirname(lib._name) == build.build_dir()
+    assert not lib._name.startswith(os.path.join(REPO, "sgformer_tpu") + os.sep)
+    assert os.path.basename(lib._name).startswith("graph_kernels-")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

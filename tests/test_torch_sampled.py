@@ -3,14 +3,16 @@ CSR, the neighbour sampler's batches (bitwise, draw for draw), the prefetch
 iterator, the out-of-core CSR build, the feature store, each batch's graph
 and ``SampledTrainer.fit``.
 
-The JAX sampler's oracle is its numpy path. Two things keep the JAX package
-on it: its C++ sampler would run whenever its library loads (the hop sampler
-even with ``use_native=False``), so the ``problem`` fixture's
-``numpy_sampler`` patches ``sample_neighbors_native`` to return None and
-every JAX sampler here has ``use_native=False``; and its static caps are set
-above anything a batch can reach (``node_cap`` one more than the graph's
-nodes, ``edge_cap`` above its edges plus one self-loop a node), so that it
-neither truncates nor stops expanding early. The port samples uncapped.
+Here both packages sample on their numpy paths (the port's C++ sampler, the
+default, is held to the JAX one in ``test_torch_native.py``): every port
+sampler and trainer here has ``use_native=False``. Two things keep the JAX
+package on its numpy path: its C++ sampler would run whenever its library
+loads (the hop sampler even with ``use_native=False``), so the
+``numpy_sampler`` fixture patches ``sample_neighbors_native`` to return None
+and every JAX sampler here has ``use_native=False``; and its static caps are
+set above anything a batch can reach (``node_cap`` one more than the graph's
+nodes, ``edge_cap`` above its edges plus one self-loop a node). The port
+samples uncapped.
 
 The fits start from the same flax variables (``load_flax_variables``; the
 JAX trainer's ``init`` returns them) and draw the same batches from one
@@ -134,7 +136,7 @@ def test_sampler_batches_are_bitwise_jax(numpy_sampler, problem, hub_edges, grap
     edges, n = (problem[1], N) if graph == "powerlaw" else (hub_edges, 3000)
     pool = np.random.default_rng(1).permutation(n)[:n // 3]
     js = _jax_sampler(edges, n, fanouts=FANOUTS, batch_size=70, seed=7)
-    ps = NeighborSampler(edges, n, FANOUTS, 70, seed=7)
+    ps = NeighborSampler(edges, n, FANOUTS, 70, seed=7, use_native=False)
     batches = list(zip(js.epoch(pool, shuffle=shuffle), ps.epoch(pool, shuffle=shuffle)))
     assert len(batches) == -(-len(pool) // 70) and batches[-1][1].num_seeds == len(pool) % 70
     for jb, pb in batches:
@@ -151,13 +153,13 @@ def test_seeds_without_in_edges(numpy_sampler):
     ei = np.array([[1, 2, 3, 4, 2], [0, 0, 1, 1, 3]])  # nodes 2, 4, 5 receive nothing
     for seeds in (np.array([0, 2]), np.array([5, 4])):
         js = _jax_sampler(ei, 6, fanouts=(2, 2), batch_size=2, seed=0)
-        pb = NeighborSampler(ei, 6, (2, 2), 2, seed=0).sample(seeds)
+        pb = NeighborSampler(ei, 6, (2, 2), 2, seed=0, use_native=False).sample(seeds)
         _check_batch(js.sample(seeds), pb)
     assert pb.num_nodes == 2 and pb.edge_src.tolist() == [0, 1] == pb.edge_dst.tolist()
 
 
 def test_epoch_refuses_workers(problem):
-    sampler = NeighborSampler(problem[1], N, FANOUTS, 50)
+    sampler = NeighborSampler(problem[1], N, FANOUTS, 50, use_native=False)
     with pytest.raises(ValueError, match="workers"):
         next(sampler.epoch(np.arange(100), workers=2))
 
@@ -255,7 +257,8 @@ def test_sampled_graph_carries_the_transposed_csr(numpy_sampler, hub_edges):
     the largest hub's neighbours, so that many of them sample it."""
     hub = np.bincount(hub_edges[1]).argmax()
     seeds = np.unique(hub_edges[0][hub_edges[1] == hub])
-    batch = NeighborSampler(hub_edges, 3000, FANOUTS, len(seeds), seed=1).sample(seeds)
+    batch = NeighborSampler(hub_edges, 3000, FANOUTS, len(seeds), seed=1,
+                            use_native=False).sample(seeds)
     g = build_sampled_graph(batch, "cpu")
     assert (g.num_nodes, g.num_edges, g.symmetric) == (batch.num_nodes, len(batch.edge_src),
                                                          False)
@@ -334,11 +337,13 @@ def _port_state(variables):
     return model, {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def _jax_fit(ds, edges, split, model, variables, **kw):
+def _jax_fit(ds, edges, split, model, variables, native=False, **kw):
+    """The JAX trainer's fit on its numpy path (``native``: its default C++
+    path) with caps no batch reaches."""
     cfg = JaxSampledConfig(**{**TRAIN, **kw}, node_cap=N + 1, edge_cap=edges.shape[1] + N + 1)
     trainer = _RecordingJaxTrainer(_PinnedInit(model, variables), edges, ds.graph["node_feat"],
                                    ds.label, cfg)
-    trainer.sampler.use_native = False
+    trainer.sampler.use_native = native
     trainer.sampler.rng = np.random.default_rng(11)
     trainer.losses = []
     logger = trainer.fit([split])
@@ -346,9 +351,11 @@ def _jax_fit(ds, edges, split, model, variables, **kw):
     return trainer, logger
 
 
-def _port_fit(ds, edges, split, model, state, **kw):
+def _port_fit(ds, edges, split, model, state, native=False, **kw):
+    """The port's fit on its numpy path (``native``: its default C++ path)."""
     trainer = SampledTrainer(model, edges, ds.graph["node_feat"], ds.label,
                              SampledTrainConfig(**{**TRAIN, **kw}), device="cpu")
+    trainer.sampler.use_native = native
     trainer.record_losses = True
     logger = trainer.fit([split], np_rng=np.random.default_rng(11), init_state=state)
     return trainer, logger
