@@ -135,7 +135,7 @@ JAX package. Phases, each failing loudly:
    against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
    then each probe's own run, whose launches are counted. Their launches
    share one count with every other kernel's, so each path's launch check
-   also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15, 16 and 17 launched a probe;
+   also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15, 16, 17 and 18 launched a probe;
    the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
 15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
    the repo's recipes, their flags read verbatim from the port's recipe
@@ -184,11 +184,34 @@ JAX package. Phases, each failing loudly:
    ``Predictor``'s, printed with no limit. Then NodeFormer (a tuple out),
    H2GCN and Graphormer through the CLI's set-up on 16's Cora-sized files
    behind ``Predictor(..., model_kwargs=)``: logits bitwise ``eval_step``'s
-   after 3 steps, with a forward's launches.
+   after 3 steps, with a forward's launches;
+18. arxiv-sharded-train (after 16, before 14): the bench model with
+   ``axis_name="sp"`` behind ``parallel.ShardedTrainer`` on synth-arxiv
+   after ``preprocess_graph(reorder=True)``, in spawned groups
+   (``parallel.launch.run_group``) of one rank on NCCL and of two ranks
+   sharing the card under gloo (NCCL refuses two ranks on one card), with
+   the all-gather and with the halo exchange. Each rank: the sharded step
+   (dropout 0) against the one-device ``Trainer``'s on the same weights
+   (bf16: loss 1e-2, gradients 2e-2), bitwise repeatable; exact launches of
+   a step and a forward (3 GraphConv layers x 1 ``csr_spmm`` over the
+   gathered rows, or 3 for the halo's send gather, local and remote CSR,
+   forward and on the transposes backward; each attention kernel once; the
+   probes and ``csr_spmm_q8`` 0); the eval logits against the plain
+   forward; ``time_test`` (the loss must fall) with step and forward ms and
+   peak MiB, the one-device ``Trainer``'s beside it in the group of one; a
+   profiled step (the collectives' kernels and host copies as groups); B,
+   H and the rows exchanged a layer; each collective the rank ran, by
+   backend and tensor device (all on the group's backend and the card, or
+   the phase fails); the edge cut at 2 shards with and
+   without the reorder and the reorder's seconds. Then the ogbn-arxiv
+   recipe's flags with ``--trainer sharded --use_halo`` through
+   ``cli.main`` in this process (a group of one on NCCL): exact launches,
+   falling losses; then ``python -m sgformer_tpu_torch.parallel.scaling
+   --devices 1 --halo --reorder`` once (one card: no scaling efficiency).
 
 The second-to-last line is a JSON object of per-kernel numbers (with each
-forward kernel's custom op and its launches in one exported forward); the
-last is
+forward kernel's custom op and its launches in one exported forward, and
+arxiv-sharded-train's launches on rank 0 of each group); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
 CUDA is absent or any check fails.
 """
@@ -197,6 +220,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -298,6 +322,8 @@ HUB_SWEEP = (64, 128, 256, 512, 1024)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
     ("port kernels", ("la_", "csr_spmm", "ev_bwd", "absmax_partial", "quantize_kernel")),
+    ("collectives (NCCL)", ("nccl",)),
+    ("host copies", ("Memcpy",)),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("reductions", ("reduce_kernel",)),
     ("dtype copies", ("copy_kernel",)),
@@ -442,6 +468,17 @@ EXPORT_REQUESTS = 25
 SERVE_ZOO = {"nodeformer": 4, "h2gcn": 4, "graphormer": 0}
 
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+# arxiv-sharded-train: the bench model with axis_name="sp" behind
+# ShardedTrainer on synth-arxiv with the clustering reorder, a group of one
+# rank on NCCL and two ranks sharing the card under gloo. Each rank runs
+# every GraphConv layer's aggregation on its shard: one csr_spmm over the
+# all-gathered rows forward and one on the transpose backward, or with the
+# halo three each way (the send gather, the local and the remote CSR)
+SHARDED_GCN_LAYERS = BENCH_CONFIG["gnn_num_layers"]
+SHARDED_FORMS = {False: 1, True: 3}  # csr_spmm a propagate: all-gather, halo
+SHARDED_RUNS = (("nccl", 1), ("gloo", 2))
+SHARDED_CLI_EPOCHS = 18
 
 
 def log(msg: str) -> None:
@@ -816,6 +853,14 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         a_ms = time_ms(lambda: attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r))
         a_plain = time_ms(lambda: attn.bwd_apply_plain(q, k, v, g, kvs, ksum, scal, n_t,
                                                        *want_r, False))
+        # yardstick: the apply's three core products, gd @ kvs^T, v @ P^T and
+        # k @ P, each one torch.matmul in the inputs' type (never called by
+        # the port)
+        kvs_t, P_t = kvs.to(dtype), want_r[0].to(dtype)
+        gd_t = (g.float() / want_r[3][0][:, None]).to(dtype)
+        a_gemm_ms = time_ms(lambda: (torch.matmul(gd_t, kvs_t.t()), torch.matmul(v, P_t.t()),
+                                     torch.matmul(k, P_t)))
+        del kvs_t, P_t, gd_t
         elt = q.element_size()
         small = (2 * m * d + 2 * m + 6) * 4  # kvs or P, ksum or ds, scalars
         # reduce: q @ kvs and q^T gd; reads q, v, g, writes P, ds, dinv, den, gden
@@ -827,14 +872,15 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
                              6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
         log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul q @ kvs "
             f"+ q^T gd {gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {bound_name(rb_by, dtype)}); "
-            f"bwd_apply {name}: {a_ms:.4f} ms (plain {a_plain:.4f} ms, bound {ab_ms:.4f} ms by "
+            f"bwd_apply {name}: {a_ms:.4f} ms (plain {a_plain:.4f} ms, torch.matmul gd @ kvs^T "
+            f"+ v @ P^T + k @ P {a_gemm_ms:.4f} ms, bound {ab_ms:.4f} ms by "
             f"{bound_name(ab_by, dtype)})")
         results[("linear_attention_bwd_reduce", name)] = dict(
             max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=red_design)
         results[("linear_attention_bwd_apply", name)] = dict(
             max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
-            bound_by=ab_by, library_ms=None, design=design)
+            bound_by=ab_by, library_ms=None, gemm_ms=a_gemm_ms, design=design)
 
     # an all-masked group: finite zero gradients
     qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(torch.bfloat16)
@@ -1361,6 +1407,10 @@ def plain_versions():
 
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_autograd", plain_csr))
+    # a node shard's CSRs (parallel/partition.py) call it by their own name
+    partition = sys.modules.get("sgformer_tpu_torch.parallel.partition")
+    if partition is not None:
+        stack.enter_context(mock.patch.object(partition, "csr_spmm_autograd", plain_csr))
     # the int8 Function's forward and backward call csr_spmm_q8 by name
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_q8", plain_q8))
     stack.enter_context(mock.patch.object(spmm_kernel, "csr_spmm_ev_autograd", plain_ev))
@@ -1380,10 +1430,16 @@ def bench_model(ds, dev: str):
     cfg = SGFormerConfig.large(256, 40, **BENCH_CONFIG)
     model = SGFormer(cfg, ds.graph["node_feat"].shape[1],
                      generator=torch.Generator().manual_seed(0), device=dev)
+    return model, bench_scale_of()
+
+
+def bench_scale_of() -> dict:
+    """Each bench-model bias that feeds a train-mode BatchNorm, and the
+    BatchNorm shift whose gradient it is held to (``bench_model``)."""
     scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
     scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
-                     for i in range(cfg.gnn_num_layers)})
-    return model, scale_of
+                     for i in range(BENCH_CONFIG["gnn_num_layers"])})
+    return scale_of
 
 
 def train_phase(ds, graph, dev: str) -> tuple:
@@ -2853,6 +2909,282 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     return counts
 
 
+def sharded_launches(halo: bool) -> tuple[dict, dict]:
+    """A rank's launches of one arxiv-sharded-train step and one forward:
+    every GraphConv layer's propagate is SHARDED_FORMS[halo] csr_spmm
+    forward and as many on the transposes backward; the attention kernels
+    once each, as on one card."""
+    per = SHARDED_FORMS[halo] * SHARDED_GCN_LAYERS
+    return dict(STEP_LAUNCHES, csr_spmm=2 * per), dict(FORWARD_LAUNCHES, csr_spmm=per)
+
+
+def sharded_worker(rank: int, backend: str, out_dir: str) -> None:
+    """One rank of arxiv-sharded-train (its process spawned by
+    ``sharded_phase``, its group joined by ``parallel.launch.run_group``):
+    the bench model (dropout 0 for the checks) with ``axis_name="sp"`` behind
+    ``ShardedTrainer`` on synth-arxiv after ``preprocess_graph(reorder=True)``,
+    with the all-gather and with the halo. For each: the sharded step's loss
+    and gradients against the one-device Trainer's on the same weights (rank
+    0; bf16 tolerances), bitwise repeatable, the launches of a step and a
+    forward, the eval logits against the plain forward, ``time_test`` with
+    the losses falling, a profiled step; the one-device Trainer's
+    ``time_test`` beside it on the group of one. Writes its numbers to
+    ``out_dir/rank{rank}.json``."""
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig, preprocess_graph
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.parallel import ShardedTrainer, comm, edge_cut, make_mesh
+    from sgformer_tpu_torch.parallel.sharded import average_gradients
+    from sgformer_tpu_torch.train import TrainConfig, Trainer, time_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh("sp")
+    size, what = mesh.size, f"arxiv-sharded-train[{backend} world {mesh.size} rank {rank}]"
+    out = {"rank": rank, "backend": mesh.backend, "device": str(mesh.device)}
+    comm.calls.clear()
+    ds = synthetic_dataset("synth-arxiv", seed=0, device=mesh.device)
+    n = ds.num_nodes
+    t = time.perf_counter()
+    graph = preprocess_graph(ds.graph["edge_index"], n, reorder=True, device=mesh.device)
+    out["reorder_preprocess_s"] = time.perf_counter() - t
+    plain = preprocess_graph(ds.graph["edge_index"], n, device=mesh.device)
+    out["edge_cut"] = {"plain": edge_cut(plain, max(size, 2)),
+                       "reordered": edge_cut(graph, max(size, 2))}
+    del plain
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    tc = TrainConfig(**BENCH_TRAIN)
+    checked = dict(BENCH_CONFIG, trans_dropout=0.0, gnn_dropout=0.0)
+
+    def model(axis_name):
+        cfg = SGFormerConfig.large(256, 40, axis_name=axis_name, **checked)
+        return SGFormer(cfg, ds.graph["node_feat"].shape[1],
+                        generator=torch.Generator().manual_seed(0), device=mesh.device)
+
+    def loss_and_grads(tr, idx):
+        tr.model.zero_grad(set_to_none=True)
+        loss = tr.loss(idx)
+        loss.backward()
+        if isinstance(tr, ShardedTrainer):
+            average_gradients(tr.model, "sp")
+        torch.cuda.synchronize()
+        return loss.detach(), {k: p.grad.float().clone() for k, p in tr.model.named_parameters()}
+
+    reference = None
+    if rank == 0:
+        one = Trainer(model(None), graph, ds.graph["node_feat"], ds.label, tc,
+                      device=mesh.device)
+        one.init_state(0)
+        reference = loss_and_grads(one, one.prepare_train_idx(split))
+        if size == 1:
+            kernels.reset_launch_counts()
+            res = time_test(one, split, epochs=TRAIN_EPOCHS, warmup=TRAIN_WARMUP)
+            out["one_device_time_test"] = dict(step_ms=res.per_epoch_ms,
+                                               forward_ms=res.forward_ms,
+                                               peak_mib=res.peak_memory_mb)
+        del one
+        torch.cuda.empty_cache()
+    scale_of = bench_scale_of()
+    for halo in (False, True):
+        key = "halo" if halo else "allgather"
+        r = out[key] = {}
+        step_want, forward_want = sharded_launches(halo)
+        form = "the send gather, the local and the remote CSR" if halo else "the all-gathered rows"
+        log(f"{what} {key}: a step's launches, expected {SHARDED_GCN_LAYERS} GraphConv layers x "
+            f"{SHARDED_FORMS[halo]} csr_spmm ({form}) x 2 (forward, backward on the "
+            f"transposes) = {step_want['csr_spmm']}, a forward {forward_want['csr_spmm']}; "
+            f"each attention kernel once")
+        t = time.perf_counter()
+        tr = ShardedTrainer(model("sp"), graph, ds.graph["node_feat"], ds.label, tc, mesh=mesh,
+                            use_halo=halo)
+        r["build_s"] = time.perf_counter() - t
+        g = tr.graph
+        h = g.halo_rows
+        r.update(block=g.num_nodes, halo_rows=h,
+                 edges=g.gcn.num_edges if not halo else (g.halo.local.num_edges
+                                                         + g.halo.remote.num_edges))
+        # the rows a rank exchanges per GraphConv layer and pass, bf16 width 256
+        r["exchange_mib"] = (size * (h if halo else g.num_nodes) * 256 * 2) / 2 ** 20
+        tr.init_state(0)
+        idx = tr.prepare_train_idx(split)
+        loss, grads = loss_and_grads(tr, idx)
+        loss2, grads2 = loss_and_grads(tr, idx)
+        if not (torch.equal(loss, loss2) and all(torch.equal(grads[k], grads2[k])
+                                                 for k in grads)):
+            raise AssertionError(f"{what} {key}: the sharded step does not repeat bit for bit")
+        if reference is not None:
+            loss_t, grads_t = reference
+            rel = abs(loss.item() - loss_t.item()) / abs(loss_t.item())
+            worst = max((((grads[k] - gt).norm() / grads_t[scale_of.get(k, k)].norm()).item(), k)
+                        for k, gt in grads_t.items())
+            log(f"{what} {key}: step loss {loss.item():.7f} against the one-device Trainer's "
+                f"{loss_t.item():.7f} ({rel:.2e}, tolerance {TRAIN_LOSS_RTOL}); largest "
+                f"|g_sharded - g| / |g| {worst[0]:.3e} ({worst[1]}, tolerance "
+                f"{TRAIN_GRAD_RTOL}); bitwise repeatable")
+            if not (rel <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_RTOL):
+                raise AssertionError(f"{what} {key}: the sharded step disagrees with Trainer's")
+            r.update(loss_rel=rel, grad_rel=worst[0])
+        del grads, grads2
+        _, r["step_launches"] = counted(f"one {what} {key} step", lambda: tr.train_step(idx),
+                                        step_want)
+        logits, r["forward_launches"] = counted(f"one {what} {key} eval_step", tr.eval_step,
+                                                forward_want)
+        with plain_versions():
+            ref = tr.eval_step()
+        check_logits(f"{what} {key} eval", logits, ref, (n, 40), (LOGITS_ATOL, 0.0))
+        del logits, ref
+        kernels.reset_launch_counts()
+        res = time_test(tr, split, epochs=TRAIN_EPOCHS, warmup=TRAIN_WARMUP)
+        r["run_launches"] = kernels.launch_counts()
+        steps = TRAIN_EPOCHS + TRAIN_WARMUP
+        want = {k: c * steps + 2 * forward_want[k] for k, c in step_want.items()}
+        if r["run_launches"] != want:
+            raise AssertionError(f"{what} {key} time_test launches {r['run_launches']}, "
+                                 f"expected {want}")
+        losses = res.losses
+        if not all(np.isfinite(losses)) or not sum(losses[-3:]) / 3 < losses[0]:
+            raise AssertionError(f"{what} {key}: the loss did not fall ({losses})")
+        r.update(step_ms=res.per_epoch_ms, forward_ms=res.forward_ms,
+                 peak_mib=res.peak_memory_mb, losses=[losses[0]] + losses[-3:])
+        log(f"{what} {key} time_test: {res.per_epoch_ms:.3f} ms a step over {TRAIN_EPOCHS} "
+            f"steps, forward {res.forward_ms:.3f} ms, peak {res.peak_memory_mb:.1f} MiB; "
+            f"losses first {losses[0]:.6f}, last 3 {[round(x, 6) for x in losses[-3:]]}")
+        r["profile_wall_ms"], r["profile_busy_ms"] = profile_device(
+            f"{what} {key} step", lambda: tr.train_step(idx), 3)
+        del tr
+        torch.cuda.empty_cache()
+    # each collective this rank ran, by backend and the device of its tensors
+    out["collectives"] = {f"{name} {backend_} {dev}": c
+                          for (name, backend_, dev), c in sorted(comm.calls.items())}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_phase(ds, results: dict) -> dict:
+    """arxiv-sharded-train: ``sharded_worker`` in a spawned group of one
+    rank on NCCL and in one of two ranks sharing the card under gloo (NCCL
+    refuses two ranks on one card); then the CLI's ogbn-arxiv recipe with
+    ``--trainer sharded --use_halo`` in this process (a group of one on
+    NCCL): exact launches, falling losses; then ``parallel.scaling
+    --devices 1``. No scaling number: one card. Returns each run's launch
+    counts."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sgformer_tpu_torch import kernels
+    from sgformer_tpu_torch.cli import main as cli
+    from sgformer_tpu_torch.parallel import sharded
+    from sgformer_tpu_torch.parallel.launch import run_group
+
+    out = {}
+    for backend, size in SHARDED_RUNS:
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            run_group(sharded_worker, size, backend, d, device="cuda", backend=backend)
+            per_rank = []
+            for r in range(size):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    per_rank.append(json.load(f))
+        wall = time.perf_counter() - t
+        name = f"{backend}{size}"
+        r0 = per_rank[0]
+        log(f"arxiv-sharded-train {backend} world {size}: {wall:.1f} s wall (spawn, data, "
+            f"graphs, checks); preprocess_graph(reorder=True) {r0['reorder_preprocess_s']:.2f} "
+            f"s on the host and card; edge cut at 2 shards {r0['edge_cut']['plain']:,} edges "
+            f"without the reorder, {r0['edge_cut']['reordered']:,} with it")
+        for key in ("allgather", "halo"):
+            for pr in per_rank:
+                r = pr[key]
+                log(f"arxiv-sharded-train {backend} world {size} rank {pr['rank']} {key}: "
+                    f"B = {r['block']}, H = {r['halo_rows']}, {r['edges']:,} edges, "
+                    f"{r['exchange_mib']:.2f} MiB exchanged a layer and pass (bf16, 256 wide), "
+                    f"step {r['step_ms']:.3f} ms, forward {r['forward_ms']:.3f} ms, peak "
+                    f"{r['peak_mib']:.1f} MiB, shard build {r['build_s']:.2f} s")
+        for pr in per_rank:
+            calls = pr["collectives"]
+            log(f"arxiv-sharded-train {backend} world {size} rank {pr['rank']}: collectives "
+                f"this run (name, backend, tensor device: calls) {calls}")
+            wrong = [k for k in calls if k.split()[1:] != [backend, "cuda"]]
+            if not calls or wrong:
+                raise AssertionError(f"arxiv-sharded-train {backend} world {size}: collectives "
+                                     f"not on the group's backend and the card: {wrong}")
+        if size > 1:
+            log(f"arxiv-sharded-train gloo world {size}: each of those ran under gloo on the "
+                f"card's tensors (torch {torch.__version__}); the package stages no buffer "
+                f"through the host, and a collective gloo refused would have raised")
+        one = r0.get("one_device_time_test")
+        if one:
+            log(f"arxiv-sharded-train beside the one-device Trainer (same graph, same "
+                f"model): {one['step_ms']:.3f} ms a step, forward {one['forward_ms']:.3f} ms, "
+                f"peak {one['peak_mib']:.1f} MiB")
+        results[("sharded", name)] = per_rank
+        out[name] = per_rank
+
+    # the CLI: the ogbn-arxiv recipe with --trainer sharded --use_halo
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli-data")
+    shutil.rmtree(root, ignore_errors=True)
+    write_ogb_arxiv(ds, root)
+    flags = recipe_flags("large.sh", "$RUN --trainer full --dataset ogbn-arxiv")
+    at = flags.index("--trainer")
+    argv = (flags[:at] + ["--trainer", "sharded", "--use_halo"] + flags[at + 2:]
+            + ["--data_dir", root, "--runs", "1", "--epochs", str(SHARDED_CLI_EPOCHS),
+               "--eval_step", "9"])
+    log(f"cli: python -m sgformer_tpu_torch.cli.main {' '.join(argv)}")
+    losses = []
+    step = sharded.ShardedTrainer.train_step
+
+    def recording(self, mask):
+        loss = step(self, mask)
+        losses.append(loss)
+        return loss
+
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(sharded.ShardedTrainer, "train_step", recording):
+        logger = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    step_want, forward_want = sharded_launches(True)
+    evals = len(logger.results[0])
+    want = {k: c * SHARDED_CLI_EPOCHS + evals * forward_want[k] for k, c in step_want.items()}
+    losses = torch.stack(losses).tolist()
+    log(f"cli: sharded halo recipe (world 1, NCCL): {run_s:.2f} s for {SHARDED_CLI_EPOCHS} "
+        f"epochs and {evals} evals; launches {counts}; losses first {losses[0]:.6f}, last 3 "
+        f"{[round(x, 6) for x in losses[-3:]]}; statistics {logger.statistics()}")
+    if evals != math.ceil(SHARDED_CLI_EPOCHS / 9) or counts != want:
+        raise AssertionError(f"cli sharded recipe: launch counts {counts}, expected {want}")
+    if len(losses) != SHARDED_CLI_EPOCHS or not all(np.isfinite(losses)) \
+            or not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError("the cli sharded recipe's loss did not fall")
+    out["cli"] = counts
+    results["sharded_cli_s"] = run_s
+    shutil.rmtree(root, ignore_errors=True)
+    torch.distributed.destroy_process_group()  # the CLI's group of one
+
+    # the scaling harness at the one count one card can measure
+    cmd = [sys.executable, "-m", "sgformer_tpu_torch.parallel.scaling", "--devices", "1",
+           "--halo", "--reorder"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} failed:\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"{' '.join(cmd[2:])}: {line} in {time.perf_counter() - t:.1f} s ({card_line()}; one "
+        f"card: no scaling efficiency)")
+    if set(line) != {"devices", "step_ms", "edges_per_sec", "edges_per_sec_per_device"}:
+        raise AssertionError(f"scaling harness printed {line}")
+    results["scaling"] = line
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_us(event) -> float:
     """A profiler event's own device time in us (the attribute's name
     differs between PyTorch versions)."""
@@ -2983,6 +3315,7 @@ def main() -> int:
     papers = papers_sampled_phase(results, "cuda")
     cli_counts = cli_phase(ds, results, "cuda")
     zoo_counts = zoo_phase(results, "cuda")
+    sharded_counts = sharded_phase(ds, results)
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -3031,6 +3364,20 @@ def main() -> int:
     def as_op(name: str) -> dict:
         return {"registered_op": op_of.get(name),
                 "launches_per_exported_forward": exported_forward[name]}
+
+    def sharded_fields(name: str) -> dict:
+        """arxiv-sharded-train's launches of ``name`` on rank 0 of each run
+        (its time_test, one step, one forward) and over the CLI's sharded
+        recipe run."""
+        fields = {"cli_sharded_launches": sharded_counts["cli"][name]}
+        for run in ("nccl1", "gloo2"):
+            for key in ("allgather", "halo"):
+                r = sharded_counts[run][0][key]
+                fields.update({
+                    f"sharded_{run}_{key}_launches": r["run_launches"][name],
+                    f"sharded_{run}_{key}_launches_per_train_step": r["step_launches"][name],
+                    f"sharded_{run}_{key}_launches_per_forward": r["forward_launches"][name]})
+        return fields
 
     line = {"kernels": []}
     for name, (source, replaces) in sources.items():
@@ -3095,6 +3442,7 @@ def main() -> int:
         # the CLI's runs (the recipes and H2GCN) and the zoo's
         r.update({f"cli_{what}_launches": c[name] for what, c in cli_counts.items()})
         r.update({f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()})
+        r.update(sharded_fields(name))
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
@@ -3120,6 +3468,7 @@ def main() -> int:
             **as_op(name), **r,
             **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
+            **sharded_fields(name),
         })
     # the timing probes: launches from their own runs; per forward and per
     # step as counted on large-400K-int8-train (no model path runs them, and
@@ -3134,6 +3483,7 @@ def main() -> int:
             **as_op(name), **results[name],
             **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
+            **sharded_fields(name),
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

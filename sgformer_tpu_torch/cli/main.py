@@ -4,13 +4,25 @@ three ``main*.py`` scripts in one trainer-mode switch:
     python -m sgformer_tpu_torch.cli.main --dataset ogbn-arxiv --method sgformer \\
         --trainer full --hidden_channels 256 --epochs 1000
 
-Trainer modes: ``full`` (full-graph, ``train.Trainer``), ``batch``
+Trainer modes: ``full`` (full-graph, ``train.Trainer``), ``sharded``
+(full-graph on node shards, ``parallel.ShardedTrainer``), ``batch``
 (random-partition mini-batches, ``main-batch.py``'s loop) and ``sampled``
 (neighbour-sampled, ``nb-sample.py``'s loop); ``--time_test`` times the
-full-graph trainer. Training runs on ``--device`` (default ``cuda``: the CLI
-raises without a card; ``--device cpu`` runs every kernel's plain version).
-:func:`build` does the set-up (dataset, splits, graph, model, trainer) and
-:func:`main` runs it.
+full-graph and sharded trainers. Training runs on ``--device`` (default
+``cuda``: the CLI raises without a card; ``--device cpu`` runs every
+kernel's plain version). :func:`build` does the set-up (dataset, splits,
+graph, model, trainer) and :func:`main` runs it.
+
+``--trainer sharded`` runs one process per card, each holding one
+contiguous block of nodes:
+
+    torchrun --nproc_per_node S -m sgformer_tpu_torch.cli.main --trainer sharded \
+        [--use_halo] ...
+
+(NCCL; a process started without ``torchrun`` is a group of one). Every rank
+reads the dataset and builds the graph; only rank 0 prints and writes
+results. The JAX CLI runs one process over all its devices instead.
+``--use_halo`` exchanges only the boundary rows of the GCN edges.
 
 The flags are the JAX CLI's. How the ones that name the TPU's layout map
 onto the card:
@@ -31,8 +43,6 @@ onto the card:
   so ``auto`` never does here. With ``--use_pallas`` the JAX graph's
   fixed-weight aggregation also sends ``--chunk_dtype`` messages; the
   port's keeps x's type.
-- ``--trainer sharded`` and ``--use_halo`` raise NotImplementedError
-  naming ``ROADMAP.md``.
 - ``--sampler_workers N`` samples the sampled trainer's batches in N
   threads through the C++ sampler, as in the JAX CLI; the batches and
   losses are those of 0 workers.
@@ -68,6 +78,7 @@ from sgformer_tpu_torch.graph import (
     to_undirected,
 )
 from sgformer_tpu_torch.nn import build_nodeformer_graphs, graphormer_inputs, inputs_to
+from sgformer_tpu_torch.parallel import ShardedTrainer, init_distributed
 from sgformer_tpu_torch.train import (
     BatchTrainConfig,
     BatchTrainer,
@@ -164,7 +175,9 @@ class Built:
 
 
 def build(args) -> Built:
-    dev = resolve_device(args.device)
+    # a sharded rank joins its group first, so that "cuda" is its own card
+    dev = (init_distributed(args.device) if args.trainer == "sharded"
+           else resolve_device(args.device))
     note = layout_note(args)
     if note:
         print(note, file=sys.stderr)
@@ -213,7 +226,12 @@ def build(args) -> Built:
     edge_index = ds.graph["edge_index"]
     edges = graph = None
 
-    if args.trainer == "full":
+    if args.trainer == "sharded":
+        graph = preprocess_graph(edge_index, n, undirected=undirected, with_pyg_norm=needs_pyg,
+                                 device=dev, **graph_types(args))
+        trainer = ShardedTrainer(model, graph, x, ds.label, TrainConfig(**common),
+                                 use_halo=args.use_halo, device=dev)
+    elif args.trainer == "full":
         common["lamda"] = args.lamda
         graph = preprocess_graph(edge_index, n, undirected=undirected, with_pyg_norm=needs_pyg,
                                  device=dev, **graph_types(args))
@@ -261,19 +279,26 @@ def main(argv=None):
     parser = argparse.ArgumentParser("sgformer-tpu-torch")
     parser_add_main_args(parser)
     args = parser.parse_args(argv)
-    if args.time_test and args.trainer != "full":
-        raise ValueError("--time_test times the full-graph trainer: pass --trainer full")
+    if args.time_test and args.trainer not in ("full", "sharded"):
+        raise ValueError("--time_test times the full-graph trainers: pass --trainer full or "
+                         "sharded")
+    if args.save_attn and args.trainer == "sharded":
+        raise ValueError("--save_attn: the attention maps are the whole graph's, which no "
+                         "rank of --trainer sharded holds")
     built = build(args)
     trainer = built.trainer
+    # in a node-sharded group only rank 0 prints and writes
+    writes = getattr(trainer, "writes_logs", True)
 
     if args.time_test:
         # medium/time_test.py semantics: timed epochs, fwd latency, memory
         res = time_test(trainer, built.splits[0], epochs=args.epochs, trace_dir=args.trace_dir)
-        print(json.dumps(res.as_dict()))
+        if writes:
+            print(json.dumps(res.as_dict()))
         return res
 
     logger = trainer.fit(built.splits)
-    stats = logger.print_statistics()
+    stats = logger.print_statistics() if writes else None
 
     if args.save_attn:
         # materialised [L, N, N] maps (SGFormer.get_attentions); O(N^2), so

@@ -8,9 +8,11 @@ layout flags (``--use_pallas``, ``--spmm_mode``, ``--hub_rows``,
 recipes run unchanged; ``cli/main.py`` says what each maps to.
 :func:`parse_method` builds the port's modules, each with an explicit
 ``in_channels``, a CPU generator seeded ``--seed`` and the device: every
-``--method`` and ``--attention`` of the JAX CLI. The node-sharded trainer
-(``--trainer sharded``, ``--use_halo``) raises NotImplementedError naming
-``ROADMAP.md``.
+``--method`` and ``--attention`` of the JAX CLI. Under ``--trainer sharded``
+the model gets ``axis_name="sp"``, as the JAX CLI's does; the port's
+node-sharded trainer runs SGFormer (the simple attention) and the baselines
+whose aggregations the shard graph has (:data:`SHARDED_METHODS`), and
+refuses the other methods (GAT and its kin in the JAX package too).
 """
 
 from __future__ import annotations
@@ -121,8 +123,9 @@ def parser_add_main_args(parser: argparse.ArgumentParser):
                         help="TPU chunk plans; ignored by the port (the CSR "
                              "kernels run on the card whatever it says)")
     parser.add_argument("--use_halo", action="store_true", default=False,
-                        help="sharded trainer's boundary exchange; not "
-                             "ported (raises)")
+                        help="sharded trainer: exchange only the boundary "
+                             "rows (all-to-all) instead of all-gathering "
+                             "the activation")
     parser.add_argument("--chunk_dtype", type=str, default="bf16",
                         choices=["bf16", "f32"],
                         help="TPU chunk plans' message type; the port's GAT "
@@ -181,6 +184,13 @@ def parser_add_main_args(parser: argparse.ArgumentParser):
     return parser
 
 
+# the methods the node-sharded trainer runs, as the JAX CLI builds them under
+# --trainer sharded: the modules with BatchNorm take axis_name, and every
+# aggregation is the shard graph's propagate
+SHARDED_METHODS = ("sgformer", "ours", "mlp", "gcn", "sgc", "sgc2", "sign", "mixhop", "gcnjk",
+                   "appnp", "gprgnn")
+
+
 def parse_method(args, n: int, c: int, d: int):
     """Model factory (reference: ``large/parse.py:4-42``) for ``n`` nodes,
     ``c`` classes and ``d`` input features. Returns a model of the port
@@ -211,10 +221,10 @@ def parse_method(args, n: int, c: int, d: int):
     )
 
     method = args.method
-    if args.trainer == "sharded" or args.use_halo:
-        raise NotImplementedError(
-            "--trainer sharded and --use_halo: the node-sharded trainer is not "
-            "ported yet (ROADMAP.md §1, parallel/)")
+    axis = "sp" if args.trainer == "sharded" else None
+    if axis is not None and method not in SHARDED_METHODS:
+        raise ValueError(f"--trainer sharded runs --method {', '.join(SHARDED_METHODS)}, "
+                         f"not {method}")
     use_bn = not args.no_bn
     port = dict(generator=torch.Generator().manual_seed(args.seed), device=args.device)
     if method in ("sgformer", "ours"):
@@ -243,14 +253,15 @@ def parse_method(args, n: int, c: int, d: int):
             gnn_use_act=args.gnn_use_act,
             graph_weight=args.graph_weight,
             aggregate=args.aggregate,
+            axis_name=axis,
         )
         return SGFormer(cfg, d, **port)
     if method == "mlp":
         return MLP(d, args.hidden_channels, c, num_layers=args.num_layers,
-                   dropout=args.dropout, use_bn=use_bn, **port)
+                   dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "gcn":
         return GCN(d, args.hidden_channels, c, num_layers=args.num_layers,
-                   dropout=args.dropout, use_bn=use_bn, **port)
+                   dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "gat":
         return GAT(d, args.hidden_channels, c, num_layers=args.num_layers,
                    heads=args.gat_heads or args.num_heads, out_heads=args.out_heads,
@@ -259,16 +270,16 @@ def parse_method(args, n: int, c: int, d: int):
         return SGC(d, c, hops=args.hops, **port)
     if method == "sgc2":
         return SGC2(d, args.hidden_channels, c, hops=args.hops, num_layers=args.num_layers,
-                    dropout=args.dropout, use_bn=use_bn, **port)
+                    dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "sign":
         return SIGN(d, args.hidden_channels, c, hops=args.hops, num_layers=args.num_layers,
-                    dropout=args.dropout, use_bn=use_bn, **port)
+                    dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "mixhop":
         return MixHop(d, args.hidden_channels, c, num_layers=args.num_layers, hops=args.hops,
-                      dropout=args.dropout, use_bn=use_bn, **port)
+                      dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "gcnjk":
         return GCNJK(d, args.hidden_channels, c, num_layers=args.num_layers,
-                     dropout=args.dropout, use_bn=use_bn, **port)
+                     dropout=args.dropout, use_bn=use_bn, axis_name=axis, **port)
     if method == "gatjk":
         return GATJK(d, args.hidden_channels, c, num_layers=args.num_layers,
                      heads=args.gat_heads or args.num_heads, dropout=args.dropout,

@@ -21,9 +21,23 @@
 //
 // A plain C interface for ctypes, which releases the GIL for the call:
 // batches sample concurrently in Python threads.
+//
+// The file also holds the clustering reorder's two steps (the port's copies
+// of the JAX package's C++ lpa_cluster and cluster_pack, same arithmetic,
+// same draw order): label propagation, whose sweep is deterministic and
+// independent of the thread count, so one seed gives the same labels; and
+// the boundary-aware best-fit-decreasing packing of the clusters into
+// contiguous blocks of node ids.
 
+#include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <functional>
+#include <queue>
+#include <thread>
+#include <tuple>
 #include <vector>
 
 namespace {
@@ -167,6 +181,199 @@ int64_t sample_batch(const int64_t* indptr, const int64_t* indices,
   for (int64_t i = 0; i < n_real; ++i) node_ids[i] = nodes[i];
   n_edges[0] = e;
   return n_real;
+}
+
+// ---------------------------------------------------------------------------
+// Label-propagation clustering. Synchronous sweeps: each node adopts the most
+// frequent label among its in-neighbours (all neighbours: the edge list is
+// undirected), ties broken by count + U[0, 0.5) drawn from a splitmix64 hash
+// of (seed, sweep, node, label); a label holding max_size or more nodes
+// stops attracting new members. The loop stops when a sweep changes no
+// label, or, past sweep MIN_STOP = 40 and checked every CHECK = 8 sweeps,
+// when the same-label fraction of a ~2M-edge stride sample gained less than
+// MIN_GAIN = 0.3 points over the last CHECK sweeps. Threads split the nodes;
+// the draws depend on (sweep, node) only, so the labels do not depend on the
+// thread count. Writes the labels; returns the sweeps run.
+// ---------------------------------------------------------------------------
+
+static inline uint64_t lpa_mix(uint64_t z) {
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+int64_t lpa_cluster(const int64_t* src, const int64_t* dst, int64_t n_edges,
+                    int64_t n_nodes, int64_t iters, int64_t max_size,
+                    uint64_t seed, int64_t* labels_out) {
+  if (n_nodes <= 0) return 0;
+  // dst-CSR of the in-neighbours, int32 inside (the sweep is a random gather
+  // over labels[indices[e]]: half the bytes of int64)
+  std::vector<int64_t> indptr(n_nodes + 1, 0);
+  for (int64_t e = 0; e < n_edges; ++e) indptr[dst[e] + 1]++;
+  for (int64_t i = 0; i < n_nodes; ++i) indptr[i + 1] += indptr[i];
+  std::vector<int32_t> indices(n_edges);
+  {
+    std::vector<int64_t> pos(indptr.begin(), indptr.end() - 1);
+    for (int64_t e = 0; e < n_edges; ++e)
+      indices[pos[dst[e]]++] = (int32_t)src[e];
+  }
+
+  std::vector<int32_t> labels(n_nodes), next(n_nodes);
+  std::vector<int64_t> sizes(n_nodes);
+  for (int64_t i = 0; i < n_nodes; ++i) labels[i] = (int32_t)i;
+
+  unsigned hw = std::thread::hardware_concurrency();
+  int64_t n_threads = hw ? (int64_t)hw : 4;
+  if (n_threads > n_nodes) n_threads = n_nodes > 0 ? n_nodes : 1;
+
+  const int64_t CHECK = 8;
+  const int64_t MIN_STOP = 40;
+  const double MIN_GAIN = 0.003;
+  int64_t stride = n_edges > 2000000 ? n_edges / 2000000 : 1;
+  double prev_frac = -1.0;
+  int64_t sweep = 0;
+  for (; sweep < iters; ++sweep) {
+    std::fill(sizes.begin(), sizes.end(), 0);
+    for (int64_t i = 0; i < n_nodes; ++i) sizes[labels[i]]++;
+
+    std::atomic<int64_t> changed(0);
+    auto work = [&](int64_t lo, int64_t hi) {
+      std::vector<int32_t> nb;
+      int64_t local_changed = 0;
+      for (int64_t d = lo; d < hi; ++d) {
+        int64_t e0 = indptr[d], e1 = indptr[d + 1];
+        next[d] = labels[d];
+        if (e1 == e0) continue;
+        nb.resize(e1 - e0);
+        for (int64_t e = e0; e < e1; ++e) nb[e - e0] = labels[indices[e]];
+        std::sort(nb.begin(), nb.end());
+        double best_key = 0.0;
+        int32_t best_label = labels[d];
+        bool found = false;
+        for (size_t a = 0; a < nb.size();) {
+          size_t b = a;
+          while (b < nb.size() && nb[b] == nb[a]) ++b;
+          int32_t gl = nb[a];
+          int64_t count = (int64_t)(b - a);
+          // full labels stop attracting new members
+          if (!(sizes[gl] >= max_size && gl != labels[d])) {
+            uint64_t h = lpa_mix(seed ^ lpa_mix((uint64_t)sweep * 0x51ul ^
+                                                (uint64_t)d) ^
+                                 (uint64_t)gl * 0x2545f4914f6cdd1dull);
+            double key = (double)count +
+                         0.5 * ((double)(h >> 11) * 0x1.0p-53);
+            if (!found || key > best_key) {
+              best_key = key;
+              best_label = gl;
+              found = true;
+            }
+          }
+          a = b;
+        }
+        if (found && best_label != labels[d]) {
+          next[d] = best_label;
+          local_changed++;
+        }
+      }
+      changed.fetch_add(local_changed, std::memory_order_relaxed);
+    };
+    if (n_threads <= 1) {
+      work(0, n_nodes);
+    } else {
+      std::vector<std::thread> ts;
+      int64_t per = (n_nodes + n_threads - 1) / n_threads;
+      for (int64_t t = 0; t < n_threads; ++t) {
+        int64_t lo = t * per, hi = std::min(n_nodes, lo + per);
+        if (lo < hi) ts.emplace_back(work, lo, hi);
+      }
+      for (auto& t : ts) t.join();
+    }
+    labels.swap(next);
+    if (changed.load() == 0) {
+      ++sweep;
+      break;
+    }
+    if ((sweep + 1) % CHECK == 0 && sweep + 1 >= MIN_STOP - CHECK) {
+      int64_t same = 0, tot = 0;
+      for (int64_t e = 0; e < n_edges; e += stride) {
+        tot++;
+        same += labels[src[e]] == labels[dst[e]];
+      }
+      double frac = tot ? (double)same / (double)tot : 0.0;
+      if (sweep + 1 >= MIN_STOP && frac < prev_frac + MIN_GAIN) {
+        ++sweep;
+        break;
+      }
+      prev_frac = frac;
+    }
+  }
+  for (int64_t i = 0; i < n_nodes; ++i) labels_out[i] = labels[i];
+  return sweep;
+}
+
+// ---------------------------------------------------------------------------
+// Boundary-aware best-fit-decreasing packing of clusters (compacted labels
+// 0..C-1) into consecutive blocks of slab_rows new ids: each block takes the
+// largest remaining clusters that fit its gap; when none fits, the largest
+// pending cluster is split exactly at the boundary (its two pieces stay
+// contiguous). A max-heap ordered by (size desc, cluster asc, offset asc).
+// Writes perm with perm[new] = old.
+// ---------------------------------------------------------------------------
+
+void cluster_pack(const int64_t* clusters, int64_t n_nodes,
+                  int64_t slab_rows, int64_t* perm_out) {
+  if (n_nodes <= 0) return;
+  int64_t n_clusters = 0;
+  for (int64_t i = 0; i < n_nodes; ++i)
+    n_clusters = std::max(n_clusters, clusters[i] + 1);
+  std::vector<int64_t> sizes(n_clusters, 0);
+  for (int64_t i = 0; i < n_nodes; ++i) sizes[clusters[i]]++;
+  std::vector<int64_t> starts(n_clusters + 1, 0);
+  for (int64_t c = 0; c < n_clusters; ++c) starts[c + 1] = starts[c] + sizes[c];
+  // stable counting sort of node ids by cluster
+  std::vector<int64_t> order(n_nodes);
+  {
+    std::vector<int64_t> pos(starts.begin(), starts.end() - 1);
+    for (int64_t i = 0; i < n_nodes; ++i) order[pos[clusters[i]]++] = i;
+  }
+  // entries (-size, cluster, offset): a min-heap pops size desc, then
+  // cluster asc, then offset asc
+  using Ent = std::tuple<int64_t, int64_t, int64_t>;
+  std::priority_queue<Ent, std::vector<Ent>, std::greater<Ent>> heap;
+  for (int64_t c = 0; c < n_clusters; ++c)
+    if (sizes[c] > 0) heap.emplace(-sizes[c], c, 0);
+  std::vector<Ent> pending;  // (size, cluster, offset), in pop order
+  int64_t out = 0;
+  int64_t remaining = slab_rows;
+  while (!heap.empty() || !pending.empty()) {
+    while (!heap.empty()) {
+      auto [neg, c, off] = heap.top();
+      heap.pop();
+      int64_t size = -neg;
+      if (size <= remaining) {
+        std::memcpy(perm_out + out, order.data() + starts[c] + off,
+                    sizeof(int64_t) * size);
+        out += size;
+        remaining -= size;
+        if (remaining == 0) break;
+      } else {
+        pending.emplace_back(size, c, off);
+      }
+    }
+    if (remaining > 0 && !pending.empty()) {
+      auto [size, c, off] = pending.front();
+      pending.erase(pending.begin());
+      std::memcpy(perm_out + out, order.data() + starts[c] + off,
+                  sizeof(int64_t) * remaining);
+      out += remaining;
+      pending.emplace_back(size - remaining, c, off + remaining);
+      remaining = 0;
+    }
+    for (auto& [size, c, off] : pending) heap.emplace(-size, c, off);
+    pending.clear();
+    remaining = slab_rows;
+  }
 }
 
 }  // extern "C"

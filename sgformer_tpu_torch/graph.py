@@ -9,8 +9,12 @@ builds each batch's subgraph with the same functions
 (:func:`induced_edges`, :func:`gcn_norm_weights`). The result is a
 :class:`Graph` of tensors that stays on the device. Its dst-sorted
 ``indptr``, ``edge_src`` and ``gcn_weight`` are exactly what the CSR SpMM
-kernel reads, so the TPU's slab, chunk and clustering-reorder plans have no
-counterpart here: ``node_perm`` is always None.
+kernel reads, so the TPU's slab and chunk plans have no counterpart here.
+The clustering reorder does (``preprocess_graph(reorder=True)``,
+:mod:`sgformer_tpu_torch.native.reorder`): it relabels the nodes so that
+clusters are contiguous, which lines node-sharded training's contiguous
+shards up with communities, and records the relabelling in
+``Graph.node_perm``.
 
 The gradient of the aggregation is ``A^T @ g`` through the same kernel. A
 graph built with ``undirected=True`` is symmetric by construction (the edge
@@ -69,7 +73,11 @@ class Graph:
       num_nodes / num_edges: Python ints.
       pyg_*: PyG ``gcn_norm`` edges (sorted by dst) and their row pointers,
         present only with ``with_pyg_norm=True``.
-      node_perm: always None (the port does not reorder nodes).
+      node_perm: [N] int64 ``perm[new] = old`` of a clustering reorder
+        (``preprocess_graph(reorder=True)``), else None: the graph's node i
+        is the caller's node ``node_perm[i]``; the trainers and
+        ``Predictor`` permute x and labels into this order and the logits
+        back.
       symmetric: True when A == A^T by construction (``undirected=True``);
         the fixed-weight gradient then runs on A's own CSR.
       t_*: CSR of A^T (edges sorted by source: ``t_edge_src`` holds the
@@ -187,6 +195,38 @@ class Graph:
             (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_perm),
             _CHUNK_DTYPES[self.chunk_dtype], self.hub_segments, self.t_hub_segments,
             self.hub_edges)
+
+
+class NodeOrder:
+    """The caller's node order and a graph's (``Graph.node_perm``, a
+    clustering reorder): ``perm`` (``perm[new] = old``) and its inverse
+    ``inv`` (``inv[old] = new``), int64 on ``device``, both None when the
+    graph keeps the caller's order. The trainers and ``Predictor`` move x and
+    the labels into the graph's order and the logits back through it."""
+
+    def __init__(self, node_perm: Optional[torch.Tensor], device=None):
+        self.perm = self.inv = None
+        if node_perm is not None:
+            self.perm = torch.as_tensor(node_perm).to(device, torch.int64)
+            self.inv = torch.empty_like(self.perm)
+            self.inv[self.perm] = torch.arange(self.perm.numel(), device=self.perm.device)
+
+    def to_graph(self, rows):
+        """Node-indexed rows (numpy or a tensor) in the graph's order."""
+        if self.perm is None:
+            return rows
+        if isinstance(rows, torch.Tensor):
+            return rows[self.perm.to(rows.device)]
+        return np.asarray(rows)[self.perm.cpu().numpy()]
+
+    def to_caller(self, rows: torch.Tensor) -> torch.Tensor:
+        """Node-indexed rows in the graph's order back in the caller's."""
+        return rows if self.inv is None else rows[self.inv.to(rows.device)]
+
+    def graph_ids(self, idx) -> np.ndarray:
+        """The caller's node ids ``idx`` as the graph's."""
+        idx = np.asarray(idx, dtype=np.int64)
+        return idx if self.inv is None else self.inv.cpu().numpy()[idx]
 
 
 def graph_leaves(graph: Graph) -> tuple[list[torch.Tensor], dict]:
@@ -342,6 +382,7 @@ def graph_from_sorted(
     chunk_dtype: str = "f32",
     slab_dtype: str = "compute",
     rs: Optional[torch.Tensor] = None,
+    node_perm: Optional[torch.Tensor] = None,
 ) -> Graph:
     """A :class:`Graph` of dst-sorted edges on their device: the row
     pointers, the CSR of A^T with ``t_perm``, and the hub plans of both
@@ -375,6 +416,7 @@ def graph_from_sorted(
         chunk_dtype=chunk_dtype,
         slab_dtype=slab_dtype,
         rs=rs,
+        node_perm=node_perm,
         **extra,
     )
 
@@ -417,6 +459,7 @@ def preprocess_graph(
     with_pyg_norm: bool = False,
     chunk_dtype: str = "f32",
     slab_dtype: str = "compute",
+    reorder: bool = False,
     device="cuda",
 ) -> Graph:
     """Symmetrise (optionally), replace self-loops, sort by destination and
@@ -441,8 +484,13 @@ def preprocess_graph(
     JAX package refuses it).
     On the port int8 is an explicit opt-in: the JAX package's ``'auto'``
     policy decides from VMEM residency, which the card does not have, and its
-    TPU layout knobs (slab rows, hub tails, the clustering reorder) have no
-    counterpart here.
+    TPU layout knobs (slab rows, hub tails) have no counterpart here.
+
+    ``reorder=True`` relabels the nodes by the clustering reorder before the
+    sort (:func:`sgformer_tpu_torch.native.reorder.reorder_for_clusters` of
+    the symmetrised, self-looped edges, on the host, C++), as the JAX
+    ``preprocess_graph(reorder=True)`` does, and sets ``node_perm`` to its
+    ``perm``, bitwise the JAX one.
     """
     if chunk_dtype not in _CHUNK_DTYPES:
         raise ValueError(f"chunk_dtype must be one of {sorted(_CHUNK_DTYPES)}")
@@ -459,6 +507,13 @@ def preprocess_graph(
         edge_index = to_undirected(edge_index)
     if self_loops:
         edge_index = add_self_loops(remove_self_loops(edge_index), num_nodes)
+    node_perm = None
+    if reorder:
+        from sgformer_tpu_torch.native.reorder import reorder_for_clusters
+
+        perm, inv = reorder_for_clusters(edge_index.cpu().numpy(), num_nodes)
+        edge_index = torch.from_numpy(inv).to(dev)[edge_index.long()]
+        node_perm = torch.from_numpy(perm).to(dev)
     check_int32_counts(num_nodes, edge_index.shape[1])
     src, dst = sort_by_dst(*edge_index.int())
     weight = gcn_norm_weights(src, dst, num_nodes)
@@ -473,7 +528,8 @@ def preprocess_graph(
             raise ValueError("slab_dtype='int8' needs separable (sep_rs) weights: this "
                              "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
     return graph_from_sorted(src, dst, weight, num_nodes, symmetric=bool(undirected), pyg=pyg,
-                             chunk_dtype=chunk_dtype, slab_dtype=slab_dtype, rs=rs)
+                             chunk_dtype=chunk_dtype, slab_dtype=slab_dtype, rs=rs,
+                             node_perm=node_perm)
 
 
 def build_h2_graphs(edge_index, num_nodes: int, *, device="cuda") -> tuple[Graph, Graph]:

@@ -488,13 +488,41 @@ def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,
     return out
 
 
-def _attention_forward(qs, ks, vs, n_total, guard):
+def _all_reduce_sums(sums, n_total, guard, axis_name):
+    """The per-head reduce results of every rank of the axis summed in one
+    all-reduce (kvs, ksum and the norms ||q||², ||k||² of each head, and the
+    row count n), between the reduce and apply kernels; each head's
+    inv = 1/(||q|| ||k||) then comes from the summed norms. Returns the
+    summed (kvs, ksum, scal) of each head and n."""
+    from sgformer_tpu_torch.parallel.comm import all_reduce_
+
+    flat = torch.cat([t.reshape(-1) for kvs, ksum, scal in sums
+                      for t in (kvs, ksum, scal[:2])] + [n_total.reshape(1)])
+    all_reduce_(flat, axis_name)
+    out, at = [], 0
+    for kvs, ksum, _ in sums:
+        kvs_t = flat[at:at + kvs.numel()].view(kvs.shape)
+        at += kvs.numel()
+        ksum_t = flat[at:at + ksum.numel()]
+        at += ksum.numel()
+        q_sq, k_sq = flat[at], flat[at + 1]
+        at += 2
+        scal = torch.stack([q_sq, k_sq, _inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
+        out.append((kvs_t, ksum_t, scal))
+    return out, flat[at]
+
+
+def _attention_forward(qs, ks, vs, n_total, guard, axis_name=None):
     """Reduce every head, one norm over all heads, apply every head (each
-    head's rows a fresh tensor, stacked when there are several).
-    Returns out [N, H, D] and what the backward needs: per-head (kvs, ksum)
-    and the shared scal."""
+    head's rows a fresh tensor, stacked when there are several). With
+    ``axis_name`` the sums and n_total (this rank's count) are all-reduced
+    over that mesh axis between the two kernels.
+    Returns out [N, H, D] and what the backward needs: per-head (kvs, ksum),
+    the shared scal and n_total."""
     h = qs.shape[1]
     sums = [reduce(qs[:, i], ks[:, i], vs[:, i], guard) for i in range(h)]
+    if axis_name is not None:
+        sums, n_total = _all_reduce_sums(sums, n_total, guard, axis_name)
     scal = sums[0][2]
     if h > 1:
         # one norm over all heads, as in the reference and the plain path;
@@ -505,7 +533,7 @@ def _attention_forward(qs, ks, vs, n_total, guard):
     heads = [apply(qs[:, i], vs[:, i], kvs, ksum, scal, n_total, guard)
              for i, (kvs, ksum, _) in enumerate(sums)]
     out = heads[0][:, None] if h == 1 else torch.stack(heads, dim=1)
-    return out, [s[:2] for s in sums], scal
+    return out, [s[:2] for s in sums], scal, n_total
 
 
 class LinearAttentionFunction(torch.autograd.Function):
@@ -515,12 +543,16 @@ class LinearAttentionFunction(torch.autograd.Function):
     runs :func:`bwd_reduce` for every head, sums dinv over the heads (one
     norm is shared by all of them), then runs :func:`bwd_apply` for every
     head. ``n_total`` and ``guard`` get no gradient, as in the JAX
-    ``_attn_core_bwd``."""
+    ``_attn_core_bwd``. With ``axis_name`` the forward's sums and the
+    backward's (P, ds, dinv) of every head are each all-reduced in one
+    collective between the two kernels of their pass, as the JAX kernel
+    path's psums (``kernels/attention.py:153-156``, ``:295-296``)."""
 
     @staticmethod
-    def forward(ctx, qs, ks, vs, n_total, guard: bool):
-        out, sums, scal = _attention_forward(qs, ks, vs, n_total, guard)
+    def forward(ctx, qs, ks, vs, n_total, guard: bool, axis_name):
+        out, sums, scal, n_total = _attention_forward(qs, ks, vs, n_total, guard, axis_name)
         ctx.guard = guard
+        ctx.axis_name = axis_name
         ctx.save_for_backward(qs, ks, vs, n_total, scal,
                               *(t for pair in sums for t in pair))
         return out
@@ -536,6 +568,8 @@ class LinearAttentionFunction(torch.autograd.Function):
         sums = [(flat[2 * i], flat[2 * i + 1]) for i in range(h)]
         parts = [bwd_reduce(qs[:, i], vs[:, i], g[:, i], kvs, ksum, scal, n_total, guard)
                  for i, (kvs, ksum) in enumerate(sums)]
+        if ctx.axis_name is not None:
+            parts = _all_reduce_partials(parts, ctx.axis_name)
         dinv = parts[0][2]
         for p in parts[1:]:
             dinv = dinv + p[2]
@@ -544,7 +578,25 @@ class LinearAttentionFunction(torch.autograd.Function):
         for i, ((kvs, ksum), (P, ds, _, rows)) in enumerate(zip(sums, parts)):
             bwd_apply(qs[:, i], ks[:, i], vs[:, i], g[:, i], kvs, ksum, scal, n_total,
                       P, ds, dinv, rows, guard, out=(dq[:, i], dk[:, i], dv[:, i]))
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
+
+
+def _all_reduce_partials(parts, axis_name):
+    """Every head's backward partials (P, ds, dinv) summed over the axis in
+    one all-reduce; each head's rows stay this rank's."""
+    from sgformer_tpu_torch.parallel.comm import all_reduce_
+
+    flat = torch.cat([t.reshape(-1) for P, ds, dinv, _ in parts for t in (P, ds, dinv)])
+    all_reduce_(flat, axis_name)
+    out, at = [], 0
+    for P, ds, _, rows in parts:
+        P_t = flat[at:at + P.numel()].view(P.shape)
+        at += P.numel()
+        ds_t = flat[at:at + ds.numel()]
+        at += ds.numel()
+        out.append((P_t, ds_t, flat[at], rows))
+        at += 1
+    return out
 
 
 def fused_linear_attention(
@@ -552,13 +604,17 @@ def fused_linear_attention(
     ks: torch.Tensor,
     vs: torch.Tensor,
     node_mask: torch.Tensor | None = None,
+    axis_name: str | None = None,
 ) -> torch.Tensor:
     """SGFormer linear attention through the reduce and apply kernels, and
     the backward kernels for its gradient.
 
     qs, ks: [N, H, M]; vs: [N, H, D]. The same function as
     :func:`sgformer_tpu_torch.ops.attention.linear_attention` without
-    ``output_attn``. Returns [N, H, D] in q's type.
+    ``output_attn``. With ``axis_name`` the rows are this rank's shard of a
+    node-sharded graph: the reduce kernels run on them and their sums (and
+    n) are all-reduced over the axis before the apply kernels, one
+    collective a pass. Returns [N, H, D] in q's type.
     """
     if qs.dim() != 3 or ks.shape != qs.shape or vs.dim() != 3 \
             or vs.shape[:2] != qs.shape[:2]:
@@ -576,5 +632,5 @@ def fused_linear_attention(
     qs, ks, vs = (t if t.stride(2) == 1 else t.contiguous() for t in (qs, ks, vs))
     if torch.is_grad_enabled() and (qs.requires_grad or ks.requires_grad
                                     or vs.requires_grad):
-        return LinearAttentionFunction.apply(qs, ks, vs, n_total, guard)
-    return _attention_forward(qs, ks, vs, n_total, guard)[0]
+        return LinearAttentionFunction.apply(qs, ks, vs, n_total, guard, axis_name)
+    return _attention_forward(qs, ks, vs, n_total, guard, axis_name)[0]

@@ -208,10 +208,15 @@ def csr_spmm(
     weight: torch.Tensor,
     segments: torch.Tensor | None = None,
     segment_edges: int | None = None,
+    num_cols: int | None = None,
 ) -> torch.Tensor:
     """out[i] = sum_{e in [indptr[i], indptr[i+1])} weight[e] * x[edge_src[e]].
 
-    x: [N, F] float32 or bfloat16 (any F; the kernel takes 256 columns per
+    A is [len(indptr) - 1, num_cols] (square when ``num_cols`` is None) and
+    x must be [num_cols, F], every ``edge_src`` below num_cols: a node
+    shard's CSR reads the gathered rows of every shard or its halo table
+    (:mod:`sgformer_tpu_torch.parallel.partition`). The result has A's rows.
+    x: float32 or bfloat16 (any F; the kernel takes 256 columns per
     pass); indptr [N+1], edge_src and edge_dst [E] int32, sorted by dst;
     weight [E] float32; segments: the hub plan of this CSR,
     ``hub_plan(indptr, segment_edges)`` (on the graph as
@@ -222,9 +227,9 @@ def csr_spmm(
     version, ``segments`` only by the kernel. Runs the op
     ``sgformer_tpu_torch::csr_spmm`` (:mod:`.ops`).
     """
-    n = indptr.shape[0] - 1
-    if x.dim() != 2 or x.shape[0] != n:
-        raise ValueError(f"x must be [{n}, F], got {tuple(x.shape)}")
+    num_cols = indptr.shape[0] - 1 if num_cols is None else num_cols
+    if x.dim() != 2 or x.shape[0] != num_cols:
+        raise ValueError(f"x must be [{num_cols}, F], got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _segment_length(segments, segment_edges)
@@ -240,7 +245,7 @@ def csr_spmm_cuda(x, indptr, edge_src, edge_dst, weight, segments, segment_edges
     if weight.dim() != 1:
         raise ValueError("weight must be [E]")
     x = x.contiguous()
-    out = torch.empty_like(x)
+    out = torch.empty(indptr.shape[0] - 1, x.shape[1], dtype=x.dtype, device=x.device)
     if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments, segment_edges):
         launches += 1
     return out
@@ -577,13 +582,17 @@ def csr_spmm_ev_bwd(
 
 class CsrSpmmFunction(torch.autograd.Function):
     """``A @ x`` with ``A^T @ g`` as its gradient, both through
-    :func:`csr_spmm`. Only x gets a gradient; the CSR arrays get none."""
+    :func:`csr_spmm`. Only x gets a gradient; the CSR arrays get none. For
+    a rectangular A ([rows, num_cols]) the transposed CSR has num_cols rows,
+    so the gradient has x's shape."""
 
     @staticmethod
     def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
                 t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges):
-        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges)
-        return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges)
+        ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges,
+                         indptr.shape[0] - 1)
+        return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges,
+                        t_indptr.shape[0] - 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -597,14 +606,15 @@ def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
                       segment_edges: int | None = None) -> torch.Tensor:
     """:func:`csr_spmm` of ``x`` on ``csr`` = (indptr, edge_src, edge_dst,
     weight), differentiable in x; ``csr_t`` is the CSR of A^T in the same
-    form (``csr`` itself when A is symmetric); ``segments`` and
+    form (``csr`` itself when A is symmetric; num_cols rows when A is
+    rectangular); ``segments`` and
     ``t_segments`` are their hub plans, both of segments of
     ``segment_edges`` (built from indptr when None). Where autograd does not
     record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
     gradient) it is one :func:`csr_spmm` and saves nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
         return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments, segment_edges)
-    return csr_spmm(x, *csr, segments, segment_edges)
+    return csr_spmm(x, *csr, segments, segment_edges, csr_t[0].shape[0] - 1)
 
 
 class CsrSpmmEdgeValuesFunction(torch.autograd.Function):

@@ -1,5 +1,7 @@
-"""numpy-facing wrapper of the host sampler: the counterpart of the JAX
-package's ``native/api.py::sample_batch_native``."""
+"""numpy-facing wrappers of the host graph kernels: the counterparts of the
+JAX package's ``native/api.py::sample_batch_native``, ``lpa_cluster_native``
+and ``cluster_pack_native``. They raise where the library cannot be built;
+none returns None."""
 
 from __future__ import annotations
 
@@ -46,3 +48,36 @@ def sample_batch_native(indptr: np.ndarray, indices: np.ndarray, seeds: np.ndarr
         n_edges.ctypes.data, truncated.ctypes.data)
     e = int(n_edges[0])
     return node_ids[:n], src[:e], dst[:e], weight[:e], tuple(bool(t) for t in truncated)
+
+
+def lpa_cluster_native(src: np.ndarray, dst: np.ndarray, num_nodes: int, iters: int,
+                       max_size: int, seed: int) -> np.ndarray:
+    """Label-propagation clustering of the edges (src, dst) by the C++ sweep
+    (``csrc/graph_kernels.cpp``), the JAX package's ``lpa_cluster_native``
+    label for label: ``iters`` sweeps at most, labels of ``max_size`` nodes
+    or more closed to new members, draws from ``seed``. Returns the labels
+    compacted to 0..C-1 in order of their first label value ([N] int64)."""
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    if src.shape != dst.shape:
+        raise ValueError("src and dst must have one entry per edge")
+    if len(src) and (min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= num_nodes):
+        raise ValueError(f"edge ends must lie in [0, {num_nodes})")
+    labels = np.empty(num_nodes, dtype=np.int64)
+    library().lpa_cluster(src.ctypes.data, dst.ctypes.data, len(src), num_nodes, iters,
+                          max_size, seed & (2 ** 64 - 1), labels.ctypes.data)
+    _, labels = np.unique(labels, return_inverse=True)
+    return labels.astype(np.int64)
+
+
+def cluster_pack_native(clusters: np.ndarray, slab_rows: int) -> np.ndarray:
+    """``perm`` (``perm[new] = old``) that packs the clusters (labels
+    0..C-1) into consecutive blocks of ``slab_rows`` new ids, by the C++
+    best-fit-decreasing packing: the JAX package's ``cluster_pack_native``
+    bit for bit."""
+    clusters = np.ascontiguousarray(clusters, dtype=np.int64)
+    if slab_rows < 1:
+        raise ValueError(f"slab_rows must be positive, got {slab_rows}")
+    perm = np.empty(len(clusters), dtype=np.int64)
+    library().cluster_pack(clusters.ctypes.data, len(clusters), slab_rows, perm.ctypes.data)
+    return perm

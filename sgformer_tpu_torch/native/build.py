@@ -1,6 +1,7 @@
-"""Build the port's host sampler (``csrc/graph_kernels.cpp``) with g++ and
-load it with ``ctypes``: the counterpart of the JAX package's
-``native/build.py``.
+"""Build the port's host graph kernels (``csrc/graph_kernels.cpp``: the
+sampled tier's sampler and the clustering reorder's label propagation and
+packing) with g++ and load them with ``ctypes``: the counterpart of the JAX
+package's ``native/build.py``.
 
 The library is compiled on first use with the JAX package's flags
 (``-O3 -march=native -shared -fPIC -pthread``) into ``<cache>/native/``,
@@ -11,9 +12,9 @@ the machine type, the compiler's version and the target options that
 ``-march=native`` resolves to: such code is for the host that built it, so a
 build directory copied to another host is rebuilt there.
 
-Where the JAX loader returns None and its sampler quietly falls back to
+Where the JAX loader returns None and its callers quietly fall back to
 numpy, this one raises, with the compiler's error: the sampled tier's
-default path is this library.
+default path and the reorder are this library.
 
 Nothing here runs at import time.
 """
@@ -45,14 +46,16 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "sample_batch": ([_P, _P, _P, _I64, _P, _I64, _I64, _I64, ctypes.c_uint64,
                       _P, _P, _P, _P, _P, _P], _I64),
+    "lpa_cluster": ([_P, _P, _I64, _I64, _I64, _I64, ctypes.c_uint64, _P], _I64),
+    "cluster_pack": ([_P, _I64, _I64, _P], None),
 }
 
 
 def _compiler() -> str:
     path = shutil.which("g++")
     if path is None:
-        raise RuntimeError("g++ not found: the sampled tier's host sampler "
-                           "(csrc/graph_kernels.cpp) is built with it")
+        raise RuntimeError("g++ not found: the host graph kernels (csrc/graph_kernels.cpp: "
+                           "the sampler, the clustering reorder) are built with it")
     return path
 
 
@@ -91,7 +94,7 @@ def library() -> ctypes.CDLL:
             if proc.returncode != 0:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-                raise RuntimeError(f"the host sampler's build failed (g++ exit "
+                raise RuntimeError(f"the host graph kernels' build failed (g++ exit "
                                    f"{proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)

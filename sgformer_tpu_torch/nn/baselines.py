@@ -41,11 +41,14 @@ from sgformer_tpu_torch.ops.spmm import edge_softmax
 
 
 class MLP(GraphModel):
-    """Linear stack with BatchNorm, ReLU and dropout; the graph is unused."""
+    """Linear stack with BatchNorm, ReLU and dropout; the graph is unused.
+    ``axis_name``: the mesh axis of node-sharded training, whose BatchNorm
+    statistics all-reduce over it."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  num_layers: int = 2, dropout: float = 0.5, use_bn: bool = True,
-                 generator=None, dropout_generator=None, device="cuda"):
+                 axis_name: str | None = None, generator=None, dropout_generator=None,
+                 device="cuda"):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
@@ -55,7 +58,7 @@ class MLP(GraphModel):
         for i, d in enumerate(dims):
             self.add_module(f"lin_{i}", TorchLinear(width, d))
             if use_bn and i < num_layers - 1:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(d))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(d, axis_name=axis_name))
             width = d
         self.finish_init(generator, dropout_generator, device)
 
@@ -119,15 +122,16 @@ class SGCMem(SGC):
 
 
 class SGC2(GraphModel):
-    """K-hop propagation, then an MLP."""
+    """K-hop propagation, then an MLP (``axis_name``: as :class:`MLP`'s)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  hops: int = 2, num_layers: int = 2, dropout: float = 0.5,
-                 use_bn: bool = True, generator=None, dropout_generator=None, device="cuda"):
+                 use_bn: bool = True, axis_name: str | None = None, generator=None,
+                 dropout_generator=None, device="cuda"):
         super().__init__()
         self.hops = hops
         self.mlp = MLP(in_channels, hidden_channels, out_channels, num_layers=num_layers,
-                       dropout=dropout, use_bn=use_bn, device=device)
+                       dropout=dropout, use_bn=use_bn, axis_name=axis_name, device=device)
         self.finish_init(generator, dropout_generator, device)
 
     def forward(self, x, graph, node_mask=None):
@@ -139,11 +143,13 @@ class SGC2(GraphModel):
 class SIGN(GraphModel):
     """[x, Ax, ..., A^K x] through one linear each, summed (the first linear
     of the reference on their concatenation), then BatchNorm, ReLU, dropout
-    and the remaining linears; ``num_layers`` counts all linears."""
+    and the remaining linears; ``num_layers`` counts all linears
+    (``axis_name``: the mesh axis its BatchNorm statistics reduce over)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  hops: int = 2, num_layers: int = 2, dropout: float = 0.5,
-                 use_bn: bool = True, generator=None, dropout_generator=None, device="cuda"):
+                 use_bn: bool = True, axis_name: str | None = None, generator=None,
+                 dropout_generator=None, device="cuda"):
         super().__init__()
         self.hops = hops
         self.use_bn = use_bn
@@ -153,7 +159,8 @@ class SIGN(GraphModel):
             self.add_module(f"hop_{k}", TorchLinear(in_channels, hidden_channels))
         for i in range(1, self.n_lins):
             if use_bn:
-                self.add_module(f"bn_{i - 1}", MaskedBatchNorm(hidden_channels))
+                self.add_module(f"bn_{i - 1}", MaskedBatchNorm(hidden_channels,
+                                                               axis_name=axis_name))
             width = out_channels if i == self.n_lins - 1 else hidden_channels
             self.add_module(f"lin_{i}", TorchLinear(hidden_channels, width))
         self.finish_init(generator, dropout_generator, device)
@@ -217,12 +224,19 @@ class GATConv(nn.Module):
 class GAT(GraphModel):
     """GATConv stack: heads concatenated on the hidden layers and averaged
     on the last; input dropout, then BatchNorm, ELU and dropout between
-    layers; attention-coefficient dropout at the same rate."""
+    layers; attention-coefficient dropout at the same rate.
+
+    ``axis_name`` (node-sharded training) is refused: a node shard's graph
+    has no per-edge-value aggregation, in this package as in the JAX one
+    (whose ``ShardGraph`` has no ``propagate_edge_values``)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  num_layers: int = 2, heads: int = 2, out_heads: int = 1,
-                 dropout: float = 0.5, use_bn: bool = True, generator=None,
-                 dropout_generator=None, device="cuda"):
+                 dropout: float = 0.5, use_bn: bool = True, axis_name: str | None = None,
+                 generator=None, dropout_generator=None, device="cuda"):
+        if axis_name is not None:
+            raise ValueError("GAT cannot train node-sharded (axis_name): a shard's graph has "
+                             "no per-edge-value aggregation")
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
@@ -288,11 +302,13 @@ class MixHopLayer(nn.Module):
 class MixHop(GraphModel):
     """MixHopLayer stack and a final projection; the last layer maps to
     ``out_channels`` and joins the projection with no BatchNorm, ReLU or
-    dropout."""
+    dropout (``axis_name``: the mesh axis its BatchNorm statistics reduce
+    over)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  num_layers: int = 2, hops: int = 2, dropout: float = 0.5,
-                 use_bn: bool = True, generator=None, dropout_generator=None, device="cuda"):
+                 use_bn: bool = True, axis_name: str | None = None, generator=None,
+                 dropout_generator=None, device="cuda"):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
@@ -304,7 +320,7 @@ class MixHop(GraphModel):
             self.add_module(f"mix_{i}", MixHopLayer(width, out, hops=hops))
             width = out * (hops + 1)
             if not last and use_bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(width))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(width, axis_name=axis_name))
         self.final = TorchLinear(width, out_channels)
         self.finish_init(generator, dropout_generator, device)
 
@@ -325,7 +341,8 @@ class _JumpingKnowledge(GraphModel):
     join)."""
 
     def _jk_init(self, convs, act, width: int, out_channels: int, num_layers: int,
-                 dropout: float, use_bn: bool, jk_type: str) -> None:
+                 dropout: float, use_bn: bool, jk_type: str,
+                 axis_name: str | None = None) -> None:
         if jk_type not in ("cat", "max"):
             raise ValueError(f"jk_type must be 'cat' or 'max', got {jk_type!r}")
         self.act = act
@@ -336,7 +353,7 @@ class _JumpingKnowledge(GraphModel):
         for i, conv in enumerate(convs):
             self.add_module(f"conv_{i}", conv)
             if use_bn and i < num_layers - 1:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(width))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(width, axis_name=axis_name))
         self.final = TorchLinear(width * num_layers if jk_type == "cat" else width,
                                  out_channels)
 
@@ -357,16 +374,18 @@ class _JumpingKnowledge(GraphModel):
 
 
 class GCNJK(_JumpingKnowledge):
-    """GCN stack (``GCNConv`` on the PyG edges) with jumping knowledge."""
+    """GCN stack (``GCNConv`` on the PyG edges) with jumping knowledge
+    (``axis_name``: the mesh axis its BatchNorm statistics reduce over)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  num_layers: int = 2, dropout: float = 0.5, use_bn: bool = True,
-                 jk_type: str = "cat", generator=None, dropout_generator=None, device="cuda"):
+                 jk_type: str = "cat", axis_name: str | None = None, generator=None,
+                 dropout_generator=None, device="cuda"):
         super().__init__()
         convs = [GCNConv(in_channels if i == 0 else hidden_channels, hidden_channels)
                  for i in range(num_layers)]
         self._jk_init(convs, torch.relu, hidden_channels, out_channels, num_layers, dropout,
-                      use_bn, jk_type)
+                      use_bn, jk_type, axis_name)
         self.finish_init(generator, dropout_generator, device)
 
 

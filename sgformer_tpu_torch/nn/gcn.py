@@ -41,10 +41,13 @@ class GCNConv(nn.Module):
 
 class GCN(GraphModel):
     """GCN stack; the output width is ``out_channels`` (the hidden width
-    when it is SGFormer's branch)."""
+    when it is SGFormer's branch). ``axis_name``: the mesh axis of
+    node-sharded training, whose BatchNorm statistics all-reduce over it
+    (the aggregation is then the shard graph's)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int, *,
                  num_layers: int = 2, dropout: float = 0.5, use_bn: bool = True,
+                 axis_name: str | None = None,
                  generator: torch.Generator | None = None,
                  dropout_generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
@@ -56,7 +59,7 @@ class GCN(GraphModel):
         for i, d in enumerate(dims):
             self.add_module(f"conv_{i}", GCNConv(width, d))
             if use_bn and i < num_layers - 1:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(d))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(d, axis_name=axis_name))
             width = d
         self.finish_init(generator, dropout_generator, device)
 

@@ -1,7 +1,8 @@
 """GraphConv, the shallow GCN branch of the large and 100M tiers: the port of
 ``sgformer_tpu/nn/graphconv.py``. The aggregation is
 :meth:`sgformer_tpu_torch.graph.Graph.propagate`, the CSR SpMM kernel on the
-card."""
+card (on a node shard, :meth:`sgformer_tpu_torch.parallel.ShardGraph.
+propagate`, with ``axis_name`` set for the BatchNorm statistics)."""
 
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ class GraphConv(nn.Module):
     def __init__(self, in_channels: int, hidden_channels: int, *, num_layers: int = 2,
                  dropout: float = 0.5, use_bn: bool = True, use_residual: bool = True,
                  use_weight: bool = True, use_init: bool = False, use_act: bool = True,
-                 remat: bool = False, generator: torch.Generator):
+                 remat: bool = False, axis_name: str | None = None,
+                 generator: torch.Generator):
         super().__init__()
         self.num_layers = num_layers
         self.use_bn = use_bn
@@ -54,14 +56,15 @@ class GraphConv(nn.Module):
         self.dropout = Dropout(dropout)
         self.fc_in = TorchLinear(in_channels, hidden_channels, generator=generator)
         if use_bn:
-            self.bn_in = MaskedBatchNorm(hidden_channels)
+            self.bn_in = MaskedBatchNorm(hidden_channels, axis_name=axis_name)
         for i in range(num_layers):
             self.add_module(f"conv_{i}", GraphConvLayer(
                 hidden_channels, hidden_channels, use_weight=use_weight,
                 use_init=use_init, generator=generator,
             ))
             if use_bn:
-                self.add_module(f"bn_{i}", MaskedBatchNorm(hidden_channels))
+                self.add_module(f"bn_{i}", MaskedBatchNorm(hidden_channels,
+                                                           axis_name=axis_name))
 
     def forward(self, x, graph, node_mask=None):
         x = self.fc_in(x)

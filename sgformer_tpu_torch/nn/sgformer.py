@@ -4,8 +4,10 @@
 ``SGFormerConfig`` is the JAX package's config, field for field, so one
 config describes a model in both packages. The port covers every ``gnn``
 (``"graphconv"``, ``"gcn"``, the medium tier's backbone on the PyG edges,
-and ``"none"``); a sharded ``axis_name`` raises NotImplementedError until
-it is ported. Parameters and norm statistics are f32; with
+and ``"none"``). With ``axis_name`` the model runs on one rank's node shard
+of a :class:`sgformer_tpu_torch.parallel.ShardGraph`: the attention's node
+sums and the BatchNorm statistics are all-reduced over that mesh axis
+(:mod:`sgformer_tpu_torch.parallel`). Parameters and norm statistics are f32; with
 ``compute_dtype="bf16"`` the activations are bf16; the logits are f32.
 """
 
@@ -55,7 +57,7 @@ class SGFormerConfig:
     # fusion
     graph_weight: float = 0.8
     aggregate: str = "add"  # 'add' | 'cat'
-    # mesh axis of node sharding (None = one device); not ported yet
+    # mesh axis of node sharding (None = one device; parallel.make_mesh)
     axis_name: Optional[str] = None
     # 'f32' or 'bf16' activations
     compute_dtype: str = "f32"
@@ -111,8 +113,6 @@ class SGFormer(GraphModel):
         super().__init__()
         cfg = config
         dev = resolve_device(device)
-        if cfg.axis_name is not None:
-            raise NotImplementedError("node-sharded SGFormer is not ported yet")
         if cfg.gnn not in ("graphconv", "gcn", "none"):
             raise ValueError(f"Invalid gnn type: {cfg.gnn}")
         if cfg.aggregate not in ("add", "cat"):
@@ -139,6 +139,7 @@ class SGFormer(GraphModel):
             residual_mode=cfg.trans_residual_mode,
             kernel=cfg.attention_kernel,
             remat=cfg.remat,
+            axis_name=cfg.axis_name,
             generator=generator,
         )
         if cfg.gnn == "graphconv":
@@ -152,12 +153,13 @@ class SGFormer(GraphModel):
                 use_init=cfg.gnn_use_init,
                 use_act=cfg.gnn_use_act,
                 remat=cfg.remat,
+                axis_name=cfg.axis_name,
                 generator=generator,
             )
         elif cfg.gnn == "gcn":
             self.gcn = GCN(in_channels, hidden, hidden, num_layers=cfg.gnn_num_layers,
                            dropout=cfg.gnn_dropout, use_bn=cfg.gnn_use_bn,
-                           generator=generator, device=dev)
+                           axis_name=cfg.axis_name, generator=generator, device=dev)
         fc_in = 2 * hidden if cfg.gnn != "none" and cfg.aggregate == "cat" else hidden
         self.fc = TorchLinear(fc_in, cfg.out_channels, generator=generator)
         self.set_dropout_generator(dropout_generator)

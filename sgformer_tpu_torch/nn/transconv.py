@@ -33,9 +33,12 @@ from sgformer_tpu_torch.ops.attention import linear_attention
 ATTENTION_KERNELS = ("simple", "softmax", "gat", "performer")
 
 
-def _check_kernel(kernel: str) -> None:
+def _check_kernel(kernel: str, axis_name: str | None = None) -> None:
     if kernel not in ATTENTION_KERNELS:
         raise ValueError(f"unknown attention kernel: {kernel}")
+    if axis_name is not None and kernel != "simple":
+        raise ValueError(f"attention {kernel!r} cannot run node-sharded (axis_name): only "
+                         f"'simple' reduces its node sums over the mesh axis")
 
 
 class TransConvLayer(nn.Module):
@@ -43,9 +46,10 @@ class TransConvLayer(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, *, num_heads: int = 1,
                  use_weight: bool = True, kernel: str = "simple",
-                 generator: torch.Generator):
+                 axis_name: str | None = None, generator: torch.Generator):
         super().__init__()
-        _check_kernel(kernel)
+        _check_kernel(kernel, axis_name)
+        self.axis_name = axis_name
         if not use_weight and num_heads != 1:
             raise ValueError("use_weight=False needs num_heads == 1")
         self.out_channels = out_channels
@@ -73,9 +77,10 @@ class TransConvLayer(nn.Module):
         if self.kernel == "simple":
             if output_attn:
                 out, attn = linear_attention(qs, ks, vs, output_attn=True,
-                                             node_mask=node_mask)
+                                             node_mask=node_mask, axis_name=self.axis_name)
                 return out.mean(dim=1), attn
-            out = _attention_kernel.fused_linear_attention(qs, ks, vs, node_mask=node_mask)
+            out = _attention_kernel.fused_linear_attention(qs, ks, vs, node_mask=node_mask,
+                                                           axis_name=self.axis_name)
             return out.mean(dim=1)
         if self.kernel == "performer":
             if output_attn:
@@ -97,7 +102,9 @@ class TransConv(nn.Module):
     (medium and 100M tiers); ``"mean"`` takes ``(x + prev)/2`` (large tier).
     ``remat`` recomputes each attention layer in the backward pass instead
     of keeping its activations, as the JAX module's ``nn.remat`` does; the
-    layer holds no dropout, so the recompute draws nothing.
+    layer holds no dropout, so the recompute draws nothing. ``axis_name``:
+    the mesh axis of node-sharded training, over which the attention's node
+    sums are all-reduced ('simple' only).
     """
 
     def __init__(self, in_channels: int, hidden_channels: int, *, num_layers: int = 2,
@@ -105,11 +112,12 @@ class TransConv(nn.Module):
                  use_bn: bool = True, use_residual: bool = True,
                  use_weight: bool = True, use_act: bool = False,
                  residual_mode: str = "alpha", kernel: str = "simple",
-                 remat: bool = False, generator: torch.Generator):
+                 remat: bool = False, axis_name: str | None = None,
+                 generator: torch.Generator):
         super().__init__()
         if residual_mode not in ("alpha", "mean"):
             raise ValueError(f"unknown residual_mode {residual_mode!r}")
-        _check_kernel(kernel)
+        _check_kernel(kernel, axis_name)
         self.num_layers = num_layers
         self.alpha = alpha
         self.use_bn = use_bn
@@ -124,7 +132,8 @@ class TransConv(nn.Module):
         for i in range(num_layers):
             self.add_module(f"conv_{i}", TransConvLayer(
                 hidden_channels, hidden_channels, num_heads=num_heads,
-                use_weight=use_weight, kernel=kernel, generator=generator,
+                use_weight=use_weight, kernel=kernel, axis_name=axis_name,
+                generator=generator,
             ))
             if use_bn:
                 self.add_module(f"ln_{i}", LayerNorm(hidden_channels))

@@ -10,7 +10,9 @@ is a sum over nodes followed by a rescale:
     inv = 1 / (||q|| * ||k||)
 
 Every sum is taken in f32 and the output is rounded once to q's type.
-Node-sharded attention (``axis_name``) is not ported yet.
+With ``axis_name`` (node-sharded training) the node sums are one all-reduce
+of (n, ||q||², ||k||², kᵀv, Σk) over that mesh axis
+(:mod:`sgformer_tpu_torch.parallel`), as the JAX function's psum.
 """
 
 from __future__ import annotations
@@ -24,12 +26,15 @@ def linear_attention(
     vs: torch.Tensor,
     output_attn: bool = False,
     node_mask: torch.Tensor | None = None,
+    axis_name: str | None = None,
 ):
     """qs, ks: [N, H, M]; vs: [N, H, D] (H may be 1 and broadcast).
 
     ``node_mask`` [N] marks real rows: masked rows add nothing to the norms
     and sums, and n becomes the count of real rows. ``output_attn`` also
-    returns the [N, N] mean-head attention map (small graphs only).
+    returns the [N, N] mean-head attention map (small graphs only; this
+    shard's rows and keys under ``axis_name``). With ``axis_name`` the rows
+    are this rank's shard and every node sum runs over the whole axis.
     Returns [N, H, D] in q's type (and the map).
     """
     compute_dtype = qs.dtype
@@ -45,6 +50,15 @@ def linear_attention(
     k_sq = kf.square().sum()
     kvs = torch.einsum("lhm,lhd->hmd", kf, vf)
     ks_sum = kf.sum(dim=0)  # [H, M]
+    if axis_name is not None:
+        from sgformer_tpu_torch.parallel.comm import all_reduce_sum
+
+        parts = (n_total.reshape(1), q_sq.reshape(1), k_sq.reshape(1), kvs.reshape(-1),
+                 ks_sum.reshape(-1))
+        total = all_reduce_sum(torch.cat(parts), axis_name)
+        n_total, q_sq, k_sq = total[0], total[1], total[2]
+        kvs = total[3:3 + kvs.numel()].view(kvs.shape)
+        ks_sum = total[3 + kvs.numel():].view(ks_sum.shape)
 
     if node_mask is None:
         inv_qk = 1.0 / (q_sq.sqrt() * k_sq.sqrt())

@@ -38,7 +38,8 @@ def spmm(
     num_nodes: int,
 ) -> torch.Tensor:
     """out[i] = sum over edges e with dst[e] == i of weight[e] * x[src[e]]
-    (the edges in any order)."""
+    (the edges in any order): [num_nodes, F] for any x of more than
+    max(src) rows, so A may be rectangular."""
     dst, order = torch.sort(edge_dst.long(), stable=True)
     msgs = x.float()[edge_src.long()[order]]
     if weight is not None:

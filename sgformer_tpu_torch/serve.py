@@ -2,8 +2,10 @@
 
 One forward computes the logits of all N nodes; a request for a subset of
 nodes is answered from them. With ``compute_dtype="bf16"`` the activations
-are bf16 and the logits f32. The port never reorders nodes, so node ids in
-and out are the caller's own.
+are bf16 and the logits f32. Node ids in and out are the caller's own: on a
+graph with a clustering reorder (``Graph.node_perm``) the predictor permutes
+x into the graph's order and its logits back, as the JAX ``Predictor``
+does.
 
 - :class:`Predictor` serves a model on one graph, with the keyword
   arguments some models take (``model_kwargs``) and the first element of a
@@ -25,7 +27,7 @@ import torch
 
 from sgformer_tpu_torch.convert import load_flax_variables
 from sgformer_tpu_torch.device import resolve_device
-from sgformer_tpu_torch.graph import Graph, graph_from_leaves, graph_leaves
+from sgformer_tpu_torch.graph import Graph, NodeOrder, graph_from_leaves, graph_leaves
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.train.checkpoint import read_state
 
@@ -97,11 +99,12 @@ class Predictor:
         self.model_kwargs = _to_device(model_kwargs or {}, self.device)
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, dtype=np.float32))
-        self.x = x.to(self.device, torch.float32)
-        if self.x.shape[0] != self.graph.num_nodes:
+        if x.shape[0] != self.graph.num_nodes:
             raise ValueError(
-                f"x has {self.x.shape[0]} rows for a graph of {self.graph.num_nodes} nodes"
+                f"x has {x.shape[0]} rows for a graph of {self.graph.num_nodes} nodes"
             )
+        self.order = NodeOrder(self.graph.node_perm, self.device)
+        self.x = self.order.to_graph(x.to(self.device, torch.float32))
 
     def compile(self) -> "Predictor":
         """Build the kernels and run one forward, so that no request pays
@@ -115,10 +118,11 @@ class Predictor:
 
     def _forward(self) -> torch.Tensor:
         with torch.inference_mode():
-            return _logits(self.model(self.x, self.graph, **self.model_kwargs))
+            return self.order.to_caller(_logits(self.model(self.x, self.graph,
+                                                           **self.model_kwargs)))
 
     def logits(self) -> np.ndarray:
-        """[N, C] float32 logits."""
+        """[N, C] float32 logits, in the caller's node order."""
         return self._forward().cpu().numpy()
 
     def _rows(self, node_idx) -> torch.Tensor:
@@ -148,7 +152,8 @@ class Predictor:
         ``named_parameters``/``named_buffers`` order, then x, then the
         graph's tensors (:func:`~sgformer_tpu_torch.graph.graph_leaves`).
         The weights are inputs, as in the JAX artifact, so one artifact
-        serves every checkpoint of the same config and graph shapes."""
+        serves every checkpoint of the same config and graph shapes. x is in
+        the graph's node order."""
         return [*self._weights()[1], self.x, *graph_leaves(self.graph)[0]]
 
     def export_artifact(self, path: str, *, include_inputs: bool = False) -> str:
@@ -157,7 +162,8 @@ class Predictor:
         ``path``.
 
         The program takes :meth:`export_leaves` and returns the [N, C]
-        logits. Every forward kernel is in it as its custom op
+        logits in the graph's node order. Every forward kernel is in it as
+        its custom op
         (``torch.ops.sgformer_tpu_torch.*``, :mod:`sgformer_tpu_torch.kernels.ops`),
         so the loaded program launches the same kernels, and counts them.
         ``model_kwargs`` are the program's constants (``torch.export`` lifts
@@ -168,10 +174,10 @@ class Predictor:
         With ``include_inputs=True`` the leaves are also written to ``path +
         ".inputs.npz"`` as ``arr_0..`` in :meth:`export_leaves` order, with
         ``inv_perm``, the map from the program's rows to the caller's node
-        ids: the identity, since the port never reorders nodes (the JAX
-        bundle's layout). numpy has no bf16: a bf16 leaf would be stored as
-        its bits in uint16 (``arr.view(np.uint16)``; the bench model has
-        none)."""
+        ids (``out[inv_perm]``; the identity unless the graph has a
+        clustering reorder), the JAX bundle's layout. numpy has no bf16: a
+        bf16 leaf would be stored as its bits in uint16
+        (``arr.view(np.uint16)``; the bench model has none)."""
         names, _ = self._weights()
         spec = graph_leaves(self.graph)[1]
         leaves = self.export_leaves()
@@ -187,8 +193,9 @@ class Predictor:
                 leaf = leaf.cpu()
                 arrays.append(leaf.view(torch.uint16).numpy() if leaf.dtype == torch.bfloat16
                               else leaf.numpy())
-            np.savez(path + ".inputs.npz", *arrays,
-                     inv_perm=np.arange(self.graph.num_nodes, dtype=np.int64))
+            inv_perm = (np.arange(self.graph.num_nodes, dtype=np.int64) if self.order.inv is None
+                        else self.order.inv.cpu().numpy())
+            np.savez(path + ".inputs.npz", *arrays, inv_perm=inv_perm)
         return path
 
 

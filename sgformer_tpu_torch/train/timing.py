@@ -49,7 +49,7 @@ def time_test(trainer, split_idx: dict, *, epochs: int = 50, warmup: int = 3,
     dev = trainer.device
     seed = trainer.config.seed
     trainer.init_state(seed)
-    trainer.generator.manual_seed(seed)
+    trainer.seed_dropout(seed)
     train_idx = trainer.prepare_train_idx(split_idx)
     losses = [trainer.train_step(train_idx) for _ in range(warmup)]
     _sync(dev)

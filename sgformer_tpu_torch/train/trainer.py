@@ -9,6 +9,13 @@ parameters and statistics are the state; the optimizer holds the moments.
 Every random number comes from an explicit generator: parameters from a CPU
 generator seeded per run (``config.seed + run``), dropout masks from the
 trainer's one device generator, seeded from ``config.seed``.
+
+A graph with a clustering reorder (``preprocess_graph(reorder=True)``,
+``Graph.node_perm``) trains in its own node order: the trainer permutes x
+and the labels into it and maps the train split through the inverse, as the
+JAX trainer does; ``eval_step`` returns the logits in the caller's node
+order, so the splits and labels of :meth:`Trainer.evaluate` stay the
+caller's.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 
 from sgformer_tpu_torch.data.metrics import METRICS
 from sgformer_tpu_torch.device import resolve_device
+from sgformer_tpu_torch.graph import NodeOrder
 from sgformer_tpu_torch.train.logger import RunLogger
 from sgformer_tpu_torch.train.optim import dual_weight_decay_adam
 from sgformer_tpu_torch.utils.rng import train_generator
@@ -113,27 +121,52 @@ class Trainer:
         self.device = resolve_device(device)
         self.config = config
         self.model = model.to(self.device)
-        self.graph = graph.to(self.device)
         self.model_kwargs = model_kwargs or {}
         self.eval_func = eval_func or METRICS[config.metric]
+        # the caller's labels, which evaluate() reads, and the graph's order
+        self.label_np = np.asarray(label)
+        self.order = NodeOrder(graph.node_perm, self.device)
+        self.graph = self.place_graph(graph)
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x, dtype=np.float32))
-        self.x = x.to(self.device, torch.float32)
-        label = np.asarray(label)
-        self.label_np = label
+        self.x = self.place_rows(self.order.to_graph(x).to(torch.float32))
+        label = self.order.to_graph(self.label_np)
         if config.loss == "bce":
-            if label.shape[1] == 1:
-                label_onehot = np.eye(int(label.max()) + 1)[label.reshape(-1)]
-            else:
-                label_onehot = label
-            self.label_onehot = torch.as_tensor(label_onehot, dtype=torch.float32,
-                                                device=self.device)
-        self.label = torch.as_tensor(label.reshape(-1).astype(np.int64), device=self.device)
+            self.label_onehot = self.place_rows(torch.as_tensor(onehot(label),
+                                                                dtype=torch.float32))
+        self.label = self.place_rows(torch.as_tensor(label.reshape(-1).astype(np.int64)))
         # the one generator of every dropout mask
-        self.generator = train_generator(config.seed, config.rng_impl, self.device)
+        self.generator = train_generator(self.dropout_seed(config.seed), config.rng_impl,
+                                         self.device)
         self.model.set_dropout_generator(self.generator)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.final_state: Optional[dict] = None
+
+    # -- placement (a node-sharded trainer overrides these) ------------------
+
+    # whether this process prints the progress lines and statistics (in a
+    # node-sharded group only rank 0 does)
+    writes_logs = True
+
+    def place_graph(self, graph):
+        """The graph the steps run on: ``graph`` on the device."""
+        return graph.to(self.device)
+
+    def place_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Node-indexed rows, in the graph's order, as the steps read them:
+        all of them, on the device."""
+        return rows.to(self.device)
+
+    def dropout_seed(self, seed: int) -> int:
+        """The dropout generator's seed for ``seed``."""
+        return seed
+
+    def reduce_gradients(self) -> None:
+        """Between the backward and the optimizer step: nothing here."""
+
+    def seed_dropout(self, seed: int) -> None:
+        """Seed the dropout generator for a run."""
+        self.generator.manual_seed(self.dropout_seed(seed))
 
     # -- state -------------------------------------------------------------
 
@@ -148,9 +181,9 @@ class Trainer:
         return self.optimizer
 
     def prepare_train_idx(self, split_idx: dict) -> torch.Tensor:
-        """The train split's node ids as a device tensor."""
-        return torch.as_tensor(np.asarray(split_idx["train"], dtype=np.int64),
-                               device=self.device)
+        """The train split's node ids, in the graph's order, as a device
+        tensor."""
+        return torch.as_tensor(self.order.graph_ids(split_idx["train"]), device=self.device)
 
     # -- steps ---------------------------------------------------------------
 
@@ -180,6 +213,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(train_idx)
         loss.backward()
+        self.reduce_gradients()
         self.optimizer.step()
         return loss.detach()
 
@@ -189,11 +223,12 @@ class Trainer:
         return torch.stack([self.train_step(train_idx) for _ in range(k)])
 
     def eval_step(self) -> torch.Tensor:
-        """[N, C] f32 logits in eval mode, without autograd."""
+        """[N, C] f32 logits in eval mode, without autograd, in the caller's
+        node order."""
         self.model.eval()
         with torch.no_grad():
             out = self.model(self.x, self.graph, **self.model_kwargs)
-        return out[0] if isinstance(out, tuple) else out
+        return self.order.to_caller(out[0] if isinstance(out, tuple) else out)
 
     # -- evaluation ----------------------------------------------------------
 
@@ -206,7 +241,7 @@ class Trainer:
         vidx = np.asarray(split_idx["valid"])
         logits = out[vidx]
         if self.config.loss == "bce":
-            vloss = bce_on_host(logits, self.label_onehot.cpu().numpy()[vidx])
+            vloss = bce_on_host(logits, onehot(self.label_np)[vidx])
         else:
             logp = logits - _logsumexp(logits)
             vloss = float(-logp[np.arange(len(vidx)), self.label_np[vidx].reshape(-1)].mean())
@@ -222,7 +257,7 @@ class Trainer:
         of train steps whose losses are read once, after the block."""
         cfg = self.config
         logger = RunLogger(cfg.runs, mode=cfg.mode)
-        self.generator.manual_seed(cfg.seed)
+        self.seed_dropout(cfg.seed)
         for run in range(cfg.runs):
             split_idx = split_idx_lst[run % len(split_idx_lst)]
             train_idx = self.prepare_train_idx(split_idx)
@@ -241,7 +276,8 @@ class Trainer:
                     out = self.eval_step().cpu().numpy()
                     result = self.evaluate(out, split_idx)
                     logger.add_result(run, result)
-                    if cfg.display_step > 0 and (epoch - 1) % cfg.display_step == 0:
+                    if (self.writes_logs and cfg.display_step > 0
+                            and (epoch - 1) % cfg.display_step == 0):
                         print(
                             f"Epoch: {epoch - 1:02d}, "
                             f"Loss: {float(loss):.4f}, "
@@ -257,12 +293,21 @@ class Trainer:
                             patience_ctr += 1
                             if patience_ctr >= cfg.patience:
                                 break
-            if cfg.display_step >= 0:
+            if self.writes_logs and cfg.display_step >= 0:
                 logger.print_statistics(run)
             # the last run's final parameters and statistics
             self.final_state = {k: v.detach().clone()
                                 for k, v in self.model.state_dict().items()}
         return logger
+
+
+def onehot(label: np.ndarray) -> np.ndarray:
+    """The f32 BCE targets of ``label``: one-hot rows of [N, 1] class ids,
+    or the [N, C] multilabel array itself."""
+    label = np.asarray(label)
+    if label.shape[1] == 1:
+        return np.eye(int(label.max()) + 1, dtype=np.float32)[label.reshape(-1)]
+    return label.astype(np.float32)
 
 
 def bce_on_host(logits: np.ndarray, labels_onehot: np.ndarray) -> float:

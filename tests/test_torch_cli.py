@@ -16,8 +16,10 @@
   (NodeFormer's adjacencies and Graphormer's inputs bitwise, the eval
   logits with the JAX parameters carried across within 1e-5 of the
   largest), and a short run of each through ``main``;
-- ``tests/test_cli.py``'s runs through the port's CLI, and the refusals: the
-  trainers not ported yet, and no card without ``--device cpu``.
+- ``tests/test_cli.py``'s runs through the port's CLI, ``--trainer sharded``
+  (with and without ``--use_halo``) in one process against ``--trainer
+  full``, and the refusals: the methods the sharded trainer cannot run, and
+  no card without ``--device cpu``.
 """
 
 import argparse
@@ -441,13 +443,63 @@ def test_cli_trans_residual_mode():
 # -- refusals ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--trainer", "sharded"], "sharded"),
-    (["--use_halo"], "halo"),
-])
-def test_unported_paths_raise_naming_the_roadmap(flags, match):
-    with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP.md"):
-        cli.main(["--dataset", "synth-small", "--epochs", "1", "--rand_split"] + flags + CPU)
+@pytest.mark.parametrize("halo", [False, True], ids=["allgather", "halo"])
+def test_sharded_trainer_at_world_one_trains_as_the_full_trainer(halo):
+    """``--trainer sharded`` in one process is a group of one (gloo on the
+    CPU): the model gets ``axis_name="sp"``, and its fit gives the full
+    trainer's statistics (one shard: the same rows, dropout masks and sums
+    up to summation order)."""
+    from sgformer_tpu_torch.parallel import ShardedTrainer
+
+    flags = ["--dataset", "synth-n300-e2400-f16-c4", "--epochs", "6", "--eval_step", "2",
+             "--rand_split", "--display_step", "-1", "--method", "sgformer",
+             "--backbone", "graphconv"] + CPU
+    sharded = ["--trainer", "sharded"] + (["--use_halo"] if halo else [])
+    built = cli.build(_args(flags + sharded))
+    assert isinstance(built.trainer, ShardedTrainer)
+    assert built.model.config.axis_name == "sp"
+    assert (built.trainer.graph.halo is not None) == halo
+    got = np.array(cli.main(flags + sharded).results[0])
+    want = np.array(cli.main(flags + ["--trainer", "full"]).results[0])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    res = cli.main(flags + sharded + ["--time_test"])
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+
+
+@pytest.mark.parametrize("method", ["sgc", "sgc2", "sign", "mixhop", "gcnjk", "appnp",
+                                    "gprgnn"])
+def test_sharded_trainer_runs_the_baselines_as_the_full_trainer(method):
+    """The baselines the JAX CLI also builds under ``--trainer sharded`` get
+    the axis on their BatchNorm layers and train in one process. Their fit
+    is not held to the full trainer's here: a bias that feeds a train-mode
+    BatchNorm has an exact gradient of 0, and Adam turns the two trainers'
+    different rounding of it into steps of lr. ``test_torch_parallel.py``
+    holds their sharded step to the one-device ``Trainer``'s, gradient by
+    gradient, at 2 and 3 ranks."""
+    from sgformer_tpu_torch.nn.norm import MaskedBatchNorm
+    from sgformer_tpu_torch.parallel import ShardedTrainer
+
+    flags = ["--dataset", "synth-n300-e2400-f16-c4", "--epochs", "4", "--eval_step", "2",
+             "--rand_split", "--display_step", "-1", "--method", method, "--hops", "2",
+             "--num_layers", "3"] + CPU
+    sharded = ["--trainer", "sharded", "--use_halo"]
+    built = cli.build(_args(flags + sharded))
+    assert isinstance(built.trainer, ShardedTrainer)
+    assert all(m.axis_name == "sp" for m in built.model.modules()
+               if isinstance(m, MaskedBatchNorm))
+    got = np.array(cli.main(flags + sharded).results[0])
+    assert got.shape == (2, 4) and np.isfinite(got).all()
+    assert ((got[:, :3] >= 0) & (got[:, :3] <= 1)).all()
+
+
+def test_sharded_trainer_refuses_what_it_cannot_run():
+    for method in ("gat", "gatjk", "nodeformer"):
+        with pytest.raises(ValueError, match="--trainer sharded runs"):
+            cli.build(_args(["--dataset", "synth-small", "--rand_split", "--method", method,
+                             "--trainer", "sharded"] + CPU))
+    with pytest.raises(ValueError, match="save_attn"):
+        cli.main(["--dataset", "synth-small", "--rand_split", "--trainer", "sharded",
+                  "--save_attn"] + CPU)
 
 
 def test_cli_raises_without_cuda_unless_asked_for_the_cpu(monkeypatch):

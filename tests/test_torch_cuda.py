@@ -1621,3 +1621,78 @@ def test_exported_forward_on_the_card_is_bitwise_the_predictors(cuda, tmp_path, 
     torch.cuda.synchronize()
     assert {k: v for k, v in kernels.launch_counts().items() if v} == launches
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 40])
+def test_csr_spmm_on_a_rectangular_a_matches_plain(cuda, dtype, width):
+    """A node shard's CSR: 300 rows over 1,000 columns (the gathered rows),
+    a hub row of 500 edges split into segments; the gradient through the
+    CSR of Aᵀ (1,000 rows over 300 columns)."""
+    from sgformer_tpu_torch.parallel.partition import ShardCsr
+
+    rng = np.random.default_rng(3)
+    rows, cols = 300, 1000
+    dst = np.sort(np.concatenate([rng.integers(0, rows, 4000), np.full(500, 7)]))
+    src = rng.integers(0, cols, dst.shape[0])
+    # weights of the GCN's scale: each row's sum near 1
+    w = (rng.uniform(0.5, 1.5, dst.shape[0]) / np.bincount(dst)[dst]).astype(np.float32)
+    a = ShardCsr.build(src, dst, w, rows, cols, cuda)
+    assert a.fwd_segments.shape[0] > 0
+    x = torch.randn(cols, width, device=cuda).to(dtype).requires_grad_(True)
+    before = kernels.spmm.launches
+    out = a(x)
+    assert out.shape == (rows, width) and kernels.spmm.launches == before + 1
+    want = spmm(x.detach(), a.fwd[1], a.fwd[2], a.fwd[3], rows)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    _close_to_exact(out.detach(), x.detach(), a.fwd[1], a.fwd[2], a.fwd[3], rows)
+    g = torch.randn(rows, width, device=cuda).to(dtype)
+    out.backward(g)
+    assert kernels.spmm.launches == before + 2
+    want_dx = spmm(g, a.bwd[1], a.bwd[2], a.bwd[3], cols)
+    torch.testing.assert_close(x.grad.float(), want_dx.float(), **TOL[dtype])
+    _close_to_exact(x.grad, g, a.bwd[1], a.bwd[2], a.bwd[3], cols)
+    assert torch.equal(a(x.detach()), out.detach())
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_world_one_nccl_sharded_step_matches_the_trainer(cuda, halo):
+    """A group of one on NCCL: the sharded step (one collective a layer and
+    pass, each a copy) against the one-device Trainer's, f32, dropout 0:
+    loss 1e-5, ‖Δg‖/‖g‖ ≤ 1e-4, eval logits 1e-5 of the largest; a step's
+    csr_spmm launches 2 a GraphConv layer (all-gather) or 6 (halo: the send
+    gather, the local and the remote CSR, forward and backward)."""
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from sgformer_tpu_torch.train import TrainConfig, Trainer
+
+    mesh = make_mesh("sp", device="cuda")
+    assert mesh.size == 1 and mesh.backend == "nccl"
+    ds = synthetic_dataset(num_nodes=2000, num_edges=12000, num_features=32, num_classes=5,
+                           seed=1, device="cpu")
+    graph = preprocess_graph(ds.graph["edge_index"], 2000, device=cuda)
+    out = {}
+    for axis in (None, "sp"):
+        cfg = SGFormerConfig.large(64, 5, gnn_num_layers=2, trans_dropout=0.0, gnn_dropout=0.0,
+                                   axis_name=axis)
+        model = SGFormer(cfg, 32, device=cuda)
+        tc = TrainConfig(lr=1e-3)
+        tr = (Trainer(model, graph, ds.graph["node_feat"], ds.label, tc, device=cuda)
+              if axis is None else
+              ShardedTrainer(model, graph, ds.graph["node_feat"], ds.label, tc, mesh=mesh,
+                             use_halo=halo))
+        tr.init_state(0)
+        idx = tr.prepare_train_idx({"train": np.arange(0, 2000, 2)})
+        logits = tr.eval_step()
+        kernels.reset_launch_counts()
+        loss = tr.train_step(idx)
+        out[axis] = (logits, loss, {k: p.grad.clone() for k, p in model.named_parameters()},
+                     kernels.launch_counts())
+    (l0, loss0, g0, _), (l1, loss1, g1, counts) = out[None], out["sp"]
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-5 * l0.abs().max().item())
+    torch.testing.assert_close(loss1, loss0, rtol=1e-5, atol=0)
+    diff = torch.sqrt(sum(((g1[k] - g) ** 2).sum() for k, g in g0.items()))
+    norm = torch.sqrt(sum((g ** 2).sum() for g in g0.values()))
+    assert diff <= 1e-4 * norm
+    assert counts["csr_spmm"] == (12 if halo else 4)
+    assert counts["linear_attention_reduce"] == counts["linear_attention_bwd_apply"] == 1

@@ -58,7 +58,7 @@ def test_sources_use_no_library_for_the_kernels_work():
     assert not found, found
     modules = {m.name for m in pkgutil.walk_packages(sgformer_tpu_torch.__path__)}
     assert {"kernels", "ops", "nn", "data", "graph", "serve", "convert", "train",
-            "utils", "microbench", "sample", "cli"} <= modules
+            "utils", "microbench", "sample", "cli", "native", "parallel"} <= modules
 
 
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
@@ -136,3 +136,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SampledTrainer(model, ei, np.zeros((3, 4), np.float32), np.zeros((3, 1), np.int64),
                        SampledTrainConfig())
+    from sgformer_tpu_torch.parallel import ShardedTrainer, init_distributed, make_mesh
+
+    for make in (lambda: ShardedTrainer(model, graph, np.zeros((3, 4), np.float32),
+                                        np.zeros((3, 1), np.int64), TrainConfig()),
+                 lambda: make_mesh("sp", device="cuda"),
+                 lambda: init_distributed("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

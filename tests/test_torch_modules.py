@@ -166,9 +166,19 @@ def test_dropout_identity_in_eval_and_seeded_in_train():
     dict(axis_name="nodes"),
 ])
 def test_unported_options_raise(kw):
+    """A mesh axis (node-sharded training, ``parallel/``) is ported: SGFormer
+    builds with it and hands it to its attention and BatchNorms; the model
+    that a shard's graph cannot run, GAT, refuses it."""
+    from sgformer_tpu_torch.nn import GAT
+    from sgformer_tpu_torch.nn.norm import MaskedBatchNorm
+
     cfg = SGFormerConfig.large(8, 3, **kw)
-    with pytest.raises(NotImplementedError):
-        SGFormer(cfg, 4, device="cpu")
+    model = SGFormer(cfg, 4, device="cpu")
+    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    assert norms and all(m.axis_name == kw["axis_name"] for m in norms)
+    assert model.trans_conv.conv_0.axis_name == kw["axis_name"]
+    with pytest.raises(ValueError, match="node-sharded"):
+        GAT(4, 8, 3, device="cpu", **kw)
 
 
 def test_config_has_every_field_of_the_jax_config():

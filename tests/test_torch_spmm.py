@@ -68,6 +68,14 @@ def test_csr_spmm_rejects_bad_inputs():
     g = preprocess_graph(ei, n, device="cpu")
     with pytest.raises(ValueError):
         csr_spmm(torch.zeros(n + 1, 4), g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    # a rectangular A takes x of its num_cols rows and no other
+    assert csr_spmm(torch.zeros(n + 1, 4), g.indptr, g.edge_src, g.edge_dst,
+                    g.gcn_weight, num_cols=n + 1).shape == (n, 4)
+    with pytest.raises(ValueError):
+        csr_spmm(torch.zeros(n, 4), g.indptr, g.edge_src, g.edge_dst, g.gcn_weight,
+                 num_cols=n + 1)
+    with pytest.raises(ValueError):
+        csr_spmm(torch.zeros(n, 4, 1), g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
     with pytest.raises(TypeError):
         csr_spmm(torch.zeros(n, 4, dtype=torch.float64), g.indptr, g.edge_src,
                  g.edge_dst, g.gcn_weight)
