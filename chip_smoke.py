@@ -117,7 +117,8 @@ JAX package. Phases, each failing loudly:
    2,256 / 3,860 seeds), batches of 1,000 seeds, fanouts (15, 10, 5),
    uncapped, sampled by the C++ sampler (the JAX default): host-sampled
    batches with their sizes and sample ms, each batch's row gather on its
-   own line, the numpy path's batches of the same seeds beside them, one
+   own line, the ``use_native=False`` batches of the same seeds beside them
+   (the C++ hop sampler's ms, and its numpy plain version's), one
    batch's graph built on the card and on CPU tensors (bitwise equal), the
    kernels alone in f32 at that batch's shape (``csr_spmm`` on A and on A^T), one
    step against the plain step (1e-5 loss, 1e-4 gradients), the launches of
@@ -208,10 +209,31 @@ JAX package. Phases, each failing loudly:
    ``cli.main`` in this process (a group of one on NCCL): exact launches,
    falling losses; then ``python -m sgformer_tpu_torch.parallel.scaling
    --devices 1 --halo --reorder`` once (one card: no scaling efficiency).
+19. arxiv-dp-batch-train (after 18): the bench model with
+   ``axis_name="sp"`` behind ``parallel.DPBatchTrainer`` on synth-arxiv's
+   batch-tier edge list in batches of 50,000, in spawned groups of one rank
+   on NCCL (dp = sp = 1) and of four ranks sharing the card under gloo
+   (dp = 2 x sp = 2), the kernels built before the spawn. The first step
+   (dropout 0) on every rank's rectangular, padded shard against the same
+   step through the plain versions, every rank joining both, and against
+   the mean over every group's batch through the one-device model (with
+   dp = 1 ``BatchTrainer``'s loss on that batch; bf16: loss 1e-2,
+   gradients 2e-2); exact launches of a step (6 ``csr_spmm``, each
+   attention kernel once) and of an eval batch's forward a rank, its logits
+   (the unsharded twin) against the plain forward's; every rank's state
+   after the step bitwise rank 0's; step and
+   forward ms and peak MiB; an epoch's wall time with the remainder step;
+   ``fit`` for one epoch (launches, finite losses, the accuracies equal on
+   every rank); each collective by axis, all on the card; with dp = 2 the
+   tail at small width (n = 241, B = 120, f32: a full step and the
+   remainder step against the plain versions, loss 1e-5 and gradients
+   1e-4; a remainder group of 0 real nodes runs a full step's launches, the
+   state stays finite).
 
 The second-to-last line is a JSON object of per-kernel numbers (with each
 forward kernel's custom op and its launches in one exported forward, and
-arxiv-sharded-train's launches on rank 0 of each group); the last is
+arxiv-sharded-train's and arxiv-dp-batch-train's launches on rank 0 of
+each group); the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
 CUDA is absent or any check fails.
 """
@@ -479,6 +501,15 @@ SHARDED_GCN_LAYERS = BENCH_CONFIG["gnn_num_layers"]
 SHARDED_FORMS = {False: 1, True: 3}  # csr_spmm a propagate: all-gather, halo
 SHARDED_RUNS = (("nccl", 1), ("gloo", 2))
 SHARDED_CLI_EPOCHS = 18
+# arxiv-dp-batch-train: the bench model behind DPBatchTrainer on the arxiv
+# batch-tier edge list, batches of ARXIV_BATCH: (backend, dp, sp) of each
+# spawned group (NCCL refuses two ranks on one card, so the 2 x 2 grid runs
+# under gloo)
+DP_RUNS = (("nccl", 1, 1), ("gloo", 2, 2))
+# the tail at small width (the JAX test's graph): with dp = 2 and batches of
+# 120, the remainder step's groups hold 1 and 0 real nodes
+DP_TAIL = dict(num_nodes=241, num_edges=2000, num_features=12, num_classes=4, seed=3)
+DP_TAIL_BATCH = 120
 
 
 def log(msg: str) -> None:
@@ -1433,12 +1464,13 @@ def bench_model(ds, dev: str):
     return model, bench_scale_of()
 
 
-def bench_scale_of() -> dict:
-    """Each bench-model bias that feeds a train-mode BatchNorm, and the
+def bench_scale_of(layers: int = BENCH_CONFIG["gnn_num_layers"]) -> dict:
+    """Each bias of an SGFormer with ``layers`` GraphConv layers (the bench
+    model's by default) that feeds a train-mode BatchNorm, and the
     BatchNorm shift whose gradient it is held to (``bench_model``)."""
     scale_of = {"graph_conv.fc_in.bias": "graph_conv.bn_in.bias"}
     scale_of.update({f"graph_conv.conv_{i}.W.bias": f"graph_conv.bn_{i}.bias"
-                     for i in range(BENCH_CONFIG["gnn_num_layers"])})
+                     for i in range(layers)})
     return scale_of
 
 
@@ -1474,12 +1506,20 @@ def gat_train_phase(ds, graph, dev: str, what: str = "gat") -> tuple:
 
 
 def check_step(what: str, model, generator, loss_fn, loss_rtol: float, grad_rtol: float,
-               scale_of: dict) -> None:
+               scale_of: dict, reduce_grads=None, whole: bool = False) -> tuple:
     """One train step's loss and gradients through the kernels against the
     same step through the plain versions, from the model's weights now and
     the same dropout masks (``generator`` seeded 1 for each); the weights
     and statistics are restored after. ``loss_fn()`` runs the forward in
-    train mode and returns the loss."""
+    train mode and returns the loss; ``reduce_grads()``, when given, runs
+    after each backward (a sharded step's gradient all-reduce: every rank of
+    the group must call this alike). With ``whole`` the gradients are held
+    as one vector, ||g_kernel - g_plain|| / ||g_plain|| over every
+    parameter: for a step in which some parameters' exact gradient is 0, so
+    that both paths give them rounding noise (a group of one real node: its
+    attention output is v whatever q and k are, and the BatchNorm over one
+    row takes every shift out). Returns the kernels' loss and gradients and
+    (loss, gradient) relative differences."""
     from sgformer_tpu_torch import kernels
 
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1490,6 +1530,8 @@ def check_step(what: str, model, generator, loss_fn, loss_rtol: float, grad_rtol
         generator.manual_seed(1)
         loss = loss_fn()
         loss.backward()
+        if reduce_grads is not None:
+            reduce_grads()
         torch.cuda.synchronize()
         return loss.item(), {k: p.grad.float().clone() for k, p in model.named_parameters()}
 
@@ -1506,7 +1548,15 @@ def check_step(what: str, model, generator, loss_fn, loss_rtol: float, grad_rtol
     if not rel_loss <= loss_rtol:
         raise AssertionError(f"{what} step loss disagrees with the plain step")
     worst = (0.0, "")
-    for name, gk in grads_k.items():
+    if whole:
+        diff = sum(((gk - grads_p[k]).double().norm() ** 2 for k, gk in grads_k.items()))
+        norm = sum((gp.double().norm() ** 2 for gp in grads_p.values()))
+        worst = ((diff / norm).sqrt().item(), "all parameters as one vector")
+        if not all(bool(torch.isfinite(gk).all()) for gk in grads_k.values()) \
+                or not worst[0] <= grad_rtol:
+            raise AssertionError(f"{what} gradients: |g_kernel - g_plain| / |g_plain| = "
+                                 f"{worst[0]:.3e} > {grad_rtol}, or not finite")
+    for name, gk in ({} if whole else grads_k).items():
         if not torch.isfinite(gk).all():
             raise AssertionError(f"gradient of {name} is not finite")
         gp = grads_p[name]
@@ -1519,6 +1569,7 @@ def check_step(what: str, model, generator, loss_fn, loss_rtol: float, grad_rtol
         f"|g_kernel - g_plain| / |g_plain| = {worst[0]:.3e} ({worst[1]}, "
         f"tolerance {grad_rtol})")
     model.load_state_dict(snapshot)
+    return loss_k, grads_k, rel_loss, worst[0]
 
 
 def counted(what: str, fn, want: dict):
@@ -2195,7 +2246,7 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     from sgformer_tpu_torch import SGFormer, SGFormerConfig
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
-    from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler
+    from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler, neighbor
     from sgformer_tpu_torch.train import SampledTrainConfig, SampledTrainer, build_sampled_graph
     from sgformer_tpu_torch.train.checkpoint import read_state
 
@@ -2231,7 +2282,8 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
 
     # (a) batches sampled on the host; one built on the card and on the CPU;
     # the kernels alone at its shape
-    batches, sample_ms, gather_ms, numpy_ms = [], [], [], []
+    batches, sample_ms, gather_ms, hop_ms, numpy_ms = [], [], [], [], []
+    hop_sampler = NeighborSampler(csr, n, tc.fanouts, b, seed=0, use_native=False)
     numpy_sampler = NeighborSampler(csr, n, tc.fanouts, b, seed=0, use_native=False)
     if not trainer.sampler.use_native:
         raise AssertionError(f"{what}: the trainer's sampler is not the C++ sampler")
@@ -2250,11 +2302,17 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
             f"to {trainer.transfer_dtype} and pinned in {gather_ms[-1]:.1f} ms on the host "
             f"({batches[-1][1].nbytes / 2 ** 20:.1f} MiB)")
         t = time.perf_counter()
-        other = numpy_sampler.sample(seeds)
-        numpy_ms.append((time.perf_counter() - t) * 1e3)
-        log(f"{what} batch {i} (numpy path, same seeds): {other.num_nodes} nodes, "
-            f"{len(other.edge_src)} edges; sampled in {numpy_ms[-1]:.1f} ms on the host")
-    del numpy_sampler, other
+        other = hop_sampler.sample(seeds)
+        hop_ms.append((time.perf_counter() - t) * 1e3)
+        with mock.patch.object(neighbor, "_sample_neighbors", neighbor._sample_neighbors_plain):
+            t = time.perf_counter()
+            plain = numpy_sampler.sample(seeds)
+            numpy_ms.append((time.perf_counter() - t) * 1e3)
+        log(f"{what} batch {i} (use_native=False, same seeds): the C++ hop sampler "
+            f"{other.num_nodes} nodes, {len(other.edge_src)} edges, sampled in "
+            f"{hop_ms[-1]:.1f} ms on the host; its numpy plain version {plain.num_nodes} nodes, "
+            f"{len(plain.edge_src)} edges, {numpy_ms[-1]:.1f} ms")
+    del hop_sampler, numpy_sampler, other, plain
     batch, rows = batches[0]
     graph_b, build_ms = cuda_ms(lambda: build_sampled_graph(batch, dev))
     t = time.perf_counter()
@@ -2376,7 +2434,8 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     trainer.accuracy(split["valid"])
     eval_s = time.perf_counter() - t
     log(f"{what} on the host: C++ sample median {statistics.median(sample_ms):.1f} ms a batch "
-        f"(min {min(sample_ms):.1f}, max {max(sample_ms):.1f}; the numpy path "
+        f"(min {min(sample_ms):.1f}, max {max(sample_ms):.1f}; use_native=False through the "
+        f"C++ hop sampler {statistics.median(hop_ms):.1f}, its numpy plain version "
         f"{statistics.median(numpy_ms):.1f}), gather + cast + pin "
         f"{statistics.median(gather_ms):.1f} ms; on the card: build median "
         f"{statistics.median(builds):.3f} ms, step median {statistics.median(steps):.3f} ms "
@@ -2392,6 +2451,7 @@ def papers_sampled_phase(results: dict, dev: str) -> tuple:
     wall, busy = profile_device(f"{what} 3 batches (sample + gather + build + step)",
                                 sampled_step, 3)
     numbers = dict(sample_ms=statistics.median(sample_ms), gather_ms=statistics.median(gather_ms),
+                   hop_sample_ms=statistics.median(hop_ms),
                    numpy_sample_ms=statistics.median(numpy_ms),
                    build_ms=statistics.median(builds), cpu_build_ms=cpu_ms,
                    step_ms=statistics.median(steps), fit_s=fit_s, eval_s=eval_s,
@@ -2918,6 +2978,23 @@ def sharded_launches(halo: bool) -> tuple[dict, dict]:
     return dict(STEP_LAUNCHES, csr_spmm=2 * per), dict(FORWARD_LAUNCHES, csr_spmm=per)
 
 
+def collectives_by_key(calls) -> dict:
+    """``parallel.comm.calls`` as "name axis backend device" -> calls, in
+    order; a pair of axes is written "dp*sp"."""
+    return dict(sorted(
+        (f"{name} {axis if isinstance(axis, str) else '*'.join(axis)} {backend} {dev}", c)
+        for (name, axis, backend, dev), c in calls.items()))
+
+
+def check_collectives(what: str, calls: dict, backend: str) -> None:
+    """Every collective of ``calls`` (``collectives_by_key``) ran on the
+    group's backend on the card's tensors."""
+    wrong = [k for k in calls if k.split()[2:] != [backend, "cuda"]]
+    if not calls or wrong:
+        raise AssertionError(f"{what}: collectives not on the group's backend and the card: "
+                             f"{wrong}")
+
+
 def sharded_worker(rank: int, backend: str, out_dir: str) -> None:
     """One rank of arxiv-sharded-train (its process spawned by
     ``sharded_phase``, its group joined by ``parallel.launch.run_group``):
@@ -3055,9 +3132,7 @@ def sharded_worker(rank: int, backend: str, out_dir: str) -> None:
             f"{what} {key} step", lambda: tr.train_step(idx), 3)
         del tr
         torch.cuda.empty_cache()
-    # each collective this rank ran, by backend and the device of its tensors
-    out["collectives"] = {f"{name} {backend_} {dev}": c
-                          for (name, backend_, dev), c in sorted(comm.calls.items())}
+    out["collectives"] = collectives_by_key(comm.calls)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -3108,11 +3183,8 @@ def sharded_phase(ds, results: dict) -> dict:
         for pr in per_rank:
             calls = pr["collectives"]
             log(f"arxiv-sharded-train {backend} world {size} rank {pr['rank']}: collectives "
-                f"this run (name, backend, tensor device: calls) {calls}")
-            wrong = [k for k in calls if k.split()[1:] != [backend, "cuda"]]
-            if not calls or wrong:
-                raise AssertionError(f"arxiv-sharded-train {backend} world {size}: collectives "
-                                     f"not on the group's backend and the card: {wrong}")
+                f"this run (name, axis, backend, tensor device: calls) {calls}")
+            check_collectives(f"arxiv-sharded-train {backend} world {size}", calls, backend)
         if size > 1:
             log(f"arxiv-sharded-train gloo world {size}: each of those ran under gloo on the "
                 f"card's tensors (torch {torch.__version__}); the package stages no buffer "
@@ -3181,6 +3253,311 @@ def sharded_phase(ds, results: dict) -> dict:
     if set(line) != {"devices", "step_ms", "edges_per_sec", "edges_per_sec_per_device"}:
         raise AssertionError(f"scaling harness printed {line}")
     results["scaling"] = line
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_digest(model) -> str:
+    """sha256 of every parameter's and buffer's bytes, in state-dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_tail(rank: int, mesh, what: str) -> dict:
+    """The tail at small width: ``DPBatchTrainer`` (f32, hidden 16, dropout
+    0) on ``DP_TAIL``'s graph in batches of ``DP_TAIL_BATCH`` for 6 epochs;
+    then, every node a train node, a full step's and the remainder step's
+    loss and gradients through the kernels against the plain versions (f32
+    tolerances; the remainder's groups hold 1 and 0 real nodes, so its
+    gradients are held as one vector: ``check_step``'s ``whole``), the
+    remainder step's launches against a full step's (the same kernels), and
+    every state finite."""
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig, kernels, preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.parallel import DPBatchTrainer
+    from sgformer_tpu_torch.parallel.sharded import average_gradients, sharded_loss
+    from sgformer_tpu_torch.train import BatchTrainConfig
+
+    ds = synthetic_dataset(**DP_TAIL, device=mesh.device)
+    n = ds.num_nodes
+    graph = preprocess_graph(ds.graph["edge_index"], n, device=mesh.device)
+    edges = torch.stack([graph.edge_src, graph.edge_dst])
+    cfg = SGFormerConfig(16, DP_TAIL["num_classes"], gnn="graphconv", axis_name="sp",
+                         trans_dropout=0.0, gnn_dropout=0.0)
+    tr = DPBatchTrainer(SGFormer(cfg, DP_TAIL["num_features"], device=mesh.device), edges,
+                        ds.graph["node_feat"], ds.label,
+                        BatchTrainConfig(lr=0.02, epochs=6, eval_step=5,
+                                         batch_size=DP_TAIL_BATCH, display_step=-1), mesh=mesh)
+    split = ds.get_idx_split(rng=np.random.default_rng(0))
+    tr.record_losses = True
+    logger = tr.fit([split])
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(mesh.device)
+    every = torch.ones(n, dtype=torch.bool, device=mesh.device)
+    steps = tr.num_batches()
+    full = tr.build_batch(tr.batch_nodes(perm, 0), every)
+    tail = tr.build_batch(tr.batch_nodes(perm, steps - 1), every)
+    rel = {}
+    for key, batch in (("full", full), ("remainder", tail)):
+        rel[key] = check_step(
+            f"{what} tail {key} step ({batch.group_nodes} real nodes in this rank's group)",
+            tr.model, tr.generator,
+            lambda: sharded_loss(tr.model, batch.x, batch.graph, batch.label, batch.node_mask,
+                                 batch.train_mask, mesh.axis_names),
+            BATCH_LOSS_RTOL, BATCH_GRAD_RTOL, bench_scale_of(cfg.gnn_num_layers),
+            lambda: average_gradients(tr.model, mesh.axis_names), whole=key == "remainder")[2:]
+    kernels.reset_launch_counts()
+    tr.train_step(full)
+    torch.cuda.synchronize()
+    full_launches = kernels.launch_counts()
+    _, tail_launches = counted(f"{what} tail: the remainder step ({tail.group_nodes} real "
+                               f"nodes in this rank's group), as a full step's",
+                               lambda: tr.train_step(tail), full_launches)
+    finite = (all(bool(torch.isfinite(v).all()) for v in tr.model.state_dict().values())
+              and bool(np.isfinite(tr.train_losses).all()))
+    if not finite or not all(full_launches[k] for k in BATCH_KERNELS):
+        raise AssertionError(f"{what} tail: state finite {finite}, launches {full_launches}")
+    return dict(steps=steps, group_nodes=tail.group_nodes, launches=tail_launches,
+                plain_rel=rel, results=logger.results[0],
+                final_test=logger.run_summary(0)["final_test"])
+
+
+def dp_batch_worker(rank: int, backend: str, dp: int, out_dir: str) -> None:
+    """One rank of arxiv-dp-batch-train (spawned by ``dp_batch_phase``): the
+    bench model (dropout 0 for the checks) with ``axis_name="sp"`` behind
+    ``DPBatchTrainer`` on synth-arxiv's batch-tier edge list in batches of
+    ``ARXIV_BATCH``, on a (dp, world / dp) grid. Every rank holds the first
+    step's loss and gradients through the kernels (this rank's rectangular,
+    padded shard, the sums all-reduced over sp) against the same step
+    through the plain versions, every rank joining both; rank 0 holds them
+    against the mean over every group's batch through the one-device model
+    (with dp = 1, ``BatchTrainer``'s loss on that batch); bf16 tolerances.
+    Each rank: the launches of a step and of an eval batch's forward (the
+    unsharded twin), that forward's logits against the plain forward's, its
+    state's digest after the step, step and forward ms (3 warm-up steps, ``TRAIN_EPOCHS`` timed
+    on the host clock to a synchronize) and peak MiB, an epoch's wall time
+    (every step's build, the remainder step's included), ``fit`` for one
+    epoch (its launches, losses and accuracies), each collective it ran,
+    and with dp > 1 the tail at small width (``dp_tail``). Writes its
+    numbers to ``out_dir/rank{rank}.json``."""
+    import numpy as np
+
+    from sgformer_tpu_torch import SGFormer, SGFormerConfig, kernels, preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.parallel import DPBatchTrainer, comm, make_global_mesh
+    from sgformer_tpu_torch.parallel.sharded import average_gradients, sharded_loss
+    from sgformer_tpu_torch.train import BatchTrainConfig, BatchTrainer, build_subgraph_batch
+    from sgformer_tpu_torch.train.trainer import nll_per_node
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_global_mesh(dp)
+    world, sp = mesh[mesh.axis_names].size, mesh.shape["sp"]
+    what = f"arxiv-dp-batch-train[{backend} dp {dp} x sp {sp} rank {rank}]"
+    dev, b = mesh.device, ARXIV_BATCH
+    out = {"rank": rank, "coords": list(mesh.coords)}
+    comm.calls.clear()
+    ds = synthetic_dataset("synth-arxiv", seed=0, device=dev)
+    n = ds.num_nodes
+    graph = preprocess_graph(ds.graph["edge_index"], n, device=dev)
+    edges = torch.stack([graph.edge_src, graph.edge_dst])
+    del graph
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    tc = BatchTrainConfig(**BENCH_TRAIN, epochs=1, batch_size=b, display_step=-1)
+    checked = dict(BENCH_CONFIG, trans_dropout=0.0, gnn_dropout=0.0)
+
+    def model(axis_name):
+        cfg = SGFormerConfig.large(256, 40, axis_name=axis_name, **checked)
+        return SGFormer(cfg, ds.graph["node_feat"].shape[1],
+                        generator=torch.Generator().manual_seed(0), device=dev)
+
+    tr = DPBatchTrainer(model("sp"), edges, ds.graph["node_feat"], ds.label, tc, mesh=mesh)
+    tr.init_state(0)
+    train_set = torch.zeros(n, dtype=torch.bool, device=dev)
+    train_set[torch.from_numpy(split["train"]).to(dev)] = True
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).to(dev)
+    batch = tr.build_batch(tr.batch_nodes(perm, 0), train_set)
+    out.update(block=batch.graph.num_nodes, edges=batch.graph.gcn.num_edges,
+               group_nodes=batch.group_nodes)
+
+    # (a) the dp step's loss and gradients against the plain step's, then
+    # against the one-device mean
+    scale_of = bench_scale_of()
+    loss, grads, out["plain_loss_rel"], out["plain_grad_rel"] = check_step(
+        what, tr.model, tr.generator,
+        lambda: sharded_loss(tr.model, batch.x, batch.graph, batch.label, batch.node_mask,
+                             batch.train_mask, mesh.axis_names),
+        TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, scale_of,
+        lambda: average_gradients(tr.model, mesh.axis_names))
+    if rank == 0:
+        one = BatchTrainer(model(None), edges, ds.graph["node_feat"], ds.label, tc, device=dev)
+        one.init_state(0)
+        one.model.train()
+        total = count = 0.0
+        for g in range(dp):
+            bg = one.build_batch(perm[g * b:(g + 1) * b], train_set)
+            per = nll_per_node(one.model(bg.x, bg.graph), bg.label)
+            total, count = total + (per * bg.train_mask).sum(), count + bg.train_mask.sum()
+        ref = total / count
+        ref.backward()
+        want = {k: p.grad.float() for k, p in one.model.named_parameters()}
+        rel = abs(loss - ref.item()) / abs(ref.item())
+        worst = max((((grads[k] - g).norm() / want[scale_of.get(k, k)].norm()).item(), k)
+                    for k, g in want.items())
+        log(f"{what}: step loss {loss:.7f} against the one-device mean over the {dp} "
+            f"group batches {ref.item():.7f} ({rel:.2e}, tolerance {TRAIN_LOSS_RTOL}); largest "
+            f"|g_dp - g| / |g| {worst[0]:.3e} ({worst[1]}, tolerance {TRAIN_GRAD_RTOL})")
+        if not (rel <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"{what}: the dp step disagrees with the one-device mean")
+        out.update(loss_rel=rel, grad_rel=worst[0])
+        del one, want, ref
+    del grads
+    torch.cuda.empty_cache()
+
+    # (b) the launches of a step and of an eval batch's forward; the state
+    # after the step
+    tr.init_state(0)
+    _, out["step_launches"] = counted(f"one {what} step", lambda: tr.train_step(batch),
+                                      STEP_LAUNCHES)
+    out["state_digest"] = state_digest(tr.model)
+    tr.twin.load_state_dict(tr.model.state_dict())
+    tr.twin.eval()
+    bidx = torch.from_numpy(split["valid"][:b]).to(dev)
+    graph_e = build_subgraph_batch(tr.edge_index, bidx, n)
+
+    def forward():
+        with torch.no_grad():
+            return tr.twin(tr.x[bidx], graph_e)
+
+    logits, out["forward_launches"] = counted(f"one {what} eval batch forward", forward,
+                                              FORWARD_LAUNCHES)
+    with plain_versions():
+        ref = forward()
+    check_logits(f"{what} eval batch", logits, ref, (bidx.numel(), 40), (LOGITS_ATOL, 0.0))
+    del logits, ref
+
+    # (c) step and forward ms, peak memory
+    for _ in range(TRAIN_WARMUP):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(TRAIN_EPOCHS):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t) * 1e3 / TRAIN_EPOCHS
+    forward()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    forward()
+    torch.cuda.synchronize()
+    out["forward_ms"] = (time.perf_counter() - t) * 1e3
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # (d) an epoch's wall time: every step's build and step, the remainder's
+    # included
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(tr.num_batches()):
+        tr.train_step(tr.build_batch(tr.batch_nodes(perm, i), train_set))
+    torch.cuda.synchronize()
+    out.update(epoch_s=time.perf_counter() - t, steps=tr.num_batches())
+    del batch, graph_e
+    torch.cuda.empty_cache()
+
+    # (e) fit: one epoch and its eval, from parameters drawn anew
+    tr.record_losses = True
+    evals = len(range(rank, sum(-(-len(v) // b) for v in split.values()), world))
+    want = {k: c * tr.num_batches() + evals * FORWARD_LAUNCHES[k]
+            for k, c in STEP_LAUNCHES.items()}
+    t = time.perf_counter()
+    logger, out["fit_launches"] = counted(f"{what} fit ({tr.num_batches()} steps, {evals} eval "
+                                          f"batches on this rank)", lambda: tr.fit([split]),
+                                          want)
+    out["fit_s"] = time.perf_counter() - t
+    losses = tr.train_losses
+    if (len(losses) != tr.num_batches() or not np.isfinite(losses).all()
+            or not all(bool(torch.isfinite(v).all()) for v in tr.final_state.values())):
+        raise AssertionError(f"{what} fit: losses {losses}, or a state not finite")
+    out.update(losses=losses, results=logger.results[0])
+    del tr
+    torch.cuda.empty_cache()
+    if dp > 1:
+        out["tail"] = dp_tail(rank, mesh, what)
+    out["collectives"] = collectives_by_key(comm.calls)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_batch_phase(results: dict) -> dict:
+    """arxiv-dp-batch-train: ``dp_batch_worker`` in a spawned group of one
+    rank on NCCL (dp = sp = 1) and in one of four ranks sharing the card
+    under gloo (dp = 2 x sp = 2); every rank's state after the step and its
+    logged accuracies must equal rank 0's, and every collective must have
+    run on the group's backend on the card's tensors. Returns each run's
+    per-rank numbers."""
+    import tempfile
+
+    from sgformer_tpu_torch.parallel.launch import run_group
+
+    out = {}
+    for backend, dp, sp in DP_RUNS:
+        world, name = dp * sp, f"{backend}{dp}x{sp}"
+        what = f"arxiv-dp-batch-train {backend} dp {dp} x sp {sp}"
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            run_group(dp_batch_worker, world, backend, dp, d, device="cuda", backend=backend)
+            per_rank = []
+            for r in range(world):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    per_rank.append(json.load(f))
+        wall = time.perf_counter() - t
+        transport = (" (gloo's host transport on one card, not a multi-card group's)"
+                     if backend == "gloo" else "")
+        log(f"{what}: {wall:.1f} s wall (spawn, data, checks); {card_line()}")
+        for pr in per_rank:
+            log(f"{what} rank {pr['rank']} at {tuple(pr['coords'])}: {pr['block']} rows a "
+                f"shard, {pr['edges']:,} edges, its group {pr['group_nodes']:,} real nodes; "
+                f"step {pr['step_ms']:.3f} ms, eval batch forward {pr['forward_ms']:.3f} ms, "
+                f"peak {pr['peak_mib']:.1f} MiB; an epoch of {pr['steps']} steps (the "
+                f"remainder's included, each batch built on the card) {pr['epoch_s']:.3f} s; "
+                f"fit (one epoch and its eval) {pr['fit_s']:.3f} s{transport}")
+            log(f"{what} rank {pr['rank']}: first step through the kernels against the plain "
+                f"versions: loss {pr['plain_loss_rel']:.2e}, largest |g - g_plain| / |g_plain| "
+                f"{pr['plain_grad_rel']:.3e} (tolerances {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RTOL}); "
+                f"losses {[round(x, 6) for x in pr['losses']]}, accuracies {pr['results']}")
+            log(f"{what} rank {pr['rank']}: collectives this run (name, axis, backend, tensor "
+                f"device: calls) {pr['collectives']}")
+            check_collectives(what, pr["collectives"], backend)
+            if "tail" in pr:
+                tl = pr["tail"]
+                log(f"{what} rank {pr['rank']} tail (n {DP_TAIL['num_nodes']}, B "
+                    f"{DP_TAIL_BATCH}, hidden 16, f32): {tl['steps']} steps an epoch, the "
+                    f"remainder step's group {tl['group_nodes']} real nodes, its launches "
+                    f"{tl['launches']}; against the plain versions (loss, gradients; "
+                    f"tolerances {BATCH_LOSS_RTOL}, {BATCH_GRAD_RTOL}) full step "
+                    f"{tl['plain_rel']['full']}, remainder step {tl['plain_rel']['remainder']}; "
+                    f"accuracies {tl['results']}, final test {tl['final_test']:.4f}; "
+                    f"state finite")
+        r0 = per_rank[0]
+        for pr in per_rank[1:]:
+            if pr["state_digest"] != r0["state_digest"] or pr["results"] != r0["results"]:
+                raise AssertionError(f"{what}: rank {pr['rank']}'s state after the step or its "
+                                     f"accuracies differ from rank 0's")
+            if "tail" in pr and pr["tail"]["results"] != r0["tail"]["results"]:
+                raise AssertionError(f"{what}: rank {pr['rank']}'s tail accuracies differ")
+        if dp > 1 and sorted(pr["tail"]["group_nodes"] for pr in per_rank) != [0, 0, 1, 1]:
+            raise AssertionError(f"{what}: the tail's remainder groups are not 1 and 0 nodes")
+        log(f"{what}: every rank's parameters and BatchNorm statistics after the step bitwise "
+            f"rank 0's (sha256 {r0['state_digest'][:16]}), the logged accuracies equal")
+        results[("dp", name)] = per_rank
+        out[name] = per_rank
     torch.cuda.empty_cache()
     return out
 
@@ -3316,6 +3693,7 @@ def main() -> int:
     cli_counts = cli_phase(ds, results, "cuda")
     zoo_counts = zoo_phase(results, "cuda")
     sharded_counts = sharded_phase(ds, results)
+    dp_counts = dp_batch_phase(results)
     probe_counts = probe_phase(graph, results, "cuda")
     probe = results["gather_rows"]
     for key in ("csr_spmm_q8_large400k", "csr_spmm_q8", "csr_spmm_q8_powerlaw"):
@@ -3377,6 +3755,17 @@ def main() -> int:
                     f"sharded_{run}_{key}_launches": r["run_launches"][name],
                     f"sharded_{run}_{key}_launches_per_train_step": r["step_launches"][name],
                     f"sharded_{run}_{key}_launches_per_forward": r["forward_launches"][name]})
+        return fields
+
+    def dp_fields(name: str) -> dict:
+        """arxiv-dp-batch-train's launches of ``name`` on rank 0 of each run
+        (its fit, one step, one eval batch's forward)."""
+        fields = {}
+        for run, per_rank in dp_counts.items():
+            r = per_rank[0]
+            fields.update({f"dp_batch_{run}_launches": r["fit_launches"][name],
+                           f"dp_batch_{run}_launches_per_train_step": r["step_launches"][name],
+                           f"dp_batch_{run}_launches_per_forward": r["forward_launches"][name]})
         return fields
 
     line = {"kernels": []}
@@ -3443,6 +3832,7 @@ def main() -> int:
         r.update({f"cli_{what}_launches": c[name] for what, c in cli_counts.items()})
         r.update({f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()})
         r.update(sharded_fields(name))
+        r.update(dp_fields(name))
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name], "launches_per_forward": per_forward[name],
@@ -3468,7 +3858,7 @@ def main() -> int:
             **as_op(name), **r,
             **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
-            **sharded_fields(name),
+            **sharded_fields(name), **dp_fields(name),
         })
     # the timing probes: launches from their own runs; per forward and per
     # step as counted on large-400K-int8-train (no model path runs them, and
@@ -3483,7 +3873,7 @@ def main() -> int:
             **as_op(name), **results[name],
             **{f"cli_{what}_launches": c[name] for what, c in cli_counts.items()},
             **{f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()},
-            **sharded_fields(name),
+            **sharded_fields(name), **dp_fields(name),
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

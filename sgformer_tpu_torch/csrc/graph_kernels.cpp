@@ -22,7 +22,9 @@
 // A plain C interface for ctypes, which releases the GIL for the call:
 // batches sample concurrently in Python threads.
 //
-// The file also holds the clustering reorder's two steps (the port's copies
+// The file also holds the hop sampler (the port's copy of the JAX package's
+// sample_neighbors: one hop over a frontier, the draws of the sampler's
+// use_native=False path) and the clustering reorder's two steps (the port's copies
 // of the JAX package's C++ lpa_cluster and cluster_pack, same arithmetic,
 // same draw order): label propagation, whose sweep is deterministic and
 // independent of the thread count, so one seed gives the same labels; and
@@ -181,6 +183,44 @@ int64_t sample_batch(const int64_t* indptr, const int64_t* indices,
   for (int64_t i = 0; i < n_real; ++i) node_ids[i] = nodes[i];
   n_edges[0] = e;
   return n_real;
+}
+
+// ---------------------------------------------------------------------------
+// The hop sampler: one hop of fanout sampling over a frontier, the port's
+// copy of the JAX package's sample_neighbors (same generator and state, same
+// draw order). A node of degree at most `fanout` takes all its in-edges in
+// CSR order; a larger one draws `fanout` offsets with replacement, one draw
+// each (the caller deduplicates). out_src/out_dst hold frontier_len * fanout
+// entries; returns the number of edges written.
+// ---------------------------------------------------------------------------
+
+int64_t sample_neighbors(const int64_t* indptr, const int64_t* indices,
+                         const int64_t* frontier, int64_t frontier_len,
+                         int64_t fanout, uint64_t seed, int64_t* out_src,
+                         int64_t* out_dst) {
+  uint64_t s[2] = {seed ^ 0x9e3779b97f4a7c15ULL, seed | 1};
+  int64_t n = 0;
+  for (int64_t i = 0; i < frontier_len; ++i) {
+    int64_t v = frontier[i];
+    int64_t lo = indptr[v], hi = indptr[v + 1];
+    int64_t deg = hi - lo;
+    if (deg <= 0) continue;
+    if (deg <= fanout) {
+      for (int64_t e = lo; e < hi; ++e) {
+        out_src[n] = indices[e];
+        out_dst[n] = v;
+        ++n;
+      }
+    } else {
+      for (int64_t k = 0; k < fanout; ++k) {
+        int64_t off = (int64_t)(xorshift(s) % (uint64_t)deg);
+        out_src[n] = indices[lo + off];
+        out_dst[n] = v;
+        ++n;
+      }
+    }
+  }
+  return n;
 }
 
 // ---------------------------------------------------------------------------

@@ -5,3 +5,4 @@ explicit fetch tool (``data.download``)."""
 
 from sgformer_tpu_torch.data.loaders import SYNTHETIC, load_dataset, synthetic_dataset  # noqa: F401
 from sgformer_tpu_torch.data.ncdataset import NCDataset  # noqa: F401
+from sgformer_tpu_torch.data.feature_store import FeatureStore  # noqa: F401

@@ -1,6 +1,7 @@
 """numpy-facing wrappers of the host graph kernels: the counterparts of the
-JAX package's ``native/api.py::sample_batch_native``, ``lpa_cluster_native``
-and ``cluster_pack_native``. They raise where the library cannot be built;
+JAX package's ``native/api.py::sample_batch_native``,
+``sample_neighbors_native``, ``lpa_cluster_native`` and
+``cluster_pack_native``. They raise where the library cannot be built;
 none returns None."""
 
 from __future__ import annotations
@@ -48,6 +49,35 @@ def sample_batch_native(indptr: np.ndarray, indices: np.ndarray, seeds: np.ndarr
         n_edges.ctypes.data, truncated.ctypes.data)
     e = int(n_edges[0])
     return node_ids[:n], src[:e], dst[:e], weight[:e], tuple(bool(t) for t in truncated)
+
+
+def sample_neighbors_native(indptr: np.ndarray, indices: np.ndarray, frontier: np.ndarray,
+                            fanout: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """One hop of the C++ hop sampler (``csrc/graph_kernels.cpp``), the JAX
+    package's ``sample_neighbors_native`` bit for bit: for each frontier
+    node, all its in-neighbours where its degree is at most ``fanout``, else
+    ``fanout`` offsets drawn with replacement from ``seed``'s xorshift
+    stream. ``indptr``/``indices`` are the in-neighbour CSR (int64).
+    Returns (src, dst) int64 global ids of the sampled edges, in frontier
+    order."""
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int64)
+    frontier = np.ascontiguousarray(frontier, dtype=np.int64)
+    num_nodes = len(indptr) - 1
+    if num_nodes < 0 or indptr[-1] != len(indices):
+        raise ValueError(f"indptr ends at {indptr[-1] if len(indptr) else None}, "
+                         f"indices holds {len(indices)}")
+    if len(frontier) and (frontier.min() < 0 or frontier.max() >= num_nodes):
+        raise ValueError(f"the frontier must lie in [0, {num_nodes})")
+    if fanout < 0:
+        raise ValueError(f"fanout must not be negative, got {fanout}")
+    cap = len(frontier) * fanout
+    src = np.empty(cap, dtype=np.int64)
+    dst = np.empty(cap, dtype=np.int64)
+    n = library().sample_neighbors(indptr.ctypes.data, indices.ctypes.data,
+                                   frontier.ctypes.data, len(frontier), fanout,
+                                   seed & (2 ** 64 - 1), src.ctypes.data, dst.ctypes.data)
+    return src[:n], dst[:n]
 
 
 def lpa_cluster_native(src: np.ndarray, dst: np.ndarray, num_nodes: int, iters: int,

@@ -1,6 +1,6 @@
 """Build the port's host graph kernels (``csrc/graph_kernels.cpp``: the
-sampled tier's sampler and the clustering reorder's label propagation and
-packing) with g++ and load them with ``ctypes``: the counterpart of the JAX
+sampled tier's full-batch and hop samplers and the clustering reorder's
+label propagation and packing) with g++ and load them with ``ctypes``: the counterpart of the JAX
 package's ``native/build.py``.
 
 The library is compiled on first use with the JAX package's flags
@@ -14,7 +14,8 @@ build directory copied to another host is rebuilt there.
 
 Where the JAX loader returns None and its callers quietly fall back to
 numpy, this one raises, with the compiler's error: the sampled tier's
-default path and the reorder are this library.
+samplers and the reorder are this library (:func:`native_available` says
+whether it builds; nothing of the port consults it).
 
 Nothing here runs at import time.
 """
@@ -46,6 +47,7 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "sample_batch": ([_P, _P, _P, _I64, _P, _I64, _I64, _I64, ctypes.c_uint64,
                       _P, _P, _P, _P, _P, _P], _I64),
+    "sample_neighbors": ([_P, _P, _P, _I64, _I64, ctypes.c_uint64, _P, _P], _I64),
     "lpa_cluster": ([_P, _P, _I64, _I64, _I64, _I64, ctypes.c_uint64, _P], _I64),
     "cluster_pack": ([_P, _I64, _I64, _P], None),
 }
@@ -103,3 +105,14 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).restype = restype
         _LIB = lib
         return lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads on this host (building it if
+    it is not built yet): the counterpart of the JAX package's
+    ``native_available``."""
+    try:
+        library()
+    except (RuntimeError, OSError, subprocess.TimeoutExpired):
+        return False
+    return True

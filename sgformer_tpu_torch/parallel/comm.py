@@ -20,8 +20,11 @@ the global gradient, as the JAX ``pmean`` does.
 The collectives run on the tensors' own device under whatever backend the
 group has: NCCL for CUDA tensors, gloo for CPU tensors or for several ranks
 sharing one card. No buffer is staged through the host: a collective the
-backend refuses raises. :data:`calls` counts each collective by (name,
-backend, device type), so a run can show what ran where.
+backend refuses raises. ``axis_name`` may also be a tuple of the axes of a
+:func:`~sgformer_tpu_torch.parallel.make_global_mesh` (the JAX
+``psum(..., ("dp", "sp"))``), which runs over the whole group. :data:`calls`
+counts each collective by (name, axis, backend, device type), so a run can
+show what ran over which group and where.
 :func:`all_reduce_` is the in-place sum without autograd, for code that
 already sits inside an autograd Function (the attention kernels' partial
 sums).
@@ -34,32 +37,32 @@ from collections import Counter
 import torch
 import torch.distributed as dist
 
-from sgformer_tpu_torch.parallel.mesh import axis
+from sgformer_tpu_torch.parallel.mesh import Mesh, axis
 
 
-# (collective, backend, device type) -> calls since the last reset
+# (collective, axis name, backend, device type) -> calls since the last reset
 calls: Counter = Counter()
 
 
-def _record(name: str, t: torch.Tensor) -> None:
-    calls[(name, dist.get_backend(), t.device.type)] += 1
+def _record(name: str, mesh: Mesh, t: torch.Tensor) -> None:
+    calls[(name, mesh.axis_name, mesh.backend, t.device.type)] += 1
 
 
-def all_reduce_(t: torch.Tensor, axis_name: str) -> torch.Tensor:
+def all_reduce_(t: torch.Tensor, axis_name) -> torch.Tensor:
     """Sum ``t`` over the axis in place (no autograd); returns ``t``."""
-    axis(axis_name)
-    _record("all_reduce", t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    mesh = axis(axis_name)
+    _record("all_reduce", mesh, t)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 
 
-def gather_rows_(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def gather_rows_(x: torch.Tensor, axis_name) -> torch.Tensor:
     """[S * B, ...]: every rank's [B, ...] rows in rank order (no autograd)."""
     mesh = axis(axis_name)
     x = x.contiguous()
     out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
-    _record("all_gather_into_tensor", x)
-    dist.all_gather_into_tensor(out, x)
+    _record("all_gather_into_tensor", mesh, x)
+    dist.all_gather_into_tensor(out, x, group=mesh.group)
     return out
 
 
@@ -77,47 +80,50 @@ class _AllReduceSum(torch.autograd.Function):
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis_name):
-        ctx.size = axis(axis_name).size
+        ctx.axis_name = axis_name
         return gather_rows_(x, axis_name)
 
     @staticmethod
     def backward(ctx, g):
+        mesh = axis(ctx.axis_name)
         g = g.contiguous()
-        out = g.new_empty((g.shape[0] // ctx.size,) + tuple(g.shape[1:]))
-        _record("reduce_scatter_tensor", g)
-        dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM)
+        out = g.new_empty((g.shape[0] // mesh.size,) + tuple(g.shape[1:]))
+        _record("reduce_scatter_tensor", mesh, g)
+        dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM, group=mesh.group)
         return out, None
 
 
-def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+def _all_to_all(x: torch.Tensor, axis_name) -> torch.Tensor:
+    mesh = axis(axis_name)
     x = x.contiguous()
     out = torch.empty_like(x)
-    _record("all_to_all_single", x)
-    dist.all_to_all_single(out, x)
+    _record("all_to_all_single", mesh, x)
+    dist.all_to_all_single(out, x, group=mesh.group)
     return out
 
 
 class _AllToAllRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis_name):
-        return _all_to_all(x)
+        ctx.axis_name = axis_name
+        return _all_to_all(x, axis_name)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g), None
+        return _all_to_all(g, ctx.axis_name), None
 
 
-def all_reduce_sum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor, axis_name) -> torch.Tensor:
     """The sum of ``x`` over the axis (every rank gets it), differentiable."""
     return _AllReduceSum.apply(x, axis_name)
 
 
-def all_gather_rows(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, axis_name) -> torch.Tensor:
     """[S * B, ...]: every rank's [B, ...] rows in rank order, differentiable."""
     return _AllGatherRows.apply(x, axis_name)
 
 
-def all_to_all_rows(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def all_to_all_rows(x: torch.Tensor, axis_name) -> torch.Tensor:
     """x: [S, ...], slot j for rank j; returns [S, ...] whose slot i came
     from rank i. Differentiable."""
     if x.shape[0] != axis(axis_name).size:

@@ -65,12 +65,14 @@ class ShardCsr:
 
     @classmethod
     def build(cls, src, dst, weight, rows: int, cols: int, device) -> "ShardCsr":
-        """From host arrays of edges sorted by ``dst`` (< rows), with sources
-        ``src`` (< cols) and f32 ``weight``."""
+        """From edges sorted by ``dst`` (< rows), with sources ``src``
+        (< cols) and f32 ``weight``: host arrays or tensors."""
         dev = torch.device(device)
-        src = torch.from_numpy(np.ascontiguousarray(src, dtype=np.int32)).to(dev)
-        dst = torch.from_numpy(np.ascontiguousarray(dst, dtype=np.int32)).to(dev)
-        w = torch.from_numpy(np.ascontiguousarray(weight, dtype=np.float32)).to(dev)
+
+        def place(a, dtype):
+            return torch.as_tensor(a).to(dev, dtype).contiguous()
+
+        src, dst, w = place(src, torch.int32), place(dst, torch.int32), place(weight, torch.float32)
         indptr = _indptr(dst, rows)
         t_indptr, t_src, t_dst, t_w, _, t_plan = _transpose_csr(src, dst, w, cols)
         return cls((indptr, src, dst, w), (t_indptr, t_src, t_dst, t_w),

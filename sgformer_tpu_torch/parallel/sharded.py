@@ -43,21 +43,23 @@ def rank_seed(seed: int, rank: int) -> int:
     return (seed + rank * _GOLDEN) % 2 ** 64
 
 
-def sharded_loss(model, x, graph, target, node_mask, train_mask, axis_name: str,
+def sharded_loss(model, x, graph, target, node_mask, train_mask, axis_name,
                  loss: str = "nll") -> torch.Tensor:
     """The masked loss over every shard's train rows, from a train-mode
-    forward on this shard: (Σ loss, Σ mask) all-reduced, so every rank holds
-    the same value. ``target``: int64 labels (NLL) or f32 one-hot rows
-    (BCE), this shard's rows."""
+    forward on this shard: (Σ loss, Σ mask) all-reduced over ``axis_name``
+    (a name, or a tuple of a grid's names), divided by ``max(Σ mask, 1)``
+    (a data-parallel remainder step may carry no train row), so every rank
+    holds the same value. ``target``: int64 labels (NLL) or f32 one-hot
+    rows (BCE), this shard's rows."""
     model.train()
     out = model(x, graph, node_mask=node_mask)
     per = bce_per_node(out, target) if loss == "bce" else nll_per_node(out, target)
     sums = all_reduce_sum(torch.stack([(per * train_mask).sum(), train_mask.sum()]),
                           axis_name)
-    return sums[0] / sums[1]
+    return sums[0] / sums[1].clamp(min=1.0)
 
 
-def average_gradients(model, axis_name: str) -> None:
+def average_gradients(model, axis_name) -> None:
     """Every parameter's gradient averaged over the axis, in one
     all-reduce (a parameter without one counts as 0)."""
     params = [p for p in model.parameters() if p.requires_grad]

@@ -16,14 +16,17 @@ Two paths, as in the JAX package, with the same default:
   ``rng.integers(2**62)`` draw, so ``epoch(workers > 0)`` draws every
   batch's seed first and samples in a thread pool, batches delivered in
   order and bitwise those of ``workers=0``.
-- **the numpy path** (``use_native=False``), the JAX package's numpy
-  sampler (``_sample_numpy``) draw for draw: ``fanout`` offsets drawn with
-  replacement as ``rng.random(total) * deg`` and deduplicated, the next
-  frontier the sources not yet visited (``np.setdiff1d``); the trainer
-  computes the GCN weights on the card. Its batches are the JAX sampler's
-  where that finds no C++ library (with the library, the JAX hop sampler
-  calls its C++ ``sample_neighbors`` even with ``use_native=False``). One
-  generator draws every batch, so ``workers > 0`` is refused on this path.
+- **the hop path** (``use_native=False``), the JAX package's
+  ``_sample_numpy`` loop: each hop samples through the C++ hop sampler
+  (:func:`sgformer_tpu_torch.native.sample_neighbors_native`, the port's
+  copy of the JAX package's ``sample_neighbors``, seeded with one
+  ``rng.integers(2**62)`` draw a hop), the sampled edges are deduplicated,
+  the next frontier is the sources not yet visited (``np.setdiff1d``); the
+  trainer computes the GCN weights on the card. Its batches are bitwise the
+  JAX sampler's with its C++ library loaded (which its hop sampler calls
+  even with ``use_native=False``). ``_sample_neighbors_plain`` is the plain
+  version of a hop, the JAX numpy body draw for draw. One generator draws
+  every batch, so ``workers > 0`` is refused on this path.
 
 Where it differs, and why. The JAX sampler pads every batch to static caps
 (``node_cap``, ``edge_cap``) so that one compiled XLA step serves the epoch,
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from sgformer_tpu_torch.graph import check_int32_counts
-from sgformer_tpu_torch.native.api import sample_batch_native
+from sgformer_tpu_torch.native.api import sample_batch_native, sample_neighbors_native
 
 # the C++ sampler takes at most this many in-neighbours a node and hop
 FANOUT_LIMIT = 64
@@ -90,8 +93,8 @@ class SampledBatch:
     edge_dst: np.ndarray  # [E] int32 local, non-decreasing
     num_seeds: int
     num_nodes: int
-    # [E] f32 GCN weights from the C++ sampler; None on the numpy path,
-    # whose weights the trainer computes on its device
+    # [E] f32 GCN weights from the C++ full-batch sampler; None on the hop
+    # path, whose weights the trainer computes on its device
     edge_weight: Optional[np.ndarray] = None
 
 
@@ -114,12 +117,22 @@ def worst_case_caps(num_seeds: int, fanouts: Sequence[int], num_nodes: int) -> t
 
 def _sample_neighbors(csr: CSRGraph, frontier: np.ndarray, fanout: int,
                       rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
-    """For each frontier node ``min(deg, fanout)`` in-neighbours: all of them
-    where ``deg <= fanout``, else ``fanout`` offsets drawn with replacement
-    (the caller deduplicates). One ``rng.random`` draw covers every taken
-    slot, those of the take-all nodes too. Returns (src, dst) global ids."""
-    # the JAX function draws its C++ sampler's seed first, whether or not
-    # that sampler runs; the same draw keeps the floats below in step
+    """One hop: for each frontier node all its in-neighbours where ``deg <=
+    fanout``, else ``fanout`` offsets drawn with replacement (the caller
+    deduplicates), by the C++ hop sampler seeded with one
+    ``rng.integers(2**62)`` draw, as the JAX hop sampler runs whenever its
+    library loads. Returns (src, dst) global ids."""
+    return sample_neighbors_native(csr.indptr, csr.indices, frontier, fanout,
+                                   int(rng.integers(2 ** 62)))
+
+
+def _sample_neighbors_plain(csr: CSRGraph, frontier: np.ndarray, fanout: int,
+                            rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`_sample_neighbors`: the JAX hop
+    sampler's numpy body, which it runs where it finds no library, draw for
+    draw (the C++ seed's draw, unused, then one ``rng.random`` draw covering
+    every taken slot, those of the take-all nodes too). Nothing on the
+    sampler's path calls it; the tests hold it to the JAX numpy path."""
     rng.integers(2 ** 62)
     deg = csr.indptr[frontier + 1] - csr.indptr[frontier]
     k = np.minimum(deg, fanout)
@@ -155,17 +168,18 @@ class NeighborSampler:
         self.use_native = use_native
 
     def sample(self, seeds, rng_seed: Optional[int] = None) -> SampledBatch:
-        """The batch of ``seeds`` (global ids, distinct). On the C++ path its
-        draws come from ``rng_seed``, by default one ``rng.integers(2**62)``
-        draw; the numpy path draws from ``rng`` and takes no ``rng_seed``."""
+        """The batch of ``seeds`` (global ids, distinct). On the full-batch
+        C++ path its draws come from ``rng_seed``, by default one
+        ``rng.integers(2**62)`` draw; the hop path draws from ``rng`` and
+        takes no ``rng_seed``."""
         seeds = np.asarray(seeds, dtype=np.int64)
         if self.use_native:
             if rng_seed is None:
                 rng_seed = int(self.rng.integers(2 ** 62))
             return self._sample_native(seeds, int(rng_seed))
         if rng_seed is not None:
-            raise ValueError("rng_seed seeds the C++ sampler; the numpy path draws from the "
-                             "sampler's generator")
+            raise ValueError("rng_seed seeds the C++ full-batch sampler; the hop path draws "
+                             "from the sampler's generator")
         return self._sample_numpy(seeds)
 
     def _sample_native(self, seeds: np.ndarray, rng_seed: int) -> SampledBatch:
@@ -228,8 +242,8 @@ class NeighborSampler:
         and waits for what has."""
         if workers > 0 and not self.use_native:
             raise ValueError(
-                "workers > 0 needs the C++ sampler: the numpy path draws every batch from one "
-                "numpy generator, which threads cannot share")
+                "workers > 0 needs the C++ full-batch sampler: the hop path draws every batch "
+                "from one numpy generator, which threads cannot share")
         pool = np.asarray(seed_pool)
         if shuffle:
             pool = pool[self.rng.permutation(len(pool))]

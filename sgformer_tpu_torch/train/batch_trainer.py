@@ -123,7 +123,15 @@ class BatchTrainer:
 
     After :meth:`fit`, ``final_state`` holds the last run's state dict and,
     when ``record_losses`` is set, ``train_losses`` its per-batch losses.
+
+    The data-parallel trainer (:class:`~sgformer_tpu_torch.parallel.
+    DPBatchTrainer`) overrides the hooks :meth:`dropout_seed`,
+    :meth:`num_batches`, :meth:`batch_nodes`, :meth:`build_batch`,
+    :meth:`train_step` and :meth:`evaluate`, and prints only where
+    ``writes_logs`` is set.
     """
+
+    writes_logs = True
 
     def __init__(self, model, edge_index, x, label, config: BatchTrainConfig,
                  eval_func: Optional[Callable] = None, full_graph: Optional[Graph] = None,
@@ -157,7 +165,8 @@ class BatchTrainer:
         self.full_graph = None if full_graph is None else full_graph.to(self.device)
         self.with_pyg_norm = with_pyg_norm
         # the one generator of every dropout mask
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.dropout_seed(config.seed))
         self.model.set_dropout_generator(self.generator)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.record_losses = False
@@ -179,12 +188,21 @@ class BatchTrainer:
             self.model, cfg.lr, cfg.trans_weight_decay, cfg.gnn_weight_decay)
         return self.optimizer
 
+    def dropout_seed(self, seed: int) -> int:
+        """The dropout generator's seed for ``seed``."""
+        return seed
+
     # -- batches and steps -----------------------------------------------------
 
     def num_batches(self) -> int:
         """Batches of an epoch; the last holds the remainder."""
         b = self.config.batch_size
         return self.num_nodes // b + (self.num_nodes % b > 0)
+
+    def batch_nodes(self, perm: torch.Tensor, i: int) -> torch.Tensor:
+        """The node ids of batch ``i`` of the epoch's permutation ``perm``."""
+        b = self.config.batch_size
+        return perm[i * b:(i + 1) * b]
 
     def build_batch(self, node_idx, train_set: Optional[torch.Tensor] = None) -> Batch:
         """The batch of ``node_idx`` (a tensor or array of node ids); its
@@ -285,6 +303,14 @@ class BatchTrainer:
                 correct[split] = correct[split] + (hit & mb).sum()
         return {s: int(correct[s]) / max(int(total[s]), 1) for s in masks}
 
+    def evaluate(self, split_idx: dict, np_rng: np.random.Generator) -> tuple:
+        """The logged result: ``eval_mode='batch'``'s accuracies (and a valid
+        loss of 0), or the full-graph eval's metrics and valid loss."""
+        if self.config.eval_mode == "batch":
+            accs = self.evaluate_streaming(split_idx, np_rng)
+            return (accs["train"], accs["valid"], accs["test"], 0.0)
+        return self.evaluate_full(self.eval_logits_full(), split_idx)
+
     # -- main loop -------------------------------------------------------------
 
     def fit(self, split_idx_lst: list, np_rng: Optional[np.random.Generator] = None,
@@ -301,8 +327,7 @@ class BatchTrainer:
         logger = RunLogger(cfg.runs, mode=cfg.mode)
         if np_rng is None:
             np_rng = np.random.default_rng(cfg.seed)
-        self.generator.manual_seed(cfg.seed)
-        b = cfg.batch_size
+        self.generator.manual_seed(self.dropout_seed(cfg.seed))
         for run in range(cfg.runs):
             split_idx = split_idx_lst[run % len(split_idx_lst)]
             train_set = torch.zeros(self.num_nodes, dtype=torch.bool, device=self.device)
@@ -313,22 +338,20 @@ class BatchTrainer:
             for epoch in range(cfg.epochs):
                 perm = torch.from_numpy(np_rng.permutation(self.num_nodes)).to(self.device)
                 for i in range(self.num_batches()):
-                    loss = self.train_step(self.build_batch(perm[i * b:(i + 1) * b], train_set))
+                    loss = self.train_step(self.build_batch(self.batch_nodes(perm, i),
+                                                            train_set))
                     if self.record_losses:
                         losses.append(loss)
                 if epoch % cfg.eval_step == 0:
-                    if cfg.eval_mode == "batch":
-                        accs = self.evaluate_streaming(split_idx, np_rng)
-                        result = (accs["train"], accs["valid"], accs["test"], 0.0)
-                    else:
-                        result = self.evaluate_full(self.eval_logits_full(), split_idx)
+                    result = self.evaluate(split_idx, np_rng)
                     logger.add_result(run, result)
-                    if cfg.display_step > 0 and epoch % cfg.display_step == 0:
+                    if (self.writes_logs and cfg.display_step > 0
+                            and epoch % cfg.display_step == 0):
                         print(f"Epoch: {epoch:02d}, Loss: {float(loss):.4f}, "
                               f"Train: {100 * result[0]:.2f}%, "
                               f"Valid: {100 * result[1]:.2f}%, "
                               f"Test: {100 * result[2]:.2f}%")
-            if cfg.display_step >= 0:
+            if self.writes_logs and cfg.display_step >= 0:
                 logger.print_statistics(run)
             self.final_state = {k: v.detach().clone()
                                 for k, v in self.model.state_dict().items()}

@@ -21,8 +21,8 @@ What it computes, as the JAX package does:
   batch too, so that both take the same batches from the same generator.
 
 How it runs. The host samples through the C++ sampler, the JAX trainer's
-default (bitwise its batches and f32 GCN weights; the numpy path with
-``trainer.sampler.use_native = False``), in a prefetch thread that also
+default (bitwise its batches and f32 GCN weights; the hop path, the JAX
+trainer's ``use_native=False``, with ``trainer.sampler.use_native = False``), in a prefetch thread that also
 gathers the batch's feature rows, casts them as ``transfer_dtype`` asks and
 pins them; ``sampler_workers`` threads sample batches side by side under it,
 as in the JAX trainer, in the train loop and the eval sweeps alike. Each

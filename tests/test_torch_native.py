@@ -11,7 +11,11 @@
 - ``SampledTrainer.fit`` on the C++ path against the JAX trainer's default
   path (dropout 0, lr 1e-3: losses 1e-5, state 1e-4, as
   ``test_torch_sampled.py`` holds the numpy path), and bitwise the same with
-  ``sampler_workers=2``.
+  ``sampler_workers=2``;
+- the hop sampler: ``sample_neighbors_native`` bit for bit the JAX one for
+  the same frontier and seed, ``use_native=False`` batches bitwise the JAX
+  sampler's ``use_native=False`` batches with its library loaded, a failed
+  build refused there too, and ``native_available``.
 """
 
 import os
@@ -27,12 +31,14 @@ from sgformer_tpu.native import native_available
 from sgformer_tpu.sample.neighbor import CSRGraph as JaxCSRGraph
 from sgformer_tpu.sample.neighbor import NeighborSampler as JaxSampler
 
-from sgformer_tpu_torch.native import build, sample_batch_native
+from sgformer_tpu_torch.native import build, sample_batch_native, sample_neighbors_native
+from sgformer_tpu_torch.native import native_available as port_native_available
 from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler, neighbor
 from sgformer_tpu_torch.sample.neighbor import worst_case_caps
 from sgformer_tpu_torch.train import build_sampled_graph
-from test_torch_sampled import (FANOUTS, _check_state, _edges, _jax_fit, _port_fit,
-                                _port_state, _variables, problem)  # noqa: F401
+from test_torch_sampled import (FANOUTS, _check_state, _edges, _jax_fit, _jax_sampler,
+                                _port_fit, _port_state, _variables, problem)  # noqa: F401
+from test_torch_sampled import _check_batch as _check_hop_batch
 
 torch.set_num_threads(1)
 
@@ -298,3 +304,64 @@ def test_fit_matches_jax_on_the_cpp_path(problem):  # noqa: F811
     assert threaded.train_losses == pt.train_losses and tl.results == pl.results
     for k, v in pt.final_state.items():
         assert torch.equal(threaded.final_state[k], v), k
+
+
+# -- the hop sampler -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rng_seed", [0, 7, 2 ** 62 - 1])
+@pytest.mark.parametrize("name", CASES)
+def test_hop_sampler_is_bitwise_jax(name, rng_seed):
+    """One hop from the seeds at each of the case's fanouts."""
+    assert native_available(), "the JAX package's library builds here"
+    ei, n, seeds, fanouts = _case(name)
+    csr = JaxCSRGraph.from_edge_index(ei, n)
+    for fanout in fanouts:
+        want = jax_native.sample_neighbors_native(csr.indptr, csr.indices, seeds, fanout,
+                                                  rng_seed)
+        got = sample_neighbors_native(csr.indptr, csr.indices, seeds, fanout, rng_seed)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_hop_path_is_bitwise_jax_with_its_library(shuffle):
+    """``use_native=False`` in both packages, the JAX library loaded (its hop
+    sampler then runs in C++): every batch of an epoch, then single batches.
+    The JAX numpy body draws other batches, so the check tells them apart."""
+    assert native_available(), "the JAX package's library builds here"
+    ei = _powerlaw(3000, 30000, 0)
+    pool = np.random.default_rng(1).permutation(3000)[:1000]
+    js = _jax_sampler(ei, 3000, fanouts=FANOUTS, batch_size=70, seed=7)
+    ps = NeighborSampler(ei, 3000, FANOUTS, 70, seed=7, use_native=False)
+    batches = list(zip(js.epoch(pool, shuffle=shuffle), ps.epoch(pool, shuffle=shuffle)))
+    assert len(batches) == 15 and batches[-1][1].num_seeds == 1000 % 70
+    for jb, pb in batches:
+        _check_hop_batch(jb, pb)
+    for seeds in (np.arange(5), np.array([2999, 0, 17]), pool[:300]):
+        _check_hop_batch(js.sample(seeds), ps.sample(seeds))
+    hop = NeighborSampler(ei, 3000, FANOUTS, 70, seed=7, use_native=False).sample(pool[:300])
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(neighbor, "_sample_neighbors", neighbor._sample_neighbors_plain)
+        plain = NeighborSampler(ei, 3000, FANOUTS, 70, seed=7,
+                                use_native=False).sample(pool[:300])
+    assert not np.array_equal(plain.node_ids, hop.node_ids)
+
+
+def test_a_failed_build_raises_on_the_hop_path(monkeypatch):
+    """No numpy fallback on the hop path either; ``native_available`` then
+    says False."""
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(neighbor, "_sample_neighbors_plain",
+                        lambda *a: pytest.fail("numpy fallback"))
+    ei, n, seeds, fanouts = _case("low-degree")
+    sampler = NeighborSampler(ei, n, fanouts, 60, seed=0, use_native=False)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        sampler.sample(seeds)
+    assert not port_native_available()
+
+
+def test_native_available_builds_the_library():
+    assert port_native_available() and build.library() is not None

@@ -3,16 +3,18 @@ CSR, the neighbour sampler's batches (bitwise, draw for draw), the prefetch
 iterator, the out-of-core CSR build, the feature store, each batch's graph
 and ``SampledTrainer.fit``.
 
-Here both packages sample on their numpy paths (the port's C++ sampler, the
-default, is held to the JAX one in ``test_torch_native.py``): every port
-sampler and trainer here has ``use_native=False``. Two things keep the JAX
-package on its numpy path: its C++ sampler would run whenever its library
-loads (the hop sampler even with ``use_native=False``), so the
-``numpy_sampler`` fixture patches ``sample_neighbors_native`` to return None
-and every JAX sampler here has ``use_native=False``; and its static caps are
-set above anything a batch can reach (``node_cap`` one more than the graph's
-nodes, ``edge_cap`` above its edges plus one self-loop a node). The port
-samples uncapped.
+Here both packages sample on their numpy paths (the port's C++ samplers,
+the full-batch default and the hop sampler of ``use_native=False``, are held
+to the JAX ones in ``test_torch_native.py``): every port sampler and trainer
+here has ``use_native=False``. Two things keep the JAX package on its numpy
+path: its C++ sampler would run whenever its library loads (the hop sampler
+even with ``use_native=False``), so the ``numpy_sampler`` fixture patches
+``sample_neighbors_native`` to return None, and swaps the port's hop
+``_sample_neighbors`` for its plain version, the JAX numpy body; every JAX
+sampler here has ``use_native=False``; and its static caps are set above
+anything a batch can reach (``node_cap`` one more than the graph's nodes,
+``edge_cap`` above its edges plus one self-loop a node). The port samples
+uncapped.
 
 The fits start from the same flax variables (``load_flax_variables``; the
 JAX trainer's ``init`` returns them) and draw the same batches from one
@@ -51,7 +53,7 @@ from sgformer_tpu.train.sampled_trainer import SampledTrainer as JaxSampledTrain
 from sgformer_tpu_torch import SGFormer, SGFormerConfig, load_flax_variables
 from sgformer_tpu_torch.data.feature_store import FeatureStore
 from sgformer_tpu_torch.data.prep import build_undirected_csr, csr_to_edge_index, load_csr
-from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler, PrefetchIterator
+from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler, PrefetchIterator, neighbor
 from sgformer_tpu_torch.train import SampledTrainConfig, SampledTrainer, build_sampled_graph
 
 torch.set_num_threads(1)
@@ -72,8 +74,10 @@ def _edges(ei, n):
 
 @pytest.fixture
 def numpy_sampler(monkeypatch):
-    """The JAX hop sampler on its numpy path: its C++ hop sampler declines."""
+    """Both hop samplers on their numpy bodies: the JAX C++ hop sampler
+    declines, and the port's hop is its plain version."""
     monkeypatch.setattr(jax_native, "sample_neighbors_native", lambda *a, **k: None)
+    monkeypatch.setattr(neighbor, "_sample_neighbors", neighbor._sample_neighbors_plain)
 
 
 def _jax_sampler(edges, n, **kw):
