@@ -9,6 +9,7 @@ in the same call as the change.
     python3 chip_compare.py smoke ROOT
     python3 chip_compare.py gat-repeat ROOT [RUNS]
     python3 chip_compare.py host ROOT
+    python3 chip_compare.py narrow ROOT
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -43,6 +44,15 @@ Cora's size (N = 2,708, width 64), then this checkout's zoo phase
 (``chip_smoke.zoo_phase``) on ROOT's package for three host-bound runs
 (ablation-simple, squirrel-difformer, nodeformer); run it in turns
 (parent, change, change, parent) to compare two checkouts' host cost.
+``narrow``: this checkout's width sweep of the row walk
+(``chip_smoke.width_sweep``: ``csr_spmm`` and ``csr_spmm_ev`` at narrow and
+full widths on the arxiv graph, ``csr_spmm`` at F = 40 on the power-law
+graph) on ROOT's kernels, then ROOT's ``csr_spmm`` at F = 256, f32 and
+bf16, on the batch tiers' subgraphs (``train.build_subgraph_batch``): a
+full batch and the tail of a seeded permutation of the arxiv graph in
+batches of ``ARXIV_BATCH`` and of the amazon2m graph (``AMAZON2M``,
+symmetrised with self-loops on the card) in batches of ``AMAZON2M_BATCH``;
+run it in turns to compare two checkouts' kernels.
 """
 
 from __future__ import annotations
@@ -65,7 +75,7 @@ def load_phases(path: str):
 
 
 def main() -> int:
-    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host")
+    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow")
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat") or (
             sys.argv[1] not in modes):
         print(__doc__, file=sys.stderr)
@@ -99,6 +109,8 @@ def main() -> int:
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+    if mode == "narrow":
+        return narrow(cs, k)
 
     if mode == "edge-values":
         ds = synthetic_dataset("synth-arxiv", seed=0)
@@ -129,6 +141,63 @@ def main() -> int:
         torch.cuda.empty_cache()
     cs.gat_train_phase(pl, dataclasses.replace(g, chunk_dtype="bf16"), "cuda", "powerlaw-gat")
     return 0
+
+
+def narrow(cs, k) -> int:
+    """The ``narrow`` mode (see the module's docstring); ``k`` is ROOT's
+    ``kernels.spmm``, whose walk has no lane groups if it has no
+    ``walk_design``."""
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+
+    design = getattr(k, "walk_design", lambda d: "1 group of 32 lanes, 8 columns a lane")
+    ds = synthetic_dataset("synth-arxiv", seed=0)
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+    cs.width_sweep(graph, {}, "cuda", "arxiv", cs.SWEEP_WIDTHS, cs.SWEEP_EV_SHAPES, design)
+    pl = synthetic_dataset(**cs.POWERLAW_GRAPH)
+    pl_graph = preprocess_graph(pl.graph["edge_index"], pl.num_nodes)
+    cs.width_sweep(pl_graph, {}, "cuda", "powerlaw", cs.SWEEP_POWERLAW_WIDTHS, (), design)
+    del pl, pl_graph
+    edges = torch.stack([graph.edge_src, graph.edge_dst])
+    batch_spmm(cs, k, "arxiv-batch", edges, graph.num_nodes, cs.ARXIV_BATCH)
+    del ds, graph, edges
+    torch.cuda.empty_cache()
+    am = synthetic_dataset(**cs.AMAZON2M, device="cuda")
+    ei = torch.from_numpy(am.graph["edge_index"]).cuda()
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), am.num_nodes).int()
+    batch_spmm(cs, k, "amazon2m-batch", ei, am.num_nodes, cs.AMAZON2M_BATCH)
+    return 0
+
+
+def batch_spmm(cs, k, what: str, edges, n: int, b: int) -> None:
+    """csr_spmm at F = 256, f32 and bf16, on the subgraphs of a full batch
+    and the tail of a seeded permutation of n nodes in batches of b: ms by
+    CUDA events around a call (``time_ms``) and its kernels' device ms by
+    the profiler (``kernel_ms``: the row walk and the hub rows' pass), which
+    leaves out the host's share of a call this short."""
+    import numpy as np
+    import torch
+
+    from sgformer_tpu_torch.train import build_subgraph_batch
+
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n)).cuda()
+    for idx in (perm[:b], perm[n // b * b:]):
+        g = build_subgraph_batch(edges, idx, n)
+        csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, g.hub_segments, g.hub_edges)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(g.num_nodes, 256, device="cuda").to(dtype)
+            ms = cs.time_ms(lambda: k.csr_spmm(x, *csr))
+            dev = cs.kernel_ms(lambda: k.csr_spmm(x, *csr),
+                               ("csr_spmm_kernel", "csr_spmm_hub_kernel"))
+            cs.log(f"{what} csr_spmm {cs.DTYPE_NAME[dtype]} F=256 n={g.num_nodes} "
+                   f"(E = {g.num_edges}): {ms:.4f} ms; device {sum(dev.values()):.4f} ms "
+                   f"(row walk {dev['csr_spmm_kernel']:.4f}, hub rows "
+                   f"{dev['csr_spmm_hub_kernel']:.4f})")
+        del g, x
+        torch.cuda.empty_cache()
 
 
 def host_cost(cs, root: str) -> int:

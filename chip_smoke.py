@@ -44,13 +44,19 @@ JAX package. Phases, each failing loudly:
    two layers (H = 2, D = 256 and H = 1, D = 40): the first two in bf16
    and f32; the gradient on f32 x and g with bf16 messages (as GAT runs)
    and f32 messages, its dv bitwise ``sddmm``'s, its dx bitwise the parent
-   formulation's where one lane group spans a head, bitwise repeatable,
-   with time, read-once bound, plain, unfused-pair and library time and
-   gather rate;
+   formulation's (``csr_spmm_ev`` on the transposed CSR) at every width,
+   bitwise repeatable, with time, read-once bound, plain, unfused-pair and
+   library time and gather rate; then the row walk's width sweep on the
+   arxiv graph (``width_sweep``): ``csr_spmm`` at F = 32, 40, 64, 128 and
+   256 and ``csr_spmm_ev`` at (H, D) = (1, 40), (2, 40) and (2, 256), bf16
+   and f32, each with its lane groups, time, gathered bytes and gather
+   rate, read-once bound, ``torch.sparse.mm``'s time, max |kernel - plain|
+   and bitwise repeatability, and H = 1 ``csr_spmm_ev`` bitwise
+   ``csr_spmm``;
 8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
    powerlaw 1.1), width 256, bf16 and f32, through the graph's hub plan (rows
    of more than ``HUB_EDGES`` in-edges split over several warps), with the
-   segment length swept for the record; ``csr_spmm_q8`` (bf16, as in 10) on
+   segment length swept for the record, and at F = 40 (the width sweep); ``csr_spmm_q8`` (bf16, as in 10) on
    the same graph with and without its hub plan; then powerlaw-train, the
    bench model on that graph behind ``Trainer`` as in 6 (6 ``csr_spmm`` a
    step); ``csr_spmm_ev_bwd`` and ``sddmm`` there at GAT's two layer shapes
@@ -341,6 +347,11 @@ POWERLAW_GRAPH = dict(num_nodes=169_343, num_edges=1_166_243, num_features=128,
                       num_classes=40, powerlaw=1.1, seed=0)
 # hub segment lengths timed beside the one the kernel uses (log only)
 HUB_SWEEP = (64, 128, 256, 512, 1024)
+# the row walk's width sweep: csr_spmm at these F and csr_spmm_ev at these
+# (H, D) on the arxiv graph; csr_spmm at F = 40 on the power-law graph
+SWEEP_WIDTHS = (32, 40, 64, 128, 256)
+SWEEP_EV_SHAPES = ((1, 40), (2, 40), (2, 256))
+SWEEP_POWERLAW_WIDTHS = (40,)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
     ("port kernels", ("la_", "csr_spmm", "ev_bwd", "absmax_partial", "quantize_kernel")),
@@ -1017,14 +1028,14 @@ def edge_value_bwd(graph, results: dict, key: str, layer: int, g, x, v, msg,
     cotangent g, x and the values v: dx and dv against the plain backward
     (1e-5 of each one's scale), dv bitwise sddmm's (the dv mode, through the
     dst-sorted CSR's plan), dx bitwise the parent formulation's (csr_spmm_ev
-    of g in the message type on the transposed order with v[t_perm]) where
-    one lane group spans a head, each bitwise repeatable; its time beside
+    of g in the message type on the transposed order with v[t_perm]; the
+    same walk in the same lane groups), each bitwise repeatable; its time beside
     its read-once bound, the plain version's, the unfused pair's (that
     csr_spmm_ev with its cast and gather of v, then sddmm), the library's
     (``torch.sparse.mm`` on A^T and ``sampled_addmm``, per head), and its
     gather rate. ``no_plan``: also both modes without their plans (one warp
     a row), their results checked against the planned ones."""
-    from sgformer_tpu_torch.kernels.spmm import csr_spmm_ev, csr_spmm_ev_bwd, sddmm
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm_ev, csr_spmm_ev_bwd, sddmm, walk_design
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values_backward
 
     n, e = graph.num_nodes, graph.num_edges
@@ -1052,12 +1063,9 @@ def edge_value_bwd(graph, results: dict, key: str, layer: int, g, x, v, msg,
     pair_dx, pair_dv = pair()
     if not torch.equal(dv, pair_dv):
         raise AssertionError(f"{tag}: dv is not bitwise the dv-mode sddmm's")
-    chain_kept = d % 8 != 0 or d > 128
-    same_dx = torch.equal(dx, pair_dx)
-    if chain_kept and not same_dx:
+    if not torch.equal(dx, pair_dx):
         raise AssertionError(f"{tag}: dx is not bitwise the parent formulation's")
-    log(f"{tag}: dv bitwise sddmm's; dx bitwise the parent formulation's: {same_dx} "
-        f"({'one lane group a head' if chain_kept else 'lane groups, f32 order'})")
+    log(f"{tag}: dv bitwise sddmm's; dx bitwise the parent formulation's ({walk_design(d)})")
     del pair_dx, pair_dv
     again = run()
     if not (torch.equal(again[0], dx) and torch.equal(again[1], dv)):
@@ -1127,6 +1135,106 @@ def powerlaw_edge_value_phase(graph, results: dict, dev: str) -> None:
                        torch.bfloat16, no_plan=True)
         del x, g, v
         torch.cuda.empty_cache()
+
+
+def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
+                ev_shapes: tuple = (), design=None) -> None:
+    """The row walk on ``graph`` through its hub plan at narrow and full
+    widths, bf16 and f32: ``csr_spmm`` at F in ``widths`` and
+    ``csr_spmm_ev`` at (H, D) in ``ev_shapes`` (messages in the type, the
+    result f32, as GAT sends them). Each against its plain version with the
+    tolerances of the checks above and bitwise repeatable; H = 1
+    ``csr_spmm_ev`` bitwise ``csr_spmm`` of the same values; with its lane
+    groups (``design(d)``, ``kernels.spmm.walk_design`` when None), time,
+    gathered bytes (a row of a head per edge and head) and their rate,
+    read-once bound, the plain version's time and ``torch.sparse.mm``'s
+    (one call a head). Results under ``("sweep", key, op, heads, d, dtype)``."""
+    from sgformer_tpu_torch.kernels import spmm as spmm_kernel
+    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values
+
+    design = design or spmm_kernel.walk_design
+    n, e = graph.num_nodes, graph.num_edges
+    csr = (graph.indptr, graph.edge_src, graph.edge_dst)
+    plan = (graph.hub_segments, graph.hub_edges)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = [("csr_spmm", 1, f) for f in widths] + [("csr_spmm_ev", h, d) for h, d in ev_shapes]
+    for op, heads, d in cases:
+        x32 = torch.randn(n, heads, d, generator=gen, device=dev)
+        v = (torch.rand(e, heads, generator=gen, device=dev) if op == "csr_spmm_ev"
+             else graph.gcn_weight[:, None].contiguous())
+        for dtype in (torch.bfloat16, torch.float32):
+            name, x = DTYPE_NAME[dtype], x32.to(dtype)
+            elt = x.element_size()
+            if op == "csr_spmm":
+                x = x[:, 0]
+
+                def run():
+                    return spmm_kernel.csr_spmm(x, *csr, graph.gcn_weight, *plan)
+
+                def plain():
+                    return spmm_plain(x, *csr[1:], graph.gcn_weight, n)
+                tol = TOL[dtype]
+                nbytes = 2 * n * d * elt + e * 8 + (n + 1) * 4
+                tag = f"{key} csr_spmm {name} F={d}"
+            else:
+                def run():
+                    return spmm_kernel.csr_spmm_ev(x, *csr, v, torch.float32, *plan)
+
+                def plain():
+                    return spmm_edge_values(x, *csr[1:], v, n, torch.float32)
+                tol = TOL[torch.float32]
+                nbytes = n * heads * d * (elt + 4) + e * (4 + 4 * heads) + (n + 1) * 4
+                tag = f"{key} csr_spmm_ev {name} H={heads} D={d}"
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(tag, got, want, **tol)
+            if not torch.equal(got, run()):
+                raise AssertionError(f"{tag} is not bitwise repeatable")
+            del got, want
+            if op == "csr_spmm_ev" and heads == 1:
+                one = spmm_kernel.csr_spmm_ev(x, *csr, v, dtype, *plan)
+                if not torch.equal(one[:, 0], spmm_kernel.csr_spmm(x[:, 0], *csr, v[:, 0], *plan)):
+                    raise AssertionError(f"{tag}: one head is not bitwise csr_spmm")
+                del one
+            ms, plain_ms = time_ms(run), time_ms(plain, iters=5)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                mats = [torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
+                                                v[:, h].to(dtype), size=(n, n))
+                        for h in range(heads)]
+            cols = [x.view(n, heads, d)[:, h].contiguous() for h in range(heads)]
+            library_ms = library_time(f"torch.sparse.mm {tag}",
+                                      lambda: [torch.sparse.mm(a, c) for a, c in zip(mats, cols)])
+            gathered = e * heads * d * elt
+            b_ms, b_by = bound_ms(nbytes, 2 * e * heads * d, dtype)
+            walk = design(d)
+            slower = library_ms is not None and ms > library_ms
+            log(f"{tag}: {ms:.4f} ms ({walk}); gathers {gathered / 1e6:.1f} MB of rows at "
+                f"{gathered / ms / 1e9:.2f} TB/s; read-once bound {b_ms:.4f} ms by {b_by}; "
+                f"plain {plain_ms:.4f} ms; torch.sparse.mm x{heads} {library_ms} ms"
+                f"{' (the kernel is slower)' if slower else ''}; bitwise repeatable")
+            results[("sweep", key, op, heads, d, name)] = dict(
+                ms=ms, plain_ms=plain_ms, design=walk, gathered_mb=gathered / 1e6,
+                gather_tb_per_s=gathered / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, max_abs_err=err)
+            del x, mats, cols
+        del x32, v
+        torch.cuda.empty_cache()
+
+
+def sweep_fields(results: dict, op: str) -> dict:
+    """The width sweep's numbers of ``op`` for the kernels line, by graph,
+    shape and type."""
+    out = {}
+    for key, r in results.items():
+        if isinstance(key, tuple) and key[0] == "sweep" and key[2] == op:
+            _, where, _, heads, d, name = key
+            shape = f"F={d}" if op == "csr_spmm" else f"H={heads} D={d}"
+            out[f"{where} {shape} {name}"] = {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "gather_tb_per_s", "design",
+                "max_abs_err")}
+    return out
 
 
 def sddmm_run(graph, dev: str) -> int:
@@ -3626,6 +3734,7 @@ def main() -> int:
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.graph import gcn_norm_rs
     from sgformer_tpu_torch.kernels import _build, ops
+    from sgformer_tpu_torch.kernels.spmm import walk_design
     from sgformer_tpu_torch.native import build as native_build
 
     t = time.perf_counter()
@@ -3658,6 +3767,7 @@ def main() -> int:
     step_counts, _, train_counts, _ = train_phase(ds, graph, "cuda")
     arxiv_batch = arxiv_batch_phase(ds, graph, results, "cuda")
     edge_value_phase(graph, results, "cuda")
+    width_sweep(graph, results, "cuda", "arxiv", SWEEP_WIDTHS, SWEEP_EV_SHAPES)
 
     t = time.perf_counter()
     pl = synthetic_dataset(**POWERLAW_GRAPH)
@@ -3667,6 +3777,7 @@ def main() -> int:
         f"E = {pl_graph.num_edges}, in-degree max {deg.max().item()}, "
         f"mean {deg.float().mean().item():.1f})")
     spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw", sweep=True)
+    width_sweep(pl_graph, results, "cuda", "powerlaw", SWEEP_POWERLAW_WIDTHS)
     # the int8 kernel alone on the same graph, with and without its hub plan
     rs = gcn_norm_rs(pl_graph.edge_dst, pl_graph.num_nodes)
     q8_phase(dataclasses.replace(pl_graph, rs=rs), results, "cuda",
@@ -3778,6 +3889,15 @@ def main() -> int:
             counts, per_step, per_forward = gat_counts, gat_step, gat_forward
             r.update(powerlaw_launches=plg_counts[name],
                      powerlaw_launches_per_train_step=plg_step[name])
+            if name == "csr_spmm_ev":
+                # f32 messages (the CLI's GAT) at both layers, the narrow
+                # walk's design at the output layer and the width sweep
+                for layer_ in range(len(GAT_LAYERS)):
+                    prefix = "f32_" if layer_ == 0 else "f32_layer1_"
+                    r.update({f"{prefix}{k}": v for k, v in results[(name, "f32", layer_)].items()
+                              if k.endswith("ms")})
+                r.update(layer1_design=walk_design(GAT_LAYERS[1][1]),
+                         width_sweep=sweep_fields(results, name))
             if name == "csr_spmm_ev_bwd":
                 r.update({f"f32_messages_{k}": v for k, v in results[(name, "f32", 0)].items()
                           if k.endswith("ms")})
@@ -3827,7 +3947,8 @@ def main() -> int:
                       results[("csr_spmm_powerlaw", "f32")].items()
                       if k.endswith("ms") or k in ("max_abs_err", "bound_by")})
             r.update(powerlaw_launches=pl_counts[name],
-                     powerlaw_launches_per_train_step=pl_step[name])
+                     powerlaw_launches_per_train_step=pl_step[name],
+                     width_sweep=sweep_fields(results, name))
         # the CLI's runs (the recipes and H2GCN) and the zoo's
         r.update({f"cli_{what}_launches": c[name] for what, c in cli_counts.items()})
         r.update({f"zoo_{what}_launches": c[name] for what, c in zoo_counts.items()})

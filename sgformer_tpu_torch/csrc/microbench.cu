@@ -209,7 +209,8 @@ enum Mode { kProd = 0, kStaticSub = 1, kNoSrc = 2 };
 constexpr int kWarpsPerBlock = 8;
 
 // x: [N, F] bf16 with F % 8 == 0 and 16-byte aligned rows; out: [N, F] f32.
-// The prod mode is csr_spmm_kernel<bf16, f32, true> of csrc/spmm.cu with one
+// The prod mode is csr_spmm_kernel<bf16, f32, true, 32> of csrc/spmm.cu
+// (the whole warp a row, which csr_spmm takes above 128 columns) with one
 // head, operation for operation.
 template <int kMode>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

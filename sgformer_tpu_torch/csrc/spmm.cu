@@ -39,17 +39,42 @@
 // rows of F elements, which L2 serves only in part.
 //
 // Design: one warp per destination row (in-degree is at most 33 on the
-// arxiv graph, mean 14.8), a loop over the heads inside it. In csr_spmm each
-// lane owns 8 columns of a head and loads them with one 16-byte load (bf16)
-// or two (f32), so a warp reads 256 columns of a source row in one coalesced
-// pass. The row's edge ids and values are read 32 at a time, one per lane,
-// and broadcast with shuffles. The sum is kept in f32 registers and rounded
-// once on the store; the messages may be bf16 with an f32 result (GAT's
-// bf16 messages). Each head's pass walks the row's edges again, its ids and
-// values then in L1: a warp that read them once and kept both of GAT's
-// 256-column heads in registers took 1.04 ms against this walk's 0.90 at
-// GAT's first layer on the H100 (fewer warps in flight; chip_smoke.py), so
-// the walk per pass stays.
+// arxiv graph, mean 14.8), a loop over the heads inside it. The row's edge
+// ids and values are read 32 at a time, one per lane, and broadcast with
+// shuffles. The sum is kept in f32 registers and rounded once on the store;
+// the messages may be bf16 with an f32 result (GAT's bf16 messages). What
+// bounds the walk is the gathered rows (one row of a head per edge and
+// head) at the card's gather rate, the gather_rows probe's 3.7 TB/s of
+// random rows, not the read-once bytes. A head wider than 128 columns on
+// the 16-byte path (D % 8 == 0 and aligned rows: the GCN at F = 256, GAT's
+// first layer) takes the whole warp: each lane owns 8 columns and loads
+// them with one 16-byte load (bf16) or two (f32), so a warp reads 256
+// columns of a source row in one coalesced pass, edge after edge; at F =
+// 256 that reads 1.28 GB of rows in 0.3432 ms, 3.7 TB/s. Each head's pass
+// walks the row's edges again, its ids and values then in L1: a warp that
+// read them once and kept both of GAT's 256-column heads in registers took
+// 1.04 ms against this walk's 0.90 at GAT's first layer on the H100 (fewer
+// warps in flight; chip_smoke.py), so the walk per pass stays.
+//
+// A narrower head left most of that warp idle: at D = 40 (GAT's output
+// layer) 5 of 32 lanes worked while the warp walked the row's edges one
+// after another, 400 MB of f32 rows at 1.6 TB/s (0.2456 ms on the arxiv
+// graph on the H100, slower than PyTorch's sparse product at 0.2252). So a
+// head of at most 128 columns on the 16-byte path is taken by groups of the
+// fewest lanes (4, 8 or 16) whose 8 columns cover it (lane_groups, shared
+// with the backward walk): group q takes slot i = edge i * kGroups + q of
+// each 32-edge batch, each lane stages the raw bytes of 4 gathers before it
+// uses any, each column is an fmaf chain in edge order within its group,
+// and the groups' chains are added in group order at the end of the range
+// (add_groups) and rounded once on the store. At D = 40 on the arxiv graph
+// that takes ~0.17 ms in f32 (2.3 TB/s of rows) and ~0.10-0.12 in bf16:
+// what bounds it then is each row's chain of dependent loads (its indptr,
+// its edge ids, then its gathers) over the warps an SM holds, which the
+// register caps of csr_spmm_kernel trade against the staged gathers. The
+// backward walk's dx is the same sum in the same order, so it is this walk
+// on the transposed CSR bit for bit at every width. Without the 16-byte
+// path (D % 8 != 0, unaligned rows) one column a lane over the whole warp,
+// 32 columns a pass.
 //
 // Hub rows. One warp walks its row's edges one after another, about 0.37 us
 // an edge from device memory, so on a power-law graph (the JAX package's
@@ -93,10 +118,9 @@
 // hub only makes g[hub] a row that many warps gather, which L2 serves. No
 // atomics: dv and dx are the same on every call. dv is the same bit for
 // bit in both modes (products commute; one column order, one fold); dx is
-// csr_spmm's per-column fmaf chain in edge order, bit for bit the parent's,
-// wherever one group spans a head (D >= 32 columns of a lane pass, D % 8 !=
-// 0, or unaligned rows); with lane groups each group chains its own edges
-// and the chains are added in group order, f32 order only.
+// the forward walk's (the same lane groups, edge slots, chains and group
+// order), so it is csr_spmm_ev of msg(g) on the transposed CSR bit for bit
+// at every width.
 //
 // csr_spmm_q8 is the int8 branch of kernels/slab_spmm.py::_ssel_kernel
 // (int8 x int8 -> int32 dots of 0/1 selectors with absmax-quantised rows),
@@ -152,6 +176,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -172,14 +197,18 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 
 // Eight consecutive elements of a row, moved with 16-byte accesses. The
 // pointer must be 16-byte aligned (the wrappers check the rows' base and
-// width).
+// width). load is load_raw then unpack; split, a gather in flight holds
+// its raw bytes (4 registers in bf16, 8 in f32).
 template <typename T>
 struct Vec8;
 
 template <>
 struct Vec8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -187,6 +216,9 @@ struct Vec8<__nv_bfloat16> {
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
+  }
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+    unpack(load_raw(p), v);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
     uint4 raw;
@@ -199,11 +231,19 @@ struct Vec8<__nv_bfloat16> {
 
 template <>
 struct Vec8<float> {
+  struct Raw {
+    float4 a, b;
+  };
+  static __device__ __forceinline__ Raw load_raw(const float* p) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return {__ldg(q), __ldg(q + 1)};
+  }
+  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[8]) {
+    v[0] = raw.a.x; v[1] = raw.a.y; v[2] = raw.a.z; v[3] = raw.a.w;
+    v[4] = raw.b.x; v[5] = raw.b.y; v[6] = raw.b.z; v[7] = raw.b.w;
+  }
   static __device__ __forceinline__ void load(const float* p, float (&v)[8]) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    unpack(load_raw(p), v);
   }
   static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
     reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -281,14 +321,118 @@ __device__ __forceinline__ void spmm_edges(const int* __restrict__ src,
   }
 }
 
+// The end of a range of a walk in lane groups: each of this lane's kPer
+// columns becomes the sum of the groups' chains of that column in group
+// order (group 0's + group 1's + ...), f32, in every lane; group 0's lanes
+// store it.
+template <int kLanes, int kPer>
+__device__ __forceinline__ void add_groups(float (&acc)[kPer], int k) {
+  constexpr int kGroups = 32 / kLanes;
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    float s = acc[t];
+#pragma unroll
+    for (int g2 = 1; g2 < kGroups; ++g2) {
+      s = __fadd_rn(s, __shfl_sync(kFull, acc[t], k + g2 * kLanes));
+    }
+    acc[t] = s;
+  }
+}
+
+// spmm_edges for a head of at most kLanes * 8 columns on the 16-byte path,
+// in kGroups = 32 / kLanes groups of kLanes lanes (see the design note):
+// lane k of group q owns columns [8k, 8k + 8) of each head and takes slot i
+// = edge i * kGroups + q of each 32-edge batch, in rounds of kInFlight
+// slots whose gathers it starts, as raw bytes, before it uses any; each
+// column is an fmaf chain in edge order within the group, and the groups'
+// chains are added in group order. ev_bwd_edges' dx is the same sum in the
+// same order. Every lane runs every loop trip, even past D, because the
+// shuffles need the whole warp.
+template <typename TIn, typename TDst, int kLanes>
+__device__ __forceinline__ void spmm_edges_grouped(const int* __restrict__ src,
+                                                   const float* __restrict__ v,
+                                                   const TIn* __restrict__ x,
+                                                   TDst* __restrict__ dst, int begin, int end,
+                                                   int H, int D) {
+  using V = Vec8<TIn>;
+  constexpr int kGroups = 32 / kLanes;
+  constexpr int kInFlight = 4;
+  const int lane = threadIdx.x & 31;
+  const int q = lane / kLanes;
+  const int k = lane % kLanes;
+  const size_t F = static_cast<size_t>(H) * D;
+  const bool active = k * 8 < D;
+  for (int h = 0; h < H; ++h) {
+    const int c = h * D + k * 8;
+    const TIn* xc = x + c;
+    float acc[8] = {};
+    for (int e0 = begin; e0 < end; e0 += 32) {
+      const int e = e0 + lane;
+      int s = 0;
+      float we = 0.f;
+      if (e < end) {
+        s = __ldg(src + e);
+        we = __ldg(v + static_cast<size_t>(e) * H + h);
+      }
+      const int cnt = min(32, end - e0);
+      const int slots = (cnt + kGroups - 1) / kGroups;  // the same in every lane
+#pragma unroll 1
+      for (int i0 = 0; i0 < slots; i0 += kInFlight) {
+        typename V::Raw raw[kInFlight];
+        float w[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const int j = (i0 + u) * kGroups + q;  // below 32: kLanes is a multiple of kInFlight
+          const int sj = __shfl_sync(kFull, s, j);
+          w[u] = __shfl_sync(kFull, we, j);
+          if (active && j < cnt) raw[u] = V::load_raw(xc + static_cast<size_t>(sj) * F);
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          if (active && (i0 + u) * kGroups + q < cnt) {
+            float xv[8];
+            V::unpack(raw[u], xv);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) acc[t] = fmaf(w[u], xv[t], acc[t]);
+          }
+        }
+      }
+    }
+    add_groups<kLanes>(acc, k);
+    if (q == 0 && active) Vec8<TDst>::store(dst + c, acc);
+  }
+}
+
+// The walk of one edge range: the whole warp (kLanes = 32) or lane groups.
+template <typename TIn, typename TDst, bool kVec8, int kLanes>
+__device__ __forceinline__ void spmm_range(const int* __restrict__ src,
+                                           const float* __restrict__ v,
+                                           const TIn* __restrict__ x, TDst* __restrict__ dst,
+                                           int begin, int end, int H, int D) {
+  if constexpr (kLanes == 32) {
+    spmm_edges<TIn, TDst, kVec8>(src, v, x, dst, begin, end, H, D);
+  } else {
+    static_assert(kVec8, "lane groups take 8 columns a lane");
+    spmm_edges_grouped<TIn, TDst, kLanes>(src, v, x, dst, begin, end, H, D);
+  }
+}
+
 // Warps [0, n_seg) take one hub segment each (seg[w] = (row, begin, end))
 // and write its f32 partial row to part[w]; warp n_seg + i takes row i,
 // unless the row has more than max_edges edges (its segments cover it).
-// The bf16 walk is held to 32 registers, so that an SM holds its full 64
-// warps: the gather's latency bounds it, and the hub path's code would
-// otherwise cost it occupancy and time; f32 rows would spill there.
-template <typename TIn, typename TOut, bool kVec8>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32, sizeof(TIn) == 2 ? 8 : 1)
+// The full-width bf16 walk is held to 32 registers, so that an SM holds
+// its full 64 warps: the gather's latency bounds it, and the hub path's
+// code would otherwise cost it occupancy and time; f32 rows would spill
+// there. The lane groups' walk stages 4 gathers a lane and is held to 64
+// registers with bf16 rows (4 blocks an SM) and 80 with f32 rows (3): on
+// the H100 at D = 32-128 that timed best of 40-115 registers and of 2, 4
+// or 8 gathers in flight (chip_compare.py narrow on copies with one
+// change), where a tighter cap spills the staged rows and a looser one
+// leaves too few warps to hide each row's chain of dependent loads.
+template <typename TIn, typename TOut, bool kVec8, int kLanes>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32,
+                                  kLanes == 32 ? (sizeof(TIn) == 2 ? 8 : 1)
+                                               : (sizeof(TIn) == 2 ? 4 : 3))
 csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                 const float* __restrict__ v, const TIn* __restrict__ x,
                 TOut* __restrict__ out, const int* __restrict__ seg, int n_seg,
@@ -296,8 +440,8 @@ csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const size_t F = static_cast<size_t>(H) * D;
   if (w < n_seg) {
-    spmm_edges<TIn, float, kVec8>(src, v, x, part + static_cast<size_t>(w) * F,
-                                  __ldg(seg + 3 * w + 1), __ldg(seg + 3 * w + 2), H, D);
+    spmm_range<TIn, float, kVec8, kLanes>(src, v, x, part + static_cast<size_t>(w) * F,
+                                          __ldg(seg + 3 * w + 1), __ldg(seg + 3 * w + 2), H, D);
     return;
   }
   const int row = w - n_seg;
@@ -305,8 +449,8 @@ csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
   const int start = indptr[row];
   const int end = indptr[row + 1];
   if (end - start > max_edges) return;
-  spmm_edges<TIn, TOut, kVec8>(src, v, x, out + static_cast<size_t>(row) * F, start, end, H,
-                               D);
+  spmm_range<TIn, TOut, kVec8, kLanes>(src, v, x, out + static_cast<size_t>(row) * F, start,
+                                       end, H, D);
 }
 
 // Second pass over the hub rows: the warp of a row's first segment adds the
@@ -388,9 +532,10 @@ __device__ __forceinline__ float msg_value(float v) {
 // the same dv bit for bit. Over several passes (a head wider than a pass,
 // kLanes = 32 only) each pass's dot is added to the one stored, in pass
 // order. dx: each column an fmaf chain in edge order from 0 within its
-// group; with kLanes = 32 (one group) that is csr_spmm_ev's chain on the
-// same edges, bit for bit; with several groups, their chains are added in
-// group order at the end of the range (the f32 sum in another order).
+// group, the groups' chains added in group order at the end of the range
+// (add_groups): csr_spmm_ev's walk on the same edges with the same lane
+// groups (spmm_edges with one group, spmm_edges_grouped with several), bit
+// for bit.
 template <typename T, bool kRound, bool kVec8, int kLanes, typename TDst>
 __device__ __forceinline__ void ev_bwd_edges(const int* __restrict__ col,
                                              const int* __restrict__ perm,
@@ -475,18 +620,7 @@ __device__ __forceinline__ void ev_bwd_edges(const int* __restrict__ col,
         }
       }
       if (need_dx) {
-        if constexpr (kGroups > 1) {
-          // the groups' chains of the same columns, added in group order
-#pragma unroll
-          for (int t = 0; t < kPer; ++t) {
-            float s = acc[t];
-#pragma unroll
-            for (int g2 = 1; g2 < kGroups; ++g2) {
-              s = __fadd_rn(s, __shfl_sync(kFull, acc[t], k + g2 * kLanes));
-            }
-            acc[t] = s;
-          }
-        }
+        if constexpr (kGroups > 1) add_groups<kLanes>(acc, k);
         if (q == 0 && active) C::store(dx_row + c, acc);
       }
     }
@@ -829,12 +963,27 @@ cudaError_t launch_quantize(const void* x, const float* rs, unsigned* part, int 
 }
 
 
-template <typename TIn, typename TOut, bool kVec8>
+// The lane groups of the row walks, forward and backward alike, for a head
+// of D columns: on the 16-byte path (vec8) groups of the fewest lanes (4,
+// 8, 16 or 32) whose 8 columns each cover a head, else one group of 32
+// lanes of one column each, in passes. Calls launch(vec8, lanes) with both
+// as std::integral_constant.
+template <typename Launch>
+cudaError_t lane_groups(int D, int vec8, Launch&& launch) {
+  if (!vec8) return launch(std::false_type{}, std::integral_constant<int, 32>{});
+  const int lanes = (D + 7) / 8;
+  if (lanes <= 4) return launch(std::true_type{}, std::integral_constant<int, 4>{});
+  if (lanes <= 8) return launch(std::true_type{}, std::integral_constant<int, 8>{});
+  if (lanes <= 16) return launch(std::true_type{}, std::integral_constant<int, 16>{});
+  return launch(std::true_type{}, std::integral_constant<int, 32>{});
+}
+
+template <typename TIn, typename TOut, bool kVec8, int kLanes>
 cudaError_t launch_spmm_cols(const int* indptr, const int* src, const float* v, const TIn* x,
                              TOut* out, const int* seg, int n_seg, float* part, int max_edges,
                              int n_rows, int H, int D, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
-  csr_spmm_kernel<TIn, TOut, kVec8><<<grid_for(n_seg + n_rows), block, 0, stream>>>(
+  csr_spmm_kernel<TIn, TOut, kVec8, kLanes><<<grid_for(n_seg + n_rows), block, 0, stream>>>(
       indptr, src, v, x, out, seg, n_seg, part, max_edges, n_rows, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 0) return err;
@@ -849,12 +998,10 @@ cudaError_t launch_spmm(const int* indptr, const int* src, const float* v, const
                         int n_rows, int H, int D, int vec8, cudaStream_t stream) {
   const TIn* xt = static_cast<const TIn*>(x);
   TOut* ot = static_cast<TOut*>(out);
-  if (vec8) {
-    return launch_spmm_cols<TIn, TOut, true>(indptr, src, v, xt, ot, seg, n_seg, part,
-                                             max_edges, n_rows, H, D, stream);
-  }
-  return launch_spmm_cols<TIn, TOut, false>(indptr, src, v, xt, ot, seg, n_seg, part,
-                                            max_edges, n_rows, H, D, stream);
+  return lane_groups(D, vec8, [&](auto vec, auto lanes) {
+    return launch_spmm_cols<TIn, TOut, decltype(vec)::value, decltype(lanes)::value>(
+        indptr, src, v, xt, ot, seg, n_seg, part, max_edges, n_rows, H, D, stream);
+  });
 }
 
 template <typename T, bool kRound, bool kVec8, int kLanes>
@@ -872,9 +1019,6 @@ cudaError_t launch_ev_bwd_lanes(const int* indptr, const int* col, const int* pe
   return cudaGetLastError();
 }
 
-// The lane groups: a group of the fewest lanes (4, 8, 16 or 32) whose 8
-// columns each cover a head (vec8), else one group of 32 lanes of one
-// column each, in passes.
 template <typename T, bool kRound>
 cudaError_t launch_ev_bwd(const int* indptr, const int* col, const int* perm, const float* val,
                           const void* a, const void* b, float* dv, void* dx, const int* seg,
@@ -883,25 +1027,10 @@ cudaError_t launch_ev_bwd(const int* indptr, const int* col, const int* perm, co
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
   T* xt = static_cast<T*>(dx);
-  if (!vec8) {
-    return launch_ev_bwd_lanes<T, kRound, false, 32>(indptr, col, perm, val, at, bt, dv, xt, seg,
-                                                     n_seg, part, max_edges, n_rows, H, D, st);
-  }
-  const int lanes = (D + 7) / 8;
-  if (lanes <= 4) {
-    return launch_ev_bwd_lanes<T, kRound, true, 4>(indptr, col, perm, val, at, bt, dv, xt, seg,
-                                                   n_seg, part, max_edges, n_rows, H, D, st);
-  }
-  if (lanes <= 8) {
-    return launch_ev_bwd_lanes<T, kRound, true, 8>(indptr, col, perm, val, at, bt, dv, xt, seg,
-                                                   n_seg, part, max_edges, n_rows, H, D, st);
-  }
-  if (lanes <= 16) {
-    return launch_ev_bwd_lanes<T, kRound, true, 16>(indptr, col, perm, val, at, bt, dv, xt, seg,
-                                                    n_seg, part, max_edges, n_rows, H, D, st);
-  }
-  return launch_ev_bwd_lanes<T, kRound, true, 32>(indptr, col, perm, val, at, bt, dv, xt, seg,
-                                                  n_seg, part, max_edges, n_rows, H, D, st);
+  return lane_groups(D, vec8, [&](auto vec, auto lanes) {
+    return launch_ev_bwd_lanes<T, kRound, decltype(vec)::value, decltype(lanes)::value>(
+        indptr, col, perm, val, at, bt, dv, xt, seg, n_seg, part, max_edges, n_rows, H, D, st);
+  });
 }
 
 }  // namespace

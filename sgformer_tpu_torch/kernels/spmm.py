@@ -119,6 +119,20 @@ def hub_plan(indptr: torch.Tensor, max_edges: int = HUB_EDGES) -> torch.Tensor:
     return torch.stack([row, begin, end], dim=1).int().reshape(-1, 3).contiguous()
 
 
+def walk_design(d: int, aligned: bool = True) -> str:
+    """The lanes of the row walk that :func:`csr_spmm`, :func:`csr_spmm_ev`,
+    :func:`csr_spmm_ev_bwd` and :func:`sddmm` launch for a head of ``d``
+    columns (``csrc/spmm.cu``'s ``lane_groups``): on the 16-byte path (d %
+    8 == 0 and ``aligned`` rows) groups of the fewest of 4, 8, 16 or 32
+    lanes whose 8 columns each cover the head, each group on its own edges;
+    else the whole warp at one column a lane."""
+    if not aligned or d % 8:
+        return "1 group of 32 lanes, 1 column a lane"
+    lanes = next(n for n in (4, 8, 16, 32) if 8 * n >= d or n == 32)
+    groups = 32 // lanes
+    return f"{groups} group{'s' * (groups > 1)} of {lanes} lanes, 8 columns a lane"
+
+
 def _check_device(*tensors) -> str:
     devices = {t.device for t in tensors}
     if len(devices) != 1:

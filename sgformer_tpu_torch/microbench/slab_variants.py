@@ -14,7 +14,10 @@ write:
 
 - ``prod``: ``out[i] = sum_e w_e * x[src_e]``, ``A_norm @ x``, bitwise
   ``csr_spmm`` of x (bf16 to f32 is exact) on a graph without hub rows
-  (none above ``kernels.spmm.HUB_EDGES`` in-edges, as on the arxiv graph);
+  (none above ``kernels.spmm.HUB_EDGES`` in-edges, as on the arxiv graph)
+  wherever ``csr_spmm`` walks a row with the whole warp (F > 128, as at the
+  model's F = 256; narrower rows it takes in lane groups, which add the
+  same products in another order);
 - ``static_sub``: ``out[i] = sum_e w_e * x[src_e % 128]``, 128 the TPU's
   block_rows: the gather hits 128 rows that stay cached;
 - ``no_src_matmul``: ``out[i] = sum_e (1.0001 * w_e) * x[i]``: no gather, the

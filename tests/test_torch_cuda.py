@@ -52,7 +52,7 @@ def _graph(cuda, n=700, e=3000, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("width", [520, 256, 128, 40, 37, 1])
+@pytest.mark.parametrize("width", [520, 256, 128, 64, 40, 37, 32, 16, 1])
 def test_csr_spmm_kernel_matches_plain(cuda, dtype, width):
     g = _graph(cuda)
     x = torch.randn(g.num_nodes, width, device=cuda).to(dtype)
@@ -604,6 +604,34 @@ def test_edge_value_kernel_with_one_head_is_csr_spmm(cuda):
     assert torch.equal(got[:, 0], csr_spmm(x, *csr, g.gcn_weight))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 64, 128])
+def test_narrow_walk_through_hub_plans(cuda, dtype, d):
+    """The row walk in lane groups (a head of at most 128 columns on the
+    16-byte path) through hub plans of several lengths: csr_spmm and
+    csr_spmm_ev (two heads, f32 result) against their plain versions,
+    bitwise repeatable, and H = 1 csr_spmm_ev bitwise csr_spmm of the same
+    values under each plan."""
+    g = _edge_value_graph(cuda)
+    n, e = g.num_nodes, g.num_edges
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    x = torch.randn(n, 2, d, device=cuda).to(dtype)
+    v = torch.rand(e, 2, device=cuda)
+    x1, v1 = x[:, 0].contiguous(), v[:, 0].contiguous()
+    want = spmm(x1, g.edge_src, g.edge_dst, v1, n)
+    want_ev = spmm_edge_values(x, g.edge_src, g.edge_dst, v, n, torch.float32)
+    for length in EV_SEGMENT_LENGTHS:
+        plan = spmm_kernel.hub_plan(g.indptr, length)
+        got = csr_spmm(x1, *csr, v1, plan, length)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        assert torch.equal(got, csr_spmm(x1, *csr, v1, plan, length)), length
+        one = csr_spmm_ev(x1[:, None], *csr, v1[:, None], dtype, plan, length)
+        assert torch.equal(one[:, 0], got), length
+        got_ev = csr_spmm_ev(x, *csr, v, torch.float32, plan, length)
+        torch.testing.assert_close(got_ev, want_ev, **TOL[torch.float32])
+        assert torch.equal(got_ev, csr_spmm_ev(x, *csr, v, torch.float32, plan, length)), length
+
+
 def _ev_counts(since=(0, 0, 0)):
     """Launches of csr_spmm_ev, csr_spmm_ev_bwd and sddmm (since ``since``)."""
     now = (spmm_kernel.ev_launches, spmm_kernel.ev_bwd_launches, spmm_kernel.sddmm_launches)
@@ -629,11 +657,11 @@ def test_fused_edge_value_backward_matches_plain(cuda, x_dtype, msg_dtype, heads
     inputs: dv within 1e-5 of the plain version's scale, bitwise the
     dv-mode sddmm's with the dst-sorted CSR's plan of the same length, and
     the same under every plan; dx bitwise csr_spmm_ev on the transposed
-    order with the same plan wherever one lane group spans a head (D > 128
-    on the 16-byte path, or D % 8 != 0), else within the forward's
-    tolerance of the output type (the groups' chains are added in another
-    order); each flag alone gives its half bit for bit; bitwise
-    repeatable. D = 16, 40 and 128 take groups of 4, 8 and 16 lanes."""
+    order with the same plan at every width (both walk in the same lane
+    groups: D = 16, 40 and 128 take groups of 4, 8 and 16 lanes), and
+    within 1e-5 of the plain version's scale (f32) or the output type's
+    tolerance (bf16); each flag alone gives its half bit for bit; bitwise
+    repeatable."""
     g = _edge_value_graph(cuda)
     n, e = g.num_nodes, g.num_edges
     csr = (g.indptr, g.edge_src, g.edge_dst)
@@ -644,7 +672,6 @@ def test_fused_edge_value_backward_matches_plain(cuda, x_dtype, msg_dtype, heads
     want_dx, want_dv = spmm_edge_values_backward(cot, x, v, g.t_edge_src, g.t_edge_dst,
                                                  g.t_perm, msg_dtype)
     v_t = v.index_select(0, g.t_perm.long())
-    chain_kept = d % 8 != 0 or d > 128
     first_dv = None
     for length in EV_SEGMENT_LENGTHS:
         plan = spmm_kernel.hub_plan(g.indptr, length)
@@ -654,9 +681,8 @@ def test_fused_edge_value_backward_matches_plain(cuda, x_dtype, msg_dtype, heads
         assert _ev_counts(counts) == (0, 1, 0)
         assert dx.dtype == x_dtype and dv.dtype == torch.float32
         parent_dx = csr_spmm_ev(cot.to(msg_dtype), *csr_t[:3], v_t, x_dtype, t_plan, length)
-        if chain_kept:
-            assert torch.equal(dx, parent_dx), length
-        elif x_dtype == torch.float32:
+        assert torch.equal(dx, parent_dx), length
+        if x_dtype == torch.float32:
             _check_rel(dx, want_dx, 1e-5)
         else:
             torch.testing.assert_close(dx.float(), want_dx.float(), **TOL[x_dtype])
@@ -1126,7 +1152,11 @@ def test_gather_tiles_kernel_matches_plain(cuda, stages, width, chunk):
 @pytest.mark.parametrize("width", [256, 520, 64])
 def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
     """Each mode against its plain formula (f32 order, and no_src_matmul's
-    fused multiply-add); prod is bitwise ``csr_spmm`` of the same x."""
+    fused multiply-add); prod is bitwise ``csr_spmm``'s walk of the whole
+    warp on the same x: ``csr_spmm`` itself above 128 columns, and at 64
+    (which ``csr_spmm`` takes in lane groups) ``csr_spmm`` of x in rows off
+    16-byte alignment, whose one-column walk over the whole warp chains
+    each column's products in the same edge order."""
     from sgformer_tpu_torch.microbench import slab_variants
 
     g = _graph(cuda)
@@ -1138,7 +1168,13 @@ def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
     _check_rel(got, slab_variants.slab_variant_plain(x, g.edge_src, g.edge_dst,
                                                      g.gcn_weight, mode), slab_variants.REL_TOL)
     if mode == "prod":
-        assert torch.equal(got, csr_spmm(x.float(), *csr))
+        whole_warp = x.float()
+        if width <= 128:
+            flat = torch.empty(x.numel() + 1, device=cuda)
+            whole_warp = flat[1:].view(x.shape).copy_(x.float())
+            assert spmm_kernel.walk_design(width, whole_warp.data_ptr() % 16 == 0).startswith(
+                "1 group of 32 lanes")
+        assert torch.equal(got, csr_spmm(whole_warp, *csr))
 
 
 def _batch_edges(n=1500):

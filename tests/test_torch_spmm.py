@@ -19,7 +19,7 @@ from sgformer_tpu.ops.spmm import spmm as jax_spmm
 
 from sgformer_tpu_torch.data import synthetic_dataset
 from sgformer_tpu_torch.graph import preprocess_graph
-from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_plan
+from sgformer_tpu_torch.kernels.spmm import HUB_EDGES, csr_spmm, hub_plan, walk_design
 from sgformer_tpu_torch.ops.spmm import spmm
 
 torch.set_num_threads(1)
@@ -79,6 +79,20 @@ def test_csr_spmm_rejects_bad_inputs():
     with pytest.raises(TypeError):
         csr_spmm(torch.zeros(n, 4, dtype=torch.float64), g.indptr, g.edge_src,
                  g.edge_dst, g.gcn_weight)
+
+
+@pytest.mark.parametrize("d,aligned,want", [
+    (8, True, "8 groups of 4 lanes"), (32, True, "8 groups of 4 lanes"),
+    (40, True, "4 groups of 8 lanes"), (64, True, "4 groups of 8 lanes"),
+    (128, True, "2 groups of 16 lanes"), (136, True, "1 group of 32 lanes, 8 columns"),
+    (256, True, "1 group of 32 lanes, 8 columns"), (520, True, "1 group of 32 lanes, 8 columns"),
+    (37, True, "1 group of 32 lanes, 1 column"), (40, False, "1 group of 32 lanes, 1 column"),
+])
+def test_walk_design_names_the_lane_groups(d, aligned, want):
+    """The row walk's lanes for a head of d columns: the fewest of 4, 8, 16
+    lanes whose 8 columns cover it on the 16-byte path, else the whole
+    warp."""
+    assert walk_design(d, aligned).startswith(want)
 
 
 def test_spmm_matches_jax_slab_kernels_interpret():
