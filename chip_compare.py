@@ -10,6 +10,8 @@ in the same call as the change.
     python3 chip_compare.py gat-repeat ROOT [RUNS]
     python3 chip_compare.py host ROOT
     python3 chip_compare.py narrow ROOT
+    python3 chip_compare.py tf32-bwd ROOT
+    python3 chip_compare.py busy ROOT
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -53,6 +55,26 @@ full batch and the tail of a seeded permutation of the arxiv graph in
 batches of ``ARXIV_BATCH`` and of the amazon2m graph (``AMAZON2M``,
 symmetrised with self-loops on the card) in batches of ``AMAZON2M_BATCH``;
 run it in turns to compare two checkouts' kernels.
+``tf32-bwd``: the attention backward's kernels of ROOT and of this
+checkout, each turn a process of its own (``tf32-bwd-turn ROOT``), in
+turns ROOT, this checkout, this checkout, ROOT. A turn times its package's f32 ``bwd_apply`` and
+``bwd_reduce`` (CUDA events, median of 20) at M = D = 256 on the arxiv
+(N = 169,343), amazon2m full-batch (100,000) and papers-sampled (621,432)
+shapes, with the launches of each apart by the profiler (``kernel_ms``: the
+rows pass, the P pass, the splits and the finish kernels), holds each f32
+output to the plain version in f64 (the ratio printed), times the bf16
+backward at the arxiv shape, prints sha256 digests of the bf16 backward's
+outputs (``bwd_reduce``, then ``bwd_apply`` on the plain reduce's outputs)
+at four shapes, and counts the ``HGMMA`` and ``HMMA`` instructions of each
+backward kernel in ``cuobjdump -sass`` of its built library. The mode
+prints each turn's JSON line, then one line that sets the turns side by
+side and says whether the bf16 digests of the two packages are equal.
+``busy``: ROOT's own amazon2m-batch-train, papers-sampled-train and
+arxiv-cli-train phases (``chip_smoke.amazon2m_batch_phase``,
+``papers_sampled_phase``, ``cli_phase``) with this checkout's
+``profile_device``, so that both checkouts' device-busy ms a step or batch
+are read by one definition; run it in turns (parent, change, change,
+parent) to compare them.
 """
 
 from __future__ import annotations
@@ -75,12 +97,15 @@ def load_phases(path: str):
 
 
 def main() -> int:
-    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow")
+    modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
+             "tf32-bwd", "tf32-bwd-turn", "busy")
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat") or (
             sys.argv[1] not in modes):
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
+    if mode == "tf32-bwd":
+        return tf32_bwd(root)
     sys.path.insert(0, root)
     import torch
 
@@ -100,12 +125,16 @@ def main() -> int:
         return cs.main()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mode == "busy":
+        return busy(root)
     cs = load_phases(os.path.join(root if mode == "edge-values" else HERE, "chip_smoke.py"))
     print(cs.card_line(), flush=True)
     if mode == "batch-build":
         return batch_build(cs)
     if mode == "host":
         return host_cost(cs, root)
+    if mode == "tf32-bwd-turn":
+        return tf32_bwd_turn(cs, root)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -314,6 +343,149 @@ def batch_build(cs) -> int:
     cs.profile_device("batch-build, 5 builds",
                       lambda it=iter(batches): build_subgraph_batch(ei, next(it), n), 5)
     return 0
+
+
+# the shapes of the tf32-bwd mode's bf16 digests, (N, M, D); its f32 shapes
+# are chip_smoke.BWD_PASS_SHAPES
+BF16_DIGEST_SHAPES = ((169_343, 256, 256), (100_000, 256, 256), (777, 37, 19), (777, 130, 200))
+
+
+def tf32_bwd(root: str) -> int:
+    """The ``tf32-bwd`` mode: four turns, each ``tf32-bwd-turn`` in a
+    process of its own, then the turns side by side."""
+    import json
+    import subprocess
+
+    turns = []
+    for which in (root, HERE, HERE, root):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "tf32-bwd-turn", which],
+                             capture_output=True, text=True, timeout=900)
+        sys.stdout.write(out.stdout)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode != 0:
+            print(f"chip_compare: the turn on {which} failed ({out.returncode})", file=sys.stderr)
+            return 1
+        turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    digests = {t["root"]: t["bf16_digests"] for t in turns}
+    side = {f"turn {i} ({'ROOT' if t['root'] == root else 'this checkout'})": t["f32"]
+            for i, t in enumerate(turns)}
+    print(json.dumps({"tf32_bwd_turns": side,
+                      "bf16_bitwise_equal": len({json.dumps(d) for d in digests.values()}) == 1}),
+          flush=True)
+    return 0
+
+
+def tf32_bwd_turn(cs, root: str) -> int:
+    """One turn of the ``tf32-bwd`` mode on ROOT's package; its last line
+    of output is a JSON object of its numbers."""
+    import hashlib
+    import json
+    import re
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
+    for line in report.splitlines():  # the entry, registers, spills and wgmma notes
+        if re.search(r"la_bwd_(apply|rows)_(tc|wg)|Used|spill|wgmma|Performance", line):
+            cs.log(f"ptxas {root}: {line.strip()}")
+    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention_bwd")[1]])
+    counts = {}
+    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        if "la_bwd" in func:
+            counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
+                                HMMA=len(re.findall(r"\bHMMA\b", body)))
+    for func, c in counts.items():
+        cs.log(f"sass {root}: {func}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+
+    dev = "cuda"
+    out = dict(root=root, sass=counts, f32={}, bf16_digests=[])
+    # the f32 rows pass and apply by either package's kernel name
+    passes = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel",
+              "split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
+    applies = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel", "la_bwd_split_kernel")
+    m = d = 256
+    for name, n in cs.BWD_PASS_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(21)
+        q, k, v, g = (torch.randn(n, m, generator=gen, device=dev) for _ in range(4))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        got_r = attn.bwd_reduce(q, v, g, *sums, n_t)
+        exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, *sums, n_t)), False)
+        errs = {part: rel(a, b) for part, a, b in zip(("P", "ds", "dinv", "rows"), got_r, exact)}
+        del got_r, exact
+        got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
+        exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)), False)
+        errs.update({part: rel(a, b) for part, a, b in zip(("dq", "dk", "dv"), got_a, exact)})
+        del got_a, exact
+        a_ms = cs.time_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
+        r_ms = cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t))
+        r_dev = cs.kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), passes)
+        a_dev = cs.kernel_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red), applies)
+        rows_ms, p_ms = r_dev[passes[0]] + r_dev[passes[1]], r_dev[passes[2]]
+        apply_ms = a_dev[applies[0]] + a_dev[applies[1]]
+        out["f32"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
+                                p_pass_ms=p_ms, reduce_others_ms=sum(r_dev[p] for p in passes[3:]),
+                                apply_kernel_ms=apply_ms, apply_split_ms=a_dev[applies[2]],
+                                rel_err=errs)
+        cs.log(f"tf32-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}), "
+               f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, P pass {p_ms:.4f}); "
+               f"|kernel - plain in f64| / scale: "
+               + ", ".join(f"{p} {e:.2e}" for p, e in errs.items()))
+        del q, k, v, g, sums, red
+        torch.cuda.empty_cache()
+    for n, m_, d_ in BF16_DIGEST_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
+        q, k = (torch.randn(n, m_, generator=gen, device=dev).bfloat16() for _ in range(2))
+        v, g = (torch.randn(n, d_, generator=gen, device=dev).bfloat16() for _ in range(2))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        outs = (*attn.bwd_reduce(q, v, g, *sums, n_t), *attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
+        digest = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                         for t in outs)).hexdigest()[:16]
+        if (n, m_, d_) == (169_343, 256, 256):
+            out["bf16_arxiv_ms"] = dict(
+                bwd_apply=cs.time_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red)),
+                bwd_reduce=cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t)))
+        out["bf16_digests"].append(dict(shape=[n, m_, d_], sha256=digest))
+        cs.log(f"tf32-bwd {root} bf16 n={n} m={m_} d={d_}: outputs sha256 {digest}")
+        del q, k, v, g, sums, red, outs
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def busy(root: str) -> int:
+    """The ``busy`` mode (see the module's docstring)."""
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.native import build as native_build
+
+    cs = load_phases(os.path.join(root, "chip_smoke.py"))
+    cs.profile_device = load_phases(os.path.join(HERE, "chip_smoke.py")).profile_device
+    print(cs.card_line(), flush=True)
+    _build.build_all()
+    native_build.library()
+    results: dict = {}
+    cs.amazon2m_batch_phase(results, "cuda")
+    cs.papers_sampled_phase(results, "cuda")
+    cs.cli_phase(synthetic_dataset("synth-arxiv", seed=0), results, "cuda")
+    return 0
+
+
+def rel(got, want) -> float:
+    """max |got - want| over max |want|, in f64."""
+    err = (got.double() - want.double()).abs().max().item()
+    return err / max(want.double().abs().max().item(), 1e-300)
+
+
+def subprocess_out(cmd: list) -> str:
+    import subprocess
+
+    return subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300).stdout
 
 
 if __name__ == "__main__":

@@ -79,23 +79,37 @@
 // from the forward's bf16 output (num = out * den), which would move gden by
 // ~2^-9. Passes 3 (finish, dinv) are the CUDA-core design's.
 //
-// The f32 forms run the same designs on the tensor cores in 3xTF32
-// (mma.sync m16n8k8 tf32, f32 sums): each f32 operand x is split into
-// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and each product is
-// lo*hi' + hi*lo' + hi*hi' (lo*lo' dropped), ~2^-21 of each term against
-// the bf16 pieces' 2^-17. The apply and the rows pass are the bf16 kernels
-// instantiated for float: the A rows (g, v, k; q) stay f32 in shared memory
-// (a 128 x 256 tile is 130 KB, one block an SM) and are split as their
-// fragments load (plain 32-bit loads: ldmatrix is 16-bit); B (kvs, P, P^T;
-// kvs^T) is split once per call into tf32 hi + lo and streamed in 64-deep
-// chunks (two stages of hi and lo, 68 KB beside the A tile's 130 KB). Every
-// 16 deep the products go into fresh sums added to the running sums in f32
-// round-to-nearest, so that the tensor cores' own accumulation, which may
-// truncate, never chains more than one such step. The P pass
-// (la_bwd_reduce_tf32_kernel) is the node-axis contraction with q split as
-// its fragments load and gd = g * (1/den) split once a chunk into shared
-// tf32 hi + lo tiles. Two tf32 pieces of kvs keep dinv's cancelling sums
-// where the bf16 rows pass needs three bf16 pieces.
+// The f32 forms run the same designs on the tensor cores in 3xTF32: each
+// f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna),
+// and each product is lo*hi' + hi*lo' + hi*hi' (lo*lo' dropped), ~2^-21 of
+// each term against the bf16 pieces' 2^-17. What bounds them is the
+// products: three TF32 products for each f32-accurate one, at the card's
+// 495 TFLOP/s of TF32 (165 TFLOP/s of f32 products; ~0.27 and ~0.40 ms at
+// the arxiv shape). On mma.sync m16n8k8 they ran at 20-27 % of that bound:
+// MMA issue held them back, three MMAs and two B fragment loads for each
+// 16 x 8 x 8 product, and the split of each A fragment reused over a warp
+// tile's 32 columns. The apply and the rows pass now run them on warpgroup
+// MMAs (tc::wg_column_tile, wgmma m64n64k8 tf32): the A rows (g, v, k; q)
+// stay f32 in shared memory (a 128 x 256 tile is 130 KB, one block an SM)
+// and each warp's fragments are split as they load and feed the MMAs from
+// registers, each one over 64 output columns; B (kvs, P, P^T; kvs^T) is
+// split once per call into tf32 hi + lo and streamed in 64-deep chunks,
+// 128-byte swizzled (two stages of hi and lo, 64 KB, at the start of the
+// dynamic block, which must be 1024-byte aligned: the f32 kernels have no
+// static shared memory), and each wgmma reads it through a descriptor, a
+// 64 x 64 x 8 product a warpgroup. Every 16 deep the products go into fresh
+// sums (scale-d = 0) added to the running sums in f32 round-to-nearest, so
+// that the tensor cores' own accumulation, which may truncate, never chains
+// more than one such step. That took the apply at the arxiv shape from 2.08
+// to 1.58 ms and the rows pass from 0.75 to 0.57 (NVIDIA H100, 700 W):
+// still ~4x the bound, since the MMA loop alone runs at ~45 % of the TF32
+// peak and one block an SM does not overlap the A staging, the B stream and
+// the epilogue with it (PERF.md). The P pass (la_bwd_reduce_tf32_kernel) stays on
+// mma.sync: the node-axis contraction with q split as its fragments load and
+// gd = g * (1/den) split once a chunk into shared tf32 hi + lo tiles (both
+// operands node-major, which tf32 wgmma, transposing no 32-bit operand,
+// does not read). Two tf32 pieces of kvs keep dinv's cancelling sums where
+// the bf16 rows pass needs three bf16 pieces.
 //
 // Inputs are row-strided views (ld* = elements between rows), so the heads
 // of an [N, H, *] tensor are read and written in place.
@@ -118,22 +132,19 @@ using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::ldmatrix_x4;
 using tc::mma_bf16;
-using tc::mma_tf32;
 using tc::split_tf32;
 using tc::kCsStride;
 using tc::kPadOf;
 using tc::kTcCols;
 using tc::kTcRows;
 using tc::kTcThreads;
-using tc::kTfBStage;
-using tc::kTfBStride;
 using tc::kTfK;
+using tc::kWgBBytes;
 using tc::load8;
 using tc::node_mma_chunk_tf32;
 using tc::store8;
 using tc::tc_stage_rows;
 using tc::tc_tile_to_smem;
-using tc::tf32_column_tile;
 using tc::tile8;
 
 constexpr int kTile = 64;      // output tile (rows x columns)
@@ -536,13 +547,13 @@ constexpr size_t kTcBStageBytes = kTcBStage * sizeof(__nv_bfloat16);
 using tc::kSmemPerBlock;
 
 // The f32 (3xTF32) forms pad a shared A row by 16 bytes as a bf16 one
-// (kTcPad) and stream B in kTfK-deep f32 chunks (tensor_core.cuh).
+// (kTcPad) and stream B in kTfK-deep f32 chunks through the warpgroup core
+// (tc::wg_column_tile: two stages of hi and lo, kWgBBytes, first in the
+// dynamic block), up to widths of kWgMaxK.
 static_assert(kTcK % kTfK == 0, "whole tf32 chunks in the padded depth");
+constexpr int kWgMaxK = 256;
 template <typename T>
 constexpr bool kIsF32 = std::is_same_v<T, float>;
-// bytes of one piece's B chunk
-template <typename T>
-constexpr size_t kBStageBytes = kIsF32<T> ? kTfBStage * sizeof(float) : kTcBStageBytes;
 
 // The padded extents of the split operands: kvs and P as [n = M][k = D]
 // (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
@@ -607,8 +618,8 @@ la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, 
 
 // The f32 output tile of the epilogue (tc::kCsStride) lies over the B
 // stages once a column tile's products are done.
-static_assert(kTcRows * kCsStride * 4 <= 4 * kBStageBytes<__nv_bfloat16> &&
-                  kTcRows * kCsStride * 4 <= 4 * kBStageBytes<float>,
+static_assert(kTcRows * kCsStride * 4 <= 4 * kTcBStageBytes &&
+                  kTcRows * kCsStride * 4 <= kWgBBytes,
               "C tile must fit the B stages");
 static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
 
@@ -722,21 +733,6 @@ __device__ __forceinline__ void tc_column_tile(float (&acc)[2][4][4], const __nv
   }
 }
 
-// The column tile of either type: bf16 A rows by tc_column_tile with B in
-// kPieces bf16 pieces, f32 A rows in 3xTF32 with B as tf32 hi + lo
-// (tc::tf32_column_tile).
-template <int kPieces, bool kStepSums, typename T>
-__device__ __forceinline__ void column_tile(float (&acc)[2][4][4], const T* As, int a_stride,
-                                            T* Bs, const T* __restrict__ B_hi, size_t piece_off,
-                                            int Kp, int c0, int tid, int lane, int wm, int wn) {
-  if constexpr (kIsF32<T>) {
-    tf32_column_tile(acc, As, a_stride, Bs, B_hi, piece_off, Kp, c0, tid, lane, wm, wn);
-  } else {
-    tc_column_tile<kPieces, kStepSums>(acc, As, a_stride, Bs, B_hi, piece_off, Kp, c0, tid, lane,
-                                       wm, wn);
-  }
-}
-
 // grid (ceil(N / kTcRows)); dynamic shared memory: the A tile
 // [kTcRows][max(Dk, Mk) + kTcPad] and two stages of B chunks (hi and lo,
 // [kTcCols][kTcK + kTcPad] each). vec_a: 1 when the A rows (g, v, k) may be
@@ -747,11 +743,9 @@ __device__ __forceinline__ void column_tile(float (&acc)[2][4][4], const T* As, 
 // shared memory, so that its reads of q, k, g and its writes of dq, dk, dv
 // are 16-byte and coalesced (straight from the registers' fragment layout
 // they are 4-byte and scattered, and they, not the MMAs, set the kernel's
-// time on the H100). T = float: the f32 form, in 3xTF32 (hl: tf32 pieces
-// in f32; the A tile is f32, 130 KB at M = D = 256, ~198 KB with the B
-// stages, one block an SM).
+// time on the H100). bf16 only: the f32 form is la_bwd_apply_wg_kernel.
 template <typename T>
-__global__ void __launch_bounds__(kTcThreads, kIsF32<T> ? 1 : 2)
+__global__ void __launch_bounds__(kTcThreads, 2)
 la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ g, long ldq, long ldk, long ldv, long ldg,
                        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, long lddq,
@@ -760,6 +754,7 @@ la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        const float* __restrict__ scal, const float* __restrict__ n_total,
                        const float* __restrict__ dinv, const float* __restrict__ den,
                        const float* __restrict__ gden, int guard, int vec_a, int vec_io) {
+  static_assert(!kIsF32<T>, "the f32 form is la_bwd_apply_wg_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TcDims t(M, D);
   const int a_stride = max(t.Dk, t.Mk) + kPadOf<T>;
@@ -780,14 +775,8 @@ la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
   const size_t nk = t.kvs_elems();
 
-  // f32: one block an SM, whose A staging and epilogue traffic nothing of
-  // its own overlaps; blocks start at different products and column tiles,
-  // so that the SMs do not all move those bytes at once (~2 % of the
-  // kernel's time at a full amazon2m batch on the H100)
-  const int rot = static_cast<int>(blockIdx.x);
-  for (int w = 0; w < 3; ++w) {
+  for (int which = 0; which < 3; ++which) {
     // dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M
-    const int which = kIsF32<T> ? (w + rot) % 3 : w;
     const T* A = which == 0 ? g : (which == 1 ? v : k);
     const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
     const int K = which == 2 ? M : D;
@@ -802,9 +791,9 @@ la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
     const int tiles = (C + kTcCols - 1) / kTcCols;
     for (int ti = 0; ti < tiles; ++ti) {
-      const int c0 = (kIsF32<T> ? (ti + rot) % tiles : ti) * kTcCols;
+      const int c0 = ti * kTcCols;
       float acc[2][4][4];
-      column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
+      tc_column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
       // epilogue: the tile through shared memory, then 8 columns a thread
       // step with 16-byte loads and stores
       float* Cs = reinterpret_cast<float*>(Bs);
@@ -857,14 +846,14 @@ template <typename T>
 size_t tc_smem_bytes(int M, int D) {
   const TcDims t(M, D);
   const int a_stride = (t.Dk > t.Mk ? t.Dk : t.Mk) + kPadOf<T>;
-  return static_cast<size_t>(kTcRows) * a_stride * sizeof(T) + 4 * kBStageBytes<T>;
+  return static_cast<size_t>(kTcRows) * a_stride * sizeof(T) + 4 * kTcBStageBytes;
 }
 
 // The reduce's rows pass on the tensor cores. grid (ceil(N / kTcRows));
 // dynamic shared memory: the q tile [kTcRows][Mk + kPadOf<T>] and the B
 // stages of kvs^T (its kRowsPieces<T> pieces, hl as tc::split_t_kernel
-// writes it): ~123 KB at M = 256 in bf16, ~198 KB in f32 (T = float: the
-// 3xTF32 form, hl tf32 pieces in f32), one block an SM. Block bx owns
+// writes it): ~123 KB at M = 256, one block an SM (bf16 only: the f32 form
+// is la_bwd_rows_wg_kernel). Block bx owns
 // rows [128*bx, 128*bx + 128): b = q . ksum from the staged q rows, then
 // a = q @ kvs one 64-column tile at a time, each tile folded at once into
 // sum_d g*a and sum_d g*v per row (eight threads a row, 8 columns each, a
@@ -879,6 +868,7 @@ la_bwd_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ v, const T*
                       const float* __restrict__ n_total, int guard, int vec_a, int vec_io,
                       float* __restrict__ den_out, float* __restrict__ gden_out,
                       double* __restrict__ dinv_part) {
+  static_assert(!kIsF32<T>, "the f32 form is la_bwd_rows_wg_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float b_s[kTcRows];
   __shared__ float ga_s[kTcRows];
@@ -916,8 +906,8 @@ la_bwd_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ v, const T*
   float* Cs = reinterpret_cast<float*>(Bs);
   for (int c0 = 0; c0 < D; c0 += kTcCols) {
     float acc[2][4][4];
-    column_tile<kRowsPieces<T>, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane,
-                                      wm, wn);
+    tc_column_tile<kRowsPieces<T>, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid,
+                                         lane, wm, wn);
     tc_tile_to_smem(Cs, acc, lane, wm, wn);
 #pragma unroll
     for (int it = 0; it < kSteps; ++it) {
@@ -995,7 +985,240 @@ template <typename T>
 size_t rows_tc_smem_bytes(int M, int D) {
   const TcDims t(M, D);
   return static_cast<size_t>(kTcRows) * (t.Mk + kPadOf<T>) * sizeof(T) +
-         2 * kRowsPieces<T> * kBStageBytes<T>;
+         2 * kRowsPieces<T> * kTcBStageBytes;
+}
+
+// ---------------------------------------------------------------------------
+// The f32 apply and rows pass on warpgroup MMAs in 3xTF32 (tc::wg_column_tile).
+// grid (ceil(N / kTcRows)), 128 rows a block, two warpgroups of 64 rows,
+// one block an SM. Dynamic shared memory, 1024-byte aligned (no static
+// shared memory, so the dynamic block starts the block's window): the two
+// B stages (kWgBBytes, 64 KB; the staged output tile lies over them) and the
+// f32 A tile [kTcRows][Kp + 4] (130 KB at a width of 256): ~194 KB.
+
+// the dynamic block of the f32 kernels for an A tile K (padded) wide
+size_t wg_smem_bytes(int K) {
+  return kWgBBytes + static_cast<size_t>(kTcRows) * (K + kPadOf<float>) * sizeof(float);
+}
+
+// The apply: for each product (dq: g @ kvs^T over D; dk: v @ P^T over D;
+// dv: k @ P over M) the block stages its A rows once, then forms its column
+// tiles, each finished in la_bwd_apply_tc_kernel's epilogue. Blocks start
+// at different products and column tiles (rot), so that the SMs do not all
+// stage A rows at once. vec_a, vec_io as la_bwd_apply_tc_kernel takes them.
+__global__ void __launch_bounds__(kTcThreads, 1)
+la_bwd_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ g, long ldq, long ldk,
+                       long ldv, long ldg, float* __restrict__ dq, float* __restrict__ dk,
+                       float* __restrict__ dv, long lddq, long lddk, long lddv, int N, int M, int D,
+                       const float* __restrict__ hl, const float* __restrict__ ksum,
+                       const float* __restrict__ ds, const float* __restrict__ scal,
+                       const float* __restrict__ n_total, const float* __restrict__ dinv,
+                       const float* __restrict__ den, const float* __restrict__ gden, int guard,
+                       int vec_a, int vec_io) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const TcDims t(M, D);
+  const int a_stride = max(t.Dk, t.Mk) + kPadOf<float>;
+  unsigned char* Bs = smem_raw;
+  float* Cs = reinterpret_cast<float*>(Bs);
+  float* As = reinterpret_cast<float*>(smem_raw + kWgBBytes);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  const float inv = scal[2];
+  const float n = *n_total;
+  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+  const size_t nk = t.kvs_elems();
+
+  const int rot = static_cast<int>(blockIdx.x);
+  for (int w = 0; w < 3; ++w) {
+    const int which = (w + rot) % 3;
+    const float* A = which == 0 ? g : (which == 1 ? v : k);
+    const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
+    const int K = which == 2 ? M : D;
+    const int Kp = which == 2 ? t.Mk : t.Dk;
+    const int C = which == 2 ? D : M;
+    const float* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
+    const size_t lo_off = which == 2 ? t.pt_elems() : nk;
+
+    __syncthreads();  // the previous product is done with As
+    tc_stage_rows(As, a_stride, A, lda, r0, N, K, Kp, vec_a, tid);
+    __syncthreads();
+
+    const int tiles = (C + kTcCols - 1) / kTcCols;
+    for (int ti = 0; ti < tiles; ++ti) {
+      const int c0 = (ti + rot) % tiles * kTcCols;
+      float acc[32];
+      tc::wg_column_tile(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, warp);
+      tc::wg_tile_to_smem(Cs, acc, lane, warp);
+#pragma unroll
+      for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
+        const int i = tid + it * kTcThreads;
+        const int r = i / (kTcCols / 8);
+        const int cs = (i % (kTcCols / 8)) * 8;
+        const long row = r0 + r;
+        const int c = c0 + cs;
+        if (row >= N || c >= C) continue;
+        const int cols = min(8, C - c);
+        const bool vec = vec_io && cols == 8;
+        float a[8], o[8], x[8];
+        tile8(Cs, r, cs, a);
+        const float den_r = den[row];
+        if (which == 0) {
+          const float gden_r = gden[row];
+          load8(q + row * ldq + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float ks = e < cols ? ksum[c + e] : 0.f;
+            o[e] = inv * (a[e] / den_r) + inv * gden_r * ks - c_q * x[e];
+          }
+          store8(dq + row * lddq + c, vec, cols, o);
+        } else if (which == 1) {
+          load8(k + row * ldk + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float dsv = e < cols ? ds[c + e] : 0.f;
+            o[e] = inv * a[e] + inv * dsv - c_k * x[e];
+          }
+          store8(dk + row * lddk + c, vec, cols, o);
+        } else {
+          load8(g + row * ldg + c, vec, cols, x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = n * (x[e] / den_r) + inv * a[e];
+          store8(dv + row * lddv + c, vec, cols, o);
+        }
+      }
+      __syncthreads();  // Cs is the next column tile's B stages
+    }
+  }
+}
+
+// The rows pass: la_bwd_rows_tc_kernel's with the f32 core. b = q . ksum
+// from the staged q rows,
+// then a = q @ kvs one column tile at a time (kvs^T as tf32 hi + lo, hl as
+// tc::split_t_kernel writes it), each tile folded at once into sum_d g*a
+// and sum_d g*v per row (eight threads a row, 8 columns each, a fixed xor
+// tree across them), then den, gden and the block's f64 dinv partial, as
+// la_bwd_rows_kernel computes them, the per-row sums over the B stages.
+__global__ void __launch_bounds__(kTcThreads, 1)
+la_bwd_rows_wg_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                      const float* __restrict__ g, long ldq, long ldv, long ldg, int N, int M,
+                      int D, const float* __restrict__ hl, const float* __restrict__ ksum,
+                      const float* __restrict__ scal, const float* __restrict__ n_total,
+                      int guard, int vec_a, int vec_io, float* __restrict__ den_out,
+                      float* __restrict__ gden_out, double* __restrict__ dinv_part) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const TcDims t(M, D);
+  const int a_stride = t.Mk + kPadOf<float>;
+  unsigned char* Bs = smem_raw;
+  float* Cs = reinterpret_cast<float*>(Bs);
+  float* As = reinterpret_cast<float*>(smem_raw + kWgBBytes);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, t.Mk, vec_a, tid);
+  __syncthreads();
+  float b = 0.f;  // q . ksum of row tid / 2, two threads a row (adjacent lanes), f32
+  {
+    const float* qr = As + static_cast<size_t>(tid >> 1) * a_stride;
+    for (int c = tid & 1; c < M; c += 2) b = fmaf(qr[c], ksum[c], b);
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+  }
+
+  // thread tid folds columns (tid % 8) * 8 .. + 8 of rows tid / 8 + 32 * it
+  constexpr int kSteps = kTcRows * (kTcCols / 8) / kTcThreads;
+  float ga[kSteps], gv[kSteps];
+#pragma unroll
+  for (int it = 0; it < kSteps; ++it) ga[it] = gv[it] = 0.f;
+  for (int c0 = 0; c0 < D; c0 += kTcCols) {
+    float acc[32];
+    tc::wg_column_tile(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane, warp);
+    tc::wg_tile_to_smem(Cs, acc, lane, warp);
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int r = i / (kTcCols / 8);
+      const int cs = (i % (kTcCols / 8)) * 8;
+      const long row = r0 + r;
+      const int c = c0 + cs;
+      float pga = 0.f, pgv = 0.f;
+      if (row < N && c < D) {
+        const int cols = min(8, D - c);
+        const bool vec = vec_io && cols == 8;
+        float a[8], x[8], y[8];
+        tile8(Cs, r, cs, a);
+        load8(g + row * ldg + c, vec, cols, x);
+        load8(v + row * ldv + c, vec, cols, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          pga = fmaf(x[e], a[e], pga);
+          pgv = fmaf(x[e], y[e], pgv);
+        }
+      }
+      // the eight threads of a row are lanes 8j .. 8j + 7 of one warp
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1) {
+        pga += __shfl_xor_sync(0xffffffffu, pga, off);
+        pgv += __shfl_xor_sync(0xffffffffu, pgv, off);
+      }
+      ga[it] += pga;
+      gv[it] += pgv;
+    }
+    __syncthreads();  // Cs is the next column tile's B stages
+  }
+  float* b_s = Cs;
+  float* ga_s = b_s + kTcRows;
+  float* gv_s = ga_s + kTcRows;
+  double* red = reinterpret_cast<double*>(gv_s + kTcRows);
+  if ((tid & 1) == 0) b_s[tid >> 1] = b;
+  if ((tid & 7) == 0) {
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int r = (tid + it * kTcThreads) / (kTcCols / 8);
+      ga_s[r] = ga[it];
+      gv_s[r] = gv[it];
+    }
+  }
+  __syncthreads();
+
+  if (tid < kTcRows) {
+    const long row = r0 + tid;
+    double part = 0.0;
+    if (row < N) {
+      const float inv = scal[2];
+      const float n = *n_total;
+      const float bb = b_s[tid];
+      const float s_ga = ga_s[tid];
+      float den = inv * bb + n;
+      float gden;
+      if (guard && den == 0.f) {
+        den = 1.f;
+        gden = 0.f;
+      } else {
+        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
+      }
+      den_out[row] = den;
+      gden_out[row] = gden;
+      part = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+    }
+    red[tid] = part;
+  }
+  __syncthreads();
+  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
 // The reduce's P pass on the tensor cores: the node-axis contraction of the
@@ -1294,13 +1517,25 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
   if (err != cudaSuccess) return err;
   const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
   const int vec_io = ldg % kPer == 0 && ldv % kPer == 0 && aligned16(g) && aligned16(v);
-  const size_t smem = rows_tc_smem_bytes<T>(M, D);
-  err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  la_bwd_rows_tc_kernel<T><<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
-      q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
-      dinv_part);
+  const unsigned row_blocks = (N + kTcRows - 1) / kTcRows;
+  if constexpr (kIsF32<T>) {
+    const size_t smem = wg_smem_bytes(TcDims(M, D).Mk);
+    err = cudaFuncSetAttribute(la_bwd_rows_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    la_bwd_rows_wg_kernel<<<row_blocks, kTcThreads, smem, st>>>(
+        q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
+        dinv_part);
+  } else {
+    const size_t smem = rows_tc_smem_bytes<T>(M, D);
+    err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    la_bwd_rows_tc_kernel<T><<<row_blocks, kTcThreads, smem, st>>>(
+        q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
+        dinv_part);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int vec = M % kPer == 0 && D % kPer == 0 && ldq % kPer == 0 && ldg % kPer == 0 &&
@@ -1330,19 +1565,16 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
 // the B stages (above 640 in bf16, 256 in f32).
 int bwd_reduce_scratch(int dtype, int M, int D) {
   constexpr size_t kStatic = 4096;  // la_bwd_rows_tc_kernel's static shared memory, rounded up
-  size_t smem;
-  int pieces;
+  const TcDims t(M, D);
   if (dtype == 1) {
-    smem = rows_tc_smem_bytes<__nv_bfloat16>(M, D);
-    pieces = kRowsPieces<__nv_bfloat16>;
-  } else if (dtype == 0) {
-    smem = rows_tc_smem_bytes<float>(M, D);
-    pieces = kRowsPieces<float>;
-  } else {
-    return 0;
+    if (rows_tc_smem_bytes<__nv_bfloat16>(M, D) + kStatic > kSmemPerBlock) return 0;
+    return static_cast<int>(kRowsPieces<__nv_bfloat16> * t.pt_elems());
   }
-  if (smem + kStatic > kSmemPerBlock) return 0;
-  return static_cast<int>(pieces * TcDims(M, D).pt_elems());
+  if (dtype == 0) {
+    if (t.Mk > kWgMaxK || wg_smem_bytes(t.Mk) > kSmemPerBlock) return 0;
+    return static_cast<int>(kRowsPieces<float> * t.pt_elems());
+  }
+  return 0;
 }
 
 template <typename T>
@@ -1363,7 +1595,8 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
 }
 
 // The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces, or
-// tf32 pieces in f32 for T = float), then la_bwd_apply_tc_kernel<T>.
+// tf32 pieces in f32 for T = float), then la_bwd_apply_tc_kernel<T> (bf16)
+// or la_bwd_apply_wg_kernel (f32).
 template <typename T>
 cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, long ldq,
                                 long ldk, long ldv, long ldg, T* dq, T* dk, T* dv, long lddq,
@@ -1378,13 +1611,26 @@ cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, 
   la_bwd_split_kernel<T><<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || N == 0) return err;
-  const size_t smem = tc_smem_bytes<T>(M, D);
-  err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  la_bwd_apply_tc_kernel<T><<<(N + kTcRows - 1) / kTcRows, kTcThreads, smem, st>>>(
-      q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
-      n_total, dinv, den, gden, guard, vec_a, vec_io);
+  const unsigned row_blocks = (N + kTcRows - 1) / kTcRows;
+  if constexpr (kIsF32<T>) {
+    const TcDims t(M, D);
+    const size_t smem = wg_smem_bytes(max(t.Dk, t.Mk));
+    err = cudaFuncSetAttribute(la_bwd_apply_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    la_bwd_apply_wg_kernel<<<row_blocks, kTcThreads, smem, st>>>(
+        q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
+        n_total, dinv, den, gden, guard, vec_a, vec_io);
+  } else {
+    const size_t smem = tc_smem_bytes<T>(M, D);
+    err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    la_bwd_apply_tc_kernel<T><<<row_blocks, kTcThreads, smem, st>>>(
+        q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
+        n_total, dinv, den, gden, guard, vec_a, vec_io);
+  }
   return cudaGetLastError();
 }
 
@@ -1460,7 +1706,9 @@ extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
   if (dtype == 1) {
     smem = tc_smem_bytes<__nv_bfloat16>(M, D);
   } else if (dtype == 0) {
-    smem = tc_smem_bytes<float>(M, D);
+    const TcDims t(M, D);
+    if (t.Mk > kWgMaxK || t.Dk > kWgMaxK) return 0;
+    smem = wg_smem_bytes(max(t.Dk, t.Mk));
   } else {
     return 0;
   }

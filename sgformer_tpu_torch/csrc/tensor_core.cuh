@@ -4,7 +4,9 @@
 // - PTX wrappers: ldmatrix (plain and transposed), mma.sync m16n8k16 bf16
 //   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 bf16 -> f32 with
 //   its fences and the 128-byte-swizzled shared-memory layout and
-//   descriptors it reads (the forward apply's);
+//   descriptors it reads (the forward apply's); wgmma m64n64k8 tf32 -> f32
+//   with A from registers and B from the same swizzle over f32 rows (the
+//   f32 backward apply's and rows pass's);
 // - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
 //   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
 //   kernels');
@@ -16,9 +18,10 @@
 //   forward reduce and P = q^T (g / den) of the backward reduce: the
 //   [N, M]^T x [N, D] product that the TPU kernels accumulate over their
 //   sequential grid and that the card splits over slices of N;
-// - the row kernels' core for f32 A rows in 3xTF32 (the f32 forward apply,
-//   the f32 backward apply and rows pass): A rows staged once, a split B
-//   streamed in 64-deep chunks, a 128 x 64 output tile at a time, and the
+// - the row kernels' cores for f32 A rows in 3xTF32: A rows staged once, a
+//   split B streamed in 64-deep chunks, a 128 x 64 output tile at a time,
+//   on mma.sync (tf32_column_tile: the f32 forward apply) or on warpgroup
+//   MMAs (wg_column_tile: the f32 backward apply and rows pass); and the
 //   epilogue's staged tile and 8-column row accesses.
 //
 // Both operands are node-major, so the MMA's A fragment (row-major m x k)
@@ -377,6 +380,46 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// every group of this warpgroup's MMAs but the kPending newest has completed
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The same swizzle over f32 rows: a row of a K-major tile holds 32 f32 (128
+// bytes), so a 64-deep chunk is two such tiles (swizzle atoms) along K, and
+// the k8 step s of an atom starts 32*s bytes in; descriptors as sw128_desc
+// (the byte layout is the bf16 one's). Byte offset of element (r, c), c < 32.
+__device__ __forceinline__ int sw128_offset_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// d[64 x 64] = A[64 x 8] B[8 x 64] + (scale_d ? d : 0), tf32 in, f32 sums.
+// A from registers: each warp's 16 rows of the warpgroup's 64 as mma_tf32's
+// A fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
+// g = lane / 4, t = lane % 4); B K-major in swizzled shared memory (32-bit
+// operands are not transposed); d laid out as wgmma_m64n64k16's.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsigned (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
@@ -446,9 +489,12 @@ cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t s
 // ---------------------------------------------------------------------------
 // The row kernels' core (the backward apply and rows pass, the f32 forward
 // apply): a block owns kTcRows rows of an A operand staged in shared memory
-// and forms A @ B^T kTcCols output columns at a time, 8 warps in a 4 x 2
-// grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each). B is a split
-// operand, n-major ([n][k], contiguous in k), as split_t_kernel writes it.
+// and forms A @ B^T kTcCols output columns at a time. B is a split operand,
+// n-major ([n][k], contiguous in k), as split_t_kernel writes it. On
+// mma.sync (bf16, and the f32 forward apply's tf32_column_tile) 8 warps in
+// a 4 x 2 grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each); on
+// warpgroup MMAs (wg_column_tile, the f32 backward apply and rows pass) two
+// warpgroups of 64 rows, each warp's 16 rows across all kTcCols columns.
 
 constexpr int kTcRows = 128;
 constexpr int kTcCols = 64;
@@ -625,6 +671,148 @@ __device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2]
         *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
             make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
       }
+  __syncthreads();
+}
+
+// The column tile for f32 A rows in 3xTF32 on warpgroup MMAs (wgmma
+// m64n64k8 tf32): acc = As [kTcRows][Kp] (f32, rows a_stride apart) @ B^T
+// for the output columns [c0, c0 + kTcCols), warpgroup w's rows 64w .. 64w
+// + 64, acc laid out as wgmma_m64n64k8_tf32's d. B is the split operand
+// [n][Kp] as tf32 hi (at B_hi) and lo (B_hi + lo_off), streamed in
+// kTfK-deep chunks, double-buffered by cp.async into Bs (1024-byte aligned,
+// kWgBBytes: [stage][hi, lo][atom][kTcCols][32], 128-byte swizzled), and
+// read by the MMAs through descriptors.
+//
+// What bound the mma.sync core (tf32_column_tile) was issue: three m16n8k8
+// MMAs and two fragment loads of B a product of 16 x 8 x 8, and the split of
+// each A fragment reused over a warp tile's 32 columns. Here one wgmma forms
+// a 64 x 64 x 8 product with B read through a descriptor, and each A
+// fragment, split into tf32 hi + lo as it loads from As (plain 32-bit
+// loads: rows a_stride = Kp + 4 apart, so the 32 addresses fall in distinct
+// banks), feeds all kTcCols columns. Each product is lo*hi + hi*lo + hi*hi,
+// the cross terms first. Every kWgPeriod deep the MMAs start fresh sums
+// (scale-d = 0), added to acc with f32 round-to-nearest adds, so that the
+// tensor cores' own accumulation, which may truncate, never chains more
+// than one period; a period's sums are double-buffered, so that its MMAs
+// run while the warps load and split the next period's A fragments and add
+// the last period's sums. Ends with a barrier, after which Bs is free.
+constexpr int kWgPeriod = 16;
+constexpr int kWgAtom = kTcCols * 128;       // bytes of a chunk's 32-deep atom
+constexpr int kWgBPiece = 2 * kWgAtom;       // bytes of one piece's chunk
+constexpr size_t kWgBBytes = 4 * kWgBPiece;  // two stages of hi and lo: 64 KB
+static_assert(kTfK == 64 && kWgPeriod % 8 == 0 && kTfK % kWgPeriod == 0 && kTcCols == 64,
+              "whole periods a chunk, two atoms a chunk, one m64n64 MMA a column tile");
+
+__device__ __forceinline__ void wg_column_tile(float (&acc)[32], const float* As, int a_stride,
+                                               unsigned char* Bs,
+                                               const float* __restrict__ B_hi, size_t lo_off,
+                                               int Kp, int c0, int tid, int lane, int warp) {
+  constexpr int kSteps = kWgPeriod / 8;       // k8 steps a period
+  constexpr int kPeriods = kTfK / kWgPeriod;  // periods a chunk
+  const int chunks = Kp / kTfK;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  // one chunk: [kTcCols][kTfK] of hi and of lo, 16 bytes a copy
+  auto load_b = [&](int kc, int stage) {
+    constexpr int kSegs = kTfK / 4;
+    constexpr int kCopies = 2 * kTcCols * kSegs;
+    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int it = 0; it < kCopies / kTcThreads; ++it) {
+      const int i = tid + it * kTcThreads;
+      const int piece = i / (kTcCols * kSegs);
+      const int row = (i / kSegs) % kTcCols;
+      const int c = (i % kSegs) * 4;
+      const float* src = B_hi + piece * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTfK + c;
+      cp_async16(Bs + (stage * 2 + piece) * kWgBPiece + (c >> 5) * kWgAtom +
+                     sw128_offset_f32(row, c & 31),
+                 src);
+    }
+    cp_async_commit();
+  };
+
+  // the warp's rows 16 * warp + lane / 4 (+ 8), k = lane % 4 (+ 4)
+  const float* a_row = As + static_cast<size_t>(warp * 16 + (lane >> 2)) * a_stride + (lane & 3);
+  float part[2][32];
+  unsigned ah[2][kSteps][4], al[2][kSteps][4];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) part[b][i] = 0.f;
+  // the A fragments of the period from k, as tf32 hi + lo
+  auto load_a = [&](unsigned (&h)[kSteps][4], unsigned (&l)[kSteps][4], int k) {
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const float* p = a_row + k + ks * 8;
+      split_tf32(p[0], h[ks][0], l[ks][0]);
+      split_tf32(p[8 * a_stride], h[ks][1], l[ks][1]);
+      split_tf32(p[4], h[ks][2], l[ks][2]);
+      split_tf32(p[8 * a_stride + 4], h[ks][3], l[ks][3]);
+    }
+  };
+  // the period's MMAs into fresh sums d: k8 steps s0 .. s0 + kSteps of the
+  // chunk at Bh (its hi piece; lo one piece on)
+  auto issue = [&](float (&d)[32], const unsigned (&h)[kSteps][4],
+                   const unsigned (&l)[kSteps][4], const unsigned char* Bh, int s0) {
+    wgmma_fence_operand(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = s0 + ks;
+      const unsigned char* b = Bh + (s >> 2) * kWgAtom + (s & 3) * 32;
+      wgmma_m64n64k8_tf32(d, l[ks], sw128_desc(b), ks);  // lo*hi', fresh at the period's start
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b + kWgBPiece), 1);  // hi*lo'
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b), 1);              // hi*hi'
+    }
+    wgmma_commit();
+  };
+  auto fold = [&](float (&d)[32]) {
+    wgmma_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  };
+
+  load_b(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      load_b(kc + 1, (kc + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // chunk kc has landed
+    const unsigned char* Bh = Bs + (kc & 1) * 2 * kWgBPiece;
+#pragma unroll
+    for (int p = 0; p < kPeriods; ++p) {
+      load_a(ah[p & 1], al[p & 1], kc * kTfK + p * kWgPeriod);
+      issue(part[p & 1], ah[p & 1], al[p & 1], Bh, p * kSteps);
+      if (p > 0) {
+        wgmma_wait<1>();  // period p - 1's MMAs are done
+        fold(part[(p - 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+    fold(part[(kPeriods - 1) & 1]);
+    __syncthreads();  // this stage is refilled two chunks on
+  }
+}
+
+// The warpgroup column tile into Cs [kTcRows][kCsStride] (over the B
+// stages), followed by a barrier: acc[4j + 2h + e] at row 16 * warp + lane / 4
+// + 8h, column 8j + 2 * (lane % 4) + e.
+__device__ __forceinline__ void wg_tile_to_smem(float* Cs, const float (&acc)[32], int lane,
+                                                int warp) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = warp * 16 + (lane >> 2) + h * 8;
+      const int c = j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
   __syncthreads();
 }
 

@@ -30,11 +30,14 @@ memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
 qᵀ(g/den) (``la_bwd_rows_tc_kernel``, ``la_bwd_reduce_tc_kernel``,
 mma.sync: kvs split into bf16 hi + mid + lo, g/den into hi + lo) and
 :func:`bwd_apply`'s three products (``la_bwd_apply_tc_kernel``, mma.sync:
-kvs and P split into hi + lo). On f32 inputs every kernel runs the same
-designs in 3xTF32 (mma.sync m16n8k8 tf32: each f32 operand split into tf32
-hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums): the reduce
-(``la_reduce_tf32_kernel``), the apply (``la_apply_tf32_kernel``, the
-backward rows pass's core) and both backward kernels. Both reduces' tiles
+kvs and P split into hi + lo). On f32 inputs every kernel runs in 3xTF32
+(each f32 operand split into tf32 hi + lo, each product lo*hi + hi*lo +
+hi*hi, f32 sums): on mma.sync m16n8k8 tf32 the reduce
+(``la_reduce_tf32_kernel``), the apply (``la_apply_tf32_kernel``) and the
+backward reduce's P pass (``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs
+(wgmma m64n64k8 tf32, A from registers) the backward reduce's rows pass
+(``la_bwd_rows_wg_kernel``) and the backward apply
+(``la_bwd_apply_wg_kernel``). Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
 full width in shared memory run on the CUDA cores where it does not fit
 (the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
@@ -250,7 +253,8 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _bwd_reduce_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return "tensor cores (mma.sync 3xTF32: q, kvs and g/den as tf32 hi + lo, f32 sums)"
+        return ("tensor cores (3xTF32, f32 sums: rows pass wgmma, q and kvs as tf32 hi + lo; "
+                "P pass mma.sync, q and g/den as tf32 hi + lo)")
     return "tensor cores (mma.sync bf16, kvs as bf16 hi + mid + lo, g/den as hi + lo, f32 sums)"
 
 
@@ -427,7 +431,7 @@ def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _bwd_apply_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return "tensor cores (mma.sync 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums)"
+        return "tensor cores (wgmma 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums)"
     return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
 
 

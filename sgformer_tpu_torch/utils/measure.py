@@ -108,3 +108,36 @@ def apply_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
     ksum = (0.5 + draw(m)) / m ** 0.5
     scal = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
     return q, v, kvs, ksum, scal, torch.ones((), device=dev)
+
+
+def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
+    """Inputs of the linear-attention backward apply, (q, k, v, g, kvs, ksum,
+    scal, n_total, P, ds, dinv, rows) in its argument order, on ``gen``'s
+    device, on which its three products carry dq, dk and dv, so that a
+    kernel's index mapping and its precision on kvs and P both show; q, v,
+    g, kvs, ksum, scal and n_total are also inputs of the backward reduce on
+    which q @ kvs carries den's partner terms.
+
+    The products' A rows (g, v, k) and q are positive (0.5 to 1.5); kvs and
+    P ~ N(0, 1) in f32, so that every (row, column) pairing moves an output
+    (one TF32 product in place of three, ~2^-11 of each term, misses the f32
+    tolerance by far); n = inv = 1 and den = 1 to 2 a row, so that n * gd in
+    dv is the size of one term of k @ P and not of their sum; gden, ds and
+    dinv ~1e-2 and ksum positive, ~1 / m, so that the epilogue's other terms
+    show without swamping the products."""
+    dev = gen.device
+
+    def draw(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    q, k = ((0.5 + draw(n, m)).to(dtype) for _ in range(2))
+    v, g = ((0.5 + draw(n, d)).to(dtype) for _ in range(2))
+    kvs, P = randn(m, d), randn(m, d)
+    ksum = (0.5 + draw(m)) / m
+    scal = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    rows = torch.stack([1.0 + draw(n), 1e-2 * randn(n)])
+    return (q, k, v, g, kvs, ksum, scal, torch.ones((), device=dev), P, 1e-2 * randn(m),
+            1e-2 * randn(()), rows)

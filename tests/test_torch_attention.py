@@ -26,7 +26,7 @@ from sgformer_tpu.ops.attention import linear_attention as jax_linear_attention
 from sgformer_tpu_torch.kernels import attention as attn
 from sgformer_tpu_torch.kernels.attention import fused_linear_attention
 from sgformer_tpu_torch.ops.attention import linear_attention
-from sgformer_tpu_torch.utils.measure import apply_product_inputs
+from sgformer_tpu_torch.utils.measure import apply_product_inputs, bwd_product_inputs
 
 torch.set_num_threads(1)
 
@@ -629,15 +629,48 @@ def _mm_3xtf32(a, b, lo=True):
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi if lo else a_hi @ b_hi
 
 
-def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True):
-    """The f32 backward reduce (``la_bwd_rows_tc_kernel<float>``,
-    ``la_bwd_reduce_tf32_kernel``) and apply (``la_bwd_apply_tc_kernel<float>``)
+def _round_toward_zero(x):
+    """f64 ``x`` rounded to f32 toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_3xtf32_sums(a, b, period):
+    """a @ b as the f32 row kernels' warpgroup MMAs sum it (``tc::wg_column_tiles``):
+    each operand split into tf32 hi + lo; k in steps of 8, each step's
+    lo*hi, hi*lo and hi*hi added in that order into the period's sum, each
+    add the step's products summed exactly and then rounded toward zero to
+    f32 (the tensor cores' own accumulation, which behaves as if it
+    truncates); every ``period`` deep the sum starts afresh and is added to
+    the running f32 sum rounded to nearest. Returns f64."""
+    a_hi, a_lo = (x.double() for x in _split_tf32(a))
+    b_hi, b_lo = (x.double() for x in _split_tf32(b))
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], period):
+        part = torch.zeros_like(out)
+        for k in range(k0, min(k0 + period, a.shape[1]), 8):
+            s = slice(k, k + 8)
+            for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                part = _round_toward_zero(part.double() + x[:, s] @ y[s])
+        out = out + part
+    return out.double()
+
+
+def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True, period=None):
+    """The f32 backward reduce (``la_bwd_rows_wg_kernel``,
+    ``la_bwd_reduce_tf32_kernel``) and apply (``la_bwd_apply_wg_kernel``)
     in 3xTF32, unguarded: a = q @ kvs, den, gden and dinv from it; gd =
     g * (1/den) in f32, P = qᵀ gd; then dq (1/den in the epilogue), dk and
-    dv from the f32 P, ds and dinv. Returns P, dinv, dq, dk, dv in f64."""
+    dv from the f32 P, ds and dinv. The pieces' products are summed in f64,
+    or with ``period`` the row kernels' (a, dq, dk, dv) as their MMAs sum
+    them (:func:`_mm_3xtf32_sums`). Returns P, dinv, dq, dk, dv in f64."""
     qd, vd, gdd = q.double(), v.double(), g.double()
     inv, n = scal[2].double(), n_total.double()
-    a = _mm_3xtf32(q, kvs, lo)
+
+    def rows_mm(a, b):
+        return _mm_3xtf32(a, b, lo) if period is None else _mm_3xtf32_sums(a, b, period)
+
+    a = rows_mm(q, kvs)
     b = qd @ ksum.double()
     den = inv * b + n
     gden = -(inv * (gdd * a).sum(1) + n * (gdd * vd).sum(1)) / (den * den)
@@ -647,10 +680,10 @@ def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True):
     ds = qd.T @ gden
     Pf, dsf, dinvf = P.float(), ds.float(), dinv.float()
     c_q, c_k = (dinvf * scal[2] / scal[i] for i in (0, 1))
-    dq = inv * (_mm_3xtf32(g, kvs.T, lo) / den[:, None]) + inv * gden[:, None] * ksum.double() \
+    dq = inv * (rows_mm(g, kvs.T) / den[:, None]) + inv * gden[:, None] * ksum.double() \
         - c_q.double() * qd
-    dk = inv * _mm_3xtf32(v, Pf.T, lo) + inv * dsf.double() - c_k.double() * k.double()
-    dv = n * (gdd / den[:, None]) + inv * _mm_3xtf32(k, Pf, lo)
+    dk = inv * rows_mm(v, Pf.T) + inv * dsf.double() - c_k.double() * k.double()
+    dv = n * (gdd / den[:, None]) + inv * rows_mm(k, Pf)
     return P, dinv, dq, dk, dv
 
 
@@ -721,6 +754,111 @@ def test_tf32_backward_reduce_dinv_at_n_one():
     err = (dinv - dinv_x).abs()
     assert err <= 1e-6 * dinv_x.abs() and err <= 1e-10 * sums
     assert (P - P_x).abs().max() <= 1e-6 * P_x.abs().max()
+
+
+# the depth of the row kernels' fresh sums (tc::kWgPeriod), and the whole
+# depth of the products at M = D = 256: one chain, no fresh sums
+_WG_PERIOD = 16
+_ONE_CHAIN = 256
+
+
+def _accumulation_errors(seed, positive, period):
+    """M = D = 256 on 2,048 rows (randn at n = N, or positive at n = 1), the
+    backward through the row kernels' accumulation at ``period``: dinv's
+    error over |dinv| and over its two sums' magnitude, and dq's, dk's and
+    dv's over their scale, against the plain backward in f64 (dq, dk, dv
+    from the f32 P, ds and dinv, as the apply reads them)."""
+    n, m = 2048, 256
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(a) for a in
+                  (rng.random if positive else rng.standard_normal)((4, n, m))
+                  .astype(np.float32))
+    n_t = torch.tensor(1.0 if positive else float(n))
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    _, dinv, *grads = _tf32_backward(q, k, v, g, kvs, ksum, scal, n_t, period=period)
+    (P_x, ds_x, dinv_x, (den, gden)), _ = _f64_backward(q, k, v, g, kvs, ksum, scal, n_t)
+    _, exact = _f64_backward(q, k, v, g, kvs, ksum, scal, n_t, P_x.float(), ds_x.float(),
+                             dinv_x.float())
+    qd, gdd = q.double(), g.double()
+    sums = (gdd / den[:, None] * (qd @ kvs.double())).abs().sum() \
+        + (gden * (qd @ ksum.double())).abs().sum()
+    err = (dinv - dinv_x).abs()
+    return ((err / dinv_x.abs()).item(), (err / sums).item(),
+            *(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(grads, exact)))
+
+
+@pytest.mark.parametrize("period", [_WG_PERIOD, _ONE_CHAIN])
+def test_tf32_backward_accumulation_keeps_f32_precision(period):
+    """The inputs of test_tf32_backward_keeps_f32_precision (randn, n = N)
+    through the row kernels' accumulation (:func:`_mm_3xtf32_sums`: the
+    tensor cores' sums truncate): at the kernels' period, 16 deep, dq and dk
+    stay within 1e-6 of their scale and dinv within 1e-6 of itself, as with
+    the split alone; summed in one chain over the whole depth, dq, dk or
+    dinv misses 1e-6, so the fresh sums are what keep them."""
+    dinv_rel, _, dq, dk, _ = _accumulation_errors(31, False, period)
+    assert (max(dq, dk) <= 1e-6 and dinv_rel <= 1e-6) == (period == _WG_PERIOD)
+
+
+@pytest.mark.parametrize("period", [_WG_PERIOD, _ONE_CHAIN])
+def test_tf32_backward_accumulation_at_n_one(period):
+    """The inputs of test_tf32_backward_reduce_dinv_at_n_one (positive,
+    n = 1), where the products carry dinv and the gradients, through the
+    row kernels' accumulation: at the kernels' period dinv is within 2^-14
+    of its sums' magnitude (N1_REL_TOL of the card's check) and dq, dk, dv
+    within 1e-5 of their scale (the card's f32 BWD_REL_TOL); in one chain
+    over the whole depth dq or dk misses 1e-5. The truncation leaves dinv
+    here ~3e-8 of its sums' magnitude off (~4e-4 of itself: the sums cancel
+    to ~1e-4 of their size), so the 1e-6 and 1e-10 that the split alone
+    keeps do not hold for the tensor cores' sums, at this period or any
+    other (``tc::tf32_column_tile``, on mma.sync, sums in the same order
+    and 16 deep too)."""
+    _, dinv_sums, dq, dk, dv = _accumulation_errors(32, True, period)
+    assert dinv_sums <= 2.0 ** -14
+    assert max(dq, dk, dv) <= 1e-5 if period == _WG_PERIOD else max(dq, dk) > 1e-5
+
+
+# Faults of an f32 backward apply, each as what one of its products would
+# be formed from (A rows, B as [k][n]): B's lo piece dropped (one TF32
+# product in place of three), A's k-steps swapped (k and k ^ 8), B's
+# columns swapped in pairs, and A's rows shifted against the epilogue's.
+_BWD_FAULTS = {
+    "lo piece dropped": lambda a, b: (a, _tf32(b)),
+    "k-steps swapped": lambda a, b: (a[:, torch.arange(a.shape[1]) ^ 8], b),
+    "B columns swapped": lambda a, b: (a, b[:, torch.arange(b.shape[1]) ^ 1]),
+    "A rows shifted": lambda a, b: (torch.roll(a, 1, 0), b),
+}
+
+
+@pytest.mark.parametrize("fault", list(_BWD_FAULTS))
+def test_bwd_product_inputs_catch_a_faulty_kernel(fault):
+    """The card checks of the f32 backward apply (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) hold it to ``bwd_apply_plain`` in f64 at
+    the f32 tolerance (1e-5 of each output's scale) on
+    ``bwd_product_inputs``. There the design's arithmetic (3xTF32 products
+    summed as the warpgroup MMAs sum them, the epilogue in f32) passes in
+    dq, dk and dv, and the same arithmetic with one fault in its products
+    misses in each."""
+    gen = torch.Generator().manual_seed(29)
+    ins = bwd_product_inputs(300, 128, 128, torch.float32, gen)
+    q, k, v, g, kvs, ksum, scal, n_t, P, ds, dinv, (den, gden) = ins
+    exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+    inv = scal[2]
+    c_q, c_k = dinv * inv / scal[0], dinv * inv / scal[1]
+
+    def misses(broken):
+        """Which of dq, dk, dv miss the tolerance with products formed
+        from broken(A, B)."""
+        def mm(a, b):
+            return _mm_3xtf32_sums(*broken(a, b), _WG_PERIOD).float()
+
+        dq = inv * (mm(g, kvs.T) / den[:, None]) + inv * gden[:, None] * ksum - c_q * q
+        dk = inv * mm(v, P.T) + inv * ds - c_k * k
+        dv = n_t * (g / den[:, None]) + inv * mm(k, P)
+        return [bool(((a.double() - b).abs().max() > 1e-5 * b.abs().max()).item())
+                for a, b in zip((dq, dk, dv), exact)]
+
+    assert misses(lambda a, b: (a, b)) == [False] * 3
+    assert misses(_BWD_FAULTS[fault]) == [True] * 3
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -24,7 +24,7 @@ from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, csr_spmm_ev_b
 from sgformer_tpu_torch.ops.attention import linear_attention
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values, spmm_edge_values_backward
-from sgformer_tpu_torch.utils.measure import apply_product_inputs, rel_err
+from sgformer_tpu_torch.utils.measure import apply_product_inputs, bwd_product_inputs, rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -233,7 +233,8 @@ def test_reduce_designs_name_the_kernels(cuda):
     """The forward reduces run on the tensor cores at every width (bf16;
     f32 in 3xTF32: the node rows stream through a fixed tile); bf16
     backward reduces at any width the backward's q tile fits (up to M =
-    640), the f32 backward reduce in 3xTF32 up to M = 256."""
+    640), the f32 backward reduce in 3xTF32 up to M = 256 (its rows pass on
+    warpgroup MMAs, its P pass on mma.sync)."""
     for m, d in ((256, 256), (37, 40), (640, 64), (1024, 64)):
         assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
         f32 = attn.reduce_design(torch.float32, m, d)
@@ -241,7 +242,7 @@ def test_reduce_designs_name_the_kernels(cuda):
         assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores") == (
             m <= 640)
         f32 = attn.bwd_reduce_design(torch.float32, m, d)
-        assert f32.startswith("tensor cores (mma.sync 3xTF32") == (m <= 256), f32
+        assert f32.startswith("tensor cores (3xTF32, f32 sums: rows pass wgmma") == (m <= 256), f32
     assert attn.bwd_reduce_design(torch.float32, 256, 999).startswith("tensor cores")
     assert attn.bwd_reduce_design(torch.float32, 257, 8).startswith("CUDA cores")
 
@@ -308,6 +309,32 @@ def test_tf32_backward_takes_any_width(cuda, m, d, strided):
         assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(q, k, v, g, *sums,
                                                                            n_t, *red)))
         assert (attn.bwd_reduce_launches - b0, attn.bwd_apply_launches - a0) == (2, 2)
+
+
+@pytest.mark.parametrize("m,d", [(8, 72), (72, 200), (200, 256), (256, 256)])
+def test_tf32_backward_kernels_carry_the_products(cuda, m, d):
+    """The f32 backward kernels on warpgroup MMAs (the apply, the reduce's
+    rows pass) where their products carry the outputs and every (row,
+    column) pairing of kvs and P moves them (``bwd_product_inputs``: one
+    TF32 product in place of three, k-steps or B columns swapped, or A rows
+    shifted would miss the f32 tolerance), with tail rows (N = 777): the
+    reduce within 1e-5 of its scale of its plain version in f64 (dinv of its
+    sums' magnitude), the apply within 1e-5 of each output's scale of
+    ``bwd_apply_plain`` in f64; each bitwise repeatable."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    ins = bwd_product_inputs(777, m, d, torch.float32, gen)
+    q, k, v, g, kvs, ksum, scal, n_t = ins[:8]
+    assert "rows pass wgmma" in attn.bwd_reduce_design(torch.float32, m, d)
+    assert attn.bwd_apply_design(torch.float32, m, d).startswith("tensor cores (wgmma 3xTF32")
+    got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
+    _f64_bwd_reduce_close(got_r, q, v, g, kvs, ksum, scal, n_t)
+    assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, kvs, ksum, scal,
+                                                                        n_t)))
+    got_a = attn.bwd_apply(*ins)
+    exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+    for a, b in zip(got_a, exact):
+        _check_rel(a, b, BWD_REL[torch.float32])
+    assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(*ins)))
 
 
 def _f64_reduce_close(got, q, k, v):
