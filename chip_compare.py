@@ -12,6 +12,8 @@ in the same call as the change.
     python3 chip_compare.py narrow ROOT
     python3 chip_compare.py tf32-bwd ROOT
     python3 chip_compare.py busy ROOT
+    python3 chip_compare.py schedule ROOT
+    python3 chip_compare.py designs ROOT [ROOT ...]
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -69,12 +71,46 @@ at four shapes, and counts the ``HGMMA`` and ``HMMA`` instructions of each
 backward kernel in ``cuobjdump -sass`` of its built library. The mode
 prints each turn's JSON line, then one line that sets the turns side by
 side and says whether the bf16 digests of the two packages are equal.
-``busy``: ROOT's own amazon2m-batch-train, papers-sampled-train and
-arxiv-cli-train phases (``chip_smoke.amazon2m_batch_phase``,
-``papers_sampled_phase``, ``cli_phase``) with this checkout's
-``profile_device``, so that both checkouts' device-busy ms a step or batch
-are read by one definition; run it in turns (parent, change, change,
-parent) to compare them.
+``busy``: ROOT's own arxiv-train, powerlaw-train, amazon2m-batch-train,
+papers-sampled-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
+``powerlaw_train_phase``, ``amazon2m_batch_phase``,
+``papers_sampled_phase``, ``cli_phase``) on graphs that ROOT's
+``preprocess_graph`` builds, with this checkout's ``profile_device``, so
+that both checkouts' device-busy ms a step or batch are read by one
+definition; run it in turns (parent, change, change, parent) to compare
+them.
+``schedule``: the CSR row walk of ROOT and of this checkout, each turn a
+process of its own (``schedule-turn ROOT``), in turns ROOT, this checkout,
+this checkout, ROOT. A turn builds synth-arxiv with its package's
+``preprocess_graph`` (seconds and peak device MiB; with a walk order, the
+clustering's seconds alone) and with
+``reorder=True``, the power-law bench graph both ways, the batch tiers'
+subgraphs (a full batch and the tail of arxiv-batch and amazon2m-batch) and
+one papers-sampled batch graph (C++ sampler, seed 0), then times each call
+(CUDA events, median of 20, and its kernels' device ms by the profiler)
+beside ``torch.sparse.mm`` (one call a head) with its gathered rate and a
+sha256 digest of its output: ``csr_spmm`` at
+every width of ``SWEEP_WIDTHS`` and ``csr_spmm_ev`` at every shape of
+``SWEEP_EV_SHAPES`` (messages in bf16 and f32, f32 out) on the arxiv graph,
+``csr_spmm_ev_bwd`` at GAT's two layer shapes there (bf16 messages of f32 x
+and g; dx and dv), ``csr_spmm`` at F = 40 and 256 on the reordered arxiv
+graph and on the power-law graph both ways, at F = 256 on the batch
+subgraphs and on the sampled batch's A and A^T, bf16 and f32 (the sampled
+batch f32); each held to its plain version (but ``csr_spmm_ev_bwd``) and
+bitwise repeatable. A package with walk orders runs each call as the model
+path does (the graph's order) and again without one. The mode prints each
+turn's JSON line, then each call's turns side by side, and fails unless
+every output is bitwise the same in every turn, with and without a walk
+order.
+``designs``: the CSR row walk of each ROOT (copies of the package, each
+with one design change), each turn a process of its own
+(``designs-turn ROOT``), in turns ROOT1 ... ROOTk and back: each turn
+prints its ``csr_spmm_kernel`` instances' registers and spills from
+``ptxas`` and times ``csr_spmm`` at every width of ``SWEEP_WIDTHS`` on
+synth-arxiv and at ``SCHEDULE_WIDTHS`` on the power-law graph, bf16 and
+f32, in the graph's walk order and without, and ``csr_spmm_ev`` at (H, D)
+= (2, 40) f32 and (2, 256) bf16; then the turns side by side, and whether
+each output is bitwise the same in every turn.
 """
 
 from __future__ import annotations
@@ -98,14 +134,19 @@ def load_phases(path: str):
 
 def main() -> int:
     modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
-             "tf32-bwd", "tf32-bwd-turn", "busy")
-    if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat") or (
-            sys.argv[1] not in modes):
+             "tf32-bwd", "tf32-bwd-turn", "busy", "schedule", "schedule-turn", "designs",
+             "designs-turn")
+    if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
+            or len(sys.argv) > 3 and sys.argv[1] == "designs") or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
     if mode == "tf32-bwd":
         return tf32_bwd(root)
+    if mode == "schedule":
+        return schedule(root)
+    if mode == "designs":
+        return designs([os.path.abspath(r) for r in sys.argv[2:]])
     sys.path.insert(0, root)
     import torch
 
@@ -135,6 +176,10 @@ def main() -> int:
         return host_cost(cs, root)
     if mode == "tf32-bwd-turn":
         return tf32_bwd_turn(cs, root)
+    if mode == "schedule-turn":
+        return schedule_turn(cs, root)
+    if mode == "designs-turn":
+        return designs_turn(cs, root)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -350,22 +395,34 @@ def batch_build(cs) -> int:
 BF16_DIGEST_SHAPES = ((169_343, 256, 256), (100_000, 256, 256), (777, 37, 19), (777, 130, 200))
 
 
-def tf32_bwd(root: str) -> int:
-    """The ``tf32-bwd`` mode: four turns, each ``tf32-bwd-turn`` in a
-    process of its own, then the turns side by side."""
+def run_turns(mode: str, root: str, order=None):
+    """``mode`` on ROOT, this checkout, this checkout and ROOT (or on the
+    roots of ``order``), each turn a process of its own; the last line of
+    each turn's output (a JSON object) parsed, or None if a turn failed."""
     import json
     import subprocess
 
     turns = []
-    for which in (root, HERE, HERE, root):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "tf32-bwd-turn", which],
+    for which in order or (root, HERE, HERE, root):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), mode, which],
                              capture_output=True, text=True, timeout=900)
         sys.stdout.write(out.stdout)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
             print(f"chip_compare: the turn on {which} failed ({out.returncode})", file=sys.stderr)
-            return 1
+            return None
         turns.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    return turns
+
+
+def tf32_bwd(root: str) -> int:
+    """The ``tf32-bwd`` mode: four turns, each ``tf32-bwd-turn`` in a
+    process of its own, then the turns side by side."""
+    import json
+
+    turns = run_turns("tf32-bwd-turn", root)
+    if turns is None:
+        return 1
     digests = {t["root"]: t["bf16_digests"] for t in turns}
     side = {f"turn {i} ({'ROOT' if t['root'] == root else 'this checkout'})": t["f32"]
             for i, t in enumerate(turns)}
@@ -458,8 +515,343 @@ def tf32_bwd_turn(cs, root: str) -> int:
     return 0
 
 
+# the schedule mode's widths beside SWEEP_WIDTHS: on the reordered arxiv
+# graph and on the power-law graph both ways
+SCHEDULE_WIDTHS = (40, 256)
+# the kernels of a csr_spmm or csr_spmm_ev call, whose device ms the mode
+# reads from the profiler beside the call's CUDA-event ms
+WALK_KERNELS = ("csr_spmm_kernel", "csr_spmm_hub_kernel")
+
+
+def schedule(root: str) -> int:
+    """The ``schedule`` mode: four turns, each ``schedule-turn`` in a
+    process of its own, then each call's turns side by side; fails unless
+    every output is bitwise the same in every turn."""
+    import json
+
+    turns = run_turns("schedule-turn", root)
+    if turns is None:
+        return 1
+    names = ["ROOT" if t["root"] == root else "this checkout" for t in turns]
+    side, same = {}, True
+    for key in turns[1]["calls"]:
+        base = key.removesuffix(" [no walk order]")
+        rows = [t["calls"].get(key) or t["calls"].get(base) for t in turns]
+        if any(r is None for r in rows):
+            continue
+        equal = len({r["sha256"] for r in rows}) == 1
+        same &= equal
+        side[key] = dict(ms=[r["ms"] for r in rows], device_ms=[r["device_ms"] for r in rows],
+                         library_ms=rows[0]["library_ms"],
+                         gather_tb_per_s=[r["gather_tb_per_s"] for r in rows],
+                         bitwise_equal=equal)
+        print(f"schedule {key}: " + ", ".join(f"{n} {r['ms']:.4f}" for n, r in zip(names, rows))
+              + " ms (device " + ", ".join(f"{r['device_ms']:.4f}" for r in rows)
+              + f"); torch.sparse.mm {rows[0]['library_ms']}; "
+              + ("bitwise equal" if equal else "OUTPUTS DIFFER"), flush=True)
+    for i, t in enumerate(turns):
+        print(f"schedule set-up, turn {i} ({names[i]}): {json.dumps(t['setup'])}", flush=True)
+    print(json.dumps({"schedule_turns": side, "turns": names, "all_bitwise_equal": same}),
+          flush=True)
+    return 0 if same else 1
+
+
+def schedule_turn(cs, root: str, dev: str = "cuda") -> int:
+    """One turn of the ``schedule`` mode on ROOT's package; its last line
+    of output is a JSON object of its numbers."""
+    import hashlib
+    import inspect
+    import json
+    import time
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import add_self_loops, remove_self_loops, to_undirected
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import spmm as k
+    from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+    from sgformer_tpu_torch.ops.spmm import spmm_edge_values
+    from sgformer_tpu_torch.sample import CSRGraph, NeighborSampler
+    from sgformer_tpu_torch.train import build_sampled_graph, build_subgraph_batch
+
+    if dev == "cuda":
+        _build.build_all(("spmm",))
+    ordered = "schedule" in inspect.signature(k.csr_spmm).parameters
+    out = dict(root=root, walk_orders=ordered, calls={}, setup={})
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+
+    def orders(order):
+        """(key suffix, keyword arguments) of each walk a call is timed in."""
+        if not ordered:
+            return [("", {})]
+        return [("", {"schedule": order})] + (
+            [(" [no walk order]", {"schedule": None})] if order is not None else [])
+
+    def timed(key, run, plain, tol, gathered, library, kernels=WALK_KERNELS):
+        got = run()
+        err = None
+        if plain is not None:
+            want = plain()
+            torch.cuda.synchronize()
+            err = cs.check_close(key, got, want, **tol)
+            del want
+        again = run()
+        if not all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                again if isinstance(again, tuple) else (again,))):
+            raise AssertionError(f"{key} is not bitwise repeatable")
+        sha = digest(torch.cat([t.reshape(-1).float() for t in got])
+                     if isinstance(got, tuple) else got)
+        del got, again
+        ms = cs.time_ms(run)
+        device_ms = sum(cs.kernel_ms(run, kernels).values())
+        lib_ms = cs.library_time(f"torch.sparse.mm {key}", library) if library else None
+        out["calls"][key] = dict(ms=ms, device_ms=device_ms, library_ms=lib_ms, sha256=sha,
+                                 max_abs_err=err, gather_tb_per_s=gathered / ms / 1e9)
+        cs.log(f"schedule {root} {key}: {ms:.4f} ms ({device_ms:.4f} ms on the device), "
+               f"gathers {gathered / 1e6:.1f} MB of rows at {gathered / ms / 1e9:.2f} TB/s; "
+               f"torch.sparse.mm {lib_ms} ms; sha256 {sha}")
+
+    def sparse(indptr, src, w, n_rows, n_cols):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(indptr, src, w, size=(n_rows, n_cols))
+
+    def spmm_calls(where, g, widths, dtypes=(torch.bfloat16, torch.float32), transposed=False):
+        if transposed:
+            csr = (g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_weight)
+            plan, order = g.t_hub_segments, getattr(g, "t_schedule", None)
+            if order is None and g.symmetric:
+                order = getattr(g, "schedule", None)
+        else:
+            csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+            plan, order = g.hub_segments, getattr(g, "schedule", None)
+        n, e = g.num_nodes, g.num_edges
+        gen = torch.Generator(device=dev).manual_seed(22)
+        for f in widths:
+            x32 = torch.randn(n, f, generator=gen, device=dev)
+            for dtype in dtypes:
+                x, name = x32.to(dtype), cs.DTYPE_NAME[dtype]
+                a = sparse(csr[0], csr[1], csr[3].to(dtype), n, n)
+                for suffix, kw in orders(order):
+                    timed(f"{where} csr_spmm {name} F={f}{suffix}",
+                          lambda: k.csr_spmm(x, *csr, plan, g.hub_edges, **kw),
+                          lambda: spmm_plain(x, *csr[1:], n), cs.TOL[dtype],
+                          e * f * x.element_size(), lambda: torch.sparse.mm(a, x))
+                del x, a
+            del x32
+            torch.cuda.empty_cache()
+
+    def setup_graph(what, data, **kw):
+        ds = synthetic_dataset(**data)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        g = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, **kw)
+        torch.cuda.synchronize()
+        out["setup"][f"{what} preprocess_graph s"] = time.perf_counter() - t
+        out["setup"][f"{what} preprocess_graph peak MiB"] = (
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+        if ordered and "reorder" not in kw:
+            from sgformer_tpu_torch.native.reorder import reorder_for_clusters
+
+            edges = torch.stack([g.edge_src, g.edge_dst]).cpu().numpy()
+            t = time.perf_counter()
+            reorder_for_clusters(edges, g.num_nodes)
+            out["setup"][f"{what} walk order (clustering) s"] = time.perf_counter() - t
+        cs.log(f"schedule {root} set-up {what}: "
+               + ", ".join(f"{k_}: {v:.3f}" for k_, v in out["setup"].items()
+                           if k_.startswith(what + " ")))
+        return ds, g
+
+    # step 0's measured case and the sweep: synth-arxiv as it comes and
+    # reordered; the power-law bench graph both ways
+    ds, graph = setup_graph("arxiv", dict(name="synth-arxiv", seed=0), chunk_dtype="bf16")
+    spmm_calls("arxiv", graph, cs.SWEEP_WIDTHS)
+    n, e = graph.num_nodes, graph.num_edges
+    csr = (graph.indptr, graph.edge_src, graph.edge_dst)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for heads, d in cs.SWEEP_EV_SHAPES:
+        x32 = torch.randn(n, heads, d, generator=gen, device=dev)
+        v = torch.rand(e, heads, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, name = x32.to(dtype), cs.DTYPE_NAME[dtype]
+            mats = [sparse(graph.indptr, graph.edge_src, v[:, h].to(dtype), n, n)
+                    for h in range(heads)]
+            cols = [x[:, h].contiguous() for h in range(heads)]
+            for suffix, kw in orders(getattr(graph, "schedule", None)):
+                timed(f"arxiv csr_spmm_ev {name} H={heads} D={d}{suffix}",
+                      lambda: k.csr_spmm_ev(x, *csr, v, torch.float32, graph.hub_segments,
+                                            graph.hub_edges, **kw),
+                      lambda: spmm_edge_values(x, *csr[1:], v, n, torch.float32),
+                      cs.TOL[torch.float32], e * heads * d * x.element_size(),
+                      lambda: [torch.sparse.mm(a, c) for a, c in zip(mats, cols)])
+            del x, mats, cols
+        del x32, v
+        torch.cuda.empty_cache()
+    t_csr = (graph.t_indptr, graph.t_edge_src, graph.t_edge_dst, graph.t_perm)
+    for heads, d in cs.GAT_LAYERS:
+        x = torch.randn(n, heads, d, generator=gen, device=dev)
+        g_ = torch.randn(n, heads, d, generator=gen, device=dev)
+        v = torch.rand(e, heads, generator=gen, device=dev)
+        t_order = getattr(graph, "t_schedule", None)
+        if t_order is None:
+            t_order = getattr(graph, "schedule", None)
+        for suffix, kw in orders(t_order):
+            kw = {"t_schedule": kw["schedule"]} if kw else {}
+            timed(f"arxiv csr_spmm_ev_bwd bf16 messages H={heads} D={d}{suffix}",
+                  lambda: k.csr_spmm_ev_bwd(g_, x, v, *t_csr, torch.bfloat16,
+                                            graph.t_hub_segments, graph.hub_edges, **kw),
+                  None, None, e * heads * d * 4, None, ("ev_bwd_kernel", "csr_spmm_hub_kernel"))
+        del x, g_, v
+        torch.cuda.empty_cache()
+    edges = torch.stack([graph.edge_src, graph.edge_dst])
+    del graph
+    torch.cuda.empty_cache()
+    _, rgraph = setup_graph("arxiv reordered", dict(name="synth-arxiv", seed=0),
+                            chunk_dtype="bf16", reorder=True)
+    spmm_calls("arxiv reordered", rgraph, SCHEDULE_WIDTHS)
+    del rgraph, ds
+    for what, kw in (("power-law", {}), ("power-law reordered", {"reorder": True})):
+        pl, pl_graph = setup_graph(what, cs.POWERLAW_GRAPH, **kw)
+        spmm_calls(what, pl_graph, SCHEDULE_WIDTHS)
+        del pl, pl_graph
+        torch.cuda.empty_cache()
+
+    # the batch tiers' subgraphs (no walk order) and one sampled batch
+    am = synthetic_dataset(**cs.AMAZON2M, device=dev)
+    ei = torch.from_numpy(am.graph["edge_index"]).to(dev)
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), am.num_nodes).int()
+    for what, ed, nodes, b in (("arxiv-batch", edges, n, cs.ARXIV_BATCH),
+                               ("amazon2m-batch", ei, am.num_nodes, cs.AMAZON2M_BATCH)):
+        perm = torch.from_numpy(np.random.default_rng(0).permutation(nodes)).to(dev)
+        for idx in (perm[:b], perm[nodes // b * b:]):
+            spmm_calls(f"{what} n={idx.numel()}", build_subgraph_batch(ed, idx, nodes), (256,))
+    del am, ei, edges
+    torch.cuda.empty_cache()
+    pd = synthetic_dataset(**cs.PAPERS, device=dev)
+    ei = torch.from_numpy(pd.graph["edge_index"]).to(dev)
+    ei = add_self_loops(remove_self_loops(to_undirected(ei)), pd.num_nodes)
+    papers = CSRGraph.from_edge_index(ei, pd.num_nodes)
+    del ei
+    torch.cuda.empty_cache()
+    seeds = np.random.default_rng(0).permutation(pd.num_nodes)[:cs.PAPERS_TRAIN["batch_size"]]
+    sampler = NeighborSampler(papers, pd.num_nodes, cs.PAPERS_TRAIN["fanouts"],
+                              cs.PAPERS_TRAIN["batch_size"], seed=0)
+    graph_b = build_sampled_graph(sampler.sample(seeds), dev)
+    for transposed in (False, True):
+        spmm_calls(f"papers-sampled{' A^T' if transposed else ' A'}", graph_b, (256,),
+                   (torch.float32,), transposed)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def designs(roots: list) -> int:
+    """The ``designs`` mode: ``designs-turn`` on each root, then back."""
+    import json
+
+    turns = run_turns("designs-turn", roots[0], roots + roots[::-1])
+    if turns is None:
+        return 1
+    names = [os.path.relpath(t["root"], HERE) for t in turns]
+    keys = []
+    for t in turns:
+        keys += [k for k in t["ms"] if k not in keys]
+    print("designs: " + " | ".join(names), flush=True)
+    for key in keys:
+        print(f"designs {key}: "
+              + ", ".join(f"{t['ms'].get(key, float('nan')):.4f}" for t in turns) + " ms",
+              flush=True)
+    same = all(len({t["sha256"][key] for t in turns}) == 1 for key in turns[0]["sha256"])
+    print(json.dumps({"designs": names, "ms": {k: [t["ms"].get(k) for t in turns] for k in keys},
+                      "registers": {n: t["registers"] for n, t in zip(names, turns)
+                                    if t["registers"]},
+                      "all_bitwise_equal": same}), flush=True)
+    return 0 if same else 1
+
+
+def designs_turn(cs, root: str, dev: str = "cuda") -> int:
+    """One turn of the ``designs`` mode on ROOT's package."""
+    import hashlib
+    import inspect
+    import json
+    import re
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import spmm as k
+
+    report = _build.build_all(("spmm",)).get("spmm", "") if dev == "cuda" else ""
+    registers, entry = [], None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(\S*csr_spmm_kernel\S*)'", line)
+        entry = found.group(1) if found else entry
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if entry and spill:
+            stores = int(spill.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if entry and used:
+            registers.append(dict(kernel=entry, registers=int(used.group(1)),
+                                  spill_stores=stores))
+            entry = None
+    ordered = "schedule" in inspect.signature(k.csr_spmm).parameters
+    out = dict(root=root, registers=registers, ms={}, sha256={})
+    ds = synthetic_dataset("synth-arxiv", seed=0)
+    arxiv = preprocess_graph(ds.graph["edge_index"], ds.num_nodes)
+    pl = synthetic_dataset(**cs.POWERLAW_GRAPH)
+    graphs = {"arxiv": (arxiv, cs.SWEEP_WIDTHS),
+              "power-law": (preprocess_graph(pl.graph["edge_index"], pl.num_nodes),
+                            SCHEDULE_WIDTHS)}
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def record(key, run, order):
+        got = run(order)
+        out["sha256"][key] = hashlib.sha256(got.contiguous().view(torch.uint8).cpu().numpy()
+                                            .tobytes()).hexdigest()[:16]
+        out["ms"][key] = cs.time_ms(lambda: run(order))
+        if order:
+            out["ms"][key + " [no walk order]"] = cs.time_ms(lambda: run({}))
+
+    for where, (g, widths) in graphs.items():
+        order = {"schedule": g.schedule} if ordered else {}
+        csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, g.hub_segments, g.hub_edges)
+        for f in widths:
+            x32 = torch.randn(g.num_nodes, f, generator=gen, device=dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = x32.to(dtype)
+                record(f"{where} csr_spmm {cs.DTYPE_NAME[dtype]} F={f}",
+                       lambda kw, x=x: k.csr_spmm(x, *csr, **kw), order)
+    order = {"schedule": arxiv.schedule} if ordered else {}
+    for heads, d, dtype in ((2, 40, torch.float32), (2, 256, torch.bfloat16)):
+        x = torch.randn(arxiv.num_nodes, heads, d, generator=gen, device=dev).to(dtype)
+        v = torch.rand(arxiv.num_edges, heads, generator=gen, device=dev)
+        record(f"arxiv csr_spmm_ev {cs.DTYPE_NAME[dtype]} H={heads} D={d}",
+               lambda kw, x=x, v=v: k.csr_spmm_ev(x, arxiv.indptr, arxiv.edge_src,
+                                                  arxiv.edge_dst, v, torch.float32,
+                                                  arxiv.hub_segments, arxiv.hub_edges, **kw),
+               order)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def busy(root: str) -> int:
     """The ``busy`` mode (see the module's docstring)."""
+    import time
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
     from sgformer_tpu_torch.data import synthetic_dataset
     from sgformer_tpu_torch.kernels import _build
     from sgformer_tpu_torch.native import build as native_build
@@ -470,6 +862,16 @@ def busy(root: str) -> int:
     _build.build_all()
     native_build.library()
     results: dict = {}
+    for what, data, phase in (("arxiv", dict(name="synth-arxiv", seed=0), cs.train_phase),
+                              ("power-law", cs.POWERLAW_GRAPH, cs.powerlaw_train_phase)):
+        ds = synthetic_dataset(**data)
+        t = time.perf_counter()
+        graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+        torch.cuda.synchronize()
+        cs.log(f"busy {root}: {what} preprocess_graph {time.perf_counter() - t:.2f} s")
+        phase(ds, graph, "cuda")
+        del ds, graph
+        torch.cuda.empty_cache()
     cs.amazon2m_batch_phase(results, "cuda")
     cs.papers_sampled_phase(results, "cuda")
     cs.cli_phase(synthetic_dataset("synth-arxiv", seed=0), results, "cuda")

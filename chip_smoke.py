@@ -55,7 +55,10 @@ JAX package. Phases, each failing loudly:
    and f32, each with its lane groups, time, gathered bytes and gather
    rate, read-once bound, ``torch.sparse.mm``'s time, max |kernel - plain|
    and bitwise repeatability, and H = 1 ``csr_spmm_ev`` bitwise
-   ``csr_spmm``;
+   ``csr_spmm``; every SpMM call in the graph's walk order
+   (``Graph.schedule``, the kernels' path in the models), the width sweep's
+   and 3's and 8's ``csr_spmm`` also in node order, bitwise the same, with
+   both times and gather rates;
 8. the CSR SpMM on the JAX package's power-law bench graph (169,343 nodes,
    powerlaw 1.1), width 256, bf16 and f32, through the graph's hub plan (rows
    of more than ``HUB_EDGES`` in-edges split over several warps), with the
@@ -570,13 +573,25 @@ def library_time(what: str, fn):
         return None
 
 
+def walk_orders(graph) -> tuple[dict, str]:
+    """The keyword arguments that give ``csr_spmm`` and ``csr_spmm_ev`` the
+    walk order of ``graph``'s A (none for a package or graph without one),
+    and its name for the log."""
+    order = getattr(graph, "schedule", None)
+    if order is None:
+        return {}, "node order"
+    return {"schedule": order}, "the graph's walk order"
+
+
 def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
                sweep: bool = False) -> None:
-    """csr_spmm on ``graph`` at F = 256 through the graph's hub plan, bf16
-    and f32: against its plain version, bitwise repeatable, with time,
-    bound, plain and library time. ``sweep`` also times the kernel with
-    the hub segment lengths of ``HUB_SWEEP``, each plan passed with its
-    length (bf16, each against plain)."""
+    """csr_spmm on ``graph`` at F = 256 through the graph's hub plan in its
+    walk order (``Graph.schedule``), bf16 and f32: against its plain
+    version, bitwise repeatable and bitwise the walk in node order, with
+    time (and node order's), gathered rate, bound, plain and library time.
+    ``sweep`` also times the kernel with the hub segment lengths of
+    ``HUB_SWEEP``, each plan passed with its length (bf16, each against
+    plain)."""
     from sgformer_tpu_torch.kernels.spmm import csr_spmm, hub_plan
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
 
@@ -585,19 +600,24 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
     segs = graph.hub_segments
     args = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight, segs,
             graph.hub_edges)
+    order, order_name = walk_orders(graph)
     hub_rows = torch.unique(segs[:, 0]).numel()
     log(f"{key}: {segs.shape[0]} hub segments of at most {graph.hub_edges} edges over "
-        f"{hub_rows} rows, {int((segs[:, 2] - segs[:, 1]).sum().item())} edges")
+        f"{hub_rows} rows, {int((segs[:, 2] - segs[:, 1]).sum().item())} edges; rows walked "
+        f"in {order_name}")
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(n, f, generator=gen, device=dev).to(dtype)
-        got = csr_spmm(x, *args)
+        got = csr_spmm(x, *args, **order)
         want = spmm_plain(x, graph.edge_src, graph.edge_dst, graph.gcn_weight, n)
         torch.cuda.synchronize()
         name = DTYPE_NAME[dtype]
         err = check_close(f"{key} {name} F={f}", got, want, **TOL[dtype])
-        if not torch.equal(got, csr_spmm(x, *args)):
+        if not torch.equal(got, csr_spmm(x, *args, **order)):
             raise AssertionError("csr_spmm is not bitwise repeatable")
-        ms = time_ms(lambda: csr_spmm(x, *args))
+        if not torch.equal(got, csr_spmm(x, *args)):
+            raise AssertionError("csr_spmm in the walk order is not bitwise node order's")
+        ms = time_ms(lambda: csr_spmm(x, *args, **order))
+        node_ms = time_ms(lambda: csr_spmm(x, *args)) if order else ms
         plain_ms = time_ms(lambda: spmm_plain(
             x, graph.edge_src, graph.edge_dst, graph.gcn_weight, n))
         with warnings.catch_warnings():
@@ -608,17 +628,21 @@ def spmm_phase(graph, results: dict, dev: str, key: str = "csr_spmm",
         elt = x.element_size()
         nbytes = 2 * n * f * elt + e * (4 + 4) + (n + 1) * 4
         b_ms, b_by = bound_ms(nbytes, 2 * e * f, dtype)
-        log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        gathered = e * f * elt
+        log(f"{key} {name}: {ms:.4f} ms in {order_name}, gathers {gathered / 1e6:.1f} MB of "
+            f"rows at {gathered / ms / 1e9:.2f} TB/s (node order {node_ms:.4f} ms, "
+            f"{gathered / node_ms / 1e9:.2f} TB/s; bitwise the same) (plain {plain_ms:.4f} ms, "
             f"torch.sparse.mm {library_ms} ms, bound {b_ms:.4f} ms by {b_by})")
         results[(key, name)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=library_ms, hub_segments=segs.shape[0])
+            max_abs_err=err, ms=ms, node_order_ms=node_ms, gather_tb_per_s=gathered / ms / 1e9,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            hub_segments=segs.shape[0])
         if sweep and dtype == torch.bfloat16:
             for t in HUB_SWEEP:
                 plan = hub_plan(graph.indptr, t)
-                check_close(f"{key} {name} segments of {t}", csr_spmm(x, *args[:4], plan, t),
-                            want, **TOL[dtype])
-                t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan, t))
+                check_close(f"{key} {name} segments of {t}",
+                            csr_spmm(x, *args[:4], plan, t, **order), want, **TOL[dtype])
+                t_ms = time_ms(lambda: csr_spmm(x, *args[:4], plan, t, **order))
                 log(f"{key} {name} segments of at most {t} edges: {plan.shape[0]} segments, "
                     f"{t_ms:.4f} ms")
                 results[(key, name)][f"seg{t}_ms"] = t_ms
@@ -1030,6 +1054,7 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
     src, dst = graph.edge_src, graph.edge_dst
     csr = (graph.indptr, src, dst)
     segs = (graph.hub_segments, graph.hub_edges)
+    order, _ = walk_orders(graph)
     gen = torch.Generator(device=dev).manual_seed(4)
     for layer, (heads, d) in enumerate(GAT_LAYERS):
         x32 = torch.randn(n, heads, d, generator=gen, device=dev)
@@ -1041,14 +1066,14 @@ def edge_value_phase(graph, results: dict, dev: str) -> None:
             x, g = x32.to(dtype), g32.to(dtype)
             elt = x.element_size()
             # the aggregation as GAT sends it: messages in dtype, f32 result
-            got = csr_spmm_ev(x, *csr, v, torch.float32, *segs)
+            got = csr_spmm_ev(x, *csr, v, torch.float32, *segs, **order)
             want = spmm_edge_values(x, src, dst, v, n, torch.float32)
             torch.cuda.synchronize()
             err = check_close(f"csr_spmm_ev {tag}", got, want, **TOL[torch.float32])
-            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32, *segs)):
+            if not torch.equal(got, csr_spmm_ev(x, *csr, v, torch.float32, *segs, **order)):
                 raise AssertionError("csr_spmm_ev is not bitwise repeatable")
             del got, want
-            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32, *segs))
+            ms = time_ms(lambda: csr_spmm_ev(x, *csr, v, torch.float32, *segs, **order))
             plain_ms = time_ms(lambda: spmm_edge_values(x, src, dst, v, n, torch.float32))
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
@@ -1127,7 +1152,8 @@ def edge_value_bwd(graph, results: dict, key: str, layer: int, g, x, v, msg,
     t_plan = (graph.t_hub_segments, graph.hub_edges)
     name, elt = DTYPE_NAME[msg], x.element_size()
     tag = f"{key} {DTYPE_NAME[x.dtype]} x, {name} messages, H={heads} D={d}"
-    run = lambda: csr_spmm_ev_bwd(g, x, v, *csr_t, msg, *t_plan)  # noqa: E731
+    t_order = {"t_schedule": graph.walk_orders[1]}
+    run = lambda: csr_spmm_ev_bwd(g, x, v, *csr_t, msg, *t_plan, **t_order)  # noqa: E731
 
     def pair():
         dx = csr_spmm_ev(g.to(msg), *csr_t[:3], v.index_select(0, graph.t_perm.long()), x.dtype,
@@ -1229,7 +1255,9 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
     groups (``design(d)``, ``kernels.spmm.walk_design`` when None), time,
     gathered bytes (a row of a head per edge and head) and their rate,
     read-once bound, the plain version's time and ``torch.sparse.mm``'s
-    (one call a head). Results under ``("sweep", key, op, heads, d, dtype)``."""
+    (one call a head); in the graph's walk order, and bitwise and timed in
+    node order beside it. Results under ``("sweep", key, op, heads, d,
+    dtype)``."""
     from sgformer_tpu_torch.kernels import spmm as spmm_kernel
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values
@@ -1238,6 +1266,7 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
     n, e = graph.num_nodes, graph.num_edges
     csr = (graph.indptr, graph.edge_src, graph.edge_dst)
     plan = (graph.hub_segments, graph.hub_edges)
+    order, order_name = walk_orders(graph)
     gen = torch.Generator(device=dev).manual_seed(12)
     cases = [("csr_spmm", 1, f) for f in widths] + [("csr_spmm_ev", h, d) for h, d in ev_shapes]
     for op, heads, d in cases:
@@ -1250,8 +1279,8 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
             if op == "csr_spmm":
                 x = x[:, 0]
 
-                def run():
-                    return spmm_kernel.csr_spmm(x, *csr, graph.gcn_weight, *plan)
+                def run(order=order):
+                    return spmm_kernel.csr_spmm(x, *csr, graph.gcn_weight, *plan, **order)
 
                 def plain():
                     return spmm_plain(x, *csr[1:], graph.gcn_weight, n)
@@ -1259,8 +1288,8 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
                 nbytes = 2 * n * d * elt + e * 8 + (n + 1) * 4
                 tag = f"{key} csr_spmm {name} F={d}"
             else:
-                def run():
-                    return spmm_kernel.csr_spmm_ev(x, *csr, v, torch.float32, *plan)
+                def run(order=order):
+                    return spmm_kernel.csr_spmm_ev(x, *csr, v, torch.float32, *plan, **order)
 
                 def plain():
                     return spmm_edge_values(x, *csr[1:], v, n, torch.float32)
@@ -1272,6 +1301,8 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
             err = check_close(tag, got, want, **tol)
             if not torch.equal(got, run()):
                 raise AssertionError(f"{tag} is not bitwise repeatable")
+            if not torch.equal(got, run({})):
+                raise AssertionError(f"{tag} in the walk order is not bitwise node order's")
             del got, want
             if op == "csr_spmm_ev" and heads == 1:
                 one = spmm_kernel.csr_spmm_ev(x, *csr, v, dtype, *plan)
@@ -1279,6 +1310,7 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
                     raise AssertionError(f"{tag}: one head is not bitwise csr_spmm")
                 del one
             ms, plain_ms = time_ms(run), time_ms(plain, iters=5)
+            node_ms = time_ms(lambda: run({})) if order else ms
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", UserWarning)
                 mats = [torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
@@ -1291,14 +1323,17 @@ def width_sweep(graph, results: dict, dev: str, key: str, widths: tuple,
             b_ms, b_by = bound_ms(nbytes, 2 * e * heads * d, dtype)
             walk = design(d)
             slower = library_ms is not None and ms > library_ms
-            log(f"{tag}: {ms:.4f} ms ({walk}); gathers {gathered / 1e6:.1f} MB of rows at "
-                f"{gathered / ms / 1e9:.2f} TB/s; read-once bound {b_ms:.4f} ms by {b_by}; "
-                f"plain {plain_ms:.4f} ms; torch.sparse.mm x{heads} {library_ms} ms"
+            log(f"{tag}: {ms:.4f} ms in {order_name} ({walk}); gathers "
+                f"{gathered / 1e6:.1f} MB of rows at {gathered / ms / 1e9:.2f} TB/s (node "
+                f"order {node_ms:.4f} ms, {gathered / node_ms / 1e9:.2f} TB/s, bitwise the "
+                f"same); read-once bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.4f} ms; "
+                f"torch.sparse.mm x{heads} {library_ms} ms"
                 f"{' (the kernel is slower)' if slower else ''}; bitwise repeatable")
             results[("sweep", key, op, heads, d, name)] = dict(
-                ms=ms, plain_ms=plain_ms, design=walk, gathered_mb=gathered / 1e6,
-                gather_tb_per_s=gathered / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, max_abs_err=err)
+                ms=ms, node_order_ms=node_ms, plain_ms=plain_ms, design=walk,
+                gathered_mb=gathered / 1e6, gather_tb_per_s=gathered / ms / 1e9,
+                node_order_gather_tb_per_s=gathered / node_ms / 1e9, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, max_abs_err=err)
             del x, mats, cols
         del x32, v
         torch.cuda.empty_cache()
@@ -1313,8 +1348,8 @@ def sweep_fields(results: dict, op: str) -> dict:
             _, where, _, heads, d, name = key
             shape = f"F={d}" if op == "csr_spmm" else f"H={heads} D={d}"
             out[f"{where} {shape} {name}"] = {k: r[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "gather_tb_per_s", "design",
-                "max_abs_err")}
+                "ms", "node_order_ms", "plain_ms", "library_ms", "bound_ms", "gather_tb_per_s",
+                "node_order_gather_tb_per_s", "design", "max_abs_err")}
     return out
 
 
@@ -1612,12 +1647,13 @@ def plain_versions():
     from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
     from sgformer_tpu_torch.ops.spmm import spmm_edge_values, spmm_q8
 
-    def plain_csr(x, csr, csr_t, segments=None, t_segments=None, segment_edges=None):
+    def plain_csr(x, csr, csr_t, segments=None, t_segments=None, segment_edges=None,
+                  schedule=None, t_schedule=None):
         indptr, edge_src, edge_dst, weight = csr
         return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
 
     def plain_ev(x, values, csr, csr_t, msg_dtype, segments=None, t_segments=None,
-                 segment_edges=None):
+                 segment_edges=None, schedule=None, t_schedule=None):
         indptr, edge_src, edge_dst = csr
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
@@ -3813,9 +3849,9 @@ def main() -> int:
 
     from sgformer_tpu_torch import preprocess_graph
     from sgformer_tpu_torch.data import synthetic_dataset
-    from sgformer_tpu_torch.graph import gcn_norm_rs
+    from sgformer_tpu_torch.graph import gcn_norm_rs, walk_order
     from sgformer_tpu_torch.kernels import _build, ops
-    from sgformer_tpu_torch.kernels.spmm import walk_design
+    from sgformer_tpu_torch.kernels.spmm import ROW_WALK, walk_design
     from sgformer_tpu_torch.native import build as native_build
 
     t = time.perf_counter()
@@ -3832,12 +3868,20 @@ def main() -> int:
 
     t = time.perf_counter()
     ds = synthetic_dataset("synth-arxiv", seed=0)
+    data_s = time.perf_counter() - t
     # bf16 messages for GAT's aggregation; the fixed-weight SpMM keeps x's type
     graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
-    log(f"dataset + preprocess_graph: {time.perf_counter() - t:.1f} s "
-        f"(N = {graph.num_nodes}, E = {graph.num_edges})")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t - data_s
+    t = time.perf_counter()
+    walk_order(torch.stack([graph.edge_src, graph.edge_dst]), graph.num_nodes)
+    log(f"dataset {data_s:.2f} s + preprocess_graph {prep_s:.2f} s (N = {graph.num_nodes}, "
+        f"E = {graph.num_edges}); its walk order (the clustering, on the host) alone "
+        f"{time.perf_counter() - t:.2f} s")
     if (graph.num_nodes, graph.num_edges) != (169_343, 2_499_039):
         raise AssertionError("unexpected arxiv-shape graph size")
+    if graph.schedule is None or graph.walk_orders[1] is not graph.schedule:
+        raise AssertionError("the arxiv graph has no walk order for its CSR kernels")
 
     results: dict = {}
     spmm_phase(graph, results, "cuda")
@@ -3857,6 +3901,8 @@ def main() -> int:
     log(f"power-law graph: {time.perf_counter() - t:.1f} s (N = {pl_graph.num_nodes}, "
         f"E = {pl_graph.num_edges}, in-degree max {deg.max().item()}, "
         f"mean {deg.float().mean().item():.1f})")
+    if pl_graph.schedule is None:
+        raise AssertionError("the power-law graph has no walk order for its CSR kernels")
     spmm_phase(pl_graph, results, "cuda", key="csr_spmm_powerlaw", sweep=True)
     width_sweep(pl_graph, results, "cuda", "powerlaw", SWEEP_POWERLAW_WIDTHS)
     # the int8 kernel alone on the same graph, with and without its hub plan
@@ -4020,6 +4066,8 @@ def main() -> int:
                                                          "finish_ms", "scalars_ms", "slices",
                                                          "library_ms", "hub_segments")
                               if k in v})
+        if name in ("csr_spmm", "csr_spmm_ev"):
+            r.update(design=ROW_WALK)
         if name == "csr_spmm":
             r.update({f"powerlaw_{k}": v for k, v in
                       results[("csr_spmm_powerlaw", "bf16")].items()

@@ -50,7 +50,9 @@
 // first layer) takes the whole warp: each lane owns 8 columns and loads
 // them with one 16-byte load (bf16) or two (f32), so a warp reads 256
 // columns of a source row in one coalesced pass, edge after edge; at F =
-// 256 that reads 1.28 GB of rows in 0.3432 ms, 3.7 TB/s. Each head's pass
+// 256 that reads 1.28 GB of rows, in 0.3432 ms (3.7 TB/s) in node order
+// and in 0.2024 ms (6.3 TB/s, L2 serving most rows) in the walk order
+// below. Each head's pass
 // walks the row's edges again, its ids and values then in L1: a warp that
 // read them once and kept both of GAT's 256-column heads in registers took
 // 1.04 ms against this walk's 0.90 at GAT's first layer on the H100 (fewer
@@ -67,14 +69,26 @@
 // uses any, each column is an fmaf chain in edge order within its group,
 // and the groups' chains are added in group order at the end of the range
 // (add_groups) and rounded once on the store. At D = 40 on the arxiv graph
-// that takes ~0.17 ms in f32 (2.3 TB/s of rows) and ~0.10-0.12 in bf16:
-// what bounds it then is each row's chain of dependent loads (its indptr,
-// its edge ids, then its gathers) over the warps an SM holds, which the
-// register caps of csr_spmm_kernel trade against the staged gathers. The
-// backward walk's dx is the same sum in the same order, so it is this walk
-// on the transposed CSR bit for bit at every width. Without the 16-byte
-// path (D % 8 != 0, unaligned rows) one column a lane over the whole warp,
-// 32 columns a pass.
+// one warp a row took ~0.17 ms in f32 (2.3 TB/s of rows): what bounded it
+// was each row's chain of dependent loads (its row pointers, its edge ids,
+// then its gathers) over the warps an SM holds. So the lane groups' walk
+// takes persistent walkers that read the row pointers of 32 rows at once
+// and prefetch each next row's edge ids and values into L1
+// (csr_spmm_kernel): 0.127 ms there, and 0.167 on the power-law graph,
+// where the hub segments are walked by the same walkers. The backward
+// walk's dx is the same sum in the same order, so it is this walk on the
+// transposed CSR bit for bit at every width. Without the 16-byte path (D %
+// 8 != 0, unaligned rows) one column a lane over the whole warp, 32
+// columns a pass.
+//
+// The walk order. The rows are walked in the graph's walk order
+// (Graph.schedule: the clustering reorder's permutation of the rows, built
+// once per graph) and each is written in place, so that the warps in
+// flight walk one cluster's rows and gather from rows that L2 holds: the
+// JAX package kept a slab of x in VMEM for a cluster's window of rows
+// (kernels/slab_spmm.py), the H100's 50 MB L2 keeps it here. The result is
+// the same bit for bit in any order. The per-edge-value backward walk
+// takes its transposed CSR's order too.
 //
 // Hub rows. One warp walks its row's edges one after another, about 0.37 us
 // an edge from device memory, so on a power-law graph (the JAX package's
@@ -89,8 +103,9 @@
 // once, and it writes the segment's f32 partial row into scratch; the
 // second pass (csr_spmm_hub_kernel) adds each hub row's partials in segment
 // order and rounds once. Rows of at most max_edges edges take the one-warp
-// path unchanged. No atomics touch values, so the result is the same on
-// every call.
+// path unchanged (the lane groups' walkers take the segments as items of
+// their walk, interleaved, so that the long ones start at once). No atomics
+// touch values, so the result is the same on every call.
 //
 // The per-edge-value backward walk. Both halves of the gradient read the
 // same edges: on the transposed CSR, row s is a source node and each edge
@@ -277,6 +292,37 @@ struct Cols {
   }
 };
 
+// The lane groups' row walk (csr_spmm_kernel) takes persistent walkers. A
+// walker's shared memory holds the rows and edge ranges of its next
+// kHeader items; before it walks one item it prefetches into L1 the lines
+// of the next item's first kPrefetch edge ids and their values.
+constexpr int kHeader = 32;
+constexpr int kPrefetch = 64;
+
+extern __shared__ int walk_smem[];
+
+// Prefetch into L1 the lines of edges [b, min(e, b + kPrefetch)): their
+// ids and their values (v is [E, H]), one line a lane.
+__device__ __forceinline__ void prefetch_edges(const int* __restrict__ src,
+                                               const float* __restrict__ v, int H, int b,
+                                               int e) {
+  const int count = min(e - b, kPrefetch);
+  if (count <= 0) return;
+  const int lane = threadIdx.x & 31;
+  const auto line = [](const void* p) {
+    return reinterpret_cast<const char*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t{127});
+  };
+  const char* s0 = line(src + b);
+  const int s_lines = static_cast<int>((line(src + b + count - 1) - s0) / 128) + 1;
+  const char* v0 = line(v + static_cast<size_t>(b) * H);
+  const int v_lines =
+      static_cast<int>((line(v + static_cast<size_t>(b + count) * H - 1) - v0) / 128) + 1;
+  const char* p = lane < s_lines ? s0 + lane * 128
+                  : lane < s_lines + v_lines ? v0 + (lane - s_lines) * 128
+                                             : nullptr;
+  if (p != nullptr) asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
 // The sum over edges [begin, end) of v[e, h] * x[src[e], h, :] for every
 // head, written to the F = H*D columns at dst: one pass of Cols' width at a
 // time within a head, each element an fmaf chain in edge order from 0.
@@ -417,40 +463,113 @@ __device__ __forceinline__ void spmm_range(const int* __restrict__ src,
   }
 }
 
-// Warps [0, n_seg) take one hub segment each (seg[w] = (row, begin, end))
-// and write its f32 partial row to part[w]; warp n_seg + i takes row i,
-// unless the row has more than max_edges edges (its segments cover it).
-// The full-width bf16 walk is held to 32 registers, so that an SM holds
-// its full 64 warps: the gather's latency bounds it, and the hub path's
-// code would otherwise cost it occupancy and time; f32 rows would spill
-// there. The lane groups' walk stages 4 gathers a lane and is held to 64
-// registers with bf16 rows (4 blocks an SM) and 80 with f32 rows (3): on
-// the H100 at D = 32-128 that timed best of 40-115 registers and of 2, 4
-// or 8 gathers in flight (chip_compare.py narrow on copies with one
-// change), where a tighter cap spills the staged rows and a looser one
-// leaves too few warps to hide each row's chain of dependent loads.
-template <typename TIn, typename TOut, bool kVec8, int kLanes>
+// The row walk, in the walk order: position p is row schedule[p] (row p
+// when schedule is null), written in place; each row summed edge for edge
+// as in any order, so the result does not depend on it. A row of more than
+// max_edges edges is left to its hub segments (seg[s] = (row, begin, end)),
+// whose f32 partial rows go to part[s]. The order keeps a cluster's rows
+// together, so the warps in flight gather from rows that L2 holds.
+//
+// The whole warp's walk (kLanes = 32: heads wider than 128 columns, or off
+// the 16-byte path) takes a warp a hub segment, then warp n_seg + p takes
+// position p: the gathers of 1 KB rows keep it busy, and the hardware's
+// block scheduler keeps the warps in flight on one window of the order.
+// It is held to 32 registers with bf16 rows, so that an SM holds its full
+// 64 warps (the gather's latency bounds it); f32 rows would spill there.
+// Without a walk order (kOrdered false) a warp's row is its index, which
+// the compiler recomputes instead of holding: one register fewer at that
+// cap, which held node order's bf16 walk at the parent design's time.
+//
+// The lane groups' walk (kLanes < 32) is bound instead by each row's chain
+// of dependent loads (its position's row, its row pointers, its edge ids,
+// then its gathers), so it takes `walkers` persistent warps, as many as the
+// card holds at once: walker w takes items w, w + walkers, ... of the hub
+// segments and then of the positions (items are interleaved over the
+// walkers, so the long segments start at once and do not trail). It reads
+// the rows and edge ranges of its next kHeader items at once into its
+// shared memory, and before it walks one item it prefetches into L1 the
+// lines of the next item's edge ids and values (prefetch_edges); so an
+// item's chain is paid for kHeader items at once or ahead of it, and it
+// waits for its gathers. The walk stages 4 gathers a lane and is held to
+// 64 registers with bf16 rows (4 blocks an SM) and 80 with f32 rows (3):
+// on the H100 at D = 32-128 that timed best of 40-115 registers and of 2,
+// 4 or 8 gathers in flight (chip_compare.py narrow on copies with one
+// change, one warp a row), where a tighter cap spills the staged rows.
+template <typename TIn, typename TOut, bool kVec8, int kLanes, bool kOrdered>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32,
                                   kLanes == 32 ? (sizeof(TIn) == 2 ? 8 : 1)
                                                : (sizeof(TIn) == 2 ? 4 : 3))
 csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                 const float* __restrict__ v, const TIn* __restrict__ x,
                 TOut* __restrict__ out, const int* __restrict__ seg, int n_seg,
-                float* __restrict__ part, int max_edges, int n_rows, int H, int D) {
+                float* __restrict__ part, int max_edges, int n_rows, int H, int D,
+                const int* __restrict__ schedule, int walkers) {
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const size_t F = static_cast<size_t>(H) * D;
-  if (w < n_seg) {
-    spmm_range<TIn, float, kVec8, kLanes>(src, v, x, part + static_cast<size_t>(w) * F,
-                                          __ldg(seg + 3 * w + 1), __ldg(seg + 3 * w + 2), H, D);
-    return;
+  if constexpr (kLanes == 32) {
+    if (w < n_seg) {
+      spmm_range<TIn, float, kVec8, kLanes>(src, v, x, part + static_cast<size_t>(w) * F,
+                                            __ldg(seg + 3 * w + 1), __ldg(seg + 3 * w + 2), H,
+                                            D);
+      return;
+    }
+    if (w - n_seg >= n_rows) return;  // the whole warp leaves together
+    const int row = kOrdered ? __ldg(schedule + w - n_seg) : w - n_seg;
+    const int start = indptr[row];
+    const int end = indptr[row + 1];
+    if (end - start > max_edges) return;
+    spmm_range<TIn, TOut, kVec8, kLanes>(src, v, x, out + static_cast<size_t>(row) * F, start,
+                                         end, H, D);
+  } else {
+    if (w >= walkers) return;
+    const int lane = threadIdx.x & 31;
+    // this walker's header: the output rows (-1 - s for hub segment s),
+    // begins and ends of its next kHeader items
+    const int rows = (threadIdx.x >> 5) * 3 * kHeader;
+    const int begins = rows + kHeader;
+    const int ends = rows + 2 * kHeader;
+    const unsigned items = static_cast<unsigned>(n_seg) + static_cast<unsigned>(n_rows);
+    const unsigned stride = static_cast<unsigned>(kHeader) * walkers;
+    for (unsigned first = w;; first += stride) {
+      const unsigned long long i = first + static_cast<unsigned long long>(lane) * walkers;
+      if (i < items) {
+        int row, b, e;
+        if (i < static_cast<unsigned>(n_seg)) {
+          row = -1 - static_cast<int>(i);
+          b = __ldg(seg + 3 * i + 1);
+          e = __ldg(seg + 3 * i + 2);
+        } else {
+          const int p = static_cast<int>(i - n_seg);
+          row = schedule != nullptr ? __ldg(schedule + p) : p;
+          b = __ldg(indptr + row);
+          e = __ldg(indptr + row + 1);
+        }
+        walk_smem[rows + lane] = row;
+        walk_smem[begins + lane] = b;
+        walk_smem[ends + lane] = e;
+      }
+      __syncwarp();
+      const int count = static_cast<int>(min(static_cast<unsigned>(kHeader),
+                                             (items - first + walkers - 1) / walkers));
+      for (int t = 0; t < count; ++t) {
+        if (t + 1 < count) {
+          prefetch_edges(src, v, H, walk_smem[begins + t + 1], walk_smem[ends + t + 1]);
+        }
+        const int row = walk_smem[rows + t];
+        const int b = walk_smem[begins + t];
+        const int e = walk_smem[ends + t];
+        if (row < 0) {
+          spmm_range<TIn, float, kVec8, kLanes>(
+              src, v, x, part + static_cast<size_t>(-1 - row) * F, b, e, H, D);
+        } else if (e - b <= max_edges) {
+          spmm_range<TIn, TOut, kVec8, kLanes>(src, v, x, out + static_cast<size_t>(row) * F,
+                                               b, e, H, D);
+        }
+      }
+      __syncwarp();  // every lane done with the header before it is rewritten
+      if (items - first <= stride) break;
+    }
   }
-  const int row = w - n_seg;
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
-  if (end - start > max_edges) return;
-  spmm_range<TIn, TOut, kVec8, kLanes>(src, v, x, out + static_cast<size_t>(row) * F, start,
-                                       end, H, D);
 }
 
 // Second pass over the hub rows: the warp of a row's first segment adds the
@@ -629,15 +748,17 @@ __device__ __forceinline__ void ev_bwd_edges(const int* __restrict__ col,
 
 // Warps [0, n_seg) take one hub segment each (seg[w] = (row, begin, end)):
 // its dv is final per edge, and its dx partial row goes to part[w]; warp
-// n_seg + i takes row i unless the row has more than max_edges edges (its
-// segments cover it). dx null: dv only.
+// n_seg + i takes row schedule[i] (row i when schedule is null) unless the
+// row has more than max_edges edges (its segments cover it). dx null: dv
+// only.
 template <typename T, bool kRound, bool kVec8, int kLanes>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ev_bwd_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
               const int* __restrict__ perm, const float* __restrict__ val,
               const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ dv,
               T* __restrict__ dx, const int* __restrict__ seg, int n_seg,
-              float* __restrict__ part, int max_edges, int n_rows, int H, int D, int need_dv) {
+              float* __restrict__ part, int max_edges, int n_rows, int H, int D, int need_dv,
+              const int* __restrict__ schedule) {
   const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const size_t F = static_cast<size_t>(H) * D;
   if (w < n_seg) {
@@ -648,8 +769,8 @@ ev_bwd_kernel(const int* __restrict__ indptr, const int* __restrict__ col,
         __ldg(seg + 3 * w + 2), H, D, need_dv != 0);
     return;
   }
-  const int row = w - n_seg;
-  if (row >= n_rows) return;  // the whole warp leaves together
+  if (w - n_seg >= n_rows) return;  // the whole warp leaves together
+  const int row = schedule != nullptr ? __ldg(schedule + w - n_seg) : w - n_seg;
   const int start = indptr[row];
   const int end = indptr[row + 1];
   if (end - start > max_edges) return;
@@ -978,13 +1099,50 @@ cudaError_t lane_groups(int D, int vec8, Launch&& launch) {
   return launch(std::true_type{}, std::integral_constant<int, 32>{});
 }
 
+// The row walk's walkers: as many warps as the card holds at once, at
+// most one an item.
+template <typename Kernel>
+cudaError_t resident_warps(Kernel kernel, size_t smem, int n_items, int* walkers) {
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWarpsPerBlock * 32,
+                                                        smem);
+  }
+  *walkers = min(n_items, max(1, blocks * sms) * kWarpsPerBlock);
+  return err;
+}
+
 template <typename TIn, typename TOut, bool kVec8, int kLanes>
 cudaError_t launch_spmm_cols(const int* indptr, const int* src, const float* v, const TIn* x,
                              TOut* out, const int* seg, int n_seg, float* part, int max_edges,
-                             int n_rows, int H, int D, cudaStream_t stream) {
+                             int n_rows, int H, int D, const int* schedule,
+                             cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
-  csr_spmm_kernel<TIn, TOut, kVec8, kLanes><<<grid_for(n_seg + n_rows), block, 0, stream>>>(
-      indptr, src, v, x, out, seg, n_seg, part, max_edges, n_rows, H, D);
+  // the whole warp's walk in node order takes its own instance (see
+  // csr_spmm_kernel); the walkers, one instance, read either from their
+  // header
+  const auto kernel = schedule == nullptr
+                          ? csr_spmm_kernel<TIn, TOut, kVec8, kLanes, kLanes != 32>
+                          : csr_spmm_kernel<TIn, TOut, kVec8, kLanes, true>;
+  // the whole warp's walk: a warp a hub segment, then a warp a row; the
+  // lane groups': as many walkers as the card holds, at most one an item,
+  // each with its header in shared memory
+  int warps = n_seg + n_rows, walkers = 0;
+  size_t smem = 0;
+  if (kLanes < 32) {
+    smem = static_cast<size_t>(kWarpsPerBlock) * 3 * kHeader * sizeof(int);
+    const long long items = static_cast<long long>(n_seg) + n_rows;
+    cudaError_t err = resident_warps(kernel, smem, static_cast<int>(min(items, 1LL << 30)),
+                                     &walkers);
+    if (err != cudaSuccess) return err;
+    warps = walkers;
+  }
+  kernel<<<grid_for(warps), block, smem, stream>>>(
+      indptr, src, v, x, out, seg, n_seg, part, max_edges, n_rows, H, D, schedule, walkers);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 0) return err;
   csr_spmm_hub_kernel<TOut, kVec8><<<grid_for(n_seg), block, 0, stream>>>(seg, n_seg, part, out,
@@ -995,12 +1153,13 @@ cudaError_t launch_spmm_cols(const int* indptr, const int* src, const float* v, 
 template <typename TIn, typename TOut>
 cudaError_t launch_spmm(const int* indptr, const int* src, const float* v, const void* x,
                         void* out, const int* seg, int n_seg, float* part, int max_edges,
-                        int n_rows, int H, int D, int vec8, cudaStream_t stream) {
+                        int n_rows, int H, int D, int vec8, const int* schedule,
+                        cudaStream_t stream) {
   const TIn* xt = static_cast<const TIn*>(x);
   TOut* ot = static_cast<TOut*>(out);
   return lane_groups(D, vec8, [&](auto vec, auto lanes) {
     return launch_spmm_cols<TIn, TOut, decltype(vec)::value, decltype(lanes)::value>(
-        indptr, src, v, xt, ot, seg, n_seg, part, max_edges, n_rows, H, D, stream);
+        indptr, src, v, xt, ot, seg, n_seg, part, max_edges, n_rows, H, D, schedule, stream);
   });
 }
 
@@ -1008,11 +1167,11 @@ template <typename T, bool kRound, bool kVec8, int kLanes>
 cudaError_t launch_ev_bwd_lanes(const int* indptr, const int* col, const int* perm,
                                 const float* val, const T* a, const T* b, float* dv, T* dx,
                                 const int* seg, int n_seg, float* part, int max_edges,
-                                int n_rows, int H, int D, cudaStream_t st) {
+                                int n_rows, int H, int D, const int* schedule, cudaStream_t st) {
   const dim3 block(kWarpsPerBlock * 32);
   ev_bwd_kernel<T, kRound, kVec8, kLanes><<<grid_for(n_seg + n_rows), block, 0, st>>>(
       indptr, col, perm, val, a, b, dv, dx, seg, n_seg, part, max_edges, n_rows, H, D,
-      dv != nullptr);
+      dv != nullptr, schedule);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 0 || dx == nullptr) return err;
   csr_spmm_hub_kernel<T, kVec8><<<grid_for(n_seg), block, 0, st>>>(seg, n_seg, part, dx, H * D);
@@ -1023,13 +1182,14 @@ template <typename T, bool kRound>
 cudaError_t launch_ev_bwd(const int* indptr, const int* col, const int* perm, const float* val,
                           const void* a, const void* b, float* dv, void* dx, const int* seg,
                           int n_seg, float* part, int max_edges, int n_rows, int H, int D,
-                          int vec8, cudaStream_t st) {
+                          int vec8, const int* schedule, cudaStream_t st) {
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
   T* xt = static_cast<T*>(dx);
   return lane_groups(D, vec8, [&](auto vec, auto lanes) {
     return launch_ev_bwd_lanes<T, kRound, decltype(vec)::value, decltype(lanes)::value>(
-        indptr, col, perm, val, at, bt, dv, xt, seg, n_seg, part, max_edges, n_rows, H, D, st);
+        indptr, col, perm, val, at, bt, dv, xt, seg, n_seg, part, max_edges, n_rows, H, D,
+        schedule, st);
   });
 }
 
@@ -1043,12 +1203,15 @@ cudaError_t launch_ev_bwd(const int* indptr, const int* col, const int* perm, co
 // bf16 messages of an f32 tensor and keeps the f32 result. seg: the hub
 // plan, [n_seg, 3] int32 (row, begin, end) in row order, covering exactly
 // the rows of more than max_edges edges; part: f32 scratch [n_seg, H*D]
-// (unused when n_seg is 0). Launches csr_spmm_kernel, then
-// csr_spmm_hub_kernel when there are hub rows.
+// (unused when n_seg is 0). schedule: the walk order, [n_rows] int32, a
+// permutation of the rows (null: row order); the result does not depend on
+// it. Launches csr_spmm_kernel, then csr_spmm_hub_kernel when there are hub
+// rows.
 extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
                             const void* x, void* out, const void* seg, int n_seg, void* part,
                             int max_edges, int n_rows, int H, int D, int in_dtype,
-                            int out_dtype, int vec8, void* stream) {
+                            int out_dtype, int vec8, const void* schedule, void* stream) {
+  const int* so = static_cast<const int*>(schedule);
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
   const float* vp = static_cast<const float*>(v);
@@ -1058,16 +1221,16 @@ extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
   cudaError_t err;
   if (in_dtype == 0 && out_dtype == 0) {
     err = launch_spmm<float, float>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges, n_rows, H, D,
-                                    vec8, st);
+                                    vec8, so, st);
   } else if (in_dtype == 1 && out_dtype == 1) {
     err = launch_spmm<__nv_bfloat16, __nv_bfloat16>(ip, sp, vp, x, out, sg, n_seg, pp,
-                                                    max_edges, n_rows, H, D, vec8, st);
+                                                    max_edges, n_rows, H, D, vec8, so, st);
   } else if (in_dtype == 1 && out_dtype == 0) {
     err = launch_spmm<__nv_bfloat16, float>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges,
-                                            n_rows, H, D, vec8, st);
+                                            n_rows, H, D, vec8, so, st);
   } else if (in_dtype == 0 && out_dtype == 1) {
     err = launch_spmm<float, __nv_bfloat16>(ip, sp, vp, x, out, sg, n_seg, pp, max_edges,
-                                            n_rows, H, D, vec8, st);
+                                            n_rows, H, D, vec8, so, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1149,13 +1312,17 @@ extern "C" int sgf_quantize_absmax(const void* x, const void* rs, void* part, in
 // null: not computed). x, g and dx in dtype; round_msg: g's messages are
 // bf16 (dtype f32 only). val and dv f32 [E, H]. seg, n_seg, max_edges: the
 // transposed CSR's hub plan, as in sgf_csr_spmm; part: f32 scratch [n_seg,
-// H*D] for dx (unused when n_seg is 0 or dx is null). Launches
-// ev_bwd_kernel, then csr_spmm_hub_kernel when there are hub rows and dx.
+// H*D] for dx (unused when n_seg is 0 or dx is null). t_schedule: the
+// transposed CSR's walk order, as in sgf_csr_spmm (null: row order).
+// Launches ev_bwd_kernel, then csr_spmm_hub_kernel when there are hub rows
+// and dx.
 extern "C" int sgf_csr_spmm_ev_bwd(const void* t_indptr, const void* t_col, const void* t_perm,
                                    const void* val, const void* x, const void* g, void* dx,
                                    void* dv, const void* seg, int n_seg, void* part,
                                    int max_edges, int n_rows, int H, int D, int dtype,
-                                   int round_msg, int vec8, void* stream) {
+                                   int round_msg, int vec8, const void* t_schedule,
+                                   void* stream) {
+  const int* so = static_cast<const int*>(t_schedule);
   const int* ip = static_cast<const int*>(t_indptr);
   const int* cp = static_cast<const int*>(t_col);
   const int* pp = static_cast<const int*>(t_perm);
@@ -1167,13 +1334,13 @@ extern "C" int sgf_csr_spmm_ev_bwd(const void* t_indptr, const void* t_col, cons
   cudaError_t err;
   if (dtype == 0 && round_msg) {
     err = launch_ev_bwd<float, true>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp, max_edges,
-                                     n_rows, H, D, vec8, st);
+                                     n_rows, H, D, vec8, so, st);
   } else if (dtype == 0) {
     err = launch_ev_bwd<float, false>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp, max_edges,
-                                      n_rows, H, D, vec8, st);
+                                      n_rows, H, D, vec8, so, st);
   } else if (dtype == 1) {
     err = launch_ev_bwd<__nv_bfloat16, false>(ip, cp, pp, vp, x, g, dp, dx, sg, n_seg, sp,
-                                              max_edges, n_rows, H, D, vec8, st);
+                                              max_edges, n_rows, H, D, vec8, so, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1195,10 +1362,11 @@ extern "C" int sgf_sddmm(const void* indptr, const void* src, const void* g, con
   cudaError_t err;
   if (dtype == 0) {
     err = launch_ev_bwd<float, false>(ip, sp, nullptr, nullptr, g, x, dp, nullptr, sg, n_seg,
-                                      nullptr, max_edges, n_rows, H, D, vec8, st);
+                                      nullptr, max_edges, n_rows, H, D, vec8, nullptr, st);
   } else if (dtype == 1) {
     err = launch_ev_bwd<__nv_bfloat16, false>(ip, sp, nullptr, nullptr, g, x, dp, nullptr, sg,
-                                              n_seg, nullptr, max_edges, n_rows, H, D, vec8, st);
+                                              n_seg, nullptr, max_edges, n_rows, H, D, vec8,
+                                              nullptr, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,7 +14,10 @@ The clustering reorder does (``preprocess_graph(reorder=True)``,
 :mod:`sgformer_tpu_torch.native.reorder`): it relabels the nodes so that
 clusters are contiguous, which lines node-sharded training's contiguous
 shards up with communities, and records the relabelling in
-``Graph.node_perm``.
+``Graph.node_perm``. A graph that keeps its labels takes the same
+clustering as its CSR kernels' walk order instead (``Graph.schedule``):
+the kernels walk its rows cluster by cluster, so that the rows they gather
+stay in the card's L2, and write them in place.
 
 The gradient of the aggregation is ``A^T @ g`` through the same kernel. A
 graph built with ``undirected=True`` is symmetric by construction (the edge
@@ -103,6 +106,17 @@ class Graph:
       hub_edges: the segment length of those four plans
         (``kernels.spmm.HUB_EDGES``); the CSR kernels take it with each plan
         and refuse a plan without it.
+      schedule: [N] int32, the order in which the CSR kernels walk the rows
+        of A (and of the PyG edges): the clustering reorder's ``perm``
+        (:func:`walk_order`), so that the warps in flight walk one cluster's
+        rows and gather from rows that L2 holds; a permutation of the nodes,
+        which keep their labels (the result is the same bit for bit in any
+        order). None: node order (a ``reorder=True`` graph, whose labels
+        are already clustered, and the batch tiers' per-batch graphs).
+      t_schedule: the walk order of A^T's rows (and of the PyG transpose's)
+        where A^T is not A's own (``symmetric`` False), from the clustering
+        of the transposed edges; None on a symmetric graph, whose A^T walks
+        in ``schedule`` (:attr:`walk_orders`).
     """
 
     edge_src: torch.Tensor
@@ -134,10 +148,18 @@ class Graph:
     pyg_hub_segments: Optional[torch.Tensor] = None
     pyg_t_hub_segments: Optional[torch.Tensor] = None
     hub_edges: int = HUB_EDGES
+    schedule: Optional[torch.Tensor] = None
+    t_schedule: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.edge_src.device
+
+    @property
+    def walk_orders(self) -> tuple:
+        """The walk orders of A's rows and of A^T's: ``(schedule,
+        schedule)`` on a symmetric graph, else ``(schedule, t_schedule)``."""
+        return (self.schedule, self.schedule if self.symmetric else self.t_schedule)
 
     def to(self, device) -> "Graph":
         dev = resolve_device(device)
@@ -174,7 +196,8 @@ class Graph:
         if self.slab_dtype == "int8":
             return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs, *plans,
                                                      self.hub_edges)
-        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans, self.hub_edges)
+        return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans, self.hub_edges,
+                                              *self.walk_orders)
 
     def propagate_edge_values(self, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """out[i, h] = sum over edges e into i of values[e, h] * x[src_e, h],
@@ -194,7 +217,7 @@ class Graph:
             x, values, (self.indptr, self.edge_src, self.edge_dst),
             (self.t_indptr, self.t_edge_src, self.t_edge_dst, self.t_perm),
             _CHUNK_DTYPES[self.chunk_dtype], self.hub_segments, self.t_hub_segments,
-            self.hub_edges)
+            self.hub_edges, *self.walk_orders)
 
 
 class NodeOrder:
@@ -361,6 +384,33 @@ def _transpose_csr(src, dst, weight, num_nodes: int) -> tuple:
             order.int(), hub_plan(indptr, HUB_EDGES))
 
 
+def walk_order(edge_index: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """The CSR kernels' walk order of the rows of the dst-sorted CSR of
+    ``edge_index`` ([2, E], src then dst): the clustering reorder's ``perm``
+    (:func:`sgformer_tpu_torch.native.reorder.reorder_for_clusters`, label
+    propagation over each row's in-neighbours on the host, C++), as [N]
+    int32 on edge_index's device."""
+    from sgformer_tpu_torch.native.reorder import reorder_for_clusters
+
+    perm, _ = reorder_for_clusters(edge_index.cpu().numpy(), num_nodes)
+    return torch.from_numpy(perm).to(edge_index.device, torch.int32)
+
+
+def _check_walk_order(name: str, order, num_nodes: int, device) -> Optional[torch.Tensor]:
+    """A walk order as the kernels take it (contiguous int32 on the graph's
+    device), refused unless it is a permutation of the nodes."""
+    if order is None:
+        return None
+    order = torch.as_tensor(order)
+    if order.dim() != 1 or order.shape[0] != num_nodes or order.dtype.is_floating_point:
+        raise ValueError(f"{name} must be a permutation of the {num_nodes} nodes, got "
+                         f"{order.dtype} {tuple(order.shape)}")
+    order = order.to(device, torch.int64)
+    if not torch.equal(torch.sort(order).values, torch.arange(num_nodes, device=device)):
+        raise ValueError(f"{name} is not a permutation of the {num_nodes} nodes")
+    return order.int().contiguous()
+
+
 def check_int32_counts(num_nodes: int, num_edges: int) -> None:
     """Refuse a graph whose node ids or row pointers int32 cannot hold: the
     CSR stores both in int32, so the node and the edge count must each stay
@@ -383,14 +433,24 @@ def graph_from_sorted(
     slab_dtype: str = "compute",
     rs: Optional[torch.Tensor] = None,
     node_perm: Optional[torch.Tensor] = None,
+    schedule: Optional[torch.Tensor] = None,
+    t_schedule: Optional[torch.Tensor] = None,
 ) -> Graph:
     """A :class:`Graph` of dst-sorted edges on their device: the row
     pointers, the CSR of A^T with ``t_perm``, and the hub plans of both
     (segments of :data:`HUB_EDGES`). ``src``/``dst``: [E] int32, sorted by
     dst; ``weight``: [E] f32. ``pyg``: the PyG edges (src, dst, weight),
     sorted by dst, or None; their transposed CSR is built unless
-    ``symmetric`` (A == A^T, whose gradient then walks A's own CSR)."""
+    ``symmetric`` (A == A^T, whose gradient then walks A's own CSR).
+    ``schedule`` and ``t_schedule``: the walk orders of A's rows and of
+    A^T's (:class:`Graph`; None: node order), each refused unless it is a
+    permutation of the nodes; ``t_schedule`` only where A is not
+    symmetric."""
     check_int32_counts(num_nodes, max(src.shape[0], 0 if pyg is None else pyg[0].shape[0]))
+    if symmetric and t_schedule is not None:
+        raise ValueError("a symmetric graph's A^T walks in A's order: give no t_schedule")
+    schedule = _check_walk_order("schedule", schedule, num_nodes, src.device)
+    t_schedule = _check_walk_order("t_schedule", t_schedule, num_nodes, src.device)
     names = ("t_indptr", "t_edge_src", "t_edge_dst", "t_weight", "t_perm", "t_hub_segments")
     extra = dict(zip(names, _transpose_csr(src, dst, weight, num_nodes)))
     if pyg is not None:
@@ -417,6 +477,8 @@ def graph_from_sorted(
         slab_dtype=slab_dtype,
         rs=rs,
         node_perm=node_perm,
+        schedule=schedule,
+        t_schedule=t_schedule,
         **extra,
     )
 
@@ -491,6 +553,13 @@ def preprocess_graph(
     the symmetrised, self-looped edges, on the host, C++), as the JAX
     ``preprocess_graph(reorder=True)`` does, and sets ``node_perm`` to its
     ``perm``, bitwise the JAX one.
+
+    A graph that keeps its labels takes the same clustering as the CSR
+    kernels' walk order, ``Graph.schedule`` (:func:`walk_order` of the
+    symmetrised, self-looped edges; and ``t_schedule`` of the transposed
+    edges with ``undirected=False``), once per graph on the host; the
+    kernels' results do not depend on it. A ``reorder=True`` graph takes
+    none: its labels are already clustered.
     """
     if chunk_dtype not in _CHUNK_DTYPES:
         raise ValueError(f"chunk_dtype must be one of {sorted(_CHUNK_DTYPES)}")
@@ -515,6 +584,11 @@ def preprocess_graph(
         edge_index = torch.from_numpy(inv).to(dev)[edge_index.long()]
         node_perm = torch.from_numpy(perm).to(dev)
     check_int32_counts(num_nodes, edge_index.shape[1])
+    orders = {}
+    if not reorder and num_nodes:
+        orders["schedule"] = walk_order(edge_index, num_nodes)
+        if not undirected:
+            orders["t_schedule"] = walk_order(edge_index.flip(0), num_nodes)
     src, dst = sort_by_dst(*edge_index.int())
     weight = gcn_norm_weights(src, dst, num_nodes)
     rs = gcn_norm_rs(dst, num_nodes) if slab_dtype == "int8" else None
@@ -529,7 +603,7 @@ def preprocess_graph(
                              "graph's PyG gcn_norm weights do not factor as rs[src] * rs[dst]")
     return graph_from_sorted(src, dst, weight, num_nodes, symmetric=bool(undirected), pyg=pyg,
                              chunk_dtype=chunk_dtype, slab_dtype=slab_dtype, rs=rs,
-                             node_perm=node_perm)
+                             node_perm=node_perm, **orders)
 
 
 def build_h2_graphs(edge_index, num_nodes: int, *, device="cuda") -> tuple[Graph, Graph]:

@@ -44,9 +44,9 @@ _L = ctypes.c_long
 # argtype would be cut to 32 bits
 _SIGNATURES = {
     "spmm": {
-        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sgf_csr_spmm": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         "sgf_csr_spmm_ev_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _P],
+                                _I, _I, _I, _P, _P],
         "sgf_sddmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                             _I, _I, _P],

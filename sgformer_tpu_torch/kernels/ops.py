@@ -10,7 +10,7 @@ Each op has three implementations:
   build or launch raises, and the plain version is never called;
 - a fake one, which computes only the result's shapes and types, so that
   ``torch.export`` traces a forward through the op (no data pointer, hub
-  plan or scratch buffer is touched there).
+  plan, walk order or scratch buffer is touched there).
 
 The wrappers (:func:`.spmm.csr_spmm`, :func:`.spmm.csr_spmm_ev`,
 :func:`.spmm.quantize_absmax`, :func:`.spmm.csr_spmm_q8_apply`,
@@ -50,15 +50,16 @@ LAUNCH_COUNT = {
 @custom_op(f"{NAMESPACE}::csr_spmm", mutates_args=(), device_types="cpu")
 def csr_spmm(x: torch.Tensor, indptr: torch.Tensor, edge_src: torch.Tensor,
              edge_dst: torch.Tensor, weight: torch.Tensor, segments: Optional[torch.Tensor],
-             segment_edges: Optional[int]) -> torch.Tensor:
+             segment_edges: Optional[int],
+             schedule: Optional[torch.Tensor] = None) -> torch.Tensor:
     return spmm_plain(x, edge_src, edge_dst, weight, indptr.shape[0] - 1)
 
 
 @custom_op(f"{NAMESPACE}::csr_spmm_ev", mutates_args=(), device_types="cpu")
 def csr_spmm_ev(x: torch.Tensor, indptr: torch.Tensor, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, values: torch.Tensor, out_dtype: torch.dtype,
-                segments: Optional[torch.Tensor],
-                segment_edges: Optional[int]) -> torch.Tensor:
+                segments: Optional[torch.Tensor], segment_edges: Optional[int],
+                schedule: Optional[torch.Tensor] = None) -> torch.Tensor:
     return spmm_edge_values(x, edge_src, edge_dst, values, indptr.shape[0] - 1, out_dtype)
 
 
@@ -99,12 +100,13 @@ linear_attention_apply.register_kernel("cuda")(attention.apply_cuda)
 
 
 @csr_spmm.register_fake
-def _(x, indptr, edge_src, edge_dst, weight, segments, segment_edges):
+def _(x, indptr, edge_src, edge_dst, weight, segments, segment_edges, schedule=None):
     return x.new_empty((indptr.shape[0] - 1, x.shape[1]))
 
 
 @csr_spmm_ev.register_fake
-def _(x, indptr, edge_src, edge_dst, values, out_dtype, segments, segment_edges):
+def _(x, indptr, edge_src, edge_dst, values, out_dtype, segments, segment_edges,
+      schedule=None):
     return x.new_empty(x.shape, dtype=out_dtype)
 
 

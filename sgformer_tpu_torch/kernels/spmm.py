@@ -62,6 +62,19 @@ kernel is given: a plan passed without one is refused (it cannot be read
 back to check), since one built for a longer segment would leave the rows
 between the two lengths unwritten.
 
+The row walk (``csrc/spmm.cu``'s ``csr_spmm_kernel``, :data:`ROW_WALK`):
+:func:`csr_spmm` and :func:`csr_spmm_ev` take a walk order, ``schedule``
+([rows] int32, a permutation of the CSR's rows, built once per graph by
+``preprocess_graph`` from the clustering of :mod:`sgformer_tpu_torch.native.
+reorder`, ``Graph.schedule``), and walk the rows in that order, each
+written in place and summed edge for edge as without the order, so the
+result is the same bit for bit with or without one. Heads of at most 128
+columns walk on persistent warps, as many as the card holds, that read the
+row pointers of 32 rows at once and prefetch each next row's edge ids and
+values into L1 while they gather for the current one. On CPU tensors the
+order is checked and then ignored. :func:`csr_spmm_ev_bwd` takes the
+transposed CSR's (``t_schedule``) for its row walk.
+
 ``launches``, ``ev_launches``, ``ev_bwd_launches``, ``sddmm_launches``,
 ``q8_launches`` and ``quantize_launches`` count the calls that launched
 their kernels (one a call, whether or not the hub rows' second pass ran,
@@ -100,6 +113,13 @@ HUB_EDGES = 128
 
 # the quantiser: blocks of each of its two passes (at most)
 QUANTIZE_BLOCKS = 1024
+
+# the design of csr_spmm_kernel's row walk, beside its lane groups
+# (walk_design)
+ROW_WALK = ("rows in the graph's walk order (its clusters together, so L2 holds the rows they "
+            "gather); heads of at most 128 columns on persistent warps, as many as the card "
+            "holds, that read 32 rows' pointers at once into shared memory and prefetch each "
+            "next row's edge ids and values into L1 while they gather for the row")
 
 
 def hub_plan(indptr: torch.Tensor, max_edges: int = HUB_EDGES) -> torch.Tensor:
@@ -193,8 +213,25 @@ def _plan(segments, indptr, segment_edges=None) -> tuple[torch.Tensor, int]:
     return segments, length
 
 
+def _check_schedule(schedule, indptr) -> None:
+    """A walk order for the CSR of ``indptr``: None, or a contiguous [rows]
+    int32 tensor on indptr's device. That it is a permutation of the rows is
+    checked where the graph is built (``graph_from_sorted``): here it would
+    wait for the device on every call."""
+    if schedule is None:
+        return
+    n = indptr.shape[0] - 1
+    if (not isinstance(schedule, torch.Tensor) or schedule.dtype != torch.int32
+            or schedule.shape != (n,) or not schedule.is_contiguous()):
+        raise TypeError(f"schedule must be a contiguous [{n}] int32 tensor (the CSR's walk "
+                        f"order), got {getattr(schedule, 'dtype', type(schedule))} "
+                        f"{tuple(getattr(schedule, 'shape', ()))}")
+    if schedule.device != indptr.device:
+        raise ValueError(f"schedule on {schedule.device}, the CSR on {indptr.device}")
+
+
 def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int, segments,
-                 segment_edges) -> bool:
+                 segment_edges, schedule) -> bool:
     """Launch the kernel (and the hub rows' second pass) unless the output
     is empty; True if it launched."""
     n = indptr.shape[0] - 1
@@ -208,7 +245,9 @@ def _launch_spmm(x, indptr, edge_src, values, out, heads: int, d: int, segments,
         indptr.data_ptr(), edge_src.data_ptr(), values.data_ptr(), x.data_ptr(),
         out.data_ptr(), segments.data_ptr() if n_seg else None, n_seg,
         part.data_ptr() if n_seg else None, length, n, heads, d, _DTYPES[x.dtype],
-        _DTYPES[out.dtype], _aligned(d, x, out), torch.cuda.current_stream(x.device).cuda_stream,
+        _DTYPES[out.dtype], _aligned(d, x, out),
+        schedule.data_ptr() if schedule is not None else None,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "csr_spmm")
     return True
@@ -223,6 +262,7 @@ def csr_spmm(
     segments: torch.Tensor | None = None,
     segment_edges: int | None = None,
     num_cols: int | None = None,
+    schedule: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """out[i] = sum_{e in [indptr[i], indptr[i+1])} weight[e] * x[edge_src[e]].
 
@@ -237,9 +277,11 @@ def csr_spmm(
     ``hub_segments`` and the like, with ``hub_edges``), given with its
     ``segment_edges`` or refused; built from ``indptr`` when None, with
     segments of ``segment_edges`` (:data:`HUB_EDGES` when None). The sum is
-    f32 and the result has x's type. ``edge_dst`` is read only by the plain
-    version, ``segments`` only by the kernel. Runs the op
-    ``sgformer_tpu_torch::csr_spmm`` (:mod:`.ops`).
+    f32 and the result has x's type. ``schedule``: the CSR's walk order
+    (``Graph.schedule``), the rows in the order the kernel walks them, or
+    None for row order; the result is the same bit for bit. ``edge_dst`` is
+    read only by the plain version, ``segments`` and ``schedule`` only by
+    the kernel. Runs the op ``sgformer_tpu_torch::csr_spmm`` (:mod:`.ops`).
     """
     num_cols = indptr.shape[0] - 1 if num_cols is None else num_cols
     if x.dim() != 2 or x.shape[0] != num_cols:
@@ -248,10 +290,13 @@ def csr_spmm(
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _segment_length(segments, segment_edges)
     _check_device(x, indptr, edge_src, edge_dst, weight)
-    return _OPS.csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges)
+    _check_schedule(schedule, indptr)
+    return _OPS.csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges,
+                         schedule)
 
 
-def csr_spmm_cuda(x, indptr, edge_src, edge_dst, weight, segments, segment_edges):
+def csr_spmm_cuda(x, indptr, edge_src, edge_dst, weight, segments, segment_edges,
+                  schedule=None):
     """The CUDA implementation of the op :func:`csr_spmm` runs: the kernel's
     launch, counted."""
     global launches
@@ -260,7 +305,8 @@ def csr_spmm_cuda(x, indptr, edge_src, edge_dst, weight, segments, segment_edges
         raise ValueError("weight must be [E]")
     x = x.contiguous()
     out = torch.empty(indptr.shape[0] - 1, x.shape[1], dtype=x.dtype, device=x.device)
-    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments, segment_edges):
+    if _launch_spmm(x, indptr, edge_src, weight, out, 1, x.shape[1], segments, segment_edges,
+                    schedule):
         launches += 1
     return out
 
@@ -274,6 +320,7 @@ def csr_spmm_ev(
     out_dtype: torch.dtype | None = None,
     segments: torch.Tensor | None = None,
     segment_edges: int | None = None,
+    schedule: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """out[i, h] = sum_{e in [indptr[i], indptr[i+1])} values[e, h] * x[edge_src[e], h].
 
@@ -281,9 +328,9 @@ def csr_spmm_ev(
     sent in; values: [E, H] float32 in the CSR's edge order; all heads in one
     launch. The sum is f32 and the result, [N, H, D], has ``out_dtype``
     (x's type when None). ``segments`` and ``segment_edges`` are the CSR's
-    hub plan and its segment length, as in :func:`csr_spmm`. ``edge_dst`` is
-    read only by the plain version. Runs the op
-    ``sgformer_tpu_torch::csr_spmm_ev``.
+    hub plan and its segment length, ``schedule`` its walk order, as in
+    :func:`csr_spmm`. ``edge_dst`` is read only by the plain version. Runs
+    the op ``sgformer_tpu_torch::csr_spmm_ev``.
     """
     n = indptr.shape[0] - 1
     out_dtype = out_dtype or x.dtype
@@ -296,19 +343,20 @@ def csr_spmm_ev(
                         f"{out_dtype}")
     _segment_length(segments, segment_edges)
     _check_device(x, indptr, edge_src, edge_dst, values)
+    _check_schedule(schedule, indptr)
     return _OPS.csr_spmm_ev(x, indptr, edge_src, edge_dst, values, out_dtype, segments,
-                            segment_edges)
+                            segment_edges, schedule)
 
 
 def csr_spmm_ev_cuda(x, indptr, edge_src, edge_dst, values, out_dtype, segments,
-                     segment_edges):
+                     segment_edges, schedule=None):
     """The CUDA implementation of the op :func:`csr_spmm_ev` runs."""
     global ev_launches
     _check_csr(indptr, edge_src, values=values)
     x = x.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if _launch_spmm(x, indptr, edge_src, values, out, x.shape[1], x.shape[2], segments,
-                    segment_edges):
+                    segment_edges, schedule):
         ev_launches += 1
     return out
 
@@ -532,6 +580,7 @@ def csr_spmm_ev_bwd(
     segment_edges: int | None = None,
     need_dx: bool = True,
     need_dv: bool = True,
+    t_schedule: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """The gradient of ``out = csr_spmm_ev(x.to(msg_dtype), <CSR>, values,
     x.dtype)`` for the cotangent g, from one walk of the transposed CSR:
@@ -547,10 +596,11 @@ def csr_spmm_ev_bwd(
     original destinations), t_edge_dst (the sources) and t_perm (the
     dst-sorted id of each edge) [E] int32: the graph's ``t_*`` arrays.
     ``t_segments`` and ``segment_edges``: the transposed CSR's hub plan and
-    its segment length, as in :func:`csr_spmm`. On the card each edge's row
-    of g is gathered once for both halves (one launch, and the hub rows'
-    second pass when dx is asked for). ``t_edge_dst`` is read only by the
-    plain version, :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values_backward`.
+    its segment length, ``t_schedule`` its walk order, as in
+    :func:`csr_spmm`. On the card each edge's row of g is gathered once for
+    both halves (one launch, and the hub rows' second pass when dx is asked
+    for). ``t_edge_dst`` is read only by the plain version,
+    :func:`sgformer_tpu_torch.ops.spmm.spmm_edge_values_backward`.
     """
     global ev_bwd_launches
     n = t_indptr.shape[0] - 1
@@ -560,6 +610,7 @@ def csr_spmm_ev_bwd(
     if values.dim() != 2 or values.shape[1] != x.shape[1]:
         raise ValueError(f"values must be [E, {x.shape[1]}], got {tuple(values.shape)}")
     _segment_length(t_segments, segment_edges)
+    _check_schedule(t_schedule, t_indptr)
     if _check_device(g, x, values, t_indptr, t_edge_src, t_edge_dst, t_perm) == "cpu":
         return spmm_edge_values_backward_plain(g, x, values, t_edge_src, t_edge_dst, t_perm,
                                                msg_dtype, need_dx, need_dv)
@@ -585,7 +636,8 @@ def csr_spmm_ev_bwd(
             # the layout as sddmm picks it, from g and x (dx is a fresh
             # allocation), so that both modes give the same dv
             _DTYPES[x.dtype], int(x.dtype == torch.float32 and msg_dtype == torch.bfloat16),
-            _aligned(d, g, x), torch.cuda.current_stream(x.device).cuda_stream,
+            _aligned(d, g, x), t_schedule.data_ptr() if t_schedule is not None else None,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
         _build.check(err, "csr_spmm_ev_bwd")
         ev_bwd_launches += 1
@@ -602,33 +654,38 @@ class CsrSpmmFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
-                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges):
+                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges,
+                schedule, t_schedule):
         ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, segment_edges,
-                         indptr.shape[0] - 1)
+                         indptr.shape[0] - 1, t_schedule)
         return csr_spmm(x, indptr, edge_src, edge_dst, weight, segments, segment_edges,
-                        t_indptr.shape[0] - 1)
+                        t_indptr.shape[0] - 1, schedule)
 
     @staticmethod
     def backward(ctx, g):
         dx = csr_spmm(g.contiguous(), *ctx.transpose)
-        return (dx,) + (None,) * 11
+        return (dx,) + (None,) * 13
 
 
 def csr_spmm_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple,
                       segments: torch.Tensor | None = None,
                       t_segments: torch.Tensor | None = None,
-                      segment_edges: int | None = None) -> torch.Tensor:
+                      segment_edges: int | None = None,
+                      schedule: torch.Tensor | None = None,
+                      t_schedule: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`csr_spmm` of ``x`` on ``csr`` = (indptr, edge_src, edge_dst,
     weight), differentiable in x; ``csr_t`` is the CSR of A^T in the same
     form (``csr`` itself when A is symmetric; num_cols rows when A is
     rectangular); ``segments`` and
     ``t_segments`` are their hub plans, both of segments of
-    ``segment_edges`` (built from indptr when None). Where autograd does not
-    record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
+    ``segment_edges`` (built from indptr when None), ``schedule`` and
+    ``t_schedule`` their walk orders (None: row order). Where autograd does
+    not record (``torch.no_grad``, ``torch.inference_mode``, or x needs no
     gradient) it is one :func:`csr_spmm` and saves nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments, segment_edges)
-    return csr_spmm(x, *csr, segments, segment_edges, csr_t[0].shape[0] - 1)
+        return CsrSpmmFunction.apply(x, *csr, segments, *csr_t, t_segments, segment_edges,
+                                     schedule, t_schedule)
+    return csr_spmm(x, *csr, segments, segment_edges, csr_t[0].shape[0] - 1, schedule)
 
 
 class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
@@ -645,39 +702,45 @@ class CsrSpmmEdgeValuesFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, values, indptr, edge_src, edge_dst, segments,
                 t_indptr, t_edge_src, t_edge_dst, t_perm, t_segments, segment_edges,
-                msg_dtype):
+                msg_dtype, schedule, t_schedule):
         ctx.save_for_backward(x, values)
         ctx.csr_t = (t_indptr, t_edge_src, t_edge_dst, t_perm)
         ctx.t_plan = (t_segments, segment_edges)
+        ctx.t_schedule = t_schedule
         ctx.msg_dtype = msg_dtype
         return csr_spmm_ev(x.to(msg_dtype), indptr, edge_src, edge_dst, values, x.dtype,
-                           segments, segment_edges)
+                           segments, segment_edges, schedule)
 
     @staticmethod
     def backward(ctx, g):
         x, values = ctx.saved_tensors
         dx, dv = csr_spmm_ev_bwd(g, x, values, *ctx.csr_t, ctx.msg_dtype, *ctx.t_plan,
-                                 ctx.needs_input_grad[0], ctx.needs_input_grad[1])
-        return (dx, dv) + (None,) * 11
+                                 ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                                 ctx.t_schedule)
+        return (dx, dv) + (None,) * 13
 
 
 def csr_spmm_ev_autograd(x: torch.Tensor, values: torch.Tensor, csr: tuple,
                          csr_t: tuple, msg_dtype: torch.dtype,
                          segments: torch.Tensor | None = None,
                          t_segments: torch.Tensor | None = None,
-                         segment_edges: int | None = None) -> torch.Tensor:
+                         segment_edges: int | None = None,
+                         schedule: torch.Tensor | None = None,
+                         t_schedule: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`csr_spmm_ev` of x ([N, H, D]) rounded to ``msg_dtype``, with
     ``values`` ([E, H] f32) on ``csr`` = (indptr, edge_src, edge_dst); the
     result has x's type. Differentiable in x and values; ``csr_t`` =
     (t_indptr, t_edge_src, t_edge_dst, t_perm) is the transposed CSR and the
     permutation that takes the values into its order; ``segments`` and
     ``t_segments`` the two CSRs' hub plans, both of segments of
-    ``segment_edges`` (built from indptr when None). Where autograd does not
-    record it is one :func:`csr_spmm_ev` and saves nothing."""
+    ``segment_edges`` (built from indptr when None), ``schedule`` and
+    ``t_schedule`` their walk orders. Where autograd does not record it is
+    one :func:`csr_spmm_ev` and saves nothing."""
     if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
         return CsrSpmmEdgeValuesFunction.apply(x, values, *csr, segments, *csr_t, t_segments,
-                                               segment_edges, msg_dtype)
-    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype, segments, segment_edges)
+                                               segment_edges, msg_dtype, schedule, t_schedule)
+    return csr_spmm_ev(x.to(msg_dtype), *csr, values, x.dtype, segments, segment_edges,
+                       schedule)
 
 
 class CsrSpmmQ8Function(torch.autograd.Function):

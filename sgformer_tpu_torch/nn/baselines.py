@@ -96,7 +96,7 @@ class LINK(GraphModel):
         agg = _spmm_kernel.csr_spmm_autograd(
             self.weight, (graph.indptr, graph.edge_src, graph.edge_dst, ones),
             (graph.t_indptr, graph.t_edge_src, graph.t_edge_dst, ones),
-            graph.hub_segments, graph.t_hub_segments, graph.hub_edges)
+            graph.hub_segments, graph.t_hub_segments, graph.hub_edges, *graph.walk_orders)
         return agg + self.bias
 
 

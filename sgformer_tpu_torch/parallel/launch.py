@@ -16,6 +16,7 @@ from typing import Optional
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from sgformer_tpu_torch.device import resolve_device
 from sgformer_tpu_torch.parallel.mesh import init_distributed
 
 
@@ -28,13 +29,15 @@ def _entry(rank: int, fn, world_size: int, init_method: str, device, backend, ar
         dist.destroy_process_group()
 
 
-def run_group(fn, world_size: int, *args, device="cpu", backend: Optional[str] = None) -> None:
+def run_group(fn, world_size: int, *args, device="cuda", backend: Optional[str] = None) -> None:
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes joined to
-    one process group (``backend``: NCCL for ``device="cuda"``, gloo for the
-    CPU, unless named; under gloo several ranks may share one card). ``fn``
-    must be importable by name (a module-level function); it returns nothing
-    (a rank writes what it must hand back to a file). Raises if a rank
-    fails."""
+    one process group, on the card unless ``device="cpu"`` asks for the CPU
+    (raising before any rank starts when CUDA is absent); ``backend``: NCCL
+    on the card, gloo on the CPU, unless named (under gloo several ranks may
+    share one card). ``fn`` must be importable by name (a module-level
+    function); it returns nothing (a rank writes what it must hand back to a
+    file). Raises if a rank fails."""
+    resolve_device(device)
     with tempfile.TemporaryDirectory() as store:
         mp.spawn(_entry, args=(fn, world_size, f"file://{store}/rendezvous", device, backend,
                                args), nprocs=world_size, join=True)

@@ -1759,3 +1759,103 @@ def test_world_one_nccl_sharded_step_matches_the_trainer(cuda, halo):
     assert diff <= 1e-4 * norm
     assert counts["csr_spmm"] == (12 if halo else 4)
     assert counts["linear_attention_reduce"] == counts["linear_attention_bwd_apply"] == 1
+
+
+def _walk_graph(cuda):
+    """A power-law graph on the card: rows of every length from 1 to
+    several hundred edges (the lane groups' walkers prefetch a row's first
+    64), and hub rows above the plan's segment length; with its walk order
+    (``Graph.schedule``)."""
+    from sgformer_tpu_torch.data import synthetic_dataset
+
+    ds = synthetic_dataset(num_nodes=6000, num_edges=60_000, num_features=4, num_classes=8,
+                           powerlaw=1.1, seed=5, device="cpu")
+    g = preprocess_graph(ds.graph["edge_index"], 6000, device=cuda)
+    deg = torch.diff(g.indptr)
+    assert g.schedule is not None and int(deg.max()) > 256 and int((deg > 64).sum()) > 10
+    return g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 64, 40])
+@pytest.mark.parametrize("segment", [128, 256])
+def test_walk_order_gives_the_node_order_walk_bitwise(cuda, dtype, width, segment):
+    """``csr_spmm`` walked in the graph's order, and in a random one, is
+    bitwise the walk in node order (each row summed edge for edge, written in
+    place), through hub plans of 128 and 256 edges; and held to the plain
+    version at the file's tolerances."""
+    g = _walk_graph(cuda)
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    plan = (spmm_kernel.hub_plan(g.indptr, segment), segment)
+    x = torch.randn(n, width, device=cuda).to(dtype)
+    base = csr_spmm(x, *csr, *plan)
+    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(1)).int().to(cuda)
+    for order in (g.schedule, shuffled):
+        before = spmm_kernel.launches
+        got = csr_spmm(x, *csr, *plan, schedule=order)
+        assert spmm_kernel.launches == before + 1
+        assert torch.equal(got, base)
+    want = spmm(x, g.edge_src, g.edge_dst, g.gcn_weight, n)
+    torch.testing.assert_close(base.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [256, 40])
+def test_walk_order_on_a_rectangular_a(cuda, dtype, width):
+    """A node shard's rectangular CSR (300 rows over 1,000 columns, a hub
+    row of 500 edges) walked in a random order of its rows, and its Aᵀ in
+    one of its columns: bitwise the node-order walks, and the plain sums'."""
+    from sgformer_tpu_torch.kernels.spmm import HUB_EDGES
+    from sgformer_tpu_torch.parallel.partition import ShardCsr
+
+    rng = np.random.default_rng(3)
+    rows, cols = 300, 1000
+    dst = np.sort(np.concatenate([rng.integers(0, rows, 4000), np.full(500, 7)]))
+    src = rng.integers(0, cols, dst.shape[0])
+    w = (rng.uniform(0.5, 1.5, dst.shape[0]) / np.bincount(dst)[dst]).astype(np.float32)
+    a = ShardCsr.build(src, dst, w, rows, cols, cuda)
+    x = torch.randn(cols, width, device=cuda).to(dtype)
+    g = torch.randn(rows, width, device=cuda).to(dtype)
+    for csr, plan, inp, n_rows, n_cols in ((a.fwd, a.fwd_segments, x, rows, cols),
+                                           (a.bwd, a.bwd_segments, g, cols, rows)):
+        order = torch.from_numpy(rng.permutation(n_rows)).int().to(cuda)
+        got = csr_spmm(inp, *csr, plan, HUB_EDGES, n_cols, schedule=order)
+        assert torch.equal(got, csr_spmm(inp, *csr, plan, HUB_EDGES, n_cols))
+        want = spmm(inp, csr[1], csr[2], csr[3], n_rows)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("msg_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 256), (2, 40), (3, 64)])
+def test_walk_order_in_the_edge_value_walks(cuda, msg_dtype, heads, d):
+    """``csr_spmm_ev`` in the graph's walk order (one, two and three heads of
+    values) and ``csr_spmm_ev_bwd`` in its transposed CSR's: bitwise the
+    node-order walks; against the plain
+    versions relative to the largest value and against the exact sums
+    (``_close_to_exact``), the tolerances of this file's hub-row tests, since
+    rows of up to 708 edges sum in another order than the plain version's."""
+    g = _walk_graph(cuda)
+    n, e = g.num_nodes, g.num_edges
+    csr = (g.indptr, g.edge_src, g.edge_dst)
+    x = torch.randn(n, heads, d, device=cuda)
+    v = torch.rand(e, heads, device=cuda)
+    xm = x.to(msg_dtype)
+    plan = (g.hub_segments, g.hub_edges)
+    got = csr_spmm_ev(xm, *csr, v, torch.float32, *plan, schedule=g.schedule)
+    assert torch.equal(got, csr_spmm_ev(xm, *csr, v, torch.float32, *plan))
+    want = spmm_edge_values(xm, g.edge_src, g.edge_dst, v, n, torch.float32)
+    _check_rel(got, want, 1e-5)
+    _close_to_exact(got, xm, g.edge_src, g.edge_dst, v, n)
+    cot = torch.randn(n, heads, d, device=cuda)
+    t_csr = (g.t_indptr, g.t_edge_src, g.t_edge_dst, g.t_perm)
+    t_plan = (g.t_hub_segments, g.hub_edges)
+    dx, dv = csr_spmm_ev_bwd(cot, x, v, *t_csr, msg_dtype, *t_plan,
+                             t_schedule=g.walk_orders[1])
+    dx0, dv0 = csr_spmm_ev_bwd(cot, x, v, *t_csr, msg_dtype, *t_plan)
+    assert torch.equal(dx, dx0) and torch.equal(dv, dv0)
+    want_dx, want_dv = spmm_edge_values_backward(cot, x, v, g.t_edge_src, g.t_edge_dst,
+                                                 g.t_perm, msg_dtype)
+    _check_rel(dx, want_dx, 1e-5)
+    _close_to_exact(dx, cot.to(msg_dtype), g.t_edge_src, g.t_edge_dst, v[g.t_perm.long()], n)
+    _check_rel(dv, want_dv, 1e-5)

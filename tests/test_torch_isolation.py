@@ -144,3 +144,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: init_distributed("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_run_group_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``parallel.launch.run_group`` starts its ranks on the card by default:
+    without CUDA it raises before it spawns any."""
+    from sgformer_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(launch.mp, "spawn", lambda *a, **k: pytest.fail("a rank was spawned"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_group(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_group(print, 1, device="cuda", backend="gloo")
