@@ -11,6 +11,7 @@ in the same call as the change.
     python3 chip_compare.py host ROOT
     python3 chip_compare.py narrow ROOT
     python3 chip_compare.py tf32-bwd ROOT
+    python3 chip_compare.py bf16-bwd ROOT
     python3 chip_compare.py busy ROOT
     python3 chip_compare.py schedule ROOT
     python3 chip_compare.py designs ROOT [ROOT ...]
@@ -71,6 +72,20 @@ at four shapes, and counts the ``HGMMA`` and ``HMMA`` instructions of each
 backward kernel in ``cuobjdump -sass`` of its built library. The mode
 prints each turn's JSON line, then one line that sets the turns side by
 side and says whether the bf16 digests of the two packages are equal.
+``bf16-bwd``: the bf16 attention backward's kernels of ROOT and of this
+checkout, each turn a process of its own (``bf16-bwd-turn ROOT``), in
+turns ROOT, this checkout, this checkout, ROOT. A turn prints the designs
+at M = D = 256, counts the ``HGMMA`` and ``HMMA`` instructions of each
+backward kernel, then at M = D = 256 on the arxiv (N = 169,343) and
+amazon2m full-batch and tail (100,000, 49,029) shapes times its package's
+bf16 ``bwd_reduce`` and ``bwd_apply`` (CUDA events, median of 20) and their
+launches apart by the profiler (the rows pass, the P pass, the split,
+finish and dinv; the apply and its split), holds each output to the plain
+version in f64 (random inputs at n = N, and the apply on
+``bwd_product_inputs``; the ratios printed), checks that both are bitwise
+repeatable, and digests the f32 backward's outputs at three shapes. The
+mode prints each turn's JSON line, then the turns side by side, and fails
+unless the f32 digests are equal in every turn.
 ``busy``: ROOT's own arxiv-train, powerlaw-train, amazon2m-batch-train,
 papers-sampled-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
 ``powerlaw_train_phase``, ``amazon2m_batch_phase``,
@@ -134,8 +149,8 @@ def load_phases(path: str):
 
 def main() -> int:
     modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
-             "tf32-bwd", "tf32-bwd-turn", "busy", "schedule", "schedule-turn", "designs",
-             "designs-turn")
+             "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "schedule",
+             "schedule-turn", "designs", "designs-turn")
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
             or len(sys.argv) > 3 and sys.argv[1] == "designs") or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
@@ -143,6 +158,8 @@ def main() -> int:
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
     if mode == "tf32-bwd":
         return tf32_bwd(root)
+    if mode == "bf16-bwd":
+        return bf16_bwd(root)
     if mode == "schedule":
         return schedule(root)
     if mode == "designs":
@@ -176,6 +193,8 @@ def main() -> int:
         return host_cost(cs, root)
     if mode == "tf32-bwd-turn":
         return tf32_bwd_turn(cs, root)
+    if mode == "bf16-bwd-turn":
+        return bf16_bwd_turn(cs, root)
     if mode == "schedule-turn":
         return schedule_turn(cs, root)
     if mode == "designs-turn":
@@ -432,6 +451,140 @@ def tf32_bwd(root: str) -> int:
     return 0
 
 
+def bf16_bwd(root: str) -> int:
+    """The ``bf16-bwd`` mode: four turns, each ``bf16-bwd-turn`` in a
+    process of its own, then the turns side by side, and whether the f32
+    backward's outputs are bitwise equal in every turn."""
+    import json
+
+    turns = run_turns("bf16-bwd-turn", root)
+    if turns is None:
+        return 1
+    side = {f"turn {i} ({'ROOT' if t['root'] == root else 'this checkout'})": t["bf16"]
+            for i, t in enumerate(turns)}
+    f32_equal = len({json.dumps(t["f32_digests"]) for t in turns}) == 1
+    print(json.dumps({"bf16_bwd_turns": side, "f32_bitwise_equal": f32_equal}), flush=True)
+    return 0 if f32_equal else 1
+
+
+# the bf16 backward's launches by kernel name, either package's: the rows
+# pass, the P pass, the reduce's other launches (the split of kvs^T, the
+# P finish, the dinv sum), the apply and the apply's split
+BF16_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wgmma_kernel")
+BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel")
+BF16_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_split_rows_kernel", "la_bwd_finish_kernel",
+                      "la_bwd_dinv_kernel")
+BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
+# the f32 backward's outputs digested in every turn (bitwise the parent's)
+F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
+
+
+def sass_counts(cs, root: str) -> dict:
+    """``HGMMA`` and ``HMMA`` instructions of each backward kernel in
+    ``cuobjdump -sass`` of ROOT's built library, logged."""
+    import re
+
+    from sgformer_tpu_torch.kernels import _build
+
+    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention_bwd")[1]])
+    counts = {}
+    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        if "la_bwd" in func:
+            counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
+                                HMMA=len(re.findall(r"\bHMMA\b", body)))
+    for func, c in counts.items():
+        cs.log(f"sass {root}: {func}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+    return counts
+
+
+def bf16_bwd_turn(cs, root: str) -> int:
+    """One turn of the ``bf16-bwd`` mode on ROOT's package; its last line
+    of output is a JSON object of its numbers."""
+    import hashlib
+    import json
+    import re
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+    from sgformer_tpu_torch.utils.measure import bwd_product_inputs
+
+    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
+    for line in report.splitlines():  # the entry, registers, spills and wgmma notes
+        if re.search(r"la_bwd_(apply|rows|reduce)_(tc|wgmma)|Used|spill|wgmma|Performance", line):
+            cs.log(f"ptxas {root}: {line.strip()}")
+    dev, m = "cuda", 256
+    out = dict(root=root, sass=sass_counts(cs, root), bf16={}, f32_digests=[],
+               designs=dict(reduce=attn.bwd_reduce_design(torch.bfloat16, m, m),
+                            apply=attn.bwd_apply_design(torch.bfloat16, m, m)))
+    cs.log(f"bf16-bwd {root} designs at M = D = 256: {out['designs']}")
+    passes = BF16_ROWS + BF16_P_PASS + BF16_REDUCE_OTHERS
+    applies = BF16_APPLY + ("la_bwd_split_kernel", "la_bwd_split_tiles_kernel")
+    shapes = (*cs.BWD_PASS_SHAPES[:2], ("amazon2m-batch tail", 49_029))
+    for name, n in shapes:
+        gen = torch.Generator(device=dev).manual_seed(23)
+        q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).bfloat16() for _ in range(4))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        got_r = attn.bwd_reduce(q, v, g, *sums, n_t)
+        exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, *sums, n_t)), False)
+        errs = {part: rel(a, b) for part, a, b in zip(("P", "ds", "dinv", "rows"), got_r, exact)}
+        repeat = all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums, n_t)))
+        del got_r, exact
+        got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
+        exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)), False)
+        errs.update({part: rel(a, b) for part, a, b in zip(("dq", "dk", "dv"), got_a, exact)})
+        repeat = repeat and all(torch.equal(a, b) for a, b in
+                                zip(got_a, attn.bwd_apply(q, k, v, g, *sums, n_t, *red)))
+        del got_a, exact
+        # the apply where its products carry dq, dk and dv (n = inv = 1)
+        gen_p = torch.Generator(device=dev).manual_seed(8)
+        ins = bwd_product_inputs(n, m, m, torch.bfloat16, gen_p)
+        exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+        errs.update({f"{part} (products carry it)": rel(a, b)
+                     for part, a, b in zip(("dq", "dk", "dv"), attn.bwd_apply(*ins), exact)})
+        del ins, exact
+        a_ms = cs.time_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
+        r_ms = cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t))
+        r_dev = cs.kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), passes)
+        a_dev = cs.kernel_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red), applies)
+        rows_ms = sum(r_dev[p] for p in BF16_ROWS)
+        p_ms = sum(r_dev[p] for p in BF16_P_PASS)
+        others_ms = sum(r_dev[p] for p in BF16_REDUCE_OTHERS)
+        apply_ms = sum(a_dev[p] for p in BF16_APPLY)
+        split_ms = a_dev["la_bwd_split_kernel"] + a_dev["la_bwd_split_tiles_kernel"]
+        out["bf16"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
+                                 p_pass_ms=p_ms, reduce_others_ms=others_ms,
+                                 apply_kernel_ms=apply_ms,
+                                 apply_split_ms=split_ms, rel_err=errs,
+                                 bitwise_repeatable=repeat)
+        cs.log(f"bf16-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}, "
+               f"split {split_ms:.4f}), bwd_reduce {r_ms:.4f} ms (rows pass "
+               f"{rows_ms:.4f}, P pass {p_ms:.4f}, split, finish and dinv {others_ms:.4f}); "
+               f"bitwise repeatable {repeat}; |kernel - plain in f64| / scale: "
+               + ", ".join(f"{p} {e:.2e}" for p, e in errs.items()))
+        del q, k, v, g, sums, red
+        torch.cuda.empty_cache()
+    for n, m_, d_ in F32_DIGEST_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
+        q, k = (torch.randn(n, m_, generator=gen, device=dev) for _ in range(2))
+        v, g = (torch.randn(n, d_, generator=gen, device=dev) for _ in range(2))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        outs = (*attn.bwd_reduce(q, v, g, *sums, n_t),
+                *attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
+        digest = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                         for t in outs)).hexdigest()[:16]
+        out["f32_digests"].append(dict(shape=[n, m_, d_], sha256=digest))
+        cs.log(f"bf16-bwd {root} f32 n={n} m={m_} d={d_}: outputs sha256 {digest}")
+        del q, k, v, g, sums, red, outs
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def tf32_bwd_turn(cs, root: str) -> int:
     """One turn of the ``tf32-bwd`` mode on ROOT's package; its last line
     of output is a JSON object of its numbers."""
@@ -448,17 +601,8 @@ def tf32_bwd_turn(cs, root: str) -> int:
     for line in report.splitlines():  # the entry, registers, spills and wgmma notes
         if re.search(r"la_bwd_(apply|rows)_(tc|wg)|Used|spill|wgmma|Performance", line):
             cs.log(f"ptxas {root}: {line.strip()}")
-    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention_bwd")[1]])
-    counts = {}
-    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-        if "la_bwd" in func:
-            counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
-                                HMMA=len(re.findall(r"\bHMMA\b", body)))
-    for func, c in counts.items():
-        cs.log(f"sass {root}: {func}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
-
     dev = "cuda"
-    out = dict(root=root, sass=counts, f32={}, bf16_digests=[])
+    out = dict(root=root, sass=sass_counts(cs, root), f32={}, bf16_digests=[])
     # the f32 rows pass and apply by either package's kernel name
     passes = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel",
               "split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")

@@ -20,14 +20,14 @@ JAX package. Phases, each failing loudly:
    one ``torch.matmul`` of its core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32
-   (both on the tensor cores, f32 in 3xTF32, its apply and rows pass on
-   ``wgmma``); both also with n = 1 and positive inputs (the reduce to
-   2^-14 of scale, the apply against its plain version in f64), in f32 also
-   on inputs where their products carry the outputs
+   (both on the tensor cores by ``wgmma``: bf16 in all three kernels, f32
+   in 3xTF32 in its apply and rows pass); both also with n = 1 and positive
+   inputs (the reduce to 2^-14 of scale, the apply against its plain
+   version in f64) and on inputs where their products carry the outputs
    (``bwd_product_inputs``), with their designs and ``torch.matmul`` of
    q @ kvs and q^T (g/den) as a yardstick; bitwise repeatable, finite zeros
-   for an all-masked group; the f32 reduce's rows pass and P pass timed
-   apart at the arxiv, amazon2m-batch and papers-sampled shapes;
+   for an all-masked group; the reduce's rows pass and P pass timed apart
+   in both types at the arxiv, amazon2m-batch and papers-sampled shapes;
 5. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
    and the bench model ``SGFormerConfig.large(256, 40, trans_num_layers=1,
    gnn_num_layers=3, graph_weight=0.5, compute_dtype="bf16")`` from a seeded
@@ -380,7 +380,7 @@ AMAZON2M_CONFIG = dict(trans_num_layers=1, gnn_num_layers=3, graph_weight=0.5, g
                        trans_dropout=0.0, gnn_use_init=True)
 AMAZON2M_TRAIN = dict(lr=0.01, trans_weight_decay=0.0, gnn_weight_decay=0.0)
 AMAZON2M_BATCH = 100_000
-# the f32 backward reduce's rows pass and P pass timed apart at M = D = 256
+# the backward reduce's rows pass and P pass timed apart at M = D = 256
 # on the rows of the arxiv graph, of a full amazon2m batch and of a
 # papers-sampled batch (~621,000 nodes at PAPERS' fanouts)
 BWD_PASS_SHAPES = (("arxiv", 169_343), ("amazon2m-batch", AMAZON2M_BATCH),
@@ -700,14 +700,15 @@ def kernel_ms(run, names: tuple, reps: int = 20) -> dict:
 
 def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
-    at the model's width both take the tensor cores (f32 in 3xTF32, the
-    apply and the reduce's rows pass on warpgroup MMAs)."""
+    at the model's width both take the tensor cores on warpgroup MMAs (f32
+    in 3xTF32: the apply and the reduce's rows pass; bf16: the apply and
+    both reduce passes)."""
     design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
     log(f"bwd_apply {name} design at {where}: {design}")
     log(f"bwd_reduce {name} design at {where}: {red_design}")
     want = (("tensor cores (wgmma 3xTF32", "tensor cores (3xTF32, f32 sums: rows pass wgmma")
-            if dtype == torch.float32 else ("tensor cores", "tensor cores"))
+            if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma bf16"))
     if (m, d) == (256, 256) and not (design.startswith(want[0])
                                      and red_design.startswith(want[1])):
         raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
@@ -715,23 +716,28 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     return design, red_design
 
 
-# the f32 backward reduce's launches by kernel name: its rows pass, its P
-# pass, and the split of kvs, the P finish and the dinv sum
-BWD_REDUCE_F32_KERNELS = ("la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel", "split_t_kernel",
-                          "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
+# the backward reduce's launches by kernel name, by input type: its rows
+# pass, its P pass, and the split of kvs, the P finish and the dinv sum
+BWD_REDUCE_KERNELS = {
+    torch.float32: ("la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel", "split_t_kernel",
+                    "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
+    torch.bfloat16: ("la_bwd_rows_wgmma_kernel", "la_bwd_reduce_wgmma_kernel",
+                     "la_bwd_split_rows_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
+}
 
 
-def bwd_passes_ms(attn, n: int, dev: str) -> dict:
-    """The f32 backward reduce's launches apart (``kernel_ms``) at M = D =
-    256 on n random rows: rows pass, P pass and the rest, device ms a call."""
+def bwd_passes_ms(attn, n: int, dev: str, dtype=torch.float32) -> dict:
+    """The backward reduce's launches apart (``kernel_ms``) at M = D = 256
+    on n random rows of ``dtype``: rows pass, P pass and the rest, device ms
+    a call."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    q, v, g = (torch.randn(n, 256, generator=gen, device=dev) for _ in range(3))
+    q, v, g = (torch.randn(n, 256, generator=gen, device=dev).to(dtype) for _ in range(3))
     sums = attn.reduce_plain(q, q, v, False)
     n_t = torch.full((), float(n), device=dev)
-    dev_ms = kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), BWD_REDUCE_F32_KERNELS)
-    return dict(rows_ms=dev_ms[BWD_REDUCE_F32_KERNELS[0]],
-                p_pass_ms=dev_ms[BWD_REDUCE_F32_KERNELS[1]],
-                others_ms=sum(dev_ms[k] for k in BWD_REDUCE_F32_KERNELS[2:]))
+    names = BWD_REDUCE_KERNELS[dtype]
+    dev_ms = kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), names)
+    return dict(rows_ms=dev_ms[names[0]], p_pass_ms=dev_ms[names[1]],
+                others_ms=sum(dev_ms[k] for k in names[2:]))
 
 
 def attention_phase(n: int, results: dict, dev: str) -> None:
@@ -847,43 +853,46 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                 **TOL[torch.bfloat16])
 
 
-def bwd_product_check(attn, n: int, m: int, d: int, dev: str) -> None:
-    """The f32 backward kernels on ``bwd_product_inputs`` (their products
-    carry the outputs, so that a faulty product or index mapping misses the
-    tolerance): the reduce against its plain version in f64 (REDUCE_REL_TOL,
-    dinv of its sums' magnitude) and the apply against its plain version in
-    f64 (BWD_REL_TOL), each bitwise repeatable."""
+def bwd_product_check(attn, n: int, m: int, d: int, dev: str, dtype=torch.float32) -> None:
+    """The backward kernels on ``bwd_product_inputs`` of ``dtype`` (their
+    products carry the outputs, so that a faulty product, index mapping,
+    swizzle or descriptor misses the tolerance, and in the reduce a dropped
+    piece of kvs or g/den too): the reduce against its plain version in f64
+    (REDUCE_REL_TOL, dinv of its sums' magnitude) and the apply against its
+    plain version in f64 (BWD_REL_TOL of the type), each bitwise
+    repeatable."""
     from sgformer_tpu_torch.utils.measure import bwd_product_inputs
 
+    name = DTYPE_NAME[dtype]
     gen = torch.Generator(device=dev).manual_seed(8)
-    ins = bwd_product_inputs(n, m, d, torch.float32, gen)
+    ins = bwd_product_inputs(n, m, d, dtype, gen)
     q, k, v, g, kvs, ksum, scal, n_t = ins[:8]
     got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
     qd, vd, gd_, kvs_d, ksum_d = (t.double() for t in (q, v, g, kvs, ksum))
     exact = attn.bwd_reduce_plain(qd, vd, gd_, kvs_d, ksum_d, scal.double(), n_t.double(), False)
     for part, a, b in (("P", got_r[0], exact[0]), ("ds", got_r[1], exact[1]),
                        ("den, gden", got_r[3], exact[3])):
-        check_rel(f"bwd_reduce f32 (products carry it) {part} (plain in f64)", a, b,
+        check_rel(f"bwd_reduce {name} (products carry it) {part} (plain in f64)", a, b,
                   REDUCE_REL_TOL)
     den, gden = exact[3]
     dinv_scale = ((gd_ / den[:, None] * (qd @ kvs_d)).abs().sum()
                   + (gden * (qd @ ksum_d)).abs().sum()).item()
     dinv_err = abs(got_r[2].item() - exact[2].item())
-    log(f"bwd_reduce f32 (products carry it) dinv: {dinv_err / dinv_scale:.2e} of its sums' "
+    log(f"bwd_reduce {name} (products carry it) dinv: {dinv_err / dinv_scale:.2e} of its sums' "
         f"magnitude (tolerance {REDUCE_REL_TOL})")
     if not dinv_err <= REDUCE_REL_TOL * dinv_scale:
-        raise AssertionError("bwd_reduce f32 (products carry it) dinv disagrees with plain")
+        raise AssertionError(f"bwd_reduce {name} (products carry it) dinv disagrees with plain")
     if not all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, kvs, ksum,
                                                                         scal, n_t))):
-        raise AssertionError("bwd_reduce f32 is not bitwise repeatable")
+        raise AssertionError(f"bwd_reduce {name} is not bitwise repeatable")
     del got_r, exact, qd, vd, gd_, kvs_d, ksum_d, den, gden
     got_a = attn.bwd_apply(*ins)
     exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
     for part, a, b in zip(("dq", "dk", "dv"), got_a, exact):
-        check_rel(f"bwd_apply f32 (products carry it) {part} (plain in f64)", a, b,
-                  BWD_REL_TOL[torch.float32])
+        check_rel(f"bwd_apply {name} (products carry it) {part} (plain in f64)", a, b,
+                  BWD_REL_TOL[dtype])
     if not all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(*ins))):
-        raise AssertionError("bwd_apply f32 is not bitwise repeatable")
+        raise AssertionError(f"bwd_apply {name} is not bitwise repeatable")
 
 
 def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
@@ -924,8 +933,7 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         again = attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r)
         if not all(torch.equal(a, b) for a, b in zip(got_a, again)):
             raise AssertionError("bwd_apply is not bitwise repeatable")
-        if dtype == torch.float32:
-            bwd_product_check(attn, n, m, d, dev)
+        bwd_product_check(attn, n, m, d, dev, dtype)
         # with n = 1 and positive inputs the attention products, not n * gd,
         # carry the gradients; against the plain version evaluated in f64 on
         # the same inputs: the epilogue's terms cancel there, and an f32
@@ -1015,16 +1023,15 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         results[("linear_attention_bwd_reduce", name)] = dict(
             max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=red_design)
-        if dtype == torch.float32:
-            # the reduce's passes apart at the three shapes the paths give it
-            for what, n_ in BWD_PASS_SHAPES:
-                passes = bwd_passes_ms(attn, n_, dev)
-                log(f"bwd_reduce f32 {what} n={n_} by launch: rows pass "
-                    f"{passes['rows_ms']:.4f} ms, P pass {passes['p_pass_ms']:.4f} ms, split, "
-                    f"finish and dinv {passes['others_ms']:.4f} ms")
-                if n_ == n:
-                    results[("linear_attention_bwd_reduce", name)].update(passes)
-                torch.cuda.empty_cache()
+        # the reduce's passes apart at the three shapes the paths give it
+        for what, n_ in BWD_PASS_SHAPES:
+            passes = bwd_passes_ms(attn, n_, dev, dtype)
+            log(f"bwd_reduce {name} {what} n={n_} by launch: rows pass "
+                f"{passes['rows_ms']:.4f} ms, P pass {passes['p_pass_ms']:.4f} ms, split, "
+                f"finish and dinv {passes['others_ms']:.4f} ms")
+            if n_ == n:
+                results[("linear_attention_bwd_reduce", name)].update(passes)
+            torch.cuda.empty_cache()
         results[("linear_attention_bwd_apply", name)] = dict(
             max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
             bound_by=ab_by, library_ms=None, gemm_ms=a_gemm_ms, design=design)

@@ -48,36 +48,48 @@
 // row block of q, k, v and g once per 64-column output tile. They remain
 // for widths the tensor-core tiles do not fit (above M, D = 256 in f32).
 //
-// The bf16 apply (la_bwd_apply_tc_kernel) runs its three products on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). The A side is the
-// bf16 input rows as they are (g, v, k; the 1/den of gd = g/den moves into
-// the epilogue); the B side, kvs and P, stays f32 in meaning: each is split
-// once per call (la_bwd_split_kernel) into bf16 hi + lo (hi = bf16(x), lo =
-// bf16(x - hi), ~16 significant bits) and every product is two MMAs, so the
-// error is ~2^-17 of each term against the CUDA-core kernel's f32 FMAs. One
-// block owns 128 rows and produces all three outputs at full width, so q, k,
-// v and g are read from device memory once (the CUDA-core grid reads each
-// row block once per 64-column output tile). The MMA work, 6 x 22.2 GFLOP
-// at the arxiv shape, is ~0.13 ms at the card's bf16 peak, under the bytes
-// bound.
-//
-// The bf16 reduce runs both its products on the tensor cores too:
-//   1. la_bwd_rows_tc_kernel forms a = q @ kvs with the apply's core (the
-//      q rows staged once by cp.async, kvs^T split into three bf16 pieces,
-//      hi + mid + lo, by tc::split_t_kernel and streamed in
-//      double-buffered 64-deep chunks; three MMAs a product, since dinv's
-//      sums cancel and two pieces left it 1.3e-5 of its size off); its
-//      epilogue folds each 64-column tile of a into sum_d g*a
-//      and sum_d g*v per row at once, so a never leaves the block, and
-//      writes den, gden and the f64 dinv partial as the CUDA-core pass does;
-//   2. la_bwd_reduce_tc_kernel forms P = q^T (g/den) with the node-axis
-//      contraction of the forward reduce (tensor_core.cuh): q is the A
-//      operand as it is, gd = g * (1/den) is formed in f32 while each chunk
-//      is staged and split into bf16 hi + lo, two MMAs a product; ds keeps
-//      its per-slice f64 sum on the CUDA cores.
-// a is recomputed from q and kvs, as the TPU kernel does, rather than taken
-// from the forward's bf16 output (num = out * den), which would move gden by
-// ~2^-9. Passes 3 (finish, dinv) are the CUDA-core design's.
+// The bf16 backward runs its products on the tensor cores by warpgroup MMAs
+// (wgmma m64nNk16 bf16, f32 sums), both operands read through descriptors
+// from 128-byte-swizzled shared memory. Each kernel is warp-specialised: a
+// producer warp issues every copy by the copy engine (TMA: tensor maps of
+// the row-strided inputs, bulk copies of the split operands, which their
+// split kernels lay out already swizzled), two consumer warpgroups of 64
+// rows run the MMAs and the epilogues, and mbarriers hand each stage of a
+// ring over. (Copies issued by the warps that also ran the MMAs stalled
+// them: an SM takes new copies only as fast as device memory returns the
+// old ones, and that, not the MMAs, set these kernels' time.)
+// - the apply (la_bwd_apply_wgmma_kernel): the A side is the bf16 input
+//   rows as they are (g, v, k; the 1/den of gd = g/den moves into the
+//   epilogue); the B side, kvs and P, stays f32 in meaning: each is split
+//   once per call (la_bwd_split_tiles_kernel) into bf16 hi + lo (hi =
+//   bf16(x), lo = bf16(x - hi), ~16 significant bits) and every product is
+//   two MMAs, so the error is ~2^-17 of each term against f32 FMAs. One
+//   block owns 128 rows and produces all three outputs, 128 columns a tile,
+//   its A rows and B pieces streamed together in 64-deep chunks; a finished
+//   tile is written through shared memory and stored by the copy engine.
+//   The products, 6 x 22.2 GFLOP at the arxiv shape, are ~0.13 ms at the
+//   card's bf16 peak, under the bytes bound;
+// - the reduce's rows pass (la_bwd_rows_wgmma_kernel) forms a = q @ kvs from
+//   the q rows staged once and kvs^T split into three bf16 pieces, hi + mid
+//   + lo, by la_bwd_split_rows_kernel (three MMAs a product, each k16 step
+//   into fresh sums added in f32 round-to-nearest: dinv's sums cancel, and
+//   two pieces left it 1.3e-5 of its size off); each 64-column tile of a is
+//   folded at once into sum_d g*a and sum_d g*v per row, so a never leaves
+//   the registers, and the pass writes den, gden and the f64 dinv partial
+//   as the CUDA-core pass does;
+// - the P pass (la_bwd_reduce_wgmma_kernel) forms P = q^T (g/den) over node
+//   slices with both operands node-major (the MMAs read them transposed:
+//   MN-major descriptors, which 16-bit operands allow): q as it is, gd = g *
+//   (1/den) formed in f32 as each chunk lands and split into bf16 hi + lo,
+//   two MMAs a product, fresh sums every 32 rows, software-pipelined so
+//   that a chunk's MMAs run under the next chunk's split; ds keeps its
+//   per-slice f64 sum on the CUDA cores.
+// These replaced mma.sync m16n8k16 kernels (ldmatrix fragments, one B
+// fragment load and MMA for each 16 x 8 x 16 product), which ran the
+// products at 13-19 % of the bf16 peak (PERF.md). a is recomputed from q and
+// kvs, as the TPU kernel does, rather than taken from the forward's bf16
+// output (num = out * den), which would move gden by ~2^-9. Passes 3
+// (finish, dinv) are the CUDA-core design's.
 //
 // The f32 forms run the same designs on the tensor cores in 3xTF32: each
 // f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna),
@@ -114,6 +126,7 @@
 // Inputs are row-strided views (ld* = elements between rows), so the heads
 // of an [N, H, *] tensor are read and written in place.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -130,8 +143,6 @@ using tc::cp_async16;
 using tc::cp_async4;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
-using tc::ldmatrix_x4;
-using tc::mma_bf16;
 using tc::split_tf32;
 using tc::kCsStride;
 using tc::kPadOf;
@@ -144,7 +155,6 @@ using tc::load8;
 using tc::node_mma_chunk_tf32;
 using tc::store8;
 using tc::tc_stage_rows;
-using tc::tc_tile_to_smem;
 using tc::tile8;
 
 constexpr int kTile = 64;      // output tile (rows x columns)
@@ -520,34 +530,11 @@ la_bwd_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// ---------------------------------------------------------------------------
-// The bf16 apply on the tensor cores.
-//
-// Block tile: kTcRows rows x kTcCols output columns, 8 warps in a 4 x 2
-// grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each). For each of the
-// three products the block stages its rows of the A operand ([kTcRows, K]
-// bf16, K padded with zeros to a multiple of kTcK) into shared memory once
-// (cp.async, every copy in flight at once), then walks the output columns
-// kTcCols at a time, streaming the B operand in kTcK-deep chunks (hi and lo,
-// double-buffered with cp.async) and finishing each column tile in an
-// epilogue that stages the tile in shared memory, so that its reads of q, k,
-// g and its writes of dq, dk, dv are 16-byte and coalesced (straight from
-// the registers' fragment layout they are 4-byte and scattered, and they,
-// not the MMAs, set the kernel's time on the H100). B is stored n-major
-// ([n][k],
-// contiguous in k), so ldmatrix without transpose yields mma's "col"
-// fragments. Each k-step issues the 8 hi MMAs, then the 8 lo MMAs, so no
-// MMA waits on the one before it.
-
-constexpr int kTcK = 64;
-constexpr int kTcPad = 8;  // bf16 per shared row past its end: ldmatrix without bank conflicts
-constexpr int kTcBStride = kTcK + kTcPad;
-constexpr int kTcBStage = kTcCols * kTcBStride;  // bf16 of one piece's chunk
-constexpr size_t kTcBStageBytes = kTcBStage * sizeof(__nv_bfloat16);
+constexpr int kTcK = 64;  // the split operands' k padding
 using tc::kSmemPerBlock;
 
-// The f32 (3xTF32) forms pad a shared A row by 16 bytes as a bf16 one
-// (kTcPad) and stream B in kTfK-deep f32 chunks through the warpgroup core
+// The f32 (3xTF32) forms pad a shared A row by 16 bytes and stream B in
+// kTfK-deep f32 chunks through the warpgroup core
 // (tc::wg_column_tile: two stages of hi and lo, kWgBBytes, first in the
 // dynamic block), up to widths of kWgMaxK.
 static_assert(kTcK % kTfK == 0, "whole tf32 chunks in the padded depth");
@@ -618,375 +605,8 @@ la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, 
 
 // The f32 output tile of the epilogue (tc::kCsStride) lies over the B
 // stages once a column tile's products are done.
-static_assert(kTcRows * kCsStride * 4 <= 4 * kTcBStageBytes &&
-                  kTcRows * kCsStride * 4 <= kWgBBytes,
-              "C tile must fit the B stages");
+static_assert(kTcRows * kCsStride * 4 <= kWgBBytes, "C tile must fit the B stages");
 static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
-
-// The rows kernels' core, shared by the apply and the reduce's rows pass
-// (tensor_core.cuh: tc_stage_rows stages the A rows).
-//
-// acc = As [kTcRows][Kp] @ B^T for the output columns [c0, c0 + kTcCols),
-// with B the split operand [n][Kp] in kPieces bf16 pieces (hi at B_hi, the
-// next at B_hi + piece_off, ...), streamed in kTcK-deep chunks,
-// double-buffered by cp.async in Bs ([stage][piece][n][k]). B is n-major
-// (contiguous in k), so ldmatrix without transpose yields mma's "col"
-// fragments. Each k-step issues the 8 hi MMAs, then the next piece's 8, so
-// no MMA waits on the one before it. kStepSums: each k-step's products go
-// into fresh sums, added to acc with f32 round-to-nearest adds, so that the
-// tensor cores' own accumulation, which may truncate, only ever chains one
-// k-step's pieces: a bias of its rounding toward zero would otherwise grow
-// with K and, in the reduce's rows pass, move dinv's cancelling sums by
-// ~1e-5 of dinv (measured on the H100). Ends with a barrier, after which Bs
-// is free.
-template <int kPieces, bool kStepSums>
-__device__ __forceinline__ void tc_column_tile(float (&acc)[2][4][4], const __nv_bfloat16* As,
-                                               int a_stride, __nv_bfloat16* Bs,
-                                               const __nv_bfloat16* __restrict__ B_hi,
-                                               size_t piece_off, int Kp, int c0, int tid,
-                                               int lane, int wm, int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // one chunk: [kTcCols][kTcK] of each piece, 16 bytes a copy
-  auto load_b = [&](int kc, int stage) {
-    constexpr int kSegs = kTcK / 8;
-    constexpr int kCopies = kPieces * kTcCols * kSegs;
-    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
-#pragma unroll
-    for (int it = 0; it < kCopies / kTcThreads; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int piece = i / (kTcCols * kSegs);
-      const int row = (i / kSegs) % kTcCols;
-      const int seg = (i % kSegs) * 8;
-      const __nv_bfloat16* src =
-          B_hi + piece * piece_off + static_cast<size_t>(c0 + row) * Kp + kc * kTcK + seg;
-      cp_async16(Bs + (stage * kPieces + piece) * kTcBStage + row * kTcBStride + seg, src);
-    }
-    cp_async_commit();
-  };
-
-  const int chunks = Kp / kTcK;
-  load_b(0, 0);
-  for (int kc = 0; kc < chunks; ++kc) {
-    if (kc + 1 < chunks) {
-      load_b(kc + 1, (kc + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Bh = Bs + (kc & 1) * kPieces * kTcBStage;
-#pragma unroll
-    for (int ks = 0; ks < kTcK; ks += 16) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm + mt * 16 + (lane & 15);
-        const int col = kc * kTcK + ks + (lane >> 4) * 8;
-        ldmatrix_x4(a[mt], As + static_cast<size_t>(row) * a_stride + col);
-      }
-      // the hi piece's fragments, its 8 MMAs, then the next piece's in the
-      // same registers
-      float part[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-      float (&sums)[2][4][4] = kStepSums ? part : acc;
-#pragma unroll
-      for (int piece = 0; piece < kPieces; ++piece) {
-        const __nv_bfloat16* Bp = Bh + piece * kTcBStage;
-        unsigned b[4][2];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int nrow = wn + np * 16 + (lane & 7) + (lane >> 4) * 8;
-          const int kcol = ks + ((lane >> 3) & 1) * 8;
-          unsigned r[4];
-          ldmatrix_x4(r, Bp + nrow * kTcBStride + kcol);
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(sums[mt][nt], a[mt], b[nt][0], b[nt][1]);
-      }
-      if (kStepSums) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two chunks on
-  }
-}
-
-// grid (ceil(N / kTcRows)); dynamic shared memory: the A tile
-// [kTcRows][max(Dk, Mk) + kTcPad] and two stages of B chunks (hi and lo,
-// [kTcCols][kTcK + kTcPad] each). vec_a: 1 when the A rows (g, v, k) may be
-// read 16 bytes at a time (M and D multiples of 8, row strides too, bases
-// 16-byte aligned). vec_io: the epilogue moves 8 columns of q, k, g, dq,
-// dk, dv with 16-byte accesses (row strides multiples of 8, bases 16-byte
-// aligned). Each column tile is finished in an epilogue that stages it in
-// shared memory, so that its reads of q, k, g and its writes of dq, dk, dv
-// are 16-byte and coalesced (straight from the registers' fragment layout
-// they are 4-byte and scattered, and they, not the MMAs, set the kernel's
-// time on the H100). bf16 only: the f32 form is la_bwd_apply_wg_kernel.
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
-la_bwd_apply_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const T* __restrict__ g, long ldq, long ldk, long ldv, long ldg,
-                       T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, long lddq,
-                       long lddk, long lddv, int N, int M, int D, const T* __restrict__ hl,
-                       const float* __restrict__ ksum, const float* __restrict__ ds,
-                       const float* __restrict__ scal, const float* __restrict__ n_total,
-                       const float* __restrict__ dinv, const float* __restrict__ den,
-                       const float* __restrict__ gden, int guard, int vec_a, int vec_io) {
-  static_assert(!kIsF32<T>, "the f32 form is la_bwd_apply_wg_kernel");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const TcDims t(M, D);
-  const int a_stride = max(t.Dk, t.Mk) + kPadOf<T>;
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;   // warp's first row in the tile
-  const int wn = (warp >> 2) * 32;  // warp's first column in the column tile
-  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
-
-  const float inv = scal[2];
-  const float n = *n_total;
-  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
-  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
-  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
-  const size_t nk = t.kvs_elems();
-
-  for (int which = 0; which < 3; ++which) {
-    // dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M
-    const T* A = which == 0 ? g : (which == 1 ? v : k);
-    const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
-    const int K = which == 2 ? M : D;
-    const int Kp = which == 2 ? t.Mk : t.Dk;
-    const int C = which == 2 ? D : M;
-    const T* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
-    const size_t lo_off = which == 2 ? t.pt_elems() : nk;
-
-    __syncthreads();  // the previous product is done with As
-    tc_stage_rows(As, a_stride, A, lda, r0, N, K, Kp, vec_a, tid);
-    __syncthreads();
-
-    const int tiles = (C + kTcCols - 1) / kTcCols;
-    for (int ti = 0; ti < tiles; ++ti) {
-      const int c0 = ti * kTcCols;
-      float acc[2][4][4];
-      tc_column_tile<2, false>(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, wm, wn);
-      // epilogue: the tile through shared memory, then 8 columns a thread
-      // step with 16-byte loads and stores
-      float* Cs = reinterpret_cast<float*>(Bs);
-      tc_tile_to_smem(Cs, acc, lane, wm, wn);
-      // a fixed trip count, unrolled, so that each thread's reads of q, k or
-      // g are in flight together
-#pragma unroll
-      for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
-        const int i = tid + it * kTcThreads;
-        const int r = i / (kTcCols / 8);
-        const int cs = (i % (kTcCols / 8)) * 8;
-        const long row = r0 + r;
-        const int c = c0 + cs;
-        if (row >= N || c >= C) continue;
-        const int cols = min(8, C - c);
-        const bool vec = vec_io && cols == 8;
-        float a[8], o[8], x[8];
-        tile8(Cs, r, cs, a);
-        const float den_r = den[row];
-        if (which == 0) {
-          const float gden_r = gden[row];
-          load8(q + row * ldq + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float ks = e < cols ? ksum[c + e] : 0.f;
-            o[e] = inv * (a[e] / den_r) + inv * gden_r * ks - c_q * x[e];
-          }
-          store8(dq + row * lddq + c, vec, cols, o);
-        } else if (which == 1) {
-          load8(k + row * ldk + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float dsv = e < cols ? ds[c + e] : 0.f;
-            o[e] = inv * a[e] + inv * dsv - c_k * x[e];
-          }
-          store8(dk + row * lddk + c, vec, cols, o);
-        } else {
-          load8(g + row * ldg + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o[e] = n * (x[e] / den_r) + inv * a[e];
-          store8(dv + row * lddv + c, vec, cols, o);
-        }
-      }
-      __syncthreads();  // Cs is the next column tile's B stages
-    }
-  }
-}
-
-template <typename T>
-size_t tc_smem_bytes(int M, int D) {
-  const TcDims t(M, D);
-  const int a_stride = (t.Dk > t.Mk ? t.Dk : t.Mk) + kPadOf<T>;
-  return static_cast<size_t>(kTcRows) * a_stride * sizeof(T) + 4 * kTcBStageBytes;
-}
-
-// The reduce's rows pass on the tensor cores. grid (ceil(N / kTcRows));
-// dynamic shared memory: the q tile [kTcRows][Mk + kPadOf<T>] and the B
-// stages of kvs^T (its kRowsPieces<T> pieces, hl as tc::split_t_kernel
-// writes it): ~123 KB at M = 256, one block an SM (bf16 only: the f32 form
-// is la_bwd_rows_wg_kernel). Block bx owns
-// rows [128*bx, 128*bx + 128): b = q . ksum from the staged q rows, then
-// a = q @ kvs one 64-column tile at a time, each tile folded at once into
-// sum_d g*a and sum_d g*v per row (eight threads a row, 8 columns each, a
-// fixed xor tree across them), then den, gden and the block's f64 dinv
-// partial, as la_bwd_rows_kernel computes them. vec_a: q rows by 16-byte
-// copies; vec_io: g and v read 16 bytes at a time.
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 1)
-la_bwd_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ v, const T* __restrict__ g,
-                      long ldq, long ldv, long ldg, int N, int M, int D, const T* __restrict__ hl,
-                      const float* __restrict__ ksum, const float* __restrict__ scal,
-                      const float* __restrict__ n_total, int guard, int vec_a, int vec_io,
-                      float* __restrict__ den_out, float* __restrict__ gden_out,
-                      double* __restrict__ dinv_part) {
-  static_assert(!kIsF32<T>, "the f32 form is la_bwd_rows_wg_kernel");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float b_s[kTcRows];
-  __shared__ float ga_s[kTcRows];
-  __shared__ float gv_s[kTcRows];
-  __shared__ double red[kTcRows];
-  const TcDims t(M, D);
-  const int a_stride = t.Mk + kPadOf<T>;
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + static_cast<size_t>(kTcRows) * a_stride;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 32;
-  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
-
-  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, t.Mk, vec_a, tid);
-  __syncthreads();
-  {  // b = q . ksum, two threads a row (adjacent lanes), f32
-    const int r = tid >> 1;
-    float b = 0.f;
-    for (int c = tid & 1; c < M; c += 2) {
-      b = fmaf(to_float(As[static_cast<size_t>(r) * a_stride + c]), ksum[c], b);
-    }
-    b += __shfl_xor_sync(0xffffffffu, b, 1);
-    if ((tid & 1) == 0) b_s[r] = b;
-  }
-
-  // thread tid folds columns (tid % 8) * 8 .. + 8 of rows tid / 8 + 32 * it
-  constexpr int kSteps = kTcRows * (kTcCols / 8) / kTcThreads;
-  float ga[kSteps], gv[kSteps];
-#pragma unroll
-  for (int it = 0; it < kSteps; ++it) ga[it] = gv[it] = 0.f;
-  float* Cs = reinterpret_cast<float*>(Bs);
-  for (int c0 = 0; c0 < D; c0 += kTcCols) {
-    float acc[2][4][4];
-    tc_column_tile<kRowsPieces<T>, true>(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid,
-                                         lane, wm, wn);
-    tc_tile_to_smem(Cs, acc, lane, wm, wn);
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int r = i / (kTcCols / 8);
-      const int cs = (i % (kTcCols / 8)) * 8;
-      const long row = r0 + r;
-      const int c = c0 + cs;
-      float pga = 0.f, pgv = 0.f;
-      if (row < N && c < D) {
-        const int cols = min(8, D - c);
-        const bool vec = vec_io && cols == 8;
-        float a[8], x[8], y[8];
-        tile8(Cs, r, cs, a);
-        load8(g + row * ldg + c, vec, cols, x);
-        load8(v + row * ldv + c, vec, cols, y);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          pga = fmaf(x[e], a[e], pga);
-          pgv = fmaf(x[e], y[e], pgv);
-        }
-      }
-      // the eight threads of a row are lanes 8j .. 8j + 7 of one warp
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) {
-        pga += __shfl_xor_sync(0xffffffffu, pga, off);
-        pgv += __shfl_xor_sync(0xffffffffu, pgv, off);
-      }
-      ga[it] += pga;
-      gv[it] += pgv;
-    }
-    __syncthreads();  // Cs is the next column tile's B stages
-  }
-  if ((tid & 7) == 0) {
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int r = (tid + it * kTcThreads) / (kTcCols / 8);
-      ga_s[r] = ga[it];
-      gv_s[r] = gv[it];
-    }
-  }
-  __syncthreads();
-
-  if (tid < kTcRows) {
-    const long row = r0 + tid;
-    double part = 0.0;
-    if (row < N) {
-      const float inv = scal[2];
-      const float n = *n_total;
-      const float bb = b_s[tid];
-      const float s_ga = ga_s[tid];
-      float den = inv * bb + n;
-      float gden;
-      if (guard && den == 0.f) {
-        den = 1.f;
-        gden = 0.f;
-      } else {
-        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
-      }
-      den_out[row] = den;
-      gden_out[row] = gden;
-      part = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
-    }
-    red[tid] = part;
-  }
-  __syncthreads();
-  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] += red[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) dinv_part[blockIdx.x] = red[0];
-}
-
-template <typename T>
-size_t rows_tc_smem_bytes(int M, int D) {
-  const TcDims t(M, D);
-  return static_cast<size_t>(kTcRows) * (t.Mk + kPadOf<T>) * sizeof(T) +
-         2 * kRowsPieces<T> * kTcBStageBytes;
-}
 
 // ---------------------------------------------------------------------------
 // The f32 apply and rows pass on warpgroup MMAs in 3xTF32 (tc::wg_column_tile).
@@ -1003,9 +623,10 @@ size_t wg_smem_bytes(int K) {
 
 // The apply: for each product (dq: g @ kvs^T over D; dk: v @ P^T over D;
 // dv: k @ P over M) the block stages its A rows once, then forms its column
-// tiles, each finished in la_bwd_apply_tc_kernel's epilogue. Blocks start
+// tiles, each finished in an epilogue that stages the tile in shared memory
+// and moves 8 columns a thread step, 16 bytes at a time. Blocks start
 // at different products and column tiles (rot), so that the SMs do not all
-// stage A rows at once. vec_a, vec_io as la_bwd_apply_tc_kernel takes them.
+// stage A rows at once. vec_a, vec_io as sgf_la_bwd_apply takes them.
 __global__ void __launch_bounds__(kTcThreads, 1)
 la_bwd_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ g, long ldq, long ldk,
@@ -1099,7 +720,7 @@ la_bwd_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The rows pass: la_bwd_rows_tc_kernel's with the f32 core. b = q . ksum
+// The rows pass on the f32 core. b = q . ksum
 // from the staged q rows,
 // then a = q @ kvs one column tile at a time (kvs^T as tf32 hi + lo, hl as
 // tc::split_t_kernel writes it), each tile folded at once into sum_d g*a
@@ -1221,143 +842,7 @@ la_bwd_rows_wg_kernel(const float* __restrict__ q, const float* __restrict__ v,
   if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
-// The reduce's P pass on the tensor cores: the node-axis contraction of the
-// forward reduce (tensor_core.cuh) with A = q and B = gd = g / den. grid
-// (slices * tiles), tiles = ceil(M/128) * ceil(D/128), slice-major: block b
-// sums tile b % tiles of P over rows [s*rows_per_slice, (s+1)*rows_per_slice),
-// s = b / tiles. Each 32-row chunk of q and g (and den, gden) comes through
-// a kReduceStages-deep cp.async ring; once it has landed the block forms gd
-// in f32 (g times the correctly rounded 1/den: within 2^-23 of g / den,
-// against the 2^-17 of the split), splits it into bf16 hi + lo tiles and
-// runs both through the MMAs. The blocks of the first column tile also sum
-// ds = q . gden per column of their M tile in f64 from the staged q rows.
-constexpr int kReduceStages = 4;
-constexpr int kReduceStage = 2 * tc::kNodeChunk;  // bf16 of a stage's q and g chunks
-constexpr size_t kReduceSmem =
-    kReduceStages * (kReduceStage * sizeof(__nv_bfloat16) + 2 * tc::kNodeRows * sizeof(float)) +
-    2 * tc::kNodeChunk * sizeof(__nv_bfloat16);
-
-__global__ void __launch_bounds__(tc::kNodeThreads, 2)
-la_bwd_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ g,
-                        long ldq, long ldg, int N, int M, int D, int rows_per_slice, int vec,
-                        const float* __restrict__ den, const float* __restrict__ gden,
-                        float* __restrict__ P_part, float* __restrict__ ds_part) {
-  using tc::kNodeRows;
-  using tc::kNodeStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][q, g]
-  __nv_bfloat16* gd_hi = ring + kReduceStages * kReduceStage;
-  __nv_bfloat16* gd_lo = gd_hi + tc::kNodeChunk;
-  float* rows_s = reinterpret_cast<float*>(gd_lo + tc::kNodeChunk);  // [stage][den, gden]
-  __shared__ double red[tc::kNodeTile];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 64;
-  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
-  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
-  const int s = blockIdx.x / tiles;
-  const int dy = (blockIdx.x % tiles) / tiles_m;
-  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
-  const int d0 = dy * tc::kNodeTile;
-  const bool stats = dy == 0;
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
-
-  auto stage = [&](int c) {
-    const int st = c % kReduceStages;
-    __nv_bfloat16* qs = ring + st * kReduceStage;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    tc::stage_node_rows(qs, q, ldq, r0, r_end, m0, M, vec, tid);
-    tc::stage_node_rows(qs + tc::kNodeChunk, g, ldg, r0, r_end, d0, D, vec, tid);
-    if (tid < 2 * kNodeRows) {  // den, then gden, of the chunk's rows
-      const int r = tid % kNodeRows;
-      const float* src = tid < kNodeRows ? den : gden;
-      const bool ok = r0 + r < r_end;
-      tc::cp_async4(rows_s + st * 2 * kNodeRows + tid, ok ? src + r0 + r : src, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int col = tid & (tc::kNodeTile - 1);
-  const int par = tid / tc::kNodeTile;
-  double ds = 0.0;
-
-  for (int c = 0; c < kReduceStages - 1; ++c) {
-    if (c < chunks) stage(c);
-    tc::cp_async_commit();
-  }
-  for (int c = 0; c < chunks; ++c) {
-    tc::cp_async_wait<kReduceStages - 2>();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
-    if (c + kReduceStages - 1 < chunks) stage(c + kReduceStages - 1);
-    tc::cp_async_commit();
-    const int st = c % kReduceStages;
-    const __nv_bfloat16* qs = ring + st * kReduceStage;
-    const __nv_bfloat16* gs = qs + tc::kNodeChunk;
-    const float* den_s = rows_s + st * 2 * kNodeRows;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    // gd = g * (1/den) as bf16 hi + lo, 8 columns of one row a thread step;
-    // rows past the slice are zeros
-#pragma unroll
-    for (int it = 0; it < kNodeRows * tc::kNodeTile / 8 / tc::kNodeThreads; ++it) {
-      const int i = tid + it * tc::kNodeThreads;
-      const int r = i / (tc::kNodeTile / 8);
-      const int cs = (i % (tc::kNodeTile / 8)) * 8;
-      const float rd = r0 + r < r_end ? __frcp_rn(den_s[r]) : 0.f;
-      const uint4 raw = *reinterpret_cast<const uint4*>(gs + r * kNodeStride + cs);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint4 hi_raw, lo_raw;
-      __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(&hi_raw);
-      __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(&lo_raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        const float x = __fmul_rn(f.x, rd);
-        const float y = __fmul_rn(f.y, rd);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
-        const float2 hf = __bfloat1622float2(hi);
-        hi2[e] = hi;
-        lo2[e] = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-      }
-      *reinterpret_cast<uint4*>(gd_hi + r * kNodeStride + cs) = hi_raw;
-      *reinterpret_cast<uint4*>(gd_lo + r * kNodeStride + cs) = lo_raw;
-    }
-    __syncthreads();
-    const __nv_bfloat16* const gd[2] = {gd_hi, gd_lo};
-    tc::node_mma_chunk<2>(acc, qs, gd, wm, wn, lane);
-    if (stats) {
-      const float* gden_s = den_s + kNodeRows;
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        ds = fma(static_cast<double>(__bfloat162float(qs[r * kNodeStride + col])),
-                 static_cast<double>(gden_s[r]), ds);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  tc::store_node_tile(P_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn, lane);
-  if (stats) {  // uniform over the block
-    if (par == 1) red[col] = ds;
-    __syncthreads();
-    if (par == 0 && m0 + col < M) {
-      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
-    }
-  }
-}
-
-// The reduce's P pass for f32 inputs, 3xTF32: la_bwd_reduce_tc_kernel's
+// The reduce's P pass for f32 inputs, 3xTF32: la_bwd_reduce_wgmma_kernel's
 // grid, slices and f64 ds, one block an SM (the A fragments of a whole
 // chunk stay in registers). Each 32-row chunk of q and g (and den, gden)
 // comes through a kTfReduceStages-deep cp.async ring as f32; once it has
@@ -1481,6 +966,1046 @@ la_bwd_reduce_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward on warpgroup MMAs (wgmma m64nNk16 bf16, f32 sums), the
+// three kernels of the main path's step: both operands of every product
+// are read by the MMAs from 128-byte-swizzled shared memory through
+// descriptors (tensor_core.cuh), a block is two consumer warpgroups of 64
+// rows and a producer warp (a warpgroup in the P pass), one
+// block an SM, and every kernel's dynamic shared memory starts 1024-byte
+// aligned (no static shared memory). Shared tiles: kWgAtom16 bytes hold a
+// swizzled [64 rows][64 bf16] atom; a [128][64] tile is two of them.
+using bf16 = __nv_bfloat16;
+using tc::sw128_desc;
+using tc::sw128_desc_mn;
+using tc::sw128_offset;
+constexpr int kWgAtom16 = 64 * 128;       // bytes of a swizzled [64][64] bf16 atom
+constexpr int kWgTile16 = 2 * kWgAtom16;  // a [128][64] tile
+
+// A tensor map of rows [N][width] of bf16, ld elements apart, read in
+// [box_rows][64 columns] boxes into the 128-byte swizzle, zero past N and
+// width: cuTensorMapEncodeTiled, taken from the driver through the runtime.
+cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int N, int width, long ld,
+                            int box_rows = 128) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// kvs^T as the rows pass reads it: three bf16 pieces (hi, mid, lo, as
+// tc::split_t_kernel<3> splits each element) of each [64 n = d][64 k = m]
+// chunk, swizzled as the pass's shared memory holds it (8 KB, zero past
+// the widths), column tile by column tile and k chunk by k chunk, so that
+// one bulk copy moves a piece's chunk: piece p of chunk (ct, kc) starts at
+// element ((ct * kt + kc) * 3 + p) * 4096, kt = split_pad(M) / 64.
+__global__ void __launch_bounds__(kThreads)
+la_bwd_split_rows_kernel(const float* __restrict__ kvs, int M, int D, bf16* __restrict__ hl) {
+  const int Mk = tc::split_pad(M);
+  const int kt = Mk / 64;
+  const size_t count = tc::split_t_elems(M, D);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int n = static_cast<int>(i / Mk);
+    const int kk = static_cast<int>(i % Mk);
+    const size_t off = static_cast<size_t>(((n / 64) * kt + kk / 64) * 3) * 4096 +
+                       sw128_offset(n % 64, kk % 64) / 2;
+    tc::split_store<3>(n < D && kk < M ? kvs[static_cast<size_t>(kk) * D + n] : 0.f, hl + off,
+                       4096);
+  }
+}
+
+// The reduce's rows pass. grid (ceil(N / 128)); block bx owns rows [128*bx,
+// 128*bx + 128). Dynamic shared memory: the q rows as Mk/64 swizzled
+// [128][64] k-tiles (64 KB at M = 256), staged once; a ring of `stages`
+// 64-deep chunks of kvs^T's three pieces (hi, mid, lo, laid out swizzled
+// by la_bwd_split_rows_kernel, [64 n][64 k] each, 24 KB a stage: 4 stages
+// up to M = 512, 2 up to 704); b, sum_d g*a, sum_d g*v per row, the dinv
+// tree and the mbarriers. The warps specialise, as the apply's: a producer
+// warp brings the q rows by the copy engine (a tensor map, or its own
+// copies where the rows' strides do not allow one) and then each chunk's
+// pieces by bulk copies as the consumers free its stage (full and empty
+// mbarriers); the two consumer warpgroups of 64 rows run the chunks of all
+// 64-column tiles of a = q @ kvs as one stream. Each k16 step's three
+// pieces (wgmma m64n64k16, A = the warpgroup's 64 q rows, B = the piece) go
+// into fresh sums (scale-d = 0 on hi), added to the column tile's sums with
+// f32 round-to-nearest adds, the parent's arithmetic (dinv's two sums
+// cancel, and a truncating accumulation over K would move them); a step's
+// sums are double-buffered, so that its MMAs run while the warps add the
+// last step's. A finished column tile is folded at once into sum_d g*a and
+// sum_d g*v of the lane's two fragment rows, so a never leaves registers:
+// g and v at the fragment's columns (two bf16 a load where vec_io) are
+// loaded when the tile starts, so that the loads run under its MMAs (the
+// fold's loads one after another cost as much as the MMAs); b = q . ksum
+// comes from the staged rows while the first MMAs run. Then den, gden and
+// the block's f64 dinv partial, as la_bwd_rows_kernel computes them.
+constexpr int kRowsPiece16 = 64 * 128;  // bytes of one piece's [64][64] chunk
+constexpr int kRowsConsumers = 2 * 128;
+constexpr int kRowsThreads = kRowsConsumers + 32;  // and the producer warp
+// b, ga, gv (f32) and the dinv tree (f64), then the q barrier and the
+// ring's full and empty barriers
+constexpr int kRowsSmall16 = kTcRows * (3 * 4 + 8);
+
+size_t rows_wgmma_smem(int M, int stages, int gv_tiles) {
+  return static_cast<size_t>(tc::split_pad(M) / 64 + 2 * gv_tiles) * kWgTile16 +
+         static_cast<size_t>(stages) * 3 * kRowsPiece16 + kRowsSmall16 +
+         (2 + 2 * static_cast<size_t>(stages)) * sizeof(uint64_t);
+}
+
+// The pass's layout at this width: the ring's depth (4, or 2 where four do
+// not fit) and whether a column tile's g and v are staged in shared memory
+// (gv_tiles, where the copy engine may read them: gv_ok), in that order of
+// preference; stages 0 where the q tile and two stages do not fit one
+// block's shared memory.
+void rows_wgmma_layout(int M, int gv_ok, int& stages, int& gv_tiles) {
+  for (gv_tiles = gv_ok; gv_tiles >= 0; --gv_tiles) {
+    for (stages = 4; stages >= 2; stages -= 2) {
+      if (rows_wgmma_smem(M, stages, gv_tiles) <= kSmemPerBlock) return;
+    }
+  }
+  stages = gv_tiles = 0;
+}
+int rows_wgmma_stages(int M) {
+  int stages, gv_tiles;
+  rows_wgmma_layout(M, 0, stages, gv_tiles);
+  return stages;
+}
+
+// the consumers' own barrier (the producer warp has left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kRowsConsumers) : "memory");
+}
+
+__global__ void __launch_bounds__(kRowsThreads, 1)
+la_bwd_rows_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
+                         const bf16* __restrict__ g, long ldq, long ldv, long ldg, int N, int M,
+                         int D, const bf16* __restrict__ hl, const float* __restrict__ ksum,
+                         const float* __restrict__ scal, const float* __restrict__ n_total,
+                         int guard, int vec_a, int vec_io, int stages, int gv_tiles,
+                         float* __restrict__ den_out, float* __restrict__ gden_out,
+                         double* __restrict__ dinv_part,
+                         const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_g,
+                         const __grid_constant__ CUtensorMap map_v) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const int Mk = tc::split_pad(M);
+  const int kt = Mk / 64;  // k-tiles of q, chunks a column tile
+  const int chunks = kt * (tc::split_pad(D) / 64);
+  unsigned char* As = smem_raw;                         // [kt][128][64]
+  unsigned char* GVs = As + static_cast<size_t>(kt) * kWgTile16;  // g, v [128][64] (gv_tiles)
+  unsigned char* Bs = GVs + 2 * gv_tiles * kWgTile16;   // [stage][piece][64][64]
+  float* b_s = reinterpret_cast<float*>(Bs + static_cast<size_t>(stages) * 3 * kRowsPiece16);
+  float* ga_s = b_s + kTcRows;
+  float* gv_s = ga_s + kTcRows;
+  double* red = reinterpret_cast<double*>(gv_s + kTcRows);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(red + kTcRows);  // the q rows have landed
+  uint64_t* gvbar = qbar + 1;                                   // a tile's g and v have landed
+  uint64_t* full = gvbar + 1;                                   // a stage has landed
+  uint64_t* empty = full + stages;                              // a stage's MMAs are done
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // rows 16 * warp .. + 16; warpgroup warp / 4
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  if (tid == 0) {
+    tc::mbar_init(qbar, 1);
+    tc::mbar_init(gvbar, 1);
+    for (int i = 0; i < stages; ++i) {
+      tc::mbar_init(full + i, 1);
+      tc::mbar_init(empty + i, kRowsConsumers / 32);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kRowsConsumers / 32) {  // the producer
+    if (vec_a) {
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(qbar, kt * kWgTile16);
+        for (int c = 0; c < kt; ++c) tc::tma_load_2d(As + c * kWgTile16, &map_q, c * 64,
+                                                     static_cast<int>(r0), qbar);
+      }
+    } else {
+      for (int i = lane; i < kTcRows * Mk; i += 32) {
+        const int r = i / Mk;
+        const int c = i % Mk;
+        *reinterpret_cast<bf16*>(As + (c >> 6) * kWgTile16 + sw128_offset(r, c & 63)) =
+            r0 + r < N && c < M ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
+      }
+      tc::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(qbar);
+    }
+    if (lane == 0) {
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int st = ch % stages;
+        if (ch >= stages) tc::mbar_wait(empty + st, (ch / stages - 1) & 1);
+        tc::mbar_arrive_expect_tx(full + st, 3 * kRowsPiece16);
+        const bf16* src = hl + static_cast<size_t>(ch) * 3 * 4096;  // chunk (ch / kt, ch % kt)
+        unsigned char* dst = Bs + static_cast<size_t>(st) * 3 * kRowsPiece16;
+        for (int p = 0; p < 3; ++p) {
+          tc::bulk_copy_g2s(dst + p * kRowsPiece16, src + p * 4096, kRowsPiece16, full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[32], part[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
+  float ga[2] = {0.f, 0.f}, gv[2] = {0.f, 0.f};  // the lane's rows 16 * warp + lane / 4 (+ 8)
+  // column tile t's g and v into shared memory by the copy engine
+  auto load_gv = [&](int t) {
+    tc::mbar_arrive_expect_tx(gvbar, 2 * kWgTile16);
+    tc::tma_load_2d(GVs, &map_g, 64 * t, static_cast<int>(r0), gvbar);
+    tc::tma_load_2d(GVs + kWgTile16, &map_v, 64 * t, static_cast<int>(r0), gvbar);
+  };
+  if (gv_tiles && tid == 0) load_gv(0);
+  float b = 0.f;  // q . ksum of row tid / 2, two threads a row (adjacent lanes), f32
+  auto fold = [&](float (&d)[32]) {
+    tc::wgmma_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  };
+  tc::mbar_wait(qbar, 0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int kc = ch % kt;
+    const int st = ch % stages;
+    tc::mbar_wait(full + st, (ch / stages) & 1);
+    tc::fence_proxy_async();
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+    const unsigned char* a_tile = As + kc * kWgTile16 + (warp >> 2) * kWgAtom16;
+    const unsigned char* b_st = Bs + static_cast<size_t>(st) * 3 * kRowsPiece16;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      float (&d)[32] = part[ks & 1];
+      tc::wgmma_fence_operand(d);
+      tc::wgmma_fence();
+      const uint64_t da = sw128_desc(a_tile + ks * 32);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        tc::wgmma_m64n64k16<0>(d, da, sw128_desc(b_st + p * kRowsPiece16 + ks * 32), p);
+      }
+      tc::wgmma_commit();
+      if (ch == 0 && ks == 0) {  // while the first MMAs run
+        const unsigned char* qr = As;
+        for (int c = tid & 1; c < M; c += 2) {
+          const bf16 x = *reinterpret_cast<const bf16*>(qr + (c >> 6) * kWgTile16 +
+                                                        sw128_offset(tid >> 1, c & 63));
+          b = fmaf(__bfloat162float(x), __ldg(ksum + c), b);
+        }
+        b += __shfl_xor_sync(0xffffffffu, b, 1);
+      }
+      if (ks > 0) {
+        tc::wgmma_wait<1>();  // step ks - 1's MMAs are done
+        fold(part[(ks - 1) & 1]);
+      }
+    }
+    tc::wgmma_wait<0>();
+    fold(part[1]);
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + st);
+    if (kc == kt - 1) {  // the column tile's a, folded into the lane's rows
+      const int t = ch / kt;
+      const int c0 = 64 * t;
+      // g and v at the lane's fragment: from the staged tile, or read from
+      // device memory all at once (the last column of an odd width alone:
+      // a word's other half is the next row's or head's)
+      float x[2][8][2], y[2][8][2];
+      if (gv_tiles) {
+        tc::mbar_wait(gvbar, t & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int off = sw128_offset(16 * warp + (lane >> 2) + 8 * h, 8 * j + 2 * (lane & 3));
+            const float2 gf =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(GVs + off));
+            const float2 vf = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(GVs + kWgTile16 + off));
+            x[h][j][0] = gf.x; x[h][j][1] = gf.y; y[h][j][0] = vf.x; y[h][j][1] = vf.y;
+          }
+        consumers_sync();  // every warp has read this tile's g and v
+        if (tid == 0 && c0 + 64 < D) load_gv(t + 1);
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long row = r0 + 16 * warp + (lane >> 2) + 8 * h;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + 8 * j + 2 * (lane & 3);
+            if (vec_io && row < N && c + 1 < D) {
+              const float2 gf = __bfloat1622float2(
+                  __ldg(reinterpret_cast<const __nv_bfloat162*>(g + row * ldg + c)));
+              const float2 vf = __bfloat1622float2(
+                  __ldg(reinterpret_cast<const __nv_bfloat162*>(v + row * ldv + c)));
+              x[h][j][0] = gf.x; x[h][j][1] = gf.y; y[h][j][0] = vf.x; y[h][j][1] = vf.y;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const bool ok = row < N && c + e < D;
+                x[h][j][e] = ok ? __bfloat162float(g[row * ldg + c + e]) : 0.f;
+                y[h][j][e] = ok ? __bfloat162float(v[row * ldv + c + e]) : 0.f;
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            ga[h] = fmaf(x[h][j][e], acc[4 * j + 2 * h + e], ga[h]);
+            gv[h] = fmaf(x[h][j][e], y[h][j][e], gv[h]);
+          }
+    }
+  }
+  // the four lanes of a fragment row, a fixed xor tree
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      ga[h] += __shfl_xor_sync(0xffffffffu, ga[h], off);
+      gv[h] += __shfl_xor_sync(0xffffffffu, gv[h], off);
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ga_s[16 * warp + (lane >> 2) + 8 * h] = ga[h];
+      gv_s[16 * warp + (lane >> 2) + 8 * h] = gv[h];
+    }
+  }
+  if ((tid & 1) == 0) b_s[tid >> 1] = b;
+  consumers_sync();
+
+  if (tid < kTcRows) {
+    const long row = r0 + tid;
+    double part_d = 0.0;
+    if (row < N) {
+      const float inv = scal[2];
+      const float n = *n_total;
+      const float bb = b_s[tid];
+      const float s_ga = ga_s[tid];
+      float den = inv * bb + n;
+      float gden;
+      if (guard && den == 0.f) {
+        den = 1.f;
+        gden = 0.f;
+      } else {
+        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
+      }
+      den_out[row] = den;
+      gden_out[row] = gden;
+      part_d = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+    }
+    red[tid] = part_d;
+  }
+  consumers_sync();
+  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    consumers_sync();
+  }
+  if (tid == 0) dinv_part[blockIdx.x] = red[0];
+}
+
+// The reduce's P pass: P = q^T (g/den) over node slices, both operands read
+// node-major (MN-major descriptors: the MMA's k is the node axis). grid
+// (slices * tiles), tiles = ceil(M/128) * ceil(D/128), slice-major as
+// la_bwd_reduce_tf32_kernel's; block b sums tile b % tiles of P over its
+// slice's rows, warpgroup w its 64 m rows by 128 d columns. The warps
+// specialise, as the rows pass's: a producer warpgroup (its registers given
+// to the consumers by setmaxnreg, one of its warps working) brings each
+// 64-row chunk
+// of q and g into swizzled [64 nodes][64] atoms by the copy engine (tensor
+// maps of 64-row boxes, or its own copies where the rows' strides do not
+// allow one), with den and gden of its rows, through a kPStages-deep ring
+// of full and empty mbarriers; the two consumer warpgroups zero the rows
+// of a chunk past the slice (which the copy engine reads), form gd = g *
+// (1/den) in f32 (the correctly rounded 1/den; zero past the slice) and
+// split it into bf16 hi + lo atoms, and each 32-node half of the chunk's
+// products (two k16 steps, hi then lo, wgmma m64n64k16 on each 64-column
+// atom of gd) goes into fresh sums added to the block's f32 sums with
+// round-to-nearest adds, the parent's 32-row period: a software pipeline,
+// chunk c's MMAs issued (both halves, their fresh sums double-buffered)
+// before the warps split chunk c + 1's gd into the other of two gd
+// buffers, one consumer barrier a chunk. The blocks of the first column
+// tile also sum ds = q . gden per column of their M tile in f64 from the
+// staged rows, while the MMAs run, in four chains of
+// interleaved rows, gden made an f64 once a row (the SM converts to f64 at
+// a sixteenth of its FMA rate, and one chain converting both operands cost
+// a quarter of the pass). Dynamic shared memory: the ring (32 KB a stage),
+// the gd atoms of two chunks (64 KB), den and gden of each stage, gden in
+// f64 of two chunks, the ds tree and the mbarriers: 197 KB.
+constexpr int kPRows = 64;    // node rows a staged chunk
+constexpr int kPStages = 4;
+constexpr int kPStage = 4 * kWgAtom16;  // q's two atoms, g's two atoms
+// two consumer warpgroups and a producer warpgroup (one warp of it issues
+// the copies), whose registers go to the consumers
+constexpr int kPThreads = kRowsConsumers + 128;
+constexpr size_t kPSmem = kPStages * kPStage + 8 * kWgAtom16 +
+                          kPStages * 2 * kPRows * sizeof(float) +
+                          (2 * kPRows + tc::kNodeTile) * sizeof(double) +
+                          2 * kPStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kPThreads, 1)
+la_bwd_reduce_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g, long ldq,
+                           long ldg, int N, int M, int D, int rows_per_slice, int vec,
+                           const float* __restrict__ den, const float* __restrict__ gden,
+                           float* __restrict__ P_part, float* __restrict__ ds_part,
+                           const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_g) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem_raw;                    // [stage][q atoms 0, 1; g atoms 0, 1]
+  unsigned char* gd = ring + kPStages * kPStage;  // [buffer][hi atoms 0, 1; lo atoms 0, 1]
+  float* rows_s = reinterpret_cast<float*>(gd + 8 * kWgAtom16);  // [stage][den, gden][kPRows]
+  double* gden_d = reinterpret_cast<double*>(rows_s + kPStages * 2 * kPRows);  // [buffer][kPRows]
+  double* red = gden_d + 2 * kPRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + tc::kNodeTile);  // a stage has landed
+  uint64_t* empty = full + kPStages;                                   // a stage's MMAs are done
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
+  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
+  const int s = blockIdx.x / tiles;
+  const int dy = (blockIdx.x % tiles) / tiles_m;
+  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
+  const int d0 = dy * tc::kNodeTile;
+  const bool stats = dy == 0;
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long r_stop = r_begin + rows_per_slice;
+  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
+  const int chunks = static_cast<int>((r_end - r_begin + kPRows - 1) / kPRows);
+
+  if (tid == 0) {
+    for (int i = 0; i < kPStages; ++i) {
+      tc::mbar_init(full + i, 1);
+      tc::mbar_init(empty + i, kRowsConsumers / 32);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kRowsConsumers / 32) {  // the producer warpgroup
+    tc::setmaxnreg_dec<40>();
+    if (warp > kRowsConsumers / 32) return;
+    for (int c = 0; c < chunks; ++c) {
+      const int st = c % kPStages;
+      if (c >= kPStages) tc::mbar_wait(empty + st, (c / kPStages - 1) & 1);
+      unsigned char* qs = ring + st * kPStage;
+      const long r0 = r_begin + static_cast<long>(c) * kPRows;
+      for (int r = lane; r < kPRows; r += 32) {  // den and gden of the chunk's rows
+        const bool ok = r0 + r < r_end;
+        rows_s[st * 2 * kPRows + r] = ok ? den[r0 + r] : 0.f;
+        rows_s[st * 2 * kPRows + kPRows + r] = ok ? gden[r0 + r] : 0.f;
+      }
+      if (!vec) {  // q and g one element a lane at a time, zero past N and the widths
+        for (int i = lane; i < kPRows * 256; i += 32) {
+          const int r = i >> 8;
+          const int c8 = i & 255;
+          const int c = c8 & 127;
+          const bool is_g = c8 >= 128;
+          const bf16* X = is_g ? g : q;
+          const long ld = is_g ? ldg : ldq;
+          const int col = (is_g ? d0 : m0) + c;
+          const bool ok = r0 + r < N && col < (is_g ? D : M);
+          *reinterpret_cast<bf16*>(qs + (is_g ? 2 : 0) * kWgAtom16 + (c >> 6) * kWgAtom16 +
+                                   sw128_offset(r, c & 63)) =
+              ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
+        }
+        tc::fence_proxy_async();
+      }
+      __syncwarp();
+      if (lane == 0) {
+        if (vec) {
+          tc::mbar_arrive_expect_tx(full + st, 4 * kWgAtom16);
+          for (int a = 0; a < 2; ++a) {
+            tc::tma_load_2d(qs + a * kWgAtom16, &map_q, m0 + 64 * a, static_cast<int>(r0),
+                            full + st);
+            tc::tma_load_2d(qs + (2 + a) * kWgAtom16, &map_g, d0 + 64 * a, static_cast<int>(r0),
+                            full + st);
+          }
+        } else {
+          tc::mbar_arrive(full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  tc::setmaxnreg_inc<232>();
+  // acc[atom]: the block's sums of the warpgroup's 64 m rows by each
+  // 64-column atom of d; part[half][atom]: a chunk half's fresh sums
+  float acc[2][32], part[2][2][32];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = part[0][a][i] = part[1][a][i] = 0.f;
+  const int col = tid & (tc::kNodeTile - 1);
+  const int par = tid / tc::kNodeTile;
+  double ds4[4] = {0.0, 0.0, 0.0, 0.0};  // rows r % 8 = par + 2i, four chains
+
+  // chunk c's gd into buffer c % 2, once its stage has landed: its rows past
+  // the slice (which the copy engine read) as zeros, gd = g * (1/den) as
+  // bf16 hi + lo, 8 columns of one row a thread step, and gden as f64
+  auto split = [&](int c) {
+    const int st = c % kPStages;
+    tc::mbar_wait(full + st, (c / kPStages) & 1);
+    unsigned char* qs = ring + st * kPStage;
+    const unsigned char* gs = qs + 2 * kWgAtom16;
+    const float* den_s = rows_s + st * 2 * kPRows;
+    unsigned char* gdb = gd + (c & 1) * 4 * kWgAtom16;
+    const long r0 = r_begin + static_cast<long>(c) * kPRows;
+    const int valid = static_cast<int>(r_end - r0 < kPRows ? r_end - r0 : kPRows);
+    for (int i = tid; i < (kPRows - valid) * 16; i += kRowsConsumers) {
+      const int r = valid + i / 16;
+      const int cs = (i % 16) * 8;
+      *reinterpret_cast<uint4*>(qs + (cs >> 6) * kWgAtom16 + sw128_offset(r, cs & 63)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int it = 0; it < kPRows * 16 / kRowsConsumers; ++it) {
+      const int i = tid + it * kRowsConsumers;
+      const int r = i >> 4;
+      const int cs = (i & 15) * 8;
+      const int off = (cs >> 6) * kWgAtom16 + sw128_offset(r, cs & 63);
+      const bool ok = r < valid;
+      const float rd = ok ? __frcp_rn(den_s[r]) : 0.f;
+      const uint4 raw = *reinterpret_cast<const uint4*>(gs + off);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      uint4 hi_raw, lo_raw;
+      __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(&hi_raw);
+      __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(&lo_raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        const float x = ok ? __fmul_rn(f.x, rd) : 0.f;
+        const float y = ok ? __fmul_rn(f.y, rd) : 0.f;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        const float2 hf = __bfloat1622float2(hi);
+        hi2[e] = hi;
+        lo2[e] = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+      }
+      *reinterpret_cast<uint4*>(gdb + off) = hi_raw;
+      *reinterpret_cast<uint4*>(gdb + 2 * kWgAtom16 + off) = lo_raw;
+    }
+    if (stats && tid < kPRows) {
+      gden_d[(c & 1) * kPRows + tid] = static_cast<double>(den_s[kPRows + tid]);
+    }
+    tc::fence_proxy_async();  // gd's stores and the zeroed rows, for the MMAs
+  };
+
+  // a software pipeline: chunk c's MMAs run while the warps sum its ds and
+  // split chunk c + 1's gd into the other buffer; one barrier a chunk
+  if (chunks > 0) split(0);
+  consumers_sync();
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % kPStages;
+    const unsigned char* qs = ring + st * kPStage;
+    const unsigned char* a_atom = qs + wg * kWgAtom16;  // the warpgroup's 64 m columns of q
+    const unsigned char* gdb = gd + (c & 1) * 4 * kWgAtom16;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) tc::wgmma_fence_operand(part[half][a]);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int k = 2 * half + ks;  // node rows 16k .. 16k + 15 of the chunk
+        const uint64_t da = sw128_desc_mn(a_atom + k * 2048);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            tc::wgmma_m64n64k16<1>(part[half][a], da,
+                                   sw128_desc_mn(gdb + (2 * p + a) * kWgAtom16 + k * 2048),
+                                   ks | p);
+          }
+        }
+      }
+      tc::wgmma_commit();
+    }
+    if (stats) {  // ds of the chunk's rows while its MMAs run
+      const unsigned char* qc = qs + (col >> 6) * kWgAtom16;
+      const double* gden_c = gden_d + (c & 1) * kPRows;
+#pragma unroll
+      for (int r = par; r < kPRows; r += 8) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bf16 x = *reinterpret_cast<const bf16*>(qc + sw128_offset(r + 2 * i, col & 63));
+          ds4[i] = fma(static_cast<double>(__bfloat162float(x)), gden_c[r + 2 * i], ds4[i]);
+        }
+      }
+    }
+    if (c + 1 < chunks) split(c + 1);
+    // each half's sums, in order, into the block's
+    tc::wgmma_wait<1>();
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tc::wgmma_fence_operand(part[0][a]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[0][a][i]);
+    }
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tc::wgmma_fence_operand(part[1][a]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[1][a][i]);
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + st);
+    consumers_sync();  // chunk c's gd is free, chunk c + 1's is in place
+  }
+
+  float* Pp = P_part + static_cast<size_t>(s) * M * D;
+  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (m >= M) continue;
+    float* prow = Pp + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = d0 + 64 * a + 8 * j + 2 * (lane & 3);
+        const float x = acc[a][4 * j + 2 * h];
+        const float y = acc[a][4 * j + 2 * h + 1];
+        if (pairs && d + 1 < D) {
+          *reinterpret_cast<float2*>(prow + d) = make_float2(x, y);
+        } else {
+          if (d < D) prow[d] = x;
+          if (d + 1 < D) prow[d + 1] = y;
+        }
+      }
+  }
+  if (stats) {  // uniform over the block
+    const double ds = (ds4[0] + ds4[1]) + (ds4[2] + ds4[3]);
+    if (par == 1) red[col] = ds;
+    consumers_sync();
+    if (par == 0 && m0 + col < M) {
+      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
+    }
+  }
+}
+
+// The bf16 apply's B operands as la_bwd_split_tiles_kernel lays them out:
+// for each product w (dq: kvs, dk: P, as [n = M][k = D]; dv: P^T, as [n =
+// D][k = M]) its [128 n][64 k] chunks, hi then lo, each swizzled as the
+// apply's shared memory holds it (16 KB, zero past the widths), column tile
+// by column tile and k chunk by k chunk, so that one bulk copy moves a
+// piece's chunk.
+struct ApTiles {
+  int M, D;
+  __host__ __device__ ApTiles(int M_, int D_) : M(M_), D(D_) {}
+  __host__ __device__ int kch(int w) const { return tc::cdiv(w == 2 ? M : D, 64); }
+  __host__ __device__ int tiles(int w) const { return tc::cdiv(w == 2 ? D : M, 128); }
+  __host__ __device__ size_t elems(int w) const {
+    return static_cast<size_t>(tiles(w)) * kch(w) * 2 * 8192;
+  }
+  __host__ __device__ size_t total() const { return elems(0) + elems(1) + elems(2); }
+  // the first element of piece p of product w's chunk (column tile ct, k chunk kc)
+  __host__ __device__ size_t chunk(int w, int ct, int kc, int p) const {
+    const size_t base = w == 0 ? 0 : (w == 1 ? elems(0) : elems(0) + elems(1));
+    return base + (static_cast<size_t>(ct * kch(w) + kc) * 2 + p) * 8192;
+  }
+};
+
+// hl = kvs, P and P^T as bf16 hi + lo in ApTiles' layout (each element x
+// as hi = bf16(x), lo = bf16(x - hi), la_bwd_split_kernel's pieces).
+__global__ void __launch_bounds__(kThreads)
+la_bwd_split_tiles_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M,
+                          int D, bf16* __restrict__ hl) {
+  const ApTiles a(M, D);
+  const size_t count = a.total() / 2;  // elements of one piece, over the three products
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    size_t j = i;
+    int w = 0;
+    for (; w < 2; ++w) {
+      const size_t per = a.elems(w) / 2;
+      if (j < per) break;
+      j -= per;
+    }
+    const int kp = a.kch(w) * 64;
+    const int n = static_cast<int>(j / kp);
+    const int kk = static_cast<int>(j % kp);
+    float x = 0.f;
+    if (w == 2) {
+      if (n < D && kk < M) x = P[static_cast<size_t>(kk) * D + n];
+    } else if (n < M && kk < D) {
+      x = (w == 0 ? kvs : P)[static_cast<size_t>(n) * D + kk];
+    }
+    const bf16 hi = __float2bfloat16_rn(x);
+    const size_t off = a.chunk(w, n / 128, kk / 64, 0) + sw128_offset(n % 128, kk % 64) / 2;
+    hl[off] = hi;
+    hl[off + 8192] = __float2bfloat16_rn(x - __bfloat162float(hi));
+  }
+}
+
+// x / d correctly rounded from r = 1/d correctly rounded (Markstein: the
+// quotient q = x * r corrected once by its residual, exact by an FMA), as
+// x / d gives it without over- or underflow: the epilogue divides every
+// element by its row's den, which as a division compiles to a dozen
+// instructions and set the epilogue's time.
+__device__ __forceinline__ float div_by(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
+}
+
+// The apply. grid (ceil(N / 128)), 128 rows a block. Its three products
+// (dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M), each over
+// 128-column tiles of its output, run as one stream of 64-deep chunks: a
+// chunk is the A rows' [128][64] tile of the product (g, v or k) and the B
+// operand's hi and lo [128 n][64 k] tiles (kvs, P or P^T, laid out
+// swizzled by la_bwd_split_tiles_kernel), through a kApStages-deep ring.
+// Blocks start at different products (rot), so that the SMs do not all
+// read one tensor at once.
+//
+// The warps specialise: a producer warp issues every copy, by the copy
+// engine (TMA): each chunk (the A rows by a tensor map, the B tiles by
+// bulk copies of 16 KB) as the consumers free its stage, and each column
+// tile's operand for the epilogue (q, k or g; two [128][64] boxes by a
+// tensor map) into one of two buffers once the tile two back has left it;
+// full and empty mbarriers hand stages and buffers over. Two consumer
+// warpgroups of 64 rows run each chunk's four k16 steps of wgmma
+// m64n128k16, hi then lo into one accumulator (the parent's sums: no fresh
+// sums, the products do not cancel), and finish each column tile warp by
+// warp: each warp reads its 16 rows of the operand at its fragment and
+// writes the output there in place as bf16, with the parent's epilogue
+// terms in their order (den and gden of its rows loaded once a block, ksum
+// and ds staged once a block, each division by den through the row's
+// reciprocal, div_by); one thread then stores the tile by the copy engine,
+// which clips it to the output. (Copies and stores issued by the warps
+// that also ran the MMAs and epilogues stalled them: the SM takes new
+// copies only as fast as device memory returns the old ones.) Where the
+// views' strides or bases do not allow a tensor map (vec_a, vec_io 0) the
+// producer's lanes copy the A rows and operands one element at a time and
+// the consumers store their rows. Dynamic shared memory: the ring (48 KB a
+// stage), the two operand buffers (64 KB), ksum and ds, the mbarriers: 210
+// KB at M = 256.
+constexpr int kApStages = 3;
+constexpr int kApConsumers = 2 * 128;          // two warpgroups
+constexpr int kApThreads = kApConsumers + 32;  // and the producer warp
+constexpr int kApStage = 3 * kWgTile16;        // A, B hi, B lo: [128][64] each
+// the widest rows it takes (M and D padded to 64): any width fits its
+// shared memory, but above 704 the CUDA-core kernel runs, where the
+// mma.sync kernel's A tile stopped fitting
+constexpr int kWgMaxK16 = 704;
+
+size_t apply_wgmma_smem(int M) {
+  return static_cast<size_t>(kApStages) * kApStage + 4 * kWgTile16 +
+         2 * static_cast<size_t>(tc::cdiv(M, 4) * 4) * sizeof(float) +
+         (2 * kApStages + 4) * sizeof(uint64_t);
+}
+
+// the apply's tensor maps: its A rows (g, v, k), its epilogue operands (q,
+// k, g) and its outputs (dq, dk, dv)
+struct ApMaps {
+  CUtensorMap g, v, k, q, dq, dk, dv;
+};
+
+__global__ void __launch_bounds__(kApThreads, 1)
+la_bwd_apply_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g, long ldq,
+                          long ldk, long ldv, long ldg, bf16* __restrict__ dq,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, long lddq, long lddk,
+                          long lddv, int N, int M, int D, const bf16* __restrict__ hl,
+                          const float* __restrict__ ksum, const float* __restrict__ ds,
+                          const float* __restrict__ scal, const float* __restrict__ n_total,
+                          const float* __restrict__ dinv, const float* __restrict__ den,
+                          const float* __restrict__ gden, int guard, int vec_a, int vec_io,
+                          const __grid_constant__ ApMaps maps) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem_raw;                          // [stage][A, B hi, B lo]
+  unsigned char* Xs = ring + kApStages * kApStage;         // [buffer][2][128][64]
+  float* col_s = reinterpret_cast<float*>(Xs + 4 * kWgTile16);  // ksum, then ds
+  const int Mc = tc::cdiv(M, 4) * 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(col_s + 2 * Mc);  // a stage has landed
+  uint64_t* empty = full + kApStages;                            // a stage's MMAs are done
+  uint64_t* xfull = empty + kApStages;                           // an operand has landed
+  uint64_t* xempty = xfull + 2;                                  // a tile has left its buffer
+  const TcDims t(M, D);
+  const ApTiles at(M, D);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+  const int rot = static_cast<int>(blockIdx.x);
+
+  // column tiles of product which, and its k chunks
+  auto tiles_of = [&](int which) { return tc::cdiv(which == 2 ? D : M, 128); };
+  auto kch_of = [&](int which) { return (which == 2 ? t.Mk : t.Dk) / 64; };
+  const int tiles = 2 * tiles_of(0) + tiles_of(2);
+  const int chunks = 2 * tiles_of(0) * kch_of(0) + tiles_of(2) * kch_of(2);
+  // tile tt as (product, first column); products in the block's order
+  auto tile_at = [&](int tt, int& which, int& c0) {
+    for (int w = 0; w < 3; ++w) {
+      which = (w + rot) % 3;
+      if (tt < tiles_of(which) || w == 2) break;
+      tt -= tiles_of(which);
+    }
+    c0 = tt * 128;
+  };
+  // chunk ch as (product, first column, k chunk)
+  auto locate = [&](int ch, int& which, int& c0, int& kc) {
+    for (int w = 0; w < 3; ++w) {
+      which = (w + rot) % 3;
+      const int per = tiles_of(which) * kch_of(which);
+      if (ch < per || w == 2) break;
+      ch -= per;
+    }
+    c0 = ch / kch_of(which) * 128;
+    kc = ch % kch_of(which);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kApStages; ++i) {
+      tc::mbar_init(full + i, 1);  // the producer's, with its copies' bytes
+      tc::mbar_init(empty + i, kApConsumers / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      tc::mbar_init(xfull + i, 1);
+      tc::mbar_init(xempty + i, 1);
+    }
+    tc::mbar_init_fence();
+  }
+  for (int i = tid; i < 2 * Mc; i += kApThreads) {
+    const int c = i < Mc ? i : i - Mc;
+    col_s[i] = c < M ? (i < Mc ? ksum[c] : ds[c]) : 0.f;
+  }
+  __syncthreads();
+
+  if (warp == kApConsumers / 32) {  // the producer
+    // tile tt's operand into buffer tt % 2, once tile tt - 2 has left it
+    auto load_x = [&](int tt) {
+      const int b = tt & 1;
+      if (tt >= 2) tc::mbar_wait(xempty + b, ((tt - 2) >> 1) & 1);
+      int which, c0;
+      tile_at(tt, which, c0);
+      unsigned char* Xb = Xs + b * 2 * kWgTile16;
+      if (!vec_io) {
+        const bf16* X = which == 0 ? q : (which == 1 ? k : g);
+        const long ldx = which == 0 ? ldq : (which == 1 ? ldk : ldg);
+        const int C = which == 2 ? D : M;
+        for (int i = lane; i < 128 * 128; i += 32) {
+          const int r = i >> 7;
+          const int c = i & 127;
+          const bool ok = r0 + r < N && c0 + c < C;
+          *reinterpret_cast<bf16*>(Xb + (c >> 6) * kWgTile16 + sw128_offset(r, c & 63)) =
+              ok ? X[(r0 + r) * ldx + c0 + c] : __float2bfloat16_rn(0.f);
+        }
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(xfull + b);
+      } else if (lane == 0) {
+        const CUtensorMap* map = which == 0 ? &maps.q : (which == 1 ? &maps.k : &maps.g);
+        tc::mbar_arrive_expect_tx(xfull + b, 2 * kWgTile16);
+        for (int h = 0; h < 2; ++h) {
+          tc::tma_load_2d(Xb + h * kWgTile16, map, c0 + 64 * h, static_cast<int>(r0), xfull + b);
+        }
+      }
+    };
+    load_x(0);
+    int tt = 0;  // the tile of chunk ch
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int st = ch % kApStages;
+      if (ch >= kApStages) tc::mbar_wait(empty + st, (ch / kApStages - 1) & 1);
+      int which, c0, kc;
+      locate(ch, which, c0, kc);
+      unsigned char* dst = ring + st * kApStage;
+      if (!vec_a) {  // the A rows [128][64] one element a lane at a time
+        const bf16* A = which == 0 ? g : (which == 1 ? v : k);
+        const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
+        const int K = which == 2 ? M : D;
+        for (int i = lane; i < 128 * 64; i += 32) {
+          const int r = i >> 6;
+          const int c = i & 63;
+          const bool ok = r0 + r < N && kc * 64 + c < K;
+          *reinterpret_cast<bf16*>(dst + sw128_offset(r, c)) =
+              ok ? A[(r0 + r) * lda + kc * 64 + c] : __float2bfloat16_rn(0.f);
+        }
+        tc::fence_proxy_async();
+        __syncwarp();
+      }
+      if (lane == 0) {  // B's hi and lo chunks, and the A rows
+        tc::mbar_arrive_expect_tx(full + st, (vec_a ? 3 : 2) * kWgTile16);
+        const bf16* src = hl + at.chunk(which, c0 / 128, kc, 0);
+        tc::bulk_copy_g2s(dst + kWgTile16, src, kWgTile16, full + st);
+        tc::bulk_copy_g2s(dst + 2 * kWgTile16, src + 8192, kWgTile16, full + st);
+        if (vec_a) {
+          const CUtensorMap* map = which == 0 ? &maps.g : (which == 1 ? &maps.v : &maps.k);
+          tc::tma_load_2d(dst, map, kc * 64, static_cast<int>(r0), full + st);
+        }
+      }
+      if (kc == kch_of(which) - 1) {  // the next tile's operand, a tile ahead
+        ++tt;
+        if (tt < tiles) load_x(tt);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const float inv = scal[2];
+  const float n = *n_total;
+  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+  // den, its reciprocal and gden of the lane's two fragment rows, loaded once
+  float den_r[2], rden_r[2], gden_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long row = r0 + 16 * warp + (lane >> 2) + 8 * h;
+    den_r[h] = row < N ? den[row] : 1.f;
+    rden_r[h] = __frcp_rn(den_r[h]);
+    gden_r[h] = row < N ? gden[row] : 0.f;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int tt = 0;  // the tile of chunk ch
+  for (int ch = 0; ch < chunks; ++ch) {
+    int which, c0, kc;
+    locate(ch, which, c0, kc);
+    const int kch = kch_of(which);
+    const int st = ch % kApStages;
+    tc::mbar_wait(full + st, (ch / kApStages) & 1);
+    const unsigned char* stage = ring + st * kApStage;
+    const unsigned char* a_tile = stage + (warp >> 2) * kWgAtom16;
+    tc::wgmma_fence_operand(acc);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = sw128_desc(a_tile + ks * 32);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        tc::wgmma_m64n128k16(acc, da, sw128_desc(stage + (1 + p) * kWgTile16 + ks * 32),
+                             kc > 0 || ks > 0 || p > 0);
+      }
+    }
+    tc::wgmma_commit();
+    if (vec_io && kc == 0 && tt > 0 && tid == 0) {  // the last tile has left its buffer
+      tc::bulk_store_wait_read();
+      tc::mbar_arrive(xempty + ((tt - 1) & 1));
+    }
+    tc::wgmma_wait<0>();
+    tc::wgmma_fence_operand(acc);
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + st);
+    if (kc == kch - 1) {  // the column tile's epilogue, warp by warp, into its buffer
+      const int b = tt & 1;
+      tc::mbar_wait(xfull + b, (tt >> 1) & 1);
+      unsigned char* Xb = Xs + b * 2 * kWgTile16;
+      // the product's epilogue, its terms in the parent's order, one loop a
+      // product (compiled apart, so that no element tests the product)
+      auto finish = [&](auto product) {
+        constexpr int kWhich = decltype(product)::value;
+        const float* cs_col = col_s + (kWhich == 0 ? 0 : Mc);  // ksum (dq) or ds (dk)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int cl = 8 * j + 2 * (lane & 3);
+          float col[2] = {0.f, 0.f};
+          if constexpr (kWhich < 2) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) col[e] = c0 + cl + e < M ? cs_col[c0 + cl + e] : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+                Xb + (cl >> 6) * kWgTile16 +
+                sw128_offset(16 * warp + (lane >> 2) + 8 * h, cl & 63));
+            const float2 x2 = __bfloat1622float2(*p);
+            const float x[2] = {x2.x, x2.y};
+            float o[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float a = acc[4 * j + 2 * h + e];
+              if constexpr (kWhich == 0) {
+                o[e] = inv * div_by(a, den_r[h], rden_r[h]) + inv * gden_r[h] * col[e] - c_q * x[e];
+              } else if constexpr (kWhich == 1) {
+                o[e] = inv * a + inv * col[e] - c_k * x[e];
+              } else {
+                o[e] = n * div_by(x[e], den_r[h], rden_r[h]) + inv * a;
+              }
+            }
+            *p = __floats2bfloat162_rn(o[0], o[1]);
+          }
+        }
+      };
+      if (which == 0) {
+        finish(std::integral_constant<int, 0>{});
+      } else if (which == 1) {
+        finish(std::integral_constant<int, 1>{});
+      } else {
+        finish(std::integral_constant<int, 2>{});
+      }
+      if (vec_io) {  // the tile out by the copy engine, clipped to the output
+        tc::fence_proxy_async();
+        consumers_sync();
+        if (tid == 0) {
+          const CUtensorMap* map = which == 0 ? &maps.dq : (which == 1 ? &maps.dk : &maps.dv);
+          for (int h = 0; h < 2; ++h) {
+            tc::tma_store_2d(map, c0 + 64 * h, static_cast<int>(r0), Xb + h * kWgTile16);
+          }
+          tc::bulk_store_commit();
+        }
+      } else {  // the warp's rows, 16 bytes a lane where they allow
+        __syncwarp();
+        bf16* out = which == 0 ? dq : (which == 1 ? dk : dv);
+        const long ldo = which == 0 ? lddq : (which == 1 ? lddk : lddv);
+        const int C = which == 2 ? D : M;
+        for (int i = lane; i < 16 * 16; i += 32) {
+          const int r = 16 * warp + (i >> 4);
+          const int cs = (i & 15) * 8;
+          const long row = r0 + r;
+          if (row >= N || c0 + cs >= C) continue;
+          const bf16* s8 = reinterpret_cast<const bf16*>(Xb + (cs >> 6) * kWgTile16 +
+                                                         sw128_offset(r, cs & 63));
+          for (int e = 0; e < 8 && c0 + cs + e < C; ++e) out[row * ldo + c0 + cs + e] = s8[e];
+        }
+        consumers_sync();
+        if (tid == 0) tc::mbar_arrive(xempty + b);
+      }
+      ++tt;
+    }
+  }
+  if (vec_io && tid == 0) tc::bulk_store_wait_read();
+}
+
 template <typename T>
 cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                               long ldg, int N, int M, int D, int slices, int rows_per_slice,
@@ -1513,7 +2038,16 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
                                  double* dinv_part, float* P_part, float* ds_part, T* hl,
                                  cudaStream_t st) {
   constexpr int kPer = kPadOf<T>;  // elements of a 16-byte copy
-  cudaError_t err = tc::launch_split_t<kRowsPieces<T>>(kvs, M, D, hl, st);
+  cudaError_t err;
+  if constexpr (kIsF32<T>) {
+    err = tc::launch_split_t<kRowsPieces<T>>(kvs, M, D, hl, st);
+  } else {
+    const size_t count = tc::split_t_elems(M, D);
+    const unsigned blocks =
+        static_cast<unsigned>(std::min<size_t>((count + kThreads - 1) / kThreads, 1024));
+    la_bwd_split_rows_kernel<<<blocks, kThreads, 0, st>>>(kvs, M, D, hl);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
   const int vec_io = ldg % kPer == 0 && ldv % kPer == 0 && aligned16(g) && aligned16(v);
@@ -1527,14 +2061,26 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
         q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
         dinv_part);
   } else {
-    const size_t smem = rows_tc_smem_bytes<T>(M, D);
-    err = cudaFuncSetAttribute(la_bwd_rows_tc_kernel<T>,
+    CUtensorMap map_q = {}, map_g = {}, map_v = {};
+    if (vec_a) {
+      err = encode_rows_map(&map_q, q, N, M, ldq);
+      if (err != cudaSuccess) return err;
+    }
+    int stages, gv_tiles;
+    rows_wgmma_layout(M, vec_io, stages, gv_tiles);
+    if (gv_tiles) {
+      err = encode_rows_map(&map_g, g, N, D, ldg);
+      if (err == cudaSuccess) err = encode_rows_map(&map_v, v, N, D, ldv);
+      if (err != cudaSuccess) return err;
+    }
+    const size_t smem = rows_wgmma_smem(M, stages, gv_tiles);
+    err = cudaFuncSetAttribute(la_bwd_rows_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    la_bwd_rows_tc_kernel<T><<<row_blocks, kTcThreads, smem, st>>>(
-        q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
-        dinv_part);
+    la_bwd_rows_wgmma_kernel<<<row_blocks, kRowsThreads, smem, st>>>(
+        q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, stages,
+        gv_tiles, den, gden, dinv_part, map_q, map_g, map_v);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1549,12 +2095,18 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
     la_bwd_reduce_tf32_kernel<<<slices * tiles, tc::kNodeThreads, kTfReduceSmem, st>>>(
         q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
   } else {
-    err = cudaFuncSetAttribute(la_bwd_reduce_tc_kernel,
+    CUtensorMap map_q = {}, map_g = {};
+    if (vec) {
+      err = encode_rows_map(&map_q, q, N, M, ldq, kPRows);
+      if (err == cudaSuccess) err = encode_rows_map(&map_g, g, N, D, ldg, kPRows);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaFuncSetAttribute(la_bwd_reduce_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kReduceSmem));
+                               static_cast<int>(kPSmem));
     if (err != cudaSuccess) return err;
-    la_bwd_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, kReduceSmem, st>>>(
-        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+    la_bwd_reduce_wgmma_kernel<<<slices * tiles, kPThreads, kPSmem, st>>>(
+        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part, map_q, map_g);
   }
   return cudaGetLastError();
 }
@@ -1562,12 +2114,11 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
 // Elements of the tensor-core reduce's scratch (kvs^T in pieces of the
 // input type: bf16, or tf32 in f32), or 0 where the reduce runs on the CUDA
 // cores: an M whose q tile does not fit one block's shared memory beside
-// the B stages (above 640 in bf16, 256 in f32).
+// the B stages (above 704 in bf16, 256 in f32).
 int bwd_reduce_scratch(int dtype, int M, int D) {
-  constexpr size_t kStatic = 4096;  // la_bwd_rows_tc_kernel's static shared memory, rounded up
   const TcDims t(M, D);
   if (dtype == 1) {
-    if (rows_tc_smem_bytes<__nv_bfloat16>(M, D) + kStatic > kSmemPerBlock) return 0;
+    if (rows_wgmma_stages(M) == 0) return 0;
     return static_cast<int>(kRowsPieces<__nv_bfloat16> * t.pt_elems());
   }
   if (dtype == 0) {
@@ -1595,7 +2146,7 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
 }
 
 // The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces, or
-// tf32 pieces in f32 for T = float), then la_bwd_apply_tc_kernel<T> (bf16)
+// tf32 pieces in f32 for T = float), then la_bwd_apply_wgmma_kernel (bf16)
 // or la_bwd_apply_wg_kernel (f32).
 template <typename T>
 cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, long ldq,
@@ -1605,10 +2156,14 @@ cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, 
                                 const float* scal, const float* n_total, const float* dinv,
                                 const float* den, const float* gden, int guard, int vec_a,
                                 int vec_io, T* hl, cudaStream_t st) {
-  const size_t total = TcDims(M, D).total();
+  const size_t total = kIsF32<T> ? TcDims(M, D).total() : ApTiles(M, D).total() / 2;
   const unsigned split_blocks =
       static_cast<unsigned>(std::min<size_t>((total + kThreads - 1) / kThreads, 1024));
-  la_bwd_split_kernel<T><<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
+  if constexpr (kIsF32<T>) {
+    la_bwd_split_kernel<T><<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
+  } else {
+    la_bwd_split_tiles_kernel<<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || N == 0) return err;
   const unsigned row_blocks = (N + kTcRows - 1) / kTcRows;
@@ -1622,14 +2177,28 @@ cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, 
         q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
         n_total, dinv, den, gden, guard, vec_a, vec_io);
   } else {
-    const size_t smem = tc_smem_bytes<T>(M, D);
-    err = cudaFuncSetAttribute(la_bwd_apply_tc_kernel<T>,
+    // the tensor maps where the copy engine can read the rows (vec_a: the A
+    // rows g, v, k; vec_io: the epilogue's operands q, k, g and the outputs:
+    // 16-byte aligned bases and row strides), else left empty
+    ApMaps maps = {};
+    struct Rows { CUtensorMap* map; const void* base; int width; long ld; bool want; };
+    const Rows rows[7] = {{&maps.g, g, D, ldg, vec_a || vec_io}, {&maps.v, v, D, ldv, !!vec_a},
+                          {&maps.k, k, M, ldk, vec_a || vec_io}, {&maps.q, q, M, ldq, !!vec_io},
+                          {&maps.dq, dq, M, lddq, !!vec_io}, {&maps.dk, dk, M, lddk, !!vec_io},
+                          {&maps.dv, dv, D, lddv, !!vec_io}};
+    for (const Rows& r : rows) {
+      if (!r.want) continue;
+      err = encode_rows_map(r.map, r.base, N, r.width, r.ld);
+      if (err != cudaSuccess) return err;
+    }
+    const size_t smem = apply_wgmma_smem(M);
+    err = cudaFuncSetAttribute(la_bwd_apply_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    la_bwd_apply_tc_kernel<T><<<row_blocks, kTcThreads, smem, st>>>(
+    la_bwd_apply_wgmma_kernel<<<row_blocks, kApThreads, smem, st>>>(
         q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
-        n_total, dinv, den, gden, guard, vec_a, vec_io);
+        n_total, dinv, den, gden, guard, vec_a, vec_io, maps);
   }
   return cudaGetLastError();
 }
@@ -1691,20 +2260,22 @@ extern "C" int sgf_la_bwd_reduce(const void* q, const void* v, const void* g, lo
 }
 
 // The scratch (elements of the input type) of the tensor-core reduce for
-// these widths, or 0 where the reduce runs on the CUDA cores (M above 640
+// these widths, or 0 where the reduce runs on the CUDA cores (M above 704
 // in bf16, above 256 in f32).
 extern "C" int sgf_la_bwd_reduce_scratch(int dtype, int M, int D) {
   return bwd_reduce_scratch(dtype, M, D);
 }
 
 // The scratch (elements of the input type) of the tensor-core apply for
-// these widths, or 0 where the apply runs on the CUDA cores: widths whose A
-// tile does not fit one block's shared memory (above ~700 in bf16, 256 in
-// f32).
+// these widths, or 0 where the apply runs on the CUDA cores: M or D above
+// 704 in bf16 (kWgMaxK16), and in f32 widths whose A tile does not fit one
+// block's shared memory (above 256).
 extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
   size_t smem;
   if (dtype == 1) {
-    smem = tc_smem_bytes<__nv_bfloat16>(M, D);
+    const TcDims t(M, D);
+    if (t.Mk > kWgMaxK16 || t.Dk > kWgMaxK16) return 0;
+    smem = apply_wgmma_smem(M);
   } else if (dtype == 0) {
     const TcDims t(M, D);
     if (t.Mk > kWgMaxK || t.Dk > kWgMaxK) return 0;
@@ -1713,16 +2284,19 @@ extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
     return 0;
   }
   if (smem > kSmemPerBlock) return 0;
-  return static_cast<int>(TcDims(M, D).total());
+  return static_cast<int>(dtype == 1 ? ApTiles(M, D).total() : TcDims(M, D).total());
 }
 
 // dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
 // (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
 // hl: the scratch of sgf_la_bwd_apply_scratch elements of the input type
 // where that is not 0 (the tensor-core design: la_bwd_split_kernel, then
-// la_bwd_apply_tc_kernel, in 3xTF32 for f32), else unused
-// (la_bwd_apply_kernel); vec_a and vec_io as la_bwd_apply_tc_kernel takes
-// them.
+// la_bwd_apply_wgmma_kernel, or la_bwd_apply_wg_kernel in 3xTF32 for f32),
+// else unused (la_bwd_apply_kernel). vec_a: 1 when the A rows (g, v, k)
+// may be read 16 bytes at a time (M and D multiples of 8, row strides too,
+// bases 16-byte aligned); vec_io: the epilogue moves 8 columns of q, k, g,
+// dq, dk, dv with 16-byte accesses (row strides multiples of 8, bases
+// 16-byte aligned).
 extern "C" int sgf_la_bwd_apply(const void* q, const void* k, const void* v, const void* g,
                                 long ldq, long ldk, long ldv, long ldg, void* dq, void* dk,
                                 void* dv, long lddq, long lddk, long lddv, int N, int M, int D,

@@ -2,11 +2,15 @@
 // (linear_attention.cu, linear_attention_bwd.cu), sm_90a:
 //
 // - PTX wrappers: ldmatrix (plain and transposed), mma.sync m16n8k16 bf16
-//   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 bf16 -> f32 with
-//   its fences and the 128-byte-swizzled shared-memory layout and
-//   descriptors it reads (the forward apply's); wgmma m64n64k8 tf32 -> f32
+//   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 and m64n128k16
+//   bf16 -> f32 with their fences and the 128-byte-swizzled shared-memory
+//   layout and descriptors they read, K-major (the forward apply's, the bf16
+//   backward apply's and rows pass's) and, for m64n64k16, MN-major (the
+//   bf16 backward P pass's node-axis operands); wgmma m64n64k8 tf32 -> f32
 //   with A from registers and B from the same swizzle over f32 rows (the
-//   f32 backward apply's and rows pass's);
+//   f32 backward apply's and rows pass's); mbarriers, the copy engine's
+//   (TMA) bulk and tensor-map copies between device and shared memory, and
+//   setmaxnreg (the bf16 backward's warp-specialised kernels);
 // - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
 //   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
 //   kernels');
@@ -82,6 +86,80 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// a warpgroup's registers a thread, lowered or raised (every warp of the
+// warpgroup runs it): a producer warpgroup that only issues copies gives
+// its registers to the consumers
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// mbarriers in shared memory and the bulk copy (TMA, one thread) that
+// completes on one: bytes from global to shared memory, counted against the
+// barrier's expected transaction bytes.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// the barriers' initialisation made visible to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, int bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// the box at (x, y) of the 2-D tensor map at tmap from shared memory (its
+// map's swizzle), the copy engine clipping it to the tensor; then the
+// commit of the bulk stores issued so far, and the wait until every
+// committed store has read its shared memory
+__device__ __forceinline__ void tma_store_2d(const void* tmap, int x, int y, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(x), "r"(y), "r"(smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// the box at (x, y) (x the inner, contiguous dimension) of the 2-D tensor
+// map at tmap (a __grid_constant__ kernel parameter), with its map's swizzle
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -350,11 +428,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], bf16 in, f32 sums; d as the
-// accumulator fragment: d[4j + 2h + e] at row 16*warp + lane/4 + 8h and
-// column 8j + 2*(lane%4) + e of the warpgroup's tile.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b) {
+// d[64 x 64] = A[64 x 16] B[16 x 64] + (scale_d ? d : 0), bf16 in, f32
+// sums; d as the accumulator fragment: d[4j + 2h + e] at row 16*warp +
+// lane/4 + 8h and column 8j + 2*(lane%4) + e of the warpgroup's tile.
+// kMN: both operands MN-major (transposed: A stored [k][m], B [k][n]),
+// else both K-major.
+template <int kMN>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -362,7 +443,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -371,13 +452,65 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kMN));
+}
+// d += A B, both K-major (the forward apply's)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  wgmma_m64n64k16<0>(d, desc_a, desc_b, 1);
+}
+
+// d[64 x 128] = A[64 x 16] B[16 x 128] + (scale_d ? d : 0), bf16 in, f32
+// sums, both operands K-major; d[4j + 2h + e] at row 16*warp + lane/4 + 8h
+// and column 8j + 2*(lane%4) + e, j < 16.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The descriptor of an MN-major tile in the same swizzle: rows are k (one
+// 128-byte row of 64 m or n values each), 8-row groups 1024 bytes apart,
+// so the k16 step s of a tile starts 2048*s bytes in. An operand of 64 m
+// or n is one swizzle atom wide, so only the k-group stride is read: it is
+// given in both offset fields.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
 // keeps the compiler from moving accesses of d across the asynchronous MMAs
-__device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
+template <int kN>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // every group of this warpgroup's MMAs but the kPending newest has completed

@@ -27,12 +27,14 @@ sums: :func:`reduce`'s kᵀv (``la_reduce_tc_kernel``, mma.sync: exact bf16
 products, fixed-order f32 sums over slices of N), :func:`apply`'s q @ kvs
 (``la_apply_tc_kernel``, warpgroup MMAs (wgmma) from swizzled shared
 memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
-qᵀ(g/den) (``la_bwd_rows_tc_kernel``, ``la_bwd_reduce_tc_kernel``,
-mma.sync: kvs split into bf16 hi + mid + lo, g/den into hi + lo) and
-:func:`bwd_apply`'s three products (``la_bwd_apply_tc_kernel``, mma.sync:
-kvs and P split into hi + lo). On f32 inputs every kernel runs in 3xTF32
-(each f32 operand split into tf32 hi + lo, each product lo*hi + hi*lo +
-hi*hi, f32 sums): on mma.sync m16n8k8 tf32 the reduce
+qᵀ(g/den) (``la_bwd_rows_wgmma_kernel``, ``la_bwd_reduce_wgmma_kernel``,
+wgmma: kvs split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's
+operands read node-major) and :func:`bwd_apply`'s three products
+(``la_bwd_apply_wgmma_kernel``, wgmma: kvs and P split into hi + lo); the
+three backward kernels are fed by the copy engine (TMA) from a producer
+warp. On f32 inputs every kernel runs in 3xTF32 (each f32 operand split
+into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums): on
+mma.sync m16n8k8 tf32 the reduce
 (``la_reduce_tf32_kernel``), the apply (``la_apply_tf32_kernel``) and the
 backward reduce's P pass (``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs
 (wgmma m64n64k8 tf32, A from registers) the backward reduce's rows pass
@@ -41,7 +43,8 @@ backward reduce's P pass (``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs
 stream the node rows and take any width; the kernels that stage their rows'
 full width in shared memory run on the CUDA cores where it does not fit
 (the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
-backward's q or A tile above 640 in bf16, 256 in f32). :func:`reduce_design`,
+backward reduce's q tile above 704 in bf16, 256 in f32; the backward apply
+above M or D = 704 in bf16 and 256 in f32). :func:`reduce_design`,
 :func:`apply_design`, :func:`bwd_reduce_design` and :func:`bwd_apply_design`
 name the kernel a call runs.
 
@@ -255,7 +258,8 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     if dtype == torch.float32:
         return ("tensor cores (3xTF32, f32 sums: rows pass wgmma, q and kvs as tf32 hi + lo; "
                 "P pass mma.sync, q and g/den as tf32 hi + lo)")
-    return "tensor cores (mma.sync bf16, kvs as bf16 hi + mid + lo, g/den as hi + lo, f32 sums)"
+    return ("tensor cores (wgmma bf16, f32 sums: rows pass kvs as bf16 hi + mid + lo; "
+            "P pass q and g/den node-major, g/den as hi + lo)")
 
 
 def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
@@ -432,7 +436,7 @@ def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
         return _CUDA_CORES
     if dtype == torch.float32:
         return "tensor cores (wgmma 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums)"
-    return "tensor cores (mma.sync bf16, kvs and P as bf16 hi + lo, f32 sums)"
+    return "tensor cores (wgmma bf16, kvs and P as bf16 hi + lo, f32 sums)"
 
 
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,

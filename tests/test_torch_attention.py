@@ -268,7 +268,7 @@ def _split_bf16(t):
 
 def _tensor_core_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows, guard,
                        lo=True):
-    """The bf16 apply's arithmetic (``la_bwd_apply_tc_kernel``) written
+    """The bf16 apply's arithmetic (``la_bwd_apply_wgmma_kernel``) written
     plainly: the bf16 rows g, v, k as they are, kvs and P split into bf16
     hi + lo with one product each (``lo=False`` drops the lo half: kvs and
     P rounded to bf16, as the Pallas kernel does), f32 sums, the 1/den of gd
@@ -478,14 +478,16 @@ def _tensor_core_reduce(q, k, v, guard, rows=96):
 
 
 def _tensor_core_bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard, rows=96, lo=True):
-    """The bf16 backward reduce's arithmetic (``la_bwd_rows_tc_kernel`` and
-    ``la_bwd_reduce_tc_kernel``) written plainly: a = q @ kvs with kvs as
-    three bf16 pieces, hi + mid + lo (one product each, f32 sums), b = q .
+    """The bf16 backward reduce's arithmetic (``la_bwd_rows_wgmma_kernel`` and
+    ``la_bwd_reduce_wgmma_kernel``) written plainly: a = q @ kvs with kvs as
+    three bf16 pieces, hi + mid + lo, each k16 step's three products summed
+    alone and added to the f32 sums (the rows pass's fresh sums), b = q .
     ksum, den and gden in f32 as the rows pass forms them; gd = g * (1/den)
-    in f32, split into bf16 hi + lo, P = qᵀ gd summed per slice of ``rows``
-    nodes in f32 and added in slice order; ds per slice in f64; dinv from
-    the per-row f64 terms. ``lo=False`` keeps only the hi pieces: kvs and gd
-    rounded to bf16. Returns P, ds, dinv and rows = [den; gden], as
+    in f32, split into bf16 hi + lo, P = qᵀ gd summed 32 rows at a time
+    (the P pass's fresh sums), each added to its slice's f32 sum, the slices
+    of ``rows`` nodes added in slice order in f32; ds per slice in f64; dinv
+    from the per-row f64 terms. ``lo=False`` keeps only the hi pieces: kvs
+    and gd rounded to bf16. Returns P, ds, dinv and rows = [den; gden], as
     :func:`bwd_reduce_plain` does."""
     qf, vf, gf = q.float(), v.float(), g.float()
     inv = scal[2]
@@ -497,7 +499,10 @@ def _tensor_core_bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard, rows=96, l
             out, rest = out + piece, rest - piece
         return out
 
-    a = qf @ pieces(kvs, 3)
+    kvs_t = pieces(kvs, 3)
+    a = torch.zeros(q.shape[0], kvs.shape[1])
+    for k in _runs(q.shape[1], 16):
+        a = a + qf[:, k.start:k.stop] @ kvs_t[k.start:k.stop]
     b = qf @ ksum
     den = inv * b + n_total
     gden_of = -(inv * (gf * a).sum(1) + n_total * (gf * vf).sum(1))
@@ -511,8 +516,12 @@ def _tensor_core_bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard, rows=96, l
     P = torch.zeros(q.shape[1], g.shape[1])
     ds = torch.zeros(q.shape[1])
     for sl in _runs(q.shape[0], rows):
+        part = torch.zeros_like(P)
+        for ch in _runs(len(sl), 32):
+            r = slice(sl.start + ch.start, sl.start + ch.stop)
+            part = part + qf[r].T @ gd[r]
+        P = P + part
         r = slice(sl.start, sl.stop)
-        P = P + qf[r].T @ gd[r]
         ds = ds + (qf[r].double().T @ gden[r].double()).float()
     ga = (gf * a).sum(1)
     dinv = ((ga / den).double() + (gden * b).double()).sum().float()
@@ -815,6 +824,101 @@ def test_tf32_backward_accumulation_at_n_one(period):
     _, dinv_sums, dq, dk, dv = _accumulation_errors(32, True, period)
     assert dinv_sums <= 2.0 ** -14
     assert max(dq, dk, dv) <= 1e-5 if period == _WG_PERIOD else max(dq, dk) > 1e-5
+
+
+# The bf16 rows pass's accumulation (``la_bwd_rows_wgmma_kernel``): the
+# depth of its fresh sums, one k16 step, against one chain over the whole
+# depth at M = 256.
+_BF16_PERIOD = 16
+
+
+def _split_bf16_pieces(t, count):
+    """f32 ``t`` as ``count`` bf16 pieces (hi = bf16(t), then each the bf16
+    of what the ones before leave), each in f64."""
+    out, rest = [], t.float()
+    for _ in range(count):
+        piece = rest.to(torch.bfloat16).float()
+        out.append(piece.double())
+        rest = rest - piece
+    return out
+
+
+def _mm_bf16_sums(a, b, pieces, period):
+    """a @ b as the bf16 rows pass's warpgroup MMAs sum it: a bf16 (exact),
+    b f32 split into ``pieces`` bf16 pieces; k in steps of 16, each step's
+    piece products added in order (hi first) into the period's sum, each
+    add the step's products summed exactly and then rounded toward zero to
+    f32 (the tensor cores' own accumulation, which behaves as if it
+    truncates); every ``period`` deep the sum starts afresh and is added to
+    the running f32 sum rounded to nearest. Returns f64."""
+    ad, bs = a.double(), _split_bf16_pieces(b, pieces)
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], period):
+        part = torch.zeros_like(out)
+        for k in range(k0, min(k0 + period, a.shape[1]), 16):
+            s = slice(k, k + 16)
+            for y in bs:
+                part = _round_toward_zero(part.double() + ad[:, s] @ y[s])
+        out = out + part
+    return out.double()
+
+
+def _bf16_rows_errors(seed, positive, period):
+    """M = D = 256 on 2,048 bf16 rows (randn at n = N, or positive at
+    n = 1): the rows pass's den, gden and dinv with a = q @ kvs summed as
+    :func:`_mm_bf16_sums` sums it at ``period`` (kvs as hi + mid + lo), the
+    rest in f64, against the plain reduce in f64: gden's error over its
+    scale, dinv's over |dinv| and over its two sums' magnitude."""
+    n, m = 2048, 256
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16) for x in
+                  (rng.random if positive else rng.standard_normal)((4, n, m))
+                  .astype(np.float32))
+    n_t = torch.tensor(1.0 if positive else float(n))
+    kvs, ksum, scal = attn.reduce_plain(q, k, v, False)
+    qd, vd, gdd = q.double(), v.double(), g.double()
+    inv, nd = scal[2].double(), n_t.double()
+    a = _mm_bf16_sums(q, kvs, 3, period)
+    b = qd @ ksum.double()
+    den = inv * b + nd
+    gden = -(inv * (gdd * a).sum(1) + nd * (gdd * vd).sum(1)) / (den * den)
+    dinv = ((gdd * a).sum(1) / den + gden * b).sum()
+    _, _, dinv_x, (den_x, gden_x) = attn.bwd_reduce_plain(
+        qd, vd, gdd, kvs.double(), ksum.double(), scal.double(), nd, False)
+    sums = (gdd / den_x[:, None] * (qd @ kvs.double())).abs().sum() \
+        + (gden_x * (qd @ ksum.double())).abs().sum()
+    err = (dinv - dinv_x).abs()
+    return (((gden - gden_x).abs().max() / gden_x.abs().max()).item(),
+            (err / dinv_x.abs()).item(), (err / sums).item())
+
+
+@pytest.mark.parametrize("period", [_BF16_PERIOD, _ONE_CHAIN])
+def test_bf16_rows_accumulation_keeps_f32_precision(period):
+    """bf16 at a batch's statistics (randn q, k, v, g; n = N) through the
+    rows pass's accumulation (:func:`_mm_bf16_sums`: the tensor cores' sums
+    truncate): n * sum g*v carries gden there, so at either depth gden is
+    within 1e-10 of its scale and dinv within 1e-6 of itself, far inside
+    the card's REDUCE_REL_TOL (1e-5)."""
+    gden, dinv_rel, _ = _bf16_rows_errors(31, False, period)
+    assert gden <= 1e-10 and dinv_rel <= 1e-6, (gden, dinv_rel)
+
+
+@pytest.mark.parametrize("period", [_BF16_PERIOD, _ONE_CHAIN])
+def test_bf16_rows_accumulation_at_n_one(period):
+    """n = 1 and positive bf16 inputs, where q @ kvs carries den, gden and
+    dinv (the card's n = 1 check): at the rows pass's period, one k16 step,
+    gden is within 1e-7 of its scale and dinv within 1e-7 of its two sums'
+    magnitude; summed in one chain over the whole depth each is at least 5x
+    further off (the truncation grows with the chain), though still inside
+    N1_REL_TOL (2^-14): the fresh sums hold the rows pass at the precision
+    of the three pieces' split."""
+    gden, _, dinv_sums = _bf16_rows_errors(32, True, period)
+    if period == _BF16_PERIOD:
+        assert gden <= 1e-7 and dinv_sums <= 1e-7, (gden, dinv_sums)
+    else:
+        fresh = _bf16_rows_errors(32, True, _BF16_PERIOD)
+        assert gden >= 5 * fresh[0] and dinv_sums >= 5 * fresh[2], (gden, dinv_sums, fresh)
+        assert max(gden, dinv_sums) <= 2.0 ** -14
 
 
 # Faults of an f32 backward apply, each as what one of its products would

@@ -337,6 +337,98 @@ def test_tf32_backward_kernels_carry_the_products(cuda, m, d):
     assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(*ins)))
 
 
+@pytest.mark.parametrize("n", [777, 1000])
+@pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 200), (640, 72),
+                                 (40, 37)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_bf16_wgmma_backward_takes_any_width(cuda, n, m, d, strided):
+    """The bf16 backward on warpgroup MMAs (``la_bwd_rows_wgmma_kernel``,
+    ``la_bwd_reduce_wgmma_kernel``, ``la_bwd_apply_wgmma_kernel``) on widths
+    off their 64- and 128-column tiles and off the 16-byte path (37, 19,
+    130: scalar rows), up to the widest q tile the rows pass takes beside
+    two stages (640), on the per-head views of [N, 2, *] tensors (strided:
+    rows 3 elements longer, so no 16-byte copies but for (40, 37), whose
+    view of 37 columns is 16-byte aligned: an odd width on the copy
+    engine's path), with tail rows (777 and
+    1,000: off the 64-row P chunk and the 128-row block): at n = N on random
+    inputs and at n = 1 on positive inputs (the products carry den, gden
+    and the gradients), the reduce within 1e-5 of its scale of the plain
+    version in f64 (dinv of its sums' magnitude), the apply within the bf16
+    tolerance of each output's scale of its plain version in f64; each
+    bitwise repeatable, one launch a call."""
+    pad = 3 if strided else 0
+    for design in (attn.bwd_reduce_design(torch.bfloat16, m, d),
+                   attn.bwd_apply_design(torch.bfloat16, m, d)):
+        assert design.startswith("tensor cores (wgmma bf16"), design
+
+    def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
+        return draw(n, 2, w + pad, device=cuda).to(torch.bfloat16)[:, 1, :w]
+
+    for draw in (torch.randn, torch.rand):
+        q, k, v, g = heads(draw, m), heads(draw, m), heads(draw, d), heads(draw, d)
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), 1.0 if draw is torch.rand else float(n), device=cuda)
+        b0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
+        got_r = attn.bwd_reduce(q, v, g, *sums, n_t)
+        _f64_bwd_reduce_close(got_r, q, v, g, *sums, n_t)
+        assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums,
+                                                                            n_t)))
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
+        exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)),
+                                     False)
+        for a, b in zip(got_a, exact):
+            _check_rel(a, b, BWD_REL[torch.bfloat16])
+        assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(q, k, v, g, *sums,
+                                                                           n_t, *red)))
+        assert (attn.bwd_reduce_launches - b0, attn.bwd_apply_launches - a0) == (2, 2)
+
+
+@pytest.mark.parametrize("m,d", [(8, 72), (72, 200), (200, 256), (256, 256)])
+def test_bf16_wgmma_backward_kernels_carry_the_products(cuda, m, d):
+    """The bf16 backward kernels where their products carry the outputs and
+    every (row, column) pairing of kvs and P moves them
+    (``bwd_product_inputs`` in bf16: a wrong swizzle, descriptor or k step
+    garbles them, and a dropped piece of kvs or g/den misses the reduce's
+    tolerance), with tail rows (N = 777): the reduce within 1e-5 of its
+    scale of its plain version in f64 (dinv of its sums' magnitude), the
+    apply within the bf16 tolerance of each output's scale of
+    ``bwd_apply_plain`` in f64; each bitwise repeatable."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    ins = bwd_product_inputs(777, m, d, torch.bfloat16, gen)
+    q, k, v, g, kvs, ksum, scal, n_t = ins[:8]
+    got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
+    _f64_bwd_reduce_close(got_r, q, v, g, kvs, ksum, scal, n_t)
+    assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, kvs, ksum, scal,
+                                                                        n_t)))
+    got_a = attn.bwd_apply(*ins)
+    exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+    for a, b in zip(got_a, exact):
+        _check_rel(a, b, BWD_REL[torch.bfloat16])
+    assert all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(*ins)))
+
+
+@pytest.mark.parametrize("m,d", [(130, 19), (256, 256)])
+def test_bf16_wgmma_backward_with_masked_rows(cuda, m, d):
+    """Two heads of bf16 with every third row masked and tail rows (N =
+    1,000): the attention's gradients through the wgmma backward against
+    autograd of the plain forward (the bf16 tolerance of each output's
+    scale), bitwise repeatable, one launch of each kernel a head."""
+    n = 1000
+    q, k = (torch.randn(n, 2, m, device=cuda).to(torch.bfloat16) for _ in range(2))
+    v, g = (torch.randn(n, 2, d, device=cuda).to(torch.bfloat16) for _ in range(2))
+    mask = (torch.arange(n, device=cuda) % 3 != 1).float()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    r0, a0 = attn.bwd_reduce_launches, attn.bwd_apply_launches
+    got = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
+    assert (attn.bwd_reduce_launches - r0, attn.bwd_apply_launches - a0) == (2, 2)
+    want = torch.autograd.grad(linear_attention(*leaves, node_mask=mask), leaves, g)
+    for a, b in zip(got, want):
+        _check_rel(a, b, BWD_REL[torch.bfloat16])
+    again = torch.autograd.grad(attn.fused_linear_attention(*leaves, node_mask=mask), leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _f64_reduce_close(got, q, k, v):
     """kvs, ksum and the norms within 1e-5 of their scale of the reduce's
     sums in f64 on the same inputs (``reduce_plain`` sums in f32 whatever
