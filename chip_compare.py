@@ -15,6 +15,7 @@ in the same call as the change.
     python3 chip_compare.py busy ROOT
     python3 chip_compare.py schedule ROOT
     python3 chip_compare.py designs ROOT [ROOT ...]
+    python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -86,12 +87,11 @@ version in f64 (random inputs at n = N, and the apply on
 repeatable, and digests the f32 backward's outputs at three shapes. The
 mode prints each turn's JSON line, then the turns side by side, and fails
 unless the f32 digests are equal in every turn.
-``busy``: ROOT's own arxiv-train, powerlaw-train, amazon2m-batch-train,
-papers-sampled-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
-``powerlaw_train_phase``, ``amazon2m_batch_phase``,
-``papers_sampled_phase``, ``cli_phase``) on graphs that ROOT's
-``preprocess_graph`` builds, with this checkout's ``profile_device``, so
-that both checkouts' device-busy ms a step or batch are read by one
+``busy``: ROOT's own arxiv-train, large-400K-int8-train,
+amazon2m-batch-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
+``q8_train_phase``, ``amazon2m_batch_phase``, ``cli_phase``) on graphs that
+ROOT's ``preprocess_graph`` builds, with this checkout's ``profile_device``,
+so that both checkouts' device-busy ms a step or batch are read by one
 definition; run it in turns (parent, change, change, parent) to compare
 them.
 ``schedule``: the CSR row walk of ROOT and of this checkout, each turn a
@@ -126,6 +126,29 @@ synth-arxiv and at ``SCHEDULE_WIDTHS`` on the power-law graph, bf16 and
 f32, in the graph's walk order and without, and ``csr_spmm_ev`` at (H, D)
 = (2, 40) f32 and (2, 256) bf16; then the turns side by side, and whether
 each output is bitwise the same in every turn.
+``q8-f32-apply``: the int8 aggregation (``csr_spmm_q8_apply``) and the f32
+forward apply of each ROOT and of this checkout, each turn a process of its
+own (``q8-f32-apply-turn ROOT``), in turns ROOT1 ... ROOTk, this checkout,
+this checkout, ROOTk ... ROOT1 (with one ROOT: ROOT, this checkout, this
+checkout, ROOT). A turn prints its kernels' registers and spills from
+``ptxas`` and the ``HGMMA`` and ``HMMA`` instructions of each forward apply
+kernel in ``cuobjdump -sass``; times ``csr_spmm_q8_apply`` at F = 256 (bf16
+rows and out, on rows quantised by the plain quantiser) on large-400K,
+synth-arxiv and the power-law bench graph (its hub plan), in node order and,
+where its package takes one, in the graph's walk order (CUDA events, median
+of 20, and the profiler's device ms a launch), each output against the
+plain version (bitwise equal or not) and its sha256 digest; then the f32
+forward apply at M = D = 256 on N = 169,343 (arxiv), 100,000 and 49,029
+(the amazon2m batch and its tail), 50,000 and 19,343 (arxiv-batch) and
+621,432 (a papers-sampled batch): CUDA events, the profiler's device ms of
+the apply kernel and of its split, the host's microseconds a call at the
+19,343 tail (200 calls enqueued, no sync between), the output against the
+plain version in f64 and bitwise repeatable; and digests of the bf16 apply
+and the f32 backward at a few shapes. The mode prints each turn's JSON
+line, then the turns side by side, and fails unless every ``csr_spmm_q8``
+output, the bf16 apply's and the f32 backward's digests are the same in
+every turn. ``--only q8`` or ``--only f32`` runs one of the two kernels'
+parts (and the digests of the other checks only with ``f32``).
 """
 
 from __future__ import annotations
@@ -150,9 +173,14 @@ def load_phases(path: str):
 def main() -> int:
     modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
              "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "schedule",
-             "schedule-turn", "designs", "designs-turn")
+             "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn")
+    only = None
+    if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
+        only = sys.argv[-1]
+        del sys.argv[-2:]
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
-            or len(sys.argv) > 3 and sys.argv[1] == "designs") or sys.argv[1] not in modes:
+            or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply")) \
+            or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
@@ -164,6 +192,8 @@ def main() -> int:
         return schedule(root)
     if mode == "designs":
         return designs([os.path.abspath(r) for r in sys.argv[2:]])
+    if mode == "q8-f32-apply":
+        return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
     sys.path.insert(0, root)
     import torch
 
@@ -199,6 +229,8 @@ def main() -> int:
         return schedule_turn(cs, root)
     if mode == "designs-turn":
         return designs_turn(cs, root)
+    if mode == "q8-f32-apply-turn":
+        return q8_f32_apply_turn(cs, root, only)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -414,16 +446,17 @@ def batch_build(cs) -> int:
 BF16_DIGEST_SHAPES = ((169_343, 256, 256), (100_000, 256, 256), (777, 37, 19), (777, 130, 200))
 
 
-def run_turns(mode: str, root: str, order=None):
+def run_turns(mode: str, root: str, order=None, extra=()):
     """``mode`` on ROOT, this checkout, this checkout and ROOT (or on the
-    roots of ``order``), each turn a process of its own; the last line of
-    each turn's output (a JSON object) parsed, or None if a turn failed."""
+    roots of ``order``), each turn a process of its own (``extra`` added to
+    its arguments); the last line of each turn's output (a JSON object)
+    parsed, or None if a turn failed."""
     import json
     import subprocess
 
     turns = []
     for which in order or (root, HERE, HERE, root):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), mode, which],
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), mode, which, *extra],
                              capture_output=True, text=True, timeout=900)
         sys.stdout.write(out.stdout)
         sys.stderr.write(out.stderr[-4000:])
@@ -1006,19 +1039,202 @@ def busy(root: str) -> int:
     _build.build_all()
     native_build.library()
     results: dict = {}
-    for what, data, phase in (("arxiv", dict(name="synth-arxiv", seed=0), cs.train_phase),
-                              ("power-law", cs.POWERLAW_GRAPH, cs.powerlaw_train_phase)):
-        ds = synthetic_dataset(**data)
-        t = time.perf_counter()
-        graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
-        torch.cuda.synchronize()
-        cs.log(f"busy {root}: {what} preprocess_graph {time.perf_counter() - t:.2f} s")
-        phase(ds, graph, "cuda")
-        del ds, graph
-        torch.cuda.empty_cache()
+    ds = synthetic_dataset("synth-arxiv", seed=0)
+    t = time.perf_counter()
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+    torch.cuda.synchronize()
+    cs.log(f"busy {root}: arxiv preprocess_graph {time.perf_counter() - t:.2f} s")
+    cs.train_phase(ds, graph, "cuda")
+    del graph
+    torch.cuda.empty_cache()
+    cs.q8_train_phase(results, "cuda")
     cs.amazon2m_batch_phase(results, "cuda")
-    cs.papers_sampled_phase(results, "cuda")
-    cs.cli_phase(synthetic_dataset("synth-arxiv", seed=0), results, "cuda")
+    cs.cli_phase(ds, results, "cuda")
+    return 0
+
+
+def q8_f32_apply(roots: list, only=None) -> int:
+    """The ``q8-f32-apply`` mode: the turns, each ``q8-f32-apply-turn`` in a
+    process of its own, then the turns side by side; fails unless the
+    outputs that must not change are the same in every turn."""
+    import json
+
+    order = roots + [HERE, HERE] + roots[::-1]
+    turns = run_turns("q8-f32-apply-turn", roots[0], order,
+                      extra=[] if only is None else ["--only", only])
+    if turns is None:
+        return 1
+    names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
+    names[HERE] = "this checkout"
+    side = {f"turn {i} ({names[t['root']]})": dict(q8=t["q8"], f32_apply=t["f32_apply"],
+                                                    sass=t["sass"])
+            for i, t in enumerate(turns)}
+    equal = {key: len({json.dumps(t[key]) for t in turns}) == 1
+             for key in ("bf16_apply_digests", "f32_bwd_digests")}
+    # every walk of a graph, in every turn, gives one output
+    graphs = {k.split(" ", 1)[0] for t in turns for k in t["q8_digests"]}
+    equal["q8_digests"] = all(
+        len({d for t in turns for k, d in t["q8_digests"].items() if k.split(" ", 1)[0] == g})
+        == 1 for g in graphs)
+    print(json.dumps({"q8_f32_apply_turns": side, "bitwise_equal": equal}), flush=True)
+    return 0 if all(equal.values()) else 1
+
+
+# the f32 forward apply's shapes, N at M = D = 256: arxiv, the amazon2m batch
+# and its tail, arxiv-batch's batch and tail, a papers-sampled batch
+F32_APPLY_SHAPES = (169_343, 100_000, 49_029, 50_000, 19_343, 621_432)
+HOST_CALLS = 200
+
+
+def q8_f32_apply_turn(cs, root: str, only=None) -> int:
+    """One turn of the ``q8-f32-apply`` mode on ROOT's package; its last
+    line of output is a JSON object of its numbers."""
+    import dataclasses
+    import hashlib
+    import inspect
+    import json
+    import re
+    import time
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.graph import gcn_norm_rs
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+    from sgformer_tpu_torch.kernels import spmm as k
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8_apply
+    from sgformer_tpu_torch.utils.measure import apply_product_inputs
+
+    reports = _build.build_all(("spmm", "linear_attention") if only == "q8" else
+                               ("spmm", "linear_attention", "linear_attention_bwd"))
+    for name in ("spmm", "linear_attention"):
+        for line in reports.get(name, "").splitlines():
+            if re.search(r"q8|la_apply|Used|spill", line):
+                cs.log(f"ptxas {root} {name}: {line.strip()}")
+    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention")[1]])
+    counts = {}
+    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        if "la_apply" in func:
+            counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
+                                HMMA=len(re.findall(r"\bHMMA\b", body)))
+            cs.log(f"sass {root}: {func}: HGMMA {counts[func]['HGMMA']}, "
+                   f"HMMA {counts[func]['HMMA']}")
+    dev = "cuda"
+
+    def digest(*ts) -> str:
+        return hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                       for t in ts)).hexdigest()[:16]
+
+    out = dict(root=root, sass=counts, q8={}, q8_digests={}, f32_apply={},
+               bf16_apply_digests=[], f32_bwd_digests=[])
+    ordered = "schedule" in inspect.signature(k.csr_spmm_q8_apply).parameters
+    pl = dict(cs.POWERLAW_GRAPH)
+    for what, data in (("large-400K", cs.LARGE_400K), ("arxiv", dict(name="synth-arxiv", seed=0)),
+                       ("power-law", pl)) if only in (None, "q8") else ():
+        ds = synthetic_dataset(**data, device=dev)
+        t = time.perf_counter()
+        graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16",
+                                 device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t
+        graph = dataclasses.replace(graph, rs=gcn_norm_rs(graph.edge_dst, graph.num_nodes))
+        del ds
+        n, f = graph.num_nodes, 256
+        csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+        plan = (graph.hub_segments, graph.hub_edges)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        x = torch.randn(n, f, generator=gen, device=dev).bfloat16()
+        q, s = quantize_absmax(x, graph.rs)
+        want = spmm_q8_apply(q, s, x, graph.edge_src, graph.edge_dst, graph.gcn_weight,
+                             graph.rs, n, torch.bfloat16)
+        walks = {"node order": {}}
+        if ordered:
+            walks["walk order"] = dict(schedule=graph.schedule)
+        res = dict(n=n, e=graph.num_edges, hub_segments=plan[0].shape[0], prep_s=prep_s)
+        for walk, kw in walks.items():
+            def run():
+                return k.csr_spmm_q8_apply(q, s, x, *csr, graph.rs, torch.bfloat16, *plan, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            repeat = torch.equal(got, run())
+            out["q8_digests"][f"{what} {walk}"] = digest(got)
+            ms = cs.time_ms(run)
+            dev_ms = cs.kernel_ms(run, ("csr_spmm_q8",))["csr_spmm_q8"]
+            rows = graph.num_edges - n  # the gathered rows (one self edge a row)
+            res[walk] = dict(ms=ms, device_ms=dev_ms, bitwise_plain=same,
+                             bitwise_repeatable=repeat, grows_per_s=rows / ms / 1e6)
+            cs.log(f"q8 {root} {what} {walk}: {ms:.4f} ms (device {dev_ms:.4f}), "
+                   f"{rows / ms / 1e6:.2f} G rows/s; bitwise the plain version {same}, "
+                   f"repeatable {repeat}")
+            if not (same and repeat):
+                raise AssertionError(f"csr_spmm_q8 {what} {walk} is not bitwise the plain version")
+            del got
+        out["q8"][what] = res
+        del graph, x, q, s, want, csr, plan
+        torch.cuda.empty_cache()
+
+    m = 256
+    for n in F32_APPLY_SHAPES if only in (None, "f32") else ():
+        gen = torch.Generator(device=dev).manual_seed(n)
+        q, k_, v = (torch.randn(n, m, generator=gen, device=dev) for _ in range(3))
+        sums = attn.reduce_plain(q, k_, v, False)
+        del k_
+        n_t = torch.full((), float(n), device=dev)
+        got = attn.apply(q, v, *sums, n_t)
+        exact = attn.apply_plain(*(t.double() for t in (q, v, *sums, n_t)), False)
+        err = rel(got, exact)
+        del exact
+        # where q @ kvs carries the output (in f64, the largest error over
+        # the tolerance's scale)
+        ins = apply_product_inputs(n, m, m, torch.float32,
+                                   torch.Generator(device=dev).manual_seed(7))
+        exact = attn.apply_plain(*(t.double() for t in ins), False)
+        prod_err = ((attn.apply(*ins).double() - exact).abs()
+                    / (1e-5 + 1e-5 * exact.abs())).max().item()
+        del ins, exact
+        repeat = torch.equal(got, attn.apply(q, v, *sums, n_t))
+        del got
+        ms = cs.time_ms(lambda: attn.apply(q, v, *sums, n_t))
+        dev_ms = cs.kernel_ms(lambda: attn.apply(q, v, *sums, n_t),
+                              ("la_apply_tf32_kernel", "la_apply_wg_kernel", "split"))
+        host_us = None
+        if n == 19_343:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                attn.apply(q, v, *sums, n_t)
+            host_us = (time.perf_counter() - t) / HOST_CALLS * 1e6
+            torch.cuda.synchronize()
+        kernel = dev_ms["la_apply_tf32_kernel"] + dev_ms["la_apply_wg_kernel"]
+        out["f32_apply"][str(n)] = dict(ms=ms, kernel_ms=kernel, split_ms=dev_ms["split"],
+                                        rel_err=err, product_err_over_tol=prod_err,
+                                        bitwise_repeatable=repeat, host_us=host_us)
+        cs.log(f"f32 apply {root} n={n}: {ms:.4f} ms (kernel {kernel:.4f}, split "
+               f"{dev_ms['split']:.4f}); |kernel - plain in f64| / scale {err:.2e}, where "
+               f"q @ kvs carries it {prod_err:.3f} of the f32 tolerance; bitwise "
+               f"repeatable {repeat}" + (f"; host {host_us:.1f} us a call" if host_us else ""))
+        if not repeat:
+            raise AssertionError(f"the f32 apply at n = {n} is not bitwise repeatable")
+        del q, v, sums
+        torch.cuda.empty_cache()
+    for n, m_, d_ in F32_DIGEST_SHAPES if only in (None, "f32") else ():
+        gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
+        q, k_ = (torch.randn(n, m_, generator=gen, device=dev) for _ in range(2))
+        v, g = (torch.randn(n, d_, generator=gen, device=dev) for _ in range(2))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k_, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        out["f32_bwd_digests"].append(digest(*attn.bwd_reduce(q, v, g, *sums, n_t),
+                                             *attn.bwd_apply(q, k_, v, g, *sums, n_t, *red)))
+        qb, vb = q.bfloat16(), v.bfloat16()
+        out["bf16_apply_digests"].append(digest(attn.apply(qb, vb, *sums, n_t)))
+        del q, k_, v, g, sums, red, qb, vb
+    cs.log(f"q8-f32-apply {root}: f32 backward digests {out['f32_bwd_digests']}, bf16 apply "
+           f"digests {out['bf16_apply_digests']}")
+    print(json.dumps(out), flush=True)
     return 0
 
 

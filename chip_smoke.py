@@ -16,7 +16,8 @@ JAX package. Phases, each failing loudly:
    apply alone at n = N (bitwise repeatable), at n = 1 and, against its
    plain version in f64, on inputs where q @ kvs carries the output (in
    bf16 also where kvs terms cancel, so that a dropped lo piece shows), each
-   with the design it runs (tensor cores in both types, f32 in 3xTF32) and
+   with the design it runs (tensor cores in both types, f32 in 3xTF32, the
+   f32 apply on ``wgmma`` fed by TMA) and
    one ``torch.matmul`` of its core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32
@@ -78,9 +79,11 @@ JAX package. Phases, each failing loudly:
 10. the int8 aggregation at the arxiv shape, x bf16 and f32: the quantiser
    kernel ``quantize_absmax`` bitwise against its plain version (q and s),
    with its time beside its two-pass bound and the plain time;
-   ``csr_spmm_q8`` through the graph's hub plan against its plain version
-   on the same quantised rows (one ulp of the output type), the whole
-   against the plain whole, bitwise repeatable, with its walk's design,
+   ``csr_spmm_q8`` through the graph's hub plan in the graph's walk order
+   against its plain version on the same quantised rows (one ulp of the
+   output type) and bitwise against its node-order walk (timed beside it),
+   the whole against the plain whole, bitwise repeatable, with its walk's
+   design,
    time, bound, plain time, gather rate and ``csr_spmm``'s time beside it;
    the same at the shape of 11 (bf16), which the kernels line reports
    first, and the gather rate beside the ``gather_rows`` probe's after 14;
@@ -665,8 +668,10 @@ def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     name = DTYPE_NAME[dtype]
     log(f"reduce {name} design at {where}: {red_design}")
     log(f"apply {name} design at {where}: {design}")
-    want = "tensor cores (mma.sync 3xTF32" if dtype == torch.float32 else "tensor cores"
-    if (m, d) == (256, 256) and not (design.startswith(want) and red_design.startswith(want)):
+    want = (("tensor cores (mma.sync 3xTF32", "tensor cores (wgmma 3xTF32")
+            if dtype == torch.float32 else ("tensor cores", "tensor cores (wgmma"))
+    if (m, d) == (256, 256) and not (red_design.startswith(want[0])
+                                     and design.startswith(want[1])):
         raise AssertionError(f"the {name} forward kernels at M = D = 256 are not the "
                              f"tensor-core design")
     return red_design, design
@@ -1665,7 +1670,8 @@ def plain_versions():
         return spmm_edge_values(x.to(msg_dtype), edge_src, edge_dst, values,
                                 indptr.shape[0] - 1, x.dtype)
 
-    def plain_q8(x, indptr, edge_src, edge_dst, weight, rs, segments=None, segment_edges=None):
+    def plain_q8(x, indptr, edge_src, edge_dst, weight, rs, segments=None, segment_edges=None,
+                 schedule=None):
         return spmm_q8(x, edge_src, edge_dst, weight, rs, indptr.shape[0] - 1)
 
     stack = contextlib.ExitStack()
@@ -1905,15 +1911,21 @@ def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
     whether they are bitwise equal is logged), the whole (quantiser +
     kernel) against the plain whole, bitwise repeatable; the walk's design,
     its time beside its bound, the plain version's and ``csr_spmm``'s on the
-    same x, and its gather rate. ``no_plan``: also without the hub plan
-    (every row one warp's walk)."""
+    same x, and its gather rate, in the graph's walk order (as the model
+    path runs it), which holds it bitwise to the node-order walk, timed
+    beside it. ``no_plan``: also without the hub plan (every row one warp's
+    walk)."""
     from sgformer_tpu_torch.kernels import spmm as k
+    from sgformer_tpu_torch.kernels.spmm import Q8_WALK
     from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8, spmm_q8_apply
 
     n, e, f = graph.num_nodes, graph.num_edges, 256
     src, dst, w, rs = graph.edge_src, graph.edge_dst, graph.gcn_weight, graph.rs
     csr = (graph.indptr, src, dst, w)
     plan = (graph.hub_segments, graph.hub_edges)
+    order = graph.schedule
+    if order is None:
+        raise AssertionError(f"{key}: the graph has no walk order")
     n_self = int((src == dst).sum().item())
     gen = torch.Generator(device=dev).manual_seed(5)
     for dtype in dtypes:
@@ -1940,27 +1952,35 @@ def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
             library_ms=None)
 
         xb = x.to(torch.bfloat16)
-        design = (f"one warp a row, 8-byte gathers (8 columns a lane), hub rows in "
-                  f"{plan[0].shape[0]} segments of at most {plan[1]} edges, one column slice")
+        design = f"{Q8_WALK}; hub rows in {plan[0].shape[0]} segments of at most {plan[1]} edges"
         log(f"{key} {name} walk: {design}")
-        got = k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan)
+        got = k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan, schedule=order)
         want = spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype)
+        node_order = k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan)
         torch.cuda.synchronize()
         err = check_close(f"{key} {name} F={f} (same quantised rows; bitwise equal: "
                           f"{torch.equal(got, want)})", got, want,
                           rtol=Q8_ULP[dtype], atol=0.0)
-        if not torch.equal(got, k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan)):
+        if not torch.equal(got, node_order):
+            raise AssertionError(f"{key} {name}: the walk order is not the node-order walk "
+                                 f"bitwise")
+        log(f"{key} {name}: the walk in the graph's order is bitwise the node-order walk")
+        del node_order
+        if not torch.equal(got, k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan,
+                                                    schedule=order)):
             raise AssertionError("csr_spmm_q8 is not bitwise repeatable")
         check_close(f"{key} {name} F={f} (quantiser + kernel vs plain spmm_q8)",
-                    k.csr_spmm_q8(x, *csr, rs, *plan), spmm_q8(x, src, dst, w, rs, n),
-                    rtol=Q8_ULP[dtype], atol=0.0)
+                    k.csr_spmm_q8(x, *csr, rs, *plan, schedule=order),
+                    spmm_q8(x, src, dst, w, rs, n), rtol=Q8_ULP[dtype], atol=0.0)
         torch.cuda.empty_cache()
         # the plain version first: on the H100 the first timing after
         # empty_cache reads the kernel high at large-400K
         plain_ms = time_ms(lambda: spmm_q8_apply(q, s, xb, src, dst, w, rs, n, dtype), iters=5)
-        ms = time_ms(lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan))
-        whole_ms = time_ms(lambda: k.csr_spmm_q8(x, *csr, rs, *plan))
-        spmm_ms = time_ms(lambda: k.csr_spmm(x, *csr, *plan))
+        ms = time_ms(lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan,
+                                                 schedule=order))
+        node_ms = time_ms(lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *plan))
+        whole_ms = time_ms(lambda: k.csr_spmm_q8(x, *csr, rs, *plan, schedule=order))
+        spmm_ms = time_ms(lambda: k.csr_spmm(x, *csr, *plan, schedule=order))
         # q, the bf16 x of the self term, rs, src, indptr and the absmax read
         # once, the weights of the self edges only, the result written once
         nbytes = (n * f * (1 + 2 + x.element_size()) + n * 4 + e * 4 + (n + 1) * 4
@@ -1968,18 +1988,19 @@ def q8_phase(graph, results: dict, dev: str, key: str = "csr_spmm_q8",
         b_ms, b_by = bound_ms(nbytes, e * f, torch.int8)
         rows = e - n_self  # the rows of q gathered
         rate = rows / ms * 1e3
-        log(f"{key} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}); gathers {rate / 1e9:.3f} G rows/s, {rate * f / 1e9:.1f} GB/s; "
-            f"quantiser + kernel {whole_ms:.4f} ms; csr_spmm {name} on the same x "
-            f"{spmm_ms:.4f} ms")
-        r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=None, design=design, quantize_ms=ms_q,
+        log(f"{key} {name}: {ms:.4f} ms in the walk order, {node_ms:.4f} ms in node order "
+            f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}); gathers "
+            f"{rate / 1e9:.3f} G rows/s, {rate * f / 1e9:.1f} GB/s; quantiser + kernel "
+            f"{whole_ms:.4f} ms; csr_spmm {name} on the same x {spmm_ms:.4f} ms")
+        r = dict(max_abs_err=err, ms=ms, node_order_ms=node_ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, library_ms=None, design=design, quantize_ms=ms_q,
                  quantize_and_kernel_ms=whole_ms, csr_spmm_ms=spmm_ms,
                  grows_per_s=rate / 1e9, gather_gb_per_s=rate * f / 1e9)
         if no_plan:
             one_warp = (torch.empty(0, 3, dtype=torch.int32, device=dev),
                         int(torch.diff(graph.indptr).max().item()))
-            run = lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype, *one_warp)  # noqa: E731
+            run = lambda: k.csr_spmm_q8_apply(q, s, xb, *csr, rs, dtype,  # noqa: E731
+                                              *one_warp, schedule=order)
             if not torch.equal(run(), got):
                 raise AssertionError(f"{key} {name} without the hub plan differs")
             r["no_plan_ms"] = time_ms(run)

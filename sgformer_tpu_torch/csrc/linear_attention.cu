@@ -56,26 +56,26 @@
 // ~0.045 ms at the bf16 peak, under the bytes bound; the design measured
 // against it, an mma.sync version of the backward's row core, is in PERF.md.
 //
-// The f32 kernels run the same designs in 3xTF32 (mma.sync m16n8k8 tf32,
-// f32 sums), as the f32 backward does (linear_attention_bwd.cu): each f32
-// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
-// each product is lo*hi' + hi*lo' + hi*hi' (lo*lo' dropped), ~2^-21 of each
-// term.
+// The f32 kernels run in 3xTF32 (f32 sums), as the f32 backward does
+// (linear_attention_bwd.cu): each f32 operand x is split into hi = tf32(x)
+// and lo = tf32(x - hi) (cvt.rna), and each product is lo*hi' + hi*lo' +
+// hi*hi' (lo*lo' dropped), ~2^-21 of each term.
 // - The f32 reduce (la_reduce_tf32_kernel) is the bf16 reduce's grid, slices,
 //   tiles, f64 column sums and second passes, with k^T v by the node-axis
-//   contraction in 3xTF32 (tc::node_mma_chunk_tf32): k is split as its
-//   fragments load, v once a chunk into shared tf32 hi + lo tiles. The f32
-//   chunks of k, v and q take 52 KB a stage, so the ring holds 3 stages,
-//   and one block runs on an SM. Its tile streams the node rows, so it
-//   takes any M and D.
-// - The f32 apply (la_apply_tf32_kernel) is the backward rows pass's core
-//   (tensor_core.cuh: tc_stage_rows, tc::tf32_column_tile) with a forward
-//   epilogue: a block stages its 128 q rows once in f32 (130 KB at M = 256,
-//   one block an SM) and splits them as the fragments load (plain 32-bit
-//   loads from rows padded by 16 bytes, free of bank conflicts: ldmatrix is
-//   16-bit); kvs^T is split once a call into tf32 hi + lo
-//   (tc::split_t_kernel<2, float>) and streamed in double-buffered 64-deep
-//   chunks. The q tile fits one block's shared memory up to M = 256.
+//   contraction on mma.sync m16n8k8 tf32 (tc::node_mma_chunk_tf32): k is
+//   split as its fragments load, v once a chunk into shared tf32 hi + lo
+//   tiles. The f32 chunks of k, v and q take 52 KB a stage, so the ring
+//   holds 3 stages, and one block runs on an SM. Its tile streams the node
+//   rows, so it takes any M and D.
+// - The f32 apply (la_apply_wg_kernel) runs a = q @ kvs on warpgroup MMAs
+//   (wgmma m64n64k8 tf32, A from registers), warp-specialised: a producer
+//   warpgroup brings the q rows (staged once in f32, 128 KB at M = 256, one
+//   block an SM), kvs^T's tf32 hi and lo pieces (split once a call by
+//   la_apply_split_kernel, already swizzled) and each column tile's v rows
+//   by the copy engine (TMA), and forms den; two consumer warpgroups split
+//   q as its fragments load, run the MMAs and finish each tile in place for
+//   the copy engine to store. Its q tile fits one block's shared memory up
+//   to M = 256.
 // Wider q rows (above M = 256 in f32, 704 in bf16) run la_apply_kernel on
 // the CUDA cores (64 x 64 output tiles, f32 FMAs from shared memory).
 //
@@ -85,6 +85,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -711,88 +712,360 @@ la_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   cp_async_wait<0>();
 }
 
-// The f32 apply on the tensor cores in 3xTF32: the backward rows pass's
-// core (tensor_core.cuh) with a forward epilogue. grid (ceil(N / 128)), 128
-// rows a block, one block an SM. Dynamic shared memory: the block's q rows
-// as f32 [128][Mk + 4] (130 KB at M = 256), staged once and split into tf32
-// hi + lo as the fragments load; two stages of 64-deep chunks of kvs^T's
-// tf32 hi and lo pieces (68 KB; split once a call by tc::split_t_kernel);
-// den per row. b = q . ksum is an f32 dot on the CUDA cores from the staged
-// rows, two threads a row. Each 64-column tile of a = q @ kvs
-// (tc::tf32_column_tile) is staged in shared memory over the B stages and
-// finished 8 columns a thread step, v read and out written 16 bytes at a
-// time: out = (inv * a + n * v) / den, with a zero den taken as 1 under the
-// guard.
-__global__ void __launch_bounds__(tc::kTcThreads, 1)
-la_apply_tf32_kernel(const float* __restrict__ q, const float* __restrict__ v, long ldq,
-                     long ldv, float* __restrict__ out, long ldo, int N, int M, int D,
-                     const float* __restrict__ hl, const float* __restrict__ ksum,
-                     const float* __restrict__ scal, const float* __restrict__ n_total,
-                     int guard, int vec_a, int vec_io) {
+// The f32 apply on warpgroup MMAs in 3xTF32 (wgmma m64n64k8 tf32, A from
+// registers), warp-specialised and fed by the copy engine (TMA). grid
+// (ceil(N / 128)), 128 rows a block, one block an SM: two consumer
+// warpgroups of 64 rows and a producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg). Dynamic shared memory,
+// 1024-byte aligned (no static shared memory, so the dynamic block starts
+// the block's window), every tile 128-byte swizzled over f32 rows of 32
+// (tc::sw128_offset_f32): the q rows as ka = ceil(M / 32) atoms of [128
+// rows][32] (16 KB each, 128 KB at M = 256), staged once; a ring of
+// kAwStages chunks of kvs^T, each a [64 n][32 k] atom of its tf32 hi and of
+// its lo piece (8 KB each; laid out swizzled by la_apply_split_kernel,
+// column tile by column tile, so that one bulk copy moves a piece's
+// chunk); the v / out tile [128][64] (two atoms); den per row; mbarriers.
+// 225 KB at M = 256.
+//
+// The producer warpgroup: warp 0's lane 0 brings the q atoms by a tensor
+// map, each on a barrier of its own, interleaved with the first chunks of
+// kvs^T, and then every chunk by bulk copies as the consumers free its
+// stage (full and empty mbarriers); warp 1 brings each column tile's v
+// rows by a tensor map into the v / out tile once the last tile's output
+// has left it; warps 2 and 3 form den = inv * (q . ksum) + n of the
+// block's rows from the staged q rows (an f32 FMA chain in column order, a
+// zero den taken as 1 under the guard). Where the rows' strides or bases
+// do not allow a tensor map (vec_q, vec_v 0), warps 2-3 copy the q rows and
+// warp 1 the v rows one element a lane at a time.
+//
+// The consumers run the chunks of every 64-column tile of a = q @ kvs as
+// one stream, the MMAs of tensor_core.cuh's wg_column_tile: each warp's A
+// fragments, 16 rows, are loaded from the q atoms as they are needed (plain
+// 32-bit loads; the swizzle puts the 32 addresses of a fragment in distinct
+// banks) and split into tf32 hi + lo in registers, each product lo*hi' +
+// hi*lo' + hi*hi', and every 16 deep (kWgPeriod) the MMAs start fresh sums
+// that are added to the tile's sums in f32 round-to-nearest. A chunk's two
+// periods are double-buffered, so that the second's MMAs run while the
+// warps fold the first's sums; its MMAs are drained before its stage is
+// freed, and a finished column tile gets its epilogue: out = (inv * a + n *
+// v) / den at each lane's fragment, in the v / out tile in place (the
+// division by the row's reciprocal, tc::div_by), stored by the copy engine,
+// which clips it to the output (vec_o), or by the warps' own stores. On the
+// H100 (PERF.md §6) periods pipelined across chunks made ptxas
+// serialise the MMAs (0.497 ms at arxiv against 0.436), and one chain of
+// tensor-core sums over the whole depth gained 5 % but came 5x nearer the
+// f32 tolerance where q @ kvs carries the output.
+constexpr int kAwConsumers = 2 * 128;
+constexpr int kAwThreads = kAwConsumers + 128;  // and the producer warpgroup
+constexpr int kAwStages = 4;
+constexpr int kAwAtom = tc::kTcRows * 128;  // bytes of a [128][32] f32 atom of q or v / out
+constexpr int kAwPiece = tc::kTcCols * 128;  // bytes of a [64 n][32 k] atom of kvs^T
+constexpr int kAwStage = 2 * kAwPiece;       // a chunk's hi and lo atoms
+
+__host__ __device__ constexpr int apply_k_atoms(int M) { return tc::cdiv(M, 32); }
+
+size_t apply_wg_smem_bytes(int M) {
+  const int ka = apply_k_atoms(M);
+  return static_cast<size_t>(ka) * kAwAtom + static_cast<size_t>(kAwStages) * kAwStage +
+         2 * kAwAtom + tc::kTcRows * sizeof(float) +
+         (ka + 2 * kAwStages + 3) * sizeof(uint64_t);
+}
+
+// Elements of the f32 apply's split kvs^T: the tf32 hi and lo atoms of
+// every (column tile, k atom) chunk.
+__host__ __device__ inline size_t apply_wg_scratch(int M, int D) {
+  return static_cast<size_t>(tc::cdiv(D, tc::kTcCols)) * apply_k_atoms(M) * 2 *
+         (kAwPiece / sizeof(float));
+}
+
+// hl = kvs^T as tf32 hi + lo (tc::split_store<2, float>) in the apply's
+// chunks: piece p of chunk (column tile ct, k atom kc) starts at element
+// ((ct * ka + kc) * 2 + p) * 2048 and holds element (n, k), d = 64 ct + n
+// and m = 32 kc + k, at its swizzled place, zero past the widths.
+__global__ void __launch_bounds__(tc::kSplitThreads)
+la_apply_split_kernel(const float* __restrict__ kvs, int M, int D, float* __restrict__ hl) {
+  constexpr int kPiece = kAwPiece / sizeof(float);
+  const int ka = apply_k_atoms(M);
+  const size_t count = apply_wg_scratch(M, D) / 2;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int chunk = static_cast<int>(i / kPiece);
+    const int n = static_cast<int>(i % kPiece) / 32;
+    const int k = static_cast<int>(i % 32);
+    const int d = chunk / ka * tc::kTcCols + n;
+    const int m = chunk % ka * 32 + k;
+    const size_t off = static_cast<size_t>(chunk) * 2 * kPiece + tc::sw128_offset_f32(n, k) / 4;
+    tc::split_store<2>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + off,
+                       kPiece);
+  }
+}
+
+// the apply's tensor maps: q, v and out rows in [128][32] f32 boxes
+struct AwMaps {
+  CUtensorMap q, v, out;
+};
+
+// the consumers' own barrier (the producer warpgroup has left)
+__device__ __forceinline__ void aw_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kAwConsumers) : "memory");
+}
+
+__global__ void __launch_bounds__(kAwThreads, 1)
+la_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ v, long ldq, long ldv,
+                   float* __restrict__ out, long ldo, int N, int M, int D,
+                   const float* __restrict__ hl, const float* __restrict__ ksum,
+                   const float* __restrict__ scal, const float* __restrict__ n_total, int guard,
+                   int vec_q, int vec_v, int vec_o, const __grid_constant__ AwMaps maps) {
   using namespace tc;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Mk = split_pad(M);
-  const int a_stride = Mk + kPadOf<float>;
-  float* As = reinterpret_cast<float*>(smem_raw);
-  float* Bs = As + static_cast<size_t>(kTcRows) * a_stride;  // [stage][hi, lo][n][k]
-  float* den_s = Bs + 4 * kTfBStage;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const int ka = apply_k_atoms(M);
+  const int tiles = cdiv(D, kTcCols);
+  const int chunks = tiles * ka;
+  unsigned char* Qs = smem_raw;                                          // [ka][128][32]
+  unsigned char* Bs = Qs + static_cast<size_t>(ka) * kAwAtom;            // [stage][hi, lo]
+  unsigned char* Vs = Bs + static_cast<size_t>(kAwStages) * kAwStage;    // [2][128][32]
+  float* den_s = reinterpret_cast<float*>(Vs + 2 * kAwAtom);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(den_s + kTcRows);  // a q atom has landed
+  uint64_t* full = qbar + ka;                                     // a stage has landed
+  uint64_t* empty = full + kAwStages;                             // a stage's MMAs are done
+  uint64_t* vfull = empty + kAwStages;                            // a v tile has landed
+  uint64_t* vempty = vfull + 1;                                   // a tile has left the buffer
+  uint64_t* denbar = vempty + 1;                                  // den is in den_s
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;   // warp's first row in the tile
-  const int wn = (warp >> 2) * 32;  // warp's first column in the column tile
   const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+
+  if (tid == 0) {
+    for (int c = 0; c < ka; ++c) mbar_init(qbar + c, vec_q ? 1 : 2);
+    for (int i = 0; i < kAwStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kAwConsumers / 32);
+    }
+    mbar_init(vfull, 1);
+    mbar_init(vempty, 1);
+    mbar_init(denbar, 2);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kAwConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    const int pw = warp - kAwConsumers / 32;
+    if (pw == 0) {
+      if (lane == 0) {
+        // chunk ch into its stage, once the consumers have freed it
+        auto load_b = [&](int ch) {
+          const int st = ch % kAwStages;
+          if (ch >= kAwStages) mbar_wait(empty + st, (ch / kAwStages - 1) & 1);
+          mbar_arrive_expect_tx(full + st, kAwStage);
+          const float* src = hl + static_cast<size_t>(ch) * 2 * (kAwPiece / sizeof(float));
+          unsigned char* dst = Bs + st * kAwStage;
+          bulk_copy_g2s(dst, src, kAwPiece, full + st);
+          bulk_copy_g2s(dst + kAwPiece, src + kAwPiece / sizeof(float), kAwPiece, full + st);
+        };
+        int ch = 0;
+        if (vec_q) {  // the q atoms, the first chunks between them
+          for (int c = 0; c < ka; ++c) {
+            mbar_arrive_expect_tx(qbar + c, kAwAtom);
+            tma_load_2d(Qs + c * kAwAtom, &maps.q, 32 * c, static_cast<int>(r0), qbar + c);
+            if (ch < kAwStages && ch < chunks) load_b(ch++);
+          }
+        }
+        for (; ch < chunks; ++ch) load_b(ch);
+      }
+    } else if (pw == 1) {  // each column tile's v rows, once the last tile has left
+      for (int t = 0; t < tiles; ++t) {
+        if (t > 0) mbar_wait(vempty, (t - 1) & 1);
+        if (vec_v) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(vfull, 2 * kAwAtom);
+            for (int h = 0; h < 2; ++h) {
+              tma_load_2d(Vs + h * kAwAtom, &maps.v, kTcCols * t + 32 * h, static_cast<int>(r0),
+                          vfull);
+            }
+          }
+        } else {
+          for (int i = lane; i < kTcRows * kTcCols; i += 32) {
+            const int r = i / kTcCols;
+            const int c = i % kTcCols;
+            const int col = kTcCols * t + c;
+            *reinterpret_cast<float*>(Vs + (c >> 5) * kAwAtom + sw128_offset_f32(r, c & 31)) =
+                r0 + r < N && col < D ? v[(r0 + r) * ldv + col] : 0.f;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(vfull);
+        }
+      }
+    } else {  // warps 2 and 3: the q rows where no tensor map reads them, then den
+      const int i0 = tid - kAwConsumers - 64;  // 0 .. 63
+      if (!vec_q) {
+        for (int c = 0; c < ka; ++c) {
+          for (int i = i0; i < kTcRows * 32; i += 64) {
+            const int r = i >> 5;
+            const int col = 32 * c + (i & 31);
+            *reinterpret_cast<float*>(Qs + c * kAwAtom + sw128_offset_f32(r, i & 31)) =
+                r0 + r < N && col < M ? q[(r0 + r) * ldq + col] : 0.f;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(qbar + c);
+        }
+      }
+      for (int c = 0; c < ka; ++c) mbar_wait(qbar + c, 0);
+      const float inv = scal[2];
+      const float n = *n_total;
+      for (int r = i0; r < kTcRows; r += 64) {
+        float b = 0.f;
+        for (int c = 0; c < M; ++c) {
+          const float x =
+              *reinterpret_cast<const float*>(Qs + (c >> 5) * kAwAtom + sw128_offset_f32(r, c & 31));
+          b = fmaf(x, __ldg(ksum + c), b);
+        }
+        const float den = inv * b + n;
+        den_s[r] = guard && den == 0.f ? 1.f : den;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(denbar);
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<232>();
+  constexpr int kSteps = kWgPeriod / 8;  // k8 steps a period: two periods a 32-deep chunk
+  static_assert(kSteps * 2 * 8 == 32, "two periods an atom");
   const float inv = scal[2];
   const float n = *n_total;
-
-  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, Mk, vec_a, tid);
-  __syncthreads();
-  {  // den = inv * (q . ksum) + n, two threads a row (adjacent lanes), f32
-    const int r = tid >> 1;
-    float b = 0.f;
-    for (int c = tid & 1; c < M; c += 2) {
-      b = fmaf(As[static_cast<size_t>(r) * a_stride + c], __ldg(ksum + c), b);
-    }
-    b += __shfl_xor_sync(0xffffffffu, b, 1);
-    const float den = inv * b + n;
-    if ((tid & 1) == 0) den_s[r] = guard && den == 0.f ? 1.f : den;
-  }
-
-  float* Cs = Bs;
-  const size_t piece = split_t_elems(M, D);
-  for (int c0 = 0; c0 < D; c0 += kTcCols) {
-    float acc[2][4][4];
-    tf32_column_tile(acc, As, a_stride, Bs, hl, piece, Mk, c0, tid, lane, wm, wn);
-    tc_tile_to_smem(Cs, acc, lane, wm, wn);
-    // a fixed trip count, unrolled, so that each thread's reads of v are in
-    // flight together
+  const int g = lane >> 2;
+  // the lane's fragment rows 16 * warp + g (+ 8) at k = lane % 4 (+ 4) of each k8 step
+  const int a_off = (16 * warp + g) * 128 + (lane & 3) * 4;
+  const int g16 = g << 4;  // the swizzle of the rows' 16-byte chunks
+  float acc[32], part[2][32];
+  unsigned ah[2][kSteps][4], al[2][kSteps][4];
+  float den_r[2] = {1.f, 1.f};
 #pragma unroll
-    for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int r = i / (kTcCols / 8);
-      const int cs = (i % (kTcCols / 8)) * 8;
-      const long row = r0 + r;
-      const int c = c0 + cs;
-      if (row >= N || c >= D) continue;
-      const int cols = min(8, D - c);
-      const bool vec = vec_io && cols == 8;
-      float a[8], x[8], o[8];
-      tile8(Cs, r, cs, a);
-      load8(v + row * ldv + c, vec, cols, x);
-      const float den = den_s[r];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = (inv * a[e] + n * x[e]) / den;
-      store8(out + row * ldo + c, vec, cols, o);
-    }
-    __syncthreads();  // Cs is the next column tile's B stages
-  }
-}
+  for (int i = 0; i < 32; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
 
-size_t apply_tf32_smem_bytes(int M) {
-  return (static_cast<size_t>(tc::kTcRows) * (tc::split_pad(M) + tc::kPadOf<float>) +
-          4 * tc::kTfBStage + tc::kTcRows) *
-         sizeof(float);
+  // the A fragments of period p of k atom kc, as tf32 hi + lo
+  auto load_a = [&](unsigned (&h)[kSteps][4], unsigned (&l)[kSteps][4], int kc, int p) {
+    const unsigned char* a = Qs + kc * kAwAtom + a_off;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = p * kSteps + ks;  // k8 step of the atom: k from 8 s
+      const int lo16 = ((2 * s) << 4) ^ g16;
+      const int hi16 = ((2 * s + 1) << 4) ^ g16;
+      split_tf32(*reinterpret_cast<const float*>(a + lo16), h[ks][0], l[ks][0]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + lo16), h[ks][1], l[ks][1]);
+      split_tf32(*reinterpret_cast<const float*>(a + hi16), h[ks][2], l[ks][2]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + hi16), h[ks][3], l[ks][3]);
+    }
+  };
+  // period p's MMAs into fresh sums d, B the chunk's atoms at Bh (hi; lo
+  // one piece on)
+  auto issue = [&](float (&d)[32], const unsigned (&h)[kSteps][4],
+                   const unsigned (&l)[kSteps][4], const unsigned char* Bh, int p) {
+    wgmma_fence_operand(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const unsigned char* b = Bh + (p * kSteps + ks) * 32;
+      wgmma_m64n64k8_tf32(d, l[ks], sw128_desc(b), ks);                 // lo*hi', fresh first
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b + kAwPiece), 1);       // hi*lo'
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b), 1);                  // hi*hi'
+    }
+    wgmma_commit();
+  };
+  auto fold = [&](float (&d)[32]) {
+    wgmma_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  };
+  int stored = -1;  // the chunk whose epilogue's store has yet to leave the tile
+  // the store of the last column tile has read the v / out tile: free it
+  auto release = [&]() {
+    if (tid == 0) {
+      bulk_store_wait_read();
+      mbar_arrive(vempty);
+    }
+    stored = -1;
+  };
+  // column tile t's epilogue from acc, at each lane's fragment
+  auto epilogue = [&](int t, int ch) {
+    mbar_wait(vfull, t & 1);
+    if (t == 0) {
+      mbar_wait(denbar, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) den_r[h] = den_s[16 * warp + g + 8 * h];
+    }
+    float rden[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rden[h] = __frcp_rn(den_r[h]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2* p = reinterpret_cast<float2*>(
+            Vs + (j >> 2) * kAwAtom + sw128_offset_f32(16 * warp + g + 8 * h,
+                                                       8 * (j & 3) + 2 * (lane & 3)));
+        const float2 x = *p;
+        *p = make_float2(div_by(inv * acc[4 * j + 2 * h] + n * x.x, den_r[h], rden[h]),
+                         div_by(inv * acc[4 * j + 2 * h + 1] + n * x.y, den_r[h], rden[h]));
+      }
+    fence_proxy_async();  // the tile's next writer may be the copy engine
+    const int c0 = kTcCols * t;
+    if (vec_o) {  // the tile out by the copy engine, clipped to the output
+      aw_consumers_sync();
+      if (tid == 0) {
+        for (int h = 0; h < 2; ++h) {
+          tma_store_2d(&maps.out, c0 + 32 * h, static_cast<int>(r0), Vs + h * kAwAtom);
+        }
+        bulk_store_commit();
+      }
+      stored = ch;
+    } else {  // the warp's own 16 rows
+      __syncwarp();
+      for (int i = lane; i < 16 * kTcCols; i += 32) {
+        const int r = 16 * warp + i / kTcCols;
+        const int c = i % kTcCols;
+        const long row = r0 + r;
+        if (row < N && c0 + c < D) {
+          out[row * ldo + c0 + c] = *reinterpret_cast<const float*>(
+              Vs + (c >> 5) * kAwAtom + sw128_offset_f32(r, c & 31));
+        }
+      }
+      fence_proxy_async();
+      aw_consumers_sync();
+      if (tid == 0) mbar_arrive(vempty);
+    }
+  };
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int kc = ch % ka;
+    const int st = ch % kAwStages;
+    mbar_wait(full + st, (ch / kAwStages) & 1);
+    if (ch < ka) mbar_wait(qbar + kc, 0);
+    fence_proxy_async();
+    const unsigned char* Bh = Bs + st * kAwStage;
+    load_a(ah[0], al[0], kc, 0);
+    issue(part[0], ah[0], al[0], Bh, 0);
+    if (stored >= 0 && ch > stored) release();
+    load_a(ah[1], al[1], kc, 1);
+    issue(part[1], ah[1], al[1], Bh, 1);
+    wgmma_wait<1>();  // the first period is done
+    fold(part[0]);
+    wgmma_wait<0>();
+    fold(part[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+    if (kc == ka - 1) {  // the column tile is done
+      epilogue(ch / ka, ch);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    }
+  }
+  if (vec_o && tid == 0) bulk_store_wait_read();
 }
 
 size_t apply_tc_smem_bytes(int M, int D) {
@@ -808,12 +1081,12 @@ int apply_scratch(int dtype, int M, int D) {
   if (dtype == 1) {
     smem = apply_tc_smem_bytes(M, D);
   } else if (dtype == 0) {
-    smem = apply_tf32_smem_bytes(M);
+    smem = apply_wg_smem_bytes(M);
   } else {
     return 0;
   }
   if (smem > tc::kSmemPerBlock) return 0;
-  return static_cast<int>(2 * tc::split_t_elems(M, D));
+  return static_cast<int>(dtype == 0 ? apply_wg_scratch(M, D) : 2 * tc::split_t_elems(M, D));
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -890,8 +1163,8 @@ extern "C" int sgf_la_apply_scratch(int dtype, int M, int D) {
 // out may be a row-strided view (ldo); n_total is a device float scalar.
 // hl: the scratch of sgf_la_apply_scratch elements of the input type where
 // that is not 0 (the tensor-core designs: tc::split_t_kernel<2>, then
-// la_apply_tc_kernel for bf16 or la_apply_tf32_kernel for f32), else unused
-// (la_apply_kernel).
+// la_apply_tc_kernel for bf16; la_apply_split_kernel, then
+// la_apply_wg_kernel for f32), else unused (la_apply_kernel).
 extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, void* out,
                             long ldo, int N, int M, int D, int dtype, const float* kvs,
                             const float* ksum, const float* scal, const float* n_total,
@@ -916,17 +1189,35 @@ extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, vo
   }
   if (tensor_cores) {  // dtype 0: f32 in 3xTF32
     float* h = static_cast<float*>(hl);
-    cudaError_t err = tc::launch_split_t<2>(kvs, M, D, h, st);
+    const size_t count = apply_wg_scratch(M, D) / 2;
+    const unsigned split_blocks = static_cast<unsigned>(
+        std::min<size_t>((count + tc::kSplitThreads - 1) / tc::kSplitThreads, 1024));
+    la_apply_split_kernel<<<split_blocks, tc::kSplitThreads, 0, st>>>(kvs, M, D, h);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || N == 0) return static_cast<int>(err);
-    const int vec_a = M % 4 == 0 && ldq % 4 == 0 && aligned16(q);
-    const int vec_io = ldv % 4 == 0 && ldo % 4 == 0 && aligned16(v) && aligned16(out);
-    const size_t smem = apply_tf32_smem_bytes(M);
-    err = cudaFuncSetAttribute(la_apply_tf32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    // tensor maps where the copy engine can read the rows (16-byte aligned
+    // bases and row strides), else left empty
+    const int vec_q = ldq % 4 == 0 && aligned16(q);
+    const int vec_v = ldv % 4 == 0 && aligned16(v);
+    const int vec_o = ldo % 4 == 0 && aligned16(out);
+    AwMaps maps = {};
+    struct Rows { CUtensorMap* map; const void* base; int width; long ld; int want; };
+    const Rows rows[3] = {{&maps.q, q, M, ldq, vec_q}, {&maps.v, v, D, ldv, vec_v},
+                          {&maps.out, out, D, ldo, vec_o}};
+    for (const Rows& r : rows) {
+      if (!r.want) continue;
+      err = tc::encode_rows_map(r.map, r.base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), N,
+                                r.width, r.ld, 32, tc::kTcRows);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const size_t smem = apply_wg_smem_bytes(M);
+    err = cudaFuncSetAttribute(la_apply_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    la_apply_tf32_kernel<<<(N + tc::kTcRows - 1) / tc::kTcRows, tc::kTcThreads, smem, st>>>(
+    la_apply_wg_kernel<<<(N + tc::kTcRows - 1) / tc::kTcRows, kAwThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(v), ldq, ldv,
-        static_cast<float*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_a, vec_io);
+        static_cast<float*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_q, vec_v,
+        vec_o, maps);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype == 0) {

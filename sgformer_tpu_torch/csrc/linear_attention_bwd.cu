@@ -984,32 +984,11 @@ constexpr int kWgTile16 = 2 * kWgAtom16;  // a [128][64] tile
 
 // A tensor map of rows [N][width] of bf16, ld elements apart, read in
 // [box_rows][64 columns] boxes into the 128-byte swizzle, zero past N and
-// width: cuTensorMapEncodeTiled, taken from the driver through the runtime.
+// width (tc::encode_rows_map).
 cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int N, int width, long ld,
                             int box_rows = 128) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tc::encode_rows_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), N, width,
+                             ld, 64, box_rows);
 }
 
 // kvs^T as the rows pass reads it: three bf16 pieces (hi, mid, lo, as
@@ -1675,16 +1654,6 @@ la_bwd_split_tiles_kernel(const float* __restrict__ kvs, const float* __restrict
   }
 }
 
-// x / d correctly rounded from r = 1/d correctly rounded (Markstein: the
-// quotient q = x * r corrected once by its residual, exact by an FMA), as
-// x / d gives it without over- or underflow: the epilogue divides every
-// element by its row's den, which as a division compiles to a dozen
-// instructions and set the epilogue's time.
-__device__ __forceinline__ float div_by(float x, float d, float r) {
-  const float q = x * r;
-  return fmaf(fmaf(-q, d, x), r, q);
-}
-
 // The apply. grid (ceil(N / 128)), 128 rows a block. Its three products
 // (dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M), each over
 // 128-column tiles of its output, run as one stream of 64-deep chunks: a
@@ -1955,11 +1924,11 @@ la_bwd_apply_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             for (int e = 0; e < 2; ++e) {
               const float a = acc[4 * j + 2 * h + e];
               if constexpr (kWhich == 0) {
-                o[e] = inv * div_by(a, den_r[h], rden_r[h]) + inv * gden_r[h] * col[e] - c_q * x[e];
+                o[e] = inv * tc::div_by(a, den_r[h], rden_r[h]) + inv * gden_r[h] * col[e] - c_q * x[e];
               } else if constexpr (kWhich == 1) {
                 o[e] = inv * a + inv * col[e] - c_k * x[e];
               } else {
-                o[e] = n * div_by(x[e], den_r[h], rden_r[h]) + inv * a;
+                o[e] = n * tc::div_by(x[e], den_r[h], rden_r[h]) + inv * a;
               }
             }
             *p = __floats2bfloat162_rn(o[0], o[1]);

@@ -155,20 +155,27 @@
 // (its 43 MB table nearly fits) and partly from device memory at
 // large-400K (102 MB).
 //
-// Design: csr_spmm's row walk, one warp per row, edge ids read 32 at a
-// time and shuffled; each lane loads 8 int8 (8 bytes, 256 columns a warp
-// pass; one byte for F % 8 != 0 or unaligned rows) and keeps int32 sums.
+// Design: csr_spmm's row walk, one warp per row in the graph's walk order
+// (Graph.schedule, as csr_spmm walks), edge ids read 32 at a time and
+// shuffled; each lane loads 8 int8 (8 bytes, 256 columns a warp pass; one
+// byte for F % 8 != 0 or unaligned rows) and keeps int32 sums. The order
+// took the walk at large-400K (a 102 MB table, twice L2) from 10.4 to 15.0
+// G rows/s on the H100; a half-warp an edge with 16-byte gathers, the bytes
+// summed in 16-bit halves of words (fewer instructions, 48 registers
+// against 32) and csr_spmm's persistent prefetching walkers were each
+// slower in that order (PERF.md §6).
 // Hub rows are split as in csr_spmm, but by a launch of their own: a warp a
 // segment writes int32 partials (127 * HUB_EDGES fits with room to spare)
 // and the segment's self weight, the row walk leaves those rows out (its
 // registers stay the unsplit walk's, with no spills), and a third launch
-// adds the partials and runs the epilogue. On the H100 neither a half-warp an
-// edge with 16-byte gathers and four loads in flight a lane, nor column
-// slices sized for L2, was worth its code (PERF.md §6, row 5b): the random
-// gathers set the time. Integer sums make the result bitwise the same for
-// any edge order or split; the epilogue uses round-to-nearest products and
-// add without contraction, in the plain version's order. Any F (the TPU's
-// padding of F to 128 is a Mosaic constraint).
+// adds the partials and runs the epilogue. In node order neither a
+// half-warp an edge with 16-byte gathers and four loads in flight a lane,
+// nor column slices sized for L2, was worth its code (PERF.md §6, row 5b):
+// the random gathers set the time. Integer sums make the result bitwise the
+// same for any edge order, walk order or split; the epilogue uses
+// round-to-nearest products and add without contraction, in the plain
+// version's order. Any F (the TPU's padding of F to 128 is a Mosaic
+// constraint).
 //
 // quantize_absmax is the absmax quantiser of _apply_side (slab_spmm.py:
 // 380-394), which the JAX package leaves to XLA outside the pallas_call:
@@ -893,20 +900,24 @@ csr_spmm_q8_seg_kernel(const int* __restrict__ src, const float* __restrict__ v,
   }
 }
 
-// A warp a row: 256 columns a pass with 8-byte loads, else 32. A row of
-// more than max_edges edges is left to its hub segments.
+// The row walk, in the walk order: warp p takes row schedule[p] (row p
+// when schedule is null), written in place; 256 columns a pass with 8-byte
+// loads, else 32. A row of more than max_edges edges is left to its hub
+// segments. The order keeps a cluster's rows together, so the warps in
+// flight gather from rows that L2 holds.
 template <typename TOut, bool kVec8>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_spmm_q8_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                    const float* __restrict__ v, const int8_t* __restrict__ q,
                    const __nv_bfloat16* __restrict__ xb, const float* __restrict__ rs,
                    const float* __restrict__ absmax, TOut* __restrict__ out, int max_edges,
-                   int n_rows, int F) {
+                   int n_rows, int F, const int* __restrict__ schedule) {
   constexpr int kPer = kVec8 ? 8 : 1;
   constexpr int kPass = 32 * kPer;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the whole warp leaves together
+  const int w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_rows) return;  // the whole warp leaves together
+  const int row = schedule != nullptr ? __ldg(schedule + w) : w;
   const int start = indptr[row];
   const int end = indptr[row + 1];
   if (end - start > max_edges) return;
@@ -954,7 +965,7 @@ template <typename TOut, bool kVec8>
 cudaError_t launch_q8(const int* indptr, const int* src, const float* v, const int8_t* q,
                       const __nv_bfloat16* xb, const float* rs, const float* absmax, void* out,
                       const int* seg, int n_seg, int* part, float* wpart, int max_edges,
-                      int n_rows, int F, cudaStream_t st) {
+                      int n_rows, int F, const int* schedule, cudaStream_t st) {
   TOut* o = static_cast<TOut*>(out);
   const dim3 block(kWarpsPerBlock * 32);
   if (n_seg > 0) {
@@ -962,7 +973,7 @@ cudaError_t launch_q8(const int* indptr, const int* src, const float* v, const i
                                                                       wpart, F);
   }
   csr_spmm_q8_kernel<TOut, kVec8><<<grid_for(n_rows), block, 0, st>>>(
-      indptr, src, v, q, xb, rs, absmax, o, max_edges, n_rows, F);
+      indptr, src, v, q, xb, rs, absmax, o, max_edges, n_rows, F, schedule);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 0) return err;
   csr_spmm_q8_hub_kernel<TOut><<<grid_for(n_seg), block, 0, st>>>(seg, n_seg, part, wpart, xb,
@@ -1240,14 +1251,15 @@ extern "C" int sgf_csr_spmm(const void* indptr, const void* src, const void* v,
 // q int8 and xb bf16, [N, F]; v, rs and the absmax f32; out in out_dtype.
 // vec8: F % 8 == 0 and 16-byte aligned rows. seg, n_seg and max_edges:
 // the hub plan, as in sgf_csr_spmm; part: int32 scratch [n_seg, F] and
-// wpart f32 [n_seg] (unused when n_seg is 0). Launches csr_spmm_q8_kernel,
-// and when there are hub rows csr_spmm_q8_seg_kernel before it and
-// csr_spmm_q8_hub_kernel after it.
+// wpart f32 [n_seg] (unused when n_seg is 0). schedule: the walk order, as
+// in sgf_csr_spmm (null: row order); the result does not depend on it.
+// Launches csr_spmm_q8_kernel, and when there are hub rows
+// csr_spmm_q8_seg_kernel before it and csr_spmm_q8_hub_kernel after it.
 extern "C" int sgf_csr_spmm_q8(const void* indptr, const void* src, const void* v,
                                const void* q, const void* xb, const void* rs,
                                const void* absmax, void* out, const void* seg, int n_seg,
                                void* part, void* wpart, int max_edges, int n_rows, int F,
-                               int out_dtype, int vec8, void* stream) {
+                               int out_dtype, int vec8, const void* schedule, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
   const float* vp = static_cast<const float*>(v);
@@ -1258,20 +1270,21 @@ extern "C" int sgf_csr_spmm_q8(const void* indptr, const void* src, const void* 
   const int* sg = static_cast<const int*>(seg);
   int* pp = static_cast<int*>(part);
   float* wp = static_cast<float*>(wpart);
+  const int* so = static_cast<const int*>(schedule);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (out_dtype == 0 && vec8) {
     err = launch_q8<float, true>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp, max_edges,
-                                 n_rows, F, st);
+                                 n_rows, F, so, st);
   } else if (out_dtype == 0) {
     err = launch_q8<float, false>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp, max_edges,
-                                  n_rows, F, st);
+                                  n_rows, F, so, st);
   } else if (out_dtype == 1 && vec8) {
     err = launch_q8<__nv_bfloat16, true>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp,
-                                         max_edges, n_rows, F, st);
+                                         max_edges, n_rows, F, so, st);
   } else if (out_dtype == 1) {
     err = launch_q8<__nv_bfloat16, false>(ip, sp, vp, qp, xp, rp, ap, out, sg, n_seg, pp, wp,
-                                          max_edges, n_rows, F, st);
+                                          max_edges, n_rows, F, so, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

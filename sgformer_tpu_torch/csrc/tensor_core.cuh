@@ -10,7 +10,8 @@
 //   with A from registers and B from the same swizzle over f32 rows (the
 //   f32 backward apply's and rows pass's); mbarriers, the copy engine's
 //   (TMA) bulk and tensor-map copies between device and shared memory, and
-//   setmaxnreg (the bf16 backward's warp-specialised kernels);
+//   setmaxnreg (the warp-specialised kernels: the bf16 backward, the f32
+//   forward apply);
 // - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
 //   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
 //   kernels');
@@ -22,11 +23,12 @@
 //   forward reduce and P = q^T (g / den) of the backward reduce: the
 //   [N, M]^T x [N, D] product that the TPU kernels accumulate over their
 //   sequential grid and that the card splits over slices of N;
-// - the row kernels' cores for f32 A rows in 3xTF32: A rows staged once, a
-//   split B streamed in 64-deep chunks, a 128 x 64 output tile at a time,
-//   on mma.sync (tf32_column_tile: the f32 forward apply) or on warpgroup
-//   MMAs (wg_column_tile: the f32 backward apply and rows pass); and the
-//   epilogue's staged tile and 8-column row accesses.
+// - the row kernels' core for f32 A rows in 3xTF32 on warpgroup MMAs: A
+//   rows staged once, a split B streamed in 64-deep chunks, a 128 x 64
+//   output tile at a time (wg_column_tile: the f32 backward apply and rows
+//   pass); the epilogue's staged tile and 8-column row accesses; the
+//   division by a row's reciprocal (div_by) and the tensor maps of row
+//   tiles (encode_rows_map).
 //
 // Both operands are node-major, so the MMA's A fragment (row-major m x k)
 // and B fragment ("col", k x n) are each the transpose of what shared memory
@@ -36,6 +38,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -160,6 +163,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int x, 
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(x), "r"(y), "r"(smem_addr(bar))
       : "memory");
+}
+
+// A tensor map of rows [N][width] of `type` (elem_bytes each), ld elements
+// apart, read and written in [box_rows][box_cols] boxes in the 128-byte
+// swizzle (a box row of 128 bytes), zero past N and width on loads and
+// clipped there on stores: cuTensorMapEncodeTiled, taken from the driver
+// through the runtime. The rows' base and ld * elem_bytes must be multiples
+// of 16 bytes.
+inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                                   int elem_bytes, int N, int width, long ld, int box_cols,
+                                   int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// x / d correctly rounded from r = 1/d correctly rounded (Markstein: the
+// quotient q = x * r corrected once by its residual, exact by an FMA), as
+// x / d gives it without over- or underflow: an epilogue that divides every
+// element by its row's den pays a dozen instructions an element for the
+// division.
+__device__ __forceinline__ float div_by(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,14 +667,12 @@ cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t s
 }
 
 // ---------------------------------------------------------------------------
-// The row kernels' core (the backward apply and rows pass, the f32 forward
-// apply): a block owns kTcRows rows of an A operand staged in shared memory
-// and forms A @ B^T kTcCols output columns at a time. B is a split operand,
-// n-major ([n][k], contiguous in k), as split_t_kernel writes it. On
-// mma.sync (bf16, and the f32 forward apply's tf32_column_tile) 8 warps in
-// a 4 x 2 grid of 32 x 32 warp tiles (2 m16 x 4 n8 MMA tiles each); on
-// warpgroup MMAs (wg_column_tile, the f32 backward apply and rows pass) two
-// warpgroups of 64 rows, each warp's 16 rows across all kTcCols columns.
+// The row kernels' core (the f32 backward apply and rows pass): a block
+// owns kTcRows rows of an A operand staged in shared memory and forms A @
+// B^T kTcCols output columns at a time. B is a split operand, n-major
+// ([n][k], contiguous in k), as split_t_kernel writes it. On warpgroup MMAs
+// (wg_column_tile) two warpgroups of 64 rows, each warp's 16 rows across
+// all kTcCols columns.
 
 constexpr int kTcRows = 128;
 constexpr int kTcCols = 64;
@@ -638,10 +683,8 @@ constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
 // The f32 (3xTF32) forms: a shared A row is padded by 16 bytes, so that a
 // row is 4 banks past the one above it and the 32 addresses of a tf32
 // fragment load (rows lane / 4, columns lane % 4) fall in distinct banks; a
-// B chunk is kTfK f32 deep, with the same 16-byte pad.
+// B chunk is kTfK f32 deep.
 constexpr int kTfK = 64;
-constexpr int kTfBStride = kTfK + kPadOf<float>;
-constexpr int kTfBStage = kTcCols * kTfBStride;  // f32 of one piece's chunk
 // the f32 output tile of an epilogue, rows padded so that the fragment
 // stores hit distinct banks
 constexpr int kCsStride = kTcCols + 4;
@@ -680,133 +723,6 @@ __device__ __forceinline__ void tc_stage_rows(T* As, int a_stride, const T* __re
   }
 }
 
-// The column tile for f32 A rows, in 3xTF32: acc = As [kTcRows][Kp] (f32) @
-// B^T for the output columns [c0, c0 + kTcCols), with B the split operand
-// [n][Kp] as tf32 hi (at B_hi) and lo (B_hi + lo_off), streamed in
-// kTfK-deep chunks, double-buffered by cp.async in Bs ([stage][hi, lo][n][k],
-// rows kTfBStride apart). The A fragments are split into tf32 hi + lo as
-// they load (fragment element (row, k) from As[row][k]; B's (k, n) from
-// B[n][k]), and each product is lo*hi + hi*lo + hi*hi, the two small cross
-// terms first. Every 16 deep (two k8 steps) the products go into fresh
-// sums, added to acc with f32 round-to-nearest adds, so that the tensor
-// cores' own accumulation, which may truncate, never chains more than one
-// such step. Ends with a barrier, after which Bs is free.
-__device__ __forceinline__ void tf32_column_tile(float (&acc)[2][4][4], const float* As,
-                                                 int a_stride, float* Bs,
-                                                 const float* __restrict__ B_hi, size_t lo_off,
-                                                 int Kp, int c0, int tid, int lane, int wm,
-                                                 int wn) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // one chunk: [kTcCols][kTfK] of hi and of lo, 16 bytes a copy
-  auto load_b = [&](int kc, int stage) {
-    constexpr int kSegs = kTfK / 4;
-    constexpr int kCopies = 2 * kTcCols * kSegs;
-    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
-#pragma unroll
-    for (int it = 0; it < kCopies / kTcThreads; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int piece = i / (kTcCols * kSegs);
-      const int row = (i / kSegs) % kTcCols;
-      const int seg = (i % kSegs) * 4;
-      const float* src =
-          B_hi + piece * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTfK + seg;
-      cp_async16(Bs + (stage * 2 + piece) * kTfBStage + row * kTfBStride + seg, src);
-    }
-    cp_async_commit();
-  };
-
-  const int gr = lane >> 2;  // the fragment's row of A, column of B
-  const int gk = lane & 3;   // its k
-  const int chunks = Kp / kTfK;
-  load_b(0, 0);
-  for (int kc = 0; kc < chunks; ++kc) {
-    if (kc + 1 < chunks) {
-      load_b(kc + 1, (kc + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Bh = Bs + (kc & 1) * 2 * kTfBStage;
-    const float* Bl = Bh + kTfBStage;
-#pragma unroll
-    for (int ks = 0; ks < kTfK; ks += 16) {
-      float part[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-      for (int k8 = ks; k8 < ks + 16; k8 += 8) {
-        unsigned ah[2][4], al[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* ap =
-              As + static_cast<size_t>(wm + mt * 16 + gr) * a_stride + kc * kTfK + k8 + gk;
-          split_tf32(ap[0], ah[mt][0], al[mt][0]);
-          split_tf32(ap[8 * a_stride], ah[mt][1], al[mt][1]);
-          split_tf32(ap[4], ah[mt][2], al[mt][2]);
-          split_tf32(ap[8 * a_stride + 4], ah[mt][3], al[mt][3]);
-        }
-        unsigned bh[4][2], bl[4][2];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int off = (wn + nt * 8 + gr) * kTfBStride + k8 + gk;
-          bh[nt][0] = __float_as_uint(Bh[off]);
-          bh[nt][1] = __float_as_uint(Bh[off + 4]);
-          bl[nt][0] = __float_as_uint(Bl[off]);
-          bl[nt][1] = __float_as_uint(Bl[off + 4]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_tf32(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
-    }
-    __syncthreads();  // this stage is refilled two chunks on
-  }
-}
-
-// The column tile into Cs [kTcRows][kCsStride] (over the B stages), followed
-// by a barrier. acc[mt][nt] = {(r, c), (r, c+1), (r+8, c), (r+8, c+1)}.
-__device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2][4][4], int lane,
-                                                int wm, int wn) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = wm + mt * 16 + (lane >> 2) + half * 8;
-        const int c = wn + nt * 8 + (lane & 3) * 2;
-        *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
-            make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-      }
-  __syncthreads();
-}
-
 // The column tile for f32 A rows in 3xTF32 on warpgroup MMAs (wgmma
 // m64n64k8 tf32): acc = As [kTcRows][Kp] (f32, rows a_stride apart) @ B^T
 // for the output columns [c0, c0 + kTcCols), warpgroup w's rows 64w .. 64w
@@ -816,7 +732,7 @@ __device__ __forceinline__ void tc_tile_to_smem(float* Cs, const float (&acc)[2]
 // kWgBBytes: [stage][hi, lo][atom][kTcCols][32], 128-byte swizzled), and
 // read by the MMAs through descriptors.
 //
-// What bound the mma.sync core (tf32_column_tile) was issue: three m16n8k8
+// What bound the f32 mma.sync core this replaced was issue: three m16n8k8
 // MMAs and two fragment loads of B a product of 16 x 8 x 8, and the split of
 // each A fragment reused over a warp tile's 32 columns. Here one wgmma forms
 // a 64 x 64 x 8 product with B read through a descriptor, and each A

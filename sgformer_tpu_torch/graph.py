@@ -195,7 +195,7 @@ class Graph:
             plans = (plans[0], plans[0])
         if self.slab_dtype == "int8":
             return _spmm_kernel.csr_spmm_q8_autograd(x, csr, csr_t, self.rs, *plans,
-                                                     self.hub_edges)
+                                                     self.hub_edges, *self.walk_orders)
         return _spmm_kernel.csr_spmm_autograd(x, csr, csr_t, *plans, self.hub_edges,
                                               *self.walk_orders)
 

@@ -49,7 +49,7 @@ _SIGNATURES = {
                                 _I, _I, _I, _P, _P],
         "sgf_sddmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "sgf_csr_spmm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                            _I, _I, _P],
+                            _I, _I, _P, _P],
         "sgf_quantize_absmax": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     },
     "linear_attention": {

@@ -34,10 +34,10 @@ operands read node-major) and :func:`bwd_apply`'s three products
 three backward kernels are fed by the copy engine (TMA) from a producer
 warp. On f32 inputs every kernel runs in 3xTF32 (each f32 operand split
 into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums): on
-mma.sync m16n8k8 tf32 the reduce
-(``la_reduce_tf32_kernel``), the apply (``la_apply_tf32_kernel``) and the
+mma.sync m16n8k8 tf32 the reduce (``la_reduce_tf32_kernel``) and the
 backward reduce's P pass (``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs
-(wgmma m64n64k8 tf32, A from registers) the backward reduce's rows pass
+(wgmma m64n64k8 tf32, A from registers) the apply (``la_apply_wg_kernel``,
+fed by TMA from a producer warpgroup), the backward reduce's rows pass
 (``la_bwd_rows_wg_kernel``) and the backward apply
 (``la_bwd_apply_wg_kernel``). Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
@@ -277,7 +277,8 @@ def apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _apply_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return "tensor cores (mma.sync 3xTF32: q and kvs as tf32 hi + lo, f32 sums)"
+        return ("tensor cores (wgmma 3xTF32: q and kvs as tf32 hi + lo, f32 sums; "
+                "la_apply_wg_kernel, fed by TMA from a producer warpgroup)")
     return "tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums)"
 
 

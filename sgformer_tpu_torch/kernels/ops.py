@@ -72,8 +72,8 @@ def quantize_absmax(x: torch.Tensor, rs: torch.Tensor) -> tuple[torch.Tensor, to
 def csr_spmm_q8_apply(q: torch.Tensor, s: torch.Tensor, x_self: torch.Tensor,
                       indptr: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tensor,
                       weight: torch.Tensor, rs: torch.Tensor, out_dtype: torch.dtype,
-                      segments: Optional[torch.Tensor],
-                      segment_edges: Optional[int]) -> torch.Tensor:
+                      segments: Optional[torch.Tensor], segment_edges: Optional[int],
+                      schedule: Optional[torch.Tensor] = None) -> torch.Tensor:
     return spmm_q8_apply(q, s, x_self, edge_src, edge_dst, weight, rs, indptr.shape[0] - 1,
                          out_dtype)
 
@@ -117,7 +117,7 @@ def _(x, rs):
 
 @csr_spmm_q8_apply.register_fake
 def _(q, s, x_self, indptr, edge_src, edge_dst, weight, rs, out_dtype, segments,
-      segment_edges):
+      segment_edges, schedule=None):
     return q.new_empty(q.shape, dtype=out_dtype)
 
 

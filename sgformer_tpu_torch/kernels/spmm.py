@@ -63,7 +63,8 @@ back to check), since one built for a longer segment would leave the rows
 between the two lengths unwritten.
 
 The row walk (``csrc/spmm.cu``'s ``csr_spmm_kernel``, :data:`ROW_WALK`):
-:func:`csr_spmm` and :func:`csr_spmm_ev` take a walk order, ``schedule``
+:func:`csr_spmm`, :func:`csr_spmm_ev` and :func:`csr_spmm_q8` (and
+:func:`csr_spmm_q8_apply`) take a walk order, ``schedule``
 ([rows] int32, a permutation of the CSR's rows, built once per graph by
 ``preprocess_graph`` from the clustering of :mod:`sgformer_tpu_torch.native.
 reorder`, ``Graph.schedule``), and walk the rows in that order, each
@@ -73,7 +74,10 @@ columns walk on persistent warps, as many as the card holds, that read the
 row pointers of 32 rows at once and prefetch each next row's edge ids and
 values into L1 while they gather for the current one. On CPU tensors the
 order is checked and then ignored. :func:`csr_spmm_ev_bwd` takes the
-transposed CSR's (``t_schedule``) for its row walk.
+transposed CSR's (``t_schedule``) for its row walk, and the int8 gradient
+(:func:`csr_spmm_q8_autograd`) walks Aᵀ in it. The int8 walk
+(:data:`Q8_WALK`) sums integers, so its result is the same bit for bit in
+any order.
 
 ``launches``, ``ev_launches``, ``ev_bwd_launches``, ``sddmm_launches``,
 ``q8_launches`` and ``quantize_launches`` count the calls that launched
@@ -120,6 +124,9 @@ ROW_WALK = ("rows in the graph's walk order (its clusters together, so L2 holds 
             "gather); heads of at most 128 columns on persistent warps, as many as the card "
             "holds, that read 32 rows' pointers at once into shared memory and prefetch each "
             "next row's edge ids and values into L1 while they gather for the row")
+# csr_spmm_q8's walk (csrc/spmm.cu, csr_spmm_q8_kernel)
+Q8_WALK = ("rows in the graph's walk order, one warp a row, 8-byte gathers (8 columns a "
+           "lane), exact int32 sums")
 
 
 def hub_plan(indptr: torch.Tensor, max_edges: int = HUB_EDGES) -> torch.Tensor:
@@ -419,6 +426,7 @@ def csr_spmm_q8_apply(
     out_dtype: torch.dtype,
     segments: torch.Tensor | None = None,
     segment_edges: int | None = None,
+    schedule: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel of :func:`csr_spmm_q8` on rows already quantised:
     ``out[i] = ((acc[i] * (s/127)) * rs[i]) + w_self[i] * x_self[i]`` with
@@ -428,8 +436,10 @@ def csr_spmm_q8_apply(
     q: [N, F] int8; s: 0-d float32 (read by the kernel from the device);
     x_self: [N, F] bfloat16; rs: [N] float32; weight: [E] float32, read at
     self edges only. ``segments`` and ``segment_edges``: the CSR's hub plan
-    and its segment length, as in :func:`csr_spmm`. The result is [N, F]
-    of ``out_dtype`` (float32 or bfloat16). Plain version
+    and its segment length, ``schedule`` its walk order, as in
+    :func:`csr_spmm`; the integer sums make the result the same bit for bit
+    in any order. The result is [N, F] of ``out_dtype`` (float32 or
+    bfloat16). Plain version
     :func:`sgformer_tpu_torch.ops.spmm.spmm_q8_apply`. Runs the op
     ``sgformer_tpu_torch::csr_spmm_q8_apply``.
     """
@@ -444,12 +454,13 @@ def csr_spmm_q8_apply(
         raise ValueError(f"rs must be [{n}] and s one value")
     _segment_length(segments, segment_edges)
     _check_device(q, s, x_self, indptr, edge_src, edge_dst, weight, rs)
+    _check_schedule(schedule, indptr)
     return _OPS.csr_spmm_q8_apply(q, s, x_self, indptr, edge_src, edge_dst, weight, rs,
-                                  out_dtype, segments, segment_edges)
+                                  out_dtype, segments, segment_edges, schedule)
 
 
 def csr_spmm_q8_apply_cuda(q, s, x_self, indptr, edge_src, edge_dst, weight, rs, out_dtype,
-                           segments, segment_edges):
+                           segments, segment_edges, schedule=None):
     """The CUDA implementation of the op :func:`csr_spmm_q8_apply` runs."""
     global q8_launches
     n = indptr.shape[0] - 1
@@ -471,6 +482,7 @@ def csr_spmm_q8_apply_cuda(q, s, x_self, indptr, edge_src, edge_dst, weight, rs,
             segments.data_ptr() if n_seg else None, n_seg,
             part.data_ptr() if n_seg else None, wpart.data_ptr() if n_seg else None, length, n,
             f, _DTYPES[out_dtype], _aligned(f, q, x_self, out),
+            schedule.data_ptr() if schedule is not None else None,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
         _build.check(err, "csr_spmm_q8")
@@ -487,6 +499,7 @@ def csr_spmm_q8(
     rs: torch.Tensor,
     segments: torch.Tensor | None = None,
     segment_edges: int | None = None,
+    schedule: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The int8 GCN aggregation of a graph whose weights factor as
     ``weight[e] = rs[src_e] * rs[dst_e]`` (self edges aside):
@@ -498,8 +511,8 @@ def csr_spmm_q8(
     scalar s, no host sync), then the aggregation kernel: two ops,
     ``quantize_absmax`` and ``csr_spmm_q8_apply``. x: [N, F] float32 or
     bfloat16 (any F); the result has x's type. ``segments`` and
-    ``segment_edges``: the CSR's hub plan and its segment length, as in
-    :func:`csr_spmm`. On CPU tensors the two plain versions make the plain
+    ``segment_edges``: the CSR's hub plan and its segment length,
+    ``schedule`` its walk order, as in :func:`csr_spmm`. On CPU tensors the two plain versions make the plain
     :func:`sgformer_tpu_torch.ops.spmm.spmm_q8`."""
     n = indptr.shape[0] - 1
     if x.dim() != 2 or x.shape[0] != n:
@@ -508,9 +521,10 @@ def csr_spmm_q8(
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     _segment_length(segments, segment_edges)
     _check_device(x, indptr, edge_src, edge_dst, weight, rs)
+    _check_schedule(schedule, indptr)
     q, s = quantize_absmax(x, rs)
     return csr_spmm_q8_apply(q, s, x.to(torch.bfloat16), indptr, edge_src, edge_dst, weight,
-                             rs, x.dtype, segments, segment_edges)
+                             rs, x.dtype, segments, segment_edges, schedule)
 
 
 def _check_ev_operands(g, x, n):
@@ -748,34 +762,39 @@ class CsrSpmmQ8Function(torch.autograd.Function):
     ``_slab_core`` custom VJP defines it on an int8 plan: the backward
     quantises g with its own absmax, pre-scaled by the same ``rs`` (the
     transposed weights factor the same way), and runs :func:`csr_spmm_q8` on
-    the transposed CSR (A's own when A is symmetric) with its hub plan. Only
-    x gets a gradient."""
+    the transposed CSR (A's own when A is symmetric) with its hub plan and
+    walk order. Only x gets a gradient."""
 
     @staticmethod
     def forward(ctx, x, indptr, edge_src, edge_dst, weight, segments,
-                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, rs, segment_edges):
+                t_indptr, t_edge_src, t_edge_dst, t_weight, t_segments, rs, segment_edges,
+                schedule, t_schedule):
         ctx.transpose = (t_indptr, t_edge_src, t_edge_dst, t_weight, rs, t_segments,
-                         segment_edges)
-        return csr_spmm_q8(x, indptr, edge_src, edge_dst, weight, rs, segments, segment_edges)
+                         segment_edges, t_schedule)
+        return csr_spmm_q8(x, indptr, edge_src, edge_dst, weight, rs, segments, segment_edges,
+                           schedule)
 
     @staticmethod
     def backward(ctx, g):
         dx = csr_spmm_q8(g.contiguous(), *ctx.transpose)
-        return (dx,) + (None,) * 12
+        return (dx,) + (None,) * 14
 
 
 def csr_spmm_q8_autograd(x: torch.Tensor, csr: tuple, csr_t: tuple, rs: torch.Tensor,
                          segments: torch.Tensor | None = None,
                          t_segments: torch.Tensor | None = None,
-                         segment_edges: int | None = None) -> torch.Tensor:
+                         segment_edges: int | None = None,
+                         schedule: torch.Tensor | None = None,
+                         t_schedule: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`csr_spmm_q8` of ``x`` on ``csr`` = (indptr, edge_src,
     edge_dst, weight) with the separable factor ``rs``, differentiable in x;
     ``csr_t`` is the CSR of A^T in the same form (``csr`` itself when A is
     symmetric); ``segments`` and ``t_segments`` their hub plans, both of
-    segments of ``segment_edges`` (built from indptr when None). Where
-    autograd does not record it is one :func:`csr_spmm_q8` and saves
+    segments of ``segment_edges`` (built from indptr when None),
+    ``schedule`` and ``t_schedule`` their walk orders (None: row order).
+    Where autograd does not record it is one :func:`csr_spmm_q8` and saves
     nothing."""
     if torch.is_grad_enabled() and x.requires_grad:
         return CsrSpmmQ8Function.apply(x, *csr, segments, *csr_t, t_segments, rs,
-                                       segment_edges)
-    return csr_spmm_q8(x, *csr, rs, segments, segment_edges)
+                                       segment_edges, schedule, t_schedule)
+    return csr_spmm_q8(x, *csr, rs, segments, segment_edges, schedule)

@@ -819,8 +819,8 @@ def test_tf32_backward_accumulation_at_n_one(period):
     here ~3e-8 of its sums' magnitude off (~4e-4 of itself: the sums cancel
     to ~1e-4 of their size), so the 1e-6 and 1e-10 that the split alone
     keeps do not hold for the tensor cores' sums, at this period or any
-    other (``tc::tf32_column_tile``, on mma.sync, sums in the same order
-    and 16 deep too)."""
+    other (the f32 forward apply, ``la_apply_wg_kernel``, sums in the same
+    order and 16 deep too)."""
     _, dinv_sums, dq, dk, dv = _accumulation_errors(32, True, period)
     assert dinv_sums <= 2.0 ** -14
     assert max(dq, dk, dv) <= 1e-5 if period == _WG_PERIOD else max(dq, dk) > 1e-5
@@ -992,7 +992,7 @@ def test_tf32_backward_matches_jax_pallas_interpret(masked):
 
 def _tf32_forward(q, k, v, n_total, guard=False, lo=True):
     """The f32 forward reduce (``la_reduce_tf32_kernel``) and apply
-    (``la_apply_tf32_kernel``) in 3xTF32: kvs = kᵀv through
+    (``la_apply_wg_kernel``) in 3xTF32: kvs = kᵀv through
     :func:`_mm_3xtf32` (returned in f64), ksum and the norms in f64 rounded
     to f32, as the reduce's column sums are; then a = q @ kvs through
     :func:`_mm_3xtf32` on the f32 kvs, b = q . ksum, and the apply's

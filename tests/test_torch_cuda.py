@@ -548,15 +548,61 @@ def test_all_masked_attention_gradients_are_finite_zeros(cuda):
 def test_apply_design_names_the_kernel(cuda):
     """The forward apply runs on the tensor cores at the bench width and
     wherever its q tile fits one block's shared memory: bf16 by wgmma up to
-    M = 704, f32 in 3xTF32 up to M = 256 (at any D); beyond that on the CUDA
-    cores."""
+    M = 704, f32 in 3xTF32 by wgmma (``la_apply_wg_kernel``) up to M = 256
+    (at any D); beyond that on the CUDA cores."""
     for m, d in ((256, 256), (8, 72), (704, 40)):
         assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores (wgmma")
         f32 = attn.apply_design(torch.float32, m, d)
-        assert f32.startswith("tensor cores (mma.sync 3xTF32") == (m <= 256), f32
-    assert attn.apply_design(torch.float32, 256, 999).startswith("tensor cores (mma.sync 3xTF32")
+        assert f32.startswith("tensor cores (wgmma 3xTF32") == (m <= 256), f32
+        assert ("la_apply_wg_kernel" in f32) == (m <= 256), f32
+    assert attn.apply_design(torch.float32, 256, 999).startswith("tensor cores (wgmma 3xTF32")
     assert attn.apply_design(torch.float32, 257, 64).startswith("CUDA cores")
     assert attn.apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (37, 36), (200, 37), (8, 999), (256, 40)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+def test_f32_wgmma_forward_apply_on_views(cuda, m, d, view):
+    """The f32 apply on warpgroup MMAs fed by the copy engine, with tail rows
+    (N = 777), on q and v as they come: contiguous, head 1 of [N, 2, w + 4]
+    (16-byte aligned rows and base: tensor maps that clip at an odd width,
+    so a box never reads the next head's columns), head 1 of [N, 2, w + 3]
+    (strides no tensor map takes: the producer's lanes copy the rows) and
+    rows one element off 16-byte alignment; out as the op allocates it
+    (tensor-map stores where D % 4 == 0, clipped to D) and as a strided
+    view. Against ``apply_plain`` in f64 at the f32 tolerance, bitwise
+    repeatable, one launch a call."""
+    n = 777
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+
+    def rows(w):
+        if view == "contiguous":
+            return torch.randn(n, w, generator=gen, device=cuda)
+        if view == "unaligned":
+            return torch.randn(n * w + 1, generator=gen, device=cuda)[1:].view(n, w)
+        pad = 4 if view == "aligned head" else 3
+        return torch.randn(n, 2, w + pad, generator=gen, device=cuda)[:, 1, :w]
+
+    q, k, v = rows(m), rows(m), rows(d)
+    sums = attn.reduce_plain(q, k, v, False)
+    n_t = torch.full((), float(n), device=cuda)
+    want = attn.apply_plain(*(t.double() for t in (q, v, *sums, n_t)), False)
+    a0 = attn.apply_launches
+    got = attn.apply(q, v, *sums, n_t)
+    assert attn.apply_launches == a0 + 1
+    torch.testing.assert_close(got.double(), want, **TOL[torch.float32])
+    assert torch.equal(got, attn.apply(q, v, *sums, n_t))
+    out = torch.full((n, 2, d + 4), float("nan"), device=cuda)[:, 1, :d]
+    attn.apply(q, v, *sums, n_t, out=out)
+    assert torch.equal(out, got)
+
+
+def test_f32_wgmma_forward_apply_all_masked_is_finite_zero(cuda):
+    """Zero norms through the f32 apply at the bench width: inv = 0, a zero
+    den taken as 1, so finite zeros, on every column tile."""
+    q, k, v = (torch.randn(777, 1, 256, device=cuda) for _ in range(3))
+    got = attn.fused_linear_attention(q, k, v, node_mask=torch.zeros(777, device=cuda))
+    assert torch.isfinite(got).all() and not got.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1180,6 +1226,40 @@ def test_csr_spmm_q8_walks_split_hub_rows(cuda, dtype, width):
     assert torch.equal(got, spmm_kernel.csr_spmm_q8_apply(
         q, s, xb, *csr, g.rs, dtype, g.hub_segments, g.hub_edges))
     assert torch.equal(got, spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype))
+
+
+@pytest.mark.parametrize("width", [256, 77, 32])
+@pytest.mark.parametrize("hubs", [False, True])
+def test_csr_spmm_q8_walk_order_is_the_node_order_walk_bitwise(cuda, width, hubs):
+    """``csr_spmm_q8`` walked in the graph's order and in a random one is
+    bitwise its node-order walk and the plain version on the same quantised
+    rows (integer sums in any order, the self weight in edge order), on a
+    graph with a 10,000-edge row through its hub plan and on one without hub
+    rows, f32 and bf16 out; bitwise repeatable, one launch a call."""
+    from sgformer_tpu_torch.ops.spmm import quantize_absmax, spmm_q8_apply
+
+    g = _int8_hub_graph(cuda) if hubs else _int8_graph(cuda)
+    assert g.schedule is not None
+    n = g.num_nodes
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    plan = (g.hub_segments, g.hub_edges)
+    assert (plan[0].shape[0] > 0) == hubs
+    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(2)).int().to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, width, device=cuda).to(dtype)
+        q, s = quantize_absmax(x, g.rs)
+        xb = x.to(torch.bfloat16)
+        want = spmm_q8_apply(q, s, xb, g.edge_src, g.edge_dst, g.gcn_weight, g.rs, n, dtype)
+        base = spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype, *plan)
+        assert torch.equal(base, want)
+        for order in (g.schedule, shuffled):
+            before = spmm_kernel.q8_launches
+            got = spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype, *plan,
+                                                schedule=order)
+            assert spmm_kernel.q8_launches == before + 1
+            assert torch.equal(got, base)
+            assert torch.equal(got, spmm_kernel.csr_spmm_q8_apply(q, s, xb, *csr, g.rs, dtype,
+                                                                  *plan, schedule=order))
 
 
 def test_int8_gradient_splits_the_transposes_hub_row(cuda):

@@ -400,10 +400,10 @@ def test_int8_hub_plan_is_taken_only_with_its_segment_length(powerlaw_problem):
 
 @pytest.mark.parametrize("kind,undirected", [("gcn", True), ("gcn", False), ("pyg", True)])
 def test_int8_propagate_hands_its_plans_on(monkeypatch, kind, undirected):
-    """``Graph.propagate`` on an int8 graph passes the CSR's hub plans and
-    their length to the int8 aggregation, as the bf16 path does: A's plan
-    for both on a symmetric graph, A's and A^T's otherwise, the PyG edges'
-    own for ``kind='pyg'``."""
+    """``Graph.propagate`` on an int8 graph passes the CSR's hub plans,
+    their length and the walk orders to the int8 aggregation, as the bf16
+    path does: A's plan and order for both on a symmetric graph, A's and
+    A^T's otherwise, the PyG edges' own plan for ``kind='pyg'``."""
     rng = np.random.default_rng(9)
     n = 300
     ei = np.concatenate([rng.integers(0, n, (2, 1500)),
@@ -418,7 +418,7 @@ def test_int8_propagate_hands_its_plans_on(monkeypatch, kind, undirected):
 
     monkeypatch.setattr(spmm_kernel, "csr_spmm_q8_autograd", record)
     g.propagate(torch.zeros(n, 4), kind=kind)
-    ((csr, csr_t, rs, (segments, t_segments, length)),) = seen
+    ((csr, csr_t, rs, (segments, t_segments, length, schedule, t_schedule)),) = seen
     if kind == "pyg":
         want = (g.pyg_hub_segments, g.pyg_hub_segments)
         assert csr[1] is g.pyg_src
@@ -427,6 +427,9 @@ def test_int8_propagate_hands_its_plans_on(monkeypatch, kind, undirected):
         assert csr[1] is g.edge_src and (csr_t is csr) == undirected
     assert segments is want[0] and t_segments is want[1] and rs is g.rs
     assert length == g.hub_edges and segments.shape[0] > 0
+    assert schedule is g.schedule and schedule is not None
+    assert t_schedule is (g.schedule if undirected else g.t_schedule)
+    assert t_schedule is not None
 
 
 # -- the slice: a small SGFormer on an int8 graph ------------------------------

@@ -26,11 +26,14 @@ from sgformer_tpu.kernels.slabs import reorder_for_slabs
 from sgformer_tpu_torch import Predictor, SGFormer, SGFormerConfig, load_exported
 from sgformer_tpu_torch import preprocess_graph
 from sgformer_tpu_torch.data import synthetic_dataset
-from sgformer_tpu_torch.graph import graph_from_leaves, graph_from_sorted, graph_leaves
+from sgformer_tpu_torch.graph import (gcn_norm_rs, graph_from_leaves, graph_from_sorted,
+                                      graph_leaves)
 from sgformer_tpu_torch.kernels.spmm import (csr_spmm, csr_spmm_ev, csr_spmm_ev_bwd,
-                                             hub_plan)
+                                             csr_spmm_q8, csr_spmm_q8_apply, hub_plan)
 from sgformer_tpu_torch.native.reorder import reorder_for_clusters
+from sgformer_tpu_torch.ops.spmm import quantize_absmax
 from sgformer_tpu_torch.ops.spmm import spmm as spmm_plain
+from sgformer_tpu_torch.ops.spmm import spmm_q8_apply
 
 torch.set_num_threads(1)
 
@@ -199,15 +202,21 @@ def emulate_walk(indptr, src, weight, x, order, walkers, max_edges):
     return out, written
 
 
+def _walk_graph(graph, which):
+    """The community graph with the kernel's segment length, or a power-law
+    graph with rows of up to a few hundred edges, cut into segments of 16."""
+    if which == "community":
+        return graph, 128
+    ds = synthetic_dataset(num_nodes=900, num_edges=7000, num_features=4, num_classes=5,
+                           powerlaw=1.1, seed=2, device="cpu")
+    g = preprocess_graph(ds.graph["edge_index"], 900, device="cpu")
+    assert int(torch.diff(g.indptr).max()) > 4 * 16
+    return g, 16
+
+
 @pytest.mark.parametrize("which", ["community", "power-law hubs"])
 def test_emulated_walk_in_the_order_gives_the_plain_sum_bitwise(community, graph, which):
-    if which == "community":
-        g, max_edges = graph, 128
-    else:  # rows of up to a few hundred edges, cut into segments of 16
-        ds = synthetic_dataset(num_nodes=900, num_edges=7000, num_features=4, num_classes=5,
-                               powerlaw=1.1, seed=2, device="cpu")
-        g, max_edges = preprocess_graph(ds.graph["edge_index"], 900, device="cpu"), 16
-        assert int(torch.diff(g.indptr).max()) > 4 * max_edges
+    g, max_edges = _walk_graph(graph, which)
     n = g.num_nodes
     x = np.random.default_rng(1).standard_normal((n, 5)).astype(np.float32)
     args = (g.indptr.numpy(), g.edge_src.numpy(), g.gcn_weight.numpy(), x)
@@ -221,6 +230,76 @@ def test_emulated_walk_in_the_order_gives_the_plain_sum_bitwise(community, graph
             np.testing.assert_array_equal(got, want)
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def emulate_q8_walk(indptr, src, weight, q, dq, rs, x_self, order, walkers, max_edges):
+    """The int8 walk in numpy: ``walkers`` persistent walkers over the
+    positions of ``order``, each row written in place: the exact int32 sum
+    of q over its non-self edges (in segments of ``max_edges`` edges, their
+    integer partials added, for longer rows) and its self edges' weights
+    added in edge order from 0 (a segment's from 0, the segments' sums in
+    segment order), then the epilogue ``((acc * dq) * rs) + w_self * x_self``
+    in f32, each operation rounded. Returns the f32 rows and how often each
+    was written."""
+    n, f = len(indptr) - 1, q.shape[1]
+    out = np.full((n, f), np.nan, np.float32)
+    written = np.zeros(n, np.int64)
+
+    def walk(row, b, e):
+        acc = np.zeros(f, np.int32)
+        w = np.float32(0)
+        for t in range(b, e):
+            if src[t] == row:
+                w = np.float32(w + weight[t])
+            else:
+                acc = acc + q[src[t]].astype(np.int32)
+        return acc, w
+
+    def finish(row, acc, w):
+        t = (acc.astype(np.float32) * dq).astype(np.float32) * rs[row]
+        out[row] = t + np.float32(w) * x_self[row]
+        written[row] += 1
+
+    for j in range(walkers):
+        for p in range(j, n, walkers):
+            row = order[p]
+            b, e = indptr[row], indptr[row + 1]
+            if e - b <= max_edges:
+                finish(row, *walk(row, b, e))
+    for row in np.flatnonzero(np.diff(indptr) > max_edges):
+        b, e = indptr[row], indptr[row + 1]
+        parts = [walk(row, s, min(s + max_edges, e)) for s in range(b, e, max_edges)]
+        acc, w = parts[0]
+        for part_acc, part_w in parts[1:]:
+            acc, w = acc + part_acc, np.float32(w + part_w)
+        finish(row, acc, w)
+    return out, written
+
+
+@pytest.mark.parametrize("which", ["community", "power-law hubs"])
+def test_emulated_int8_walk_in_the_order_gives_the_plain_version_bitwise(community, graph,
+                                                                           which):
+    """``csr_spmm_q8``'s walk in the graph's order, emulated: integer sums in
+    any order and split, the self weight in edge order, so the rows are
+    ``spmm_q8_apply``'s bit for bit in f32 and in bf16, and the node-order
+    walk's."""
+    g, max_edges = _walk_graph(graph, which)
+    n = g.num_nodes
+    rs = gcn_norm_rs(g.edge_dst, n)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((n, 12)).astype(np.float32))
+    q, s = quantize_absmax(x, rs)
+    xb = x.to(torch.bfloat16)
+    dq = np.float32(s.item()) / np.float32(127)
+    args = (g.indptr.numpy(), g.edge_src.numpy(), g.gcn_weight.numpy(), q.numpy(), dq,
+            rs.numpy(), xb.float().numpy())
+    node_order, _ = emulate_q8_walk(*args, np.arange(n), n, max_edges)
+    for walkers in (1, 7, 64):
+        got, written = emulate_q8_walk(*args, g.schedule.numpy(), walkers, max_edges)
+        assert (written == 1).all()
+        np.testing.assert_array_equal(got, node_order)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = spmm_q8_apply(q, s, xb, g.edge_src, g.edge_dst, g.gcn_weight, rs, n, dtype)
+        assert torch.equal(torch.from_numpy(got).to(dtype), want)
 
 
 def test_walk_order_keeps_a_windows_gathers_local():
@@ -272,17 +351,33 @@ def test_cpu_wrappers_check_the_walk_order_and_ignore_it(graph):
         with pytest.raises(err, match="walk order"):
             csr_spmm_ev_bwd(xh, xh, v, *t_csr, torch.float32, graph.t_hub_segments,
                             graph.hub_edges, t_schedule=bad)
+    rs = gcn_norm_rs(graph.edge_dst, n)
+    q, s = quantize_absmax(x, rs)
+    assert torch.equal(csr_spmm_q8(x, *csr, rs, *plan, schedule=graph.schedule),
+                       csr_spmm_q8(x, *csr, rs, *plan))
+    assert torch.equal(
+        csr_spmm_q8_apply(q, s, x.bfloat16(), *csr, rs, torch.float32, *plan,
+                          schedule=graph.schedule),
+        csr_spmm_q8_apply(q, s, x.bfloat16(), *csr, rs, torch.float32, *plan))
+    for bad, err in ((graph.schedule.long(), TypeError), (graph.schedule[1:], TypeError)):
+        with pytest.raises(err, match="walk order"):
+            csr_spmm_q8(x, *csr, rs, *plan, schedule=bad)
+        with pytest.raises(err, match="walk order"):
+            csr_spmm_q8_apply(q, s, x.bfloat16(), *csr, rs, torch.float32, *plan, schedule=bad)
     assert hub_plan(graph.indptr).shape == (0, 3)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "pyg", "edge-values", "link"])
+@pytest.mark.parametrize("kind", ["gcn", "pyg", "edge-values", "link", "int8"])
 def test_the_model_paths_take_the_walk_order_unchanged(community, kind):
-    """``Graph.propagate`` (A, PyG), ``propagate_edge_values`` and LINK's
-    aggregation run their kernels' CPU versions with the graph's walk orders
-    in hand, forward and backward: the same values and gradients as the
-    graph without them."""
+    """``Graph.propagate`` (A, PyG, and A on an int8 graph),
+    ``propagate_edge_values`` and LINK's aggregation run their kernels' CPU
+    versions with the graph's walk orders in hand, forward and backward: the
+    same values and gradients as the graph without them."""
     _, ei, _ = community
-    g = preprocess_graph(ei, N, undirected=False, with_pyg_norm=True, device="cpu")
+    g = preprocess_graph(ei, N, undirected=False, with_pyg_norm=True, device="cpu",
+                         **(dict(chunk_dtype="bf16", slab_dtype="int8") if kind == "int8"
+                            else {}))
+    assert g.schedule is not None and g.t_schedule is not None
     bare = dataclasses.replace(g, schedule=None, t_schedule=None)
     gen = torch.Generator().manual_seed(5)
     outs = []
@@ -302,7 +397,7 @@ def test_the_model_paths_take_the_walk_order_unchanged(community, kind):
             if kind == "edge-values":
                 out = graph_.propagate_edge_values(x, v)
             else:
-                out = graph_.propagate(x.reshape(N, 8), kind)
+                out = graph_.propagate(x.reshape(N, 8), "gcn" if kind == "int8" else kind)
             out.square().sum().backward()
             outs.append((out, x.grad) + ((v.grad,) if kind == "edge-values" else ()))
     for a, b in zip(*outs):
