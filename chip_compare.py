@@ -16,6 +16,7 @@ in the same call as the change.
     python3 chip_compare.py schedule ROOT
     python3 chip_compare.py designs ROOT [ROOT ...]
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
+    python3 chip_compare.py reduce ROOT [ROOT ...]
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -149,6 +150,22 @@ line, then the turns side by side, and fails unless every ``csr_spmm_q8``
 output, the bf16 apply's and the f32 backward's digests are the same in
 every turn. ``--only q8`` or ``--only f32`` runs one of the two kernels'
 parts (and the digests of the other checks only with ``f32``).
+``reduce``: the forward attention reduce of each ROOT and of this checkout,
+each turn a process of its own (``reduce-turn ROOT``), in turns ROOT1 ...
+ROOTk, this checkout, this checkout, ROOTk ... ROOT1. A turn prints the
+reduce kernels' registers, spills and warnings from ``ptxas``, their
+``HGMMA`` and ``HMMA`` instructions in ``cuobjdump -sass`` and the designs;
+then at M = D = 256 on N = 169,343 (arxiv), 100,000 and 49,029 (the
+amazon2m batch and its tail), 50,000 and 19,343 (arxiv-batch) and 621,432 (a
+papers-sampled batch), bf16 and f32: the reduce's CUDA-event ms (median of
+20), the profiler's device ms of its main kernel and of its two finishing
+kernels, ``torch.matmul(k.t(), v)`` in the inputs' type (TF32 off) as a
+yardstick, and the bound; every output (kvs, ksum, the norms)
+against its sums in f64 on randn, positive and ``reduce_product_inputs``
+inputs (where a dropped tf32 lo piece misses the tolerance), over
+REDUCE_REL_TOL, and whether each is bitwise repeatable. The mode prints
+each turn's JSON line, then the turns side by side, and fails unless every
+turn's outputs are within the tolerance and repeatable.
 """
 
 from __future__ import annotations
@@ -173,13 +190,14 @@ def load_phases(path: str):
 def main() -> int:
     modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
              "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "schedule",
-             "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn")
+             "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
+             "reduce", "reduce-turn")
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
         only = sys.argv[-1]
         del sys.argv[-2:]
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
-            or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply")) \
+            or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce")) \
             or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -194,6 +212,8 @@ def main() -> int:
         return designs([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "q8-f32-apply":
         return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
+    if mode == "reduce":
+        return reduce([os.path.abspath(r) for r in sys.argv[2:]])
     sys.path.insert(0, root)
     import torch
 
@@ -231,6 +251,8 @@ def main() -> int:
         return designs_turn(cs, root)
     if mode == "q8-f32-apply-turn":
         return q8_f32_apply_turn(cs, root, only)
+    if mode == "reduce-turn":
+        return reduce_turn(cs, root)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -512,17 +534,19 @@ BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
 F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
 
 
-def sass_counts(cs, root: str) -> dict:
-    """``HGMMA`` and ``HMMA`` instructions of each backward kernel in
-    ``cuobjdump -sass`` of ROOT's built library, logged."""
+def sass_counts(cs, root: str, library: str = "linear_attention_bwd",
+                kernels: str = "la_bwd") -> dict:
+    """``HGMMA`` and ``HMMA`` instructions of each kernel whose name holds
+    ``kernels`` (the backward's by default; ``la_reduce`` for the forward
+    reduce's) in ``cuobjdump -sass`` of ROOT's built ``library``, logged."""
     import re
 
     from sgformer_tpu_torch.kernels import _build
 
-    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention_bwd")[1]])
+    sass = subprocess_out(["cuobjdump", "-sass", _build._target(library)[1]])
     counts = {}
     for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-        if "la_bwd" in func:
+        if kernels in func:
             counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
                                 HMMA=len(re.findall(r"\bHMMA\b", body)))
     for func, c in counts.items():
@@ -1113,14 +1137,7 @@ def q8_f32_apply_turn(cs, root: str, only=None) -> int:
         for line in reports.get(name, "").splitlines():
             if re.search(r"q8|la_apply|Used|spill", line):
                 cs.log(f"ptxas {root} {name}: {line.strip()}")
-    sass = subprocess_out(["cuobjdump", "-sass", _build._target("linear_attention")[1]])
-    counts = {}
-    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-        if "la_apply" in func:
-            counts[func] = dict(HGMMA=len(re.findall(r"\bHGMMA\b", body)),
-                                HMMA=len(re.findall(r"\bHMMA\b", body)))
-            cs.log(f"sass {root}: {func}: HGMMA {counts[func]['HGMMA']}, "
-                   f"HMMA {counts[func]['HMMA']}")
+    counts = sass_counts(cs, root, "linear_attention", "la_apply")
     dev = "cuda"
 
     def digest(*ts) -> str:
@@ -1234,6 +1251,103 @@ def q8_f32_apply_turn(cs, root: str, only=None) -> int:
         del q, k_, v, g, sums, red, qb, vb
     cs.log(f"q8-f32-apply {root}: f32 backward digests {out['f32_bwd_digests']}, bf16 apply "
            f"digests {out['bf16_apply_digests']}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def reduce(roots: list) -> int:
+    """The ``reduce`` mode: the turns, each ``reduce-turn`` in a process of
+    its own, then the turns side by side; fails unless every turn's outputs
+    are within REDUCE_REL_TOL of f64 and bitwise repeatable."""
+    import json
+
+    order = roots + [HERE, HERE] + roots[::-1]
+    turns = run_turns("reduce-turn", roots[0], order)
+    if turns is None:
+        return 1
+    names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
+    names[HERE] = "this checkout"
+    side = {f"turn {i} ({names[t['root']]})": dict(reduce=t["reduce"], sass=t["sass"])
+            for i, t in enumerate(turns)}
+    ok = {names[t["root"]]: t["ok"] for t in turns}
+    print(json.dumps({"reduce_turns": side, "within_tolerance_and_repeatable": ok}), flush=True)
+    return 0 if all(ok.values()) else 1
+
+
+def reduce_turn(cs, root: str, dev: str = "cuda") -> int:
+    """One turn of the ``reduce`` mode on ROOT's package; its last line of
+    output is a JSON object of its numbers."""
+    import json
+    import re
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    # this checkout's inputs whatever ROOT's package holds
+    inputs = load_phases(os.path.join(HERE, "sgformer_tpu_torch", "utils", "measure.py"))
+    report = _build.build_all(("linear_attention",)).get("linear_attention", "")
+    entry = False
+    for line in report.splitlines():  # the reduce kernels' registers, spills and warnings
+        if "entry function" in line or "Function properties" in line:
+            entry = "la_reduce" in line if "entry function" in line else entry
+        if entry or "la_reduce" in line or "warning" in line:
+            cs.log(f"ptxas {root}: {line.strip()}")
+    m = 256
+    out = dict(root=root, sass=sass_counts(cs, root, "linear_attention", "la_reduce"),
+               reduce={}, ok=True,
+               designs={cs.DTYPE_NAME[t]: attn.reduce_design(t, m, m)
+                        for t in (torch.bfloat16, torch.float32)})
+    cs.log(f"reduce {root} designs at M = D = 256: {out['designs']}")
+    for n in F32_APPLY_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = cs.DTYPE_NAME[dtype]
+            gen = torch.Generator(device=dev).manual_seed(n)
+            res = {}
+            for kind in ("randn", "positive", "products"):
+                if kind == "products":
+                    q, k, v = inputs.reduce_product_inputs(n, m, m, dtype, gen)
+                else:
+                    draw = torch.randn if kind == "randn" else torch.rand
+                    q, k, v = (draw(n, m, generator=gen, device=dev).to(dtype) for _ in range(3))
+                got = attn.reduce(q, k, v)
+                exact = cs.reduce_f64(q, k, v)
+                errs = {part: rel(a, b) / cs.REDUCE_REL_TOL for part, a, b in
+                        (("kvs", got[0], exact[0]), ("ksum", got[1], exact[1]),
+                         ("qsq, ksq", got[2][:2], exact[2]))}
+                repeat = all(torch.equal(a, b) for a, b in zip(got, attn.reduce(q, k, v)))
+                res[f"{kind} err_over_tol"] = errs
+                res[f"{kind} bitwise_repeatable"] = repeat
+                if not (max(errs.values()) <= 1.0 and repeat):
+                    out["ok"] = False
+                    cs.log(f"reduce {root} {name} n={n} {kind}: OUT OF TOLERANCE OR NOT "
+                           f"REPEATABLE {errs} {repeat}")
+                if kind != "randn":
+                    del q, k, v
+                del got, exact
+            q, k, v = (torch.randn(n, m, generator=gen, device=dev).to(dtype) for _ in range(3))
+            res["ms"] = cs.time_ms(lambda: attn.reduce(q, k, v))
+            dev_ms = cs.kernel_ms(lambda: attn.reduce(q, k, v),
+                                  ("la_reduce", "la_finish_kernel", "la_scalars_kernel"))
+            res["kernel_ms"] = dev_ms["la_reduce"]
+            res["finish_ms"] = dev_ms["la_finish_kernel"] + dev_ms["la_scalars_kernel"]
+            # yardstick: the core product k^T v in one torch.matmul, the
+            # inputs' type, TF32 off (never called by the port)
+            res["gemm_ms"] = cs.time_ms(lambda: torch.matmul(k.t(), v))
+            res["bound_ms"], res["bound_by"] = cs.bound_ms(
+                3 * n * m * q.element_size() + (m * m + m + 4) * 4, 2 * n * m * m + 3 * n * m,
+                dtype)
+            out["reduce"][f"{name} {n}"] = res
+            cs.log(f"reduce {root} {name} n={n}: {res['ms']:.4f} ms (kernel "
+                   f"{res['kernel_ms']:.4f}, finish + scalars {res['finish_ms']:.4f}; "
+                   f"torch.matmul k^T v {res['gemm_ms']:.4f}; bound {res['bound_ms']:.4f} by "
+                   f"{res['bound_by']}); errors over the tolerance "
+                   + ", ".join(f"{kd}: " + ", ".join(f"{p} {e:.3f}" for p, e in
+                                                     res[f"{kd} err_over_tol"].items())
+                               for kd in ("randn", "positive", "products")))
+            del q, k, v
+            torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
 

@@ -12,12 +12,13 @@ JAX package. Phases, each failing loudly:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (the arxiv-shaped graph, N = 169,343 nodes, width
    256), in bf16 and f32, with its median time beside its bound; the
-   reduce also on positive inputs against its sums in f64, the
+   reduce also on positive inputs and on inputs where its products carry
+   kvs (``reduce_product_inputs``) against its sums in f64, the
    apply alone at n = N (bitwise repeatable), at n = 1 and, against its
    plain version in f64, on inputs where q @ kvs carries the output (in
    bf16 also where kvs terms cancel, so that a dropped lo piece shows), each
    with the design it runs (tensor cores in both types, f32 in 3xTF32, the
-   f32 apply on ``wgmma`` fed by TMA) and
+   reduce in both types and the f32 apply on ``wgmma`` fed by TMA) and
    one ``torch.matmul`` of its core product (k^T v, q @ kvs) as a yardstick;
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32
@@ -668,8 +669,8 @@ def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     name = DTYPE_NAME[dtype]
     log(f"reduce {name} design at {where}: {red_design}")
     log(f"apply {name} design at {where}: {design}")
-    want = (("tensor cores (mma.sync 3xTF32", "tensor cores (wgmma 3xTF32")
-            if dtype == torch.float32 else ("tensor cores", "tensor cores (wgmma"))
+    want = (("tensor cores (wgmma 3xTF32", "tensor cores (wgmma 3xTF32")
+            if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma"))
     if (m, d) == (256, 256) and not (red_design.startswith(want[0])
                                      and design.startswith(want[1])):
         raise AssertionError(f"the {name} forward kernels at M = D = 256 are not the "
@@ -748,6 +749,7 @@ def bwd_passes_ms(attn, n: int, dev: str, dtype=torch.float32) -> dict:
 def attention_phase(n: int, results: dict, dev: str) -> None:
     from sgformer_tpu_torch.kernels import attention as attn
     from sgformer_tpu_torch.ops.attention import linear_attention
+    from sgformer_tpu_torch.utils.measure import reduce_product_inputs
 
     m = d = 256
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -818,6 +820,18 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
             check_rel(f"reduce {name} {part} (positive inputs, sums in f64)", g_, w_,
                       REDUCE_REL_TOL)
         del exact, got_p
+        # the reduce where its products carry kvs (positive values a fraction
+        # of a tf32 step above tf32 values: a dropped tf32 lo piece would
+        # miss the tolerance), against its sums in f64, bitwise repeatable
+        qr, kr, vr = reduce_product_inputs(n, m, d, dtype, gen_p)
+        exact, got_p = reduce_f64(qr, kr, vr), attn.reduce(qr, kr, vr)
+        for part, g_, w_ in (("kvs", got_p[0], exact[0]), ("ksum", got_p[1], exact[1]),
+                             ("qsq, ksq", got_p[2][:2], exact[2])):
+            check_rel(f"reduce {name} {part} (products carry it, sums in f64)", g_, w_,
+                      REDUCE_REL_TOL)
+        if not all(torch.equal(a, b) for a, b in zip(got_p, attn.reduce(qr, kr, vr))):
+            raise AssertionError(f"reduce {name} is not bitwise repeatable")
+        del qr, kr, vr, exact, got_p
 
         r_ms = time_ms(lambda: attn.reduce(q, k, v))
         r_plain = time_ms(lambda: attn.reduce_plain(q, k, v, False))
@@ -2175,10 +2189,10 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
             results[(key, name, name_t, n)]["design"] = designs[name]
     # the reduce's launches apart: the slices' partials are written and
     # added whatever a slice's length
-    first = "la_reduce_tf32_kernel" if dtype == torch.float32 else "la_reduce_tc_kernel"
+    first = "la_reduce_wg_kernel" if dtype == torch.float32 else "la_reduce_wgmma_kernel"
     passes = kernel_ms(lambda: attn.reduce(q, k, v), (first, "la_finish_kernel",
                                                       "la_scalars_kernel"))
-    slices, rows = attn._slices(n, m, m, q.device, True, dtype)
+    slices, rows = attn._slices(n, m, m, q.device, True)
     log(f"{key} reduce {name_t} n={n} by launch: {first} {passes[first]:.4f} ms, "
         f"la_finish_kernel {passes['la_finish_kernel']:.4f} ms, la_scalars_kernel "
         f"{passes['la_scalars_kernel']:.4f} ms ({slices} slices of {rows} rows)")

@@ -28,18 +28,25 @@
 // run in 3xTF32 (below): three TF32 products of 22.2 GFLOP at 495 TFLOP/s,
 // 135 us, so the bytes bound the f32 kernels too.
 //
-// The bf16 reduce (la_reduce_tc_kernel) runs k^T v on the tensor cores
-// (tensor_core.cuh: mma.sync m16n8k16, bf16 in, f32 sums). k and v are bf16,
-// so every product is exact in f32 and only the order of the sums differs
-// from the plain version; it stays fixed. A block owns a 128 x 128 tile of
-// kvs over one slice of N; the blocks of a slice have neighbouring indices,
-// so they run together and the second read of the slice's k or v rows (each
-// feeds two tiles at M = D = 256) is served by the 50 MB L2, not by device
-// memory. Node rows stream through a 4-stage cp.async ring of 32-row chunks
-// (k, v and, in the blocks that sum it, q); ksum, ||k||^2 and ||q||^2 are
-// summed per column in f64 on the CUDA cores from the chunks already in
-// shared memory, between the MMAs. Partials go to scratch and are added in
-// slice order by la_finish_kernel.
+// Both reduces run k^T v on warpgroup MMAs (wgmma), warp-specialised: a
+// block owns a 128 x 128 tile of kvs over one slice of N; its producer
+// warpgroup brings the slice's node rows of k, v and (in the blocks that
+// sum it) q by the copy engine (TMA) through a ring of full and empty
+// mbarriers, and two consumer warpgroups run the MMAs on the staged atoms
+// while ksum, ||k||^2 and ||q||^2 are summed per column on the CUDA cores
+// (f32 chains made f64 once a chunk). The blocks of a slice have
+// neighbouring indices, so they run together and the second read of the
+// slice's k or v rows (each feeds two tiles at M = D = 256) is served by
+// the 50 MB L2. Partials go to scratch and are added in slice order by
+// la_finish_kernel. The products of each 32 node rows go into fresh sums
+// added to the block's with round-to-nearest f32 adds, so that the tensor
+// cores' own accumulation never chains a slice. Where the copies came from
+// the MMA warps (cp.async) they stalled them: the copies alone held the
+// bf16 mma.sync kernel this replaced at 1.6x its bound (PERF.md).
+// - bf16 (la_reduce_wgmma_kernel): both operands read node-major through
+//   MN-major descriptors (wgmma m64n64k16), k and v as they are: bf16
+//   products are exact in f32, so only the order of the sums differs from
+//   the plain version, and it stays fixed.
 //
 // The bf16 apply (la_apply_tc_kernel) runs a = q @ kvs on the tensor cores
 // by warpgroup MMAs (wgmma m64n64k16, bf16 in, f32 sums, both operands read
@@ -60,13 +67,13 @@
 // (linear_attention_bwd.cu): each f32 operand x is split into hi = tf32(x)
 // and lo = tf32(x - hi) (cvt.rna), and each product is lo*hi' + hi*lo' +
 // hi*hi' (lo*lo' dropped), ~2^-21 of each term.
-// - The f32 reduce (la_reduce_tf32_kernel) is the bf16 reduce's grid, slices,
-//   tiles, f64 column sums and second passes, with k^T v by the node-axis
-//   contraction on mma.sync m16n8k8 tf32 (tc::node_mma_chunk_tf32): k is
-//   split as its fragments load, v once a chunk into shared tf32 hi + lo
-//   tiles. The f32 chunks of k, v and q take 52 KB a stage, so the ring
-//   holds 3 stages, and one block runs on an SM. Its tile streams the node
-//   rows, so it takes any M and D.
+// - The f32 reduce (la_reduce_wg_kernel) is the bf16 reduce's grid,
+//   slices, tiles, producer, column sums and second passes on wgmma
+//   m64n128k8 tf32, which reads no transposed 32-bit operand: k^T comes
+//   from registers, split as its fragments load from the node-major atoms,
+//   and v is split once a chunk into tf32 hi + lo atoms written K-major
+//   (d rows, nodes contiguous). Its tile streams the node rows, so it takes
+//   any M and D.
 // - The f32 apply (la_apply_wg_kernel) runs a = q @ kvs on warpgroup MMAs
 //   (wgmma m64n64k8 tf32, A from registers), warp-specialised: a producer
 //   warpgroup brings the q rows (staged once in f32, 128 KB at M = 256, one
@@ -113,249 +120,619 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The bf16 reduce on the tensor cores. grid (slices * tiles), tiles =
-// ceil(M/128) * ceil(D/128), slice-major: block b sums tile b % tiles of
-// k^T v over rows [s*rows_per_slice, (s+1)*rows_per_slice), s = b / tiles.
-// The blocks of the first column tile (n0 == 0) also sum k and k*k per column
-// of their M tile, those of the second (or the first, when D fits one tile)
-// q*q, so that the f64 work and the extra q traffic fall on different blocks.
-// Dynamic shared memory: kReduceStages chunks of k, v and q rows.
-constexpr int kReduceStages = 4;
-constexpr int kReduceStage = 3 * tc::kNodeChunk;  // bf16 of one stage: k, v, q
+// The forward reduce on warpgroup MMAs, warp-specialised: grid (slices *
+// tiles), tiles = ceil(M/128) * ceil(D/128), slice-major: block b sums tile
+// b % tiles of k^T v over the rows [s*rows_per_slice, (s+1)*rows_per_slice),
+// s = b / tiles, warpgroup w its 64 m rows by all 128 d columns. The blocks
+// of the first column tile (dy == 0) also sum k and k*k per column of their
+// M tile, those of the second (or the first, when D fits one tile) q*q, so
+// that the column sums and the extra q traffic fall on different blocks.
+// Three warpgroups a block, one block an SM: two consumer warpgroups run
+// the MMAs, and a producer warpgroup, whose registers go to them
+// (setmaxnreg), feeds them: one warp of it brings each chunk of k, v and,
+// in the blocks that sum it, q into 128-byte-swizzled node-major atoms by
+// the copy engine (tensor maps of the rows; where their strides or bases
+// do not allow one, vec == 0, its lanes copy them one element at a time,
+// zero past the slice), through a ring of full and empty mbarriers. A
+// chunk's rows past the slice (the copy engine reads on to N, and
+// zero-fills past it) are zeroed before the MMAs read them, and the column
+// sums stop at the slice's end.
+//
+// The column sums run on the CUDA cores from the staged atoms while the
+// chunk's MMAs run, by row groups: in bf16 the eight consumer warps (rows
+// w + 8 j of a chunk for warp w), in f32 the producer warpgroup's three
+// other warps (rows w + 3 j), where they took a quarter of the MMA warps'
+// time. Lane l takes the four columns 4 l .. + 3, loaded four at a time,
+// one f32 chain a column and quantity over its group's rows of the chunk
+// (the squares of bf16 inputs exact in f32, each square added by an FMA);
+// each chain's sum is made an f64 once a chunk and added to its group's
+// f64 sum (converting every element to f64 ran at a sixteenth of the FMA
+// rate), and at the end each column's groups are added in order in f64 and
+// rounded to f32 once a slice. (A single warp summing all the rows held
+// the bf16 kernel to a third of its speed.)
+constexpr int kRdConsumers = 2 * 128;
+constexpr int kRdThreads = kRdConsumers + 128;  // and the producer warpgroup
+constexpr int kRdTile = tc::kNodeTile;           // 128 m by 128 d a block
+constexpr int kRdSums = 3 * 4 * kRdConsumers;  // bf16's f64 column sums: 12 a consumer thread
 
-__global__ void __launch_bounds__(tc::kNodeThreads, 2)
-la_reduce_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, long ldq, long ldk, long ldv, int N,
-                    int M, int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
-                    float* __restrict__ ksum_part, float* __restrict__ qsq_part,
-                    float* __restrict__ ksq_part) {
-  using tc::kNodeRows;
-  using tc::kNodeStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ double red[3][tc::kNodeTile];
+// the reduce's tensor maps: q, k and v rows in node-major boxes
+struct RdMaps {
+  CUtensorMap q, k, v;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 64;
-  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
-  const int tiles_d = tc::cdiv(D, tc::kNodeTile);
-  const int tiles = tiles_m * tiles_d;
-  const int s = blockIdx.x / tiles;
-  const int dy = (blockIdx.x % tiles) / tiles_m;
-  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
-  const int d0 = dy * tc::kNodeTile;
-  const bool k_stats = dy == 0;
-  const bool q_stats = dy == (tiles_d > 1 ? 1 : 0);
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+// the consumers' own barrier (the producer warpgroup has left)
+__device__ __forceinline__ void rd_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kRdConsumers) : "memory");
+}
+// one consumer warpgroup's barrier
+__device__ __forceinline__ void rd_warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
 
-  auto stage = [&](int c) {
-    __nv_bfloat16* ks = ring + (c % kReduceStages) * kReduceStage;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    tc::stage_node_rows(ks, k, ldk, r0, r_end, m0, M, vec, tid);
-    tc::stage_node_rows(ks + tc::kNodeChunk, v, ldv, r0, r_end, d0, D, vec, tid);
-    if (q_stats) tc::stage_node_rows(ks + 2 * tc::kNodeChunk, q, ldq, r0, r_end, m0, M, vec, tid);
-  };
+// Four adjacent columns of a staged row as floats: 8 bytes of bf16, or 16
+// of f32; zeros where !ok.
+__device__ __forceinline__ void rd_load4(const __nv_bfloat16* p, bool ok, float (&x)[4]) {
+  const uint2 raw = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void rd_load4(const float* p, bool ok, float (&x)[4]) {
+  const float4 a = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
 
-  float acc[2][8][4];
+// A staged chunk's f32 chains for a thread's columns 4 l .. + 3 (l its
+// lane) over the chunk's rows rg + kGroups j below valid (its row group):
+// s and k2 the sums and sums of squares of k (k_stats), q2 those of q
+// (q_stats), each square added by an FMA. at(r, c) is the byte offset of
+// element (r, c) in a chunk's k (or q) atoms.
+template <typename T, int kRowsPerChunk, int kGroups, typename At>
+__device__ __forceinline__ void rd_chunk_sums(const unsigned char* ks, const unsigned char* qs,
+                                              int rg, int lane, int valid, bool k_stats,
+                                              bool q_stats, At at, float (&s)[4],
+                                              float (&k2)[4], float (&q2)[4]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e = 0; e < 4; ++e) s[e] = k2[e] = q2[e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  // per column: thread t sums column t % 128 over the chunk rows of parity
-  // t / 128, in f64 (a slice holds thousands of rows)
-  const int col = tid & (tc::kNodeTile - 1);
-  const int par = tid / tc::kNodeTile;
-  double ksum = 0.0, ksq = 0.0, qsq = 0.0;
-
-  for (int c = 0; c < kReduceStages - 1; ++c) {
-    if (c < chunks) stage(c);
-    tc::cp_async_commit();
-  }
-  for (int c = 0; c < chunks; ++c) {
-    tc::cp_async_wait<kReduceStages - 2>();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
-    if (c + kReduceStages - 1 < chunks) stage(c + kReduceStages - 1);
-    tc::cp_async_commit();
-    const __nv_bfloat16* ks = ring + (c % kReduceStages) * kReduceStage;
-    const __nv_bfloat16* const vs[1] = {ks + tc::kNodeChunk};
-    tc::node_mma_chunk<1>(acc, ks, vs, wm, wn, lane);
+  for (int j = 0; j < (kRowsPerChunk + kGroups - 1) / kGroups; ++j) {
+    const int r = rg + kGroups * j;
+    const int off = at(r, 4 * lane);
     if (k_stats) {
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        const double x = __bfloat162float(ks[r * kNodeStride + col]);
-        ksum += x;
-        ksq = fma(x, x, ksq);
+      float x[4];
+      rd_load4(reinterpret_cast<const T*>(ks + off), r < valid, x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] += x[e];
+        k2[e] = fmaf(x[e], x[e], k2[e]);
       }
     }
     if (q_stats) {
-      const __nv_bfloat16* qs = ks + 2 * tc::kNodeChunk;
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        const double x = __bfloat162float(qs[r * kNodeStride + col]);
-        qsq = fma(x, x, qsq);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  tc::store_node_tile(kvs_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn,
-                      lane);
-  if (k_stats || q_stats) {  // uniform over the block
-    if (par == 1) {
-      red[0][col] = ksum;
-      red[1][col] = ksq;
-      red[2][col] = qsq;
-    }
-    __syncthreads();
-    if (par == 0 && m0 + col < M) {
-      const size_t o = static_cast<size_t>(s) * M + m0 + col;
-      if (k_stats) {
-        ksum_part[o] = static_cast<float>(ksum + red[0][col]);
-        ksq_part[o] = static_cast<float>(ksq + red[1][col]);
-      }
-      if (q_stats) qsq_part[o] = static_cast<float>(qsq + red[2][col]);
+      float y[4];
+      rd_load4(reinterpret_cast<const T*>(qs + off), r < valid, y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q2[e] = fmaf(y[e], y[e], q2[e]);
     }
   }
 }
 
-// The f32 reduce on the tensor cores in 3xTF32: la_reduce_tc_kernel's grid,
-// slices, tiles and column sums, one block an SM. Each 32-row chunk of k, v
-// and (in the blocks that sum it) q comes through a kTfReduceStages-deep
-// cp.async ring as f32; once it has landed the block splits v into shared
-// tf32 hi + lo tiles, and tc::node_mma_chunk_tf32 splits k as its fragments
-// load (A = k, B = v: the backward's P pass with q and g/den replaced).
-// Dynamic shared memory: 3 stages of k, v and q chunks (52 KB a stage) and
-// v's two split tiles, 187 KB.
-constexpr int kTfReduceStages = 3;
-constexpr int kTfReduceStage = 3 * tc::kNodeChunk;  // f32 of a stage's k, v and q chunks
-constexpr size_t kTfReduceSmem =
-    (kTfReduceStages * kTfReduceStage + 2 * tc::kNodeChunk) * sizeof(float);
+// Column col's slice sum of a quantity (0: k, 1: k*k, 2: q*q) from the f64
+// sums of its kGroups row groups, laid out in shared memory as
+// colsum[((quantity * 4 + e) * kGroups + rg) * 32 + l] for column 4 l + e,
+// added in order and rounded to f32 once.
+template <int kGroups>
+__device__ __forceinline__ float rd_total(const double* colsum, int quantity, int col) {
+  const double* p = colsum + (quantity * 4 + (col & 3)) * kGroups * 32 + (col >> 2);
+  double sum = 0.0;
+#pragma unroll
+  for (int rg = 0; rg < kGroups; ++rg) sum += p[32 * rg];
+  return static_cast<float>(sum);
+}
 
-__global__ void __launch_bounds__(tc::kNodeThreads, 1)
-la_reduce_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, long ldq, long ldk, long ldv, int N, int M,
-                      int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
-                      float* __restrict__ ksum_part, float* __restrict__ qsq_part,
-                      float* __restrict__ ksq_part) {
-  using tc::kNodeRows;
-  using tc::kNodeStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][k, v, q]
-  float* v_hi = ring + kTfReduceStages * kTfReduceStage;
-  float* v_lo = v_hi + tc::kNodeChunk;
-  __shared__ double red[3][tc::kNodeTile];
+// Column col's slice sums out (col < kRdTile): k's and k*k's where k_stats,
+// q*q's where q_stats.
+template <int kGroups>
+__device__ __forceinline__ void rd_store_col(const double* colsum, int col, int m0, int M, int s,
+                                             bool k_stats, bool q_stats,
+                                             float* __restrict__ ksum_part,
+                                             float* __restrict__ qsq_part,
+                                             float* __restrict__ ksq_part) {
+  if (m0 + col >= M) return;
+  const size_t o = static_cast<size_t>(s) * M + m0 + col;
+  if (k_stats) {
+    ksum_part[o] = rd_total<kGroups>(colsum, 0, col);
+    ksq_part[o] = rd_total<kGroups>(colsum, 1, col);
+  }
+  if (q_stats) qsq_part[o] = rd_total<kGroups>(colsum, 2, col);
+}
+
+// A reduce block's work: tile b % tiles of slice s = b / tiles (b the
+// block, slice-major), the tile's origin (m0, d0), the column sums it takes
+// (k_stats: the first column tile; q_stats: the second, or the first when D
+// fits one tile), and its slice's rows [r_begin, r_end) in kRows-row chunks.
+template <int kRows>
+struct RdBlock {
+  int s, m0, d0, chunks;
+  bool k_stats, q_stats;
+  long r_begin, r_end;
+  __device__ RdBlock(int N, int M, int D, int rows_per_slice) {
+    const int tiles_m = tc::cdiv(M, kRdTile);
+    const int tiles_d = tc::cdiv(D, kRdTile);
+    const int tiles = tiles_m * tiles_d;
+    const int dy = blockIdx.x % tiles / tiles_m;
+    s = blockIdx.x / tiles;
+    m0 = blockIdx.x % tiles % tiles_m * kRdTile;
+    d0 = dy * kRdTile;
+    k_stats = dy == 0;
+    q_stats = dy == (tiles_d > 1 ? 1 : 0);
+    r_begin = static_cast<long>(s) * rows_per_slice;
+    r_end = r_begin + rows_per_slice < N ? r_begin + rows_per_slice : static_cast<long>(N);
+    chunks = static_cast<int>((r_end - r_begin + kRows - 1) / kRows);
+  }
+  // the first row of chunk c, and how many of its rows lie in the slice
+  __device__ long row0(int c) const { return r_begin + static_cast<long>(c) * kRows; }
+  __device__ int valid(int c) const {
+    return r_end - row0(c) < kRows ? static_cast<int>(r_end - row0(c)) : kRows;
+  }
+};
+
+// The producer warpgroup's warp 0: chunk c of the slice's rows into stage c
+// % kStages of the ring, once its last reader has freed it, by the copy
+// engine where vec, else by the warp's lanes. A stage holds kParts atoms
+// a part (k, v, q) of [kRows nodes][128 bytes] of T, each the box at
+// (column c0 + a * 128 / sizeof(T), row r0) of its tensor map.
+template <typename T, int kRows, int kStages, int kParts>
+__device__ __forceinline__ void rd_produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                           const T* __restrict__ q, const T* __restrict__ k,
+                                           const T* __restrict__ v, long ldq, long ldk,
+                                           long ldv, int M, int D, const RdBlock<kRows>& blk,
+                                           int vec, int lane, const RdMaps& maps) {
+  using namespace tc;
+  constexpr int kCols = 128 / sizeof(T);        // elements of a swizzle row
+  constexpr int kAtom = kRows * 128;            // bytes of an atom
+  constexpr int kStage = 3 * kParts * kAtom;    // k's, v's and q's atoms
+  const int parts = blk.q_stats ? 3 : 2;
+  for (int c = 0; c < blk.chunks; ++c) {
+    const int st = c % kStages;
+    if (c >= kStages) mbar_wait(empty + st, (c / kStages - 1) & 1);
+    unsigned char* stage = ring + st * kStage;
+    const long r0 = blk.row0(c);
+    if (!vec) {  // one element a lane at a time, zero past the slice and the widths
+      for (int i = lane; i < parts * kRows * kRdTile; i += 32) {
+        const int p = i / (kRows * kRdTile);
+        const int r = i / kRdTile % kRows;
+        const int cc = i % kRdTile;
+        const T* X = p == 0 ? k : p == 1 ? v : q;
+        const long ld = p == 0 ? ldk : p == 1 ? ldv : ldq;
+        const int col = (p == 1 ? blk.d0 : blk.m0) + cc;
+        const bool ok = r0 + r < blk.r_end && col < (p == 1 ? D : M);
+        unsigned char* dst = stage + (kParts * p + cc / kCols) * kAtom;
+        if constexpr (std::is_same_v<T, float>) {
+          *reinterpret_cast<float*>(dst + sw128_offset_f32(r, cc % kCols)) =
+              ok ? X[(r0 + r) * ld + col] : 0.f;
+        } else {
+          *reinterpret_cast<T*>(dst + sw128_offset(r, cc % kCols)) =
+              ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full + st);
+    } else if (lane == 0) {
+      mbar_arrive_expect_tx(full + st, parts * kParts * kAtom);
+      const int y = static_cast<int>(r0);
+      for (int a = 0; a < kParts; ++a) {
+        tma_load_2d(stage + a * kAtom, &maps.k, blk.m0 + kCols * a, y, full + st);
+        tma_load_2d(stage + (kParts + a) * kAtom, &maps.v, blk.d0 + kCols * a, y, full + st);
+        if (blk.q_stats) {
+          tma_load_2d(stage + (2 * kParts + a) * kAtom, &maps.q, blk.m0 + kCols * a, y, full + st);
+        }
+      }
+    }
+  }
+}
+
+// The bf16 reduce (wgmma m64n64k16 bf16 -> f32, both operands MN-major:
+// the MMA's k is the node axis, so k and v are read as the copy engine
+// staged them, [64 nodes][64] atoms). bf16 products are exact in f32, so
+// k and v go in as they are. Each 32-node half of a chunk (two k16 steps on
+// each of v's two 64-column atoms) goes into fresh sums added to the
+// block's f32 sums with round-to-nearest adds, so that the tensor cores'
+// own accumulation, which may truncate, never chains more than 32 rows; the
+// two halves' sums are double-buffered, the second's MMAs running while
+// the first's are added. No block barrier a chunk: each warpgroup reads
+// only its own k atom, and a stage is freed when the eight consumer warps
+// are done with it. Dynamic shared memory: 4 stages of k's, v's and q's
+// two atoms (48 KB each), each consumer thread's twelve f64 column sums
+// (24 KB: its registers hold the MMAs' sums) and the mbarriers, 216 KB.
+constexpr int kRwRows = 64;                // node rows a staged chunk
+constexpr int kRwStages = 4;
+constexpr int kRwAtom = 64 * 128;          // bytes of a swizzled [64 nodes][64] bf16 atom
+constexpr int kRwStage = 6 * kRwAtom;      // k's two atoms, v's two, q's two
+constexpr size_t kRwSmem = kRwStages * kRwStage + kRdSums * sizeof(double) +
+                           2 * kRwStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kRdThreads, 1)
+la_reduce_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, long ldq, long ldk, long ldv, int N,
+                       int M, int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
+                       float* __restrict__ ksum_part, float* __restrict__ qsq_part,
+                       float* __restrict__ ksq_part, const __grid_constant__ RdMaps maps) {
+  using namespace tc;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem_raw;  // [stage][k atoms 0, 1; v atoms 0, 1; q atoms 0, 1]
+  double* colsum = reinterpret_cast<double*>(ring + kRwStages * kRwStage);  // see rd_total
+  uint64_t* full = reinterpret_cast<uint64_t*>(colsum + kRdSums);  // a stage has landed
+  uint64_t* empty = full + kRwStages;                               // a stage is read
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 64;
-  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
-  const int tiles_d = tc::cdiv(D, tc::kNodeTile);
-  const int tiles = tiles_m * tiles_d;
-  const int s = blockIdx.x / tiles;
-  const int dy = (blockIdx.x % tiles) / tiles_m;
-  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
-  const int d0 = dy * tc::kNodeTile;
-  const bool k_stats = dy == 0;
-  const bool q_stats = dy == (tiles_d > 1 ? 1 : 0);
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+  const int wg = warp >> 2;
+  const RdBlock<kRwRows> blk(N, M, D, rows_per_slice);
+  const int m0 = blk.m0;
+  const bool k_stats = blk.k_stats, q_stats = blk.q_stats;
 
-  auto stage = [&](int c) {
-    float* ks = ring + (c % kTfReduceStages) * kTfReduceStage;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    tc::stage_node_rows(ks, k, ldk, r0, r_end, m0, M, vec, tid);
-    tc::stage_node_rows(ks + tc::kNodeChunk, v, ldv, r0, r_end, d0, D, vec, tid);
-    if (q_stats) tc::stage_node_rows(ks + 2 * tc::kNodeChunk, q, ldq, r0, r_end, m0, M, vec, tid);
+  if (tid == 0) {
+    for (int i = 0; i < kRwStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kRdConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kRdConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (warp == kRdConsumers / 32) {
+      rd_produce<bf16, kRwRows, kRwStages, 2>(ring, full, empty, q, k, v, ldq, ldk, ldv, M, D,
+                                              blk, vec, lane, maps);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // acc[atom]: the block's sums of the warpgroup's 64 m rows by each
+  // 64-column atom of d; part[half][atom]: a chunk half's fresh sums
+  float acc[2][32], part[2][2][32];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = part[0][a][i] = part[1][a][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) colsum[i * kRdConsumers + tid] = 0.0;
+  const auto at = [](int r, int c) { return (c >> 6) * kRwAtom + sw128_offset(r, c & 63); };
+
+  for (int c = 0; c < blk.chunks; ++c) {
+    const int st = c % kRwStages;
+    mbar_wait(full + st, (c / kRwStages) & 1);
+    unsigned char* stage = ring + st * kRwStage;
+    unsigned char* k_atom = stage + wg * kRwAtom;  // the warpgroup's 64 m columns of k
+    const int valid = blk.valid(c);
+    if (valid < kRwRows) {  // the slice's last chunk: its k rows past the slice as zeros
+      for (int i = tid & 127; i < (kRwRows - valid) * 8; i += 128) {
+        *reinterpret_cast<uint4*>(k_atom + sw128_offset(valid + i / 8, (i % 8) * 8)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      rd_warpgroup_sync(wg);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) wgmma_fence_operand(part[half][a]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kk = 2 * half + ks;  // node rows 16 kk .. 16 kk + 15 of the chunk
+        const uint64_t da = sw128_desc_mn(k_atom + kk * 2048);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          wgmma_m64n64k16<1>(part[half][a], da,
+                             sw128_desc_mn(stage + (2 + a) * kRwAtom + kk * 2048), ks);
+        }
+      }
+      wgmma_commit();
+    }
+    // the chunk's column sums while its MMAs run
+    if (k_stats || q_stats) {
+      float cs[3][4];
+      rd_chunk_sums<bf16, kRwRows, 8>(stage, stage + 4 * kRwAtom, warp, lane, valid, k_stats,
+                                      q_stats, at, cs[0], cs[1], cs[2]);
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        if (i < 8 ? k_stats : q_stats) {
+          colsum[i * kRdConsumers + tid] += static_cast<double>(cs[i / 4][i % 4]);
+        }
+      }
+    }
+    // each half's sums, in order, into the block's
+    wgmma_wait<1>();
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      wgmma_fence_operand(part[0][a]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[0][a][i]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      wgmma_fence_operand(part[1][a]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[1][a][i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+
+  float* kp = kvs_part + static_cast<size_t>(blk.s) * M * D;
+  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (m >= M) continue;
+    float* row = kp + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = blk.d0 + 64 * a + 8 * j + 2 * (lane & 3);
+        const float x = acc[a][4 * j + 2 * h];
+        const float y = acc[a][4 * j + 2 * h + 1];
+        if (pairs && d + 1 < D) {
+          *reinterpret_cast<float2*>(row + d) = make_float2(x, y);
+        } else {
+          if (d < D) row[d] = x;
+          if (d + 1 < D) row[d + 1] = y;
+        }
+      }
+  }
+  rd_consumers_sync();
+  if (tid < kRdTile) {  // k's sums by threads 0-127, q's by 128-255
+    rd_store_col<8>(colsum, tid, m0, M, blk.s, k_stats, false, ksum_part, qsq_part, ksq_part);
+  } else {
+    rd_store_col<8>(colsum, tid - kRdTile, m0, M, blk.s, false, q_stats, ksum_part, qsq_part,
+                    ksq_part);
+  }
+}
+
+// The f32 reduce in 3xTF32 (wgmma m64n128k8 tf32 -> f32, A from registers):
+// the bf16 reduce's grid, tiles, producer and column sums over 32-node
+// chunks of f32 atoms ([32 nodes][32], the swizzle over f32 rows). tf32
+// wgmma reads no transposed 32-bit operand, so the two operands take two
+// routes. A = k^T: each warp's fragments (16 m rows by 8 nodes a k8 step)
+// are loaded from the staged node-major k atoms and split into tf32 hi +
+// lo as they load (zero past the slice). B = v: each consumer warpgroup
+// splits half of each chunk of v (64 d rows) into tf32 hi and lo atoms
+// written K-major ([128 d][32 nodes], 16 KB each, swizzled), the transpose
+// tf32 wgmma cannot do itself, into one of two buffers, which mbarriers
+// hand over (a buffer written, its MMAs done): chunk c + 1's split runs
+// while chunk c's MMAs do, and neither warpgroup waits for the other at a
+// block barrier, so that one's adds and A loads run under the other's
+// MMAs. Each product is lo*hi' + hi*lo' + hi*hi' (the cross terms first), a
+// chunk's twelve MMAs (four k8 steps) into fresh sums added to the block's
+// with round-to-nearest f32 adds: the parent's 32-row period. Each chunk's
+// MMAs are drained before the next are issued (sums kept in flight across
+// the loop's back edge make ptxas serialise the MMAs; A fragments loaded a
+// chunk ahead gained nothing). A stage is freed when the consumer warps
+// and the three column-sum warps are done with it. Dynamic shared memory:
+// 3 stages of k's, v's and q's four atoms (48 KB each), v's split hi and lo
+// of two chunks (64 KB), the column-sum warps' f64 sums and the mbarriers,
+// 217 KB.
+constexpr int kRfRows = 32;                 // node rows a staged chunk: one period
+constexpr int kRfStages = 3;
+constexpr int kRfAtom = kRfRows * 128;      // bytes of a swizzled [32 nodes][32] f32 atom
+constexpr int kRfStage = 12 * kRfAtom;      // k's four atoms, v's four, q's four
+constexpr int kRfPiece = kRdTile * 128;     // bytes of v's hi or lo, [128 d][32 nodes]
+constexpr int kRfSumWarps = 3;              // the producer warpgroup's warps 1-3
+constexpr int kRfSums = 3 * 4 * kRfSumWarps * 32;  // their f64 column sums (see rd_total)
+constexpr size_t kRfSmem = kRfStages * kRfStage + 4 * kRfPiece + kRfSums * sizeof(double) +
+                           (2 * kRfStages + 4) * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kRdThreads, 1)
+la_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, long ldq, long ldk, long ldv, int N, int M,
+                    int D, int rows_per_slice, int vec, float* __restrict__ kvs_part,
+                    float* __restrict__ ksum_part, float* __restrict__ qsq_part,
+                    float* __restrict__ ksq_part, const __grid_constant__ RdMaps maps) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem_raw;  // [stage][k atoms 0-3; v atoms 0-3; q atoms 0-3]
+  unsigned char* vsplit = ring + kRfStages * kRfStage;  // [buffer][hi, lo][128 d][32 nodes]
+  double* colsum = reinterpret_cast<double*>(vsplit + 4 * kRfPiece);    // see rd_total
+  uint64_t* full = reinterpret_cast<uint64_t*>(colsum + kRfSums);      // a stage has landed
+  uint64_t* empty = full + kRfStages;                                   // a stage is read
+  uint64_t* sfull = empty + kRfStages;  // a split buffer is written
+  uint64_t* sempty = sfull + 2;         // a split buffer's MMAs are done
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const RdBlock<kRfRows> blk(N, M, D, rows_per_slice);
+  const int m0 = blk.m0;
+  const bool k_stats = blk.k_stats, q_stats = blk.q_stats;
+
+  if (tid == 0) {
+    for (int i = 0; i < kRfStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kRdConsumers / 32 + kRfSumWarps);  // consumer and column-sum warps
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(sfull + b, kRdConsumers / 32);
+      mbar_init(sempty + b, kRdConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const auto at = [](int r, int c) { return (c >> 5) * kRfAtom + sw128_offset_f32(r, c & 31); };
+
+  if (warp >= kRdConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    const int pw = warp - kRdConsumers / 32;
+    if (pw == 0) {
+      rd_produce<float, kRfRows, kRfStages, 4>(ring, full, empty, q, k, v, ldq, ldk, ldv, M, D,
+                                               blk, vec, lane, maps);
+      return;
+    }
+    // warps 1-3: the column sums of row group pw - 1 of every chunk, in f64
+    // in shared memory (see rd_total)
+    double* sums = colsum + (pw - 1) * 32 + lane;  // [quantity][e] kRfSumWarps * 32 apart
+#pragma unroll
+    for (int i = 0; i < 12; ++i) sums[i * kRfSumWarps * 32] = 0.0;
+    for (int c = 0; c < blk.chunks; ++c) {
+      const int st = c % kRfStages;
+      mbar_wait(full + st, (c / kRfStages) & 1);
+      if (k_stats || q_stats) {
+        const unsigned char* stage = ring + st * kRfStage;
+        float cs[3][4];
+        rd_chunk_sums<float, kRfRows, kRfSumWarps>(stage, stage + 8 * kRfAtom, pw - 1, lane,
+                                                   blk.valid(c), k_stats, q_stats, at, cs[0],
+                                                   cs[1], cs[2]);
+#pragma unroll
+        for (int i = 0; i < 12; ++i) {
+          if (i < 8 ? k_stats : q_stats) {
+            sums[i * kRfSumWarps * 32] += static_cast<double>(cs[i / 4][i % 4]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    if (k_stats || q_stats) {  // uniform over the block
+      asm volatile("bar.sync 4, %0;\n" ::"n"(kRfSumWarps * 32) : "memory");
+      for (int col = (pw - 1) * 32 + lane; col < kRdTile; col += kRfSumWarps * 32) {
+        rd_store_col<kRfSumWarps>(colsum, col, m0, M, blk.s, k_stats, q_stats, ksum_part, qsq_part,
+                                  ksq_part);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = warp & 3;
+  // the warp's A rows 16 wq + g (+ 8 i) of the warpgroup's 64: m = m0 + 64
+  // wg + 16 wq + g, in k atom 2 wg + wq / 2 at column 16 (wq % 2) + g; a k8
+  // step s's node rows 8 s + t (+ 4 h) keep the swizzle of rows t (+ 4 h),
+  // so their byte offsets are a_off[h][i] + 1024 s
+  int a_off[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      a_off[h][i] = (2 * wg + (wq >> 1)) * kRfAtom +
+                    sw128_offset_f32(t + 4 * h, 16 * (wq & 1) + g + 8 * i);
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  // the warpgroup's half of chunk c's v (d rows 64 wg .. + 63) into buffer
+  // c % 2 as tf32 hi + lo, K-major, once its stage has landed and the
+  // buffer's MMAs two chunks back are done (zero past the slice): thread t
+  // takes nodes 4 (t % 8) .. + 3 by d 4 (t / 8) .. + 3, four 16-byte loads
+  // of node rows, and stores each d row's four nodes as 16 bytes of hi and
+  // of lo (the eight lanes of a store's phase hit distinct banks)
+  const int nq = tid & 7;
+  const int dq = tid >> 3;
+  auto split = [&](int c) {
+    const int st = c % kRfStages;
+    const int b = c & 1;
+    mbar_wait(full + st, (c / kRfStages) & 1);
+    if (c >= 2) mbar_wait(sempty + b, (c / 2 - 1) & 1);
+    const unsigned char* vs = ring + st * kRfStage + 4 * kRfAtom;
+    unsigned char* hb = vsplit + b * 2 * kRfPiece;
+    const int valid = blk.valid(c);
+    float x[4][4];  // [node][d]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      rd_load4(reinterpret_cast<const float*>(vs + at(4 * nq + i, 4 * dq)), 4 * nq + i < valid,
+               x[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint4 hi, lo;
+      split_tf32(x[0][j], hi.x, lo.x);
+      split_tf32(x[1][j], hi.y, lo.y);
+      split_tf32(x[2][j], hi.z, lo.z);
+      split_tf32(x[3][j], hi.w, lo.w);
+      const int off = sw128_offset_f32(4 * dq + j, 4 * nq);
+      *reinterpret_cast<uint4*>(hb + off) = hi;
+      *reinterpret_cast<uint4*>(hb + kRfPiece + off) = lo;
+    }
+    fence_proxy_async();  // the split's stores, for the MMAs
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sfull + b);
   };
 
-  float acc[2][8][4];
+  if (blk.chunks > 0) split(0);
+  for (int c = 0; c < blk.chunks; ++c) {
+    const int st = c % kRfStages;
+    const int b = c & 1;
+    const unsigned char* stage = ring + st * kRfStage;  // landed: split(c) waited for it
+    const int valid = blk.valid(c);
+    // the chunk's A fragments, split into tf32 hi + lo: node rows 8 s + t
+    // (+ 4) of k8 step s
+    unsigned ah[4][4], al[4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int s8 = 0; s8 < 4; ++s8) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < 4; ++i) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const int h = i >> 1;
+        const float x = 8 * s8 + t + 4 * h < valid
+                            ? *reinterpret_cast<const float*>(stage + a_off[h][i & 1] + 1024 * s8)
+                            : 0.f;
+        split_tf32(x, ah[s8][i], al[s8][i]);
+      }
+    }
+    mbar_wait(sfull + b, (c / 2) & 1);  // both halves of the chunk's v split
+    wgmma_fence_operand(part);
+    wgmma_fence();
+    const unsigned char* hb = vsplit + b * 2 * kRfPiece;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  // per column: thread t sums column t % 128 over the chunk rows of parity
-  // t / 128, in f64 (a slice holds thousands of rows)
-  const int col = tid & (tc::kNodeTile - 1);
-  const int par = tid / tc::kNodeTile;
-  double ksum = 0.0, ksq = 0.0, qsq = 0.0;
-
-  for (int c = 0; c < kTfReduceStages - 1; ++c) {
-    if (c < chunks) stage(c);
-    tc::cp_async_commit();
+    for (int s8 = 0; s8 < 4; ++s8) {
+      const unsigned char* bp = hb + 32 * s8;
+      wgmma_m64n128k8_tf32(part, al[s8], sw128_desc(bp), s8);           // lo*hi', fresh first
+      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp + kRfPiece), 1);  // hi*lo'
+      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp), 1);             // hi*hi'
+    }
+    wgmma_commit();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);  // the stage's k is in registers
+    // while the MMAs run: the warpgroup's half of the next chunk's split
+    if (c + 1 < blk.chunks) split(c + 1);
+    wgmma_wait<0>();
+    wgmma_fence_operand(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sempty + b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
   }
-  for (int c = 0; c < chunks; ++c) {
-    tc::cp_async_wait<kTfReduceStages - 2>();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1 and v's tiles
-    if (c + kTfReduceStages - 1 < chunks) stage(c + kTfReduceStages - 1);
-    tc::cp_async_commit();
-    const float* ks = ring + (c % kTfReduceStages) * kTfReduceStage;
-    const float* vs = ks + tc::kNodeChunk;
-    // v as tf32 hi + lo, 4 columns of one row a thread step (rows past the
-    // slice were staged as zeros)
-#pragma unroll
-    for (int it = 0; it < kNodeRows * tc::kNodeTile / 4 / tc::kNodeThreads; ++it) {
-      const int i = tid + it * tc::kNodeThreads;
-      const int r = i / (tc::kNodeTile / 4);
-      const int cs = (i % (tc::kNodeTile / 4)) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(vs + r * kNodeStride + cs);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      unsigned hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tc::split_tf32(xs[e], hi[e], lo[e]);
-      *reinterpret_cast<uint4*>(v_hi + r * kNodeStride + cs) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(v_lo + r * kNodeStride + cs) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
-    __syncthreads();
-    tc::node_mma_chunk_tf32(acc, ks, v_hi, v_lo, wm, wn, lane);
-    if (k_stats) {
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        const double x = ks[r * kNodeStride + col];
-        ksum += x;
-        ksq = fma(x, x, ksq);
-      }
-    }
-    if (q_stats) {
-      const float* qs = ks + 2 * tc::kNodeChunk;
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        const double x = qs[r * kNodeStride + col];
-        qsq = fma(x, x, qsq);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
 
-  tc::store_node_tile(kvs_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn,
-                      lane);
-  if (k_stats || q_stats) {  // uniform over the block
-    if (par == 1) {
-      red[0][col] = ksum;
-      red[1][col] = ksq;
-      red[2][col] = qsq;
-    }
-    __syncthreads();
-    if (par == 0 && m0 + col < M) {
-      const size_t o = static_cast<size_t>(s) * M + m0 + col;
-      if (k_stats) {
-        ksum_part[o] = static_cast<float>(ksum + red[0][col]);
-        ksq_part[o] = static_cast<float>(ksq + red[1][col]);
+  float* kp = kvs_part + static_cast<size_t>(blk.s) * M * D;
+  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 16 * warp + g + 8 * h;
+    if (m >= M) continue;
+    float* row = kp + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int d = blk.d0 + 8 * j + 2 * t;
+      const float x = acc[4 * j + 2 * h];
+      const float y = acc[4 * j + 2 * h + 1];
+      if (pairs && d + 1 < D) {
+        *reinterpret_cast<float2*>(row + d) = make_float2(x, y);
+      } else {
+        if (d < D) row[d] = x;
+        if (d + 1 < D) row[d + 1] = y;
       }
-      if (q_stats) qsq_part[o] = static_cast<float>(qsq + red[2][col]);
     }
   }
 }
@@ -1105,8 +1482,8 @@ void launch_apply(const void* q, const void* v, long ldq, long ldv, void* out, l
 
 // dtype: 0 = float32, 1 = bfloat16. Scratch: kvs_part [slices, M, D],
 // ksum_part, qsq_part, ksq_part [slices, M]. Outputs: kvs [M, D], ksum [M],
-// scal [4] = (qsq, ksq, inv, 0). Both types run on the tensor cores at every
-// width (bf16: la_reduce_tc_kernel; f32: la_reduce_tf32_kernel, 3xTF32),
+// scal [4] = (qsq, ksq, inv, 0). Both types run on warpgroup MMAs at every
+// width (bf16: la_reduce_wgmma_kernel; f32: la_reduce_wg_kernel, 3xTF32),
 // then la_finish_kernel and la_scalars_kernel. Returns the first
 // cudaError_t of the launches, each checked as it is made.
 extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long ldq, long ldk,
@@ -1116,30 +1493,46 @@ extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long l
                              float* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte copies where widths, strides and bases allow
+  // tensor maps where the copy engine can read the rows (16-byte aligned
+  // bases and row strides; it clips the widths), else the producer's lanes
+  // copy them
   const int per = dtype == 0 ? 4 : 8;
-  const bool vec = M % per == 0 && D % per == 0 && ldq % per == 0 && ldk % per == 0 &&
-                   ldv % per == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
+  const bool vec = ldq % per == 0 && ldk % per == 0 && ldv % per == 0 && aligned16(q) &&
+                   aligned16(k) && aligned16(v);
+  RdMaps maps = {};
   cudaError_t err;
+  if (vec) {
+    const CUtensorMapDataType type =
+        dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const int elem = dtype == 0 ? 4 : 2;
+    const int box_cols = 128 / elem;  // one 128-byte swizzle row
+    const int box_rows = dtype == 0 ? kRfRows : kRwRows;
+    struct Rows { CUtensorMap* map; const void* base; int width; long ld; };
+    const Rows rows[3] = {{&maps.q, q, M, ldq}, {&maps.k, k, M, ldk}, {&maps.v, v, D, ldv}};
+    for (const Rows& r : rows) {
+      err = tc::encode_rows_map(r.map, r.base, type, elem, N, r.width, r.ld, box_cols, box_rows);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  const int blocks = slices * tc::cdiv(M, kRdTile) * tc::cdiv(D, kRdTile);
   if (dtype == 0) {
-    err = cudaFuncSetAttribute(la_reduce_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kTfReduceSmem));
+    err = cudaFuncSetAttribute(la_reduce_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kRfSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    la_reduce_tf32_kernel<<<slices * tiles, tc::kNodeThreads, kTfReduceSmem, st>>>(
+    la_reduce_wg_kernel<<<blocks, kRdThreads, kRfSmem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         ldq, ldk, ldv, N, M, D, rows_per_slice, static_cast<int>(vec), kvs_part, ksum_part,
-        qsq_part, ksq_part);
+        qsq_part, ksq_part, maps);
   } else {
     using bf16 = __nv_bfloat16;
-    const int smem = kReduceStages * kReduceStage * static_cast<int>(sizeof(bf16));
-    err = cudaFuncSetAttribute(la_reduce_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(la_reduce_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kRwSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    la_reduce_tc_kernel<<<slices * tiles, tc::kNodeThreads, smem, st>>>(
+    la_reduce_wgmma_kernel<<<blocks, kRdThreads, kRwSmem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         ldq, ldk, ldv, N, M, D, rows_per_slice, static_cast<int>(vec), kvs_part, ksum_part,
-        qsq_part, ksq_part);
+        qsq_part, ksq_part, maps);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

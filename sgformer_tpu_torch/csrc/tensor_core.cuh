@@ -1,40 +1,35 @@
 // Tensor-core building blocks of the linear-attention kernels
 // (linear_attention.cu, linear_attention_bwd.cu), sm_90a:
 //
-// - PTX wrappers: ldmatrix (plain and transposed), mma.sync m16n8k16 bf16
-//   -> f32, cp.async of 16 and 4 bytes; wgmma m64n64k16 and m64n128k16
-//   bf16 -> f32 with their fences and the 128-byte-swizzled shared-memory
-//   layout and descriptors they read, K-major (the forward apply's, the bf16
-//   backward apply's and rows pass's) and, for m64n64k16, MN-major (the
-//   bf16 backward P pass's node-axis operands); wgmma m64n64k8 tf32 -> f32
-//   with A from registers and B from the same swizzle over f32 rows (the
-//   f32 backward apply's and rows pass's); mbarriers, the copy engine's
-//   (TMA) bulk and tensor-map copies between device and shared memory, and
-//   setmaxnreg (the warp-specialised kernels: the bf16 backward, the f32
-//   forward apply);
+// - PTX wrappers: cp.async of 16 and 4 bytes; wgmma m64n64k16 and
+//   m64n128k16 bf16 -> f32 with their fences and the 128-byte-swizzled
+//   shared-memory layout and descriptors they read, K-major (the forward
+//   apply's, the bf16 backward apply's and rows pass's) and, for m64n64k16,
+//   MN-major (the node-axis operands of the bf16 forward reduce and backward
+//   P pass); wgmma m64n64k8 and m64n128k8 tf32 -> f32 with A from registers
+//   and B from the same swizzle over f32 rows (the f32 forward apply's and
+//   reduce's, the f32 backward apply's and rows pass's); mbarriers, the copy
+//   engine's (TMA) bulk and tensor-map copies between device and shared
+//   memory, and setmaxnreg (the warp-specialised kernels: the bf16 backward,
+//   the f32 forward apply, both forward reduces);
 // - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
 //   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
 //   kernels');
 // - the split of kvs^T into bf16 or tf32 pieces, the B operand of
 //   a = q @ kvs in the forward apply and the backward reduce's rows pass;
-// - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n], with A and
-//   B held node-major in shared memory (a chunk of kNodeRows node rows of
-//   kNodeTile columns each), in bf16 and in 3xTF32. It is kvs = k^T v of the
-//   forward reduce and P = q^T (g / den) of the backward reduce: the
-//   [N, M]^T x [N, D] product that the TPU kernels accumulate over their
-//   sequential grid and that the card splits over slices of N;
+// - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n] on mma.sync
+//   in 3xTF32, with A and B held node-major in shared memory (a chunk of
+//   kNodeRows node rows of kNodeTile columns each): P = q^T (g / den) of the
+//   f32 backward reduce, the [N, M]^T x [N, D] product that the TPU kernel
+//   accumulates over its sequential grid and that the card splits over
+//   slices of N (the forward reduces' k^T v runs on warpgroup MMAs in
+//   linear_attention.cu);
 // - the row kernels' core for f32 A rows in 3xTF32 on warpgroup MMAs: A
 //   rows staged once, a split B streamed in 64-deep chunks, a 128 x 64
 //   output tile at a time (wg_column_tile: the f32 backward apply and rows
 //   pass); the epilogue's staged tile and 8-column row accesses; the
 //   division by a row's reciprocal (div_by) and the tensor maps of row
 //   tiles (encode_rows_map).
-//
-// Both operands are node-major, so the MMA's A fragment (row-major m x k)
-// and B fragment ("col", k x n) are each the transpose of what shared memory
-// holds: ldmatrix.trans loads them. Rows are kNodeStride = kNodeTile + 8
-// bf16 apart (272 bytes), so the 8 row addresses of one 8x8 matrix fall in
-// distinct 16-byte bank groups.
 
 #pragma once
 
@@ -52,27 +47,6 @@ using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// registers only, so not volatile: the compiler may interleave the MMAs
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 bytes from global to shared; zeros where !valid (src is then not read)
@@ -228,7 +202,8 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
 
 // c += a b over a 16 x 8 x 8 tile: tf32 in (a: a0 (g, t), a1 (g + 8, t),
 // a2 (g, t + 4), a3 (g + 8, t + 4); b: b0 (k = t, n = g), b1 (t + 4, g),
-// with g = lane / 4, t = lane % 4), f32 sums laid out as mma_bf16's
+// with g = lane / 4, t = lane % 4), f32 sums c0 (g, 2t), c1 (g, 2t + 1),
+// c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
@@ -242,11 +217,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
 // kNodeTile x kNodeTile output tile over a slice of node rows: 8 warps in a
 // 4 (m) x 2 (n) grid of 32 x 64 warp tiles, 2 m16 x 8 n8 MMA tiles each.
 
-constexpr int kNodeRows = 32;                   // node rows per staged chunk: two k16 steps
+constexpr int kNodeRows = 32;                   // node rows per staged chunk: four k8 steps
 constexpr int kNodeTile = 128;                  // output tile, m and n
-constexpr int kNodeStride = kNodeTile + 8;      // bf16 per staged row
+constexpr int kNodeStride = kNodeTile + 8;      // elements per staged row
 constexpr int kNodeThreads = 256;
-constexpr int kNodeChunk = kNodeRows * kNodeStride;  // bf16 of one staged operand chunk
+constexpr int kNodeChunk = kNodeRows * kNodeStride;  // elements of one staged operand chunk
 
 // Rows [r0, r0 + kNodeRows) of X (ld elements apart) at columns
 // [c0, c0 + kNodeTile) into S [kNodeRows][kNodeStride], zeros at rows from
@@ -282,69 +257,10 @@ __device__ __forceinline__ void stage_node_rows(T* S, const T* __restrict__ X, l
   }
 }
 
-// acc += A^T B over one staged chunk, for the warp tile at (wm, wn):
-// acc[mt][nt] = {(m, n), (m, n+1), (m+8, n), (m+8, n+1)} with m = wm + mt*16
-// + lane/4, n = wn + nt*8 + 2*(lane%4). B is given in kHalves bf16 pieces
-// (hi, lo of an f32 operand), each one MMA into the same sums.
-//
-// The chunk's products are summed by the MMAs into fresh accumulators, 16
-// columns at a time, and each chunk sum is added to acc with an f32
-// round-to-nearest add. A slice chains thousands of rows into one sum: the
-// tensor cores' own accumulation, which may truncate, then only ever adds a
-// chunk's 32 rows, so a bias of the MMA's rounding cannot grow with the
-// slice (it would be ~1e-5 of a sum of positive terms over 160 chained MMAs).
-template <int kHalves>
-__device__ __forceinline__ void node_mma_chunk(float (&acc)[2][8][4], const bf16* As,
-                                               const bf16* const (&Bs)[kHalves], int wm, int wn,
-                                               int lane) {
-  constexpr int kSteps = kNodeRows / 16;
-  const int r = lane & 7;
-  const int j = lane >> 3;  // which 8x8 matrix of the x4 this lane addresses
-  // A (m x k) of every k-step: matrix j at m + (j & 1) * 8, k + (j >> 1) * 8
-  unsigned a[kSteps][2][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldmatrix_x4_trans(a[ks][mt], As + (ks * 16 + (j >> 1) * 8 + r) * kNodeStride + wm +
-                                       mt * 16 + (j & 1) * 8);
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    float part[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][t][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int h = 0; h < kHalves; ++h) {
-        // B (k x n), two n8 tiles: matrix j at k + (j & 1) * 8, n + (j >> 1) * 8
-        unsigned b[4];
-        ldmatrix_x4_trans(b, Bs[h] + (ks * 16 + (j & 1) * 8 + r) * kNodeStride + wn + np * 16 +
-                                 (j >> 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(part[mt][0], a[ks][mt], b[0], b[1]);
-          mma_bf16(part[mt][1], a[ks][mt], b[2], b[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][2 * np + t][e] = __fadd_rn(acc[mt][2 * np + t][e], part[mt][t][e]);
-  }
-}
-
 // The node-axis contraction in 3xTF32: acc += A^T B over one staged chunk
-// of kNodeRows rows for the warp tile at (wm, wn), acc laid out as
-// node_mma_chunk's. A is the f32 chunk [kNodeRows][kNodeStride], split into
+// of kNodeRows rows for the warp tile at (wm, wn): acc[mt][nt] = {(m, n),
+// (m, n+1), (m+8, n), (m+8, n+1)} with m = wm + mt*16 + lane/4, n = wn +
+// nt*8 + 2*(lane%4). A is the f32 chunk [kNodeRows][kNodeStride], split into
 // tf32 hi + lo as its fragments load, all of the chunk's at once; B is given
 // as its tf32 hi and lo chunks. Rows are kNodeStride = 136 f32 apart, 8
 // banks, so each fragment load's (k = lane % 4, m or n = lane / 4)
@@ -597,6 +513,43 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsign
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 128] = A[64 x 8] B[8 x 128] + (scale_d ? d : 0), tf32 in, f32
+// sums: A from registers as wgmma_m64n64k8_tf32's, B K-major ([128 n][32
+// k] rows of 128 bytes in the swizzle, one 16 KB atom), d laid out as
+// wgmma_m64n128k16's (j < 16).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const unsigned (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

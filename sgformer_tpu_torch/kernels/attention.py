@@ -23,23 +23,25 @@ plain path; the JAX Pallas path scales each head by its own norms, which
 agrees only at H = 1.
 
 On bf16 inputs every kernel's products run on the tensor cores, with f32
-sums: :func:`reduce`'s kᵀv (``la_reduce_tc_kernel``, mma.sync: exact bf16
-products, fixed-order f32 sums over slices of N), :func:`apply`'s q @ kvs
-(``la_apply_tc_kernel``, warpgroup MMAs (wgmma) from swizzled shared
-memory: kvs split into bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and
-qᵀ(g/den) (``la_bwd_rows_wgmma_kernel``, ``la_bwd_reduce_wgmma_kernel``,
-wgmma: kvs split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's
-operands read node-major) and :func:`bwd_apply`'s three products
+sums: :func:`reduce`'s kᵀv (``la_reduce_wgmma_kernel``, warpgroup MMAs
+(wgmma) reading k and v node-major from swizzled shared memory: exact bf16
+products, fresh sums every 32 rows, fixed-order f32 sums over slices of
+N), :func:`apply`'s q @ kvs (``la_apply_tc_kernel``, wgmma: kvs split into
+bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and qᵀ(g/den)
+(``la_bwd_rows_wgmma_kernel``, ``la_bwd_reduce_wgmma_kernel``, wgmma: kvs
+split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's operands
+read node-major) and :func:`bwd_apply`'s three products
 (``la_bwd_apply_wgmma_kernel``, wgmma: kvs and P split into hi + lo); the
-three backward kernels are fed by the copy engine (TMA) from a producer
-warp. On f32 inputs every kernel runs in 3xTF32 (each f32 operand split
-into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32 sums): on
-mma.sync m16n8k8 tf32 the reduce (``la_reduce_tf32_kernel``) and the
-backward reduce's P pass (``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs
-(wgmma m64n64k8 tf32, A from registers) the apply (``la_apply_wg_kernel``,
-fed by TMA from a producer warpgroup), the backward reduce's rows pass
-(``la_bwd_rows_wg_kernel``) and the backward apply
-(``la_bwd_apply_wg_kernel``). Both reduces' tiles
+reduce and the three backward kernels are fed by the copy engine (TMA)
+from a producer warp. On f32 inputs every kernel runs in 3xTF32 (each f32
+operand split into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32
+sums): on mma.sync m16n8k8 tf32 the backward reduce's P pass
+(``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs (wgmma tf32, A from
+registers) the reduce (``la_reduce_wg_kernel``: kᵀ split as its
+fragments load, v split once a chunk into K-major tf32 hi + lo tiles), the
+apply (``la_apply_wg_kernel``), both fed by TMA from a producer
+warpgroup, the backward reduce's rows pass (``la_bwd_rows_wg_kernel``) and
+the backward apply (``la_bwd_apply_wg_kernel``). Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
 full width in shared memory run on the CUDA cores where it does not fit
 (the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
@@ -72,12 +74,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _ROWS = 32
 _WAVES = 4  # CUDA-core reduce blocks per SM to aim for
-# the tensor-core reduces: 128 x 128 output tiles over 32-row chunks, one
-# wave of resident blocks: two on each SM in bf16, one for the 3xTF32 ones
-# (a chunk's A fragments stay in registers)
+# the tensor-core reduces: 128 x 128 output tiles over chunks of node rows,
+# one wave of resident blocks, one on each SM in both types (the warpgroup
+# designs' consumers and producer hold an SM's registers, and their rings
+# most of its shared memory; the f32 backward P pass keeps a chunk's A
+# fragments in registers)
 _TC_TILE = 128
-_TC_BLOCKS_PER_SM = {torch.bfloat16: 2, torch.float32: 1}
-_TENSOR_CORES = "tensor cores"  # how every tensor-core design's name starts
+_TC_BLOCKS_PER_SM = 1
 _CUDA_CORES = "CUDA cores (f32 FMA)"
 
 
@@ -211,18 +214,18 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _slices(n: int, m: int, d: int, device: torch.device,
-            tensor_cores: bool, dtype: torch.dtype) -> tuple[int, int]:
+            tensor_cores: bool) -> tuple[int, int]:
     """(slices, rows per slice) of the N rows for a reduce grid on
     ``device``; slice length is a multiple of the 32-row step. The CUDA-core
     grid (64 x 64 tiles) fills the card about _WAVES times over; the
     tensor-core grid (128 x 128 tiles) is one wave of the resident blocks
-    (_TC_BLOCKS_PER_SM[dtype] an SM): in bf16 at the arxiv shape (N =
-    169,343, M = D = 256, 132 SMs) 66 slices of 2,592 rows, whose f32
-    partials of kvs or P take 66 * 256 * 256 * 4 = 17.3 MB."""
+    (_TC_BLOCKS_PER_SM an SM): at the arxiv shape (N = 169,343, M = D
+    = 256, 132 SMs) 33 slices of 5,152 rows, whose f32 partials of kvs or P
+    take 33 * 256 * 256 * 4 = 8.7 MB."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if tensor_cores:
         tiles = _cdiv(m, _TC_TILE) * _cdiv(d, _TC_TILE)
-        blocks = _TC_BLOCKS_PER_SM[dtype] * sms
+        blocks = _TC_BLOCKS_PER_SM * sms
     else:
         tiles = _cdiv(m, _TILE) * _cdiv(d, _TILE)
         blocks = _WAVES * sms
@@ -238,8 +241,10 @@ def reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     so every call runs one."""
     del m, d
     if dtype == torch.float32:
-        return "tensor cores (mma.sync 3xTF32: k and v as tf32 hi + lo, f32 sums)"
-    return "tensor cores (mma.sync bf16, f32 sums)"
+        return ("tensor cores (wgmma 3xTF32: k and v as tf32 hi + lo, v split K-major, f32 "
+                "sums; la_reduce_wg_kernel, fed by TMA from a producer warpgroup)")
+    return ("tensor cores (wgmma bf16, k and v read node-major, f32 sums; "
+            "la_reduce_wgmma_kernel, fed by TMA from a producer warpgroup)")
 
 
 def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
@@ -312,8 +317,7 @@ def reduce_cuda(q, k, v, guard):
         raise ValueError("linear attention needs at least one node")
 
     m, d = q.shape[1], v.shape[1]
-    slices, rows = _slices(n, m, d, q.device,
-                           reduce_design(q.dtype, m, d).startswith(_TENSOR_CORES), q.dtype)
+    slices, rows = _slices(n, m, d, q.device, True)  # every width on the tensor cores
     f32 = dict(dtype=torch.float32, device=q.device)
     kvs_part = torch.empty(slices, m, d, **f32)
     ksum_part = torch.empty(slices, m, **f32)
@@ -399,7 +403,7 @@ def bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard: bool = False):
         raise ValueError("linear attention needs at least one node")
 
     scratch = _bwd_reduce_scratch(q.dtype, m, d)
-    slices, rows_per_slice = _slices(n, m, d, q.device, scratch > 0, q.dtype)
+    slices, rows_per_slice = _slices(n, m, d, q.device, scratch > 0)
     f32 = dict(dtype=torch.float32, device=q.device)
     rows = torch.empty(2, n, **f32)
     dinv_part = torch.empty(_cdiv(n, _TILE), dtype=torch.float64, device=q.device)

@@ -110,6 +110,28 @@ def apply_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
     return q, v, kvs, ksum, scal, torch.ones((), device=dev)
 
 
+def reduce_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
+    """Inputs of the linear-attention reduce, (q, k, v) on ``gen``'s device,
+    on which a 3xTF32 kᵀv that drops a lo piece misses the f32 tolerance.
+
+    Every value is positive, so no sum cancels, and lies a fraction w of a
+    tf32 step above a tf32 value, 2^e (1 + (j + w) / 1024) with e in
+    {-1, 0}, j < 1024 and w uniform in [0.05, 0.45]: rounding to tf32
+    (nearest) takes each one down, by ~1.6e-4 of it on average, so a dropped
+    lo piece of k or of v biases every entry of kᵀv by ~16 times the f32
+    tolerance (1e-5 of its scale), where the errors of the split with its lo
+    pieces (~2^-21 of each term) average out far under it."""
+    dev = gen.device
+
+    def draw(*shape):
+        j = torch.randint(0, 1024, shape, generator=gen, device=dev)
+        w = 0.05 + 0.4 * torch.rand(*shape, generator=gen, device=dev)
+        e = torch.randint(-1, 1, shape, generator=gen, device=dev)
+        return (torch.ldexp(1.0 + (j + w) / 1024, e.float())).to(dtype)
+
+    return draw(n, m), draw(n, m), draw(n, d)
+
+
 def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
     """Inputs of the linear-attention backward apply, (q, k, v, g, kvs, ksum,
     scal, n_total, P, ds, dinv, rows) in its argument order, on ``gen``'s

@@ -450,28 +450,60 @@ def _runs(n, rows):
     return [range(s, min(s + rows, n)) for s in range(0, n, rows)]
 
 
+# the forward reduces' fresh-sum period (node rows a fresh sum of kᵀv
+# holds), their staged chunks of node rows and the row groups of their
+# column sums (bf16: the eight consumer warps; f32: three warps of the
+# producer warpgroup)
+_NODE_PERIOD = 32
+_NODE_CHUNK = {torch.bfloat16: 64, torch.float32: 32}
+_SUM_GROUPS = {torch.bfloat16: 8, torch.float32: 3}
+
+
+def _column_sums(x, chunk, square, groups):
+    """Per column of x [rows, m] (one slice, f32 values), its sum (or sum of
+    squares) as the forward reduces form it: each ``chunk`` rows from the
+    slice's start, the rows of each of ``groups`` row groups (r % groups) in
+    one f32 chain (each square added by one rounding, as an FMA adds it),
+    made an f64 and added to the group's f64 sum; at the end the groups'
+    sums added in order. Returns f64."""
+    sums = torch.zeros(groups, x.shape[1], dtype=torch.float64)
+    for c0 in range(0, x.shape[0], chunk):
+        rows = x[c0:c0 + chunk].double()
+        for rg in range(groups):
+            chain = torch.zeros(x.shape[1], dtype=torch.float64)
+            for y in rows[rg::groups]:
+                chain = (chain + (y * y if square else y)).float().double()
+            sums[rg] = sums[rg] + chain
+    out = torch.zeros(x.shape[1], dtype=torch.float64)
+    for rg in range(groups):
+        out = out + sums[rg]
+    return out
+
+
 def _tensor_core_reduce(q, k, v, guard, rows=96):
-    """The bf16 reduce's arithmetic (``la_reduce_tc_kernel`` and its finish)
-    written plainly: the bf16 rows as they are, so every product of k and v
-    is exact in f32; each 32-row chunk's kᵀv summed alone and added to its
-    slice's f32 sum, the slices of ``rows`` nodes added in slice order in
-    f32; Σk, ‖k‖² and ‖q‖² per column and slice in f64, rounded to f32 and
-    added over slices (ksum in f32, the norms in f64). Returns kvs, ksum and
-    scal as :func:`reduce_plain` does."""
+    """The bf16 reduce's arithmetic (``la_reduce_wgmma_kernel`` and its
+    finish) written plainly: the bf16 rows as they are, so every product of
+    k and v is exact in f32; each 32-row period's kᵀv summed alone (the
+    MMAs' fresh sums) and added to its slice's f32 sum, the slices of
+    ``rows`` nodes added in slice order in f32; Σk, ‖k‖² and ‖q‖² per column
+    and slice through the consumers' f32 chains (:func:`_column_sums`, 64-row
+    chunks, eight row groups), rounded to f32 and added over slices (ksum in
+    f32, the norms in f64). Returns kvs, ksum and scal as :func:`reduce_plain` does."""
     qf, kf, vf = q.float(), k.float(), v.float()
     n, m, d = q.shape[0], q.shape[1], v.shape[1]
     kvs, ksum = torch.zeros(m, d), torch.zeros(m)
     qsq = ksq = torch.zeros((), dtype=torch.float64)
+    sums = dict(chunk=_NODE_CHUNK[torch.bfloat16], groups=_SUM_GROUPS[torch.bfloat16])
     for sl in _runs(n, rows):
         part = torch.zeros(m, d)
-        for ch in _runs(len(sl), 32):
+        for ch in _runs(len(sl), _NODE_PERIOD):
             r = slice(sl.start + ch.start, sl.start + ch.stop)
             part = part + kf[r].T @ vf[r]
         kvs = kvs + part
         r = slice(sl.start, sl.stop)
-        ksum = ksum + kf[r].double().sum(0).float()
-        qsq = qsq + qf[r].double().square().sum(0).float().double().sum()
-        ksq = ksq + kf[r].double().square().sum(0).float().double().sum()
+        ksum = ksum + _column_sums(kf[r], square=False, **sums).float()
+        qsq = qsq + _column_sums(qf[r], square=True, **sums).float().double().sum()
+        ksq = ksq + _column_sums(kf[r], square=True, **sums).float().double().sum()
     q_sq, k_sq = qsq.float(), ksq.float()
     scal = torch.stack([q_sq, k_sq, attn._inv(q_sq, k_sq, guard), torch.zeros_like(q_sq)])
     return kvs, ksum, scal
@@ -644,22 +676,24 @@ def _round_toward_zero(x):
     return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def _mm_3xtf32_sums(a, b, period):
-    """a @ b as the f32 row kernels' warpgroup MMAs sum it (``tc::wg_column_tiles``):
-    each operand split into tf32 hi + lo; k in steps of 8, each step's
-    lo*hi, hi*lo and hi*hi added in that order into the period's sum, each
-    add the step's products summed exactly and then rounded toward zero to
-    f32 (the tensor cores' own accumulation, which behaves as if it
-    truncates); every ``period`` deep the sum starts afresh and is added to
-    the running f32 sum rounded to nearest. Returns f64."""
+def _mm_3xtf32_sums(a, b, period, lo=True):
+    """a @ b as the f32 kernels' warpgroup MMAs sum it (``tc::wg_column_tile``;
+    with the node axis as k, ``la_reduce_wg_kernel``): each operand split
+    into tf32 hi + lo; k in steps of 8, each step's lo*hi, hi*lo and hi*hi
+    added in that order into the period's sum, each add the step's products
+    summed exactly and then rounded toward zero to f32 (the tensor cores'
+    own accumulation, which behaves as if it truncates); every ``period``
+    deep the sum starts afresh and is added to the running f32 sum rounded
+    to nearest. ``lo=False``: hi*hi alone, one TF32 product. Returns f64."""
     a_hi, a_lo = (x.double() for x in _split_tf32(a))
     b_hi, b_lo = (x.double() for x in _split_tf32(b))
+    products = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)) if lo else ((a_hi, b_hi),)
     out = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, a.shape[1], period):
         part = torch.zeros_like(out)
         for k in range(k0, min(k0 + period, a.shape[1]), 8):
             s = slice(k, k + 8)
-            for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            for x, y in products:
                 part = _round_toward_zero(part.double() + x[:, s] @ y[s])
         out = out + part
     return out.double()
@@ -991,16 +1025,20 @@ def test_tf32_backward_matches_jax_pallas_interpret(masked):
 
 
 def _tf32_forward(q, k, v, n_total, guard=False, lo=True):
-    """The f32 forward reduce (``la_reduce_tf32_kernel``) and apply
-    (``la_apply_wg_kernel``) in 3xTF32: kvs = kᵀv through
-    :func:`_mm_3xtf32` (returned in f64), ksum and the norms in f64 rounded
-    to f32, as the reduce's column sums are; then a = q @ kvs through
-    :func:`_mm_3xtf32` on the f32 kvs, b = q . ksum, and the apply's
-    epilogue in f32: out = (inv * a + n * v) / den, a zero den taken as 1
-    under ``guard``. ``lo=False``: one TF32 product each."""
-    kvs = _mm_3xtf32(k.T, v, lo)
-    ksum = k.double().sum(0).float()
-    q_sq, k_sq = q.double().square().sum().float(), k.double().square().sum().float()
+    """The f32 forward reduce (``la_reduce_wg_kernel``, one slice) and apply
+    (``la_apply_wg_kernel``) in 3xTF32: kvs = kᵀv with the node axis as the
+    MMAs' k, summed as they sum it (:func:`_mm_3xtf32_sums`, fresh sums every
+    32 rows; returned in f64), ksum and the norms through the column sums
+    (:func:`_column_sums`, 32-row chunks, three row groups) rounded to f32;
+    then
+    a = q @ kvs through :func:`_mm_3xtf32` on the f32 kvs, b = q . ksum, and
+    the apply's epilogue in f32: out = (inv * a + n * v) / den, a zero den
+    taken as 1 under ``guard``. ``lo=False``: one TF32 product each."""
+    sums = dict(chunk=_NODE_CHUNK[torch.float32], groups=_SUM_GROUPS[torch.float32])
+    kvs = _mm_3xtf32_sums(k.T, v, _NODE_PERIOD, lo)
+    ksum = _column_sums(k, square=False, **sums).float()
+    q_sq, k_sq = (_column_sums(x, square=True, **sums).float().double().sum().float()
+                  for x in (q, k))
     inv = attn._inv(q_sq, k_sq, guard)
     a = _mm_3xtf32(q, kvs.float(), lo).float()
     b = (q.double() @ ksum.double()).float()
@@ -1038,6 +1076,72 @@ def test_tf32_forward_keeps_f32_precision(part, n_one):
     assert err <= 1e-6 * want.abs().max()
     if part == "kvs" or n_one:
         assert (one.double() - want).abs().max() >= 10 * err
+
+
+# one slice of the forward reduce, longer than any the card's grid gives
+_SLICE = 8192
+
+
+def _node_axis_inputs(seed, positive, dtype=torch.float32):
+    """k, v [_SLICE, 64] of ``dtype`` from seeded numpy (randn, or uniform
+    in [0, 1)), and kᵀv in f64."""
+    rng = np.random.default_rng(seed)
+    k, v = (torch.from_numpy(a).to(dtype) for a in
+            (rng.random if positive else rng.standard_normal)((2, _SLICE, 64))
+            .astype(np.float32))
+    return k, v, k.double().T @ v.double()
+
+
+def _rel(got, want):
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("positive", [False, True])
+def test_tf32_node_axis_reduce_keeps_f32_precision(positive):
+    """The f32 reduce's kᵀv over one slice of 8,192 rows, the node axis as
+    the MMAs' k (:func:`_mm_3xtf32_sums`: each 8-row step's three products
+    added into the period's sum by the tensor cores' truncating adds, fresh
+    sums every 32 rows added in f32 round-to-nearest): within 1e-6 of the
+    scale of kᵀv in f64, on randn and on positive inputs, where one
+    truncating chain over the whole slice, or hi*hi alone (one TF32
+    product), is at least 10x further off."""
+    k, v, exact = _node_axis_inputs(35, positive)
+    err = _rel(_mm_3xtf32_sums(k.T, v, _NODE_PERIOD), exact)
+    assert err <= 1e-6, err
+    chain = _rel(_mm_3xtf32_sums(k.T, v, _SLICE), exact)
+    hi_hi = _rel(_mm_3xtf32_sums(k.T, v, _NODE_PERIOD, lo=False), exact)
+    assert min(chain, hi_hi) >= 10 * err, (err, chain, hi_hi)
+
+
+@pytest.mark.parametrize("positive", [False, True])
+def test_bf16_node_axis_reduce_keeps_f32_precision(positive):
+    """The bf16 reduce's kᵀv over one slice of 8,192 rows (exact products,
+    each 16-row step's sum added by the tensor cores' truncating adds, fresh
+    sums every 32 rows: :func:`_mm_bf16_sums` with the node axis as k):
+    within 1e-6 of the scale of kᵀv in f64, on randn and on positive inputs,
+    where one truncating chain over the whole slice is at least 10x further
+    off."""
+    k, v, exact = _node_axis_inputs(36, positive, torch.bfloat16)
+    err = _rel(_mm_bf16_sums(k.T, v, 1, _NODE_PERIOD), exact)
+    assert err <= 1e-6, err
+    chain = _rel(_mm_bf16_sums(k.T, v, 1, _SLICE), exact)
+    assert chain >= 10 * err, (err, chain)
+
+
+def test_forward_reduce_column_sums_hold_f64():
+    """The forward reduces' column sums (:func:`_column_sums`: an f32 chain
+    a row group, made f64 once a chunk) over one slice of 8,192 rows,
+    randn and positive f32 values: Σx and Σx² within 1e-6 of their f64
+    sums' scale, bf16 values within 1e-7 (their squares are exact in f32)."""
+    rng = np.random.default_rng(37)
+    for draw in (rng.standard_normal, rng.random):
+        x = torch.from_numpy(draw((_SLICE, 16)).astype(np.float32))
+        for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-7)):
+            xs = x.to(dtype).float()
+            for square in (False, True):
+                want = (xs.double() ** (2 if square else 1)).sum(0)
+                got = _column_sums(xs, _NODE_CHUNK[dtype], square, _SUM_GROUPS[dtype])
+                assert ((got - want).abs().max() / want.abs().max()).item() <= tol
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -24,7 +24,8 @@ from sgformer_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_ev, csr_spmm_ev_b
 from sgformer_tpu_torch.ops.attention import linear_attention
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values, spmm_edge_values_backward
-from sgformer_tpu_torch.utils.measure import apply_product_inputs, bwd_product_inputs, rel_err
+from sgformer_tpu_torch.utils.measure import (apply_product_inputs, bwd_product_inputs,
+                                              reduce_product_inputs, rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -230,15 +231,17 @@ def test_tensor_core_apply_takes_any_width(cuda, m, d):
 
 
 def test_reduce_designs_name_the_kernels(cuda):
-    """The forward reduces run on the tensor cores at every width (bf16;
-    f32 in 3xTF32: the node rows stream through a fixed tile); bf16
-    backward reduces at any width the backward's q tile fits (up to M =
-    640), the f32 backward reduce in 3xTF32 up to M = 256 (its rows pass on
-    warpgroup MMAs, its P pass on mma.sync)."""
+    """The forward reduces run on warpgroup MMAs at every width (bf16,
+    ``la_reduce_wgmma_kernel``; f32 in 3xTF32, ``la_reduce_wg_kernel``: the
+    node rows stream through a fixed tile); bf16 backward reduces at any
+    width the backward's q tile fits (up to M = 640), the f32 backward
+    reduce in 3xTF32 up to M = 256 (its rows pass on warpgroup MMAs, its P
+    pass on mma.sync)."""
     for m, d in ((256, 256), (37, 40), (640, 64), (1024, 64)):
-        assert attn.reduce_design(torch.bfloat16, m, d).startswith("tensor cores")
+        bf16 = attn.reduce_design(torch.bfloat16, m, d)
+        assert bf16.startswith("tensor cores (wgmma bf16") and "la_reduce_wgmma_kernel" in bf16
         f32 = attn.reduce_design(torch.float32, m, d)
-        assert f32.startswith("tensor cores (mma.sync 3xTF32"), f32
+        assert f32.startswith("tensor cores (wgmma 3xTF32") and "la_reduce_wg_kernel" in f32, f32
         assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores") == (
             m <= 640)
         f32 = attn.bwd_reduce_design(torch.float32, m, d)
@@ -250,7 +253,8 @@ def test_reduce_designs_name_the_kernels(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reduce_grid_follows_its_design(cuda, monkeypatch, dtype):
     """reduce() sizes its slices for the tensor-core design of its type:
-    one wave of resident blocks, one an SM in f32 (3xTF32), two in bf16."""
+    one wave of resident blocks, one an SM in both types (two consumer
+    warpgroups and a producer warpgroup a block)."""
     seen = []
     slices = attn._slices
 
@@ -262,11 +266,10 @@ def test_reduce_grid_follows_its_design(cuda, monkeypatch, dtype):
     n = 100_000
     q, k, v = (torch.randn(n, 256, device=cuda).to(dtype) for _ in range(3))
     _f64_reduce_close(attn.reduce(q, k, v), q, k, v)
-    (_, _, _, _, tensor_cores, got_dtype), = seen
-    assert tensor_cores and got_dtype == dtype
+    (_, _, _, _, tensor_cores), = seen
+    assert tensor_cores
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    per_sm = 1 if dtype == torch.float32 else 2
-    assert slices(n, 256, 256, q.device, True, dtype)[0] == -(-per_sm * sms // 4)
+    assert slices(n, 256, 256, q.device, True)[0] == -(-sms // 4)
 
 
 @pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 19)])
@@ -437,6 +440,39 @@ def _f64_reduce_close(got, q, k, v):
     norms = torch.stack([qd.square().sum(), kd.square().sum()])
     for a, b in ((got[0], kd.T @ vd), (got[1], kd.sum(0)), (got[2][:2], norms)):
         _check_rel(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_reduce_products_carry_it(cuda, monkeypatch, dtype):
+    """The forward reduce over one slice of 40,000 rows (the grid forced to
+    one slice a tile, so that its fresh sums and f32 running sums chain the
+    whole input) on ``reduce_product_inputs`` (positive, each value a
+    fraction of a tf32 step above a tf32 value): kvs, ksum and the norms
+    within REDUCE_REL_TOL (1e-5) of their sums in f64, bitwise repeatable,
+    one launch. In f32 the same kᵀv with k's or v's tf32 lo piece dropped
+    misses that tolerance by more than 10x, so a kernel that dropped one
+    would fail here."""
+    n, m, d = 40_000, 256, 256
+    monkeypatch.setattr(attn, "_slices", lambda n_, *args: (1, -(-n_ // 32) * 32))
+    q, k, v = reduce_product_inputs(n, m, d, dtype, torch.Generator(device=cuda).manual_seed(25))
+    r0 = attn.reduce_launches
+    got = attn.reduce(q, k, v)
+    assert attn.reduce_launches == r0 + 1
+    _f64_reduce_close(got, q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(got, attn.reduce(q, k, v)))
+    if dtype == torch.bfloat16:
+        return  # bf16 values are tf32 values: nothing to drop
+    exact = k.double().T @ v.double()
+    for hi_k, hi_v in ((True, False), (False, True)):
+        ks, vs = (_tf32_hi(x) if hi else x.float() for x, hi in ((k, hi_k), (v, hi_v)))
+        dropped = ks.double().T @ vs.double()
+        assert (dropped - exact).abs().max() > 10 * 1e-5 * exact.abs().max()
+
+
+def _tf32_hi(t):
+    """f32 ``t`` rounded to tf32 as cvt.rna rounds it (the hi piece)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def _f64_bwd_reduce_close(got, q, v, g, kvs, ksum, scal, n_total, rel=1e-5):
