@@ -60,20 +60,30 @@ full batch and the tail of a seeded permutation of the arxiv graph in
 batches of ``ARXIV_BATCH`` and of the amazon2m graph (``AMAZON2M``,
 symmetrised with self-loops on the card) in batches of ``AMAZON2M_BATCH``;
 run it in turns to compare two checkouts' kernels.
-``tf32-bwd``: the attention backward's kernels of ROOT and of this
-checkout, each turn a process of its own (``tf32-bwd-turn ROOT``), in
-turns ROOT, this checkout, this checkout, ROOT. A turn times its package's f32 ``bwd_apply`` and
-``bwd_reduce`` (CUDA events, median of 20) at M = D = 256 on the arxiv
-(N = 169,343), amazon2m full-batch (100,000) and papers-sampled (621,432)
-shapes, with the launches of each apart by the profiler (``kernel_ms``: the
-rows pass, the P pass, the splits and the finish kernels), holds each f32
-output to the plain version in f64 (the ratio printed), times the bf16
-backward at the arxiv shape, prints sha256 digests of the bf16 backward's
-outputs (``bwd_reduce``, then ``bwd_apply`` on the plain reduce's outputs)
-at four shapes, and counts the ``HGMMA`` and ``HMMA`` instructions of each
-backward kernel in ``cuobjdump -sass`` of its built library. The mode
-prints each turn's JSON line, then one line that sets the turns side by
-side and says whether the bf16 digests of the two packages are equal.
+``tf32-bwd``: the f32 attention backward's kernels of each ROOT and of
+this checkout, each turn a process of its own (``tf32-bwd-turn ROOT``), in
+turns ROOT1 ... ROOTk, this checkout, this checkout, ROOTk ... ROOT1 (with
+one ROOT: ROOT, this checkout, this checkout, ROOT). A turn times its
+package's f32 ``bwd_apply`` and ``bwd_reduce`` (CUDA events, median of 20)
+at M = D = 256 on the arxiv (N = 169,343), amazon2m full-batch (100,000)
+and papers-sampled (621,432) shapes, with the launches of each apart by the
+profiler (``kernel_ms``: the rows pass, the P pass by either package's
+kernel name, the splits and the finish kernels), the P pass beside its
+bound and ``torch.matmul(q.t(), gd)`` in f32 (TF32 off, gd = g / den made
+beforehand); holds each f32 output to the plain version in f64 on randn
+inputs and the reduce's also on ``bwd_reduce_product_inputs`` (where a
+dropped tf32 lo piece of q or g/den misses the tolerance): P, ds, den and
+gden within REDUCE_REL_TOL of their scale, dinv of its sums' magnitude, dq,
+dk and dv within the f32 BWD_REL_TOL, each reduce bitwise repeatable;
+times the bf16 backward at the arxiv shape, prints sha256 digests of the
+bf16 backward's outputs (``bwd_reduce``, then ``bwd_apply`` on the plain
+reduce's outputs) at four shapes, and counts the ``HGMMA`` and ``HMMA``
+instructions of every kernel of both attention libraries in ``cuobjdump
+-sass``. The mode prints each turn's JSON line, then one line that sets the
+turns side by side, and fails unless every turn's f32 outputs are within
+tolerance and repeatable and the bf16 digests are the same in every turn
+(Step 0 of a redesign runs it on copies of the parent with one part
+removed each, which fail the check by design).
 ``bf16-bwd``: the bf16 attention backward's kernels of ROOT and of this
 checkout, each turn a process of its own (``bf16-bwd-turn ROOT``), in
 turns ROOT, this checkout, this checkout, ROOT. A turn prints the designs
@@ -163,9 +173,11 @@ kernels, ``torch.matmul(k.t(), v)`` in the inputs' type (TF32 off) as a
 yardstick, and the bound; every output (kvs, ksum, the norms)
 against its sums in f64 on randn, positive and ``reduce_product_inputs``
 inputs (where a dropped tf32 lo piece misses the tolerance), over
-REDUCE_REL_TOL, and whether each is bitwise repeatable. The mode prints
-each turn's JSON line, then the turns side by side, and fails unless every
-turn's outputs are within the tolerance and repeatable.
+REDUCE_REL_TOL, whether each is bitwise repeatable, and a sha256 digest of
+the outputs of each input kind. The mode prints each turn's JSON line, then
+the turns side by side and whether each digest is the same in every turn,
+and fails unless every turn's outputs are within the tolerance and
+repeatable.
 """
 
 from __future__ import annotations
@@ -197,13 +209,14 @@ def main() -> int:
         only = sys.argv[-1]
         del sys.argv[-2:]
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
-            or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce")) \
+            or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
+                                                     "tf32-bwd")) \
             or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
     mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
     if mode == "tf32-bwd":
-        return tf32_bwd(root)
+        return tf32_bwd([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "bf16-bwd":
         return bf16_bwd(root)
     if mode == "schedule":
@@ -489,21 +502,26 @@ def run_turns(mode: str, root: str, order=None, extra=()):
     return turns
 
 
-def tf32_bwd(root: str) -> int:
-    """The ``tf32-bwd`` mode: four turns, each ``tf32-bwd-turn`` in a
-    process of its own, then the turns side by side."""
+def tf32_bwd(roots: list) -> int:
+    """The ``tf32-bwd`` mode: the turns, each ``tf32-bwd-turn`` in a process
+    of its own, then the turns side by side; fails unless every turn's f32
+    outputs are within tolerance and repeatable and the bf16 digests are
+    the same in every turn."""
     import json
 
-    turns = run_turns("tf32-bwd-turn", root)
+    order = roots + [HERE, HERE] + roots[::-1]
+    turns = run_turns("tf32-bwd-turn", roots[0], order)
     if turns is None:
         return 1
-    digests = {t["root"]: t["bf16_digests"] for t in turns}
-    side = {f"turn {i} ({'ROOT' if t['root'] == root else 'this checkout'})": t["f32"]
+    names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
+    names[HERE] = "this checkout"
+    side = {f"turn {i} ({names[t['root']]})": dict(f32=t["f32"], sass=t["sass"])
             for i, t in enumerate(turns)}
-    print(json.dumps({"tf32_bwd_turns": side,
-                      "bf16_bitwise_equal": len({json.dumps(d) for d in digests.values()}) == 1}),
-          flush=True)
-    return 0
+    ok = {names[t["root"]]: t["ok"] for t in turns}
+    bf16_equal = len({json.dumps(t["bf16_digests"]) for t in turns}) == 1
+    print(json.dumps({"tf32_bwd_turns": side, "within_tolerance_and_repeatable": ok,
+                      "bf16_bitwise_equal": bf16_equal}), flush=True)
+    return 0 if all(ok.values()) and bf16_equal else 1
 
 
 def bf16_bwd(root: str) -> int:
@@ -530,6 +548,13 @@ BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel")
 BF16_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_split_rows_kernel", "la_bwd_finish_kernel",
                       "la_bwd_dinv_kernel")
 BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
+# the f32 backward reduce's launches by kernel name, either package's: the
+# rows pass, the P pass (mma.sync, then warpgroup MMAs), the reduce's other
+# launches; the apply and its split
+F32_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel")
+F32_P_PASS = ("la_bwd_reduce_tf32_kernel", "la_bwd_reduce_wg_kernel")
+F32_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
+F32_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel")
 # the f32 backward's outputs digested in every turn (bitwise the parent's)
 F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
 
@@ -642,10 +667,27 @@ def bf16_bwd_turn(cs, root: str) -> int:
     return 0
 
 
+def bwd_reduce_errors(cs, attn, got, ins) -> dict:
+    """The f32 backward reduce's outputs ``got`` on ``ins`` (its arguments)
+    against its plain version in f64, each over its tolerance: P, ds, den
+    and gden over REDUCE_REL_TOL of their scale, dinv over REDUCE_REL_TOL
+    of its two sums' magnitude."""
+    ind = [t.double() for t in ins]
+    exact = attn.bwd_reduce_plain(*ind, False)
+    errs = {part: rel(a, b) / cs.REDUCE_REL_TOL
+            for part, a, b in zip(("P", "ds"), got[:2], exact[:2])}
+    errs["rows"] = rel(got[3], exact[3]) / cs.REDUCE_REL_TOL
+    qd, _, gd_, kvs, ksum = ind[:5]
+    den, gden = exact[3]
+    sums = ((gd_ / den[:, None] * (qd @ kvs)).abs().sum()
+            + (gden * (qd @ ksum)).abs().sum()).item()
+    errs["dinv"] = abs(got[2].item() - exact[2].item()) / sums / cs.REDUCE_REL_TOL
+    return errs
+
+
 def tf32_bwd_turn(cs, root: str) -> int:
     """One turn of the ``tf32-bwd`` mode on ROOT's package; its last line
     of output is a JSON object of its numbers."""
-    import hashlib
     import json
     import re
 
@@ -654,16 +696,25 @@ def tf32_bwd_turn(cs, root: str) -> int:
     from sgformer_tpu_torch.kernels import _build
     from sgformer_tpu_torch.kernels import attention as attn
 
-    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
-    for line in report.splitlines():  # the entry, registers, spills and wgmma notes
-        if re.search(r"la_bwd_(apply|rows)_(tc|wg)|Used|spill|wgmma|Performance", line):
+    # this checkout's inputs whatever ROOT's package holds
+    inputs = load_phases(os.path.join(HERE, "sgformer_tpu_torch", "utils", "measure.py"))
+    report = _build.build_all(("linear_attention_bwd", "linear_attention")).get(
+        "linear_attention_bwd", "")
+    entry = False
+    for line in report.splitlines():  # the f32 kernels' registers, spills and warnings
+        if "entry function" in line or "Function properties" in line:
+            entry = bool(re.search(r"la_bwd_(apply|rows|reduce)_(tc|wg|tf32)_", line)) \
+                if "entry function" in line else entry
+        if entry or "warning" in line:
             cs.log(f"ptxas {root}: {line.strip()}")
     dev = "cuda"
-    out = dict(root=root, sass=sass_counts(cs, root), f32={}, bf16_digests=[])
-    # the f32 rows pass and apply by either package's kernel name
-    passes = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel",
-              "split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
-    applies = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel", "la_bwd_split_kernel")
+    sass = {lib: sass_counts(cs, root, lib, "") for lib in ("linear_attention_bwd",
+                                                          "linear_attention")}
+    out = dict(root=root, sass=sass, f32={}, bf16_digests=[], ok=True,
+               design=attn.bwd_reduce_design(torch.float32, 256, 256))
+    cs.log(f"tf32-bwd {root} reduce design at M = D = 256: {out['design']}")
+    passes = F32_ROWS + F32_P_PASS + F32_REDUCE_OTHERS
+    applies = F32_APPLY + ("la_bwd_split_kernel",)
     m = d = 256
     for name, n in cs.BWD_PASS_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(21)
@@ -672,28 +723,51 @@ def tf32_bwd_turn(cs, root: str) -> int:
         sums = attn.reduce_plain(q, k, v, False)
         red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
         got_r = attn.bwd_reduce(q, v, g, *sums, n_t)
-        exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, *sums, n_t)), False)
-        errs = {part: rel(a, b) for part, a, b in zip(("P", "ds", "dinv", "rows"), got_r, exact)}
-        del got_r, exact
+        errs = bwd_reduce_errors(cs, attn, got_r, (q, v, g, *sums, n_t))
+        repeat = all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums, n_t)))
+        gd = g / got_r[3][0][:, None]
+        del got_r
         got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
         exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)), False)
-        errs.update({part: rel(a, b) for part, a, b in zip(("dq", "dk", "dv"), got_a, exact)})
+        errs.update({part: rel(a, b) / cs.BWD_REL_TOL[torch.float32]
+                     for part, a, b in zip(("dq", "dk", "dv"), got_a, exact)})
         del got_a, exact
+        # the reduce where P's products carry it (a dropped tf32 lo piece
+        # of q or of g/den misses the tolerance)
+        ins = inputs.bwd_reduce_product_inputs(n, m, d, torch.float32,
+                                               torch.Generator(device=dev).manual_seed(9))
+        got_p = attn.bwd_reduce(*ins)
+        errs.update({f"{part} (products carry P)": e for part, e in
+                     bwd_reduce_errors(cs, attn, got_p, ins).items()})
+        repeat = repeat and all(torch.equal(a, b) for a, b in zip(got_p, attn.bwd_reduce(*ins)))
+        del ins, got_p
+        if not (max(errs.values()) <= 1.0 and repeat):
+            out["ok"] = False
+            cs.log(f"tf32-bwd {root} {name}: OUT OF TOLERANCE OR NOT REPEATABLE")
         a_ms = cs.time_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
         r_ms = cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t))
         r_dev = cs.kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), passes)
         a_dev = cs.kernel_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red), applies)
-        rows_ms, p_ms = r_dev[passes[0]] + r_dev[passes[1]], r_dev[passes[2]]
-        apply_ms = a_dev[applies[0]] + a_dev[applies[1]]
+        rows_ms = sum(r_dev[p] for p in F32_ROWS)
+        p_ms = sum(r_dev[p] for p in F32_P_PASS)
+        apply_ms = sum(a_dev[p] for p in F32_APPLY)
+        # yardstick: P's product in one torch.matmul, f32, TF32 off (never
+        # called by the port); and the P pass's bound
+        p_matmul_ms = cs.time_ms(lambda: torch.matmul(q.t(), gd))
+        p_bound_ms, p_bound_by = cs.bound_ms((n * m + n * d) * 4 + 2 * n * 4 + (m * d + m) * 4,
+                                             2 * n * m * d, torch.float32)
         out["f32"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
-                                p_pass_ms=p_ms, reduce_others_ms=sum(r_dev[p] for p in passes[3:]),
+                                p_pass_ms=p_ms, p_pass_matmul_ms=p_matmul_ms,
+                                p_pass_bound_ms=p_bound_ms, p_pass_bound_by=p_bound_by,
+                                reduce_others_ms=sum(r_dev[p] for p in F32_REDUCE_OTHERS),
                                 apply_kernel_ms=apply_ms, apply_split_ms=a_dev[applies[2]],
-                                rel_err=errs)
+                                err_over_tol=errs, bitwise_repeatable=repeat)
         cs.log(f"tf32-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}), "
-               f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, P pass {p_ms:.4f}); "
-               f"|kernel - plain in f64| / scale: "
-               + ", ".join(f"{p} {e:.2e}" for p, e in errs.items()))
-        del q, k, v, g, sums, red
+               f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, P pass {p_ms:.4f}; "
+               f"torch.matmul q^T gd {p_matmul_ms:.4f}, P pass bound {p_bound_ms:.4f} by "
+               f"{p_bound_by}); bitwise repeatable {repeat}; errors over the tolerance: "
+               + ", ".join(f"{p} {e:.3f}" for p, e in errs.items()))
+        del q, k, v, g, sums, red, gd
         torch.cuda.empty_cache()
     for n, m_, d_ in BF16_DIGEST_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
@@ -702,16 +776,15 @@ def tf32_bwd_turn(cs, root: str) -> int:
         n_t = torch.full((), float(n), device=dev)
         sums = attn.reduce_plain(q, k, v, False)
         red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
-        outs = (*attn.bwd_reduce(q, v, g, *sums, n_t), *attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
-        digest = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
-                                         for t in outs)).hexdigest()[:16]
+        sha = digest((*attn.bwd_reduce(q, v, g, *sums, n_t),
+                      *attn.bwd_apply(q, k, v, g, *sums, n_t, *red)))
         if (n, m_, d_) == (169_343, 256, 256):
             out["bf16_arxiv_ms"] = dict(
                 bwd_apply=cs.time_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red)),
                 bwd_reduce=cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t)))
-        out["bf16_digests"].append(dict(shape=[n, m_, d_], sha256=digest))
-        cs.log(f"tf32-bwd {root} bf16 n={n} m={m_} d={d_}: outputs sha256 {digest}")
-        del q, k, v, g, sums, red, outs
+        out["bf16_digests"].append(dict(shape=[n, m_, d_], sha256=sha))
+        cs.log(f"tf32-bwd {root} bf16 n={n} m={m_} d={d_}: outputs sha256 {sha}")
+        del q, k, v, g, sums, red
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1270,7 +1343,12 @@ def reduce(roots: list) -> int:
     side = {f"turn {i} ({names[t['root']]})": dict(reduce=t["reduce"], sass=t["sass"])
             for i, t in enumerate(turns)}
     ok = {names[t["root"]]: t["ok"] for t in turns}
-    print(json.dumps({"reduce_turns": side, "within_tolerance_and_repeatable": ok}), flush=True)
+    digests_equal = {f"{call} {key}": len({t["reduce"][call][key] for t in turns}) == 1
+                     for call, res in turns[0]["reduce"].items() for key in res
+                     if key.endswith("sha256")}
+    print(json.dumps({"reduce_turns": side, "within_tolerance_and_repeatable": ok,
+                      "digests_equal_in_every_turn": digests_equal,
+                      "all_digests_equal": all(digests_equal.values())}), flush=True)
     return 0 if all(ok.values()) else 1
 
 
@@ -1312,6 +1390,7 @@ def reduce_turn(cs, root: str, dev: str = "cuda") -> int:
                     draw = torch.randn if kind == "randn" else torch.rand
                     q, k, v = (draw(n, m, generator=gen, device=dev).to(dtype) for _ in range(3))
                 got = attn.reduce(q, k, v)
+                res[f"{kind} sha256"] = digest(got)
                 exact = cs.reduce_f64(q, k, v)
                 errs = {part: rel(a, b) / cs.REDUCE_REL_TOL for part, a, b in
                         (("kvs", got[0], exact[0]), ("ksum", got[1], exact[1]),
@@ -1350,6 +1429,16 @@ def reduce_turn(cs, root: str, dev: str = "cuda") -> int:
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
+
+
+def digest(outs) -> str:
+    """sha256 (16 hex digits) of the bytes of the tensors ``outs``."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                   for t in outs)).hexdigest()[:16]
 
 
 def rel(got, want) -> float:

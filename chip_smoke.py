@@ -23,13 +23,15 @@ JAX package. Phases, each failing loudly:
 4. the backward attention kernels against their plain versions and against
    torch autograd of the plain forward, at the same shapes, in bf16 and f32
    (both on the tensor cores by ``wgmma``: bf16 in all three kernels, f32
-   in 3xTF32 in its apply and rows pass); both also with n = 1 and positive
-   inputs (the reduce to 2^-14 of scale, the apply against its plain
-   version in f64) and on inputs where their products carry the outputs
-   (``bwd_product_inputs``), with their designs and ``torch.matmul`` of
-   q @ kvs and q^T (g/den) as a yardstick; bitwise repeatable, finite zeros
-   for an all-masked group; the reduce's rows pass and P pass timed apart
-   in both types at the arxiv, amazon2m-batch and papers-sampled shapes;
+   in 3xTF32 in all three too); both also with n = 1 and positive
+   inputs (the reduce to 2^-14 of scale, f32's P to 1e-5, the apply against
+   its plain version in f64) and on inputs where their products carry the
+   outputs (``bwd_product_inputs``; for the f32 reduce's P pass also
+   ``bwd_reduce_product_inputs``), with their designs and ``torch.matmul``
+   of q @ kvs and q^T (g/den) as a yardstick; bitwise repeatable, finite
+   zeros for an all-masked group; the reduce's rows pass and P pass timed
+   apart in both types at the arxiv, amazon2m-batch and papers-sampled
+   shapes, the P pass beside its bound and ``torch.matmul(q.t(), gd)``;
 5. the serving path: ``synthetic_dataset("synth-arxiv")``, ``preprocess_graph``
    and the bench model ``SGFormerConfig.large(256, 40, trans_num_layers=1,
    gnn_num_layers=3, graph_weight=0.5, compute_dtype="bf16")`` from a seeded
@@ -707,16 +709,17 @@ def kernel_ms(run, names: tuple, reps: int = 20) -> dict:
 def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
     at the model's width both take the tensor cores on warpgroup MMAs (f32
-    in 3xTF32: the apply and the reduce's rows pass; bf16: the apply and
-    both reduce passes)."""
+    in 3xTF32, the reduce's P pass ``la_bwd_reduce_wg_kernel``; bf16), the
+    apply and both reduce passes."""
     design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
     log(f"bwd_apply {name} design at {where}: {design}")
     log(f"bwd_reduce {name} design at {where}: {red_design}")
-    want = (("tensor cores (wgmma 3xTF32", "tensor cores (3xTF32, f32 sums: rows pass wgmma")
+    want = (("tensor cores (wgmma 3xTF32", "tensor cores (wgmma 3xTF32, f32 sums: rows pass")
             if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma bf16"))
-    if (m, d) == (256, 256) and not (design.startswith(want[0])
-                                     and red_design.startswith(want[1])):
+    p_pass = BWD_REDUCE_KERNELS[dtype][1]
+    if (m, d) == (256, 256) and not (design.startswith(want[0]) and red_design.startswith(want[1])
+                                     and (dtype != torch.float32 or p_pass in red_design)):
         raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
                              f"tensor-core design")
     return design, red_design
@@ -725,7 +728,7 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
 # the backward reduce's launches by kernel name, by input type: its rows
 # pass, its P pass, and the split of kvs, the P finish and the dinv sum
 BWD_REDUCE_KERNELS = {
-    torch.float32: ("la_bwd_rows_wg_kernel", "la_bwd_reduce_tf32_kernel", "split_t_kernel",
+    torch.float32: ("la_bwd_rows_wg_kernel", "la_bwd_reduce_wg_kernel", "split_t_kernel",
                     "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
     torch.bfloat16: ("la_bwd_rows_wgmma_kernel", "la_bwd_reduce_wgmma_kernel",
                      "la_bwd_split_rows_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
@@ -735,15 +738,24 @@ BWD_REDUCE_KERNELS = {
 def bwd_passes_ms(attn, n: int, dev: str, dtype=torch.float32) -> dict:
     """The backward reduce's launches apart (``kernel_ms``) at M = D = 256
     on n random rows of ``dtype``: rows pass, P pass and the rest, device ms
-    a call."""
+    a call; beside the P pass its bound (2 n m d operations at the type's
+    peak, or the bytes of q, g, den, gden, P and ds) and the yardstick of
+    its product, ``torch.matmul(q.t(), gd)`` in the inputs' type (TF32 off)
+    with gd = g / den made beforehand (never called by the port)."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    q, v, g = (torch.randn(n, 256, generator=gen, device=dev).to(dtype) for _ in range(3))
+    m = d = 256
+    q, v, g = (torch.randn(n, m, generator=gen, device=dev).to(dtype) for _ in range(3))
     sums = attn.reduce_plain(q, q, v, False)
     n_t = torch.full((), float(n), device=dev)
     names = BWD_REDUCE_KERNELS[dtype]
     dev_ms = kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), names)
+    gd = (g.float() / attn.bwd_reduce(q, v, g, *sums, n_t)[3][0][:, None]).to(dtype)
+    p_matmul_ms = time_ms(lambda: torch.matmul(q.t(), gd))
+    p_bound_ms, p_bound_by = bound_ms((n * m + n * d) * q.element_size() + 2 * n * 4
+                                      + (m * d + m) * 4, 2 * n * m * d, dtype)
     return dict(rows_ms=dev_ms[names[0]], p_pass_ms=dev_ms[names[1]],
-                others_ms=sum(dev_ms[k] for k in names[2:]))
+                others_ms=sum(dev_ms[k] for k in names[2:]), p_pass_bound_ms=p_bound_ms,
+                p_pass_bound_by=p_bound_by, p_pass_matmul_ms=p_matmul_ms)
 
 
 def attention_phase(n: int, results: dict, dev: str) -> None:
@@ -872,39 +884,47 @@ def attention_phase(n: int, results: dict, dev: str) -> None:
                 **TOL[torch.bfloat16])
 
 
+def check_bwd_reduce_f64(attn, what: str, ins) -> None:
+    """The backward reduce on ``ins`` (its arguments) against its plain
+    version in f64: P, ds, den and gden within REDUCE_REL_TOL of their
+    scale, dinv of its two sums' magnitude; bitwise repeatable."""
+    got = attn.bwd_reduce(*ins)
+    ind = [t.double() for t in ins]
+    exact = attn.bwd_reduce_plain(*ind, False)
+    for part, a, b in (("P", got[0], exact[0]), ("ds", got[1], exact[1]),
+                       ("den, gden", got[3], exact[3])):
+        check_rel(f"{what} {part} (plain in f64)", a, b, REDUCE_REL_TOL)
+    qd, _, gd_, kvs_d, ksum_d = ind[:5]
+    den, gden = exact[3]
+    dinv_scale = ((gd_ / den[:, None] * (qd @ kvs_d)).abs().sum()
+                  + (gden * (qd @ ksum_d)).abs().sum()).item()
+    dinv_err = abs(got[2].item() - exact[2].item())
+    log(f"{what} dinv: {dinv_err / dinv_scale:.2e} of its sums' magnitude (tolerance "
+        f"{REDUCE_REL_TOL})")
+    if not dinv_err <= REDUCE_REL_TOL * dinv_scale:
+        raise AssertionError(f"{what} dinv disagrees with plain")
+    if not all(torch.equal(a, b) for a, b in zip(got, attn.bwd_reduce(*ins))):
+        raise AssertionError(f"{what} is not bitwise repeatable")
+
+
 def bwd_product_check(attn, n: int, m: int, d: int, dev: str, dtype=torch.float32) -> None:
     """The backward kernels on ``bwd_product_inputs`` of ``dtype`` (their
     products carry the outputs, so that a faulty product, index mapping,
     swizzle or descriptor misses the tolerance, and in the reduce a dropped
     piece of kvs or g/den too): the reduce against its plain version in f64
-    (REDUCE_REL_TOL, dinv of its sums' magnitude) and the apply against its
-    plain version in f64 (BWD_REL_TOL of the type), each bitwise
-    repeatable."""
-    from sgformer_tpu_torch.utils.measure import bwd_product_inputs
+    (``check_bwd_reduce_f64``) and the apply against its plain version in
+    f64 (BWD_REL_TOL of the type), each bitwise repeatable; in f32 the
+    reduce also on ``bwd_reduce_product_inputs`` (positive q and g/den a
+    fraction of a tf32 step above tf32 values: a P pass that drops a tf32 lo
+    piece of q or of g/den misses the tolerance)."""
+    from sgformer_tpu_torch.utils.measure import bwd_product_inputs, bwd_reduce_product_inputs
 
     name = DTYPE_NAME[dtype]
     gen = torch.Generator(device=dev).manual_seed(8)
     ins = bwd_product_inputs(n, m, d, dtype, gen)
     q, k, v, g, kvs, ksum, scal, n_t = ins[:8]
-    got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
-    qd, vd, gd_, kvs_d, ksum_d = (t.double() for t in (q, v, g, kvs, ksum))
-    exact = attn.bwd_reduce_plain(qd, vd, gd_, kvs_d, ksum_d, scal.double(), n_t.double(), False)
-    for part, a, b in (("P", got_r[0], exact[0]), ("ds", got_r[1], exact[1]),
-                       ("den, gden", got_r[3], exact[3])):
-        check_rel(f"bwd_reduce {name} (products carry it) {part} (plain in f64)", a, b,
-                  REDUCE_REL_TOL)
-    den, gden = exact[3]
-    dinv_scale = ((gd_ / den[:, None] * (qd @ kvs_d)).abs().sum()
-                  + (gden * (qd @ ksum_d)).abs().sum()).item()
-    dinv_err = abs(got_r[2].item() - exact[2].item())
-    log(f"bwd_reduce {name} (products carry it) dinv: {dinv_err / dinv_scale:.2e} of its sums' "
-        f"magnitude (tolerance {REDUCE_REL_TOL})")
-    if not dinv_err <= REDUCE_REL_TOL * dinv_scale:
-        raise AssertionError(f"bwd_reduce {name} (products carry it) dinv disagrees with plain")
-    if not all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, kvs, ksum,
-                                                                        scal, n_t))):
-        raise AssertionError(f"bwd_reduce {name} is not bitwise repeatable")
-    del got_r, exact, qd, vd, gd_, kvs_d, ksum_d, den, gden
+    check_bwd_reduce_f64(attn, f"bwd_reduce {name} (products carry it)",
+                         (q, v, g, kvs, ksum, scal, n_t))
     got_a = attn.bwd_apply(*ins)
     exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
     for part, a, b in zip(("dq", "dk", "dv"), got_a, exact):
@@ -912,6 +932,11 @@ def bwd_product_check(attn, n: int, m: int, d: int, dev: str, dtype=torch.float3
                   BWD_REL_TOL[dtype])
     if not all(torch.equal(a, b) for a, b in zip(got_a, attn.bwd_apply(*ins))):
         raise AssertionError(f"bwd_apply {name} is not bitwise repeatable")
+    del ins, got_a, exact
+    if dtype == torch.float32:
+        check_bwd_reduce_f64(attn, "bwd_reduce f32 (P's products carry it)",
+                             bwd_reduce_product_inputs(n, m, d, dtype, torch.Generator(
+                                 device=dev).manual_seed(9)))
 
 
 def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
@@ -975,7 +1000,7 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         # n * v, carries den and gden: each output within 2^-14 of its scale
         # of the plain version in f64 (dinv within 2^-14 of the magnitudes of
         # its two sums, which cancel), the precision of kvs and g/den as bf16
-        # hi + lo
+        # hi + lo; f32's P within REDUCE_REL_TOL
         gp = torch.rand(n, d, generator=gen, device=dev).to(dtype)
         got_p = attn.bwd_reduce(qp, vp, gp, *sums_p, one)
         qd, vd, gd_, kvs_d, ksum_d = (t.double() for t in (qp, vp, gp, *sums_p[:2]))
@@ -985,7 +1010,8 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         for part, a, b in (("P", got_p[0], exact[0]), ("ds", got_p[1], exact[1]),
                            ("den", got_p[3][0], exact[3][0]),
                            ("gden", got_p[3][1], exact[3][1])):
-            check_rel(f"bwd_reduce {name} (n = 1) {part} (plain in f64)", a, b, N1_REL_TOL)
+            tol = REDUCE_REL_TOL if (dtype, part) == (torch.float32, "P") else N1_REL_TOL
+            check_rel(f"bwd_reduce {name} (n = 1) {part} (plain in f64)", a, b, tol)
         den, gden = exact[3]
         dinv_scale = ((gd_ / den[:, None] * (qd @ kvs_d)).abs().sum()
                       + (gden * (qd @ ksum_d)).abs().sum()).item()
@@ -1046,8 +1072,11 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         for what, n_ in BWD_PASS_SHAPES:
             passes = bwd_passes_ms(attn, n_, dev, dtype)
             log(f"bwd_reduce {name} {what} n={n_} by launch: rows pass "
-                f"{passes['rows_ms']:.4f} ms, P pass {passes['p_pass_ms']:.4f} ms, split, "
-                f"finish and dinv {passes['others_ms']:.4f} ms")
+                f"{passes['rows_ms']:.4f} ms, P pass {passes['p_pass_ms']:.4f} ms (bound "
+                f"{passes['p_pass_bound_ms']:.4f} ms by "
+                f"{bound_name(passes['p_pass_bound_by'], dtype)}, torch.matmul q^T gd "
+                f"{passes['p_pass_matmul_ms']:.4f} ms), split, finish and dinv "
+                f"{passes['others_ms']:.4f} ms")
             if n_ == n:
                 results[("linear_attention_bwd_reduce", name)].update(passes)
             torch.cuda.empty_cache()

@@ -136,7 +136,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 // zero past the slice), through a ring of full and empty mbarriers. A
 // chunk's rows past the slice (the copy engine reads on to N, and
 // zero-fills past it) are zeroed before the MMAs read them, and the column
-// sums stop at the slice's end.
+// sums stop at the slice's end. The block's slice arithmetic (RdBlock), the
+// producer (rd_produce) and the f32 form's K-major split (rd_split_tf32)
+// are tensor_core.cuh's, shared with the f32 backward P pass.
 //
 // The column sums run on the CUDA cores from the staged atoms while the
 // chunk's MMAs run, by row groups: in bf16 the eight consumer warps (rows
@@ -150,38 +152,17 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 // rate), and at the end each column's groups are added in order in f64 and
 // rounded to f32 once a slice. (A single warp summing all the rows held
 // the bf16 kernel to a third of its speed.)
-constexpr int kRdConsumers = 2 * 128;
-constexpr int kRdThreads = kRdConsumers + 128;  // and the producer warpgroup
-constexpr int kRdTile = tc::kNodeTile;           // 128 m by 128 d a block
+using tc::kRdConsumers;
+using tc::kRdThreads;
+using tc::kRdTile;
+using tc::kRfAtom;
+using tc::kRfPiece;
+using tc::kRfRows;
+using tc::kRfSumWarps;
+using tc::RdBlock;
+using tc::RdMaps;  // a: k, b: v, c: q
+using tc::rd_load4;
 constexpr int kRdSums = 3 * 4 * kRdConsumers;  // bf16's f64 column sums: 12 a consumer thread
-
-// the reduce's tensor maps: q, k and v rows in node-major boxes
-struct RdMaps {
-  CUtensorMap q, k, v;
-};
-
-// the consumers' own barrier (the producer warpgroup has left)
-__device__ __forceinline__ void rd_consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kRdConsumers) : "memory");
-}
-// one consumer warpgroup's barrier
-__device__ __forceinline__ void rd_warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-}
-
-// Four adjacent columns of a staged row as floats: 8 bytes of bf16, or 16
-// of f32; zeros where !ok.
-__device__ __forceinline__ void rd_load4(const __nv_bfloat16* p, bool ok, float (&x)[4]) {
-  const uint2 raw = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
-__device__ __forceinline__ void rd_load4(const float* p, bool ok, float (&x)[4]) {
-  const float4 a = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-}
 
 // A staged chunk's f32 chains for a thread's columns 4 l .. + 3 (l its
 // lane) over the chunk's rows rg + kGroups j below valid (its row group):
@@ -247,92 +228,6 @@ __device__ __forceinline__ void rd_store_col(const double* colsum, int col, int 
   if (q_stats) qsq_part[o] = rd_total<kGroups>(colsum, 2, col);
 }
 
-// A reduce block's work: tile b % tiles of slice s = b / tiles (b the
-// block, slice-major), the tile's origin (m0, d0), the column sums it takes
-// (k_stats: the first column tile; q_stats: the second, or the first when D
-// fits one tile), and its slice's rows [r_begin, r_end) in kRows-row chunks.
-template <int kRows>
-struct RdBlock {
-  int s, m0, d0, chunks;
-  bool k_stats, q_stats;
-  long r_begin, r_end;
-  __device__ RdBlock(int N, int M, int D, int rows_per_slice) {
-    const int tiles_m = tc::cdiv(M, kRdTile);
-    const int tiles_d = tc::cdiv(D, kRdTile);
-    const int tiles = tiles_m * tiles_d;
-    const int dy = blockIdx.x % tiles / tiles_m;
-    s = blockIdx.x / tiles;
-    m0 = blockIdx.x % tiles % tiles_m * kRdTile;
-    d0 = dy * kRdTile;
-    k_stats = dy == 0;
-    q_stats = dy == (tiles_d > 1 ? 1 : 0);
-    r_begin = static_cast<long>(s) * rows_per_slice;
-    r_end = r_begin + rows_per_slice < N ? r_begin + rows_per_slice : static_cast<long>(N);
-    chunks = static_cast<int>((r_end - r_begin + kRows - 1) / kRows);
-  }
-  // the first row of chunk c, and how many of its rows lie in the slice
-  __device__ long row0(int c) const { return r_begin + static_cast<long>(c) * kRows; }
-  __device__ int valid(int c) const {
-    return r_end - row0(c) < kRows ? static_cast<int>(r_end - row0(c)) : kRows;
-  }
-};
-
-// The producer warpgroup's warp 0: chunk c of the slice's rows into stage c
-// % kStages of the ring, once its last reader has freed it, by the copy
-// engine where vec, else by the warp's lanes. A stage holds kParts atoms
-// a part (k, v, q) of [kRows nodes][128 bytes] of T, each the box at
-// (column c0 + a * 128 / sizeof(T), row r0) of its tensor map.
-template <typename T, int kRows, int kStages, int kParts>
-__device__ __forceinline__ void rd_produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
-                                           const T* __restrict__ q, const T* __restrict__ k,
-                                           const T* __restrict__ v, long ldq, long ldk,
-                                           long ldv, int M, int D, const RdBlock<kRows>& blk,
-                                           int vec, int lane, const RdMaps& maps) {
-  using namespace tc;
-  constexpr int kCols = 128 / sizeof(T);        // elements of a swizzle row
-  constexpr int kAtom = kRows * 128;            // bytes of an atom
-  constexpr int kStage = 3 * kParts * kAtom;    // k's, v's and q's atoms
-  const int parts = blk.q_stats ? 3 : 2;
-  for (int c = 0; c < blk.chunks; ++c) {
-    const int st = c % kStages;
-    if (c >= kStages) mbar_wait(empty + st, (c / kStages - 1) & 1);
-    unsigned char* stage = ring + st * kStage;
-    const long r0 = blk.row0(c);
-    if (!vec) {  // one element a lane at a time, zero past the slice and the widths
-      for (int i = lane; i < parts * kRows * kRdTile; i += 32) {
-        const int p = i / (kRows * kRdTile);
-        const int r = i / kRdTile % kRows;
-        const int cc = i % kRdTile;
-        const T* X = p == 0 ? k : p == 1 ? v : q;
-        const long ld = p == 0 ? ldk : p == 1 ? ldv : ldq;
-        const int col = (p == 1 ? blk.d0 : blk.m0) + cc;
-        const bool ok = r0 + r < blk.r_end && col < (p == 1 ? D : M);
-        unsigned char* dst = stage + (kParts * p + cc / kCols) * kAtom;
-        if constexpr (std::is_same_v<T, float>) {
-          *reinterpret_cast<float*>(dst + sw128_offset_f32(r, cc % kCols)) =
-              ok ? X[(r0 + r) * ld + col] : 0.f;
-        } else {
-          *reinterpret_cast<T*>(dst + sw128_offset(r, cc % kCols)) =
-              ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
-        }
-      }
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full + st);
-    } else if (lane == 0) {
-      mbar_arrive_expect_tx(full + st, parts * kParts * kAtom);
-      const int y = static_cast<int>(r0);
-      for (int a = 0; a < kParts; ++a) {
-        tma_load_2d(stage + a * kAtom, &maps.k, blk.m0 + kCols * a, y, full + st);
-        tma_load_2d(stage + (kParts + a) * kAtom, &maps.v, blk.d0 + kCols * a, y, full + st);
-        if (blk.q_stats) {
-          tma_load_2d(stage + (2 * kParts + a) * kAtom, &maps.q, blk.m0 + kCols * a, y, full + st);
-        }
-      }
-    }
-  }
-}
-
 // The bf16 reduce (wgmma m64n64k16 bf16 -> f32, both operands MN-major:
 // the MMA's k is the node axis, so k and v are read as the copy engine
 // staged them, [64 nodes][64] atoms). bf16 products are exact in f32, so
@@ -388,8 +283,9 @@ la_reduce_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   if (warp >= kRdConsumers / 32) {  // the producer warpgroup
     setmaxnreg_dec<40>();
     if (warp == kRdConsumers / 32) {
-      rd_produce<bf16, kRwRows, kRwStages, 2>(ring, full, empty, q, k, v, ldq, ldk, ldv, M, D,
-                                              blk, vec, lane, maps);
+      rd_produce<bf16, kRwRows, kRwStages, 2, 3>(ring, full, empty, k, v, q, ldk, ldv, ldq, M, D,
+                                                 blk, q_stats ? 3 : 2, vec, lane, maps,
+                                                 [](int, long) {});
     }
     return;
   }
@@ -501,33 +397,15 @@ la_reduce_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 // The f32 reduce in 3xTF32 (wgmma m64n128k8 tf32 -> f32, A from registers):
 // the bf16 reduce's grid, tiles, producer and column sums over 32-node
-// chunks of f32 atoms ([32 nodes][32], the swizzle over f32 rows). tf32
-// wgmma reads no transposed 32-bit operand, so the two operands take two
-// routes. A = k^T: each warp's fragments (16 m rows by 8 nodes a k8 step)
-// are loaded from the staged node-major k atoms and split into tf32 hi +
-// lo as they load (zero past the slice). B = v: each consumer warpgroup
-// splits half of each chunk of v (64 d rows) into tf32 hi and lo atoms
-// written K-major ([128 d][32 nodes], 16 KB each, swizzled), the transpose
-// tf32 wgmma cannot do itself, into one of two buffers, which mbarriers
-// hand over (a buffer written, its MMAs done): chunk c + 1's split runs
-// while chunk c's MMAs do, and neither warpgroup waits for the other at a
-// block barrier, so that one's adds and A loads run under the other's
-// MMAs. Each product is lo*hi' + hi*lo' + hi*hi' (the cross terms first), a
-// chunk's twelve MMAs (four k8 steps) into fresh sums added to the block's
-// with round-to-nearest f32 adds: the parent's 32-row period. Each chunk's
-// MMAs are drained before the next are issued (sums kept in flight across
-// the loop's back edge make ptxas serialise the MMAs; A fragments loaded a
-// chunk ahead gained nothing). A stage is freed when the consumer warps
-// and the three column-sum warps are done with it. Dynamic shared memory:
-// 3 stages of k's, v's and q's four atoms (48 KB each), v's split hi and lo
-// of two chunks (64 KB), the column-sum warps' f64 sums and the mbarriers,
-// 217 KB.
-constexpr int kRfRows = 32;                 // node rows a staged chunk: one period
+// chunks of f32 atoms ([32 nodes][32], the swizzle over f32 rows), its
+// consumers tc::rd_consume_tf32 with A = k^T (split as its fragments load)
+// and B = v as it is (split once a chunk into K-major tf32 hi + lo atoms).
+// A stage is freed when the consumer warps and the three column-sum warps
+// are done with it. Dynamic shared memory: 3 stages of k's, v's and q's
+// four atoms (48 KB each), v's split hi and lo of two chunks (64 KB), the
+// column-sum warps' f64 sums and the mbarriers, 217 KB.
 constexpr int kRfStages = 3;
-constexpr int kRfAtom = kRfRows * 128;      // bytes of a swizzled [32 nodes][32] f32 atom
 constexpr int kRfStage = 12 * kRfAtom;      // k's four atoms, v's four, q's four
-constexpr int kRfPiece = kRdTile * 128;     // bytes of v's hi or lo, [128 d][32 nodes]
-constexpr int kRfSumWarps = 3;              // the producer warpgroup's warps 1-3
 constexpr int kRfSums = 3 * 4 * kRfSumWarps * 32;  // their f64 column sums (see rd_total)
 constexpr size_t kRfSmem = kRfStages * kRfStage + 4 * kRfPiece + kRfSums * sizeof(double) +
                            (2 * kRfStages + 4) * sizeof(uint64_t);
@@ -552,7 +430,6 @@ la_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wg = warp >> 2;
   const RdBlock<kRfRows> blk(N, M, D, rows_per_slice);
   const int m0 = blk.m0;
   const bool k_stats = blk.k_stats, q_stats = blk.q_stats;
@@ -576,8 +453,9 @@ la_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
     setmaxnreg_dec<40>();
     const int pw = warp - kRdConsumers / 32;
     if (pw == 0) {
-      rd_produce<float, kRfRows, kRfStages, 4>(ring, full, empty, q, k, v, ldq, ldk, ldv, M, D,
-                                               blk, vec, lane, maps);
+      rd_produce<float, kRfRows, kRfStages, 4, 3>(ring, full, empty, k, v, q, ldk, ldv, ldq, M,
+                                                  D, blk, q_stats ? 3 : 2, vec, lane, maps,
+                                                  [](int, long) {});
       return;
     }
     // warps 1-3: the column sums of row group pw - 1 of every chunk, in f64
@@ -605,7 +483,7 @@ la_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (lane == 0) mbar_arrive(empty + st);
     }
     if (k_stats || q_stats) {  // uniform over the block
-      asm volatile("bar.sync 4, %0;\n" ::"n"(kRfSumWarps * 32) : "memory");
+      rd_sum_warps_sync();
       for (int col = (pw - 1) * 32 + lane; col < kRdTile; col += kRfSumWarps * 32) {
         rd_store_col<kRfSumWarps>(colsum, col, m0, M, blk.s, k_stats, q_stats, ksum_part, qsq_part,
                                   ksq_part);
@@ -615,126 +493,8 @@ la_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   setmaxnreg_inc<232>();
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wq = warp & 3;
-  // the warp's A rows 16 wq + g (+ 8 i) of the warpgroup's 64: m = m0 + 64
-  // wg + 16 wq + g, in k atom 2 wg + wq / 2 at column 16 (wq % 2) + g; a k8
-  // step s's node rows 8 s + t (+ 4 h) keep the swizzle of rows t (+ 4 h),
-  // so their byte offsets are a_off[h][i] + 1024 s
-  int a_off[2][2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      a_off[h][i] = (2 * wg + (wq >> 1)) * kRfAtom +
-                    sw128_offset_f32(t + 4 * h, 16 * (wq & 1) + g + 8 * i);
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-
-  // the warpgroup's half of chunk c's v (d rows 64 wg .. + 63) into buffer
-  // c % 2 as tf32 hi + lo, K-major, once its stage has landed and the
-  // buffer's MMAs two chunks back are done (zero past the slice): thread t
-  // takes nodes 4 (t % 8) .. + 3 by d 4 (t / 8) .. + 3, four 16-byte loads
-  // of node rows, and stores each d row's four nodes as 16 bytes of hi and
-  // of lo (the eight lanes of a store's phase hit distinct banks)
-  const int nq = tid & 7;
-  const int dq = tid >> 3;
-  auto split = [&](int c) {
-    const int st = c % kRfStages;
-    const int b = c & 1;
-    mbar_wait(full + st, (c / kRfStages) & 1);
-    if (c >= 2) mbar_wait(sempty + b, (c / 2 - 1) & 1);
-    const unsigned char* vs = ring + st * kRfStage + 4 * kRfAtom;
-    unsigned char* hb = vsplit + b * 2 * kRfPiece;
-    const int valid = blk.valid(c);
-    float x[4][4];  // [node][d]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      rd_load4(reinterpret_cast<const float*>(vs + at(4 * nq + i, 4 * dq)), 4 * nq + i < valid,
-               x[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint4 hi, lo;
-      split_tf32(x[0][j], hi.x, lo.x);
-      split_tf32(x[1][j], hi.y, lo.y);
-      split_tf32(x[2][j], hi.z, lo.z);
-      split_tf32(x[3][j], hi.w, lo.w);
-      const int off = sw128_offset_f32(4 * dq + j, 4 * nq);
-      *reinterpret_cast<uint4*>(hb + off) = hi;
-      *reinterpret_cast<uint4*>(hb + kRfPiece + off) = lo;
-    }
-    fence_proxy_async();  // the split's stores, for the MMAs
-    __syncwarp();
-    if (lane == 0) mbar_arrive(sfull + b);
-  };
-
-  if (blk.chunks > 0) split(0);
-  for (int c = 0; c < blk.chunks; ++c) {
-    const int st = c % kRfStages;
-    const int b = c & 1;
-    const unsigned char* stage = ring + st * kRfStage;  // landed: split(c) waited for it
-    const int valid = blk.valid(c);
-    // the chunk's A fragments, split into tf32 hi + lo: node rows 8 s + t
-    // (+ 4) of k8 step s
-    unsigned ah[4][4], al[4][4];
-#pragma unroll
-    for (int s8 = 0; s8 < 4; ++s8) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-        const int h = i >> 1;
-        const float x = 8 * s8 + t + 4 * h < valid
-                            ? *reinterpret_cast<const float*>(stage + a_off[h][i & 1] + 1024 * s8)
-                            : 0.f;
-        split_tf32(x, ah[s8][i], al[s8][i]);
-      }
-    }
-    mbar_wait(sfull + b, (c / 2) & 1);  // both halves of the chunk's v split
-    wgmma_fence_operand(part);
-    wgmma_fence();
-    const unsigned char* hb = vsplit + b * 2 * kRfPiece;
-#pragma unroll
-    for (int s8 = 0; s8 < 4; ++s8) {
-      const unsigned char* bp = hb + 32 * s8;
-      wgmma_m64n128k8_tf32(part, al[s8], sw128_desc(bp), s8);           // lo*hi', fresh first
-      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp + kRfPiece), 1);  // hi*lo'
-      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp), 1);             // hi*hi'
-    }
-    wgmma_commit();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + st);  // the stage's k is in registers
-    // while the MMAs run: the warpgroup's half of the next chunk's split
-    if (c + 1 < blk.chunks) split(c + 1);
-    wgmma_wait<0>();
-    wgmma_fence_operand(part);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(sempty + b);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-  }
-
-  float* kp = kvs_part + static_cast<size_t>(blk.s) * M * D;
-  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + 16 * warp + g + 8 * h;
-    if (m >= M) continue;
-    float* row = kp + static_cast<size_t>(m) * D;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int d = blk.d0 + 8 * j + 2 * t;
-      const float x = acc[4 * j + 2 * h];
-      const float y = acc[4 * j + 2 * h + 1];
-      if (pairs && d + 1 < D) {
-        *reinterpret_cast<float2*>(row + d) = make_float2(x, y);
-      } else {
-        if (d < D) row[d] = x;
-        if (d + 1 < D) row[d + 1] = y;
-      }
-    }
-  }
+  rd_consume_tf32<kRfStages, kRfStage>(ring, vsplit, full, empty, sfull, sempty, blk, M, D,
+                                       kvs_part, tid, [](int, int, int, float (&)[4]) {});
 }
 
 // Second pass: kvs and ksum are the partials added in slice order.
@@ -1508,7 +1268,7 @@ extern "C" int sgf_la_reduce(const void* q, const void* k, const void* v, long l
     const int box_cols = 128 / elem;  // one 128-byte swizzle row
     const int box_rows = dtype == 0 ? kRfRows : kRwRows;
     struct Rows { CUtensorMap* map; const void* base; int width; long ld; };
-    const Rows rows[3] = {{&maps.q, q, M, ldq}, {&maps.k, k, M, ldk}, {&maps.v, v, D, ldv}};
+    const Rows rows[3] = {{&maps.c, q, M, ldq}, {&maps.a, k, M, ldk}, {&maps.b, v, D, ldv}};
     for (const Rows& r : rows) {
       err = tc::encode_rows_map(r.map, r.base, type, elem, N, r.width, r.ld, box_cols, box_rows);
       if (err != cudaSuccess) return static_cast<int>(err);

@@ -116,11 +116,15 @@
 // to 1.58 ms and the rows pass from 0.75 to 0.57 (NVIDIA H100, 700 W):
 // still ~4x the bound, since the MMA loop alone runs at ~45 % of the TF32
 // peak and one block an SM does not overlap the A staging, the B stream and
-// the epilogue with it (PERF.md). The P pass (la_bwd_reduce_tf32_kernel) stays on
-// mma.sync: the node-axis contraction with q split as its fragments load and
-// gd = g * (1/den) split once a chunk into shared tf32 hi + lo tiles (both
-// operands node-major, which tf32 wgmma, transposing no 32-bit operand,
-// does not read). Two tf32 pieces of kvs keep dinv's cancelling sums where
+// the epilogue with it (PERF.md). The P pass (la_bwd_reduce_wg_kernel) is
+// the f32 forward reduce's design on wgmma m64n128k8 tf32, warp-specialised
+// and fed by the copy engine (tensor_core.cuh's rd_produce and
+// rd_consume_tf32): q^T from registers, split as its fragments load from
+// the node-major atoms, and gd = g * (1/den) formed as each chunk of g is
+// split K-major into tf32 hi + lo (tf32 wgmma reads no transposed 32-bit
+// operand), ds on the producer warpgroup's spare warps. It replaced an
+// mma.sync m16n8k8 kernel whose copies and MMAs ran in turn on the same
+// warps (PERF.md). Two tf32 pieces of kvs keep dinv's cancelling sums where
 // the bf16 rows pass needs three bf16 pieces.
 //
 // Inputs are row-strided views (ld* = elements between rows), so the heads
@@ -140,7 +144,6 @@
 namespace {
 
 using tc::cp_async16;
-using tc::cp_async4;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::split_tf32;
@@ -152,7 +155,6 @@ using tc::kTcThreads;
 using tc::kTfK;
 using tc::kWgBBytes;
 using tc::load8;
-using tc::node_mma_chunk_tf32;
 using tc::store8;
 using tc::tc_stage_rows;
 using tc::tile8;
@@ -842,128 +844,142 @@ la_bwd_rows_wg_kernel(const float* __restrict__ q, const float* __restrict__ v,
   if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
-// The reduce's P pass for f32 inputs, 3xTF32: la_bwd_reduce_wgmma_kernel's
-// grid, slices and f64 ds, one block an SM (the A fragments of a whole
-// chunk stay in registers). Each 32-row chunk of q and g (and den, gden)
-// comes through a kTfReduceStages-deep cp.async ring as f32; once it has
-// landed
-// the block forms gd = g * (1/den) (the correctly rounded 1/den: within
-// 2^-23 of g / den) and splits it into tf32 hi + lo tiles; q is split as
-// its fragments load.
-constexpr int kTfReduceStages = 3;
-constexpr int kTfReduceStage = 2 * tc::kNodeChunk;  // f32 of a stage's q and g chunks
-constexpr size_t kTfReduceSmem =
-    (kTfReduceStages * (kTfReduceStage + 2 * tc::kNodeRows) + 2 * tc::kNodeChunk) *
-    sizeof(float);
+// The reduce's P pass for f32 inputs in 3xTF32 on warpgroup MMAs (wgmma
+// m64n128k8 tf32 -> f32, A from registers), the f32 forward reduce's design
+// (la_reduce_wg_kernel) with q for k and gd = g / den for v: grid (slices *
+// tiles), tiles = ceil(M/128) * ceil(D/128), slice-major, block b summing
+// tile b % tiles of P over its slice's rows, one block an SM. A producer
+// warpgroup, its registers given to the consumers, brings each 32-node
+// chunk of q and g into swizzled node-major atoms by the copy engine (f32
+// tensor maps; where the rows' strides or bases do not allow one, vec == 0,
+// its lanes copy them, zero past the slice), and den and gden of the
+// chunk's rows with them, through a kBrStages-deep ring of full and empty
+// mbarriers (tc::rd_produce). The two consumer warpgroups
+// (tc::rd_consume_tf32) split q as its fragments load and form gd = g *
+// (1/den) as they split each chunk's g K-major into tf32 hi + lo: the
+// correctly rounded 1/den, then a round-to-nearest product, zero past the
+// slice, so that gd is bitwise the mma.sync kernel's it replaced. The
+// chunk's rows past the slice (which the copy engine reads) are read as
+// zeros by both. The blocks of the first column tile also sum ds = q . gden
+// per column of their M tile on the producer warpgroup's three other warps
+// while the MMAs run, rows w + 3 j of each chunk for warp w, lane l taking
+// the columns 4 l .. + 3: f64 FMAs of the values made f64, so that each
+// product is exact and ds is exact up to its f64 adds however gden's signs
+// make it cancel, the three row groups added in order and rounded to f32
+// once a slice. (One f32 chain a chunk made f64 once, as the forward's
+// column sums run, costs a tenth as much and loses that where ds cancels;
+// an f32 pair a chunk that keeps every rounding error, by an FMA and
+// TwoSum, holds it but costs more than the f64 FMAs: PERF.md.) A stage is
+// freed when the consumer warps and the three ds warps
+// are done with it. Dynamic shared memory: 4 stages of q's and g's four
+// atoms (32 KB each), gd's split hi and lo of two chunks (64 KB), den and
+// gden of each stage, ds's f64 sums and the mbarriers, 196 KB.
+constexpr int kBrStages = 4;
+constexpr int kBrStage = 8 * tc::kRfAtom;  // q's four atoms, g's four
+constexpr int kBrSums = 4 * tc::kRfSumWarps * 32;  // ds's f64 sums: [column % 4][row group][lane]
+constexpr size_t kBrSmem = kBrStages * kBrStage + 4 * tc::kRfPiece +
+                           kBrStages * 2 * tc::kRfRows * sizeof(float) + kBrSums * sizeof(double) +
+                           (2 * kBrStages + 4) * sizeof(uint64_t);
 
-__global__ void __launch_bounds__(tc::kNodeThreads, 1)
-la_bwd_reduce_tf32_kernel(const float* __restrict__ q, const float* __restrict__ g, long ldq,
-                          long ldg, int N, int M, int D, int rows_per_slice, int vec,
-                          const float* __restrict__ den, const float* __restrict__ gden,
-                          float* __restrict__ P_part, float* __restrict__ ds_part) {
-  using tc::kNodeRows;
-  using tc::kNodeStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);  // [stage][q, g]
-  float* gd_hi = ring + kTfReduceStages * kTfReduceStage;
-  float* gd_lo = gd_hi + tc::kNodeChunk;
-  float* rows_s = gd_lo + tc::kNodeChunk;  // [stage][den, gden]
-  __shared__ double red[tc::kNodeTile];
+__global__ void __launch_bounds__(tc::kRdThreads, 1)
+la_bwd_reduce_wg_kernel(const float* __restrict__ q, const float* __restrict__ g, long ldq,
+                        long ldg, int N, int M, int D, int rows_per_slice, int vec,
+                        const float* __restrict__ den, const float* __restrict__ gden,
+                        float* __restrict__ P_part, float* __restrict__ ds_part,
+                        const __grid_constant__ tc::RdMaps maps) {  // a: q, b: g
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem_raw;  // [stage][q atoms 0-3; g atoms 0-3]
+  unsigned char* gsplit = ring + kBrStages * kBrStage;  // [buffer][hi, lo][128 d][32 nodes]
+  float* rows_s = reinterpret_cast<float*>(gsplit + 4 * kRfPiece);  // [stage][den, gden][32]
+  double* colsum = reinterpret_cast<double*>(rows_s + kBrStages * 2 * kRfRows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(colsum + kBrSums);  // a stage has landed
+  uint64_t* empty = full + kBrStages;                               // a stage is read
+  uint64_t* sfull = empty + kBrStages;  // a split buffer is written
+  uint64_t* sempty = sfull + 2;         // a split buffer's MMAs are done
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = (warp & 3) * 32;
-  const int wn = (warp >> 2) * 64;
-  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
-  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
-  const int s = blockIdx.x / tiles;
-  const int dy = (blockIdx.x % tiles) / tiles_m;
-  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
-  const int d0 = dy * tc::kNodeTile;
-  const bool stats = dy == 0;
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-  const int chunks = static_cast<int>((r_end - r_begin + kNodeRows - 1) / kNodeRows);
+  const RdBlock<kRfRows> blk(N, M, D, rows_per_slice);
 
-  auto stage = [&](int c) {
-    const int st = c % kTfReduceStages;
-    float* qs = ring + st * kTfReduceStage;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    tc::stage_node_rows(qs, q, ldq, r0, r_end, m0, M, vec, tid);
-    tc::stage_node_rows(qs + tc::kNodeChunk, g, ldg, r0, r_end, d0, D, vec, tid);
-    if (tid < 2 * kNodeRows) {  // den, then gden, of the chunk's rows
-      const int r = tid % kNodeRows;
-      const float* src = tid < kNodeRows ? den : gden;
-      const bool ok = r0 + r < r_end;
-      tc::cp_async4(rows_s + st * 2 * kNodeRows + tid, ok ? src + r0 + r : src, ok);
+  if (tid == 0) {
+    for (int i = 0; i < kBrStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kRdConsumers / 32 + kRfSumWarps);  // consumer and ds warps
     }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int col = tid & (tc::kNodeTile - 1);
-  const int par = tid / tc::kNodeTile;
-  double ds = 0.0;
-
-  for (int c = 0; c < kTfReduceStages - 1; ++c) {
-    if (c < chunks) stage(c);
-    tc::cp_async_commit();
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(sfull + b, kRdConsumers / 32);
+      mbar_init(sempty + b, kRdConsumers / 32);
+    }
+    mbar_init_fence();
   }
-  for (int c = 0; c < chunks; ++c) {
-    tc::cp_async_wait<kTfReduceStages - 2>();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1 and gd
-    if (c + kTfReduceStages - 1 < chunks) stage(c + kTfReduceStages - 1);
-    tc::cp_async_commit();
-    const int st = c % kTfReduceStages;
-    const float* qs = ring + st * kTfReduceStage;
-    const float* gs = qs + tc::kNodeChunk;
-    const float* den_s = rows_s + st * 2 * kNodeRows;
-    const long r0 = r_begin + static_cast<long>(c) * kNodeRows;
-    // gd = g * (1/den) as tf32 hi + lo, 4 columns of one row a thread step;
-    // rows past the slice are zeros
-#pragma unroll
-    for (int it = 0; it < kNodeRows * tc::kNodeTile / 4 / tc::kNodeThreads; ++it) {
-      const int i = tid + it * tc::kNodeThreads;
-      const int r = i / (tc::kNodeTile / 4);
-      const int cs = (i % (tc::kNodeTile / 4)) * 4;
-      const float rd = r0 + r < r_end ? __frcp_rn(den_s[r]) : 0.f;
-      const float4 x = *reinterpret_cast<const float4*>(gs + r * kNodeStride + cs);
-      const float xs[4] = {__fmul_rn(x.x, rd), __fmul_rn(x.y, rd), __fmul_rn(x.z, rd),
-                           __fmul_rn(x.w, rd)};
-      unsigned hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(xs[e], hi[e], lo[e]);
-      *reinterpret_cast<uint4*>(gd_hi + r * kNodeStride + cs) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(gd_lo + r * kNodeStride + cs) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  __syncthreads();
+
+  if (warp >= kRdConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    const int pw = warp - kRdConsumers / 32;
+    if (pw == 0) {
+      rd_produce<float, kRfRows, kBrStages, 4, 2>(
+          ring, full, empty, q, g, q, ldq, ldg, ldq, M, D, blk, 2, vec, lane, maps,
+          [&](int st, long r0) {
+            // den and gden of the chunk's rows, lane r's row r, zero past the slice
+            const bool ok = r0 + lane < blk.r_end;
+            rows_s[st * 2 * kRfRows + lane] = ok ? den[r0 + lane] : 0.f;
+            rows_s[(st * 2 + 1) * kRfRows + lane] = ok ? gden[r0 + lane] : 0.f;
+            __syncwarp();
+          });
+      return;
     }
-    __syncthreads();
-    node_mma_chunk_tf32(acc, qs, gd_hi, gd_lo, wm, wn, lane);
-    if (stats) {
-      const float* gden_s = den_s + kNodeRows;
-#pragma unroll 4
-      for (int r = par; r < kNodeRows; r += 2) {
-        ds = fma(static_cast<double>(qs[r * kNodeStride + col]), static_cast<double>(gden_s[r]),
-                 ds);
+    // warps 1-3: ds of row group pw - 1 of every chunk, f64 FMAs of the
+    // values made f64
+    double ds[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int c = 0; c < blk.chunks; ++c) {
+      const int st = c % kBrStages;
+      mbar_wait(full + st, (c / kBrStages) & 1);
+      if (blk.k_stats) {
+        const unsigned char* qs = ring + st * kBrStage;
+        const float* gden_s = rows_s + (st * 2 + 1) * kRfRows;
+        const int valid = blk.valid(c);
+        for (int r = pw - 1; r < valid; r += kRfSumWarps) {
+          float x[4];
+          rd_load4(reinterpret_cast<const float*>(qs + (lane >> 3) * kRfAtom +
+                                                  sw128_offset_f32(r, (4 * lane) & 31)),
+                   true, x);
+          const double gr = static_cast<double>(gden_s[r]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ds[e] = fma(static_cast<double>(x[e]), gr, ds[e]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    if (blk.k_stats) {  // uniform over the block
+#pragma unroll
+      for (int e = 0; e < 4; ++e) colsum[(e * kRfSumWarps + pw - 1) * 32 + lane] = ds[e];
+      rd_sum_warps_sync();
+      for (int col = (pw - 1) * 32 + lane; col < kRdTile; col += kRfSumWarps * 32) {
+        if (blk.m0 + col >= M) continue;
+        const double* p = colsum + (col & 3) * kRfSumWarps * 32 + (col >> 2);
+        double sum = 0.0;
+#pragma unroll
+        for (int rg = 0; rg < kRfSumWarps; ++rg) sum += p[32 * rg];
+        ds_part[static_cast<size_t>(blk.s) * M + blk.m0 + col] = static_cast<float>(sum);
       }
     }
+    return;
   }
-  tc::cp_async_wait<0>();
 
-  tc::store_node_tile(P_part + static_cast<size_t>(s) * M * D, acc, m0, d0, M, D, wm, wn, lane);
-  if (stats) {  // uniform over the block
-    if (par == 1) red[col] = ds;
-    __syncthreads();
-    if (par == 0 && m0 + col < M) {
-      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
-    }
-  }
+  setmaxnreg_inc<232>();
+  // gd = g * (1/den) of each node row as the split reads it
+  rd_consume_tf32<kBrStages, kBrStage>(
+      ring, gsplit, full, empty, sfull, sempty, blk, M, D, P_part, tid,
+      [&](int st, int valid, int r, float (&x)[4]) {
+        const float rd = r < valid ? __frcp_rn(rows_s[st * 2 * kRfRows + r]) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = __fmul_rn(x[e], rd);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -1318,7 +1334,7 @@ la_bwd_rows_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
 // The reduce's P pass: P = q^T (g/den) over node slices, both operands read
 // node-major (MN-major descriptors: the MMA's k is the node axis). grid
 // (slices * tiles), tiles = ceil(M/128) * ceil(D/128), slice-major as
-// la_bwd_reduce_tf32_kernel's; block b sums tile b % tiles of P over its
+// la_bwd_reduce_wg_kernel's; block b sums tile b % tiles of P over its
 // slice's rows, warpgroup w its 64 m rows by 128 d columns. The warps
 // specialise, as the rows pass's: a producer warpgroup (its registers given
 // to the consumers by setmaxnreg, one of its warps working) brings each
@@ -2053,17 +2069,31 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int vec = M % kPer == 0 && D % kPer == 0 && ldq % kPer == 0 && ldg % kPer == 0 &&
-                  aligned16(q) && aligned16(g);
   const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
   if constexpr (kIsF32<T>) {
-    err = cudaFuncSetAttribute(la_bwd_reduce_tf32_kernel,
+    // tensor maps where the copy engine can read the rows (16-byte aligned
+    // bases and row strides; it clips the widths), else the producer's
+    // lanes copy them
+    const int vec = ldq % kPer == 0 && ldg % kPer == 0 && aligned16(q) && aligned16(g);
+    tc::RdMaps maps = {};
+    if (vec) {
+      err = tc::encode_rows_map(&maps.a, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), N, M,
+                                ldq, 32, tc::kRfRows);
+      if (err == cudaSuccess) {
+        err = tc::encode_rows_map(&maps.b, g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), N,
+                                  D, ldg, 32, tc::kRfRows);
+      }
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaFuncSetAttribute(la_bwd_reduce_wg_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kTfReduceSmem));
+                               static_cast<int>(kBrSmem));
     if (err != cudaSuccess) return err;
-    la_bwd_reduce_tf32_kernel<<<slices * tiles, tc::kNodeThreads, kTfReduceSmem, st>>>(
-        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part);
+    la_bwd_reduce_wg_kernel<<<slices * tiles, tc::kRdThreads, kBrSmem, st>>>(
+        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part, maps);
   } else {
+    const int vec = M % kPer == 0 && D % kPer == 0 && ldq % kPer == 0 && ldg % kPer == 0 &&
+                    aligned16(q) && aligned16(g);
     CUtensorMap map_q = {}, map_g = {};
     if (vec) {
       err = encode_rows_map(&map_q, q, N, M, ldq, kPRows);

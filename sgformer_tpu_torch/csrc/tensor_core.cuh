@@ -1,29 +1,26 @@
 // Tensor-core building blocks of the linear-attention kernels
-// (linear_attention.cu, linear_attention_bwd.cu), sm_90a:
+// (linear_attention.cu, linear_attention_bwd.cu), sm_90a. Every product
+// runs on warpgroup MMAs (wgmma); nothing here issues mma.sync.
 //
-// - PTX wrappers: cp.async of 16 and 4 bytes; wgmma m64n64k16 and
-//   m64n128k16 bf16 -> f32 with their fences and the 128-byte-swizzled
-//   shared-memory layout and descriptors they read, K-major (the forward
-//   apply's, the bf16 backward apply's and rows pass's) and, for m64n64k16,
-//   MN-major (the node-axis operands of the bf16 forward reduce and backward
-//   P pass); wgmma m64n64k8 and m64n128k8 tf32 -> f32 with A from registers
-//   and B from the same swizzle over f32 rows (the f32 forward apply's and
-//   reduce's, the f32 backward apply's and rows pass's); mbarriers, the copy
-//   engine's (TMA) bulk and tensor-map copies between device and shared
-//   memory, and setmaxnreg (the warp-specialised kernels: the bf16 backward,
-//   the f32 forward apply, both forward reduces);
-// - TF32: the rounding of an f32 to tf32, mma.sync m16n8k8 tf32 -> f32 and
-//   the 3xTF32 product of two f32 operands split into tf32 hi + lo (the f32
-//   kernels');
+// - PTX wrappers: cp.async of 16 bytes; wgmma m64n64k16 and m64n128k16
+//   bf16 -> f32 with their fences and the 128-byte-swizzled shared-memory
+//   layout and descriptors they read, K-major (the forward apply's, the
+//   bf16 backward apply's and rows pass's) and, for m64n64k16, MN-major (the
+//   node-axis operands of the bf16 forward reduce and backward P pass);
+//   wgmma m64n64k8 and m64n128k8 tf32 -> f32 with A from registers and B
+//   from the same swizzle over f32 rows (the f32 kernels); mbarriers, the
+//   copy engine's (TMA) bulk and tensor-map copies between device and
+//   shared memory, and setmaxnreg (the warp-specialised kernels);
+// - TF32: the rounding of an f32 to tf32 and its split into tf32 hi + lo,
+//   each product of two f32 operands three TF32 products (3xTF32);
 // - the split of kvs^T into bf16 or tf32 pieces, the B operand of
 //   a = q @ kvs in the forward apply and the backward reduce's rows pass;
-// - the node-axis contraction C[m, n] += sum_r A[r, m] * B[r, n] on mma.sync
-//   in 3xTF32, with A and B held node-major in shared memory (a chunk of
-//   kNodeRows node rows of kNodeTile columns each): P = q^T (g / den) of the
-//   f32 backward reduce, the [N, M]^T x [N, D] product that the TPU kernel
-//   accumulates over its sequential grid and that the card splits over
-//   slices of N (the forward reduces' k^T v runs on warpgroup MMAs in
-//   linear_attention.cu);
+// - the node-axis reduces' pieces, C[m, n] = sum_r A[r, m] B[r, n] over
+//   slices of the N node rows (the [N, M]^T x [N, D] products that the TPU
+//   kernels accumulate over their sequential grids): a block's slice and
+//   tile (RdBlock), its producer warp (rd_produce), and the f32 forms'
+//   consumers in 3xTF32 (rd_split_tf32, rd_consume_tf32): k^T v of the f32
+//   forward reduce and P = q^T (g / den) of the f32 backward P pass;
 // - the row kernels' core for f32 A rows in 3xTF32 on warpgroup MMAs: A
 //   rows staged once, a split B streamed in 64-deep chunks, a 128 x 64
 //   output tile at a time (wg_column_tile: the f32 backward apply and rows
@@ -53,11 +50,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
-}
-// 4 bytes, the same way
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int kPending>
@@ -200,164 +192,10 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// c += a b over a 16 x 8 x 8 tile: tf32 in (a: a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); b: b0 (k = t, n = g), b1 (t + 4, g),
-// with g = lane / 4, t = lane % 4), f32 sums c0 (g, 2t), c1 (g, 2t + 1),
-// c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
-// The node-axis contraction. A block of kNodeThreads threads owns one
-// kNodeTile x kNodeTile output tile over a slice of node rows: 8 warps in a
-// 4 (m) x 2 (n) grid of 32 x 64 warp tiles, 2 m16 x 8 n8 MMA tiles each.
-
-constexpr int kNodeRows = 32;                   // node rows per staged chunk: four k8 steps
-constexpr int kNodeTile = 128;                  // output tile, m and n
-constexpr int kNodeStride = kNodeTile + 8;      // elements per staged row
-constexpr int kNodeThreads = 256;
-constexpr int kNodeChunk = kNodeRows * kNodeStride;  // elements of one staged operand chunk
-
-// Rows [r0, r0 + kNodeRows) of X (ld elements apart) at columns
-// [c0, c0 + kNodeTile) into S [kNodeRows][kNodeStride], zeros at rows from
-// r_end and columns from width; T is bf16 or float. vec: 16-byte cp.async
-// copies (width and ld multiples of 16 bytes' elements, X 16-byte aligned),
-// which the caller commits and waits for; else one element at a time,
-// synchronously.
-template <typename T>
-__device__ __forceinline__ void stage_node_rows(T* S, const T* __restrict__ X, long ld, long r0,
-                                                long r_end, int c0, int width, int vec, int tid) {
-  if (vec) {
-    constexpr int kPer = 16 / sizeof(T);
-    constexpr int kSegs = kNodeTile / kPer;
-#pragma unroll
-    for (int it = 0; it < kNodeRows * kSegs / kNodeThreads; ++it) {
-      const int i = tid + it * kNodeThreads;
-      const int r = i / kSegs;
-      const int c = (i % kSegs) * kPer;
-      const bool ok = r0 + r < r_end && c0 + c < width;
-      cp_async16(S + r * kNodeStride + c, ok ? X + (r0 + r) * ld + c0 + c : X, ok);
-    }
-  } else {
-    for (int i = tid; i < kNodeRows * kNodeTile; i += kNodeThreads) {
-      const int r = i / kNodeTile;
-      const int c = i % kNodeTile;
-      const bool ok = r0 + r < r_end && c0 + c < width;
-      if constexpr (std::is_same_v<T, float>) {
-        S[r * kNodeStride + c] = ok ? X[(r0 + r) * ld + c0 + c] : 0.f;
-      } else {
-        S[r * kNodeStride + c] = ok ? X[(r0 + r) * ld + c0 + c] : __float2bfloat16_rn(0.f);
-      }
-    }
-  }
-}
-
-// The node-axis contraction in 3xTF32: acc += A^T B over one staged chunk
-// of kNodeRows rows for the warp tile at (wm, wn): acc[mt][nt] = {(m, n),
-// (m, n+1), (m+8, n), (m+8, n+1)} with m = wm + mt*16 + lane/4, n = wn +
-// nt*8 + 2*(lane%4). A is the f32 chunk [kNodeRows][kNodeStride], split into
-// tf32 hi + lo as its fragments load, all of the chunk's at once; B is given
-// as its tf32 hi and lo chunks. Rows are kNodeStride = 136 f32 apart, 8
-// banks, so each fragment load's (k = lane % 4, m or n = lane / 4)
-// addresses fall in distinct banks. The chunk's products go into fresh
-// sums, 16 columns at a time (lo*hi + hi*lo + hi*hi, the cross terms
-// first), each added to acc with an f32 round-to-nearest add.
-__device__ __forceinline__ void node_mma_chunk_tf32(float (&acc)[2][8][4],
-                                                    const float* __restrict__ As,
-                                                    const float* __restrict__ Bh,
-                                                    const float* __restrict__ Bl, int wm, int wn,
-                                                    int lane) {
-  constexpr int kSteps = kNodeRows / 8;
-  const int gr = lane >> 2;
-  const int gk = lane & 3;
-  // A (m x k) of every k8 step: (m, k) at As[k][m]
-  unsigned ah[kSteps][2][4], al[kSteps][2][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float* ap = As + (ks * 8 + gk) * kNodeStride + wm + mt * 16 + gr;
-      split_tf32(ap[0], ah[ks][mt][0], al[ks][mt][0]);
-      split_tf32(ap[8], ah[ks][mt][1], al[ks][mt][1]);
-      split_tf32(ap[4 * kNodeStride], ah[ks][mt][2], al[ks][mt][2]);
-      split_tf32(ap[4 * kNodeStride + 8], ah[ks][mt][3], al[ks][mt][3]);
-    }
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    float part[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][h][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      // B (k x n) of two n8 tiles: (k, n) at B[k][n]
-      unsigned bh[2][2], bl[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int off = (ks * 8 + gk) * kNodeStride + wn + np * 16 + h * 8 + gr;
-        bh[h][0] = __float_as_uint(Bh[off]);
-        bh[h][1] = __float_as_uint(Bh[off + 4 * kNodeStride]);
-        bl[h][0] = __float_as_uint(Bl[off]);
-        bl[h][1] = __float_as_uint(Bl[off + 4 * kNodeStride]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], al[ks][mt], bh[h][0], bh[h][1]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bl[h][0], bl[h][1]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) mma_tf32(part[mt][h], ah[ks][mt], bh[h][0], bh[h][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][2 * np + h][e] = __fadd_rn(acc[mt][2 * np + h][e], part[mt][h][e]);
-  }
-}
-
-// The block's tile of acc into part [rows][cols] (row-major, cols apart),
-// at its origin (m0, n0), clipped to rows x cols.
-__device__ __forceinline__ void store_node_tile(float* __restrict__ part,
-                                                const float (&acc)[2][8][4], int m0, int n0,
-                                                int rows, int cols, int wm, int wn, int lane) {
-  const bool pairs = (cols & 1) == 0;  // float2 stores stay 8-byte aligned
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mt * 16 + (lane >> 2) + half * 8;
-      if (m >= rows) continue;
-      float* row = part + static_cast<size_t>(m) * cols;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = n0 + wn + nt * 8 + 2 * (lane & 3);
-        const float x = acc[mt][nt][half * 2];
-        const float y = acc[mt][nt][half * 2 + 1];
-        if (pairs && n + 1 < cols) {
-          *reinterpret_cast<float2*>(row + n) = make_float2(x, y);
-        } else {
-          if (n < cols) row[n] = x;
-          if (n + 1 < cols) row[n + 1] = y;
-        }
-      }
-    }
-}
+// The node-axis reduces' output tile, m and n: kvs = k^T v of the forward
+// reduces and P = q^T (g / den) of the backward P passes.
+constexpr int kNodeTile = 128;
 
 // ---------------------------------------------------------------------------
 // wgmma (sm_90a): warpgroup MMAs reading both operands from shared memory
@@ -491,8 +329,8 @@ __device__ __forceinline__ int sw128_offset_f32(int r, int c) {
 }
 
 // d[64 x 64] = A[64 x 8] B[8 x 64] + (scale_d ? d : 0), tf32 in, f32 sums.
-// A from registers: each warp's 16 rows of the warpgroup's 64 as mma_tf32's
-// A fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
+// A from registers: each warp's 16 rows of the warpgroup's 64 as an m16 x k8
+// fragment (a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4),
 // g = lane / 4, t = lane % 4); B K-major in swizzled shared memory (32-bit
 // operands are not transposed); d laid out as wgmma_m64n64k16's.
 __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsigned (&a)[4],
@@ -556,6 +394,319 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const unsig
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 constexpr size_t kSmemPerBlock = 232448;  // the H100's dynamic shared memory a block may use
+
+// ---------------------------------------------------------------------------
+// The node-axis reduces on warpgroup MMAs (linear_attention.cu's forward
+// reduces, linear_attention_bwd.cu's f32 P pass): a block sums one
+// kRdTile x kRdTile output tile over one slice of the node rows, two
+// consumer warpgroups of 64 m rows by all kRdTile columns, and a producer
+// warpgroup (its registers given to the consumers by setmaxnreg), one warp
+// of which brings each chunk of the slice's rows into 128-byte-swizzled
+// node-major atoms ([kRows nodes][128 bytes]) by the copy engine, through a
+// ring of full and empty mbarriers.
+constexpr int kRdConsumers = 2 * 128;
+constexpr int kRdThreads = kRdConsumers + 128;  // and the producer warpgroup
+constexpr int kRdTile = kNodeTile;              // 128 m by 128 d a block
+// the f32 forms: 32 node rows a chunk (four k8 steps, one fresh-sum
+// period), a swizzled [32 nodes][32] f32 atom, the split B operand's hi or
+// lo piece ([128 d][32 nodes], K-major), and the producer warpgroup's three
+// other warps, which sum per column while the MMAs run
+constexpr int kRfRows = 32;
+constexpr int kRfAtom = kRfRows * 128;
+constexpr int kRfPiece = kRdTile * 128;
+constexpr int kRfSumWarps = 3;
+
+// the consumers' own barrier (the producer warpgroup has left)
+__device__ __forceinline__ void rd_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kRdConsumers) : "memory");
+}
+// one consumer warpgroup's barrier
+__device__ __forceinline__ void rd_warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+// the column-sum warps' barrier
+__device__ __forceinline__ void rd_sum_warps_sync() {
+  asm volatile("bar.sync 4, %0;\n" ::"n"(kRfSumWarps * 32) : "memory");
+}
+
+// Four adjacent columns of a staged row as floats: 8 bytes of bf16, or 16
+// of f32; zeros where !ok.
+__device__ __forceinline__ void rd_load4(const bf16* p, bool ok, float (&x)[4]) {
+  const uint2 raw = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void rd_load4(const float* p, bool ok, float (&x)[4]) {
+  const float4 a = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
+
+// A reduce block's work: tile b % tiles of slice s = b / tiles (b the
+// block, slice-major), the tile's origin (m0, d0), the column sums it takes
+// (k_stats: the first column tile; q_stats: the second, or the first when D
+// fits one tile), and its slice's rows [r_begin, r_end) in kRows-row chunks.
+template <int kRows>
+struct RdBlock {
+  int s, m0, d0, chunks;
+  bool k_stats, q_stats;
+  long r_begin, r_end;
+  __device__ RdBlock(int N, int M, int D, int rows_per_slice) {
+    const int tiles_m = cdiv(M, kRdTile);
+    const int tiles_d = cdiv(D, kRdTile);
+    const int tiles = tiles_m * tiles_d;
+    const int dy = blockIdx.x % tiles / tiles_m;
+    s = blockIdx.x / tiles;
+    m0 = blockIdx.x % tiles % tiles_m * kRdTile;
+    d0 = dy * kRdTile;
+    k_stats = dy == 0;
+    q_stats = dy == (tiles_d > 1 ? 1 : 0);
+    r_begin = static_cast<long>(s) * rows_per_slice;
+    r_end = r_begin + rows_per_slice < N ? r_begin + rows_per_slice : static_cast<long>(N);
+    chunks = static_cast<int>((r_end - r_begin + kRows - 1) / kRows);
+  }
+  // the first row of chunk c, and how many of its rows lie in the slice
+  __device__ long row0(int c) const { return r_begin + static_cast<long>(c) * kRows; }
+  __device__ int valid(int c) const {
+    return r_end - row0(c) < kRows ? static_cast<int>(r_end - row0(c)) : kRows;
+  }
+};
+
+// A reduce's tensor maps, node-major boxes of its operands' rows: a and c
+// at m columns (the forward's k and q, the P pass's q), b at d columns (v,
+// g).
+struct RdMaps {
+  CUtensorMap a, b, c;
+};
+
+// The producer warpgroup's warp 0: chunk c of the slice's rows into stage c
+// % kStages of the ring, once its last reader has freed it, by the copy
+// engine where vec, else by the warp's lanes (zero past the slice and the
+// widths). A stage has kSlots slots of kParts atoms ([kRows nodes][128
+// bytes] of T): a's columns m0 + .. (M wide), b's d0 + .. (D wide) and,
+// where parts is 3, c's m0 + .. (M wide), each atom the box at (column
+// + a * 128 / sizeof(T), row r0) of its tensor map. rows(st, r0), run by
+// every lane before the stage is handed over, stages what else the chunk's
+// rows carry and makes its stores visible to the warp.
+template <typename T, int kRows, int kStages, int kParts, int kSlots, typename Rows>
+__device__ __forceinline__ void rd_produce(unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                           const T* __restrict__ a, const T* __restrict__ b,
+                                           const T* __restrict__ c, long lda, long ldb, long ldc,
+                                           int M, int D, const RdBlock<kRows>& blk, int parts,
+                                           int vec, int lane, const RdMaps& maps, Rows rows) {
+  constexpr int kCols = 128 / sizeof(T);        // elements of a swizzle row
+  constexpr int kAtom = kRows * 128;            // bytes of an atom
+  constexpr int kStage = kSlots * kParts * kAtom;
+  for (int ch = 0; ch < blk.chunks; ++ch) {
+    const int st = ch % kStages;
+    if (ch >= kStages) mbar_wait(empty + st, (ch / kStages - 1) & 1);
+    unsigned char* stage = ring + st * kStage;
+    const long r0 = blk.row0(ch);
+    rows(st, r0);
+    if (!vec) {  // one element a lane at a time
+      for (int i = lane; i < parts * kRows * kRdTile; i += 32) {
+        const int p = i / (kRows * kRdTile);
+        const int r = i / kRdTile % kRows;
+        const int cc = i % kRdTile;
+        const T* X = p == 0 ? a : p == 1 ? b : c;
+        const long ld = p == 0 ? lda : p == 1 ? ldb : ldc;
+        const int col = (p == 1 ? blk.d0 : blk.m0) + cc;
+        const bool ok = r0 + r < blk.r_end && col < (p == 1 ? D : M);
+        unsigned char* dst = stage + (kParts * p + cc / kCols) * kAtom;
+        if constexpr (std::is_same_v<T, float>) {
+          *reinterpret_cast<float*>(dst + sw128_offset_f32(r, cc % kCols)) =
+              ok ? X[(r0 + r) * ld + col] : 0.f;
+        } else {
+          *reinterpret_cast<T*>(dst + sw128_offset(r, cc % kCols)) =
+              ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full + st);
+    } else if (lane == 0) {
+      mbar_arrive_expect_tx(full + st, parts * kParts * kAtom);
+      const int y = static_cast<int>(r0);
+      for (int at = 0; at < kParts; ++at) {
+        tma_load_2d(stage + at * kAtom, &maps.a, blk.m0 + kCols * at, y, full + st);
+        tma_load_2d(stage + (kParts + at) * kAtom, &maps.b, blk.d0 + kCols * at, y, full + st);
+        if (parts > 2) {
+          tma_load_2d(stage + (2 * kParts + at) * kAtom, &maps.c, blk.m0 + kCols * at, y,
+                      full + st);
+        }
+      }
+    }
+  }
+}
+
+// The f32 reduces' B operand: the warpgroup's half (d rows 64 wg .. + 63,
+// wg = tid / 128) of a staged chunk's four node-major atoms at src, scaled
+// by its node row (scale(r, x): x the row's four d values, read as zeros
+// from row valid on), split into tf32 hi (at dst) and lo (kRfPiece on),
+// written K-major ([128 d][32 nodes], swizzled), the transpose that tf32
+// wgmma, which reads no transposed 32-bit operand, cannot do itself.
+// Thread tid takes nodes 4 (tid % 8) .. + 3 by d 4 (tid / 8) .. + 3, four
+// 16-byte loads of node rows, and stores each d row's four nodes as 16
+// bytes of hi and of lo (the eight lanes of a store's phase hit distinct
+// banks).
+template <typename Scale>
+__device__ __forceinline__ void rd_split_tf32(const unsigned char* src, unsigned char* dst,
+                                              int valid, int tid, Scale scale) {
+  const int nq = tid & 7;
+  const int dq = tid >> 3;
+  float x[4][4];  // [node][d]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * nq + i;
+    rd_load4(reinterpret_cast<const float*>(src + (dq >> 3) * kRfAtom +
+                                            sw128_offset_f32(r, (4 * dq) & 31)),
+             r < valid, x[i]);
+    scale(r, x[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint4 hi, lo;
+    split_tf32(x[0][j], hi.x, lo.x);
+    split_tf32(x[1][j], hi.y, lo.y);
+    split_tf32(x[2][j], hi.z, lo.z);
+    split_tf32(x[3][j], hi.w, lo.w);
+    const int off = sw128_offset_f32(4 * dq + j, 4 * nq);
+    *reinterpret_cast<uint4*>(dst + off) = hi;
+    *reinterpret_cast<uint4*>(dst + kRfPiece + off) = lo;
+  }
+}
+
+// The f32 reduces' consumers (the forward kᵀv, the backward P pass's
+// qᵀ(g/den)) in 3xTF32 on warpgroup MMAs, wgmma m64n128k8 tf32 -> f32 with
+// the node axis as the MMAs' k: out_part[s] = A^T B over the block's slice
+// for its tile, A's atoms at the start of each kStage-byte stage of the
+// ring, B's four atoms after them. tf32 wgmma reads no transposed 32-bit
+// operand, so the two operands take two routes. A^T comes from registers:
+// each warp's fragments (16 m rows by 8 nodes a k8 step) are loaded from
+// the node-major atoms and split into tf32 hi + lo as they load (zero past
+// the slice). B: each consumer warpgroup splits half of each chunk
+// (rd_split_tf32, each node row scaled by scale(st, valid, r, x)) into one
+// of two buffers of tf32 hi and lo atoms at bsplit, which mbarriers hand
+// over (sfull: a buffer written; sempty: its MMAs done): chunk c + 1's split
+// runs while chunk c's MMAs do, and neither warpgroup waits for the other
+// at a block barrier, so that one's adds and A loads run under the other's
+// MMAs. Each product is lo*hi' + hi*lo' + hi*hi' (the cross terms first), a
+// chunk's twelve MMAs (four k8 steps) into fresh sums added to the block's
+// with round-to-nearest f32 adds, a 32-row period. Each chunk's MMAs are
+// drained before the next are issued (sums kept in flight across the
+// loop's back edge make ptxas serialise the MMAs; A fragments loaded a
+// chunk ahead gained nothing). Each warp frees a stage (empty) once its A
+// fragments are in registers; the block's sums go to out_part [slices, M,
+// D] at the end.
+template <int kStages, int kStage, typename Scale>
+__device__ __forceinline__ void rd_consume_tf32(const unsigned char* ring, unsigned char* bsplit,
+                                                uint64_t* full, uint64_t* empty, uint64_t* sfull,
+                                                uint64_t* sempty, const RdBlock<kRfRows>& blk,
+                                                int M, int D, float* __restrict__ out_part,
+                                                int tid, Scale scale) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wq = warp & 3;
+  // the warp's A rows 16 wq + g (+ 8 i) of the warpgroup's 64: m = m0 + 64
+  // wg + 16 wq + g, in atom 2 wg + wq / 2 at column 16 (wq % 2) + g; a k8
+  // step s's node rows 8 s + t (+ 4 h) keep the swizzle of rows t (+ 4 h),
+  // so their byte offsets are a_off[h][i] + 1024 s
+  int a_off[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      a_off[h][i] = (2 * wg + (wq >> 1)) * kRfAtom +
+                    sw128_offset_f32(t + 4 * h, 16 * (wq & 1) + g + 8 * i);
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  // the warpgroup's half of chunk c's B (d rows 64 wg .. + 63) into buffer
+  // c % 2 as tf32 hi + lo, K-major, once its stage has landed and the
+  // buffer's MMAs two chunks back are done
+  auto split = [&](int c) {
+    const int st = c % kStages;
+    const int b = c & 1;
+    mbar_wait(full + st, (c / kStages) & 1);
+    if (c >= 2) mbar_wait(sempty + b, (c / 2 - 1) & 1);
+    const int valid = blk.valid(c);
+    rd_split_tf32(ring + st * kStage + 4 * kRfAtom, bsplit + b * 2 * kRfPiece, valid, tid,
+                  [&](int r, float (&x)[4]) { scale(st, valid, r, x); });
+    fence_proxy_async();  // the split's stores, for the MMAs
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sfull + b);
+  };
+
+  if (blk.chunks > 0) split(0);
+  for (int c = 0; c < blk.chunks; ++c) {
+    const int st = c % kStages;
+    const int b = c & 1;
+    const unsigned char* stage = ring + st * kStage;  // landed: split(c) waited for it
+    const int valid = blk.valid(c);
+    // the chunk's A fragments, split into tf32 hi + lo: node rows 8 s + t
+    // (+ 4) of k8 step s
+    unsigned ah[4][4], al[4][4];
+#pragma unroll
+    for (int s8 = 0; s8 < 4; ++s8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const int h = i >> 1;
+        const float x = 8 * s8 + t + 4 * h < valid
+                            ? *reinterpret_cast<const float*>(stage + a_off[h][i & 1] + 1024 * s8)
+                            : 0.f;
+        split_tf32(x, ah[s8][i], al[s8][i]);
+      }
+    }
+    mbar_wait(sfull + b, (c / 2) & 1);  // both halves of the chunk's B split
+    wgmma_fence_operand(part);
+    wgmma_fence();
+    const unsigned char* hb = bsplit + b * 2 * kRfPiece;
+#pragma unroll
+    for (int s8 = 0; s8 < 4; ++s8) {
+      const unsigned char* bp = hb + 32 * s8;
+      wgmma_m64n128k8_tf32(part, al[s8], sw128_desc(bp), s8);           // lo*hi', fresh first
+      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp + kRfPiece), 1);  // hi*lo'
+      wgmma_m64n128k8_tf32(part, ah[s8], sw128_desc(bp), 1);             // hi*hi'
+    }
+    wgmma_commit();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);  // the stage's A is in registers
+    // while the MMAs run: the warpgroup's half of the next chunk's split
+    if (c + 1 < blk.chunks) split(c + 1);
+    wgmma_wait<0>();
+    wgmma_fence_operand(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sempty + b);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  }
+
+  float* op = out_part + static_cast<size_t>(blk.s) * M * D;
+  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = blk.m0 + 16 * warp + g + 8 * h;
+    if (m >= M) continue;
+    float* row = op + static_cast<size_t>(m) * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int d = blk.d0 + 8 * j + 2 * t;
+      const float x = acc[4 * j + 2 * h];
+      const float y = acc[4 * j + 2 * h + 1];
+      if (pairs && d + 1 < D) {
+        *reinterpret_cast<float2*>(row + d) = make_float2(x, y);
+      } else {
+        if (d < D) row[d] = x;
+        if (d + 1 < D) row[d + 1] = y;
+      }
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The B operand of the row kernels' a = q @ kvs (the forward apply, the

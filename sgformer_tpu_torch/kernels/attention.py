@@ -35,11 +35,12 @@ read node-major) and :func:`bwd_apply`'s three products
 reduce and the three backward kernels are fed by the copy engine (TMA)
 from a producer warp. On f32 inputs every kernel runs in 3xTF32 (each f32
 operand split into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32
-sums): on mma.sync m16n8k8 tf32 the backward reduce's P pass
-(``la_bwd_reduce_tf32_kernel``); on warpgroup MMAs (wgmma tf32, A from
-registers) the reduce (``la_reduce_wg_kernel``: kᵀ split as its
-fragments load, v split once a chunk into K-major tf32 hi + lo tiles), the
-apply (``la_apply_wg_kernel``), both fed by TMA from a producer
+sums), all on warpgroup MMAs (wgmma tf32, A from registers): the reduce
+(``la_reduce_wg_kernel``: kᵀ split as its fragments load, v split once a
+chunk into K-major tf32 hi + lo tiles) and the backward reduce's P pass
+(``la_bwd_reduce_wg_kernel``: the reduce's design with qᵀ for kᵀ and
+g/den, formed as each chunk is split, for v), the apply
+(``la_apply_wg_kernel``), these three fed by TMA from a producer
 warpgroup, the backward reduce's rows pass (``la_bwd_rows_wg_kernel``) and
 the backward apply (``la_bwd_apply_wg_kernel``). Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
@@ -77,8 +78,7 @@ _WAVES = 4  # CUDA-core reduce blocks per SM to aim for
 # the tensor-core reduces: 128 x 128 output tiles over chunks of node rows,
 # one wave of resident blocks, one on each SM in both types (the warpgroup
 # designs' consumers and producer hold an SM's registers, and their rings
-# most of its shared memory; the f32 backward P pass keeps a chunk's A
-# fragments in registers)
+# most of its shared memory)
 _TC_TILE = 128
 _TC_BLOCKS_PER_SM = 1
 _CUDA_CORES = "CUDA cores (f32 FMA)"
@@ -261,8 +261,9 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _bwd_reduce_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return ("tensor cores (3xTF32, f32 sums: rows pass wgmma, q and kvs as tf32 hi + lo; "
-                "P pass mma.sync, q and g/den as tf32 hi + lo)")
+        return ("tensor cores (wgmma 3xTF32, f32 sums: rows pass q and kvs as tf32 hi + lo; "
+                "P pass q and g/den as tf32 hi + lo, g/den split K-major; "
+                "la_bwd_reduce_wg_kernel, fed by TMA from a producer warpgroup)")
     return ("tensor cores (wgmma bf16, f32 sums: rows pass kvs as bf16 hi + mid + lo; "
             "P pass q and g/den node-major, g/den as hi + lo)")
 

@@ -110,6 +110,18 @@ def apply_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
     return q, v, kvs, ksum, scal, torch.ones((), device=dev)
 
 
+def _above_tf32(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """Positive values a fraction w of a tf32 step above a tf32 value,
+    2^e (1 + (j + w) / 1024) with e in {-1, 0}, j < 1024 and w uniform in
+    [0.05, 0.45], on ``gen``'s device: rounding to tf32 (nearest) takes each
+    one down, by ~1.6e-4 of it on average."""
+    dev = gen.device
+    j = torch.randint(0, 1024, shape, generator=gen, device=dev)
+    w = 0.05 + 0.4 * torch.rand(*shape, generator=gen, device=dev)
+    e = torch.randint(-1, 1, shape, generator=gen, device=dev)
+    return (torch.ldexp(1.0 + (j + w) / 1024, e.float())).to(dtype)
+
+
 def reduce_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
     """Inputs of the linear-attention reduce, (q, k, v) on ``gen``'s device,
     on which a 3xTF32 kᵀv that drops a lo piece misses the f32 tolerance.
@@ -121,15 +133,29 @@ def reduce_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
     lo piece of k or of v biases every entry of kᵀv by ~16 times the f32
     tolerance (1e-5 of its scale), where the errors of the split with its lo
     pieces (~2^-21 of each term) average out far under it."""
+    return (_above_tf32((n, m), dtype, gen), _above_tf32((n, m), dtype, gen),
+            _above_tf32((n, d), dtype, gen))
+
+
+def bwd_reduce_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
+    """Inputs of the linear-attention backward reduce, (q, v, g, kvs, ksum,
+    scal, n_total) in its argument order, on ``gen``'s device, on which a
+    3xTF32 P = qᵀ(g/den) that drops a lo piece of q or of g/den misses the
+    f32 tolerance.
+
+    q and g are positive values a fraction of a tf32 step above tf32 values
+    (as ``reduce_product_inputs`` makes them), and ksum = 0 with inv = n = 1,
+    so that every den is exactly 1 and g/den is g: no sum of P cancels, and
+    a dropped lo piece biases every entry of P by ~16 times the f32
+    tolerance (1e-5 of its scale). v is positive (0.5 to 1.5) and kvs ~
+    N(0, 1) / m, so that gden (~ -d) and ds are the size of their own
+    terms."""
     dev = gen.device
-
-    def draw(*shape):
-        j = torch.randint(0, 1024, shape, generator=gen, device=dev)
-        w = 0.05 + 0.4 * torch.rand(*shape, generator=gen, device=dev)
-        e = torch.randint(-1, 1, shape, generator=gen, device=dev)
-        return (torch.ldexp(1.0 + (j + w) / 1024, e.float())).to(dtype)
-
-    return draw(n, m), draw(n, m), draw(n, d)
+    q, g = _above_tf32((n, m), dtype, gen), _above_tf32((n, d), dtype, gen)
+    v = (0.5 + torch.rand(n, d, generator=gen, device=dev)).to(dtype)
+    kvs = torch.randn(m, d, generator=gen, device=dev) / m
+    scal = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    return q, v, g, kvs, torch.zeros(m, device=dev), scal, torch.ones((), device=dev)
 
 
 def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):

@@ -26,7 +26,8 @@ from sgformer_tpu.ops.attention import linear_attention as jax_linear_attention
 from sgformer_tpu_torch.kernels import attention as attn
 from sgformer_tpu_torch.kernels.attention import fused_linear_attention
 from sgformer_tpu_torch.ops.attention import linear_attention
-from sgformer_tpu_torch.utils.measure import apply_product_inputs, bwd_product_inputs
+from sgformer_tpu_torch.utils.measure import (apply_product_inputs, bwd_product_inputs,
+                                              bwd_reduce_product_inputs)
 
 torch.set_num_threads(1)
 
@@ -701,12 +702,14 @@ def _mm_3xtf32_sums(a, b, period, lo=True):
 
 def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True, period=None):
     """The f32 backward reduce (``la_bwd_rows_wg_kernel``,
-    ``la_bwd_reduce_tf32_kernel``) and apply (``la_bwd_apply_wg_kernel``)
+    ``la_bwd_reduce_wg_kernel``) and apply (``la_bwd_apply_wg_kernel``)
     in 3xTF32, unguarded: a = q @ kvs, den, gden and dinv from it; gd =
-    g * (1/den) in f32, P = qᵀ gd; then dq (1/den in the epilogue), dk and
-    dv from the f32 P, ds and dinv. The pieces' products are summed in f64,
-    or with ``period`` the row kernels' (a, dq, dk, dv) as their MMAs sum
-    them (:func:`_mm_3xtf32_sums`). Returns P, dinv, dq, dk, dv in f64."""
+    g * (1/den) in f32, P = qᵀ gd with the node axis as the MMAs' k, summed
+    as the P pass's warpgroup MMAs sum it (:func:`_mm_3xtf32_sums`, fresh
+    sums every 32 rows, the kernel's order); then dq (1/den in the
+    epilogue), dk and dv from the f32 P, ds and dinv. The row kernels'
+    pieces' products (a, dq, dk, dv) are summed in f64, or with ``period``
+    as their MMAs sum them. Returns P, dinv, dq, dk, dv in f64."""
     qd, vd, gdd = q.double(), v.double(), g.double()
     inv, n = scal[2].double(), n_total.double()
 
@@ -719,7 +722,7 @@ def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True, period=None):
     gden = -(inv * (gdd * a).sum(1) + n * (gdd * vd).sum(1)) / (den * den)
     dinv = ((gdd * a).sum(1) / den + gden * b).sum()
     gd = g * (1.0 / den.float())[:, None]
-    P = _mm_3xtf32(q.T, gd, lo)
+    P = _mm_3xtf32_sums(q.T, gd, _NODE_PERIOD, lo)
     ds = qd.T @ gden
     Pf, dsf, dinvf = P.float(), ds.float(), dinv.float()
     c_q, c_k = (dinvf * scal[2] / scal[i] for i in (0, 1))
@@ -1111,6 +1114,123 @@ def test_tf32_node_axis_reduce_keeps_f32_precision(positive):
     chain = _rel(_mm_3xtf32_sums(k.T, v, _SLICE), exact)
     hi_hi = _rel(_mm_3xtf32_sums(k.T, v, _NODE_PERIOD, lo=False), exact)
     assert min(chain, hi_hi) >= 10 * err, (err, chain, hi_hi)
+
+
+@pytest.mark.parametrize("draw", ["randn", "positive"])
+def test_tf32_node_axis_bwd_reduce_keeps_f32_precision(draw):
+    """The f32 backward P pass's P = qᵀ gd over one slice of 8,192 rows, gd
+    = g * (1/den) as ``la_bwd_reduce_wg_kernel`` forms it (den's f32
+    reciprocal, correctly rounded, then one rounded product), the node axis
+    as the MMAs' k (:func:`_mm_3xtf32_sums`: fresh sums every 32 rows):
+    within 1e-6 of the scale of qᵀ(g/den) in f64, on randn and on positive
+    q and g, where one truncating chain over the whole slice, or hi*hi
+    alone (one TF32 product), is at least 10x further off."""
+    rng = np.random.default_rng(38)
+    make = rng.standard_normal if draw == "randn" else rng.random
+    q, g = (torch.from_numpy(a) for a in make((2, _SLICE, 64)).astype(np.float32))
+    den = torch.from_numpy((0.5 + 1.5 * rng.random(_SLICE)).astype(np.float32))
+    gd = g * (1.0 / den)[:, None]
+    exact = q.double().T @ (g.double() / den.double()[:, None])
+    err = _rel(_mm_3xtf32_sums(q.T, gd, _NODE_PERIOD), exact)
+    assert err <= 1e-6, err
+    chain = _rel(_mm_3xtf32_sums(q.T, gd, _SLICE), exact)
+    hi_hi = _rel(_mm_3xtf32_sums(q.T, gd, _NODE_PERIOD, lo=False), exact)
+    assert min(chain, hi_hi) >= 10 * err, (err, chain, hi_hi)
+
+
+def _ds_sums(q, gden, f64_route=True):
+    """ds = Σ_r q[r] gden[r] per column over one slice (f32 values) as the
+    f32 P pass's three ds warps sum it: rows rg + 3 j of each 32-row chunk
+    to row group rg; with ``f64_route`` (``la_bwd_reduce_wg_kernel``) each
+    product, exact in f64, added by an f64 FMA to its group's sum; else as
+    the forward reduce's column sums run (:func:`_column_sums`), one f32
+    chain a group and chunk (each product added by one rounding, as an FMA
+    adds it), made f64 once a chunk. The groups' sums are added in order at
+    the end. Returns f64, before the rounding to f32."""
+    chunk, groups = _NODE_CHUNK[torch.float32], _SUM_GROUPS[torch.float32]
+    terms = q.double() * gden.double()[:, None]  # exact: f32 x f32 fits f64
+    sums = torch.zeros(groups, q.shape[1], dtype=torch.float64)
+    for c0 in range(0, q.shape[0], chunk):
+        for rg in range(groups):
+            chain = torch.zeros(q.shape[1], dtype=torch.float64)
+            for y in terms[c0 + rg:c0 + chunk:groups]:
+                if f64_route:
+                    sums[rg] = sums[rg] + y
+                else:
+                    chain = (chain + y).float().double()
+            if not f64_route:
+                sums[rg] = sums[rg] + chain
+    out = torch.zeros(q.shape[1], dtype=torch.float64)
+    for rg in range(groups):
+        out = out + sums[rg]
+    return out
+
+
+def test_bwd_reduce_ds_route_holds_f64_where_gden_cancels():
+    """ds = Σ q·gden per column over one slice of 8,192 rows, gden's sign
+    changing from row to row (randn q and gden) and the sum made to cancel
+    to 1e-5 of Σ|q·gden| (each column's last q set so): the P pass's route
+    (:func:`_ds_sums`: exact products added by f64 FMAs in three row
+    groups), rounded to f32 once, is within 1e-6 of |ds| of the exact sum,
+    where f32 chains made f64 once a 32-row chunk (the forward reduce's
+    column sums' route) are at least 10x further off."""
+    import math
+
+    rng = np.random.default_rng(39)
+    q = rng.standard_normal((_SLICE, 16)).astype(np.float32)
+    gden = rng.standard_normal(_SLICE).astype(np.float32)
+    gden[-1] = 1.0
+    mags = np.abs(q.astype(np.float64) * gden.astype(np.float64)[:, None]).sum(0)
+    for j in range(q.shape[1]):
+        rest = math.fsum(float(x) * float(y) for x, y in zip(q[:-1, j], gden[:-1]))
+        q[-1, j] = np.float32(1e-5 * mags[j] * rng.choice([-1.0, 1.0]) - rest)
+    exact = torch.tensor([math.fsum(float(x) * float(y) for x, y in zip(q[:, j], gden))
+                          for j in range(q.shape[1])], dtype=torch.float64)
+    assert (exact.abs() <= 2e-5 * torch.from_numpy(mags)).all()  # the sums cancel
+    qt, gt = torch.from_numpy(q), torch.from_numpy(gden)
+    err = ((_ds_sums(qt, gt).float().double() - exact).abs() / exact.abs()).max().item()
+    assert err <= 1e-6, err
+    f32 = ((_ds_sums(qt, gt, f64_route=False).float().double() - exact).abs()
+           / exact.abs()).max().item()
+    assert f32 >= 10 * err and f32 > 1e-6, (err, f32)
+
+
+# Faults of the f32 P pass, each as what its product qᵀ gd would be formed
+# from (A = qᵀ, B = gd, k the node axis): a tf32 lo piece dropped (of gd or
+# of q: one TF32 product in place of three), A's node k-steps swapped (k and
+# k ^ 8), and B's columns swapped in pairs.
+_P_PASS_FAULTS = {
+    "gd lo piece dropped": lambda a, b: (a, _tf32(b)),
+    "q lo piece dropped": lambda a, b: (_tf32(a), b),
+    "k-steps swapped": lambda a, b: (a[:, torch.arange(a.shape[1]) ^ 8], b),
+    "B columns swapped": lambda a, b: (a, b[:, torch.arange(b.shape[1]) ^ 1]),
+}
+
+
+@pytest.mark.parametrize("fault", list(_P_PASS_FAULTS))
+def test_bwd_reduce_product_inputs_catch_a_faulty_kernel(fault):
+    """The card checks of the f32 backward reduce (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``, ``chip_compare.py tf32-bwd``) hold its P
+    to ``bwd_reduce_plain`` in f64 at 1e-5 of its scale on
+    ``bwd_reduce_product_inputs`` (positive q and g a fraction of a tf32
+    step above tf32 values, every den exactly 1). There the P pass's
+    arithmetic (gd = g * (1/den), 3xTF32 products summed as its warpgroup
+    MMAs sum them) passes, and the same arithmetic with one fault in its
+    product misses."""
+    ins = bwd_reduce_product_inputs(320, 128, 128, torch.float32,
+                                    torch.Generator().manual_seed(30))
+    q, v, g, kvs, ksum, scal, n_t = ins
+    exact = attn.bwd_reduce_plain(*(t.double() for t in ins), False)[0]
+    den = scal[2] * (q @ ksum) + n_t  # the rows pass's den
+    assert bool((den == 1.0).all())
+    gd = g * (1.0 / den)[:, None]
+
+    def misses(broken):
+        got = _mm_3xtf32_sums(*broken(q.T, gd), _NODE_PERIOD)
+        return ((got - exact).abs().max() > 1e-5 * exact.abs().max()).item()
+
+    assert not misses(lambda a, b: (a, b))
+    assert misses(_P_PASS_FAULTS[fault])
 
 
 @pytest.mark.parametrize("positive", [False, True])

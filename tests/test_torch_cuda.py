@@ -25,7 +25,8 @@ from sgformer_tpu_torch.ops.attention import linear_attention
 from sgformer_tpu_torch.ops.sddmm import sddmm as sddmm_plain
 from sgformer_tpu_torch.ops.spmm import spmm, spmm_edge_values, spmm_edge_values_backward
 from sgformer_tpu_torch.utils.measure import (apply_product_inputs, bwd_product_inputs,
-                                              reduce_product_inputs, rel_err)
+                                              bwd_reduce_product_inputs, reduce_product_inputs,
+                                              rel_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,8 +236,8 @@ def test_reduce_designs_name_the_kernels(cuda):
     ``la_reduce_wgmma_kernel``; f32 in 3xTF32, ``la_reduce_wg_kernel``: the
     node rows stream through a fixed tile); bf16 backward reduces at any
     width the backward's q tile fits (up to M = 640), the f32 backward
-    reduce in 3xTF32 up to M = 256 (its rows pass on warpgroup MMAs, its P
-    pass on mma.sync)."""
+    reduce in 3xTF32 on warpgroup MMAs up to M = 256 (its P pass
+    ``la_bwd_reduce_wg_kernel``, at any D)."""
     for m, d in ((256, 256), (37, 40), (640, 64), (1024, 64)):
         bf16 = attn.reduce_design(torch.bfloat16, m, d)
         assert bf16.startswith("tensor cores (wgmma bf16") and "la_reduce_wgmma_kernel" in bf16
@@ -245,8 +246,9 @@ def test_reduce_designs_name_the_kernels(cuda):
         assert attn.bwd_reduce_design(torch.bfloat16, m, d).startswith("tensor cores") == (
             m <= 640)
         f32 = attn.bwd_reduce_design(torch.float32, m, d)
-        assert f32.startswith("tensor cores (3xTF32, f32 sums: rows pass wgmma") == (m <= 256), f32
-    assert attn.bwd_reduce_design(torch.float32, 256, 999).startswith("tensor cores")
+        assert f32.startswith("tensor cores (wgmma 3xTF32, f32 sums: rows pass") == (m <= 256), f32
+        assert ("la_bwd_reduce_wg_kernel" in f32) == (m <= 256), f32
+    assert "la_bwd_reduce_wg_kernel" in attn.bwd_reduce_design(torch.float32, 256, 999)
     assert attn.bwd_reduce_design(torch.float32, 257, 8).startswith("CUDA cores")
 
 
@@ -272,29 +274,46 @@ def test_reduce_grid_follows_its_design(cuda, monkeypatch, dtype):
     assert slices(n, 256, 256, q.device, True)[0] == -(-sms // 4)
 
 
-@pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 19)])
+@pytest.mark.parametrize("m,d", [(37, 19), (256, 40), (8, 250), (256, 256), (130, 19),
+                                 (256, 999)])
 @pytest.mark.parametrize("strided", [False, True])
-def test_tf32_backward_takes_any_width(cuda, m, d, strided):
+@pytest.mark.parametrize("n", [777, 1])
+def test_tf32_backward_takes_any_width(cuda, m, d, strided, n):
     """The f32 (3xTF32) backward reduce and apply on widths off their tiles
     and off the 16-byte path (37, 19, 130: scalar A rows and epilogues), up
-    to the widest tile they take (256), on the per-head views of [N, 2, *]
-    tensors (strided: rows 3 elements longer, so no 16-byte copies), with
-    tail rows (N = 777): at n = N on random inputs and at n = 1 on positive
-    inputs (the products carry den, gden and the gradients), the reduce
-    within 1e-5 of its scale of the plain version in f64 (dinv of its sums'
-    magnitude), the apply within 1e-5 of each output's scale of its plain
-    version in f64 (at n = 1 the epilogue's terms cancel to ~1/13 of their
-    size, and the plain version evaluated in f32 is itself ~1e-5 of the
-    scale off); each bitwise repeatable, one launch a call."""
-    n, pad = 777, 3 if strided else 0
-    for design in (attn.bwd_reduce_design(torch.float32, m, d),
-                   attn.bwd_apply_design(torch.float32, m, d)):
-        assert "3xTF32" in design, design
+    to the widest tile they take (256; the reduce's P pass at D = 999 too,
+    where the apply runs on the CUDA cores), on the per-head views of
+    [N, 2, *] tensors (strided: rows 3 elements longer, so no 16-byte copies
+    and no tensor maps), with tail rows (N = 777) and at N = 1: at n = N on
+    random inputs and at n = 1 on positive inputs (the products carry den,
+    gden and the gradients), the reduce within 1e-5 of its scale of the
+    plain version in f64 (dinv of its sums' magnitude), the apply within
+    1e-5 of each output's scale of its plain version in f64 (at n = 1 the
+    epilogue's terms cancel to ~1/13 of their size, and the plain version
+    evaluated in f32 is itself ~1e-5 of the scale off); each bitwise
+    repeatable, one launch a call; an all-masked group gives finite zero
+    gradients. At N = 1 and at D = 999 the reduce
+    alone: one row's dq and dk cancel to ~1e-7 of their terms, and at D =
+    999 the apply runs on the CUDA cores, whose n = 1 epilogue cancels
+    further, past what an f32 evaluation holds (the plain version in f32
+    is 2e-5 of the scale off there)."""
+    pad = 3 if strided else 0
+    assert "la_bwd_reduce_wg_kernel" in attn.bwd_reduce_design(torch.float32, m, d)
+    assert ("3xTF32" in attn.bwd_apply_design(torch.float32, m, d)) == (d <= 256)
 
     def heads(draw, w):  # head 1 of an [n, 2, w + pad] tensor
         return draw(n, 2, w + pad, device=cuda)[:, 1, :w]
 
-    for draw in (torch.randn, torch.rand):
+    # an all-masked group: finite zero gradients through the P pass (zero
+    # norms: inv = 0, den taken as 1)
+    leaves = [heads(torch.randn, w)[:, None].clone().requires_grad_() for w in (m, m, d)]
+    out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(n, device=cuda))
+    assert all(torch.isfinite(t).all() and not t.any()
+               for t in torch.autograd.grad(out, leaves, torch.randn_like(out)))
+
+    # a single random row's den may come near 0, where no f32 evaluation
+    # holds 1e-5: at N = 1 the positive inputs alone
+    for draw in (torch.randn, torch.rand) if n > 1 else (torch.rand,):
         q, k, v, g = heads(draw, m), heads(draw, m), heads(draw, d), heads(draw, d)
         sums = attn.reduce_plain(q, k, v, False)
         n_t = torch.full((), 1.0 if draw is torch.rand else float(n), device=cuda)
@@ -303,6 +322,9 @@ def test_tf32_backward_takes_any_width(cuda, m, d, strided):
         _f64_bwd_reduce_close(got_r, q, v, g, *sums, n_t)
         assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums,
                                                                             n_t)))
+        if n == 1 or d > 256:
+            assert attn.bwd_reduce_launches - b0 == 2
+            continue
         red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
         got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
         exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)),
@@ -314,21 +336,38 @@ def test_tf32_backward_takes_any_width(cuda, m, d, strided):
         assert (attn.bwd_reduce_launches - b0, attn.bwd_apply_launches - a0) == (2, 2)
 
 
-@pytest.mark.parametrize("m,d", [(8, 72), (72, 200), (200, 256), (256, 256)])
+@pytest.mark.parametrize("m,d", [(8, 72), (72, 200), (200, 256), (256, 256), (37, 19),
+                                 (8, 250), (256, 40), (256, 999)])
 def test_tf32_backward_kernels_carry_the_products(cuda, m, d):
     """The f32 backward kernels on warpgroup MMAs (the apply, the reduce's
-    rows pass) where their products carry the outputs and every (row,
-    column) pairing of kvs and P moves them (``bwd_product_inputs``: one
-    TF32 product in place of three, k-steps or B columns swapped, or A rows
-    shifted would miss the f32 tolerance), with tail rows (N = 777): the
-    reduce within 1e-5 of its scale of its plain version in f64 (dinv of its
-    sums' magnitude), the apply within 1e-5 of each output's scale of
-    ``bwd_apply_plain`` in f64; each bitwise repeatable."""
+    rows pass and P pass) where their products carry the outputs and every
+    (row, column) pairing of kvs and P moves them (``bwd_product_inputs``:
+    one TF32 product in place of three, k-steps or B columns swapped, or A
+    rows shifted would miss the f32 tolerance), with tail rows (N = 777):
+    the reduce within 1e-5 of its scale of its plain version in f64 (dinv
+    of its sums' magnitude), the apply within 1e-5 of each output's scale of
+    ``bwd_apply_plain`` in f64; each bitwise repeatable. The P pass also on
+    ``bwd_reduce_product_inputs`` (a dropped tf32 lo piece of q or of g/den
+    would miss the tolerance) at N = 777 and N = 1, on contiguous rows (the
+    copy engine's tensor maps) and on strided heads (the producer's own
+    copies). At D = 999 the apply runs on the CUDA cores."""
     gen = torch.Generator(device=cuda).manual_seed(m + d)
+    for n in (777, 1):
+        for strided in (False, True):
+            ins = list(bwd_reduce_product_inputs(n, m, d, torch.float32, gen))
+            if strided:  # head 1 of [n, 2, w + 3] tensors
+                for i in range(3):
+                    t = torch.zeros(n, 2, ins[i].shape[1] + 3, device=cuda)
+                    t[:, 1, :ins[i].shape[1]] = ins[i]
+                    ins[i] = t[:, 1, :ins[i].shape[1]]
+            got_p = attn.bwd_reduce(*ins)
+            _f64_bwd_reduce_close(got_p, *ins)
+            assert all(torch.equal(a, b) for a, b in zip(got_p, attn.bwd_reduce(*ins)))
     ins = bwd_product_inputs(777, m, d, torch.float32, gen)
     q, k, v, g, kvs, ksum, scal, n_t = ins[:8]
-    assert "rows pass wgmma" in attn.bwd_reduce_design(torch.float32, m, d)
-    assert attn.bwd_apply_design(torch.float32, m, d).startswith("tensor cores (wgmma 3xTF32")
+    assert "la_bwd_reduce_wg_kernel" in attn.bwd_reduce_design(torch.float32, m, d)
+    assert attn.bwd_apply_design(torch.float32, m, d).startswith("tensor cores (wgmma 3xTF32") == (
+        d <= 256)
     got_r = attn.bwd_reduce(q, v, g, kvs, ksum, scal, n_t)
     _f64_bwd_reduce_close(got_r, q, v, g, kvs, ksum, scal, n_t)
     assert all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, kvs, ksum, scal,

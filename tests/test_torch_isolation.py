@@ -61,6 +61,25 @@ def test_sources_use_no_library_for_the_kernels_work():
             "utils", "microbench", "sample", "cli", "native", "parallel"} <= modules
 
 
+def test_kernel_sources_issue_no_mma_sync():
+    """Every tensor-core product of the port runs on warpgroup MMAs: no
+    CUDA source under ``csrc/`` issues an ``mma.sync`` instruction. The PTX
+    of the ``asm`` strings is searched, the comments (which name the
+    designs these kernels replaced) left out."""
+    csrc = os.path.join(PKG_DIR, "csrc")
+    strings = {}
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, name)) as f:
+                code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+            strings[name] = re.findall(r'"(?:[^"\\\n]|\\.)*"', code)
+    found = [(name, s) for name, found_in in strings.items() for s in found_in
+             if "mma.sync" in s]
+    assert not found, found
+    # the search reads the PTX: the warpgroup MMAs' strings are there
+    assert any("wgmma.mma_async" in s for s in strings["tensor_core.cuh"])
+
+
 def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
     csrc = os.path.join(PKG_DIR, "csrc")
     from sgformer_tpu_torch.kernels import _build
