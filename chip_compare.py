@@ -67,14 +67,17 @@ one ROOT: ROOT, this checkout, this checkout, ROOT). A turn times its
 package's f32 ``bwd_apply`` and ``bwd_reduce`` (CUDA events, median of 20)
 at M = D = 256 on the arxiv (N = 169,343), amazon2m full-batch (100,000)
 and papers-sampled (621,432) shapes, with the launches of each apart by the
-profiler (``kernel_ms``: the rows pass, the P pass by either package's
-kernel name, the splits and the finish kernels), the P pass beside its
-bound and ``torch.matmul(q.t(), gd)`` in f32 (TF32 off, gd = g / den made
-beforehand); holds each f32 output to the plain version in f64 on randn
+profiler (``kernel_ms``: the rows pass, the P pass and the apply by any
+of the packages' kernel names, the splits and the finish kernels), the P
+pass beside its bound and ``torch.matmul(q.t(), gd)`` in f32 (TF32 off, gd
+= g / den made beforehand), the apply beside its bound and its three
+products in ``torch.matmul`` (gd @ kvs^T, v @ P^T, k @ P, f32); holds each
+f32 output to the plain version in f64 on randn
 inputs and the reduce's also on ``bwd_reduce_product_inputs`` (where a
 dropped tf32 lo piece of q or g/den misses the tolerance): P, ds, den and
 gden within REDUCE_REL_TOL of their scale, dinv of its sums' magnitude, dq,
-dk and dv within the f32 BWD_REL_TOL, each reduce bitwise repeatable;
+dk and dv within the f32 BWD_REL_TOL, each reduce and apply bitwise
+repeatable;
 times the bf16 backward at the arxiv shape, prints sha256 digests of the
 bf16 backward's outputs (``bwd_reduce``, then ``bwd_apply`` on the plain
 reduce's outputs) at four shapes, and counts the ``HGMMA`` and ``HMMA``
@@ -154,12 +157,19 @@ forward apply at M = D = 256 on N = 169,343 (arxiv), 100,000 and 49,029
 621,432 (a papers-sampled batch): CUDA events, the profiler's device ms of
 the apply kernel and of its split, the host's microseconds a call at the
 19,343 tail (200 calls enqueued, no sync between), the output against the
-plain version in f64 and bitwise repeatable; and digests of the bf16 apply
-and the f32 backward at a few shapes. The mode prints each turn's JSON
-line, then the turns side by side, and fails unless every ``csr_spmm_q8``
-output, the bf16 apply's and the f32 backward's digests are the same in
-every turn. ``--only q8`` or ``--only f32`` runs one of the two kernels'
-parts (and the digests of the other checks only with ``f32``).
+plain version in f64 and bitwise repeatable; the bf16 forward apply at
+the same shapes: CUDA events, the profiler's device ms of its kernel (either
+package's) and of its split, ``torch.matmul(q, kvs)`` in bf16 as a
+yardstick and the bound, its output where q @ kvs carries it (with and
+without cancelling kvs terms) against the plain version in f64 over the
+bf16 tolerance, bitwise repeatable, and a digest of it on randn rows; and
+digests of the bf16 apply and the f32 backward at a few shapes. The mode
+prints each turn's JSON line, then the turns side by side, and fails
+unless every ``csr_spmm_q8`` output, the bf16 apply's and the f32
+backward's digests are the same in every turn and the bf16 apply is within
+its tolerance and repeatable in every turn. ``--only q8`` or ``--only
+f32`` runs the int8 aggregation's part or the applies' (the digests of the
+other checks only with ``f32``).
 ``reduce``: the forward attention reduce of each ROOT and of this checkout,
 each turn a process of its own (``reduce-turn ROOT``), in turns ROOT1 ...
 ROOTk, this checkout, this checkout, ROOTk ... ROOT1. A turn prints the
@@ -554,7 +564,9 @@ BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
 F32_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel")
 F32_P_PASS = ("la_bwd_reduce_tf32_kernel", "la_bwd_reduce_wg_kernel")
 F32_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
-F32_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel")
+F32_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel", "la_bwd_apply_ws_kernel")
+# the f32 backward apply's split of kvs, P and P^T, either package's
+F32_APPLY_SPLIT = ("la_bwd_split_kernel", "la_bwd_split_atoms_kernel")
 # the f32 backward's outputs digested in every turn (bitwise the parent's)
 F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
 
@@ -703,7 +715,7 @@ def tf32_bwd_turn(cs, root: str) -> int:
     entry = False
     for line in report.splitlines():  # the f32 kernels' registers, spills and warnings
         if "entry function" in line or "Function properties" in line:
-            entry = bool(re.search(r"la_bwd_(apply|rows|reduce)_(tc|wg|tf32)_", line)) \
+            entry = bool(re.search(r"la_bwd_(apply|rows|reduce)_(tc|wg|ws|tf32)_", line)) \
                 if "entry function" in line else entry
         if entry or "warning" in line:
             cs.log(f"ptxas {root}: {line.strip()}")
@@ -711,10 +723,12 @@ def tf32_bwd_turn(cs, root: str) -> int:
     sass = {lib: sass_counts(cs, root, lib, "") for lib in ("linear_attention_bwd",
                                                           "linear_attention")}
     out = dict(root=root, sass=sass, f32={}, bf16_digests=[], ok=True,
-               design=attn.bwd_reduce_design(torch.float32, 256, 256))
-    cs.log(f"tf32-bwd {root} reduce design at M = D = 256: {out['design']}")
+               design=attn.bwd_reduce_design(torch.float32, 256, 256),
+               apply_design=attn.bwd_apply_design(torch.float32, 256, 256))
+    cs.log(f"tf32-bwd {root} designs at M = D = 256: reduce {out['design']}; apply "
+           f"{out['apply_design']}")
     passes = F32_ROWS + F32_P_PASS + F32_REDUCE_OTHERS
-    applies = F32_APPLY + ("la_bwd_split_kernel",)
+    applies = F32_APPLY + F32_APPLY_SPLIT
     m = d = 256
     for name, n in cs.BWD_PASS_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(21)
@@ -731,6 +745,8 @@ def tf32_bwd_turn(cs, root: str) -> int:
         exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)), False)
         errs.update({part: rel(a, b) / cs.BWD_REL_TOL[torch.float32]
                      for part, a, b in zip(("dq", "dk", "dv"), got_a, exact)})
+        repeat = repeat and all(torch.equal(a, b) for a, b in
+                                zip(got_a, attn.bwd_apply(q, k, v, g, *sums, n_t, *red)))
         del got_a, exact
         # the reduce where P's products carry it (a dropped tf32 lo piece
         # of q or of g/den misses the tolerance)
@@ -756,14 +772,36 @@ def tf32_bwd_turn(cs, root: str) -> int:
         p_matmul_ms = cs.time_ms(lambda: torch.matmul(q.t(), gd))
         p_bound_ms, p_bound_by = cs.bound_ms((n * m + n * d) * 4 + 2 * n * 4 + (m * d + m) * 4,
                                              2 * n * m * d, torch.float32)
+        # yardstick: the apply's three products gd @ kvs^T, v @ P^T and k @ P,
+        # each one torch.matmul in f32 (TF32 off); and the apply's bound (as
+        # chip_smoke.attention_bwd_phase counts it)
+        kvs_t, P_t = sums[0], red[0]
+        gd_a = g / red[3][0][:, None]
+        a_matmul_ms = cs.time_ms(lambda: (torch.matmul(gd_a, kvs_t.t()),
+                                          torch.matmul(v, P_t.t()), torch.matmul(k, P_t)))
+        small = (2 * m * d + 2 * m + 6) * 4
+        a_bound_ms, a_bound_by = cs.bound_ms(7 * n * m * 4 + 2 * small + 2 * n * 4,
+                                             6 * n * m * d + 8 * n * m + 3 * n * d, torch.float32)
+        del kvs_t, P_t, gd_a
+        # the rows pass's own bound: a = q @ kvs (3xTF32) reading q, v, g and
+        # writing den and gden
+        rows_bound_ms, rows_bound_by = cs.bound_ms(3 * n * m * 4 + 2 * n * 4 + (m * d + m) * 4,
+                                                   2 * n * m * d, torch.float32)
         out["f32"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
+                                rows_bound_ms=rows_bound_ms, rows_bound_by=rows_bound_by,
                                 p_pass_ms=p_ms, p_pass_matmul_ms=p_matmul_ms,
                                 p_pass_bound_ms=p_bound_ms, p_pass_bound_by=p_bound_by,
                                 reduce_others_ms=sum(r_dev[p] for p in F32_REDUCE_OTHERS),
-                                apply_kernel_ms=apply_ms, apply_split_ms=a_dev[applies[2]],
-                                err_over_tol=errs, bitwise_repeatable=repeat)
-        cs.log(f"tf32-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}), "
-               f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, P pass {p_ms:.4f}; "
+                                apply_kernel_ms=apply_ms,
+                                apply_split_ms=sum(a_dev[p] for p in F32_APPLY_SPLIT),
+                                apply_matmul_ms=a_matmul_ms, apply_bound_ms=a_bound_ms,
+                                apply_bound_by=a_bound_by, err_over_tol=errs,
+                                bitwise_repeatable=repeat)
+        cs.log(f"tf32-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}; "
+               f"torch.matmul gd @ kvs^T + v @ P^T + k @ P {a_matmul_ms:.4f}, bound "
+               f"{a_bound_ms:.4f} by {a_bound_by}), "
+               f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, bound {rows_bound_ms:.4f} by "
+               f"{rows_bound_by}; P pass {p_ms:.4f}; "
                f"torch.matmul q^T gd {p_matmul_ms:.4f}, P pass bound {p_bound_ms:.4f} by "
                f"{p_bound_by}); bitwise repeatable {repeat}; errors over the tolerance: "
                + ", ".join(f"{p} {e:.3f}" for p, e in errs.items()))
@@ -1164,7 +1202,7 @@ def q8_f32_apply(roots: list, only=None) -> int:
     names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
     names[HERE] = "this checkout"
     side = {f"turn {i} ({names[t['root']]})": dict(q8=t["q8"], f32_apply=t["f32_apply"],
-                                                    sass=t["sass"])
+                                                    bf16_apply=t["bf16_apply"], sass=t["sass"])
             for i, t in enumerate(turns)}
     equal = {key: len({json.dumps(t[key]) for t in turns}) == 1
              for key in ("bf16_apply_digests", "f32_bwd_digests")}
@@ -1173,10 +1211,14 @@ def q8_f32_apply(roots: list, only=None) -> int:
     equal["q8_digests"] = all(
         len({d for t in turns for k, d in t["q8_digests"].items() if k.split(" ", 1)[0] == g})
         == 1 for g in graphs)
-    print(json.dumps({"q8_f32_apply_turns": side, "bitwise_equal": equal}), flush=True)
-    return 0 if all(equal.values()) else 1
+    ok = {names[t["root"]]: t["ok"] for t in turns}
+    print(json.dumps({"q8_f32_apply_turns": side, "bitwise_equal": equal,
+                      "bf16_apply_within_tolerance_and_repeatable": ok}), flush=True)
+    return 0 if all(equal.values()) and all(ok.values()) else 1
 
 
+# the bf16 forward apply's kernel, either package's
+BF16_FWD_APPLY = ("la_apply_tc_kernel", "la_apply_wgmma_kernel")
 # the f32 forward apply's shapes, N at M = D = 256: arxiv, the amazon2m batch
 # and its tail, arxiv-batch's batch and tail, a papers-sampled batch
 F32_APPLY_SHAPES = (169_343, 100_000, 49_029, 50_000, 19_343, 621_432)
@@ -1217,8 +1259,8 @@ def q8_f32_apply_turn(cs, root: str, only=None) -> int:
         return hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
                                        for t in ts)).hexdigest()[:16]
 
-    out = dict(root=root, sass=counts, q8={}, q8_digests={}, f32_apply={},
-               bf16_apply_digests=[], f32_bwd_digests=[])
+    out = dict(root=root, sass=counts, q8={}, q8_digests={}, f32_apply={}, bf16_apply={},
+               bf16_apply_digests=[], f32_bwd_digests=[], ok=True)
     ordered = "schedule" in inspect.signature(k.csr_spmm_q8_apply).parameters
     pl = dict(cs.POWERLAW_GRAPH)
     for what, data in (("large-400K", cs.LARGE_400K), ("arxiv", dict(name="synth-arxiv", seed=0)),
@@ -1309,6 +1351,52 @@ def q8_f32_apply_turn(cs, root: str, only=None) -> int:
         if not repeat:
             raise AssertionError(f"the f32 apply at n = {n} is not bitwise repeatable")
         del q, v, sums
+        torch.cuda.empty_cache()
+    # the bf16 forward apply at the same shapes: CUDA events, the profiler's
+    # device ms of the apply kernel and of its split, torch.matmul(q, kvs) in
+    # bf16 as a yardstick (never called by the port) and the bound; the
+    # output against the plain version in f64 where q @ kvs carries it (with
+    # and without cancelling kvs terms, over the bf16 tolerance), bitwise
+    # repeatable, and a digest of it on randn rows (bitwise the parent's)
+    for n in F32_APPLY_SHAPES if only in (None, "f32") else ():
+        gen = torch.Generator(device=dev).manual_seed(n + 1)
+        q, k_, v = (torch.randn(n, m, generator=gen, device=dev).bfloat16() for _ in range(3))
+        sums = attn.reduce_plain(q, k_, v, False)
+        del k_
+        n_t = torch.full((), float(n), device=dev)
+        got = attn.apply(q, v, *sums, n_t)
+        sha = digest(got)
+        repeat = torch.equal(got, attn.apply(q, v, *sums, n_t))
+        del got
+        errs = {}
+        for cancel in (False, True):
+            ins = apply_product_inputs(n, m, m, torch.bfloat16,
+                                       torch.Generator(device=dev).manual_seed(7), cancel)
+            exact = attn.apply_plain(*(t.double() for t in ins), False)
+            errs["cancel" if cancel else "products"] = (
+                (attn.apply(*ins).double() - exact).abs() / (1e-2 + 1e-2 * exact.abs())
+            ).max().item()
+            del ins, exact
+        ms = cs.time_ms(lambda: attn.apply(q, v, *sums, n_t))
+        dev_ms = cs.kernel_ms(lambda: attn.apply(q, v, *sums, n_t), BF16_FWD_APPLY + ("split",))
+        kernel = sum(dev_ms[p] for p in BF16_FWD_APPLY)
+        kvs_b = sums[0].bfloat16()
+        gemm_ms = cs.time_ms(lambda: torch.matmul(q, kvs_b))
+        bound, bound_by = cs.bound_ms(3 * n * m * 2 + (m * m + m + 4) * 4,
+                                      2 * n * m * m + 2 * n * m + 4 * n * m, torch.bfloat16)
+        ok = repeat and max(errs.values()) <= 1.0
+        out["ok"] = out["ok"] and ok
+        out["bf16_apply"][str(n)] = dict(ms=ms, kernel_ms=kernel, split_ms=dev_ms["split"],
+                                         gemm_ms=gemm_ms, bound_ms=bound, bound_by=bound_by,
+                                         err_over_tol=errs, bitwise_repeatable=repeat,
+                                         sha256=sha)
+        out["bf16_apply_digests"].append(sha)
+        cs.log(f"bf16 apply {root} n={n}: {ms:.4f} ms (kernel {kernel:.4f}, split "
+               f"{dev_ms['split']:.4f}; torch.matmul q @ kvs {gemm_ms:.4f}, bound {bound:.4f} "
+               f"by {bound_by}); where q @ kvs carries it {errs['products']:.3f}, kvs terms "
+               f"cancelling {errs['cancel']:.3f} of the bf16 tolerance; bitwise repeatable "
+               f"{repeat}; sha256 {sha}" + ("" if ok else "; OUT OF TOLERANCE OR NOT REPEATABLE"))
+        del q, v, sums, kvs_b
         torch.cuda.empty_cache()
     for n, m_, d_ in F32_DIGEST_SHAPES if only in (None, "f32") else ():
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)

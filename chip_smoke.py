@@ -664,9 +664,17 @@ def bound_name(by: str, dtype) -> str:
     return f"operations (3xTF32, {rate})" if dtype == torch.float32 else f"operations ({rate})"
 
 
+# the forward and backward applies' kernels at the model's width, by input
+# type: each design string names its kernel
+APPLY_KERNELS = {torch.float32: "la_apply_wg_kernel", torch.bfloat16: "la_apply_wgmma_kernel"}
+BWD_APPLY_KERNELS = {torch.float32: "la_bwd_apply_ws_kernel",
+                     torch.bfloat16: "la_bwd_apply_wgmma_kernel"}
+
+
 def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The forward reduce's and apply's designs for these widths, logged; at
-    the model's width both take the tensor cores (f32 in 3xTF32)."""
+    the model's width both take the tensor cores (f32 in 3xTF32), the apply
+    its kernel of ``APPLY_KERNELS``."""
     red_design, design = attn.reduce_design(dtype, m, d), attn.apply_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
     log(f"reduce {name} design at {where}: {red_design}")
@@ -674,7 +682,8 @@ def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     want = (("tensor cores (wgmma 3xTF32", "tensor cores (wgmma 3xTF32")
             if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma"))
     if (m, d) == (256, 256) and not (red_design.startswith(want[0])
-                                     and design.startswith(want[1])):
+                                     and design.startswith(want[1])
+                                     and APPLY_KERNELS[dtype] in design):
         raise AssertionError(f"the {name} forward kernels at M = D = 256 are not the "
                              f"tensor-core design")
     return red_design, design
@@ -710,7 +719,7 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
     at the model's width both take the tensor cores on warpgroup MMAs (f32
     in 3xTF32, the reduce's P pass ``la_bwd_reduce_wg_kernel``; bf16), the
-    apply and both reduce passes."""
+    apply (its kernel of ``BWD_APPLY_KERNELS``) and both reduce passes."""
     design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
     log(f"bwd_apply {name} design at {where}: {design}")
@@ -719,7 +728,8 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
             if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma bf16"))
     p_pass = BWD_REDUCE_KERNELS[dtype][1]
     if (m, d) == (256, 256) and not (design.startswith(want[0]) and red_design.startswith(want[1])
-                                     and (dtype != torch.float32 or p_pass in red_design)):
+                                     and (dtype != torch.float32 or p_pass in red_design)
+                                     and BWD_APPLY_KERNELS[dtype] in design):
         raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
                              f"tensor-core design")
     return design, red_design

@@ -48,20 +48,22 @@
 //   products are exact in f32, so only the order of the sums differs from
 //   the plain version, and it stays fixed.
 //
-// The bf16 apply (la_apply_tc_kernel) runs a = q @ kvs on the tensor cores
-// by warpgroup MMAs (wgmma m64n64k16, bf16 in, f32 sums, both operands read
-// from 128-byte-swizzled shared memory through descriptors). kvs stays f32
-// in meaning: kvs^T is split once a call into bf16 hi + lo (~16 significant
-// bits, 2^-17 of each term; tc::split_t_kernel) and each product is two
-// MMAs into one accumulator. A block owns 128 rows: it stages its q rows
-// once, streams the kvs^T chunks of every 64-column output tile, double-
-// buffered by cp.async, and finishes each tile warp by warp: v is read and
-// out written through shared memory, 16 bytes a lane, coalesced. b = q .
-// ksum is an f32 dot on the CUDA cores, run while the first MMAs do. The
-// output is rounded to bf16 once, from f32; no atomics, so repeated calls
-// are bitwise equal. At the arxiv shape the MMA work, 2 x 22.2 GFLOP, is
-// ~0.045 ms at the bf16 peak, under the bytes bound; the design measured
-// against it, an mma.sync version of the backward's row core, is in PERF.md.
+// The bf16 apply (la_apply_wgmma_kernel) runs a = q @ kvs on warpgroup MMAs
+// (wgmma m64n64k16, bf16 in, f32 sums, both operands read from
+// 128-byte-swizzled shared memory through descriptors). kvs stays f32 in
+// meaning: kvs^T is split once a call into bf16 hi + lo (~16 significant
+// bits, 2^-17 of each term; la_apply_split_kernel<bf16>) and each product
+// is two MMAs into one accumulator. It is warp-specialised, fed by the copy
+// engine (TMA) and persistent, one block an SM: a producer warpgroup brings
+// each 128-row block's q rows (double-buffered up to M = 256, so that the
+// next row block's land under this one's MMAs), the kvs^T chunks through a
+// ring of stages and each column tile's v rows; two consumer warpgroups run
+// the MMAs, form den = inv * (q . ksum) + n from the staged q rows while a
+// row block's first MMAs run, and finish each 64-column tile in place for
+// the copy engine to store. The output is rounded to bf16 once, from f32;
+// no atomics, so repeated calls are bitwise equal. At the arxiv shape the
+// MMA work, 2 x 22.2 GFLOP, is ~0.045 ms at the bf16 peak, under the bytes
+// bound (0.078 ms).
 //
 // The f32 kernels run in 3xTF32 (f32 sums), as the f32 backward does
 // (linear_attention_bwd.cu): each f32 operand x is split into hi = tf32(x)
@@ -95,6 +97,7 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -104,7 +107,6 @@ constexpr int kTile = 64;      // M and D tile
 constexpr int kRows = 32;      // M depth per CUDA-core apply step
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kApplyRows = 128;     // rows of a tensor-core apply block: two warpgroups
-constexpr int kApplyThreads = 256;
 constexpr int kWgTile = 64 * 64 * 2;   // bytes of one swizzled [64][64] bf16 tile
 constexpr int kWgKTile = 2 * kWgTile;  // one [128][64] k-tile of q rows, or the v tile
 
@@ -630,225 +632,6 @@ la_apply_kernel(const T* __restrict__ q, const T* __restrict__ v, long ldq, long
   }
 }
 
-// The bf16 apply on the tensor cores by warpgroup MMAs (wgmma). grid
-// (ceil(N / 128)), 128 rows a block: two warpgroups of 64 rows, each warp
-// owning 16 of them from the MMAs' fragments to the stores. Dynamic shared
-// memory, 1024-byte aligned (no static shared memory, so the dynamic block
-// starts the block's window): the q tile as Mk/64 swizzled [128][64]
-// k-tiles, two stages of kvs^T chunks (hi and lo, swizzled [64 n][64 k]
-// each), the v/out tile [128][64] (swizzled the same way, so the fragment
-// accesses are free of bank conflicts) and den per row: 112.5 KB at M =
-// 256, two blocks an SM.
-//
-// The block stages its q rows once, then runs the chunks of all column
-// tiles as one stream, chunk ch + 1 in flight by cp.async while chunk ch's
-// 8 wgmma (4 k16 steps, hi then lo into one accumulator) run; a barrier a
-// chunk hands the B stages over. The rest is warp-local: each warp forms
-// den for its 16 rows while the first chunk's MMAs run, loads its rows of
-// each v tile a column tile ahead, and in the epilogue reads v at its
-// fragment, writes out there in place as bf16 and stores its rows 16 bytes
-// a lane, with no block barrier (the epilogue's traffic and waits, not the
-// MMAs, set such a kernel's time). cp.async groups, in order:
-// (q, chunk 0), v tile 0, then each chunk ch's iteration commits chunk ch +
-// 1 and a v group (the next v tile after a column tile's epilogue, else
-// empty), so that at a chunk's start every group but the last v group has
-// landed.
-__global__ void __launch_bounds__(kApplyThreads, 2)
-la_apply_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
-                   long ldq, long ldv, __nv_bfloat16* __restrict__ out, long ldo, int N, int M,
-                   int D, const __nv_bfloat16* __restrict__ hl, const float* __restrict__ ksum,
-                   const float* __restrict__ scal, const float* __restrict__ n_total, int guard,
-                   int vec_a, int vec_io) {
-  using namespace tc;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
-  const int Mk = split_pad(M);  // q's k-tiles and kvs^T's k extent
-  const int kchunks = Mk / 64;
-  const int chunks = kchunks * (split_pad(D) / 64);
-  unsigned char* As = smem_raw;                         // [Mk/64][128][64]
-  unsigned char* Bs = As + kchunks * kWgKTile;          // [stage][hi, lo][64][64]
-  unsigned char* Vs = Bs + 4 * kWgTile;                 // [128][64]
-  float* den_s = reinterpret_cast<float*>(Vs + kWgKTile);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;  // rows 16 * warp .. + 16; warpgroup warp / 4
-  const long r0 = static_cast<long>(blockIdx.x) * kApplyRows;
-  const float inv = scal[2];
-  const float n = *n_total;
-  const size_t piece = split_t_elems(M, D);
-
-  // q rows, zero past N and from M up to Mk
-  if (vec_a) {
-    const int segs = Mk / 8;
-    for (int i = tid; i < kApplyRows * segs; i += kApplyThreads) {
-      const int r = i / segs;
-      const int c = (i % segs) * 8;
-      const bool ok = r0 + r < N && c < M;
-      cp_async16(As + (c >> 6) * kWgKTile + sw128_offset(r, c & 63),
-                 ok ? q + (r0 + r) * ldq + c : q, ok);
-    }
-  } else {
-    for (int i = tid; i < kApplyRows * Mk; i += kApplyThreads) {
-      const int r = i / Mk;
-      const int c = i % Mk;
-      *reinterpret_cast<__nv_bfloat16*>(As + (c >> 6) * kWgKTile + sw128_offset(r, c & 63)) =
-          (r0 + r < N && c < M) ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-  // chunk ch of kvs^T, hi and lo, [64 n][64 k] each
-  auto load_b = [&](int ch) {
-    const int c0 = ch / kchunks * 64;
-    const int k0 = ch % kchunks * 64;
-    unsigned char* dst = Bs + (ch & 1) * 2 * kWgTile;
-#pragma unroll
-    for (int it = 0; it < 2 * 64 * 8 / kApplyThreads; ++it) {
-      const int i = tid + it * kApplyThreads;
-      const int p = i >> 9;
-      const int nr = (i >> 3) & 63;
-      const int c = (i & 7) * 8;
-      cp_async16(dst + p * kWgTile + sw128_offset(nr, c),
-                 hl + p * piece + static_cast<size_t>(c0 + nr) * Mk + k0 + c);
-    }
-  };
-  // the warp's 16 rows of v at columns [c0, c0 + 64), zero past N and D
-  auto load_v = [&](int c0) {
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int r = warp * 16 + it * 4 + (lane >> 3);
-      const int c = (lane & 7) * 8;
-      const long row = r0 + r;
-      unsigned char* dst = Vs + sw128_offset(r, c);
-      if (vec_io && c0 + c + 8 <= D) {
-        const bool ok = row < N;
-        cp_async16(dst, ok ? v + row * ldv + c0 + c : v, ok);
-      } else {
-        __nv_bfloat16* d8 = reinterpret_cast<__nv_bfloat16*>(dst);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          d8[e] = (row < N && c0 + c + e < D) ? v[row * ldv + c0 + c + e]
-                                              : __float2bfloat16_rn(0.f);
-        }
-      }
-    }
-  };
-
-  load_b(0);
-  cp_async_commit();
-  load_v(0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  fence_proxy_async();
-  __syncthreads();  // q and chunk 0 have landed
-
-  // den = inv * (q . ksum) + n for the warp's rows, 8 columns a lane (16-byte
-  // reads), four rows at once, f32 sums added by a fixed xor tree
-  auto warp_den = [&]() {
-    for (int i0 = 0; i0 < 16; i0 += 4) {
-      float b[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = lane * 8; c < Mk; c += 256) {
-        float ks[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) ks[e] = c + e < M ? __ldg(ksum + c + e) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              As + (c >> 6) * kWgKTile + sw128_offset(warp * 16 + i0 + j, c & 63));
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 x = __bfloat1622float2(h[e]);
-            b[j] = fmaf(x.x, ks[2 * e], b[j]);
-            b[j] = fmaf(x.y, ks[2 * e + 1], b[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] += __shfl_xor_sync(0xffffffffu, b[j], off);
-      if (lane < 4) {  // lane j writes row i0 + j
-        const float bj = lane == 0 ? b[0] : lane == 1 ? b[1] : lane == 2 ? b[2] : b[3];
-        const float den = inv * bj + n;
-        den_s[warp * 16 + i0 + lane] = guard && den == 0.f ? 1.f : den;
-      }
-    }
-  };
-
-  float acc[32];
-  float den_r[2];  // den of the lane's two fragment rows
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int kc = ch % kchunks;
-    const int c0 = ch / kchunks * 64;
-    if (ch > 0) {
-      cp_async_wait<1>();
-      fence_proxy_async();
-      __syncthreads();  // chunk ch has landed; every warp is done with chunk ch - 1
-    }
-    if (ch + 1 < chunks) load_b(ch + 1);
-    cp_async_commit();
-    if (kc == 0) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    }
-    wgmma_fence_operand(acc);
-    wgmma_fence();
-    const unsigned char* a_tile = As + kc * kWgKTile + (warp >> 2) * kWgTile;
-    const unsigned char* b_tile = Bs + (ch & 1) * 2 * kWgTile;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t da = sw128_desc(a_tile + ks * 32);
-      wgmma_m64n64k16(acc, da, sw128_desc(b_tile + ks * 32));
-      wgmma_m64n64k16(acc, da, sw128_desc(b_tile + kWgTile + ks * 32));
-    }
-    wgmma_commit();
-    if (ch == 0) {  // while the first MMAs run
-      warp_den();
-      __syncwarp();
-      den_r[0] = den_s[warp * 16 + (lane >> 2)];
-      den_r[1] = den_s[warp * 16 + (lane >> 2) + 8];
-    }
-    wgmma_wait_all();
-    wgmma_fence_operand(acc);
-    if (kc == kchunks - 1) {  // the column tile's epilogue, warp by warp
-      cp_async_wait<1>();  // every group but chunk ch + 1: the v tile has landed
-      __syncwarp();
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + (lane >> 2) + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          __nv_bfloat162* p =
-              reinterpret_cast<__nv_bfloat162*>(Vs + sw128_offset(r, 8 * j + 2 * (lane & 3)));
-          const float2 x = __bfloat1622float2(*p);
-          *p = __floats2bfloat162_rn((inv * acc[4 * j + 2 * h] + n * x.x) / den_r[h],
-                                     (inv * acc[4 * j + 2 * h + 1] + n * x.y) / den_r[h]);
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int it = 0; it < 4; ++it) {
-        const int r = warp * 16 + it * 4 + (lane >> 3);
-        const int c = (lane & 7) * 8;
-        const long row = r0 + r;
-        if (row >= N || c0 + c >= D) continue;
-        const unsigned char* src = Vs + sw128_offset(r, c);
-        if (vec_io && c0 + c + 8 <= D) {
-          *reinterpret_cast<uint4*>(out + row * ldo + c0 + c) =
-              *reinterpret_cast<const uint4*>(src);
-        } else {
-          const __nv_bfloat16* s8 = reinterpret_cast<const __nv_bfloat16*>(src);
-          for (int e = 0; e < 8 && c0 + c + e < D; ++e) out[row * ldo + c0 + c + e] = s8[e];
-        }
-      }
-      __syncwarp();
-      if (c0 + 64 < D) load_v(c0 + 64);
-    }
-    cp_async_commit();  // the v group of this iteration, empty but after an epilogue
-  }
-  cp_async_wait<0>();
-}
-
 // The f32 apply on warpgroup MMAs in 3xTF32 (wgmma m64n64k8 tf32, A from
 // registers), warp-specialised and fed by the copy engine (TMA). grid
 // (ceil(N / 128)), 128 rows a block, one block an SM: two consumer
@@ -908,33 +691,50 @@ size_t apply_wg_smem_bytes(int M) {
          (ka + 2 * kAwStages + 3) * sizeof(uint64_t);
 }
 
-// Elements of the f32 apply's split kvs^T: the tf32 hi and lo atoms of
-// every (column tile, k atom) chunk.
-__host__ __device__ inline size_t apply_wg_scratch(int M, int D) {
-  return static_cast<size_t>(tc::cdiv(D, tc::kTcCols)) * apply_k_atoms(M) * 2 *
-         (kAwPiece / sizeof(float));
+// Elements of type P of the tensor-core apply's split kvs^T: the hi and lo
+// atoms ([64 n][128 bytes of k] each) of every (column tile, k atom) chunk;
+// an atom holds 32 k of tf32 pieces in f32 (the f32 apply) or 64 k of bf16
+// pieces (the bf16 apply).
+template <typename P>
+__host__ __device__ inline size_t apply_split_elems(int M, int D) {
+  return static_cast<size_t>(tc::cdiv(D, tc::kTcCols)) * tc::cdiv(M, 128 / sizeof(P)) * 2 *
+         (kAwPiece / sizeof(P));
 }
 
-// hl = kvs^T as tf32 hi + lo (tc::split_store<2, float>) in the apply's
-// chunks: piece p of chunk (column tile ct, k atom kc) starts at element
-// ((ct * ka + kc) * 2 + p) * 2048 and holds element (n, k), d = 64 ct + n
-// and m = 32 kc + k, at its swizzled place, zero past the widths.
+// hl = kvs^T as hi + lo pieces of type P (tc::split_store<2, P>: tf32 in
+// f32, or bf16) in the apply's chunks: piece p of chunk (column tile ct, k
+// atom kc) starts at element ((ct * ka + kc) * 2 + p) * (8192 / sizeof(P))
+// and holds element (n, k), d = 64 ct + n and m = kK kc + k (kK = 128 /
+// sizeof(P)), at its swizzled place, zero past the widths.
+template <typename P>
 __global__ void __launch_bounds__(tc::kSplitThreads)
-la_apply_split_kernel(const float* __restrict__ kvs, int M, int D, float* __restrict__ hl) {
-  constexpr int kPiece = kAwPiece / sizeof(float);
-  const int ka = apply_k_atoms(M);
-  const size_t count = apply_wg_scratch(M, D) / 2;
+la_apply_split_kernel(const float* __restrict__ kvs, int M, int D, P* __restrict__ hl) {
+  constexpr int kK = 128 / sizeof(P);
+  constexpr int kPiece = kAwPiece / sizeof(P);
+  const int ka = tc::cdiv(M, kK);
+  const size_t count = apply_split_elems<P>(M, D) / 2;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const int chunk = static_cast<int>(i / kPiece);
-    const int n = static_cast<int>(i % kPiece) / 32;
-    const int k = static_cast<int>(i % 32);
+    const int n = static_cast<int>(i % kPiece) / kK;
+    const int k = static_cast<int>(i % kK);
     const int d = chunk / ka * tc::kTcCols + n;
-    const int m = chunk % ka * 32 + k;
-    const size_t off = static_cast<size_t>(chunk) * 2 * kPiece + tc::sw128_offset_f32(n, k) / 4;
+    const int m = chunk % ka * kK + k;
+    const int at = std::is_same_v<P, float> ? tc::sw128_offset_f32(n, k) : tc::sw128_offset(n, k);
+    const size_t off = static_cast<size_t>(chunk) * 2 * kPiece + at / sizeof(P);
     tc::split_store<2>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + off,
                        kPiece);
   }
+}
+
+// The split on stream st: grid-stride, at most 1024 blocks.
+template <typename P>
+cudaError_t launch_apply_split(const float* kvs, int M, int D, P* hl, cudaStream_t st) {
+  const size_t count = apply_split_elems<P>(M, D) / 2;
+  const unsigned blocks = static_cast<unsigned>(
+      std::min<size_t>((count + tc::kSplitThreads - 1) / tc::kSplitThreads, 1024));
+  la_apply_split_kernel<P><<<blocks, tc::kSplitThreads, 0, st>>>(kvs, M, D, hl);
+  return cudaGetLastError();
 }
 
 // the apply's tensor maps: q, v and out rows in [128][32] f32 boxes
@@ -1205,25 +1005,399 @@ la_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ v, lon
   if (vec_o && tid == 0) bulk_store_wait_read();
 }
 
-size_t apply_tc_smem_bytes(int M, int D) {
-  return tc::split_pad(M) / 64 * kWgKTile + 6 * kWgTile + kApplyRows * 4;
+// The bf16 apply on warpgroup MMAs (wgmma m64n64k16 bf16, f32 sums, both
+// operands read through descriptors), warp-specialised, fed by the copy
+// engine (TMA) and persistent: grid min(ceil(N / 128), SMs), one block an
+// SM, block b taking the 128-row blocks b, b + grid, ... in turn. It
+// replaces sgformer_tpu/kernels/attention.py::_apply_kernel for bf16 rows;
+// bound by bytes (q and v read once, out written once: 0.078 ms at the
+// arxiv shape). Two consumer warpgroups of 64 rows and a producer
+// warpgroup, which gives registers to the consumers (setmaxnreg: 72 a
+// producer thread, under 56 its loops spilled; without setmaxnreg, 168
+// each, the kernel ran 12 % slower).
+// Dynamic shared memory, 1024-byte aligned (no static shared memory, so the
+// dynamic block starts the block's window), every tile 128-byte swizzled
+// ([rows][64] bf16): qbufs buffers of a row block's q rows (kt = ceil(M /
+// 64) k-tiles of [128][64], 64 KB at M = 256) and their den; a ring of
+// `stages` chunks of kvs^T, each its bf16 hi and lo [64 n][64 k] (8 KB
+// each; laid out swizzled by la_apply_split_kernel<bf16>, column tile by
+// column tile, so that one 16 KB bulk copy moves a chunk); vbufs v / out
+// tiles [128][64]; mbarriers. apply_wgmma_layout picks (qbufs, stages,
+// vbufs) by what fits beside the q tile: (2, 4, 2) up to M = 256 (225 KB),
+// (1, 2, 1) for wider rows up to M = 704.
+//
+// The producer warpgroup: warp 0's lane 0 brings each row block's q rows by
+// a tensor map into the next q buffer (with two buffers the next row
+// block's q is issued once the first stages of this one's chunks are, so
+// that it lands under this row block's MMAs) and every chunk of kvs^T by a
+// bulk copy as the consumers free its stage (full and empty mbarriers);
+// warp 1 brings each column tile's v rows by a tensor map into the next v /
+// out tile once the tile's last output has left it; warps 2-3 form den =
+// inv * (q . ksum) + n of each row block's rows from its staged q rows,
+// ahead of the consumers (the code the kernel this replaced ran on its MMA
+// warps, 16 rows a warp, 8 columns a lane, f32 FMAs added by a fixed xor
+// tree), and where the rows' strides or bases do not allow a tensor map
+// (vec_q, vec_v 0) copy the q rows, as warp 1 then copies the v rows, one
+// element a lane at a time. The consumers keep that kernel's arithmetic, so
+// that the output is bitwise its: each chunk's 8 MMAs (4 k16 steps, hi then
+// lo into one accumulator that starts at zero a column tile), and out =
+// (inv * a + n * v) / den at each lane's fragment, the numerator fused as
+// it was, the division correctly rounded through the row's reciprocal
+// (tc::div_by, where an IEEE division a element cost ~10 instructions and a
+// branch), rounded to bf16 once. A chunk's MMAs stay in flight while the
+// next chunk's are issued (its stage freed once they are done:
+// wgmma.wait_group 1); a finished column tile is written in place into its
+// v / out tile and stored by the copy engine, which clips it to the output
+// (vec_o), or by the warps' own stores, its tile handed back at the next
+// chunk once the store has read it. (Copies issued by
+// the warps that ran the MMAs, one barrier a chunk across the block, den
+// and an IEEE division an element on the MMA warps held that kernel at 2.8x
+// its bound: PERF.md.)
+constexpr int kAbConsumers = 2 * 128;
+constexpr int kAbThreads = kAbConsumers + 128;  // and the producer warpgroup
+constexpr int kAbStage = 2 * kWgTile;           // a chunk's hi and lo [64][64]
+
+size_t apply_wgmma_smem(int M, int qbufs, int stages, int vbufs) {
+  return static_cast<size_t>(qbufs) * (tc::split_pad(M) / 64) * kWgKTile +
+         static_cast<size_t>(stages) * kAbStage + static_cast<size_t>(vbufs) * kWgKTile +
+         static_cast<size_t>(qbufs) * kApplyRows * sizeof(float) +
+         (3 * qbufs + 2 * stages + 2 * vbufs) * sizeof(uint64_t);
+}
+
+// The layout at this width: (qbufs, stages, vbufs) = (2, 4, 2) where it fits
+// one block's shared memory (M up to 256), else (1, 2, 1) (no path runs the
+// wider rows, so no layout between was kept untimed); false where neither
+// fits (M above 704).
+bool apply_wgmma_layout(int M, int& qbufs, int& stages, int& vbufs) {
+  static constexpr int kLayouts[2][3] = {{2, 4, 2}, {1, 2, 1}};
+  for (const auto& p : kLayouts) {
+    if (apply_wgmma_smem(M, p[0], p[1], p[2]) <= tc::kSmemPerBlock) {
+      qbufs = p[0];
+      stages = p[1];
+      vbufs = p[2];
+      return true;
+    }
+  }
+  return false;
+}
+
+// the bf16 apply's tensor maps: q, v and out rows in [128][64] bf16 boxes
+struct AbMaps {
+  CUtensorMap q, v, out;
+};
+
+__global__ void __launch_bounds__(kAbThreads, 1)
+la_apply_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ v,
+                      long ldq, long ldv, __nv_bfloat16* __restrict__ out, long ldo, int N, int M,
+                      int D, const __nv_bfloat16* __restrict__ hl, const float* __restrict__ ksum,
+                      const float* __restrict__ scal, const float* __restrict__ n_total, int guard,
+                      int vec_q, int vec_v, int vec_o, int qbufs, int stages, int vbufs,
+                      const __grid_constant__ AbMaps maps) {
+  using namespace tc;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const int kt = split_pad(M) / 64;  // q's k-tiles and a column tile's chunks
+  const int tiles = cdiv(D, 64);
+  const int per = kt * tiles;  // chunks a row block
+  const int rbs = cdiv(N, kApplyRows);
+  unsigned char* Qs = smem_raw;                                          // [qbufs][kt][128][64]
+  unsigned char* Bs = Qs + static_cast<size_t>(qbufs) * kt * kWgKTile;   // [stage][hi, lo]
+  unsigned char* Vs = Bs + static_cast<size_t>(stages) * kAbStage;       // [vbufs][128][64]
+  float* den_s = reinterpret_cast<float*>(Vs + static_cast<size_t>(vbufs) * kWgKTile);  // [qbufs][128]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(den_s + qbufs * kApplyRows);  // q has landed
+  uint64_t* qempty = qfull + qbufs;        // a row block's q and den are read
+  uint64_t* dfull = qempty + qbufs;        // its den is in den_s
+  uint64_t* full = dfull + qbufs;          // a stage has landed
+  uint64_t* empty = full + stages;         // a stage's MMAs are done
+  uint64_t* vfull = empty + stages;        // a v tile has landed
+  uint64_t* vempty = vfull + vbufs;        // a tile has left its buffer
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int b = 0; b < qbufs; ++b) {
+      mbar_init(qfull + b, vec_q ? 1 : 2);
+      mbar_init(qempty + b, kAbConsumers / 32);
+      mbar_init(dfull + b, 2);
+    }
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kAbConsumers / 32);
+    }
+    for (int b = 0; b < vbufs; ++b) {
+      mbar_init(vfull + b, 1);
+      mbar_init(vempty + b, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kAbConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<72>();
+    const int pw = warp - kAbConsumers / 32;
+    if (pw == 0) {
+      if (lane == 0) {
+        // row block rb, the block's i-th, into q buffer i % qbufs once the
+        // row block qbufs back has freed it
+        auto load_q = [&](int i, int rb) {
+          const int b = i % qbufs;
+          if (i >= qbufs) mbar_wait(qempty + b, (i / qbufs - 1) & 1);
+          mbar_arrive_expect_tx(qfull + b, kt * kWgKTile);
+          for (int c = 0; c < kt; ++c) {
+            tma_load_2d(Qs + static_cast<size_t>(b * kt + c) * kWgKTile, &maps.q, 64 * c,
+                        rb * kApplyRows, qfull + b);
+          }
+        };
+        int ch = 0;  // chunks issued
+        // a row block's chunk cc (column tile cc / kt, k-tile cc % kt) into
+        // its stage, once the consumers have freed it
+        auto load_b = [&](int cc) {
+          const int st = ch % stages;
+          if (ch >= stages) mbar_wait(empty + st, (ch / stages - 1) & 1);
+          mbar_arrive_expect_tx(full + st, kAbStage);
+          bulk_copy_g2s(Bs + st * kAbStage, hl + static_cast<size_t>(cc) * (kAbStage / 2),
+                        kAbStage, full + st);
+          ++ch;
+        };
+        // the next row block's q after this chunk of the row block: after
+        // the first stages' with two buffers, else after the last (its
+        // buffer is this row block's)
+        const int q_at = qbufs > 1 ? min(stages, per) - 1 : per - 1;
+        if (vec_q && static_cast<int>(blockIdx.x) < rbs) load_q(0, blockIdx.x);
+        int i = 0;
+        for (int rb = blockIdx.x; rb < rbs; rb += gridDim.x, ++i) {
+          for (int cc = 0; cc < per; ++cc) {
+            load_b(cc);
+            if (cc == q_at && vec_q && rb + static_cast<int>(gridDim.x) < rbs) {
+              load_q(i + 1, rb + gridDim.x);
+            }
+          }
+        }
+      }
+    } else if (pw == 1) {  // each column tile's v rows, once the tile's last output has left
+      int T = 0;
+      for (int rb = blockIdx.x; rb < rbs; rb += gridDim.x) {
+        const long r0 = static_cast<long>(rb) * kApplyRows;
+        for (int t = 0; t < tiles; ++t, ++T) {
+          const int b = T % vbufs;
+          if (T >= vbufs) mbar_wait(vempty + b, (T / vbufs - 1) & 1);
+          unsigned char* dst = Vs + static_cast<size_t>(b) * kWgKTile;
+          if (vec_v) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(vfull + b, kWgKTile);
+              tma_load_2d(dst, &maps.v, 64 * t, static_cast<int>(r0), vfull + b);
+            }
+          } else {
+            for (int i = lane; i < kApplyRows * 64; i += 32) {
+              const int r = i >> 6;
+              const int col = 64 * t + (i & 63);
+              *reinterpret_cast<bf16*>(dst + sw128_offset(r, i & 63)) =
+                  r0 + r < N && col < D ? v[(r0 + r) * ldv + col] : __float2bfloat16_rn(0.f);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(vfull + b);
+          }
+        }
+      }
+    } else {  // warps 2 and 3: the q rows where no tensor map reads them, then den
+      const int w2 = pw - 2;
+      const int i0 = tid - kAbConsumers - 64;  // 0 .. 63
+      const int Mk = kt * 64;
+      const float inv = scal[2];
+      const float n = *n_total;
+      int i = 0;
+      for (int rb = blockIdx.x; rb < rbs; rb += gridDim.x, ++i) {
+        const int b = i % qbufs;
+        unsigned char* Qb = Qs + static_cast<size_t>(b) * kt * kWgKTile;
+        if (!vec_q) {
+          if (i >= qbufs) mbar_wait(qempty + b, (i / qbufs - 1) & 1);
+          const long r0 = static_cast<long>(rb) * kApplyRows;
+          for (int e = i0; e < kApplyRows * Mk; e += 64) {
+            const int r = e / Mk;
+            const int c = e % Mk;
+            *reinterpret_cast<bf16*>(Qb + (c >> 6) * kWgKTile + sw128_offset(r, c & 63)) =
+                r0 + r < N && c < M ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
+          }
+          fence_proxy_async();  // read by the MMAs
+          __syncwarp();
+          if (lane == 0) mbar_arrive(qfull + b);
+        }
+        mbar_wait(qfull + b, (i / qbufs) & 1);
+        // den = inv * (q . ksum) + n of the row block's 16-row groups w2,
+        // w2 + 2, ..., 8 columns a lane (16-byte reads), four rows at once,
+        // f32 FMAs in column order added by a fixed xor tree (the kernel
+        // this replaced ran the same code on the MMA warps)
+        float* den_b = den_s + b * kApplyRows;
+        for (int grp = w2; grp < kApplyRows / 16; grp += 2) {
+          for (int r4 = 0; r4 < 16; r4 += 4) {
+            float acc4[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int c = lane * 8; c < Mk; c += 256) {
+              float ks[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e) ks[e] = c + e < M ? __ldg(ksum + c + e) : 0.f;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const uint4 raw = *reinterpret_cast<const uint4*>(
+                    Qb + (c >> 6) * kWgKTile + sw128_offset(grp * 16 + r4 + j, c & 63));
+                const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float2 x = __bfloat1622float2(h[e]);
+                  acc4[j] = fmaf(x.x, ks[2 * e], acc4[j]);
+                  acc4[j] = fmaf(x.y, ks[2 * e + 1], acc4[j]);
+                }
+              }
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc4[j] += __shfl_xor_sync(0xffffffffu, acc4[j], off);
+            if (lane < 4) {  // lane j writes row r4 + j
+              const float bj = lane == 0 ? acc4[0] : lane == 1 ? acc4[1] : lane == 2 ? acc4[2]
+                                                                                : acc4[3];
+              const float den = inv * bj + n;
+              den_b[grp * 16 + r4 + lane] = guard && den == 0.f ? 1.f : den;
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dfull + b);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<216>();
+  const float inv = scal[2];
+  const float n = *n_total;
+  float acc[32];
+  float den_r[2] = {1.f, 1.f};  // den of the lane's two fragment rows, and its reciprocal
+  float rden[2] = {1.f, 1.f};
+  int ch = 0;                   // chunks consumed
+  int T = 0;                    // column tiles finished
+  int stored = -1;              // the v / out buffer whose store has yet to read it
+  // the store of the last tile has read its buffer: free it
+  auto release = [&]() {
+    if (tid == 0) {
+      bulk_store_wait_read();
+      mbar_arrive(vempty + stored);
+    }
+    stored = -1;
+  };
+  int i = 0;
+  for (int rb = blockIdx.x; rb < rbs; rb += gridDim.x, ++i) {
+    const long r0 = static_cast<long>(rb) * kApplyRows;
+    const int qb = i % qbufs;
+    const unsigned char* Qb = Qs + static_cast<size_t>(qb) * kt * kWgKTile;
+    mbar_wait(qfull + qb, (i / qbufs) & 1);
+    for (int t = 0; t < tiles; ++t, ++T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      for (int kc = 0; kc < kt; ++kc, ++ch) {
+        const int st = ch % stages;
+        mbar_wait(full + st, (ch / stages) & 1);
+        wgmma_fence_operand(acc);
+        wgmma_fence();
+        const unsigned char* a_tile = Qb + kc * kWgKTile + (warp >> 2) * kWgTile;
+        const unsigned char* b_tile = Bs + st * kAbStage;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da = sw128_desc(a_tile + ks * 32);
+          wgmma_m64n64k16(acc, da, sw128_desc(b_tile + ks * 32));
+          wgmma_m64n64k16(acc, da, sw128_desc(b_tile + kWgTile + ks * 32));
+        }
+        wgmma_commit();
+        if (stored >= 0) release();
+        if (kc > 0) {  // the last chunk's MMAs are done: free its stage
+          wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + (ch - 1) % stages);
+        }
+      }
+      wgmma_wait<0>();
+      wgmma_fence_operand(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (ch - 1) % stages);
+      // the column tile's epilogue at each lane's fragment, in its v / out tile in place
+      const int vb = T % vbufs;
+      unsigned char* Vb = Vs + static_cast<size_t>(vb) * kWgKTile;
+      if (t == 0) {
+        mbar_wait(dfull + qb, (i / qbufs) & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          den_r[h] = den_s[qb * kApplyRows + warp * 16 + (lane >> 2) + 8 * h];
+          rden[h] = __frcp_rn(den_r[h]);
+        }
+      }
+      // the row block's q and den are read (den only once warps 2-3 have
+      // left q: dfull): free both for the row block qbufs on
+      if (t == tiles - 1) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(qempty + qb);
+      }
+      mbar_wait(vfull + vb, (T / vbufs) & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          __nv_bfloat162* p =
+              reinterpret_cast<__nv_bfloat162*>(Vb + sw128_offset(r, 8 * j + 2 * (lane & 3)));
+          const float2 x = __bfloat1622float2(*p);
+          // (inv * a + n * v) / den, the numerator fused as the kernel this
+          // replaced fused it, the division correctly rounded by the row's
+          // reciprocal (div_by)
+          const float n0 = __fmaf_rn(inv, acc[4 * j + 2 * h], __fmul_rn(n, x.x));
+          const float n1 = __fmaf_rn(inv, acc[4 * j + 2 * h + 1], __fmul_rn(n, x.y));
+          *p = __floats2bfloat162_rn(div_by(n0, den_r[h], rden[h]),
+                                     div_by(n1, den_r[h], rden[h]));
+        }
+      }
+      const int c0 = 64 * t;
+      if (vec_o) {  // the tile out by the copy engine, clipped to the output
+        fence_proxy_async();
+        aw_consumers_sync();
+        if (tid == 0) {
+          tma_store_2d(&maps.out, c0, static_cast<int>(r0), Vb);
+          bulk_store_commit();
+        }
+        stored = vb;
+      } else {  // the warp's own 16 rows
+        __syncwarp();
+        for (int e = lane; e < 16 * 64; e += 32) {
+          const int r = warp * 16 + (e >> 6);
+          const int c = e & 63;
+          const long row = r0 + r;
+          if (row < N && c0 + c < D) {
+            out[row * ldo + c0 + c] = *reinterpret_cast<const bf16*>(Vb + sw128_offset(r, c));
+          }
+        }
+        aw_consumers_sync();
+        if (tid == 0) mbar_arrive(vempty + vb);
+      }
+    }
+  }
+  if (vec_o && tid == 0) bulk_store_wait_read();
 }
 
 // Elements of the input type of the tensor-core apply's scratch (kvs^T as
 // hi + lo: bf16 pieces, or tf32 pieces held in f32), or 0 where the apply
 // runs on the CUDA cores: an M whose q tile does not fit one block's shared
-// memory beside the B stages (above 704 in bf16, 256 in f32).
+// memory beside the kvs stages (above 704 in bf16, 256 in f32).
 int apply_scratch(int dtype, int M, int D) {
-  size_t smem;
   if (dtype == 1) {
-    smem = apply_tc_smem_bytes(M, D);
-  } else if (dtype == 0) {
-    smem = apply_wg_smem_bytes(M);
-  } else {
-    return 0;
+    int qbufs, stages, vbufs;
+    if (!apply_wgmma_layout(M, qbufs, stages, vbufs)) return 0;
+    return static_cast<int>(apply_split_elems<__nv_bfloat16>(M, D));
   }
-  if (smem > tc::kSmemPerBlock) return 0;
-  return static_cast<int>(dtype == 0 ? apply_wg_scratch(M, D) : 2 * tc::split_t_elems(M, D));
+  if (dtype == 0 && apply_wg_smem_bytes(M) <= tc::kSmemPerBlock) {
+    return static_cast<int>(apply_split_elems<float>(M, D));
+  }
+  return 0;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -1315,8 +1489,8 @@ extern "C" int sgf_la_apply_scratch(int dtype, int M, int D) {
 
 // out may be a row-strided view (ldo); n_total is a device float scalar.
 // hl: the scratch of sgf_la_apply_scratch elements of the input type where
-// that is not 0 (the tensor-core designs: tc::split_t_kernel<2>, then
-// la_apply_tc_kernel for bf16; la_apply_split_kernel, then
+// that is not 0 (the tensor-core designs: la_apply_split_kernel<bf16>, then
+// la_apply_wgmma_kernel for bf16; la_apply_split_kernel<float>, then
 // la_apply_wg_kernel for f32), else unused (la_apply_kernel).
 extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, void* out,
                             long ldo, int N, int M, int D, int dtype, const float* kvs,
@@ -1327,26 +1501,42 @@ extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, vo
   if (tensor_cores && dtype == 1) {
     using bf16 = __nv_bfloat16;
     bf16* h = static_cast<bf16*>(hl);
-    cudaError_t err = tc::launch_split_t<2>(kvs, M, D, h, st);
+    cudaError_t err = launch_apply_split(kvs, M, D, h, st);
     if (err != cudaSuccess || N == 0) return static_cast<int>(err);
-    const int vec_a = M % 8 == 0 && ldq % 8 == 0 && aligned16(q);
-    const int vec_io = ldv % 8 == 0 && ldo % 8 == 0 && aligned16(v) && aligned16(out);
-    const size_t smem = apply_tc_smem_bytes(M, D);
-    err = cudaFuncSetAttribute(la_apply_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // tensor maps where the copy engine can read the rows (16-byte aligned
+    // bases and row strides), else left empty
+    const int vec_q = ldq % 8 == 0 && aligned16(q);
+    const int vec_v = ldv % 8 == 0 && aligned16(v);
+    const int vec_o = ldo % 8 == 0 && aligned16(out);
+    AbMaps maps = {};
+    struct Rows { CUtensorMap* map; const void* base; int width; long ld; int want; };
+    const Rows rows[3] = {{&maps.q, q, M, ldq, vec_q}, {&maps.v, v, D, ldv, vec_v},
+                          {&maps.out, out, D, ldo, vec_o}};
+    for (const Rows& r : rows) {
+      if (!r.want) continue;
+      err = tc::encode_rows_map(r.map, r.base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), N,
+                                r.width, r.ld, 64, kApplyRows);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int qbufs, stages, vbufs;
+    apply_wgmma_layout(M, qbufs, stages, vbufs);
+    const size_t smem = apply_wgmma_smem(M, qbufs, stages, vbufs);
+    err = cudaFuncSetAttribute(la_apply_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    la_apply_tc_kernel<<<(N + kApplyRows - 1) / kApplyRows, kApplyThreads, smem, st>>>(
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = std::min(tc::cdiv(N, kApplyRows), sms);
+    la_apply_wgmma_kernel<<<blocks, kAbThreads, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(v), ldq, ldv,
-        static_cast<bf16*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_a, vec_io);
+        static_cast<bf16*>(out), ldo, N, M, D, h, ksum, scal, n_total, guard, vec_q, vec_v,
+        vec_o, qbufs, stages, vbufs, maps);
     return static_cast<int>(cudaGetLastError());
   }
   if (tensor_cores) {  // dtype 0: f32 in 3xTF32
     float* h = static_cast<float*>(hl);
-    const size_t count = apply_wg_scratch(M, D) / 2;
-    const unsigned split_blocks = static_cast<unsigned>(
-        std::min<size_t>((count + tc::kSplitThreads - 1) / tc::kSplitThreads, 1024));
-    la_apply_split_kernel<<<split_blocks, tc::kSplitThreads, 0, st>>>(kvs, M, D, h);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = launch_apply_split(kvs, M, D, h, st);
     if (err != cudaSuccess || N == 0) return static_cast<int>(err);
     // tensor maps where the copy engine can read the rows (16-byte aligned
     // bases and row strides), else left empty

@@ -100,23 +100,25 @@
 // the arxiv shape). On mma.sync m16n8k8 they ran at 20-27 % of that bound:
 // MMA issue held them back, three MMAs and two B fragment loads for each
 // 16 x 8 x 8 product, and the split of each A fragment reused over a warp
-// tile's 32 columns. The apply and the rows pass now run them on warpgroup
-// MMAs (tc::wg_column_tile, wgmma m64n64k8 tf32): the A rows (g, v, k; q)
-// stay f32 in shared memory (a 128 x 256 tile is 130 KB, one block an SM)
-// and each warp's fragments are split as they load and feed the MMAs from
-// registers, each one over 64 output columns; B (kvs, P, P^T; kvs^T) is
-// split once per call into tf32 hi + lo and streamed in 64-deep chunks,
-// 128-byte swizzled (two stages of hi and lo, 64 KB, at the start of the
-// dynamic block, which must be 1024-byte aligned: the f32 kernels have no
-// static shared memory), and each wgmma reads it through a descriptor, a
-// 64 x 64 x 8 product a warpgroup. Every 16 deep the products go into fresh
-// sums (scale-d = 0) added to the running sums in f32 round-to-nearest, so
-// that the tensor cores' own accumulation, which may truncate, never chains
-// more than one such step. That took the apply at the arxiv shape from 2.08
-// to 1.58 ms and the rows pass from 0.75 to 0.57 (NVIDIA H100, 700 W):
-// still ~4x the bound, since the MMA loop alone runs at ~45 % of the TF32
-// peak and one block an SM does not overlap the A staging, the B stream and
-// the epilogue with it (PERF.md). The P pass (la_bwd_reduce_wg_kernel) is
+// tile's 32 columns. The rows pass runs them on warpgroup MMAs
+// (tc::wg_column_tile, wgmma m64n64k8 tf32): the q rows stay f32 in shared
+// memory (a 128 x 256 tile is 130 KB, one block an SM) and each warp's
+// fragments are split as they load and feed the MMAs from registers, each
+// one over 64 output columns; kvs^T is split once per call into tf32 hi +
+// lo and streamed in 64-deep chunks, 128-byte swizzled (two stages of hi
+// and lo, 64 KB, at the start of the dynamic block, which must be 1024-byte
+// aligned: the f32 kernels have no static shared memory), and each wgmma
+// reads it through a descriptor, a 64 x 64 x 8 product a warpgroup. Every
+// 16 deep the products go into fresh sums (scale-d = 0) added to the
+// running sums in f32 round-to-nearest, so that the tensor cores' own
+// accumulation, which may truncate, never chains more than one such step.
+// That took the rows pass at the arxiv shape from 0.75 to 0.57 ms (NVIDIA
+// H100, 700 W): still ~4x the bound, since one block an SM does not overlap
+// the A staging, the B stream and the epilogue with the MMAs (PERF.md). The
+// apply (la_bwd_apply_ws_kernel) keeps that arithmetic, warp-specialised and
+// fed by the copy engine: its A rows stream into slots the item before
+// frees atom by atom, so that three A tiles need not fit at once (below).
+// The P pass (la_bwd_reduce_wg_kernel) is
 // the f32 forward reduce's design on wgmma m64n128k8 tf32, warp-specialised
 // and fed by the copy engine (tensor_core.cuh's rd_produce and
 // rd_consume_tf32): q^T from registers, split as its fragments load from
@@ -544,21 +546,18 @@ constexpr int kWgMaxK = 256;
 template <typename T>
 constexpr bool kIsF32 = std::is_same_v<T, float>;
 
-// The padded extents of the split operands: kvs and P as [n = M][k = D]
-// (dq and dk), P^T as [n = D][k = M] (dv); n padded to kTcCols, k to kTcK.
+// The padded extents of the widths: D and M padded to kTcK as depths, D to
+// kTcCols as the rows pass's kvs^T columns ([n = D][k = M]).
 struct TcDims {
-  int Mn, Dk, Dn, Mk;
+  int Dk, Dn, Mk;
   __host__ __device__ TcDims(int M, int D)
-      : Mn((M + kTcCols - 1) / kTcCols * kTcCols), Dk((D + kTcK - 1) / kTcK * kTcK),
-        Dn((D + kTcCols - 1) / kTcCols * kTcCols), Mk((M + kTcK - 1) / kTcK * kTcK) {}
-  __host__ __device__ size_t kvs_elems() const { return static_cast<size_t>(Mn) * Dk; }
+      : Dk((D + kTcK - 1) / kTcK * kTcK), Dn((D + kTcCols - 1) / kTcCols * kTcCols),
+        Mk((M + kTcK - 1) / kTcK * kTcK) {}
   __host__ __device__ size_t pt_elems() const { return static_cast<size_t>(Dn) * Mk; }
-  // hl holds kvs hi, kvs lo, P hi, P lo, P^T hi, P^T lo, in this order
-  __host__ __device__ size_t total() const { return 4 * kvs_elems() + 2 * pt_elems(); }
 };
 
 static_assert(kTcCols == tc::kSplitPad && kTcK == tc::kSplitPad,
-              "P^T and the rows pass's kvs^T share tensor_core.cuh's split layout");
+              "the rows pass's kvs^T is tensor_core.cuh's split layout");
 using tc::split_store;
 
 // The rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's sum
@@ -571,155 +570,22 @@ constexpr int kRowsPieces = 3;
 template <>
 constexpr int kRowsPieces<float> = 2;
 
-// hl[...] = the hi and lo halves of kvs, P and P^T, zero in the pads: bf16
-// pieces, or tf32 pieces held in f32 (Piece = float).
-template <typename Piece>
-__global__ void __launch_bounds__(kThreads)
-la_bwd_split_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M, int D,
-                    Piece* __restrict__ hl) {
-  const TcDims t(M, D);
-  const size_t nk = t.kvs_elems();
-  const size_t count = 2 * nk + t.pt_elems();
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float x = 0.f;
-    Piece* hi;
-    size_t lo_off;
-    if (i < 2 * nk) {  // kvs (i < nk) or P, [m][d]
-      const size_t j = i < nk ? i : i - nk;
-      const int m = static_cast<int>(j / t.Dk);
-      const int d = static_cast<int>(j % t.Dk);
-      const float* X = i < nk ? kvs : P;
-      if (m < M && d < D) x = X[static_cast<size_t>(m) * D + d];
-      hi = hl + (i < nk ? 0 : 2 * nk) + j;
-      lo_off = nk;
-    } else {  // P^T, [d][m]
-      const size_t j = i - 2 * nk;
-      const int d = static_cast<int>(j / t.Mk);
-      const int m = static_cast<int>(j % t.Mk);
-      if (m < M && d < D) x = P[static_cast<size_t>(m) * D + d];
-      hi = hl + 4 * nk + j;
-      lo_off = t.pt_elems();
-    }
-    split_store<2>(x, hi, lo_off);
-  }
-}
-
-// The f32 output tile of the epilogue (tc::kCsStride) lies over the B
-// stages once a column tile's products are done.
+// The rows pass's f32 output tile (tc::kCsStride) lies over the B stages
+// once a column tile's products are done.
 static_assert(kTcRows * kCsStride * 4 <= kWgBBytes, "C tile must fit the B stages");
 static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
 
 // ---------------------------------------------------------------------------
-// The f32 apply and rows pass on warpgroup MMAs in 3xTF32 (tc::wg_column_tile).
+// The f32 rows pass on warpgroup MMAs in 3xTF32 (tc::wg_column_tile).
 // grid (ceil(N / kTcRows)), 128 rows a block, two warpgroups of 64 rows,
 // one block an SM. Dynamic shared memory, 1024-byte aligned (no static
 // shared memory, so the dynamic block starts the block's window): the two
 // B stages (kWgBBytes, 64 KB; the staged output tile lies over them) and the
 // f32 A tile [kTcRows][Kp + 4] (130 KB at a width of 256): ~194 KB.
 
-// the dynamic block of the f32 kernels for an A tile K (padded) wide
+// the rows pass's dynamic block for an A tile K (padded) wide
 size_t wg_smem_bytes(int K) {
   return kWgBBytes + static_cast<size_t>(kTcRows) * (K + kPadOf<float>) * sizeof(float);
-}
-
-// The apply: for each product (dq: g @ kvs^T over D; dk: v @ P^T over D;
-// dv: k @ P over M) the block stages its A rows once, then forms its column
-// tiles, each finished in an epilogue that stages the tile in shared memory
-// and moves 8 columns a thread step, 16 bytes at a time. Blocks start
-// at different products and column tiles (rot), so that the SMs do not all
-// stage A rows at once. vec_a, vec_io as sgf_la_bwd_apply takes them.
-__global__ void __launch_bounds__(kTcThreads, 1)
-la_bwd_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ g, long ldq, long ldk,
-                       long ldv, long ldg, float* __restrict__ dq, float* __restrict__ dk,
-                       float* __restrict__ dv, long lddq, long lddk, long lddv, int N, int M, int D,
-                       const float* __restrict__ hl, const float* __restrict__ ksum,
-                       const float* __restrict__ ds, const float* __restrict__ scal,
-                       const float* __restrict__ n_total, const float* __restrict__ dinv,
-                       const float* __restrict__ den, const float* __restrict__ gden, int guard,
-                       int vec_a, int vec_io) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
-  const TcDims t(M, D);
-  const int a_stride = max(t.Dk, t.Mk) + kPadOf<float>;
-  unsigned char* Bs = smem_raw;
-  float* Cs = reinterpret_cast<float*>(Bs);
-  float* As = reinterpret_cast<float*>(smem_raw + kWgBBytes);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
-
-  const float inv = scal[2];
-  const float n = *n_total;
-  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
-  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
-  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
-  const size_t nk = t.kvs_elems();
-
-  const int rot = static_cast<int>(blockIdx.x);
-  for (int w = 0; w < 3; ++w) {
-    const int which = (w + rot) % 3;
-    const float* A = which == 0 ? g : (which == 1 ? v : k);
-    const long lda = which == 0 ? ldg : (which == 1 ? ldv : ldk);
-    const int K = which == 2 ? M : D;
-    const int Kp = which == 2 ? t.Mk : t.Dk;
-    const int C = which == 2 ? D : M;
-    const float* B_hi = hl + (which == 0 ? 0 : (which == 1 ? 2 * nk : 4 * nk));
-    const size_t lo_off = which == 2 ? t.pt_elems() : nk;
-
-    __syncthreads();  // the previous product is done with As
-    tc_stage_rows(As, a_stride, A, lda, r0, N, K, Kp, vec_a, tid);
-    __syncthreads();
-
-    const int tiles = (C + kTcCols - 1) / kTcCols;
-    for (int ti = 0; ti < tiles; ++ti) {
-      const int c0 = (ti + rot) % tiles * kTcCols;
-      float acc[32];
-      tc::wg_column_tile(acc, As, a_stride, Bs, B_hi, lo_off, Kp, c0, tid, lane, warp);
-      tc::wg_tile_to_smem(Cs, acc, lane, warp);
-#pragma unroll
-      for (int it = 0; it < kTcRows * (kTcCols / 8) / kTcThreads; ++it) {
-        const int i = tid + it * kTcThreads;
-        const int r = i / (kTcCols / 8);
-        const int cs = (i % (kTcCols / 8)) * 8;
-        const long row = r0 + r;
-        const int c = c0 + cs;
-        if (row >= N || c >= C) continue;
-        const int cols = min(8, C - c);
-        const bool vec = vec_io && cols == 8;
-        float a[8], o[8], x[8];
-        tile8(Cs, r, cs, a);
-        const float den_r = den[row];
-        if (which == 0) {
-          const float gden_r = gden[row];
-          load8(q + row * ldq + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float ks = e < cols ? ksum[c + e] : 0.f;
-            o[e] = inv * (a[e] / den_r) + inv * gden_r * ks - c_q * x[e];
-          }
-          store8(dq + row * lddq + c, vec, cols, o);
-        } else if (which == 1) {
-          load8(k + row * ldk + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float dsv = e < cols ? ds[c + e] : 0.f;
-            o[e] = inv * a[e] + inv * dsv - c_k * x[e];
-          }
-          store8(dk + row * lddk + c, vec, cols, o);
-        } else {
-          load8(g + row * ldg + c, vec, cols, x);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o[e] = n * (x[e] / den_r) + inv * a[e];
-          store8(dv + row * lddv + c, vec, cols, o);
-        }
-      }
-      __syncthreads();  // Cs is the next column tile's B stages
-    }
-  }
 }
 
 // The rows pass on the f32 core. b = q . ksum
@@ -1639,7 +1505,7 @@ struct ApTiles {
 };
 
 // hl = kvs, P and P^T as bf16 hi + lo in ApTiles' layout (each element x
-// as hi = bf16(x), lo = bf16(x - hi), la_bwd_split_kernel's pieces).
+// as hi = bf16(x), lo = bf16(x - hi)).
 __global__ void __launch_bounds__(kThreads)
 la_bwd_split_tiles_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M,
                           int D, bf16* __restrict__ hl) {
@@ -1991,6 +1857,470 @@ la_bwd_apply_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   if (vec_io && tid == 0) tc::bulk_store_wait_read();
 }
 
+// ---------------------------------------------------------------------------
+// The f32 apply in 3xTF32 on warpgroup MMAs (wgmma m64n64k8 tf32, A from
+// registers), warp-specialised, fed by the copy engine (TMA) and
+// persistent: grid min(3 ceil(N / 128), SMs), one block an SM, block b
+// taking the items b, b + grid, ... in turn, item u product u % 3 (dq: g @
+// kvs^T over D; dk: v @ P^T over D; dv: k @ P over M) of the 128-row block
+// u / 3. It replaces sgformer_tpu/kernels/attention.py::_bwd_apply_kernel
+// for f32 rows; bound by its products (three TF32 products for each f32
+// one: 0.41 ms at the arxiv shape, the bytes 0.36). Two consumer
+// warpgroups of 64 rows and a producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg). Dynamic shared memory,
+// 1024-byte aligned (no static shared memory, so the dynamic block starts
+// the block's window), every tile 128-byte swizzled over f32 rows of 32
+// (tc::sw128_offset_f32): the A rows of an item as up to 8 slots of one k
+// atom each ([128 rows][32], 16 KB; 128 KB at a depth of 256); a ring of
+// kBaStages chunks of the B operand (kvs, P or P^T), each the tf32 hi and
+// lo [64 n][32 k] atoms of one (column tile, k atom) (8 KB each; laid out
+// swizzled by la_bwd_split_atoms_kernel, so that one 16 KB bulk copy moves
+// a chunk); xbufs epilogue tiles [128][64] (two atoms; one at M = D = 256);
+// ksum and ds; mbarriers: 226 KB at M = D = 256.
+//
+// Three A tiles of 128 KB, a B ring and an operand tile do not fit one
+// block's 227 KB at once, so the next item's A rows arrive under the
+// current item's MMAs slot by slot: the consumers' warps load each A
+// fragment from its slot and split it into tf32 hi + lo in registers, so a
+// slot is read by their loads, not by the MMAs, and in an item's last
+// column tile each warp frees slot j (an empty mbarrier of its own) once
+// its fragments of k atom j are in registers; the producer then brings the
+// next item's atom j into it (a full mbarrier of its own). The item's first
+// column tile waits for each atom as it reaches it, so the next product's
+// rows stream in behind the last column tile's MMAs, a slot at a time, and
+// each A row is read from device memory once. (Restaging A whole after a
+// product, as the kernel this replaced did, left it idle for the 128 KB
+// copy three times a row block; streaming A through the ring with B would
+// read it again from L2 for every column tile.) Slots past an item's depth
+// (M != D) are handed over empty, so that every slot's barriers complete
+// once an item.
+//
+// The producer warpgroup: warp 0's lane 0 brings the B chunks by bulk
+// copies as the consumers free their stages (full and empty mbarriers);
+// warp 1 brings each column tile's epilogue operand (q, k or g) by a tensor
+// map into the next epilogue tile once its last output has left it; warp 2
+// brings the A atoms by a tensor map. Where the views' strides or bases do
+// not allow a tensor map (vec_a, vec_io 0) warps 1 and 2 copy the operands
+// and A rows one element a lane at a time and the consumers store their
+// rows. The consumers keep the arithmetic of tc::wg_column_tile, so that
+// the outputs are bitwise the kernel's it replaced: each product lo*hi' +
+// hi*lo' + hi*hi' (the cross terms first), every 16 deep (kWgPeriod) the
+// MMAs start fresh sums that are added to the tile's f32 sums in
+// round-to-nearest, in k order, a k atom's two periods double-buffered so
+// that the second's MMAs run while the warps fold the first's (issuing the
+// two periods' MMAs interleaved measured 3 % slower, PERF.md). Then each
+// 64-column tile's epilogue at each lane's fragment, the terms of the
+// kernel it replaced in their order and fused as they were (den and gden
+// of the lane's rows loaded once an item, ksum and ds staged once a block,
+// each division correctly rounded through the row's reciprocal, tc::div_by,
+// where an IEEE division an element cost ~10 instructions and a branch),
+// written in place into the epilogue tile and stored by the copy engine,
+// which clips it to the output.
+constexpr int kBaConsumers = 2 * 128;
+constexpr int kBaThreads = kBaConsumers + 128;  // and the producer warpgroup
+constexpr int kBaStages = 4;
+constexpr int kBaAtom = kTcRows * 128;          // a [128 rows][32] f32 atom: A, or half a tile
+constexpr int kBaPiece = kTcCols * 128;         // a [64 n][32 k] atom of a split B
+constexpr int kBaStage = 2 * kBaPiece;          // its hi and lo
+
+// The f32 apply's B operands as la_bwd_split_atoms_kernel lays them out:
+// for each product w (dq: kvs, dk: P, as [n = M][k = D]; dv: P^T, as [n =
+// D][k = M]) the tf32 hi and lo atoms of each (column tile, k atom) chunk,
+// column tile by column tile.
+struct BaAtoms {
+  int M, D;
+  __host__ __device__ BaAtoms(int M_, int D_) : M(M_), D(D_) {}
+  __host__ __device__ int ka(int w) const { return tc::cdiv(w == 2 ? M : D, 32); }
+  __host__ __device__ int tiles(int w) const { return tc::cdiv(w == 2 ? D : M, kTcCols); }
+  __host__ __device__ size_t elems(int w) const {
+    return static_cast<size_t>(tiles(w)) * ka(w) * 2 * (kBaPiece / 4);
+  }
+  __host__ __device__ size_t total() const { return elems(0) + elems(1) + elems(2); }
+  // the first element of product w's chunk (column tile ct, k atom kc): hi, then lo
+  __host__ __device__ size_t chunk(int w, int ct, int kc) const {
+    const size_t base = w == 0 ? 0 : (w == 1 ? elems(0) : elems(0) + elems(1));
+    return base + static_cast<size_t>(ct * ka(w) + kc) * 2 * (kBaPiece / 4);
+  }
+};
+
+// hl = kvs, P and P^T as tf32 hi + lo (tc::split_store<2, float>) in
+// BaAtoms' layout, zero past the widths.
+__global__ void __launch_bounds__(kThreads)
+la_bwd_split_atoms_kernel(const float* __restrict__ kvs, const float* __restrict__ P, int M,
+                          int D, float* __restrict__ hl) {
+  constexpr int kPiece = kBaPiece / 4;
+  const BaAtoms a(M, D);
+  const size_t count = a.total() / 2;  // elements of one piece, over the three products
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    size_t j = i;
+    int w = 0;
+    for (; w < 2; ++w) {
+      const size_t per = a.elems(w) / 2;
+      if (j < per) break;
+      j -= per;
+    }
+    const int chunk = static_cast<int>(j / kPiece);
+    const int n = chunk / a.ka(w) * kTcCols + static_cast<int>(j % kPiece) / 32;
+    const int kk = chunk % a.ka(w) * 32 + static_cast<int>(j % 32);
+    float x = 0.f;
+    if (w == 2) {
+      if (n < D && kk < M) x = P[static_cast<size_t>(kk) * D + n];
+    } else if (n < M && kk < D) {
+      x = (w == 0 ? kvs : P)[static_cast<size_t>(n) * D + kk];
+    }
+    const size_t off = a.chunk(w, chunk / a.ka(w), chunk % a.ka(w)) +
+                       tc::sw128_offset_f32(static_cast<int>(j % kPiece) / 32, kk % 32) / 4;
+    split_store<2>(x, hl + off, kPiece);
+  }
+}
+
+size_t bwd_apply_ws_smem(int M, int D, int xbufs) {
+  const int slots = std::max(tc::cdiv(M, 32), tc::cdiv(D, 32));
+  return static_cast<size_t>(slots) * kBaAtom + static_cast<size_t>(kBaStages) * kBaStage +
+         static_cast<size_t>(xbufs) * 2 * kBaAtom + 2 * static_cast<size_t>(tc::cdiv(M, 4) * 4) *
+         sizeof(float) + 2 * (slots + kBaStages + xbufs) * sizeof(uint64_t);
+}
+
+__global__ void __launch_bounds__(kBaThreads, 1)
+la_bwd_apply_ws_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ g, long ldq,
+                       long ldk, long ldv, long ldg, float* __restrict__ dq,
+                       float* __restrict__ dk, float* __restrict__ dv, long lddq, long lddk,
+                       long lddv, int N, int M, int D, const float* __restrict__ hl,
+                       const float* __restrict__ ksum, const float* __restrict__ ds,
+                       const float* __restrict__ scal, const float* __restrict__ n_total,
+                       const float* __restrict__ dinv, const float* __restrict__ den,
+                       const float* __restrict__ gden, int guard, int vec_a, int vec_io,
+                       int xbufs, const __grid_constant__ ApMaps maps) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const BaAtoms at(M, D);
+  const int slots = max(at.ka(0), at.ka(2));
+  const int items = 3 * cdiv(N, kTcRows);
+  const int Mc = cdiv(M, 4) * 4;
+  unsigned char* As = smem_raw;                                             // [slot][128][32]
+  unsigned char* Bs = As + static_cast<size_t>(slots) * kBaAtom;            // [stage][hi, lo]
+  unsigned char* Xs = Bs + static_cast<size_t>(kBaStages) * kBaStage;       // [xbufs][2][128][32]
+  float* col_s = reinterpret_cast<float*>(Xs + static_cast<size_t>(xbufs) * 2 * kBaAtom);
+  uint64_t* afull = reinterpret_cast<uint64_t*>(col_s + 2 * Mc);  // an A atom has landed
+  uint64_t* aempty = afull + slots;                               // an A slot is read
+  uint64_t* full = aempty + slots;                                // a stage has landed
+  uint64_t* empty = full + kBaStages;                             // a stage's MMAs are done
+  uint64_t* xfull = empty + kBaStages;                            // an operand tile has landed
+  uint64_t* xempty = xfull + xbufs;                               // a tile has left its buffer
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int j = 0; j < slots; ++j) {
+      mbar_init(afull + j, 1);
+      mbar_init(aempty + j, kBaConsumers / 32);
+    }
+    for (int s = 0; s < kBaStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBaConsumers / 32);
+    }
+    for (int b = 0; b < xbufs; ++b) {
+      mbar_init(xfull + b, 1);
+      mbar_init(xempty + b, 1);
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < 2 * Mc; i += kBaThreads) {  // ksum, then ds
+    const int c = i < Mc ? i : i - Mc;
+    col_s[i] = c < M ? (i < Mc ? ksum[c] : ds[c]) : 0.f;
+  }
+  __syncthreads();
+
+  if (warp >= kBaConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    const int pw = warp - kBaConsumers / 32;
+    if (pw == 0) {  // the B chunks, each into its stage once the consumers have freed it
+      if (lane == 0) {
+        int ch = 0;
+        for (int u = blockIdx.x; u < items; u += gridDim.x) {
+          const int w = u % 3;
+          for (int t = 0; t < at.tiles(w); ++t) {
+            for (int kc = 0; kc < at.ka(w); ++kc, ++ch) {
+              const int st = ch % kBaStages;
+              if (ch >= kBaStages) mbar_wait(empty + st, (ch / kBaStages - 1) & 1);
+              mbar_arrive_expect_tx(full + st, kBaStage);
+              bulk_copy_g2s(Bs + st * kBaStage, hl + at.chunk(w, t, kc), kBaStage, full + st);
+            }
+          }
+        }
+      }
+    } else if (pw == 1) {  // each column tile's operand, once the tile's last output has left
+      int T = 0;
+      for (int u = blockIdx.x; u < items; u += gridDim.x) {
+        const int w = u % 3;
+        const long r0 = static_cast<long>(u / 3) * kTcRows;
+        const float* X = w == 0 ? q : (w == 1 ? k : g);
+        const long ldx = w == 0 ? ldq : (w == 1 ? ldk : ldg);
+        const int C = w == 2 ? D : M;
+        const CUtensorMap* map = w == 0 ? &maps.q : (w == 1 ? &maps.k : &maps.g);
+        for (int t = 0; t < at.tiles(w); ++t, ++T) {
+          const int b = T % xbufs;
+          if (T >= xbufs) mbar_wait(xempty + b, (T / xbufs - 1) & 1);
+          unsigned char* dst = Xs + static_cast<size_t>(b) * 2 * kBaAtom;
+          const int c0 = kTcCols * t;
+          if (vec_io) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(xfull + b, 2 * kBaAtom);
+              for (int h = 0; h < 2; ++h) {
+                tma_load_2d(dst + h * kBaAtom, map, c0 + 32 * h, static_cast<int>(r0), xfull + b);
+              }
+            }
+          } else {
+            for (int i = lane; i < kTcRows * kTcCols; i += 32) {
+              const int r = i / kTcCols;
+              const int c = i % kTcCols;
+              *reinterpret_cast<float*>(dst + (c >> 5) * kBaAtom + sw128_offset_f32(r, c & 31)) =
+                  r0 + r < N && c0 + c < C ? X[(r0 + r) * ldx + c0 + c] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(xfull + b);
+          }
+        }
+      }
+    } else if (pw == 2) {  // each item's A atoms, slot j once the last item has read it
+      int i = 0;
+      for (int u = blockIdx.x; u < items; u += gridDim.x, ++i) {
+        const int w = u % 3;
+        const long r0 = static_cast<long>(u / 3) * kTcRows;
+        const float* A = w == 0 ? g : (w == 1 ? v : k);
+        const long lda = w == 0 ? ldg : (w == 1 ? ldv : ldk);
+        const int K = w == 2 ? M : D;
+        const CUtensorMap* map = w == 0 ? &maps.g : (w == 1 ? &maps.v : &maps.k);
+        for (int j = 0; j < slots; ++j) {
+          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);
+          unsigned char* dst = As + static_cast<size_t>(j) * kBaAtom;
+          if (j >= at.ka(w)) {  // past the item's depth: handed over empty
+            if (lane == 0) mbar_arrive(afull + j);
+          } else if (vec_a) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(afull + j, kBaAtom);
+              tma_load_2d(dst, map, 32 * j, static_cast<int>(r0), afull + j);
+            }
+          } else {
+            for (int e = lane; e < kTcRows * 32; e += 32) {
+              const int r = e >> 5;
+              const int c = 32 * j + (e & 31);
+              *reinterpret_cast<float*>(dst + sw128_offset_f32(r, e & 31)) =
+                  r0 + r < N && c < K ? A[(r0 + r) * lda + c] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(afull + j);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<232>();
+  constexpr int kSteps = kWgPeriod / 8;  // k8 steps a period: two periods a 32-deep atom
+  static_assert(kSteps * 2 * 8 == 32, "two periods an atom");
+  const float inv = scal[2];
+  const float n = *n_total;
+  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+  const int g8 = lane >> 2;
+  // the lane's fragment rows 16 * warp + g8 (+ 8) at k = lane % 4 (+ 4) of each k8 step
+  const int a_off = (16 * warp + g8) * 128 + (lane & 3) * 4;
+  const int g16 = g8 << 4;  // the swizzle of the rows' 16-byte chunks
+  float acc[32], part[2][32];
+  unsigned ah[2][kSteps][4], al[2][kSteps][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[0][i] = part[1][i] = 0.f;
+
+  // the A fragments of period p of the atom in slot kc, as tf32 hi + lo
+  auto load_a = [&](unsigned (&h)[kSteps][4], unsigned (&l)[kSteps][4], int kc, int p) {
+    const unsigned char* a = As + kc * kBaAtom + a_off;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = p * kSteps + ks;  // k8 step of the atom: k from 8 s
+      const int lo16 = ((2 * s) << 4) ^ g16;
+      const int hi16 = ((2 * s + 1) << 4) ^ g16;
+      split_tf32(*reinterpret_cast<const float*>(a + lo16), h[ks][0], l[ks][0]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + lo16), h[ks][1], l[ks][1]);
+      split_tf32(*reinterpret_cast<const float*>(a + hi16), h[ks][2], l[ks][2]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + hi16), h[ks][3], l[ks][3]);
+    }
+  };
+  // period p's MMAs into fresh sums d, B the chunk's atoms at Bh (hi; lo
+  // one piece on)
+  auto issue = [&](float (&d)[32], const unsigned (&h)[kSteps][4],
+                   const unsigned (&l)[kSteps][4], const unsigned char* Bh, int p) {
+    wgmma_fence_operand(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const unsigned char* b = Bh + (p * kSteps + ks) * 32;
+      wgmma_m64n64k8_tf32(d, l[ks], sw128_desc(b), ks);            // lo*hi', fresh first
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b + kBaPiece), 1);  // hi*lo'
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b), 1);             // hi*hi'
+    }
+    wgmma_commit();
+  };
+  auto fold = [&](float (&d)[32]) {
+    wgmma_fence_operand(d);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+  };
+  int stored = -1;  // the epilogue tile whose store has yet to read it
+  // the store of the last tile has read its buffer: free it
+  auto release = [&]() {
+    if (tid == 0) {
+      bulk_store_wait_read();
+      mbar_arrive(xempty + stored);
+    }
+    stored = -1;
+  };
+
+  int ch = 0;  // chunks consumed
+  int T = 0;   // column tiles finished
+  int i = 0;
+  for (int u = blockIdx.x; u < items; u += gridDim.x, ++i) {
+    const int w = u % 3;
+    const long r0 = static_cast<long>(u / 3) * kTcRows;
+    const int ka = at.ka(w);
+    const int tiles = at.tiles(w);
+    // the slots it leaves unread, each handed back once it has been handed
+    // over (so that the consumers never run a phase ahead of the producer on
+    // a slot: a wait a phase behind would then block for the next item's)
+    __syncwarp();
+    if (lane == 0) {
+      for (int j = ka; j < slots; ++j) {
+        mbar_wait(afull + j, i & 1);
+        mbar_arrive(aempty + j);
+      }
+    }
+    // den, its reciprocal and gden of the lane's two fragment rows
+    float den_r[2], rden_r[2], gden_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = r0 + 16 * warp + g8 + 8 * h;
+      den_r[h] = row < N ? den[row] : 1.f;
+      rden_r[h] = __frcp_rn(den_r[h]);
+      gden_r[h] = row < N ? gden[row] : 0.f;
+    }
+    for (int t = 0; t < tiles; ++t, ++T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      for (int kc = 0; kc < ka; ++kc, ++ch) {
+        const int st = ch % kBaStages;
+        mbar_wait(full + st, (ch / kBaStages) & 1);
+        if (t == 0) mbar_wait(afull + kc, i & 1);
+        const unsigned char* Bh = Bs + st * kBaStage;
+        load_a(ah[0], al[0], kc, 0);
+        issue(part[0], ah[0], al[0], Bh, 0);
+        if (stored >= 0) release();
+        load_a(ah[1], al[1], kc, 1);
+        if (t == tiles - 1) {  // the item's last reads of slot kc are in registers
+          __syncwarp();
+          if (lane == 0) mbar_arrive(aempty + kc);
+        }
+        issue(part[1], ah[1], al[1], Bh, 1);
+        wgmma_wait<1>();  // the first period is done
+        fold(part[0]);
+        wgmma_wait<0>();
+        fold(part[1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + st);
+      }
+      // the column tile's epilogue at each lane's fragment, in its tile in place
+      const int xb = T % xbufs;
+      unsigned char* Xb = Xs + static_cast<size_t>(xb) * 2 * kBaAtom;
+      mbar_wait(xfull + xb, (T / xbufs) & 1);
+      const int c0 = kTcCols * t;
+      // the product's terms in the replaced kernel's order, one loop a product
+      // (compiled apart, so that no element tests the product)
+      auto finish = [&](auto product) {
+        constexpr int kWhich = decltype(product)::value;
+        const float* cs_col = col_s + (kWhich == 0 ? 0 : Mc);  // ksum (dq) or ds (dk)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cl = 8 * j + 2 * (lane & 3);
+          float col[2] = {0.f, 0.f};
+          if constexpr (kWhich < 2) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) col[e] = c0 + cl + e < M ? cs_col[c0 + cl + e] : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* p = reinterpret_cast<float2*>(
+                Xb + (j >> 2) * kBaAtom + sw128_offset_f32(16 * warp + g8 + 8 * h, cl & 31));
+            const float2 x2 = *p;
+            const float x[2] = {x2.x, x2.y};
+            float o[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              // the terms fused as in the kernel this replaced, so that the
+              // outputs are bitwise its: inv * (a / den) + inv * gden * ksum
+              // - c_q * q; inv * a + inv * ds - c_k * k; n * (g / den) + inv *
+              // a; each division correctly rounded by the row's reciprocal
+              const float a = acc[4 * j + 2 * h + e];
+              if constexpr (kWhich == 0) {
+                o[e] = __fmaf_rn(-c_q, x[e],
+                                 __fmaf_rn(__fmul_rn(inv, gden_r[h]), col[e],
+                                           __fmul_rn(inv, div_by(a, den_r[h], rden_r[h]))));
+              } else if constexpr (kWhich == 1) {
+                o[e] = __fmaf_rn(-c_k, x[e], __fmaf_rn(inv, col[e], __fmul_rn(inv, a)));
+              } else {
+                o[e] = __fmaf_rn(n, div_by(x[e], den_r[h], rden_r[h]), __fmul_rn(inv, a));
+              }
+            }
+            *p = make_float2(o[0], o[1]);
+          }
+        }
+      };
+      if (w == 0) {
+        finish(std::integral_constant<int, 0>{});
+      } else if (w == 1) {
+        finish(std::integral_constant<int, 1>{});
+      } else {
+        finish(std::integral_constant<int, 2>{});
+      }
+      if (vec_io) {  // the tile out by the copy engine, clipped to the output
+        fence_proxy_async();
+        consumers_sync();
+        if (tid == 0) {
+          const CUtensorMap* map = w == 0 ? &maps.dq : (w == 1 ? &maps.dk : &maps.dv);
+          for (int h = 0; h < 2; ++h) {
+            tma_store_2d(map, c0 + 32 * h, static_cast<int>(r0), Xb + h * kBaAtom);
+          }
+          bulk_store_commit();
+        }
+        stored = xb;
+      } else {  // the warp's own 16 rows
+        __syncwarp();
+        float* out = w == 0 ? dq : (w == 1 ? dk : dv);
+        const long ldo = w == 0 ? lddq : (w == 1 ? lddk : lddv);
+        const int C = w == 2 ? D : M;
+        for (int e = lane; e < 16 * kTcCols; e += 32) {
+          const int r = 16 * warp + e / kTcCols;
+          const int c = e % kTcCols;
+          const long row = r0 + r;
+          if (row < N && c0 + c < C) {
+            out[row * ldo + c0 + c] = *reinterpret_cast<const float*>(
+                Xb + (c >> 5) * kBaAtom + sw128_offset_f32(r, c & 31));
+          }
+        }
+        consumers_sync();
+        if (tid == 0) mbar_arrive(xempty + xb);
+      }
+    }
+  }
+  if (vec_io && tid == 0) bulk_store_wait_read();
+}
+
 template <typename T>
 cudaError_t launch_bwd_reduce(const void* q, const void* v, const void* g, long ldq, long ldv,
                               long ldg, int N, int M, int D, int slices, int rows_per_slice,
@@ -2144,9 +2474,10 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
       den, gden, guard);
 }
 
-// The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces, or
-// tf32 pieces in f32 for T = float), then la_bwd_apply_wgmma_kernel (bf16)
-// or la_bwd_apply_wg_kernel (f32).
+// The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces by
+// la_bwd_split_tiles_kernel, or tf32 pieces in f32 by
+// la_bwd_split_atoms_kernel for T = float), then la_bwd_apply_wgmma_kernel
+// (bf16) or la_bwd_apply_ws_kernel (f32).
 template <typename T>
 cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, long ldq,
                                 long ldk, long ldv, long ldg, T* dq, T* dk, T* dv, long lddq,
@@ -2155,41 +2486,48 @@ cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, 
                                 const float* scal, const float* n_total, const float* dinv,
                                 const float* den, const float* gden, int guard, int vec_a,
                                 int vec_io, T* hl, cudaStream_t st) {
-  const size_t total = kIsF32<T> ? TcDims(M, D).total() : ApTiles(M, D).total() / 2;
+  const size_t total = kIsF32<T> ? BaAtoms(M, D).total() / 2 : ApTiles(M, D).total() / 2;
   const unsigned split_blocks =
       static_cast<unsigned>(std::min<size_t>((total + kThreads - 1) / kThreads, 1024));
   if constexpr (kIsF32<T>) {
-    la_bwd_split_kernel<T><<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
+    la_bwd_split_atoms_kernel<<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
   } else {
     la_bwd_split_tiles_kernel<<<split_blocks, kThreads, 0, st>>>(kvs, P, M, D, hl);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || N == 0) return err;
   const unsigned row_blocks = (N + kTcRows - 1) / kTcRows;
+  // the tensor maps where the copy engine can read the rows (vec_a: the A
+  // rows g, v, k; vec_io: the epilogue's operands q, k, g and the outputs:
+  // 16-byte aligned bases and row strides), else left empty; [128 rows][128
+  // bytes] boxes
+  ApMaps maps = {};
+  struct Rows { CUtensorMap* map; const void* base; int width; long ld; bool want; };
+  const Rows rows[7] = {{&maps.g, g, D, ldg, vec_a || vec_io}, {&maps.v, v, D, ldv, !!vec_a},
+                        {&maps.k, k, M, ldk, vec_a || vec_io}, {&maps.q, q, M, ldq, !!vec_io},
+                        {&maps.dq, dq, M, lddq, !!vec_io}, {&maps.dk, dk, M, lddk, !!vec_io},
+                        {&maps.dv, dv, D, lddv, !!vec_io}};
+  for (const Rows& r : rows) {
+    if (!r.want) continue;
+    err = kIsF32<T> ? tc::encode_rows_map(r.map, r.base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                          sizeof(float), N, r.width, r.ld, 32, kTcRows)
+                    : encode_rows_map(r.map, r.base, N, r.width, r.ld);
+    if (err != cudaSuccess) return err;
+  }
   if constexpr (kIsF32<T>) {
-    const TcDims t(M, D);
-    const size_t smem = wg_smem_bytes(max(t.Dk, t.Mk));
-    err = cudaFuncSetAttribute(la_bwd_apply_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const int xbufs = bwd_apply_ws_smem(M, D, 2) <= kSmemPerBlock ? 2 : 1;
+    const size_t smem = bwd_apply_ws_smem(M, D, xbufs);
+    err = cudaFuncSetAttribute(la_bwd_apply_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    la_bwd_apply_wg_kernel<<<row_blocks, kTcThreads, smem, st>>>(
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return err;
+    const int blocks = std::min(3 * static_cast<int>(row_blocks), sms);
+    la_bwd_apply_ws_kernel<<<blocks, kBaThreads, smem, st>>>(
         q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
-        n_total, dinv, den, gden, guard, vec_a, vec_io);
+        n_total, dinv, den, gden, guard, vec_a, vec_io, xbufs, maps);
   } else {
-    // the tensor maps where the copy engine can read the rows (vec_a: the A
-    // rows g, v, k; vec_io: the epilogue's operands q, k, g and the outputs:
-    // 16-byte aligned bases and row strides), else left empty
-    ApMaps maps = {};
-    struct Rows { CUtensorMap* map; const void* base; int width; long ld; bool want; };
-    const Rows rows[7] = {{&maps.g, g, D, ldg, vec_a || vec_io}, {&maps.v, v, D, ldv, !!vec_a},
-                          {&maps.k, k, M, ldk, vec_a || vec_io}, {&maps.q, q, M, ldq, !!vec_io},
-                          {&maps.dq, dq, M, lddq, !!vec_io}, {&maps.dk, dk, M, lddk, !!vec_io},
-                          {&maps.dv, dv, D, lddv, !!vec_io}};
-    for (const Rows& r : rows) {
-      if (!r.want) continue;
-      err = encode_rows_map(r.map, r.base, N, r.width, r.ld);
-      if (err != cudaSuccess) return err;
-    }
     const size_t smem = apply_wgmma_smem(M);
     err = cudaFuncSetAttribute(la_bwd_apply_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2278,19 +2616,20 @@ extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
   } else if (dtype == 0) {
     const TcDims t(M, D);
     if (t.Mk > kWgMaxK || t.Dk > kWgMaxK) return 0;
-    smem = wg_smem_bytes(max(t.Dk, t.Mk));
+    smem = bwd_apply_ws_smem(M, D, 1);
   } else {
     return 0;
   }
   if (smem > kSmemPerBlock) return 0;
-  return static_cast<int>(dtype == 1 ? ApTiles(M, D).total() : TcDims(M, D).total());
+  return static_cast<int>(dtype == 1 ? ApTiles(M, D).total() : BaAtoms(M, D).total());
 }
 
 // dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
 // (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
 // hl: the scratch of sgf_la_bwd_apply_scratch elements of the input type
-// where that is not 0 (the tensor-core design: la_bwd_split_kernel, then
-// la_bwd_apply_wgmma_kernel, or la_bwd_apply_wg_kernel in 3xTF32 for f32),
+// where that is not 0 (the tensor-core designs: la_bwd_split_tiles_kernel,
+// then la_bwd_apply_wgmma_kernel; la_bwd_split_atoms_kernel, then
+// la_bwd_apply_ws_kernel in 3xTF32 for f32),
 // else unused (la_bwd_apply_kernel). vec_a: 1 when the A rows (g, v, k)
 // may be read 16 bytes at a time (M and D multiples of 8, row strides too,
 // bases 16-byte aligned); vec_io: the epilogue moves 8 columns of q, k, g,

@@ -23,10 +23,10 @@
 //   forward reduce and P = q^T (g / den) of the f32 backward P pass;
 // - the row kernels' core for f32 A rows in 3xTF32 on warpgroup MMAs: A
 //   rows staged once, a split B streamed in 64-deep chunks, a 128 x 64
-//   output tile at a time (wg_column_tile: the f32 backward apply and rows
-//   pass); the epilogue's staged tile and 8-column row accesses; the
-//   division by a row's reciprocal (div_by) and the tensor maps of row
-//   tiles (encode_rows_map).
+//   output tile at a time (wg_column_tile: the f32 backward rows pass); the
+//   epilogue's staged tile and 8-column row accesses; the division by a
+//   row's reciprocal (div_by), the tensor maps of row tiles
+//   (encode_rows_map) and the SM count of the persistent kernels' grids.
 
 #pragma once
 
@@ -163,6 +163,18 @@ inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, CUtensorM
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The streaming multiprocessors of the current device (the persistent
+// kernels' grid), asked at each launch (the runtime caches the attribute),
+// so that each device gets its own; the query's error where it fails.
+inline cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && sms < 1) err = cudaErrorInvalidValue;
+  return err;
 }
 
 // x / d correctly rounded from r = 1/d correctly rounded (Markstein: the
@@ -771,7 +783,7 @@ cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t s
 }
 
 // ---------------------------------------------------------------------------
-// The row kernels' core (the f32 backward apply and rows pass): a block
+// The row kernels' core (the f32 backward rows pass): a block
 // owns kTcRows rows of an A operand staged in shared memory and forms A @
 // B^T kTcCols output columns at a time. B is a split operand, n-major
 // ([n][k], contiguous in k), as split_t_kernel writes it. On warpgroup MMAs

@@ -26,23 +26,26 @@ On bf16 inputs every kernel's products run on the tensor cores, with f32
 sums: :func:`reduce`'s kᵀv (``la_reduce_wgmma_kernel``, warpgroup MMAs
 (wgmma) reading k and v node-major from swizzled shared memory: exact bf16
 products, fresh sums every 32 rows, fixed-order f32 sums over slices of
-N), :func:`apply`'s q @ kvs (``la_apply_tc_kernel``, wgmma: kvs split into
-bf16 hi + lo), :func:`bwd_reduce`'s q @ kvs and qᵀ(g/den)
+N), :func:`apply`'s q @ kvs (``la_apply_wgmma_kernel``, wgmma: kvs split
+into bf16 hi + lo; persistent, one block an SM, the next row block's q rows
+landing under this one's MMAs), :func:`bwd_reduce`'s q @ kvs and qᵀ(g/den)
 (``la_bwd_rows_wgmma_kernel``, ``la_bwd_reduce_wgmma_kernel``, wgmma: kvs
 split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's operands
 read node-major) and :func:`bwd_apply`'s three products
 (``la_bwd_apply_wgmma_kernel``, wgmma: kvs and P split into hi + lo); the
-reduce and the three backward kernels are fed by the copy engine (TMA)
-from a producer warp. On f32 inputs every kernel runs in 3xTF32 (each f32
+reduce, the apply and the three backward kernels are fed by the copy
+engine (TMA) from a producer warp or warpgroup. On f32 inputs every kernel runs in 3xTF32 (each f32
 operand split into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32
 sums), all on warpgroup MMAs (wgmma tf32, A from registers): the reduce
 (``la_reduce_wg_kernel``: kᵀ split as its fragments load, v split once a
 chunk into K-major tf32 hi + lo tiles) and the backward reduce's P pass
 (``la_bwd_reduce_wg_kernel``: the reduce's design with qᵀ for kᵀ and
 g/den, formed as each chunk is split, for v), the apply
-(``la_apply_wg_kernel``), these three fed by TMA from a producer
-warpgroup, the backward reduce's rows pass (``la_bwd_rows_wg_kernel``) and
-the backward apply (``la_bwd_apply_wg_kernel``). Both reduces' tiles
+(``la_apply_wg_kernel``) and the backward apply (``la_bwd_apply_ws_kernel``:
+persistent over (row block, product) items, each item's A rows streamed
+into slots that the item before frees atom by atom in its last column
+tile), these four fed by TMA from a producer warpgroup, and the backward
+reduce's rows pass (``la_bwd_rows_wg_kernel``). Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
 full width in shared memory run on the CUDA cores where it does not fit
 (the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
@@ -285,7 +288,8 @@ def apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     if dtype == torch.float32:
         return ("tensor cores (wgmma 3xTF32: q and kvs as tf32 hi + lo, f32 sums; "
                 "la_apply_wg_kernel, fed by TMA from a producer warpgroup)")
-    return "tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums)"
+    return ("tensor cores (wgmma bf16, kvs as bf16 hi + lo, f32 sums; la_apply_wgmma_kernel, "
+            "persistent, fed by TMA from a producer warpgroup)")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -441,8 +445,10 @@ def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _bwd_apply_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return "tensor cores (wgmma 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums)"
-    return "tensor cores (wgmma bf16, kvs and P as bf16 hi + lo, f32 sums)"
+        return ("tensor cores (wgmma 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums; "
+                "la_bwd_apply_ws_kernel, persistent, fed by TMA from a producer warpgroup)")
+    return ("tensor cores (wgmma bf16, kvs and P as bf16 hi + lo, f32 sums; "
+            "la_bwd_apply_wgmma_kernel, fed by TMA from a producer warp)")
 
 
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,

@@ -346,7 +346,7 @@ def test_tensor_core_apply_matches_jax_pallas_interpret(masked):
 
 
 def _tensor_core_forward_apply(q, v, kvs, ksum, scal, n_total, guard, lo=True):
-    """The bf16 forward apply's arithmetic (``la_apply_tc_kernel``) written
+    """The bf16 forward apply's arithmetic (``la_apply_wgmma_kernel``) written
     plainly: the bf16 rows q and v as they are, kvsᵀ split into bf16 hi + lo
     with one product each into f32 sums (``lo=False`` drops the lo half:
     kvs rounded to bf16, as the Pallas kernel does), b = q . ksum in f32,
@@ -406,44 +406,77 @@ def test_tensor_core_forward_apply_matches_jax_pallas_interpret(masked):
     np.testing.assert_allclose(_f32(got.to(torch.bfloat16)), _f32(want), **TOL["bf16"])
 
 
-# Faults of a tensor-core forward apply, each as what it would compute on
-# (q, kvs): the lo piece dropped, k permuted within q's 16-byte chunks or
-# across kvs's 64-deep k-tiles, kvs columns swapped within an 8-column
-# fragment, and the product's A rows taken from other rows than den's.
+# Faults of a tensor-core forward apply, each as what it would compute:
+# its product from (q, kvs) (``prod``): the lo piece dropped, k permuted
+# within q's 16-byte chunks or across kvs's 64-deep k-tiles, kvs columns
+# swapped within an 8-column fragment, the product's A rows taken from other
+# rows than den's, or a ring stage read one column tile stale (each 64-column
+# tile's kvs chunk the tile before's); its epilogue's v from the neighbouring
+# column tile (``v``); or the rows of its last block past N read as the
+# rows that follow the view and stored there (``rows``: a tensor map whose
+# extent is the allocation's and not the view's).
+def _column_tiles_shifted(t):
+    """t's columns as the tile one 64-column tile back reads them."""
+    return t[:, (torch.arange(t.shape[1]) - 64) % t.shape[1]]
+
+
 _APPLY_FAULTS = {
-    "lo piece dropped": (True, lambda q, kvs: (q, kvs.to(torch.bfloat16).float())),
-    "q k-pairs swapped": (False, lambda q, kvs: (q[:, torch.arange(q.shape[1]) ^ 1], kvs)),
-    "kvs k-tiles swapped": (False, lambda q, kvs: (q, kvs[torch.arange(kvs.shape[0]) ^ 64])),
-    "kvs columns swapped": (False, lambda q, kvs: (q, kvs[:, torch.arange(kvs.shape[1]) ^ 1])),
-    "A rows shifted": (False, lambda q, kvs: (torch.roll(q, 1, 0), kvs)),
+    "lo piece dropped": (True, dict(prod=lambda q, kvs: (q, kvs.to(torch.bfloat16).float()))),
+    "q k-pairs swapped": (False, dict(prod=lambda q, kvs: (q[:, torch.arange(q.shape[1]) ^ 1],
+                                                           kvs))),
+    "kvs k-tiles swapped": (False, dict(prod=lambda q, kvs: (q, kvs[torch.arange(kvs.shape[0])
+                                                                    ^ 64]))),
+    "kvs columns swapped": (False, dict(prod=lambda q, kvs: (q, kvs[:, torch.arange(kvs.shape[1])
+                                                                    ^ 1]))),
+    "A rows shifted": (False, dict(prod=lambda q, kvs: (torch.roll(q, 1, 0), kvs))),
+    "ring stage one column tile stale": (False, dict(prod=lambda q, kvs: (
+        q, _column_tiles_shifted(kvs)))),
+    "v from the neighbouring column tile": (False, dict(v=_column_tiles_shifted)),
+    "rows past N read as non-zero": (False, dict(rows=True)),
 }
+# the rows that follow the view in the rows' and the output's allocations,
+# up to the last block's end (300 + 84 = 3 x 128), and the output's value there
+_PAST_N = 84
+_SENTINEL = 7.0
 
 
 @pytest.mark.parametrize("fault", list(_APPLY_FAULTS))
 def test_apply_product_inputs_catch_a_faulty_kernel(fault):
     """The card checks of the forward apply (``chip_smoke.py``,
     ``tests/test_torch_cuda.py``) hold it to ``apply_plain`` in f64 at the
-    bf16 tolerance on ``apply_product_inputs``. There the tensor-core
-    design's arithmetic (hi + lo, rounded to bf16 once) passes, and the
-    same arithmetic with one fault misses the tolerance; a dropped lo piece
-    shows where kvs terms cancel (``cancel``)."""
+    bf16 tolerance on ``apply_product_inputs``, and the rows that follow an
+    output view to what they held. There the tensor-core design's
+    arithmetic (hi + lo, rounded to bf16 once, stores clipped at N) passes,
+    and the same arithmetic with one fault misses; a dropped lo piece shows
+    where kvs terms cancel (``cancel``)."""
     cancel, broken = _APPLY_FAULTS[fault]
     gen = torch.Generator().manual_seed(23)
     q, v, kvs, ksum, scal, n_t = ins = apply_product_inputs(300, 128, 128, torch.bfloat16,
                                                             gen, cancel)
     exact = attn.apply_plain(*(t.double() for t in ins), False)
+    past = apply_product_inputs(_PAST_N, 128, 128, torch.bfloat16,
+                                torch.Generator().manual_seed(24), cancel)
+    q_buf, v_buf = torch.cat((q, past[0])), torch.cat((v, past[1]))
 
-    def misses(qa, kvs_a):
-        """The design's arithmetic with the product taken from qa and kvs_a
-        (den from q), rounded to bf16, misses the tolerance."""
+    def misses(fault):
+        """The design's arithmetic with ``fault``, rounded to bf16 and stored
+        into an output allocation of 384 rows, misses the tolerance in the
+        view's rows or changes the rows after them."""
+        rows = q_buf.shape[0] if fault.get("rows") else q.shape[0]
+        qr, vr = q_buf[:rows], v_buf[:rows]
+        qa, kvs_a = fault.get("prod", lambda a, b: (a, b))(qr, kvs)
+        va = fault.get("v", lambda x: x)(vr)
         hi, lo = _split_bf16(kvs_a)
         a = qa.float() @ hi + qa.float() @ lo
-        den = (q.float() @ ksum) * scal[2] + n_t
-        got = ((scal[2] * a + n_t * v.float()) / den[:, None]).to(torch.bfloat16)
-        return bool(((got.double() - exact).abs() > 1e-2 + 1e-2 * exact.abs()).any())
+        den = (qr.float() @ ksum) * scal[2] + n_t  # den from the rows as read
+        out = torch.full((q_buf.shape[0], 128), _SENTINEL, dtype=torch.bfloat16)
+        out[:rows] = ((scal[2] * a + n_t * va.float()) / den[:, None]).to(torch.bfloat16)
+        view = out[:q.shape[0]].double()
+        return bool(((view - exact).abs() > 1e-2 + 1e-2 * exact.abs()).any()
+                    or (out[q.shape[0]:] != _SENTINEL).any())
 
-    assert not misses(q, kvs)
-    assert misses(*broken(q, kvs))
+    assert not misses({})
+    assert misses(broken)
 
 
 def _runs(n, rows):
@@ -702,7 +735,7 @@ def _mm_3xtf32_sums(a, b, period, lo=True):
 
 def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True, period=None):
     """The f32 backward reduce (``la_bwd_rows_wg_kernel``,
-    ``la_bwd_reduce_wg_kernel``) and apply (``la_bwd_apply_wg_kernel``)
+    ``la_bwd_reduce_wg_kernel``) and apply (``la_bwd_apply_ws_kernel``)
     in 3xTF32, unguarded: a = q @ kvs, den, gden and dinv from it; gd =
     g * (1/den) in f32, P = qᵀ gd with the node axis as the MMAs' k, summed
     as the P pass's warpgroup MMAs sum it (:func:`_mm_3xtf32_sums`, fresh
@@ -959,14 +992,26 @@ def test_bf16_rows_accumulation_at_n_one(period):
 
 
 # Faults of an f32 backward apply, each as what one of its products would
-# be formed from (A rows, B as [k][n]): B's lo piece dropped (one TF32
-# product in place of three), A's k-steps swapped (k and k ^ 8), B's
-# columns swapped in pairs, and A's rows shifted against the epilogue's.
+# be formed from (``ab``: A rows, B as [k][n], and the A rows of the product
+# whose item last used A's shared-memory slots): B's lo piece dropped (one
+# TF32 product in place of three), A's k-steps swapped (k and k ^ 8), B's
+# columns swapped in pairs, A's rows shifted against the epilogue's, a ring
+# stage read one column tile stale (each 64-column tile's B chunk the tile
+# before's), or A's second 32-deep k atom taken from the other product's
+# rows (a slot read before its refill landed); its epilogue operand (q, k
+# or g) from the neighbouring column tile (``x``); or the rows of its last
+# block past N read as the rows that follow the views and stored there
+# (``rows``).
 _BWD_FAULTS = {
-    "lo piece dropped": lambda a, b: (a, _tf32(b)),
-    "k-steps swapped": lambda a, b: (a[:, torch.arange(a.shape[1]) ^ 8], b),
-    "B columns swapped": lambda a, b: (a, b[:, torch.arange(b.shape[1]) ^ 1]),
-    "A rows shifted": lambda a, b: (torch.roll(a, 1, 0), b),
+    "lo piece dropped": dict(ab=lambda a, b, _: (a, _tf32(b))),
+    "k-steps swapped": dict(ab=lambda a, b, _: (a[:, torch.arange(a.shape[1]) ^ 8], b)),
+    "B columns swapped": dict(ab=lambda a, b, _: (a, b[:, torch.arange(b.shape[1]) ^ 1])),
+    "A rows shifted": dict(ab=lambda a, b, _: (torch.roll(a, 1, 0), b)),
+    "ring stage one column tile stale": dict(ab=lambda a, b, _: (a, _column_tiles_shifted(b))),
+    "A k-atom from the other product": dict(ab=lambda a, b, other: (
+        torch.cat((a[:, :32], other[:, 32:64], a[:, 64:]), 1), b)),
+    "epilogue operand from the neighbouring tile": dict(x=_column_tiles_shifted),
+    "rows past N read as non-zero": dict(rows=True),
 }
 
 
@@ -975,30 +1020,45 @@ def test_bwd_product_inputs_catch_a_faulty_kernel(fault):
     """The card checks of the f32 backward apply (``chip_smoke.py``,
     ``tests/test_torch_cuda.py``) hold it to ``bwd_apply_plain`` in f64 at
     the f32 tolerance (1e-5 of each output's scale) on
-    ``bwd_product_inputs``. There the design's arithmetic (3xTF32 products
-    summed as the warpgroup MMAs sum them, the epilogue in f32) passes in
-    dq, dk and dv, and the same arithmetic with one fault in its products
-    misses in each."""
+    ``bwd_product_inputs``, and the rows that follow an output view to what
+    they held. There the design's arithmetic (3xTF32 products summed as the
+    warpgroup MMAs sum them, the epilogue in f32, stores clipped at N)
+    passes in dq, dk and dv, and the same arithmetic with one fault misses
+    in each."""
     gen = torch.Generator().manual_seed(29)
     ins = bwd_product_inputs(300, 128, 128, torch.float32, gen)
     q, k, v, g, kvs, ksum, scal, n_t, P, ds, dinv, (den, gden) = ins
     exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
     inv = scal[2]
     c_q, c_k = dinv * inv / scal[0], dinv * inv / scal[1]
+    past = bwd_product_inputs(_PAST_N, 128, 128, torch.float32, torch.Generator().manual_seed(30))
+    bufs = [torch.cat((a, b)) for a, b in zip((q, k, v, g, den, gden), past[:4] + tuple(past[11]))]
 
-    def misses(broken):
-        """Which of dq, dk, dv miss the tolerance with products formed
-        from broken(A, B)."""
-        def mm(a, b):
-            return _mm_3xtf32_sums(*broken(a, b), _WG_PERIOD).float()
+    def misses(fault):
+        """Which of dq, dk, dv, each stored into an output allocation of
+        384 rows, miss the tolerance in the view's rows or change the rows
+        after them, with ``fault``."""
+        rows = bufs[0].shape[0] if fault.get("rows") else q.shape[0]
+        qr, kr, vr, gr, dn, gdn = (t[:rows] for t in bufs)
+        ab = fault.get("ab", lambda a, b, _: (a, b))
+        x = fault.get("x", lambda t: t)
 
-        dq = inv * (mm(g, kvs.T) / den[:, None]) + inv * gden[:, None] * ksum - c_q * q
-        dk = inv * mm(v, P.T) + inv * ds - c_k * k
-        dv = n_t * (g / den[:, None]) + inv * mm(k, P)
-        return [bool(((a.double() - b).abs().max() > 1e-5 * b.abs().max()).item())
-                for a, b in zip((dq, dk, dv), exact)]
+        def mm(a, b, other):
+            return _mm_3xtf32_sums(*ab(a, b, other), _WG_PERIOD).float()
 
-    assert misses(lambda a, b: (a, b)) == [False] * 3
+        dq = inv * (mm(gr, kvs.T, kr) / dn[:, None]) + inv * gdn[:, None] * ksum - c_q * x(qr)
+        dk = inv * mm(vr, P.T, gr) + inv * ds - c_k * x(kr)
+        dv = n_t * (x(gr) / dn[:, None]) + inv * mm(kr, P, vr)
+        got = []
+        for a, b in zip((dq, dk, dv), exact):
+            out = torch.full((bufs[0].shape[0], a.shape[1]), _SENTINEL)
+            out[:rows] = a
+            view = out[:q.shape[0]].double()
+            got.append(bool(((view - b).abs().max() > 1e-5 * b.abs().max()).item()
+                            or (out[q.shape[0]:] != _SENTINEL).any()))
+        return got
+
+    assert misses({}) == [False] * 3
     assert misses(_BWD_FAULTS[fault]) == [True] * 3
 
 

@@ -622,17 +622,200 @@ def test_all_masked_attention_gradients_are_finite_zeros(cuda):
 
 def test_apply_design_names_the_kernel(cuda):
     """The forward apply runs on the tensor cores at the bench width and
-    wherever its q tile fits one block's shared memory: bf16 by wgmma up to
-    M = 704, f32 in 3xTF32 by wgmma (``la_apply_wg_kernel``) up to M = 256
-    (at any D); beyond that on the CUDA cores."""
+    wherever its q tile fits one block's shared memory: bf16 by wgmma
+    (``la_apply_wgmma_kernel``, persistent, fed by TMA) up to M = 704, f32
+    in 3xTF32 by wgmma (``la_apply_wg_kernel``) up to M = 256 (at any D);
+    beyond that on the CUDA cores."""
     for m, d in ((256, 256), (8, 72), (704, 40)):
-        assert attn.apply_design(torch.bfloat16, m, d).startswith("tensor cores (wgmma")
+        bf16 = attn.apply_design(torch.bfloat16, m, d)
+        assert bf16.startswith("tensor cores (wgmma") and "la_apply_wgmma_kernel" in bf16, bf16
+        assert "persistent, fed by TMA" in bf16, bf16
         f32 = attn.apply_design(torch.float32, m, d)
         assert f32.startswith("tensor cores (wgmma 3xTF32") == (m <= 256), f32
         assert ("la_apply_wg_kernel" in f32) == (m <= 256), f32
     assert attn.apply_design(torch.float32, 256, 999).startswith("tensor cores (wgmma 3xTF32")
     assert attn.apply_design(torch.float32, 257, 64).startswith("CUDA cores")
     assert attn.apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
+
+
+def test_bwd_apply_design_names_the_kernel(cuda):
+    """The backward apply runs on the tensor cores wherever its tiles fit
+    one block's shared memory: f32 in 3xTF32 by wgmma
+    (``la_bwd_apply_ws_kernel``, persistent, fed by TMA from a producer
+    warpgroup) up to M, D = 256, bf16 by wgmma (``la_bwd_apply_wgmma_kernel``)
+    up to 704; beyond that on the CUDA cores."""
+    for m, d in ((256, 256), (8, 72), (37, 256), (256, 19)):
+        f32 = attn.bwd_apply_design(torch.float32, m, d)
+        assert f32.startswith("tensor cores (wgmma 3xTF32") and "la_bwd_apply_ws_kernel" in f32
+        assert "persistent, fed by TMA" in f32, f32
+        bf16 = attn.bwd_apply_design(torch.bfloat16, m, d)
+        assert bf16.startswith("tensor cores (wgmma bf16") and "la_bwd_apply_wgmma_kernel" in bf16
+    for m, d in ((257, 64), (64, 257)):
+        assert attn.bwd_apply_design(torch.float32, m, d).startswith("CUDA cores")
+        assert "la_bwd_apply_wgmma_kernel" in attn.bwd_apply_design(torch.bfloat16, m, d)
+    assert attn.bwd_apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
+
+
+def _on_view(view, t):
+    """t's values in a layout the kernels may get rows in: contiguous, head 1
+    of [N, 2, w + 8] (for widths of whole 16 bytes, 16-byte aligned rows and
+    base: tensor maps that clip at an odd width), head 1 of [N, 2, w + 3]
+    (strides no tensor map takes: the producer's lanes copy them) or rows
+    one element off 16-byte alignment."""
+    n, w = t.shape
+    if view == "contiguous":
+        return t.contiguous()
+    if view == "unaligned":
+        out = torch.empty(n * w + 1, dtype=t.dtype, device=t.device)[1:].view(n, w)
+    else:
+        pad = 8 if view == "aligned head" else 3
+        out = torch.empty(n, 2, w + pad, dtype=t.dtype, device=t.device)[:, 1, :w]
+    return out.copy_(t)
+
+
+def _out_views(n, widths, dtype, cuda):
+    """Outputs of n rows as views of the first n rows of allocations 200
+    rows longer, filled with NaN: a kernel that stores rows past N (a
+    tensor map whose extent is the allocation's) changes the rows after."""
+    bufs = [torch.full((n + 200, w), float("nan"), dtype=dtype, device=cuda) for w in widths]
+    return bufs, [b[:n] for b in bufs]
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (64, 64), (37, 36), (200, 37), (704, 40),
+                                 (640, 130), (8, 999)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+@pytest.mark.parametrize("n", [777, 1, 60_000])
+def test_bf16_wgmma_forward_apply_on_views(cuda, m, d, view, n):
+    """The bf16 apply on warpgroup MMAs fed by the copy engine
+    (``la_apply_wgmma_kernel``, both layouts of its shared memory: two q
+    buffers at M <= 256, one at 640 and 704) with tail rows (N = 777), at
+    N = 1 and at N = 60,000 (469 row blocks: each of the 132 persistent
+    blocks takes at least 3, so q buffers, den and v tiles are reused, with
+    one column tile a row block at D <= 64, where den is still being formed
+    when the MMAs are done), on q and v as they come (``_on_view``), on
+    random rows and
+    where q @ kvs carries the output (``apply_product_inputs``), against
+    ``apply_plain`` in f64 at the bf16 tolerance; out as the op allocates it
+    and as a view of a longer allocation whose rows past N keep their NaN;
+    bitwise repeatable, one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    assert "la_apply_wgmma_kernel" in attn.apply_design(torch.bfloat16, m, d)
+    q, k, v = (_on_view(view, torch.randn(n, w, generator=gen, device=cuda).bfloat16())
+               for w in (m, m, d))
+    sums = attn.reduce_plain(q, k, v, False)
+    n_t = torch.full((), float(n), device=cuda)
+    prod = apply_product_inputs(n, m, d, torch.bfloat16, gen, True)
+    for ins in ((q, v, *sums, n_t), (_on_view(view, prod[0]), _on_view(view, prod[1]),
+                                     *prod[2:])):
+        want = attn.apply_plain(*(t.double() for t in ins), False)
+        a0 = attn.apply_launches
+        got = attn.apply(*ins)
+        assert attn.apply_launches == a0 + 1
+        torch.testing.assert_close(got.double(), want, **TOL[torch.bfloat16])
+        assert torch.equal(got, attn.apply(*ins))
+        (buf,), (out,) = _out_views(n, (d,), torch.bfloat16, cuda)
+        attn.apply(*ins, out=out)
+        assert torch.equal(out, got) and buf[n:].isnan().all()
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (37, 36), (200, 37), (256, 40), (8, 250),
+                                 (130, 200)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+@pytest.mark.parametrize("n", [777, 1, 20_000])
+def test_f32_ws_backward_apply_on_views(cuda, m, d, view, n):
+    """The f32 backward apply on warpgroup MMAs fed by the copy engine
+    (``la_bwd_apply_ws_kernel``: A rows streamed into slots that the item
+    before frees atom by atom; M != D hands the slots past a product's
+    depth over empty) with tail rows (N = 777), at N = 1 and at N = 20,000
+    (471 (row block, product) items: each of the 132 persistent blocks takes
+    at least 3, so A slots, B stages and epilogue tiles pass from item to
+    item, across products of different depths where M != D), on its inputs
+    as they come (``_on_view``), where its three products carry dq, dk
+    and dv (``bwd_product_inputs``), against ``bwd_apply_plain`` in f64
+    within 1e-5 of each output's scale, and on random rows at N > 1;
+    outputs as the wrapper allocates them and as views of longer
+    allocations whose rows past N keep their NaN; bitwise repeatable, one
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    assert "la_bwd_apply_ws_kernel" in attn.bwd_apply_design(torch.float32, m, d)
+    kinds = [bwd_product_inputs(n, m, d, torch.float32, gen)]
+    if n > 1:
+        q, k, v, g = (torch.randn(n, w, generator=gen, device=cuda) for w in (m, m, d, d))
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), float(n), device=cuda)
+        kinds.append((q, k, v, g, *sums, n_t, *attn.bwd_reduce_plain(q, v, g, *sums, n_t,
+                                                                      False)))
+    for ins in kinds:
+        ins = (*(_on_view(view, t) for t in ins[:4]), *ins[4:])
+        exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+        a0 = attn.bwd_apply_launches
+        got = attn.bwd_apply(*ins)
+        assert attn.bwd_apply_launches == a0 + 1
+        for a, b in zip(got, exact):
+            _check_rel(a, b, BWD_REL[torch.float32])
+        assert all(torch.equal(a, b) for a, b in zip(got, attn.bwd_apply(*ins)))
+        bufs, outs = _out_views(n, (m, m, d), torch.float32, cuda)
+        attn.bwd_apply(*ins, out=tuple(outs))
+        assert all(torch.equal(a, b) for a, b in zip(outs, got))
+        assert all(b[n:].isnan().all() for b in bufs)
+
+
+@pytest.mark.parametrize("which", ["bf16 forward apply", "f32 backward apply"])
+def test_redesigned_applies_all_masked_give_finite_zeros(cuda, which):
+    """Zero norms through the bf16 forward apply and the f32 backward apply
+    at the bench width: inv = 0, a zero den taken as 1, so finite zero
+    outputs and gradients on every column tile."""
+    dtype = torch.bfloat16 if which.startswith("bf16") else torch.float32
+    leaves = [torch.randn(777, 1, 256, device=cuda).to(dtype).requires_grad_()
+              for _ in range(3)]
+    out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(777, device=cuda))
+    assert torch.isfinite(out).all() and not out.any()
+    if dtype == torch.float32:
+        grads = torch.autograd.grad(out, leaves, torch.randn_like(out))
+        assert all(torch.isfinite(t).all() and not t.any() for t in grads)
+
+
+# sha256 (16 hex digits) of the outputs of the bf16 forward apply and the f32
+# backward apply of the kernels these replaced, on host-made inputs of N rows
+# (``_host_apply_inputs``), read on an NVIDIA H100 80GB HBM3
+EARLIER_APPLY_DIGESTS = {("bf16 forward apply", 2000): "882404fec194b1e4",
+                         ("bf16 forward apply", 60_000): "cc5d1ddbde0d0bb8",
+                         ("f32 backward apply", 2000): "309bb2ffbe641596",
+                         ("f32 backward apply", 20_000): "b2a4d39c4f9ceb2a"}
+
+
+def _host_apply_inputs(dtype, n):
+    """q, k, v, g [n, 256] of ``dtype`` from numpy (seed 27) and the plain
+    reduces' outputs, all made on the host, so that only the apply kernels
+    make the digested outputs."""
+    rng = np.random.default_rng(27)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32)).to(dtype)
+                  for _ in range(4))
+    sums = attn.reduce_plain(q, k, v, False)
+    n_t = torch.tensor(float(n))
+    return q, k, v, g, sums, n_t
+
+
+@pytest.mark.parametrize("which,n", list(EARLIER_APPLY_DIGESTS))
+def test_redesigned_applies_are_bitwise_the_earlier_kernels(cuda, which, n):
+    """The redesigned kernels keep the arithmetic of the kernels they
+    replaced (the products' k order, the fresh-sum periods, den and the
+    epilogue's terms), so their outputs are bitwise those kernels', also
+    where each persistent block takes several row blocks or items (N =
+    60,000 forward, 20,000 backward)."""
+    import hashlib
+
+    dtype = torch.bfloat16 if which.startswith("bf16") else torch.float32
+    q, k, v, g, sums, n_t = _host_apply_inputs(dtype, n)
+    if dtype == torch.bfloat16:
+        got = [attn.apply(*(t.to(cuda) for t in (q, v, *sums, n_t)))]
+    else:
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        got = attn.bwd_apply(*(t.to(cuda) for t in (q, k, v, g, *sums, n_t, *red[:3])),
+                             red[3].to(cuda))
+    sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                  for t in got)).hexdigest()[:16]
+    assert sha == EARLIER_APPLY_DIGESTS[which, n]
 
 
 @pytest.mark.parametrize("m,d", [(256, 256), (37, 36), (200, 37), (8, 999), (256, 40)])
