@@ -13,8 +13,10 @@ in the same call as the change.
     python3 chip_compare.py tf32-bwd ROOT
     python3 chip_compare.py bf16-bwd ROOT
     python3 chip_compare.py busy ROOT
+    python3 chip_compare.py busy-f32 ROOT
     python3 chip_compare.py schedule ROOT
     python3 chip_compare.py designs ROOT [ROOT ...]
+    python3 chip_compare.py rows ROOT [ROOT ...]
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
     python3 chip_compare.py reduce ROOT [ROOT ...]
 
@@ -65,13 +67,18 @@ this checkout, each turn a process of its own (``tf32-bwd-turn ROOT``), in
 turns ROOT1 ... ROOTk, this checkout, this checkout, ROOTk ... ROOT1 (with
 one ROOT: ROOT, this checkout, this checkout, ROOT). A turn times its
 package's f32 ``bwd_apply`` and ``bwd_reduce`` (CUDA events, median of 20)
-at M = D = 256 on the arxiv (N = 169,343), amazon2m full-batch (100,000)
-and papers-sampled (621,432) shapes, with the launches of each apart by the
-profiler (``kernel_ms``: the rows pass, the P pass and the apply by any
-of the packages' kernel names, the splits and the finish kernels), the P
-pass beside its bound and ``torch.matmul(q.t(), gd)`` in f32 (TF32 off, gd
-= g / den made beforehand), the apply beside its bound and its three
-products in ``torch.matmul`` (gd @ kvs^T, v @ P^T, k @ P, f32); holds each
+at M = D = 256 on the arxiv (N = 169,343), amazon2m full-batch (100,000),
+papers-sampled (621,432) and amazon2m tail (49,029) shapes, with the
+launches of each apart by the profiler (``kernel_ms``: the rows pass, the P
+pass and the apply by any of the packages' kernel names, the splits and the
+finish kernels), the rows pass beside its bound and ``torch.matmul(q,
+kvs)`` in f32 (``rows_matmul_ms``, TF32 off), the P pass beside its bound
+and ``torch.matmul(q.t(), gd)`` in f32 (gd = g / den made beforehand), the
+apply beside its bound and its three products in ``torch.matmul`` (gd @
+kvs^T, v @ P^T, k @ P, f32); prints sha256 digests of the f32
+``bwd_reduce``'s outputs on host-made inputs (numpy, seed 27, N = 2,000 and
+60,000, M = D = 256: ``tests/test_torch_cuda.py``'s
+``EARLIER_ROWS_DIGESTS``); holds each
 f32 output to the plain version in f64 on randn
 inputs and the reduce's also on ``bwd_reduce_product_inputs`` (where a
 dropped tf32 lo piece of q or g/den misses the tolerance): P, ds, den and
@@ -87,6 +94,13 @@ turns side by side, and fails unless every turn's f32 outputs are within
 tolerance and repeatable and the bf16 digests are the same in every turn
 (Step 0 of a redesign runs it on copies of the parent with one part
 removed each, which fail the check by design).
+``rows``: the f32 backward rows pass of each ROOT in the order given
+(write the turns out: ROOT1 ROOT2 ROOT2 ROOT1), each turn a process of
+its own (``rows-turn ROOT``): its ``ptxas`` registers and spills, its
+device ms by the profiler at M = D = 256 on the arxiv, amazon2m batch,
+papers-sampled and amazon2m tail rows, and the digests of the f32
+``bwd_reduce`` on host-made inputs (the design A/Bs of a rows-pass
+redesign, on copies with one change each).
 ``bf16-bwd``: the bf16 attention backward's kernels of ROOT and of this
 checkout, each turn a process of its own (``bf16-bwd-turn ROOT``), in
 turns ROOT, this checkout, this checkout, ROOT. A turn prints the designs
@@ -107,7 +121,9 @@ amazon2m-batch-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
 ROOT's ``preprocess_graph`` builds, with this checkout's ``profile_device``,
 so that both checkouts' device-busy ms a step or batch are read by one
 definition; run it in turns (parent, change, change, parent) to compare
-them.
+them. ``busy-f32``: the same for the cells whose attention runs in f32,
+ROOT's amazon2m-batch-train, papers-sampled-train and arxiv-cli-train
+phases (``amazon2m_batch_phase``, ``papers_sampled_phase``, ``cli_phase``).
 ``schedule``: the CSR row walk of ROOT and of this checkout, each turn a
 process of its own (``schedule-turn ROOT``), in turns ROOT, this checkout,
 this checkout, ROOT. A turn builds synth-arxiv with its package's
@@ -211,8 +227,10 @@ def load_phases(path: str):
 
 def main() -> int:
     modes = ("gat", "edge-values", "batch-build", "smoke", "gat-repeat", "host", "narrow",
-             "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "schedule",
+             "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "busy-f32",
+             "schedule",
              "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
+             "rows", "rows-turn",
              "reduce", "reduce-turn")
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
@@ -220,7 +238,7 @@ def main() -> int:
         del sys.argv[-2:]
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
             or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
-                                                     "tf32-bwd")) \
+                                                     "tf32-bwd", "rows")) \
             or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -233,6 +251,9 @@ def main() -> int:
         return schedule(root)
     if mode == "designs":
         return designs([os.path.abspath(r) for r in sys.argv[2:]])
+    if mode == "rows":
+        turns = run_turns("rows-turn", root, [os.path.abspath(r) for r in sys.argv[2:]])
+        return 0 if turns is not None else 1
     if mode == "q8-f32-apply":
         return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
     if mode == "reduce":
@@ -256,8 +277,8 @@ def main() -> int:
         return cs.main()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if mode == "busy":
-        return busy(root)
+    if mode in ("busy", "busy-f32"):
+        return busy(root, mode == "busy-f32")
     cs = load_phases(os.path.join(root if mode == "edge-values" else HERE, "chip_smoke.py"))
     print(cs.card_line(), flush=True)
     if mode == "batch-build":
@@ -272,6 +293,8 @@ def main() -> int:
         return schedule_turn(cs, root)
     if mode == "designs-turn":
         return designs_turn(cs, root)
+    if mode == "rows-turn":
+        return rows_turn(cs, root)
     if mode == "q8-f32-apply-turn":
         return q8_f32_apply_turn(cs, root, only)
     if mode == "reduce-turn":
@@ -525,7 +548,8 @@ def tf32_bwd(roots: list) -> int:
         return 1
     names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
     names[HERE] = "this checkout"
-    side = {f"turn {i} ({names[t['root']]})": dict(f32=t["f32"], sass=t["sass"])
+    side = {f"turn {i} ({names[t['root']]})": dict(f32=t["f32"], sass=t["sass"],
+                                                    f32_reduce_digests=t["f32_reduce_digests"])
             for i, t in enumerate(turns)}
     ok = {names[t["root"]]: t["ok"] for t in turns}
     bf16_equal = len({json.dumps(t["bf16_digests"]) for t in turns}) == 1
@@ -558,17 +582,38 @@ BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel")
 BF16_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_split_rows_kernel", "la_bwd_finish_kernel",
                       "la_bwd_dinv_kernel")
 BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
-# the f32 backward reduce's launches by kernel name, either package's: the
-# rows pass, the P pass (mma.sync, then warpgroup MMAs), the reduce's other
-# launches; the apply and its split
-F32_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel")
+# the f32 backward reduce's launches by kernel name, any package's: the
+# rows pass (mma.sync, warpgroup MMAs, warp-specialised), the P pass
+# (mma.sync, then warpgroup MMAs), the reduce's other launches (the split
+# of kvs^T, by either name); the apply and its split
+F32_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wg_kernel", "la_bwd_rows_ws_kernel")
 F32_P_PASS = ("la_bwd_reduce_tf32_kernel", "la_bwd_reduce_wg_kernel")
-F32_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel")
+F32_REDUCE_OTHERS = ("split_t_kernel", "split_kvs_kernel", "la_bwd_finish_kernel",
+                     "la_bwd_dinv_kernel")
 F32_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel", "la_bwd_apply_ws_kernel")
 # the f32 backward apply's split of kvs, P and P^T, either package's
 F32_APPLY_SPLIT = ("la_bwd_split_kernel", "la_bwd_split_atoms_kernel")
 # the f32 backward's outputs digested in every turn (bitwise the parent's)
 F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
+# the f32 backward reduce's outputs on host-made inputs digested in every
+# turn of the tf32-bwd mode (the rows of tests/test_torch_cuda.py's
+# EARLIER_ROWS_DIGESTS)
+F32_REDUCE_DIGEST_ROWS = (2000, 60_000)
+
+
+def host_attention_inputs(n: int):
+    """q, k, v, g [n, 256] f32 from numpy (seed 27), as
+    ``tests/test_torch_cuda.py::_host_apply_inputs`` makes them, and the
+    plain forward reduce's outputs, all made on the host."""
+    import numpy as np
+    import torch
+
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    rng = np.random.default_rng(27)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
+                  for _ in range(4))
+    return q, k, v, g, attn.reduce_plain(q, k, v, False), torch.tensor(float(n))
 
 
 def sass_counts(cs, root: str, library: str = "linear_attention_bwd",
@@ -730,7 +775,8 @@ def tf32_bwd_turn(cs, root: str) -> int:
     passes = F32_ROWS + F32_P_PASS + F32_REDUCE_OTHERS
     applies = F32_APPLY + F32_APPLY_SPLIT
     m = d = 256
-    for name, n in cs.BWD_PASS_SHAPES:
+    tail = ("amazon2m-batch tail", cs.AMAZON2M["num_nodes"] % cs.AMAZON2M_BATCH)
+    for name, n in cs.BWD_PASS_SHAPES + (tail,):
         gen = torch.Generator(device=dev).manual_seed(21)
         q, k, v, g = (torch.randn(n, m, generator=gen, device=dev) for _ in range(4))
         n_t = torch.full((), float(n), device=dev)
@@ -787,8 +833,12 @@ def tf32_bwd_turn(cs, root: str) -> int:
         # writing den and gden
         rows_bound_ms, rows_bound_by = cs.bound_ms(3 * n * m * 4 + 2 * n * 4 + (m * d + m) * 4,
                                                    2 * n * m * d, torch.float32)
+        # yardstick: the rows pass's product a = q @ kvs in one torch.matmul,
+        # f32, TF32 off (never called by the port)
+        rows_matmul_ms = cs.time_ms(lambda: torch.matmul(q, sums[0]))
         out["f32"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
                                 rows_bound_ms=rows_bound_ms, rows_bound_by=rows_bound_by,
+                                rows_matmul_ms=rows_matmul_ms,
                                 p_pass_ms=p_ms, p_pass_matmul_ms=p_matmul_ms,
                                 p_pass_bound_ms=p_bound_ms, p_pass_bound_by=p_bound_by,
                                 reduce_others_ms=sum(r_dev[p] for p in F32_REDUCE_OTHERS),
@@ -801,12 +851,18 @@ def tf32_bwd_turn(cs, root: str) -> int:
                f"torch.matmul gd @ kvs^T + v @ P^T + k @ P {a_matmul_ms:.4f}, bound "
                f"{a_bound_ms:.4f} by {a_bound_by}), "
                f"bwd_reduce {r_ms:.4f} ms (rows pass {rows_ms:.4f}, bound {rows_bound_ms:.4f} by "
-               f"{rows_bound_by}; P pass {p_ms:.4f}; "
+               f"{rows_bound_by}, torch.matmul q @ kvs {rows_matmul_ms:.4f}; P pass {p_ms:.4f}; "
                f"torch.matmul q^T gd {p_matmul_ms:.4f}, P pass bound {p_bound_ms:.4f} by "
                f"{p_bound_by}); bitwise repeatable {repeat}; errors over the tolerance: "
                + ", ".join(f"{p} {e:.3f}" for p, e in errs.items()))
         del q, k, v, g, sums, red, gd
         torch.cuda.empty_cache()
+    out["f32_reduce_digests"] = {}
+    for n in F32_REDUCE_DIGEST_ROWS:
+        q, _, v, g, sums, n_t = host_attention_inputs(n)
+        sha = digest(attn.bwd_reduce(*(t.to(dev) for t in (q, v, g, *sums, n_t))))
+        out["f32_reduce_digests"][str(n)] = sha
+        cs.log(f"tf32-bwd {root} f32 bwd_reduce n={n} (host-made inputs): outputs sha256 {sha}")
     for n, m_, d_ in BF16_DIGEST_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
         q, k = (torch.randn(n, m_, generator=gen, device=dev).bfloat16() for _ in range(2))
@@ -1066,6 +1122,45 @@ def schedule_turn(cs, root: str, dev: str = "cuda") -> int:
     return 0
 
 
+def rows_turn(cs, root: str) -> int:
+    """One turn of the ``rows`` mode on ROOT's package: the f32 rows pass's
+    ``ptxas`` registers and spills, its device ms by the profiler at M = D
+    = 256 on the arxiv, amazon2m batch, papers-sampled and amazon2m tail
+    rows (``bwd_reduce`` on randn, 20 calls), and the f32 reduce's digests
+    on host-made inputs; its last line of output is a JSON object."""
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
+    out = dict(root=root, ptxas=[], ms={}, digests={})
+    entry = False
+    for line in report.splitlines():
+        if "entry function" in line:
+            entry = "la_bwd_rows_w" in line
+        if (entry and ("spill" in line or "Used" in line or "C75" in line)) or "warning" in line:
+            out["ptxas"].append(line.strip())
+    tail = ("amazon2m-batch tail", cs.AMAZON2M["num_nodes"] % cs.AMAZON2M_BATCH)
+    for name, n in cs.BWD_PASS_SHAPES + (tail,):
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        q, k, v, g = (torch.randn(n, 256, generator=gen, device="cuda") for _ in range(4))
+        n_t = torch.full((), float(n), device="cuda")
+        sums = attn.reduce_plain(q, k, v, False)
+        dev_ms = cs.kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t), F32_ROWS)
+        out["ms"][name] = sum(dev_ms.values())
+        del q, k, v, g, sums
+        torch.cuda.empty_cache()
+    for n in F32_REDUCE_DIGEST_ROWS:
+        q, _, v, g, sums, n_t = host_attention_inputs(n)
+        out["digests"][str(n)] = digest(attn.bwd_reduce(*(t.cuda() for t in (q, v, g, *sums,
+                                                                               n_t))))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def designs(roots: list) -> int:
     """The ``designs`` mode: ``designs-turn`` on each root, then back."""
     import json
@@ -1157,8 +1252,8 @@ def designs_turn(cs, root: str, dev: str = "cuda") -> int:
     return 0
 
 
-def busy(root: str) -> int:
-    """The ``busy`` mode (see the module's docstring)."""
+def busy(root: str, f32: bool = False) -> int:
+    """The ``busy`` and ``busy-f32`` modes (see the module's docstring)."""
     import time
 
     import torch
@@ -1175,6 +1270,11 @@ def busy(root: str) -> int:
     native_build.library()
     results: dict = {}
     ds = synthetic_dataset("synth-arxiv", seed=0)
+    if f32:  # the f32 cells: their attention runs the f32 backward
+        cs.amazon2m_batch_phase(results, "cuda")
+        cs.papers_sampled_phase(results, "cuda")
+        cs.cli_phase(ds, results, "cuda")
+        return 0
     t = time.perf_counter()
     graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
     torch.cuda.synchronize()

@@ -366,7 +366,8 @@ SWEEP_EV_SHAPES = ((1, 40), (2, 40), (2, 256))
 SWEEP_POWERLAW_WIDTHS = (40,)
 # device kernels by group in the profile summary, by a mark in their names
 PROFILE_GROUPS = (
-    ("port kernels", ("la_", "csr_spmm", "ev_bwd", "absmax_partial", "quantize_kernel")),
+    ("port kernels", ("la_", "csr_spmm", "ev_bwd", "absmax_partial", "quantize_kernel",
+                      "split_kvs_kernel", "split_t_kernel")),
     ("collectives (NCCL)", ("nccl",)),
     ("host copies", ("Memcpy",)),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -718,7 +719,8 @@ def kernel_ms(run, names: tuple, reps: int = 20) -> dict:
 def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
     at the model's width both take the tensor cores on warpgroup MMAs (f32
-    in 3xTF32, the reduce's P pass ``la_bwd_reduce_wg_kernel``; bf16), the
+    in 3xTF32, the reduce's rows pass ``la_bwd_rows_ws_kernel`` and P pass
+    ``la_bwd_reduce_wg_kernel``; bf16), the
     apply (its kernel of ``BWD_APPLY_KERNELS``) and both reduce passes."""
     design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
@@ -726,9 +728,10 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     log(f"bwd_reduce {name} design at {where}: {red_design}")
     want = (("tensor cores (wgmma 3xTF32", "tensor cores (wgmma 3xTF32, f32 sums: rows pass")
             if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma bf16"))
-    p_pass = BWD_REDUCE_KERNELS[dtype][1]
+    rows_pass, p_pass = BWD_REDUCE_KERNELS[dtype][:2]
     if (m, d) == (256, 256) and not (design.startswith(want[0]) and red_design.startswith(want[1])
-                                     and (dtype != torch.float32 or p_pass in red_design)
+                                     and (dtype != torch.float32 or (rows_pass in red_design
+                                                                     and p_pass in red_design))
                                      and BWD_APPLY_KERNELS[dtype] in design):
         raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
                              f"tensor-core design")
@@ -738,7 +741,7 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
 # the backward reduce's launches by kernel name, by input type: its rows
 # pass, its P pass, and the split of kvs, the P finish and the dinv sum
 BWD_REDUCE_KERNELS = {
-    torch.float32: ("la_bwd_rows_wg_kernel", "la_bwd_reduce_wg_kernel", "split_t_kernel",
+    torch.float32: ("la_bwd_rows_ws_kernel", "la_bwd_reduce_wg_kernel", "split_kvs_kernel",
                     "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
     torch.bfloat16: ("la_bwd_rows_wgmma_kernel", "la_bwd_reduce_wgmma_kernel",
                      "la_bwd_split_rows_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),

@@ -52,7 +52,7 @@
 // (wgmma m64n64k16, bf16 in, f32 sums, both operands read from
 // 128-byte-swizzled shared memory through descriptors). kvs stays f32 in
 // meaning: kvs^T is split once a call into bf16 hi + lo (~16 significant
-// bits, 2^-17 of each term; la_apply_split_kernel<bf16>) and each product
+// bits, 2^-17 of each term; tc::split_kvs_kernel<bf16>) and each product
 // is two MMAs into one accumulator. It is warp-specialised, fed by the copy
 // engine (TMA) and persistent, one block an SM: a producer warpgroup brings
 // each 128-row block's q rows (double-buffered up to M = 256, so that the
@@ -80,7 +80,7 @@
 //   (wgmma m64n64k8 tf32, A from registers), warp-specialised: a producer
 //   warpgroup brings the q rows (staged once in f32, 128 KB at M = 256, one
 //   block an SM), kvs^T's tf32 hi and lo pieces (split once a call by
-//   la_apply_split_kernel, already swizzled) and each column tile's v rows
+//   tc::split_kvs_kernel, already swizzled) and each column tile's v rows
 //   by the copy engine (TMA), and forms den; two consumer warpgroups split
 //   q as its fragments load, run the MMAs and finish each tile in place for
 //   the copy engine to store. Its q tile fits one block's shared memory up
@@ -642,7 +642,7 @@ la_apply_kernel(const T* __restrict__ q, const T* __restrict__ v, long ldq, long
 // (tc::sw128_offset_f32): the q rows as ka = ceil(M / 32) atoms of [128
 // rows][32] (16 KB each, 128 KB at M = 256), staged once; a ring of
 // kAwStages chunks of kvs^T, each a [64 n][32 k] atom of its tf32 hi and of
-// its lo piece (8 KB each; laid out swizzled by la_apply_split_kernel,
+// its lo piece (8 KB each; laid out swizzled by tc::split_kvs_kernel,
 // column tile by column tile, so that one bulk copy moves a piece's
 // chunk); the v / out tile [128][64] (two atoms); den per row; mbarriers.
 // 225 KB at M = 256.
@@ -659,7 +659,7 @@ la_apply_kernel(const T* __restrict__ q, const T* __restrict__ v, long ldq, long
 // warp 1 the v rows one element a lane at a time.
 //
 // The consumers run the chunks of every 64-column tile of a = q @ kvs as
-// one stream, the MMAs of tensor_core.cuh's wg_column_tile: each warp's A
+// one stream, the 3xTF32 MMAs of the f32 row kernels: each warp's A
 // fragments, 16 rows, are loaded from the q atoms as they are needed (plain
 // 32-bit loads; the swizzle puts the 32 addresses of a fragment in distinct
 // banks) and split into tf32 hi + lo in registers, each product lo*hi' +
@@ -679,7 +679,7 @@ constexpr int kAwConsumers = 2 * 128;
 constexpr int kAwThreads = kAwConsumers + 128;  // and the producer warpgroup
 constexpr int kAwStages = 4;
 constexpr int kAwAtom = tc::kTcRows * 128;  // bytes of a [128][32] f32 atom of q or v / out
-constexpr int kAwPiece = tc::kTcCols * 128;  // bytes of a [64 n][32 k] atom of kvs^T
+constexpr int kAwPiece = tc::kKvsPiece;     // bytes of a [64 n][32 k] atom of kvs^T
 constexpr int kAwStage = 2 * kAwPiece;       // a chunk's hi and lo atoms
 
 __host__ __device__ constexpr int apply_k_atoms(int M) { return tc::cdiv(M, 32); }
@@ -689,52 +689,6 @@ size_t apply_wg_smem_bytes(int M) {
   return static_cast<size_t>(ka) * kAwAtom + static_cast<size_t>(kAwStages) * kAwStage +
          2 * kAwAtom + tc::kTcRows * sizeof(float) +
          (ka + 2 * kAwStages + 3) * sizeof(uint64_t);
-}
-
-// Elements of type P of the tensor-core apply's split kvs^T: the hi and lo
-// atoms ([64 n][128 bytes of k] each) of every (column tile, k atom) chunk;
-// an atom holds 32 k of tf32 pieces in f32 (the f32 apply) or 64 k of bf16
-// pieces (the bf16 apply).
-template <typename P>
-__host__ __device__ inline size_t apply_split_elems(int M, int D) {
-  return static_cast<size_t>(tc::cdiv(D, tc::kTcCols)) * tc::cdiv(M, 128 / sizeof(P)) * 2 *
-         (kAwPiece / sizeof(P));
-}
-
-// hl = kvs^T as hi + lo pieces of type P (tc::split_store<2, P>: tf32 in
-// f32, or bf16) in the apply's chunks: piece p of chunk (column tile ct, k
-// atom kc) starts at element ((ct * ka + kc) * 2 + p) * (8192 / sizeof(P))
-// and holds element (n, k), d = 64 ct + n and m = kK kc + k (kK = 128 /
-// sizeof(P)), at its swizzled place, zero past the widths.
-template <typename P>
-__global__ void __launch_bounds__(tc::kSplitThreads)
-la_apply_split_kernel(const float* __restrict__ kvs, int M, int D, P* __restrict__ hl) {
-  constexpr int kK = 128 / sizeof(P);
-  constexpr int kPiece = kAwPiece / sizeof(P);
-  const int ka = tc::cdiv(M, kK);
-  const size_t count = apply_split_elems<P>(M, D) / 2;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int chunk = static_cast<int>(i / kPiece);
-    const int n = static_cast<int>(i % kPiece) / kK;
-    const int k = static_cast<int>(i % kK);
-    const int d = chunk / ka * tc::kTcCols + n;
-    const int m = chunk % ka * kK + k;
-    const int at = std::is_same_v<P, float> ? tc::sw128_offset_f32(n, k) : tc::sw128_offset(n, k);
-    const size_t off = static_cast<size_t>(chunk) * 2 * kPiece + at / sizeof(P);
-    tc::split_store<2>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + off,
-                       kPiece);
-  }
-}
-
-// The split on stream st: grid-stride, at most 1024 blocks.
-template <typename P>
-cudaError_t launch_apply_split(const float* kvs, int M, int D, P* hl, cudaStream_t st) {
-  const size_t count = apply_split_elems<P>(M, D) / 2;
-  const unsigned blocks = static_cast<unsigned>(
-      std::min<size_t>((count + tc::kSplitThreads - 1) / tc::kSplitThreads, 1024));
-  la_apply_split_kernel<P><<<blocks, tc::kSplitThreads, 0, st>>>(kvs, M, D, hl);
-  return cudaGetLastError();
 }
 
 // the apply's tensor maps: q, v and out rows in [128][32] f32 boxes
@@ -1020,7 +974,7 @@ la_apply_wg_kernel(const float* __restrict__ q, const float* __restrict__ v, lon
 // ([rows][64] bf16): qbufs buffers of a row block's q rows (kt = ceil(M /
 // 64) k-tiles of [128][64], 64 KB at M = 256) and their den; a ring of
 // `stages` chunks of kvs^T, each its bf16 hi and lo [64 n][64 k] (8 KB
-// each; laid out swizzled by la_apply_split_kernel<bf16>, column tile by
+// each; laid out swizzled by tc::split_kvs_kernel<bf16>, column tile by
 // column tile, so that one 16 KB bulk copy moves a chunk); vbufs v / out
 // tiles [128][64]; mbarriers. apply_wgmma_layout picks (qbufs, stages,
 // vbufs) by what fits beside the q tile: (2, 4, 2) up to M = 256 (225 KB),
@@ -1392,10 +1346,10 @@ int apply_scratch(int dtype, int M, int D) {
   if (dtype == 1) {
     int qbufs, stages, vbufs;
     if (!apply_wgmma_layout(M, qbufs, stages, vbufs)) return 0;
-    return static_cast<int>(apply_split_elems<__nv_bfloat16>(M, D));
+    return static_cast<int>(tc::split_kvs_elems<__nv_bfloat16>(M, D));
   }
   if (dtype == 0 && apply_wg_smem_bytes(M) <= tc::kSmemPerBlock) {
-    return static_cast<int>(apply_split_elems<float>(M, D));
+    return static_cast<int>(tc::split_kvs_elems<float>(M, D));
   }
   return 0;
 }
@@ -1489,8 +1443,8 @@ extern "C" int sgf_la_apply_scratch(int dtype, int M, int D) {
 
 // out may be a row-strided view (ldo); n_total is a device float scalar.
 // hl: the scratch of sgf_la_apply_scratch elements of the input type where
-// that is not 0 (the tensor-core designs: la_apply_split_kernel<bf16>, then
-// la_apply_wgmma_kernel for bf16; la_apply_split_kernel<float>, then
+// that is not 0 (the tensor-core designs: tc::split_kvs_kernel<bf16>, then
+// la_apply_wgmma_kernel for bf16; tc::split_kvs_kernel<float>, then
 // la_apply_wg_kernel for f32), else unused (la_apply_kernel).
 extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, void* out,
                             long ldo, int N, int M, int D, int dtype, const float* kvs,
@@ -1501,7 +1455,7 @@ extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, vo
   if (tensor_cores && dtype == 1) {
     using bf16 = __nv_bfloat16;
     bf16* h = static_cast<bf16*>(hl);
-    cudaError_t err = launch_apply_split(kvs, M, D, h, st);
+    cudaError_t err = tc::launch_split_kvs(kvs, M, D, h, st);
     if (err != cudaSuccess || N == 0) return static_cast<int>(err);
     // tensor maps where the copy engine can read the rows (16-byte aligned
     // bases and row strides), else left empty
@@ -1536,7 +1490,7 @@ extern "C" int sgf_la_apply(const void* q, const void* v, long ldq, long ldv, vo
   }
   if (tensor_cores) {  // dtype 0: f32 in 3xTF32
     float* h = static_cast<float*>(hl);
-    cudaError_t err = launch_apply_split(kvs, M, D, h, st);
+    cudaError_t err = tc::launch_split_kvs(kvs, M, D, h, st);
     if (err != cudaSuccess || N == 0) return static_cast<int>(err);
     // tensor maps where the copy engine can read the rows (16-byte aligned
     // bases and row strides), else left empty

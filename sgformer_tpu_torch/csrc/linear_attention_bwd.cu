@@ -100,24 +100,21 @@
 // the arxiv shape). On mma.sync m16n8k8 they ran at 20-27 % of that bound:
 // MMA issue held them back, three MMAs and two B fragment loads for each
 // 16 x 8 x 8 product, and the split of each A fragment reused over a warp
-// tile's 32 columns. The rows pass runs them on warpgroup MMAs
-// (tc::wg_column_tile, wgmma m64n64k8 tf32): the q rows stay f32 in shared
-// memory (a 128 x 256 tile is 130 KB, one block an SM) and each warp's
-// fragments are split as they load and feed the MMAs from registers, each
-// one over 64 output columns; kvs^T is split once per call into tf32 hi +
-// lo and streamed in 64-deep chunks, 128-byte swizzled (two stages of hi
-// and lo, 64 KB, at the start of the dynamic block, which must be 1024-byte
-// aligned: the f32 kernels have no static shared memory), and each wgmma
-// reads it through a descriptor, a 64 x 64 x 8 product a warpgroup. Every
-// 16 deep the products go into fresh sums (scale-d = 0) added to the
-// running sums in f32 round-to-nearest, so that the tensor cores' own
-// accumulation, which may truncate, never chains more than one such step.
-// That took the rows pass at the arxiv shape from 0.75 to 0.57 ms (NVIDIA
-// H100, 700 W): still ~4x the bound, since one block an SM does not overlap
-// the A staging, the B stream and the epilogue with the MMAs (PERF.md). The
-// apply (la_bwd_apply_ws_kernel) keeps that arithmetic, warp-specialised and
-// fed by the copy engine: its A rows stream into slots the item before
-// frees atom by atom, so that three A tiles need not fit at once (below).
+// tile's 32 columns. The rows pass and the apply run them on warpgroup
+// MMAs (wgmma m64n64k8 tf32, A from registers): each warp's fragments are
+// split into tf32 hi + lo as they load from 128-byte-swizzled f32 atoms
+// and feed the MMAs over 64 output columns; the B operand is split once a
+// call into tf32 hi + lo atoms that bulk copies stream through a ring, and
+// each wgmma reads it through a descriptor (the f32 kernels' dynamic
+// shared memory starts 1024-byte aligned: they have no static shared
+// memory). Every 16 deep the products go into fresh sums (scale-d = 0)
+// added to the running sums in f32 round-to-nearest, so that the tensor
+// cores' own accumulation, which may truncate, never chains more than one
+// such step. Both are warp-specialised, fed by the copy engine and
+// persistent, their A rows streamed into slots that the row block or item
+// before frees atom by atom (la_bwd_rows_ws_kernel, la_bwd_apply_ws_kernel,
+// below); the kernels they replaced staged A by the MMA warps' own copies
+// and overlapped nothing (PERF.md).
 // The P pass (la_bwd_reduce_wg_kernel) is
 // the f32 forward reduce's design on wgmma m64n128k8 tf32, warp-specialised
 // and fed by the copy engine (tensor_core.cuh's rd_produce and
@@ -145,21 +142,10 @@
 
 namespace {
 
-using tc::cp_async16;
-using tc::cp_async_commit;
-using tc::cp_async_wait;
 using tc::split_tf32;
-using tc::kCsStride;
 using tc::kPadOf;
 using tc::kTcCols;
 using tc::kTcRows;
-using tc::kTcThreads;
-using tc::kTfK;
-using tc::kWgBBytes;
-using tc::load8;
-using tc::store8;
-using tc::tc_stage_rows;
-using tc::tile8;
 
 constexpr int kTile = 64;      // output tile (rows x columns)
 constexpr int kRows = 32;      // contraction depth per shared-memory step
@@ -537,11 +523,8 @@ la_bwd_apply_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 constexpr int kTcK = 64;  // the split operands' k padding
 using tc::kSmemPerBlock;
 
-// The f32 (3xTF32) forms pad a shared A row by 16 bytes and stream B in
-// kTfK-deep f32 chunks through the warpgroup core
-// (tc::wg_column_tile: two stages of hi and lo, kWgBBytes, first in the
-// dynamic block), up to widths of kWgMaxK.
-static_assert(kTcK % kTfK == 0, "whole tf32 chunks in the padded depth");
+// The f32 (3xTF32) forms take widths up to kWgMaxK (their A rows staged
+// whole, 32 f32 deep an atom, beside their B ring and operand tiles).
 constexpr int kWgMaxK = 256;
 template <typename T>
 constexpr bool kIsF32 = std::is_same_v<T, float>;
@@ -557,157 +540,447 @@ struct TcDims {
 };
 
 static_assert(kTcCols == tc::kSplitPad && kTcK == tc::kSplitPad,
-              "the rows pass's kvs^T is tensor_core.cuh's split layout");
+              "the bf16 rows pass's kvs^T is tensor_core.cuh's split layout");
 using tc::split_store;
 
-// The rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's sum
-// sum gd*a, which cancels with sum gden*b to ~1/10 of its terms at the arxiv
-// shape, and the ~2^-17 of hi + lo then leaves dinv ~1.3e-5 of its size off
-// the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7). The f32
-// rows pass splits it into tf32 hi + lo, each product 3xTF32 (~2^-21).
-template <typename T>
+// The bf16 rows pass splits kvs into three pieces: a = q @ kvs feeds dinv's
+// sum sum gd*a, which cancels with sum gden*b to ~1/10 of its terms at the
+// arxiv shape, and the ~2^-17 of hi + lo then leaves dinv ~1.3e-5 of its
+// size off the f64 plain version (the CUDA-core kernel's f32 sums: 8.5e-7).
+// The f32 rows pass splits it into tf32 hi + lo (tc::split_kvs_kernel),
+// each product 3xTF32 (~2^-21).
 constexpr int kRowsPieces = 3;
-template <>
-constexpr int kRowsPieces<float> = 2;
-
-// The rows pass's f32 output tile (tc::kCsStride) lies over the B stages
-// once a column tile's products are done.
-static_assert(kTcRows * kCsStride * 4 <= kWgBBytes, "C tile must fit the B stages");
-static_assert(kTcRows * (kTcCols / 8) % kTcThreads == 0, "whole epilogue steps a thread");
 
 // ---------------------------------------------------------------------------
-// The f32 rows pass on warpgroup MMAs in 3xTF32 (tc::wg_column_tile).
-// grid (ceil(N / kTcRows)), 128 rows a block, two warpgroups of 64 rows,
-// one block an SM. Dynamic shared memory, 1024-byte aligned (no static
-// shared memory, so the dynamic block starts the block's window): the two
-// B stages (kWgBBytes, 64 KB; the staged output tile lies over them) and the
-// f32 A tile [kTcRows][Kp + 4] (130 KB at a width of 256): ~194 KB.
+// The f32 rows pass in 3xTF32 on warpgroup MMAs (wgmma m64n64k8 tf32, A from
+// registers), warp-specialised, fed by the copy engine (TMA) and
+// persistent: grid min(ceil(N / 128), SMs), one block an SM, block b taking
+// the 128-row blocks b, b + grid, ... in turn. It replaces, with the P pass,
+// sgformer_tpu/kernels/attention.py::_bwd_reduce_kernel for f32 rows: per
+// row a = q @ kvs, folded at once into sum_d g*a, with b = q . ksum and
+// sum_d g*v, then den, gden and the block's f64 partial of dinv, as
+// la_bwd_rows_kernel computes them. Bound by its bytes (q, v and g read
+// once: 0.156 ms at the arxiv shape; its three TF32 products 0.135). Two
+// consumer warpgroups of 64 rows and a producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg). Dynamic shared memory, 1024-byte
+// aligned (no static shared memory, so the dynamic block starts the
+// block's window), every tile 128-byte swizzled over f32 rows of 32
+// (tc::sw128_offset_f32): a row block's q rows as ka = ceil(M / 32) slots of
+// one k atom each ([128 rows][32], 16 KB; 128 KB at M = 256); a ring of
+// kRwStages chunks of kvs^T, each the tf32 hi and lo [64 n][32 k] atoms of
+// one (column tile, k atom) (8 KB each, laid out by tc::split_kvs_kernel, so
+// that one 16 KB bulk copy moves a chunk); one g tile [128][64] (two atoms);
+// b a row, the dinv tree, mbarriers: 226 KB at M = 256.
+//
+// The kernel this replaced (one block a row block, q staged by the MMA
+// warps' cp.async, kvs^T streamed two chunks deep by the same warps, each
+// column tile staged and folded under block barriers) overlapped nothing
+// and ran 3.7x its bound. Here the next row block's q rows land under this
+// one's last column tile, slot by slot: the consumers' warps load each A
+// fragment from its slot and split it into tf32 hi + lo in registers, and
+// in a row block's last column tile each warp frees slot j (an empty
+// mbarrier of its own, which the two sum warps also arrive on once they have
+// read the atom) once its fragments of k atom j are in registers; the
+// producer then brings the next row block's atom j into it. The first
+// column tile waits for each atom as it reaches it.
+//
+// The producer warpgroup: warp 0's lane 0 brings the kvs^T chunks by bulk
+// copies as the consumers free their stages (full and empty mbarriers);
+// warp 1 brings each row block's q atoms and each column tile's g rows by
+// tensor maps (the g tile once the consumers have read the last one);
+// warps 2 and 3, the sum warps, form b = q . ksum from the staged q rows
+// (two f32 FMA chains a row, the even and the odd columns, in column order,
+// added) and hand it to the consumers a row block. Where the rows' strides
+// or bases do not allow a tensor map (vec_a, vec_io 0) warp 1's lanes copy
+// q and g one element a lane at a time. Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md): sum_d g*v on the sum warps, v read into their
+// registers a row ahead, held the kernel at those loads' latency (0.757 ms
+// at arxiv); prefetching the next row block's g and v rows into L2 with its
+// q atoms cost 8 %.
+//
+// The consumers keep the arithmetic of the kernel this replaced, so that
+// den, gden and dinv are bitwise its: each product lo*hi' + hi*lo' + hi*hi'
+// (the cross terms first), every 16 deep (kWgPeriod) the MMAs start fresh
+// sums that are added to the column tile's f32 sums in round-to-nearest, in
+// k order, a k atom's two periods double-buffered so that the second's MMAs
+// run while the warps add the first's. A finished column tile is folded
+// into sum_d g*a and sum_d g*v in that kernel's order: for each row and
+// eight-column group an f32 FMA chain in column order from 0 (the
+// accumulator fragment holds a group's eight columns in the four lanes of a
+// quad, two each, so the chain passes from lane to lane by shuffles, four
+// steps of two FMAs), the groups added by the tree ((0 + 4) + (2 + 6)) +
+// ((1 + 5) + (3 + 7)), the column tiles in order; g at the fragment's
+// columns from the staged tile, which each warp frees once its values are
+// in registers, and v at the same columns read from device memory when the
+// tile starts, so that its loads run under the tile's MMAs. Then the
+// lanes that hold a row's sums form den, gden and the row's dinv term as
+// la_bwd_rows_kernel does, and the block's f64 partial is the same pairwise
+// tree over its 128 rows, stored under the row block's index.
+constexpr int kRwConsumers = 2 * 128;
+constexpr int kRwThreads = kRwConsumers + 128;  // and the producer warpgroup
+constexpr int kRwStages = 4;
+constexpr int kRwAtom = kTcRows * 128;   // a [128 rows][32] f32 atom of q, or half a g tile
+constexpr int kRwPiece = tc::kKvsPiece;  // a [64 n][32 k] atom of kvs^T's hi or lo piece
+constexpr int kRwStage = 2 * kRwPiece;   // a chunk: its hi and lo atoms
+// registers a thread after setmaxnreg: the producer warpgroup's and the
+// consumers', together the 168 a thread of the launch (2 x 232 + 40 = 3 x 168)
+constexpr int kRwProducerRegs = 40;
+constexpr int kRwConsumerRegs = 232;
+static_assert(2 * kRwConsumerRegs + kRwProducerRegs == 3 * 168, "the launch's registers");
+// the q slots are read by the consumer warps and the two sum warps
+constexpr int kRwReaders = kRwConsumers / 32 + 2;
 
-// the rows pass's dynamic block for an A tile K (padded) wide
-size_t wg_smem_bytes(int K) {
-  return kWgBBytes + static_cast<size_t>(kTcRows) * (K + kPadOf<float>) * sizeof(float);
+// the rows pass's tensor maps: q and g rows in [128][32] f32 boxes
+struct RwMaps {
+  CUtensorMap q, g;
+};
+
+size_t rows_ws_smem(int M) {
+  const int ka = tc::cdiv(M, 32);
+  return static_cast<size_t>(ka) * kRwAtom + static_cast<size_t>(kRwStages) * kRwStage +
+         2 * kRwAtom + kTcRows * (sizeof(double) + sizeof(float)) +
+         (2 * static_cast<size_t>(ka) + 2 * kRwStages + 4) * sizeof(uint64_t);
 }
 
-// The rows pass on the f32 core. b = q . ksum
-// from the staged q rows,
-// then a = q @ kvs one column tile at a time (kvs^T as tf32 hi + lo, hl as
-// tc::split_t_kernel writes it), each tile folded at once into sum_d g*a
-// and sum_d g*v per row (eight threads a row, 8 columns each, a fixed xor
-// tree across them), then den, gden and the block's f64 dinv partial, as
-// la_bwd_rows_kernel computes them, the per-row sums over the B stages.
-__global__ void __launch_bounds__(kTcThreads, 1)
-la_bwd_rows_wg_kernel(const float* __restrict__ q, const float* __restrict__ v,
+__global__ void __launch_bounds__(kRwThreads, 1)
+la_bwd_rows_ws_kernel(const float* __restrict__ q, const float* __restrict__ v,
                       const float* __restrict__ g, long ldq, long ldv, long ldg, int N, int M,
                       int D, const float* __restrict__ hl, const float* __restrict__ ksum,
                       const float* __restrict__ scal, const float* __restrict__ n_total,
                       int guard, int vec_a, int vec_io, float* __restrict__ den_out,
-                      float* __restrict__ gden_out, double* __restrict__ dinv_part) {
+                      float* __restrict__ gden_out, double* __restrict__ dinv_part,
+                      const __grid_constant__ RwMaps maps) {
+  using namespace tc;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
-  const TcDims t(M, D);
-  const int a_stride = t.Mk + kPadOf<float>;
-  unsigned char* Bs = smem_raw;
-  float* Cs = reinterpret_cast<float*>(Bs);
-  float* As = reinterpret_cast<float*>(smem_raw + kWgBBytes);
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const int ka = cdiv(M, 32);
+  const int tiles = cdiv(D, kTcCols);
+  const int blocks = cdiv(N, kTcRows);
+  unsigned char* Qs = smem_raw;                                        // [ka][128][32]
+  unsigned char* Bs = Qs + static_cast<size_t>(ka) * kRwAtom;          // [stage][hi, lo]
+  unsigned char* Gs = Bs + static_cast<size_t>(kRwStages) * kRwStage;  // [2][128][32]
+  double* red = reinterpret_cast<double*>(Gs + 2 * kRwAtom);           // the dinv tree
+  float* b_s = reinterpret_cast<float*>(red + kTcRows);                // q . ksum a row
+  uint64_t* afull = reinterpret_cast<uint64_t*>(b_s + kTcRows);   // a q atom has landed
+  uint64_t* aempty = afull + ka;                                  // a q slot is read
+  uint64_t* full = aempty + ka;                                   // a stage has landed
+  uint64_t* empty = full + kRwStages;                             // a stage's MMAs are done
+  uint64_t* gfull = empty + kRwStages;                            // a g tile has landed
+  uint64_t* gempty = gfull + 1;                                   // a g tile is read
+  uint64_t* sfull = gempty + 1;                                   // b_s holds a block's b
+  uint64_t* sempty = sfull + 1;                                   // b_s and red are read
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
 
-  tc_stage_rows(As, a_stride, q, ldq, r0, N, M, t.Mk, vec_a, tid);
-  __syncthreads();
-  float b = 0.f;  // q . ksum of row tid / 2, two threads a row (adjacent lanes), f32
-  {
-    const float* qr = As + static_cast<size_t>(tid >> 1) * a_stride;
-    for (int c = tid & 1; c < M; c += 2) b = fmaf(qr[c], ksum[c], b);
-    b += __shfl_xor_sync(0xffffffffu, b, 1);
+  if (tid == 0) {
+    for (int j = 0; j < ka; ++j) {
+      mbar_init(afull + j, 1);
+      mbar_init(aempty + j, kRwReaders);
+    }
+    for (int s = 0; s < kRwStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRwConsumers / 32);
+    }
+    mbar_init(gfull, 1);
+    mbar_init(gempty, kRwConsumers / 32);
+    mbar_init(sfull, 2);
+    mbar_init(sempty, 1);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // thread tid folds columns (tid % 8) * 8 .. + 8 of rows tid / 8 + 32 * it
-  constexpr int kSteps = kTcRows * (kTcCols / 8) / kTcThreads;
-  float ga[kSteps], gv[kSteps];
-#pragma unroll
-  for (int it = 0; it < kSteps; ++it) ga[it] = gv[it] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += kTcCols) {
-    float acc[32];
-    tc::wg_column_tile(acc, As, a_stride, Bs, hl, t.pt_elems(), t.Mk, c0, tid, lane, warp);
-    tc::wg_tile_to_smem(Cs, acc, lane, warp);
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int r = i / (kTcCols / 8);
-      const int cs = (i % (kTcCols / 8)) * 8;
-      const long row = r0 + r;
-      const int c = c0 + cs;
-      float pga = 0.f, pgv = 0.f;
-      if (row < N && c < D) {
-        const int cols = min(8, D - c);
-        const bool vec = vec_io && cols == 8;
-        float a[8], x[8], y[8];
-        tile8(Cs, r, cs, a);
-        load8(g + row * ldg + c, vec, cols, x);
-        load8(v + row * ldv + c, vec, cols, y);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          pga = fmaf(x[e], a[e], pga);
-          pgv = fmaf(x[e], y[e], pgv);
+  if (warp >= kRwConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<kRwProducerRegs>();
+    const int pw = warp - kRwConsumers / 32;
+    if (pw == 0) {  // the kvs^T chunks, each into its stage once the consumers have freed it
+      if (lane == 0) {
+        int ch = 0;
+        for (int u = blockIdx.x; u < blocks; u += gridDim.x) {
+          for (int t = 0; t < tiles; ++t) {
+            for (int kc = 0; kc < ka; ++kc, ++ch) {
+              const int st = ch % kRwStages;
+              if (ch >= kRwStages) mbar_wait(empty + st, (ch / kRwStages - 1) & 1);
+              mbar_arrive_expect_tx(full + st, kRwStage);
+              bulk_copy_g2s(Bs + st * kRwStage, hl + static_cast<size_t>(t * ka + kc) *
+                                                         (kRwStage / sizeof(float)),
+                            kRwStage, full + st);
+            }
+          }
         }
       }
-      // the eight threads of a row are lanes 8j .. 8j + 7 of one warp
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1) {
-        pga += __shfl_xor_sync(0xffffffffu, pga, off);
-        pgv += __shfl_xor_sync(0xffffffffu, pgv, off);
+    } else if (pw == 1) {  // the q atoms and the g tiles
+      const CUtensorMap* map_q = &maps.q;
+      const CUtensorMap* map_g = &maps.g;
+      // row block u's q atoms, slot j once the row block before (the i-th
+      // of this block's) has read it
+      auto load_q = [&](int u, int i) {
+        const long r0 = static_cast<long>(u) * kTcRows;
+        for (int j = 0; j < ka; ++j) {
+          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);
+          unsigned char* dst = Qs + static_cast<size_t>(j) * kRwAtom;
+          if (vec_a) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(afull + j, kRwAtom);
+              tma_load_2d(dst, map_q, 32 * j, static_cast<int>(r0), afull + j);
+            }
+          } else {
+            for (int e = lane; e < kTcRows * 32; e += 32) {
+              const int r = e >> 5;
+              const int c = 32 * j + (e & 31);
+              *reinterpret_cast<float*>(dst + sw128_offset_f32(r, e & 31)) =
+                  r0 + r < N && c < M ? q[(r0 + r) * ldq + c] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(afull + j);
+          }
+        }
+      };
+      load_q(blockIdx.x, 0);
+      int T = 0;  // column tiles brought
+      int i = 0;
+      for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+        const long r0 = static_cast<long>(u) * kTcRows;
+        for (int t = 0; t < tiles; ++t, ++T) {
+          if (T > 0) mbar_wait(gempty, (T - 1) & 1);
+          if (vec_io) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(gfull, 2 * kRwAtom);
+              for (int h = 0; h < 2; ++h) {
+                tma_load_2d(Gs + h * kRwAtom, map_g, kTcCols * t + 32 * h, static_cast<int>(r0),
+                            gfull);
+              }
+            }
+          } else {
+            for (int e = lane; e < kTcRows * kTcCols; e += 32) {
+              const int r = e / kTcCols;
+              const int c = e % kTcCols;
+              const int col = kTcCols * t + c;
+              *reinterpret_cast<float*>(Gs + (c >> 5) * kRwAtom + sw128_offset_f32(r, c & 31)) =
+                  r0 + r < N && col < D ? g[(r0 + r) * ldg + col] : 0.f;
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(gfull);
+          }
+        }
+        if (u + static_cast<int>(gridDim.x) < blocks) load_q(u + gridDim.x, i + 1);
       }
-      ga[it] += pga;
-      gv[it] += pgv;
-    }
-    __syncthreads();  // Cs is the next column tile's B stages
-  }
-  float* b_s = Cs;
-  float* ga_s = b_s + kTcRows;
-  float* gv_s = ga_s + kTcRows;
-  double* red = reinterpret_cast<double*>(gv_s + kTcRows);
-  if ((tid & 1) == 0) b_s[tid >> 1] = b;
-  if ((tid & 7) == 0) {
+    } else {  // warps 2 and 3, the sum warps: b of each row block's rows
+      const int L = tid - kRwConsumers - 64;  // 0 .. 63: b of rows L and L + 64
+      int i = 0;
+      for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+        // b: the even and the odd columns' chains of each row, as the two
+        // threads a row of the kernel this replaced formed them
+        float be[2] = {0.f, 0.f}, bo[2] = {0.f, 0.f};
+        for (int j = 0; j < ka; ++j) {
+          mbar_wait(afull + j, i & 1);
+          const unsigned char* at = Qs + static_cast<size_t>(j) * kRwAtom;
+#pragma unroll 2  // fully unrolled, the loads outgrow the 40 registers
+          for (int c4 = 0; c4 < 8; ++c4) {
+            const int c = 32 * j + 4 * c4;
+            float k4[4];
 #pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int r = (tid + it * kTcThreads) / (kTcCols / 8);
-      ga_s[r] = ga[it];
-      gv_s[r] = gv[it];
+            for (int e = 0; e < 4; ++e) k4[e] = c + e < M ? __ldg(ksum + c + e) : 0.f;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const float4 x =
+                  *reinterpret_cast<const float4*>(at + sw128_offset_f32(L + 64 * rr, 4 * c4));
+              be[rr] = fmaf(x.x, k4[0], be[rr]);
+              bo[rr] = fmaf(x.y, k4[1], bo[rr]);
+              be[rr] = fmaf(x.z, k4[2], be[rr]);
+              bo[rr] = fmaf(x.w, k4[3], bo[rr]);
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(aempty + j);
+        }
+        // handed over once the consumers have read the row block before's
+        if (i > 0) mbar_wait(sempty, (i - 1) & 1);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) b_s[L + 64 * rr] = be[rr] + bo[rr];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sfull);
+      }
     }
+    return;
   }
-  __syncthreads();
 
-  if (tid < kTcRows) {
-    const long row = r0 + tid;
-    double part = 0.0;
-    if (row < N) {
-      const float inv = scal[2];
-      const float n = *n_total;
-      const float bb = b_s[tid];
-      const float s_ga = ga_s[tid];
-      float den = inv * bb + n;
-      float gden;
-      if (guard && den == 0.f) {
-        den = 1.f;
-        gden = 0.f;
-      } else {
-        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
-      }
-      den_out[row] = den;
-      gden_out[row] = gden;
-      part = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+  // the consumers
+  setmaxnreg_inc<kRwConsumerRegs>();
+  constexpr int kSteps = kWgPeriod / 8;  // k8 steps a period: two periods a 32-deep atom
+  static_assert(kSteps * 2 * 8 == 32, "two periods an atom");
+  const float inv = scal[2];
+  const float n = *n_total;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  // the lane's fragment rows 16 * warp + g8 (+ 8) at k = t4 (+ 4) of each k8 step
+  const int a_off = (16 * warp + g8) * 128 + t4 * 4;
+  const int g16 = g8 << 4;  // the swizzle of the rows' 16-byte chunks
+  float acc[32], part[2][32];
+  unsigned ah[2][kSteps][4], al[2][kSteps][4];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) part[0][e] = part[1][e] = 0.f;
+
+  // the A fragments of period p of the atom in slot kc, as tf32 hi + lo
+  auto load_a = [&](unsigned (&h)[kSteps][4], unsigned (&l)[kSteps][4], int kc, int p) {
+    const unsigned char* a = Qs + kc * kRwAtom + a_off;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int s = p * kSteps + ks;  // k8 step of the atom: k from 8 s
+      const int lo16 = ((2 * s) << 4) ^ g16;
+      const int hi16 = ((2 * s + 1) << 4) ^ g16;
+      split_tf32(*reinterpret_cast<const float*>(a + lo16), h[ks][0], l[ks][0]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + lo16), h[ks][1], l[ks][1]);
+      split_tf32(*reinterpret_cast<const float*>(a + hi16), h[ks][2], l[ks][2]);
+      split_tf32(*reinterpret_cast<const float*>(a + 8 * 128 + hi16), h[ks][3], l[ks][3]);
     }
-    red[tid] = part;
+  };
+  // period p's MMAs into fresh sums d, B the chunk's atoms at Bh (hi; lo
+  // one piece on)
+  auto issue = [&](float (&d)[32], const unsigned (&h)[kSteps][4],
+                   const unsigned (&l)[kSteps][4], const unsigned char* Bh, int p) {
+    wgmma_fence_operand(d);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const unsigned char* b = Bh + (p * kSteps + ks) * 32;
+      wgmma_m64n64k8_tf32(d, l[ks], sw128_desc(b), ks);            // lo*hi', fresh first
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b + kRwPiece), 1);  // hi*lo'
+      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b), 1);             // hi*hi'
+    }
+    wgmma_commit();
+  };
+  auto fold = [&](float (&d)[32]) {
+    wgmma_fence_operand(d);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
+  };
+
+  int ch = 0;  // chunks consumed
+  int T = 0;   // column tiles folded
+  int i = 0;
+  for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+    const long r0 = static_cast<long>(u) * kTcRows;
+    // sum_d g*a and sum_d g*v of the lane's rows 16 * warp + g8 (+ 8),
+    // whole in the lanes t4 == 3
+    float ga[2] = {0.f, 0.f}, gv[2] = {0.f, 0.f};
+    for (int t = 0; t < tiles; ++t, ++T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      // v at the fragment's columns (y[j][h]: row 16 * warp + g8 + 8 h,
+      // columns 8 j + 2 t4, + 1), read now so that the loads run under the
+      // tile's MMAs; zero past N and D
+      float2 y[8][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long row = r0 + 16 * warp + g8 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = kTcCols * t + 8 * j + 2 * t4;
+          const float* p = v + row * ldv + c;
+          if (vec_io && row < N && c + 1 < D) {
+            y[j][h] = __ldg(reinterpret_cast<const float2*>(p));
+          } else {
+            y[j][h].x = row < N && c < D ? p[0] : 0.f;
+            y[j][h].y = row < N && c + 1 < D ? p[1] : 0.f;
+          }
+        }
+      }
+      for (int kc = 0; kc < ka; ++kc, ++ch) {
+        const int st = ch % kRwStages;
+        mbar_wait(full + st, (ch / kRwStages) & 1);
+        if (t == 0) mbar_wait(afull + kc, i & 1);
+        const unsigned char* Bh = Bs + st * kRwStage;
+        load_a(ah[0], al[0], kc, 0);
+        issue(part[0], ah[0], al[0], Bh, 0);
+        load_a(ah[1], al[1], kc, 1);
+        if (t == tiles - 1) {  // the row block's last reads of slot kc are in registers
+          __syncwarp();
+          if (lane == 0) mbar_arrive(aempty + kc);
+        }
+        issue(part[1], ah[1], al[1], Bh, 1);
+        wgmma_wait<1>();  // the first period is done
+        fold(part[0]);
+        wgmma_wait<0>();
+        fold(part[1]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + st);
+      }
+      // the column tile folded into sum_d g*a and sum_d g*v: g at the
+      // fragment's columns (x[j][h], as y)
+      mbar_wait(gfull, T & 1);
+      float2 x[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[j][h] = *reinterpret_cast<const float2*>(
+              Gs + (j >> 2) * kRwAtom + sw128_offset_f32(16 * warp + g8 + 8 * h,
+                                                         8 * (j & 3) + 2 * t4));
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(gempty);
+      // each (row, group) chain through the quad's lanes in column order:
+      // after step s the lane t4 == s holds it up to its two columns
+      float pa[8][2], pv[8][2];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float in_a = s == 0 ? 0.f : __shfl_up_sync(0xffffffffu, pa[j][h], 1);
+            const float in_v = s == 0 ? 0.f : __shfl_up_sync(0xffffffffu, pv[j][h], 1);
+            pa[j][h] = fmaf(x[j][h].y, acc[4 * j + 2 * h + 1],
+                            fmaf(x[j][h].x, acc[4 * j + 2 * h], in_a));
+            pv[j][h] = fmaf(x[j][h].y, y[j][h].y, fmaf(x[j][h].x, y[j][h].x, in_v));
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ga[h] += ((pa[0][h] + pa[4][h]) + (pa[2][h] + pa[6][h])) +
+                 ((pa[1][h] + pa[5][h]) + (pa[3][h] + pa[7][h]));
+        gv[h] += ((pv[0][h] + pv[4][h]) + (pv[2][h] + pv[6][h])) +
+                 ((pv[1][h] + pv[5][h]) + (pv[3][h] + pv[7][h]));
+      }
+    }
+    // den, gden and the rows' dinv terms, as la_bwd_rows_kernel forms them
+    mbar_wait(sfull, i & 1);
+    if (t4 == 3) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g8 + 8 * h;
+        const long row = r0 + r;
+        double part_d = 0.0;
+        if (row < N) {
+          const float bb = b_s[r];
+          const float s_ga = ga[h];
+          float den = inv * bb + n;
+          float gden;
+          if (guard && den == 0.f) {
+            den = 1.f;
+            gden = 0.f;
+          } else {
+            gden = -(inv * s_ga + n * gv[h]) / (den * den);
+          }
+          den_out[row] = den;
+          gden_out[row] = gden;
+          part_d = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+        }
+        red[r] = part_d;
+      }
+    }
+    rd_consumers_sync();
+    if (warp == 0) {  // the pairwise tree over the 128 rows: strides 64, 32, ..., 1
+      double x2 = (red[lane] + red[lane + 64]) + (red[lane + 32] + red[lane + 96]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x2 += __shfl_down_sync(0xffffffffu, x2, off);
+      if (lane == 0) {
+        dinv_part[u] = x2;
+        mbar_arrive(sempty);  // b_s and red are read: the next block's may come
+      }
+    }
   }
-  __syncthreads();
-  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] += red[tid + stride];
-    __syncthreads();
-  }
-  if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
 // The reduce's P pass for f32 inputs in 3xTF32 on warpgroup MMAs (wgmma
@@ -874,7 +1147,7 @@ cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int N, int width
 }
 
 // kvs^T as the rows pass reads it: three bf16 pieces (hi, mid, lo, as
-// tc::split_t_kernel<3> splits each element) of each [64 n = d][64 k = m]
+// tc::split_store<3> splits each element) of each [64 n = d][64 k = m]
 // chunk, swizzled as the pass's shared memory holds it (8 KB, zero past
 // the widths), column tile by column tile and k chunk by k chunk, so that
 // one bulk copy moves a piece's chunk: piece p of chunk (ct, kc) starts at
@@ -1902,7 +2175,7 @@ la_bwd_apply_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // brings the A atoms by a tensor map. Where the views' strides or bases do
 // not allow a tensor map (vec_a, vec_io 0) warps 1 and 2 copy the operands
 // and A rows one element a lane at a time and the consumers store their
-// rows. The consumers keep the arithmetic of tc::wg_column_tile, so that
+// rows. The consumers keep the arithmetic of the f32 row kernels, so that
 // the outputs are bitwise the kernel's it replaced: each product lo*hi' +
 // hi*lo' + hi*hi' (the cross terms first), every 16 deep (kWgPeriod) the
 // MMAs start fresh sums that are added to the tile's f32 sums in
@@ -2355,7 +2628,7 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
   constexpr int kPer = kPadOf<T>;  // elements of a 16-byte copy
   cudaError_t err;
   if constexpr (kIsF32<T>) {
-    err = tc::launch_split_t<kRowsPieces<T>>(kvs, M, D, hl, st);
+    err = tc::launch_split_kvs(kvs, M, D, hl, st);
   } else {
     const size_t count = tc::split_t_elems(M, D);
     const unsigned blocks =
@@ -2364,18 +2637,35 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
   const int vec_io = ldg % kPer == 0 && ldv % kPer == 0 && aligned16(g) && aligned16(v);
   const unsigned row_blocks = (N + kTcRows - 1) / kTcRows;
   if constexpr (kIsF32<T>) {
-    const size_t smem = wg_smem_bytes(TcDims(M, D).Mk);
-    err = cudaFuncSetAttribute(la_bwd_rows_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // tensor maps where the copy engine can read the rows (16-byte aligned
+    // bases and row strides; it clips the widths), else warp 1's lanes copy
+    // them: q (vec_a), g (vec_io, which also has v read 8 bytes at a time)
+    const int vec_a = ldq % kPer == 0 && aligned16(q);
+    RwMaps maps = {};
+    struct Rows { CUtensorMap* map; const float* base; int width; long ld; int want; };
+    const Rows rows[2] = {{&maps.q, q, M, ldq, vec_a}, {&maps.g, g, D, ldg, vec_io}};
+    for (const Rows& r : rows) {
+      if (!r.want) continue;
+      err = tc::encode_rows_map(r.map, r.base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), N,
+                                r.width, r.ld, 32, kTcRows);
+      if (err != cudaSuccess) return err;
+    }
+    const size_t smem = rows_ws_smem(M);
+    err = cudaFuncSetAttribute(la_bwd_rows_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    la_bwd_rows_wg_kernel<<<row_blocks, kTcThreads, smem, st>>>(
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return err;
+    const int blocks = std::min(static_cast<int>(row_blocks), sms);
+    la_bwd_rows_ws_kernel<<<blocks, kRwThreads, smem, st>>>(
         q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
-        dinv_part);
+        dinv_part, maps);
   } else {
+    const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
     CUtensorMap map_q = {}, map_g = {}, map_v = {};
     if (vec_a) {
       err = encode_rows_map(&map_q, q, N, M, ldq);
@@ -2448,11 +2738,11 @@ int bwd_reduce_scratch(int dtype, int M, int D) {
   const TcDims t(M, D);
   if (dtype == 1) {
     if (rows_wgmma_stages(M) == 0) return 0;
-    return static_cast<int>(kRowsPieces<__nv_bfloat16> * t.pt_elems());
+    return static_cast<int>(kRowsPieces * t.pt_elems());
   }
   if (dtype == 0) {
-    if (t.Mk > kWgMaxK || wg_smem_bytes(t.Mk) > kSmemPerBlock) return 0;
-    return static_cast<int>(kRowsPieces<float> * t.pt_elems());
+    if (t.Mk > kWgMaxK || rows_ws_smem(M) > kSmemPerBlock) return 0;
+    return static_cast<int>(tc::split_kvs_elems<float>(M, D));
   }
   return 0;
 }

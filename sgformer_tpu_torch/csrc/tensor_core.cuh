@@ -2,7 +2,7 @@
 // (linear_attention.cu, linear_attention_bwd.cu), sm_90a. Every product
 // runs on warpgroup MMAs (wgmma); nothing here issues mma.sync.
 //
-// - PTX wrappers: cp.async of 16 bytes; wgmma m64n64k16 and m64n128k16
+// - PTX wrappers: wgmma m64n64k16 and m64n128k16
 //   bf16 -> f32 with their fences and the 128-byte-swizzled shared-memory
 //   layout and descriptors they read, K-major (the forward apply's, the
 //   bf16 backward apply's and rows pass's) and, for m64n64k16, MN-major (the
@@ -14,19 +14,21 @@
 // - TF32: the rounding of an f32 to tf32 and its split into tf32 hi + lo,
 //   each product of two f32 operands three TF32 products (3xTF32);
 // - the split of kvs^T into bf16 or tf32 pieces, the B operand of
-//   a = q @ kvs in the forward apply and the backward reduce's rows pass;
+//   a = q @ kvs in the forward apply and the backward reduce's rows pass:
+//   [n][k] pieces for the bf16 rows pass (split_t_elems), and the
+//   swizzled hi and lo atoms of each (column tile, k atom) chunk for the
+//   forward applies and the f32 rows pass (split_kvs_kernel), one bulk
+//   copy a chunk;
 // - the node-axis reduces' pieces, C[m, n] = sum_r A[r, m] B[r, n] over
 //   slices of the N node rows (the [N, M]^T x [N, D] products that the TPU
 //   kernels accumulate over their sequential grids): a block's slice and
 //   tile (RdBlock), its producer warp (rd_produce), and the f32 forms'
 //   consumers in 3xTF32 (rd_split_tf32, rd_consume_tf32): k^T v of the f32
 //   forward reduce and P = q^T (g / den) of the f32 backward P pass;
-// - the row kernels' core for f32 A rows in 3xTF32 on warpgroup MMAs: A
-//   rows staged once, a split B streamed in 64-deep chunks, a 128 x 64
-//   output tile at a time (wg_column_tile: the f32 backward rows pass); the
-//   epilogue's staged tile and 8-column row accesses; the division by a
-//   row's reciprocal (div_by), the tensor maps of row tiles
-//   (encode_rows_map) and the SM count of the persistent kernels' grids.
+// - the row kernels' tiles (kTcRows x kTcCols) and fresh-sum period
+//   (kWgPeriod); the division by a row's reciprocal (div_by), the tensor
+//   maps of row tiles (encode_rows_map) and the SM count of the persistent
+//   kernels' grids.
 
 #pragma once
 
@@ -44,17 +46,6 @@ using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; zeros where !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // a warpgroup's registers a thread, lowered or raised (every warp of the
@@ -721,15 +712,31 @@ __device__ __forceinline__ void rd_consume_tf32(const unsigned char* ring, unsig
 }
 
 // ---------------------------------------------------------------------------
-// The B operand of the row kernels' a = q @ kvs (the forward apply, the
-// backward reduce's rows pass): kvs^T, f32 in meaning, split into bf16
-// pieces, each [n = D][k = M] with both extents padded by zeros to kSplitPad.
+// The row kernels (the forward applies, the backward reduce's rows passes
+// and applies): a block owns kTcRows rows, two warpgroups of 64, and forms
+// their products kTcCols output columns (one m64n64 MMA) at a time.
+
+constexpr int kTcRows = 128;
+constexpr int kTcCols = 64;
+// elements of a 16-byte copy
+template <typename T>
+constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
+// The f32 (3xTF32) row kernels start fresh sums (scale-d = 0) every
+// kWgPeriod deep and add them to a tile's f32 sums in round-to-nearest, so
+// that the tensor cores' own accumulation, which may truncate, never chains
+// more than one period.
+constexpr int kWgPeriod = 16;
+
+// ---------------------------------------------------------------------------
+// The B operand of the row kernels' a = q @ kvs: kvs^T, f32 in meaning,
+// split into bf16 or tf32 pieces.
 
 constexpr int kSplitPad = 64;
 
 __host__ __device__ constexpr int split_pad(int x) { return cdiv(x, kSplitPad) * kSplitPad; }
 
-// bf16 elements of one piece
+// bf16 elements of one [n = D][k = M] piece, both extents padded by zeros
+// to kSplitPad (the bf16 rows pass's split)
 __host__ __device__ inline size_t split_t_elems(int M, int D) {
   return static_cast<size_t>(split_pad(D)) * split_pad(M);
 }
@@ -756,293 +763,52 @@ __device__ __forceinline__ void split_store(float x, P* p, size_t off) {
 
 constexpr int kSplitThreads = 256;
 
-// hl[...] = kvs^T as kPieces pieces of type P (bf16, or tf32 in an f32),
-// each [n = D][k = M], zero in the pads.
-template <int kPieces, typename P>
+// The split that the forward applies and the f32 rows pass stream, one bulk
+// copy a chunk: kvs^T as hi + lo pieces of type P (split_store<2, P>: tf32
+// in f32, or bf16) in chunks of (column tile ct, k atom kc), column tile by
+// column tile, each chunk its hi atom, then its lo atom, each a swizzled
+// [64 n][128 bytes of k] tile (kKvsPiece bytes): piece p of chunk (ct, kc)
+// starts at element ((ct * ka + kc) * 2 + p) * (kKvsPiece / sizeof(P)) and
+// holds element (n, k), d = 64 ct + n and m = kK kc + k (kK = 128 /
+// sizeof(P): 32 tf32 pieces or 64 bf16), at its swizzled place, zero past
+// the widths.
+constexpr int kKvsPiece = kTcCols * 128;
+
+template <typename P>
+__host__ __device__ inline size_t split_kvs_elems(int M, int D) {
+  return static_cast<size_t>(cdiv(D, kTcCols)) * cdiv(M, 128 / static_cast<int>(sizeof(P))) *
+         2 * (kKvsPiece / sizeof(P));
+}
+
+template <typename P>
 __global__ void __launch_bounds__(kSplitThreads)
-split_t_kernel(const float* __restrict__ kvs, int M, int D, P* __restrict__ hl) {
-  const int Mk = split_pad(M);
-  const size_t count = split_t_elems(M, D);
+split_kvs_kernel(const float* __restrict__ kvs, int M, int D, P* __restrict__ hl) {
+  constexpr int kK = 128 / sizeof(P);
+  constexpr int kPiece = kKvsPiece / sizeof(P);
+  const int ka = cdiv(M, kK);
+  const size_t count = split_kvs_elems<P>(M, D) / 2;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i / Mk);
-    const int m = static_cast<int>(i % Mk);
-    split_store<kPieces>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + i,
-                         count);
+    const int chunk = static_cast<int>(i / kPiece);
+    const int n = static_cast<int>(i % kPiece) / kK;
+    const int k = static_cast<int>(i % kK);
+    const int d = chunk / ka * kTcCols + n;
+    const int m = chunk % ka * kK + k;
+    const int at = std::is_same_v<P, float> ? sw128_offset_f32(n, k) : sw128_offset(n, k);
+    const size_t off = static_cast<size_t>(chunk) * 2 * kPiece + at / sizeof(P);
+    split_store<2>(m < M && d < D ? kvs[static_cast<size_t>(m) * D + d] : 0.f, hl + off,
+                   kPiece);
   }
 }
 
 // The split on stream st: grid-stride, at most 1024 blocks.
-template <int kPieces, typename P>
-cudaError_t launch_split_t(const float* kvs, int M, int D, P* hl, cudaStream_t st) {
-  const size_t count = split_t_elems(M, D);
+template <typename P>
+cudaError_t launch_split_kvs(const float* kvs, int M, int D, P* hl, cudaStream_t st) {
+  const size_t count = split_kvs_elems<P>(M, D) / 2;
   const size_t want = (count + kSplitThreads - 1) / kSplitThreads;
   const unsigned blocks = static_cast<unsigned>(want < 1024 ? want : 1024);
-  split_t_kernel<kPieces, P><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
+  split_kvs_kernel<P><<<blocks, kSplitThreads, 0, st>>>(kvs, M, D, hl);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The row kernels' core (the f32 backward rows pass): a block
-// owns kTcRows rows of an A operand staged in shared memory and forms A @
-// B^T kTcCols output columns at a time. B is a split operand, n-major
-// ([n][k], contiguous in k), as split_t_kernel writes it. On warpgroup MMAs
-// (wg_column_tile) two warpgroups of 64 rows, each warp's 16 rows across
-// all kTcCols columns.
-
-constexpr int kTcRows = 128;
-constexpr int kTcCols = 64;
-constexpr int kTcThreads = 256;
-// elements of a 16-byte copy, and the pad of a shared row past its end
-template <typename T>
-constexpr int kPadOf = 16 / static_cast<int>(sizeof(T));
-// The f32 (3xTF32) forms: a shared A row is padded by 16 bytes, so that a
-// row is 4 banks past the one above it and the 32 addresses of a tf32
-// fragment load (rows lane / 4, columns lane % 4) fall in distinct banks; a
-// B chunk is kTfK f32 deep.
-constexpr int kTfK = 64;
-// the f32 output tile of an epilogue, rows padded so that the fragment
-// stores hit distinct banks
-constexpr int kCsStride = kTcCols + 4;
-
-// Rows [r0, r0 + kTcRows) of A (lda elements apart, K wide; bf16 or f32)
-// into As [kTcRows][a_stride], zero past N and from K up to Kp; the caller
-// syncs after it. vec_a: 16-byte cp.async copies (K and lda multiples of
-// 16 bytes' elements, A 16-byte aligned), every copy in flight at once.
-template <typename T>
-__device__ __forceinline__ void tc_stage_rows(T* As, int a_stride, const T* __restrict__ A,
-                                              long lda, long r0, int N, int K, int Kp, int vec_a,
-                                              int tid) {
-  if (vec_a) {
-    constexpr int kPer = kPadOf<T>;
-    const int segs = Kp / kPer;
-    for (int i = tid; i < kTcRows * segs; i += kTcThreads) {
-      const int r = i / segs;
-      const int c = (i % segs) * kPer;
-      const bool ok = r0 + r < N && c < K;
-      cp_async16(As + static_cast<size_t>(r) * a_stride + c, ok ? A + (r0 + r) * lda + c : A, ok);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-  } else {
-    for (int i = tid; i < kTcRows * Kp; i += kTcThreads) {
-      const int r = i / Kp;
-      const int c = i % Kp;
-      if constexpr (std::is_same_v<T, float>) {
-        As[static_cast<size_t>(r) * a_stride + c] = (r0 + r < N && c < K) ? A[(r0 + r) * lda + c]
-                                                                          : 0.f;
-      } else {
-        As[static_cast<size_t>(r) * a_stride + c] =
-            (r0 + r < N && c < K) ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
-      }
-    }
-  }
-}
-
-// The column tile for f32 A rows in 3xTF32 on warpgroup MMAs (wgmma
-// m64n64k8 tf32): acc = As [kTcRows][Kp] (f32, rows a_stride apart) @ B^T
-// for the output columns [c0, c0 + kTcCols), warpgroup w's rows 64w .. 64w
-// + 64, acc laid out as wgmma_m64n64k8_tf32's d. B is the split operand
-// [n][Kp] as tf32 hi (at B_hi) and lo (B_hi + lo_off), streamed in
-// kTfK-deep chunks, double-buffered by cp.async into Bs (1024-byte aligned,
-// kWgBBytes: [stage][hi, lo][atom][kTcCols][32], 128-byte swizzled), and
-// read by the MMAs through descriptors.
-//
-// What bound the f32 mma.sync core this replaced was issue: three m16n8k8
-// MMAs and two fragment loads of B a product of 16 x 8 x 8, and the split of
-// each A fragment reused over a warp tile's 32 columns. Here one wgmma forms
-// a 64 x 64 x 8 product with B read through a descriptor, and each A
-// fragment, split into tf32 hi + lo as it loads from As (plain 32-bit
-// loads: rows a_stride = Kp + 4 apart, so the 32 addresses fall in distinct
-// banks), feeds all kTcCols columns. Each product is lo*hi + hi*lo + hi*hi,
-// the cross terms first. Every kWgPeriod deep the MMAs start fresh sums
-// (scale-d = 0), added to acc with f32 round-to-nearest adds, so that the
-// tensor cores' own accumulation, which may truncate, never chains more
-// than one period; a period's sums are double-buffered, so that its MMAs
-// run while the warps load and split the next period's A fragments and add
-// the last period's sums. Ends with a barrier, after which Bs is free.
-constexpr int kWgPeriod = 16;
-constexpr int kWgAtom = kTcCols * 128;       // bytes of a chunk's 32-deep atom
-constexpr int kWgBPiece = 2 * kWgAtom;       // bytes of one piece's chunk
-constexpr size_t kWgBBytes = 4 * kWgBPiece;  // two stages of hi and lo: 64 KB
-static_assert(kTfK == 64 && kWgPeriod % 8 == 0 && kTfK % kWgPeriod == 0 && kTcCols == 64,
-              "whole periods a chunk, two atoms a chunk, one m64n64 MMA a column tile");
-
-__device__ __forceinline__ void wg_column_tile(float (&acc)[32], const float* As, int a_stride,
-                                               unsigned char* Bs,
-                                               const float* __restrict__ B_hi, size_t lo_off,
-                                               int Kp, int c0, int tid, int lane, int warp) {
-  constexpr int kSteps = kWgPeriod / 8;       // k8 steps a period
-  constexpr int kPeriods = kTfK / kWgPeriod;  // periods a chunk
-  const int chunks = Kp / kTfK;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-
-  // one chunk: [kTcCols][kTfK] of hi and of lo, 16 bytes a copy
-  auto load_b = [&](int kc, int stage) {
-    constexpr int kSegs = kTfK / 4;
-    constexpr int kCopies = 2 * kTcCols * kSegs;
-    static_assert(kCopies % kTcThreads == 0, "whole copies a thread");
-#pragma unroll
-    for (int it = 0; it < kCopies / kTcThreads; ++it) {
-      const int i = tid + it * kTcThreads;
-      const int piece = i / (kTcCols * kSegs);
-      const int row = (i / kSegs) % kTcCols;
-      const int c = (i % kSegs) * 4;
-      const float* src = B_hi + piece * lo_off + static_cast<size_t>(c0 + row) * Kp + kc * kTfK + c;
-      cp_async16(Bs + (stage * 2 + piece) * kWgBPiece + (c >> 5) * kWgAtom +
-                     sw128_offset_f32(row, c & 31),
-                 src);
-    }
-    cp_async_commit();
-  };
-
-  // the warp's rows 16 * warp + lane / 4 (+ 8), k = lane % 4 (+ 4)
-  const float* a_row = As + static_cast<size_t>(warp * 16 + (lane >> 2)) * a_stride + (lane & 3);
-  float part[2][32];
-  unsigned ah[2][kSteps][4], al[2][kSteps][4];
-#pragma unroll
-  for (int b = 0; b < 2; ++b)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) part[b][i] = 0.f;
-  // the A fragments of the period from k, as tf32 hi + lo
-  auto load_a = [&](unsigned (&h)[kSteps][4], unsigned (&l)[kSteps][4], int k) {
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const float* p = a_row + k + ks * 8;
-      split_tf32(p[0], h[ks][0], l[ks][0]);
-      split_tf32(p[8 * a_stride], h[ks][1], l[ks][1]);
-      split_tf32(p[4], h[ks][2], l[ks][2]);
-      split_tf32(p[8 * a_stride + 4], h[ks][3], l[ks][3]);
-    }
-  };
-  // the period's MMAs into fresh sums d: k8 steps s0 .. s0 + kSteps of the
-  // chunk at Bh (its hi piece; lo one piece on)
-  auto issue = [&](float (&d)[32], const unsigned (&h)[kSteps][4],
-                   const unsigned (&l)[kSteps][4], const unsigned char* Bh, int s0) {
-    wgmma_fence_operand(d);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const int s = s0 + ks;
-      const unsigned char* b = Bh + (s >> 2) * kWgAtom + (s & 3) * 32;
-      wgmma_m64n64k8_tf32(d, l[ks], sw128_desc(b), ks);  // lo*hi', fresh at the period's start
-      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b + kWgBPiece), 1);  // hi*lo'
-      wgmma_m64n64k8_tf32(d, h[ks], sw128_desc(b), 1);              // hi*hi'
-    }
-    wgmma_commit();
-  };
-  auto fold = [&](float (&d)[32]) {
-    wgmma_fence_operand(d);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-  };
-
-  load_b(0, 0);
-  for (int kc = 0; kc < chunks; ++kc) {
-    if (kc + 1 < chunks) {
-      load_b(kc + 1, (kc + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();  // chunk kc has landed
-    const unsigned char* Bh = Bs + (kc & 1) * 2 * kWgBPiece;
-#pragma unroll
-    for (int p = 0; p < kPeriods; ++p) {
-      load_a(ah[p & 1], al[p & 1], kc * kTfK + p * kWgPeriod);
-      issue(part[p & 1], ah[p & 1], al[p & 1], Bh, p * kSteps);
-      if (p > 0) {
-        wgmma_wait<1>();  // period p - 1's MMAs are done
-        fold(part[(p - 1) & 1]);
-      }
-    }
-    wgmma_wait<0>();
-    fold(part[(kPeriods - 1) & 1]);
-    __syncthreads();  // this stage is refilled two chunks on
-  }
-}
-
-// The warpgroup column tile into Cs [kTcRows][kCsStride] (over the B
-// stages), followed by a barrier: acc[4j + 2h + e] at row 16 * warp + lane / 4
-// + 8h, column 8j + 2 * (lane % 4) + e.
-__device__ __forceinline__ void wg_tile_to_smem(float* Cs, const float (&acc)[32], int lane,
-                                                int warp) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = warp * 16 + (lane >> 2) + h * 8;
-      const int c = j * 8 + (lane & 3) * 2;
-      *reinterpret_cast<float2*>(Cs + r * kCsStride + c) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  __syncthreads();
-}
-
-// Row r's eight columns [cs, cs + 8) of the staged tile.
-__device__ __forceinline__ void tile8(const float* Cs, int r, int cs, float (&a)[8]) {
-  const float4 a_lo = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs);
-  const float4 a_hi = *reinterpret_cast<const float4*>(Cs + r * kCsStride + cs + 4);
-  a[0] = a_lo.x; a[1] = a_lo.y; a[2] = a_lo.z; a[3] = a_lo.w;
-  a[4] = a_hi.x; a[5] = a_hi.y; a[6] = a_hi.z; a[7] = a_hi.w;
-}
-
-// Eight adjacent columns of a bf16 row as floats, and back: 16-byte
-// accesses where vec (p 16-byte aligned), else one column at a time up to n.
-__device__ __forceinline__ void load8(const bf16* p, bool vec, int n, float (&v)[8]) {
-  if (vec) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
-  }
-}
-__device__ __forceinline__ void store8(bf16* p, bool vec, int n, const float (&v)[8]) {
-  if (vec) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < n) p[i] = __float2bfloat16_rn(v[i]);
-    }
-  }
-}
-
-// The same for f32 rows: two 16-byte accesses where vec.
-__device__ __forceinline__ void load8(const float* p, bool vec, int n, float (&v)[8]) {
-  if (vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < n ? p[i] : 0.f;
-  }
-}
-__device__ __forceinline__ void store8(float* p, bool vec, int n, const float (&v)[8]) {
-  if (vec) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < n) p[i] = v[i];
-    }
-  }
 }
 
 }  // namespace tc

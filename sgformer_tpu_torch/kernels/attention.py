@@ -41,11 +41,14 @@ sums), all on warpgroup MMAs (wgmma tf32, A from registers): the reduce
 chunk into K-major tf32 hi + lo tiles) and the backward reduce's P pass
 (``la_bwd_reduce_wg_kernel``: the reduce's design with qᵀ for kᵀ and
 g/den, formed as each chunk is split, for v), the apply
-(``la_apply_wg_kernel``) and the backward apply (``la_bwd_apply_ws_kernel``:
+(``la_apply_wg_kernel``), the backward apply (``la_bwd_apply_ws_kernel``:
 persistent over (row block, product) items, each item's A rows streamed
 into slots that the item before frees atom by atom in its last column
-tile), these four fed by TMA from a producer warpgroup, and the backward
-reduce's rows pass (``la_bwd_rows_wg_kernel``). Both reduces' tiles
+tile) and the backward reduce's rows pass (``la_bwd_rows_ws_kernel``:
+persistent over row blocks, the next row block's q rows streamed into
+slots that this one frees atom by atom in its last column tile, b and
+Σ g·v on the producer warpgroup's spare warps), all five fed by TMA from a
+producer warpgroup. Both reduces' tiles
 stream the node rows and take any width; the kernels that stage their rows'
 full width in shared memory run on the CUDA cores where it does not fit
 (the forward apply's q tile above M = 704 in bf16 and 256 in f32; the
@@ -252,8 +255,9 @@ def reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
 
 def _bwd_reduce_scratch(dtype: torch.dtype, m: int, d: int) -> int:
     """Elements of ``dtype`` of the tensor-core backward reduce's scratch
-    (kvsᵀ in three bf16 pieces, or two tf32 pieces held in f32), 0 for the
-    CUDA-core design (builds the kernels on first use)."""
+    (kvsᵀ in three bf16 pieces, or as the forward apply's split: tf32 hi
+    and lo atoms held in f32), 0 for the CUDA-core design (builds the
+    kernels on first use)."""
     return _build.library("linear_attention_bwd").sgf_la_bwd_reduce_scratch(
         _DTYPES[dtype], m, d)
 
@@ -264,9 +268,10 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
     if not _bwd_reduce_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
-        return ("tensor cores (wgmma 3xTF32, f32 sums: rows pass q and kvs as tf32 hi + lo; "
-                "P pass q and g/den as tf32 hi + lo, g/den split K-major; "
-                "la_bwd_reduce_wg_kernel, fed by TMA from a producer warpgroup)")
+        return ("tensor cores (wgmma 3xTF32, f32 sums: rows pass q and kvs as tf32 hi + lo, "
+                "la_bwd_rows_ws_kernel, persistent; P pass q and g/den as tf32 hi + lo, g/den "
+                "split K-major, la_bwd_reduce_wg_kernel; both fed by TMA from a producer "
+                "warpgroup)")
     return ("tensor cores (wgmma bf16, f32 sums: rows pass kvs as bf16 hi + mid + lo; "
             "P pass q and g/den node-major, g/den as hi + lo)")
 

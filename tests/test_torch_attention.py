@@ -711,7 +711,7 @@ def _round_toward_zero(x):
 
 
 def _mm_3xtf32_sums(a, b, period, lo=True):
-    """a @ b as the f32 kernels' warpgroup MMAs sum it (``tc::wg_column_tile``;
+    """a @ b as the f32 kernels' warpgroup MMAs sum it (the row kernels;
     with the node axis as k, ``la_reduce_wg_kernel``): each operand split
     into tf32 hi + lo; k in steps of 8, each step's lo*hi, hi*lo and hi*hi
     added in that order into the period's sum, each add the step's products
@@ -734,7 +734,7 @@ def _mm_3xtf32_sums(a, b, period, lo=True):
 
 
 def _tf32_backward(q, k, v, g, kvs, ksum, scal, n_total, lo=True, period=None):
-    """The f32 backward reduce (``la_bwd_rows_wg_kernel``,
+    """The f32 backward reduce (``la_bwd_rows_ws_kernel``,
     ``la_bwd_reduce_wg_kernel``) and apply (``la_bwd_apply_ws_kernel``)
     in 3xTF32, unguarded: a = q @ kvs, den, gden and dinv from it; gd =
     g * (1/den) in f32, P = qᵀ gd with the node axis as the MMAs' k, summed
@@ -1060,6 +1060,102 @@ def test_bwd_product_inputs_catch_a_faulty_kernel(fault):
 
     assert misses({}) == [False] * 3
     assert misses(_BWD_FAULTS[fault]) == [True] * 3
+
+
+# The faults the f32 rows pass's design (la_bwd_rows_ws_kernel) can have,
+# each as the operands its arithmetic would be formed from: a q k-atom taken
+# from the previous row block's rows (``q``: a slot read before its refill
+# landed), a ring stage one column tile stale (``kvs``: each 64-column
+# tile's kvs^T chunk the tile before's), kvs^T's lo piece dropped (one TF32
+# product in place of three), the g tile from the neighbouring column tile
+# (``g``: the fold's and the sum warps' g), or the rows of the last block
+# past N read as the rows that follow the views and summed into dinv
+# (``rows``); with which of den, gden and dinv each misses (``misses``: den
+# reads none of the faulty operands).
+_ROWS_FAULTS = {
+    "q k-atom from the previous row block": dict(
+        q=lambda q: torch.cat((q[:, :32], torch.roll(q, 128, 0)[:, 32:64], q[:, 64:]), 1),
+        misses=[False, True, True]),
+    "ring stage one column tile stale": dict(kvs=_column_tiles_shifted,
+                                             misses=[False, True, True]),
+    "lo piece dropped": dict(kvs=_tf32, misses=[False, True, False]),
+    "g tile from the neighbouring column tile": dict(g=_column_tiles_shifted,
+                                                     misses=[False, True, True]),
+    "rows past N read as non-zero": dict(rows=True, misses=[False, False, True]),
+}
+
+
+def _fma_chain(x, y, start):
+    """start + x[:, 0] y[:, 0] + x[:, 1] y[:, 1] + ... as a chain of f32
+    FMAs, each step formed in f64 and rounded to f32 once."""
+    p = start
+    for e in range(x.shape[1]):
+        p = (p.double() + x[:, e].double() * y[:, e].double()).float()
+    return p
+
+
+def _group_fold(x, y):
+    """sum_d x*y of each row as the rows pass folds it, in f32: each column
+    tile's eight-column groups an FMA chain from 0, the groups added by the
+    tree ((0 + 4) + (2 + 6)) + ((1 + 5) + (3 + 7)), the tiles in order."""
+    n, d = x.shape
+    pad = -d % 64
+    x, y = (torch.cat((t.float(), torch.zeros(n, pad)), 1) for t in (x, y))
+    out = torch.zeros(n)
+    for c0 in range(0, d + pad, 64):
+        p = [_fma_chain(x[:, c0 + 8 * j:c0 + 8 * j + 8], y[:, c0 + 8 * j:c0 + 8 * j + 8],
+                        torch.zeros(n)) for j in range(8)]
+        out = out + (((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7])))
+    return out
+
+
+@pytest.mark.parametrize("fault", list(_ROWS_FAULTS))
+def test_bwd_product_inputs_catch_a_faulty_rows_pass(fault):
+    """The card checks of the f32 backward reduce (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) hold den and gden within 1e-5 of their
+    scale of ``bwd_reduce_plain`` in f64 and dinv within 1e-5 of its two
+    sums' magnitude, on ``bwd_product_inputs`` among others. There the rows
+    pass's arithmetic (a = q @ kvs in 3xTF32 summed as its warpgroup MMAs
+    sum it, at the 16-deep period; sum_d g*a and sum_d g*v folded as it
+    folds them, b as two f32 FMA chains, den, gden and the f64 dinv terms of
+    the rows before N) passes, and the same arithmetic with one fault
+    misses in gden, in dinv or in both."""
+    gen = torch.Generator().manual_seed(31)
+    q, _, v, g, kvs, ksum, scal, n_t = bwd_product_inputs(300, 128, 128, torch.float32,
+                                                          gen)[:8]
+    exact_den, exact_gden = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, kvs, ksum,
+                                                                         scal, n_t)),
+                                                  False)[3]
+    qd, kvs_d = q.double(), kvs.double()
+    exact = attn.bwd_reduce_plain(qd, v.double(), g.double(), kvs_d, ksum.double(),
+                                  scal.double(), n_t.double(), False)[2]
+    dinv_scale = ((g.double() / exact_den[:, None] * (qd @ kvs_d)).abs().sum()
+                  + (exact_gden * (qd @ ksum.double())).abs().sum())
+    past = bwd_product_inputs(_PAST_N, 128, 128, torch.float32,
+                              torch.Generator().manual_seed(32))
+    bufs = [torch.cat((a, b)) for a, b in zip((q, v, g), (past[0], past[2], past[3]))]
+    inv, n = scal[2], n_t
+
+    def misses(fault):
+        """Whether den, gden and dinv miss their tolerances with ``fault``."""
+        rows = bufs[0].shape[0] if fault.get("rows") else q.shape[0]
+        qr, vr, gr = (t[:rows] for t in bufs)
+        qa = fault.get("q", lambda t: t)(qr)
+        ga_g = fault.get("g", lambda t: t)(gr)
+        a = _mm_3xtf32_sums(qa, fault.get("kvs", lambda t: t)(kvs), _WG_PERIOD).float()
+        s_ga, s_gv = _group_fold(ga_g, a), _group_fold(ga_g, vr)
+        b = (_fma_chain(qr[:, 0::2], ksum[None, 0::2].expand(rows, -1), torch.zeros(rows))
+             + _fma_chain(qr[:, 1::2], ksum[None, 1::2].expand(rows, -1), torch.zeros(rows)))
+        den = inv * b + n
+        gden = -(inv * s_ga + n * s_gv) / (den * den)
+        dinv = ((s_ga / den).double() + (gden * b).double()).sum()
+        nq = q.shape[0]
+        return [bool((den[:nq] - exact_den).abs().max() > 1e-5 * exact_den.abs().max()),
+                bool((gden[:nq] - exact_gden).abs().max() > 1e-5 * exact_gden.abs().max()),
+                bool((dinv - exact).abs() > 1e-5 * dinv_scale)]
+
+    assert misses({}) == [False] * 3
+    assert misses(_ROWS_FAULTS[fault]) == _ROWS_FAULTS[fault]["misses"]
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -514,13 +514,13 @@ def _tf32_hi(t):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _f64_bwd_reduce_close(got, q, v, g, kvs, ksum, scal, n_total, rel=1e-5):
+def _f64_bwd_reduce_close(got, q, v, g, kvs, ksum, scal, n_total, rel=1e-5, guard=False):
     """P, ds, den and gden within ``rel`` of their scale of the plain
-    backward reduce in f64; dinv, whose two sums cancel, within ``rel`` of
-    their magnitudes."""
+    backward reduce in f64 (with the node mask's guard where ``guard``);
+    dinv, whose two sums cancel, within ``rel`` of their magnitudes."""
     qd, vd, gd, kvs_d, ksum_d = (t.double() for t in (q, v, g, kvs, ksum))
     exact = attn.bwd_reduce_plain(qd, vd, gd, kvs_d, ksum_d, scal.double(), n_total.double(),
-                                  False)
+                                  guard)
     for a, b in ((got[0], exact[0]), (got[1], exact[1]), (got[3][0], exact[3][0]),
                  (got[3][1], exact[3][1])):
         _check_rel(a, b, rel)
@@ -816,6 +816,80 @@ def test_redesigned_applies_are_bitwise_the_earlier_kernels(cuda, which, n):
     sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
                                   for t in got)).hexdigest()[:16]
     assert sha == EARLIER_APPLY_DIGESTS[which, n]
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (37, 19), (200, 37), (130, 19), (8, 250),
+                                 (256, 40)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+@pytest.mark.parametrize("n", [777, 60_000])
+def test_f32_ws_rows_pass_on_views(cuda, m, d, view, n):
+    """The f32 backward reduce with its rows pass on warpgroup MMAs fed by
+    the copy engine (``la_bwd_rows_ws_kernel``: persistent, the next row
+    block's q rows streamed into slots that this one frees atom by atom, b
+    and sum g*v on the producer's spare warps) with tail rows (N = 777) and
+    at N = 60,000 (469 row blocks: each of the 132 persistent blocks takes
+    at least 3, so q slots, kvs^T stages, g tiles and the row sums pass from
+    row block to row block), on q, v and g as they come (``_on_view``): on
+    random rows, where q @ kvs carries den's partner terms
+    (``bwd_product_inputs``), on a masked group (every third row zero, the
+    guard on) and on one positive row (N = 1), each against
+    ``bwd_reduce_plain`` in f64 within 1e-5 of each output's scale (dinv of
+    its sums' magnitude), bitwise repeatable, one launch a call; and an
+    all-masked group (zero norms: inv = 0, den taken as 1) as finite zeros
+    and den 1."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    assert "la_bwd_rows_ws_kernel" in attn.bwd_reduce_design(torch.float32, m, d)
+
+    def rows(draw, n_rows):
+        return [draw(n_rows, w, generator=gen, device=cuda) for w in (m, m, d, d)]
+
+    q, k, v, g = rows(torch.randn, n)
+    keep = (torch.arange(n, device=cuda) % 3 != 1).float()[:, None]
+    qm, km, vm = q * keep, k * keep, v * keep
+    q1, k1, v1, g1 = rows(torch.rand, 1)
+    prod = bwd_product_inputs(n, m, d, torch.float32, gen)
+    kinds = [((q, v, g, *attn.reduce_plain(q, k, v, False),
+               torch.full((), float(n), device=cuda)), False),
+             ((prod[0], prod[2], prod[3], *prod[4:8]), False),
+             ((qm, vm, g, *attn.reduce_plain(qm, km, vm, True), keep.sum()), True),
+             ((q1, v1, g1, *attn.reduce_plain(q1, k1, v1, False), torch.ones((), device=cuda)),
+              False)]
+    for ins, guard in kinds:
+        ins = (*(_on_view(view, t) for t in ins[:3]), *ins[3:])
+        b0 = attn.bwd_reduce_launches
+        got = attn.bwd_reduce(*ins, guard)
+        assert attn.bwd_reduce_launches == b0 + 1
+        _f64_bwd_reduce_close(got, *ins, guard=guard)
+        assert all(torch.equal(a, b) for a, b in zip(got, attn.bwd_reduce(*ins, guard)))
+    zeros = [_on_view(view, torch.zeros(n, w, device=cuda)) for w in (m, m, d)]
+    P, ds, dinv, (den, gden) = attn.bwd_reduce(
+        zeros[0], zeros[2], _on_view(view, g), *attn.reduce_plain(*zeros, True),
+        torch.zeros((), device=cuda), True)
+    assert not (P.any() or ds.any() or dinv.any() or gden.any())
+    assert torch.equal(den, torch.ones_like(den))
+
+
+# sha256 (16 hex digits) of the f32 backward reduce's outputs (P, ds, dinv,
+# den and gden) of the rows pass it replaced (la_bwd_rows_wg_kernel), on
+# host-made inputs of N rows (``_host_apply_inputs``), read on an NVIDIA
+# H100 80GB HBM3
+EARLIER_ROWS_DIGESTS = {2000: "3a12ff8371b2fa27", 60_000: "55f20282fa8e105d"}
+
+
+@pytest.mark.parametrize("n", list(EARLIER_ROWS_DIGESTS))
+def test_redesigned_rows_pass_is_bitwise_the_earlier_kernel(cuda, n):
+    """The redesigned rows pass keeps the arithmetic of the one it replaced
+    (the products' k order and fresh-sum periods, the fold's chains and
+    tree, b's two chains, den, gden and the dinv tree), so the reduce's
+    outputs are bitwise that kernel's, also where each persistent block
+    takes several row blocks (N = 60,000)."""
+    import hashlib
+
+    q, _, v, g, sums, n_t = _host_apply_inputs(torch.float32, n)
+    got = attn.bwd_reduce(*(t.to(cuda) for t in (q, v, g, *sums, n_t)))
+    sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                  for t in got)).hexdigest()[:16]
+    assert sha == EARLIER_ROWS_DIGESTS[n]
 
 
 @pytest.mark.parametrize("m,d", [(256, 256), (37, 36), (200, 37), (8, 999), (256, 40)])
