@@ -11,12 +11,13 @@ in the same call as the change.
     python3 chip_compare.py host ROOT
     python3 chip_compare.py narrow ROOT
     python3 chip_compare.py tf32-bwd ROOT
-    python3 chip_compare.py bf16-bwd ROOT
+    python3 chip_compare.py bf16-bwd ROOT [ROOT ...]
     python3 chip_compare.py busy ROOT
     python3 chip_compare.py busy-f32 ROOT
     python3 chip_compare.py schedule ROOT
     python3 chip_compare.py designs ROOT [ROOT ...]
     python3 chip_compare.py rows ROOT [ROOT ...]
+    python3 chip_compare.py bf16-passes ROOT [ROOT ...]
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
     python3 chip_compare.py reduce ROOT [ROOT ...]
 
@@ -94,6 +95,13 @@ turns side by side, and fails unless every turn's f32 outputs are within
 tolerance and repeatable and the bf16 digests are the same in every turn
 (Step 0 of a redesign runs it on copies of the parent with one part
 removed each, which fail the check by design).
+``bf16-passes``: the bf16 backward reduce's passes of each ROOT in the
+order given (write the turns out: ROOT1 ROOT2 ROOT2 ROOT1), each turn a
+process of its own (``bf16-passes-turn ROOT``): the rows pass's and the P
+pass's device ms by the profiler (either package's kernel names) and the
+whole ``bwd_reduce`` by CUDA events at M = D = 256 on the arxiv and
+large-400K rows, and the reduce's digests on ``host_bf16_inputs`` (the
+design A/Bs of a bf16 reduce redesign, on copies with one change each).
 ``rows``: the f32 backward rows pass of each ROOT in the order given
 (write the turns out: ROOT1 ROOT2 ROOT2 ROOT1), each turn a process of
 its own (``rows-turn ROOT``): its ``ptxas`` registers and spills, its
@@ -101,20 +109,33 @@ device ms by the profiler at M = D = 256 on the arxiv, amazon2m batch,
 papers-sampled and amazon2m tail rows, and the digests of the f32
 ``bwd_reduce`` on host-made inputs (the design A/Bs of a rows-pass
 redesign, on copies with one change each).
-``bf16-bwd``: the bf16 attention backward's kernels of ROOT and of this
-checkout, each turn a process of its own (``bf16-bwd-turn ROOT``), in
-turns ROOT, this checkout, this checkout, ROOT. A turn prints the designs
-at M = D = 256, counts the ``HGMMA`` and ``HMMA`` instructions of each
-backward kernel, then at M = D = 256 on the arxiv (N = 169,343) and
-amazon2m full-batch and tail (100,000, 49,029) shapes times its package's
-bf16 ``bwd_reduce`` and ``bwd_apply`` (CUDA events, median of 20) and their
-launches apart by the profiler (the rows pass, the P pass, the split,
-finish and dinv; the apply and its split), holds each output to the plain
+``bf16-bwd``: the bf16 attention backward's kernels of each ROOT and of
+this checkout, each turn a process of its own (``bf16-bwd-turn ROOT``), in
+turns ROOT1 ... ROOTk, this checkout, this checkout, ROOTk ... ROOT1 (with
+one ROOT: ROOT, this checkout, this checkout, ROOT). A turn prints the
+designs at M = D = 256, the backward kernels' ``ptxas`` registers and
+spills, counts the ``HGMMA`` and ``HMMA`` instructions of each backward
+kernel, then at M = D = 256 on the arxiv (N = 169,343), amazon2m
+full-batch and tail (100,000, 49,029), large-400K (400,000) and
+arxiv-batch full-batch and tail (50,000, 19,343) shapes times its
+package's bf16 ``bwd_reduce`` and ``bwd_apply`` (CUDA events, median of
+20) and their launches apart by the profiler (the rows pass and the P pass
+by either package's kernel names, the split, finish and dinv; the apply
+and its split), prints each pass beside its bound (the bytes it must move
+and the operations of its split products: three for the rows pass, two
+for the P pass) and beside its own product in one bf16 ``torch.matmul``
+(``torch.matmul(q, kvs)``, ``torch.matmul(q.t(), gd)``, gd = g / den made
+beforehand; never called by the port), holds each output to the plain
 version in f64 (random inputs at n = N, and the apply on
 ``bwd_product_inputs``; the ratios printed), checks that both are bitwise
-repeatable, and digests the f32 backward's outputs at three shapes. The
-mode prints each turn's JSON line, then the turns side by side, and fails
-unless the f32 digests are equal in every turn.
+repeatable, and digests the bf16 ``bwd_reduce`` and ``bwd_apply`` at
+``BF16_DIGEST_SHAPES``, the bf16 ``bwd_reduce`` on host-made inputs
+(``host_bf16_inputs``, N = 2,000 and 60,000: ``tests/test_torch_cuda.py``'s
+``EARLIER_BF16_REDUCE_DIGESTS``) and the f32 backward's outputs at three
+shapes. The mode prints each turn's JSON line, then the turns side by
+side, and fails unless the bf16 and f32 digests are equal in every turn
+(Step 0 of a redesign runs it on copies of the parent with one part
+removed each, which fail the check by design).
 ``busy``: ROOT's own arxiv-train, large-400K-int8-train,
 amazon2m-batch-train and arxiv-cli-train phases (``chip_smoke.train_phase``,
 ``q8_train_phase``, ``amazon2m_batch_phase``, ``cli_phase``) on graphs that
@@ -230,7 +251,7 @@ def main() -> int:
              "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "busy-f32",
              "schedule",
              "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
-             "rows", "rows-turn",
+             "rows", "rows-turn", "bf16-passes", "bf16-passes-turn",
              "reduce", "reduce-turn")
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
@@ -238,7 +259,8 @@ def main() -> int:
         del sys.argv[-2:]
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
             or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
-                                                     "tf32-bwd", "rows")) \
+                                                     "tf32-bwd", "bf16-bwd", "rows",
+                                                     "bf16-passes")) \
             or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -246,13 +268,13 @@ def main() -> int:
     if mode == "tf32-bwd":
         return tf32_bwd([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "bf16-bwd":
-        return bf16_bwd(root)
+        return bf16_bwd([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "schedule":
         return schedule(root)
     if mode == "designs":
         return designs([os.path.abspath(r) for r in sys.argv[2:]])
-    if mode == "rows":
-        turns = run_turns("rows-turn", root, [os.path.abspath(r) for r in sys.argv[2:]])
+    if mode in ("rows", "bf16-passes"):
+        turns = run_turns(f"{mode}-turn", root, [os.path.abspath(r) for r in sys.argv[2:]])
         return 0 if turns is not None else 1
     if mode == "q8-f32-apply":
         return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
@@ -295,6 +317,8 @@ def main() -> int:
         return designs_turn(cs, root)
     if mode == "rows-turn":
         return rows_turn(cs, root)
+    if mode == "bf16-passes-turn":
+        return bf16_passes_turn(cs, root)
     if mode == "q8-f32-apply-turn":
         return q8_f32_apply_turn(cs, root, only)
     if mode == "reduce-turn":
@@ -558,27 +582,31 @@ def tf32_bwd(roots: list) -> int:
     return 0 if all(ok.values()) and bf16_equal else 1
 
 
-def bf16_bwd(root: str) -> int:
-    """The ``bf16-bwd`` mode: four turns, each ``bf16-bwd-turn`` in a
-    process of its own, then the turns side by side, and whether the f32
-    backward's outputs are bitwise equal in every turn."""
+def bf16_bwd(roots: list) -> int:
+    """The ``bf16-bwd`` mode: the turns, each ``bf16-bwd-turn`` in a process
+    of its own, then the turns side by side; fails unless the bf16 and the
+    f32 digests are the same in every turn."""
     import json
 
-    turns = run_turns("bf16-bwd-turn", root)
+    order = roots + [HERE, HERE] + roots[::-1]
+    turns = run_turns("bf16-bwd-turn", roots[0], order)
     if turns is None:
         return 1
-    side = {f"turn {i} ({'ROOT' if t['root'] == root else 'this checkout'})": t["bf16"]
-            for i, t in enumerate(turns)}
-    f32_equal = len({json.dumps(t["f32_digests"]) for t in turns}) == 1
-    print(json.dumps({"bf16_bwd_turns": side, "f32_bitwise_equal": f32_equal}), flush=True)
-    return 0 if f32_equal else 1
+    names = {r: f"ROOT{i + 1}" for i, r in enumerate(roots)}
+    names[HERE] = "this checkout"
+    side = {f"turn {i} ({names[t['root']]})": t["bf16"] for i, t in enumerate(turns)}
+    equal = {key: len({json.dumps(t[key]) for t in turns}) == 1
+             for key in ("bf16_digests", "bf16_reduce_digests", "f32_digests")}
+    print(json.dumps({"bf16_bwd_turns": side, "bitwise_equal": equal}), flush=True)
+    return 0 if all(equal.values()) else 1
 
 
 # the bf16 backward's launches by kernel name, either package's: the rows
 # pass, the P pass, the reduce's other launches (the split of kvs^T, the
 # P finish, the dinv sum), the apply and the apply's split
-BF16_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wgmma_kernel")
-BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel")
+BF16_ROWS = ("la_bwd_rows_tc_kernel", "la_bwd_rows_wgmma_kernel", "la_bwd_rows_ws16_kernel")
+BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel",
+               "la_bwd_reduce_ws16_kernel")
 BF16_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_split_rows_kernel", "la_bwd_finish_kernel",
                       "la_bwd_dinv_kernel")
 BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
@@ -595,6 +623,14 @@ F32_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wg_kernel", "la_bwd_apply_w
 F32_APPLY_SPLIT = ("la_bwd_split_kernel", "la_bwd_split_atoms_kernel")
 # the f32 backward's outputs digested in every turn (bitwise the parent's)
 F32_DIGEST_SHAPES = ((20_000, 256, 256), (777, 37, 19), (777, 130, 200))
+# the bf16 backward reduce's outputs on host-made inputs digested in every
+# turn of the bf16-bwd mode (the rows of tests/test_torch_cuda.py's
+# EARLIER_BF16_REDUCE_DIGESTS)
+BF16_REDUCE_DIGEST_ROWS = (2000, 60_000)
+# the bf16-bwd mode's shapes, (name, N) at M = D = 256: arxiv, the amazon2m
+# batch and its tail, large-400K, the arxiv batch and its tail
+BF16_BWD_SHAPES = (("arxiv", 169_343), ("amazon2m-batch", 100_000), ("amazon2m-batch tail", 49_029),
+                   ("large-400K", 400_000), ("arxiv-batch", 50_000), ("arxiv-batch tail", 19_343))
 # the f32 backward reduce's outputs on host-made inputs digested in every
 # turn of the tf32-bwd mode (the rows of tests/test_torch_cuda.py's
 # EARLIER_ROWS_DIGESTS)
@@ -614,6 +650,23 @@ def host_attention_inputs(n: int):
     q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
                   for _ in range(4))
     return q, k, v, g, attn.reduce_plain(q, k, v, False), torch.tensor(float(n))
+
+
+def host_bf16_inputs(n: int):
+    """q, v, g [n, 256] bf16 from numpy (seed 28) and kvs, ksum, scal and
+    n_total as the forward gives them, the sums taken in f64 and rounded to
+    f32 once, all made on the host: the arguments of ``bwd_reduce``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(28)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
+                  .to(torch.bfloat16) for _ in range(4))
+    qd, kd, vd = q.double(), k.double(), v.double()
+    q_sq, k_sq = qd.square().sum(), kd.square().sum()
+    scal = torch.stack([q_sq, k_sq, 1.0 / (q_sq.sqrt() * k_sq.sqrt()),
+                        torch.zeros((), dtype=torch.float64)]).float()
+    return q, v, g, (kd.T @ vd).float(), kd.sum(0).float(), scal, torch.tensor(float(n))
 
 
 def sass_counts(cs, root: str, library: str = "linear_attention_bwd",
@@ -639,7 +692,6 @@ def sass_counts(cs, root: str, library: str = "linear_attention_bwd",
 def bf16_bwd_turn(cs, root: str) -> int:
     """One turn of the ``bf16-bwd`` mode on ROOT's package; its last line
     of output is a JSON object of its numbers."""
-    import hashlib
     import json
     import re
 
@@ -650,18 +702,21 @@ def bf16_bwd_turn(cs, root: str) -> int:
     from sgformer_tpu_torch.utils.measure import bwd_product_inputs
 
     report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
-    for line in report.splitlines():  # the entry, registers, spills and wgmma notes
-        if re.search(r"la_bwd_(apply|rows|reduce)_(tc|wgmma)|Used|spill|wgmma|Performance", line):
+    entry = False
+    for line in report.splitlines():  # the bf16 kernels' registers, spills and warnings
+        if "entry function" in line:
+            entry = bool(re.search(r"la_bwd_(apply|rows|reduce)_(tc|wgmma|ws16)_", line))
+        if entry or "warning" in line:
             cs.log(f"ptxas {root}: {line.strip()}")
     dev, m = "cuda", 256
-    out = dict(root=root, sass=sass_counts(cs, root), bf16={}, f32_digests=[],
+    out = dict(root=root, sass=sass_counts(cs, root), bf16={}, bf16_digests=[],
+               bf16_reduce_digests={}, f32_digests=[],
                designs=dict(reduce=attn.bwd_reduce_design(torch.bfloat16, m, m),
                             apply=attn.bwd_apply_design(torch.bfloat16, m, m)))
     cs.log(f"bf16-bwd {root} designs at M = D = 256: {out['designs']}")
     passes = BF16_ROWS + BF16_P_PASS + BF16_REDUCE_OTHERS
     applies = BF16_APPLY + ("la_bwd_split_kernel", "la_bwd_split_tiles_kernel")
-    shapes = (*cs.BWD_PASS_SHAPES[:2], ("amazon2m-batch tail", 49_029))
-    for name, n in shapes:
+    for name, n in BF16_BWD_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(23)
         q, k, v, g = (torch.randn(n, m, generator=gen, device=dev).bfloat16() for _ in range(4))
         n_t = torch.full((), float(n), device=dev)
@@ -671,6 +726,7 @@ def bf16_bwd_turn(cs, root: str) -> int:
         exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, *sums, n_t)), False)
         errs = {part: rel(a, b) for part, a, b in zip(("P", "ds", "dinv", "rows"), got_r, exact)}
         repeat = all(torch.equal(a, b) for a, b in zip(got_r, attn.bwd_reduce(q, v, g, *sums, n_t)))
+        gd = (g.float() / got_r[3][0][:, None]).bfloat16()
         del got_r, exact
         got_a = attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
         exact = attn.bwd_apply_plain(*(t.double() for t in (q, k, v, g, *sums, n_t, *red)), False)
@@ -694,18 +750,57 @@ def bf16_bwd_turn(cs, root: str) -> int:
         others_ms = sum(r_dev[p] for p in BF16_REDUCE_OTHERS)
         apply_ms = sum(a_dev[p] for p in BF16_APPLY)
         split_ms = a_dev["la_bwd_split_kernel"] + a_dev["la_bwd_split_tiles_kernel"]
-        out["bf16"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms, rows_ms=rows_ms,
-                                 p_pass_ms=p_ms, reduce_others_ms=others_ms,
-                                 apply_kernel_ms=apply_ms,
+        # yardsticks: each pass's own product in one bf16 torch.matmul (never
+        # called by the port): a = q @ kvs, and P = q^T gd
+        kvs_b = sums[0].bfloat16()
+        rows_matmul_ms = cs.time_ms(lambda: torch.matmul(q, kvs_b))
+        p_matmul_ms = cs.time_ms(lambda: torch.matmul(q.t(), gd))
+        # the bounds: the rows pass reads q, v, g, kvs and ksum and writes
+        # den and gden, and runs three bf16 products (kvs^T as hi + mid + lo);
+        # the P pass reads q, g, den and gden, writes P and ds, and runs two
+        # (g/den as hi + lo); the whole reduce is both
+        small = (m * m + m) * 4
+        rows_bound = cs.bound_ms(3 * n * m * 2 + small + 2 * n * 4, 3 * 2 * n * m * m,
+                                 torch.bfloat16)
+        p_bound = cs.bound_ms(2 * n * m * 2 + 2 * n * 4 + small, 2 * 2 * n * m * m, torch.bfloat16)
+        r_bound = cs.bound_ms(3 * n * m * 2 + 2 * small + 2 * n * 4 + 4,
+                              5 * 2 * n * m * m + 6 * n * m + 2 * n * m, torch.bfloat16)
+        out["bf16"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms,
+                                 bwd_reduce_bound_ms=r_bound[0], bwd_reduce_bound_by=r_bound[1],
+                                 rows_ms=rows_ms, rows_bound_ms=rows_bound[0],
+                                 rows_bound_by=rows_bound[1], rows_matmul_ms=rows_matmul_ms,
+                                 p_pass_ms=p_ms, p_pass_bound_ms=p_bound[0],
+                                 p_pass_bound_by=p_bound[1], p_pass_matmul_ms=p_matmul_ms,
+                                 reduce_others_ms=others_ms, apply_kernel_ms=apply_ms,
                                  apply_split_ms=split_ms, rel_err=errs,
                                  bitwise_repeatable=repeat)
         cs.log(f"bf16-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}, "
-               f"split {split_ms:.4f}), bwd_reduce {r_ms:.4f} ms (rows pass "
-               f"{rows_ms:.4f}, P pass {p_ms:.4f}, split, finish and dinv {others_ms:.4f}); "
-               f"bitwise repeatable {repeat}; |kernel - plain in f64| / scale: "
+               f"split {split_ms:.4f}), bwd_reduce {r_ms:.4f} ms (bound {r_bound[0]:.4f} by "
+               f"{r_bound[1]}; rows pass {rows_ms:.4f}, bound {rows_bound[0]:.4f} by "
+               f"{rows_bound[1]}, torch.matmul q @ kvs {rows_matmul_ms:.4f}; P pass {p_ms:.4f}, "
+               f"bound {p_bound[0]:.4f} by {p_bound[1]}, torch.matmul q^T gd {p_matmul_ms:.4f}; "
+               f"split, finish and dinv {others_ms:.4f}); bitwise repeatable {repeat}; "
+               "|kernel - plain in f64| / scale: "
                + ", ".join(f"{p} {e:.2e}" for p, e in errs.items()))
-        del q, k, v, g, sums, red
+        del q, k, v, g, sums, red, gd, kvs_b
         torch.cuda.empty_cache()
+    for n, m_, d_ in BF16_DIGEST_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
+        q, k = (torch.randn(n, m_, generator=gen, device=dev).bfloat16() for _ in range(2))
+        v, g = (torch.randn(n, d_, generator=gen, device=dev).bfloat16() for _ in range(2))
+        n_t = torch.full((), float(n), device=dev)
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        sha = digest((*attn.bwd_reduce(q, v, g, *sums, n_t),
+                      *attn.bwd_apply(q, k, v, g, *sums, n_t, *red)))
+        out["bf16_digests"].append(dict(shape=[n, m_, d_], sha256=sha))
+        cs.log(f"bf16-bwd {root} bf16 n={n} m={m_} d={d_}: bwd_reduce and bwd_apply outputs "
+               f"sha256 {sha}")
+        del q, k, v, g, sums, red
+    for n in BF16_REDUCE_DIGEST_ROWS:
+        sha = digest(attn.bwd_reduce(*(t.to(dev) for t in host_bf16_inputs(n))))
+        out["bf16_reduce_digests"][str(n)] = sha
+        cs.log(f"bf16-bwd {root} bf16 bwd_reduce n={n} (host-made inputs): outputs sha256 {sha}")
     for n, m_, d_ in F32_DIGEST_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
         q, k = (torch.randn(n, m_, generator=gen, device=dev) for _ in range(2))
@@ -713,13 +808,11 @@ def bf16_bwd_turn(cs, root: str) -> int:
         n_t = torch.full((), float(n), device=dev)
         sums = attn.reduce_plain(q, k, v, False)
         red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
-        outs = (*attn.bwd_reduce(q, v, g, *sums, n_t),
-                *attn.bwd_apply(q, k, v, g, *sums, n_t, *red))
-        digest = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
-                                         for t in outs)).hexdigest()[:16]
-        out["f32_digests"].append(dict(shape=[n, m_, d_], sha256=digest))
-        cs.log(f"bf16-bwd {root} f32 n={n} m={m_} d={d_}: outputs sha256 {digest}")
-        del q, k, v, g, sums, red, outs
+        sha = digest((*attn.bwd_reduce(q, v, g, *sums, n_t),
+                      *attn.bwd_apply(q, k, v, g, *sums, n_t, *red)))
+        out["f32_digests"].append(dict(shape=[n, m_, d_], sha256=sha))
+        cs.log(f"bf16-bwd {root} f32 n={n} m={m_} d={d_}: outputs sha256 {sha}")
+        del q, k, v, g, sums, red
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1157,6 +1250,44 @@ def rows_turn(cs, root: str) -> int:
         q, _, v, g, sums, n_t = host_attention_inputs(n)
         out["digests"][str(n)] = digest(attn.bwd_reduce(*(t.cuda() for t in (q, v, g, *sums,
                                                                                n_t))))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def bf16_passes_turn(cs, root: str) -> int:
+    """One turn of the ``bf16-passes`` mode on ROOT's package: the bf16
+    rows pass's and P pass's device ms by the profiler and the whole
+    ``bwd_reduce`` by CUDA events at M = D = 256 on the arxiv and large-400K
+    rows (randn, 20 calls), the backward library's ``ptxas`` spill lines,
+    and the reduce's digests on ``host_bf16_inputs``; its last line of
+    output is a JSON object."""
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
+    out = dict(root=root, spills=[line.strip() for line in report.splitlines() if "spill" in line],
+               ms={}, digests={})
+    for name, n in (("arxiv", 169_343), ("large-400K", 400_000)):
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q, k, v, g = (torch.randn(n, 256, generator=gen, device="cuda").bfloat16()
+                      for _ in range(4))
+        n_t = torch.full((), float(n), device="cuda")
+        sums = attn.reduce_plain(q, k, v, False)
+        dev_ms = cs.kernel_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t),
+                              BF16_ROWS + BF16_P_PASS)
+        out["ms"][name] = dict(rows=sum(dev_ms[p] for p in BF16_ROWS),
+                               p_pass=sum(dev_ms[p] for p in BF16_P_PASS),
+                               whole=cs.time_ms(lambda: attn.bwd_reduce(q, v, g, *sums, n_t)))
+        cs.log(f"bf16-passes {root} {name}: rows pass {out['ms'][name]['rows']:.4f} ms, P pass "
+               f"{out['ms'][name]['p_pass']:.4f} ms, bwd_reduce {out['ms'][name]['whole']:.4f} ms")
+        del q, k, v, g, sums
+        torch.cuda.empty_cache()
+    for n in BF16_REDUCE_DIGEST_ROWS:
+        out["digests"][str(n)] = digest(attn.bwd_reduce(*(t.cuda() for t in host_bf16_inputs(n))))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -719,9 +719,8 @@ def kernel_ms(run, names: tuple, reps: int = 20) -> dict:
 def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
     """The backward apply's and reduce's designs for these widths, logged;
     at the model's width both take the tensor cores on warpgroup MMAs (f32
-    in 3xTF32, the reduce's rows pass ``la_bwd_rows_ws_kernel`` and P pass
-    ``la_bwd_reduce_wg_kernel``; bf16), the
-    apply (its kernel of ``BWD_APPLY_KERNELS``) and both reduce passes."""
+    in 3xTF32; bf16), the apply its kernel of ``BWD_APPLY_KERNELS`` and the
+    reduce its rows pass and P pass of ``BWD_REDUCE_KERNELS``."""
     design, red_design = attn.bwd_apply_design(dtype, m, d), attn.bwd_reduce_design(dtype, m, d)
     name = DTYPE_NAME[dtype]
     log(f"bwd_apply {name} design at {where}: {design}")
@@ -730,8 +729,7 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
             if dtype == torch.float32 else ("tensor cores (wgmma bf16", "tensor cores (wgmma bf16"))
     rows_pass, p_pass = BWD_REDUCE_KERNELS[dtype][:2]
     if (m, d) == (256, 256) and not (design.startswith(want[0]) and red_design.startswith(want[1])
-                                     and (dtype != torch.float32 or (rows_pass in red_design
-                                                                     and p_pass in red_design))
+                                     and rows_pass in red_design and p_pass in red_design
                                      and BWD_APPLY_KERNELS[dtype] in design):
         raise AssertionError(f"the {name} backward kernels at M = D = 256 are not the "
                              f"tensor-core design")
@@ -743,16 +741,25 @@ def bwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
 BWD_REDUCE_KERNELS = {
     torch.float32: ("la_bwd_rows_ws_kernel", "la_bwd_reduce_wg_kernel", "split_kvs_kernel",
                     "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
-    torch.bfloat16: ("la_bwd_rows_wgmma_kernel", "la_bwd_reduce_wgmma_kernel",
+    torch.bfloat16: ("la_bwd_rows_ws16_kernel", "la_bwd_reduce_ws16_kernel",
                      "la_bwd_split_rows_kernel", "la_bwd_finish_kernel", "la_bwd_dinv_kernel"),
 }
+
+
+def bwd_reduce_ops(n: int, m: int, d: int, dtype) -> int:
+    """The backward reduce's operations on n rows: its products at the
+    precision its tolerance needs (f32: q @ kvs and q^T gd, each three TF32
+    products at the 3xTF32 rate; bf16: five bf16 products, kvs as hi + mid
+    + lo and g/den as hi + lo) and its row and column sums."""
+    return (4 if dtype == torch.float32 else 10) * n * m * d + 6 * n * d + 2 * n * m
 
 
 def bwd_passes_ms(attn, n: int, dev: str, dtype=torch.float32) -> dict:
     """The backward reduce's launches apart (``kernel_ms``) at M = D = 256
     on n random rows of ``dtype``: rows pass, P pass and the rest, device ms
-    a call; beside the P pass its bound (2 n m d operations at the type's
-    peak, or the bytes of q, g, den, gden, P and ds) and the yardstick of
+    a call; beside the P pass its bound (its products at the type's peak:
+    one f32 product in 3xTF32, or two bf16 ones, g/den's hi and lo; or the
+    bytes of q, g, den, gden, P and ds) and the yardstick of
     its product, ``torch.matmul(q.t(), gd)`` in the inputs' type (TF32 off)
     with gd = g / den made beforehand (never called by the port)."""
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -765,7 +772,8 @@ def bwd_passes_ms(attn, n: int, dev: str, dtype=torch.float32) -> dict:
     gd = (g.float() / attn.bwd_reduce(q, v, g, *sums, n_t)[3][0][:, None]).to(dtype)
     p_matmul_ms = time_ms(lambda: torch.matmul(q.t(), gd))
     p_bound_ms, p_bound_by = bound_ms((n * m + n * d) * q.element_size() + 2 * n * 4
-                                      + (m * d + m) * 4, 2 * n * m * d, dtype)
+                                      + (m * d + m) * 4,
+                                      (2 if dtype == torch.float32 else 4) * n * m * d, dtype)
     return dict(rows_ms=dev_ms[names[0]], p_pass_ms=dev_ms[names[1]],
                 others_ms=sum(dev_ms[k] for k in names[2:]), p_pass_bound_ms=p_bound_ms,
                 p_pass_bound_by=p_bound_by, p_pass_matmul_ms=p_matmul_ms)
@@ -929,7 +937,9 @@ def bwd_product_check(attn, n: int, m: int, d: int, dev: str, dtype=torch.float3
     f64 (BWD_REL_TOL of the type), each bitwise repeatable; in f32 the
     reduce also on ``bwd_reduce_product_inputs`` (positive q and g/den a
     fraction of a tf32 step above tf32 values: a P pass that drops a tf32 lo
-    piece of q or of g/den misses the tolerance)."""
+    piece of q or of g/den misses the tolerance), in bf16 on the ``cancel``
+    form of ``bwd_product_inputs`` (kvs's terms cancel in q @ kvs: a rows
+    pass that drops kvs's lo piece misses gden's tolerance)."""
     from sgformer_tpu_torch.utils.measure import bwd_product_inputs, bwd_reduce_product_inputs
 
     name = DTYPE_NAME[dtype]
@@ -950,6 +960,11 @@ def bwd_product_check(attn, n: int, m: int, d: int, dev: str, dtype=torch.float3
         check_bwd_reduce_f64(attn, "bwd_reduce f32 (P's products carry it)",
                              bwd_reduce_product_inputs(n, m, d, dtype, torch.Generator(
                                  device=dev).manual_seed(9)))
+    else:
+        ins = bwd_product_inputs(n, m, d, dtype, torch.Generator(device=dev).manual_seed(10),
+                                 cancel=True)
+        check_bwd_reduce_f64(attn, f"bwd_reduce {name} (kvs's terms cancel in q @ kvs)",
+                             (ins[0], *ins[2:8]))
 
 
 def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
@@ -1068,7 +1083,7 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         small = (2 * m * d + 2 * m + 6) * 4  # kvs or P, ksum or ds, scalars
         # reduce: q @ kvs and q^T gd; reads q, v, g, writes P, ds, dinv, den, gden
         rb_ms, rb_by = bound_ms(3 * n * m * elt + small + 2 * n * 4,
-                             4 * n * m * d + 6 * n * d + 2 * n * m, dtype)
+                             bwd_reduce_ops(n, m, d, dtype), dtype)
         # apply: gd @ kvs^T, v @ P^T, k @ P; reads q, k, v, g, den, gden,
         # writes dq, dk, dv
         ab_ms, ab_by = bound_ms(7 * n * m * elt + 2 * small + 2 * n * 4,
@@ -2203,7 +2218,7 @@ def batch_kernel_phase(graph_b, results: dict, key: str, dev: str, dtype) -> Non
         "linear_attention_bwd_reduce": (
             lambda: attn.bwd_reduce(q, v, g, *sums, n_t),
             lambda: attn.bwd_reduce_plain(q, v, g, *sums, n_t, False),
-            3 * n * m * elt + small + 2 * n * 4, 4 * n * m * m + 6 * n * m + 2 * n * m),
+            3 * n * m * elt + small + 2 * n * 4, bwd_reduce_ops(n, m, m, dtype)),
         "linear_attention_bwd_apply": (
             lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red),
             lambda: attn.bwd_apply_plain(q, k, v, g, *sums, n_t, *red, False),

@@ -51,13 +51,13 @@
 // The bf16 backward runs its products on the tensor cores by warpgroup MMAs
 // (wgmma m64nNk16 bf16, f32 sums), both operands read through descriptors
 // from 128-byte-swizzled shared memory. Each kernel is warp-specialised: a
-// producer warp issues every copy by the copy engine (TMA: tensor maps of
-// the row-strided inputs, bulk copies of the split operands, which their
-// split kernels lay out already swizzled), two consumer warpgroups of 64
-// rows run the MMAs and the epilogues, and mbarriers hand each stage of a
-// ring over. (Copies issued by the warps that also ran the MMAs stalled
-// them: an SM takes new copies only as fast as device memory returns the
-// old ones, and that, not the MMAs, set these kernels' time.)
+// producer warp or warpgroup issues every copy by the copy engine (TMA:
+// tensor maps of the row-strided inputs, bulk copies of the split operands,
+// which their split kernels lay out already swizzled), two consumer
+// warpgroups of 64 rows run the MMAs and the epilogues, and mbarriers hand
+// each stage of a ring over. (Copies issued by the warps that also ran the
+// MMAs stalled them: an SM takes new copies only as fast as device memory
+// returns the old ones, and that, not the MMAs, set these kernels' time.)
 // - the apply (la_bwd_apply_wgmma_kernel): the A side is the bf16 input
 //   rows as they are (g, v, k; the 1/den of gd = g/den moves into the
 //   epilogue); the B side, kvs and P, stays f32 in meaning: each is split
@@ -69,21 +69,26 @@
 //   tile is written through shared memory and stored by the copy engine.
 //   The products, 6 x 22.2 GFLOP at the arxiv shape, are ~0.13 ms at the
 //   card's bf16 peak, under the bytes bound;
-// - the reduce's rows pass (la_bwd_rows_wgmma_kernel) forms a = q @ kvs from
-//   the q rows staged once and kvs^T split into three bf16 pieces, hi + mid
-//   + lo, by la_bwd_split_rows_kernel (three MMAs a product, each k16 step
-//   into fresh sums added in f32 round-to-nearest: dinv's sums cancel, and
-//   two pieces left it 1.3e-5 of its size off); each 64-column tile of a is
-//   folded at once into sum_d g*a and sum_d g*v per row, so a never leaves
-//   the registers, and the pass writes den, gden and the f64 dinv partial
-//   as the CUDA-core pass does;
-// - the P pass (la_bwd_reduce_wgmma_kernel) forms P = q^T (g/den) over node
+// - the reduce's rows pass (la_bwd_rows_ws16_kernel) forms a = q @ kvs from
+//   the q rows and kvs^T split into three bf16 pieces, hi + mid + lo, by
+//   la_bwd_split_rows_kernel (three MMAs a product, each k16 step into fresh
+//   sums added in f32 round-to-nearest: dinv's sums cancel, and two pieces
+//   left it 1.3e-5 of its size off); each 64-column tile of a is folded at
+//   once into sum_d g*a and sum_d g*v per row, so a never leaves the
+//   registers, and the pass writes den, gden and the f64 dinv partial as
+//   the CUDA-core pass does; persistent, the next row block's q rows
+//   landing under this one's last column tile;
+// - the P pass (la_bwd_reduce_ws16_kernel) forms P = q^T (g/den) over node
 //   slices with both operands node-major (the MMAs read them transposed:
 //   MN-major descriptors, which 16-bit operands allow): q as it is, gd = g *
 //   (1/den) formed in f32 as each chunk lands and split into bf16 hi + lo,
-//   two MMAs a product, fresh sums every 32 rows, software-pipelined so
-//   that a chunk's MMAs run under the next chunk's split; ds keeps its
-//   per-slice f64 sum on the CUDA cores.
+//   once for all the m rows of a block's tile, two MMAs a product, fresh
+//   sums every 32 rows, software-pipelined so that a chunk's MMAs run under
+//   the next chunk's split; ds keeps its per-slice f64 sums on the producer
+//   warpgroup's spare warps; persistent over (slice, tile) items.
+// The first wgmma kernels of both passes (one block a row block or tile,
+// nothing of one block's loads under another's work, ds on the consumers of
+// a quarter of the blocks) ran at 3.2x and 4.1x their bounds (PERF.md).
 // These replaced mma.sync m16n8k16 kernels (ldmatrix fragments, one B
 // fragment load and MMA for each 16 x 8 x 16 product), which ran the
 // products at 13-19 % of the bf16 peak (PERF.md). a is recomputed from q and
@@ -1168,384 +1173,583 @@ la_bwd_split_rows_kernel(const float* __restrict__ kvs, int M, int D, bf16* __re
   }
 }
 
-// The reduce's rows pass. grid (ceil(N / 128)); block bx owns rows [128*bx,
-// 128*bx + 128). Dynamic shared memory: the q rows as Mk/64 swizzled
-// [128][64] k-tiles (64 KB at M = 256), staged once; a ring of `stages`
-// 64-deep chunks of kvs^T's three pieces (hi, mid, lo, laid out swizzled
-// by la_bwd_split_rows_kernel, [64 n][64 k] each, 24 KB a stage: 4 stages
-// up to M = 512, 2 up to 704); b, sum_d g*a, sum_d g*v per row, the dinv
-// tree and the mbarriers. The warps specialise, as the apply's: a producer
-// warp brings the q rows by the copy engine (a tensor map, or its own
-// copies where the rows' strides do not allow one) and then each chunk's
-// pieces by bulk copies as the consumers free its stage (full and empty
-// mbarriers); the two consumer warpgroups of 64 rows run the chunks of all
-// 64-column tiles of a = q @ kvs as one stream. Each k16 step's three
-// pieces (wgmma m64n64k16, A = the warpgroup's 64 q rows, B = the piece) go
-// into fresh sums (scale-d = 0 on hi), added to the column tile's sums with
-// f32 round-to-nearest adds, the parent's arithmetic (dinv's two sums
-// cancel, and a truncating accumulation over K would move them); a step's
-// sums are double-buffered, so that its MMAs run while the warps add the
-// last step's. A finished column tile is folded at once into sum_d g*a and
-// sum_d g*v of the lane's two fragment rows, so a never leaves registers:
-// g and v at the fragment's columns (two bf16 a load where vec_io) are
-// loaded when the tile starts, so that the loads run under its MMAs (the
-// fold's loads one after another cost as much as the MMAs); b = q . ksum
-// comes from the staged rows while the first MMAs run. Then den, gden and
-// the block's f64 dinv partial, as la_bwd_rows_kernel computes them.
+// The bf16 reduce's rows pass on warpgroup MMAs (wgmma m64n64k16 bf16, f32
+// sums; A from registers, B through descriptors), warp-specialised, fed by
+// the copy engine and persistent, the f32 rows pass's design
+// (la_bwd_rows_ws_kernel) on bf16 rows: grid min(ceil(N / 128), SMs), one
+// block an SM, block b taking the 128-row blocks b, b + grid, ... in turn.
+// It replaces, with the P pass, sgformer_tpu/kernels/attention.py::
+// _bwd_reduce_kernel for bf16 rows: per row a = q @ kvs, folded at once into
+// sum_d g*a, with b = q . ksum and sum_d g*v, then den, gden and the row
+// block's f64 partial of dinv. Bound by its bytes (q, v and g read once:
+// 0.078 ms at the arxiv shape; its three bf16 products 0.067). Two consumer
+// warpgroups of 64 rows and a producer warpgroup, which gives its registers
+// to the consumers (setmaxnreg). Dynamic shared memory, 1024-byte aligned
+// (no static shared memory), every tile 128-byte swizzled over rows of 64
+// bf16 (sw128_offset): a row block's q rows as kt = ceil(M / 64) slots of
+// one k-tile each ([128 rows][64], 16 KB; 64 KB at M = 256); a ring of
+// `stages` chunks of kvs^T, each the three bf16 pieces (hi, mid, lo) of one
+// (column tile, k-tile) as la_bwd_split_rows_kernel lays them out ([64
+// n][64 k], 8 KB each), moved by three bulk copies; where the copy engine
+// may read g and v (vec_io) and they fit, one g tile and one v tile
+// [128][64] (gv_tile); b a row, the dinv tree and the mbarriers: 194 KB at
+// M = 256 (4 stages), 226 KB at M = 704 (2 stages, no g and v tiles).
+//
+// The kernel this replaced (one block a row block, its whole q tile awaited
+// before the first MMA, each column tile's g and v requested only once
+// every consumer had read the last ones) overlapped nothing. Here the next
+// row block's q rows land under this one's last column tile, slot by slot:
+// in a row block's last column tile each consumer warp frees slot j (an
+// empty mbarrier of its own, on which the two sum warps also arrive once
+// they have read the k-tile) once the MMAs that read k-tile j are done; the
+// producer then brings the next row block's k-tile j into it. The first
+// column tile waits for each k-tile as it reaches it.
+//
+// The producer warpgroup: warp 0's lane 0 brings the kvs^T chunks by bulk
+// copies as the consumers free their stages (full and empty mbarriers);
+// warp 1 brings each row block's q k-tiles and each column tile's g and v
+// rows by tensor maps (the tiles once the consumers have read the last
+// ones); warps 2 and 3, the sum warps, form b = q . ksum from the staged q
+// rows (two f32 FMA chains a row, the even and the odd columns, in column
+// order, added, as two threads a row of the kernel this replaced formed
+// them) and hand it to the consumers a row block. Where the rows' strides
+// or bases do not allow a tensor map (vec_a 0) warp 1's lanes copy q one
+// element a lane at a time; without the g and v tiles the consumers read g
+// and v into their registers when a column tile starts, so that the loads
+// run under its MMAs.
+//
+// The consumers keep the arithmetic of the kernel this replaced, so that
+// den, gden and dinv are bitwise its: each k16 step's three MMAs (A = the
+// warpgroup's 64 q rows, loaded into registers by ldmatrix once for the
+// three; B = hi, mid, lo) into fresh sums (scale-d = 0 on hi), added to the
+// column tile's f32 sums in round-to-nearest in k order, a step's sums and
+// A fragments double-buffered so that its MMAs run while the warps add the
+// last step's; a finished column tile folded into the lane's sum_d g*a and
+// sum_d g*v, one f32 FMA chain each over the lane's two columns of each
+// eight-column group in column order, the column tiles in order, g and v at
+// the fragment's columns (each warp frees the staged tiles once its values
+// are in registers); the four lanes of a fragment row added by a fixed xor
+// tree. Then the lanes that hold a row's sums form den, gden and the row's
+// dinv term as la_bwd_rows_kernel does, and the row block's f64 partial is
+// the same pairwise tree over its 128 rows, stored under the row block's
+// index. Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): neither
+// the q, g and v loads nor the ring's L2 traffic bound this pass (each
+// removed, it ran within 3 %); its MMAs take 0.056 ms of 0.18 at the arxiv
+// shape, and the rest is the consumers' issue of the fresh sums' adds and
+// the handshakes. (Forming b on the consumers, as the kernel this replaced
+// did, ran 25 % slower; the steps pipelined across chunks, 30 % slower; two
+// g and v buffers, or the next row block's rows prefetched into L2, gained
+// nothing.)
 constexpr int kRowsPiece16 = 64 * 128;  // bytes of one piece's [64][64] chunk
 constexpr int kRowsConsumers = 2 * 128;
-constexpr int kRowsThreads = kRowsConsumers + 32;  // and the producer warp
-// b, ga, gv (f32) and the dinv tree (f64), then the q barrier and the
-// ring's full and empty barriers
-constexpr int kRowsSmall16 = kTcRows * (3 * 4 + 8);
+constexpr int kRsThreads = kRowsConsumers + 128;  // and the producer warpgroup
+constexpr int kRsStage = 3 * kRowsPiece16;        // a chunk: its hi, mid and lo pieces
+// registers a thread after setmaxnreg: the producer warpgroup's and the
+// consumers', together the 168 a thread of the launch (under 56 the
+// producer's counts and pointers spilled)
+constexpr int kRsProducerRegs = 56;
+constexpr int kRsConsumerRegs = 224;
+static_assert(2 * kRsConsumerRegs + kRsProducerRegs == 3 * 168, "the launch's registers");
+// the q slots are read by the consumer warps and the two sum warps
+constexpr int kRsReaders = kRowsConsumers / 32 + 2;
 
-size_t rows_wgmma_smem(int M, int stages, int gv_tiles) {
-  return static_cast<size_t>(tc::split_pad(M) / 64 + 2 * gv_tiles) * kWgTile16 +
-         static_cast<size_t>(stages) * 3 * kRowsPiece16 + kRowsSmall16 +
-         (2 + 2 * static_cast<size_t>(stages)) * sizeof(uint64_t);
+
+size_t rows_ws16_smem(int M, int stages, int gv_tile) {
+  const int kt = tc::split_pad(M) / 64;
+  return static_cast<size_t>(kt + 2 * gv_tile) * kWgTile16 +
+         static_cast<size_t>(stages) * kRsStage +
+         kTcRows * (sizeof(double) + sizeof(float)) +
+         (2 * static_cast<size_t>(kt) + 2 * stages + 4) * sizeof(uint64_t);
 }
 
-// The pass's layout at this width: the ring's depth (4, or 2 where four do
-// not fit) and whether a column tile's g and v are staged in shared memory
-// (gv_tiles, where the copy engine may read them: gv_ok), in that order of
-// preference; stages 0 where the q tile and two stages do not fit one
-// block's shared memory.
-void rows_wgmma_layout(int M, int gv_ok, int& stages, int& gv_tiles) {
-  for (gv_tiles = gv_ok; gv_tiles >= 0; --gv_tiles) {
-    for (stages = 4; stages >= 2; stages -= 2) {
-      if (rows_wgmma_smem(M, stages, gv_tiles) <= kSmemPerBlock) return;
+// The pass's layout at this width: the g and v tiles where the copy engine
+// may read them (gv_ok) and they fit, then the ring's depth, 4 down to 2;
+// stages 0 where the q slots and two stages do not fit one block's shared
+// memory (M above 704: the CUDA-core pass runs).
+void rows_ws16_layout(int M, int gv_ok, int& stages, int& gv_tile) {
+  for (gv_tile = gv_ok; gv_tile >= 0; --gv_tile) {
+    for (stages = 4; stages >= 2; --stages) {
+      if (rows_ws16_smem(M, stages, gv_tile) <= kSmemPerBlock) return;
     }
   }
-  stages = gv_tiles = 0;
+  stages = gv_tile = 0;
 }
-int rows_wgmma_stages(int M) {
-  int stages, gv_tiles;
-  rows_wgmma_layout(M, 0, stages, gv_tiles);
+int rows_ws16_stages(int M) {
+  int stages, gv_tile;
+  rows_ws16_layout(M, 0, stages, gv_tile);
   return stages;
 }
 
-// the consumers' own barrier (the producer warp has left)
+// the consumers' own barrier (the producer has left)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kRowsConsumers) : "memory");
 }
 
-__global__ void __launch_bounds__(kRowsThreads, 1)
-la_bwd_rows_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
-                         const bf16* __restrict__ g, long ldq, long ldv, long ldg, int N, int M,
-                         int D, const bf16* __restrict__ hl, const float* __restrict__ ksum,
-                         const float* __restrict__ scal, const float* __restrict__ n_total,
-                         int guard, int vec_a, int vec_io, int stages, int gv_tiles,
-                         float* __restrict__ den_out, float* __restrict__ gden_out,
-                         double* __restrict__ dinv_part,
-                         const __grid_constant__ CUtensorMap map_q,
-                         const __grid_constant__ CUtensorMap map_g,
-                         const __grid_constant__ CUtensorMap map_v) {
+// d[64 x 64] = A[64 x 16] B[16 x 64] + (scale_d ? d : 0), bf16 in, f32
+// sums, A from registers (each warp's 16 rows of the warpgroup's 64 as the
+// m16 x k16 fragment ldmatrix_x4 loads), B K-major through its descriptor;
+// d laid out as tc::wgmma_m64n64k16's
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// the m16 x k16 bf16 fragment of rows r0 .. r0 + 15, k0 .. k0 + 15 of a
+// swizzled tile of 64-wide rows (tc::sw128_offset), as mma.m16n8k16's A:
+// a[0] rows r0 + g, k0 + 2t (+1); a[1] rows + 8; a[2] k + 8; a[3] both
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const unsigned char* tile, int r0,
+                                            int k0, int lane) {
+  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int k = k0 + (lane >> 4) * 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(tc::smem_addr(tile + tc::sw128_offset(r, k))));
+}
+
+// the rows pass's tensor maps: q, g and v rows in [128][64] bf16 boxes
+struct RsMaps {
+  CUtensorMap q, g, v;
+};
+
+__global__ void __launch_bounds__(kRsThreads, 1)
+la_bwd_rows_ws16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
+                        const bf16* __restrict__ g, long ldq, long ldv, long ldg, int N, int M,
+                        int D, const bf16* __restrict__ hl, const float* __restrict__ ksum,
+                        const float* __restrict__ scal, const float* __restrict__ n_total,
+                        int guard, int vec_a, int vec_io, int stages, int gv_tile,
+                        float* __restrict__ den_out, float* __restrict__ gden_out,
+                        double* __restrict__ dinv_part, const __grid_constant__ RsMaps maps) {
+  using namespace tc;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
-  const int Mk = tc::split_pad(M);
-  const int kt = Mk / 64;  // k-tiles of q, chunks a column tile
-  const int chunks = kt * (tc::split_pad(D) / 64);
-  unsigned char* As = smem_raw;                         // [kt][128][64]
-  unsigned char* GVs = As + static_cast<size_t>(kt) * kWgTile16;  // g, v [128][64] (gv_tiles)
-  unsigned char* Bs = GVs + 2 * gv_tiles * kWgTile16;   // [stage][piece][64][64]
-  float* b_s = reinterpret_cast<float*>(Bs + static_cast<size_t>(stages) * 3 * kRowsPiece16);
-  float* ga_s = b_s + kTcRows;
-  float* gv_s = ga_s + kTcRows;
-  double* red = reinterpret_cast<double*>(gv_s + kTcRows);
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(red + kTcRows);  // the q rows have landed
-  uint64_t* gvbar = qbar + 1;                                   // a tile's g and v have landed
-  uint64_t* full = gvbar + 1;                                   // a stage has landed
-  uint64_t* empty = full + stages;                              // a stage's MMAs are done
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  // (the widths' counts are formed again in each role: a value live across
+  // setmaxnreg is spilled)
+  const int kt = split_pad(M) / 64;  // q's k-tiles, chunks a column tile
+  unsigned char* Qs = smem_raw;                                        // [kt][128][64]
+  unsigned char* Gs = Qs + static_cast<size_t>(kt) * kWgTile16;  // g, v [128][64] (gv_tile)
+  unsigned char* Bs = Gs + static_cast<size_t>(2 * gv_tile) * kWgTile16;  // [stage][hi, mid, lo]
+  double* red = reinterpret_cast<double*>(Bs + static_cast<size_t>(stages) * kRsStage);
+  float* b_s = reinterpret_cast<float*>(red + kTcRows);           // q . ksum a row
+  uint64_t* afull = reinterpret_cast<uint64_t*>(b_s + kTcRows);   // a q k-tile has landed
+  uint64_t* aempty = afull + kt;                                  // a q slot is read
+  uint64_t* full = aempty + kt;                                   // a stage has landed
+  uint64_t* empty = full + stages;                                // a stage's MMAs are done
+  uint64_t* gfull = empty + stages;                               // a g, v tile has landed
+  uint64_t* gempty = gfull + 1;                                   // a g, v tile is read
+  uint64_t* sfull = gempty + 1;                                   // b_s holds a block's b
+  uint64_t* sempty = sfull + 1;                                   // b_s and red are read
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;  // rows 16 * warp .. + 16; warpgroup warp / 4
-  const long r0 = static_cast<long>(blockIdx.x) * kTcRows;
+  const int warp = tid >> 5;
 
   if (tid == 0) {
-    tc::mbar_init(qbar, 1);
-    tc::mbar_init(gvbar, 1);
-    for (int i = 0; i < stages; ++i) {
-      tc::mbar_init(full + i, 1);
-      tc::mbar_init(empty + i, kRowsConsumers / 32);
+    for (int j = 0; j < kt; ++j) {
+      mbar_init(afull + j, 1);
+      mbar_init(aempty + j, kRsReaders);
     }
-    tc::mbar_init_fence();
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRowsConsumers / 32);
+    }
+    mbar_init(gfull, 1);
+    mbar_init(gempty, kRowsConsumers / 32);
+    mbar_init(sfull, 2);
+    mbar_init(sempty, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == kRowsConsumers / 32) {  // the producer
-    if (vec_a) {
+  if (warp >= kRowsConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<kRsProducerRegs>();
+    const int pw = warp - kRowsConsumers / 32;
+    const int tiles = cdiv(D, kTcCols);
+    const int blocks = cdiv(N, kTcRows);
+    if (pw == 0) {  // the kvs^T chunks, each into its stage once the consumers have freed it
       if (lane == 0) {
-        tc::mbar_arrive_expect_tx(qbar, kt * kWgTile16);
-        for (int c = 0; c < kt; ++c) tc::tma_load_2d(As + c * kWgTile16, &map_q, c * 64,
-                                                     static_cast<int>(r0), qbar);
-      }
-    } else {
-      for (int i = lane; i < kTcRows * Mk; i += 32) {
-        const int r = i / Mk;
-        const int c = i % Mk;
-        *reinterpret_cast<bf16*>(As + (c >> 6) * kWgTile16 + sw128_offset(r, c & 63)) =
-            r0 + r < N && c < M ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
-      }
-      tc::fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) tc::mbar_arrive(qbar);
-    }
-    if (lane == 0) {
-      for (int ch = 0; ch < chunks; ++ch) {
-        const int st = ch % stages;
-        if (ch >= stages) tc::mbar_wait(empty + st, (ch / stages - 1) & 1);
-        tc::mbar_arrive_expect_tx(full + st, 3 * kRowsPiece16);
-        const bf16* src = hl + static_cast<size_t>(ch) * 3 * 4096;  // chunk (ch / kt, ch % kt)
-        unsigned char* dst = Bs + static_cast<size_t>(st) * 3 * kRowsPiece16;
-        for (int p = 0; p < 3; ++p) {
-          tc::bulk_copy_g2s(dst + p * kRowsPiece16, src + p * 4096, kRowsPiece16, full + st);
-        }
-      }
-    }
-    return;
-  }
-
-  float acc[32], part[2][32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = part[0][i] = part[1][i] = 0.f;
-  float ga[2] = {0.f, 0.f}, gv[2] = {0.f, 0.f};  // the lane's rows 16 * warp + lane / 4 (+ 8)
-  // column tile t's g and v into shared memory by the copy engine
-  auto load_gv = [&](int t) {
-    tc::mbar_arrive_expect_tx(gvbar, 2 * kWgTile16);
-    tc::tma_load_2d(GVs, &map_g, 64 * t, static_cast<int>(r0), gvbar);
-    tc::tma_load_2d(GVs + kWgTile16, &map_v, 64 * t, static_cast<int>(r0), gvbar);
-  };
-  if (gv_tiles && tid == 0) load_gv(0);
-  float b = 0.f;  // q . ksum of row tid / 2, two threads a row (adjacent lanes), f32
-  auto fold = [&](float (&d)[32]) {
-    tc::wgmma_fence_operand(d);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-  };
-  tc::mbar_wait(qbar, 0);
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int kc = ch % kt;
-    const int st = ch % stages;
-    tc::mbar_wait(full + st, (ch / stages) & 1);
-    tc::fence_proxy_async();
-    if (kc == 0) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    }
-    const unsigned char* a_tile = As + kc * kWgTile16 + (warp >> 2) * kWgAtom16;
-    const unsigned char* b_st = Bs + static_cast<size_t>(st) * 3 * kRowsPiece16;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      float (&d)[32] = part[ks & 1];
-      tc::wgmma_fence_operand(d);
-      tc::wgmma_fence();
-      const uint64_t da = sw128_desc(a_tile + ks * 32);
-#pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        tc::wgmma_m64n64k16<0>(d, da, sw128_desc(b_st + p * kRowsPiece16 + ks * 32), p);
-      }
-      tc::wgmma_commit();
-      if (ch == 0 && ks == 0) {  // while the first MMAs run
-        const unsigned char* qr = As;
-        for (int c = tid & 1; c < M; c += 2) {
-          const bf16 x = *reinterpret_cast<const bf16*>(qr + (c >> 6) * kWgTile16 +
-                                                        sw128_offset(tid >> 1, c & 63));
-          b = fmaf(__bfloat162float(x), __ldg(ksum + c), b);
-        }
-        b += __shfl_xor_sync(0xffffffffu, b, 1);
-      }
-      if (ks > 0) {
-        tc::wgmma_wait<1>();  // step ks - 1's MMAs are done
-        fold(part[(ks - 1) & 1]);
-      }
-    }
-    tc::wgmma_wait<0>();
-    fold(part[1]);
-    __syncwarp();
-    if (lane == 0) tc::mbar_arrive(empty + st);
-    if (kc == kt - 1) {  // the column tile's a, folded into the lane's rows
-      const int t = ch / kt;
-      const int c0 = 64 * t;
-      // g and v at the lane's fragment: from the staged tile, or read from
-      // device memory all at once (the last column of an odd width alone:
-      // a word's other half is the next row's or head's)
-      float x[2][8][2], y[2][8][2];
-      if (gv_tiles) {
-        tc::mbar_wait(gvbar, t & 1);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int off = sw128_offset(16 * warp + (lane >> 2) + 8 * h, 8 * j + 2 * (lane & 3));
-            const float2 gf =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(GVs + off));
-            const float2 vf = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(GVs + kWgTile16 + off));
-            x[h][j][0] = gf.x; x[h][j][1] = gf.y; y[h][j][0] = vf.x; y[h][j][1] = vf.y;
-          }
-        consumers_sync();  // every warp has read this tile's g and v
-        if (tid == 0 && c0 + 64 < D) load_gv(t + 1);
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long row = r0 + 16 * warp + (lane >> 2) + 8 * h;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = c0 + 8 * j + 2 * (lane & 3);
-            if (vec_io && row < N && c + 1 < D) {
-              const float2 gf = __bfloat1622float2(
-                  __ldg(reinterpret_cast<const __nv_bfloat162*>(g + row * ldg + c)));
-              const float2 vf = __bfloat1622float2(
-                  __ldg(reinterpret_cast<const __nv_bfloat162*>(v + row * ldv + c)));
-              x[h][j][0] = gf.x; x[h][j][1] = gf.y; y[h][j][0] = vf.x; y[h][j][1] = vf.y;
-            } else {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const bool ok = row < N && c + e < D;
-                x[h][j][e] = ok ? __bfloat162float(g[row * ldg + c + e]) : 0.f;
-                y[h][j][e] = ok ? __bfloat162float(v[row * ldv + c + e]) : 0.f;
+        int ch = 0;
+        for (int u = blockIdx.x; u < blocks; u += gridDim.x) {
+          for (int t = 0; t < tiles; ++t) {
+            for (int kc = 0; kc < kt; ++kc, ++ch) {
+              const int st = ch % stages;
+              if (ch >= stages) mbar_wait(empty + st, (ch / stages - 1) & 1);
+              mbar_arrive_expect_tx(full + st, kRsStage);
+              const bf16* src = hl + static_cast<size_t>(t * kt + kc) * 3 * 4096;
+              unsigned char* dst = Bs + static_cast<size_t>(st) * kRsStage;
+              for (int p = 0; p < 3; ++p) {
+                bulk_copy_g2s(dst + p * kRowsPiece16, src + p * 4096, kRowsPiece16, full + st);
               }
             }
           }
         }
       }
+    } else if (pw == 1) {  // the q k-tiles and the g and v tiles
+      const CUtensorMap* map_q = &maps.q;
+      // row block u's q k-tiles, slot j once the row block before (the
+      // i-th of this block's) has read it
+      auto load_q = [&](int u, int i) {
+        const long r0 = static_cast<long>(u) * kTcRows;
+        for (int j = 0; j < kt; ++j) {
+          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);
+          unsigned char* dst = Qs + static_cast<size_t>(j) * kWgTile16;
+          if (vec_a) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(afull + j, kWgTile16);
+              tma_load_2d(dst, map_q, 64 * j, static_cast<int>(r0), afull + j);
+            }
+          } else {
+            for (int e = lane; e < kTcRows * 64; e += 32) {
+              const int r = e >> 6;
+              const int c = 64 * j + (e & 63);
+              *reinterpret_cast<bf16*>(dst + sw128_offset(r, e & 63)) =
+                  r0 + r < N && c < M ? q[(r0 + r) * ldq + c] : __float2bfloat16_rn(0.f);
+            }
+            fence_proxy_async();  // the lanes' stores, for the MMAs
+            __syncwarp();
+            if (lane == 0) mbar_arrive(afull + j);
+          }
+        }
+      };
+      load_q(blockIdx.x, 0);
+      int T = 0;  // column tiles brought
+      int i = 0;
+      for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+        const long r0 = static_cast<long>(u) * kTcRows;
+        if (gv_tile && lane == 0) {
+          for (int t = 0; t < tiles; ++t, ++T) {
+            if (T > 0) mbar_wait(gempty, (T - 1) & 1);
+            mbar_arrive_expect_tx(gfull, 2 * kWgTile16);
+            tma_load_2d(Gs, &maps.g, kTcCols * t, static_cast<int>(r0), gfull);
+            tma_load_2d(Gs + kWgTile16, &maps.v, kTcCols * t, static_cast<int>(r0), gfull);
+          }
+        }
+        if (u + static_cast<int>(gridDim.x) < blocks) load_q(u + gridDim.x, i + 1);
+      }
+    } else {  // warps 2 and 3, the sum warps: b of each row block's rows
+      const int L = tid - kRowsConsumers - 64;  // 0 .. 63: b of rows L and L + 64
+      int i = 0;
+      for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+        float be[2] = {0.f, 0.f}, bo[2] = {0.f, 0.f};
+        for (int j = 0; j < kt; ++j) {
+          mbar_wait(afull + j, i & 1);
+          const unsigned char* at = Qs + static_cast<size_t>(j) * kWgTile16;
+#pragma unroll 1  // unrolled, the loads outgrow the 40 registers
+          for (int c8 = 0; c8 < 8; ++c8) {
+            const int c = 64 * j + 8 * c8;
+            if (c >= M) break;
+            float k8[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) k8[e] = c + e < M ? __ldg(ksum + c + e) : 0.f;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const uint4 raw =
+                  *reinterpret_cast<const uint4*>(at + sw128_offset(L + 64 * rr, 8 * c8));
+              const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 x = __bfloat1622float2(x2[e]);
+                if (c + 2 * e < M) be[rr] = fmaf(x.x, k8[2 * e], be[rr]);
+                if (c + 2 * e + 1 < M) bo[rr] = fmaf(x.y, k8[2 * e + 1], bo[rr]);
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(aempty + j);
+        }
+        // handed over once the consumers have read the row block before's
+        if (i > 0) mbar_wait(sempty, (i - 1) & 1);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) b_s[L + 64 * rr] = be[rr] + bo[rr];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sfull);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  setmaxnreg_inc<kRsConsumerRegs>();
+  const int tiles = cdiv(D, kTcCols);
+  const int blocks = cdiv(N, kTcRows);
+  const float inv = scal[2];
+  const float n = *n_total;
+  const int wg = warp >> 2;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  float acc[32], part[2][32];
+  unsigned af[2][4];  // the A fragments of two steps
+#pragma unroll
+  for (int e = 0; e < 32; ++e) part[0][e] = part[1][e] = 0.f;
+  auto fold = [&](float (&d)[32]) {
+    wgmma_fence_operand(d);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
+  };
+  // a [128][64] tile's values at the lane's fragment (x[h][j]: row
+  // 16 * warp + g8 + 8 h, columns 8 j + 2 t4, + 1) of column tile t read
+  // from device memory, zero past N and D (the last column of an odd width
+  // alone: a word's other half is the next row's or head's)
+  auto load_rows = [&](__nv_bfloat162 (&x)[2][8], const bf16* X, long ld, long r0, int t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = r0 + 16 * warp + g8 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = kTcCols * t + 8 * j + 2 * t4;
+        const bf16* p = X + row * ld + c;
+        if (vec_io && row < N && c + 1 < D) {
+          x[h][j] = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+        } else {
+          const bf16 zero = __float2bfloat16_rn(0.f);
+          x[h][j] = __halves2bfloat162(row < N && c < D ? p[0] : zero,
+                                       row < N && c + 1 < D ? p[1] : zero);
+        }
+      }
+    }
+  };
+
+  int ch = 0;  // chunks consumed
+  int T = 0;   // column tiles folded
+  int i = 0;
+  for (int u = blockIdx.x; u < blocks; u += gridDim.x, ++i) {
+    const long r0 = static_cast<long>(u) * kTcRows;
+    // sum_d g*a and sum_d g*v of the lane's rows 16 * warp + g8 (+ 8)
+    float ga[2] = {0.f, 0.f}, gv[2] = {0.f, 0.f};
+    for (int t = 0; t < tiles; ++t, ++T) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      // g and v without their tiles now, so that the loads run under the
+      // tile's MMAs
+      __nv_bfloat162 x[2][8], y[2][8];
+      if (!gv_tile) {
+        load_rows(x, g, ldg, r0, t);
+        load_rows(y, v, ldv, r0, t);
+      }
+      for (int kc = 0; kc < kt; ++kc, ++ch) {
+        const int st = ch % stages;
+        mbar_wait(full + st, (ch / stages) & 1);
+        if (t == 0) mbar_wait(afull + kc, i & 1);
+        const unsigned char* a_tile = Qs + static_cast<size_t>(kc) * kWgTile16 + wg * kWgAtom16;
+        const unsigned char* b_st = Bs + static_cast<size_t>(st) * kRsStage;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          float (&d)[32] = part[ks & 1];
+          // the step's A fragment into registers once for its three MMAs
+          // (its buffer's last MMAs, two steps back, are done)
+          ldmatrix_x4(af[ks & 1], a_tile, 16 * (warp & 3), 16 * ks, lane);
+          wgmma_fence_operand(d);
+          wgmma_fence();
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            wgmma_m64n64k16_rs(d, af[ks & 1], sw128_desc(b_st + p * kRowsPiece16 + ks * 32), p);
+          }
+          wgmma_commit();
+          if (ks > 0) {
+            wgmma_wait<1>();  // step ks - 1's MMAs are done
+            fold(part[(ks - 1) & 1]);
+          }
+        }
+        wgmma_wait<0>();
+        fold(part[1]);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(empty + st);
+          // the row block's last MMAs on slot kc are done
+          if (t == tiles - 1) mbar_arrive(aempty + kc);
+        }
+      }
+      if (gv_tile) {  // g and v at the lane's fragment from the staged tiles
+        mbar_wait(gfull, T & 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int off = sw128_offset(16 * warp + g8 + 8 * h, 8 * j + 2 * t4);
+            x[h][j] = *reinterpret_cast<const __nv_bfloat162*>(Gs + off);
+            y[h][j] = *reinterpret_cast<const __nv_bfloat162*>(Gs + kWgTile16 + off);
+          }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(gempty);
+      }
+      // the column tile's a, folded into the lane's rows
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            ga[h] = fmaf(x[h][j][e], acc[4 * j + 2 * h + e], ga[h]);
-            gv[h] = fmaf(x[h][j][e], y[h][j][e], gv[h]);
-          }
+        for (int j = 0; j < 8; ++j) {
+          const float2 xf = __bfloat1622float2(x[h][j]);
+          const float2 yf = __bfloat1622float2(y[h][j]);
+          ga[h] = fmaf(xf.x, acc[4 * j + 2 * h], ga[h]);
+          gv[h] = fmaf(xf.x, yf.x, gv[h]);
+          ga[h] = fmaf(xf.y, acc[4 * j + 2 * h + 1], ga[h]);
+          gv[h] = fmaf(xf.y, yf.y, gv[h]);
+        }
     }
-  }
-  // the four lanes of a fragment row, a fixed xor tree
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      ga[h] += __shfl_xor_sync(0xffffffffu, ga[h], off);
-      gv[h] += __shfl_xor_sync(0xffffffffu, gv[h], off);
-    }
-  }
-  if ((lane & 3) == 0) {
+    // the four lanes of a fragment row, a fixed xor tree
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      ga_s[16 * warp + (lane >> 2) + 8 * h] = ga[h];
-      gv_s[16 * warp + (lane >> 2) + 8 * h] = gv[h];
-    }
-  }
-  if ((tid & 1) == 0) b_s[tid >> 1] = b;
-  consumers_sync();
-
-  if (tid < kTcRows) {
-    const long row = r0 + tid;
-    double part_d = 0.0;
-    if (row < N) {
-      const float inv = scal[2];
-      const float n = *n_total;
-      const float bb = b_s[tid];
-      const float s_ga = ga_s[tid];
-      float den = inv * bb + n;
-      float gden;
-      if (guard && den == 0.f) {
-        den = 1.f;
-        gden = 0.f;
-      } else {
-        gden = -(inv * s_ga + n * gv_s[tid]) / (den * den);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        ga[h] += __shfl_xor_sync(0xffffffffu, ga[h], off);
+        gv[h] += __shfl_xor_sync(0xffffffffu, gv[h], off);
       }
-      den_out[row] = den;
-      gden_out[row] = gden;
-      part_d = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
     }
-    red[tid] = part_d;
-  }
-  consumers_sync();
-  for (int stride = kTcRows / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] += red[tid + stride];
+    // den, gden and the rows' dinv terms, as la_bwd_rows_kernel forms them
+    mbar_wait(sfull, i & 1);
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g8 + 8 * h;
+        const long row = r0 + r;
+        double part_d = 0.0;
+        if (row < N) {
+          const float bb = b_s[r];
+          const float s_ga = ga[h];
+          float den = inv * bb + n;
+          float gden;
+          if (guard && den == 0.f) {
+            den = 1.f;
+            gden = 0.f;
+          } else {
+            gden = -(inv * s_ga + n * gv[h]) / (den * den);
+          }
+          den_out[row] = den;
+          gden_out[row] = gden;
+          part_d = static_cast<double>(s_ga / den) + static_cast<double>(gden * bb);
+        }
+        red[r] = part_d;
+      }
+    }
     consumers_sync();
+    if (warp == 0) {  // the pairwise tree over the 128 rows: strides 64, 32, ..., 1
+      double x2 = (red[lane] + red[lane + 64]) + (red[lane + 32] + red[lane + 96]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x2 += __shfl_down_sync(0xffffffffu, x2, off);
+      if (lane == 0) {
+        dinv_part[u] = x2;
+        mbar_arrive(sempty);  // b_s and red are read: the next block's may come
+      }
+    }
   }
-  if (tid == 0) dinv_part[blockIdx.x] = red[0];
 }
 
-// The reduce's P pass: P = q^T (g/den) over node slices, both operands read
-// node-major (MN-major descriptors: the MMA's k is the node axis). grid
-// (slices * tiles), tiles = ceil(M/128) * ceil(D/128), slice-major as
-// la_bwd_reduce_wg_kernel's; block b sums tile b % tiles of P over its
-// slice's rows, warpgroup w its 64 m rows by 128 d columns. The warps
-// specialise, as the rows pass's: a producer warpgroup (its registers given
-// to the consumers by setmaxnreg, one of its warps working) brings each
-// 64-row chunk
-// of q and g into swizzled [64 nodes][64] atoms by the copy engine (tensor
-// maps of 64-row boxes, or its own copies where the rows' strides do not
-// allow one), with den and gden of its rows, through a kPStages-deep ring
-// of full and empty mbarriers; the two consumer warpgroups zero the rows
-// of a chunk past the slice (which the copy engine reads), form gd = g *
-// (1/den) in f32 (the correctly rounded 1/den; zero past the slice) and
-// split it into bf16 hi + lo atoms, and each 32-node half of the chunk's
-// products (two k16 steps, hi then lo, wgmma m64n64k16 on each 64-column
-// atom of gd) goes into fresh sums added to the block's f32 sums with
-// round-to-nearest adds, the parent's 32-row period: a software pipeline,
-// chunk c's MMAs issued (both halves, their fresh sums double-buffered)
-// before the warps split chunk c + 1's gd into the other of two gd
-// buffers, one consumer barrier a chunk. The blocks of the first column
-// tile also sum ds = q . gden per column of their M tile in f64 from the
-// staged rows, while the MMAs run, in four chains of
-// interleaved rows, gden made an f64 once a row (the SM converts to f64 at
-// a sixteenth of its FMA rate, and one chain converting both operands cost
-// a quarter of the pass). Dynamic shared memory: the ring (32 KB a stage),
-// the gd atoms of two chunks (64 KB), den and gden of each stage, gden in
-// f64 of two chunks, the ds tree and the mbarriers: 197 KB.
-constexpr int kPRows = 64;    // node rows a staged chunk
-constexpr int kPStages = 4;
-constexpr int kPStage = 4 * kWgAtom16;  // q's two atoms, g's two atoms
-// two consumer warpgroups and a producer warpgroup (one warp of it issues
-// the copies), whose registers go to the consumers
-constexpr int kPThreads = kRowsConsumers + 128;
-constexpr size_t kPSmem = kPStages * kPStage + 8 * kWgAtom16 +
-                          kPStages * 2 * kPRows * sizeof(float) +
-                          (2 * kPRows + tc::kNodeTile) * sizeof(double) +
-                          2 * kPStages * sizeof(uint64_t);
+// The reduce's P pass for bf16 rows: P = q^T (g/den) over node slices on
+// warpgroup MMAs (wgmma m64n64k16 bf16, f32 sums), both operands read
+// node-major (MN-major descriptors: the MMA's k is the node axis),
+// warp-specialised, fed by the copy engine and persistent: grid min(items,
+// SMs), one block an SM, block b taking the items b, b + grid, ... in
+// turn. It replaces, with the rows pass, sgformer_tpu/kernels/attention.py::
+// _bwd_reduce_kernel for bf16 rows. Bound by its bytes (q, g, den and gden
+// read once: 0.052 ms at the arxiv shape; its two products, q^T gd's hi and
+// lo, 0.045). An item is (slice, m tile, d tile of 64 columns),
+// slice-major; an m tile is as many 64-row m atoms as there are d tiles,
+// up to four (256 m rows at D >= 256), consumer warpgroup w its m atoms 2 w
+// and 2 w + 1 (two m64 MMA tiles) by the item's 64 d columns, so that each
+// chunk's gd = g * (1/den) is formed and split once for every m row of the
+// tile (the kernel this replaced, 128 m by 128 d a block, formed each gd
+// twice, once in each m tile's block), and ds's f64 sums of the m tile's
+// columns are spread over its d tiles' items, one m atom an item (there
+// only the first d tile's blocks summed ds, and took longest).
+//
+// The producer warpgroup (its registers given to the consumers by
+// setmaxnreg, one of its warps working) brings each 64-row chunk of q (the
+// m tile's atoms, [64 nodes][64] each) and of g (the d tile's atom) into a
+// kPsStages-deep ring by tensor maps of 64-row boxes (or its lanes' copies
+// where the rows' strides do not allow one, vec 0), with 1/den (correctly
+// rounded), gden and gden made f64 of the chunk's rows (read a chunk
+// ahead, so that those loads run while it waits for a stage) and the
+// chunk's rows inside the slice, through full and empty mbarriers. The
+// consumers keep the kernel this replaced's arithmetic, so that P and ds
+// are bitwise its: the rows of a chunk past the slice (which the copy
+// engine reads) zeroed, gd = g * (1/den) in f32, zero past the slice, split
+// into bf16 hi + lo atoms; each 32-node half of the chunk's products (two
+// k16 steps, hi then lo) into fresh sums added to the item's f32 sums with
+// round-to-nearest adds (the 32-row period), a software pipeline: chunk c's
+// MMAs issued before the warps sum its ds and split chunk c + 1's gd into
+// the other of two gd buffers, one consumer barrier a chunk. ds in the
+// kernel this replaced's eight f64 chains a column (rows r % 8 = par + 2 i,
+// i < 4, par 0 and 1; each value made f64, so each product is exact), a
+// chain of two columns a thread, added in its order at the item's end: ((i
+// 0 + 1) + (i 2 + 3)) for each par, par 0's + par 1's, rounded to f32 once.
+// (ds on two of the producer's spare warps, a column a lane, held the pass
+// at twice the consumers' time: PERF.md.) Dynamic shared memory: the ring
+// (40 KB a stage), the gd atoms of two chunks (32 KB), 1/den, gden and gden
+// in f64 of each stage, ds's chains and the mbarriers: 200 KB.
+constexpr int kPRows = 64;  // node rows a staged chunk
+constexpr int kPsStages = 4;
+constexpr int kPsAtoms = 4;  // m atoms an m tile at most
+constexpr int kPsStage = (kPsAtoms + 1) * kWgAtom16;  // q's m atoms, g's atom
+constexpr int kPsThreads = kRowsConsumers + 128;
+constexpr int kPsReaders = kRowsConsumers / 32;  // a stage's readers: the consumer warps
+constexpr size_t kPsSmem = kPsStages * kPsStage + 4 * kWgAtom16 +
+                           kPsStages * kPRows * (2 * sizeof(float) + sizeof(double)) +
+                           8 * 64 * sizeof(double) + 2 * kPsStages * sizeof(uint64_t) +
+                           kPsStages * sizeof(int);
 
-__global__ void __launch_bounds__(kPThreads, 1)
-la_bwd_reduce_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g, long ldq,
-                           long ldg, int N, int M, int D, int rows_per_slice, int vec,
-                           const float* __restrict__ den, const float* __restrict__ gden,
-                           float* __restrict__ P_part, float* __restrict__ ds_part,
-                           const __grid_constant__ CUtensorMap map_q,
-                           const __grid_constant__ CUtensorMap map_g) {
+// the P pass's items: (slice, m tile, d tile), slice-major
+struct PsItems {
+  int atoms, mtiles, dtiles, count;
+  __host__ __device__ PsItems(int M, int D, int slices)
+      : atoms(tc::cdiv(D, 64) < kPsAtoms ? tc::cdiv(D, 64) : kPsAtoms),
+        mtiles(tc::cdiv(M, 64 * atoms)), dtiles(tc::cdiv(D, 64)),
+        count(slices * mtiles * dtiles) {}
+  // item it's slice, first m row and first d column
+  __device__ void at(int it, int& s, int& m0, int& d0) const {
+    s = it / (mtiles * dtiles);
+    const int rest = it % (mtiles * dtiles);
+    m0 = rest / dtiles * 64 * atoms;
+    d0 = rest % dtiles * 64;
+  }
+};
+
+// slice s's 64-row chunks
+__device__ __forceinline__ int ps_chunks(int s, int N, int rows_per_slice) {
+  const long r_begin = static_cast<long>(s) * rows_per_slice;
+  const long rows = N - r_begin < rows_per_slice ? N - r_begin : rows_per_slice;
+  return static_cast<int>((rows + kPRows - 1) / kPRows);
+}
+
+__global__ void __launch_bounds__(kPsThreads, 1)
+la_bwd_reduce_ws16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ g, long ldq,
+                          long ldg, int N, int M, int D, int slices, int rows_per_slice, int vec,
+                          const float* __restrict__ den, const float* __restrict__ gden,
+                          float* __restrict__ P_part, float* __restrict__ ds_part,
+                          const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_g) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   if (tc::smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
-  unsigned char* ring = smem_raw;                    // [stage][q atoms 0, 1; g atoms 0, 1]
-  unsigned char* gd = ring + kPStages * kPStage;  // [buffer][hi atoms 0, 1; lo atoms 0, 1]
-  float* rows_s = reinterpret_cast<float*>(gd + 8 * kWgAtom16);  // [stage][den, gden][kPRows]
-  double* gden_d = reinterpret_cast<double*>(rows_s + kPStages * 2 * kPRows);  // [buffer][kPRows]
-  double* red = gden_d + 2 * kPRows;
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + tc::kNodeTile);  // a stage has landed
-  uint64_t* empty = full + kPStages;                                   // a stage's MMAs are done
+  unsigned char* ring = smem_raw;                   // [stage][q's m atoms; g's atom]
+  unsigned char* gd = ring + kPsStages * kPsStage;  // [buffer][hi atom, lo atom]
+  float* rows_s = reinterpret_cast<float*>(gd + 4 * kWgAtom16);  // [stage][1/den, gden][kPRows]
+  double* gden_d = reinterpret_cast<double*>(rows_s + kPsStages * 2 * kPRows);  // [stage][kPRows]
+  double* red = gden_d + kPsStages * kPRows;  // ds's chains [column][row % 8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * 64);  // a stage has landed
+  uint64_t* empty = full + kPsStages;                                  // a stage is read
+  int* valid_s = reinterpret_cast<int*>(empty + kPsStages);  // a stage's rows inside the slice
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wg = warp >> 2;
-  const int tiles_m = tc::cdiv(M, tc::kNodeTile);
-  const int tiles = tiles_m * tc::cdiv(D, tc::kNodeTile);
-  const int s = blockIdx.x / tiles;
-  const int dy = (blockIdx.x % tiles) / tiles_m;
-  const int m0 = (blockIdx.x % tiles % tiles_m) * tc::kNodeTile;
-  const int d0 = dy * tc::kNodeTile;
-  const bool stats = dy == 0;
-  const long r_begin = static_cast<long>(s) * rows_per_slice;
-  const long r_stop = r_begin + rows_per_slice;
-  const long r_end = r_stop < N ? r_stop : static_cast<long>(N);
-  const int chunks = static_cast<int>((r_end - r_begin + kPRows - 1) / kPRows);
 
   if (tid == 0) {
-    for (int i = 0; i < kPStages; ++i) {
+    for (int i = 0; i < kPsStages; ++i) {
       tc::mbar_init(full + i, 1);
-      tc::mbar_init(empty + i, kRowsConsumers / 32);
+      tc::mbar_init(empty + i, kPsReaders);
     }
     tc::mbar_init_fence();
   }
@@ -1554,203 +1758,254 @@ la_bwd_reduce_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   if (warp >= kRowsConsumers / 32) {  // the producer warpgroup
     tc::setmaxnreg_dec<40>();
     if (warp > kRowsConsumers / 32) return;
-    for (int c = 0; c < chunks; ++c) {
-      const int st = c % kPStages;
-      if (c >= kPStages) tc::mbar_wait(empty + st, (c / kPStages - 1) & 1);
-      unsigned char* qs = ring + st * kPStage;
-      const long r0 = r_begin + static_cast<long>(c) * kPRows;
-      for (int r = lane; r < kPRows; r += 32) {  // den and gden of the chunk's rows
-        const bool ok = r0 + r < r_end;
-        rows_s[st * 2 * kPRows + r] = ok ? den[r0 + r] : 0.f;
-        rows_s[st * 2 * kPRows + kPRows + r] = ok ? gden[r0 + r] : 0.f;
-      }
-      if (!vec) {  // q and g one element a lane at a time, zero past N and the widths
-        for (int i = lane; i < kPRows * 256; i += 32) {
-          const int r = i >> 8;
-          const int c8 = i & 255;
-          const int c = c8 & 127;
-          const bool is_g = c8 >= 128;
-          const bf16* X = is_g ? g : q;
-          const long ld = is_g ? ldg : ldq;
-          const int col = (is_g ? d0 : m0) + c;
-          const bool ok = r0 + r < N && col < (is_g ? D : M);
-          *reinterpret_cast<bf16*>(qs + (is_g ? 2 : 0) * kWgAtom16 + (c >> 6) * kWgAtom16 +
-                                   sw128_offset(r, c & 63)) =
-              ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
+    const PsItems items(M, D, slices);
+    // the chunks, each into its stage once the consumers are done with it
+    int ch = 0;
+    for (int it = blockIdx.x; it < items.count; it += gridDim.x) {
+      int s, m0, d0;
+      items.at(it, s, m0, d0);
+      const long r_begin = static_cast<long>(s) * rows_per_slice;
+      const long r_end = r_begin + rows_per_slice < N ? r_begin + rows_per_slice
+                                                      : static_cast<long>(N);
+      const int chunks = static_cast<int>((r_end - r_begin + kPRows - 1) / kPRows);
+      const int qa = min(items.atoms, tc::cdiv(M - m0, 64));  // the m atoms inside M
+      // den and gden of chunk c's rows lane and lane + 32, read a chunk
+      // ahead, so that the loads run while the producer waits for a stage
+      float dn[2], gn[2];
+      auto read_rows = [&](int c) {
+        const long r0 = r_begin + static_cast<long>(c) * kPRows;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = c < chunks && r0 + lane + 32 * h < r_end;
+          dn[h] = ok ? den[r0 + lane + 32 * h] : 0.f;
+          gn[h] = ok ? gden[r0 + lane + 32 * h] : 0.f;
         }
-        tc::fence_proxy_async();
-      }
-      __syncwarp();
-      if (lane == 0) {
-        if (vec) {
-          tc::mbar_arrive_expect_tx(full + st, 4 * kWgAtom16);
-          for (int a = 0; a < 2; ++a) {
-            tc::tma_load_2d(qs + a * kWgAtom16, &map_q, m0 + 64 * a, static_cast<int>(r0),
-                            full + st);
-            tc::tma_load_2d(qs + (2 + a) * kWgAtom16, &map_g, d0 + 64 * a, static_cast<int>(r0),
-                            full + st);
+      };
+      read_rows(0);
+      for (int c = 0; c < chunks; ++c, ++ch) {
+        const int st = ch % kPsStages;
+        if (ch >= kPsStages) tc::mbar_wait(empty + st, (ch / kPsStages - 1) & 1);
+        unsigned char* qs = ring + st * kPsStage;
+        const long r0 = r_begin + static_cast<long>(c) * kPRows;
+        if (lane == 0) valid_s[st] = static_cast<int>(r_end - r0 < kPRows ? r_end - r0 : kPRows);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // 1/den and gden of the chunk's rows, zero past the slice
+          const int r = lane + 32 * h;
+          const bool ok = r0 + r < r_end;
+          rows_s[st * 2 * kPRows + r] = ok ? __frcp_rn(dn[h]) : 0.f;
+          rows_s[st * 2 * kPRows + kPRows + r] = gn[h];
+          gden_d[st * kPRows + r] = static_cast<double>(gn[h]);
+        }
+        if (!vec) {  // q and g one element a lane at a time, zero past N and the widths
+          for (int i = lane; i < kPRows * 64 * (qa + 1); i += 32) {
+            const int a = i / (kPRows * 64);  // q's m atoms 0 .. qa - 1, then g's
+            const int r = (i >> 6) % kPRows;
+            const int c64 = i & 63;
+            const bool is_g = a == qa;
+            const bf16* X = is_g ? g : q;
+            const long ld = is_g ? ldg : ldq;
+            const int col = is_g ? d0 + c64 : m0 + 64 * a + c64;
+            const bool ok = r0 + r < N && col < (is_g ? D : M);
+            *reinterpret_cast<bf16*>(qs + (is_g ? kPsAtoms : a) * kWgAtom16 +
+                                     sw128_offset(r, c64)) =
+                ok ? X[(r0 + r) * ld + col] : __float2bfloat16_rn(0.f);
           }
-        } else {
-          tc::mbar_arrive(full + st);
+          tc::fence_proxy_async();
         }
+        __syncwarp();
+        if (lane == 0) {
+          if (vec) {
+            tc::mbar_arrive_expect_tx(full + st, (qa + 1) * kWgAtom16);
+            for (int a = 0; a < qa; ++a) {
+              tc::tma_load_2d(qs + a * kWgAtom16, &map_q, m0 + 64 * a, static_cast<int>(r0),
+                              full + st);
+            }
+            tc::tma_load_2d(qs + kPsAtoms * kWgAtom16, &map_g, d0, static_cast<int>(r0),
+                            full + st);
+          } else {
+            tc::mbar_arrive(full + st);
+          }
+        }
+        read_rows(c + 1);
       }
     }
     return;
   }
 
   tc::setmaxnreg_inc<232>();
-  // acc[atom]: the block's sums of the warpgroup's 64 m rows by each
-  // 64-column atom of d; part[half][atom]: a chunk half's fresh sums
+  const PsItems items(M, D, slices);
+  const int wg = warp >> 2;
+  // ds: the thread's chain (rows r % 8 = ci, chain ci / 2 of the rows of
+  // parity ci % 2) of the item's ds columns 2 cp and 2 cp + 1; a warp's
+  // lanes read one row's 64 columns at a time
+  const int cp = tid & 31;
+  const int ci = tid >> 5;
+  // acc[b]: the item's sums of the warpgroup's m64 tile b by the d tile;
+  // part[half][b]: a chunk half's fresh sums (both tiles' MMAs run where
+  // the m tile has fewer atoms or M ends inside it, on rows never stored:
+  // MMAs under a condition are serialised by ptxas)
   float acc[2][32], part[2][2][32];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int b = 0; b < 2; ++b)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[a][i] = part[0][a][i] = part[1][a][i] = 0.f;
-  const int col = tid & (tc::kNodeTile - 1);
-  const int par = tid / tc::kNodeTile;
-  double ds4[4] = {0.0, 0.0, 0.0, 0.0};  // rows r % 8 = par + 2i, four chains
+    for (int i = 0; i < 32; ++i) part[0][b][i] = part[1][b][i] = 0.f;
+  int ch = 0;  // chunks consumed
+  for (int it = blockIdx.x; it < items.count; it += gridDim.x) {
+    int s, m0, d0;
+    items.at(it, s, m0, d0);
+    const int chunks = ps_chunks(s, N, rows_per_slice);
+    const int atom = d0 / 64;  // the m tile's atom whose ds this item sums
+    const bool stats = atom < items.atoms && m0 + 64 * atom < M;  // uniform over the block
+    double dsc[2] = {0.0, 0.0};
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[b][i] = 0.f;
 
-  // chunk c's gd into buffer c % 2, once its stage has landed: its rows past
-  // the slice (which the copy engine read) as zeros, gd = g * (1/den) as
-  // bf16 hi + lo, 8 columns of one row a thread step, and gden as f64
-  auto split = [&](int c) {
-    const int st = c % kPStages;
-    tc::mbar_wait(full + st, (c / kPStages) & 1);
-    unsigned char* qs = ring + st * kPStage;
-    const unsigned char* gs = qs + 2 * kWgAtom16;
-    const float* den_s = rows_s + st * 2 * kPRows;
-    unsigned char* gdb = gd + (c & 1) * 4 * kWgAtom16;
-    const long r0 = r_begin + static_cast<long>(c) * kPRows;
-    const int valid = static_cast<int>(r_end - r0 < kPRows ? r_end - r0 : kPRows);
-    for (int i = tid; i < (kPRows - valid) * 16; i += kRowsConsumers) {
-      const int r = valid + i / 16;
-      const int cs = (i % 16) * 8;
-      *reinterpret_cast<uint4*>(qs + (cs >> 6) * kWgAtom16 + sw128_offset(r, cs & 63)) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int it = 0; it < kPRows * 16 / kRowsConsumers; ++it) {
-      const int i = tid + it * kRowsConsumers;
-      const int r = i >> 4;
-      const int cs = (i & 15) * 8;
-      const int off = (cs >> 6) * kWgAtom16 + sw128_offset(r, cs & 63);
-      const bool ok = r < valid;
-      const float rd = ok ? __frcp_rn(den_s[r]) : 0.f;
-      const uint4 raw = *reinterpret_cast<const uint4*>(gs + off);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      uint4 hi_raw, lo_raw;
-      __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(&hi_raw);
-      __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(&lo_raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        const float x = ok ? __fmul_rn(f.x, rd) : 0.f;
-        const float y = ok ? __fmul_rn(f.y, rd) : 0.f;
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
-        const float2 hf = __bfloat1622float2(hi);
-        hi2[e] = hi;
-        lo2[e] = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+    // the block's cc-th chunk into gd buffer cc % 2, once its stage has
+    // landed: its rows past the slice (which the copy engine read) as
+    // zeros, gd = g * (1/den) as bf16 hi + lo, 8 columns of one row a
+    // thread step
+    auto split = [&](int cc) {
+      const int st = cc % kPsStages;
+      tc::mbar_wait(full + st, (cc / kPsStages) & 1);
+      unsigned char* qs = ring + st * kPsStage;
+      const unsigned char* gs = qs + kPsAtoms * kWgAtom16;
+      const float* rd_s = rows_s + st * 2 * kPRows;
+      unsigned char* gdb = gd + (cc & 1) * 2 * kWgAtom16;
+      const int valid = valid_s[st];
+      for (int i = tid; i < (kPRows - valid) * 8 * kPsAtoms; i += kRowsConsumers) {
+        const int r = valid + i / (8 * kPsAtoms);
+        const int cs = (i % (8 * kPsAtoms)) * 8;
+        *reinterpret_cast<uint4*>(qs + (cs >> 6) * kWgAtom16 + sw128_offset(r, cs & 63)) =
+            make_uint4(0u, 0u, 0u, 0u);
       }
-      *reinterpret_cast<uint4*>(gdb + off) = hi_raw;
-      *reinterpret_cast<uint4*>(gdb + 2 * kWgAtom16 + off) = lo_raw;
-    }
-    if (stats && tid < kPRows) {
-      gden_d[(c & 1) * kPRows + tid] = static_cast<double>(den_s[kPRows + tid]);
-    }
-    tc::fence_proxy_async();  // gd's stores and the zeroed rows, for the MMAs
-  };
+#pragma unroll
+      for (int k = 0; k < kPRows * 8 / kRowsConsumers; ++k) {
+        const int i = tid + k * kRowsConsumers;
+        const int r = i >> 3;
+        const int off = sw128_offset(r, (i & 7) * 8);
+        const bool ok = r < valid;
+        const float rd = ok ? rd_s[r] : 0.f;
+        const uint4 raw = *reinterpret_cast<const uint4*>(gs + off);
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        uint4 hi_raw, lo_raw;
+        __nv_bfloat162* hi2 = reinterpret_cast<__nv_bfloat162*>(&hi_raw);
+        __nv_bfloat162* lo2 = reinterpret_cast<__nv_bfloat162*>(&lo_raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          const float x = ok ? __fmul_rn(f.x, rd) : 0.f;
+          const float y = ok ? __fmul_rn(f.y, rd) : 0.f;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+          const float2 hf = __bfloat1622float2(hi);
+          hi2[e] = hi;
+          lo2[e] = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+        }
+        *reinterpret_cast<uint4*>(gdb + off) = hi_raw;
+        *reinterpret_cast<uint4*>(gdb + kWgAtom16 + off) = lo_raw;
+      }
+      tc::fence_proxy_async();  // gd's stores and the zeroed rows, for the MMAs
+    };
 
-  // a software pipeline: chunk c's MMAs run while the warps sum its ds and
-  // split chunk c + 1's gd into the other buffer; one barrier a chunk
-  if (chunks > 0) split(0);
-  consumers_sync();
-  for (int c = 0; c < chunks; ++c) {
-    const int st = c % kPStages;
-    const unsigned char* qs = ring + st * kPStage;
-    const unsigned char* a_atom = qs + wg * kWgAtom16;  // the warpgroup's 64 m columns of q
-    const unsigned char* gdb = gd + (c & 1) * 4 * kWgAtom16;
+    // a software pipeline: chunk c's MMAs run while the warps split chunk
+    // c + 1's gd into the other buffer; one barrier a chunk
+    if (chunks > 0) split(ch);
+    consumers_sync();
+    for (int c = 0; c < chunks; ++c, ++ch) {
+      const int st = ch % kPsStages;
+      const unsigned char* qs = ring + st * kPsStage;
+      const unsigned char* gdb = gd + (ch & 1) * 2 * kWgAtom16;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+      for (int half = 0; half < 2; ++half) {
 #pragma unroll
-      for (int a = 0; a < 2; ++a) tc::wgmma_fence_operand(part[half][a]);
-      tc::wgmma_fence();
+        for (int b = 0; b < 2; ++b) tc::wgmma_fence_operand(part[half][b]);
+        tc::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const int k = 2 * half + ks;  // node rows 16k .. 16k + 15 of the chunk
-        const uint64_t da = sw128_desc_mn(a_atom + k * 2048);
+        for (int ks = 0; ks < 2; ++ks) {
+          const int k = 2 * half + ks;  // node rows 16k .. 16k + 15 of the chunk
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
+          for (int p = 0; p < 2; ++p) {
+            const uint64_t db = sw128_desc_mn(gdb + p * kWgAtom16 + k * 2048);
 #pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            tc::wgmma_m64n64k16<1>(part[half][a], da,
-                                   sw128_desc_mn(gdb + (2 * p + a) * kWgAtom16 + k * 2048),
-                                   ks | p);
+            for (int b = 0; b < 2; ++b) {
+              tc::wgmma_m64n64k16<1>(part[half][b],
+                                     sw128_desc_mn(qs + (2 * wg + b) * kWgAtom16 + k * 2048), db,
+                                     ks | p);
+            }
+          }
+        }
+        tc::wgmma_commit();
+      }
+      if (stats) {  // ds of the chunk's rows (zero past the slice) while its MMAs run
+        const unsigned char* qc = qs + atom * kWgAtom16;
+        const double* gden_c = gden_d + st * kPRows;
+#pragma unroll
+        for (int r = ci; r < kPRows; r += 8) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(qc + sw128_offset(r, 2 * cp)));
+          dsc[0] = fma(static_cast<double>(x.x), gden_c[r], dsc[0]);
+          dsc[1] = fma(static_cast<double>(x.y), gden_c[r], dsc[1]);
+        }
+      }
+      if (c + 1 < chunks) split(ch + 1);
+      // each half's sums, in order, into the item's
+      tc::wgmma_wait<1>();
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        tc::wgmma_fence_operand(part[0][b]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[b][i] = __fadd_rn(acc[b][i], part[0][b][i]);
+      }
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        tc::wgmma_fence_operand(part[1][b]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[b][i] = __fadd_rn(acc[b][i], part[1][b][i]);
+      }
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(empty + st);
+      consumers_sync();  // chunk c's gd is free, chunk c + 1's is in place
+    }
+
+    float* Pp = P_part + static_cast<size_t>(s) * M * D;
+    const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (2 * wg + b >= items.atoms) continue;  // the next m tile's rows
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 128 * wg + 64 * b + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+        if (m >= M) continue;
+        float* prow = Pp + static_cast<size_t>(m) * D;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = d0 + 8 * j + 2 * (lane & 3);
+          const float x = acc[b][4 * j + 2 * h];
+          const float y = acc[b][4 * j + 2 * h + 1];
+          if (pairs && d + 1 < D) {
+            *reinterpret_cast<float2*>(prow + d) = make_float2(x, y);
+          } else {
+            if (d < D) prow[d] = x;
+            if (d + 1 < D) prow[d + 1] = y;
           }
         }
       }
-      tc::wgmma_commit();
     }
-    if (stats) {  // ds of the chunk's rows while its MMAs run
-      const unsigned char* qc = qs + (col >> 6) * kWgAtom16;
-      const double* gden_c = gden_d + (c & 1) * kPRows;
-#pragma unroll
-      for (int r = par; r < kPRows; r += 8) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bf16 x = *reinterpret_cast<const bf16*>(qc + sw128_offset(r + 2 * i, col & 63));
-          ds4[i] = fma(static_cast<double>(__bfloat162float(x)), gden_c[r + 2 * i], ds4[i]);
-        }
+    if (stats) {  // ds in the kernel this replaced's order, rounded to f32 once
+      red[(2 * cp) * 8 + ci] = dsc[0];
+      red[(2 * cp + 1) * 8 + ci] = dsc[1];
+      consumers_sync();
+      const int col = m0 + 64 * atom + tid;
+      if (tid < 64 && col < M) {
+        // chain i of parity par at red[8 tid + par + 2 i]
+        const double* p = red + tid * 8;
+        const double ds0 = (p[0] + p[2]) + (p[4] + p[6]);
+        const double ds1 = (p[1] + p[3]) + (p[5] + p[7]);
+        ds_part[static_cast<size_t>(s) * M + col] = static_cast<float>(ds0 + ds1);
       }
-    }
-    if (c + 1 < chunks) split(c + 1);
-    // each half's sums, in order, into the block's
-    tc::wgmma_wait<1>();
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      tc::wgmma_fence_operand(part[0][a]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[0][a][i]);
-    }
-    tc::wgmma_wait<0>();
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      tc::wgmma_fence_operand(part[1][a]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[a][i] = __fadd_rn(acc[a][i], part[1][a][i]);
-    }
-    __syncwarp();
-    if (lane == 0) tc::mbar_arrive(empty + st);
-    consumers_sync();  // chunk c's gd is free, chunk c + 1's is in place
-  }
-
-  float* Pp = P_part + static_cast<size_t>(s) * M * D;
-  const bool pairs = (D & 1) == 0;  // float2 stores stay 8-byte aligned
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + 16 * warp + (lane >> 2) + 8 * h;
-    if (m >= M) continue;
-    float* prow = Pp + static_cast<size_t>(m) * D;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = d0 + 64 * a + 8 * j + 2 * (lane & 3);
-        const float x = acc[a][4 * j + 2 * h];
-        const float y = acc[a][4 * j + 2 * h + 1];
-        if (pairs && d + 1 < D) {
-          *reinterpret_cast<float2*>(prow + d) = make_float2(x, y);
-        } else {
-          if (d < D) prow[d] = x;
-          if (d + 1 < D) prow[d + 1] = y;
-        }
-      }
-  }
-  if (stats) {  // uniform over the block
-    const double ds = (ds4[0] + ds4[1]) + (ds4[2] + ds4[3]);
-    if (par == 1) red[col] = ds;
-    consumers_sync();
-    if (par == 0 && m0 + col < M) {
-      ds_part[static_cast<size_t>(s) * M + m0 + col] = static_cast<float>(ds + red[col]);
+      consumers_sync();  // red is read
     }
   }
 }
@@ -2665,32 +2920,38 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
         q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, den, gden,
         dinv_part, maps);
   } else {
+    // tensor maps where the copy engine can read the rows: q (vec_a), g and
+    // v (the g and v tiles, where vec_io and they fit), else the producer's
+    // lanes copy q and the consumers read g and v
     const int vec_a = M % kPer == 0 && ldq % kPer == 0 && aligned16(q);
-    CUtensorMap map_q = {}, map_g = {}, map_v = {};
-    if (vec_a) {
-      err = encode_rows_map(&map_q, q, N, M, ldq);
+    int stages, gv_tile;
+    rows_ws16_layout(M, vec_io, stages, gv_tile);
+    RsMaps maps = {};
+    struct Rows { CUtensorMap* map; const bf16* base; int width; long ld; int want; };
+    const Rows rows[3] = {{&maps.q, q, M, ldq, vec_a}, {&maps.g, g, D, ldg, gv_tile},
+                          {&maps.v, v, D, ldv, gv_tile}};
+    for (const Rows& r : rows) {
+      if (!r.want) continue;
+      err = encode_rows_map(r.map, r.base, N, r.width, r.ld);
       if (err != cudaSuccess) return err;
     }
-    int stages, gv_tiles;
-    rows_wgmma_layout(M, vec_io, stages, gv_tiles);
-    if (gv_tiles) {
-      err = encode_rows_map(&map_g, g, N, D, ldg);
-      if (err == cudaSuccess) err = encode_rows_map(&map_v, v, N, D, ldv);
-      if (err != cudaSuccess) return err;
-    }
-    const size_t smem = rows_wgmma_smem(M, stages, gv_tiles);
-    err = cudaFuncSetAttribute(la_bwd_rows_wgmma_kernel,
+    const size_t smem = rows_ws16_smem(M, stages, gv_tile);
+    err = cudaFuncSetAttribute(la_bwd_rows_ws16_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    la_bwd_rows_wgmma_kernel<<<row_blocks, kRowsThreads, smem, st>>>(
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return err;
+    const int blocks = std::min(static_cast<int>(row_blocks), sms);
+    la_bwd_rows_ws16_kernel<<<blocks, kRsThreads, smem, st>>>(
         q, v, g, ldq, ldv, ldg, N, M, D, hl, ksum, scal, n_total, guard, vec_a, vec_io, stages,
-        gv_tiles, den, gden, dinv_part, map_q, map_g, map_v);
+        gv_tile, den, gden, dinv_part, maps);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
   if constexpr (kIsF32<T>) {
+    const int tiles = tc::cdiv(M, tc::kNodeTile) * tc::cdiv(D, tc::kNodeTile);
     // tensor maps where the copy engine can read the rows (16-byte aligned
     // bases and row strides; it clips the widths), else the producer's
     // lanes copy them
@@ -2720,12 +2981,17 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
       if (err == cudaSuccess) err = encode_rows_map(&map_g, g, N, D, ldg, kPRows);
       if (err != cudaSuccess) return err;
     }
-    err = cudaFuncSetAttribute(la_bwd_reduce_wgmma_kernel,
+    err = cudaFuncSetAttribute(la_bwd_reduce_ws16_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kPSmem));
+                               static_cast<int>(kPsSmem));
     if (err != cudaSuccess) return err;
-    la_bwd_reduce_wgmma_kernel<<<slices * tiles, kPThreads, kPSmem, st>>>(
-        q, g, ldq, ldg, N, M, D, rows_per_slice, vec, den, gden, P_part, ds_part, map_q, map_g);
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return err;
+    const int blocks = std::min(PsItems(M, D, slices).count, sms);
+    la_bwd_reduce_ws16_kernel<<<blocks, kPsThreads, kPsSmem, st>>>(
+        q, g, ldq, ldg, N, M, D, slices, rows_per_slice, vec, den, gden, P_part, ds_part, map_q,
+        map_g);
   }
   return cudaGetLastError();
 }
@@ -2737,7 +3003,7 @@ cudaError_t launch_bwd_reduce_tc(const T* q, const T* v, const T* g, long ldq, l
 int bwd_reduce_scratch(int dtype, int M, int D) {
   const TcDims t(M, D);
   if (dtype == 1) {
-    if (rows_wgmma_stages(M) == 0) return 0;
+    if (rows_ws16_stages(M) == 0) return 0;
     return static_cast<int>(kRowsPieces * t.pt_elems());
   }
   if (dtype == 0) {

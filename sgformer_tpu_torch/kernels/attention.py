@@ -29,12 +29,15 @@ products, fresh sums every 32 rows, fixed-order f32 sums over slices of
 N), :func:`apply`'s q @ kvs (``la_apply_wgmma_kernel``, wgmma: kvs split
 into bf16 hi + lo; persistent, one block an SM, the next row block's q rows
 landing under this one's MMAs), :func:`bwd_reduce`'s q @ kvs and qᵀ(g/den)
-(``la_bwd_rows_wgmma_kernel``, ``la_bwd_reduce_wgmma_kernel``, wgmma: kvs
+(``la_bwd_rows_ws16_kernel``, ``la_bwd_reduce_ws16_kernel``, wgmma: kvs
 split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's operands
-read node-major) and :func:`bwd_apply`'s three products
-(``la_bwd_apply_wgmma_kernel``, wgmma: kvs and P split into hi + lo); the
-reduce, the apply and the three backward kernels are fed by the copy
-engine (TMA) from a producer warp or warpgroup. On f32 inputs every kernel runs in 3xTF32 (each f32
+read node-major; both persistent, the rows pass streaming the next row
+block's q rows into slots that this one frees, the P pass forming each
+g/den once for a 256-row m tile, ds spread over its items) and
+:func:`bwd_apply`'s three products (``la_bwd_apply_wgmma_kernel``, wgmma:
+kvs and P split into hi + lo); the reduce, the apply and the three
+backward kernels are fed by the copy engine (TMA) from a producer warp or
+warpgroup. On f32 inputs every kernel runs in 3xTF32 (each f32
 operand split into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32
 sums), all on warpgroup MMAs (wgmma tf32, A from registers): the reduce
 (``la_reduce_wg_kernel``: kᵀ split as its fragments load, v split once a
@@ -272,8 +275,9 @@ def bwd_reduce_design(dtype: torch.dtype, m: int, d: int) -> str:
                 "la_bwd_rows_ws_kernel, persistent; P pass q and g/den as tf32 hi + lo, g/den "
                 "split K-major, la_bwd_reduce_wg_kernel; both fed by TMA from a producer "
                 "warpgroup)")
-    return ("tensor cores (wgmma bf16, f32 sums: rows pass kvs as bf16 hi + mid + lo; "
-            "P pass q and g/den node-major, g/den as hi + lo)")
+    return ("tensor cores (wgmma bf16, f32 sums: rows pass kvs as bf16 hi + mid + lo, "
+            "la_bwd_rows_ws16_kernel; P pass q and g/den node-major, g/den as hi + lo, "
+            "la_bwd_reduce_ws16_kernel; both persistent, fed by TMA from a producer warpgroup)")
 
 
 def _apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:

@@ -68,6 +68,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # cancel: the size of the kvs terms that cancel in q @ kvs, against
 # kvs ~ N(0, 1) terms that do not
 APPLY_CANCEL_SCALE = 2.0 ** 5
+# bwd_product_inputs' cancel: the same for the bf16 rows pass, whose three
+# pieces of kvs must hold gden at the f32 tolerance
+ROWS_CANCEL_SCALE = 2.0 ** 6
 
 
 def apply_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
@@ -158,7 +161,8 @@ def bwd_reduce_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generato
     return q, v, g, kvs, torch.zeros(m, device=dev), scal, torch.ones((), device=dev)
 
 
-def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
+def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator,
+                       cancel: bool = False):
     """Inputs of the linear-attention backward apply, (q, k, v, g, kvs, ksum,
     scal, n_total, P, ds, dinv, rows) in its argument order, on ``gen``'s
     device, on which its three products carry dq, dk and dv, so that a
@@ -172,7 +176,15 @@ def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
     tolerance by far); n = inv = 1 and den = 1 to 2 a row, so that n * gd in
     dv is the size of one term of k @ P and not of their sum; gden, ds and
     dinv ~1e-2 and ksum positive, ~1 / m, so that the epilogue's other terms
-    show without swamping the products."""
+    show without swamping the products.
+
+    ``cancel`` (the backward reduce's rows pass): columns m and m ^ 8 of q
+    are equal (a pair within one 16-deep k step), and kvs also carries
+    +-ROWS_CANCEL_SCALE * c_d on the two rows of each pair, which cancel
+    exactly in q @ kvs (c drawn after every other input, which stay as
+    without it). kvs as bf16 hi + mid (its lo piece dropped) then moves gden
+    by ~6 times the f32 tolerance (1e-5 of its scale) at m = d = 256, while
+    hi + mid + lo keep it within ~3e-7."""
     dev = gen.device
 
     def draw(*shape):
@@ -187,5 +199,12 @@ def bwd_product_inputs(n: int, m: int, d: int, dtype, gen: torch.Generator):
     ksum = (0.5 + draw(m)) / m
     scal = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
     rows = torch.stack([1.0 + draw(n), 1e-2 * randn(n)])
-    return (q, k, v, g, kvs, ksum, scal, torch.ones((), device=dev), P, 1e-2 * randn(m),
-            1e-2 * randn(()), rows)
+    ds, dinv = 1e-2 * randn(m), 1e-2 * randn(())
+    if cancel:
+        cols = torch.arange(m, device=dev)
+        pair = cols ^ 8
+        paired = pair < m
+        q = q[:, torch.where(paired & (cols & 8 != 0), pair, cols)].contiguous()
+        sign = torch.where(cols & 8 == 0, 1.0, -1.0) * paired
+        kvs = kvs + ROWS_CANCEL_SCALE * sign[:, None] * randn(d)[None, :]
+    return (q, k, v, g, kvs, ksum, scal, torch.ones((), device=dev), P, ds, dinv, rows)

@@ -544,8 +544,8 @@ def _tensor_core_reduce(q, k, v, guard, rows=96):
 
 
 def _tensor_core_bwd_reduce(q, v, g, kvs, ksum, scal, n_total, guard, rows=96, lo=True):
-    """The bf16 backward reduce's arithmetic (``la_bwd_rows_wgmma_kernel`` and
-    ``la_bwd_reduce_wgmma_kernel``) written plainly: a = q @ kvs with kvs as
+    """The bf16 backward reduce's arithmetic (``la_bwd_rows_ws16_kernel`` and
+    ``la_bwd_reduce_ws16_kernel``) written plainly: a = q @ kvs with kvs as
     three bf16 pieces, hi + mid + lo, each k16 step's three products summed
     alone and added to the f32 sums (the rows pass's fresh sums), b = q .
     ksum, den and gden in f32 as the rows pass forms them; gd = g * (1/den)
@@ -896,7 +896,7 @@ def test_tf32_backward_accumulation_at_n_one(period):
     assert max(dq, dk, dv) <= 1e-5 if period == _WG_PERIOD else max(dq, dk) > 1e-5
 
 
-# The bf16 rows pass's accumulation (``la_bwd_rows_wgmma_kernel``): the
+# The bf16 rows pass's accumulation (``la_bwd_rows_ws16_kernel``): the
 # depth of its fresh sums, one k16 step, against one chain over the whole
 # depth at M = 256.
 _BF16_PERIOD = 16
@@ -913,15 +913,17 @@ def _split_bf16_pieces(t, count):
     return out
 
 
-def _mm_bf16_sums(a, b, pieces, period):
+def _mm_bf16_sums(a, b, pieces, period, drop=()):
     """a @ b as the bf16 rows pass's warpgroup MMAs sum it: a bf16 (exact),
-    b f32 split into ``pieces`` bf16 pieces; k in steps of 16, each step's
-    piece products added in order (hi first) into the period's sum, each
-    add the step's products summed exactly and then rounded toward zero to
-    f32 (the tensor cores' own accumulation, which behaves as if it
-    truncates); every ``period`` deep the sum starts afresh and is added to
-    the running f32 sum rounded to nearest. Returns f64."""
-    ad, bs = a.double(), _split_bf16_pieces(b, pieces)
+    b f32 split into ``pieces`` bf16 pieces (but those whose index is in
+    ``drop``); k in steps of 16, each step's piece products added in order
+    (hi first) into the period's sum, each add the step's products summed
+    exactly and then rounded toward zero to f32 (the tensor cores' own
+    accumulation, which behaves as if it truncates); every ``period`` deep
+    the sum starts afresh and is added to the running f32 sum rounded to
+    nearest. Returns f64."""
+    ad = a.double()
+    bs = [y for i, y in enumerate(_split_bf16_pieces(b, pieces)) if i not in drop]
     out = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, a.shape[1], period):
         part = torch.zeros_like(out)
@@ -1156,6 +1158,135 @@ def test_bwd_product_inputs_catch_a_faulty_rows_pass(fault):
 
     assert misses({}) == [False] * 3
     assert misses(_ROWS_FAULTS[fault]) == _ROWS_FAULTS[fault]["misses"]
+
+
+# The faults the bf16 rows pass's design (la_bwd_rows_ws16_kernel) can have,
+# each as the operands its arithmetic would be formed from: a q k-tile
+# taken from the previous row block's rows (``q``: a slot read before its
+# refill landed), a ring stage one column tile stale (``kvs``: each
+# 64-column tile's kvs^T chunk the tile before's), kvs^T's mid or lo piece
+# dropped (``drop``), the g tile from the neighbouring column tile (``g``),
+# or the rows of the last block past N read as the rows that follow the
+# views and summed into dinv (``rows``); on ``bwd_product_inputs``, or on
+# its ``cancel`` form where kvs's terms cancel in q @ kvs (``cancel``); with
+# which of den, gden and dinv each misses (``misses``: den reads none of
+# the faulty operands).
+_BF16_ROWS_FAULTS = {
+    "q k-tile from the previous row block": dict(
+        q=lambda q: torch.cat((q[:, :64], torch.roll(q, 128, 0)[:, 64:128], q[:, 128:]), 1),
+        misses=[False, True, True]),
+    "ring stage one column tile stale": dict(kvs=_column_tiles_shifted,
+                                             misses=[False, True, True]),
+    "kvs mid piece dropped": dict(drop=(1,), misses=[False, True, True]),
+    "kvs lo piece dropped": dict(drop=(2,), cancel=True, misses=[False, True, False]),
+    "g tile from the neighbouring column tile": dict(g=_column_tiles_shifted,
+                                                     misses=[False, True, True]),
+    "rows past N summed into dinv": dict(rows=True, misses=[False, False, True]),
+}
+
+
+def _lane_fold(x, y):
+    """sum_d x*y of each row as the bf16 rows pass folds it, in f32: each of
+    a fragment row's four lanes an FMA chain from 0 over its two columns of
+    every eight-column group (columns 8 j + 2 t4, + 1 of each 64-column
+    tile, the tiles in order), the lanes added by the xor tree (0 + 1) +
+    (2 + 3)."""
+    n, d = x.shape
+    pad = -d % 64
+    x, y = (torch.cat((t.float(), torch.zeros(n, pad)), 1) for t in (x, y))
+    lanes = []
+    for t4 in range(4):
+        cols = [c0 + 8 * j + 2 * t4 + e for c0 in range(0, d + pad, 64) for j in range(8)
+                for e in range(2)]
+        lanes.append(_fma_chain(x[:, cols], y[:, cols], torch.zeros(n)))
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+@pytest.mark.parametrize("fault", list(_BF16_ROWS_FAULTS))
+def test_bwd_product_inputs_catch_a_faulty_bf16_rows_pass(fault):
+    """The card checks of the bf16 backward reduce (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) hold den and gden within REDUCE_REL_TOL
+    (1e-5) of their scale of ``bwd_reduce_plain`` in f64 and dinv within
+    1e-5 of its two sums' magnitude, on ``bwd_product_inputs`` and its
+    ``cancel`` form among others. There the rows pass's arithmetic (a = q @
+    kvs with kvs as bf16 hi + mid + lo, summed as its warpgroup MMAs sum it,
+    fresh sums every k16 step; sum_d g*a and sum_d g*v folded as its lanes
+    fold them, b as two f32 FMA chains, den, gden and the f64 dinv terms of
+    the rows before N) passes on both, and the same arithmetic with one
+    fault misses in gden, in dinv or in both."""
+    spec = _BF16_ROWS_FAULTS[fault]
+    q, _, v, g, kvs, ksum, scal, n_t = bwd_product_inputs(
+        300, 128, 128, torch.bfloat16, torch.Generator().manual_seed(33),
+        cancel=spec.get("cancel", False))[:8]
+    ind = [t.double() for t in (q, v, g, kvs, ksum, scal, n_t)]
+    _, _, exact, (exact_den, exact_gden) = attn.bwd_reduce_plain(*ind, False)
+    qd, kvs_d = ind[0], ind[3]
+    dinv_scale = ((ind[2] / exact_den[:, None] * (qd @ kvs_d)).abs().sum()
+                  + (exact_gden * (qd @ ind[4])).abs().sum())
+    past = bwd_product_inputs(_PAST_N, 128, 128, torch.bfloat16,
+                              torch.Generator().manual_seed(34))
+    bufs = [torch.cat((a, b)) for a, b in zip((q, v, g), (past[0], past[2], past[3]))]
+    inv, n = scal[2], n_t
+
+    def misses(fault):
+        """Whether den, gden and dinv miss their tolerances with ``fault``."""
+        rows = bufs[0].shape[0] if fault.get("rows") else q.shape[0]
+        qr, vr, gr = (t[:rows] for t in bufs)
+        qa = fault.get("q", lambda t: t)(qr)
+        ga_g = fault.get("g", lambda t: t)(gr)
+        a = _mm_bf16_sums(qa, fault.get("kvs", lambda t: t)(kvs), 3, _BF16_PERIOD,
+                          fault.get("drop", ())).float()
+        s_ga, s_gv = _lane_fold(ga_g, a), _lane_fold(ga_g, vr)
+        qf = qr.float()
+        b = (_fma_chain(qf[:, 0::2], ksum[None, 0::2].expand(rows, -1), torch.zeros(rows))
+             + _fma_chain(qf[:, 1::2], ksum[None, 1::2].expand(rows, -1), torch.zeros(rows)))
+        den = inv * b + n
+        gden = -(inv * s_ga + n * s_gv) / (den * den)
+        dinv = ((s_ga / den).double() + (gden * b).double()).sum()
+        nq = q.shape[0]
+        return [bool((den[:nq] - exact_den).abs().max() > 1e-5 * exact_den.abs().max()),
+                bool((gden[:nq] - exact_gden).abs().max() > 1e-5 * exact_gden.abs().max()),
+                bool((dinv - exact).abs() > 1e-5 * dinv_scale)]
+
+    assert misses({}) == [False] * 3
+    assert misses(spec) == spec["misses"]
+
+
+# Faults of the bf16 P pass where one block forms each chunk's gd = g/den
+# once for every m row of its tile (la_bwd_reduce_ws16_kernel), each as the
+# gd its product qᵀ gd would be formed from: gd's lo piece dropped (the
+# split's second store lost), or gd from the neighbouring 64-row chunk (a
+# gd buffer read before the split of its chunk landed).
+_BF16_P_FAULTS = {
+    "gd lo piece dropped": dict(drop=(1,)),
+    "gd from the neighbouring chunk": dict(gd=lambda t: torch.roll(t, 64, 0)),
+}
+
+
+@pytest.mark.parametrize("fault", list(_BF16_P_FAULTS))
+def test_bwd_product_inputs_catch_a_faulty_bf16_p_pass(fault):
+    """The card checks of the bf16 backward reduce hold its P within
+    REDUCE_REL_TOL (1e-5) of its scale of ``bwd_reduce_plain`` in f64 on
+    ``bwd_product_inputs`` (positive q and g, den = 1 + q . ksum, so that
+    g/den is no bf16 value and its lo piece matters). There the P pass's
+    arithmetic (gd = g * (1/den) as bf16 hi + lo, exact products summed as
+    its warpgroup MMAs sum them, fresh sums every 32 nodes) passes, and the
+    same arithmetic with one fault in gd misses."""
+    ins = bwd_product_inputs(300, 128, 128, torch.bfloat16, torch.Generator().manual_seed(35))
+    q, _, v, g, kvs, ksum, scal, n_t = ins[:8]
+    exact = attn.bwd_reduce_plain(*(t.double() for t in (q, v, g, kvs, ksum, scal, n_t)),
+                                  False)[0]
+    den = scal[2] * (q.float() @ ksum) + n_t  # the rows pass's den, to f32 rounding
+    gd = g.float() * (1.0 / den)[:, None]
+    assert not torch.equal(gd, gd.to(torch.bfloat16).float())
+
+    def misses(spec):
+        got = _mm_bf16_sums(q.T, spec.get("gd", lambda t: t)(gd), 2, _NODE_PERIOD,
+                            spec.get("drop", ()))
+        return ((got - exact).abs().max() > 1e-5 * exact.abs().max()).item()
+
+    assert not misses({})
+    assert misses(_BF16_P_FAULTS[fault])
 
 
 @pytest.mark.parametrize("masked", [False, True])

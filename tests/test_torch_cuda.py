@@ -384,8 +384,8 @@ def test_tf32_backward_kernels_carry_the_products(cuda, m, d):
                                  (40, 37)])
 @pytest.mark.parametrize("strided", [False, True])
 def test_bf16_wgmma_backward_takes_any_width(cuda, n, m, d, strided):
-    """The bf16 backward on warpgroup MMAs (``la_bwd_rows_wgmma_kernel``,
-    ``la_bwd_reduce_wgmma_kernel``, ``la_bwd_apply_wgmma_kernel``) on widths
+    """The bf16 backward on warpgroup MMAs (``la_bwd_rows_ws16_kernel``,
+    ``la_bwd_reduce_ws16_kernel``, ``la_bwd_apply_wgmma_kernel``) on widths
     off their 64- and 128-column tiles and off the 16-byte path (37, 19,
     130: scalar rows), up to the widest q tile the rows pass takes beside
     two stages (640), on the per-head views of [N, 2, *] tensors (strided:
@@ -890,6 +890,112 @@ def test_redesigned_rows_pass_is_bitwise_the_earlier_kernel(cuda, n):
     sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
                                   for t in got)).hexdigest()[:16]
     assert sha == EARLIER_ROWS_DIGESTS[n]
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (704, 40), (37, 19), (200, 37), (130, 200),
+                                 (8, 250), (640, 130)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+@pytest.mark.parametrize("n", [777, 60_000])
+def test_bf16_ws_reduce_on_views(cuda, m, d, view, n):
+    """The bf16 backward reduce with its rows pass and P pass persistent
+    (``la_bwd_rows_ws16_kernel``: the next row block's q rows streamed into
+    slots that this one frees k-tile by k-tile, b on the producer's spare
+    warps; ``la_bwd_reduce_ws16_kernel``) with tail rows (N = 777) and at N
+    = 60,000 (469 row blocks: each of the 132 persistent blocks takes at
+    least 3, so q slots, kvs^T stages, g tiles and the row sums pass from
+    row block to row block), up to the widest q the rows pass takes (704:
+    two stages, no g tile), on q, v and g as they come (``_on_view``): on
+    random rows, where q @ kvs carries den's partner terms
+    (``bwd_product_inputs``, and its ``cancel`` form, where a dropped lo
+    piece of kvs^T would miss), on a masked group (every third row zero, the
+    guard on) and on one positive row (N = 1), each against
+    ``bwd_reduce_plain`` in f64 within 1e-5 of each output's scale (dinv of
+    its sums' magnitude), bitwise repeatable, one launch a call; and an
+    all-masked group (zero norms: inv = 0, den taken as 1) as finite zeros
+    and den 1."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    design = attn.bwd_reduce_design(torch.bfloat16, m, d)
+    assert "la_bwd_rows_ws16_kernel" in design and "la_bwd_reduce_ws16_kernel" in design, design
+
+    def rows(draw, n_rows):
+        return [draw(n_rows, w, generator=gen, device=cuda).bfloat16() for w in (m, m, d, d)]
+
+    q, k, v, g = rows(torch.randn, n)
+    keep = (torch.arange(n, device=cuda) % 3 != 1).bfloat16()[:, None]
+    qm, km, vm = q * keep, k * keep, v * keep
+    q1, k1, v1, g1 = rows(torch.rand, 1)
+    kinds = [((q, v, g, *attn.reduce_plain(q, k, v, False),
+               torch.full((), float(n), device=cuda)), False),
+             ((qm, vm, g, *attn.reduce_plain(qm, km, vm, True), keep.float().sum()), True),
+             ((q1, v1, g1, *attn.reduce_plain(q1, k1, v1, False), torch.ones((), device=cuda)),
+              False)]
+    for cancel in (False, True):
+        prod = bwd_product_inputs(n, m, d, torch.bfloat16, gen, cancel)
+        kinds.append(((prod[0], prod[2], prod[3], *prod[4:8]), False))
+    for ins, guard in kinds:
+        ins = (*(_on_view(view, t) for t in ins[:3]), *ins[3:])
+        b0 = attn.bwd_reduce_launches
+        got = attn.bwd_reduce(*ins, guard)
+        assert attn.bwd_reduce_launches == b0 + 1
+        _f64_bwd_reduce_close(got, *ins, guard=guard)
+        assert all(torch.equal(a, b) for a, b in zip(got, attn.bwd_reduce(*ins, guard)))
+    zeros = [_on_view(view, torch.zeros(n, w, device=cuda).bfloat16()) for w in (m, m, d)]
+    P, ds, dinv, (den, gden) = attn.bwd_reduce(
+        zeros[0], zeros[2], _on_view(view, g), *attn.reduce_plain(*zeros, True),
+        torch.zeros((), device=cuda), True)
+    assert not (P.any() or ds.any() or dinv.any() or gden.any())
+    assert torch.equal(den, torch.ones_like(den))
+
+
+def test_bf16_bwd_reduce_design_names_the_kernels(cuda):
+    """The bf16 backward reduce runs its persistent rows pass and P pass
+    wherever the rows pass's q slots and two kvs^T stages fit one block's
+    shared memory (M up to 704, any D), else the CUDA-core passes."""
+    for m, d in ((256, 256), (8, 72), (704, 40), (640, 999), (37, 19)):
+        bf16 = attn.bwd_reduce_design(torch.bfloat16, m, d)
+        assert bf16.startswith("tensor cores (wgmma bf16"), bf16
+        assert "la_bwd_rows_ws16_kernel" in bf16 and "la_bwd_reduce_ws16_kernel" in bf16, bf16
+        assert "persistent" in bf16, bf16
+    assert attn.bwd_reduce_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
+
+
+# sha256 (16 hex digits) of the bf16 backward reduce's outputs (P, ds, dinv,
+# den and gden) of the passes these replaced (la_bwd_rows_wgmma_kernel and
+# la_bwd_reduce_wgmma_kernel), on host-made inputs of N rows
+# (``_host_bf16_reduce_inputs``), read on an NVIDIA H100 80GB HBM3
+EARLIER_BF16_REDUCE_DIGESTS = {2000: "8b766824f5491e9f", 60_000: "4b2b912e1791940a"}
+
+
+def _host_bf16_reduce_inputs(n):
+    """The bf16 backward reduce's arguments made on the host, as
+    ``chip_compare.py``'s ``host_bf16_inputs`` makes them: q, v, g [n, 256]
+    bf16 from numpy (seed 28), and kvs, ksum and the scalars of k's and
+    those rows summed in f64 and rounded to f32 once."""
+    rng = np.random.default_rng(28)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
+                  .to(torch.bfloat16) for _ in range(4))
+    qd, kd, vd = q.double(), k.double(), v.double()
+    q_sq, k_sq = qd.square().sum(), kd.square().sum()
+    scal = torch.stack([q_sq, k_sq, 1.0 / (q_sq.sqrt() * k_sq.sqrt()),
+                        torch.zeros((), dtype=torch.float64)]).float()
+    return q, v, g, (kd.T @ vd).float(), kd.sum(0).float(), scal, torch.tensor(float(n))
+
+
+@pytest.mark.parametrize("n", list(EARLIER_BF16_REDUCE_DIGESTS))
+def test_redesigned_bf16_reduce_is_bitwise_the_earlier_kernels(cuda, n):
+    """The redesigned rows pass and P pass keep the arithmetic of the ones
+    they replaced (the rows pass's products, fresh sums, fold chains and
+    tree, b's two chains, den, gden and the dinv tree; the P pass's 32-row
+    fresh sums, gd = g * (1/den) as hi + lo, the slice partials and ds's
+    four f64 chains), so the reduce's outputs are bitwise those kernels',
+    also where each persistent block takes several row blocks (N =
+    60,000)."""
+    import hashlib
+
+    got = attn.bwd_reduce(*(t.to(cuda) for t in _host_bf16_reduce_inputs(n)))
+    sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
+                                  for t in got)).hexdigest()[:16]
+    assert sha == EARLIER_BF16_REDUCE_DIGESTS[n]
 
 
 @pytest.mark.parametrize("m,d", [(256, 256), (37, 36), (200, 37), (8, 999), (256, 40)])
