@@ -18,6 +18,8 @@ in the same call as the change.
     python3 chip_compare.py designs ROOT [ROOT ...]
     python3 chip_compare.py rows ROOT [ROOT ...]
     python3 chip_compare.py bf16-passes ROOT [ROOT ...]
+    python3 chip_compare.py bf16-apply ROOT [ROOT ...]
+    python3 chip_compare.py bf16-apply-trace ROOT
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
     python3 chip_compare.py reduce ROOT [ROOT ...]
 
@@ -102,6 +104,17 @@ pass's device ms by the profiler (either package's kernel names) and the
 whole ``bwd_reduce`` by CUDA events at M = D = 256 on the arxiv and
 large-400K rows, and the reduce's digests on ``host_bf16_inputs`` (the
 design A/Bs of a bf16 reduce redesign, on copies with one change each).
+``bf16-apply``: the bf16 backward apply of each ROOT in the order given
+(write the turns out: ROOT1 ROOT2 ROOT2 ROOT1), each turn a process of its
+own (``bf16-apply-turn ROOT``): its kernels' ``ptxas`` registers and
+spills, the kernel's device ms by the profiler at M = D = 256 on the
+arxiv, large-400K and amazon2m tail rows, and digests of dq, dk and dv on
+randn rows (``BF16_APPLY_VIEWS``) and of the outputs on host-made inputs,
+each against the first turn's (the design A/Bs of a bf16 apply redesign,
+on copies with one change each). ``bf16-apply-trace``: ROOT's
+``la_bwd_apply_ws16_kernel`` in a copy stamped with the SM's clock at its
+phases (``APPLY_TRACE_STAMPS``), one arxiv-shaped call, and each consumer
+warpgroup's cycles by phase (blocks 0 and 2).
 ``rows``: the f32 backward rows pass of each ROOT in the order given
 (write the turns out: ROOT1 ROOT2 ROOT2 ROOT1), each turn a process of
 its own (``rows-turn ROOT``): its ``ptxas`` registers and spills, its
@@ -121,19 +134,23 @@ arxiv-batch full-batch and tail (50,000, 19,343) shapes times its
 package's bf16 ``bwd_reduce`` and ``bwd_apply`` (CUDA events, median of
 20) and their launches apart by the profiler (the rows pass and the P pass
 by either package's kernel names, the split, finish and dinv; the apply
-and its split), prints each pass beside its bound (the bytes it must move
-and the operations of its split products: three for the rows pass, two
-for the P pass) and beside its own product in one bf16 ``torch.matmul``
-(``torch.matmul(q, kvs)``, ``torch.matmul(q.t(), gd)``, gd = g / den made
-beforehand; never called by the port), holds each output to the plain
-version in f64 (random inputs at n = N, and the apply on
-``bwd_product_inputs``; the ratios printed), checks that both are bitwise
-repeatable, and digests the bf16 ``bwd_reduce`` and ``bwd_apply`` at
+by any package's kernel name, and its split), prints each pass beside its
+bound (the bytes it must move and the operations of its split products:
+three for the rows pass, two for the P pass, six for the apply) and beside
+its own products, each in one bf16 ``torch.matmul`` (``torch.matmul(q,
+kvs)``, ``torch.matmul(q.t(), gd)``, and the apply's gd @ kvs^T, v @ P^T
+and k @ P, gd = g / den made beforehand; never called by the port), holds
+each output to the plain version in f64 (random inputs at n = N, and the
+apply on ``bwd_product_inputs``; the ratios printed), checks that both are
+bitwise repeatable, and digests the bf16 ``bwd_reduce`` and ``bwd_apply`` at
 ``BF16_DIGEST_SHAPES``, the bf16 ``bwd_reduce`` on host-made inputs
 (``host_bf16_inputs``, N = 2,000 and 60,000: ``tests/test_torch_cuda.py``'s
-``EARLIER_BF16_REDUCE_DIGESTS``) and the f32 backward's outputs at three
-shapes. The mode prints each turn's JSON line, then the turns side by
-side, and fails unless the bf16 and f32 digests are equal in every turn
+``EARLIER_BF16_REDUCE_DIGESTS``), the bf16 ``bwd_apply`` on host-made
+inputs (``host_attention_inputs`` in bf16, N = 2,000 and 60,000: the bf16
+backward apply's rows of ``EARLIER_APPLY_DIGESTS``) and the f32 backward's
+outputs at three shapes. The mode prints each turn's JSON line, then the
+turns side by side, and fails unless the bf16 and f32 digests are equal in
+every turn
 (Step 0 of a redesign runs it on copies of the parent with one part
 removed each, which fail the check by design).
 ``busy``: ROOT's own arxiv-train, large-400K-int8-train,
@@ -251,7 +268,8 @@ def main() -> int:
              "tf32-bwd", "tf32-bwd-turn", "bf16-bwd", "bf16-bwd-turn", "busy", "busy-f32",
              "schedule",
              "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
-             "rows", "rows-turn", "bf16-passes", "bf16-passes-turn",
+             "rows", "rows-turn", "bf16-passes", "bf16-passes-turn", "bf16-apply",
+             "bf16-apply-turn", "bf16-apply-trace", "bf16-apply-trace-turn",
              "reduce", "reduce-turn")
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
@@ -260,7 +278,7 @@ def main() -> int:
     if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
             or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
                                                      "tf32-bwd", "bf16-bwd", "rows",
-                                                     "bf16-passes")) \
+                                                     "bf16-passes", "bf16-apply")) \
             or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
@@ -276,6 +294,10 @@ def main() -> int:
     if mode in ("rows", "bf16-passes"):
         turns = run_turns(f"{mode}-turn", root, [os.path.abspath(r) for r in sys.argv[2:]])
         return 0 if turns is not None else 1
+    if mode == "bf16-apply":
+        return bf16_apply([os.path.abspath(r) for r in sys.argv[2:]])
+    if mode == "bf16-apply-trace":
+        return apply_trace(root)
     if mode == "q8-f32-apply":
         return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
     if mode == "reduce":
@@ -319,6 +341,10 @@ def main() -> int:
         return rows_turn(cs, root)
     if mode == "bf16-passes-turn":
         return bf16_passes_turn(cs, root)
+    if mode == "bf16-apply-turn":
+        return bf16_apply_turn(cs, root)
+    if mode == "bf16-apply-trace-turn":
+        return apply_trace_turn(root)
     if mode == "q8-f32-apply-turn":
         return q8_f32_apply_turn(cs, root, only)
     if mode == "reduce-turn":
@@ -596,7 +622,8 @@ def bf16_bwd(roots: list) -> int:
     names[HERE] = "this checkout"
     side = {f"turn {i} ({names[t['root']]})": t["bf16"] for i, t in enumerate(turns)}
     equal = {key: len({json.dumps(t[key]) for t in turns}) == 1
-             for key in ("bf16_digests", "bf16_reduce_digests", "f32_digests")}
+             for key in ("bf16_digests", "bf16_reduce_digests", "bf16_apply_digests",
+                         "f32_digests")}
     print(json.dumps({"bf16_bwd_turns": side, "bitwise_equal": equal}), flush=True)
     return 0 if all(equal.values()) else 1
 
@@ -609,7 +636,7 @@ BF16_P_PASS = ("la_bwd_reduce_tc_kernel", "la_bwd_reduce_wgmma_kernel",
                "la_bwd_reduce_ws16_kernel")
 BF16_REDUCE_OTHERS = ("split_t_kernel", "la_bwd_split_rows_kernel", "la_bwd_finish_kernel",
                       "la_bwd_dinv_kernel")
-BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel")
+BF16_APPLY = ("la_bwd_apply_tc_kernel", "la_bwd_apply_wgmma_kernel", "la_bwd_apply_ws16_kernel")
 # the f32 backward reduce's launches by kernel name, any package's: the
 # rows pass (mma.sync, warpgroup MMAs, warp-specialised), the P pass
 # (mma.sync, then warpgroup MMAs), the reduce's other launches (the split
@@ -631,16 +658,20 @@ BF16_REDUCE_DIGEST_ROWS = (2000, 60_000)
 # batch and its tail, large-400K, the arxiv batch and its tail
 BF16_BWD_SHAPES = (("arxiv", 169_343), ("amazon2m-batch", 100_000), ("amazon2m-batch tail", 49_029),
                    ("large-400K", 400_000), ("arxiv-batch", 50_000), ("arxiv-batch tail", 19_343))
+# the bf16 backward apply's outputs on host-made inputs digested in every
+# turn of the bf16-bwd mode (the rows of tests/test_torch_cuda.py's
+# EARLIER_APPLY_DIGESTS for the bf16 backward apply)
+BF16_APPLY_DIGEST_ROWS = (2000, 60_000)
 # the f32 backward reduce's outputs on host-made inputs digested in every
 # turn of the tf32-bwd mode (the rows of tests/test_torch_cuda.py's
 # EARLIER_ROWS_DIGESTS)
 F32_REDUCE_DIGEST_ROWS = (2000, 60_000)
 
 
-def host_attention_inputs(n: int):
-    """q, k, v, g [n, 256] f32 from numpy (seed 27), as
-    ``tests/test_torch_cuda.py::_host_apply_inputs`` makes them, and the
-    plain forward reduce's outputs, all made on the host."""
+def host_attention_inputs(n: int, dtype=None):
+    """q, k, v, g [n, 256] of ``dtype`` (f32 by default) from numpy (seed
+    27), as ``tests/test_torch_cuda.py::_host_apply_inputs`` makes them, and
+    the plain forward reduce's outputs, all made on the host."""
     import numpy as np
     import torch
 
@@ -648,7 +679,7 @@ def host_attention_inputs(n: int):
 
     rng = np.random.default_rng(27)
     q, k, v, g = (torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
-                  for _ in range(4))
+                  .to(dtype or torch.float32) for _ in range(4))
     return q, k, v, g, attn.reduce_plain(q, k, v, False), torch.tensor(float(n))
 
 
@@ -710,7 +741,7 @@ def bf16_bwd_turn(cs, root: str) -> int:
             cs.log(f"ptxas {root}: {line.strip()}")
     dev, m = "cuda", 256
     out = dict(root=root, sass=sass_counts(cs, root), bf16={}, bf16_digests=[],
-               bf16_reduce_digests={}, f32_digests=[],
+               bf16_reduce_digests={}, bf16_apply_digests={}, f32_digests=[],
                designs=dict(reduce=attn.bwd_reduce_design(torch.bfloat16, m, m),
                             apply=attn.bwd_apply_design(torch.bfloat16, m, m)))
     cs.log(f"bf16-bwd {root} designs at M = D = 256: {out['designs']}")
@@ -755,6 +786,12 @@ def bf16_bwd_turn(cs, root: str) -> int:
         kvs_b = sums[0].bfloat16()
         rows_matmul_ms = cs.time_ms(lambda: torch.matmul(q, kvs_b))
         p_matmul_ms = cs.time_ms(lambda: torch.matmul(q.t(), gd))
+        # and the apply's three products, each in one bf16 torch.matmul: gd @
+        # kvs^T, v @ P^T, k @ P
+        P_b = red[0].bfloat16()
+        apply_matmul_ms = dict(gd_kvsT=cs.time_ms(lambda: torch.matmul(gd, kvs_b.t())),
+                               v_PT=cs.time_ms(lambda: torch.matmul(v, P_b.t())),
+                               k_P=cs.time_ms(lambda: torch.matmul(k, P_b)))
         # the bounds: the rows pass reads q, v, g, kvs and ksum and writes
         # den and gden, and runs three bf16 products (kvs^T as hi + mid + lo);
         # the P pass reads q, g, den and gden, writes P and ds, and runs two
@@ -765,6 +802,11 @@ def bf16_bwd_turn(cs, root: str) -> int:
         p_bound = cs.bound_ms(2 * n * m * 2 + 2 * n * 4 + small, 2 * 2 * n * m * m, torch.bfloat16)
         r_bound = cs.bound_ms(3 * n * m * 2 + 2 * small + 2 * n * 4 + 4,
                               5 * 2 * n * m * m + 6 * n * m + 2 * n * m, torch.bfloat16)
+        # the apply reads q, k, v, g, den, gden, kvs, ksum, P and ds and
+        # writes dq, dk and dv, and runs six bf16 products (kvs and P as hi +
+        # lo)
+        a_bound = cs.bound_ms(7 * n * m * 2 + 2 * n * 4 + 2 * small, 6 * 2 * n * m * m,
+                              torch.bfloat16)
         out["bf16"][name] = dict(n=n, bwd_apply_ms=a_ms, bwd_reduce_ms=r_ms,
                                  bwd_reduce_bound_ms=r_bound[0], bwd_reduce_bound_by=r_bound[1],
                                  rows_ms=rows_ms, rows_bound_ms=rows_bound[0],
@@ -772,17 +814,26 @@ def bf16_bwd_turn(cs, root: str) -> int:
                                  p_pass_ms=p_ms, p_pass_bound_ms=p_bound[0],
                                  p_pass_bound_by=p_bound[1], p_pass_matmul_ms=p_matmul_ms,
                                  reduce_others_ms=others_ms, apply_kernel_ms=apply_ms,
-                                 apply_split_ms=split_ms, rel_err=errs,
+                                 apply_split_ms=split_ms, apply_bound_ms=a_bound[0],
+                                 apply_bound_by=a_bound[1],
+                                 apply_bound_bytes_ms=cs.bound_ms(
+                                     7 * n * m * 2 + 2 * n * 4 + 2 * small, 0)[0],
+                                 apply_matmul_ms=apply_matmul_ms, rel_err=errs,
                                  bitwise_repeatable=repeat)
         cs.log(f"bf16-bwd {root} {name} n={n}: bwd_apply {a_ms:.4f} ms (kernel {apply_ms:.4f}, "
-               f"split {split_ms:.4f}), bwd_reduce {r_ms:.4f} ms (bound {r_bound[0]:.4f} by "
+               f"split {split_ms:.4f}; bound {a_bound[0]:.4f} by {a_bound[1]}, its six split "
+               f"products at the bf16 peak {cs.bound_ms(0, 6 * 2 * n * m * m)[0]:.4f}; "
+               "torch.matmul gd @ kvs^T, v @ P^T, k @ P "
+               + ", ".join(f"{t:.4f}" for t in apply_matmul_ms.values())
+               + f", together {sum(apply_matmul_ms.values()):.4f}), "
+               f"bwd_reduce {r_ms:.4f} ms (bound {r_bound[0]:.4f} by "
                f"{r_bound[1]}; rows pass {rows_ms:.4f}, bound {rows_bound[0]:.4f} by "
                f"{rows_bound[1]}, torch.matmul q @ kvs {rows_matmul_ms:.4f}; P pass {p_ms:.4f}, "
                f"bound {p_bound[0]:.4f} by {p_bound[1]}, torch.matmul q^T gd {p_matmul_ms:.4f}; "
                f"split, finish and dinv {others_ms:.4f}); bitwise repeatable {repeat}; "
                "|kernel - plain in f64| / scale: "
                + ", ".join(f"{p} {e:.2e}" for p, e in errs.items()))
-        del q, k, v, g, sums, red, gd, kvs_b
+        del q, k, v, g, sums, red, gd, kvs_b, P_b
         torch.cuda.empty_cache()
     for n, m_, d_ in BF16_DIGEST_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
@@ -801,6 +852,13 @@ def bf16_bwd_turn(cs, root: str) -> int:
         sha = digest(attn.bwd_reduce(*(t.to(dev) for t in host_bf16_inputs(n))))
         out["bf16_reduce_digests"][str(n)] = sha
         cs.log(f"bf16-bwd {root} bf16 bwd_reduce n={n} (host-made inputs): outputs sha256 {sha}")
+    for n in BF16_APPLY_DIGEST_ROWS:
+        q, k, v, g, sums, n_t = host_attention_inputs(n, torch.bfloat16)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        sha = digest(attn.bwd_apply(*(t.to(dev) for t in (q, k, v, g, *sums, n_t, *red[:3])),
+                                    red[3].to(dev)))
+        out["bf16_apply_digests"][str(n)] = sha
+        cs.log(f"bf16-bwd {root} bf16 bwd_apply n={n} (host-made inputs): outputs sha256 {sha}")
     for n, m_, d_ in F32_DIGEST_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(n + m_ + d_)
         q, k = (torch.randn(n, m_, generator=gen, device=dev) for _ in range(2))
@@ -1252,6 +1310,229 @@ def rows_turn(cs, root: str) -> int:
                                                                                n_t))))
     print(json.dumps(out), flush=True)
     return 0
+
+
+def bf16_apply(roots: list) -> int:
+    """The ``bf16-apply`` mode: ``bf16-apply-turn`` on each ROOT in the
+    order given, each a process of its own; each turn's device ms, and
+    whether each of its digests equals the first turn's."""
+    turns = run_turns("bf16-apply-turn", roots[0], roots)
+    if turns is None:
+        return 1
+    for t in turns:
+        same = {key: (all(a == b for a, b in zip(v, turns[0]["digests"][key]))
+                      if isinstance(v, list) else v == turns[0]["digests"][key])
+                for key, v in t["digests"].items()}
+        print(f"bf16-apply {t['root']}: device ms {t['ms']}; digests equal to the first turn's: "
+              f"{same}", flush=True)
+    return 0
+
+
+# the bf16-apply mode's digested inputs: (N, M, D, view) on randn rows
+BF16_APPLY_VIEWS = ((777, 256, 256, "contiguous"), (60_000, 200, 37, "aligned head"),
+                    (60_000, 64, 64, "strided"), (777, 130, 200, "contiguous"))
+
+
+def bf16_apply_turn(cs, root: str) -> int:
+    """One turn of the ``bf16-apply`` mode on ROOT's package: the bf16
+    backward apply's ``ptxas`` registers and spills, its kernel's device ms
+    by the profiler (20 calls) at M = D = 256 on the arxiv, large-400K and
+    amazon2m tail rows (randn), and sha256 digests of dq, dk and dv on
+    randn rows at ``BF16_APPLY_VIEWS`` and of the outputs on host-made
+    inputs (``host_attention_inputs``, N = 2,000 and 60,000); its last line
+    of output is a JSON object (the design A/Bs of a bf16 apply redesign, on
+    copies with one change each)."""
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    report = _build.build_all(("linear_attention_bwd",)).get("linear_attention_bwd", "")
+    out = dict(root=root, ptxas=[], digests={}, ms={})
+    entry = False
+    for line in report.splitlines():
+        if "entry function" in line:
+            entry = "la_bwd_apply_w" in line
+        elif entry and ("Used" in line or "spill" in line) or "warning" in line:
+            out["ptxas"].append(line.strip())
+    for n, m, d, view in BF16_APPLY_VIEWS:
+        gen = torch.Generator(device="cuda").manual_seed(n + m + d)
+        q, k, v, g = (torch.randn(n, w, generator=gen, device="cuda").bfloat16()
+                      for w in (m, m, d, d))
+        sums = attn.reduce_plain(q, k, v, False)
+        n_t = torch.full((), float(n), device="cuda")
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        if view != "contiguous":  # head 1 of [N, 2, w + pad]
+            pad = 8 if view == "aligned head" else 3
+            q, k, v, g = (torch.empty(n, 2, t.shape[1] + pad, dtype=t.dtype, device="cuda")
+                          [:, 1, :t.shape[1]].copy_(t) for t in (q, k, v, g))
+        out["digests"][f"{n}x{m}x{d} {view}"] = [
+            digest((t,)) for t in attn.bwd_apply(q, k, v, g, *sums, n_t, *red)]
+    for n in BF16_APPLY_DIGEST_ROWS:
+        q, k, v, g, sums, n_t = host_attention_inputs(n, torch.bfloat16)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        out["digests"][f"host {n}"] = digest(attn.bwd_apply(
+            *(t.cuda() for t in (q, k, v, g, *sums, n_t, *red[:3])), red[3].cuda()))
+    for name, n in (("arxiv", 169_343), ("large-400K", 400_000), ("amazon2m tail", 49_029)):
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q, k, v, g = (torch.randn(n, 256, generator=gen, device="cuda").bfloat16()
+                      for _ in range(4))
+        n_t = torch.full((), float(n), device="cuda")
+        sums = attn.reduce_plain(q, k, v, False)
+        red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+        dev_ms = cs.kernel_ms(lambda: attn.bwd_apply(q, k, v, g, *sums, n_t, *red), BF16_APPLY)
+        out["ms"][name] = sum(dev_ms.values())
+        del q, k, v, g, sums, red
+        torch.cuda.empty_cache()
+    cs.log(f"bf16-apply {root}: ptxas {out['ptxas']}; device ms {out['ms']}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# The bf16-apply-trace mode's stamps in la_bwd_apply_ws16_kernel: each a
+# line of its source (unique in the kernel), the tag written at it, and
+# whether the stamp goes before the line; roles: 0 and 1 the consumer
+# warpgroups' first threads, 2 the producer's ring lane, 3 its A lane
+APPLY_TRACE_STAMPS = (
+    ("            if (e >= kAsStages) mbar_wait(empty + st, (e / kAsStages - 1) & 1);",
+     "if (lane == 0) TRACE(2, c < kch ? 1 : 2);", True),
+    ("            if (e >= kAsStages) mbar_wait(empty + st, (e / kAsStages - 1) & 1);",
+     "if (lane == 0) TRACE(2, 3);", False),
+    ("          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);", "if (lane == 0) TRACE(3, 4);", True),
+    ("          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);", "if (lane == 0) TRACE(3, 5);", False),
+    ("    const int tiles = at.tiles(w);", "if (leader) TRACE(wg, 10);", False),
+    ("        mbar_wait(full + st, (e / kAsStages) & 1);", "if (leader) TRACE(wg, 11);", True),
+    ("        if (t == 0) mbar_wait(afull + kc, i & 1);", "if (leader) TRACE(wg, 12);", False),
+    ("      mbar_wait(full + st0, (e / kAsStages) & 1);", "if (leader) TRACE(wg, 13);", True),
+    ("      mbar_wait(full + st0, (e / kAsStages) & 1);", "if (leader) TRACE(wg, 14);", False),
+    ("      fin(H0{}, H0{}, X0);", "if (leader) TRACE(wg, 15);", True),
+    ("      fin(H0{}, H0{}, X0);", "if (leader) TRACE(wg, 16);", False),
+    ("      fin(H0{}, H1{}, X0);", "if (leader) TRACE(wg, 17);", True),
+    ("      store(0, st0, X0);", "if (leader) TRACE(wg, 18);", False),
+    ("        store(1, st1, X1);", "if (leader) TRACE(wg, 19);", False),
+)
+# the spans between consecutive stamps of a consumer warpgroup
+APPLY_TRACE_SPANS = {
+    (10, 11): "an item's set-up", (11, 12): "waiting for a chunk's B (and, tile 0, A slot)",
+    (12, 11): "a chunk's MMAs, issued and drained", (12, 13): "the tile's last chunk issued",
+    (13, 14): "waiting for the operand's first half", (14, 15): "waiting for sum 0's MMAs",
+    (15, 16): "epilogue, sum 0, first half", (16, 17): "waiting for sum 1's MMAs",
+    (17, 18): "epilogue, sum 1, first half, its store",
+    (18, 19): "second half: its wait, both sums, its store", (19, 11): "to the next tile",
+    (19, 10): "to the next item"}
+APPLY_TRACE_HELPER = r"""
+__device__ long long g_apply_trace[2][4][4096];
+#define TRACE(role, tag)                                                                    \
+  do {                                                                                      \
+    const int sel_ = blockIdx.x == 0 ? 0 : (blockIdx.x == 2 ? 1 : -1);                      \
+    if (sel_ >= 0 && trace_n_ < 4096) {                                                     \
+      g_apply_trace[sel_][role][trace_n_++] =                                               \
+          (static_cast<long long>(tag) << 48) | (clock64() & 0xFFFFFFFFFFFFLL);             \
+    }                                                                                       \
+  } while (0)
+"""
+APPLY_TRACE_COPY = r"""
+extern "C" int sgf_apply_trace_copy(void* dst) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, g_apply_trace, sizeof(g_apply_trace));
+  if (e != cudaSuccess) return e;
+  void* p = nullptr;
+  e = cudaGetSymbolAddress(&p, g_apply_trace);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(g_apply_trace));
+}
+"""
+
+
+def apply_trace(root: str) -> int:
+    """The ``bf16-apply-trace`` mode: ROOT's package copied into this
+    checkout's ``build/apply-trace/``, its ``la_bwd_apply_ws16_kernel``
+    stamped with the SM's clock (clock64) at ``APPLY_TRACE_STAMPS`` (blocks
+    0 and 2: the consumer warpgroups' first threads, the producer's two
+    issuing lanes; one global store a stamp, the count in a register), one
+    arxiv-shaped call (M = D = 256, N = 169,343) traced in a process of its
+    own, then each consumer warpgroup's cycles by span
+    (``APPLY_TRACE_SPANS``) and share of its time. The stamps move the
+    kernel's time by a few per cent."""
+    import json
+    import shutil
+    import subprocess
+
+    src = os.path.join(root, "sgformer_tpu_torch")
+    dst = os.path.join(HERE, "build", "apply-trace")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, os.path.join(dst, "sgformer_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    path = os.path.join(dst, "sgformer_tpu_torch", "csrc", "linear_attention_bwd.cu")
+    code = open(path).read()
+    a = code.index("la_bwd_apply_ws16_kernel(const bf16")
+    b = code.index("\n}\n", a)
+    kernel = code[a:b].replace("  const int warp = tid >> 5;\n",
+                               "  const int warp = tid >> 5;\n  int trace_n_ = 0;\n", 1)
+    for line, stamp, before in APPLY_TRACE_STAMPS:
+        if kernel.count(line + "\n") != 1:
+            print(f"chip_compare: the trace's line is not once in the kernel: {line!r}",
+                  file=sys.stderr)
+            return 1
+        kernel = kernel.replace(line + "\n", f"{stamp}\n{line}\n" if before else f"{line}\n{stamp}\n")
+    head = code.rindex("__global__", 0, a)
+    code = code[:head] + APPLY_TRACE_HELPER + code[head:a] + kernel + code[b:] + APPLY_TRACE_COPY
+    open(path, "w").write(code)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "bf16-apply-trace-turn", dst],
+                         capture_output=True, text=True, timeout=900)
+    sys.stderr.write(out.stderr[-4000:])
+    if out.returncode != 0:
+        return 1
+    stamps = json.loads(out.stdout.strip().splitlines()[-1])
+    for sel, block in enumerate((0, 2)):
+        for wg in (0, 1):
+            ev = stamps[sel][wg]
+            total = ev[-1][1] - ev[0][1]
+            spans: dict = {}
+            for (ta, ca), (tb, cb) in zip(ev, ev[1:]):
+                name = APPLY_TRACE_SPANS.get((ta, tb), f"{ta} to {tb}")
+                n, c = spans.get(name, (0, 0))
+                spans[name] = (n + 1, c + cb - ca)
+            print(f"bf16-apply-trace {root} arxiv block {block} warpgroup {wg}: {total} cycles, "
+                  f"{sum(1 for t, _ in ev if t == 10)} items", flush=True)
+            for name, (n, c) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+                print(f"  {name}: {c} cycles ({100 * c / total:.1f} %), {n} times, "
+                      f"{c / n:.0f} a time", flush=True)
+    return 0
+
+
+def apply_trace_turn(root: str) -> int:
+    """The traced call of the ``bf16-apply-trace`` mode (in ROOT, the
+    stamped copy): three arxiv-shaped calls, the last one's stamps printed
+    as a JSON list [block][role] of (tag, clock) pairs."""
+    import ctypes
+    import json
+
+    import numpy as np
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels import attention as attn
+
+    _build.build_all(("linear_attention_bwd",))
+    lib = _build.library("linear_attention_bwd")
+    lib.sgf_apply_trace_copy.argtypes = [ctypes.c_void_p]
+    n = 169_343
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, g = (torch.randn(n, 256, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    n_t = torch.full((), float(n), device="cuda")
+    sums = attn.reduce_plain(q, k, v, False)
+    red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
+    buf = np.zeros((2, 4, 4096), dtype=np.int64)
+    for _ in range(3):
+        attn.bwd_apply(q, k, v, g, *sums, n_t, *red)
+        torch.cuda.synchronize()
+        if lib.sgf_apply_trace_copy(buf.ctypes.data) != 0:
+            return 1
+    print(json.dumps([[[[int(x >> 48), int(x & 0xFFFFFFFFFFFF)] for x in buf[s, r] if x]
+                       for r in range(4)] for s in range(2)]), flush=True)
+    return 0
+
 
 
 def bf16_passes_turn(cs, root: str) -> int:

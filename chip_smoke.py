@@ -669,7 +669,7 @@ def bound_name(by: str, dtype) -> str:
 # type: each design string names its kernel
 APPLY_KERNELS = {torch.float32: "la_apply_wg_kernel", torch.bfloat16: "la_apply_wgmma_kernel"}
 BWD_APPLY_KERNELS = {torch.float32: "la_bwd_apply_ws_kernel",
-                     torch.bfloat16: "la_bwd_apply_wgmma_kernel"}
+                     torch.bfloat16: "la_bwd_apply_ws16_kernel"}
 
 
 def fwd_designs(attn, dtype, m: int, d: int, where: str) -> tuple[str, str]:
@@ -1078,21 +1078,29 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
         gd_t = (g.float() / want_r[3][0][:, None]).to(dtype)
         a_gemm_ms = time_ms(lambda: (torch.matmul(gd_t, kvs_t.t()), torch.matmul(v, P_t.t()),
                                      torch.matmul(k, P_t)))
+        a_gemm_each = dict(gd_kvsT=time_ms(lambda: torch.matmul(gd_t, kvs_t.t())),
+                           v_PT=time_ms(lambda: torch.matmul(v, P_t.t())),
+                           k_P=time_ms(lambda: torch.matmul(k, P_t)))
         del kvs_t, P_t, gd_t
+        # the apply's own kernel (and its split of kvs and P) by the profiler
+        a_dev = kernel_ms(lambda: attn.bwd_apply(q, k, v, g, kvs, ksum, scal, n_t, *want_r),
+                          (BWD_APPLY_KERNELS[dtype],))[BWD_APPLY_KERNELS[dtype]]
         elt = q.element_size()
         small = (2 * m * d + 2 * m + 6) * 4  # kvs or P, ksum or ds, scalars
         # reduce: q @ kvs and q^T gd; reads q, v, g, writes P, ds, dinv, den, gden
         rb_ms, rb_by = bound_ms(3 * n * m * elt + small + 2 * n * 4,
                              bwd_reduce_ops(n, m, d, dtype), dtype)
-        # apply: gd @ kvs^T, v @ P^T, k @ P; reads q, k, v, g, den, gden,
-        # writes dq, dk, dv
+        # apply: gd @ kvs^T, v @ P^T, k @ P (in bf16 six products: kvs and P
+        # as hi + lo); reads q, k, v, g, den, gden, writes dq, dk, dv
+        products = 12 if dtype == torch.bfloat16 else 6
         ab_ms, ab_by = bound_ms(7 * n * m * elt + 2 * small + 2 * n * 4,
-                             6 * n * m * d + 8 * n * m + 3 * n * d, dtype)
+                             products * n * m * d + 8 * n * m + 3 * n * d, dtype)
         log(f"bwd_reduce {name}: {r_ms:.4f} ms (plain {r_plain:.4f} ms, torch.matmul q @ kvs "
             f"+ q^T gd {gemm_ms:.4f} ms, bound {rb_ms:.4f} ms by {bound_name(rb_by, dtype)}); "
-            f"bwd_apply {name}: {a_ms:.4f} ms (plain {a_plain:.4f} ms, torch.matmul gd @ kvs^T "
-            f"+ v @ P^T + k @ P {a_gemm_ms:.4f} ms, bound {ab_ms:.4f} ms by "
-            f"{bound_name(ab_by, dtype)})")
+            f"bwd_apply {name}: {a_ms:.4f} ms (kernel {a_dev:.4f} ms by the profiler; plain "
+            f"{a_plain:.4f} ms, torch.matmul gd @ kvs^T + v @ P^T + k @ P {a_gemm_ms:.4f} ms ("
+            + ", ".join(f"{t:.4f}" for t in a_gemm_each.values())
+            + f" apart), bound {ab_ms:.4f} ms by {bound_name(ab_by, dtype)})")
         results[("linear_attention_bwd_reduce", name)] = dict(
             max_abs_err=max(red_errs), ms=r_ms, plain_ms=r_plain, bound_ms=rb_ms,
             bound_by=rb_by, library_ms=None, gemm_ms=gemm_ms, design=red_design)
@@ -1110,7 +1118,8 @@ def attention_bwd_phase(n: int, results: dict, dev: str) -> None:
             torch.cuda.empty_cache()
         results[("linear_attention_bwd_apply", name)] = dict(
             max_abs_err=max(app_errs), ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
-            bound_by=ab_by, library_ms=None, gemm_ms=a_gemm_ms, design=design)
+            bound_by=ab_by, library_ms=None, gemm_ms=a_gemm_ms, gemm_each_ms=a_gemm_each,
+            kernel_ms=a_dev, design=design)
 
     # an all-masked group: finite zero gradients
     qs, ks, vs = (torch.randn(n, 1, m, generator=gen, device=dev).to(torch.bfloat16)

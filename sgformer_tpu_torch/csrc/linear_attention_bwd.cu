@@ -58,17 +58,21 @@
 // each stage of a ring over. (Copies issued by the warps that also ran the
 // MMAs stalled them: an SM takes new copies only as fast as device memory
 // returns the old ones, and that, not the MMAs, set these kernels' time.)
-// - the apply (la_bwd_apply_wgmma_kernel): the A side is the bf16 input
-//   rows as they are (g, v, k; the 1/den of gd = g/den moves into the
-//   epilogue); the B side, kvs and P, stays f32 in meaning: each is split
-//   once per call (la_bwd_split_tiles_kernel) into bf16 hi + lo (hi =
-//   bf16(x), lo = bf16(x - hi), ~16 significant bits) and every product is
-//   two MMAs, so the error is ~2^-17 of each term against f32 FMAs. One
-//   block owns 128 rows and produces all three outputs, 128 columns a tile,
-//   its A rows and B pieces streamed together in 64-deep chunks; a finished
-//   tile is written through shared memory and stored by the copy engine.
-//   The products, 6 x 22.2 GFLOP at the arxiv shape, are ~0.13 ms at the
-//   card's bf16 peak, under the bytes bound;
+// - the apply (la_bwd_apply_ws16_kernel; la_bwd_apply_wgmma_kernel for M or
+//   D above 256): the A side is the bf16 input rows as they are (g, v, k;
+//   the 1/den of gd = g/den moves into the epilogue); the B side, kvs and P,
+//   stays f32 in meaning: each is split once per call
+//   (la_bwd_split_tiles_kernel) into bf16 hi + lo (hi = bf16(x), lo =
+//   bf16(x - hi), ~16 significant bits) and every product is two MMAs, so
+//   the error is ~2^-17 of each term against f32 FMAs. Persistent over
+//   (256-row block, product) items, each B chunk serving the item's 256
+//   rows, the item's A rows in slots that the item before frees, the B
+//   chunks and the epilogue operand through one ring; a finished tile is
+//   written through shared memory and stored by the copy engine. (The
+//   kernel above 256, one block a 128-row block, streams its A rows and B
+//   pieces together in 64-deep chunks.) The products, 6 x 22.2 GFLOP at the
+//   arxiv shape, are ~0.13 ms at the card's bf16 peak, under the bytes
+//   bound;
 // - the reduce's rows pass (la_bwd_rows_ws16_kernel) forms a = q @ kvs from
 //   the q rows and kvs^T split into three bf16 pieces, hi + mid + lo, by
 //   la_bwd_split_rows_kernel (three MMAs a product, each k16 step into fresh
@@ -2064,12 +2068,14 @@ la_bwd_split_tiles_kernel(const float* __restrict__ kvs, const float* __restrict
   }
 }
 
-// The apply. grid (ceil(N / 128)), 128 rows a block. Its three products
-// (dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over M), each over
-// 128-column tiles of its output, run as one stream of 64-deep chunks: a
-// chunk is the A rows' [128][64] tile of the product (g, v or k) and the B
-// operand's hi and lo [128 n][64 k] tiles (kvs, P or P^T, laid out
-// swizzled by la_bwd_split_tiles_kernel), through a kApStages-deep ring.
+// The bf16 apply for M or D above 256 (up to kWgMaxK16; the persistent
+// la_bwd_apply_ws16_kernel below takes the widths up to 256, whose A slots
+// fit its shared memory). grid (ceil(N / 128)), 128 rows a block. Its
+// three products (dq: g @ kvs^T over D; dk: v @ P^T over D; dv: k @ P over
+// M), each over 128-column tiles of its output, run as one stream of 64-deep
+// chunks: a chunk is the A rows' [128][64] tile of the product (g, v or k)
+// and the B operand's hi and lo [128 n][64 k] tiles (kvs, P or P^T, laid
+// out swizzled by la_bwd_split_tiles_kernel), through a kApStages-deep ring.
 // Blocks start at different products (rot), so that the SMs do not all
 // read one tensor at once.
 //
@@ -2383,6 +2389,537 @@ la_bwd_apply_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   }
   if (vec_io && tid == 0) tc::bulk_store_wait_read();
+}
+
+// The bf16 apply, persistent: the f32 apply's design below
+// (la_bwd_apply_ws_kernel) on la_bwd_apply_wgmma_kernel's products, for
+// widths up to 256 (M and D padded to 64: at most kAsMaxSlots k chunks).
+// grid min(3 ceil(N / 256), SMs), one block an SM, block b taking the items
+// b, b + grid, ... in turn, item u product u % 3 (dq: g @ kvs^T over D; dk:
+// v @ P^T over D; dv: k @ P over M) of the 256-row block u / 3. It replaces
+// sgformer_tpu/kernels/attention.py::_bwd_apply_kernel for bf16 rows; bound
+// by its bytes (q, k, v, g read and dq, dk, dv written once: 0.182 ms at
+// the arxiv shape; its six split products 0.135). Two consumer warpgroups of
+// 128 rows each, two m64n128 sums a warpgroup over the same B descriptors,
+// so that each B chunk serves 256 rows before it leaves shared memory (the
+// kernel before read B again for every 128 rows), and a producer warpgroup,
+// which gives its registers to the consumers (setmaxnreg). Dynamic shared
+// memory, 1024-byte aligned (no static shared memory), every tile 128-byte
+// swizzled over rows of 64 bf16 (sw128_offset): an item's A rows (g, v or k)
+// as up to four slots of one k chunk each ([256 rows][64], 32 KB; 128 KB at
+// a depth of 256), each A row read from device memory once an item; a ring
+// of kAsStages 32 KB stages that carries, column tile by column tile, the
+// tile's B chunks (kvs, P or P^T as bf16 hi and lo [128 n][64 k], laid out
+// swizzled by la_bwd_split_tiles_kernel: two 16 KB bulk copies a chunk) and
+// then its epilogue operand (q, k or g) in halves of [256 rows][64 columns];
+// ksum and ds; mbarriers: 226 KB at M = D = 256. (The A slots, B stages and
+// a whole [256][128] operand tile do not fit one block's 227 KB, so the
+// operand halves pass through the B ring.)
+//
+// The next item's A rows arrive under this item's last column tile, slot by
+// slot: there each consumer warp frees slot j (an empty mbarrier of its own)
+// once the MMAs that read k chunk j are done, and the producer brings the
+// next item's k chunk j into it; the first column tile waits for each slot
+// as it reaches it. Slots past an item's depth (M != D) are handed over
+// empty, so that every slot's barriers complete once an item.
+//
+// The producer warpgroup: warp 0 fills the ring in its order, lane 0 by the
+// copy engine (the B chunks by bulk copies, the operand halves by a tensor
+// map, two [128][64] boxes each) as the consumers free its stages; warp 1
+// brings the A slots by a tensor map. Where the views' strides or bases do
+// not allow a tensor map (vec_a, vec_io 0) warps 0 and 1 copy the operand
+// halves and A rows one element a lane at a time and each consumer warp
+// stores its own rows. The consumers keep la_bwd_apply_wgmma_kernel's
+// arithmetic, so that the outputs are bitwise its: each chunk's four k16
+// steps of wgmma m64n128k16, hi then lo into one sum a tile (the products do
+// not cancel), k chunks in order, the two sums' steps interleaved; each
+// chunk's MMAs are drained before its stage is freed, so that two stages are
+// free for the copies of the chunks after it (queueing the next chunk's MMAs
+// first, wgmma.wait_group 1, held a stage a chunk longer, and every chunk
+// waited for its copy: 0.32 against 0.29 ms at the arxiv shape, PERF.md).
+// The tile's last chunk issues sum 0's steps and sum 1's as two groups, and
+// sum 0's epilogue runs under sum 1's MMAs. The epilogue at each lane's
+// fragment, in the operand's halves in place (read and written by ldmatrix
+// and stmatrix, all of a call's reads before its writes), the terms of that
+// kernel in their order and fused as it fused them (den and gden of the
+// lane's rows loaded once an item, ksum and ds staged once a block, each
+// division correctly rounded through the row's reciprocal, tc::div_by):
+// sum 0's and sum 1's rows of the first half, stored by the copy engine
+// (one store a warpgroup and half, clipped to the output), then the second
+// half's, its first sum's rows before the first half's stage is freed (its
+// store has read it by then), the second half's stage freed once the next
+// chunk's MMAs are issued.
+constexpr int kAsRows = 2 * kTcRows;            // rows an item: 128 a consumer warpgroup
+constexpr int kAsConsumers = 2 * 128;
+constexpr int kAsThreads = kAsConsumers + 128;  // and the producer warpgroup
+constexpr int kAsStages = 3;
+constexpr int kAsSlot = 2 * kWgTile16;   // an item's A rows of one k chunk, [256][64]
+constexpr int kAsStage = 2 * kWgTile16;  // B's hi and lo [128 n][64 k], or an operand half [256][64]
+constexpr int kAsMaxSlots = 4;           // k chunks an item at most: widths up to 256
+// registers a thread after setmaxnreg: the producer warpgroup's and the
+// consumers', together the 168 a thread of the launch (under 56 the
+// producer's loops spilled)
+constexpr int kAsProducerRegs = 56;
+constexpr int kAsConsumerRegs = 224;
+static_assert(2 * kAsConsumerRegs + kAsProducerRegs == 3 * 168, "the launch's registers");
+
+int apply_ws16_slots(int M, int D) { return std::max(tc::cdiv(M, 64), tc::cdiv(D, 64)); }
+
+size_t apply_ws16_smem(int M, int D) {
+  const int slots = apply_ws16_slots(M, D);
+  return static_cast<size_t>(slots) * kAsSlot + static_cast<size_t>(kAsStages) * kAsStage +
+         2 * static_cast<size_t>(tc::cdiv(M, 128) * 128) * sizeof(float) +
+         2 * static_cast<size_t>(slots + kAsStages) * sizeof(uint64_t);
+}
+
+// whether the persistent kernel takes these widths (else
+// la_bwd_apply_wgmma_kernel, up to kWgMaxK16)
+bool apply_ws16_fits(int M, int D) {
+  return apply_ws16_slots(M, D) <= kAsMaxSlots && apply_ws16_smem(M, D) <= kSmemPerBlock;
+}
+
+// an mbarrier arrival counted `count` times (a warpgroup's four warps)
+__device__ __forceinline__ void mbar_arrive_n(uint64_t* bar, int count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(tc::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// four 8 x 8 b16 blocks of shared memory into (ldmatrix_rows) or from
+// (stmatrix_rows) the accumulator's fragment layout: lane l addresses row l %
+// 8 of block l / 8 and holds the column pair 2 (l % 4) of row l / 4 of each
+// block
+__device__ __forceinline__ void ldmatrix_rows(unsigned (&r)[4], const unsigned char* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(tc::smem_addr(p)));
+}
+__device__ __forceinline__ void stmatrix_rows(unsigned char* p, const unsigned (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   tc::smem_addr(p)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// consumer warpgroup wg's own barrier
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+__global__ void __launch_bounds__(kAsThreads, 1)
+la_bwd_apply_ws16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g, long ldq,
+                         long ldk, long ldv, long ldg, bf16* __restrict__ dq,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, long lddq, long lddk,
+                         long lddv, int N, int M, int D, const bf16* __restrict__ hl,
+                         const float* __restrict__ ksum, const float* __restrict__ ds,
+                         const float* __restrict__ scal, const float* __restrict__ n_total,
+                         const float* __restrict__ dinv, const float* __restrict__ den,
+                         const float* __restrict__ gden, int guard, int vec_a, int vec_io,
+                         const __grid_constant__ ApMaps maps) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  if (smem_addr(smem_raw) % 1024 != 0) __trap();  // the swizzle needs it
+  const ApTiles at(M, D);
+  const int slots = max(at.kch(0), at.kch(2));
+  const int items = 3 * cdiv(N, kAsRows);
+  const int Mp = cdiv(M, 128) * 128;
+  unsigned char* As = smem_raw;                                          // [slot][256][64]
+  unsigned char* Rs = As + static_cast<size_t>(slots) * kAsSlot;         // [stage]
+  float* col_s = reinterpret_cast<float*>(Rs + kAsStages * kAsStage);    // ksum, then ds
+  uint64_t* afull = reinterpret_cast<uint64_t*>(col_s + 2 * Mp);  // an A slot has landed
+  uint64_t* aempty = afull + slots;                               // an A slot is read
+  uint64_t* full = aempty + slots;                                // a stage has landed
+  uint64_t* empty = full + kAsStages;                             // a stage is read
+  // the 64-column halves of product w's column tile t that reach its output
+  auto halves = [&](int w, int t) { return min(2, cdiv((w == 2 ? D : M) - 128 * t, 64)); };
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int j = 0; j < slots; ++j) {
+      mbar_init(afull + j, 1);
+      mbar_init(aempty + j, kAsConsumers / 32);
+    }
+    for (int s = 0; s < kAsStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kAsConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < 2 * Mp; i += kAsThreads) {  // ksum, then ds
+    const int c = i < Mp ? i : i - Mp;
+    col_s[i] = c < M ? (i < Mp ? ksum[c] : ds[c]) : 0.f;
+  }
+  __syncthreads();
+
+  if (warp >= kAsConsumers / 32) {  // the producer warpgroup
+    setmaxnreg_dec<kAsProducerRegs>();
+    const int pw = warp - kAsConsumers / 32;
+    if (pw == 0) {  // the ring: each column tile's B chunks, then its operand's halves
+      int e = 0;    // entries issued
+      for (int u = blockIdx.x; u < items; u += gridDim.x) {
+        const int w = u % 3;
+        const long r0 = static_cast<long>(u / 3) * kAsRows;
+        const int boxes = N - r0 > kTcRows ? 2 : 1;  // [128]-row boxes holding rows below N
+        for (int t = 0; t < at.tiles(w); ++t) {
+          const int kch = at.kch(w);
+          for (int c = 0; c < kch + halves(w, t); ++c, ++e) {
+            const int st = e % kAsStages;
+            if (e >= kAsStages) mbar_wait(empty + st, (e / kAsStages - 1) & 1);
+            unsigned char* dst = Rs + st * kAsStage;
+            if (c < kch) {  // B's hi and lo of k chunk c
+              if (lane == 0) {
+                mbar_arrive_expect_tx(full + st, kAsStage);
+                const bf16* src = hl + at.chunk(w, t, c, 0);
+                bulk_copy_g2s(dst, src, kWgTile16, full + st);
+                bulk_copy_g2s(dst + kWgTile16, src + 8192, kWgTile16, full + st);
+              }
+              continue;
+            }
+            const int c0 = 128 * t + 64 * (c - kch);  // the operand's half
+            if (vec_io) {
+              if (lane == 0) {
+                const CUtensorMap* map = w == 0 ? &maps.q : (w == 1 ? &maps.k : &maps.g);
+                mbar_arrive_expect_tx(full + st, boxes * kWgTile16);
+                for (int b = 0; b < boxes; ++b) {
+                  tma_load_2d(dst + b * kWgTile16, map, c0, static_cast<int>(r0) + kTcRows * b,
+                              full + st);
+                }
+              }
+            } else {
+              const bf16* X = w == 0 ? q : (w == 1 ? k : g);
+              const long ldx = w == 0 ? ldq : (w == 1 ? ldk : ldg);
+              const int C = w == 2 ? D : M;
+#pragma unroll 1  // rolled: the producer's 56 registers
+              for (int i = lane; i < kAsRows * 64; i += 32) {
+                const int r = i >> 6;
+                const int cc = i & 63;
+                *reinterpret_cast<bf16*>(dst + sw128_offset(r, cc)) =
+                    r0 + r < N && c0 + cc < C ? X[(r0 + r) * ldx + c0 + cc]
+                                              : __float2bfloat16_rn(0.f);
+              }
+              __syncwarp();
+              if (lane == 0) mbar_arrive(full + st);
+            }
+          }
+        }
+      }
+    } else if (pw == 1) {  // each item's A slots, slot j once the last item has read it
+      int i = 0;
+      for (int u = blockIdx.x; u < items; u += gridDim.x, ++i) {
+        const int w = u % 3;
+        const long r0 = static_cast<long>(u / 3) * kAsRows;
+        const int boxes = N - r0 > kTcRows ? 2 : 1;
+        for (int j = 0; j < slots; ++j) {
+          if (i > 0) mbar_wait(aempty + j, (i - 1) & 1);
+          unsigned char* dst = As + static_cast<size_t>(j) * kAsSlot;
+          if (j >= at.kch(w)) {  // past the item's depth: handed over empty
+            if (lane == 0) mbar_arrive(afull + j);
+          } else if (vec_a) {
+            if (lane == 0) {
+              const CUtensorMap* map = w == 0 ? &maps.g : (w == 1 ? &maps.v : &maps.k);
+              mbar_arrive_expect_tx(afull + j, boxes * kWgTile16);
+              for (int b = 0; b < boxes; ++b) {
+                tma_load_2d(dst + b * kWgTile16, map, 64 * j, static_cast<int>(r0) + kTcRows * b,
+                            afull + j);
+              }
+            }
+          } else {
+            const bf16* A = w == 0 ? g : (w == 1 ? v : k);
+            const long lda = w == 0 ? ldg : (w == 1 ? ldv : ldk);
+            const int K = w == 2 ? M : D;
+#pragma unroll 1  // rolled: the producer's 56 registers
+            for (int e = lane; e < kAsRows * 64; e += 32) {
+              const int r = e >> 6;
+              const int c = 64 * j + (e & 63);
+              *reinterpret_cast<bf16*>(dst + sw128_offset(r, e & 63)) =
+                  r0 + r < N && c < K ? A[(r0 + r) * lda + c] : __float2bfloat16_rn(0.f);
+            }
+            fence_proxy_async();  // read by the MMAs
+            __syncwarp();
+            if (lane == 0) mbar_arrive(afull + j);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes rows 128 wg .. 128 wg + 127 of each
+  // item, as two m64n128 sums (rows 64 b on)
+  setmaxnreg_inc<kAsConsumerRegs>();
+  const int wg = warp >> 2;
+  const int g8 = lane >> 2;
+  const int frag_row = 128 * wg + 16 * (warp & 3) + g8;  // + 64 b + 8 h: the lane's rows
+  const bool leader = (tid & 127) == 0;                   // stores the warpgroup's rows
+  const float inv = scal[2];
+  const float n = *n_total;
+  const bool no_norm = guard && inv == 0.f;  // the guard: no dinv term
+  const float c_q = no_norm ? 0.f : *dinv * inv / scal[0];
+  const float c_k = no_norm ? 0.f : *dinv * inv / scal[1];
+  float acc[2][64];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[b][x] = 0.f;
+  }
+  int pend = -1;  // the stage of the warpgroup's last stored half, until its store has read it
+  // the store of the last half has read its stage: free it
+  auto release = [&]() {
+    if (leader) {
+      bulk_store_wait_read();
+      mbar_arrive_n(empty + pend, 4);
+    }
+    pend = -1;
+  };
+
+  int e = 0;  // ring entries consumed
+  int i = 0;
+  for (int u = blockIdx.x; u < items; u += gridDim.x, ++i) {
+    const int w = u % 3;
+    const long r0 = static_cast<long>(u / 3) * kAsRows;
+    const int kch = at.kch(w);
+    const int tiles = at.tiles(w);
+    // the slots it leaves unread, each handed back once it has been handed
+    // over (so that the consumers never run a phase ahead of the producer on
+    // a slot)
+    __syncwarp();
+    if (lane == 0) {
+      for (int j = kch; j < slots; ++j) {
+        mbar_wait(afull + j, i & 1);
+        mbar_arrive(aempty + j);
+      }
+    }
+    // den and gden of the lane's four fragment rows (their loads land under
+    // the MMAs: den's reciprocal is taken where the epilogue needs it)
+    float den_r[2][2], gden_r[2][2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long row = r0 + frag_row + 64 * b + 8 * h;
+        den_r[b][h] = row < N ? den[row] : 1.f;
+        gden_r[b][h] = row < N ? gden[row] : 0.f;
+      }
+    }
+    for (int t = 0; t < tiles; ++t) {
+      // chunk kc's MMAs (in stage st): the steps of the two sums interleaved
+      // in one group, or (split, the tile's last chunk) sum 0's steps in a
+      // group of their own before sum 1's, so that sum 0 is done first and its
+      // epilogue runs under sum 1's MMAs
+      auto issue = [&](int kc, int st, auto split) {
+        const unsigned char* a_rows = As + static_cast<size_t>(kc) * kAsSlot + 2 * wg * kWgAtom16;
+        const unsigned char* b_tile = Rs + st * kAsStage;
+        wgmma_fence_operand(acc[0]);
+        wgmma_fence_operand(acc[1]);
+        wgmma_fence();
+        if constexpr (decltype(split)::value) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              const uint64_t da = sw128_desc(a_rows + b * kWgAtom16 + ks * 32);
+#pragma unroll
+              for (int p = 0; p < 2; ++p) {
+                wgmma_m64n128k16(acc[b], da, sw128_desc(b_tile + p * kWgTile16 + ks * 32),
+                                 kc > 0 || ks > 0 || p > 0);
+              }
+            }
+            wgmma_commit();
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              const uint64_t db = sw128_desc(b_tile + p * kWgTile16 + ks * 32);
+#pragma unroll
+              for (int b = 0; b < 2; ++b) {
+                wgmma_m64n128k16(acc[b], sw128_desc(a_rows + b * kWgAtom16 + ks * 32), db,
+                                 kc > 0 || ks > 0 || p > 0);
+              }
+            }
+          }
+          wgmma_commit();
+        }
+      };
+      // each chunk's MMAs drained before its stage is freed (and, in the
+      // item's last tile, its A slot), so that two stages of the ring are free
+      // for the next chunks' copies: with the next chunk's MMAs queued first
+      // (wgmma.wait_group 1), a stage was held a chunk longer and every chunk
+      // waited for its copy (PERF.md)
+      for (int kc = 0; kc < kch; ++kc, ++e) {
+        const int st = e % kAsStages;
+        mbar_wait(full + st, (e / kAsStages) & 1);
+        if (t == 0) mbar_wait(afull + kc, i & 1);
+        if (kc < kch - 1) {
+          issue(kc, st, std::false_type{});
+          if (pend >= 0) release();
+          wgmma_wait<0>();
+          __syncwarp();
+          if (lane == 0) {
+            mbar_arrive(empty + st);
+            if (t == tiles - 1) mbar_arrive(aempty + kc);
+          }
+        } else {
+          issue(kc, st, std::true_type{});
+          if (pend >= 0) release();
+        }
+      }
+
+      // the column tile's epilogue at each lane's fragment, in the operand's
+      // halves in place: the product's terms in the replaced kernel's order,
+      // one loop a product, half and sum (compiled apart, so that no element
+      // tests them)
+      auto finish = [&](auto product, auto part, auto sum, unsigned char* Xh) {
+        constexpr int kWhich = decltype(product)::value;
+        constexpr int kHalf = decltype(part)::value;
+        constexpr int b = decltype(sum)::value;
+        const float* cs_col = col_s + (kWhich == 0 ? 0 : Mp);  // ksum (dq) or ds (dk), 0 past M
+        float rden_r[2];  // the rows' 1/den, correctly rounded
+#pragma unroll
+        for (int h = 0; h < 2; ++h) rden_r[h] = kWhich == 1 ? 0.f : __frcp_rn(den_r[b][h]);
+        // the operand's values at the lane's fragment, all loaded before any
+        // is overwritten (the stores may alias the loads, so loads and
+        // stores interleaved would each wait for the last): ldmatrix hands
+        // each lane its (row, column pair) of four 8 x 8 blocks, the
+        // accumulator's fragment layout; lane l reads a row of block l / 8:
+        // rows 8 h of column group j for blocks (h, j) = (0, j0), (1, j0),
+        // (0, j0 + 1), (1, j0 + 1)
+        unsigned char* xrow = Xh + (frag_row - g8 + 64 * b + 8 * ((lane >> 3) & 1) + (lane & 7)) * 128;
+        unsigned xs[8][2];
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += 2) {
+          unsigned r[4];
+          ldmatrix_rows(r, xrow + ((((j0 + (lane >> 4)) ^ lane) & 7) << 4));
+          xs[j0][0] = r[0];
+          xs[j0][1] = r[1];
+          xs[j0 + 1][0] = r[2];
+          xs[j0 + 1][1] = r[3];
+        }
+        unsigned os[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cl = 8 * j + 2 * (lane & 3);
+          float col[2] = {0.f, 0.f};
+          if constexpr (kWhich < 2) {
+            const float2 c2 = *reinterpret_cast<const float2*>(cs_col + 128 * t + 64 * kHalf + cl);
+            col[0] = c2.x;
+            col[1] = c2.y;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // bf16 to f32 exactly: the bf16 bits as an f32's high half
+            const unsigned xu = xs[j][h];
+            const float x[2] = {__uint_as_float(xu << 16), __uint_as_float(xu & 0xffff0000u)};
+            float o[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              // the terms fused as in the kernel this replaced, so that the
+              // outputs are bitwise its: inv * (a / den) + inv * gden * ksum -
+              // c_q * q; inv * a + inv * ds - c_k * k; n * (g / den) + inv *
+              // a; each division correctly rounded by the row's reciprocal
+              const float a = acc[b][4 * (8 * kHalf + j) + 2 * h + c];
+              if constexpr (kWhich == 0) {
+                o[c] = __fmaf_rn(-c_q, x[c],
+                                 __fmaf_rn(inv, div_by(a, den_r[b][h], rden_r[h]),
+                                           __fmul_rn(__fmul_rn(inv, gden_r[b][h]), col[c])));
+              } else if constexpr (kWhich == 1) {
+                o[c] = __fmaf_rn(-c_k, x[c], __fmaf_rn(inv, a, __fmul_rn(inv, col[c])));
+              } else {
+                o[c] = __fmaf_rn(n, div_by(x[c], den_r[b][h], rden_r[h]), __fmul_rn(inv, a));
+              }
+            }
+            const __nv_bfloat162 o2 = __floats2bfloat162_rn(o[0], o[1]);
+            os[j][h] = *reinterpret_cast<const unsigned*>(&o2);
+          }
+        }
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += 2) {
+          const unsigned r[4] = {os[j0][0], os[j0][1], os[j0 + 1][0], os[j0 + 1][1]};
+          stmatrix_rows(xrow + ((((j0 + (lane >> 4)) ^ lane) & 7) << 4), r);
+        }
+      };
+      auto fin = [&](auto part, auto sum, unsigned char* Xh) {
+        if (w == 0) {
+          finish(std::integral_constant<int, 0>{}, part, sum, Xh);
+        } else if (w == 1) {
+          finish(std::integral_constant<int, 1>{}, part, sum, Xh);
+        } else {
+          finish(std::integral_constant<int, 2>{}, part, sum, Xh);
+        }
+      };
+      // half h's stage out: by the copy engine (the warpgroup's rows, clipped
+      // to the output; the stage freed once the store has read it), or by
+      // each warp's own stores of its 32 rows
+      auto store = [&](int h, int st, unsigned char* Xh) {
+        const int c0 = 128 * t + 64 * h;
+        const long rw = r0 + 128 * wg;  // the warpgroup's first row
+        if (vec_io) {
+          fence_proxy_async();
+          warpgroup_sync(wg);
+          if (pend >= 0) release();  // the first half's store has read its stage
+          if (leader && rw < N) {
+            const CUtensorMap* map = w == 0 ? &maps.dq : (w == 1 ? &maps.dk : &maps.dv);
+            tma_store_2d(map, c0, static_cast<int>(rw), Xh + wg * kWgTile16);
+            bulk_store_commit();
+          }
+          pend = st;
+        } else {
+          __syncwarp();
+          bf16* out = w == 0 ? dq : (w == 1 ? dk : dv);
+          const long ldo = w == 0 ? lddq : (w == 1 ? lddk : lddv);
+          const int C = w == 2 ? D : M;
+          for (int x = lane; x < 32 * 64; x += 32) {
+            const int r = frag_row - g8 + (x >> 10) * 64 + ((x >> 6) & 15);
+            const int c = x & 63;
+            const long row = r0 + r;
+            if (row < N && c0 + c < C) {
+              out[row * ldo + c0 + c] = *reinterpret_cast<const bf16*>(Xh + sw128_offset(r, c));
+            }
+          }
+          fence_proxy_async();  // the stage's next bulk copy after these reads and writes
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + st);
+        }
+      };
+      using H0 = std::integral_constant<int, 0>;
+      using H1 = std::integral_constant<int, 1>;
+      const bool two = halves(w, t) > 1;
+      const int st0 = e % kAsStages;
+      const int st1 = (e + 1) % kAsStages;
+      unsigned char* X0 = Rs + st0 * kAsStage;
+      unsigned char* X1 = Rs + st1 * kAsStage;
+      mbar_wait(full + st0, (e / kAsStages) & 1);
+      wgmma_wait<1>();  // sum 0 is done
+      wgmma_fence_operand(acc[0]);
+      fin(H0{}, H0{}, X0);
+      wgmma_wait<0>();  // sum 1 is done: free the last chunk's stage (and A slot)
+      wgmma_fence_operand(acc[1]);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(empty + (e - 1) % kAsStages);
+        if (t == tiles - 1) mbar_arrive(aempty + kch - 1);
+      }
+      fin(H0{}, H1{}, X0);
+      store(0, st0, X0);
+      if (two) {
+        mbar_wait(full + st1, ((e + 1) / kAsStages) & 1);
+        fin(H1{}, H0{}, X1);
+        // the first half's store has read its stage by now: free it for the
+        // next tile's chunk, a half's arithmetic earlier than the second
+        // half's store would
+        if (pend >= 0) release();
+        fin(H1{}, H1{}, X1);
+        store(1, st1, X1);
+      }
+      e += two ? 2 : 1;
+    }
+  }
+  if (vec_io && leader) bulk_store_wait_read();
 }
 
 // ---------------------------------------------------------------------------
@@ -3032,8 +3569,9 @@ void launch_bwd_apply(const void* q, const void* k, const void* v, const void* g
 
 // The tensor-core apply: kvs, P and P^T split into hl (bf16 pieces by
 // la_bwd_split_tiles_kernel, or tf32 pieces in f32 by
-// la_bwd_split_atoms_kernel for T = float), then la_bwd_apply_wgmma_kernel
-// (bf16) or la_bwd_apply_ws_kernel (f32).
+// la_bwd_split_atoms_kernel for T = float), then la_bwd_apply_ws16_kernel
+// (bf16 up to M, D = 256), la_bwd_apply_wgmma_kernel (bf16 above, up to
+// 704) or la_bwd_apply_ws_kernel (f32).
 template <typename T>
 cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, long ldq,
                                 long ldk, long ldv, long ldg, T* dq, T* dk, T* dv, long lddq,
@@ -3083,7 +3621,20 @@ cudaError_t launch_bwd_apply_tc(const T* q, const T* k, const T* v, const T* g, 
     la_bwd_apply_ws_kernel<<<blocks, kBaThreads, smem, st>>>(
         q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
         n_total, dinv, den, gden, guard, vec_a, vec_io, xbufs, maps);
-  } else {
+  } else if (apply_ws16_fits(M, D)) {
+    const size_t smem = apply_ws16_smem(M, D);
+    err = cudaFuncSetAttribute(la_bwd_apply_ws16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int sms = 0;
+    err = tc::sm_count(sms);
+    if (err != cudaSuccess) return err;
+    const int blocks = std::min(3 * tc::cdiv(N, kAsRows), sms);
+    la_bwd_apply_ws16_kernel<<<blocks, kAsThreads, smem, st>>>(
+        q, k, v, g, ldq, ldk, ldv, ldg, dq, dk, dv, lddq, lddk, lddv, N, M, D, hl, ksum, ds, scal,
+        n_total, dinv, den, gden, guard, vec_a, vec_io, maps);
+  } else {  // widths above the persistent kernel's slots
     const size_t smem = apply_wgmma_smem(M);
     err = cudaFuncSetAttribute(la_bwd_apply_wgmma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -3180,12 +3731,22 @@ extern "C" int sgf_la_bwd_apply_scratch(int dtype, int M, int D) {
   return static_cast<int>(dtype == 1 ? ApTiles(M, D).total() : BaAtoms(M, D).total());
 }
 
+// 1 where the tensor-core apply for these widths is a persistent kernel
+// (la_bwd_apply_ws_kernel in f32; la_bwd_apply_ws16_kernel in bf16 up to M,
+// D = 256), 0 where it is la_bwd_apply_wgmma_kernel (bf16 above 256) or the
+// apply runs on the CUDA cores.
+extern "C" int sgf_la_bwd_apply_persistent(int dtype, int M, int D) {
+  if (sgf_la_bwd_apply_scratch(dtype, M, D) == 0) return 0;
+  return dtype == 0 || apply_ws16_fits(M, D);
+}
+
 // dq, dk [N, M] and dv [N, D] in the input type, each a row-strided view
 // (ld*); dinv is the sum over all heads; rows = (den, gden) from the reduce.
 // hl: the scratch of sgf_la_bwd_apply_scratch elements of the input type
 // where that is not 0 (the tensor-core designs: la_bwd_split_tiles_kernel,
-// then la_bwd_apply_wgmma_kernel; la_bwd_split_atoms_kernel, then
-// la_bwd_apply_ws_kernel in 3xTF32 for f32),
+// then la_bwd_apply_ws16_kernel, or la_bwd_apply_wgmma_kernel above M, D =
+// 256; la_bwd_split_atoms_kernel, then la_bwd_apply_ws_kernel in 3xTF32 for
+// f32),
 // else unused (la_bwd_apply_kernel). vec_a: 1 when the A rows (g, v, k)
 // may be read 16 bytes at a time (M and D multiples of 8, row strides too,
 // bases 16-byte aligned); vec_io: the epilogue moves 8 columns of q, k, g,

@@ -72,6 +72,7 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                              _P],
         "sgf_la_bwd_apply_scratch": [_I, _I, _I],
+        "sgf_la_bwd_apply_persistent": [_I, _I, _I],
     },
 }
 

@@ -34,8 +34,11 @@ split into bf16 hi + mid + lo, g/den into hi + lo, the P pass's operands
 read node-major; both persistent, the rows pass streaming the next row
 block's q rows into slots that this one frees, the P pass forming each
 g/den once for a 256-row m tile, ds spread over its items) and
-:func:`bwd_apply`'s three products (``la_bwd_apply_wgmma_kernel``, wgmma:
-kvs and P split into hi + lo); the reduce, the apply and the three
+:func:`bwd_apply`'s three products (``la_bwd_apply_ws16_kernel``, wgmma:
+kvs and P split into hi + lo; persistent over (256-row block, product)
+items, each B chunk serving 256 rows, each item's A rows streamed into
+slots that the item before frees; ``la_bwd_apply_wgmma_kernel``, one block
+a 128-row block, for M or D above 256); the reduce, the apply and the
 backward kernels are fed by the copy engine (TMA) from a producer warp or
 warpgroup. On f32 inputs every kernel runs in 3xTF32 (each f32
 operand split into tf32 hi + lo, each product lo*hi + hi*lo + hi*hi, f32
@@ -450,14 +453,20 @@ def _bwd_apply_scratch(dtype: torch.dtype, m: int, d: int) -> int:
 
 def bwd_apply_design(dtype: torch.dtype, m: int, d: int) -> str:
     """Which kernel :func:`bwd_apply` launches on the card for inputs of
-    ``dtype`` with widths m (q, k) and d (v, g)."""
+    ``dtype`` with widths m (q, k) and d (v, g): in bf16 the persistent
+    ``la_bwd_apply_ws16_kernel`` up to M, D = 256 (its A slots), above that
+    up to 704 ``la_bwd_apply_wgmma_kernel``."""
     if not _bwd_apply_scratch(dtype, m, d):
         return _CUDA_CORES
     if dtype == torch.float32:
         return ("tensor cores (wgmma 3xTF32: g, v, k, kvs and P as tf32 hi + lo, f32 sums; "
                 "la_bwd_apply_ws_kernel, persistent, fed by TMA from a producer warpgroup)")
+    if _build.library("linear_attention_bwd").sgf_la_bwd_apply_persistent(_DTYPES[dtype], m, d):
+        return ("tensor cores (wgmma bf16, kvs and P as bf16 hi + lo, f32 sums; "
+                "la_bwd_apply_ws16_kernel, 256 rows an item, persistent, fed by TMA from a "
+                "producer warpgroup)")
     return ("tensor cores (wgmma bf16, kvs and P as bf16 hi + lo, f32 sums; "
-            "la_bwd_apply_wgmma_kernel, fed by TMA from a producer warp)")
+            "la_bwd_apply_wgmma_kernel, for M or D above 256, fed by TMA from a producer warp)")
 
 
 def bwd_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows,

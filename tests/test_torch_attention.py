@@ -269,8 +269,8 @@ def _split_bf16(t):
 
 def _tensor_core_apply(q, k, v, g, kvs, ksum, scal, n_total, P, ds, dinv, rows, guard,
                        lo=True):
-    """The bf16 apply's arithmetic (``la_bwd_apply_wgmma_kernel``) written
-    plainly: the bf16 rows g, v, k as they are, kvs and P split into bf16
+    """The bf16 apply's arithmetic (``la_bwd_apply_ws16_kernel``;
+    ``la_bwd_apply_wgmma_kernel`` above M, D = 256) written plainly: the bf16 rows g, v, k as they are, kvs and P split into bf16
     hi + lo with one product each (``lo=False`` drops the lo half: kvs and
     P rounded to bf16, as the Pallas kernel does), f32 sums, the 1/den of gd
     in the epilogue. Returns f32."""
@@ -1287,6 +1287,104 @@ def test_bwd_product_inputs_catch_a_faulty_bf16_p_pass(fault):
 
     assert not misses({})
     assert misses(_BF16_P_FAULTS[fault])
+
+
+# Faults the persistent bf16 backward apply (la_bwd_apply_ws16_kernel: items
+# of 256 rows and one product, the A rows in slots that the item before
+# frees, B chunks and the epilogue operand's halves through one ring, each
+# warpgroup's 128 rows stored apart) can have, each as the operands its
+# arithmetic would be formed from: an A slot (k chunk 1) still holding the
+# previous item's rows (``a``: read before its refill landed), a B chunk (k
+# chunk 1 of every column tile) from the neighbouring column tile (``b``, on
+# B as the kernel reads it, [n][k]), the second 128 rows of each item taking
+# the first rows' epilogue operand (``x``: a warpgroup reading the other's
+# half of the stage), or the rows of the last item past N stored (``rows``);
+# with which of dq, dk and dv misses the tolerance and whether the rows
+# after the output views change (``misses``). The epilogue operand enters dq
+# and dk only through the dinv terms (~1e-2 of a product term on
+# ``bwd_product_inputs``); in dv n * g/den is one product term's size.
+_BF16_APPLY_ITEM = 256
+_BF16_APPLY_PAST = 200  # rows after the output views, as the card tests allocate them
+
+
+def _a_slot_stale(t):
+    return torch.cat((t[:, :64], torch.roll(t, _BF16_APPLY_ITEM, 0)[:, 64:128], t[:, 128:]), 1)
+
+
+def _b_chunk_from_the_next_tile(b):
+    out = b.clone()
+    out[:, 64:128] = torch.roll(b[:, 64:128], 128, 0)
+    return out
+
+
+def _operand_of_the_first_rows(x):
+    r = torch.arange(x.shape[0])
+    return x[torch.where(r % _BF16_APPLY_ITEM >= 128, r - 128, r)]
+
+
+_BF16_APPLY_FAULTS = {
+    "A slot holding the previous item's rows": dict(a=_a_slot_stale,
+                                                    misses=[True, True, True, False]),
+    "B chunk from the neighbouring column tile": dict(b=_b_chunk_from_the_next_tile,
+                                                      misses=[True, True, True, False]),
+    "second 128 rows take the first rows' operand": dict(x=_operand_of_the_first_rows,
+                                                         misses=[False, False, True, False]),
+    "rows past N stored": dict(rows=True, misses=[False, False, False, True]),
+}
+
+
+@pytest.mark.parametrize("fault", list(_BF16_APPLY_FAULTS))
+def test_bwd_product_inputs_catch_a_faulty_bf16_apply(fault):
+    """The card checks of the bf16 backward apply (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) hold dq, dk and dv within the bf16
+    tolerance (1e-2 of each output's scale) of ``bwd_apply_plain`` in f64 on
+    ``bwd_product_inputs`` among others, and the rows that follow an output
+    view to their NaN. There the persistent design's arithmetic (kvs and P
+    as bf16 hi + lo, the products summed as its warpgroup MMAs sum them, the
+    epilogue's terms, rounded to bf16 once, stores clipped at N) passes at M
+    = D = 256 (two column tiles, four k chunks), and the same arithmetic
+    with one fault misses in the outputs it reaches (the operand fault in
+    dv, by 1.6-1.9 times the tolerance on three seeds; the card's random
+    rows, where n * g/den carries dv, show it by far) or changes the rows
+    after the views."""
+    spec = _BF16_APPLY_FAULTS[fault]
+    n, m = 300, 256
+    ins = bwd_product_inputs(n, m, m, torch.bfloat16, torch.Generator().manual_seed(36))
+    exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+    past = bwd_product_inputs(_BF16_APPLY_PAST, m, m, torch.bfloat16,
+                              torch.Generator().manual_seed(37))
+    q, k, v, g, kvs, ksum, scal, n_t, P, ds, dinv, rows = ins
+    bufs = [torch.cat((a, b)) for a, b in zip((q, k, v, g), past[:4])]
+    rows_buf = torch.cat((rows, past[11]), 1)
+    inv = scal[2]
+    c_q, c_k = dinv * inv / scal[0], dinv * inv / scal[1]
+
+    def misses(fault):
+        """Whether dq, dk and dv miss the tolerance with ``fault``, and
+        whether the rows after their views change."""
+        stored = n + _BF16_APPLY_PAST if fault.get("rows") else n
+        qr, kr, vr, gr = (t[:stored] for t in bufs)
+        den, gden = rows_buf[0, :stored, None], rows_buf[1, :stored, None]
+        fa, fb, fx = (fault.get(key, lambda t: t) for key in ("a", "b", "x"))
+        # the products' B as the kernel reads it, [n][k]: kvs, P, P^T
+        sq, sk, sv = (_mm_bf16_sums(fa(a), fb(b).T, 2, m).float()
+                      for a, b in ((gr, kvs), (vr, P), (kr, P.T)))
+        xq, xk, xg = (fx(t).float() for t in (qr, kr, gr))
+        outs = (inv * (sq / den) + inv * gden * ksum - c_q * xq, inv * sk + inv * ds - c_k * xk,
+                n_t * (xg / den) + inv * sv)
+        out = []
+        changed = False
+        for o, want in zip(outs, exact):
+            buf = torch.full((n + _BF16_APPLY_PAST, o.shape[1]), float("nan"),
+                             dtype=torch.bfloat16)
+            buf[:stored] = o.to(torch.bfloat16)
+            err = (buf[:n].double() - want).abs().max()
+            out.append(bool(err > 1e-2 * want.abs().max()))
+            changed = changed or not buf[n:].isnan().all()
+        return out + [changed]
+
+    assert misses({}) == [False] * 4
+    assert misses(spec) == spec["misses"]
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -385,7 +385,8 @@ def test_tf32_backward_kernels_carry_the_products(cuda, m, d):
 @pytest.mark.parametrize("strided", [False, True])
 def test_bf16_wgmma_backward_takes_any_width(cuda, n, m, d, strided):
     """The bf16 backward on warpgroup MMAs (``la_bwd_rows_ws16_kernel``,
-    ``la_bwd_reduce_ws16_kernel``, ``la_bwd_apply_wgmma_kernel``) on widths
+    ``la_bwd_reduce_ws16_kernel``, ``la_bwd_apply_ws16_kernel`` and above M,
+    D = 256 ``la_bwd_apply_wgmma_kernel``) on widths
     off their 64- and 128-column tiles and off the 16-byte path (37, 19,
     130: scalar rows), up to the widest q tile the rows pass takes beside
     two stages (640), on the per-head views of [N, 2, *] tensors (strided:
@@ -642,17 +643,22 @@ def test_bwd_apply_design_names_the_kernel(cuda):
     """The backward apply runs on the tensor cores wherever its tiles fit
     one block's shared memory: f32 in 3xTF32 by wgmma
     (``la_bwd_apply_ws_kernel``, persistent, fed by TMA from a producer
-    warpgroup) up to M, D = 256, bf16 by wgmma (``la_bwd_apply_wgmma_kernel``)
-    up to 704; beyond that on the CUDA cores."""
+    warpgroup) up to M, D = 256; bf16 by wgmma, persistent
+    (``la_bwd_apply_ws16_kernel``, its A slots) up to M, D = 256 and above
+    that (``la_bwd_apply_wgmma_kernel``) up to 704; beyond that on the CUDA
+    cores."""
     for m, d in ((256, 256), (8, 72), (37, 256), (256, 19)):
         f32 = attn.bwd_apply_design(torch.float32, m, d)
         assert f32.startswith("tensor cores (wgmma 3xTF32") and "la_bwd_apply_ws_kernel" in f32
         assert "persistent, fed by TMA" in f32, f32
         bf16 = attn.bwd_apply_design(torch.bfloat16, m, d)
+        assert bf16.startswith("tensor cores (wgmma bf16") and "la_bwd_apply_ws16_kernel" in bf16
+        assert "persistent, fed by TMA" in bf16, bf16
+    for m, d in ((257, 64), (64, 257), (704, 704)):
+        if max(m, d) == 257:
+            assert attn.bwd_apply_design(torch.float32, m, d).startswith("CUDA cores")
+        bf16 = attn.bwd_apply_design(torch.bfloat16, m, d)
         assert bf16.startswith("tensor cores (wgmma bf16") and "la_bwd_apply_wgmma_kernel" in bf16
-    for m, d in ((257, 64), (64, 257)):
-        assert attn.bwd_apply_design(torch.float32, m, d).startswith("CUDA cores")
-        assert "la_bwd_apply_wgmma_kernel" in attn.bwd_apply_design(torch.bfloat16, m, d)
     assert attn.bwd_apply_design(torch.bfloat16, 705, 64).startswith("CUDA cores")
 
 
@@ -760,28 +766,32 @@ def test_f32_ws_backward_apply_on_views(cuda, m, d, view, n):
         assert all(b[n:].isnan().all() for b in bufs)
 
 
-@pytest.mark.parametrize("which", ["bf16 forward apply", "f32 backward apply"])
+@pytest.mark.parametrize("which", ["bf16 forward apply", "f32 backward apply",
+                                   "bf16 backward apply"])
 def test_redesigned_applies_all_masked_give_finite_zeros(cuda, which):
-    """Zero norms through the bf16 forward apply and the f32 backward apply
-    at the bench width: inv = 0, a zero den taken as 1, so finite zero
-    outputs and gradients on every column tile."""
+    """Zero norms through the bf16 forward apply and the f32 and bf16
+    backward applies at the bench width: inv = 0, a zero den taken as 1, so
+    finite zero outputs and gradients on every column tile."""
     dtype = torch.bfloat16 if which.startswith("bf16") else torch.float32
     leaves = [torch.randn(777, 1, 256, device=cuda).to(dtype).requires_grad_()
               for _ in range(3)]
     out = attn.fused_linear_attention(*leaves, node_mask=torch.zeros(777, device=cuda))
     assert torch.isfinite(out).all() and not out.any()
-    if dtype == torch.float32:
+    if which.endswith("backward apply"):
         grads = torch.autograd.grad(out, leaves, torch.randn_like(out))
         assert all(torch.isfinite(t).all() and not t.any() for t in grads)
 
 
 # sha256 (16 hex digits) of the outputs of the bf16 forward apply and the f32
-# backward apply of the kernels these replaced, on host-made inputs of N rows
+# and bf16 backward applies of the kernels these replaced (the bf16 backward
+# apply's: la_bwd_apply_wgmma_kernel), on host-made inputs of N rows
 # (``_host_apply_inputs``), read on an NVIDIA H100 80GB HBM3
 EARLIER_APPLY_DIGESTS = {("bf16 forward apply", 2000): "882404fec194b1e4",
                          ("bf16 forward apply", 60_000): "cc5d1ddbde0d0bb8",
                          ("f32 backward apply", 2000): "309bb2ffbe641596",
-                         ("f32 backward apply", 20_000): "b2a4d39c4f9ceb2a"}
+                         ("f32 backward apply", 20_000): "b2a4d39c4f9ceb2a",
+                         ("bf16 backward apply", 2000): "250752a52042f994",
+                         ("bf16 backward apply", 60_000): "d696e22d4aa6037b"}
 
 
 def _host_apply_inputs(dtype, n):
@@ -802,12 +812,12 @@ def test_redesigned_applies_are_bitwise_the_earlier_kernels(cuda, which, n):
     replaced (the products' k order, the fresh-sum periods, den and the
     epilogue's terms), so their outputs are bitwise those kernels', also
     where each persistent block takes several row blocks or items (N =
-    60,000 forward, 20,000 backward)."""
+    60,000 forward and bf16 backward, 20,000 f32 backward)."""
     import hashlib
 
     dtype = torch.bfloat16 if which.startswith("bf16") else torch.float32
     q, k, v, g, sums, n_t = _host_apply_inputs(dtype, n)
-    if dtype == torch.bfloat16:
+    if which == "bf16 forward apply":
         got = [attn.apply(*(t.to(cuda) for t in (q, v, *sums, n_t)))]
     else:
         red = attn.bwd_reduce_plain(q, v, g, *sums, n_t, False)
@@ -816,6 +826,50 @@ def test_redesigned_applies_are_bitwise_the_earlier_kernels(cuda, which, n):
     sha = hashlib.sha256(b"".join(t.reshape(-1).cpu().view(torch.uint8).numpy().tobytes()
                                   for t in got)).hexdigest()[:16]
     assert sha == EARLIER_APPLY_DIGESTS[which, n]
+
+
+@pytest.mark.parametrize("m,d", [(256, 256), (64, 64), (37, 36), (200, 37), (130, 200),
+                                 (8, 250), (256, 40), (704, 40), (640, 130)])
+@pytest.mark.parametrize("view", ["contiguous", "aligned head", "strided", "unaligned"])
+@pytest.mark.parametrize("n", [777, 60_000])
+def test_bf16_ws_backward_apply_on_views(cuda, m, d, view, n):
+    """The bf16 backward apply, persistent up to M, D = 256
+    (``la_bwd_apply_ws16_kernel``: items of 256 rows and one product, A rows
+    streamed into slots that the item before frees, M != D handing the
+    slots past a product's depth over empty, B chunks and the epilogue
+    operand's halves through one ring, each warpgroup's 128 rows stored
+    apart) and above that up to 704 (``la_bwd_apply_wgmma_kernel``), with
+    tail rows (N = 777: the last item's second warpgroup holds rows past N)
+    and at N = 60,000 (705 items: each of the 132 persistent blocks takes
+    at least 5, so slots, stages and halves pass from item to item, across
+    products of different depths where M != D), on its inputs as they come
+    (``_on_view``): where its three products carry dq, dk and dv
+    (``bwd_product_inputs``) and on random rows, against
+    ``bwd_apply_plain`` in f64 within the bf16 tolerance of each output's
+    scale; outputs as the wrapper allocates them and as views of longer
+    allocations whose rows past N keep their NaN; bitwise repeatable, one
+    launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + n)
+    kernel = "la_bwd_apply_ws16_kernel" if max(m, d) <= 256 else "la_bwd_apply_wgmma_kernel"
+    assert kernel in attn.bwd_apply_design(torch.bfloat16, m, d)
+    q, k, v, g = (torch.randn(n, w, generator=gen, device=cuda).bfloat16() for w in (m, m, d, d))
+    sums = attn.reduce_plain(q, k, v, False)
+    n_t = torch.full((), float(n), device=cuda)
+    kinds = [bwd_product_inputs(n, m, d, torch.bfloat16, gen),
+             (q, k, v, g, *sums, n_t, *attn.bwd_reduce_plain(q, v, g, *sums, n_t, False))]
+    for ins in kinds:
+        ins = (*(_on_view(view, t) for t in ins[:4]), *ins[4:])
+        exact = attn.bwd_apply_plain(*(t.double() for t in ins), False)
+        a0 = attn.bwd_apply_launches
+        got = attn.bwd_apply(*ins)
+        assert attn.bwd_apply_launches == a0 + 1
+        for a, b in zip(got, exact):
+            _check_rel(a, b, BWD_REL[torch.bfloat16])
+        assert all(torch.equal(a, b) for a, b in zip(got, attn.bwd_apply(*ins)))
+        bufs, outs = _out_views(n, (m, m, d), torch.bfloat16, cuda)
+        attn.bwd_apply(*ins, out=tuple(outs))
+        assert all(torch.equal(a, b) for a, b in zip(outs, got))
+        assert all(b[n:].isnan().all() for b in bufs)
 
 
 @pytest.mark.parametrize("m,d", [(256, 256), (37, 19), (200, 37), (130, 19), (8, 250),
