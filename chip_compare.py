@@ -22,6 +22,7 @@ in the same call as the change.
     python3 chip_compare.py bf16-apply-trace ROOT
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
     python3 chip_compare.py reduce ROOT [ROOT ...]
+    python3 chip_compare.py probes ROOT [ROOT ...]
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -242,6 +243,26 @@ the outputs of each input kind. The mode prints each turn's JSON line, then
 the turns side by side and whether each digest is the same in every turn,
 and fails unless every turn's outputs are within the tolerance and
 repeatable.
+``probes``: the timing probes' two gather kernels, ``gather_rows`` and
+``gather_tiles``, of ROOT and of this checkout, each turn a process of its
+own (``python3 chip_compare.py turn probes ROOT``, from ``TURNS``), in
+turns ROOT, this checkout, this checkout, ROOT, or on the ROOTs in the order
+given (write the turns out: ROOT1 ROOT2 ROOT2 ROOT1). A turn prints the two
+kernels' registers and spills from ``ptxas`` and their designs, then at the
+probes' own sizes (``dma_gather.make_inputs``, ``dma_tile.make_inputs``)
+and at every S they run (rows 4, 8, 16, 32; tiles 8, 32) each kernel's
+CUDA-event ms (median of 20) and rates, its error against the plain
+version over its ``REL_TOL``, whether it is bitwise repeatable, whether it
+is bitwise the sums taken on the host in the kernels' order
+(``chip_smoke.rows_in_order``, ``tiles_in_order``), and sha256 digests of
+its outputs there and at the card tests' shapes (``PROBE_DIGEST_SHAPES``);
+and ``gather_rows``' rate at S = 4 and 16 on the probe's random rows over x
+of 20.5 MB, within L2, and of 1.02 GB, from HBM (``PROBE_CEILING_ROWS``).
+The mode prints each turn's JSON line, then the turns side by side and
+whether each digest is the same in every turn, and fails unless every turn
+is within tolerance and repeatable (Step 0 of a redesign runs it on copies
+of the parent with one part changed each, whose digests may differ by
+design).
 """
 
 from __future__ import annotations
@@ -270,19 +291,20 @@ def main() -> int:
              "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
              "rows", "rows-turn", "bf16-passes", "bf16-passes-turn", "bf16-apply",
              "bf16-apply-turn", "bf16-apply-trace", "bf16-apply-trace-turn",
-             "reduce", "reduce-turn")
+             "reduce", "reduce-turn", "probes", "turn")
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
         only = sys.argv[-1]
         del sys.argv[-2:]
-    if not (len(sys.argv) == 3 or len(sys.argv) == 4 and sys.argv[1] == "gat-repeat"
+    if not (len(sys.argv) == 3 and sys.argv[1] != "turn"
+            or len(sys.argv) == 4 and sys.argv[1] in ("gat-repeat", "turn")
             or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
                                                      "tf32-bwd", "bf16-bwd", "rows",
-                                                     "bf16-passes", "bf16-apply")) \
-            or sys.argv[1] not in modes:
+                                                     "bf16-passes", "bf16-apply", "probes")) \
+            or sys.argv[1] not in modes or sys.argv[1] == "turn" and sys.argv[2] not in TURNS:
         print(__doc__, file=sys.stderr)
         return 2
-    mode, root = sys.argv[1], os.path.abspath(sys.argv[2])
+    mode, root = sys.argv[1], os.path.abspath(sys.argv[-1 if sys.argv[1] == "turn" else 2])
     if mode == "tf32-bwd":
         return tf32_bwd([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "bf16-bwd":
@@ -302,6 +324,8 @@ def main() -> int:
         return q8_f32_apply([os.path.abspath(r) for r in sys.argv[2:]], only)
     if mode == "reduce":
         return reduce([os.path.abspath(r) for r in sys.argv[2:]])
+    if mode == "probes":
+        return probes([os.path.abspath(r) for r in sys.argv[2:]])
     sys.path.insert(0, root)
     import torch
 
@@ -349,6 +373,8 @@ def main() -> int:
         return q8_f32_apply_turn(cs, root, only)
     if mode == "reduce-turn":
         return reduce_turn(cs, root)
+    if mode == "turn":
+        return TURNS[sys.argv[2]](cs, root)
     _build.build_all(("spmm",))  # GAT's kernels
     if mode == "gat-repeat":
         return gat_repeat(cs, int(sys.argv[3]) if len(sys.argv) == 4 else 10)
@@ -574,7 +600,8 @@ def run_turns(mode: str, root: str, order=None, extra=()):
 
     turns = []
     for which in order or (root, HERE, HERE, root):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), mode, which, *extra],
+        args = ["turn", mode] if mode in TURNS else [mode]
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), *args, which, *extra],
                              capture_output=True, text=True, timeout=900)
         sys.stdout.write(out.stdout)
         sys.stderr.write(out.stderr[-4000:])
@@ -2029,6 +2056,123 @@ def reduce_turn(cs, root: str, dev: str = "cuda") -> int:
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
+
+
+def probes(roots: list) -> int:
+    """The ``probes`` mode: the turns, each ``probes_turn`` in a process of
+    its own, then the turns side by side; fails unless every turn's kernels
+    are within their tolerance of the plain versions and repeatable."""
+    import json
+
+    turns = run_turns("probes", roots[0], roots if len(roots) > 1 else None)
+    if turns is None:
+        return 1
+    side = {f"turn {i} ({t['root']})": {kind: {s: r["ms"] for s, r in t[kind].items()}
+                                         for kind in ("rows", "tiles")}
+            for i, t in enumerate(turns)}
+    same = {key: len({t["digests"][key] for t in turns}) == 1 for key in turns[0]["digests"]}
+    print(json.dumps({"probes_turns": side, "ok": {t["root"]: t["ok"] for t in turns},
+                      "digests_equal_in_every_turn": same}), flush=True)
+    return 0 if all(t["ok"] for t in turns) else 1
+
+
+# the card tests' probe inputs, digested in every turn of the probes mode
+# (tests/test_torch_cuda.py): (kind, n, e, f, chunk, stages)
+PROBE_DIGEST_SHAPES = (("rows", 5000, 8192, 256, 512, 16), ("rows", 5000, 8192, 64, 512, 16),
+                       ("tiles", 4096, 2048, 256, 256, 8), ("tiles", 4096, 2048, 64, 64, 8))
+# the probes mode's x sizes for gather_rows' ceilings: 20.5 MB (within the
+# 50 MB L2) and 1.02 GB (from HBM) of 512-byte rows
+PROBE_CEILING_ROWS = (40_000, 2_000_000)
+
+
+def probes_turn(cs, root: str) -> int:
+    """One turn of the ``probes`` mode on ROOT's package; its last line of
+    output is a JSON object of its numbers."""
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.microbench import dma_gather, dma_tile
+
+    report = _build.build_all(("microbench",)).get("microbench", "")
+    out = dict(root=root, ptxas=[], rows={}, tiles={}, digests={}, ok=True, designs={})
+    entry = False
+    for line in report.splitlines():
+        if "entry function" in line:
+            entry = "gather" in line
+        if (entry and ("spill" in line or "Used" in line)) or "warning" in line:
+            out["ptxas"].append(line.strip())
+    probes = (("rows", dma_gather, dma_gather.gather_rows, dma_gather.gather_rows_plain,
+               cs.rows_in_order, (4, 8, 16, 32), dma_gather.C, 1),
+              ("tiles", dma_tile, dma_tile.gather_tiles, dma_tile.gather_tiles_plain,
+               cs.tiles_in_order, (8, 32), dma_tile.C, 8))
+    for kind, mod, kernel, plain, in_order, stages, chunk, rows_a_copy in probes:
+        design = getattr(mod, "design", None)
+        for s in stages:
+            out["designs"][f"{kind} S={s}"] = (design(stages=s) if design else
+                                               "no design(): one block a chunk or a step")
+        x, idx = mod.make_inputs("cuda")
+        for s in stages:
+            ids = idx[s] if isinstance(idx, dict) else idx
+            got = kernel(x, ids, chunk, s)
+            err, scale = cs.rel_err(got, plain(x, ids, chunk))
+            res = dict(err_over_tol=err / scale / mod.REL_TOL,
+                       repeatable=torch.equal(got, kernel(x, ids, chunk, s)),
+                       in_order=torch.equal(got.cpu(), in_order(x, ids, chunk)),
+                       ms=cs.time_ms(lambda: kernel(x, ids, chunk, s)))
+            e = ids.numel()
+            res["g_rows_per_s"] = e * rows_a_copy / res["ms"] / 1e6
+            res["gb_per_s"] = e * rows_a_copy * x.shape[1] * 2 / res["ms"] / 1e6
+            out["digests"][f"{kind} S={s}"] = digest([got])
+            if not (res["err_over_tol"] <= 1.0 and res["repeatable"]):
+                out["ok"] = False
+            out[kind][str(s)] = res
+            cs.log(f"probes {root} {kind} S={s}: {res['ms']:.4f} ms, {res['g_rows_per_s']:.3f} "
+                   f"G rows/s, {res['gb_per_s']:.1f} GB/s; error {res['err_over_tol']:.3f} of "
+                   f"the tolerance, repeatable {res['repeatable']}, in the kernels' order "
+                   f"{res['in_order']}; {out['designs'][f'{kind} S={s}']}")
+            del got
+        del x, idx
+        torch.cuda.empty_cache()
+    # the random-row rate where x lies in L2 and where it lies in HBM: the
+    # probe's rows (E of 512 bytes, C = 512) drawn over x of 20.5 MB and of
+    # 1.02 GB (randn on the card, seed 31)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for n in PROBE_CEILING_ROWS:
+        x = torch.randn(n, dma_gather.F, generator=gen, device="cuda").to(torch.bfloat16)
+        ids = torch.randint(0, n, (dma_gather.E,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for s in (4, dma_gather.S):
+            ms = cs.time_ms(lambda: dma_gather.gather_rows(x, ids, dma_gather.C, s))
+            out["rows"][f"x of {n} rows, S={s}"] = dict(
+                ms=ms, g_rows_per_s=dma_gather.E / ms / 1e6,
+                gb_per_s=dma_gather.E * dma_gather.F * 2 / ms / 1e6)
+            cs.log(f"probes {root} rows over x of {n} rows ({n * dma_gather.F * 2 / 1e6:.1f} MB)"
+                   f", S={s}: {ms:.4f} ms, {dma_gather.E / ms / 1e6:.3f} G rows/s, "
+                   f"{dma_gather.E * dma_gather.F * 2 / ms / 1e6:.1f} GB/s")
+        del x, ids
+        torch.cuda.empty_cache()
+    for kind, n, e, f, chunk, s in PROBE_DIGEST_SHAPES:
+        if kind == "rows":
+            x, ids = dma_gather.make_inputs("cuda", n=n, e=e, f=f)
+            got = dma_gather.gather_rows(x, ids, chunk, s)
+            in_order = cs.rows_in_order(x, ids, chunk)
+        else:
+            x, idx = dma_tile.make_inputs("cuda", n=n, f=f, e=e, chunk=chunk, stages=(8,))
+            got = dma_tile.gather_tiles(x, idx[8], chunk, s)
+            in_order = cs.tiles_in_order(x, idx[8], chunk)
+        key = f"{kind} n={n} e={e} f={f} chunk={chunk}"
+        out["digests"][key] = digest([got])
+        cs.log(f"probes {root} {key}: sha256 {out['digests'][key]}, in the kernels' order "
+               f"{torch.equal(got.cpu(), in_order)}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# the turns run by ``run_turns`` through ``python3 chip_compare.py turn MODE
+# ROOT``, by mode
+TURNS = {"probes": probes_turn}
 
 
 def digest(outs) -> str:

@@ -151,10 +151,16 @@ JAX package. Phases, each failing loudly:
    BatchNorm statistics), each batch's build and step ms, a streaming
    sweep's wall time and a profile of three batches with their sampling;
 14. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
-   against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``),
-   then each probe's own run, whose launches are counted. Their launches
+   against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``;
+   ``gather_rows`` and ``gather_tiles`` at every S of their runs, each
+   bitwise repeatable and bitwise its replaced kernel's output,
+   ``PROBE_DIGESTS``), then each probe's own run, whose launches are
+   counted, each gather kernel's time beside its design. Their launches
    share one count with every other kernel's, so each path's launch check
    also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15, 16, 17 and 18 launched a probe;
+   then K3's case: ``gather_rows`` on the rows ``csr_spmm`` gathers on the
+   arxiv graph, in its walk order and in node order, beside ``csr_spmm``
+   bf16 at F = 256 in each order and ``slab_variant``'s no_src_matmul;
    the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
 15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
    the repo's recipes, their flags read verbatim from the port's recipe
@@ -305,6 +311,14 @@ TRAIN_GRAD_RTOL = 2e-2
 TRAIN_EPOCHS, TRAIN_WARMUP = 20, 3
 # the timing probes' kernels: no model path launches them
 PROBES = ("gather_rows", "gather_tiles", "slab_variant")
+# sha256 (16 hex digits) of the gather probes' outputs at the probes' own
+# sizes (dma_gather.make_inputs, dma_tile.make_inputs: host-made) from the
+# kernels the persistent ones replaced (one block a chunk or a step), by
+# (kernel, S); both keep each group's order of terms, so the outputs stay
+# bitwise the same
+PROBE_DIGESTS = {("gather_rows", 4): "0637cfba966424c1", ("gather_rows", 8): "0637cfba966424c1",
+                 ("gather_rows", 16): "0637cfba966424c1", ("gather_rows", 32): "0637cfba966424c1",
+                 ("gather_tiles", 8): "ee9d6f038ab452cb", ("gather_tiles", 32): "8f92d192ff3fba5c"}
 # launches of one train step of the bench model (3 GraphConv layers)
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
@@ -3212,24 +3226,98 @@ def zoo_phase(results: dict, dev: str) -> dict:
     return out
 
 
+def rows_in_order(x: torch.Tensor, idx: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``gather_rows``' sums taken on the host in its kernel's order: each
+    group's rows added one at a time in index order, in f32 (numpy);
+    [E/chunk, 8, F] on the CPU."""
+    import numpy as np
+
+    xf = x.float().cpu().numpy()
+    ids = idx.cpu().numpy().reshape(-1, 8, chunk // 8)
+    acc = np.zeros((ids.shape[0], 8, xf.shape[1]), np.float32)
+    for j in range(ids.shape[2]):
+        acc += xf[ids[:, :, j]]
+    return torch.from_numpy(acc)
+
+
+def tiles_in_order(x: torch.Tensor, idx: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``gather_tiles``' sums taken on the host in its kernel's order: for
+    each column, a group's tiles in index order and rows 0-7 of each tile,
+    added one at a time in f32 (numpy); [E/chunk, 8, F] on the CPU."""
+    import numpy as np
+
+    f = x.shape[1]
+    xf = x.float().cpu().numpy().reshape(-1, 8, f)
+    ids = idx.cpu().numpy().reshape(-1, 8, chunk // 8)
+    acc = np.zeros((ids.shape[0], 8, f), np.float32)
+    for j in range(ids.shape[2]):
+        tiles = xf[ids[:, :, j]]  # [E/chunk, 8 groups, 8 rows, F]
+        for i in range(8):
+            acc += tiles[:, :, i]
+    return torch.from_numpy(acc)
+
+
+def csr_gather_stream(graph, chunk: int, walk: bool) -> tuple[torch.Tensor, int]:
+    """The rows ``csr_spmm`` gathers on ``graph``, as ``gather_rows``' ids:
+    ``edge_src`` taken row by row in ``Graph.schedule``'s walk order
+    (``walk``; node order where the graph has none) or in node order, cut to
+    a multiple of ``chunk``; and the number of ids cut."""
+    src = graph.edge_src
+    if walk and graph.schedule is not None:
+        indptr, order = graph.indptr.long(), graph.schedule.long()
+        starts = indptr[order]
+        counts = indptr[order + 1] - starts
+        offsets = torch.repeat_interleave(starts - (torch.cumsum(counts, 0) - counts), counts)
+        src = src[torch.arange(src.numel(), device=src.device) + offsets]
+    keep = src.numel() // chunk * chunk
+    return src[:keep].contiguous(), src.numel() - keep
+
+
+def check_probe(name: str, kernel, plain, rel_tol: float, digest: str) -> float:
+    """One probe kernel's output (``kernel()``) against its plain version
+    within ``rel_tol`` of the largest sum, bitwise repeatable, and bitwise
+    the output whose sha256 (16 hex digits) is ``digest``: the replaced
+    kernel's on the same host-made inputs. Returns max |kernel - plain|."""
+    import hashlib
+
+    got = kernel()
+    err = check_rel(name, got, plain(), rel_tol)
+    if not torch.equal(got, kernel()):
+        raise AssertionError(f"{name} is not bitwise repeatable")
+    sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+    if sha != digest:
+        raise AssertionError(f"{name}: sha256 {sha}, the replaced kernel's {digest}")
+    log(f"{name}: bitwise repeatable and the replaced kernel's output (sha256 {sha})")
+    return err
+
+
 def probe_phase(graph, results: dict, dev: str) -> dict:
-    """The timing probes: each kernel against its plain version (these
-    launches are not counted), then each probe's own run from counts of 0
-    (dma_gather at every S, dma_tile at S = 8 and 32, slab_variants' three
-    modes on the arxiv graph). Returns the run's launch counts."""
+    """The timing probes: each kernel at every S of its run against its
+    plain version, bitwise repeatable and bitwise the replaced kernel's
+    output (``PROBE_DIGESTS``; these launches are not counted), then each
+    probe's own run from counts of 0 (dma_gather at every S, dma_tile at S
+    = 8 and 32, slab_variants' three modes on the arxiv graph), each gather
+    kernel's time beside its design; then K3's case: ``gather_rows`` on the
+    rows ``csr_spmm`` gathers on the arxiv graph, in its walk order and in
+    node order (``csr_gather_stream``), beside ``csr_spmm`` bf16 at F = 256
+    in each order and ``slab_variant``'s no_src_matmul. Returns the run's
+    launch counts."""
     from sgformer_tpu_torch import kernels
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
     from sgformer_tpu_torch.microbench import dma_gather, dma_tile, slab_variants
 
     x, idx = dma_gather.make_inputs(dev)
-    err_rows = check_rel("gather_rows (S=16)", dma_gather.gather_rows(x, idx),
-                         dma_gather.gather_rows_plain(x, idx), dma_gather.REL_TOL)
+    err_rows = {s: check_probe(f"gather_rows (S={s})",
+                               lambda: dma_gather.gather_rows(x, idx, stages=s),
+                               lambda: dma_gather.gather_rows_plain(x, idx),
+                               dma_gather.REL_TOL, PROBE_DIGESTS["gather_rows", s])
+                for s in dma_gather.STAGES}
     xt, tidx = dma_tile.make_inputs(dev)
-    err_tiles = {}
-    for s in dma_tile.STAGES:
-        err_tiles[s] = check_rel(f"gather_tiles (S={s})",
-                                 dma_tile.gather_tiles(xt, tidx[s], stages=s),
-                                 dma_tile.gather_tiles_plain(xt, tidx[s]), dma_tile.REL_TOL)
+    err_tiles = {s: check_probe(f"gather_tiles (S={s})",
+                                lambda: dma_tile.gather_tiles(xt, tidx[s], stages=s),
+                                lambda: dma_tile.gather_tiles_plain(xt, tidx[s]),
+                                dma_tile.REL_TOL, PROBE_DIGESTS["gather_tiles", s])
+                 for s in dma_tile.STAGES}
     xs = slab_variants.make_x(graph.num_nodes, dev)
     csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
     err_modes = {}
@@ -3253,17 +3341,20 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     if not all(counts[p] for p in PROBES):
         raise AssertionError(f"a probe kernel was not launched in its run: {counts}")
 
+    rows_design = {s: dma_gather.design(s) for s in rows}
+    tiles_design = {s: dma_tile.design(s) for s in tiles}
     for s, r in rows.items():
         log(f"dma_gather S={s}: {r['ms']:.4f} ms for {dma_gather.E} rows, "
             f"{r['mrows_per_s']:.1f} Mrows/s, {r['ns_per_row']:.4f} ns/row, "
             f"{r['gb_per_s']:.1f} GB/s (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['distinct_rows']} distinct rows; index_select + sums {r['library_ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms)")
+            f"plain {r['plain_ms']:.4f} ms); design: {rows_design[s]}")
     for s, r in tiles.items():
         log(f"dma_tile S={s}: {r['ms']:.4f} ms for {dma_tile.E} tiles, "
             f"{r['mtiles_per_s']:.1f} Mtiles/s, {r['ns_per_tile']:.4f} ns/tile, "
             f"{r['gb_per_s']:.1f} GB/s (bound {r['bound_ms']:.4f} ms by {r['bound_by']}; "
-            f"index_select + sums {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms)")
+            f"index_select + sums {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms); "
+            f"design: {tiles_design[s]}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         a = torch.sparse_csr_tensor(graph.indptr, graph.edge_src,
@@ -3278,18 +3369,40 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     log(f"slab_variant beside: csr_spmm bf16 {spmm_ms:.4f} ms, torch.sparse.mm {library_ms} ms; "
         f"gather share of prod {1 - modes['no_src_matmul']['ms'] / modes['prod']['ms']:.3f}")
 
+    # K3: the probe on csr_spmm's own gather stream, each order beside
+    # csr_spmm bf16 at F = 256 walking in that order
+    k3 = {}
+    for order, walk in (("walk", True), ("node", False)):
+        ids, cut = csr_gather_stream(graph, dma_gather.C, walk)
+        ms = time_ms(lambda: dma_gather.gather_rows(xs, ids))
+        spmm_order_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments, graph.hub_edges,
+                                                 schedule=graph.schedule if walk else None))
+        rate, gb = ids.numel() / ms / 1e6, ids.numel() * xs.shape[1] * 2 / ms / 1e6
+        k3.update({f"k3_{order}_order_ms": ms, f"k3_{order}_order_grows_per_s": rate,
+                   f"k3_{order}_order_gb_per_s": gb,
+                   f"k3_{order}_order_csr_spmm_ms": spmm_order_ms})
+        log(f"K3: gather_rows (S={dma_gather.S}) on csr_spmm's gather stream in {order} order, "
+            f"{ids.numel()} rows of the graph's {graph.num_edges} edges ({cut} cut to a multiple "
+            f"of C = {dma_gather.C}): {ms:.4f} ms, {rate:.3f} G rows/s, {gb:.1f} GB/s; beside "
+            f"csr_spmm bf16 F = {xs.shape[1]} in {order} order {spmm_order_ms:.4f} ms and "
+            f"slab_variant no_src_matmul {modes['no_src_matmul']['ms']:.4f} ms (the walk with "
+            f"no gathers)")
+        del ids
+
     main_rows, main_tiles = rows[dma_gather.S], tiles[8]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     results["gather_rows"] = dict(
-        {k: main_rows[k] for k in keys}, max_abs_err=err_rows, stages=dma_gather.S,
+        {k: main_rows[k] for k in keys}, max_abs_err=err_rows[dma_gather.S], stages=dma_gather.S,
         mrows_per_s=main_rows["mrows_per_s"], ns_per_row=main_rows["ns_per_row"],
-        gb_per_s=main_rows["gb_per_s"],
-        **{f"s{s}_ms": r["ms"] for s, r in rows.items() if s != dma_gather.S})
+        gb_per_s=main_rows["gb_per_s"], design=rows_design[dma_gather.S],
+        **{f"s{s}_ms": r["ms"] for s, r in rows.items() if s != dma_gather.S},
+        **{f"s{s}_max_abs_err": e for s, e in err_rows.items() if s != dma_gather.S}, **k3)
     results["gather_tiles"] = dict(
         {k: main_tiles[k] for k in keys}, max_abs_err=err_tiles[8], stages=8,
         mtiles_per_s=main_tiles["mtiles_per_s"], ns_per_tile=main_tiles["ns_per_tile"],
-        gb_per_s=main_tiles["gb_per_s"], s32_ms=tiles[32]["ms"],
-        s32_gb_per_s=tiles[32]["gb_per_s"])
+        gb_per_s=main_tiles["gb_per_s"], design=tiles_design[8], s32_ms=tiles[32]["ms"],
+        s32_gb_per_s=tiles[32]["gb_per_s"], s32_max_abs_err=err_tiles[32],
+        s32_design=tiles_design[32])
     prod = modes["prod"]
     results["slab_variant"] = dict(
         max_abs_err=err_modes["prod"], ms=prod["ms"], plain_ms=prod["plain_ms"],

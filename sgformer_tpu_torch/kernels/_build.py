@@ -60,8 +60,10 @@ _SIGNATURES = {
         "sgf_la_apply_scratch": [_I, _I, _I],
     },
     "microbench": {
-        "sgf_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "sgf_gather_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "sgf_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sgf_gather_rows_resident": [_I, _I],
+        "sgf_gather_tiles": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sgf_gather_tiles_resident": [_I, _I],
         "sgf_slab_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "linear_attention_bwd": {

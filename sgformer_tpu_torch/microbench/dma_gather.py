@@ -8,9 +8,12 @@ survive; :func:`gather_rows` writes every chunk's:
 
     out[c, r, :] = sum_{j < C/8} f32(x[idx[c*C + r*C/8 + j], :])     [E/C, 8, F]
 
-Its kernel (``csrc/microbench.cu``, ``gather_rows_kernel``) runs one CTA per
-chunk; each warp pipelines its group's rows through an S-deep ring of
-16-byte ``cp.async`` copies in shared memory. The question is the card's
+Its kernel (``csrc/microbench.cu``, ``gather_rows_kernel``) is persistent:
+one block for each slot the card holds at its ring (:func:`plan`), each
+walking chunks ``blockIdx.x, += gridDim.x``; warp r sums group r of each, its
+rows one stream kept S deep in a ring of 16-byte ``cp.async`` copies across
+the chunks' ends, the ids read 32 at a time a batch ahead. ``stages`` (S)
+is the rows in flight for one output group. The question is the card's
 random-row rate: rows a second, ns a row, GB/s. The library yardstick is the
 script's other line, ``jnp.take`` and a sum: ``torch.index_select`` and the
 same group sums. On the card:
@@ -20,12 +23,13 @@ same group sums. On the card:
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
 import torch
 
-from sgformer_tpu_torch import kernels
+from sgformer_tpu_torch import kernels, microbench
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.utils import measure
 
@@ -35,6 +39,38 @@ STAGES = (4, 8, 16, 32)
 # kernel against plain, as a share of the largest sum: each sum has C/8 = 64
 # f32 terms, added in another order
 REL_TOL = 1e-5
+# the kernel's block: 8 warps, one an output group
+THREADS = 256
+
+
+def plan(n_chunks: int, f: int = F, stages: int = S, sms: int = 132,
+         resident: int | None = None) -> dict:
+    """The kernel's launch over ``n_chunks`` chunks: its ring (8 warps x
+    ``stages`` rows of ``f`` bf16 in shared memory), the blocks an SM holds
+    at that ring (by shared memory and threads; on the card ``resident``,
+    its occupancy query, which also counts registers) and the persistent
+    grid, one block a resident slot of the ``sms`` SMs and no more than
+    chunks."""
+    ring = 8 * stages * f * 2
+    per_sm = microbench.resident_blocks(ring, THREADS) if resident is None else resident
+    return dict(ring_bytes=ring, threads=THREADS, blocks_per_sm=per_sm,
+                grid=microbench.persistent_grid(n_chunks, sms, per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(n_chunks: int, f: int, stages: int, device: int) -> dict:
+    """:func:`plan` on the card: its SMs and the kernel's occupancy there."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = microbench.card_blocks_per_sm("sgf_gather_rows_resident", f, stages)
+    return plan(n_chunks, f, stages, sms, per_sm)
+
+
+def design(stages: int = S, f: int = F, n_chunks: int = E // C) -> str:
+    """The kernel's launch on the card at these sizes, in words."""
+    p = card_plan(n_chunks, f, stages, torch.cuda.current_device())
+    return (f"persistent: {p['grid']} blocks ({p['blocks_per_sm']} an SM) over {n_chunks} "
+            f"chunks; 8 warps, each a {stages}-deep ring of 16-byte cp.async rows kept full "
+            f"across its chunks, ids a batch of 32 ahead")
 
 
 def make_inputs(device, n: int = N, e: int = E, f: int = F, seed: int = 0):
@@ -80,9 +116,10 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor, chunk: int = C,
         raise ValueError("x must be 16-byte aligned")
     out = torch.empty(e // chunk, 8, f, dtype=torch.float32, device=x.device)
     if e:
+        p = card_plan(e // chunk, f, stages, x.device.index)
         err = _build.library("microbench").sgf_gather_rows(
             x.data_ptr(), idx.data_ptr(), out.data_ptr(), e // chunk, chunk, f, stages,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            p["grid"], torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "gather_rows")
         kernels.probe_launches["gather_rows"] += 1
     return out

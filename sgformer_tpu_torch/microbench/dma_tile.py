@@ -10,23 +10,28 @@ last step's sums survive there. :func:`gather_tiles` writes every step's:
     scratch[8j + i, :] = x[8*idx[c*C + j] + i, :]                    [E/C, 8, F]
 
 A step's scratch (1 MB) does not fit shared memory, so the kernel
-(``csrc/microbench.cu``, ``gather_tiles_kernel``) streams: one CTA per step,
-each tile one TMA bulk copy (``cp.async.bulk`` with an ``mbarrier``) into an
-S-stage ring, summed into its group as it lands. S is the ring depth, 8 and
-32 as in the script. The library yardstick is ``index_select`` of the tiles
-and the same sums. On the card:
+(``csrc/microbench.cu``, ``gather_tiles_kernel``) streams. It is persistent:
+one block for each slot the card holds at its ring (:func:`plan`), each
+walking steps ``blockIdx.x, += gridDim.x``, each tile one TMA bulk copy
+(``cp.async.bulk``) into an S-slot ring on mbarriers. gcd(S, 8) warps sum
+the groups' tiles, interleaved so that each slot always serves one warp,
+which refills it as soon as it has read it. S is the tiles in flight in
+one block, 8 and 32 as in the script. The library yardstick is
+``index_select`` of the tiles and the same sums. On the card:
 
     python -m sgformer_tpu_torch.microbench.dma_tile
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import sys
 
 import numpy as np
 import torch
 
-from sgformer_tpu_torch import kernels
+from sgformer_tpu_torch import kernels, microbench
 from sgformer_tpu_torch.kernels import _build
 from sgformer_tpu_torch.utils import measure
 
@@ -36,6 +41,43 @@ STAGES = (8, 32)
 # kernel against plain, as a share of the largest sum: each sum has 8C =
 # 2048 f32 terms, added in another order
 REL_TOL = 1e-4
+
+
+def smem_bytes(f: int, stages: int) -> int:
+    """The kernel's shared memory: an mbarrier a slot (padded to 128
+    bytes), then ``stages`` tiles of 8 x ``f`` bf16."""
+    return -(-stages * 8 // 128) * 128 + stages * 8 * f * 2
+
+
+def plan(n_steps: int, f: int = F, stages: int = 8, sms: int = 132,
+         resident: int | None = None) -> dict:
+    """The kernel's launch over ``n_steps`` steps: its warps (gcd(stages,
+    8), so that each slot serves one warp), its shared memory, the blocks an
+    SM holds (by shared memory and threads; on the card ``resident``, its
+    occupancy query, which also counts registers) and the persistent grid,
+    one block a resident slot of the ``sms`` SMs and no more than steps."""
+    warps = math.gcd(stages, 8)
+    smem = smem_bytes(f, stages)
+    threads = 32 * warps
+    per_sm = microbench.resident_blocks(smem, threads) if resident is None else resident
+    return dict(warps=warps, threads=threads, smem_bytes=smem, blocks_per_sm=per_sm,
+                grid=microbench.persistent_grid(n_steps, sms, per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(n_steps: int, f: int, stages: int, device: int) -> dict:
+    """:func:`plan` on the card: its SMs and the kernel's occupancy there."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = microbench.card_blocks_per_sm("sgf_gather_tiles_resident", f, stages)
+    return plan(n_steps, f, stages, sms, per_sm)
+
+
+def design(stages: int = 8, f: int = F, n_steps: int = E // C) -> str:
+    """The kernel's launch on the card at these sizes, in words."""
+    p = card_plan(n_steps, f, stages, torch.cuda.current_device())
+    return (f"persistent: {p['grid']} blocks ({p['blocks_per_sm']} an SM) over {n_steps} "
+            f"steps; a {stages}-slot ring of bulk copies on mbarriers, {p['warps']} warps, "
+            f"each refilling its own slots, ids a batch of 32 ahead")
 
 
 def make_inputs(device, n: int = N, f: int = F, e: int = E, chunk: int = C,
@@ -78,8 +120,7 @@ def gather_tiles(x: torch.Tensor, idx: torch.Tensor, chunk: int = C,
         raise ValueError("x and idx must be on one device")
     if x.device.type == "cpu":
         return gather_tiles_plain(x, idx, chunk)
-    ring = -(-stages * 8 // 128) * 128 + stages * 8 * f * 2
-    if f % 8 or f > 256 or stages < 1 or ring > 227 * 1024:
+    if f % 8 or f > 256 or stages < 1 or smem_bytes(f, stages) > 227 * 1024:
         raise ValueError(f"the kernel takes F % 8 == 0, F <= 256 and a ring of stages "
                          f"within 227 KB of shared memory, got F = {f}, stages = {stages}")
     x, idx = x.contiguous(), idx.contiguous()
@@ -87,9 +128,10 @@ def gather_tiles(x: torch.Tensor, idx: torch.Tensor, chunk: int = C,
         raise ValueError("x must be 16-byte aligned")
     out = torch.empty(e // chunk, 8, f, dtype=torch.float32, device=x.device)
     if e:
+        p = card_plan(e // chunk, f, stages, x.device.index)
         err = _build.library("microbench").sgf_gather_tiles(
             x.data_ptr(), idx.data_ptr(), out.data_ptr(), e // chunk, chunk, f, stages,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            p["grid"], torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "gather_tiles")
         kernels.probe_launches["gather_tiles"] += 1
     return out

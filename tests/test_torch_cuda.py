@@ -1829,14 +1829,81 @@ def test_gather_rows_kernel_matches_plain(cuda, stages, width):
 
 @pytest.mark.parametrize("stages", [1, 8, 32])
 @pytest.mark.parametrize("width,chunk", [(256, 256), (64, 64)])
-def test_gather_tiles_kernel_matches_plain(cuda, stages, width, chunk):
+@pytest.mark.parametrize("waves", ["below one", "several"])
+def test_gather_tiles_kernel_matches_plain(cuda, stages, width, chunk, waves):
+    """Below one wave of the persistent grid (8 steps) and over several (3
+    waves and 5 steps: 3 or 4 steps a block), bitwise repeatable; S = 1
+    runs one consumer warp, 8 and 32 eight."""
     from sgformer_tpu_torch.microbench import dma_tile
 
-    x, idx = dma_tile.make_inputs(cuda, n=4096, f=width, e=2048, chunk=chunk, stages=(8,))
+    steps = 8
+    if waves == "several":
+        steps = 3 * dma_tile.card_plan(1 << 30, width, stages, 0)["grid"] + 5
+    x, idx = dma_tile.make_inputs(cuda, n=4096, f=width, e=steps * chunk, chunk=chunk,
+                                  stages=(8,))
+    grid = dma_tile.card_plan(steps, width, stages, x.device.index)["grid"]
+    assert grid == steps if waves == "below one" else steps == 3 * grid + 5
     before = kernels.probe_launches["gather_tiles"]
     got = dma_tile.gather_tiles(x, idx[8], chunk=chunk, stages=stages)
     assert kernels.probe_launches["gather_tiles"] == before + 1
     _check_rel(got, dma_tile.gather_tiles_plain(x, idx[8], chunk), dma_tile.REL_TOL)
+    assert torch.equal(got, dma_tile.gather_tiles(x, idx[8], chunk=chunk, stages=stages))
+
+
+# sha256 (16 hex digits) of the gather probes' outputs from the kernels the
+# persistent ones replaced (one block a chunk or a step), read on an NVIDIA
+# H100 80GB HBM3: (kernel, n, e, f, chunk, stages) on the probes' make_inputs
+EARLIER_PROBE_DIGESTS = {("gather_rows", 5000, 8192, 256, 512, 16): "d2599c5767adfea7",
+                         ("gather_rows", 5000, 8192, 64, 512, 16): "bc582f8cfd00d563",
+                         ("gather_tiles", 4096, 2048, 256, 256, 8): "de48a7d1f15862e9",
+                         ("gather_tiles", 4096, 2048, 64, 64, 8): "bc69b29023b98e2b"}
+
+
+@pytest.mark.parametrize("which", list(EARLIER_PROBE_DIGESTS))
+def test_gather_probes_are_bitwise_the_replaced_kernels(cuda, which):
+    """Both kernels add each group's terms in the order the replaced ones
+    did (gather_rows: the rows in index order; gather_tiles: for each
+    column, the tiles in index order and rows 0-7 of each), so their outputs
+    are those kernels' bit for bit, and bitwise the same sums taken one term
+    at a time in f32 on the host, at every S the probes run."""
+    import hashlib
+
+    from sgformer_tpu_torch.microbench import dma_gather, dma_tile
+
+    kernel, n, e, f, chunk, _ = which
+    if kernel == "gather_rows":
+        x, idx = dma_gather.make_inputs(cuda, n=n, e=e, f=f)
+        run = lambda s: dma_gather.gather_rows(x, idx, chunk=chunk, stages=s)
+        stages, rows = dma_gather.STAGES, idx.cpu().numpy().reshape(-1, 8, chunk // 8, 1)
+    else:
+        x, tidx = dma_tile.make_inputs(cuda, n=n, f=f, e=e, chunk=chunk, stages=(8,))
+        run = lambda s: dma_tile.gather_tiles(x, tidx[8], chunk=chunk, stages=s)
+        stages = dma_tile.STAGES
+        rows = 8 * tidx[8].cpu().numpy().reshape(-1, 8, chunk // 8, 1) + np.arange(8)
+    xf = x.float().cpu().numpy()
+    terms = rows.reshape(rows.shape[0], 8, -1)
+    want = np.zeros((terms.shape[0], 8, f), np.float32)
+    for j in range(terms.shape[2]):
+        want += xf[terms[:, :, j]]
+    for s in stages:
+        got = run(s)
+        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16] == \
+            EARLIER_PROBE_DIGESTS[which]
+        assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("probe", ["gather_rows", "gather_tiles"])
+def test_gather_plans_hold_on_the_card(cuda, probe):
+    """At the scripts' width, every S of their runs, the card holds the
+    blocks an SM that the plan reckons from shared memory and threads (the
+    registers never cut it), so the persistent grid is one wave."""
+    from sgformer_tpu_torch.microbench import dma_gather, dma_tile
+
+    mod, n = (dma_gather, dma_gather.E // dma_gather.C) if probe == "gather_rows" else \
+        (dma_tile, dma_tile.E // dma_tile.C)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for s in mod.STAGES:
+        assert mod.card_plan(n, mod.F, s, 0) == mod.plan(n, mod.F, s, sms)
 
 
 @pytest.mark.parametrize("mode", ["prod", "static_sub", "no_src_matmul"])

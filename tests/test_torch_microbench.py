@@ -89,6 +89,176 @@ def test_gather_tiles_is_the_pallas_body_at_every_step(chunk):
         _close(got[i].numpy(), scratch.reshape(8, chunk, f).astype(np.float64).sum(1))
 
 
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, as a module (it imports
+    torch and the port's measurement helpers, nothing of JAX)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the plans at the scripts' sizes on 132 SMs: S -> (blocks an SM, grid)
+ROWS_PLANS = {4: (8, 1056), 8: (6, 792), 16: (3, 396), 32: (1, 132)}
+TILES_PLANS = {8: (6, 792), 32: (1, 132)}
+
+
+@pytest.mark.parametrize("stages", dma_gather.STAGES)
+def test_gather_rows_plan_at_the_scripts_sizes(stages):
+    """8 warps x S rows of 256 bf16 a block: the SM's 228 KB (1 KB a block
+    kept) hold 13 blocks at S = 4, which the 2,048 threads cut to 8, then 6,
+    3 and 1; the persistent grid is one block a slot of the 132 SMs, fewer
+    than the 2,048 chunks, and a tail of one chunk takes one block."""
+    p = dma_gather.plan(dma_gather.E // dma_gather.C, dma_gather.F, stages, sms=132)
+    assert p["ring_bytes"] == 8 * stages * 256 * 2 and p["threads"] == 256
+    assert (p["blocks_per_sm"], p["grid"]) == ROWS_PLANS[stages]
+    assert dma_gather.plan(1, dma_gather.F, stages, sms=132)["grid"] == 1
+    # the card's occupancy query, where it counts registers too, decides
+    assert dma_gather.plan(2048, 256, stages, sms=132, resident=2)["grid"] == 264
+
+
+@pytest.mark.parametrize("stages", dma_tile.STAGES)
+def test_gather_tiles_plan_at_the_scripts_sizes(stages):
+    """gcd(S, 8) = 8 warps (256 threads, 8 an SM by threads); S mbarriers
+    padded to 128 bytes and S tiles of 4 KB: 6 blocks an SM at S = 8, 1 at S
+    = 32; the grid covers the 1,024 steps' slots, and a tail of one step
+    takes one block."""
+    p = dma_tile.plan(dma_tile.E // dma_tile.C, dma_tile.F, stages, sms=132)
+    assert p["warps"] == 8 and p["threads"] == 256
+    assert p["smem_bytes"] == -(-stages * 8 // 128) * 128 + stages * 4096
+    assert (p["blocks_per_sm"], p["grid"]) == TILES_PLANS[stages]
+    assert dma_tile.plan(1, dma_tile.F, stages, sms=132)["grid"] == 1
+
+
+@pytest.mark.parametrize("n_items,grid", [(2048, 396), (1024, 792), (5, 132), (1, 1), (7, 7)])
+def test_persistent_blocks_walk_every_item_once(n_items, grid):
+    """Block b walks items b, b + grid, ...; the kernels count them as
+    (n - 1 - b) // grid + 1 (``total`` over the chunk's or step's rows)."""
+    grid = min(grid, n_items)
+    seen = []
+    for b in range(grid):
+        mine = list(range(b, n_items, grid))
+        assert len(mine) == (n_items - 1 - b) // grid + 1
+        seen += mine
+    assert sorted(seen) == list(range(n_items))
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4, 6, 8, 12, 32, 56])
+def test_gather_tiles_slots_each_serve_one_consumer_warp(stages):
+    """The kernel's stream: position p of a step is tile p // 8 of group
+    p % 8, stream position k lands in slot k % S and is summed by warp k %
+    W, W = gcd(S, 8) warps: every slot serves one warp only (which waits on
+    its uses in order and refills it), each warp takes its groups' tiles in
+    index order, and every tile of a step is taken once."""
+    warps = dma_tile.plan(4, 256, stages)["warps"]
+    assert warps == np.gcd(stages, 8) and stages % warps == 0
+    chunk = 64
+    owner, taken = {}, {}
+    for k in range(3 * chunk):  # three steps of one block's stream
+        step, p = divmod(k, chunk)
+        group, tile = p % 8, p // 8
+        assert owner.setdefault(k % stages, k % warps) == k % warps
+        assert group % warps == k % warps
+        taken.setdefault((step, group), []).append(tile)
+    assert all(t == list(range(chunk // 8)) for t in taken.values())
+
+
+def test_gather_tiles_refuses_a_ring_past_shared_memory():
+    """The ring's bytes as the kernel lays them out: at F = 256, 56 slots
+    fit the 227 KB a block may take, 57 do not."""
+    assert dma_tile.smem_bytes(256, 56) <= 227 * 1024 < dma_tile.smem_bytes(256, 57)
+    assert dma_tile.smem_bytes(256, 8) == 128 + 8 * 4096
+    assert dma_tile.smem_bytes(256, 32) == 256 + 32 * 4096
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+def test_csr_gather_stream_is_edge_src_row_by_row(reorder):
+    """K3's ids (``chip_smoke.csr_gather_stream``): ``edge_src`` of each row
+    in ``Graph.schedule``'s order, then in node order, cut to a multiple of
+    C, against a numpy loop over the rows; a graph with no walk order
+    (``reorder=True``) takes node order both times."""
+    cs = _chip_smoke()
+    ei, n = _clustered_edges(1, n=300, e=1500)
+    g = preprocess_graph(ei, n, device="cpu", reorder=reorder)
+    assert (g.schedule is None) == reorder
+    indptr, src = g.indptr.numpy(), g.edge_src.numpy()
+    order = np.arange(n) if g.schedule is None else g.schedule.numpy()
+    walk = np.concatenate([src[indptr[r]:indptr[r + 1]] for r in order])
+    for chunk in (64, 512):
+        keep = len(src) // chunk * chunk
+        for is_walk, want in ((True, walk), (False, src)):
+            got, cut = cs.csr_gather_stream(g, chunk, is_walk)
+            assert got.dtype == torch.int32 and got.is_contiguous()
+            np.testing.assert_array_equal(got.numpy(), want[:keep])
+            assert cut == len(src) - keep
+    assert not np.array_equal(walk, src) or reorder
+
+
+@pytest.mark.parametrize("kind", ["rows", "tiles"])
+def test_probe_sums_in_the_kernels_order(kind):
+    """``chip_smoke.rows_in_order`` and ``tiles_in_order`` (the sums the
+    card's digests are read against) add each group's terms one at a time
+    in the kernels' order: bitwise a scalar f32 loop, and within the probes'
+    tolerance of the plain versions."""
+    cs = _chip_smoke()
+    if kind == "rows":
+        x, idx = dma_gather.make_inputs("cpu", n=500, e=1024, f=16)
+        got = cs.rows_in_order(x, idx, 128)
+        plain = dma_gather.gather_rows_plain(x, idx, 128)
+        terms = lambda c, r: [idx[c * 128 + r * 16 + j].item() for j in range(16)]
+    else:
+        x, tidx = dma_tile.make_inputs("cpu", n=512, f=16, e=256, chunk=64, stages=(8,))
+        idx = tidx[8]
+        got = cs.tiles_in_order(x, idx, 64)
+        plain = dma_tile.gather_tiles_plain(x, idx, 64)
+        terms = lambda c, r: [8 * idx[c * 64 + r * 8 + j].item() + i
+                              for j in range(8) for i in range(8)]
+    xf = x.float().numpy()
+    for c, r in ((0, 0), (1, 5), (got.shape[0] - 1, 7)):
+        acc = np.zeros(16, np.float32)
+        for row in terms(c, r):
+            acc = (acc + xf[row]).astype(np.float32)
+        assert np.array_equal(got[c, r].numpy(), acc)
+    _close(got.numpy(), plain.numpy().astype(np.float64))
+
+
+@pytest.mark.parametrize("probe,bad,error", [
+    ("rows", dict(chunk=100), ValueError),            # chunk % 8
+    ("rows", dict(chunk=1024), ValueError),           # E % chunk
+    ("rows", dict(x_dtype=torch.float32), TypeError),
+    ("rows", dict(idx_dtype=torch.int64), TypeError),
+    ("rows", dict(x_shape=(104, 8, 1)), TypeError),
+    ("tiles", dict(chunk=12), ValueError),
+    ("tiles", dict(chunk=1024), ValueError),
+    ("tiles", dict(x_rows=99), TypeError),           # N % 8
+    ("tiles", dict(idx_dtype=torch.int64), TypeError),
+    ("tiles", dict(x_dtype=torch.float32), TypeError),
+])
+def test_gather_wrappers_refuse_what_the_kernels_cannot_take(probe, bad, error):
+    """The refusals each wrapper makes before it picks the kernel or the
+    plain version, on CPU tensors as on the card."""
+    x, idx = dma_gather.make_inputs("cpu", n=104, e=512, f=8)
+    if "x_rows" in bad:
+        x = x[:bad["x_rows"]]
+    if "x_dtype" in bad:
+        x = x.to(bad["x_dtype"])
+    if "x_shape" in bad:
+        x = x.reshape(bad["x_shape"])
+    if "idx_dtype" in bad:
+        idx = idx.to(bad["idx_dtype"])
+    chunk = bad.get("chunk", 64)
+    with pytest.raises(error):
+        if probe == "rows":
+            dma_gather.gather_rows(x, idx, chunk=chunk)
+        else:
+            dma_tile.gather_tiles(x, idx % 13, chunk=chunk)
+
+
 def test_probe_wrappers_reject_what_their_kernels_cannot_take():
     x, idx = dma_gather.make_inputs("cpu", n=100, e=512, f=8)
     with pytest.raises(ValueError):
