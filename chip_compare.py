@@ -23,6 +23,8 @@ in the same call as the change.
     python3 chip_compare.py q8-f32-apply ROOT [ROOT ...] [--only q8|f32]
     python3 chip_compare.py reduce ROOT [ROOT ...]
     python3 chip_compare.py probes ROOT [ROOT ...]
+    python3 chip_compare.py slab ROOT [ROOT ...]
+    python3 chip_compare.py reuse
 
 ROOT holds ``chip_smoke.py`` and ``sgformer_tpu_torch/`` of that checkout
 (for example ``git archive <commit> chip_smoke.py sgformer_tpu_torch``
@@ -263,6 +265,30 @@ whether each digest is the same in every turn, and fails unless every turn
 is within tolerance and repeatable (Step 0 of a redesign runs it on copies
 of the parent with one part changed each, whose digests may differ by
 design).
+``slab``: the ``slab_variant`` probe and ``csr_spmm``'s walk, of the ROOTs
+and of this checkout, each turn a process of its own (``python3
+chip_compare.py turn slab ROOT``, from ``TURNS``), in turns ROOT1 ... ROOTk,
+this checkout, this checkout, ROOTk ... ROOT1. A turn prints the registers,
+stack and local bytes of ``csr_spmm_kernel``'s and the probe's instances
+(``cuobjdump --dump-resource-usage``) and digests of ``csr_spmm_kernel``'s
+SASS (``cuobjdump -sass``), each by its name without the anonymous
+namespace's hash; on synth-arxiv at F = 256 (x from
+``slab_variants.make_x``) each of the probe's three modes in the walk order
+(where ROOT's wrapper takes one) and in node order: CUDA-event ms (median
+of 20), its error over ``REL_TOL``, bitwise repeatability, the two orders
+bitwise equal, prod bitwise
+``csr_spmm`` of the f32 x, sha256 digests of the outputs; ``csr_spmm`` bf16
+timed in both orders, and its outputs of the bf16 and the f32 x digested
+in both orders. The mode prints each turn's JSON line, then the turns side
+by side, whether each digest, ``csr_spmm_kernel``'s resources and its SASS
+are the same in every turn, and fails unless every turn passes its checks
+and ``csr_spmm``'s digests are the same in every turn (~1 min a turn).
+``reuse`` (no ROOT; on the CPU, no card): this checkout's
+``preprocess_graph`` of synth-arxiv, and for windows of 64, 256, 1,024 and
+8,448 consecutive rows of the walk order and of node order, the edges the
+windows gather over the distinct source rows among them, the distinct rows
+a window and their bytes, and the share of the gathered rows that staging
+each window's distinct rows once would save (~10 s).
 """
 
 from __future__ import annotations
@@ -291,7 +317,9 @@ def main() -> int:
              "schedule-turn", "designs", "designs-turn", "q8-f32-apply", "q8-f32-apply-turn",
              "rows", "rows-turn", "bf16-passes", "bf16-passes-turn", "bf16-apply",
              "bf16-apply-turn", "bf16-apply-trace", "bf16-apply-trace-turn",
-             "reduce", "reduce-turn", "probes", "turn")
+             "reduce", "reduce-turn", "probes", "slab", "reuse", "turn")
+    if sys.argv[1:] == ["reuse"]:
+        return reuse()
     only = None
     if len(sys.argv) > 4 and sys.argv[1].startswith("q8-f32-apply") and sys.argv[-2] == "--only":
         only = sys.argv[-1]
@@ -300,7 +328,8 @@ def main() -> int:
             or len(sys.argv) == 4 and sys.argv[1] in ("gat-repeat", "turn")
             or len(sys.argv) > 3 and sys.argv[1] in ("designs", "q8-f32-apply", "reduce",
                                                      "tf32-bwd", "bf16-bwd", "rows",
-                                                     "bf16-passes", "bf16-apply", "probes")) \
+                                                     "bf16-passes", "bf16-apply", "probes",
+                                                     "slab")) \
             or sys.argv[1] not in modes or sys.argv[1] == "turn" and sys.argv[2] not in TURNS:
         print(__doc__, file=sys.stderr)
         return 2
@@ -326,6 +355,8 @@ def main() -> int:
         return reduce([os.path.abspath(r) for r in sys.argv[2:]])
     if mode == "probes":
         return probes([os.path.abspath(r) for r in sys.argv[2:]])
+    if mode == "slab":
+        return slab([os.path.abspath(r) for r in sys.argv[2:]])
     sys.path.insert(0, root)
     import torch
 
@@ -2170,9 +2201,202 @@ def probes_turn(cs, root: str) -> int:
     return 0
 
 
+def kernel_key(name: str) -> str:
+    """A mangled kernel name without its anonymous namespace's hash, which
+    differs from one build to the next."""
+    import re
+
+    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "(anon)", name)
+
+
+def resource_usage(library: str, mark: str) -> dict:
+    """Registers, stack bytes and local bytes of each kernel whose name
+    holds ``mark``, in ``cuobjdump --dump-resource-usage`` of the built
+    ``library``, by :func:`kernel_key`."""
+    import re
+
+    from sgformer_tpu_torch.kernels import _build
+
+    text = subprocess_out(["cuobjdump", "--dump-resource-usage", _build._target(library)[1]])
+    return {kernel_key(func): dict(registers=int(reg), stack=int(stack), local=int(local))
+            for func, reg, stack, local in re.findall(
+                r"Function (\S+?):?\s*\n\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", text)
+            if mark in func}
+
+
+def sass_digests(library: str, mark: str) -> dict:
+    """sha256 (16 hex digits) of each kernel's SASS whose name holds
+    ``mark``, in ``cuobjdump -sass`` of the built ``library``: the
+    instructions alone (addresses and encodings dropped, branch labels
+    numbered within the kernel), so a kernel compiled to the same code
+    gives the same digest in any library; by :func:`kernel_key`."""
+    import hashlib
+    import re
+
+    from sgformer_tpu_torch.kernels import _build
+
+    sass = subprocess_out(["cuobjdump", "-sass", _build._target(library)[1]])
+    out = {}
+    for func, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        if mark not in func:
+            continue
+        body = re.sub(r"/\*.*?\*/", "", body)
+        labels = {}
+        body = re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(m.group(0), f"L{len(labels)}"),
+                      body)
+        lines = [" ".join(line.split()) for line in body.splitlines() if line.strip()]
+        out[kernel_key(func)] = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+    return out
+
+
+def slab(roots: list) -> int:
+    """The ``slab`` mode: the turns ROOT1 ... ROOTk, this checkout, this
+    checkout, ROOTk ... ROOT1, each ``slab_turn`` in a process of its own,
+    then the turns side by side; fails unless every turn is within
+    tolerance, repeatable and bitwise the same in both orders, and
+    ``csr_spmm``'s digests are the same in every turn."""
+    import json
+
+    order = roots + [HERE, HERE] + roots[::-1]
+    turns = run_turns("slab", roots[0], order)
+    if turns is None:
+        return 1
+    side = {f"turn {i} ({t['root']})": dict(ms=t["ms"], csr_spmm_ms=t["csr_spmm_ms"])
+            for i, t in enumerate(turns)}
+    same = {key: len({t["digests"].get(key) for t in turns}) == 1
+            for key in turns[0]["digests"]}
+    resources = {name: sorted({json.dumps(t["resources"].get(name)) for t in turns})
+                 for name in turns[0]["resources"] if "csr_spmm_kernel" in name}
+    sass = {name: len({t["sass"].get(name) for t in turns}) == 1
+            for name in turns[0]["sass"]}
+    spmm_same = all(v for k, v in same.items() if k.startswith("csr_spmm"))
+    print(json.dumps({"slab_turns": side, "ok": {t["root"]: t["ok"] for t in turns},
+                      "digests_equal_in_every_turn": same,
+                      "csr_spmm_resources_in_every_turn": resources,
+                      "csr_spmm_sass_equal_in_every_turn": sass}), flush=True)
+    return 0 if all(t["ok"] for t in turns) and spmm_same else 1
+
+
+def slab_turn(cs, root: str) -> int:
+    """One turn of the ``slab`` mode on ROOT's package; its last line of
+    output is a JSON object of its numbers: the registers, stack and local
+    bytes of the probe's and ``csr_spmm``'s row-walk kernels (``cuobjdump
+    --dump-resource-usage``) and digests of ``csr_spmm_kernel``'s SASS; on
+    synth-arxiv at F = 256 with x from ``slab_variants.make_x``, each of
+    the probe's modes in the walk order
+    (where ROOT's ``slab_variant`` takes one) and in node order: its
+    CUDA-event ms (median of 20), its error against the plain version over
+    ``REL_TOL``, whether it is bitwise repeatable and the same in both
+    orders, prod bitwise ``csr_spmm`` of the f32 x, and a digest of its
+    output; ``csr_spmm`` bf16 in both orders timed, and its outputs of the
+    bf16 and the f32 x in both orders digested."""
+    import inspect
+    import json
+
+    import torch
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+    from sgformer_tpu_torch.kernels import _build
+    from sgformer_tpu_torch.kernels.spmm import csr_spmm
+    from sgformer_tpu_torch.microbench import slab_variants as sv
+
+    _build.build_all(("spmm", "microbench"))
+    out = dict(root=root, resources={**resource_usage("spmm", "csr_spmm_kernel"),
+                                     **resource_usage("microbench", "slab_variant")},
+               sass=sass_digests("spmm", "csr_spmm_kernel"), ms={}, csr_spmm_ms={}, digests={},
+               errors={}, ok=True)
+    for name, r in out["resources"].items():
+        cs.log(f"slab {root} {name}: {r}")
+    ds = synthetic_dataset("synth-arxiv", seed=0)
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, chunk_dtype="bf16")
+    x = sv.make_x(graph.num_nodes, "cuda")
+    csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    plan = (graph.hub_segments, graph.hub_edges)
+    orders = {"node": None}
+    if "schedule" in inspect.signature(sv.slab_variant).parameters:
+        orders = {"walk": graph.schedule, "node": None}
+    for mode in sv.MODES:
+        plain = sv.slab_variant_plain(x, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode)
+        outs = {}
+        for order, schedule in orders.items():
+            kw = {"schedule": schedule} if schedule is not None else {}
+            got = sv.slab_variant(x, *csr, mode, **kw)
+            err, scale = cs.rel_err(got, plain)
+            key = f"{mode} {order}"
+            out["errors"][key] = err / scale / sv.REL_TOL
+            out["digests"][key] = digest([got])
+            checks = dict(repeatable=torch.equal(got, sv.slab_variant(x, *csr, mode, **kw)))
+            if mode == "prod":
+                checks["csr_spmm"] = torch.equal(got, csr_spmm(x.float(), *csr, *plan, **kw))
+            out["ms"][key] = cs.time_ms(lambda: sv.slab_variant(x, *csr, mode, **kw))
+            if not (out["errors"][key] <= 1.0 and all(checks.values())):
+                out["ok"] = False
+            cs.log(f"slab {root} {key}: {out['ms'][key]:.4f} ms, error "
+                   f"{out['errors'][key]:.3f} of the tolerance, {checks}, sha256 "
+                   f"{out['digests'][key]}")
+            outs[order] = got
+        if len(outs) == 2 and not torch.equal(outs["walk"], outs["node"]):
+            out["ok"] = False
+            cs.log(f"slab {root} {mode}: the two orders differ")
+        del outs, plain
+    for order, schedule in (("walk", graph.schedule), ("node", None)):
+        for name, xi in (("bf16", x), ("f32", x.float())):
+            key = f"csr_spmm {name} {order}"
+            out["digests"][key] = digest([csr_spmm(xi, *csr, *plan, schedule=schedule)])
+        out["csr_spmm_ms"][order] = cs.time_ms(lambda: csr_spmm(x, *csr, *plan,
+                                                                schedule=schedule))
+        cs.log(f"slab {root} csr_spmm bf16 F = 256 {order} order: "
+               f"{out['csr_spmm_ms'][order]:.4f} ms")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# the row windows of the reuse table: one SM's 64 warps, 256 and 1,024
+# rows, and the warps the H100 holds at once (132 SMs x 64 warps)
+REUSE_WINDOWS = (64, 256, 1024, 132 * 64)
+
+
+def reuse() -> int:
+    """The ``reuse`` mode, on the CPU: the port's ``preprocess_graph`` of
+    synth-arxiv; for windows of consecutive positions of the walk order and
+    of node order, the rows the windows gather (their edges) over the
+    distinct source rows among them, the mean distinct rows a window and
+    their bf16 bytes at F = 256, and the share of the gathered rows that a
+    window's distinct rows staged once would save."""
+    import json
+
+    import numpy as np
+
+    from sgformer_tpu_torch import preprocess_graph
+    from sgformer_tpu_torch.data import synthetic_dataset
+
+    ds = synthetic_dataset("synth-arxiv", seed=0, device="cpu")
+    graph = preprocess_graph(ds.graph["edge_index"], ds.num_nodes, device="cpu")
+    n, e = graph.num_nodes, graph.num_edges
+    src, dst = graph.edge_src.numpy().astype(np.int64), graph.edge_dst.numpy().astype(np.int64)
+    table = {}
+    for order, rows in (("walk", graph.schedule.numpy()), ("node", np.arange(n))):
+        position = np.empty(n, np.int64)
+        position[rows] = np.arange(n)
+        for w in REUSE_WINDOWS:
+            window = position[dst] // w
+            distinct = np.unique(window * n + src).size
+            table[f"{order} {w}"] = dict(
+                edges_over_distinct=e / distinct, distinct_a_window=distinct / -(-n // w),
+                mb_a_window=distinct / -(-n // w) * 256 * 2 / 1e6,
+                staging_saves=1 - distinct / e)
+            print(f"reuse {order} order, windows of {w} rows: edges / distinct sources "
+                  f"{e / distinct:.3f}, {distinct / -(-n // w):.0f} distinct rows a window "
+                  f"({distinct / -(-n // w) * 512 / 1e6:.3f} MB bf16 at F = 256), staging "
+                  f"them saves {1 - distinct / e:.3f} of the gathered rows", flush=True)
+    print(json.dumps({"n": n, "e": e, "reuse": table}), flush=True)
+    return 0
+
+
 # the turns run by ``run_turns`` through ``python3 chip_compare.py turn MODE
 # ROOT``, by mode
-TURNS = {"probes": probes_turn}
+TURNS = {"probes": probes_turn, "slab": slab_turn}
 
 
 def digest(outs) -> str:

@@ -151,16 +151,21 @@ JAX package. Phases, each failing loudly:
    BatchNorm statistics), each batch's build and step ms, a streaming
    sweep's wall time and a profile of three batches with their sampling;
 14. the timing probes (``sgformer_tpu_torch.microbench``): each kernel
-   against its plain version (``slab_variant``'s prod bitwise ``csr_spmm``;
-   ``gather_rows`` and ``gather_tiles`` at every S of their runs, each
-   bitwise repeatable and bitwise its replaced kernel's output,
-   ``PROBE_DIGESTS``), then each probe's own run, whose launches are
-   counted, each gather kernel's time beside its design. Their launches
-   share one count with every other kernel's, so each path's launch check
+   against its plain version (``slab_variant``'s three modes in the walk
+   order and in node order, prod bitwise ``csr_spmm`` in the same order,
+   static_sub and no_src_matmul bitwise repeatable and bitwise the replaced
+   kernel's output; ``gather_rows`` and ``gather_tiles`` at every S of
+   their runs, each bitwise repeatable and bitwise its replaced kernel's
+   output; ``PROBE_DIGESTS``), then each probe's own run, whose launches
+   are counted (``slab_variant``'s modes in the walk order, then in node
+   order), each gather kernel's time beside its design, the probe's gather
+   share of prod in each order beside ``csr_spmm`` in that order. Their
+   launches share one count with every other kernel's, so each path's launch check
    also shows that no path of 5, 6, 8, 9, 11, 12, 13, 15, 16, 17 and 18 launched a probe;
    then K3's case: ``gather_rows`` on the rows ``csr_spmm`` gathers on the
    arxiv graph, in its walk order and in node order, beside ``csr_spmm``
-   bf16 at F = 256 in each order and ``slab_variant``'s no_src_matmul;
+   bf16 at F = 256 in each order and ``slab_variant``'s no_src_matmul in
+   the walk order;
    the gather rates of 8, 10 and 7 beside the ``gather_rows`` probe's;
 15. the CLI (after 13, before 14): ``sgformer_tpu_torch.cli.main.main`` on
    the repo's recipes, their flags read verbatim from the port's recipe
@@ -311,14 +316,18 @@ TRAIN_GRAD_RTOL = 2e-2
 TRAIN_EPOCHS, TRAIN_WARMUP = 20, 3
 # the timing probes' kernels: no model path launches them
 PROBES = ("gather_rows", "gather_tiles", "slab_variant")
-# sha256 (16 hex digits) of the gather probes' outputs at the probes' own
-# sizes (dma_gather.make_inputs, dma_tile.make_inputs: host-made) from the
-# kernels the persistent ones replaced (one block a chunk or a step), by
-# (kernel, S); both keep each group's order of terms, so the outputs stay
-# bitwise the same
+# sha256 (16 hex digits) of the probes' outputs from the kernels they
+# replaced: the gather probes' at their own sizes (dma_gather.make_inputs,
+# dma_tile.make_inputs: host-made) from one block a chunk or a step, by
+# (kernel, S); slab_variant's static_sub and no_src_matmul on the arxiv
+# graph at F = 256 (slab_variants.make_x: host-made) from its own copy of
+# the row walk in node order, by (kernel, mode). Each keeps its order of
+# terms, so the outputs stay bitwise the same
 PROBE_DIGESTS = {("gather_rows", 4): "0637cfba966424c1", ("gather_rows", 8): "0637cfba966424c1",
                  ("gather_rows", 16): "0637cfba966424c1", ("gather_rows", 32): "0637cfba966424c1",
-                 ("gather_tiles", 8): "ee9d6f038ab452cb", ("gather_tiles", 32): "8f92d192ff3fba5c"}
+                 ("gather_tiles", 8): "ee9d6f038ab452cb", ("gather_tiles", 32): "8f92d192ff3fba5c",
+                 ("slab_variant", "static_sub"): "32fab68794284e2e",
+                 ("slab_variant", "no_src_matmul"): "16d18c15314cbd60"}
 # launches of one train step of the bench model (3 GraphConv layers)
 STEP_LAUNCHES = {"csr_spmm": 6, "linear_attention_reduce": 1,
                  "linear_attention_apply": 1, "linear_attention_bwd_reduce": 1,
@@ -3292,15 +3301,18 @@ def check_probe(name: str, kernel, plain, rel_tol: float, digest: str) -> float:
 
 
 def probe_phase(graph, results: dict, dev: str) -> dict:
-    """The timing probes: each kernel at every S of its run against its
-    plain version, bitwise repeatable and bitwise the replaced kernel's
-    output (``PROBE_DIGESTS``; these launches are not counted), then each
-    probe's own run from counts of 0 (dma_gather at every S, dma_tile at S
-    = 8 and 32, slab_variants' three modes on the arxiv graph), each gather
-    kernel's time beside its design; then K3's case: ``gather_rows`` on the
-    rows ``csr_spmm`` gathers on the arxiv graph, in its walk order and in
-    node order (``csr_gather_stream``), beside ``csr_spmm`` bf16 at F = 256
-    in each order and ``slab_variant``'s no_src_matmul. Returns the run's
+    """The timing probes: each gather kernel at every S of its run and
+    each of ``slab_variant``'s modes in the walk order and in node order
+    against its plain version, bitwise repeatable and bitwise the replaced
+    kernel's output (``PROBE_DIGESTS``; prod instead bitwise ``csr_spmm`` in
+    the same order; these launches are not counted), then each probe's own
+    run from counts of 0 (dma_gather at every S, dma_tile at S = 8 and 32,
+    slab_variants' three modes on the arxiv graph in the walk order and in
+    node order), each gather kernel's time beside its design; then K3's
+    case: ``gather_rows`` on the rows ``csr_spmm`` gathers on the arxiv
+    graph, in its walk order and in node order (``csr_gather_stream``),
+    beside ``csr_spmm`` bf16 at F = 256 in each order and
+    ``slab_variant``'s no_src_matmul in the walk order. Returns the run's
     launch counts."""
     from sgformer_tpu_torch import kernels
     from sgformer_tpu_torch.kernels.spmm import csr_spmm
@@ -3320,22 +3332,37 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
                  for s in dma_tile.STAGES}
     xs = slab_variants.make_x(graph.num_nodes, dev)
     csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    plan = (graph.hub_segments, graph.hub_edges)
+    orders = (("walk", graph.schedule), ("node", None))
     err_modes = {}
     for mode in slab_variants.MODES:
-        got = slab_variants.slab_variant(xs, *csr, mode)
-        err_modes[mode] = check_rel(f"slab_variant {mode}", got, slab_variants.slab_variant_plain(
-            xs, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode), slab_variants.REL_TOL)
-        if mode == "prod" and not torch.equal(got, csr_spmm(xs.float(), *csr, graph.hub_segments,
-                                                            graph.hub_edges)):
-            raise AssertionError("slab_variant prod is not bitwise csr_spmm")
-        del got
-    log("slab_variant prod: bitwise csr_spmm of the same x")
+        plain = slab_variants.slab_variant_plain(xs, graph.edge_src, graph.edge_dst,
+                                                 graph.gcn_weight, mode)
+        for order, schedule in orders:
+            name = f"slab_variant {mode} ({order} order)"
+
+            def kernel(schedule=schedule):
+                return slab_variants.slab_variant(xs, *csr, mode, schedule)
+
+            if mode == "prod":
+                got = kernel()
+                err_modes[mode, order] = check_rel(name, got, plain, slab_variants.REL_TOL)
+                if not torch.equal(got, csr_spmm(xs.float(), *csr, *plan, schedule=schedule)):
+                    raise AssertionError(f"{name} is not bitwise csr_spmm in that order")
+                log(f"{name}: bitwise csr_spmm of the same x in the same order")
+                del got
+            else:
+                err_modes[mode, order] = check_probe(name, kernel, lambda: plain,
+                                                     slab_variants.REL_TOL,
+                                                     PROBE_DIGESTS["slab_variant", mode])
+        del plain
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
     rows = {s: dma_gather.run(x, idx, stages=s) for s in dma_gather.STAGES}
     tiles = {s: dma_tile.run(xt, tidx[s], stages=s) for s in dma_tile.STAGES}
     modes = slab_variants.run(graph, xs)
+    node_modes = slab_variants.run(graph, xs, walk=False)
     counts = kernels.launch_counts()
     log(f"launches over the probes' runs: {counts}")
     if not all(counts[p] for p in PROBES):
@@ -3362,12 +3389,17 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
                                     size=(graph.num_nodes, graph.num_nodes))
     library_ms = library_time("torch.sparse.mm bf16 (slab_variant prod)",
                               lambda: torch.sparse.mm(a, xs))
-    spmm_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments, graph.hub_edges))
+    spmm_ms = {order: time_ms(lambda: csr_spmm(xs, *csr, *plan, schedule=schedule))
+               for order, schedule in orders}
     for mode, r in modes.items():
-        log(f"slab_variant {mode}: {r['ms']:.4f} ms, {r['ns_per_edge']:.5f} ns/edge "
-            f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
-    log(f"slab_variant beside: csr_spmm bf16 {spmm_ms:.4f} ms, torch.sparse.mm {library_ms} ms; "
-        f"gather share of prod {1 - modes['no_src_matmul']['ms'] / modes['prod']['ms']:.3f}")
+        log(f"slab_variant {mode}: walk order {r['ms']:.4f} ms, {r['ns_per_edge']:.5f} ns/edge "
+            f"(node order {node_modes[mode]['ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']})")
+    share = {order: 1 - m["no_src_matmul"]["ms"] / m["prod"]["ms"]
+             for order, m in (("walk", modes), ("node", node_modes))}
+    log(f"slab_variant beside: csr_spmm bf16 in the walk order {spmm_ms['walk']:.4f} ms (node "
+        f"order {spmm_ms['node']:.4f} ms), torch.sparse.mm {library_ms} ms; gather share of prod "
+        f"in the walk order {share['walk']:.3f} (node order {share['node']:.3f})")
 
     # K3: the probe on csr_spmm's own gather stream, each order beside
     # csr_spmm bf16 at F = 256 walking in that order
@@ -3375,8 +3407,7 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
     for order, walk in (("walk", True), ("node", False)):
         ids, cut = csr_gather_stream(graph, dma_gather.C, walk)
         ms = time_ms(lambda: dma_gather.gather_rows(xs, ids))
-        spmm_order_ms = time_ms(lambda: csr_spmm(xs, *csr, graph.hub_segments, graph.hub_edges,
-                                                 schedule=graph.schedule if walk else None))
+        spmm_order_ms = spmm_ms[order]
         rate, gb = ids.numel() / ms / 1e6, ids.numel() * xs.shape[1] * 2 / ms / 1e6
         k3.update({f"k3_{order}_order_ms": ms, f"k3_{order}_order_grows_per_s": rate,
                    f"k3_{order}_order_gb_per_s": gb,
@@ -3385,8 +3416,8 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
             f"{ids.numel()} rows of the graph's {graph.num_edges} edges ({cut} cut to a multiple "
             f"of C = {dma_gather.C}): {ms:.4f} ms, {rate:.3f} G rows/s, {gb:.1f} GB/s; beside "
             f"csr_spmm bf16 F = {xs.shape[1]} in {order} order {spmm_order_ms:.4f} ms and "
-            f"slab_variant no_src_matmul {modes['no_src_matmul']['ms']:.4f} ms (the walk with "
-            f"no gathers)")
+            f"slab_variant no_src_matmul in the walk order {modes['no_src_matmul']['ms']:.4f} ms "
+            f"(the walk with no gathers)")
         del ids
 
     main_rows, main_tiles = rows[dma_gather.S], tiles[8]
@@ -3405,11 +3436,16 @@ def probe_phase(graph, results: dict, dev: str) -> dict:
         s32_design=tiles_design[32])
     prod = modes["prod"]
     results["slab_variant"] = dict(
-        max_abs_err=err_modes["prod"], ms=prod["ms"], plain_ms=prod["plain_ms"],
+        max_abs_err=err_modes["prod", "walk"], ms=prod["ms"], plain_ms=prod["plain_ms"],
         bound_ms=prod["bound_ms"], bound_by=prod["bound_by"], library_ms=library_ms,
-        ns_per_edge=prod["ns_per_edge"], csr_spmm_ms=spmm_ms,
+        ns_per_edge=prod["ns_per_edge"], csr_spmm_ms=spmm_ms["walk"],
+        node_order_ms=node_modes["prod"]["ms"], node_order_csr_spmm_ms=spmm_ms["node"],
+        gather_share=share["walk"], node_order_gather_share=share["node"],
         **{f"{m}_{k}": modes[m][k] for m in ("static_sub", "no_src_matmul")
-           for k in ("ms", "plain_ms", "bound_ms", "ns_per_edge")})
+           for k in ("ms", "plain_ms", "bound_ms", "ns_per_edge")},
+        **{f"{m}_node_order_ms": node_modes[m]["ms"] for m in ("static_sub", "no_src_matmul")},
+        **{f"{m}_{order}_order_max_abs_err": err for (m, order), err in err_modes.items()
+           if (m, order) != ("prod", "walk")})
     del x, idx, xt, tidx, xs, a
     torch.cuda.empty_cache()
     return counts

@@ -49,27 +49,37 @@
 //   where one block an SM leaves one issuing thread an SM; with each warp
 //   refilling its own slots S = 32 runs as fast as S = 8.
 //
-//   slab_variant (scripts/microbench_slab_variants.py, make_variant): the
-//   CSR row kernel of csrc/spmm.cu (one warp per destination row, edge ids
-//   and weights read 32 at a time and shuffled, 8 columns a lane with
-//   16-byte loads, f32 sums) in three modes that split csr_spmm's time:
+//   slab_variant (scripts/microbench_slab_variants.py, make_variant):
+//   csr_spmm's own row walk of the whole warp (spmm_walk.cuh: one warp per
+//   destination row, edge ids and weights read 32 at a time and shuffled, 8
+//   columns a lane with 16-byte loads, f32 sums, held to 32 registers) in
+//   three modes that split csr_spmm's time, each an fmaf chain in edge order
+//   from 0 for each column:
 //     prod           out[i] = sum_e w_e * x[src_e]            (= csr_spmm)
 //     static_sub     out[i] = sum_e w_e * x[src_e % 128]      (128 = the TPU's
 //                    block_rows; wrong results, timing only: the gather hits
 //                    the same 128 rows, which stay in L1/L2)
 //     no_src_matmul  out[i] = sum_e (1.0001 * w_e) * x[i]     (no gather: the
 //                    row walk alone; the edge ids are still read)
-//   Output f32, as the TPU variants write.
+//   Output f32, as the TPU variants write. The rows are walked in the
+//   graph's walk order where the caller gives it, as csr_spmm walks them, so
+//   the warps in flight gather from one cluster's rows, which L2 holds;
+//   the result is the same in any order. Every row takes one warp: on a
+//   graph with rows of more than HUB_EDGES edges, which csr_spmm splits
+//   into segments, prod is csr_spmm's sum in another order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
+#include "spmm_walk.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using rw::kFull;
 
 __device__ __forceinline__ void add8(const uint4& raw, float (&acc)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -78,16 +88,6 @@ __device__ __forceinline__ void add8(const uint4& raw, float (&acc)[8]) {
     const float2 f = __bfloat1622float2(h[i]);
     acc[2 * i] += f.x;
     acc[2 * i + 1] += f.y;
-  }
-}
-
-__device__ __forceinline__ void cvt8(const uint4& raw, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
   }
 }
 
@@ -303,62 +303,37 @@ gather_tiles_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__
 
 // ---------------------------------------------------------------- slab_variant
 
-enum Mode { kProd = 0, kStaticSub = 1, kNoSrc = 2 };
-
-constexpr int kWarpsPerBlock = 8;
-
 // x: [N, F] bf16 with F % 8 == 0 and 16-byte aligned rows; out: [N, F] f32.
-// The prod mode is csr_spmm_kernel<bf16, f32, true, 32> of csrc/spmm.cu
-// (the whole warp a row, which csr_spmm takes above 128 columns) with one
-// head, operation for operation.
-template <int kMode>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Position p of the whole warp's walk of spmm_walk.cuh (csr_spmm's walk of a
+// head wider than 128 columns, at its launch bounds), its edges read as
+// kSrc says; every row walked by one warp, hub rows too. Row schedule[p] in
+// the walk order (kOrdered), else row p.
+template <rw::Source kSrc, bool kOrdered>
+__global__ void __launch_bounds__(rw::kWarpsPerBlock * 32,
+                                  rw::kWholeWarpBlocks<__nv_bfloat16>)
 slab_variant_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                     const float* __restrict__ w, const __nv_bfloat16* __restrict__ x,
-                    float* __restrict__ out, int n_rows, int F) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
-  for (int c0 = 0; c0 < F; c0 += 256) {
-    const int c = c0 + lane * 8;
-    const bool active = c < F;
-    float acc[8] = {};
-    float own[8] = {};  // no_src_matmul: the destination's own row
-    if (kMode == kNoSrc && active) {
-      cvt8(__ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * F + c)), own);
-    }
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int s = 0;
-      float we = 0.f;
-      if (e < end) {
-        s = __ldg(src + e);
-        we = __ldg(w + e);
-      }
-      const int cnt = min(32, end - e0);
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        int sj = __shfl_sync(kFull, s, j);
-        float wj = __shfl_sync(kFull, we, j);
-        if (!active) continue;
-        if (kMode == kNoSrc) {
-          if (sj < 0) wj = 0.f;  // keeps the edge-id read: the row walk is what is timed
-          const float wm = __fmul_rn(1.0001f, wj);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(wm, own[i], acc[i]);
-        } else {
-          if (kMode == kStaticSub) sj &= 127;
-          float xv[8];
-          cvt8(__ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(sj) * F + c)), xv);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(wj, xv[i], acc[i]);
-        }
-      }
-    }
-    if (active) store8(out + static_cast<size_t>(row) * F + c, acc);
+                    float* __restrict__ out, int n_rows, int F,
+                    const int* __restrict__ schedule) {
+  rw::walk_position<kSrc, __nv_bfloat16, float, true, kOrdered>(
+      blockIdx.x * rw::kWarpsPerBlock + (threadIdx.x >> 5), 0, n_rows, indptr, schedule, src, w,
+      x, out, INT_MAX, 1, F);
+}
+
+template <rw::Source kSrc>
+int launch_slab_variant(const int* indptr, const int* src, const float* w,
+                        const __nv_bfloat16* x, float* out, int n_rows, int F,
+                        const int* schedule, cudaStream_t st) {
+  const dim3 grid((n_rows + rw::kWarpsPerBlock - 1) / rw::kWarpsPerBlock);
+  const dim3 block(rw::kWarpsPerBlock * 32);
+  if (schedule != nullptr) {
+    slab_variant_kernel<kSrc, true><<<grid, block, 0, st>>>(indptr, src, w, x, out, n_rows, F,
+                                                            schedule);
+  } else {
+    slab_variant_kernel<kSrc, false><<<grid, block, 0, st>>>(indptr, src, w, x, out, n_rows,
+                                                             F, schedule);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int S>
@@ -485,30 +460,27 @@ extern "C" int sgf_gather_tiles_resident(int F, int S) {
 }
 
 // indptr [N+1], src [E] int32, w [E] f32, x [N, F] bf16 (F % 8 == 0, aligned),
-// out [N, F] f32; mode 0 prod, 1 static_sub, 2 no_src_matmul.
+// out [N, F] f32; mode 0 prod, 1 static_sub, 2 no_src_matmul; schedule: the
+// walk order, [N] int32, a permutation of the rows (null: row order); the
+// result does not depend on it.
 extern "C" int sgf_slab_variant(const void* indptr, const void* src, const void* w,
                                 const void* x, void* out, int n_rows, int F, int mode,
-                                void* stream) {
+                                const void* schedule, void* stream) {
   const int* ip = static_cast<const int*>(indptr);
   const int* sp = static_cast<const int*>(src);
   const float* wp = static_cast<const float*>(w);
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
   float* op = static_cast<float*>(out);
+  const int* so = static_cast<const int*>(schedule);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
   switch (mode) {
-    case kProd:
-      slab_variant_kernel<kProd><<<grid, block, 0, st>>>(ip, sp, wp, xp, op, n_rows, F);
-      break;
-    case kStaticSub:
-      slab_variant_kernel<kStaticSub><<<grid, block, 0, st>>>(ip, sp, wp, xp, op, n_rows, F);
-      break;
-    case kNoSrc:
-      slab_variant_kernel<kNoSrc><<<grid, block, 0, st>>>(ip, sp, wp, xp, op, n_rows, F);
-      break;
+    case 0:
+      return launch_slab_variant<rw::Source::kGather>(ip, sp, wp, xp, op, n_rows, F, so, st);
+    case 1:
+      return launch_slab_variant<rw::Source::kStaticSub>(ip, sp, wp, xp, op, n_rows, F, so, st);
+    case 2:
+      return launch_slab_variant<rw::Source::kOwnRow>(ip, sp, wp, xp, op, n_rows, F, so, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -38,25 +38,9 @@
 // these simple kernels really pay is the per-edge gather of a source row: E
 // rows of F elements, which L2 serves only in part.
 //
-// Design: one warp per destination row (in-degree is at most 33 on the
-// arxiv graph, mean 14.8), a loop over the heads inside it. The row's edge
-// ids and values are read 32 at a time, one per lane, and broadcast with
-// shuffles. The sum is kept in f32 registers and rounded once on the store;
-// the messages may be bf16 with an f32 result (GAT's bf16 messages). What
-// bounds the walk is the gathered rows (one row of a head per edge and
-// head) at the card's gather rate, the gather_rows probe's 3.7 TB/s of
-// random rows, not the read-once bytes. A head wider than 128 columns on
-// the 16-byte path (D % 8 == 0 and aligned rows: the GCN at F = 256, GAT's
-// first layer) takes the whole warp: each lane owns 8 columns and loads
-// them with one 16-byte load (bf16) or two (f32), so a warp reads 256
-// columns of a source row in one coalesced pass, edge after edge; at F =
-// 256 that reads 1.28 GB of rows, in 0.3432 ms (3.7 TB/s) in node order
-// and in 0.2024 ms (6.3 TB/s, L2 serving most rows) in the walk order
-// below. Each head's pass
-// walks the row's edges again, its ids and values then in L1: a warp that
-// read them once and kept both of GAT's 256-column heads in registers took
-// 1.04 ms against this walk's 0.90 at GAT's first layer on the H100 (fewer
-// warps in flight; chip_smoke.py), so the walk per pass stays.
+// Design: one warp per destination row. A head wider than 128 columns, or
+// off the 16-byte path (D % 8 != 0, unaligned rows), takes the whole warp,
+// edge after edge (spmm_walk.cuh: its design and rates).
 //
 // A narrower head left most of that warp idle: at D = 40 (GAT's output
 // layer) 5 of 32 lanes worked while the warp walked the row's edges one
@@ -120,8 +104,9 @@
 // D = 256, f32 x and g, bf16 messages): read once, x and g (347 MB each),
 // dx written (347 MB), v read and dv written (20 MB each) and the edge ids
 // (21 MB), 1.10 GB or 0.33 ms at 3.35 TB/s; gathered, one 1 KB row of g per edge
-// and head, 5.1 GB, which at the gather_rows probe's 3.7 TB/s of random
-// rows takes 1.37 ms: that rate, not the read-once bytes, is what it pays.
+// and head, 5.1 GB, which at the gather_rows probe's random-row rates on
+// the H100 (5.25 TB/s with x in L2, 2.81 TB/s from HBM) takes 0.97-1.8 ms:
+// that rate, not the read-once bytes, is what it pays.
 // The design spends nothing else around the gathers: each lane issues
 // kInFlight gathers before it uses any, keeps a partial dot per edge of a
 // 32-edge batch and folds them once per batch (transpose_fold: 31
@@ -200,104 +185,11 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "spmm_walk.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Eight consecutive elements of a row, moved with 16-byte accesses. The
-// pointer must be 16-byte aligned (the wrappers check the rows' base and
-// width). load is load_raw then unpack; split, a gather in flight holds
-// its raw bytes (4 registers in bf16, 8 in f32).
-template <typename T>
-struct Vec8;
-
-template <>
-struct Vec8<__nv_bfloat16> {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    unpack(load_raw(p), v);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-
-template <>
-struct Vec8<float> {
-  struct Raw {
-    float4 a, b;
-  };
-  static __device__ __forceinline__ Raw load_raw(const float* p) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-    return {__ldg(q), __ldg(q + 1)};
-  }
-  static __device__ __forceinline__ void unpack(const Raw& raw, float (&v)[8]) {
-    v[0] = raw.a.x; v[1] = raw.a.y; v[2] = raw.a.z; v[3] = raw.a.w;
-    v[4] = raw.b.x; v[5] = raw.b.y; v[6] = raw.b.z; v[7] = raw.b.w;
-  }
-  static __device__ __forceinline__ void load(const float* p, float (&v)[8]) {
-    unpack(load_raw(p), v);
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
-// One lane's share of a pass over a head's columns: 8 columns with 16-byte
-// accesses (D % 8 == 0, aligned rows, 256 columns a pass) or one column (any
-// D, 32 columns a pass).
-template <bool kVec8>
-struct Cols {
-  static constexpr int kPerLane = kVec8 ? 8 : 1;
-  static constexpr int kPass = 32 * kPerLane;
-
-  template <typename T>
-  static __device__ __forceinline__ void load(const T* p, float (&v)[kPerLane]) {
-    if constexpr (kVec8) {
-      Vec8<T>::load(p, v);
-    } else {
-      v[0] = to_float(p[0]);
-    }
-  }
-  template <typename T>
-  static __device__ __forceinline__ void store(T* p, const float (&v)[kPerLane]) {
-    if constexpr (kVec8) {
-      Vec8<T>::store(p, v);
-    } else {
-      p[0] = from_float<T>(v[0]);
-    }
-  }
-};
+using namespace rw;
 
 // The lane groups' row walk (csr_spmm_kernel) takes persistent walkers. A
 // walker's shared memory holds the rows and edge ranges of its next
@@ -328,50 +220,6 @@ __device__ __forceinline__ void prefetch_edges(const int* __restrict__ src,
                   : lane < s_lines + v_lines ? v0 + (lane - s_lines) * 128
                                              : nullptr;
   if (p != nullptr) asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
-}
-
-// The sum over edges [begin, end) of v[e, h] * x[src[e], h, :] for every
-// head, written to the F = H*D columns at dst: one pass of Cols' width at a
-// time within a head, each element an fmaf chain in edge order from 0.
-// Every lane runs every loop trip, even past D, because the shuffles need
-// the whole warp.
-template <typename TIn, typename TDst, bool kVec8>
-__device__ __forceinline__ void spmm_edges(const int* __restrict__ src,
-                                           const float* __restrict__ v,
-                                           const TIn* __restrict__ x, TDst* __restrict__ dst,
-                                           int begin, int end, int H, int D) {
-  using C = Cols<kVec8>;
-  const int lane = threadIdx.x & 31;
-  const size_t F = static_cast<size_t>(H) * D;
-  for (int h = 0; h < H; ++h) {
-    for (int c0 = 0; c0 < D; c0 += C::kPass) {
-      const int c = h * D + c0 + lane * C::kPerLane;
-      const bool active = c0 + lane * C::kPerLane < D;
-      float acc[C::kPerLane] = {};
-      for (int e0 = begin; e0 < end; e0 += 32) {
-        const int e = e0 + lane;
-        int s = 0;
-        float we = 0.f;
-        if (e < end) {
-          s = __ldg(src + e);
-          we = __ldg(v + static_cast<size_t>(e) * H + h);
-        }
-        const int cnt = min(32, end - e0);
-#pragma unroll 4
-        for (int j = 0; j < cnt; ++j) {
-          const int sj = __shfl_sync(kFull, s, j);
-          const float wj = __shfl_sync(kFull, we, j);
-          if (active) {
-            float xv[C::kPerLane];
-            C::load(x + static_cast<size_t>(sj) * F + c, xv);
-#pragma unroll
-            for (int i = 0; i < C::kPerLane; ++i) acc[i] = fmaf(wj, xv[i], acc[i]);
-          }
-        }
-      }
-      if (active) C::store(dst + c, acc);
-    }
-  }
 }
 
 // The end of a range of a walk in lane groups: each of this lane's kPer
@@ -463,7 +311,7 @@ __device__ __forceinline__ void spmm_range(const int* __restrict__ src,
                                            const TIn* __restrict__ x, TDst* __restrict__ dst,
                                            int begin, int end, int H, int D) {
   if constexpr (kLanes == 32) {
-    spmm_edges<TIn, TDst, kVec8>(src, v, x, dst, begin, end, H, D);
+    spmm_edges<Source::kGather, TIn, TDst, kVec8>(src, v, x, dst, begin, end, H, D);
   } else {
     static_assert(kVec8, "lane groups take 8 columns a lane");
     spmm_edges_grouped<TIn, TDst, kLanes>(src, v, x, dst, begin, end, H, D);
@@ -478,14 +326,11 @@ __device__ __forceinline__ void spmm_range(const int* __restrict__ src,
 // together, so the warps in flight gather from rows that L2 holds.
 //
 // The whole warp's walk (kLanes = 32: heads wider than 128 columns, or off
-// the 16-byte path) takes a warp a hub segment, then warp n_seg + p takes
-// position p: the gathers of 1 KB rows keep it busy, and the hardware's
-// block scheduler keeps the warps in flight on one window of the order.
-// It is held to 32 registers with bf16 rows, so that an SM holds its full
-// 64 warps (the gather's latency bounds it); f32 rows would spill there.
-// Without a walk order (kOrdered false) a warp's row is its index, which
-// the compiler recomputes instead of holding: one register fewer at that
-// cap, which held node order's bf16 walk at the parent design's time.
+// the 16-byte path; spmm_walk.cuh, which the slab_variant probe runs too)
+// takes a warp a hub segment, then warp n_seg + p takes position p
+// (walk_position): the gathers of 1 KB rows keep it busy, and the
+// hardware's block scheduler keeps the warps in flight on one window of the
+// order. It is held to kWholeWarpBlocks (32 registers with bf16 rows).
 //
 // The lane groups' walk (kLanes < 32) is bound instead by each row's chain
 // of dependent loads (its position's row, its row pointers, its edge ids,
@@ -504,7 +349,7 @@ __device__ __forceinline__ void spmm_range(const int* __restrict__ src,
 // change, one warp a row), where a tighter cap spills the staged rows.
 template <typename TIn, typename TOut, bool kVec8, int kLanes, bool kOrdered>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32,
-                                  kLanes == 32 ? (sizeof(TIn) == 2 ? 8 : 1)
+                                  kLanes == 32 ? kWholeWarpBlocks<TIn>
                                                : (sizeof(TIn) == 2 ? 4 : 3))
 csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                 const float* __restrict__ v, const TIn* __restrict__ x,
@@ -520,13 +365,8 @@ csr_spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ src,
                                             D);
       return;
     }
-    if (w - n_seg >= n_rows) return;  // the whole warp leaves together
-    const int row = kOrdered ? __ldg(schedule + w - n_seg) : w - n_seg;
-    const int start = indptr[row];
-    const int end = indptr[row + 1];
-    if (end - start > max_edges) return;
-    spmm_range<TIn, TOut, kVec8, kLanes>(src, v, x, out + static_cast<size_t>(row) * F, start,
-                                         end, H, D);
+    walk_position<Source::kGather, TIn, TOut, kVec8, kOrdered>(
+        w, n_seg, n_rows, indptr, schedule, src, v, x, out, max_edges, H, D);
   } else {
     if (w >= walkers) return;
     const int lane = threadIdx.x & 31;

@@ -64,7 +64,7 @@ _SIGNATURES = {
         "sgf_gather_rows_resident": [_I, _I],
         "sgf_gather_tiles": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sgf_gather_tiles_resident": [_I, _I],
-        "sgf_slab_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "sgf_slab_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
     "linear_attention_bwd": {
         "sgf_la_bwd_reduce": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,

@@ -7,23 +7,29 @@ of its body (``make_variant(mode)``, called at the script's line 145):
 first ``block_rows`` rows of the slab: wrong results, timing only) and
 ``no_src_matmul`` (no source selector matmul). On the card the same question
 is how much of ``csr_spmm``'s time is the source gather and how much the
-row walk. :func:`slab_variant` runs one templated row kernel
-(``csrc/microbench.cu``, ``slab_variant_kernel``, the row walk of
-``csrc/spmm.cu``) on x [N, F] bf16 with an f32 result, as the TPU variants
-write:
+row walk. :func:`slab_variant` runs ``csr_spmm``'s own row walk of the whole
+warp (``csrc/spmm_walk.cuh``, which ``csrc/spmm.cu`` runs; the probe's entry
+is ``slab_variant_kernel`` in ``csrc/microbench.cu``, at ``csr_spmm``'s
+launch bounds) on x [N, F] bf16 with an f32 result, as the TPU variants
+write, in the graph's walk order where it is given (``Graph.schedule``, as
+``csr_spmm`` walks), else in node order; the result is the same bit for bit
+in either:
 
 - ``prod``: ``out[i] = sum_e w_e * x[src_e]``, ``A_norm @ x``, bitwise
   ``csr_spmm`` of x (bf16 to f32 is exact) on a graph without hub rows
   (none above ``kernels.spmm.HUB_EDGES`` in-edges, as on the arxiv graph)
   wherever ``csr_spmm`` walks a row with the whole warp (F > 128, as at the
   model's F = 256; narrower rows it takes in lane groups, which add the
-  same products in another order);
+  same products in another order). The probe walks every row with one
+  warp, so on a graph with hub rows, which ``csr_spmm`` cuts into segments,
+  prod is held to its plain version and not to ``csr_spmm``;
 - ``static_sub``: ``out[i] = sum_e w_e * x[src_e % 128]``, 128 the TPU's
   block_rows: the gather hits 128 rows that stay cached;
 - ``no_src_matmul``: ``out[i] = sum_e (1.0001 * w_e) * x[i]``: no gather, the
   row walk alone.
 
-On the card, on the arxiv-shaped graph:
+On the card, on the arxiv-shaped graph, each mode in the walk order and in
+node order beside ``csr_spmm`` in the same order:
 
     python -m sgformer_tpu_torch.microbench.slab_variants
 """
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from sgformer_tpu_torch import kernels
-from sgformer_tpu_torch.kernels import _build
+from sgformer_tpu_torch.kernels import _build, spmm
 from sgformer_tpu_torch.utils import measure
 
 MODES = ("prod", "static_sub", "no_src_matmul")
@@ -66,13 +72,17 @@ def slab_variant_plain(x: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.
 
 
 def slab_variant(x: torch.Tensor, indptr: torch.Tensor, edge_src: torch.Tensor,
-                 edge_dst: torch.Tensor, weight: torch.Tensor, mode: str) -> torch.Tensor:
+                 edge_dst: torch.Tensor, weight: torch.Tensor, mode: str,
+                 schedule: torch.Tensor | None = None) -> torch.Tensor:
     """One mode of the row kernel on the dst-sorted CSR (indptr [N+1],
     edge_src and edge_dst [E] int32, weight [E] float32). x: [N, F] bfloat16
-    (F % 8 == 0 on the card); returns [N, F] float32. ``edge_dst`` is read
-    only by the plain version."""
+    (F % 8 == 0 on the card); returns [N, F] float32. ``schedule``: the CSR's
+    walk order (``Graph.schedule``), checked as ``csr_spmm`` checks it, or
+    None for node order; the result is the same bit for bit. ``edge_dst``
+    is read only by the plain version, ``schedule`` only by the kernel."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    spmm._check_schedule(schedule, indptr)
     n = indptr.shape[0] - 1
     if x.dim() != 2 or x.shape[0] != n or x.dtype != torch.bfloat16:
         raise TypeError(f"x must be [{n}, F] bfloat16, got {tuple(x.shape)} {x.dtype}")
@@ -95,6 +105,7 @@ def slab_variant(x: torch.Tensor, indptr: torch.Tensor, edge_src: torch.Tensor,
         err = _build.library("microbench").sgf_slab_variant(
             indptr.data_ptr(), edge_src.data_ptr(), weight.data_ptr(), x.data_ptr(),
             out.data_ptr(), n, f, MODES.index(mode),
+            schedule.data_ptr() if schedule is not None else None,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "slab_variant")
         kernels.probe_launches["slab_variant"] += 1
@@ -108,16 +119,18 @@ def make_x(num_nodes: int, device, f: int = F, seed: int = 0) -> torch.Tensor:
     return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16)
 
 
-def run(graph, x: torch.Tensor, iters: int = 20) -> dict:
-    """Time each mode and its plain version on ``graph``'s CSR; per mode
-    ms, ns an edge and the bound (prod: x read once, the f32 result written
-    once, the CSR arrays read once; static_sub reads 128 rows of x; no_src
-    reads x once)."""
+def run(graph, x: torch.Tensor, iters: int = 20, walk: bool = True) -> dict:
+    """Time each mode and its plain version on ``graph``'s CSR, in the
+    graph's walk order (``walk``, node order where the graph has none) or in
+    node order; per mode ms, ns an edge and the bound (prod: x read once,
+    the f32 result written once, the CSR arrays read once; static_sub reads
+    128 rows of x; no_src reads x once)."""
     csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
+    schedule = graph.schedule if walk else None
     n, e, f = graph.num_nodes, graph.num_edges, x.shape[1]
     out = {}
     for mode in MODES:
-        ms = measure.time_ms(lambda: slab_variant(x, *csr, mode), iters)
+        ms = measure.time_ms(lambda: slab_variant(x, *csr, mode, schedule), iters)
         plain_ms = measure.time_ms(
             lambda: slab_variant_plain(x, graph.edge_src, graph.edge_dst, graph.gcn_weight,
                                        mode), iters)
@@ -144,23 +157,31 @@ def main() -> int:
     csr = (graph.indptr, graph.edge_src, graph.edge_dst, graph.gcn_weight)
     plan = (graph.hub_segments, graph.hub_edges)
     for mode in MODES:
-        got = slab_variant(x, *csr, mode)
+        got = slab_variant(x, *csr, mode, graph.schedule)
         err, scale = measure.rel_err(got, slab_variant_plain(
             x, graph.edge_src, graph.edge_dst, graph.gcn_weight, mode))
         print(f"{mode} vs plain: max |diff| {err:.3e} (largest magnitude {scale:.3e})")
         if err > REL_TOL * scale:
             print(f"{mode} disagrees with its plain version", file=sys.stderr)
             return 1
+        if not torch.equal(got, slab_variant(x, *csr, mode)):
+            print(f"{mode} differs between the walk order and node order", file=sys.stderr)
+            return 1
         if mode == "prod" and not torch.equal(got, csr_spmm(x.float(), *csr, *plan)):
             print("prod is not bitwise csr_spmm", file=sys.stderr)
             return 1
-    results = run(graph, x)
-    spmm_ms = measure.time_ms(lambda: csr_spmm(x, *csr, *plan))
-    for mode, r in results.items():
-        print(f"{mode}: {r['ms']:7.4f} ms ({r['ns_per_edge']:.4f} ns/edge; plain "
-              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']})",
+    spmm_ms = {}
+    for order, walk in (("walk order", True), ("node order", False)):
+        results = run(graph, x, walk=walk)
+        spmm_ms[order] = measure.time_ms(lambda: csr_spmm(
+            x, *csr, *plan, schedule=graph.schedule if walk else None))
+        for mode, r in results.items():
+            print(f"{order} {mode}: {r['ms']:7.4f} ms ({r['ns_per_edge']:.4f} ns/edge; plain "
+                  f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by {r['bound_by']})",
+                  flush=True)
+        print(f"{order} csr_spmm bf16 (bf16 result): {spmm_ms[order]:7.4f} ms; gather share "
+              f"of prod {1 - results['no_src_matmul']['ms'] / results['prod']['ms']:.3f}",
               flush=True)
-    print(f"csr_spmm bf16 (bf16 result): {spmm_ms:7.4f} ms", flush=True)
     return 0
 
 

@@ -1906,22 +1906,26 @@ def test_gather_plans_hold_on_the_card(cuda, probe):
         assert mod.card_plan(n, mod.F, s, 0) == mod.plan(n, mod.F, s, sms)
 
 
+@pytest.mark.parametrize("order", ["walk", "node"])
 @pytest.mark.parametrize("mode", ["prod", "static_sub", "no_src_matmul"])
 @pytest.mark.parametrize("width", [256, 520, 64])
-def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
-    """Each mode against its plain formula (f32 order, and no_src_matmul's
-    fused multiply-add); prod is bitwise ``csr_spmm``'s walk of the whole
-    warp on the same x: ``csr_spmm`` itself above 128 columns, and at 64
-    (which ``csr_spmm`` takes in lane groups) ``csr_spmm`` of x in rows off
-    16-byte alignment, whose one-column walk over the whole warp chains
-    each column's products in the same edge order."""
+def test_slab_variant_kernel_matches_its_formula(cuda, mode, width, order):
+    """Each mode, in the graph's walk order and in node order, against its
+    plain formula (f32 order, and no_src_matmul's fused multiply-add); prod
+    is bitwise ``csr_spmm``'s walk of the whole warp on the same x in the
+    same order: ``csr_spmm`` itself above 128 columns, and at 64 (which
+    ``csr_spmm`` takes in lane groups) ``csr_spmm`` of x in rows off 16-byte
+    alignment, whose one-column walk over the whole warp chains each
+    column's products in the same edge order."""
     from sgformer_tpu_torch.microbench import slab_variants
 
     g = _graph(cuda)
+    schedule = g.schedule if order == "walk" else None
+    assert g.schedule is not None
     x = slab_variants.make_x(g.num_nodes, cuda, f=width)
     csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
     before = kernels.probe_launches["slab_variant"]
-    got = slab_variants.slab_variant(x, *csr, mode)
+    got = slab_variants.slab_variant(x, *csr, mode, schedule)
     assert kernels.probe_launches["slab_variant"] == before + 1
     _check_rel(got, slab_variants.slab_variant_plain(x, g.edge_src, g.edge_dst,
                                                      g.gcn_weight, mode), slab_variants.REL_TOL)
@@ -1932,7 +1936,39 @@ def test_slab_variant_kernel_matches_its_formula(cuda, mode, width):
             whole_warp = flat[1:].view(x.shape).copy_(x.float())
             assert spmm_kernel.walk_design(width, whole_warp.data_ptr() % 16 == 0).startswith(
                 "1 group of 32 lanes")
-        assert torch.equal(got, csr_spmm(whole_warp, *csr))
+        assert torch.equal(got, csr_spmm(whole_warp, *csr, schedule=schedule))
+
+
+@pytest.mark.parametrize("mode", ["prod", "static_sub", "no_src_matmul"])
+@pytest.mark.parametrize("width", [256, 520, 64])
+def test_slab_variant_is_the_same_in_both_orders(cuda, mode, width):
+    """Each row is one warp's fmaf chain in edge order wherever the walk
+    takes it, so every mode gives the same bits in the walk order and in
+    node order, on every call."""
+    from sgformer_tpu_torch.microbench import slab_variants
+
+    g = _graph(cuda)
+    x = slab_variants.make_x(g.num_nodes, cuda, f=width)
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    walk = slab_variants.slab_variant(x, *csr, mode, g.schedule)
+    assert torch.equal(walk, slab_variants.slab_variant(x, *csr, mode))
+    assert torch.equal(walk, slab_variants.slab_variant(x, *csr, mode, g.schedule))
+
+
+@pytest.mark.parametrize("order", ["walk", "node"])
+@pytest.mark.parametrize("mode", ["prod", "static_sub", "no_src_matmul"])
+def test_slab_variant_walks_a_hub_row_with_one_warp(cuda, mode, order):
+    """A row of 10,000 in-edges, which ``csr_spmm`` cuts into hub segments,
+    is one warp's walk in the probe: each mode against its plain version,
+    in both orders."""
+    from sgformer_tpu_torch.microbench import slab_variants
+
+    g = _hub_graph(cuda)
+    x = slab_variants.make_x(g.num_nodes, cuda, f=256)
+    got = slab_variants.slab_variant(x, g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, mode,
+                                     g.schedule if order == "walk" else None)
+    _check_rel(got, slab_variants.slab_variant_plain(x, g.edge_src, g.edge_dst,
+                                                     g.gcn_weight, mode), slab_variants.REL_TOL)
 
 
 def _batch_edges(n=1500):

@@ -86,7 +86,7 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
 
     assert sorted(os.listdir(csrc)) == ["graph_kernels.cpp", "linear_attention.cu",
                                         "linear_attention_bwd.cu", "microbench.cu", "spmm.cu",
-                                        "tensor_core.cuh"]
+                                        "spmm_walk.cuh", "tensor_core.cuh"]
     assert sorted(f"{name}.cu" for name in _build.SOURCES) == sorted(
         f for f in os.listdir(csrc) if f.endswith(".cu"))
     # the sources and the headers they include are package data
@@ -97,11 +97,36 @@ def test_kernel_sources_ship_with_the_package(tmp_path, monkeypatch):
         with open(os.path.join(csrc, f), "rb") as src, open(tmp_path / f, "wb") as dst:
             dst.write(src.read())
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
-    before = [_build._target(name)[1] for name in ("linear_attention", "linear_attention_bwd")]
-    with open(tmp_path / "tensor_core.cuh", "a") as f:
-        f.write("\n")
-    after = [_build._target(name)[1] for name in ("linear_attention", "linear_attention_bwd")]
-    assert all(a != b for a, b in zip(after, before))
+    for header, users in (("tensor_core.cuh", ("linear_attention", "linear_attention_bwd")),
+                          ("spmm_walk.cuh", ("spmm", "microbench"))):
+        before = [_build._target(name)[1] for name in users]
+        with open(tmp_path / header, "a") as f:
+            f.write("\n")
+        after = [_build._target(name)[1] for name in users]
+        assert all(a != b for a, b in zip(after, before))
+
+
+def test_the_row_walk_has_one_source():
+    """The whole warp's CSR row walk is defined in ``spmm_walk.cuh`` alone:
+    ``csr_spmm`` (``spmm.cu``) and the ``slab_variant`` probe
+    (``microbench.cu``) include it, and neither defines a walk of its own;
+    the probe reads no row pointers itself."""
+    csrc = os.path.join(PKG_DIR, "csrc")
+    code = {}
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, name)) as f:
+                code[name] = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+    walk = r"__device__\s+__forceinline__\s+void\s+(spmm_edges|walk_position)\s*\("
+    assert sorted(set(re.findall(walk, code["spmm_walk.cuh"]))) == ["spmm_edges",
+                                                                     "walk_position"]
+    assert [n for n, c in code.items() if re.search(walk, c)] == ["spmm_walk.cuh"]
+    for name in ("spmm.cu", "microbench.cu"):
+        assert '#include "spmm_walk.cuh"' in code[name]
+    assert "walk_position<Source::kGather" in code["spmm.cu"]
+    probe = code["microbench.cu"][code["microbench.cu"].index("slab_variant_kernel("):]
+    assert "rw::walk_position<kSrc" in probe
+    assert not re.search(r"indptr\s*\[|__shfl_sync", probe)
 
 
 def test_host_sampler_is_the_ports_own():

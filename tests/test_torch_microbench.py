@@ -21,6 +21,7 @@ from sgformer_tpu.kernels.slabs import build_slabs
 
 from sgformer_tpu_torch import kernels
 from sgformer_tpu_torch.graph import preprocess_graph
+from sgformer_tpu_torch.kernels.spmm import csr_spmm
 from sgformer_tpu_torch.microbench import dma_gather, dma_tile, slab_variants
 from sgformer_tpu_torch.utils import measure
 
@@ -295,11 +296,13 @@ def variant_problem():
     return g, x
 
 
-def test_slab_variant_prod_matches_jax_slab_spmm_interpret(variant_problem):
+@pytest.mark.parametrize("order", ["node", "walk"])
+def test_slab_variant_prod_matches_jax_slab_spmm_interpret(variant_problem, order):
     """prod against the JAX meta-mode slab SpMM (``_slab_kernel`` for the
     intra-slab edges, ``_spmm_kernel`` for the cross-slab ones, the
     self-loop term), f32 in interpret mode, on the same edges, weights and
-    (bf16-valued) x: A_norm @ x, summation order apart."""
+    (bf16-valued) x: A_norm @ x, summation order apart; in node order and
+    with the graph's walk order in hand."""
     g, x = variant_problem
     s, d, w = (t.numpy() for t in (g.edge_src, g.edge_dst, g.gcn_weight))
     plan = build_slabs(s, d, w, g.num_nodes, window_rows=64, block_rows=64, chunk_edges=128,
@@ -307,9 +310,37 @@ def test_slab_variant_prod_matches_jax_slab_spmm_interpret(variant_problem):
     assert plan.fwd.meta is not None and plan.fwd.remote is not None
     want = np.asarray(slab_spmm(jnp.asarray(x.float().numpy()), plan,
                                 compute_dtype=jnp.float32, interpret=True))
-    got = slab_variants.slab_variant(x, g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, "prod")
+    assert g.schedule is not None
+    got = slab_variants.slab_variant(x, g.indptr, g.edge_src, g.edge_dst, g.gcn_weight, "prod",
+                                     schedule=g.schedule if order == "walk" else None)
     assert got.dtype == torch.float32
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode", slab_variants.MODES)
+def test_slab_variant_is_the_same_in_either_order(variant_problem, mode):
+    g, x = variant_problem
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    assert torch.equal(slab_variants.slab_variant(x, *csr, mode, schedule=g.schedule),
+                       slab_variants.slab_variant(x, *csr, mode))
+
+
+def test_slab_variant_refuses_a_bad_walk_order(variant_problem):
+    """A walk order of the wrong type, length or shape is refused with
+    ``csr_spmm``'s TypeError, one on another device with its ValueError."""
+    g, x = variant_problem
+    csr = (g.indptr, g.edge_src, g.edge_dst, g.gcn_weight)
+    for bad in (g.schedule.long(), g.schedule[1:], g.schedule.reshape(2, -1),
+                g.schedule.numpy()):
+        with pytest.raises(TypeError, match="walk order"):
+            slab_variants.slab_variant(x, *csr, "prod", schedule=bad)
+        with pytest.raises(TypeError, match="walk order"):
+            csr_spmm(x, *csr, schedule=bad)
+    elsewhere = g.schedule.to("meta")
+    with pytest.raises(ValueError, match="schedule on meta"):
+        slab_variants.slab_variant(x, *csr, "static_sub", schedule=elsewhere)
+    with pytest.raises(ValueError, match="schedule on meta"):
+        csr_spmm(x, *csr, schedule=elsewhere)
 
 
 def _bf16(a):
